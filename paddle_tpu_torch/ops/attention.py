@@ -1,0 +1,163 @@
+"""Paged attention ops of the serving path.
+
+Same signatures and layouts as `paddle_tpu.ops.attention`:
+
+  * `paged_decode_attention(q [B, H, Dh], k_blocks, v_blocks,
+    block_tables [B, M], ctx_lens [B])` — one query per sequence over its
+    own block table, masked by LENGTH (positions >= ctx_lens[b] never
+    count);
+  * `ragged_prefill_attention(q [T, H, Dh], k_blocks, v_blocks,
+    block_tables [B, M], seg [T], pos [T])` — the segment-causal
+    contract of `ops/pallas/unified_attention.py`: row t attends the
+    keys of table row seg[t] at cache positions 0..pos[t]; pad rows
+    (pos == -1) attend nothing and their output is finite garbage the
+    caller discards.
+
+Pools are one layer's `[N, BS, H, Dh]` tensor, or a `QuantizedKV` (int8
+codes plus per-vector scales `[N, BS, H]`). Dispatch is by device: a
+CUDA query launches the Hopper kernel (`ops.kernels`, which raises on
+anything it does not take); a CPU query runs the plain PyTorch version
+below. There is no fallback from the kernel to the plain version.
+
+The plain versions are the reference's XLA paths written in torch, in
+the same order of operations: one gather per slot ROW (never per
+token), heads major, scores cast to float32 after the product, a
+softmax in float32 cast back to the compute dtype before the value
+product. The kernels instead accumulate every product in float32 and
+round only the output (see csrc/unified_attention.cu), so in bf16 the
+two differ by the rounding of the scores and weights.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import kernels
+
+NEG_INF = -1e30
+
+
+def is_quantized(kv):
+    """Duck-typed QuantizedKV check."""
+    return hasattr(kv, "codes") and hasattr(kv, "scales")
+
+
+def _route(q, *tensors):
+    """True -> launch the kernel (q on CUDA); False -> plain (q on the
+    CPU). Any other device mix is refused."""
+    for t in tensors:
+        if t.device.type != q.device.type:
+            raise ValueError(f"attention inputs span devices: q on "
+                             f"{q.device}, an operand on {t.device}")
+    if q.device.type == "cuda":
+        return True
+    if q.device.type == "cpu":
+        return False
+    raise ValueError(f"no attention path for device {q.device}")
+
+
+def _operands(kv):
+    return (kv.codes, kv.scales) if is_quantized(kv) else (kv,)
+
+
+def _scale(Dh, scale):
+    return (Dh ** -0.5) if scale is None else float(scale)
+
+
+def paged_decode_attention(q, k_blocks, v_blocks, block_tables, ctx_lens,
+                           scale=None):
+    """Single-token decode attention over a paged KV cache. Returns
+    [B, H, Dh] in q's dtype (see module docstring)."""
+    sc = _scale(q.shape[-1], scale)
+    if _route(q, *_operands(k_blocks), *_operands(v_blocks), block_tables,
+              ctx_lens):
+        return kernels.paged_decode(q.contiguous(), k_blocks, v_blocks,
+                                    block_tables, ctx_lens, sc)
+    return paged_decode_attention_plain(q, k_blocks, v_blocks, block_tables,
+                                        ctx_lens, sc)
+
+
+def paged_decode_attention_plain(q, k_blocks, v_blocks, block_tables,
+                                 ctx_lens, scale=None):
+    """The plain PyTorch version of K2: gather [B, M*BS] keys per row,
+    mask by length, softmax. int8 pools gather codes and fold the
+    per-vector scales into the score and probability tensors."""
+    quant = is_quantized(k_blocks)
+    kcodes = k_blocks.codes if quant else k_blocks
+    B, H, Dh = q.shape
+    _, BS, _, _ = kcodes.shape
+    M = block_tables.shape[1]
+    sc = _scale(Dh, scale)
+    tb = block_tables.long()
+    k = kcodes[tb].permute(0, 3, 1, 2, 4).reshape(B, H, M * BS, Dh)
+    vcodes = v_blocks.codes if quant else v_blocks
+    v = vcodes[tb].permute(0, 3, 1, 2, 4).reshape(B, H, M * BS, Dh)
+    s = torch.einsum("bhd,bhsd->bhs", q, k.to(q.dtype)).float()
+    if quant:  # per-KEY scale rides the score tensor post-contraction
+        ks = k_blocks.scales[tb].reshape(B, M * BS, H).permute(0, 2, 1)
+        s = s * ks.float()
+    s = s * sc
+    valid = (torch.arange(M * BS, device=q.device)[None, :]
+             < ctx_lens[:, None])
+    s = s.masked_fill(~valid[:, None, :], NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    if quant:
+        vs = v_blocks.scales[tb].reshape(B, M * BS, H).permute(0, 2, 1)
+        w = w * vs.to(q.dtype)
+    return torch.einsum("bhs,bhsd->bhd", w, v.to(q.dtype))
+
+
+def ragged_prefill_attention(q, k_blocks, v_blocks, block_tables, seg, pos,
+                             scale=None):
+    """Packed ragged prefill attention over a paged KV cache (the
+    segment-causal contract; see module docstring). Returns [T, H, Dh]
+    in q's dtype. The kernel takes the per-token seg/pos directly, so
+    the packing needs no query-tile alignment."""
+    sc = _scale(q.shape[-1], scale)
+    if _route(q, *_operands(k_blocks), *_operands(v_blocks), block_tables,
+              seg, pos):
+        return kernels.ragged_stream(q.contiguous(), k_blocks, v_blocks,
+                                     block_tables, seg, pos, sc)
+    return ragged_prefill_attention_plain(q, k_blocks, v_blocks,
+                                          block_tables, seg, pos, sc)
+
+
+def ragged_prefill_attention_plain(q, k_blocks, v_blocks, block_tables,
+                                   seg, pos, scale=None):
+    """The plain PyTorch version of K1: gather ONE [B, M*BS] copy per
+    slot row, score every query against every row head-major, and apply
+    the row-AND-position mask before a joint softmax over all rows —
+    exactly the per-row softmax, because only the query's own row has
+    unmasked columns."""
+    quant = is_quantized(k_blocks)
+    kcodes = k_blocks.codes if quant else k_blocks
+    vcodes = v_blocks.codes if quant else v_blocks
+    T, H, Dh = q.shape
+    _, BS, _, _ = kcodes.shape
+    B, M = block_tables.shape
+    sc = _scale(Dh, scale)
+    tb = block_tables.long()
+    k = kcodes[tb].reshape(B, M * BS, H, Dh).permute(2, 0, 1, 3) \
+        .to(q.dtype)                                      # [H, B, C, Dh]
+    v = vcodes[tb].reshape(B, M * BS, H, Dh).permute(2, 0, 1, 3) \
+        .to(q.dtype)
+    qh = q.permute(1, 0, 2)                               # [H, T, Dh]
+    s = torch.einsum("htd,hbcd->htbc", qh, k).float() * sc
+    if quant:  # per-KEY scale rides the score tensor post-contraction
+        ks = k_blocks.scales[tb].reshape(B, M * BS, H).permute(2, 0, 1)
+        s = s * ks[:, None].float()
+    own = seg.long()[:, None] == torch.arange(B, device=q.device)[None, :]
+    ok = (torch.arange(M * BS, device=q.device)[None, :]
+          <= pos.long()[:, None])                         # [T, M*BS]
+    mask = own[:, :, None] & ok[:, None, :]               # [T, B, M*BS]
+    s = s.masked_fill(~mask[None], NEG_INF)
+    w = torch.softmax(s.reshape(H, T, B * M * BS), dim=-1) \
+        .reshape(H, T, B, M * BS).to(q.dtype)
+    if quant:  # per-VALUE scale rides the prob tensor
+        vs = v_blocks.scales[tb].reshape(B, M * BS, H).permute(2, 0, 1)
+        w = w * vs[:, None].to(q.dtype)
+    return torch.einsum("htbc,hbcd->htd", w, v).permute(1, 0, 2)
+
+
+__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
+           "ragged_prefill_attention", "ragged_prefill_attention_plain",
+           "is_quantized", "NEG_INF"]

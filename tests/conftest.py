@@ -43,6 +43,9 @@ def pytest_configure(config):
     # (served-traffic sweep etc.) that only manual/chip sessions run
     config.addinivalue_line(
         "markers", "slow: bench-sized test; tier-1 skips via -m 'not slow'")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA card (the port's kernels); skips "
+        "without one")
 
 
 @pytest.fixture(autouse=True)
