@@ -31,14 +31,41 @@ non-zero before the result line:
                before each measured pass and read just after: K1 must
                have run >= 12 x prefill dispatches and K2 >= 12 x decode
                steps;
-  6. the kernels line (JSON), the card line, and as the last line
+  3b. flash  — K4 (forward with LSE), K6 (delta) and K9 (fused
+               backward) against their plain versions on the same inputs,
+               bf16 and f32: at the training path's shape (B=16, H=12,
+               S=1024, D=64, causal) and a ragged one (B=2, H=4, S=1000,
+               D=32, causal and not). Errors are relative to the plain
+               output's largest magnitude: 2e-2 for out/dq/dk/dv in bf16,
+               1e-4 for everything else. Times at the main shape in bf16:
+               the kernel, the plain version, and as `library_ms` one
+               PyTorch call for the same function (K4: the forward of
+               F.scaled_dot_product_attention; K9: its backward through
+               torch.autograd.grad; K6: torch.linalg.vecdot) — none of
+               them on the port's path;
+  4c. train parity — GPT-2 small, 12 layers, float32 (TF32 off), batch
+               2 x 256, dropout 0: two AdamW steps (lr 1e-4, wd 0.01) on
+               the card (kernels) and on the CPU (plain versions) from the
+               same weights; loss within 1e-4 relative at each step, each
+               gradient within 1e-3 of its largest magnitude, parameters
+               within 2 * lr * steps + 1e-6 after two steps; K4, K6 and K9
+               must each launch exactly 12 times per step on the card;
+  6. training — GPT-2 small, bf16 compute on float32 masters (the
+               reference bench's mixed-precision step), batch 16 x 1024,
+               AdamW: 2 warm and 5 measured steps on one fixed batch;
+               tokens/s, ms per step (CUDA events), peak memory, first and
+               last loss. Fails on a non-finite loss, a last loss not
+               below the first, or K4/K6/K9 launching other than
+               12 x steps times in the measured steps;
+  7. the kernels line (JSON), the card line, and as the last line
      {"ok": true, "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; only the K/V positions this
 run's lengths reach) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (the
 H100 SXM bf16 dense peak, applied to the float32 SIMT kernels too), from
-this run's inputs.
+this run's inputs. Flash FLOPs count only the (query, key) pairs the
+causal mask leaves visible.
 """
 import json
 import os
@@ -54,7 +81,12 @@ PEAK_FLOPS = 989e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_REPLACES = "paddle_tpu/ops/pallas/unified_attention.py:206"
 K2_REPLACES = "paddle_tpu/ops/pallas/unified_attention.py:327"
+FLASH_REPLACES = {"flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:228",
+                  "flash_delta": "paddle_tpu/ops/pallas/flash_attention.py:483",
+                  "flash_bwd": "paddle_tpu/ops/pallas/flash_attention.py:504"}
 SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"
+FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 DEV = "cuda"  # the card every phase runs on (the CPU is the other side
 # of the phase 4 comparison)
 
@@ -276,6 +308,209 @@ def _bound(nbytes, flops):
             "bytes": int(nbytes), "flops": int(flops)}
 
 
+# ---- phase 3b: flash kernels ----------------------------------------------
+
+def _pairs(sq, sk, causal):
+    """(query, key) pairs the mask leaves visible (bottom-right causal)."""
+    if not causal:
+        return sq * sk
+    return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
+
+
+def _rel_err(out, ref):
+    """(max abs error, that error over the plain output's max abs)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    return err, err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
+    """K4, K6 and K9 against their plain versions (computed in float32
+    from the same inputs); with `timed`, the kernel, plain and library
+    times and the bounds. Returns {kernel name: row} or fails."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=DEV)
+                   .to(dtype) for _ in range(4))
+    sc = d ** -0.5
+    out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+    delta = kernels.flash_delta(out, do)
+    grads = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal)
+    delta_p = pf.flash_delta_plain(out.float(), f[3])
+    grads_p = pf.flash_bwd_plain(f[0], f[1], f[2], f[3], lse, delta, sc,
+                                 causal)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    checks = {"out": (out, out_p, tol), "lse": (lse, lse_p, 1e-4),
+              "delta": (delta, delta_p, 1e-4)}
+    for name, a, p in zip(("dq", "dk", "dv"), grads, grads_p):
+        checks[name] = (a, p, tol)
+    errs = {}
+    tag = (f"B{b} H{h} S{s} D{d} {'causal' if causal else 'full'} "
+           f"{str(dtype).split('.')[-1]}")
+    for name, (a, p, t) in checks.items():
+        err, rel = _rel_err(a, p)
+        errs[name] = err
+        if not torch.isfinite(a).all().item() or rel > t:
+            fail(f"phase 3b {tag}: {name} disagrees with plain (max abs "
+                 f"err {err:.3g}, {rel:.3g} of its magnitude > {t})")
+    rows = {"flash_fwd": {"max_abs_err": max(errs["out"], errs["lse"])},
+            "flash_delta": {"max_abs_err": errs["delta"]},
+            "flash_bwd": {"max_abs_err": max(errs["dq"], errs["dk"],
+                                             errs["dv"])}}
+    say(f"phase 3b {tag}: max abs err out {errs['out']:.3g} lse "
+        f"{errs['lse']:.3g} delta {errs['delta']:.3g} dq {errs['dq']:.3g} "
+        f"dk {errs['dk']:.3g} dv {errs['dv']:.3g}")
+    if not timed:
+        return rows
+    del out_p, lse_p, delta_p, grads_p, f
+    fw, dl, bw = rows["flash_fwd"], rows["flash_delta"], rows["flash_bwd"]
+    fw["ms"] = timer.ms(lambda: kernels.flash_fwd(q, k, v, sc, causal))
+    fw["plain_ms"] = timer.ms(lambda: pf.flash_fwd_lse_plain(
+        q, k, v, sc, causal), reps=10)
+    fw["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, scale=sc))
+    dl["ms"] = timer.ms(lambda: kernels.flash_delta(out, do))
+    dl["plain_ms"] = timer.ms(lambda: pf.flash_delta_plain(out, do))
+    dl["library_ms"] = timer.ms(lambda: torch.linalg.vecdot(out, do))
+    bw["ms"] = timer.ms(lambda: kernels.flash_bwd(q, k, v, do, lse, delta,
+                                                  sc, causal))
+    bw["plain_ms"] = timer.ms(lambda: pf.flash_bwd_plain(
+        q, k, v, do, lse, delta, sc, causal), reps=10)
+    lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=causal,
+                                        scale=sc)
+    bw["library_ms"] = timer.ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True))
+    e, bh, pairs = q.element_size(), b * h, _pairs(s, s, causal)
+    vec = bh * s * d * e  # bytes of one [B, H, S, D] tensor
+    fw.update(_bound(4 * vec + 4 * bh * s, 4 * bh * d * pairs))
+    dl.update(_bound(2 * vec + 4 * bh * s, 2 * bh * s * d))
+    bw.update(_bound(7 * vec + 8 * bh * s, 10 * bh * d * pairs))
+    for name, r in rows.items():
+        say(f"phase 3b {name} {tag}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+# ---- phases 4c and 6: training ---------------------------------------------
+
+def _batch(torch, cfg, b, s, seed, dev):
+    rs = np.random.RandomState(seed)
+    return {"input_ids": torch.from_numpy(rs.randint(
+                0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev),
+            "labels": torch.from_numpy(rs.randint(
+                0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)}
+
+
+def amp_train_step(torch, cfg, batch, lr=1e-4):
+    """The reference bench's mixed-precision step (bench.py:179-188) on
+    the card: float32 masters, bf16 copies made inside the autograd
+    graph, the loss cast to float32, gradients landing on the masters,
+    AdamW (wd 0.01) in float32. Returns step() -> the loss tensor."""
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+
+    loss_fn, init_params = build_train_step(cfg, device=DEV)
+    masters = init_params()
+    opt = AdamW(lr, weight_decay=0.01, device=DEV)
+    state = opt.functional_init(masters)
+
+    def step():
+        low = {n: p.to(torch.bfloat16) for n, p in masters.items()}
+        loss = loss_fn(low, batch).float()
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        opt.functional_update(masters, dict(zip(masters, grads)), state)
+        return loss.detach()
+
+    return step
+
+
+def train_parity(torch, cfg, lr=1e-4, steps=2):
+    """Phase 4c: float32 AdamW steps on the card and on the CPU from the
+    same weights. Returns the worst (loss, gradient, parameter)
+    differences."""
+    from paddle_tpu_torch.models import build_train_step
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    loss_fn, init_params = build_train_step(cfg, device=DEV)
+    params = {DEV: init_params()}
+    params["cpu"] = {n: p.detach().cpu().requires_grad_(True)
+                     for n, p in params[DEV].items()}
+    opts = {d: AdamW(lr, weight_decay=0.01, device=d) for d in params}
+    states = {d: opts[d].functional_init(params[d]) for d in params}
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for step in range(steps):
+        out = {}
+        for d in (DEV, "cpu"):
+            batch = _batch(torch, cfg, 2, 256, 11, d)
+            kernels.reset_launch_counts()
+            loss = loss_fn(params[d], batch)
+            grads = torch.autograd.grad(loss, list(params[d].values()))
+            counts = kernels.launch_counts()
+            opts[d].functional_update(params[d], dict(zip(params[d], grads)),
+                                      states[d])
+            out[d] = (loss.item(), grads, counts)
+        for n in FLASH:
+            if out[DEV][2][n] != cfg.num_layers:
+                fail(f"phase 4c step {step}: {n} launched {out[DEV][2][n]} "
+                     f"times, expected {cfg.num_layers}")
+        rel = abs(out[DEV][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        worst["loss"] = max(worst["loss"], rel)
+        if rel > 1e-4:
+            fail(f"phase 4c step {step}: loss {out[DEV][0]} vs CPU "
+                 f"{out['cpu'][0]} (relative {rel:.3g} > 1e-4)")
+        for name, a, c in zip(params[DEV], out[DEV][1], out["cpu"][1]):
+            _err, r = _rel_err(a.cpu(), c)
+            worst["grad"] = max(worst["grad"], r)
+            if r > 1e-3:
+                fail(f"phase 4c step {step}: gradient {name} differs by "
+                     f"{r:.3g} of its magnitude (> 1e-3)")
+    limit = 2 * lr * steps + 1e-6
+    for name, p in params[DEV].items():
+        diff = (p.detach().cpu() - params["cpu"][name].detach()).abs().max()
+        worst["param"] = max(worst["param"], diff.item())
+        if diff.item() > limit:
+            fail(f"phase 4c: parameter {name} differs by {diff.item():.3g} "
+                 f"after {steps} steps (> {limit:.3g})")
+    return worst
+
+
+def train_throughput(torch, cfg, batch_size=16, seq=1024, warm=2, steps=5):
+    """Phase 6: the mixed-precision step at bench shape; returns the
+    measured numbers and the launch counts of the measured steps."""
+    from paddle_tpu_torch.ops import kernels
+
+    step = amp_train_step(torch, cfg, _batch(torch, cfg, batch_size, seq, 0,
+                                             DEV))
+    losses = [step().item() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()                          # main path
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    measured = [step() for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    losses += [x.item() for x in measured]
+    ms = start.elapsed_time(end) / steps
+    return {"losses": losses, "ms_per_step": ms,
+            "tokens_per_sec": batch_size * seq * steps / (ms * steps / 1e3),
+            "wall_s": wall, "peak": torch.cuda.max_memory_allocated(),
+            "counts": counts}
+
+
 # ---- phase 4: decoder parity across devices --------------------------------
 
 def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol):
@@ -468,6 +703,17 @@ def main():
                 f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
                 f"[{card}]")
 
+    # phase 3b: flash kernels vs plain
+    for b, h, sl, d, causal, timed in ((16, 12, 1024, 64, True, True),
+                                       (2, 4, 1000, 32, True, False),
+                                       (2, 4, 1000, 32, False, False)):
+        for dtype in (torch.bfloat16, torch.float32):
+            r = flash_case(torch, timer, b, h, sl, d, causal, dtype,
+                           b * sl + d, timed and dtype == torch.bfloat16)
+            if timed and dtype == torch.bfloat16:
+                rows.update(r)
+    torch.cuda.empty_cache()
+
     # phase 4: decoder parity, GPT-2 small float32, card vs CPU
     cfg = GPT2Config()  # GPT-2 small, full width and depth
     model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
@@ -488,6 +734,17 @@ def main():
             f"{worst:.3g} (atol {atol}), near-ties {ties}, launches "
             f"{counts}")
     del model32, params32
+    torch.cuda.empty_cache()
+
+    # phase 4c: training parity, GPT-2 small float32, card vs CPU
+    cfg_train = GPT2Config(dropout=0.0)
+    t0 = time.perf_counter()
+    worst = train_parity(torch, cfg_train)
+    say(f"phase 4c train parity f32 B2 S256, 2 AdamW steps: loss rel diff "
+        f"{worst['loss']:.3g} (limit 1e-4), worst gradient diff "
+        f"{worst['grad']:.3g} of its magnitude (limit 1e-3), worst "
+        f"parameter diff {worst['param']:.3g} (limit 4.01e-4), K4/K6/K9 "
+        f"12 launches each per step, {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 5: serving, GPT-2 small bf16
@@ -513,7 +770,31 @@ def main():
             f"{counts['paged_decode_dense']} max_memory_allocated "
             f"{peak / 2**20:.0f} MiB [{card}]")
 
-    # phase 6: the kernels line
+    del model
+    torch.cuda.empty_cache()
+
+    # phase 6: training throughput, GPT-2 small, bf16 on float32 masters
+    steps = 5
+    tr = train_throughput(torch, cfg_train, steps=steps)
+    losses = tr["losses"]
+    if not all(np.isfinite(losses)):
+        fail(f"phase 6: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 6: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for n in FLASH:
+        want = cfg_train.num_layers * steps
+        if tr["counts"][n] != want:
+            fail(f"phase 6: {n} launched {tr['counts'][n]} times in "
+                 f"{steps} steps, expected {want}")
+        main_counts[n] = tr["counts"][n]
+    say(f"phase 6 training B16 S1024 bf16/f32-master AdamW: tokens_per_sec "
+        f"{tr['tokens_per_sec']:.1f} ms_per_step {tr['ms_per_step']:.2f} "
+        f"(wall {tr['wall_s']:.2f} s for {steps} steps) "
+        f"max_memory_allocated {tr['peak'] / 2**20:.0f} MiB loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} launches "
+        f"{ {n: tr['counts'][n] for n in FLASH} } [{card}]")
+
+    # phase 7: the kernels line
     out = []
     for name, replaces in (("ragged_stream_dense", K1_REPLACES),
                            ("ragged_stream_int8", K1_REPLACES),
@@ -524,6 +805,17 @@ def main():
             fail(f"{name} was not launched on the main path")
         out.append({"name": name, "route": "cuda", "source": SOURCE,
                     "replaces": replaces, "launches": main_counts[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    for name in FLASH:
+        r = rows[name]
+        if main_counts[name] <= 0:
+            fail(f"{name} was not launched on the main path")
+        out.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+                    "replaces": FLASH_REPLACES[name],
+                    "launches": main_counts[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],

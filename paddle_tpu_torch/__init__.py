@@ -10,7 +10,10 @@ GPT-2-layout decoder: the weight bridge (`models.gpt2`), the paged KV
 pool (`inference.kv_cache`, `inference.kv_quant`), the paged attention
 ops and their kernels (`ops.attention`, `ops.kernels`), the decoder
 programs (`nn.decode`), greedy sampling (`sampling`) and the server
-core (`inference.serving`).
+core (`inference.serving`). Slice 2 is GPT-2 training: the functional
+loss (`models.gpt2.build_train_step`), flash attention with its
+autograd rule and kernels (`ops.flash_attention`), the loss
+(`ops.loss`) and AdamW (`optimizer`).
 
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes

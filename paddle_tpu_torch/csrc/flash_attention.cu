@@ -1,0 +1,575 @@
+// Flash-attention kernels of the training path, for Hopper (sm_90a).
+//
+// They replace the TPU kernels of paddle_tpu/ops/pallas/flash_attention.py:
+//   K4 `flash_fwd_kernel`   <- `_flash_fwd_lse` (body `_fwd_kernel`):
+//      blockwise online-softmax attention over q [BH, Sq, D], k/v
+//      [BH, Sk, D], causal or not; writes out [BH, Sq, D] in q's dtype and
+//      the per-row log-sum-exp lse [BH, Sq] in float32 (the TPU kernel
+//      broadcasts lse over 8 lanes for its (8, 128) tile layout; here it
+//      is one float per row).
+//   K6 `flash_delta_kernel` <- `_delta_rows` (body `_delta_kernel`):
+//      delta = rowsum(dO * O) in float32, [BH, Sq].
+//   K9 `flash_bwd_kernel`   <- `_flash_bwd_fused` (body `_bwd_fused_kernel`):
+//      the one-pass backward: dk and dv of one key tile, dq summed across
+//      key tiles. `tile_p_ds` below is the one place where the backward
+//      recomputes p = exp(s - lse) and forms ds = p * (dO.v - delta), as
+//      the TPU kernels' `_tile_p_ds`.
+// The TPU code picks K9 over its two-kernel backward (K7 + K8) by a VMEM
+// rule (`_fa_bwd`: sq * d * 10 <= 8 MB). K9 here keeps only one q tile and
+// one key tile in shared memory, so it has no length limit and the port
+// has no such rule; K7/K8 are not ported in this slice.
+//
+// Causal masking is BOTTOM-RIGHT aligned: query i sees key j iff
+// j <= i + (Sk - Sq) — what the reference computes off the TPU
+// (`_reference_attention`, `ops/attention.py` `_xla_attention`); the TPU
+// kernels align top-left, and the two agree when Sq == Sk. A row that sees
+// no key (causal, Sq > Sk) gets the reference's answer for its all--1e30
+// score row: the uniform average of every value, and no gradient to q or k.
+// Tail tiles are masked, so any Sq, Sk >= 1 is taken; D is 32, 64 or 128.
+//
+// What bounds them on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s):
+//   K4 does 4 * BH * D * (visible (i, j) pairs) FLOPs over the bytes of
+//   q, k, v, out and lse; at GPT-2-small training shapes (BH 192, S 1024,
+//   D 64, causal) both bounds are ~0.03 ms. K9 does 10 * BH * D * pairs
+//   FLOPs (~0.065 ms there): operations. K6 reads o and dO once: bytes.
+//
+// What the design does about it (a first, plain kernel: float32 SIMT
+// products, no tensor cores yet, so K4 and K9 run far from their bounds):
+//   * One block per (q tile, bh) in K4 and per (key tile, bh) in K9, with
+//     the TPU's sequential grid axis turned into a loop inside the block
+//     that stops at the causal horizon (K4) or starts at the first q tile
+//     that reaches the key tile (K9) — dead tiles are never visited.
+//   * 64 x 64 score tiles in shared memory; each of 256 threads owns a
+//     4 x 4 micro-tile of scores and 4 rows of the output, so every
+//     shared-memory load feeds two FMAs; padded pitches keep the column
+//     reads free of bank conflicts.
+//   * The online softmax (m, l, acc) lives in registers in float32; dk/dv
+//     accumulate in registers in float32 across the q loop.
+//   * dq is summed across key tiles with float32 atomicAdd into a zeroed
+//     [BH, Sq, D] workspace, then scaled and cast by a second small
+//     kernel. The order of that sum changes from run to run, so dq is not
+//     bitwise deterministic (the tests hold it to a tolerance).
+// Later work, not here: mma/wgmma tensor-core products and TMA loads.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <cmath>
+#include <cstdint>
+
+#include "elem.cuh"
+
+namespace pt {
+namespace flash {
+
+constexpr int kThreads = 256;  // a 16 x 16 grid of threads
+constexpr int kBQ = 64;        // query rows per tile
+constexpr int kBK = 64;        // keys per tile
+constexpr int kTR = kBQ / 16;  // score rows per thread
+constexpr int kTC = kBK / 16;  // score columns per thread
+constexpr int kPP = kBK + 1;   // pitch of the score tiles in shared memory
+
+struct Shape {
+  int Sq, Sk;
+  int off;  // Sk - Sq: the bottom-right causal alignment
+  int causal;
+  float scale;
+};
+
+__device__ __forceinline__ bool visible(const Shape& sh, int i, int j) {
+  return !sh.causal || j <= i + sh.off;
+}
+
+// A query row that sees no key at all (causal with Sq > Sk).
+__device__ __forceinline__ bool dead_row(const Shape& sh, int i) {
+  return sh.causal && i + sh.off < 0;
+}
+
+// Rows r0 .. r0+rows-1 of a [S, D] matrix into shared memory as float
+// (pitch D + 1), zeros past row S.
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
+                                          int S, int rows) {
+  constexpr int DP = D + 1;
+  for (int i = threadIdx.x; i < rows * D / 4; i += kThreads) {
+    const int r = i / (D / 4), d = (i % (D / 4)) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r0 + r < S) v = load4(src + static_cast<int64_t>(r0 + r) * D + d);
+    float* o = dst + r * DP + d;
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+}
+
+// Reductions over the 16 threads of one score row (16 consecutive lanes).
+__device__ __forceinline__ float row_max(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+__device__ __forceinline__ float row_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// ---- K4: forward with LSE -------------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
+                 const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, Shape sh) {
+  constexpr int DP = D + 1;
+  constexpr int NA = D / 16;  // output columns per thread
+  extern __shared__ float smem[];
+  float* q_s = smem;             // [kBQ][DP]
+  float* k_s = q_s + kBQ * DP;   // [kBK][DP]
+  float* v_s = k_s + kBK * DP;   // [kBK][DP]
+  float* p_s = v_s + kBK * DP;   // [kBQ][kPP]
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int q0 = blockIdx.x * kBQ;
+  const int64_t bh = blockIdx.y;
+  const T* kb = k + bh * sh.Sk * D;
+  const T* vb = v + bh * sh.Sk * D;
+  load_tile<T, D>(q_s, q + bh * sh.Sq * D, q0, sh.Sq, kBQ);
+
+  // keys up to the causal horizon of the tile's last row; a tile that
+  // holds a dead row scores every key (its rows average all of them)
+  int kend = sh.Sk;
+  if (sh.causal && q0 + sh.off >= 0)
+    kend = min(sh.Sk, min(q0 + kBQ, sh.Sq) + sh.off);
+
+  float m[kTR], l[kTR], acc[kTR][NA];
+#pragma unroll
+  for (int r = 0; r < kTR; ++r) {
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) acc[r][a] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < kend; k0 += kBK) {
+    __syncthreads();  // the previous tile's k_s / v_s / p_s reads are done
+    load_tile<T, D>(k_s, kb, k0, sh.Sk, kBK);
+    load_tile<T, D>(v_s, vb, k0, sh.Sk, kBK);
+    __syncthreads();
+    float s[kTR][kTC];
+#pragma unroll
+    for (int r = 0; r < kTR; ++r)
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) s[r][c] = 0.f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[kTR], kv[kTC];
+#pragma unroll
+      for (int r = 0; r < kTR; ++r) qv[r] = q_s[(ty * kTR + r) * DP + d];
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) kv[c] = k_s[(tx + 16 * c) * DP + d];
+#pragma unroll
+      for (int r = 0; r < kTR; ++r)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) s[r][c] += qv[r] * kv[c];
+    }
+#pragma unroll
+    for (int r = 0; r < kTR; ++r) {
+      const int i = q0 + ty * kTR + r;
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const int j = k0 + tx + 16 * c;
+        float x;
+        if (j >= sh.Sk) x = -INFINITY;                // past the end: no weight
+        else if (!visible(sh, i, j)) x = kNegInf;     // the reference's fill
+        else x = s[r][c] * sh.scale;
+        s[r][c] = x;
+        tmax = fmaxf(tmax, x);
+      }
+      const float m_new = fmaxf(m[r], row_max(tmax));
+      const float alpha = expf(m[r] - m_new);
+      float psum = 0.f;
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const float p = expf(s[r][c] - m_new);
+        p_s[(ty * kTR + r) * kPP + tx + 16 * c] = p;
+        psum += p;
+      }
+      l[r] = l[r] * alpha + row_sum(psum);
+      m[r] = m_new;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) acc[r][a] *= alpha;
+    }
+    __syncthreads();  // p_s is complete
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      float pv[kTR];
+#pragma unroll
+      for (int r = 0; r < kTR; ++r) pv[r] = p_s[(ty * kTR + r) * kPP + j];
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const float vv = v_s[j * DP + tx + 16 * a];
+#pragma unroll
+        for (int r = 0; r < kTR; ++r) acc[r][a] += pv[r] * vv;
+      }
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kTR; ++r) {
+    const int i = q0 + ty * kTR + r;
+    if (i >= sh.Sq) continue;
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    T* o = out + (bh * sh.Sq + i) * D;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) o[tx + 16 * a] = from_f<T>(acc[r][a] * inv);
+    if (tx == 0) lse[bh * sh.Sq + i] = m[r] + logf(l[r]);
+  }
+}
+
+// ---- K6: delta = rowsum(dO * O) ---------------------------------------------
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_delta_kernel(float* __restrict__ delta, const T* __restrict__ o,
+                   const T* __restrict__ dout, int64_t rows) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row =
+      static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+  if (row >= rows) return;  // the whole warp leaves together
+  const T* a = o + row * D;
+  const T* b = dout + row * D;
+  float acc = 0.f;
+#pragma unroll
+  for (int d = lane; d < D; d += 32) acc += to_f(a[d]) * to_f(b[d]);
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+  if (lane == 0) delta[row] = acc;
+}
+
+// ---- K9: fused backward -------------------------------------------------------
+
+// The backward's tile math for score (i, j), in one place (the TPU
+// kernels' `_tile_p_ds`): p = exp(s * scale - lse) from the stored LSE and
+// ds = p * (dp - delta), where s = q_i.k_j and dp = dO_i.v_j. Masked and
+// out-of-range entries get p = ds = 0; a dead row gets the uniform
+// p = 1 / Sk of the reference's constant fill and ds = 0.
+__device__ __forceinline__ void tile_p_ds(const Shape& sh, int i, int j,
+                                          float s, float dp, float lse,
+                                          float delta, float& p, float& ds) {
+  if (i >= sh.Sq || j >= sh.Sk) {
+    p = 0.f;
+    ds = 0.f;
+  } else if (dead_row(sh, i)) {
+    p = 1.f / static_cast<float>(sh.Sk);
+    ds = 0.f;
+  } else if (!visible(sh, i, j)) {
+    p = 0.f;
+    ds = 0.f;
+  } else {
+    p = expf(s * sh.scale - lse);
+    ds = p * (dp - delta);
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads)
+flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
+                 T* __restrict__ dv, const T* __restrict__ q,
+                 const T* __restrict__ k, const T* __restrict__ v,
+                 const T* __restrict__ dout, const float* __restrict__ lse,
+                 const float* __restrict__ delta, Shape sh) {
+  constexpr int DP = D + 1;
+  constexpr int NA = D / 16;
+  extern __shared__ float smem[];
+  float* k_s = smem;               // [kBK][DP]
+  float* v_s = k_s + kBK * DP;     // [kBK][DP]
+  float* q_s = v_s + kBK * DP;     // [kBQ][DP]
+  float* do_s = q_s + kBQ * DP;    // [kBQ][DP]
+  float* p_s = do_s + kBQ * DP;    // [kBQ][kPP]
+  float* ds_s = p_s + kBQ * kPP;   // [kBQ][kPP]
+  float* lse_s = ds_s + kBQ * kPP; // [kBQ]
+  float* dl_s = lse_s + kBQ;       // [kBQ]
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int k0 = blockIdx.x * kBK;
+  const int64_t bh = blockIdx.y;
+  const T* qb = q + bh * sh.Sq * D;
+  const T* dob = dout + bh * sh.Sq * D;
+  load_tile<T, D>(k_s, k + bh * sh.Sk * D, k0, sh.Sk, kBK);
+  load_tile<T, D>(v_s, v + bh * sh.Sk * D, k0, sh.Sk, kBK);
+
+  // the first q tile that reaches key k0 (query i sees it iff
+  // i >= k0 - off); with Sq > Sk the dead rows join every key tile
+  int qstart = 0;
+  if (sh.causal && sh.off >= 0) qstart = max(0, k0 - sh.off) / kBQ * kBQ;
+
+  // this thread's keys ty*kTR + r and dims tx + 16a
+  float dk_acc[kTR][NA], dv_acc[kTR][NA];
+#pragma unroll
+  for (int r = 0; r < kTR; ++r)
+#pragma unroll
+    for (int a = 0; a < NA; ++a) dk_acc[r][a] = dv_acc[r][a] = 0.f;
+
+  for (int q0 = qstart; q0 < sh.Sq; q0 += kBQ) {
+    __syncthreads();  // the previous q tile's reads are done
+    load_tile<T, D>(q_s, qb, q0, sh.Sq, kBQ);
+    load_tile<T, D>(do_s, dob, q0, sh.Sq, kBQ);
+    if (tid < kBQ) {
+      const bool in = q0 + tid < sh.Sq;
+      lse_s[tid] = in ? lse[bh * sh.Sq + q0 + tid] : 0.f;
+      dl_s[tid] = in ? delta[bh * sh.Sq + q0 + tid] : 0.f;
+    }
+    __syncthreads();
+
+    // scores s = q.k and dp = dO.v of this thread's 4 x 4 micro-tile
+    float s[kTR][kTC], dp[kTR][kTC];
+#pragma unroll
+    for (int r = 0; r < kTR; ++r)
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) s[r][c] = dp[r][c] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; ++d) {
+      float qv[kTR], dov[kTR], kv[kTC], vv[kTC];
+#pragma unroll
+      for (int r = 0; r < kTR; ++r) {
+        qv[r] = q_s[(ty * kTR + r) * DP + d];
+        dov[r] = do_s[(ty * kTR + r) * DP + d];
+      }
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        kv[c] = k_s[(tx + 16 * c) * DP + d];
+        vv[c] = v_s[(tx + 16 * c) * DP + d];
+      }
+#pragma unroll
+      for (int r = 0; r < kTR; ++r)
+#pragma unroll
+        for (int c = 0; c < kTC; ++c) {
+          s[r][c] += qv[r] * kv[c];
+          dp[r][c] += dov[r] * vv[c];
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < kTR; ++r) {
+      const int row = ty * kTR + r;
+#pragma unroll
+      for (int c = 0; c < kTC; ++c) {
+        const int col = tx + 16 * c;
+        float p, ds;
+        tile_p_ds(sh, q0 + row, k0 + col, s[r][c], dp[r][c], lse_s[row],
+                  dl_s[row], p, ds);
+        p_s[row * kPP + col] = p;
+        ds_s[row * kPP + col] = ds;
+      }
+    }
+    __syncthreads();  // p_s / ds_s are complete
+
+    // dv_j += p^T dO_i and dk_j += ds^T q_i
+#pragma unroll 4
+    for (int qr = 0; qr < kBQ; ++qr) {
+      float pv[kTR], dsv[kTR];
+#pragma unroll
+      for (int r = 0; r < kTR; ++r) {
+        pv[r] = p_s[qr * kPP + ty * kTR + r];
+        dsv[r] = ds_s[qr * kPP + ty * kTR + r];
+      }
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const float dov = do_s[qr * DP + tx + 16 * a];
+        const float qv = q_s[qr * DP + tx + 16 * a];
+#pragma unroll
+        for (int r = 0; r < kTR; ++r) {
+          dv_acc[r][a] += pv[r] * dov;
+          dk_acc[r][a] += dsv[r] * qv;
+        }
+      }
+    }
+
+    // dq_i += ds k_j for this thread's queries ty*kTR + r, summed across
+    // key tiles in the float32 workspace
+    float dqa[kTR][NA];
+#pragma unroll
+    for (int r = 0; r < kTR; ++r)
+#pragma unroll
+      for (int a = 0; a < NA; ++a) dqa[r][a] = 0.f;
+#pragma unroll 4
+    for (int kc = 0; kc < kBK; ++kc) {
+      float dsv[kTR];
+#pragma unroll
+      for (int r = 0; r < kTR; ++r) dsv[r] = ds_s[(ty * kTR + r) * kPP + kc];
+#pragma unroll
+      for (int a = 0; a < NA; ++a) {
+        const float kv = k_s[kc * DP + tx + 16 * a];
+#pragma unroll
+        for (int r = 0; r < kTR; ++r) dqa[r][a] += dsv[r] * kv;
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kTR; ++r) {
+      const int i = q0 + ty * kTR + r;
+      if (i >= sh.Sq) continue;
+      float* dst = dq_ws + (bh * sh.Sq + i) * D;
+#pragma unroll
+      for (int a = 0; a < NA; ++a) atomicAdd(dst + tx + 16 * a, dqa[r][a]);
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kTR; ++r) {
+    const int j = k0 + ty * kTR + r;
+    if (j >= sh.Sk) continue;
+    const int64_t base = (bh * sh.Sk + j) * D;
+#pragma unroll
+    for (int a = 0; a < NA; ++a) {
+      dk[base + tx + 16 * a] = from_f<T>(dk_acc[r][a] * sh.scale);
+      dv[base + tx + 16 * a] = from_f<T>(dv_acc[r][a]);
+    }
+  }
+}
+
+// dq = scale * workspace, in the compute dtype.
+template <typename T>
+__global__ void scale_cast_kernel(T* __restrict__ dst,
+                                  const float* __restrict__ src, int64_t n,
+                                  float scale) {
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += static_cast<int64_t>(gridDim.x) * blockDim.x)
+    dst[i] = from_f<T>(src[i] * scale);
+}
+
+// ---- host side -----------------------------------------------------------
+
+template <typename T, int D>
+cudaError_t launch_fwd(void* out, float* lse, const void* q, const void* k,
+                       const void* v, int BH, Shape sh, cudaStream_t st) {
+  constexpr int DP = D + 1;
+  const size_t smem = sizeof(float) * (kBQ * DP + 2 * kBK * DP + kBQ * kPP);
+  auto kern = flash_fwd_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid((sh.Sq + kBQ - 1) / kBQ, BH);
+  kern<<<grid, kThreads, smem, st>>>(
+      static_cast<T*>(out), lse, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v), sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_delta(float* delta, const void* o, const void* dout,
+                         int64_t rows, cudaStream_t st) {
+  constexpr int per_block = kThreads / 32;
+  const int64_t blocks = (rows + per_block - 1) / per_block;
+  flash_delta_kernel<T, D><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
+      delta, static_cast<const T*>(o), static_cast<const T*>(dout), rows);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(void* dq, void* dk, void* dv, float* dq_ws,
+                       const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, int BH, Shape sh,
+                       cudaStream_t st) {
+  constexpr int DP = D + 1;
+  const size_t smem =
+      sizeof(float) * (2 * kBK * DP + 2 * kBQ * DP + 2 * kBQ * kPP + 2 * kBQ);
+  auto kern = flash_bwd_kernel<T, D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (e != cudaSuccess) return e;
+  dim3 grid((sh.Sk + kBK - 1) / kBK, BH);
+  kern<<<grid, kThreads, smem, st>>>(
+      dq_ws, static_cast<T*>(dk), static_cast<T*>(dv),
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, sh);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const int64_t n = static_cast<int64_t>(BH) * sh.Sq * D;
+  const int64_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  scale_cast_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      static_cast<T*>(dq), dq_ws, n, sh.scale);
+  return cudaGetLastError();
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Returns -1 for an unsupported
+// (dtype, D) pair; the Python wrapper checks both before calling.
+#define PT_FLASH_DISPATCH(LAUNCH, ...)                                 \
+  do {                                                                 \
+    cudaError_t e;                                                     \
+    if (dtype == 0 && D == 32) e = LAUNCH<float, 32>(__VA_ARGS__);     \
+    else if (dtype == 0 && D == 64) e = LAUNCH<float, 64>(__VA_ARGS__); \
+    else if (dtype == 0 && D == 128)                                   \
+      e = LAUNCH<float, 128>(__VA_ARGS__);                             \
+    else if (dtype == 1 && D == 32)                                    \
+      e = LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                      \
+    else if (dtype == 1 && D == 64)                                    \
+      e = LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                      \
+    else if (dtype == 1 && D == 128)                                   \
+      e = LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                     \
+    else                                                               \
+      return -1;                                                       \
+    return static_cast<int>(e);                                        \
+  } while (0)
+
+int fwd(void* out, float* lse, const void* q, const void* k, const void* v,
+        int BH, int Sq, int Sk, int D, float scale, int causal, int dtype,
+        cudaStream_t st) {
+  const Shape sh{Sq, Sk, Sk - Sq, causal, scale};
+  PT_FLASH_DISPATCH(launch_fwd, out, lse, q, k, v, BH, sh,
+                    st);
+}
+
+int delta(float* dl, const void* o, const void* dout, int64_t rows, int D,
+          int dtype, cudaStream_t st) {
+  PT_FLASH_DISPATCH(launch_delta, dl, o, dout, rows, st);
+}
+
+int bwd(void* dq, void* dk, void* dv, float* dq_ws, const void* q,
+        const void* k, const void* v, const void* dout, const float* lse,
+        const float* dl, int BH, int Sq, int Sk, int D, float scale,
+        int causal, int dtype, cudaStream_t st) {
+  const Shape sh{Sq, Sk, Sk - Sq, causal, scale};
+  PT_FLASH_DISPATCH(launch_bwd, dq, dk, dv, dq_ws, q, k, v,
+                    dout, lse, dl, BH, sh, st);
+}
+
+}  // namespace flash
+}  // namespace pt
+
+extern "C" {
+
+// K4. q/out [BH, Sq, D], k/v [BH, Sk, D] (contiguous, 16-byte aligned),
+// lse [BH, Sq] float32. Returns a cudaError_t value (0 = launched), or -1.
+int pt_flash_fwd(void* out, void* lse, const void* q, const void* k,
+                 const void* v, int BH, int Sq, int Sk, int D, float scale,
+                 int causal, int dtype, void* stream) {
+  if (BH <= 0 || Sq <= 0) return 0;
+  return pt::flash::fwd(out, static_cast<float*>(lse), q, k, v, BH, Sq, Sk,
+                        D, scale, causal, dtype,
+                        static_cast<cudaStream_t>(stream));
+}
+
+// K6. o/dout [rows, D]; delta [rows] float32.
+int pt_flash_delta(void* delta, const void* o, const void* dout,
+                   long long rows, int D, int dtype, void* stream) {
+  if (rows <= 0) return 0;
+  return pt::flash::delta(static_cast<float*>(delta), o, dout, rows, D, dtype,
+                          static_cast<cudaStream_t>(stream));
+}
+
+// K9. q/dout/dq [BH, Sq, D], k/v/dk/dv [BH, Sk, D], lse/delta [BH, Sq]
+// float32, dq_ws [BH, Sq, D] float32 and zeroed by the caller.
+int pt_flash_bwd(void* dq, void* dk, void* dv, void* dq_ws, const void* q,
+                 const void* k, const void* v, const void* dout,
+                 const void* lse, const void* delta, int BH, int Sq, int Sk,
+                 int D, float scale, int causal, int dtype, void* stream) {
+  if (BH <= 0 || Sq <= 0) return 0;
+  return pt::flash::bwd(dq, dk, dv, static_cast<float*>(dq_ws), q, k, v, dout,
+                        static_cast<const float*>(lse),
+                        static_cast<const float*>(delta), BH, Sq, Sk, D, scale,
+                        causal, dtype, static_cast<cudaStream_t>(stream));
+}
+
+}  // extern "C"

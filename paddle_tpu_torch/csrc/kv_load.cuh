@@ -21,42 +21,9 @@
 #include <cuda_bf16.h>
 #include <cstdint>
 
+#include "elem.cuh"
+
 namespace pt {
-
-constexpr float kNegInf = -1e30f;  // the TPU kernels' masking value
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ float to_f(int8_t x) {
-  return static_cast<float>(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Four consecutive elements as float (one 16-, 8- or 4-byte load; the
-// caller keeps the element offset a multiple of 4 and the base aligned).
-__device__ __forceinline__ float4 load4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  uint2 u = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-__device__ __forceinline__ float4 load4(const int8_t* p) {
-  char4 c = *reinterpret_cast<const char4*>(p);
-  return make_float4(c.x, c.y, c.z, c.w);
-}
 
 // One layer's K or V pool. KV is the stored element type (the compute
 // type T for a dense pool, int8_t for a quantized one); S is the scale

@@ -1,4 +1,5 @@
-"""GPT-2 parameters in the reference's flat layout.
+"""GPT-2 in the reference's flat parameter layout: the weights, and the
+training path.
 
 The serving path reads a GPT-2-layout decoder as a FLAT dict of named
 tensors — the names `paddle_tpu`'s `GPT2.functional_state()` produces
@@ -9,7 +10,19 @@ are exactly those names and layouts, so `flat_params()` is the dict the
 decoder consumes and `from_reference_params` is a name-for-name copy of
 the reference's numpy weights (the bridge the parity tests use).
 
-`forward` (the training path) belongs to the training slice of the port.
+The training path is a set of pure functions of that dict, as the
+reference's `build_train_step` re-binds its params per call:
+`hidden_states` (pre-LN blocks, fused QKV split as [3, B, H, S, D],
+causal attention through `ops.scaled_dot_product_attention` — the flash
+kernels K4/K6/K9 on the card — tanh GELU, final layer norm), `logits`
+(the tied head as one rank-2 product `x2 @ wte.T`) and `lm_loss` (mean
+cross-entropy). `build_train_step(cfg)` returns `loss_fn(params, batch)`
+and `init_params()`; `GPT2.forward`/`GPT2.loss` run the same functions
+on the module's own parameters. Embedding and residual dropout take an
+explicit `torch.Generator`; attention dropout (and so any
+`cfg.dropout > 0` in training) is not taken by the flash kernels yet
+and raises. The reference's vocab-chunked loss (`PADDLE_TPU_CHUNKED_CE`)
+comes with a later slice.
 """
 from __future__ import annotations
 
@@ -18,9 +31,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.attention import scaled_dot_product_attention
+from ..ops.loss import cross_entropy
 
 
 @dataclass
@@ -85,8 +101,7 @@ class _Leaf(nn.Module):
     def __init__(self, **tensors):
         super().__init__()
         for name, t in tensors.items():
-            self.register_parameter(
-                name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(t))
 
 
 class _Block(nn.Module):
@@ -156,14 +171,119 @@ class GPT2(nn.Module):
 
     def flat_params(self):
         """{flat name: tensor} — the dict the decode programs read
-        (same names and layouts as the reference's functional_state)."""
+        (same names and layouts as the reference's functional_state),
+        detached from autograd."""
         return {n: p.detach() for n, p in self.named_parameters()}
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "GPT2.forward (the training path) comes with the training "
-            "slice of the port; serving reads flat_params() through "
-            "nn.decode.PagedDecoder")
+    def _dropout(self):
+        return self.cfg.dropout if self.training else 0.0
+
+    def forward(self, input_ids, generator=None):
+        """Logits [B, S, V] in the parameters' dtype."""
+        return logits(dict(self.named_parameters()), self.cfg, input_ids,
+                      dropout=self._dropout(), generator=generator)
+
+    def loss(self, input_ids, labels, generator=None):
+        return lm_loss(dict(self.named_parameters()), self.cfg, input_ids,
+                       labels, dropout=self._dropout(), generator=generator)
+
+
+# ---- the training path: pure functions of the flat param dict ------------
+
+def _dropout(x, p, generator):
+    """Inverted dropout drawing its mask from `generator` (identity at
+    p == 0)."""
+    if p == 0.0:
+        return x
+    keep = torch.empty_like(x).bernoulli_(1.0 - p, generator=generator)
+    return x * keep / (1.0 - p)
+
+
+def _linear(x, w, b):
+    """x @ w + b for a [in, out] weight, as one GEMM with the bias."""
+    y = torch.addmm(b, x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def _block(p, i, x, cfg, dropout, generator):
+    """One pre-LN decoder block (the reference's `GPT2Block.forward`)."""
+    B, S, E = x.shape
+    H = cfg.num_heads
+    pre = f"h.{i}."
+    eps = cfg.layer_norm_epsilon
+    a = F.layer_norm(x, (E,), p[pre + "ln_1.weight"], p[pre + "ln_1.bias"],
+                     eps)
+    qkv = _linear(a, p[pre + "qkv_proj.weight"], p[pre + "qkv_proj.bias"])
+    qkv = qkv.reshape(B, S, 3, H, E // H).permute(2, 0, 3, 1, 4)
+    o, _ = scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                        is_causal=True, dropout_p=dropout)
+    o = o.permute(0, 2, 1, 3).reshape(B, S, E)
+    x = x + _dropout(_linear(o, p[pre + "out_proj.weight"],
+                             p[pre + "out_proj.bias"]), dropout, generator)
+    m = F.layer_norm(x, (E,), p[pre + "ln_2.weight"], p[pre + "ln_2.bias"],
+                     eps)
+    m = F.gelu(_linear(m, p[pre + "fc1.weight"], p[pre + "fc1.bias"]),
+               approximate="tanh")
+    m = _linear(m, p[pre + "fc2.weight"], p[pre + "fc2.bias"])
+    return x + _dropout(m, dropout, generator)
+
+
+def hidden_states(params, cfg, input_ids, *, dropout=0.0, generator=None):
+    """The transformer body up to and including the final layer norm:
+    [B, S, E] for input_ids [B, S]."""
+    S = input_ids.shape[1]
+    pos = torch.arange(S, device=input_ids.device)
+    x = F.embedding(input_ids, params["wte.weight"]) \
+        + F.embedding(pos, params["wpe.weight"])
+    x = _dropout(x, dropout, generator)
+    for i in range(cfg.num_layers):
+        x = _block(params, i, x, cfg, dropout, generator)
+    return F.layer_norm(x, (cfg.hidden_size,), params["ln_f.weight"],
+                        params["ln_f.bias"], cfg.layer_norm_epsilon)
+
+
+def logits(params, cfg, input_ids, *, dropout=0.0, generator=None):
+    """[B, S, V] logits. The head is one rank-2 product over [B*S, E]
+    (the reference's layout choice, `models/gpt2.py:122-133`)."""
+    B, S = input_ids.shape
+    x2 = hidden_states(params, cfg, input_ids, dropout=dropout,
+                       generator=generator).reshape(-1, cfg.hidden_size)
+    if cfg.tie_embeddings:
+        lg = x2 @ params["wte.weight"].T
+    else:
+        lg = x2 @ params["lm_head.weight"]
+    return lg.reshape(B, S, cfg.vocab_size)
+
+
+def lm_loss(params, cfg, input_ids, labels, *, dropout=0.0,
+            generator=None):
+    """Mean next-token cross-entropy (labels of -100 are ignored)."""
+    lg = logits(params, cfg, input_ids, dropout=dropout, generator=generator)
+    return cross_entropy(lg.reshape(-1, cfg.vocab_size), labels.reshape(-1))
+
+
+def build_train_step(cfg, dtype=torch.float32, device=None):
+    """The functional GPT-2 loss, as the reference's `build_train_step`:
+    returns (loss_fn(params, batch, generator=None), init_params()).
+
+    `init_params()` gives a fresh {flat name: leaf tensor requiring
+    grad} of a `GPT2(cfg, dtype=dtype, device=device)` (seed 0; CUDA
+    unless device="cpu"). `loss_fn` runs the training forward (dropout
+    `cfg.dropout` from `generator`) on any such dict and batch
+    {"input_ids": [B, S], "labels": [B, S]} and returns the scalar loss
+    in the params' dtype; mixed precision is the caller's: pass bf16
+    copies of float32 masters and cast the loss to float32."""
+    model = GPT2(cfg, dtype=dtype, device=device)
+
+    def init_params():
+        return {n: p.detach().clone().requires_grad_(True)
+                for n, p in model.named_parameters()}
+
+    def loss_fn(params, batch, generator=None):
+        return lm_loss(params, cfg, batch["input_ids"], batch["labels"],
+                       dropout=cfg.dropout, generator=generator)
+
+    return loss_fn, init_params
 
 
 def from_reference_params(cfg, params_np, *, device=None):
@@ -200,4 +320,5 @@ def from_reference_params(cfg, params_np, *, device=None):
     return model
 
 
-__all__ = ["GPT2Config", "GPT2", "from_reference_params", "param_shapes"]
+__all__ = ["GPT2Config", "GPT2", "from_reference_params", "param_shapes",
+           "build_train_step", "hidden_states", "logits", "lm_loss"]

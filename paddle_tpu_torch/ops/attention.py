@@ -1,6 +1,16 @@
-"""Paged attention ops of the serving path.
+"""Attention ops: the dense op of the training path and the paged ops
+of the serving path.
 
 Same signatures and layouts as `paddle_tpu.ops.attention`:
+
+  * `scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+    is_causal=False, scale=None, return_weights=False)` over q
+    [B, H, Sq, D], k/v [B, H, Sk, D] -> (out, None). As the reference's
+    flash dispatch, q is scaled once and cast back to its dtype, and the
+    flash kernels run at scale 1.0 (`ops.flash_attention`: K4 forward,
+    K6 + K9 backward on the card); autograd carries the scale into dq.
+    The port has no XLA-style fallback: a mask, dropout or the weights
+    output raise NotImplementedError;
 
   * `paged_decode_attention(q [B, H, Dh], k_blocks, v_blocks,
     block_tables [B, M], ctx_lens [B])` — one query per sequence over its
@@ -32,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+from .flash_attention import flash_attention
 
 NEG_INF = -1e30
 
@@ -61,6 +72,31 @@ def _operands(kv):
 
 def _scale(Dh, scale):
     return (Dh ** -0.5) if scale is None else float(scale)
+
+
+def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
+                                 is_causal=False, scale=None,
+                                 return_weights=False):
+    """Attention over q [B, H, Sq, D], k/v [B, H, Sk, D] through the
+    flash kernels (causal: bottom-right aligned). Returns (out, None)."""
+    if attn_mask is not None:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: attn_mask (including the "
+            "per-key [B,1,1,Sk] bias) comes with the BERT slice of the port "
+            "(ROADMAP.md §A item 10, flash_attention_bias)")
+    if dropout_p > 0.0:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: attention dropout is not taken "
+            "by the port's flash kernels yet (ROADMAP.md §A item 10)")
+    if return_weights:
+        raise NotImplementedError(
+            "scaled_dot_product_attention: return_weights needs the dense "
+            "weights path, not ported (ROADMAP.md §A item 10)")
+    sc = _scale(q.shape[-1], scale)
+    # prescale q once, rounded to its dtype, as the reference feeds its
+    # kernel (ops/attention.py:95-105); the kernels then run at scale 1.0
+    return flash_attention((q * sc).to(q.dtype), k, v, causal=is_causal,
+                           scale=1.0), None
 
 
 def paged_decode_attention(q, k_blocks, v_blocks, block_tables, ctx_lens,
@@ -158,6 +194,6 @@ def ragged_prefill_attention_plain(q, k_blocks, v_blocks, block_tables,
     return torch.einsum("htbc,hbcd->htd", w, v).permute(1, 0, 2)
 
 
-__all__ = ["paged_decode_attention", "paged_decode_attention_plain",
-           "ragged_prefill_attention", "ragged_prefill_attention_plain",
-           "is_quantized", "NEG_INF"]
+__all__ = ["scaled_dot_product_attention", "paged_decode_attention",
+           "paged_decode_attention_plain", "ragged_prefill_attention",
+           "ragged_prefill_attention_plain", "is_quantized", "NEG_INF"]

@@ -1,18 +1,21 @@
 """Build, bind and launch the port's CUDA kernels.
 
 The sources in `paddle_tpu_torch/csrc/` are compiled at first use with
-`nvcc` into a shared library with a plain C interface and loaded with
-`ctypes` — no PyTorch headers, so the build takes seconds. The library
-lands in `paddle_tpu_torch/_build/<hash of the sources>/`, so a changed
-source rebuilds and a fresh checkout builds on its first call.
+`nvcc` (one process per `.cu`, all started together, then one link) into
+a shared library with a plain C interface and loaded with `ctypes` — no
+PyTorch headers, so the build takes seconds. The library lands in
+`paddle_tpu_torch/_build/<hash of the sources>/`, so a changed source
+rebuilds and a fresh checkout builds on its first call.
 
-Each kernel has a wrapper here (`ragged_stream`, `paged_decode`) that
-checks device, dtype, shape and contiguity, raises on anything the
-kernel does not take, launches on PyTorch's current stream, raises on a
-launch error, and counts its launches in a plain integer
-(`Kernel.launches`). The dense and int8 variants of each kernel are
-counted apart. The plain PyTorch versions and the CPU/CUDA dispatch live
-in `ops/attention.py`; nothing here falls back.
+Each kernel has a wrapper here (`ragged_stream`, `paged_decode` of the
+serving path; `flash_fwd`, `flash_delta`, `flash_bwd` of the training
+path) that checks device, dtype, shape and contiguity, raises on
+anything the kernel does not take, launches on PyTorch's current stream,
+raises on a launch error, and counts its launches in a plain integer
+(`Kernel.launches`). The dense and int8 variants of each paged kernel
+are counted apart. The plain PyTorch versions and the CPU/CUDA dispatch
+live in `ops/attention.py` and `ops/flash_attention.py`; nothing here
+falls back.
 """
 from __future__ import annotations
 
@@ -28,10 +31,11 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("unified_attention.cu", "kv_load.cuh")
+UNITS = ("unified_attention.cu", "flash_attention.cu")  # one object each
+SOURCES = UNITS + ("kv_load.cuh", "elem.cuh")
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 DH_SUPPORTED = (32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -49,8 +53,11 @@ RAGGED_STREAM = {False: Kernel("ragged_stream_dense"),
                  True: Kernel("ragged_stream_int8")}
 PAGED_DECODE = {False: Kernel("paged_decode_dense"),
                 True: Kernel("paged_decode_int8")}
+FLASH_FWD = Kernel("flash_fwd")
+FLASH_DELTA = Kernel("flash_delta")
+FLASH_BWD = Kernel("flash_bwd")
 KERNELS = (RAGGED_STREAM[False], RAGGED_STREAM[True], PAGED_DECODE[False],
-           PAGED_DECODE[True])
+           PAGED_DECODE[True], FLASH_FWD, FLASH_DELTA, FLASH_BWD)
 
 
 def reset_launch_counts():
@@ -86,23 +93,49 @@ def source_hash():
     return h.hexdigest()[:16]
 
 
+def _spawn(cmd):
+    return cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+
+
+def _run(procs):
+    """Wait for every (command, Popen) pair; raise on the first failure."""
+    failed = None
+    for cmd, proc in procs:
+        _out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, err)
+    if failed:
+        cmd, rc, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n"
+                           f"{err[-4000:]}")
+
+
 def build():
     """Compile the kernel library if this source hash has none yet;
-    returns its path. Writes to a temporary name and renames, so a
-    concurrent or interrupted build never leaves a partial library."""
+    returns its path. Every source compiles in its own `nvcc` process,
+    all started together, then one link. Writes to temporary names and
+    renames, so a concurrent or interrupted build never leaves a partial
+    library."""
     out_dir = BUILD_ROOT / source_hash()
     lib_path = out_dir / "libpt_attention.so"
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libpt_attention.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / "unified_attention.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stderr[-4000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    objs, procs = [], []
+    for unit in UNITS:
+        obj = out_dir / f"{Path(unit).stem}.{tag}.o"
+        procs.append(_spawn([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                             str(CSRC / unit)]))
+        objs.append(obj)
+    _run(procs)
+    tmp = out_dir / f"libpt_attention.{tag}.tmp.so"
+    _run([_spawn([nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                  *map(str, objs)])])
     os.replace(tmp, lib_path)
+    for obj in objs:
+        obj.unlink()
     return lib_path
 
 
@@ -119,6 +152,15 @@ def library():
             lib.pt_paged_decode_attention.argtypes = (
                 [vp] * 8 + [i32] * 6 + [f32, i32, i32, vp])
             lib.pt_paged_decode_attention.restype = i32
+            lib.pt_flash_fwd.argtypes = [vp] * 5 + [i32] * 4 + [f32, i32,
+                                                                i32, vp]
+            lib.pt_flash_fwd.restype = i32
+            lib.pt_flash_delta.argtypes = [vp] * 3 + [ctypes.c_longlong,
+                                                      i32, i32, vp]
+            lib.pt_flash_delta.restype = i32
+            lib.pt_flash_bwd.argtypes = [vp] * 10 + [i32] * 4 + [f32, i32,
+                                                                 i32, vp]
+            lib.pt_flash_bwd.restype = i32
             _lib = lib
     return _lib
 
@@ -245,6 +287,140 @@ def paged_decode(q, k_blocks, v_blocks, tables, ctx_lens, scale):
     return out
 
 
+def _check_flash(name, tensors, dtype=None):
+    """The operand checks of the flash kernels: every tensor on one CUDA
+    device, contiguous and 16-byte aligned, of the given dtype. Entries
+    are (name, tensor) or (name, tensor, its own dtype)."""
+    dev = None
+    for entry in tensors:
+        tname, t = entry[0], entry[1]
+        want = entry[2] if len(entry) > 2 else dtype
+        if not t.is_cuda:
+            raise ValueError(f"{name} launches a CUDA kernel: {tname} is on "
+                             f"{t.device}")
+        dev = dev or t.device
+        if t.device != dev:
+            raise ValueError(f"{name}: {tname} is on {t.device}, the "
+                             f"other operands on {dev}")
+        if t.dtype != want:
+            raise TypeError(f"{name}: {tname} is {t.dtype}, expected {want}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {tname} must be contiguous")
+        if t.data_ptr() % 16:
+            # the kernels read rows with 4-lane vector loads
+            raise ValueError(f"{name}: {tname} is not 16-byte aligned")
+    return dev
+
+
+def _qkv_shapes(name, q, k, v):
+    """(BH, Sq, Sk, D) of q [B, H, Sq, D] and k/v [B, H, Sk, D]."""
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
+            or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} are not [B, H, S, D] with "
+                         f"one B, H and D")
+    B, H, Sq, D = q.shape
+    Sk = k.shape[2]
+    if D not in DH_SUPPORTED:
+        raise ValueError(f"head_dim {D} not supported by the kernel "
+                         f"(supported: {DH_SUPPORTED})")
+    if Sq < 1 or Sk < 1:
+        raise ValueError(f"{name}: empty sequence (Sq {Sq}, Sk {Sk})")
+    if B * H > 65535:
+        raise ValueError(f"{name}: B*H = {B * H} exceeds the grid's 65535")
+    return B * H, Sq, Sk, D
+
+
+def flash_fwd(q, k, v, scale, causal):
+    """K4 on the card: attention of q [B, H, Sq, D] over k/v
+    [B, H, Sk, D] (causal: bottom-right aligned). Returns (out
+    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32)."""
+    BH, Sq, Sk, D = _qkv_shapes("flash_fwd", q, k, v)
+    _check_flash("flash_fwd", (("q", q), ("k", k), ("v", v)), q.dtype)
+    out = torch.empty_like(q)
+    lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_fwd(_ptr(out), _ptr(lse), _ptr(q), _ptr(k),
+                               _ptr(v), BH, Sq, Sk, D, float(scale),
+                               int(bool(causal)), DTYPE_CODES[q.dtype],
+                               stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed (error {err}) "
+                           f"at q {tuple(q.shape)} k {tuple(k.shape)} "
+                           f"{q.dtype}")
+    FLASH_FWD.launches += 1
+    return out, lse
+
+
+def flash_delta(o, do):
+    """K6 on the card: delta = rowsum(dO * O) in float32, for o and do
+    [B, H, S, D]. Returns [B*H, S] float32."""
+    if o.dtype not in DTYPE_CODES:
+        raise TypeError(f"flash_delta takes float32 or bfloat16, got "
+                        f"{o.dtype}")
+    if o.dim() != 4 or do.shape != o.shape:
+        raise ValueError(f"flash_delta: o {tuple(o.shape)} and do "
+                         f"{tuple(do.shape)} must be one [B, H, S, D]")
+    B, H, S, D = o.shape
+    if D not in DH_SUPPORTED:
+        raise ValueError(f"head_dim {D} not supported by the kernel "
+                         f"(supported: {DH_SUPPORTED})")
+    _check_flash("flash_delta", (("o", o), ("do", do)), o.dtype)
+    delta = torch.empty(B * H, S, dtype=torch.float32, device=o.device)
+    lib = library()
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream(o.device).cuda_stream
+        err = lib.pt_flash_delta(_ptr(delta), _ptr(o), _ptr(do), B * H * S,
+                                 D, DTYPE_CODES[o.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_delta kernel launch failed (error "
+                           f"{err}) at o {tuple(o.shape)} {o.dtype}")
+    FLASH_DELTA.launches += 1
+    return delta
+
+
+def flash_bwd(q, k, v, do, lse, delta, scale, causal):
+    """K9 on the card: the fused backward of K4 given its lse and K6's
+    delta (both [B*H, Sq] float32) and the output cotangent do
+    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. dq is summed across
+    key tiles with atomics, so its last bits vary from run to run."""
+    BH, Sq, Sk, D = _qkv_shapes("flash_bwd", q, k, v)
+    if do.shape != q.shape:
+        raise ValueError(f"flash_bwd: do {tuple(do.shape)} != q "
+                         f"{tuple(q.shape)}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (BH, Sq):
+            raise ValueError(f"flash_bwd: {name} {tuple(t.shape)}, "
+                             f"expected ({BH}, {Sq})")
+    _check_flash("flash_bwd", (("q", q), ("k", k), ("v", v), ("do", do),
+                               ("lse", lse, torch.float32),
+                               ("delta", delta, torch.float32)), q.dtype)
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    dq_ws = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_bwd(_ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_ws),
+                               _ptr(q), _ptr(k), _ptr(v), _ptr(do),
+                               _ptr(lse), _ptr(delta), BH, Sq, Sk, D,
+                               float(scale), int(bool(causal)),
+                               DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd kernel launch failed (error {err}) "
+                           f"at q {tuple(q.shape)} k {tuple(k.shape)} "
+                           f"{q.dtype}")
+    FLASH_BWD.launches += 1
+    return dq, dk, dv
+
+
 __all__ = ["build", "library", "ragged_stream", "paged_decode",
+           "flash_fwd", "flash_delta", "flash_bwd",
            "reset_launch_counts", "launch_counts", "KERNELS",
-           "RAGGED_STREAM", "PAGED_DECODE"]
+           "RAGGED_STREAM", "PAGED_DECODE", "FLASH_FWD", "FLASH_DELTA",
+           "FLASH_BWD"]

@@ -2,7 +2,10 @@
 decode), dense and int8, against their plain PyTorch versions on the same
 inputs, across the shapes the serving path uses (head_dim 32/64/128,
 block sizes 4/16/128, 4 and 12 heads), plus the launch counters and a
-short decoder run on the card against the CPU.
+short decoder run on the card against the CPU; and the flash kernels K4
+(forward with LSE), K6 (delta) and K9 (fused backward) against theirs,
+causal and not, at aligned, ragged and Sq != Sk lengths, plus a tiny
+GPT-2 train step on the card against the CPU.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -12,7 +15,9 @@ conftest imports JAX, which the port's machines need not have).
 Tolerances: float32 atol=1e-4 (the kernel sums in float32 in another
 order; TF32 is off); bfloat16 atol=rtol=2e-2 against the plain version
 computed in float32 from the same bfloat16 inputs (the kernel rounds
-only its output)."""
+only its output). The flash cases hold the largest error to that
+tolerance times the plain output's largest magnitude (K9's dq is summed
+with atomics in a varying order)."""
 import numpy as np
 import pytest
 import torch
@@ -184,3 +189,101 @@ def test_decoder_on_card_matches_cpu(dev):
         out[str(d)] = (r[5].cpu(), s[5].cpu())
     for a, b in zip(out["cpu"], out[str(dev)]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=0)
+
+
+# ---- flash attention: K4, K6, K9 -------------------------------------------
+
+FLASH_SHAPES = [(2, 3, 128, 128, 32), (1, 2, 200, 200, 64),
+                (2, 2, 64, 192, 128), (1, 2, 192, 64, 64), (1, 1, 1, 1, 32)]
+
+
+def _rel_close(out, ref, tol, what):
+    err = (out.float() - ref.float()).abs().max().item()
+    scale = max(ref.float().abs().max().item(), 1e-6)
+    assert torch.isfinite(out).all(), what
+    assert err <= tol * scale, f"{what}: max abs err {err:.3g} > " \
+        f"{tol} x {scale:.3g}"
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,sq,sk,d", FLASH_SHAPES)
+def test_flash_kernels_match_plain(dev, b, h, sq, sk, d, dtype, causal):
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(sq * 7 + sk + d)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, h, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, h, sk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    sc = d ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = kernels.launch_counts()
+    out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+    delta = kernels.flash_delta(out, do)
+    dq, dk, dv = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for n in ("flash_fwd", "flash_delta", "flash_bwd"):
+        assert after[n] == before[n] + 1, n
+    f = [t.float() for t in (q, k, v, do)]
+    out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal)
+    _rel_close(out, out_p, tol, "out")
+    _rel_close(lse, lse_p, 1e-4, "lse")
+    delta_p = pf.flash_delta_plain(out.float(), f[3])
+    _rel_close(delta, delta_p, 1e-4, "delta")
+    grads_p = pf.flash_bwd_plain(f[0], f[1], f[2], f[3], lse, delta, sc,
+                                 causal)
+    for name, a, p in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p):
+        assert a.dtype == dtype
+        _rel_close(a, p, tol, name)
+
+
+def test_flash_attention_autograd_on_card_matches_cpu(dev):
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+
+    rs = np.random.RandomState(0)
+    arrs = [rs.randn(2, 2, 96, 64).astype(np.float32) for _ in range(4)]
+    res = {}
+    for d in ("cpu", dev):
+        q, k, v = (torch.from_numpy(a).to(d).requires_grad_(True)
+                   for a in arrs[:3])
+        out = flash_attention(q, k, v, causal=True)
+        out.backward(torch.from_numpy(arrs[3]).to(d))
+        res[str(d)] = [t.detach().cpu() for t in (out, q.grad, k.grad,
+                                                  v.grad)]
+    for a, b in zip(res["cpu"], res[str(dev)]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(dev):
+    """A tiny GPT-2's float32 loss and gradients on the card (K4, K6, K9:
+    one launch of each per layer) against the CPU (plain versions)."""
+    from paddle_tpu_torch.models.gpt2 import GPT2Config, build_train_step
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = GPT2Config.tiny()
+    cfg.dropout = 0.0
+    rs = np.random.RandomState(1)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 100)))
+    loss_fn, init_params = build_train_step(cfg, device="cpu")
+    weights = init_params()
+    res = {}
+    for d in ("cpu", dev):  # the same weights on both sides
+        params = {n: w.detach().to(d).requires_grad_(True)
+                  for n, w in weights.items()}
+        kernels.reset_launch_counts()
+        loss = loss_fn(params, {"input_ids": ids.to(d),
+                                "labels": ids.to(d)})
+        grads = torch.autograd.grad(loss, list(params.values()))
+        counts = kernels.launch_counts()
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads], counts)
+    assert res[str(dev)][2]["flash_fwd"] == cfg.num_layers
+    assert res[str(dev)][2]["flash_delta"] == cfg.num_layers
+    assert res[str(dev)][2]["flash_bwd"] == cfg.num_layers
+    assert res["cpu"][2]["flash_fwd"] == 0
+    assert abs(res[str(dev)][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for a, b in zip(res["cpu"][1], res[str(dev)][1]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-3)

@@ -1,0 +1,234 @@
+"""CPU twins of the port's flash attention (`paddle_tpu_torch.ops.
+flash_attention`): the plain versions of K4 (forward with LSE), K6
+(delta) and K9 (fused backward) and the `FlashAttention` autograd rule,
+held to the JAX package's Pallas kernels `_flash_fwd_lse`, `_delta_rows`,
+`_flash_bwd_fused` and its custom-vjp `flash_attention`, run in interpret
+mode as tests/test_models.py runs them, on the same float32 inputs made
+with numpy.
+
+Tolerances are the reference tests' own: forward rtol 2e-4 / atol 2e-5,
+gradients rtol 2e-3 / atol 2e-4 (both sides sum in float32 in another
+order). The reference's LSE is broadcast over 8 lanes; the port keeps
+one value per row, compared against lane 0.
+
+Causal masking: the Pallas kernels align top-left, the reference's
+`_reference_attention` bottom-right; they agree at Sq == Sk, which is
+every Pallas case here. The Sq != Sk and ragged cases are held to
+`_reference_attention` (the port takes bottom-right)."""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import paddle_tpu.ops.pallas.flash_attention as fa
+from paddle_tpu_torch.ops import flash_attention as pf
+
+torch.set_num_threads(1)
+
+FWD_TOL = dict(rtol=2e-4, atol=2e-5)
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+
+CASES = [(b, s, d, causal) for b in (1, 2) for s in (128, 256)
+         for d in (32, 64) for causal in (False, True)]
+
+
+def _ids(c):
+    b, s, d, causal = c
+    return f"b{b}-s{s}-d{d}-{'causal' if causal else 'full'}"
+
+
+def _inputs(seed, b, h, sq, sk, d, n=4):
+    """q, then n-1 more [b, h, s, d] float32 arrays (k, v at sk; the
+    rest at sq) from one numpy stream."""
+    rs = np.random.RandomState(seed)
+    shapes = [(b, h, sq, d), (b, h, sk, d), (b, h, sk, d)] + \
+        [(b, h, sq, d)] * (n - 3)
+    return [rs.randn(*sh).astype(np.float32) for sh in shapes]
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(port, ref, tol):
+    np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref),
+                               **tol)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_fwd_lse_matches_pallas(case):
+    b, s, d, causal = case
+    q, k, v = _inputs(1, b, 2, s, s, d, 3)
+    sc = d ** -0.5
+    out_r, lse_r = fa._flash_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), sc, causal, s // 2,
+                                     s // 2, True)
+    out, lse = pf.flash_fwd_lse(_t(q), _t(k), _t(v), sc, causal)
+    assert out.dtype == torch.float32 and lse.shape == (b * 2, s)
+    _close(out, out_r, FWD_TOL)
+    _close(lse, np.asarray(lse_r)[..., 0], FWD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_delta_matches_pallas(case):
+    b, s, d, _causal = case
+    o, do = _inputs(2, b, 2, s, s, d, 3)[:2]
+    ref = fa._delta_rows(jnp.asarray(o.reshape(b * 2, s, d)),
+                         jnp.asarray(do.reshape(b * 2, s, d)), True)
+    delta = pf.flash_delta(_t(o), _t(do))
+    assert delta.shape == (b * 2, s) and delta.dtype == torch.float32
+    _close(delta, np.asarray(ref)[..., 0], FWD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_fused_bwd_matches_pallas(case):
+    """The plain K9 (through `flash_bwd`, which runs the plain K6 first)
+    against `_flash_bwd_fused`, both given the reference forward's out
+    and lse."""
+    b, s, d, causal = case
+    q, k, v, g = _inputs(3, b, 2, s, s, d)
+    sc = d ** -0.5
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out_r, lse_r = fa._flash_fwd_lse(jq, jk, jv, sc, causal, s // 2, s // 2,
+                                     True)
+    ref = fa._flash_bwd_fused(jq, jk, jv, out_r, lse_r, jg, sc, causal,
+                              s // 2, s // 2, True)[:3]
+    grads = pf.flash_bwd(_t(q), _t(k), _t(v), _t(out_r),
+                         _t(np.asarray(lse_r)[..., 0]), _t(g), sc, causal)
+    for port, r in zip(grads, ref):
+        _close(port, r, GRAD_TOL)
+
+
+@pytest.mark.parametrize("case", CASES, ids=_ids)
+def test_flash_attention_autograd_matches_pallas(case):
+    """`FlashAttention` (forward K4, backward K6 + K9) against the
+    reference's custom-vjp `flash_attention`: output and the vjp of a
+    random cotangent."""
+    b, s, d, causal = case
+    q, k, v, g = _inputs(4, b, 2, s, s, d)
+    out_r, vjp = jax.vjp(
+        lambda q, k, v: fa.flash_attention(q, k, v, causal, None, s // 2,
+                                           s // 2, True),
+        *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = pf.flash_attention(tq, tk, tv, causal=causal)
+    out.backward(_t(g))
+    _close(out, out_r, FWD_TOL)
+    for port, r in zip((tq.grad, tk.grad, tv.grad), ref):
+        _close(port, r, GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_lanes_variant_forward_equals_port(monkeypatch, causal):
+    """K5 (`PADDLE_TPU_FA_LANES=1`, m/l kept over 128 lanes) computes K4's
+    function; the port has one forward, and it equals K5's output."""
+    q, k, v = _inputs(5, 2, 3, 256, 256, 64, 3)
+    sc = 64 ** -0.5
+    monkeypatch.setattr(fa, "_FA_LANES", True)
+    out_r, lse_r = fa._flash_fwd_lse(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), sc, causal, 128, 128,
+                                     True)
+    out, lse = pf.flash_fwd_lse(_t(q), _t(k), _t(v), sc, causal)
+    _close(out, out_r, FWD_TOL)
+    _close(lse, np.asarray(lse_r)[..., 0], FWD_TOL)
+
+
+@pytest.mark.parametrize("sq,sk,causal", [
+    (64, 192, True),    # more keys than queries: bottom-right offset
+    (192, 64, True),    # more queries: rows 0..127 see no key
+    (200, 200, True),   # ragged length (the Pallas gate needs S % 128)
+    (200, 200, False),
+    (100, 37, False),
+])
+def test_unaligned_lengths_match_reference_attention(sq, sk, causal):
+    """Sq != Sk and S % 128 != 0 against `_reference_attention` and its
+    autodiff: bottom-right causal alignment, and a row that sees no key
+    averages every value and passes no gradient to q or k."""
+    d = 32
+    q, k, v, g = _inputs(6, 2, 2, sq, sk, d)
+    out_r, vjp = jax.vjp(
+        lambda q, k, v: fa._reference_attention(q, k, v, d ** -0.5, causal),
+        *map(jnp.asarray, (q, k, v)))
+    ref = vjp(jnp.asarray(g))
+    tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+    out = pf.flash_attention(tq, tk, tv, causal=causal)
+    out.backward(_t(g))
+    _close(out, out_r, FWD_TOL)
+    for port, r in zip((tq.grad, tk.grad, tv.grad), ref):
+        _close(port, r, GRAD_TOL)
+    if causal and sq > sk:
+        dead = sq - sk
+        np.testing.assert_allclose(out[:, :, :dead].detach().numpy(),
+                                   np.broadcast_to(v.mean(2, keepdims=True),
+                                                   (2, 2, dead, d)),
+                                   **FWD_TOL)
+        assert (tq.grad[:, :, :dead] == 0).all()
+
+
+def test_sdpa_matches_reference_op():
+    """The port's `scaled_dot_product_attention` (prescaled q, kernels at
+    scale 1.0) against the reference op on the CPU (its XLA path), with
+    gradients."""
+    import paddle_tpu.ops.attention as ra
+
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    q, k, v, g = _inputs(7, 2, 3, 128, 128, 32)
+    for causal in (False, True):
+        out_r, vjp = jax.vjp(
+            lambda q, k, v: ra._xla_attention(q, k, v, None, None,
+                                              causal)[0],
+            *map(jnp.asarray, (q, k, v)))
+        ref = vjp(jnp.asarray(g))
+        tq, tk, tv = (_t(x).requires_grad_(True) for x in (q, k, v))
+        out, w = scaled_dot_product_attention(tq, tk, tv, is_causal=causal)
+        assert w is None
+        out.backward(_t(g))
+        _close(out, out_r, FWD_TOL)
+        for port, r in zip((tq.grad, tk.grad, tv.grad), ref):
+            _close(port, r, GRAD_TOL)
+
+
+def test_sdpa_prescales_q_in_its_dtype():
+    """bf16: the op feeds the kernel (q * scale) rounded to bf16 at scale
+    1.0, as the reference does — not q at scale D**-0.5."""
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    q, k, v = (_t(x).bfloat16() for x in _inputs(8, 1, 2, 64, 64, 64, 3))
+    out, _ = scaled_dot_product_attention(q, k, v, is_causal=True)
+    want = pf.flash_attention((q * 64 ** -0.5).bfloat16(), k, v, True, 1.0)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("kw", [
+    {"attn_mask": torch.zeros(1, 1, 1, 16)}, {"dropout_p": 0.1},
+    {"return_weights": True}], ids=["mask", "dropout", "weights"])
+def test_sdpa_refuses_what_the_kernels_do_not_take(kw):
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    q = torch.zeros(1, 2, 16, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        scaled_dot_product_attention(q, q, q, **kw)
+
+
+def test_wrappers_refuse_cpu_tensors():
+    """The flash kernel wrappers launch or raise; the plain versions live
+    in ops.flash_attention."""
+    from paddle_tpu_torch.ops import kernels
+
+    q = torch.zeros(1, 2, 16, 32)
+    lse = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.flash_fwd(q, q, q, 1.0, True)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.flash_delta(q, q)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.flash_bwd(q, q, q, q, lse, lse, 1.0, True)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        kernels.flash_fwd(torch.zeros(1, 2, 16, 48),
+                          torch.zeros(1, 2, 16, 48),
+                          torch.zeros(1, 2, 16, 48), 1.0, True)

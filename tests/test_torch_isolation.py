@@ -82,13 +82,15 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 
 
 @pytest.mark.parametrize("entry", ["resolve_device", "GPT2", "PagedKVCache",
-                                   "PagedGenerationServer"])
+                                   "PagedGenerationServer",
+                                   "build_train_step", "AdamW"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import PagedGenerationServer, PagedKVCache
-    from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.models import GPT2, GPT2Config, build_train_step
+    from paddle_tpu_torch.optimizer import AdamW
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GPT2Config(vocab_size=32, hidden_size=32, num_layers=1,
@@ -101,6 +103,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
                                                   num_blocks=4, **kw),
         "PagedGenerationServer": lambda **kw: PagedGenerationServer(
             model, max_slots=1, block_size=4, max_new_tokens=2, **kw),
+        "build_train_step": lambda **kw: build_train_step(cfg, **kw),
+        "AdamW": lambda **kw: AdamW(1e-4, **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
