@@ -57,7 +57,43 @@ non-zero before the result line:
                last loss. Fails on a non-finite loss, a last loss not
                below the first, or K4/K6/K9 launching other than
                12 x steps times in the measured steps;
-  7. the kernels line (JSON), the card line, and as the last line
+  3c. bias flash — K4 bias (forward with a per-key bias) and K9 bias
+               (fused backward with dbias), with K6 between them, against
+               their plain versions, bf16 and f32: at BERT-large's
+               attention shape (B=16, H=16, S=512, D=64, not causal) with
+               a per-row padding mask from lengths in 128-512; a ragged
+               causal one (B=2, H=4, S=300, D=32); Sq != Sk (256 x 384);
+               a [1, Sk] bias broadcast over the batch; and a batch row
+               that is fully masked (not causal and causal). out, lse, dq,
+               dk, dv and dbias within phase 3b's tolerances. Times at the
+               main shape in bf16: the kernel, the plain version, and as
+               `library_ms` F.scaled_dot_product_attention with attn_mask
+               = bias[:, None, None, :] (its forward; its backward through
+               torch.autograd.grad);
+  4d. BERT train parity — BERT-large width and depth, float32 (TF32 off),
+               batch 2 x 128 padded to lengths 128 and 77, MLM labels from
+               the port's create_mlm_batch plus NSP labels: two AdamW steps
+               through pretraining_loss(..., attention_mask=...) on the card
+               and on the CPU from the same weights, with phase 4c's limits
+               (a gradient whose exact value is zero — the k_proj biases —
+               is held to 1e-3 of the step's largest gradient); K4 bias, K6
+               and K9 bias launch exactly num_layers times per step on the
+               card, the unbiased K4/K9 never;
+  6b. BERT training — BERT-large, bf16 compute on float32 masters,
+               AdamW (lr 1e-4, wd 0.01), dropout 0, batch 16 x 512 padded
+               with lengths from np.random.RandomState(0) in 128-512 (pad
+               id 0; token types 0 for the first half of each sequence, 1
+               after; MLM labels from create_mlm_batch(mask_prob=0.15);
+               random NSP labels): 2 warm and 13 measured steps (at this
+               constant lr without warmup, post-LN BERT-large's loss spikes
+               at step 2 and falls below its start only from step 9 on —
+               in the kernels, the plain attention and float32 alike);
+               tokens/s (padded tokens, as bench.py counts them), ms per
+               step (CUDA events), peak memory, first and last loss. Fails
+               on a non-finite loss, a last loss not below the first, or
+               K4 bias/K6/K9 bias launching other than 24 x steps times;
+  7. the kernels line (JSON; flash_delta's launches are phases 6 and 6b
+     together), the card line, and as the last line
      {"ok": true, "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
@@ -65,7 +101,8 @@ input read once, each output written once; only the K/V positions this
 run's lengths reach) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (the
 H100 SXM bf16 dense peak, applied to the float32 SIMT kernels too), from
 this run's inputs. Flash FLOPs count only the (query, key) pairs the
-causal mask leaves visible.
+causal mask leaves visible; the bias variants count every pair (the bias
+is data, not structure).
 """
 import json
 import os
@@ -81,12 +118,18 @@ PEAK_FLOPS = 989e12
 REPO = os.path.dirname(os.path.abspath(__file__))
 K1_REPLACES = "paddle_tpu/ops/pallas/unified_attention.py:206"
 K2_REPLACES = "paddle_tpu/ops/pallas/unified_attention.py:327"
-FLASH_REPLACES = {"flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:228",
-                  "flash_delta": "paddle_tpu/ops/pallas/flash_attention.py:483",
-                  "flash_bwd": "paddle_tpu/ops/pallas/flash_attention.py:504"}
+FLASH_REPLACES = {
+    "flash_fwd": "paddle_tpu/ops/pallas/flash_attention.py:228",
+    "flash_delta": "paddle_tpu/ops/pallas/flash_attention.py:483",
+    "flash_bwd": "paddle_tpu/ops/pallas/flash_attention.py:504",
+    "flash_fwd_bias":
+        "paddle_tpu/ops/pallas/flash_attention.py:228 (has_bias)",
+    "flash_bwd_bias":
+        "paddle_tpu/ops/pallas/flash_attention.py:504 (has_bias)"}
 SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
+FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
 DEV = "cuda"  # the card every phase runs on (the CPU is the other side
 # of the phase 4 comparison)
 
@@ -399,6 +442,107 @@ def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
     return rows
 
 
+# ---- phase 3c: per-key-bias flash kernels -------------------------------------
+
+def _key_bias(torch, kind, b, sk, seed, lo):
+    """float32 per-key bias: padding masks (0 / -1e30) from lengths in
+    [lo, sk] ("lengths"), the same with batch row 0 fully masked
+    ("dead_row"), or one random row broadcast over the batch
+    ("broadcast")."""
+    rs = np.random.RandomState(seed)
+    if kind == "broadcast":
+        return torch.from_numpy(rs.randn(1, sk).astype(np.float32)).to(DEV)
+    lens = rs.randint(lo, sk + 1, b)
+    if kind == "dead_row":
+        lens[0] = 0
+    bias = np.where(np.arange(sk)[None] < lens[:, None], 0.0, -1e30)
+    return torch.from_numpy(bias.astype(np.float32)).to(DEV)
+
+
+def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
+                    seed, timed):
+    """K4 bias, K6 and K9 bias against their plain versions (float32,
+    from the same inputs); with `timed`, the kernel, plain and library
+    times and the bounds. Returns {kernel name: row} or fails."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=DEV).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=DEV).to(dtype)
+            for _ in range(2))
+    # the main shape's lengths are BERT's padded batch (128-512)
+    bias = _key_bias(torch, kind, b, sk, seed, 128 if sk == 512 else sk // 4)
+    sc = d ** -0.5
+    out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+    delta = kernels.flash_delta(out, do)
+    grads = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
+    torch.cuda.synchronize()
+    f = [t.float() for t in (q, k, v, do)]
+    out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal,
+                                          bias)
+    grads_p = pf.flash_bwd_plain(f[0], f[1], f[2], f[3], lse, delta, sc,
+                                 causal, bias)
+    tag = (f"B{b} H{h} Sq{sq} Sk{sk} D{d} {'causal' if causal else 'full'} "
+           f"{kind} {str(dtype).split('.')[-1]}")
+    live = lse_p > -1e29  # a fully masked row's lse is the -1e30 fill
+    if not (lse[~live] <= -1e29).all().item():
+        fail(f"phase 3c {tag}: a fully masked row's lse is not the fill")
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    checks = {"out": (out, out_p, tol), "lse": (lse[live], lse_p[live], 1e-4)}
+    for name, a, p in zip(("dq", "dk", "dv", "dbias"), grads, grads_p):
+        checks[name] = (a, p, tol)
+    errs = {}
+    for name, (a, p, t) in checks.items():
+        err, rel = _rel_err(a, p)
+        errs[name] = err
+        if not torch.isfinite(a).all().item() or rel > t:
+            fail(f"phase 3c {tag}: {name} disagrees with plain (max abs "
+                 f"err {err:.3g}, {rel:.3g} of its magnitude > {t})")
+    say(f"phase 3c {tag}: max abs err " + " ".join(
+        f"{n} {e:.3g}" for n, e in errs.items()))
+    rows = {"flash_fwd_bias": {"max_abs_err": max(errs["out"], errs["lse"])},
+            "flash_bwd_bias": {"max_abs_err": max(
+                errs["dq"], errs["dk"], errs["dv"], errs["dbias"])}}
+    if not timed:
+        return rows
+    del out_p, lse_p, grads_p, f
+    fw, bw = rows["flash_fwd_bias"], rows["flash_bwd_bias"]
+    fw["ms"] = timer.ms(lambda: kernels.flash_fwd_bias(q, k, v, bias, sc,
+                                                       causal))
+    fw["plain_ms"] = timer.ms(lambda: pf.flash_fwd_lse_plain(
+        q, k, v, sc, causal, bias), reps=10)
+    mask = bias.to(dtype)[:, None, None, :]
+    fw["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, is_causal=causal, scale=sc))
+    bw["ms"] = timer.ms(lambda: kernels.flash_bwd_bias(
+        q, k, v, do, lse, delta, bias, sc, causal))
+    bw["plain_ms"] = timer.ms(lambda: pf.flash_bwd_plain(
+        q, k, v, do, lse, delta, sc, causal, bias), reps=10)
+    lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                        is_causal=causal, scale=sc)
+    bw["library_ms"] = timer.ms(lambda: torch.autograd.grad(
+        lo, (lq, lk, lv), do, retain_graph=True))
+    # every (query, key) pair counts: the bias is data, not structure
+    e, bh, pairs = q.element_size(), b * h, sq * sk
+    qv = bh * sq * d * e   # bytes of q (and out, do, dq)
+    kv = bh * sk * d * e   # bytes of k (and v, dk, dv)
+    nb = bias.numel() * 4
+    fw.update(_bound(2 * qv + 2 * kv + 4 * bh * sq + nb,
+                     4 * bh * d * pairs))
+    bw.update(_bound(3 * qv + 4 * kv + 8 * bh * sq + nb + 4 * bh * sk,
+                     10 * bh * d * pairs))
+    for name, r in rows.items():
+        say(f"phase 3c {name} {tag}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
 # ---- phases 4c and 6: training ---------------------------------------------
 
 def _batch(torch, cfg, b, s, seed, dev):
@@ -509,6 +653,147 @@ def train_throughput(torch, cfg, batch_size=16, seq=1024, warm=2, steps=5):
             "tokens_per_sec": batch_size * seq * steps / (ms * steps / 1e3),
             "wall_s": wall, "peak": torch.cuda.max_memory_allocated(),
             "counts": counts}
+
+
+# ---- phases 4d and 6b: BERT training ------------------------------------------
+
+def bert_batch(torch, cfg, lens, seq, seed, dev):
+    """A padded pretraining batch: random ids (pad id 0 past each length),
+    token types 0 for the first half of each sequence and 1 after, MLM
+    labels from create_mlm_batch (mask id 103) and random NSP labels.
+    Returns the pretraining_loss arguments (input_ids, labels,
+    next_sentence_label, token_type_ids, attention_mask)."""
+    from paddle_tpu_torch.models.bert import create_mlm_batch
+
+    rs = np.random.RandomState(seed)
+    lens = np.asarray(lens)
+    am = (np.arange(seq)[None] < lens[:, None]).astype(np.int32)
+    ids = rs.randint(1, cfg.vocab_size, am.shape).astype(np.int32) * am
+    tt = (np.arange(seq)[None] >= lens[:, None] // 2).astype(np.int32)
+    masked, labels = create_mlm_batch(ids, cfg.vocab_size, 103,
+                                      mask_prob=0.15, seed=seed)
+    nsp = rs.randint(0, 2, (len(lens),)).astype(np.int32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(dev)
+                 for a in (masked, labels, nsp, tt, am))
+
+
+def bert_amp_train_step(torch, cfg, batch, lr=1e-4):
+    """The mixed-precision BERT step on the card: the model's float32
+    parameters are the masters; bf16 copies made inside the autograd
+    graph are bound through functional_call for pretraining_loss on the
+    padded batch (attention mask included); the loss is cast to float32;
+    AdamW (wd 0.01) updates the masters in float32. Returns step() -> the
+    loss tensor."""
+    from paddle_tpu_torch.models.bert import Bert, pretraining_loss_with
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = Bert(cfg, device=DEV)
+    model.train()
+    masters = dict(model.named_parameters())
+    opt = AdamW(lr, weight_decay=0.01, device=DEV)
+    state = opt.functional_init(masters)
+
+    def step():
+        low = {n: p.to(torch.bfloat16) for n, p in masters.items()}
+        loss = pretraining_loss_with(model, low, *batch).float()
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        opt.functional_update(masters, dict(zip(masters, grads)), state)
+        return loss.detach()
+
+    return step
+
+
+def bert_train_parity(torch, cfg, lr=1e-4, steps=2):
+    """Phase 4d: float32 AdamW steps through pretraining_loss on a padded
+    batch, on the card and on the CPU from the same weights. Returns the
+    worst (loss, gradient, parameter) differences."""
+    from paddle_tpu_torch.models.bert import Bert, pretraining_loss_with
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    models = {DEV: Bert(cfg, device=DEV), "cpu": Bert(cfg, device="cpu")}
+    params = {DEV: {n: p.detach().clone().requires_grad_(True)
+                    for n, p in models[DEV].named_parameters()}}
+    params["cpu"] = {n: p.detach().cpu().requires_grad_(True)
+                     for n, p in params[DEV].items()}
+    opts = {d: AdamW(lr, weight_decay=0.01, device=d) for d in params}
+    states = {d: opts[d].functional_init(params[d]) for d in params}
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for step in range(steps):
+        out = {}
+        for d in (DEV, "cpu"):
+            batch = bert_batch(torch, cfg, [128, 77], 128, 21 + step, d)
+            kernels.reset_launch_counts()
+            loss = pretraining_loss_with(models[d], params[d], *batch)
+            grads = torch.autograd.grad(loss, list(params[d].values()))
+            counts = kernels.launch_counts()
+            opts[d].functional_update(params[d], dict(zip(params[d], grads)),
+                                      states[d])
+            out[d] = (loss.item(), grads, counts)
+        counts = out[DEV][2]
+        for n in FLASH_BIAS:
+            if counts[n] != cfg.num_layers:
+                fail(f"phase 4d step {step}: {n} launched {counts[n]} "
+                     f"times, expected {cfg.num_layers}")
+        if counts["flash_fwd"] or counts["flash_bwd"]:
+            fail(f"phase 4d step {step}: the unbiased kernels ran {counts}")
+        rel = abs(out[DEV][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        worst["loss"] = max(worst["loss"], rel)
+        if rel > 1e-4:
+            fail(f"phase 4d step {step}: loss {out[DEV][0]} vs CPU "
+                 f"{out['cpu'][0]} (relative {rel:.3g} > 1e-4)")
+        # a gradient whose exact value is zero (the k_proj biases: softmax
+        # is shift-invariant) is rounding noise on both sides: its scale
+        # is taken as at least 1e-3 of the step's largest gradient
+        floor = 1e-3 * max(g.abs().max().item() for g in out["cpu"][1])
+        for name, a, c in zip(params[DEV], out[DEV][1], out["cpu"][1]):
+            err = (a.cpu() - c).abs().max().item()
+            r = err / max(c.abs().max().item(), floor)
+            worst["grad"] = max(worst["grad"], r)
+            if r > 1e-3:
+                fail(f"phase 4d step {step}: gradient {name} differs by "
+                     f"{r:.3g} of its magnitude (> 1e-3)")
+    limit = 2 * lr * steps + 1e-6
+    for name, p in params[DEV].items():
+        diff = (p.detach().cpu() - params["cpu"][name].detach()).abs().max()
+        worst["param"] = max(worst["param"], diff.item())
+        if diff.item() > limit:
+            fail(f"phase 4d: parameter {name} differs by {diff.item():.3g} "
+                 f"after {steps} steps (> {limit:.3g})")
+    return worst
+
+
+def bert_lengths(batch_size, seq):
+    """Phase 6b's padded lengths: uniform in 128..seq from RandomState(0)."""
+    return np.random.RandomState(0).randint(128, seq + 1, batch_size)
+
+
+def bert_train_throughput(torch, cfg, batch_size=16, seq=512, warm=2,
+                          steps=5):
+    """Phase 6b: the mixed-precision BERT step on a padded batch; returns
+    the measured numbers and the launch counts of the measured steps."""
+    from paddle_tpu_torch.ops import kernels
+
+    lens = bert_lengths(batch_size, seq)
+    step = bert_amp_train_step(torch, cfg, bert_batch(torch, cfg, lens, seq,
+                                                      0, DEV))
+    losses = [step().item() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()                          # main path
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    measured = [step() for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    counts = kernels.launch_counts()
+    losses += [x.item() for x in measured]
+    ms = start.elapsed_time(end) / steps
+    return {"losses": losses, "ms_per_step": ms,
+            "tokens_per_sec": batch_size * seq / (ms / 1e3),
+            "real_tokens": int(lens.sum()),
+            "peak": torch.cuda.max_memory_allocated(), "counts": counts}
 
 
 # ---- phase 4: decoder parity across devices --------------------------------
@@ -714,6 +999,22 @@ def main():
                 rows.update(r)
     torch.cuda.empty_cache()
 
+    # phase 3c: per-key-bias flash kernels vs plain
+    for b, h, sq, sk, d, causal, kind in (
+            (16, 16, 512, 512, 64, False, "lengths"),
+            (2, 4, 300, 300, 32, True, "lengths"),
+            (2, 4, 256, 384, 64, False, "lengths"),
+            (2, 4, 256, 256, 64, False, "broadcast"),
+            (2, 4, 256, 256, 32, False, "dead_row"),
+            (2, 4, 256, 256, 32, True, "dead_row")):
+        for dtype in (torch.bfloat16, torch.float32):
+            timed = b == 16 and dtype == torch.bfloat16
+            r = bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind,
+                                dtype, b * sq + sk + d, timed)
+            if timed:
+                rows.update(r)
+    torch.cuda.empty_cache()
+
     # phase 4: decoder parity, GPT-2 small float32, card vs CPU
     cfg = GPT2Config()  # GPT-2 small, full width and depth
     model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
@@ -745,6 +1046,22 @@ def main():
         f"{worst['grad']:.3g} of its magnitude (limit 1e-3), worst "
         f"parameter diff {worst['param']:.3g} (limit 4.01e-4), K4/K6/K9 "
         f"12 launches each per step, {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # phase 4d: BERT training parity, BERT-large float32, card vs CPU
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    bert_cfg = BertConfig.large()
+    bert_cfg.dropout = 0.0
+    t0 = time.perf_counter()
+    worst = bert_train_parity(torch, bert_cfg)
+    say(f"phase 4d BERT-large ({bert_cfg.num_layers} layers) train parity "
+        f"f32 B2 S128 lengths 128/77, 2 AdamW steps: loss rel diff "
+        f"{worst['loss']:.3g} (limit 1e-4), worst gradient diff "
+        f"{worst['grad']:.3g} of its magnitude (limit 1e-3), worst "
+        f"parameter diff {worst['param']:.3g} (limit 4.01e-4), K4 bias/K6/"
+        f"K9 bias {bert_cfg.num_layers} launches each per step, unbiased "
+        f"K4/K9 none, {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
     # phase 5: serving, GPT-2 small bf16
@@ -793,6 +1110,33 @@ def main():
         f"max_memory_allocated {tr['peak'] / 2**20:.0f} MiB loss "
         f"{losses[0]:.4f} -> {losses[-1]:.4f} launches "
         f"{ {n: tr['counts'][n] for n in FLASH} } [{card}]")
+    torch.cuda.empty_cache()
+
+    # phase 6b: BERT-large training on padded batches, bf16 on f32 masters;
+    # 13 measured steps, so the loss is read past its early spike
+    steps = 13
+    tr = bert_train_throughput(torch, bert_cfg, steps=steps)
+    losses = tr["losses"]
+    if not all(np.isfinite(losses)):
+        fail(f"phase 6b: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 6b: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for n in FLASH_BIAS:
+        want = bert_cfg.num_layers * steps
+        if tr["counts"][n] != want:
+            fail(f"phase 6b: {n} launched {tr['counts'][n]} times in "
+                 f"{steps} steps, expected {want}")
+    main_counts["flash_fwd_bias"] = tr["counts"]["flash_fwd_bias"]
+    main_counts["flash_bwd_bias"] = tr["counts"]["flash_bwd_bias"]
+    main_counts["flash_delta"] += tr["counts"]["flash_delta"]
+    say(f"phase 6b BERT-large training B16 S512 (padded; {tr['real_tokens']} "
+        f"real tokens a step) bf16/f32-master AdamW: tokens_per_sec "
+        f"{tr['tokens_per_sec']:.1f} ms_per_step {tr['ms_per_step']:.2f} "
+        f"max_memory_allocated {tr['peak'] / 2**20:.0f} MiB loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} launches "
+        f"{ {n: tr['counts'][n] for n in FLASH_BIAS} } unbiased "
+        f"{ {n: tr['counts'][n] for n in ('flash_fwd', 'flash_bwd')} } "
+        f"[{card}]")
 
     # phase 7: the kernels line
     out = []
@@ -809,7 +1153,7 @@ def main():
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-    for name in FLASH:
+    for name in FLASH + ("flash_fwd_bias", "flash_bwd_bias"):
         r = rows[name]
         if main_counts[name] <= 0:
             fail(f"{name} was not launched on the main path")

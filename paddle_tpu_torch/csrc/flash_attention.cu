@@ -14,17 +14,35 @@
 //      key tiles. `tile_p_ds` below is the one place where the backward
 //      recomputes p = exp(s - lse) and forms ds = p * (dO.v - delta), as
 //      the TPU kernels' `_tile_p_ds`.
+// K4 and K9 are templated on `HasBias`: the `has_bias` variants that
+// `flash_attention_bias` reaches. The bias is one float32 row per batch
+// entry, bias [B or 1, Sk]; block bh reads row (bh / H) * bias_bstride
+// (bstride 0 broadcasts one row over the batch) and adds it to s * scale
+// before the softmax. The TPU code tiles it to [BH, 8, Sk] for its
+// (8, 128) layout (`_tile_bias`); here it is read in place. K9 bias also
+// writes dbias [BH, Sk] float32: the column sums of ds, which each block
+// owns for its key tile (it loops over every q tile), so they are summed
+// in registers and written once, without atomics; the sums over heads and
+// a broadcast batch are the caller's, as in the reference (`_fab_bwd`).
 // The TPU code picks K9 over its two-kernel backward (K7 + K8) by a VMEM
 // rule (`_fa_bwd`: sq * d * 10 <= 8 MB). K9 here keeps only one q tile and
 // one key tile in shared memory, so it has no length limit and the port
-// has no such rule; K7/K8 are not ported in this slice.
+// has no such rule; K7/K8 are not ported.
 //
 // Causal masking is BOTTOM-RIGHT aligned: query i sees key j iff
 // j <= i + (Sk - Sq) — what the reference computes off the TPU
 // (`_reference_attention`, `ops/attention.py` `_xla_attention`); the TPU
 // kernels align top-left, and the two agree when Sq == Sk. A row that sees
 // no key (causal, Sq > Sk) gets the reference's answer for its all--1e30
-// score row: the uniform average of every value, and no gradient to q or k.
+// score row: the uniform average of every value, and no gradient to q or k
+// (nor to the bias, which such a row ignores). A FULLY MASKED row — one
+// whose every visible key carries a bias of -1e30, e.g. a padded batch
+// row with no real token — follows the reference's XLA path: uniform
+// weights over the keys it sees, and the gradients of softmax at those
+// weights (which reach q, k and the bias). Its LSE, -1e30 + log n, rounds
+// to -1e30 in float32, so exp(s - lse) would recompute p = 1 instead of
+// 1/n (what the TPU kernel's `_tile_p_ds` does): the backward takes
+// lse <= -1e29 as the mark of such a row and uses p = 1 / (keys it sees).
 // Tail tiles are masked, so any Sq, Sk >= 1 is taken; D is 32, 64 or 128.
 //
 // What bounds them on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s):
@@ -32,6 +50,7 @@
 //   q, k, v, out and lse; at GPT-2-small training shapes (BH 192, S 1024,
 //   D 64, causal) both bounds are ~0.03 ms. K9 does 10 * BH * D * pairs
 //   FLOPs (~0.065 ms there): operations. K6 reads o and dO once: bytes.
+//   The bias adds B * Sk floats to read (and BH * Sk to write in K9).
 //
 // What the design does about it (a first, plain kernel: float32 SIMT
 // products, no tensor cores yet, so K4 and K9 run far from their bounds):
@@ -44,7 +63,7 @@
 //     shared-memory load feeds two FMAs; padded pitches keep the column
 //     reads free of bank conflicts.
 //   * The online softmax (m, l, acc) lives in registers in float32; dk/dv
-//     accumulate in registers in float32 across the q loop.
+//     (and dbias) accumulate in registers in float32 across the q loop.
 //   * dq is summed across key tiles with float32 atomicAdd into a zeroed
 //     [BH, Sq, D] workspace, then scaled and cast by a second small
 //     kernel. The order of that sum changes from run to run, so dq is not
@@ -67,12 +86,16 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kTR = kBQ / 16;  // score rows per thread
 constexpr int kTC = kBK / 16;  // score columns per thread
 constexpr int kPP = kBK + 1;   // pitch of the score tiles in shared memory
+// A row's LSE at or below this marks it fully masked (see the top).
+constexpr float kMaskedLse = -1e29f;
 
 struct Shape {
   int Sq, Sk;
   int off;  // Sk - Sq: the bottom-right causal alignment
   int causal;
   float scale;
+  int H;             // heads: block bh reads bias row bh / H
+  int bias_bstride;  // Sk, or 0 for one bias row broadcast over the batch
 };
 
 __device__ __forceinline__ bool visible(const Shape& sh, int i, int j) {
@@ -82,6 +105,18 @@ __device__ __forceinline__ bool visible(const Shape& sh, int i, int j) {
 // A query row that sees no key at all (causal with Sq > Sk).
 __device__ __forceinline__ bool dead_row(const Shape& sh, int i) {
   return sh.causal && i + sh.off < 0;
+}
+
+// How many keys query row i sees (>= 1 unless the row is dead).
+__device__ __forceinline__ int visible_keys(const Shape& sh, int i) {
+  return sh.causal ? min(sh.Sk, i + sh.off + 1) : sh.Sk;
+}
+
+// The bias row of block bh (nullptr without a bias).
+__device__ __forceinline__ const float* bias_row(const float* bias,
+                                                 const Shape& sh,
+                                                 int64_t bh) {
+  return bias ? bias + (bh / sh.H) * sh.bias_bstride : nullptr;
 }
 
 // Rows r0 .. r0+rows-1 of a [S, D] matrix into shared memory as float
@@ -114,11 +149,12 @@ __device__ __forceinline__ float row_sum(float v) {
 
 // ---- K4: forward with LSE -------------------------------------------------
 
-template <typename T, int D>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
                  const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, Shape sh) {
+                 const T* __restrict__ v, const float* __restrict__ bias,
+                 Shape sh) {
   constexpr int DP = D + 1;
   constexpr int NA = D / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -126,12 +162,14 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
   float* k_s = q_s + kBQ * DP;   // [kBK][DP]
   float* v_s = k_s + kBK * DP;   // [kBK][DP]
   float* p_s = v_s + kBK * DP;   // [kBQ][kPP]
+  float* b_s = p_s + kBQ * kPP;  // [kBK], HasBias only
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * kBQ;
   const int64_t bh = blockIdx.y;
   const T* kb = k + bh * sh.Sk * D;
   const T* vb = v + bh * sh.Sk * D;
+  const float* brow = bias_row(bias, sh, bh);
   load_tile<T, D>(q_s, q + bh * sh.Sq * D, q0, sh.Sq, kBQ);
 
   // keys up to the causal horizon of the tile's last row; a tile that
@@ -153,6 +191,8 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
     __syncthreads();  // the previous tile's k_s / v_s / p_s reads are done
     load_tile<T, D>(k_s, kb, k0, sh.Sk, kBK);
     load_tile<T, D>(v_s, vb, k0, sh.Sk, kBK);
+    if (HasBias && tid < kBK)
+      b_s[tid] = k0 + tid < sh.Sk ? brow[k0 + tid] : 0.f;
     __syncthreads();
     float s[kTR][kTC];
 #pragma unroll
@@ -179,9 +219,17 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
       for (int c = 0; c < kTC; ++c) {
         const int j = k0 + tx + 16 * c;
         float x;
-        if (j >= sh.Sk) x = -INFINITY;                // past the end: no weight
-        else if (!visible(sh, i, j)) x = kNegInf;     // the reference's fill
-        else x = s[r][c] * sh.scale;
+        if (j >= sh.Sk) {
+          x = -INFINITY;                              // past the end: no weight
+        } else if (!visible(sh, i, j)) {
+          // a dead row averages every key (the reference's -1e30 fill);
+          // a hidden key of any other row has no weight, below even a
+          // key masked by a -1e30 bias
+          x = dead_row(sh, i) ? kNegInf : -INFINITY;
+        } else {
+          x = s[r][c] * sh.scale;
+          if (HasBias) x += b_s[tx + 16 * c];
+        }
         s[r][c] = x;
         tmax = fmaxf(tmax, x);
       }
@@ -249,13 +297,17 @@ flash_delta_kernel(float* __restrict__ delta, const T* __restrict__ o,
 // ---- K9: fused backward -------------------------------------------------------
 
 // The backward's tile math for score (i, j), in one place (the TPU
-// kernels' `_tile_p_ds`): p = exp(s * scale - lse) from the stored LSE and
-// ds = p * (dp - delta), where s = q_i.k_j and dp = dO_i.v_j. Masked and
-// out-of-range entries get p = ds = 0; a dead row gets the uniform
-// p = 1 / Sk of the reference's constant fill and ds = 0.
+// kernels' `_tile_p_ds`): p = exp(s * scale + bias_j - lse) from the
+// stored LSE and ds = p * (dp - delta), where s = q_i.k_j and dp =
+// dO_i.v_j. Masked and out-of-range entries get p = ds = 0; a dead row
+// gets the uniform p = 1 / Sk of the reference's constant fill and
+// ds = 0; a fully masked row (lse <= kMaskedLse) gets p = 1 / (keys it
+// sees) and the usual ds.
+template <bool HasBias>
 __device__ __forceinline__ void tile_p_ds(const Shape& sh, int i, int j,
-                                          float s, float dp, float lse,
-                                          float delta, float& p, float& ds) {
+                                          float s, float bias, float dp,
+                                          float lse, float delta, float& p,
+                                          float& ds) {
   if (i >= sh.Sq || j >= sh.Sk) {
     p = 0.f;
     ds = 0.f;
@@ -266,18 +318,23 @@ __device__ __forceinline__ void tile_p_ds(const Shape& sh, int i, int j,
     p = 0.f;
     ds = 0.f;
   } else {
-    p = expf(s * sh.scale - lse);
+    if (lse <= kMaskedLse)
+      p = 1.f / static_cast<float>(visible_keys(sh, i));
+    else
+      p = HasBias ? expf(s * sh.scale + bias - lse) : expf(s * sh.scale - lse);
     ds = p * (dp - delta);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
-                 T* __restrict__ dv, const T* __restrict__ q,
-                 const T* __restrict__ k, const T* __restrict__ v,
-                 const T* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ delta, Shape sh) {
+                 T* __restrict__ dv, float* __restrict__ dbias,
+                 const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, const T* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta,
+                 const float* __restrict__ bias, Shape sh) {
   constexpr int DP = D + 1;
   constexpr int NA = D / 16;
   extern __shared__ float smem[];
@@ -289,6 +346,7 @@ flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
   float* ds_s = p_s + kBQ * kPP;   // [kBQ][kPP]
   float* lse_s = ds_s + kBQ * kPP; // [kBQ]
   float* dl_s = lse_s + kBQ;       // [kBQ]
+  float* b_s = dl_s + kBQ;         // [kBK], HasBias only
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int k0 = blockIdx.x * kBK;
@@ -297,18 +355,25 @@ flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
   const T* dob = dout + bh * sh.Sq * D;
   load_tile<T, D>(k_s, k + bh * sh.Sk * D, k0, sh.Sk, kBK);
   load_tile<T, D>(v_s, v + bh * sh.Sk * D, k0, sh.Sk, kBK);
+  if (HasBias && tid < kBK) {
+    const float* brow = bias_row(bias, sh, bh);
+    b_s[tid] = k0 + tid < sh.Sk ? brow[k0 + tid] : 0.f;
+  }
 
   // the first q tile that reaches key k0 (query i sees it iff
   // i >= k0 - off); with Sq > Sk the dead rows join every key tile
   int qstart = 0;
   if (sh.causal && sh.off >= 0) qstart = max(0, k0 - sh.off) / kBQ * kBQ;
 
-  // this thread's keys ty*kTR + r and dims tx + 16a
-  float dk_acc[kTR][NA], dv_acc[kTR][NA];
+  // this thread's keys ty*kTR + r and dims tx + 16a; db_acc: the column
+  // sums of ds for those keys (every tx of a ty sums the same column)
+  float dk_acc[kTR][NA], dv_acc[kTR][NA], db_acc[kTR];
 #pragma unroll
-  for (int r = 0; r < kTR; ++r)
+  for (int r = 0; r < kTR; ++r) {
+    db_acc[r] = 0.f;
 #pragma unroll
     for (int a = 0; a < NA; ++a) dk_acc[r][a] = dv_acc[r][a] = 0.f;
+  }
 
   for (int q0 = qstart; q0 < sh.Sq; q0 += kBQ) {
     __syncthreads();  // the previous q tile's reads are done
@@ -355,8 +420,9 @@ flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
       for (int c = 0; c < kTC; ++c) {
         const int col = tx + 16 * c;
         float p, ds;
-        tile_p_ds(sh, q0 + row, k0 + col, s[r][c], dp[r][c], lse_s[row],
-                  dl_s[row], p, ds);
+        tile_p_ds<HasBias>(sh, q0 + row, k0 + col, s[r][c],
+                           HasBias ? b_s[col] : 0.f, dp[r][c], lse_s[row],
+                           dl_s[row], p, ds);
         p_s[row * kPP + col] = p;
         ds_s[row * kPP + col] = ds;
       }
@@ -371,6 +437,7 @@ flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
       for (int r = 0; r < kTR; ++r) {
         pv[r] = p_s[qr * kPP + ty * kTR + r];
         dsv[r] = ds_s[qr * kPP + ty * kTR + r];
+        if (HasBias) db_acc[r] += dsv[r];
       }
 #pragma unroll
       for (int a = 0; a < NA; ++a) {
@@ -423,6 +490,7 @@ flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
       dk[base + tx + 16 * a] = from_f<T>(dk_acc[r][a] * sh.scale);
       dv[base + tx + 16 * a] = from_f<T>(dv_acc[r][a]);
     }
+    if (HasBias && tx == 0) dbias[bh * sh.Sk + j] = db_acc[r];
   }
 }
 
@@ -438,12 +506,14 @@ __global__ void scale_cast_kernel(T* __restrict__ dst,
 
 // ---- host side -----------------------------------------------------------
 
-template <typename T, int D>
-cudaError_t launch_fwd(void* out, float* lse, const void* q, const void* k,
-                       const void* v, int BH, Shape sh, cudaStream_t st) {
+template <typename T, int D, bool HasBias>
+cudaError_t launch_fwd_as(void* out, float* lse, const void* q,
+                          const void* k, const void* v, const float* bias,
+                          int BH, Shape sh, cudaStream_t st) {
   constexpr int DP = D + 1;
-  const size_t smem = sizeof(float) * (kBQ * DP + 2 * kBK * DP + kBQ * kPP);
-  auto kern = flash_fwd_kernel<T, D>;
+  const size_t smem = sizeof(float) * (kBQ * DP + 2 * kBK * DP + kBQ * kPP +
+                                       (HasBias ? kBK : 0));
+  auto kern = flash_fwd_kernel<T, D, HasBias>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -451,8 +521,17 @@ cudaError_t launch_fwd(void* out, float* lse, const void* q, const void* k,
   dim3 grid((sh.Sq + kBQ - 1) / kBQ, BH);
   kern<<<grid, kThreads, smem, st>>>(
       static_cast<T*>(out), lse, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), sh);
+      static_cast<const T*>(k), static_cast<const T*>(v), bias, sh);
   return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_fwd(void* out, float* lse, const void* q, const void* k,
+                       const void* v, const float* bias, int BH, Shape sh,
+                       cudaStream_t st) {
+  return bias ? launch_fwd_as<T, D, true>(out, lse, q, k, v, bias, BH, sh, st)
+              : launch_fwd_as<T, D, false>(out, lse, q, k, v, bias, BH, sh,
+                                           st);
 }
 
 template <typename T, int D>
@@ -465,26 +544,42 @@ cudaError_t launch_delta(float* delta, const void* o, const void* dout,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_bwd(void* dq, void* dk, void* dv, float* dq_ws,
-                       const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, int BH, Shape sh,
-                       cudaStream_t st) {
+template <typename T, int D, bool HasBias>
+cudaError_t launch_bwd_kernel(void* dk, void* dv, float* dq_ws, float* dbias,
+                              const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, const float* bias, int BH,
+                              Shape sh, cudaStream_t st) {
   constexpr int DP = D + 1;
   const size_t smem =
-      sizeof(float) * (2 * kBK * DP + 2 * kBQ * DP + 2 * kBQ * kPP + 2 * kBQ);
-  auto kern = flash_bwd_kernel<T, D>;
+      sizeof(float) * (2 * kBK * DP + 2 * kBQ * DP + 2 * kBQ * kPP + 2 * kBQ +
+                       (HasBias ? kBK : 0));
+  auto kern = flash_bwd_kernel<T, D, HasBias>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   dim3 grid((sh.Sk + kBK - 1) / kBK, BH);
   kern<<<grid, kThreads, smem, st>>>(
-      dq_ws, static_cast<T*>(dk), static_cast<T*>(dv),
+      dq_ws, static_cast<T*>(dk), static_cast<T*>(dv), dbias,
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, sh);
-  e = cudaGetLastError();
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, bias,
+      sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_bwd(void* dq, void* dk, void* dv, float* dq_ws,
+                       float* dbias, const void* q, const void* k,
+                       const void* v, const void* dout, const float* lse,
+                       const float* delta, const float* bias, int BH,
+                       Shape sh, cudaStream_t st) {
+  cudaError_t e =
+      bias ? launch_bwd_kernel<T, D, true>(dk, dv, dq_ws, dbias, q, k, v,
+                                           dout, lse, delta, bias, BH, sh, st)
+           : launch_bwd_kernel<T, D, false>(dk, dv, dq_ws, dbias, q, k, v,
+                                            dout, lse, delta, bias, BH, sh,
+                                            st);
   if (e != cudaSuccess) return e;
   const int64_t n = static_cast<int64_t>(BH) * sh.Sq * D;
   const int64_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
@@ -514,11 +609,11 @@ cudaError_t launch_bwd(void* dq, void* dk, void* dv, float* dq_ws,
   } while (0)
 
 int fwd(void* out, float* lse, const void* q, const void* k, const void* v,
-        int BH, int Sq, int Sk, int D, float scale, int causal, int dtype,
+        const float* bias, int BH, int H, int Sq, int Sk, int D,
+        int bias_bstride, float scale, int causal, int dtype,
         cudaStream_t st) {
-  const Shape sh{Sq, Sk, Sk - Sq, causal, scale};
-  PT_FLASH_DISPATCH(launch_fwd, out, lse, q, k, v, BH, sh,
-                    st);
+  const Shape sh{Sq, Sk, Sk - Sq, causal, scale, H, bias_bstride};
+  PT_FLASH_DISPATCH(launch_fwd, out, lse, q, k, v, bias, BH, sh, st);
 }
 
 int delta(float* dl, const void* o, const void* dout, int64_t rows, int D,
@@ -526,13 +621,14 @@ int delta(float* dl, const void* o, const void* dout, int64_t rows, int D,
   PT_FLASH_DISPATCH(launch_delta, dl, o, dout, rows, st);
 }
 
-int bwd(void* dq, void* dk, void* dv, float* dq_ws, const void* q,
-        const void* k, const void* v, const void* dout, const float* lse,
-        const float* dl, int BH, int Sq, int Sk, int D, float scale,
-        int causal, int dtype, cudaStream_t st) {
-  const Shape sh{Sq, Sk, Sk - Sq, causal, scale};
-  PT_FLASH_DISPATCH(launch_bwd, dq, dk, dv, dq_ws, q, k, v,
-                    dout, lse, dl, BH, sh, st);
+int bwd(void* dq, void* dk, void* dv, float* dq_ws, float* dbias,
+        const void* q, const void* k, const void* v, const void* dout,
+        const float* lse, const float* dl, const float* bias, int BH, int H,
+        int Sq, int Sk, int D, int bias_bstride, float scale, int causal,
+        int dtype, cudaStream_t st) {
+  const Shape sh{Sq, Sk, Sk - Sq, causal, scale, H, bias_bstride};
+  PT_FLASH_DISPATCH(launch_bwd, dq, dk, dv, dq_ws, dbias, q, k, v, dout, lse,
+                    dl, bias, BH, sh, st);
 }
 
 }  // namespace flash
@@ -541,13 +637,17 @@ int bwd(void* dq, void* dk, void* dv, float* dq_ws, const void* q,
 extern "C" {
 
 // K4. q/out [BH, Sq, D], k/v [BH, Sk, D] (contiguous, 16-byte aligned),
-// lse [BH, Sq] float32. Returns a cudaError_t value (0 = launched), or -1.
+// lse [BH, Sq] float32; bias NULL, or float32 rows of Sk read at
+// (bh / H) * bias_bstride. Returns a cudaError_t value (0 = launched), or
+// -1.
 int pt_flash_fwd(void* out, void* lse, const void* q, const void* k,
-                 const void* v, int BH, int Sq, int Sk, int D, float scale,
-                 int causal, int dtype, void* stream) {
+                 const void* v, const void* bias, int BH, int H, int Sq,
+                 int Sk, int D, int bias_bstride, float scale, int causal,
+                 int dtype, void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
-  return pt::flash::fwd(out, static_cast<float*>(lse), q, k, v, BH, Sq, Sk,
-                        D, scale, causal, dtype,
+  return pt::flash::fwd(out, static_cast<float*>(lse), q, k, v,
+                        static_cast<const float*>(bias), BH, H, Sq, Sk, D,
+                        bias_bstride, scale, causal, dtype,
                         static_cast<cudaStream_t>(stream));
 }
 
@@ -560,16 +660,22 @@ int pt_flash_delta(void* delta, const void* o, const void* dout,
 }
 
 // K9. q/dout/dq [BH, Sq, D], k/v/dk/dv [BH, Sk, D], lse/delta [BH, Sq]
-// float32, dq_ws [BH, Sq, D] float32 and zeroed by the caller.
-int pt_flash_bwd(void* dq, void* dk, void* dv, void* dq_ws, const void* q,
-                 const void* k, const void* v, const void* dout,
-                 const void* lse, const void* delta, int BH, int Sq, int Sk,
-                 int D, float scale, int causal, int dtype, void* stream) {
+// float32, dq_ws [BH, Sq, D] float32 and zeroed by the caller; bias as
+// K4's, and with it dbias [BH, Sk] float32 (every entry written).
+int pt_flash_bwd(void* dq, void* dk, void* dv, void* dq_ws, void* dbias,
+                 const void* q, const void* k, const void* v,
+                 const void* dout, const void* lse, const void* delta,
+                 const void* bias, int BH, int H, int Sq, int Sk, int D,
+                 int bias_bstride, float scale, int causal, int dtype,
+                 void* stream) {
   if (BH <= 0 || Sq <= 0) return 0;
-  return pt::flash::bwd(dq, dk, dv, static_cast<float*>(dq_ws), q, k, v, dout,
+  return pt::flash::bwd(dq, dk, dv, static_cast<float*>(dq_ws),
+                        static_cast<float*>(dbias), q, k, v, dout,
                         static_cast<const float*>(lse),
-                        static_cast<const float*>(delta), BH, Sq, Sk, D, scale,
-                        causal, dtype, static_cast<cudaStream_t>(stream));
+                        static_cast<const float*>(delta),
+                        static_cast<const float*>(bias), BH, H, Sq, Sk, D,
+                        bias_bstride, scale, causal, dtype,
+                        static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -14,15 +14,14 @@ The training path is a set of pure functions of that dict, as the
 reference's `build_train_step` re-binds its params per call:
 `hidden_states` (pre-LN blocks, fused QKV split as [3, B, H, S, D],
 causal attention through `ops.scaled_dot_product_attention` — the flash
-kernels K4/K6/K9 on the card — tanh GELU, final layer norm), `logits`
+kernels K4/K6/K9 on the card, or with attention dropout the dense path,
+as the reference — tanh GELU, final layer norm), `logits`
 (the tied head as one rank-2 product `x2 @ wte.T`) and `lm_loss` (mean
 cross-entropy). `build_train_step(cfg)` returns `loss_fn(params, batch)`
 and `init_params()`; `GPT2.forward`/`GPT2.loss` run the same functions
-on the module's own parameters. Embedding and residual dropout take an
-explicit `torch.Generator`; attention dropout (and so any
-`cfg.dropout > 0` in training) is not taken by the flash kernels yet
-and raises. The reference's vocab-chunked loss (`PADDLE_TPU_CHUNKED_CE`)
-comes with a later slice.
+on the module's own parameters. Embedding, residual and attention
+dropout draw from an explicit `torch.Generator`. The reference's
+vocab-chunked loss (`PADDLE_TPU_CHUNKED_CE`) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -216,7 +215,8 @@ def _block(p, i, x, cfg, dropout, generator):
     qkv = _linear(a, p[pre + "qkv_proj.weight"], p[pre + "qkv_proj.bias"])
     qkv = qkv.reshape(B, S, 3, H, E // H).permute(2, 0, 3, 1, 4)
     o, _ = scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
-                                        is_causal=True, dropout_p=dropout)
+                                        is_causal=True, dropout_p=dropout,
+                                        generator=generator)
     o = o.permute(0, 2, 1, 3).reshape(B, S, E)
     x = x + _dropout(_linear(o, p[pre + "out_proj.weight"],
                              p[pre + "out_proj.bias"]), dropout, generator)

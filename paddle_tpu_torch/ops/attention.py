@@ -4,13 +4,21 @@ of the serving path.
 Same signatures and layouts as `paddle_tpu.ops.attention`:
 
   * `scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
-    is_causal=False, scale=None, return_weights=False)` over q
-    [B, H, Sq, D], k/v [B, H, Sk, D] -> (out, None). As the reference's
-    flash dispatch, q is scaled once and cast back to its dtype, and the
-    flash kernels run at scale 1.0 (`ops.flash_attention`: K4 forward,
-    K6 + K9 backward on the card); autograd carries the scale into dq.
-    The port has no XLA-style fallback: a mask, dropout or the weights
-    output raise NotImplementedError;
+    is_causal=False, scale=None, return_weights=False, generator=None)`
+    over q [B, H, Sq, D], k/v [B, H, Sk, D] -> (out, weights or None).
+    The route is the reference's and depends on the arguments alone:
+      - no mask, no dropout, no weights: `flash_attention` (K4 forward,
+        K6 + K9 backward on the card);
+      - a [B or 1, 1, 1, Sk] additive mask, no dropout, no weights: the
+        mask is a per-key bias and goes to `flash_attention_bias` (K4 bias,
+        K6 + K9 bias on the card);
+      - anything else (another mask shape, dropout_p > 0, the weights):
+        `dense_attention`, the reference's `_xla_attention` in the same
+        order of operations, then the attention dropout drawn from
+        `generator` (the reference's `key=`).
+    On the flash routes q is scaled once and cast back to its dtype and
+    the kernels run at scale 1.0, as the reference feeds its kernels;
+    autograd carries the scale into dq;
 
   * `paged_decode_attention(q [B, H, Dh], k_blocks, v_blocks,
     block_tables [B, M], ctx_lens [B])` — one query per sequence over its
@@ -42,7 +50,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bias
 
 NEG_INF = -1e30
 
@@ -74,29 +82,62 @@ def _scale(Dh, scale):
     return (Dh ** -0.5) if scale is None else float(scale)
 
 
+def dense_attention(q, k, v, mask=None, scale=None, causal=False):
+    """The reference's `_xla_attention` (`ops/attention.py:41-53`), in its
+    order of operations: scores in q's dtype, the causal -1e30 fill
+    (bottom-right aligned), then the additive mask, then softmax. Returns
+    (out, weights)."""
+    sc = _scale(q.shape[-1], scale)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k) * sc
+    if causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        cm = torch.ones(sq, sk, dtype=torch.bool, device=s.device) \
+            .tril(sk - sq)
+        s = s.masked_fill(~cm, NEG_INF)
+    if mask is not None:
+        s = s + mask
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v), w
+
+
+def _key_bias(attn_mask, q, k):
+    """The [B or 1, Sk] per-key bias of a [B or 1, 1, 1, Sk] mask, or
+    None for any other mask (a [B, 1, 1, 1] keys-broadcast mask is not
+    per-key)."""
+    m = attn_mask
+    if m is None or m.dim() != 4 or m.shape[1] != 1 or m.shape[2] != 1 \
+            or m.shape[0] not in (1, q.shape[0]) \
+            or m.shape[-1] != k.shape[-2]:
+        return None
+    return m[:, 0, 0, :]
+
+
 def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
                                  is_causal=False, scale=None,
-                                 return_weights=False):
-    """Attention over q [B, H, Sq, D], k/v [B, H, Sk, D] through the
-    flash kernels (causal: bottom-right aligned). Returns (out, None)."""
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attn_mask (including the "
-            "per-key [B,1,1,Sk] bias) comes with the BERT slice of the port "
-            "(ROADMAP.md §A item 10, flash_attention_bias)")
+                                 return_weights=False, generator=None):
+    """Attention over q [B, H, Sq, D], k/v [B, H, Sk, D] (causal:
+    bottom-right aligned); the route is chosen from the arguments (see
+    the module docstring). Returns (out, weights if return_weights else
+    None)."""
+    key_bias = _key_bias(attn_mask, q, k)
+    if (attn_mask is None or key_bias is not None) and dropout_p == 0.0 \
+            and not return_weights:
+        sc = _scale(q.shape[-1], scale)
+        # prescale q once, rounded to its dtype, as the reference feeds
+        # its kernel (ops/attention.py:95-105); the kernels run at scale 1
+        qs = (q * sc).to(q.dtype)
+        if key_bias is None:
+            return flash_attention(qs, k, v, causal=is_causal,
+                                   scale=1.0), None
+        return flash_attention_bias(qs, k, v, key_bias, causal=is_causal,
+                                    scale=1.0), None
+    out, w = dense_attention(q, k, v, attn_mask, scale, is_causal)
     if dropout_p > 0.0:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attention dropout is not taken "
-            "by the port's flash kernels yet (ROADMAP.md §A item 10)")
-    if return_weights:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: return_weights needs the dense "
-            "weights path, not ported (ROADMAP.md §A item 10)")
-    sc = _scale(q.shape[-1], scale)
-    # prescale q once, rounded to its dtype, as the reference feeds its
-    # kernel (ops/attention.py:95-105); the kernels then run at scale 1.0
-    return flash_attention((q * sc).to(q.dtype), k, v, causal=is_causal,
-                           scale=1.0), None
+        keep = torch.empty_like(w).bernoulli_(1.0 - dropout_p,
+                                              generator=generator)
+        w_d = torch.where(keep.bool(), w / (1.0 - dropout_p), 0.0)
+        out = torch.einsum("bhqk,bhkd->bhqd", w_d, v)
+    return out, (w if return_weights else None)
 
 
 def paged_decode_attention(q, k_blocks, v_blocks, block_tables, ctx_lens,
@@ -194,6 +235,7 @@ def ragged_prefill_attention_plain(q, k_blocks, v_blocks, block_tables,
     return torch.einsum("htbc,hbcd->htd", w, v).permute(1, 0, 2)
 
 
-__all__ = ["scaled_dot_product_attention", "paged_decode_attention",
+__all__ = ["scaled_dot_product_attention", "dense_attention",
+           "paged_decode_attention",
            "paged_decode_attention_plain", "ragged_prefill_attention",
            "ragged_prefill_attention_plain", "is_quantized", "NEG_INF"]

@@ -1,14 +1,22 @@
-"""Flash attention of the training path, with its autograd rule.
+"""Flash attention of the training path, with its autograd rules.
 
-The port of `paddle_tpu/ops/pallas/flash_attention.py`'s unbiased path:
+The port of `paddle_tpu/ops/pallas/flash_attention.py`:
 
-  * `flash_fwd_lse(q, k, v, scale, causal)` -> (out, lse) — K4;
+  * `flash_fwd_lse(q, k, v, scale, causal, bias=None)` -> (out, lse) —
+    K4, or K4 bias with a per-key bias;
   * `flash_delta(o, do)` -> delta = rowsum(dO * O) — K6;
-  * `flash_bwd(q, k, v, o, lse, do, scale, causal)` -> (dq, dk, dv) —
-    K6 then K9, the fused one-pass backward;
+  * `flash_bwd(q, k, v, o, lse, do, scale, causal, bias=None)` ->
+    (dq, dk, dv, dbias) — K6 then K9 (K9 bias), the fused one-pass
+    backward; dbias is None without a bias, else in the bias's shape;
   * `FlashAttention`, the `torch.autograd.Function` over them (K10: the
     forward saves q, k, v, out and lse; the backward launches K6 then K9),
-    and `flash_attention(q, k, v, causal, scale)`.
+    and `flash_attention(q, k, v, causal, scale)`;
+  * `FlashAttentionBias` and `flash_attention_bias(q, k, v, bias, causal,
+    scale)`: the reference's custom-vjp `flash_attention_bias` — a
+    per-key additive bias [B or 1, Sk] (the [B, 1, 1, Sk] padding mask of
+    BERT-class encoders), whose cotangent is the column sums of ds summed
+    over heads, and over the batch when the bias broadcasts
+    (`_fab_bwd`, `flash_attention.py:721-741`).
 
 Layouts are the reference's: q [B, H, Sq, D], k/v [B, H, Sk, D]. The LSE
 and delta are [B*H, Sq] float32 — the TPU kernels broadcast them over 8
@@ -25,9 +33,17 @@ j <= i + Sk - Sq), as the reference's `_reference_attention` and XLA
 path; the TPU kernels align top-left, and the two agree when Sq == Sk. A
 causal row that sees no key (Sq > Sk) gets what the reference's -1e30
 fill gives it: the uniform average of all values, and no gradient to q
-or k. The plain versions compute in float32 and round only their
-outputs, as the kernels do. The per-key bias variant
-(`flash_attention_bias`) belongs to the BERT slice.
+or k (nor to a bias, which such a row ignores). The bias is added to
+s * scale before the softmax. A FULLY MASKED row — every key it sees
+carries a -1e30 bias, e.g. a padded batch row with no real token — gets
+what the reference's XLA path (`_xla_attention` + autodiff) gives it:
+uniform weights over the keys it sees, and the gradients of softmax at
+those weights, which reach q, k and the bias. Its LSE rounds to -1e30 in
+float32, so the backward marks it by lse <= -1e29 and uses p = 1 / (keys
+it sees); the reference's own Pallas backward recomputes p = 1 there and
+is off by that factor. The plain versions compute in float32 and round
+only their outputs, as the kernels do; dbias is summed in float32 (the
+reference casts ds to k's dtype before its column sums).
 """
 from __future__ import annotations
 
@@ -36,6 +52,7 @@ import torch
 from . import kernels
 
 NEG_INF = -1e30
+MASKED_LSE = -1e29  # an LSE at or below it marks a fully masked row
 
 
 def _on_card(*tensors):
@@ -67,21 +84,31 @@ def _visible(sq, sk, causal, device):
     return vis, ~vis.any(-1)
 
 
-def _scores(q, k, scale, causal):
-    """float32 scores [B, H, Sq, Sk] with the reference's -1e30 fill."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    vis, _ = _visible(q.shape[2], k.shape[2], causal, q.device)
-    return s.masked_fill(~vis, NEG_INF)
+def _bias4(bias):
+    """[B or 1, Sk] -> float32 [B or 1, 1, 1, Sk], or 0 without a bias."""
+    return 0.0 if bias is None else bias.float()[:, None, None, :]
 
 
-def flash_fwd_lse_plain(q, k, v, scale, causal):
-    """The plain version of K4: `_reference_attention` plus the LSE.
-    Returns (out in q's dtype, lse [B*H, Sq] float32)."""
+def _scores(q, k, scale, causal, bias=None):
+    """float32 scores [B, H, Sq, Sk]: s * scale + bias where the query
+    sees the key, -inf where it does not, and the reference's -1e30
+    everywhere in a row that sees no key."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale \
+        + _bias4(bias)
+    vis, dead = _visible(q.shape[2], k.shape[2], causal, q.device)
+    return s.masked_fill(~vis, -torch.inf).masked_fill(dead[:, None],
+                                                        NEG_INF)
+
+
+def flash_fwd_lse_plain(q, k, v, scale, causal, bias=None):
+    """The plain version of K4 (K4 bias with a [B or 1, Sk] bias):
+    `_reference_attention` plus the LSE. Returns (out in q's dtype, lse
+    [B*H, Sq] float32)."""
     B, H, Sq, _ = q.shape
-    s = _scores(q, k, scale, causal)
+    s = _scores(q, k, scale, causal, bias)
     lse = torch.logsumexp(s, dim=-1)
-    # softmax, not exp(s - lse): a row of -1e30 fills has lse == -1e30 in
-    # float32 (log Sk is below its last bit) and must still average
+    # softmax, not exp(s - lse): a row of -1e30 scores has lse == -1e30
+    # in float32 (log Sk is below its last bit) and must still average
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bhkd->bhqd", w, v.float())
     return out.to(q.dtype), lse.reshape(B * H, Sq)
@@ -93,16 +120,22 @@ def flash_delta_plain(o, do):
     return (o.float() * do.float()).sum(-1).reshape(B * H, S)
 
 
-def flash_bwd_plain(q, k, v, do, lse, delta, scale, causal):
-    """The plain version of K9 (with the same tile math as its
-    `tile_p_ds`): p = exp(s - lse) from the stored LSE, ds = p * (dO.v -
-    delta), zero where masked; a row that sees no key has p = 1/Sk and
-    ds = 0. Returns (dq, dk, dv) in the inputs' dtype."""
+def flash_bwd_plain(q, k, v, do, lse, delta, scale, causal, bias=None):
+    """The plain version of K9 and K9 bias (with the same tile math as
+    their `tile_p_ds`): p = exp(s * scale + bias - lse) from the stored
+    LSE, ds = p * (dO.v - delta), zero where masked; a row that sees no
+    key has p = 1/Sk and ds = 0; a fully masked row (lse <= -1e29) has
+    p = 1 / (keys it sees). Returns (dq, dk, dv) in the inputs' dtype and
+    dbias [B*H, Sk] float32 (the column sums of ds; None without a
+    bias)."""
     B, H, Sq, _ = q.shape
     Sk = k.shape[2]
     vis, dead = _visible(Sq, Sk, causal, q.device)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    p = torch.exp(s - lse.reshape(B, H, Sq, 1))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale \
+        + _bias4(bias)
+    lse4 = lse.reshape(B, H, Sq, 1)
+    p = torch.where(lse4 <= MASKED_LSE, 1.0 / vis.sum(-1, keepdim=True),
+                    torch.exp(s - lse4))
     fill = torch.where(dead[:, None], 1.0 / Sk, 0.0)
     p = torch.where(vis, p, fill)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
@@ -110,16 +143,20 @@ def flash_bwd_plain(q, k, v, do, lse, delta, scale, causal):
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dbias = None if bias is None else ds.sum(2).reshape(B * H, Sk)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
-def flash_fwd_lse(q, k, v, scale=None, causal=False):
+def flash_fwd_lse(q, k, v, scale=None, causal=False, bias=None):
     """Attention forward with the per-row LSE: (out [B, H, Sq, D] in q's
-    dtype, lse [B*H, Sq] float32). K4 on the card."""
+    dtype, lse [B*H, Sq] float32). K4 on the card; K4 bias with a
+    per-key bias [B or 1, Sk] float32."""
     sc = _scale(q, scale)
-    if _on_card(q, k, v):
+    if not _on_card(q, k, v, *(() if bias is None else (bias,))):
+        return flash_fwd_lse_plain(q, k, v, sc, causal, bias)
+    if bias is None:
         return kernels.flash_fwd(q, k, v, sc, causal)
-    return flash_fwd_lse_plain(q, k, v, sc, causal)
+    return kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
 
 
 def flash_delta(o, do):
@@ -129,14 +166,29 @@ def flash_delta(o, do):
     return flash_delta_plain(o, do)
 
 
-def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False):
+def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, bias=None):
     """The backward given the forward's out and lse and the cotangent
-    do: (dq, dk, dv). K6 then K9 on the card."""
+    do: (dq, dk, dv, dbias). K6 then K9 on the card, K9 bias with a
+    bias; dbias is None without a bias, else float32 in the bias's shape:
+    the kernel's per-(batch, head) column sums summed over heads, and over
+    the batch when the bias broadcasts (the reference's `_fab_bwd`)."""
     sc = _scale(q, scale)
     delta = flash_delta(o, do)
-    if _on_card(q, k, v, do, lse, delta):
-        return kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
-    return flash_bwd_plain(q, k, v, do, lse, delta, sc, causal)
+    if not _on_card(q, k, v, do, lse, delta,
+                    *(() if bias is None else (bias,))):
+        dq, dk, dv, db = flash_bwd_plain(q, k, v, do, lse, delta, sc, causal,
+                                         bias)
+    elif bias is None:
+        (dq, dk, dv), db = kernels.flash_bwd(q, k, v, do, lse, delta, sc,
+                                             causal), None
+    else:
+        dq, dk, dv, db = kernels.flash_bwd_bias(q, k, v, do, lse, delta,
+                                                bias, sc, causal)
+    if db is not None:
+        db = db.reshape(q.shape[0], q.shape[1], -1).sum(1)
+        if bias.shape[0] == 1:
+            db = db.sum(0, keepdim=True)
+    return dq, dk, dv, db
 
 
 class FlashAttention(torch.autograd.Function):
@@ -154,8 +206,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_bwd(q, k, v, out, lse, g.contiguous(), ctx.scale,
-                               ctx.causal)
+        dq, dk, dv, _ = flash_bwd(q, k, v, out, lse, g.contiguous(),
+                                  ctx.scale, ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -168,6 +220,43 @@ def flash_attention(q, k, v, causal=False, scale=None):
                                 _scale(q, scale))
 
 
-__all__ = ["flash_attention", "FlashAttention", "flash_fwd_lse",
-           "flash_delta", "flash_bwd", "flash_fwd_lse_plain",
-           "flash_delta_plain", "flash_bwd_plain"]
+class FlashAttentionBias(torch.autograd.Function):
+    """The reference's custom-vjp `flash_attention_bias`: the forward
+    (K4 bias) keeps q, k, v, the float32 bias, out and lse; the backward is
+    K6 + K9 bias and returns dbias when the bias needs a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal, scale):
+        b32 = bias.float().contiguous()
+        out, lse = flash_fwd_lse(q, k, v, scale, causal, b32)
+        ctx.save_for_backward(q, k, v, b32, out, lse)
+        ctx.causal, ctx.scale, ctx.bias_dtype = causal, scale, bias.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, b32, out, lse = ctx.saved_tensors
+        dq, dk, dv, db = flash_bwd(q, k, v, out, lse, g.contiguous(),
+                                   ctx.scale, ctx.causal, b32)
+        db = db.to(ctx.bias_dtype) if ctx.needs_input_grad[3] else None
+        return dq, dk, dv, db, None, None
+
+
+def flash_attention_bias(q, k, v, bias, causal=False, scale=None):
+    """Differentiable flash attention with a per-key additive bias
+    [B or 1, Sk] (any float dtype; the kernels read it as float32) over
+    q [B, H, Sq, D], k/v [B, H, Sk, D]; scale defaults to D**-0.5. A
+    [1, Sk] bias broadcasts over the batch and its gradient is summed
+    over it."""
+    if bias.dim() != 2 or bias.shape[0] not in (1, q.shape[0]) \
+            or bias.shape[1] != k.shape[2]:
+        raise ValueError(f"flash_attention_bias: bias {tuple(bias.shape)} "
+                         f"is not [{q.shape[0]} or 1, {k.shape[2]}]")
+    return FlashAttentionBias.apply(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), bias, bool(causal),
+                                    _scale(q, scale))
+
+
+__all__ = ["flash_attention", "FlashAttention", "flash_attention_bias",
+           "FlashAttentionBias", "flash_fwd_lse", "flash_delta", "flash_bwd",
+           "flash_fwd_lse_plain", "flash_delta_plain", "flash_bwd_plain"]

@@ -9,11 +9,12 @@ rebuilds and a fresh checkout builds on its first call.
 
 Each kernel has a wrapper here (`ragged_stream`, `paged_decode` of the
 serving path; `flash_fwd`, `flash_delta`, `flash_bwd` of the training
-path) that checks device, dtype, shape and contiguity, raises on
-anything the kernel does not take, launches on PyTorch's current stream,
-raises on a launch error, and counts its launches in a plain integer
-(`Kernel.launches`). The dense and int8 variants of each paged kernel
-are counted apart. The plain PyTorch versions and the CPU/CUDA dispatch
+path and the per-key-bias variants `flash_fwd_bias`, `flash_bwd_bias`)
+that checks device, dtype, shape and contiguity, raises on anything the
+kernel does not take, launches on PyTorch's current stream, raises on a
+launch error, and counts its launches in a plain integer
+(`Kernel.launches`). The dense and int8 variants of each paged kernel,
+and the biased and unbiased flash kernels, are counted apart. The plain PyTorch versions and the CPU/CUDA dispatch
 live in `ops/attention.py` and `ops/flash_attention.py`; nothing here
 falls back.
 """
@@ -56,8 +57,11 @@ PAGED_DECODE = {False: Kernel("paged_decode_dense"),
 FLASH_FWD = Kernel("flash_fwd")
 FLASH_DELTA = Kernel("flash_delta")
 FLASH_BWD = Kernel("flash_bwd")
+FLASH_FWD_BIAS = Kernel("flash_fwd_bias")
+FLASH_BWD_BIAS = Kernel("flash_bwd_bias")
 KERNELS = (RAGGED_STREAM[False], RAGGED_STREAM[True], PAGED_DECODE[False],
-           PAGED_DECODE[True], FLASH_FWD, FLASH_DELTA, FLASH_BWD)
+           PAGED_DECODE[True], FLASH_FWD, FLASH_DELTA, FLASH_BWD,
+           FLASH_FWD_BIAS, FLASH_BWD_BIAS)
 
 
 def reset_launch_counts():
@@ -152,13 +156,13 @@ def library():
             lib.pt_paged_decode_attention.argtypes = (
                 [vp] * 8 + [i32] * 6 + [f32, i32, i32, vp])
             lib.pt_paged_decode_attention.restype = i32
-            lib.pt_flash_fwd.argtypes = [vp] * 5 + [i32] * 4 + [f32, i32,
+            lib.pt_flash_fwd.argtypes = [vp] * 6 + [i32] * 6 + [f32, i32,
                                                                 i32, vp]
             lib.pt_flash_fwd.restype = i32
             lib.pt_flash_delta.argtypes = [vp] * 3 + [ctypes.c_longlong,
                                                       i32, i32, vp]
             lib.pt_flash_delta.restype = i32
-            lib.pt_flash_bwd.argtypes = [vp] * 10 + [i32] * 4 + [f32, i32,
+            lib.pt_flash_bwd.argtypes = [vp] * 12 + [i32] * 6 + [f32, i32,
                                                                  i32, vp]
             lib.pt_flash_bwd.restype = i32
             _lib = lib
@@ -333,27 +337,55 @@ def _qkv_shapes(name, q, k, v):
     return B * H, Sq, Sk, D
 
 
-def flash_fwd(q, k, v, scale, causal):
-    """K4 on the card: attention of q [B, H, Sq, D] over k/v
-    [B, H, Sk, D] (causal: bottom-right aligned). Returns (out
-    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32)."""
-    BH, Sq, Sk, D = _qkv_shapes("flash_fwd", q, k, v)
-    _check_flash("flash_fwd", (("q", q), ("k", k), ("v", v)), q.dtype)
+def _check_bias(name, bias, B, Sk, dev):
+    """A per-key bias [B or 1, Sk] float32, contiguous, on dev; returns
+    its batch stride (0 broadcasts one row)."""
+    if bias.dtype != torch.float32 or bias.dim() != 2 \
+            or bias.shape[0] not in (1, B) or bias.shape[1] != Sk:
+        raise ValueError(f"{name}: bias {tuple(bias.shape)} {bias.dtype}, "
+                         f"expected float32 [{B} or 1, {Sk}]")
+    if bias.device != dev:
+        raise ValueError(f"{name}: bias is on {bias.device}, q on {dev}")
+    if not bias.is_contiguous():
+        raise ValueError(f"{name}: bias must be contiguous")
+    return 0 if bias.shape[0] == 1 else Sk
+
+
+def _flash_fwd(name, counter, q, k, v, bias, scale, causal):
+    BH, Sq, Sk, D = _qkv_shapes(name, q, k, v)
+    _check_flash(name, (("q", q), ("k", k), ("v", v)), q.dtype)
+    bstride = 0 if bias is None else _check_bias(name, bias, q.shape[0], Sk,
+                                                 q.device)
     out = torch.empty_like(q)
     lse = torch.empty(BH, Sq, dtype=torch.float32, device=q.device)
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_flash_fwd(_ptr(out), _ptr(lse), _ptr(q), _ptr(k),
-                               _ptr(v), BH, Sq, Sk, D, float(scale),
-                               int(bool(causal)), DTYPE_CODES[q.dtype],
-                               stream)
+                               _ptr(v), _ptr(bias), BH, q.shape[1], Sq, Sk,
+                               D, bstride, float(scale), int(bool(causal)),
+                               DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed (error {err}) "
+        raise RuntimeError(f"{name} kernel launch failed (error {err}) "
                            f"at q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"{q.dtype}")
-    FLASH_FWD.launches += 1
+    counter.launches += 1
     return out, lse
+
+
+def flash_fwd(q, k, v, scale, causal):
+    """K4 on the card: attention of q [B, H, Sq, D] over k/v
+    [B, H, Sk, D] (causal: bottom-right aligned). Returns (out
+    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32)."""
+    return _flash_fwd("flash_fwd", FLASH_FWD, q, k, v, None, scale, causal)
+
+
+def flash_fwd_bias(q, k, v, bias, scale, causal):
+    """K4 bias on the card: K4 with the per-key bias [B or 1, Sk] float32
+    added to every score row of its batch entry (one row broadcasts over
+    the batch). Returns (out, lse) as `flash_fwd`."""
+    return _flash_fwd("flash_fwd_bias", FLASH_FWD_BIAS, q, k, v, bias,
+                      scale, causal)
 
 
 def flash_delta(o, do):
@@ -383,22 +415,23 @@ def flash_delta(o, do):
     return delta
 
 
-def flash_bwd(q, k, v, do, lse, delta, scale, causal):
-    """K9 on the card: the fused backward of K4 given its lse and K6's
-    delta (both [B*H, Sq] float32) and the output cotangent do
-    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. dq is summed across
-    key tiles with atomics, so its last bits vary from run to run."""
-    BH, Sq, Sk, D = _qkv_shapes("flash_bwd", q, k, v)
+def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
+               causal):
+    BH, Sq, Sk, D = _qkv_shapes(name, q, k, v)
     if do.shape != q.shape:
-        raise ValueError(f"flash_bwd: do {tuple(do.shape)} != q "
+        raise ValueError(f"{name}: do {tuple(do.shape)} != q "
                          f"{tuple(q.shape)}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    for tname, t in (("lse", lse), ("delta", delta)):
         if t.shape != (BH, Sq):
-            raise ValueError(f"flash_bwd: {name} {tuple(t.shape)}, "
+            raise ValueError(f"{name}: {tname} {tuple(t.shape)}, "
                              f"expected ({BH}, {Sq})")
-    _check_flash("flash_bwd", (("q", q), ("k", k), ("v", v), ("do", do),
-                               ("lse", lse, torch.float32),
-                               ("delta", delta, torch.float32)), q.dtype)
+    _check_flash(name, (("q", q), ("k", k), ("v", v), ("do", do),
+                        ("lse", lse, torch.float32),
+                        ("delta", delta, torch.float32)), q.dtype)
+    dbias = bstride = None
+    if bias is not None:
+        bstride = _check_bias(name, bias, q.shape[0], Sk, q.device)
+        dbias = torch.empty(BH, Sk, dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
@@ -407,20 +440,39 @@ def flash_bwd(q, k, v, do, lse, delta, scale, causal):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_flash_bwd(_ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_ws),
-                               _ptr(q), _ptr(k), _ptr(v), _ptr(do),
-                               _ptr(lse), _ptr(delta), BH, Sq, Sk, D,
+                               _ptr(dbias), _ptr(q), _ptr(k), _ptr(v),
+                               _ptr(do), _ptr(lse), _ptr(delta), _ptr(bias),
+                               BH, q.shape[1], Sq, Sk, D, bstride or 0,
                                float(scale), int(bool(causal)),
                                DTYPE_CODES[q.dtype], stream)
     if err != 0:
-        raise RuntimeError(f"flash_bwd kernel launch failed (error {err}) "
+        raise RuntimeError(f"{name} kernel launch failed (error {err}) "
                            f"at q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"{q.dtype}")
-    FLASH_BWD.launches += 1
-    return dq, dk, dv
+    counter.launches += 1
+    return dq, dk, dv, dbias
+
+
+def flash_bwd(q, k, v, do, lse, delta, scale, causal):
+    """K9 on the card: the fused backward of K4 given its lse and K6's
+    delta (both [B*H, Sq] float32) and the output cotangent do
+    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. dq is summed across
+    key tiles with atomics, so its last bits vary from run to run."""
+    return _flash_bwd("flash_bwd", FLASH_BWD, q, k, v, do, lse, delta, None,
+                      scale, causal)[:3]
+
+
+def flash_bwd_bias(q, k, v, do, lse, delta, bias, scale, causal):
+    """K9 bias on the card: K9 with K4 bias's per-key bias [B or 1, Sk]
+    float32. Returns (dq, dk, dv, dbias) with dbias [B*H, Sk] float32, the
+    column sums of ds per (batch, head) row (the caller sums over heads,
+    and over the batch when the bias broadcasts)."""
+    return _flash_bwd("flash_bwd_bias", FLASH_BWD_BIAS, q, k, v, do, lse,
+                      delta, bias, scale, causal)
 
 
 __all__ = ["build", "library", "ragged_stream", "paged_decode",
-           "flash_fwd", "flash_delta", "flash_bwd",
-           "reset_launch_counts", "launch_counts", "KERNELS",
-           "RAGGED_STREAM", "PAGED_DECODE", "FLASH_FWD", "FLASH_DELTA",
-           "FLASH_BWD"]
+           "flash_fwd", "flash_delta", "flash_bwd", "flash_fwd_bias",
+           "flash_bwd_bias", "reset_launch_counts", "launch_counts",
+           "KERNELS", "RAGGED_STREAM", "PAGED_DECODE", "FLASH_FWD",
+           "FLASH_DELTA", "FLASH_BWD", "FLASH_FWD_BIAS", "FLASH_BWD_BIAS"]

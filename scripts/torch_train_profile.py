@@ -1,30 +1,37 @@
 #!/usr/bin/env python3
 """Where the training time goes on the card, for the PyTorch/CUDA port.
 
-Runs the step of chip_smoke.py phase 6 (GPT-2 small, random weights from
-a seed, dropout 0, batch 16 x 1024 from np.random.RandomState(0); the
-reference bench's mixed-precision step: bf16 compute on float32 masters,
-AdamW lr 1e-4, wd 0.01): warm steps, measured steps timed with CUDA
-events and the host clock (ending in a synchronize), then a few steps
-under torch.profiler (CPU + CUDA activities). Prints, with the card's
-name and power limit:
+Runs the step of chip_smoke.py phase 6 (`--model gpt2_small`, the
+default: GPT-2 small, random weights from a seed, dropout 0, batch
+16 x 1024 from np.random.RandomState(0)) or phase 6b (`--model
+bert_large`: BERT-large pretraining on a batch of 16 x 512 padded to
+lengths in 128-512, MLM + NSP, through the per-key-bias flash kernels) —
+the reference bench's mixed-precision step: bf16 compute on float32
+masters, AdamW lr 1e-4, wd 0.01: warm steps, measured steps timed with
+CUDA events and the host clock (ending in a synchronize), then a few
+steps under torch.profiler (CPU + CUDA activities). Prints, with the
+card's name and power limit:
 
   * ms per step, tokens/s, the device time per profiled step summed
     over all kernels, and the device's idle share (1 - busy / unprofiled
     step time; the step runs on one stream, so kernels do not overlap);
   * device time per step by class: the port's flash kernels K4
-    (flash_fwd_kernel), K6 (flash_delta_kernel) and K9 (flash_bwd_kernel
-    with its dq scale_cast_kernel); the GEMMs (cuBLAS/CUTLASS); copies
+    (flash_fwd_kernel; its bias variant on BERT), K6 (flash_delta_kernel)
+    and K9 (flash_bwd_kernel with its dq scale_cast_kernel; bias variant
+    on BERT); the GEMMs (cuBLAS/CUTLASS), with those cuBLAS serves from
+    narrow-alignment (align1/align2) kernels apart — the odd-vocab heads'
+    products; copies
     and casts (the .contiguous() copies of q, k, v and of the output
     gradient, the bf16 casts of the masters); the softmax/loss kernels;
     the optimizer's foreach kernels; everything else (elementwise, layer
     norm, embedding);
-  * per step: the launches of K4/K6/K9 and the count of aten::clone
-    calls (the copies .contiguous() makes);
+  * per step: the launches of each port kernel and the count of
+    aten::clone calls (the copies .contiguous() makes);
   * the top kernels by device time.
 
 Usage (on a machine with the card, from the repo root):
-    python3 scripts/torch_train_profile.py [--steps 5] [--profile-steps 3]
+    python3 scripts/torch_train_profile.py [--model gpt2_small|bert_large]
+        [--steps 5] [--profile-steps 3]
 """
 import argparse
 import os
@@ -41,6 +48,7 @@ CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("K4 flash_fwd", ("flash_fwd_kernel",)),
     ("K6 flash_delta", ("flash_delta_kernel",)),
     ("K9 flash_bwd", ("flash_bwd_kernel", "scale_cast_kernel")),
+    ("GEMM, narrow alignment (align1/align2)", ("align1", "align2")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("softmax / loss", ("softmax", "nll_loss", "gather")),
@@ -58,6 +66,8 @@ def classify(name):
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=("gpt2_small", "bert_large"),
+                    default="gpt2_small")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
     args = ap.parse_args()
@@ -67,17 +77,28 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke
-    from paddle_tpu_torch.models import GPT2Config
+    from paddle_tpu_torch.models import BertConfig, GPT2Config
     from paddle_tpu_torch.ops import kernels
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    cfg = GPT2Config(dropout=0.0)
-    B, S = 16, 1024
-    step = chip_smoke.amp_train_step(
-        torch, cfg, chip_smoke._batch(torch, cfg, B, S, 0, "cuda"))
+    if args.model == "bert_large":
+        cfg = BertConfig.large()
+        cfg.dropout = 0.0
+        B, S = 16, 512
+        batch = chip_smoke.bert_batch(torch, cfg,
+                                      chip_smoke.bert_lengths(B, S), S, 0,
+                                      "cuda")
+        step = chip_smoke.bert_amp_train_step(torch, cfg, batch)
+        title = "BERT-large (padded, MLM + NSP)"
+    else:
+        cfg = GPT2Config(dropout=0.0)
+        B, S = 16, 1024
+        step = chip_smoke.amp_train_step(
+            torch, cfg, chip_smoke._batch(torch, cfg, B, S, 0, "cuda"))
+        title = "GPT-2 small"
     for _ in range(2):                                   # warm steps
         step()
     torch.cuda.synchronize()
@@ -113,7 +134,7 @@ def main():
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows) / 1e3  # ms per step
     print(f"card: {card}")
-    print(f"GPT-2 small B{B} S{S} bf16 on float32 masters, AdamW: "
+    print(f"{title} B{B} S{S} bf16 on float32 masters, AdamW: "
           f"{ms:.2f} ms/step (CUDA events; host clock {wall * 1e3:.2f} "
           f"ms), tokens_per_sec {B * S / (ms / 1e3):.1f}, last loss "
           f"{loss.item():.4f}")
@@ -122,9 +143,8 @@ def main():
         return 1
     print(f"device busy {busy:.2f} ms/step (profiled), device idle share "
           f"{1 - busy / ms:.3f}")
-    print(f"per step: launches K4 {counts['flash_fwd'] / args.steps:.0f} "
-          f"K6 {counts['flash_delta'] / args.steps:.0f} K9 "
-          f"{counts['flash_bwd'] / args.steps:.0f}; aten::clone "
+    launched = {k: v / args.steps for k, v in counts.items() if v}
+    print(f"per step: port kernel launches {launched}; aten::clone "
           f"(.contiguous() copies) {clones / n:.0f}; kernels launched "
           f"{sum(r[1] for r in rows):.0f}")
     by_class = {}

@@ -5,7 +5,10 @@ block sizes 4/16/128, 4 and 12 heads), plus the launch counters and a
 short decoder run on the card against the CPU; and the flash kernels K4
 (forward with LSE), K6 (delta) and K9 (fused backward) against theirs,
 causal and not, at aligned, ragged and Sq != Sk lengths, plus a tiny
-GPT-2 train step on the card against the CPU.
+GPT-2 train step on the card against the CPU; and the per-key-bias
+variants K4 bias / K9 bias against theirs at chip_smoke.py phase 3c's
+shapes (padding masks, a broadcast bias, a fully masked row), plus a tiny
+BERT train step on padded batches on the card against the CPU.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -284,6 +287,115 @@ def test_train_step_on_card_matches_cpu(dev):
     assert res[str(dev)][2]["flash_delta"] == cfg.num_layers
     assert res[str(dev)][2]["flash_bwd"] == cfg.num_layers
     assert res["cpu"][2]["flash_fwd"] == 0
+    assert abs(res[str(dev)][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
+    for a, b in zip(res["cpu"][1], res[str(dev)][1]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-3)
+
+
+# ---- per-key-bias flash attention: K4 bias, K9 bias ------------------------
+
+BIAS_SHAPES = [  # (b, h, sq, sk, d, causal, bias kind), chip_smoke phase 3c
+    (16, 16, 512, 512, 64, False, "lengths"),
+    (2, 4, 300, 300, 32, True, "lengths"),
+    (2, 4, 256, 384, 64, False, "lengths"),
+    (2, 4, 256, 384, 64, True, "lengths"),
+    (2, 4, 256, 256, 64, False, "broadcast"),
+    (2, 4, 256, 256, 32, False, "dead_row"),
+    (2, 4, 256, 256, 32, True, "dead_row"),
+]
+
+
+def _bias(kind, b, sk, seed, dev):
+    """A float32 per-key bias: padding masks from lengths in
+    [sk/4, sk] ("lengths"), the same with batch row 0 fully masked
+    ("dead_row"), or one random row over the batch ("broadcast")."""
+    rs = np.random.RandomState(seed)
+    if kind == "broadcast":
+        return torch.from_numpy(rs.randn(1, sk).astype(np.float32)).to(dev)
+    lens = rs.randint(sk // 4, sk + 1, b)
+    if kind == "dead_row":
+        lens[0] = 0
+    bias = np.where(np.arange(sk)[None] < lens[:, None], 0.0, -1e30)
+    return torch.from_numpy(bias.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", BIAS_SHAPES)
+def test_flash_bias_kernels_match_plain(dev, b, h, sq, sk, d, causal, kind,
+                                        dtype):
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(sq + 3 * sk + d)
+    q = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(b, h, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(b, h, sk, d, generator=g, device=dev).to(dtype)
+    do = torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+    bias = _bias(kind, b, sk, sq + sk, dev)
+    sc = d ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = kernels.launch_counts()
+    out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+    delta = kernels.flash_delta(out, do)
+    dq, dk, dv, db = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias,
+                                            sc, causal)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    for n in ("flash_fwd_bias", "flash_delta", "flash_bwd_bias"):
+        assert after[n] == before[n] + 1, n
+    for n in ("flash_fwd", "flash_bwd"):
+        assert after[n] == before[n], n
+    f = [t.float() for t in (q, k, v, do)]
+    out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal,
+                                          bias)
+    _rel_close(out, out_p, tol, "out")
+    live = lse_p > -1e29
+    _rel_close(lse[live], lse_p[live], 1e-4, "lse")
+    assert (lse[~live] <= -1e29).all()
+    grads_p = pf.flash_bwd_plain(f[0], f[1], f[2], f[3], lse, delta, sc,
+                                 causal, bias)
+    for name, a, p in zip(("dq", "dk", "dv"), (dq, dk, dv), grads_p):
+        assert a.dtype == dtype
+        _rel_close(a, p, tol, name)
+    assert db.shape == (b * h, sk) and db.dtype == torch.float32
+    _rel_close(db, grads_p[3], tol, "dbias")
+
+
+def test_bert_train_step_on_card_matches_cpu(dev):
+    """A tiny BERT's float32 pretraining loss on a padded batch (MLM +
+    NSP) and its gradients on the card (K4 bias, K6, K9 bias: one launch
+    of each per layer, none of the unbiased K4/K9) against the CPU."""
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = bert.BertConfig.tiny()
+    cfg.dropout = 0.0
+    rs = np.random.RandomState(2)
+    lens = np.array([100, 61])
+    am = (np.arange(100)[None] < lens[:, None]).astype(np.int32)
+    ids = rs.randint(1, cfg.vocab_size, (2, 100)).astype(np.int32) * am
+    masked, labels = bert.create_mlm_batch(ids, cfg.vocab_size, 3, seed=0)
+    tt = (np.arange(100)[None] >= 50).repeat(2, 0).astype(np.int32)
+    nsp = np.array([0, 1], np.int32)
+    arrays = [masked.astype(np.int32), labels.astype(np.int32), nsp, tt, am]
+    model = bert.Bert(cfg, device="cpu")
+    weights = {n: p.detach() for n, p in model.named_parameters()}
+    res = {}
+    for d in ("cpu", dev):
+        m = model.to(d)
+        params = {n: w.to(d).requires_grad_(True) for n, w in weights.items()}
+        kernels.reset_launch_counts()
+        loss = bert.pretraining_loss_with(
+            m, params, *(torch.from_numpy(a).to(d) for a in arrays))
+        grads = torch.autograd.grad(loss, list(params.values()))
+        res[str(d)] = (loss.item(), [g.cpu() for g in grads],
+                       kernels.launch_counts())
+    counts = res[str(dev)][2]
+    for n in ("flash_fwd_bias", "flash_delta", "flash_bwd_bias"):
+        assert counts[n] == cfg.num_layers, n
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 0
+    assert res["cpu"][2]["flash_fwd_bias"] == 0
     assert abs(res[str(dev)][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
     for a, b in zip(res["cpu"][1], res[str(dev)][1]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-3)

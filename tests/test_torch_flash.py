@@ -204,17 +204,6 @@ def test_sdpa_prescales_q_in_its_dtype():
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("kw", [
-    {"attn_mask": torch.zeros(1, 1, 1, 16)}, {"dropout_p": 0.1},
-    {"return_weights": True}], ids=["mask", "dropout", "weights"])
-def test_sdpa_refuses_what_the_kernels_do_not_take(kw):
-    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
-
-    q = torch.zeros(1, 2, 16, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        scaled_dot_product_attention(q, q, q, **kw)
-
-
 def test_wrappers_refuse_cpu_tensors():
     """The flash kernel wrappers launch or raise; the plain versions live
     in ops.flash_attention."""
@@ -228,6 +217,11 @@ def test_wrappers_refuse_cpu_tensors():
         kernels.flash_delta(q, q)
     with pytest.raises(ValueError, match="CUDA kernel"):
         kernels.flash_bwd(q, q, q, q, lse, lse, 1.0, True)
+    bias = torch.zeros(1, 16)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.flash_fwd_bias(q, q, q, bias, 1.0, False)
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        kernels.flash_bwd_bias(q, q, q, q, lse, lse, bias, 1.0, False)
     with pytest.raises(ValueError, match="head_dim 48"):
         kernels.flash_fwd(torch.zeros(1, 2, 16, 48),
                           torch.zeros(1, 2, 16, 48),

@@ -83,18 +83,23 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 
 @pytest.mark.parametrize("entry", ["resolve_device", "GPT2", "PagedKVCache",
                                    "PagedGenerationServer",
-                                   "build_train_step", "AdamW"])
+                                   "build_train_step", "AdamW", "Bert",
+                                   "bert_build_train_step"])
 def test_entry_points_default_to_cuda(entry, monkeypatch):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.inference import PagedGenerationServer, PagedKVCache
-    from paddle_tpu_torch.models import GPT2, GPT2Config, build_train_step
+    from paddle_tpu_torch.models import (GPT2, Bert, BertConfig, GPT2Config,
+                                         build_train_step)
+    from paddle_tpu_torch.models import bert
     from paddle_tpu_torch.optimizer import AdamW
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GPT2Config(vocab_size=32, hidden_size=32, num_layers=1,
                      num_heads=2, max_position=16)
+    bcfg = BertConfig(vocab_size=32, hidden_size=32, num_layers=1,
+                      num_heads=2, intermediate_size=64, max_position=16)
     model = GPT2(cfg, device="cpu")
     calls = {
         "resolve_device": lambda **kw: resolve_device(**kw),
@@ -105,6 +110,9 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
             model, max_slots=1, block_size=4, max_new_tokens=2, **kw),
         "build_train_step": lambda **kw: build_train_step(cfg, **kw),
         "AdamW": lambda **kw: AdamW(1e-4, **kw),
+        "Bert": lambda **kw: Bert(bcfg, **kw),
+        "bert_build_train_step": lambda **kw: bert.build_train_step(bcfg,
+                                                                    **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

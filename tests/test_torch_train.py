@@ -196,18 +196,28 @@ def test_cross_entropy_matches_reference(ignored):
         assert out.item() == 0.0
 
 
-def test_attention_dropout_is_refused():
-    """cfg.dropout > 0 in training needs attention dropout, which the
-    flash kernels do not take yet: the loss raises naming the ROADMAP
-    item instead of training without it."""
+def test_dropout_train_step_runs_through_the_dense_path():
+    """GPT-2 at its default dropout 0.1 trains: attention dropout takes
+    the dense path (as the reference's, whose kernels take no dropout),
+    drawing from the step's generator — one seed gives one loss and
+    gradients, another seed another loss."""
     from paddle_tpu_torch.models.gpt2 import GPT2Config, build_train_step
 
     cfg = GPT2Config.tiny()  # dropout 0.1
     loss_fn, init_params = build_train_step(cfg, device="cpu")
-    ids = torch.zeros(1, 16, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        loss_fn(init_params(), {"input_ids": ids, "labels": ids},
-                torch.Generator().manual_seed(0))
+    ids = torch.from_numpy(_batch(4, cfg.vocab_size)[0])
+    params = init_params()
+
+    def step(seed):
+        loss = loss_fn(params, {"input_ids": ids, "labels": ids},
+                       torch.Generator().manual_seed(seed))
+        return loss, torch.autograd.grad(loss, list(params.values()))
+
+    (a, ga), (b, gb) = step(1), step(1)
+    assert torch.isfinite(a) and a.item() == b.item()
+    assert all(torch.equal(x, y) for x, y in zip(ga, gb))
+    assert all(torch.isfinite(g).all() for g in ga)
+    assert step(2)[0].item() != a.item()
 
 
 def test_dropout_draws_from_its_generator():
