@@ -92,9 +92,46 @@ non-zero before the result line:
                step (CUDA events), peak memory, first and last loss. Fails
                on a non-finite loss, a last loss not below the first, or
                K4 bias/K6/K9 bias launching other than 24 x steps times;
-  7. the kernels line (JSON; flash_delta's launches are phases 6 and 6b
-     together), the card line, and as the last line
-     {"ok": true, "device": {...}}.
+  3d. two-pass flash — K7 (dq) and K8 (dk, dv) and their bias variants
+               K7 bias / K8 bias (dbias too), with K4 (bias) and K6 before
+               them, against their plain versions on the same inputs, bf16
+               and f32, within phase 3b's tolerances: (a) the training
+               shape (B=16, H=12, S=1024, D=64, causal), also against K9
+               (bias) on the same inputs; (b) B=1, H=2, S=16384, D=64,
+               causal, bf16 (the plain version at H=2: its [S, S] float32
+               tensors take 2.1 GB each); (c) ragged B=2, H=4, S=1000,
+               D=32, causal and not; (d) Sq != Sk, 256 x 384, not causal;
+               (e) an LSE and delta of attention over [k0; k1] with the
+               kernels run on k1 alone (a ring block); (f) phase 3c's bias
+               cases, and phase 6c's padded batch at H=2 (B=2, S=16384,
+               D=64, causal, bf16, lengths 16384 and 10240, the per-row
+               bias at its long batch stride; the plain version peaks near
+               26 GB). In every case two launches must give the same bits
+               (g: no atomics). Times at (a) and at 3c's main shape in
+               bf16: the kernel, the plain version, and as `library_ms`
+               the backward of F.scaled_dot_product_attention through
+               torch.autograd.grad (K9's yardstick, for the pair);
+  4e. long-context parity — GPT-2 layout with 2 layers, hidden 128, 2
+               heads (D 64), vocab 1024, max_position 13312 (13 x 1024,
+               past the reference's switch to the two-pass backward at
+               S 13108 for D 64), float32 (TF32 off): two AdamW steps on
+               the card and on the CPU from the same weights at 1 x 13312
+               unpadded, then padded to 9000 tokens (an additive
+               [1, 1, 1, S] mask through logits(..., attn_mask=) and
+               cross_entropy, pad labels -100), with phase 4c's limits;
+               per step on the card K7 and K8 (their bias variants when
+               padded) launch num_layers times each and K9 (bias) never;
+  6c. long-context training — GPT-2 small at full width with
+               max_position 16384, dropout 0, bf16 on float32 masters,
+               AdamW (lr 1e-4, wd 0.01): 1 x 16384 unpadded (1 warm and 3
+               measured steps) and 2 x 16384 padded to lengths 16384 and
+               10240 (1 warm and 2 measured); tokens/s (padded tokens
+               counted), ms per step (CUDA events), peak memory, losses.
+               Fails on a non-finite loss, K7/K8 (bias) launching other
+               than 12 x steps times, or K9/K9 bias launching at all;
+  7. the kernels line (JSON; each kernel's launches summed over the
+     main-path runs that reach it: phases 5, 4b, 6, 6b and 6c), the card
+     line, and as the last line {"ok": true, "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; only the K/V positions this
@@ -102,7 +139,8 @@ run's lengths reach) over 3.35 TB/s and its FLOPs over 989 TFLOP/s (the
 H100 SXM bf16 dense peak, applied to the float32 SIMT kernels too), from
 this run's inputs. Flash FLOPs count only the (query, key) pairs the
 causal mask leaves visible; the bias variants count every pair (the bias
-is data, not structure).
+is data, not structure). Per pair K4 does 4 * D FLOPs, K9 10 * D, K7
+6 * D (s, dp, dq) and K8 8 * D (s, dp, dv, dk).
 """
 import json
 import os
@@ -125,11 +163,22 @@ FLASH_REPLACES = {
     "flash_fwd_bias":
         "paddle_tpu/ops/pallas/flash_attention.py:228 (has_bias)",
     "flash_bwd_bias":
-        "paddle_tpu/ops/pallas/flash_attention.py:504 (has_bias)"}
+        "paddle_tpu/ops/pallas/flash_attention.py:504 (has_bias)",
+    "flash_bwd_dq": "paddle_tpu/ops/pallas/flash_attention.py:580",
+    "flash_bwd_dkv": "paddle_tpu/ops/pallas/flash_attention.py:615",
+    "flash_bwd_dq_bias":
+        "paddle_tpu/ops/pallas/flash_attention.py:580 (has_bias)",
+    "flash_bwd_dkv_bias":
+        "paddle_tpu/ops/pallas/flash_attention.py:615 (has_bias)"}
 SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+TWO_PASS_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_two_pass.cu"
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
+TWO_PASS = ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")
+TWO_PASS_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_dq_bias",
+                 "flash_bwd_dkv_bias")
+FUSED_BWD = ("flash_bwd", "flash_bwd_bias")
 DEV = "cuda"  # the card every phase runs on (the CPU is the other side
 # of the phase 4 comparison)
 
@@ -444,15 +493,16 @@ def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
 
 # ---- phase 3c: per-key-bias flash kernels -------------------------------------
 
-def _key_bias(torch, kind, b, sk, seed, lo):
+def _key_bias(torch, kind, b, sk, seed, lo, lengths=None):
     """float32 per-key bias: padding masks (0 / -1e30) from lengths in
-    [lo, sk] ("lengths"), the same with batch row 0 fully masked
-    ("dead_row"), or one random row broadcast over the batch
+    [lo, sk] or the `lengths` given ("lengths"), the same with batch row 0
+    fully masked ("dead_row"), or one random row broadcast over the batch
     ("broadcast")."""
     rs = np.random.RandomState(seed)
     if kind == "broadcast":
         return torch.from_numpy(rs.randn(1, sk).astype(np.float32)).to(DEV)
-    lens = rs.randint(lo, sk + 1, b)
+    lens = (np.asarray(lengths) if lengths is not None
+            else rs.randint(lo, sk + 1, b))
     if kind == "dead_row":
         lens[0] = 0
     bias = np.where(np.arange(sk)[None] < lens[:, None], 0.0, -1e30)
@@ -543,14 +593,183 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
     return rows
 
 
+# ---- phase 3d: the two-pass backward -----------------------------------------
+
+def _two_pass_launch(kernels, q, k, v, do, lse, delta, bias, sc, causal):
+    """(dq, dk, dv, dbias or None) from K7 and K8 (bias variants with a
+    bias)."""
+    if bias is None:
+        dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+        return (dq,) + kernels.flash_bwd_dkv(q, k, v, do, lse, delta, sc,
+                                             causal) + (None,)
+    dq = kernels.flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, sc, causal)
+    return (dq,) + kernels.flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias,
+                                              sc, causal)
+
+
+def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
+                  timed, external=False, lengths=None):
+    """K7 and K8 (K7 bias and K8 bias with a bias of `kind`, from
+    `lengths` when given) against their plain versions, on K4 (bias)'s lse
+    and K6's delta; two launches must agree bit for bit. external: the lse
+    and delta are those of attention over [k0; k1] and the kernels run on
+    k1 alone. With `timed`, also
+    K9 (bias) on the same inputs, the times and the bounds. Returns
+    {kernel name: row} or fails."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    nk = 2 * sk if external else sk
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=DEV).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, nk, d, generator=g, device=DEV).to(dtype)
+            for _ in range(2))
+    bias = None
+    if kind is not None:
+        bias = _key_bias(torch, kind, b, sk, seed, 128 if sk == 512
+                         else sk // 4, lengths)
+    sc = d ** -0.5
+    if bias is None:
+        out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+    else:
+        out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+    delta = kernels.flash_delta(out, do)
+    if external:  # the second block of keys, under the global lse
+        k, v = (t[:, :, sk:].contiguous() for t in (k, v))
+    grads = _two_pass_launch(kernels, q, k, v, do, lse, delta, bias, sc,
+                             causal)
+    again = _two_pass_launch(kernels, q, k, v, do, lse, delta, bias, sc,
+                             causal)
+    torch.cuda.synchronize()
+    tag = (f"B{b} H{h} Sq{sq} Sk{sk} D{d} {'causal' if causal else 'full'}"
+           f"{' ' + kind if kind else ''}"
+           f"{' ' + '/'.join(map(str, lengths)) if lengths else ''}"
+           f"{' external-lse' if external else ''}"
+           f" {str(dtype).split('.')[-1]}")
+    for name, a, a2 in zip(("dq", "dk", "dv", "dbias"), grads, again):
+        if a is not None and not torch.equal(a, a2):
+            fail(f"phase 3d {tag}: {name} differs between two launches")
+    f = [t.float() for t in (q, k, v, do)]
+    plain = (pf.flash_bwd_dq_plain(*f, lse, delta, sc, causal, bias),) + \
+        pf.flash_bwd_dkv_plain(*f, lse, delta, sc, causal, bias)
+    del f
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    errs = {}
+    for name, a, p in zip(("dq", "dk", "dv", "dbias"), grads, plain):
+        if a is None:
+            continue
+        err, rel = _rel_err(a, p)
+        errs[name] = err
+        if not torch.isfinite(a).all().item() or rel > tol:
+            fail(f"phase 3d {tag}: {name} disagrees with plain (max abs "
+                 f"err {err:.3g}, {rel:.3g} of its magnitude > {tol})")
+    del plain
+    fused = None
+    if timed:  # K9 (bias) on the same inputs
+        fused = (kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
+                 if bias is None else
+                 kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                        causal))
+        for name, a, p in zip(("dq", "dk", "dv", "dbias"), grads, fused):
+            if a is None:
+                continue
+            err, rel = _rel_err(a, p)
+            if rel > tol:
+                fail(f"phase 3d {tag}: {name} disagrees with K9 (max abs "
+                     f"err {err:.3g}, {rel:.3g} of its magnitude > {tol})")
+    say(f"phase 3d {tag}: max abs err vs plain " + " ".join(
+        f"{n} {e:.3g}" for n, e in errs.items()) + ", bitwise repeatable"
+        + (", within tolerance of K9" if timed else ""))
+    suffix = "" if bias is None else "_bias"
+    dq_row = {"max_abs_err": errs["dq"]}
+    dkv_row = {"max_abs_err": max(v_ for n, v_ in errs.items() if n != "dq")}
+    rows = {"flash_bwd_dq" + suffix: dq_row,
+            "flash_bwd_dkv" + suffix: dkv_row}
+    if not timed:
+        return rows
+    del fused
+    args = (q, k, v, do, lse, delta)
+    if bias is None:
+        dq_ms = timer.ms(lambda: kernels.flash_bwd_dq(*args, sc, causal))
+        dkv_ms = timer.ms(lambda: kernels.flash_bwd_dkv(*args, sc, causal))
+        k9_ms = timer.ms(lambda: kernels.flash_bwd(*args, sc, causal))
+        mask = None
+    else:
+        dq_ms = timer.ms(lambda: kernels.flash_bwd_dq_bias(*args, bias, sc,
+                                                           causal))
+        dkv_ms = timer.ms(lambda: kernels.flash_bwd_dkv_bias(*args, bias, sc,
+                                                             causal))
+        k9_ms = timer.ms(lambda: kernels.flash_bwd_bias(*args, bias, sc,
+                                                        causal))
+        mask = bias.to(dtype)[:, None, None, :]
+    dq_row["ms"], dkv_row["ms"] = dq_ms, dkv_ms
+    dq_row["plain_ms"] = timer.ms(lambda: pf.flash_bwd_dq_plain(
+        *args, sc, causal, bias), reps=10)
+    dkv_row["plain_ms"] = timer.ms(lambda: pf.flash_bwd_dkv_plain(
+        *args, sc, causal, bias), reps=10)
+    lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    lo = F.scaled_dot_product_attention(lq, lk, lv, attn_mask=mask,
+                                        is_causal=causal, scale=sc)
+    lib = timer.ms(lambda: torch.autograd.grad(lo, (lq, lk, lv), do,
+                                               retain_graph=True))
+    dq_row["library_ms"] = dkv_row["library_ms"] = lib
+    e, bh = q.element_size(), b * h
+    pairs = _pairs(sq, sk, causal)
+    qv, kv = bh * sq * d * e, bh * sk * d * e  # bytes of q (dO, dq); k (v)
+    vec = 8 * bh * sq                           # lse and delta
+    nb = 0 if bias is None else bias.numel() * 4
+    dq_row.update(_bound(3 * qv + 2 * kv + vec + nb, 6 * bh * d * pairs))
+    dkv_row.update(_bound(2 * qv + 4 * kv + vec + nb
+                          + (0 if bias is None else 4 * bh * sk),
+                          8 * bh * d * pairs))
+    for name, r in rows.items():
+        say(f"phase 3d {name} {tag}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    say(f"phase 3d {tag}: K7 + K8 {dq_ms + dkv_ms:.4f} ms, K9"
+        f"{'' if bias is None else ' bias'} {k9_ms:.4f} ms on the same "
+        f"inputs (ratio {(dq_ms + dkv_ms) / k9_ms:.2f})")
+    return rows
+
+
 # ---- phases 4c and 6: training ---------------------------------------------
 
-def _batch(torch, cfg, b, s, seed, dev):
+def _batch(torch, cfg, b, s, seed, dev, lengths=None):
+    """Random ids and labels [b, s]; with lengths, a padded batch: labels
+    -100 and an additive [b, 1, 1, s] float32 mask of -1e30 past each
+    row's length."""
     rs = np.random.RandomState(seed)
-    return {"input_ids": torch.from_numpy(rs.randint(
-                0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev),
-            "labels": torch.from_numpy(rs.randint(
-                0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)}
+    ids = rs.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    labels = rs.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    batch = {"input_ids": ids, "labels": labels}
+    if lengths is not None:
+        pad = np.arange(s)[None] >= np.asarray(lengths)[:, None]
+        labels[pad] = -100
+        batch["attn_mask"] = np.where(pad, -1e30, 0.0).astype(
+            np.float32)[:, None, None, :]
+    return {n: torch.from_numpy(a).to(dev) for n, a in batch.items()}
+
+
+def lm_batch_loss(cfg, loss_fn):
+    """loss(params, batch): build_train_step's loss_fn for an unpadded
+    batch; for a padded one (an "attn_mask"), logits(..., attn_mask=) and
+    cross_entropy over the non-pad labels (the reference's GPT2.forward
+    takes the mask; its loss and train step do not)."""
+    from paddle_tpu_torch.models.gpt2 import logits
+    from paddle_tpu_torch.ops.loss import cross_entropy
+
+    def loss(params, batch):
+        if "attn_mask" not in batch:
+            return loss_fn(params, batch)
+        lg = logits(params, cfg, batch["input_ids"],
+                    attn_mask=batch["attn_mask"])
+        return cross_entropy(lg.reshape(-1, cfg.vocab_size),
+                             batch["labels"].reshape(-1))
+
+    return loss
 
 
 def amp_train_step(torch, cfg, batch, lr=1e-4):
@@ -562,6 +781,7 @@ def amp_train_step(torch, cfg, batch, lr=1e-4):
     from paddle_tpu_torch.optimizer import AdamW
 
     loss_fn, init_params = build_train_step(cfg, device=DEV)
+    loss_fn = lm_batch_loss(cfg, loss_fn)
     masters = init_params()
     opt = AdamW(lr, weight_decay=0.01, device=DEV)
     state = opt.functional_init(masters)
@@ -576,15 +796,19 @@ def amp_train_step(torch, cfg, batch, lr=1e-4):
     return step
 
 
-def train_parity(torch, cfg, lr=1e-4, steps=2):
-    """Phase 4c: float32 AdamW steps on the card and on the CPU from the
-    same weights. Returns the worst (loss, gradient, parameter)
-    differences."""
+def train_parity(torch, cfg, lr=1e-4, steps=2, b=2, s=256, lengths=None,
+                 expect=FLASH, never=(), phase="4c"):
+    """Phases 4c and 4e: float32 AdamW steps on the card and on the CPU
+    from the same weights, on a [b, s] batch (padded to `lengths` with a
+    mask); per step on the card each kernel of `expect` launches
+    num_layers times and none of `never` launches. Returns the worst
+    (loss, gradient, parameter) differences."""
     from paddle_tpu_torch.models import build_train_step
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.optimizer import AdamW
 
     loss_fn, init_params = build_train_step(cfg, device=DEV)
+    loss_fn = lm_batch_loss(cfg, loss_fn)
     params = {DEV: init_params()}
     params["cpu"] = {n: p.detach().cpu().requires_grad_(True)
                      for n, p in params[DEV].items()}
@@ -594,7 +818,7 @@ def train_parity(torch, cfg, lr=1e-4, steps=2):
     for step in range(steps):
         out = {}
         for d in (DEV, "cpu"):
-            batch = _batch(torch, cfg, 2, 256, 11, d)
+            batch = _batch(torch, cfg, b, s, 11, d, lengths)
             kernels.reset_launch_counts()
             loss = loss_fn(params[d], batch)
             grads = torch.autograd.grad(loss, list(params[d].values()))
@@ -602,38 +826,42 @@ def train_parity(torch, cfg, lr=1e-4, steps=2):
             opts[d].functional_update(params[d], dict(zip(params[d], grads)),
                                       states[d])
             out[d] = (loss.item(), grads, counts)
-        for n in FLASH:
-            if out[DEV][2][n] != cfg.num_layers:
-                fail(f"phase 4c step {step}: {n} launched {out[DEV][2][n]} "
-                     f"times, expected {cfg.num_layers}")
+        for n in expect + never:
+            want = cfg.num_layers if n in expect else 0
+            if out[DEV][2][n] != want:
+                fail(f"phase {phase} step {step}: {n} launched "
+                     f"{out[DEV][2][n]} times, expected {want}")
         rel = abs(out[DEV][0] - out["cpu"][0]) / abs(out["cpu"][0])
         worst["loss"] = max(worst["loss"], rel)
         if rel > 1e-4:
-            fail(f"phase 4c step {step}: loss {out[DEV][0]} vs CPU "
+            fail(f"phase {phase} step {step}: loss {out[DEV][0]} vs CPU "
                  f"{out['cpu'][0]} (relative {rel:.3g} > 1e-4)")
         for name, a, c in zip(params[DEV], out[DEV][1], out["cpu"][1]):
             _err, r = _rel_err(a.cpu(), c)
             worst["grad"] = max(worst["grad"], r)
             if r > 1e-3:
-                fail(f"phase 4c step {step}: gradient {name} differs by "
-                     f"{r:.3g} of its magnitude (> 1e-3)")
+                fail(f"phase {phase} step {step}: gradient {name} differs "
+                     f"by {r:.3g} of its magnitude (> 1e-3)")
     limit = 2 * lr * steps + 1e-6
     for name, p in params[DEV].items():
         diff = (p.detach().cpu() - params["cpu"][name].detach()).abs().max()
         worst["param"] = max(worst["param"], diff.item())
         if diff.item() > limit:
-            fail(f"phase 4c: parameter {name} differs by {diff.item():.3g} "
-                 f"after {steps} steps (> {limit:.3g})")
+            fail(f"phase {phase}: parameter {name} differs by "
+                 f"{diff.item():.3g} after {steps} steps (> {limit:.3g})")
     return worst
 
 
-def train_throughput(torch, cfg, batch_size=16, seq=1024, warm=2, steps=5):
-    """Phase 6: the mixed-precision step at bench shape; returns the
-    measured numbers and the launch counts of the measured steps."""
+def train_throughput(torch, cfg, batch_size=16, seq=1024, warm=2, steps=5,
+                     lengths=None):
+    """Phases 6 and 6c: the mixed-precision step on one fixed batch
+    (padded to `lengths` with a mask); returns the measured numbers
+    (tokens/s over padded tokens) and the launch counts of the measured
+    steps."""
     from paddle_tpu_torch.ops import kernels
 
     step = amp_train_step(torch, cfg, _batch(torch, cfg, batch_size, seq, 0,
-                                             DEV))
+                                             DEV, lengths))
     losses = [step().item() for _ in range(warm)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1015,6 +1243,33 @@ def main():
                 rows.update(r)
     torch.cuda.empty_cache()
 
+    # phase 3d: the two-pass backward (K7, K8, bias variants) vs plain
+    both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    for b, h, sq, sk, d, causal, kind, dtypes, external in (
+            (16, 12, 1024, 1024, 64, True, None, both, False),      # (a)
+            (1, 2, 16384, 16384, 64, True, None, bf16, False),      # (b)
+            (2, 4, 1000, 1000, 32, True, None, both, False),        # (c)
+            (2, 4, 1000, 1000, 32, False, None, both, False),
+            (2, 4, 256, 384, 64, False, None, both, False),         # (d)
+            (2, 4, 256, 256, 64, False, None, both, True),          # (e)
+            (16, 16, 512, 512, 64, False, "lengths", both, False),  # (f)
+            (2, 4, 300, 300, 32, True, "lengths", both, False),
+            (2, 4, 256, 384, 64, False, "lengths", both, False),
+            (2, 4, 256, 256, 64, False, "broadcast", both, False),
+            (2, 4, 256, 256, 32, False, "dead_row", both, False),
+            (2, 4, 256, 256, 32, True, "dead_row", both, False)):
+        for dtype in dtypes:
+            timed = b == 16 and dtype == torch.bfloat16
+            r = two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind,
+                              dtype, b * sq + sk + d, timed, external)
+            if timed:
+                rows.update(r)
+        torch.cuda.empty_cache()
+    # (f) phase 6c's padded batch, its mask and per-row bias, at H 2
+    two_pass_case(torch, timer, 2, 2, 16384, 16384, 64, True, "lengths",
+                  torch.bfloat16, 7, False, lengths=(16384, 10240))
+    torch.cuda.empty_cache()
+
     # phase 4: decoder parity, GPT-2 small float32, card vs CPU
     cfg = GPT2Config()  # GPT-2 small, full width and depth
     model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
@@ -1063,6 +1318,24 @@ def main():
         f"K9 bias {bert_cfg.num_layers} launches each per step, unbiased "
         f"K4/K9 none, {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
+
+    # phase 4e: long-context training parity past the switch, card vs CPU
+    S = 13312
+    cfg_long = GPT2Config(vocab_size=1024, hidden_size=128, num_layers=2,
+                          num_heads=2, max_position=S, dropout=0.0)
+    for lengths, expect in ((None, TWO_PASS), ([9000], TWO_PASS_BIAS)):
+        t0 = time.perf_counter()
+        worst = train_parity(torch, cfg_long, b=1, s=S, lengths=lengths,
+                             expect=expect, never=FUSED_BWD, phase="4e")
+        say(f"phase 4e long-context train parity f32 B1 S{S} "
+            f"{'padded to 9000' if lengths else 'unpadded'}, 2 layers, 2 "
+            f"AdamW steps: loss rel diff {worst['loss']:.3g} (limit 1e-4), "
+            f"worst gradient diff {worst['grad']:.3g} of its magnitude "
+            f"(limit 1e-3), worst parameter diff {worst['param']:.3g} "
+            f"(limit 4.01e-4), {'/'.join(expect)} "
+            f"{cfg_long.num_layers} launches each per step, K9/K9 bias "
+            f"none, {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
 
     # phase 5: serving, GPT-2 small bf16
     model = GPT2(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
@@ -1126,9 +1399,8 @@ def main():
         if tr["counts"][n] != want:
             fail(f"phase 6b: {n} launched {tr['counts'][n]} times in "
                  f"{steps} steps, expected {want}")
-    main_counts["flash_fwd_bias"] = tr["counts"]["flash_fwd_bias"]
-    main_counts["flash_bwd_bias"] = tr["counts"]["flash_bwd_bias"]
-    main_counts["flash_delta"] += tr["counts"]["flash_delta"]
+    for n in ("flash_fwd_bias", "flash_bwd_bias", "flash_delta"):
+        main_counts[n] = main_counts.get(n, 0) + tr["counts"][n]
     say(f"phase 6b BERT-large training B16 S512 (padded; {tr['real_tokens']} "
         f"real tokens a step) bf16/f32-master AdamW: tokens_per_sec "
         f"{tr['tokens_per_sec']:.1f} ms_per_step {tr['ms_per_step']:.2f} "
@@ -1137,6 +1409,32 @@ def main():
         f"{ {n: tr['counts'][n] for n in FLASH_BIAS} } unbiased "
         f"{ {n: tr['counts'][n] for n in ('flash_fwd', 'flash_bwd')} } "
         f"[{card}]")
+    torch.cuda.empty_cache()
+
+    # phase 6c: long-context GPT-2 small training, through K7/K8 (bias)
+    cfg_16k = GPT2Config(max_position=16384, dropout=0.0)
+    for b, lengths, steps, names in ((1, None, 3, TWO_PASS),
+                                     (2, [16384, 10240], 2, TWO_PASS_BIAS)):
+        tr = train_throughput(torch, cfg_16k, batch_size=b, seq=16384,
+                              warm=1, steps=steps, lengths=lengths)
+        losses = tr["losses"]
+        tag = f"B{b} S16384" + (" padded to 16384/10240" if lengths else "")
+        if not all(np.isfinite(losses)):
+            fail(f"phase 6c {tag}: non-finite loss {losses}")
+        for n in names + FUSED_BWD:
+            want = cfg_16k.num_layers * steps if n in names else 0
+            if tr["counts"][n] != want:
+                fail(f"phase 6c {tag}: {n} launched {tr['counts'][n]} "
+                     f"times in {steps} steps, expected {want}")
+        for n in names:
+            main_counts[n] = main_counts.get(n, 0) + tr["counts"][n]
+        say(f"phase 6c long-context training {tag} bf16/f32-master AdamW: "
+            f"tokens_per_sec {tr['tokens_per_sec']:.1f} ms_per_step "
+            f"{tr['ms_per_step']:.2f} max_memory_allocated "
+            f"{tr['peak'] / 2**20:.0f} MiB losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)} launches "
+            f"{ {n: tr['counts'][n] for n in names + FUSED_BWD} } [{card}]")
+        torch.cuda.empty_cache()
 
     # phase 7: the kernels line
     out = []
@@ -1153,11 +1451,13 @@ def main():
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
-    for name in FLASH + ("flash_fwd_bias", "flash_bwd_bias"):
+    for name in FLASH + ("flash_fwd_bias", "flash_bwd_bias") + \
+            TWO_PASS[2:] + TWO_PASS_BIAS[2:]:
         r = rows[name]
         if main_counts[name] <= 0:
             fail(f"{name} was not launched on the main path")
-        out.append({"name": name, "route": "cuda", "source": FLASH_SOURCE,
+        src = TWO_PASS_SOURCE if "_bwd_d" in name else FLASH_SOURCE
+        out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": FLASH_REPLACES[name],
                     "launches": main_counts[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],

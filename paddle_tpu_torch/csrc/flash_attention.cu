@@ -11,9 +11,11 @@
 //      delta = rowsum(dO * O) in float32, [BH, Sq].
 //   K9 `flash_bwd_kernel`   <- `_flash_bwd_fused` (body `_bwd_fused_kernel`):
 //      the one-pass backward: dk and dv of one key tile, dq summed across
-//      key tiles. `tile_p_ds` below is the one place where the backward
-//      recomputes p = exp(s - lse) and forms ds = p * (dO.v - delta), as
-//      the TPU kernels' `_tile_p_ds`.
+//      key tiles. `tile_p_ds` (flash_common.cuh) is the one place where
+//      every backward kernel recomputes p = exp(s - lse) and forms
+//      ds = p * (dO.v - delta), as the TPU kernels' `_tile_p_ds`.
+// The two-pass backward that replaces `_flash_bwd` (K7 dq, K8 dk/dv/dbias)
+// is in flash_bwd_two_pass.cu; K8 shares K9's body (`bwd_key_tile`).
 // K4 and K9 are templated on `HasBias`: the `has_bias` variants that
 // `flash_attention_bias` reaches. The bias is one float32 row per batch
 // entry, bias [B or 1, Sk]; block bh reads row (bh / H) * bias_bstride
@@ -24,10 +26,12 @@
 // owns for its key tile (it loops over every q tile), so they are summed
 // in registers and written once, without atomics; the sums over heads and
 // a broadcast batch are the caller's, as in the reference (`_fab_bwd`).
-// The TPU code picks K9 over its two-kernel backward (K7 + K8) by a VMEM
-// rule (`_fa_bwd`: sq * d * 10 <= 8 MB). K9 here keeps only one q tile and
-// one key tile in shared memory, so it has no length limit and the port
-// has no such rule; K7/K8 are not ported.
+// The switch between K9 and K7 + K8 is the reference's, word for word
+// (`_fa_bwd`/`_fab_bwd`: K9 while sq * d * 10 <= 8 MB, else the two-pass
+// backward; `ops/flash_attention.py` `uses_two_pass`). It is a TPU VMEM
+// budget, not a Hopper limit — K9 here keeps one q tile and one key tile
+// in shared memory and takes any length — but following it keeps port and
+// reference on the same kernels at every shape.
 //
 // Causal masking is BOTTOM-RIGHT aligned: query i sees key j iff
 // j <= i + (Sk - Sq) — what the reference computes off the TPU
@@ -64,88 +68,17 @@
 //     reads free of bank conflicts.
 //   * The online softmax (m, l, acc) lives in registers in float32; dk/dv
 //     (and dbias) accumulate in registers in float32 across the q loop.
-//   * dq is summed across key tiles with float32 atomicAdd into a zeroed
-//     [BH, Sq, D] workspace, then scaled and cast by a second small
-//     kernel. The order of that sum changes from run to run, so dq is not
-//     bitwise deterministic (the tests hold it to a tolerance).
+//   * K9's dq is summed across key tiles with float32 atomicAdd into a
+//     zeroed [BH, Sq, D] workspace, then scaled and cast by a second
+//     small kernel. The order of that sum changes from run to run, so
+//     K9's dq is not bitwise deterministic (the tests hold it to a
+//     tolerance); K7 + K8 use no atomics and are.
 // Later work, not here: mma/wgmma tensor-core products and TMA loads.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <cmath>
-#include <cstdint>
-
-#include "elem.cuh"
+#include "flash_common.cuh"
 
 namespace pt {
 namespace flash {
-
-constexpr int kThreads = 256;  // a 16 x 16 grid of threads
-constexpr int kBQ = 64;        // query rows per tile
-constexpr int kBK = 64;        // keys per tile
-constexpr int kTR = kBQ / 16;  // score rows per thread
-constexpr int kTC = kBK / 16;  // score columns per thread
-constexpr int kPP = kBK + 1;   // pitch of the score tiles in shared memory
-// A row's LSE at or below this marks it fully masked (see the top).
-constexpr float kMaskedLse = -1e29f;
-
-struct Shape {
-  int Sq, Sk;
-  int off;  // Sk - Sq: the bottom-right causal alignment
-  int causal;
-  float scale;
-  int H;             // heads: block bh reads bias row bh / H
-  int bias_bstride;  // Sk, or 0 for one bias row broadcast over the batch
-};
-
-__device__ __forceinline__ bool visible(const Shape& sh, int i, int j) {
-  return !sh.causal || j <= i + sh.off;
-}
-
-// A query row that sees no key at all (causal with Sq > Sk).
-__device__ __forceinline__ bool dead_row(const Shape& sh, int i) {
-  return sh.causal && i + sh.off < 0;
-}
-
-// How many keys query row i sees (>= 1 unless the row is dead).
-__device__ __forceinline__ int visible_keys(const Shape& sh, int i) {
-  return sh.causal ? min(sh.Sk, i + sh.off + 1) : sh.Sk;
-}
-
-// The bias row of block bh (nullptr without a bias).
-__device__ __forceinline__ const float* bias_row(const float* bias,
-                                                 const Shape& sh,
-                                                 int64_t bh) {
-  return bias ? bias + (bh / sh.H) * sh.bias_bstride : nullptr;
-}
-
-// Rows r0 .. r0+rows-1 of a [S, D] matrix into shared memory as float
-// (pitch D + 1), zeros past row S.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0,
-                                          int S, int rows) {
-  constexpr int DP = D + 1;
-  for (int i = threadIdx.x; i < rows * D / 4; i += kThreads) {
-    const int r = i / (D / 4), d = (i % (D / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < S) v = load4(src + static_cast<int64_t>(r0 + r) * D + d);
-    float* o = dst + r * DP + d;
-    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-  }
-}
-
-// Reductions over the 16 threads of one score row (16 consecutive lanes).
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 
 // ---- K4: forward with LSE -------------------------------------------------
 
@@ -191,8 +124,7 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
     __syncthreads();  // the previous tile's k_s / v_s / p_s reads are done
     load_tile<T, D>(k_s, kb, k0, sh.Sk, kBK);
     load_tile<T, D>(v_s, vb, k0, sh.Sk, kBK);
-    if (HasBias && tid < kBK)
-      b_s[tid] = k0 + tid < sh.Sk ? brow[k0 + tid] : 0.f;
+    if (HasBias) load_bias(b_s, brow, k0, sh.Sk);
     __syncthreads();
     float s[kTR][kTC];
 #pragma unroll
@@ -296,36 +228,8 @@ flash_delta_kernel(float* __restrict__ delta, const T* __restrict__ o,
 
 // ---- K9: fused backward -------------------------------------------------------
 
-// The backward's tile math for score (i, j), in one place (the TPU
-// kernels' `_tile_p_ds`): p = exp(s * scale + bias_j - lse) from the
-// stored LSE and ds = p * (dp - delta), where s = q_i.k_j and dp =
-// dO_i.v_j. Masked and out-of-range entries get p = ds = 0; a dead row
-// gets the uniform p = 1 / Sk of the reference's constant fill and
-// ds = 0; a fully masked row (lse <= kMaskedLse) gets p = 1 / (keys it
-// sees) and the usual ds.
-template <bool HasBias>
-__device__ __forceinline__ void tile_p_ds(const Shape& sh, int i, int j,
-                                          float s, float bias, float dp,
-                                          float lse, float delta, float& p,
-                                          float& ds) {
-  if (i >= sh.Sq || j >= sh.Sk) {
-    p = 0.f;
-    ds = 0.f;
-  } else if (dead_row(sh, i)) {
-    p = 1.f / static_cast<float>(sh.Sk);
-    ds = 0.f;
-  } else if (!visible(sh, i, j)) {
-    p = 0.f;
-    ds = 0.f;
-  } else {
-    if (lse <= kMaskedLse)
-      p = 1.f / static_cast<float>(visible_keys(sh, i));
-    else
-      p = HasBias ? expf(s * sh.scale + bias - lse) : expf(s * sh.scale - lse);
-    ds = p * (dp - delta);
-  }
-}
-
+// K9 is the key-tile backward with dq (`bwd_key_tile<..., true>`, in
+// flash_common.cuh, whose body K8 shares without the dq sums).
 template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
@@ -335,163 +239,9 @@ flash_bwd_kernel(float* __restrict__ dq_ws, T* __restrict__ dk,
                  const float* __restrict__ lse,
                  const float* __restrict__ delta,
                  const float* __restrict__ bias, Shape sh) {
-  constexpr int DP = D + 1;
-  constexpr int NA = D / 16;
   extern __shared__ float smem[];
-  float* k_s = smem;               // [kBK][DP]
-  float* v_s = k_s + kBK * DP;     // [kBK][DP]
-  float* q_s = v_s + kBK * DP;     // [kBQ][DP]
-  float* do_s = q_s + kBQ * DP;    // [kBQ][DP]
-  float* p_s = do_s + kBQ * DP;    // [kBQ][kPP]
-  float* ds_s = p_s + kBQ * kPP;   // [kBQ][kPP]
-  float* lse_s = ds_s + kBQ * kPP; // [kBQ]
-  float* dl_s = lse_s + kBQ;       // [kBQ]
-  float* b_s = dl_s + kBQ;         // [kBK], HasBias only
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int k0 = blockIdx.x * kBK;
-  const int64_t bh = blockIdx.y;
-  const T* qb = q + bh * sh.Sq * D;
-  const T* dob = dout + bh * sh.Sq * D;
-  load_tile<T, D>(k_s, k + bh * sh.Sk * D, k0, sh.Sk, kBK);
-  load_tile<T, D>(v_s, v + bh * sh.Sk * D, k0, sh.Sk, kBK);
-  if (HasBias && tid < kBK) {
-    const float* brow = bias_row(bias, sh, bh);
-    b_s[tid] = k0 + tid < sh.Sk ? brow[k0 + tid] : 0.f;
-  }
-
-  // the first q tile that reaches key k0 (query i sees it iff
-  // i >= k0 - off); with Sq > Sk the dead rows join every key tile
-  int qstart = 0;
-  if (sh.causal && sh.off >= 0) qstart = max(0, k0 - sh.off) / kBQ * kBQ;
-
-  // this thread's keys ty*kTR + r and dims tx + 16a; db_acc: the column
-  // sums of ds for those keys (every tx of a ty sums the same column)
-  float dk_acc[kTR][NA], dv_acc[kTR][NA], db_acc[kTR];
-#pragma unroll
-  for (int r = 0; r < kTR; ++r) {
-    db_acc[r] = 0.f;
-#pragma unroll
-    for (int a = 0; a < NA; ++a) dk_acc[r][a] = dv_acc[r][a] = 0.f;
-  }
-
-  for (int q0 = qstart; q0 < sh.Sq; q0 += kBQ) {
-    __syncthreads();  // the previous q tile's reads are done
-    load_tile<T, D>(q_s, qb, q0, sh.Sq, kBQ);
-    load_tile<T, D>(do_s, dob, q0, sh.Sq, kBQ);
-    if (tid < kBQ) {
-      const bool in = q0 + tid < sh.Sq;
-      lse_s[tid] = in ? lse[bh * sh.Sq + q0 + tid] : 0.f;
-      dl_s[tid] = in ? delta[bh * sh.Sq + q0 + tid] : 0.f;
-    }
-    __syncthreads();
-
-    // scores s = q.k and dp = dO.v of this thread's 4 x 4 micro-tile
-    float s[kTR][kTC], dp[kTR][kTC];
-#pragma unroll
-    for (int r = 0; r < kTR; ++r)
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) s[r][c] = dp[r][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[kTR], dov[kTR], kv[kTC], vv[kTC];
-#pragma unroll
-      for (int r = 0; r < kTR; ++r) {
-        qv[r] = q_s[(ty * kTR + r) * DP + d];
-        dov[r] = do_s[(ty * kTR + r) * DP + d];
-      }
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) {
-        kv[c] = k_s[(tx + 16 * c) * DP + d];
-        vv[c] = v_s[(tx + 16 * c) * DP + d];
-      }
-#pragma unroll
-      for (int r = 0; r < kTR; ++r)
-#pragma unroll
-        for (int c = 0; c < kTC; ++c) {
-          s[r][c] += qv[r] * kv[c];
-          dp[r][c] += dov[r] * vv[c];
-        }
-    }
-#pragma unroll
-    for (int r = 0; r < kTR; ++r) {
-      const int row = ty * kTR + r;
-#pragma unroll
-      for (int c = 0; c < kTC; ++c) {
-        const int col = tx + 16 * c;
-        float p, ds;
-        tile_p_ds<HasBias>(sh, q0 + row, k0 + col, s[r][c],
-                           HasBias ? b_s[col] : 0.f, dp[r][c], lse_s[row],
-                           dl_s[row], p, ds);
-        p_s[row * kPP + col] = p;
-        ds_s[row * kPP + col] = ds;
-      }
-    }
-    __syncthreads();  // p_s / ds_s are complete
-
-    // dv_j += p^T dO_i and dk_j += ds^T q_i
-#pragma unroll 4
-    for (int qr = 0; qr < kBQ; ++qr) {
-      float pv[kTR], dsv[kTR];
-#pragma unroll
-      for (int r = 0; r < kTR; ++r) {
-        pv[r] = p_s[qr * kPP + ty * kTR + r];
-        dsv[r] = ds_s[qr * kPP + ty * kTR + r];
-        if (HasBias) db_acc[r] += dsv[r];
-      }
-#pragma unroll
-      for (int a = 0; a < NA; ++a) {
-        const float dov = do_s[qr * DP + tx + 16 * a];
-        const float qv = q_s[qr * DP + tx + 16 * a];
-#pragma unroll
-        for (int r = 0; r < kTR; ++r) {
-          dv_acc[r][a] += pv[r] * dov;
-          dk_acc[r][a] += dsv[r] * qv;
-        }
-      }
-    }
-
-    // dq_i += ds k_j for this thread's queries ty*kTR + r, summed across
-    // key tiles in the float32 workspace
-    float dqa[kTR][NA];
-#pragma unroll
-    for (int r = 0; r < kTR; ++r)
-#pragma unroll
-      for (int a = 0; a < NA; ++a) dqa[r][a] = 0.f;
-#pragma unroll 4
-    for (int kc = 0; kc < kBK; ++kc) {
-      float dsv[kTR];
-#pragma unroll
-      for (int r = 0; r < kTR; ++r) dsv[r] = ds_s[(ty * kTR + r) * kPP + kc];
-#pragma unroll
-      for (int a = 0; a < NA; ++a) {
-        const float kv = k_s[kc * DP + tx + 16 * a];
-#pragma unroll
-        for (int r = 0; r < kTR; ++r) dqa[r][a] += dsv[r] * kv;
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kTR; ++r) {
-      const int i = q0 + ty * kTR + r;
-      if (i >= sh.Sq) continue;
-      float* dst = dq_ws + (bh * sh.Sq + i) * D;
-#pragma unroll
-      for (int a = 0; a < NA; ++a) atomicAdd(dst + tx + 16 * a, dqa[r][a]);
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kTR; ++r) {
-    const int j = k0 + ty * kTR + r;
-    if (j >= sh.Sk) continue;
-    const int64_t base = (bh * sh.Sk + j) * D;
-#pragma unroll
-    for (int a = 0; a < NA; ++a) {
-      dk[base + tx + 16 * a] = from_f<T>(dk_acc[r][a] * sh.scale);
-      dv[base + tx + 16 * a] = from_f<T>(dv_acc[r][a]);
-    }
-    if (HasBias && tx == 0) dbias[bh * sh.Sk + j] = db_acc[r];
-  }
+  bwd_key_tile<T, D, HasBias, true>(smem, dq_ws, dk, dv, dbias, q, k, v,
+                                    dout, lse, delta, bias, sh);
 }
 
 // dq = scale * workspace, in the compute dtype.
@@ -511,18 +261,12 @@ cudaError_t launch_fwd_as(void* out, float* lse, const void* q,
                           const void* k, const void* v, const float* bias,
                           int BH, Shape sh, cudaStream_t st) {
   constexpr int DP = D + 1;
-  const size_t smem = sizeof(float) * (kBQ * DP + 2 * kBK * DP + kBQ * kPP +
-                                       (HasBias ? kBK : 0));
-  auto kern = flash_fwd_kernel<T, D, HasBias>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  dim3 grid((sh.Sq + kBQ - 1) / kBQ, BH);
-  kern<<<grid, kThreads, smem, st>>>(
-      static_cast<T*>(out), lse, static_cast<const T*>(q),
-      static_cast<const T*>(k), static_cast<const T*>(v), bias, sh);
-  return cudaGetLastError();
+  return launch_tiles(flash_fwd_kernel<T, D, HasBias>,
+                      kBQ * DP + 2 * kBK * DP + kBQ * kPP +
+                          (HasBias ? kBK : 0),
+                      (sh.Sq + kBQ - 1) / kBQ, BH, st, static_cast<T*>(out),
+                      lse, static_cast<const T*>(q), static_cast<const T*>(k),
+                      static_cast<const T*>(v), bias, sh);
 }
 
 template <typename T, int D>
@@ -550,22 +294,12 @@ cudaError_t launch_bwd_kernel(void* dk, void* dv, float* dq_ws, float* dbias,
                               const void* dout, const float* lse,
                               const float* delta, const float* bias, int BH,
                               Shape sh, cudaStream_t st) {
-  constexpr int DP = D + 1;
-  const size_t smem =
-      sizeof(float) * (2 * kBK * DP + 2 * kBQ * DP + 2 * kBQ * kPP + 2 * kBQ +
-                       (HasBias ? kBK : 0));
-  auto kern = flash_bwd_kernel<T, D, HasBias>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (e != cudaSuccess) return e;
-  dim3 grid((sh.Sk + kBK - 1) / kBK, BH);
-  kern<<<grid, kThreads, smem, st>>>(
-      dq_ws, static_cast<T*>(dk), static_cast<T*>(dv), dbias,
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, bias,
-      sh);
-  return cudaGetLastError();
+  return launch_tiles(
+      flash_bwd_kernel<T, D, HasBias>, bwd_key_tile_smem_floats<D, HasBias>(),
+      (sh.Sk + kBK - 1) / kBK, BH, st, dq_ws, static_cast<T*>(dk),
+      static_cast<T*>(dv), dbias, static_cast<const T*>(q),
+      static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, bias, sh);
 }
 
 template <typename T, int D>
@@ -588,31 +322,11 @@ cudaError_t launch_bwd(void* dq, void* dk, void* dv, float* dq_ws,
   return cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns -1 for an unsupported
-// (dtype, D) pair; the Python wrapper checks both before calling.
-#define PT_FLASH_DISPATCH(LAUNCH, ...)                                 \
-  do {                                                                 \
-    cudaError_t e;                                                     \
-    if (dtype == 0 && D == 32) e = LAUNCH<float, 32>(__VA_ARGS__);     \
-    else if (dtype == 0 && D == 64) e = LAUNCH<float, 64>(__VA_ARGS__); \
-    else if (dtype == 0 && D == 128)                                   \
-      e = LAUNCH<float, 128>(__VA_ARGS__);                             \
-    else if (dtype == 1 && D == 32)                                    \
-      e = LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__);                      \
-    else if (dtype == 1 && D == 64)                                    \
-      e = LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                      \
-    else if (dtype == 1 && D == 128)                                   \
-      e = LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                     \
-    else                                                               \
-      return -1;                                                       \
-    return static_cast<int>(e);                                        \
-  } while (0)
-
 int fwd(void* out, float* lse, const void* q, const void* k, const void* v,
         const float* bias, int BH, int H, int Sq, int Sk, int D,
         int bias_bstride, float scale, int causal, int dtype,
         cudaStream_t st) {
-  const Shape sh{Sq, Sk, Sk - Sq, causal, scale, H, bias_bstride};
+  const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
   PT_FLASH_DISPATCH(launch_fwd, out, lse, q, k, v, bias, BH, sh, st);
 }
 
@@ -626,7 +340,7 @@ int bwd(void* dq, void* dk, void* dv, float* dq_ws, float* dbias,
         const float* lse, const float* dl, const float* bias, int BH, int H,
         int Sq, int Sk, int D, int bias_bstride, float scale, int causal,
         int dtype, cudaStream_t st) {
-  const Shape sh{Sq, Sk, Sk - Sq, causal, scale, H, bias_bstride};
+  const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
   PT_FLASH_DISPATCH(launch_bwd, dq, dk, dv, dq_ws, dbias, q, k, v, dout, lse,
                     dl, bias, BH, sh, st);
 }

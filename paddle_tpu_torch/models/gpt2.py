@@ -14,13 +14,19 @@ The training path is a set of pure functions of that dict, as the
 reference's `build_train_step` re-binds its params per call:
 `hidden_states` (pre-LN blocks, fused QKV split as [3, B, H, S, D],
 causal attention through `ops.scaled_dot_product_attention` — the flash
-kernels K4/K6/K9 on the card, or with attention dropout the dense path,
-as the reference — tanh GELU, final layer norm), `logits`
+kernels K4/K6 with K9, or K7/K8 past the reference's length switch, on
+the card; with an additive [B or 1, 1, 1, S] `attn_mask` (a padded
+batch) their per-key-bias variants; with attention dropout the dense
+path, as the reference — tanh GELU, final layer norm), `logits`
 (the tied head as one rank-2 product `x2 @ wte.T`) and `lm_loss` (mean
 cross-entropy). `build_train_step(cfg)` returns `loss_fn(params, batch)`
 and `init_params()`; `GPT2.forward`/`GPT2.loss` run the same functions
-on the module's own parameters. Embedding, residual and attention
-dropout draw from an explicit `torch.Generator`. The reference's
+on the module's own parameters. `position_ids` ([S] or [B, S]; default
+0..S-1) and `attn_mask` are the reference's `GPT2.forward` arguments;
+`lm_loss`, `GPT2.loss` and `build_train_step` take no mask, as the
+reference's do (a padded batch composes `logits(..., attn_mask=)` with
+`ops.loss.cross_entropy`, pad labels -100). Embedding, residual and
+attention dropout draw from an explicit `torch.Generator`. The reference's
 vocab-chunked loss (`PADDLE_TPU_CHUNKED_CE`) comes with a later slice.
 """
 from __future__ import annotations
@@ -177,9 +183,12 @@ class GPT2(nn.Module):
     def _dropout(self):
         return self.cfg.dropout if self.training else 0.0
 
-    def forward(self, input_ids, generator=None):
-        """Logits [B, S, V] in the parameters' dtype."""
+    def forward(self, input_ids, position_ids=None, attn_mask=None,
+                generator=None):
+        """Logits [B, S, V] in the parameters' dtype (arguments as the
+        reference's `GPT2.forward`; `generator` draws the dropout)."""
         return logits(dict(self.named_parameters()), self.cfg, input_ids,
+                      position_ids=position_ids, attn_mask=attn_mask,
                       dropout=self._dropout(), generator=generator)
 
     def loss(self, input_ids, labels, generator=None):
@@ -204,8 +213,9 @@ def _linear(x, w, b):
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 
-def _block(p, i, x, cfg, dropout, generator):
-    """One pre-LN decoder block (the reference's `GPT2Block.forward`)."""
+def _block(p, i, x, cfg, dropout, generator, attn_mask=None):
+    """One pre-LN decoder block (the reference's `GPT2Block.forward`); the
+    mask goes to the attention unchanged."""
     B, S, E = x.shape
     H = cfg.num_heads
     pre = f"h.{i}."
@@ -215,7 +225,8 @@ def _block(p, i, x, cfg, dropout, generator):
     qkv = _linear(a, p[pre + "qkv_proj.weight"], p[pre + "qkv_proj.bias"])
     qkv = qkv.reshape(B, S, 3, H, E // H).permute(2, 0, 3, 1, 4)
     o, _ = scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
-                                        is_causal=True, dropout_p=dropout,
+                                        attn_mask=attn_mask, is_causal=True,
+                                        dropout_p=dropout,
                                         generator=generator)
     o = o.permute(0, 2, 1, 3).reshape(B, S, E)
     x = x + _dropout(_linear(o, p[pre + "out_proj.weight"],
@@ -228,25 +239,30 @@ def _block(p, i, x, cfg, dropout, generator):
     return x + _dropout(m, dropout, generator)
 
 
-def hidden_states(params, cfg, input_ids, *, dropout=0.0, generator=None):
+def hidden_states(params, cfg, input_ids, *, position_ids=None,
+                  attn_mask=None, dropout=0.0, generator=None):
     """The transformer body up to and including the final layer norm:
-    [B, S, E] for input_ids [B, S]."""
-    S = input_ids.shape[1]
-    pos = torch.arange(S, device=input_ids.device)
+    [B, S, E] for input_ids [B, S]; position_ids [S] or [B, S] (default
+    0..S-1), attn_mask an additive mask for every layer's attention."""
+    if position_ids is None:
+        position_ids = torch.arange(input_ids.shape[1],
+                                    device=input_ids.device)
     x = F.embedding(input_ids, params["wte.weight"]) \
-        + F.embedding(pos, params["wpe.weight"])
+        + F.embedding(position_ids, params["wpe.weight"])
     x = _dropout(x, dropout, generator)
     for i in range(cfg.num_layers):
-        x = _block(params, i, x, cfg, dropout, generator)
+        x = _block(params, i, x, cfg, dropout, generator, attn_mask)
     return F.layer_norm(x, (cfg.hidden_size,), params["ln_f.weight"],
                         params["ln_f.bias"], cfg.layer_norm_epsilon)
 
 
-def logits(params, cfg, input_ids, *, dropout=0.0, generator=None):
+def logits(params, cfg, input_ids, *, position_ids=None, attn_mask=None,
+           dropout=0.0, generator=None):
     """[B, S, V] logits. The head is one rank-2 product over [B*S, E]
     (the reference's layout choice, `models/gpt2.py:122-133`)."""
     B, S = input_ids.shape
-    x2 = hidden_states(params, cfg, input_ids, dropout=dropout,
+    x2 = hidden_states(params, cfg, input_ids, position_ids=position_ids,
+                       attn_mask=attn_mask, dropout=dropout,
                        generator=generator).reshape(-1, cfg.hidden_size)
     if cfg.tie_embeddings:
         lg = x2 @ params["wte.weight"].T

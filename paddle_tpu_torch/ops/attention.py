@@ -8,10 +8,11 @@ Same signatures and layouts as `paddle_tpu.ops.attention`:
     over q [B, H, Sq, D], k/v [B, H, Sk, D] -> (out, weights or None).
     The route is the reference's and depends on the arguments alone:
       - no mask, no dropout, no weights: `flash_attention` (K4 forward,
-        K6 + K9 backward on the card);
+        K6 + K9 backward on the card, or K6 + K7 + K8 past the
+        reference's length switch, `flash_attention.uses_two_pass`);
       - a [B or 1, 1, 1, Sk] additive mask, no dropout, no weights: the
         mask is a per-key bias and goes to `flash_attention_bias` (K4 bias,
-        K6 + K9 bias on the card);
+        K6 + K9 bias on the card, or K6 + K7 bias + K8 bias);
       - anything else (another mask shape, dropout_p > 0, the weights):
         `dense_attention`, the reference's `_xla_attention` in the same
         order of operations, then the attention dropout drawn from

@@ -8,9 +8,22 @@ The port of `paddle_tpu/ops/pallas/flash_attention.py`:
   * `flash_bwd(q, k, v, o, lse, do, scale, causal, bias=None)` ->
     (dq, dk, dv, dbias) — K6 then K9 (K9 bias), the fused one-pass
     backward; dbias is None without a bias, else in the bias's shape;
+  * `flash_bwd_two_pass(q, k, v, o, lse, do, scale, causal, bias=None)`
+    -> (dq, dk, dv, dbias) — K6 then K7 (dq) and K8 (dk, dv, dbias), the
+    reference's `_flash_bwd`. p comes from the LSE it is given, never
+    renormalised over these keys, so ring attention can pass the global
+    LSE and the global output while k/v are one block of keys. No atomics:
+    bitwise reproducible on the card;
+  * `uses_two_pass(sq, d)`: the reference's switch between them, word for
+    word (`_fa_bwd`/`_fab_bwd`: the fused backward while
+    sq * d * 10 <= 8 MB, else the two-pass one). It is the TPU's VMEM
+    budget, not a Hopper limit (K9 takes any length), kept so that port
+    and reference run the same kernels at every shape: at D = 64 the
+    two-pass backward starts at sq = 13108;
   * `FlashAttention`, the `torch.autograd.Function` over them (K10: the
-    forward saves q, k, v, out and lse; the backward launches K6 then K9),
-    and `flash_attention(q, k, v, causal, scale)`;
+    forward saves q, k, v, out and lse; the backward launches K6 then K9,
+    or K7 and K8 when `uses_two_pass` holds), and `flash_attention(q, k,
+    v, causal, scale)`;
   * `FlashAttentionBias` and `flash_attention_bias(q, k, v, bias, causal,
     scale)`: the reference's custom-vjp `flash_attention_bias` — a
     per-key additive bias [B or 1, Sk] (the [B, 1, 1, Sk] padding mask of
@@ -120,14 +133,13 @@ def flash_delta_plain(o, do):
     return (o.float() * do.float()).sum(-1).reshape(B * H, S)
 
 
-def flash_bwd_plain(q, k, v, do, lse, delta, scale, causal, bias=None):
-    """The plain version of K9 and K9 bias (with the same tile math as
-    their `tile_p_ds`): p = exp(s * scale + bias - lse) from the stored
-    LSE, ds = p * (dO.v - delta), zero where masked; a row that sees no
-    key has p = 1/Sk and ds = 0; a fully masked row (lse <= -1e29) has
-    p = 1 / (keys it sees). Returns (dq, dk, dv) in the inputs' dtype and
-    dbias [B*H, Sk] float32 (the column sums of ds; None without a
-    bias)."""
+def _p_ds(q, k, v, do, lse, delta, scale, causal, bias):
+    """The backward's tile math of every backward kernel, in one place
+    (their `tile_p_ds`, the reference's `_tile_p_ds`): float32 (p, ds)
+    [B, H, Sq, Sk] with p = exp(s * scale + bias - lse) from the LSE given
+    (never renormalised over these keys) and ds = p * (dO.v - delta), zero
+    where masked; a row that sees no key has p = 1/Sk and ds = 0; a fully
+    masked row (lse <= -1e29) has p = 1 / (keys it sees)."""
     B, H, Sq, _ = q.shape
     Sk = k.shape[2]
     vis, dead = _visible(Sq, Sk, causal, q.device)
@@ -140,11 +152,47 @@ def flash_bwd_plain(q, k, v, do, lse, delta, scale, causal, bias=None):
     p = torch.where(vis, p, fill)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = torch.where(vis, p * (dp - delta.reshape(B, H, Sq, 1)), 0.0)
+    return p, ds
+
+
+def _dq(ds, k, scale):
+    return torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+
+
+def _dkv(p, ds, q, do, scale, bias):
+    """(dk, dv) in float32 and dbias [B*H, Sk] float32 (the column sums
+    of ds; None without a bias)."""
+    B, H, _, Sk = ds.shape
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
     dbias = None if bias is None else ds.sum(2).reshape(B * H, Sk)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+    return dk, dv, dbias
+
+
+def flash_bwd_plain(q, k, v, do, lse, delta, scale, causal, bias=None):
+    """The plain version of K9 and K9 bias (`_p_ds`, then the three
+    products). Returns (dq, dk, dv) in the inputs' dtype and dbias
+    [B*H, Sk] float32 (None without a bias)."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, scale, causal, bias)
+    dk, dv, dbias = _dkv(p, ds, q, do, scale, bias)
+    return (_dq(ds, k, scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+            dbias)
+
+
+def flash_bwd_dq_plain(q, k, v, do, lse, delta, scale, causal, bias=None):
+    """The plain version of K7 and K7 bias: dq = scale * ds k in q's
+    dtype, from the same `_p_ds` as K9's."""
+    _p, ds = _p_ds(q, k, v, do, lse, delta, scale, causal, bias)
+    return _dq(ds, k, scale).to(q.dtype)
+
+
+def flash_bwd_dkv_plain(q, k, v, do, lse, delta, scale, causal, bias=None):
+    """The plain version of K8 and K8 bias: (dk, dv) in k/v's dtype and
+    dbias [B*H, Sk] float32 (None without a bias), from the same `_p_ds`
+    as K9's."""
+    p, ds = _p_ds(q, k, v, do, lse, delta, scale, causal, bias)
+    dk, dv, dbias = _dkv(p, ds, q, do, scale, bias)
+    return dk.to(k.dtype), dv.to(v.dtype), dbias
 
 
 def flash_fwd_lse(q, k, v, scale=None, causal=False, bias=None):
@@ -166,6 +214,23 @@ def flash_delta(o, do):
     return flash_delta_plain(o, do)
 
 
+def _sum_dbias(db, q, bias):
+    """The kernels' per-(batch, head) dbias [B*H, Sk] summed over heads,
+    and over the batch when the bias broadcasts (the reference's
+    `_fab_bwd`): float32 in the bias's shape, or None without one."""
+    if db is None:
+        return None
+    db = db.reshape(q.shape[0], q.shape[1], -1).sum(1)
+    return db.sum(0, keepdim=True) if bias.shape[0] == 1 else db
+
+
+def uses_two_pass(sq, d):
+    """True when the reference's backward takes the two-pass `_flash_bwd`
+    over the fused `_flash_bwd_fused`: its expression, word for word
+    (`_fa_bwd`/`_fab_bwd`, a TPU VMEM budget on q's length and width)."""
+    return not sq * d * 10 <= 8 * 1024 * 1024
+
+
 def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, bias=None):
     """The backward given the forward's out and lse and the cotangent
     do: (dq, dk, dv, dbias). K6 then K9 on the card, K9 bias with a
@@ -184,17 +249,44 @@ def flash_bwd(q, k, v, o, lse, do, scale=None, causal=False, bias=None):
     else:
         dq, dk, dv, db = kernels.flash_bwd_bias(q, k, v, do, lse, delta,
                                                 bias, sc, causal)
-    if db is not None:
-        db = db.reshape(q.shape[0], q.shape[1], -1).sum(1)
-        if bias.shape[0] == 1:
-            db = db.sum(0, keepdim=True)
-    return dq, dk, dv, db
+    return dq, dk, dv, _sum_dbias(db, q, bias)
+
+
+def flash_bwd_two_pass(q, k, v, o, lse, do, scale=None, causal=False,
+                       bias=None):
+    """The two-pass backward (the reference's `_flash_bwd`): (dq, dk, dv,
+    dbias) as `flash_bwd` returns them. K6 then K7 and K8 on the card (K7
+    bias and K8 bias with a bias), `flash_bwd_plain` on the CPU. lse
+    and o may be those of a larger attention than k/v's keys (ring
+    attention passes the global ones): p is exp(s * scale + bias - lse)
+    over these keys, never renormalised."""
+    sc = _scale(q, scale)
+    delta = flash_delta(o, do)
+    args = (q, k, v, do, lse, delta)
+    if not _on_card(*args, *(() if bias is None else (bias,))):
+        # K7 + K8's plain versions together are K9's, bit for bit
+        dq, dk, dv, db = flash_bwd_plain(*args, sc, causal, bias)
+    elif bias is None:
+        dq = kernels.flash_bwd_dq(*args, sc, causal)
+        (dk, dv), db = kernels.flash_bwd_dkv(*args, sc, causal), None
+    else:
+        dq = kernels.flash_bwd_dq_bias(*args, bias, sc, causal)
+        dk, dv, db = kernels.flash_bwd_dkv_bias(*args, bias, sc, causal)
+    return dq, dk, dv, _sum_dbias(db, q, bias)
+
+
+def _backward(q, k, v, out, lse, g, scale, causal, bias=None):
+    """The autograd rules' backward: the reference's switch between the
+    fused and the two-pass backward, on q's length and width."""
+    bwd = flash_bwd_two_pass if uses_two_pass(q.shape[2], q.shape[3]) \
+        else flash_bwd
+    return bwd(q, k, v, out, lse, g.contiguous(), scale, causal, bias)
 
 
 class FlashAttention(torch.autograd.Function):
     """The reference's custom-vjp `flash_attention`: the forward keeps
-    q, k, v, out and lse; the backward is K6 + K9 (their plain versions
-    on the CPU)."""
+    q, k, v, out and lse; the backward is K6 + K9, or K6 + K7 + K8 when
+    `uses_two_pass` holds (their plain versions on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -206,8 +298,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv, _ = flash_bwd(q, k, v, out, lse, g.contiguous(),
-                                  ctx.scale, ctx.causal)
+        dq, dk, dv, _ = _backward(q, k, v, out, lse, g, ctx.scale,
+                                  ctx.causal)
         return dq, dk, dv, None, None
 
 
@@ -223,7 +315,8 @@ def flash_attention(q, k, v, causal=False, scale=None):
 class FlashAttentionBias(torch.autograd.Function):
     """The reference's custom-vjp `flash_attention_bias`: the forward
     (K4 bias) keeps q, k, v, the float32 bias, out and lse; the backward is
-    K6 + K9 bias and returns dbias when the bias needs a gradient."""
+    K6 + K9 bias, or K6 + K7 bias + K8 bias when `uses_two_pass` holds,
+    and returns dbias when the bias needs a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal, scale):
@@ -236,8 +329,8 @@ class FlashAttentionBias(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         q, k, v, b32, out, lse = ctx.saved_tensors
-        dq, dk, dv, db = flash_bwd(q, k, v, out, lse, g.contiguous(),
-                                   ctx.scale, ctx.causal, b32)
+        dq, dk, dv, db = _backward(q, k, v, out, lse, g, ctx.scale,
+                                   ctx.causal, b32)
         db = db.to(ctx.bias_dtype) if ctx.needs_input_grad[3] else None
         return dq, dk, dv, db, None, None
 
@@ -259,4 +352,6 @@ def flash_attention_bias(q, k, v, bias, causal=False, scale=None):
 
 __all__ = ["flash_attention", "FlashAttention", "flash_attention_bias",
            "FlashAttentionBias", "flash_fwd_lse", "flash_delta", "flash_bwd",
-           "flash_fwd_lse_plain", "flash_delta_plain", "flash_bwd_plain"]
+           "flash_bwd_two_pass", "uses_two_pass", "flash_fwd_lse_plain",
+           "flash_delta_plain", "flash_bwd_plain", "flash_bwd_dq_plain",
+           "flash_bwd_dkv_plain"]

@@ -9,14 +9,16 @@ rebuilds and a fresh checkout builds on its first call.
 
 Each kernel has a wrapper here (`ragged_stream`, `paged_decode` of the
 serving path; `flash_fwd`, `flash_delta`, `flash_bwd` of the training
-path and the per-key-bias variants `flash_fwd_bias`, `flash_bwd_bias`)
-that checks device, dtype, shape and contiguity, raises on anything the
-kernel does not take, launches on PyTorch's current stream, raises on a
-launch error, and counts its launches in a plain integer
-(`Kernel.launches`). The dense and int8 variants of each paged kernel,
-and the biased and unbiased flash kernels, are counted apart. The plain PyTorch versions and the CPU/CUDA dispatch
-live in `ops/attention.py` and `ops/flash_attention.py`; nothing here
-falls back.
+path, the two-pass backward `flash_bwd_dq`, `flash_bwd_dkv`, and the
+per-key-bias variants `flash_fwd_bias`, `flash_bwd_bias`,
+`flash_bwd_dq_bias`, `flash_bwd_dkv_bias`) that checks device, dtype,
+shape and contiguity, raises on anything the kernel does not take,
+launches on PyTorch's current stream, raises on a launch error, and
+counts its launches in a plain integer (`Kernel.launches`). The dense and
+int8 variants of each paged kernel, and the biased and unbiased flash
+kernels, are counted apart. The plain PyTorch versions and the CPU/CUDA
+dispatch live in `ops/attention.py` and `ops/flash_attention.py`;
+nothing here falls back.
 """
 from __future__ import annotations
 
@@ -32,8 +34,9 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-UNITS = ("unified_attention.cu", "flash_attention.cu")  # one object each
-SOURCES = UNITS + ("kv_load.cuh", "elem.cuh")
+UNITS = ("unified_attention.cu", "flash_attention.cu",  # one object each
+         "flash_bwd_two_pass.cu")
+SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh")
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -59,9 +62,14 @@ FLASH_DELTA = Kernel("flash_delta")
 FLASH_BWD = Kernel("flash_bwd")
 FLASH_FWD_BIAS = Kernel("flash_fwd_bias")
 FLASH_BWD_BIAS = Kernel("flash_bwd_bias")
+FLASH_BWD_DQ = Kernel("flash_bwd_dq")
+FLASH_BWD_DKV = Kernel("flash_bwd_dkv")
+FLASH_BWD_DQ_BIAS = Kernel("flash_bwd_dq_bias")
+FLASH_BWD_DKV_BIAS = Kernel("flash_bwd_dkv_bias")
 KERNELS = (RAGGED_STREAM[False], RAGGED_STREAM[True], PAGED_DECODE[False],
            PAGED_DECODE[True], FLASH_FWD, FLASH_DELTA, FLASH_BWD,
-           FLASH_FWD_BIAS, FLASH_BWD_BIAS)
+           FLASH_FWD_BIAS, FLASH_BWD_BIAS, FLASH_BWD_DQ, FLASH_BWD_DKV,
+           FLASH_BWD_DQ_BIAS, FLASH_BWD_DKV_BIAS)
 
 
 def reset_launch_counts():
@@ -165,6 +173,12 @@ def library():
             lib.pt_flash_bwd.argtypes = [vp] * 12 + [i32] * 6 + [f32, i32,
                                                                  i32, vp]
             lib.pt_flash_bwd.restype = i32
+            lib.pt_flash_bwd_dq.argtypes = [vp] * 8 + [i32] * 6 + [f32, i32,
+                                                                   i32, vp]
+            lib.pt_flash_bwd_dq.restype = i32
+            lib.pt_flash_bwd_dkv.argtypes = [vp] * 10 + [i32] * 6 + [
+                f32, i32, i32, vp]
+            lib.pt_flash_bwd_dkv.restype = i32
             _lib = lib
     return _lib
 
@@ -351,6 +365,14 @@ def _check_bias(name, bias, B, Sk, dev):
     return 0 if bias.shape[0] == 1 else Sk
 
 
+def _launched(name, counter, err, q, k):
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed (error {err}) "
+                           f"at q {tuple(q.shape)} k {tuple(k.shape)} "
+                           f"{q.dtype}")
+    counter.launches += 1
+
+
 def _flash_fwd(name, counter, q, k, v, bias, scale, causal):
     BH, Sq, Sk, D = _qkv_shapes(name, q, k, v)
     _check_flash(name, (("q", q), ("k", k), ("v", v)), q.dtype)
@@ -365,11 +387,7 @@ def _flash_fwd(name, counter, q, k, v, bias, scale, causal):
                                _ptr(v), _ptr(bias), BH, q.shape[1], Sq, Sk,
                                D, bstride, float(scale), int(bool(causal)),
                                DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (error {err}) "
-                           f"at q {tuple(q.shape)} k {tuple(k.shape)} "
-                           f"{q.dtype}")
-    counter.launches += 1
+    _launched(name, counter, err, q, k)
     return out, lse
 
 
@@ -415,8 +433,9 @@ def flash_delta(o, do):
     return delta
 
 
-def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
-               causal):
+def _bwd_operands(name, q, k, v, do, lse, delta, bias):
+    """The checks every backward kernel makes; returns (BH, Sq, Sk, D,
+    the bias's batch stride or 0)."""
     BH, Sq, Sk, D = _qkv_shapes(name, q, k, v)
     if do.shape != q.shape:
         raise ValueError(f"{name}: do {tuple(do.shape)} != q "
@@ -428,9 +447,18 @@ def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
     _check_flash(name, (("q", q), ("k", k), ("v", v), ("do", do),
                         ("lse", lse, torch.float32),
                         ("delta", delta, torch.float32)), q.dtype)
-    dbias = bstride = None
+    bstride = 0
     if bias is not None:
         bstride = _check_bias(name, bias, q.shape[0], Sk, q.device)
+    return BH, Sq, Sk, D, bstride
+
+
+def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
+               causal):
+    BH, Sq, Sk, D, bstride = _bwd_operands(name, q, k, v, do, lse, delta,
+                                           bias)
+    dbias = None
+    if bias is not None:
         dbias = torch.empty(BH, Sk, dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
@@ -442,14 +470,10 @@ def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
         err = lib.pt_flash_bwd(_ptr(dq), _ptr(dk), _ptr(dv), _ptr(dq_ws),
                                _ptr(dbias), _ptr(q), _ptr(k), _ptr(v),
                                _ptr(do), _ptr(lse), _ptr(delta), _ptr(bias),
-                               BH, q.shape[1], Sq, Sk, D, bstride or 0,
+                               BH, q.shape[1], Sq, Sk, D, bstride,
                                float(scale), int(bool(causal)),
                                DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed (error {err}) "
-                           f"at q {tuple(q.shape)} k {tuple(k.shape)} "
-                           f"{q.dtype}")
-    counter.launches += 1
+    _launched(name, counter, err, q, k)
     return dq, dk, dv, dbias
 
 
@@ -471,8 +495,83 @@ def flash_bwd_bias(q, k, v, do, lse, delta, bias, scale, causal):
                       delta, bias, scale, causal)
 
 
+def _flash_bwd_dq(name, counter, q, k, v, do, lse, delta, bias, scale,
+                  causal):
+    BH, Sq, Sk, D, bstride = _bwd_operands(name, q, k, v, do, lse, delta,
+                                           bias)
+    dq = torch.empty_like(q)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_bwd_dq(_ptr(dq), _ptr(q), _ptr(k), _ptr(v),
+                                  _ptr(do), _ptr(lse), _ptr(delta),
+                                  _ptr(bias), BH, q.shape[1], Sq, Sk, D,
+                                  bstride, float(scale), int(bool(causal)),
+                                  DTYPE_CODES[q.dtype], stream)
+    _launched(name, counter, err, q, k)
+    return dq
+
+
+def _flash_bwd_dkv(name, counter, q, k, v, do, lse, delta, bias, scale,
+                   causal):
+    BH, Sq, Sk, D, bstride = _bwd_operands(name, q, k, v, do, lse, delta,
+                                           bias)
+    dbias = None
+    if bias is not None:
+        dbias = torch.empty(BH, Sk, dtype=torch.float32, device=q.device)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.pt_flash_bwd_dkv(_ptr(dk), _ptr(dv), _ptr(dbias), _ptr(q),
+                                   _ptr(k), _ptr(v), _ptr(do), _ptr(lse),
+                                   _ptr(delta), _ptr(bias), BH, q.shape[1],
+                                   Sq, Sk, D, bstride, float(scale),
+                                   int(bool(causal)), DTYPE_CODES[q.dtype],
+                                   stream)
+    _launched(name, counter, err, q, k)
+    return dk, dv, dbias
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
+    """K7 on the card: dq of the two-pass backward, given the forward's
+    lse and K6's delta ([B*H, Sq] float32, which may be those of a larger
+    attention: p is exp(s * scale - lse) over these keys, never
+    renormalised) and the cotangent do [B, H, Sq, D]. Returns dq in q's
+    dtype, bitwise reproducible (no atomics)."""
+    return _flash_bwd_dq("flash_bwd_dq", FLASH_BWD_DQ, q, k, v, do, lse,
+                         delta, None, scale, causal)
+
+
+def flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, scale, causal):
+    """K7 bias on the card: K7 with K4 bias's per-key bias [B or 1, Sk]
+    float32. Returns dq."""
+    return _flash_bwd_dq("flash_bwd_dq_bias", FLASH_BWD_DQ_BIAS, q, k, v,
+                         do, lse, delta, bias, scale, causal)
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
+    """K8 on the card: dk and dv of the two-pass backward (arguments as
+    `flash_bwd_dq`). Returns (dk, dv) in k's dtype, bitwise reproducible."""
+    return _flash_bwd_dkv("flash_bwd_dkv", FLASH_BWD_DKV, q, k, v, do, lse,
+                          delta, None, scale, causal)[:2]
+
+
+def flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias, scale, causal):
+    """K8 bias on the card: K8 with the per-key bias [B or 1, Sk] float32.
+    Returns (dk, dv, dbias) with dbias [B*H, Sk] float32, the column sums
+    of ds per (batch, head) row (the caller sums over heads, and over the
+    batch when the bias broadcasts)."""
+    return _flash_bwd_dkv("flash_bwd_dkv_bias", FLASH_BWD_DKV_BIAS, q, k, v,
+                          do, lse, delta, bias, scale, causal)
+
+
 __all__ = ["build", "library", "ragged_stream", "paged_decode",
            "flash_fwd", "flash_delta", "flash_bwd", "flash_fwd_bias",
-           "flash_bwd_bias", "reset_launch_counts", "launch_counts",
-           "KERNELS", "RAGGED_STREAM", "PAGED_DECODE", "FLASH_FWD",
-           "FLASH_DELTA", "FLASH_BWD", "FLASH_FWD_BIAS", "FLASH_BWD_BIAS"]
+           "flash_bwd_bias", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_dq_bias", "flash_bwd_dkv_bias", "reset_launch_counts",
+           "launch_counts", "KERNELS", "RAGGED_STREAM", "PAGED_DECODE",
+           "FLASH_FWD", "FLASH_DELTA", "FLASH_BWD", "FLASH_FWD_BIAS",
+           "FLASH_BWD_BIAS", "FLASH_BWD_DQ", "FLASH_BWD_DKV",
+           "FLASH_BWD_DQ_BIAS", "FLASH_BWD_DKV_BIAS"]

@@ -3,9 +3,13 @@
 
 Runs the step of chip_smoke.py phase 6 (`--model gpt2_small`, the
 default: GPT-2 small, random weights from a seed, dropout 0, batch
-16 x 1024 from np.random.RandomState(0)) or phase 6b (`--model
+16 x 1024 from np.random.RandomState(0)), phase 6b (`--model
 bert_large`: BERT-large pretraining on a batch of 16 x 512 padded to
-lengths in 128-512, MLM + NSP, through the per-key-bias flash kernels) —
+lengths in 128-512, MLM + NSP, through the per-key-bias flash kernels) or
+phase 6c (`--model gpt2_long`: GPT-2 small with max_position 16384 at
+1 x 16384, through the two-pass backward K7/K8; `--model
+gpt2_long_padded`: 2 x 16384 padded to lengths 16384 and 10240, through
+their bias variants) —
 the reference bench's mixed-precision step: bf16 compute on float32
 masters, AdamW lr 1e-4, wd 0.01: warm steps, measured steps timed with
 CUDA events and the host clock (ending in a synchronize), then a few
@@ -16,9 +20,11 @@ card's name and power limit:
     over all kernels, and the device's idle share (1 - busy / unprofiled
     step time; the step runs on one stream, so kernels do not overlap);
   * device time per step by class: the port's flash kernels K4
-    (flash_fwd_kernel; its bias variant on BERT), K6 (flash_delta_kernel)
-    and K9 (flash_bwd_kernel with its dq scale_cast_kernel; bias variant
-    on BERT); the GEMMs (cuBLAS/CUTLASS), with those cuBLAS serves from
+    (flash_fwd_kernel; its bias variant on BERT and padded batches), K6
+    (flash_delta_kernel), K7 (flash_bwd_dq_kernel) and K8
+    (flash_bwd_dkv_kernel) past the two-pass switch, and K9
+    (flash_bwd_kernel with its dq scale_cast_kernel; bias variant on
+    BERT); the GEMMs (cuBLAS/CUTLASS), with those cuBLAS serves from
     narrow-alignment (align1/align2) kernels apart — the odd-vocab heads'
     products; copies
     and casts (the .contiguous() copies of q, k, v and of the output
@@ -30,8 +36,8 @@ card's name and power limit:
   * the top kernels by device time.
 
 Usage (on a machine with the card, from the repo root):
-    python3 scripts/torch_train_profile.py [--model gpt2_small|bert_large]
-        [--steps 5] [--profile-steps 3]
+    python3 scripts/torch_train_profile.py [--model gpt2_small|bert_large|
+        gpt2_long|gpt2_long_padded] [--steps 5] [--profile-steps 3]
 """
 import argparse
 import os
@@ -47,6 +53,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("K4 flash_fwd", ("flash_fwd_kernel",)),
     ("K6 flash_delta", ("flash_delta_kernel",)),
+    ("K7 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K8 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
     ("K9 flash_bwd", ("flash_bwd_kernel", "scale_cast_kernel")),
     ("GEMM, narrow alignment (align1/align2)", ("align1", "align2")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce")),
@@ -66,7 +74,8 @@ def classify(name):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=("gpt2_small", "bert_large"),
+    ap.add_argument("--model", choices=("gpt2_small", "bert_large",
+                                        "gpt2_long", "gpt2_long_padded"),
                     default="gpt2_small")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
@@ -93,6 +102,16 @@ def main():
                                       "cuda")
         step = chip_smoke.bert_amp_train_step(torch, cfg, batch)
         title = "BERT-large (padded, MLM + NSP)"
+    elif args.model.startswith("gpt2_long"):
+        cfg = GPT2Config(max_position=16384, dropout=0.0)
+        padded = args.model == "gpt2_long_padded"
+        B, S = (2, 16384) if padded else (1, 16384)
+        lengths = [16384, 10240] if padded else None
+        step = chip_smoke.amp_train_step(
+            torch, cfg, chip_smoke._batch(torch, cfg, B, S, 0, "cuda",
+                                          lengths))
+        title = ("GPT-2 small, long context"
+                 + (" (padded to 16384/10240)" if padded else ""))
     else:
         cfg = GPT2Config(dropout=0.0)
         B, S = 16, 1024

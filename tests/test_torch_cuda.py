@@ -8,7 +8,12 @@ causal and not, at aligned, ragged and Sq != Sk lengths, plus a tiny
 GPT-2 train step on the card against the CPU; and the per-key-bias
 variants K4 bias / K9 bias against theirs at chip_smoke.py phase 3c's
 shapes (padding masks, a broadcast bias, a fully masked row), plus a tiny
-BERT train step on padded batches on the card against the CPU.
+BERT train step on padded batches on the card against the CPU; and the
+two-pass backward K7 (dq) / K8 (dk, dv, dbias), plain and bias, against
+theirs at the same shapes, with an LSE of a larger attention, bitwise
+from launch to launch, plus the launch counts of a padded 2-layer GPT-2
+step at S = 13312, past the reference's switch to the two-pass
+backward.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -200,9 +205,9 @@ FLASH_SHAPES = [(2, 3, 128, 128, 32), (1, 2, 200, 200, 64),
                 (2, 2, 64, 192, 128), (1, 2, 192, 64, 64), (1, 1, 1, 1, 32)]
 
 
-def _rel_close(out, ref, tol, what):
+def _rel_close(out, ref, tol, what, floor=1e-6):
     err = (out.float() - ref.float()).abs().max().item()
-    scale = max(ref.float().abs().max().item(), 1e-6)
+    scale = max(ref.float().abs().max().item(), floor)
     assert torch.isfinite(out).all(), what
     assert err <= tol * scale, f"{what}: max abs err {err:.3g} > " \
         f"{tol} x {scale:.3g}"
@@ -399,3 +404,174 @@ def test_bert_train_step_on_card_matches_cpu(dev):
     assert abs(res[str(dev)][0] - res["cpu"][0]) <= 1e-5 * abs(res["cpu"][0])
     for a, b in zip(res["cpu"][1], res[str(dev)][1]):
         torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-3)
+
+
+# ---- the two-pass backward: K7, K8 and their bias variants -----------------
+
+def _two_pass_inputs(dev, b, h, sq, sk, d, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn(b, h, sq, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, causal):
+    """(dq, dk, dv, dbias or None) from K7 and K8 (their bias variants
+    with a bias)."""
+    if bias is None:
+        dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+        dk, dv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+        return dq, dk, dv, None
+    dq = kernels.flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, sc, causal)
+    return (dq,) + kernels.flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias,
+                                              sc, causal)
+
+
+TWO_PASS_CASES = ([(b, h, sq, sk, d, causal, None)
+                   for b, h, sq, sk, d in FLASH_SHAPES
+                   for causal in (False, True)]
+                  + [(b, h, sq, sk, d, causal, kind)
+                     for b, h, sq, sk, d, causal, kind in BIAS_SHAPES])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", TWO_PASS_CASES)
+def test_two_pass_kernels_match_plain(dev, b, h, sq, sk, d, causal, kind,
+                                      dtype):
+    """K7/K8 (bias) against their plain versions on the K4 forward's lse,
+    one launch each, and K9 (bias) on the same inputs within the same
+    tolerance. With one key the exact gradients are zero (p = 1, dp =
+    delta) and both sides are rounding noise of order 1e-7: there errors
+    are held against the inputs' scale (standard normal, so 1) instead of
+    the output's."""
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    q, k, v, do = _two_pass_inputs(dev, b, h, sq, sk, d, dtype,
+                                   5 * sq + sk + d)
+    bias = None if kind is None else _bias(kind, b, sk, sq + 2 * sk, dev)
+    sc = d ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    out, lse = (kernels.flash_fwd(q, k, v, sc, causal) if bias is None else
+                kernels.flash_fwd_bias(q, k, v, bias, sc, causal))
+    delta = kernels.flash_delta(out, do)
+    before = kernels.launch_counts()
+    grads = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, causal)
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    tag = "" if bias is None else "_bias"
+    for n in ("flash_bwd_dq", "flash_bwd_dkv"):
+        assert after[n + tag] == before[n + tag] + 1, n + tag
+    assert after["flash_bwd" + tag] == before["flash_bwd" + tag]
+    f = [t.float() for t in (q, k, v, do)]
+    dq_p = pf.flash_bwd_dq_plain(*f, lse, delta, sc, causal, bias)
+    dk_p, dv_p, db_p = pf.flash_bwd_dkv_plain(*f, lse, delta, sc, causal,
+                                              bias)
+    fused = (kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
+             if bias is None else
+             kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                    causal))
+    floor = 1.0 if sk == 1 else 1e-6
+    for name, a, p, fz in zip(("dq", "dk", "dv"), grads, (dq_p, dk_p, dv_p),
+                              fused):
+        assert a.dtype == dtype and a.shape == p.shape
+        _rel_close(a, p, tol, name, floor)
+        _rel_close(a, fz.float(), tol, name + " vs K9", floor)
+    if bias is not None:
+        assert grads[3].shape == (b * h, sk)
+        _rel_close(grads[3], db_p, tol, "dbias", floor)
+
+
+@pytest.mark.parametrize("kind", [None, "lengths"], ids=["plain", "bias"])
+def test_two_pass_is_bitwise_reproducible(dev, kind):
+    """No atomics: two launches on the same inputs give the same bits."""
+    from paddle_tpu_torch.ops import kernels
+
+    b, h, s, d = 2, 4, 1000, 64
+    q, k, v, do = _two_pass_inputs(dev, b, h, s, s, d, torch.bfloat16, 11)
+    bias = None if kind is None else _bias(kind, b, s, 3, dev)
+    sc = d ** -0.5
+    out, lse = (kernels.flash_fwd(q, k, v, sc, True) if bias is None else
+                kernels.flash_fwd_bias(q, k, v, bias, sc, True))
+    delta = kernels.flash_delta(out, do)
+    first = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, True)
+    second = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, True)
+    for a, b_ in zip(first, second):
+        assert (a is None) == (b_ is None)
+        if a is not None:
+            assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_two_pass_takes_the_lse_it_is_given(dev, dtype):
+    """The LSE and delta of attention over [k0; k1], the kernels run on k1
+    alone (a ring block): the plain versions on the same arguments, and
+    with k0's share the full backward (dq summed, dk/dv concatenated)."""
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    b, h, sq, sk, d = 2, 2, 192, 128, 64
+    q, k, v, do = _two_pass_inputs(dev, b, h, sq, 2 * sk, d, dtype, 17)
+    sc = d ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    out, lse = kernels.flash_fwd(q, k, v, sc, False)
+    delta = kernels.flash_delta(out, do)
+    halves = [(k[:, :, i * sk:(i + 1) * sk].contiguous(),
+               v[:, :, i * sk:(i + 1) * sk].contiguous()) for i in (0, 1)]
+    parts = [_two_pass(kernels, q, kh, vh, do, lse, delta, None, sc, False)
+             for kh, vh in halves]
+    f = [t.float() for t in (q, halves[1][0], halves[1][1], do)]
+    dq_p = pf.flash_bwd_dq_plain(*f, lse, delta, sc, False)
+    dk_p, dv_p, _ = pf.flash_bwd_dkv_plain(*f, lse, delta, sc, False)
+    for name, a, p in zip(("dq", "dk", "dv"), parts[1], (dq_p, dk_p, dv_p)):
+        _rel_close(a, p, tol, name)
+    full = kernels.flash_bwd(q, k, v, do, lse, delta, sc, False)
+    _rel_close(parts[0][0].float() + parts[1][0].float(), full[0].float(),
+               tol, "dq summed over the blocks")
+    _rel_close(torch.cat([parts[0][1], parts[1][1]], 2), full[1].float(),
+               tol, "dk")
+    _rel_close(torch.cat([parts[0][2], parts[1][2]], 2), full[2].float(),
+               tol, "dv")
+
+
+def test_long_padded_step_launches_the_two_pass_kernels(dev):
+    """A 2-layer GPT-2 layout at S = 13312 (13 x 1024, past the
+    reference's switch at S = 13108 for D = 64), padded to 9000 tokens: one
+    float32 loss and backward launch K4 bias, K6, K7 bias and K8 bias once
+    per layer, and no K9."""
+    from paddle_tpu_torch.models.gpt2 import GPT2Config, build_train_step
+    from paddle_tpu_torch.models.gpt2 import logits
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.loss import cross_entropy
+
+    S, n = 13312, 9000
+    cfg = GPT2Config(vocab_size=1024, hidden_size=128, num_layers=2,
+                     num_heads=2, max_position=S, dropout=0.0)
+    assert pf.uses_two_pass(S, 64) and not pf.uses_two_pass(13107, 64)
+    _loss_fn, init_params = build_train_step(cfg, device=dev)
+    params = init_params()
+    rs = np.random.RandomState(3)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (1, S))).to(dev)
+    labels = ids.clone()
+    labels[:, n:] = -100
+    mask = torch.zeros(1, 1, 1, S, device=dev)
+    mask[..., n:] = -1e30
+    kernels.reset_launch_counts()
+    lg = logits(params, cfg, ids, attn_mask=mask)
+    loss = cross_entropy(lg.reshape(-1, cfg.vocab_size), labels.reshape(-1))
+    grads = torch.autograd.grad(loss, list(params.values()))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all()
+                                        for g in grads)
+    for name in ("flash_fwd_bias", "flash_delta", "flash_bwd_dq_bias",
+                 "flash_bwd_dkv_bias"):
+        assert counts[name] == cfg.num_layers, (name, counts)
+    for name in ("flash_fwd", "flash_bwd", "flash_bwd_bias", "flash_bwd_dq",
+                 "flash_bwd_dkv"):
+        assert counts[name] == 0, (name, counts)
