@@ -34,15 +34,19 @@ non-zero before the result line:
   3b. flash  — K4 (forward with LSE), K6 (delta) and K9 (fused
                backward) against their plain versions on the same inputs,
                bf16 and f32: at the training path's shape (B=16, H=12,
-               S=1024, D=64, causal) and a ragged one (B=2, H=4, S=1000,
-               D=32, causal and not). Errors are relative to the plain
+               S=1024, D=64, causal), a ragged one (B=2, H=4, S=1000,
+               D=32, causal and not) and, in bf16, B=2 H=8 S=2048 D=128
+               causal (the bf16 K4's two TMA boxes a row and its
+               register peak). Errors are relative to the plain
                output's largest magnitude: 2e-2 for out/dq/dk/dv in bf16,
                1e-4 for everything else. Times at the main shape in bf16:
                the kernel, the plain version, and as `library_ms` one
                PyTorch call for the same function (K4: the forward of
                F.scaled_dot_product_attention; K9: its backward through
                torch.autograd.grad; K6: torch.linalg.vecdot) — none of
-               them on the port's path;
+               them on the port's path. For K4 also its achieved TFLOP/s,
+               its share of the bound and its ratio to the library time
+               (the same for K4 bias in 3c);
   4c. train parity — GPT-2 small, 12 layers, float32 (TF32 off), batch
                2 x 256, dropout 0: two AdamW steps (lr 1e-4, wd 0.01) on
                the card (kernels) and on the CPU (plain versions) from the
@@ -172,6 +176,7 @@ FLASH_REPLACES = {
         "paddle_tpu/ops/pallas/flash_attention.py:615 (has_bias)"}
 SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
+FWD_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"  # K4 (bias) in bf16
 TWO_PASS_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_two_pass.cu"
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
@@ -409,6 +414,15 @@ def _pairs(sq, sk, causal):
     return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
+def _fwd_rates(phase, name, tag, r):
+    """The forward's achieved TFLOP/s, share of its bound and ratio to the
+    library call, from a timed row."""
+    say(f"phase {phase} {name} {tag}: {r['flops'] / r['ms'] / 1e9:.1f} "
+        f"TFLOP/s achieved, {r['bound_ms'] / r['ms']:.3f} of the bound "
+        f"({r['bound_by']}), {r['ms'] / r['library_ms']:.2f}x the "
+        f"library's time")
+
+
 def _rel_err(out, ref):
     """(max abs error, that error over the plain output's max abs)."""
     err = (out.float() - ref.float()).abs().max().item()
@@ -488,6 +502,7 @@ def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
         say(f"phase 3b {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    _fwd_rates("3b", "flash_fwd", tag, fw)
     return rows
 
 
@@ -590,6 +605,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
         say(f"phase 3c {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    _fwd_rates("3c", "flash_fwd_bias", tag, fw)
     return rows
 
 
@@ -1217,10 +1233,13 @@ def main():
                 f"[{card}]")
 
     # phase 3b: flash kernels vs plain
-    for b, h, sl, d, causal, timed in ((16, 12, 1024, 64, True, True),
-                                       (2, 4, 1000, 32, True, False),
-                                       (2, 4, 1000, 32, False, False)):
-        for dtype in (torch.bfloat16, torch.float32):
+    both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    for b, h, sl, d, causal, timed, dtypes in (
+            (16, 12, 1024, 64, True, True, both),
+            (2, 4, 1000, 32, True, False, both),
+            (2, 4, 1000, 32, False, False, both),
+            (2, 8, 2048, 128, True, False, bf16)):
+        for dtype in dtypes:
             r = flash_case(torch, timer, b, h, sl, d, causal, dtype,
                            b * sl + d, timed and dtype == torch.bfloat16)
             if timed and dtype == torch.bfloat16:
@@ -1244,7 +1263,6 @@ def main():
     torch.cuda.empty_cache()
 
     # phase 3d: the two-pass backward (K7, K8, bias variants) vs plain
-    both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
     for b, h, sq, sk, d, causal, kind, dtypes, external in (
             (16, 12, 1024, 1024, 64, True, None, both, False),      # (a)
             (1, 2, 16384, 16384, 64, True, None, bf16, False),      # (b)
@@ -1456,7 +1474,8 @@ def main():
         r = rows[name]
         if main_counts[name] <= 0:
             fail(f"{name} was not launched on the main path")
-        src = TWO_PASS_SOURCE if "_bwd_d" in name else FLASH_SOURCE
+        src = (TWO_PASS_SOURCE if "_bwd_d" in name else
+               FWD_SOURCE if name.startswith("flash_fwd") else FLASH_SOURCE)
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": FLASH_REPLACES[name],
                     "launches": main_counts[name],

@@ -56,8 +56,14 @@
 //   FLOPs (~0.065 ms there): operations. K6 reads o and dO once: bytes.
 //   The bias adds B * Sk floats to read (and BH * Sk to write in K9).
 //
-// What the design does about it (a first, plain kernel: float32 SIMT
-// products, no tensor cores yet, so K4 and K9 run far from their bounds):
+// K4 in bfloat16 is not here: `fwd` sends it to flash_fwd_sm90.cu, a
+// Hopper kernel whose two products run on the tensor cores (wgmma) fed by
+// TMA through an mbarrier ring — the SIMT K4 below ran them as float32
+// FMAs at ~24 TFLOP/s, 36x its bound at GPT-2-small shapes. K4 in float32
+// stays this SIMT kernel: TF32 tensor-core products keep ~3 digits and
+// would break the float32 parity of training. What the SIMT design does
+// (float32 products, no tensor cores, so K9 and the float32 K4 run far
+// from their bounds):
 //   * One block per (q tile, bh) in K4 and per (key tile, bh) in K9, with
 //     the TPU's sequential grid axis turned into a loop inside the block
 //     that stops at the causal horizon (K4) or starts at the first q tile
@@ -73,7 +79,9 @@
 //     small kernel. The order of that sum changes from run to run, so
 //     K9's dq is not bitwise deterministic (the tests hold it to a
 //     tolerance); K7 + K8 use no atomics and are.
-// Later work, not here: mma/wgmma tensor-core products and TMA loads.
+// The tile machinery of the bf16 K4 (sm90_tile.cuh: tensor maps, the
+// mbarrier ring, wgmma descriptors and products) is there for K9, K7 and
+// K8 to take next.
 
 #include "flash_common.cuh"
 
@@ -327,7 +335,17 @@ int fwd(void* out, float* lse, const void* q, const void* k, const void* v,
         int bias_bstride, float scale, int causal, int dtype,
         cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  PT_FLASH_DISPATCH(launch_fwd, out, lse, q, k, v, bias, BH, sh, st);
+  if (dtype == 1) return fwd_sm90(out, lse, q, k, v, bias, BH, D, sh, st);
+  cudaError_t e;  // float32: the SIMT kernel
+  if (dtype == 0 && D == 32)
+    e = launch_fwd<float, 32>(out, lse, q, k, v, bias, BH, sh, st);
+  else if (dtype == 0 && D == 64)
+    e = launch_fwd<float, 64>(out, lse, q, k, v, bias, BH, sh, st);
+  else if (dtype == 0 && D == 128)
+    e = launch_fwd<float, 128>(out, lse, q, k, v, bias, BH, sh, st);
+  else
+    return -1;
+  return static_cast<int>(e);
 }
 
 int delta(float* dl, const void* o, const void* dout, int64_t rows, int D,

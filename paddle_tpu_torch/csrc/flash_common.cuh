@@ -2,8 +2,9 @@
 // masking rules, the tile loader, the backward's tile math (`tile_p_ds`),
 // the body of the key-tile backward (K9 with dq, K8 without) and the
 // (dtype, D) dispatch of the C entry points. flash_attention.cu (K4, K6,
-// K9) and flash_bwd_two_pass.cu (K7, K8) include it; each compiles in its
-// own nvcc process. See flash_attention.cu for the masking semantics.
+// K9), flash_bwd_two_pass.cu (K7, K8) and flash_fwd_sm90.cu (K4 in bf16)
+// include it; each compiles in its own nvcc process. See
+// flash_attention.cu for the masking semantics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -331,6 +332,13 @@ cudaError_t launch_tiles(Kernel kern, int floats, int tiles, int BH,
   kern<<<dim3(tiles, BH), kThreads, smem, st>>>(args...);
   return cudaGetLastError();
 }
+
+// K4 (bias with a non-null bias) in bfloat16 on the tensor cores
+// (flash_fwd_sm90.cu). Returns a cudaError_t value, or -1 for a D other
+// than 32, 64 or 128.
+int fwd_sm90(void* out, float* lse, const void* q, const void* k,
+             const void* v, const float* bias, int BH, int D, Shape sh,
+             cudaStream_t st);
 
 // dtype: 0 = float32, 1 = bfloat16. Returns -1 for an unsupported
 // (dtype, D) pair; the Python wrapper checks both before calling.

@@ -35,8 +35,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 UNITS = ("unified_attention.cu", "flash_attention.cu",  # one object each
-         "flash_bwd_two_pass.cu")
-SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh")
+         "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu")
+SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh",
+                   "sm90_tile.cuh")
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -394,7 +395,9 @@ def _flash_fwd(name, counter, q, k, v, bias, scale, causal):
 def flash_fwd(q, k, v, scale, causal):
     """K4 on the card: attention of q [B, H, Sq, D] over k/v
     [B, H, Sk, D] (causal: bottom-right aligned). Returns (out
-    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32)."""
+    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32). bfloat16 runs the
+    tensor-core kernel of csrc/flash_fwd_sm90.cu, float32 the SIMT one of
+    csrc/flash_attention.cu."""
     return _flash_fwd("flash_fwd", FLASH_FWD, q, k, v, None, scale, causal)
 
 

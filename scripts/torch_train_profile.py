@@ -20,7 +20,8 @@ card's name and power limit:
     over all kernels, and the device's idle share (1 - busy / unprofiled
     step time; the step runs on one stream, so kernels do not overlap);
   * device time per step by class: the port's flash kernels K4
-    (flash_fwd_kernel; its bias variant on BERT and padded batches), K6
+    (flash_fwd_sm90_kernel in bf16, flash_fwd_kernel in float32; its
+    bias variant on BERT and padded batches), K6
     (flash_delta_kernel), K7 (flash_bwd_dq_kernel) and K8
     (flash_bwd_dkv_kernel) past the two-pass switch, and K9
     (flash_bwd_kernel with its dq scale_cast_kernel; bias variant on
@@ -51,7 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
 CLASSES = (  # (class, substrings of the kernel name), first match wins
-    ("K4 flash_fwd", ("flash_fwd_kernel",)),
+    ("K4 flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("K6 flash_delta", ("flash_delta_kernel",)),
     ("K7 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K8 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
