@@ -36,17 +36,21 @@ non-zero before the result line:
                bf16 and f32: at the training path's shape (B=16, H=12,
                S=1024, D=64, causal), a ragged one (B=2, H=4, S=1000,
                D=32, causal and not) and, in bf16, B=2 H=8 S=2048 D=128
-               causal (the bf16 K4's two TMA boxes a row and its
-               register peak). Errors are relative to the plain
+               causal (the bf16 kernels' two TMA boxes a row and their
+               register peak) and B=2 H=4 Sq=384 Sk=256 D=64 causal (dead
+               rows through the bf16 K9). In bf16 K4 and K9 are the
+               tensor-core kernels of csrc/flash_fwd_sm90.cu and
+               csrc/flash_bwd_sm90.cu. K9's dk and dv must be bitwise
+               equal over two launches. Errors are relative to the plain
                output's largest magnitude: 2e-2 for out/dq/dk/dv in bf16,
                1e-4 for everything else. Times at the main shape in bf16:
                the kernel, the plain version, and as `library_ms` one
                PyTorch call for the same function (K4: the forward of
                F.scaled_dot_product_attention; K9: its backward through
                torch.autograd.grad; K6: torch.linalg.vecdot) — none of
-               them on the port's path. For K4 also its achieved TFLOP/s,
-               its share of the bound and its ratio to the library time
-               (the same for K4 bias in 3c);
+               them on the port's path. For K4 and K9 also the achieved
+               TFLOP/s, the share of the bound and the ratio to the
+               library time (the same for K4 bias and K9 bias in 3c);
   4c. train parity — GPT-2 small, 12 layers, float32 (TF32 off), batch
                2 x 256, dropout 0: two AdamW steps (lr 1e-4, wd 0.01) on
                the card (kernels) and on the CPU (plain versions) from the
@@ -69,7 +73,8 @@ non-zero before the result line:
                causal one (B=2, H=4, S=300, D=32); Sq != Sk (256 x 384);
                a [1, Sk] bias broadcast over the batch; and a batch row
                that is fully masked (not causal and causal). out, lse, dq,
-               dk, dv and dbias within phase 3b's tolerances. Times at the
+               dk, dv and dbias within phase 3b's tolerances; K9 bias's dk,
+               dv and dbias bitwise equal over two launches. Times at the
                main shape in bf16: the kernel, the plain version, and as
                `library_ms` F.scaled_dot_product_attention with attn_mask
                = bias[:, None, None, :] (its forward; its backward through
@@ -177,6 +182,7 @@ FLASH_REPLACES = {
 SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FWD_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"  # K4 (bias) in bf16
+BWD_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"  # K9 (bias) in bf16
 TWO_PASS_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_two_pass.cu"
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
@@ -414,8 +420,8 @@ def _pairs(sq, sk, causal):
     return sum(min(sk, max(0, i + sk - sq + 1)) for i in range(sq))
 
 
-def _fwd_rates(phase, name, tag, r):
-    """The forward's achieved TFLOP/s, share of its bound and ratio to the
+def _rates(phase, name, tag, r):
+    """A kernel's achieved TFLOP/s, share of its bound and ratio to the
     library call, from a timed row."""
     say(f"phase {phase} {name} {tag}: {r['flops'] / r['ms'] / 1e9:.1f} "
         f"TFLOP/s achieved, {r['bound_ms'] / r['ms']:.3f} of the bound "
@@ -429,22 +435,24 @@ def _rel_err(out, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
+def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
     """K4, K6 and K9 against their plain versions (computed in float32
-    from the same inputs); with `timed`, the kernel, plain and library
-    times and the bounds. Returns {kernel name: row} or fails."""
+    from the same inputs), and K9's dk and dv bitwise equal over two
+    launches; with `timed`, the kernel, plain and library times and the
+    bounds. Returns {kernel name: row} or fails."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as pf
     from paddle_tpu_torch.ops import kernels
 
     g = torch.Generator(device=DEV).manual_seed(seed)
-    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=DEV)
-                   .to(dtype) for _ in range(4))
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g, device=DEV)
+                   .to(dtype) for n in (sq, sk, sk, sq))
     sc = d ** -0.5
     out, lse = kernels.flash_fwd(q, k, v, sc, causal)
     delta = kernels.flash_delta(out, do)
     grads = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
+    again = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
     f = [t.float() for t in (q, k, v, do)]
     out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal)
@@ -457,8 +465,12 @@ def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
     for name, a, p in zip(("dq", "dk", "dv"), grads, grads_p):
         checks[name] = (a, p, tol)
     errs = {}
-    tag = (f"B{b} H{h} S{s} D{d} {'causal' if causal else 'full'} "
-           f"{str(dtype).split('.')[-1]}")
+    tag = (f"B{b} H{h} {f'S{sq}' if sq == sk else f'Sq{sq} Sk{sk}'} D{d} "
+           f"{'causal' if causal else 'full'} {str(dtype).split('.')[-1]}")
+    for name, a, a2 in zip(("dk", "dv"), grads[1:], again[1:]):
+        if not torch.equal(a, a2):
+            fail(f"phase 3b {tag}: {name} differs between two launches")
+    del again
     for name, (a, p, t) in checks.items():
         err, rel = _rel_err(a, p)
         errs[name] = err
@@ -471,7 +483,7 @@ def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
                                              errs["dv"])}}
     say(f"phase 3b {tag}: max abs err out {errs['out']:.3g} lse "
         f"{errs['lse']:.3g} delta {errs['delta']:.3g} dq {errs['dq']:.3g} "
-        f"dk {errs['dk']:.3g} dv {errs['dv']:.3g}")
+        f"dk {errs['dk']:.3g} dv {errs['dv']:.3g}; dk, dv bitwise repeatable")
     if not timed:
         return rows
     del out_p, lse_p, delta_p, grads_p, f
@@ -493,16 +505,18 @@ def flash_case(torch, timer, b, h, s, d, causal, dtype, seed, timed):
                                         scale=sc)
     bw["library_ms"] = timer.ms(lambda: torch.autograd.grad(
         lo, (lq, lk, lv), do, retain_graph=True))
-    e, bh, pairs = q.element_size(), b * h, _pairs(s, s, causal)
-    vec = bh * s * d * e  # bytes of one [B, H, S, D] tensor
-    fw.update(_bound(4 * vec + 4 * bh * s, 4 * bh * d * pairs))
-    dl.update(_bound(2 * vec + 4 * bh * s, 2 * bh * s * d))
-    bw.update(_bound(7 * vec + 8 * bh * s, 10 * bh * d * pairs))
+    e, bh, pairs = q.element_size(), b * h, _pairs(sq, sk, causal)
+    qv = bh * sq * d * e  # bytes of q (and out, do, dq)
+    kv = bh * sk * d * e  # bytes of k (and v, dk, dv)
+    fw.update(_bound(2 * qv + 2 * kv + 4 * bh * sq, 4 * bh * d * pairs))
+    dl.update(_bound(2 * qv + 4 * bh * sq, 2 * bh * sq * d))
+    bw.update(_bound(3 * qv + 4 * kv + 8 * bh * sq, 10 * bh * d * pairs))
     for name, r in rows.items():
         say(f"phase 3b {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    _fwd_rates("3b", "flash_fwd", tag, fw)
+    _rates("3b", "flash_fwd", tag, fw)
+    _rates("3b", "flash_bwd", tag, bw)
     return rows
 
 
@@ -527,8 +541,9 @@ def _key_bias(torch, kind, b, sk, seed, lo, lengths=None):
 def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
                     seed, timed):
     """K4 bias, K6 and K9 bias against their plain versions (float32,
-    from the same inputs); with `timed`, the kernel, plain and library
-    times and the bounds. Returns {kernel name: row} or fails."""
+    from the same inputs), and K9 bias's dk, dv and dbias bitwise equal
+    over two launches; with `timed`, the kernel, plain and library times
+    and the bounds. Returns {kernel name: row} or fails."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as pf
@@ -545,6 +560,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
     out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
     delta = kernels.flash_delta(out, do)
     grads = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
+    again = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
     torch.cuda.synchronize()
     f = [t.float() for t in (q, k, v, do)]
     out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal,
@@ -553,6 +569,10 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
                                  causal, bias)
     tag = (f"B{b} H{h} Sq{sq} Sk{sk} D{d} {'causal' if causal else 'full'} "
            f"{kind} {str(dtype).split('.')[-1]}")
+    for name, a, a2 in zip(("dk", "dv", "dbias"), grads[1:], again[1:]):
+        if not torch.equal(a, a2):
+            fail(f"phase 3c {tag}: {name} differs between two launches")
+    del again
     live = lse_p > -1e29  # a fully masked row's lse is the -1e30 fill
     if not (lse[~live] <= -1e29).all().item():
         fail(f"phase 3c {tag}: a fully masked row's lse is not the fill")
@@ -568,7 +588,8 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
             fail(f"phase 3c {tag}: {name} disagrees with plain (max abs "
                  f"err {err:.3g}, {rel:.3g} of its magnitude > {t})")
     say(f"phase 3c {tag}: max abs err " + " ".join(
-        f"{n} {e:.3g}" for n, e in errs.items()))
+        f"{n} {e:.3g}" for n, e in errs.items())
+        + "; dk, dv, dbias bitwise repeatable")
     rows = {"flash_fwd_bias": {"max_abs_err": max(errs["out"], errs["lse"])},
             "flash_bwd_bias": {"max_abs_err": max(
                 errs["dq"], errs["dk"], errs["dv"], errs["dbias"])}}
@@ -605,7 +626,8 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
         say(f"phase 3c {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
-    _fwd_rates("3c", "flash_fwd_bias", tag, fw)
+    _rates("3c", "flash_fwd_bias", tag, fw)
+    _rates("3c", "flash_bwd_bias", tag, bw)
     return rows
 
 
@@ -1234,14 +1256,15 @@ def main():
 
     # phase 3b: flash kernels vs plain
     both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
-    for b, h, sl, d, causal, timed, dtypes in (
-            (16, 12, 1024, 64, True, True, both),
-            (2, 4, 1000, 32, True, False, both),
-            (2, 4, 1000, 32, False, False, both),
-            (2, 8, 2048, 128, True, False, bf16)):
+    for b, h, sq, sk, d, causal, timed, dtypes in (
+            (16, 12, 1024, 1024, 64, True, True, both),
+            (2, 4, 1000, 1000, 32, True, False, both),
+            (2, 4, 1000, 1000, 32, False, False, both),
+            (2, 8, 2048, 2048, 128, True, False, bf16),
+            (2, 4, 384, 256, 64, True, False, bf16)):  # dead rows
         for dtype in dtypes:
-            r = flash_case(torch, timer, b, h, sl, d, causal, dtype,
-                           b * sl + d, timed and dtype == torch.bfloat16)
+            r = flash_case(torch, timer, b, h, sq, sk, d, causal, dtype,
+                           b * sq + d, timed and dtype == torch.bfloat16)
             if timed and dtype == torch.bfloat16:
                 rows.update(r)
     torch.cuda.empty_cache()
@@ -1474,8 +1497,10 @@ def main():
         r = rows[name]
         if main_counts[name] <= 0:
             fail(f"{name} was not launched on the main path")
+        # the rows are timed in bf16: K4 and K9 (bias) run their sm90 units
         src = (TWO_PASS_SOURCE if "_bwd_d" in name else
-               FWD_SOURCE if name.startswith("flash_fwd") else FLASH_SOURCE)
+               FWD_SOURCE if name.startswith("flash_fwd") else
+               BWD_SOURCE if name.startswith("flash_bwd") else FLASH_SOURCE)
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": FLASH_REPLACES[name],
                     "launches": main_counts[name],

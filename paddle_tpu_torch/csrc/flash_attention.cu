@@ -56,18 +56,21 @@
 //   FLOPs (~0.065 ms there): operations. K6 reads o and dO once: bytes.
 //   The bias adds B * Sk floats to read (and BH * Sk to write in K9).
 //
-// K4 in bfloat16 is not here: `fwd` sends it to flash_fwd_sm90.cu, a
-// Hopper kernel whose two products run on the tensor cores (wgmma) fed by
-// TMA through an mbarrier ring — the SIMT K4 below ran them as float32
-// FMAs at ~24 TFLOP/s, 36x its bound at GPT-2-small shapes. K4 in float32
-// stays this SIMT kernel: TF32 tensor-core products keep ~3 digits and
-// would break the float32 parity of training. What the SIMT design does
-// (float32 products, no tensor cores, so K9 and the float32 K4 run far
-// from their bounds):
+// K4 and K9 in bfloat16 are not here: `fwd` sends K4 to flash_fwd_sm90.cu
+// and `bwd` sends K9 to flash_bwd_sm90.cu, Hopper kernels whose products
+// run on the tensor cores (wgmma) fed by TMA through an mbarrier ring —
+// the SIMT kernels below ran them as float32 FMAs, 36-41x their bounds at
+// GPT-2-small shapes. In bf16 `bwd` then runs `scale_cast_kernel` on the
+// workspace as in float32. K4 and K9 in float32 stay these SIMT kernels:
+// TF32 tensor-core products keep ~3 digits and would break the float32
+// parity of training. What the SIMT design does (float32 products, no
+// tensor cores, so they run far from their bounds):
 //   * One block per (q tile, bh) in K4 and per (key tile, bh) in K9, with
 //     the TPU's sequential grid axis turned into a loop inside the block
 //     that stops at the causal horizon (K4) or starts at the first q tile
-//     that reaches the key tile (K9) — dead tiles are never visited.
+//     that reaches the key tile (K9) — dead tiles are never visited. bh
+//     is on grid y, in launches of at most 65535 bh (`launch_tiles`), so
+//     any B * H is taken.
 //   * 64 x 64 score tiles in shared memory; each of 256 threads owns a
 //     4 x 4 micro-tile of scores and 4 rows of the output, so every
 //     shared-memory load feeds two FMAs; padded pitches keep the column
@@ -75,13 +78,11 @@
 //   * The online softmax (m, l, acc) lives in registers in float32; dk/dv
 //     (and dbias) accumulate in registers in float32 across the q loop.
 //   * K9's dq is summed across key tiles with float32 atomicAdd into a
-//     zeroed [BH, Sq, D] workspace, then scaled and cast by a second
-//     small kernel. The order of that sum changes from run to run, so
-//     K9's dq is not bitwise deterministic (the tests hold it to a
-//     tolerance); K7 + K8 use no atomics and are.
-// The tile machinery of the bf16 K4 (sm90_tile.cuh: tensor maps, the
-// mbarrier ring, wgmma descriptors and products) is there for K9, K7 and
-// K8 to take next.
+//     zeroed [BH, Sq, D] workspace (the bf16 K9: one bulk reduction per
+//     tile pair), then scaled and cast by a second small kernel. The
+//     order of that sum changes from run to run, so K9's dq is not
+//     bitwise deterministic (the tests hold it to a tolerance); K7 + K8
+//     use no atomics and are.
 
 #include "flash_common.cuh"
 
@@ -107,7 +108,7 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * kBQ;
-  const int64_t bh = blockIdx.y;
+  const int64_t bh = static_cast<int64_t>(sh.bh0) + blockIdx.y;
   const T* kb = k + bh * sh.Sk * D;
   const T* vb = v + bh * sh.Sk * D;
   const float* brow = bias_row(bias, sh, bh);
@@ -272,9 +273,10 @@ cudaError_t launch_fwd_as(void* out, float* lse, const void* q,
   return launch_tiles(flash_fwd_kernel<T, D, HasBias>,
                       kBQ * DP + 2 * kBK * DP + kBQ * kPP +
                           (HasBias ? kBK : 0),
-                      (sh.Sq + kBQ - 1) / kBQ, BH, st, static_cast<T*>(out),
-                      lse, static_cast<const T*>(q), static_cast<const T*>(k),
-                      static_cast<const T*>(v), bias, sh);
+                      (sh.Sq + kBQ - 1) / kBQ, BH, sh, st,
+                      static_cast<T*>(out), lse, static_cast<const T*>(q),
+                      static_cast<const T*>(k), static_cast<const T*>(v),
+                      bias);
 }
 
 template <typename T, int D>
@@ -304,30 +306,38 @@ cudaError_t launch_bwd_kernel(void* dk, void* dv, float* dq_ws, float* dbias,
                               Shape sh, cudaStream_t st) {
   return launch_tiles(
       flash_bwd_kernel<T, D, HasBias>, bwd_key_tile_smem_floats<D, HasBias>(),
-      (sh.Sk + kBK - 1) / kBK, BH, st, dq_ws, static_cast<T*>(dk),
+      (sh.Sk + kBK - 1) / kBK, BH, sh, st, dq_ws, static_cast<T*>(dk),
       static_cast<T*>(dv), dbias, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, bias, sh);
+      static_cast<const T*>(dout), lse, delta, bias);
 }
 
-template <typename T, int D>
+// dq = scale * dq_ws in T, after either K9.
+template <typename T>
+cudaError_t launch_scale_cast(void* dq, const float* dq_ws, int BH, int D,
+                              Shape sh, cudaStream_t st) {
+  const int64_t n = static_cast<int64_t>(BH) * sh.Sq * D;
+  const int64_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
+  scale_cast_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      static_cast<T*>(dq), dq_ws, n, sh.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
 cudaError_t launch_bwd(void* dq, void* dk, void* dv, float* dq_ws,
                        float* dbias, const void* q, const void* k,
                        const void* v, const void* dout, const float* lse,
                        const float* delta, const float* bias, int BH,
                        Shape sh, cudaStream_t st) {
   cudaError_t e =
-      bias ? launch_bwd_kernel<T, D, true>(dk, dv, dq_ws, dbias, q, k, v,
-                                           dout, lse, delta, bias, BH, sh, st)
-           : launch_bwd_kernel<T, D, false>(dk, dv, dq_ws, dbias, q, k, v,
-                                            dout, lse, delta, bias, BH, sh,
-                                            st);
+      bias ? launch_bwd_kernel<float, D, true>(dk, dv, dq_ws, dbias, q, k,
+                                               v, dout, lse, delta, bias, BH,
+                                               sh, st)
+           : launch_bwd_kernel<float, D, false>(dk, dv, dq_ws, dbias, q, k,
+                                                v, dout, lse, delta, bias,
+                                                BH, sh, st);
   if (e != cudaSuccess) return e;
-  const int64_t n = static_cast<int64_t>(BH) * sh.Sq * D;
-  const int64_t blocks = (n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096;
-  scale_cast_kernel<T><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      static_cast<T*>(dq), dq_ws, n, sh.scale);
-  return cudaGetLastError();
+  return launch_scale_cast<float>(dq, dq_ws, BH, D, sh, st);
 }
 
 int fwd(void* out, float* lse, const void* q, const void* k, const void* v,
@@ -359,8 +369,26 @@ int bwd(void* dq, void* dk, void* dv, float* dq_ws, float* dbias,
         int Sq, int Sk, int D, int bias_bstride, float scale, int causal,
         int dtype, cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  PT_FLASH_DISPATCH(launch_bwd, dq, dk, dv, dq_ws, dbias, q, k, v, dout, lse,
-                    dl, bias, BH, sh, st);
+  if (dtype == 1) {  // bfloat16: the tensor-core kernel, then the cast
+    const int e = bwd_sm90(dk, dv, dq_ws, dbias, q, k, v, dout, lse, dl,
+                           bias, BH, D, sh, st);
+    if (e != 0) return e;
+    return static_cast<int>(
+        launch_scale_cast<__nv_bfloat16>(dq, dq_ws, BH, D, sh, st));
+  }
+  cudaError_t e;  // float32: the SIMT kernel
+  if (dtype == 0 && D == 32)
+    e = launch_bwd<32>(dq, dk, dv, dq_ws, dbias, q, k, v, dout, lse, dl,
+                       bias, BH, sh, st);
+  else if (dtype == 0 && D == 64)
+    e = launch_bwd<64>(dq, dk, dv, dq_ws, dbias, q, k, v, dout, lse, dl,
+                       bias, BH, sh, st);
+  else if (dtype == 0 && D == 128)
+    e = launch_bwd<128>(dq, dk, dv, dq_ws, dbias, q, k, v, dout, lse, dl,
+                        bias, BH, sh, st);
+  else
+    return -1;
+  return static_cast<int>(e);
 }
 
 }  // namespace flash

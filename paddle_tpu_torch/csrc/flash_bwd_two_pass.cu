@@ -34,7 +34,8 @@
 //     the tile's last row (a dead row, which sees no key, takes no
 //     gradient); dq sums in float32 registers and is written once as
 //     dq * scale — no workspace and no second cast kernel.
-//   * K8 is K9 without its dq atomics (`bwd_key_tile<..., false>`): one
+//   * K8 is the SIMT K9 without its dq atomics (`bwd_key_tile<...,
+//     false>`; the bf16 K9 is flash_bwd_sm90.cu's tensor-core kernel): one
 //     block per (64-key tile, bh), k, v and the bias tile loaded once, q
 //     tiles streamed from the first that reaches the key tile; dk, dv and
 //     the dbias column sums stay in registers and are written once.
@@ -76,7 +77,7 @@ flash_bwd_dq_kernel(T* __restrict__ dq, const T* __restrict__ q,
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int q0 = blockIdx.x * kBQ;
-  const int64_t bh = blockIdx.y;
+  const int64_t bh = static_cast<int64_t>(sh.bh0) + blockIdx.y;
   const T* kb = k + bh * sh.Sk * D;
   const T* vb = v + bh * sh.Sk * D;
   const float* brow = bias_row(bias, sh, bh);
@@ -175,15 +176,15 @@ cudaError_t launch_dq(void* dq, const void* q, const void* k, const void* v,
   const int tiles = (sh.Sq + kBQ - 1) / kBQ;
   if (bias)
     return launch_tiles(flash_bwd_dq_kernel<T, D, true>,
-                        dq_smem_floats<D, true>(), tiles, BH, st,
+                        dq_smem_floats<D, true>(), tiles, BH, sh, st,
                         static_cast<T*>(dq), static_cast<const T*>(q),
                         static_cast<const T*>(k), static_cast<const T*>(v),
-                        static_cast<const T*>(dout), lse, delta, bias, sh);
+                        static_cast<const T*>(dout), lse, delta, bias);
   return launch_tiles(flash_bwd_dq_kernel<T, D, false>,
-                      dq_smem_floats<D, false>(), tiles, BH, st,
+                      dq_smem_floats<D, false>(), tiles, BH, sh, st,
                       static_cast<T*>(dq), static_cast<const T*>(q),
                       static_cast<const T*>(k), static_cast<const T*>(v),
-                      static_cast<const T*>(dout), lse, delta, bias, sh);
+                      static_cast<const T*>(dout), lse, delta, bias);
 }
 
 template <typename T, int D>
@@ -195,17 +196,17 @@ cudaError_t launch_dkv(void* dk, void* dv, float* dbias, const void* q,
   const int tiles = (sh.Sk + kBK - 1) / kBK;
   if (bias)
     return launch_tiles(flash_bwd_dkv_kernel<T, D, true>,
-                        bwd_key_tile_smem_floats<D, true>(), tiles, BH, st,
-                        static_cast<T*>(dk), static_cast<T*>(dv), dbias,
+                        bwd_key_tile_smem_floats<D, true>(), tiles, BH, sh,
+                        st, static_cast<T*>(dk), static_cast<T*>(dv), dbias,
                         static_cast<const T*>(q), static_cast<const T*>(k),
                         static_cast<const T*>(v),
-                        static_cast<const T*>(dout), lse, delta, bias, sh);
+                        static_cast<const T*>(dout), lse, delta, bias);
   return launch_tiles(flash_bwd_dkv_kernel<T, D, false>,
-                      bwd_key_tile_smem_floats<D, false>(), tiles, BH, st,
-                      static_cast<T*>(dk), static_cast<T*>(dv), dbias,
+                      bwd_key_tile_smem_floats<D, false>(), tiles, BH, sh,
+                      st, static_cast<T*>(dk), static_cast<T*>(dv), dbias,
                       static_cast<const T*>(q), static_cast<const T*>(k),
                       static_cast<const T*>(v), static_cast<const T*>(dout),
-                      lse, delta, bias, sh);
+                      lse, delta, bias);
 }
 
 int bwd_dq(void* dq, const void* q, const void* k, const void* v,

@@ -2,9 +2,9 @@
 // masking rules, the tile loader, the backward's tile math (`tile_p_ds`),
 // the body of the key-tile backward (K9 with dq, K8 without) and the
 // (dtype, D) dispatch of the C entry points. flash_attention.cu (K4, K6,
-// K9), flash_bwd_two_pass.cu (K7, K8) and flash_fwd_sm90.cu (K4 in bf16)
-// include it; each compiles in its own nvcc process. See
-// flash_attention.cu for the masking semantics.
+// K9), flash_bwd_two_pass.cu (K7, K8), flash_fwd_sm90.cu (K4 in bf16) and
+// flash_bwd_sm90.cu (K9 in bf16) include it; each compiles in its own
+// nvcc process. See flash_attention.cu for the masking semantics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,11 +33,12 @@ struct Shape {
   float scale;
   int H;             // heads: block bh reads bias row bh / H
   int bias_bstride;  // Sk, or 0 for one bias row broadcast over the batch
+  int bh0;  // the first bh of a SIMT launch (bh = bh0 + blockIdx.y)
 };
 
 inline Shape make_shape(int Sq, int Sk, int causal, float scale, int H,
                         int bias_bstride) {
-  return Shape{Sq, Sk, Sk - Sq, causal, scale, H, bias_bstride};
+  return Shape{Sq, Sk, Sk - Sq, causal, scale, H, bias_bstride, 0};
 }
 
 __device__ __forceinline__ bool visible(const Shape& sh, int i, int j) {
@@ -173,7 +174,7 @@ constexpr int bwd_key_tile_smem_floats() {
          (HasBias ? kBK : 0);
 }
 
-// One block's work for key tile blockIdx.x of row bh = blockIdx.y: loop
+// One block's work for key tile blockIdx.x of row bh = bh0 + blockIdx.y: loop
 // over the q tiles from the first that reaches the key tile, with dk, dv
 // (and the column sums of ds, dbias) in registers, written once at the
 // end. WithDq (K9) also sums dq_i += ds k_j into the float32 workspace
@@ -201,7 +202,7 @@ __device__ __forceinline__ void bwd_key_tile(
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int k0 = blockIdx.x * kBK;
-  const int64_t bh = blockIdx.y;
+  const int64_t bh = static_cast<int64_t>(sh.bh0) + blockIdx.y;
   const T* qb = q + bh * sh.Sq * D;
   const T* dob = dout + bh * sh.Sq * D;
   load_tile<T, D>(k_s, k + bh * sh.Sk * D, k0, sh.Sk, kBK);
@@ -319,18 +320,29 @@ __device__ __forceinline__ void bwd_key_tile(
   }
 }
 
+// Grid y of a launch holds at most this many bh.
+constexpr int kMaxGridY = 65535;
+
 // Sets a kernel's dynamic shared memory limit and launches it on a
-// (tiles, BH) grid; returns the launch's error.
+// (tiles, BH) grid, as launches of at most kMaxGridY bh each (the shape's
+// bh0 tells a launch its first bh; the kernel takes the shape last), so
+// any B * H is taken; returns the first launch error.
 template <typename Kernel, typename... Args>
 cudaError_t launch_tiles(Kernel kern, int floats, int tiles, int BH,
-                         cudaStream_t st, Args... args) {
+                         Shape sh, cudaStream_t st, Args... args) {
   const size_t smem = sizeof(float) * static_cast<size_t>(floats);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  kern<<<dim3(tiles, BH), kThreads, smem, st>>>(args...);
-  return cudaGetLastError();
+  for (int bh0 = 0; bh0 < BH; bh0 += kMaxGridY) {
+    sh.bh0 = bh0;
+    const int n = BH - bh0 < kMaxGridY ? BH - bh0 : kMaxGridY;
+    kern<<<dim3(tiles, n), kThreads, smem, st>>>(args..., sh);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
 }
 
 // K4 (bias with a non-null bias) in bfloat16 on the tensor cores
@@ -339,6 +351,15 @@ cudaError_t launch_tiles(Kernel kern, int floats, int tiles, int BH,
 int fwd_sm90(void* out, float* lse, const void* q, const void* k,
              const void* v, const float* bias, int BH, int D, Shape sh,
              cudaStream_t st);
+
+// K9 (bias with a non-null bias) in bfloat16 on the tensor cores
+// (flash_bwd_sm90.cu): dk, dv, dbias, and dq summed into the zeroed
+// float32 workspace dq_ws (unscaled). Returns a cudaError_t value, or -1
+// for a D other than 32, 64 or 128.
+int bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias, const void* q,
+             const void* k, const void* v, const void* dout,
+             const float* lse, const float* delta, const float* bias,
+             int BH, int D, Shape sh, cudaStream_t st);
 
 // dtype: 0 = float32, 1 = bfloat16. Returns -1 for an unsupported
 // (dtype, D) pair; the Python wrapper checks both before calling.

@@ -2,8 +2,8 @@
 // loads, the mbarrier ring that hands tiles from a producer warpgroup to
 // consumer warpgroups, wgmma shared-memory descriptors and the bf16
 // wgmma products with float32 accumulators in registers, and the register
-// hand-over between warpgroups (setmaxnreg). K4 (flash_fwd_sm90.cu) uses
-// it; it is written so that the backward kernels can take the same parts.
+// hand-over between warpgroups (setmaxnreg), named barriers and bulk
+// reductions. K4 (flash_fwd_sm90.cu) and K9 (flash_bwd_sm90.cu) use it.
 //
 // Layouts. A tile of a [rows, D] bf16 matrix (D contiguous) lands in shared
 // memory through TMA as boxes of `box` columns (64, or 32 at D 32: the
@@ -92,6 +92,21 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2)
+      : "memory");
+}
+
+// The float32 box at (column c0, row c1, matrix c2) of a 3-D tensor map
+// added from shared memory at src into global memory, as one bulk
+// operation of this thread's bulk group (elements past the tensor's ends
+// are not written).
+__device__ __forceinline__ void tma_reduce_add_3d(const CUtensorMap* map,
+                                                  uint32_t src, int c0,
+                                                  int c1, int c2) {
+  asm volatile(
+      "cp.reduce.async.bulk.tensor.3d.global.shared::cta.add.tile"
+      ".bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 
@@ -271,6 +286,116 @@ __device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// S = A.B^T at N 64: A [64 x 16] and B [64 x 16], both K-major in shared
+// memory (the backward's S^T = K.Q^T and dP^T = V.dO^T).
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D = A.B: A [64 x 16] K-major and B [16 x N] MN-major (transpose-B), both
+// in shared memory, N = 16, 32 or 64 (the backward's dQ = dS.K, half of D
+// for each consumer); accumulate = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t da,
+                                            uint64_t db, int accumulate);
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<16>(float (&d)[8], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, "
+      "%8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<32>(float (&d)[16], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, "
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tb<64>(float (&d)[32], uint64_t da,
+                                                uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// ---- named barriers, the async proxy, bulk reductions -----------------------
+
+// Waits for `count` threads (a multiple of 32) at barrier `id` (1..15; 0
+// is __syncthreads).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// Makes this thread's ordinary shared-memory stores visible to the async
+// proxy (wgmma operands, bulk copies).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Until this thread's bulk operations have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// Until they are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // ---- host: tensor maps ------------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -301,29 +426,45 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D map of a contiguous bf16 tensor [mats, rows, cols] read in boxes of
-// [box_rows, box_cols] (box_cols * 2 bytes is the swizzle: 128 or 64);
-// rows past the end of a matrix read as zeros. False on failure.
-inline bool make_map_3d(CUtensorMap* map, const void* base, int mats,
-                        int rows, int cols, int box_rows, int box_cols) {
+// A 3-D map of a contiguous tensor [mats, rows, cols] of `elem_bytes`-byte
+// elements read (or reduced into) in boxes of [box_rows, box_cols]
+// (box_cols * elem_bytes is the swizzle: 128 or 64); rows past the end of
+// a matrix read as zeros and are never written. False on failure.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
+                     int elem_bytes, const void* base, int mats, int rows,
+                     int cols, int box_rows, int box_cols) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
+  const cuuint64_t eb = static_cast<cuuint64_t>(elem_bytes);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
                               static_cast<cuuint64_t>(rows),
                               static_cast<cuuint64_t>(mats)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * 2,
-                                 static_cast<cuuint64_t>(rows) * cols * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols) * eb,
+                                 static_cast<cuuint64_t>(rows) * cols * eb};
   const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_rows), 1};
   const cuuint32_t elem[3] = {1, 1, 1};
-  const CUtensorMapSwizzle swz = box_cols * 2 == 128
+  const CUtensorMapSwizzle swz = box_cols * elem_bytes == 128
                                      ? CU_TENSOR_MAP_SWIZZLE_128B
                                      : CU_TENSOR_MAP_SWIZZLE_64B;
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
-            const_cast<void*>(base), dims, strides, box, elem,
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A bf16 map (the flash kernels' q, k, v, dO tiles).
+inline bool make_map_3d(CUtensorMap* map, const void* base, int mats,
+                        int rows, int cols, int box_rows, int box_cols) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, mats, rows,
+                  cols, box_rows, box_cols);
+}
+
+// A float32 map (the backward's dq workspace, reduced into).
+inline bool make_map_3d_f32(CUtensorMap* map, const void* base, int mats,
+                            int rows, int cols, int box_rows, int box_cols) {
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, mats, rows,
+                  cols, box_rows, box_cols);
 }
 
 }  // namespace sm90

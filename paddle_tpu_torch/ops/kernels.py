@@ -35,7 +35,7 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 UNITS = ("unified_attention.cu", "flash_attention.cu",  # one object each
-         "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu")
+         "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu")
 SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh",
                    "sm90_tile.cuh")
 BUILD_ROOT = _PKG / "_build"
@@ -347,8 +347,6 @@ def _qkv_shapes(name, q, k, v):
                          f"(supported: {DH_SUPPORTED})")
     if Sq < 1 or Sk < 1:
         raise ValueError(f"{name}: empty sequence (Sq {Sq}, Sk {Sk})")
-    if B * H > 65535:
-        raise ValueError(f"{name}: B*H = {B * H} exceeds the grid's 65535")
     return B * H, Sq, Sk, D
 
 
@@ -483,8 +481,11 @@ def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
 def flash_bwd(q, k, v, do, lse, delta, scale, causal):
     """K9 on the card: the fused backward of K4 given its lse and K6's
     delta (both [B*H, Sq] float32) and the output cotangent do
-    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. dq is summed across
-    key tiles with atomics, so its last bits vary from run to run."""
+    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. bfloat16 runs the
+    tensor-core kernel of csrc/flash_bwd_sm90.cu, float32 the SIMT one of
+    csrc/flash_attention.cu. dq is summed across key tiles (bulk
+    reductions in bf16, atomics in float32), so its last bits vary from
+    run to run; dk and dv are bitwise reproducible."""
     return _flash_bwd("flash_bwd", FLASH_BWD, q, k, v, do, lse, delta, None,
                       scale, causal)[:3]
 

@@ -24,8 +24,9 @@ card's name and power limit:
     bias variant on BERT and padded batches), K6
     (flash_delta_kernel), K7 (flash_bwd_dq_kernel) and K8
     (flash_bwd_dkv_kernel) past the two-pass switch, and K9
-    (flash_bwd_kernel with its dq scale_cast_kernel; bias variant on
-    BERT); the GEMMs (cuBLAS/CUTLASS), with those cuBLAS serves from
+    (flash_bwd_sm90_kernel in bf16, flash_bwd_kernel in float32, with its
+    dq scale_cast_kernel; bias variant on BERT); the GEMMs
+    (cuBLAS/CUTLASS), with those cuBLAS serves from
     narrow-alignment (align1/align2) kernels apart — the odd-vocab heads'
     products; copies
     and casts (the .contiguous() copies of q, k, v and of the output
@@ -56,7 +57,8 @@ CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("K6 flash_delta", ("flash_delta_kernel",)),
     ("K7 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
     ("K8 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
-    ("K9 flash_bwd", ("flash_bwd_kernel", "scale_cast_kernel")),
+    ("K9 flash_bwd", ("flash_bwd_kernel", "flash_bwd_sm90_kernel",
+                      "scale_cast_kernel")),
     ("GEMM, narrow alignment (align1/align2)", ("align1", "align2")),
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),

@@ -16,7 +16,10 @@ step at S = 13312, past the reference's switch to the two-pass
 backward. In bfloat16 K4 and K4 bias are the Hopper kernel of
 `csrc/flash_fwd_sm90.cu` (wgmma, TMA): the shapes take in D 128 at
 S 2048 and Sq > Sk with Sk off its 128-key tiles, and two launches must
-give the same bits.
+give the same bits; K9 and K9 bias are that of `csrc/flash_bwd_sm90.cu`,
+held at D 32, 64 and 128, tails, Sq != Sk both ways, and every bias
+kind, with dk, dv and dbias bitwise equal over two launches. Every flash
+wrapper takes B * H = 65536, past grid y's 65535.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -400,6 +403,128 @@ def test_flash_fwd_bf16_is_bitwise_reproducible(dev, kind):
 
     (o1, l1), (o2, l2) = fwd(), fwd()
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
+
+
+# the bf16 K9 and K9 bias of csrc/flash_bwd_sm90.cu: D 32 (64-byte
+# swizzle, each consumer's half of dQ inside one box), 64 and 128 (two
+# TMA boxes a row), tails (S 1000, S 300), Sq < Sk and Sq > Sk under
+# causal masking (dead rows), full attention, and with a bias: padding
+# lengths, one row broadcast over the batch, a fully masked batch row;
+# Sk below one consumer's 64 keys
+K9_BF16_CASES = [
+    (2, 4, 1000, 1000, 32, True, None),
+    (2, 4, 1000, 1000, 64, False, None),
+    (2, 2, 300, 300, 128, True, None),
+    (1, 2, 200, 300, 64, True, None),
+    (1, 2, 384, 256, 64, True, None),
+    (1, 2, 300, 200, 128, True, None),
+    (2, 2, 300, 300, 32, False, None),
+    (2, 4, 300, 300, 32, True, "lengths"),
+    (2, 4, 256, 384, 64, False, "lengths"),
+    (2, 4, 256, 256, 128, False, "broadcast"),
+    (2, 4, 256, 256, 32, False, "dead_row"),
+    (2, 4, 256, 256, 64, True, "dead_row"),
+    (1, 2, 384, 256, 128, True, "lengths"),
+    (1, 2, 130, 5, 64, True, None),          # Sk < 64: one consumer idle
+    (2, 2, 70, 70, 128, False, "dead_row"),
+]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", K9_BF16_CASES)
+def test_flash_bwd_bf16_matches_plain(dev, b, h, sq, sk, d, causal, kind):
+    """The bf16 K9 (K9 bias with a bias) against the plain version within
+    2e-2 of its magnitude (the kernel rounds p and ds to bf16 before its
+    products, as the reference's `_tile_p_ds`); dk, dv and dbias bitwise
+    equal over two launches (each block owns its keys), and the launch
+    counter up by one per call."""
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(5 * sq + sk + d)
+    q, k, v, do = (torch.randn(b, h, n, d, generator=g, device=dev)
+                   .bfloat16() for n in (sq, sk, sk, sq))
+    bias = None if kind is None else _bias(kind, b, sk, sq + 2 * sk, dev)
+    sc = d ** -0.5
+    if bias is None:
+        out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+        name, counter = "flash_bwd", kernels.FLASH_BWD
+
+        def bwd():
+            return kernels.flash_bwd(q, k, v, do, lse, delta, sc,
+                                     causal) + (None,)
+    else:
+        out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+        name, counter = "flash_bwd_bias", kernels.FLASH_BWD_BIAS
+
+        def bwd():
+            return kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                          causal)
+    delta = kernels.flash_delta(out, do)
+    before = counter.launches
+    first = bwd()
+    assert counter.launches == before + 1, name
+    again = bwd()
+    assert counter.launches == before + 2, name
+    torch.cuda.synchronize()
+    for what, a, a2 in zip(("dk", "dv", "dbias"), first[1:], again[1:]):
+        if a is not None:
+            assert torch.equal(a, a2), f"{what} differs between launches"
+    f = [t.float() for t in (q, k, v, do)]
+    plain = pf.flash_bwd_plain(*f, lse, delta, sc, causal, bias)
+    for what, a, p in zip(("dq", "dk", "dv", "dbias"), first, plain):
+        if a is None:
+            assert p is None
+            continue
+        assert a.dtype == (torch.float32 if what == "dbias"
+                           else torch.bfloat16)
+        _rel_close(a, p, 2e-2, what)
+
+
+@pytest.mark.parametrize("kind", [None, "lengths"], ids=["plain", "bias"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_flash_kernels_take_bh_above_the_grid_limit(dev, dtype, kind):
+    """B * H = 65536, one past grid y's 65535: K4, K6, K9, K7 and K8 (their
+    bias variants with a bias) against their plain versions. The SIMT
+    kernels launch in chunks of bh, the bf16 K4 and K9 put bh on grid x."""
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    b, h, s, d = 4096, 16, 8, 32
+    g = torch.Generator(device=dev).manual_seed(17)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=dev).to(dtype)
+                   for _ in range(4))
+    bias = None if kind is None else _bias(kind, b, s, 3, dev)
+    sc = d ** -0.5
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    f = [t.float() for t in (q, k, v, do)]
+    if bias is None:
+        out, lse = kernels.flash_fwd(q, k, v, sc, True)
+        delta = kernels.flash_delta(out, do)
+        fused = kernels.flash_bwd(q, k, v, do, lse, delta, sc, True)
+        dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, sc, True)
+        two = (dq,) + kernels.flash_bwd_dkv(q, k, v, do, lse, delta, sc, True)
+    else:
+        out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, True)
+        delta = kernels.flash_delta(out, do)
+        fused = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                       True)
+        dq = kernels.flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, sc,
+                                       True)
+        two = (dq,) + kernels.flash_bwd_dkv_bias(q, k, v, do, lse, delta,
+                                                 bias, sc, True)
+    torch.cuda.synchronize()
+    assert lse.shape == (b * h, s)
+    out_p, lse_p = pf.flash_fwd_lse_plain(*f[:3], sc, True, bias)
+    _rel_close(out, out_p, tol, "out")
+    live = lse_p > -1e29
+    _rel_close(lse[live], lse_p[live], 1e-4, "lse")
+    _rel_close(delta, pf.flash_delta_plain(out.float(), f[3]), 1e-4,
+               "delta")
+    plain = pf.flash_bwd_plain(*f, lse, delta, sc, True, bias)
+    for which, grads in (("K9", fused), ("K7/K8", two)):
+        for what, a, p in zip(("dq", "dk", "dv", "dbias"), grads, plain):
+            _rel_close(a, p, tol, f"{which} {what}")
 
 
 def test_bert_train_step_on_card_matches_cpu(dev):
