@@ -1,47 +1,56 @@
-// K9 and K9 bias in bfloat16 on Hopper's tensor cores (sm_90a): the fused
-// flash backward of paddle_tpu/ops/pallas/flash_attention.py
-// `_flash_bwd_fused` (pallas_call at :534, body `_bwd_fused_kernel`, and
-// its `has_bias` variant), with the contract of flash_attention.cu's K9
-// and of `tile_p_ds` (flash_common.cuh): p = exp(s * scale + bias - lse)
-// from the LSE it is given (never renormalised), bottom-right causal
-// alignment, a dead row (causal, Sq > Sk) with p = 1 / Sk and ds = 0 that
-// joins every key tile, a fully masked row (lse <= -1e29) with p = 1 /
-// (keys it sees), zeros for masked entries and entries past Sq or Sk, dk
-// scaled once at the end, dbias [BH, Sk] float32 the column sums of ds in
-// float32 before any rounding, written once without atomics; any Sq,
-// Sk >= 1, D in {32, 64, 128}. As the reference's `_tile_p_ds`
-// (`p.astype(do.dtype)`, `ds.astype(k.dtype)`), p and ds are rounded to
-// bf16 before they enter the products. dq is summed across key tiles
-// into the zeroed float32 workspace dq_ws, which flash_attention.cu's
-// `scale_cast_kernel` then scales and casts. The float32 K9 stays the
-// SIMT kernel of flash_attention.cu: TF32 products would not hold
-// float32 parity.
+// K9 and K9 bias, and K8 and K8 bias, in bfloat16 on Hopper's tensor cores
+// (sm_90a): one key-tile body, templated on WithDq as the SIMT
+// `bwd_key_tile<..., WithDq>` of flash_common.cuh is.
+//   K9 `flash_bwd_sm90_kernel` (WithDq) <- the fused flash backward of
+//      paddle_tpu/ops/pallas/flash_attention.py `_flash_bwd_fused`
+//      (pallas_call at :534, body `_bwd_fused_kernel`, and its `has_bias`
+//      variant): dk, dv, dbias and dq;
+//   K8 `flash_bwd_dkv_sm90_kernel` <- the dk/dv pass of the two-pass
+//      `_flash_bwd` (pallas_call at :615, body `_bwd_dkv_kernel`, and its
+//      `has_bias` variant): dk, dv and dbias only, reached from
+//      flash_bwd_two_pass.cu's `bwd_dkv`.
+// Both keep the contract of flash_attention.cu's K9 and of `tile_p_ds`
+// (flash_common.cuh): p = exp(s * scale + bias - lse) from the LSE it is
+// given (never renormalised: ring attention passes a global LSE to K8),
+// bottom-right causal alignment, a dead row (causal, Sq > Sk) with
+// p = 1 / Sk and ds = 0 that joins every key tile, a fully masked row
+// (lse <= -1e29) with p = 1 / (keys it sees), zeros for masked entries and
+// entries past Sq or Sk, dk scaled once at the end, dbias [BH, Sk] float32
+// the column sums of ds in float32 before any rounding, written once
+// without atomics; any Sq, Sk >= 1, D in {32, 64, 128}. As the reference's
+// `_tile_p_ds` (`p.astype(do.dtype)`, `ds.astype(k.dtype)`), p and ds are
+// rounded to bf16 before they enter the products. K9's dq is summed
+// across key tiles into the zeroed float32 workspace dq_ws, which
+// flash_attention.cu's `scale_cast_kernel` then scales and casts. The
+// float32 K9 and K8 stay the SIMT kernels of flash_attention.cu and
+// flash_bwd_two_pass.cu: TF32 products would not hold float32 parity.
 //
-// What bounds it on an H100: 10 * BH * D * (visible pairs) FLOPs at
-// 989 TFLOP/s against q, k, v, dO, lse and delta read and dq, dk, dv
-// written at 3.35 TB/s; at GPT-2-small training shapes (BH 192, S 1024,
-// D 64, causal) operations, ~0.065 ms. Per (key tile, q tile) pair it is
-// five tensor-core products and one exponential per score. The SIMT K9
-// ran them as float32 FMAs from synchronously loaded float32 tiles and
-// added dq with one atomic per element per pair.
+// What bounds them on an H100: 10 (K9) or 8 (K8) * BH * D * (visible
+// pairs) FLOPs at 989 TFLOP/s against q, k, v, dO, lse and delta read and
+// dk, dv (and K9's dq) written at 3.35 TB/s; at GPT-2-small training
+// shapes (BH 192, S 1024, D 64, causal) operations, ~0.065 (K9) and
+// ~0.052 ms (K8). Per (key tile, q tile) pair K9 runs five tensor-core
+// products and K8 four, and both one exponential per score. The SIMT
+// kernels ran them as float32 FMAs from synchronously loaded float32
+// tiles, K9 adding dq with one atomic per element per pair.
 //
 // The design:
 //   * One block per (128-key tile, bh) on a 1-D grid (any B * H), in
 //     groups of bh of about 256 blocks; inside a group the key tiles go
 //     heaviest first across its bh (under causal masking the first key
-//     tiles see the most q tiles). A group's dq rows stay in L2 while
-//     its blocks add into them; on an H100 this order beat K4's
-//     (heaviest first across every bh) and one bh's key tiles in a row
-//     at the shapes tried (PERF.md).
+//     tiles see the most q tiles). A group's q, dO (and K9's dq) rows stay
+//     in L2 while its blocks stream (and add into) them; on an H100 this
+//     order beat K4's (heaviest first across every bh) and one bh's key
+//     tiles in a row at the shapes tried for K9 (PERF.md).
 //   * 384 threads. Warpgroup 0 is the producer: one thread loads the
 //     block's K and V tile once by TMA and streams 64-row Q and dO tiles
-//     through a 3-stage ring (2 at D 128; a full and an empty mbarrier
-//     per stage); warp 1 stages those rows' LSE (in log2 units, negated),
-//     delta and a per-row
-//     code (dead row, fully masked row) with ordinary loads beside them
-//     (a [BH, Sq] row slice is not 16-byte aligned in general). The
-//     warpgroup hands its registers to warpgroups 1 and 2, the
-//     consumers, which own 64 keys each.
+//     through a ring of stages (a full and an empty mbarrier per stage):
+//     K9 3, or 2 at D 128; K8, which holds no dS or dQ tile, 4, or 3 at
+//     D 128. Warp 1 stages those rows' LSE (in log2 units, negated),
+//     delta and a per-row code (dead row, fully masked row) with ordinary
+//     loads beside them (a [BH, Sq] row slice is not 16-byte aligned in
+//     general). The warpgroup hands its registers to warpgroups 1 and 2,
+//     the consumers, which own 64 keys each.
 //   * The products run transposed, so that p and ds stay in the
 //     consumer's registers as the A operand of the next ones: S^T = K.Q^T
 //     and dP^T = V.dO^T are wgmma m64n64k16 with both operands K-major in
@@ -50,7 +59,7 @@
 //     In this layout a thread's rows are keys (the bias is a per-row
 //     value) and its columns queries (LSE and delta per column); dbias
 //     is a row sum, reduced across the four lanes of a quad at the end.
-//   * dQ = dS.K: each consumer stores its dS^T, as bf16, into shared
+//   * K9's dQ = dS.K: each consumer stores its dS^T, as bf16, into shared
 //     memory as dS [q, key] in the 128-byte swizzled K-major layout that
 //     a wgmma descriptor reads (two buffers, by tile parity: the other
 //     consumer may still be reading the last tile's); after a named
@@ -62,7 +71,9 @@
 //     `cp.reduce.async.bulk.tensor ... add` (rows past Sq are not
 //     written): one or two bulk operations per consumer and (key tile,
 //     q tile) pair in place of 64 * D atomics, behind a barrier of its
-//     own warpgroup only.
+//     own warpgroup only. K8 has none of this: its two consumers share
+//     nothing but the ring and run apart, one's products beside the
+//     other's exponentials.
 //   * The full mask rules run only on tiles that hold a dead or fully
 //     masked row; a tile across the causal diagonal adds one compare per
 //     score. Keys past Sk carry a -inf bias and rows past Sq an LSE of
@@ -73,8 +84,10 @@
 //     shuffle): under a branch the compiler cannot prove uniform, it
 //     serialises the wgmma instructions.
 //   * dk, dv and dbias are owned by one block and summed in one order:
-//     bitwise reproducible. dq is summed by the bulk reductions of every
-//     key tile in the order the blocks run, so its last bits vary.
+//     bitwise reproducible, and K8's equal K9's bit for bit (the same
+//     per-tile arithmetic in the same q-tile order). K9's dq is summed by
+//     the bulk reductions of every key tile in the order the blocks run,
+//     so its last bits vary.
 
 #include "flash_common.cuh"
 #include "sm90_tile.cuh"
@@ -91,32 +104,34 @@ constexpr int kStagers = 32;       // producer warp 1 stages the rows
 constexpr int kGroupBlocks = 256;  // blocks per group of bh, launch order
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int D>
+template <int D, bool WithDq>
 struct BwdTiles {
-  // Q/dO tiles in flight: 3, or 2 at D 128, where a third would pass the
-  // 227 KB a block can have
-  static constexpr int kStages = D == 128 ? 2 : 3;
+  // Q/dO tiles in flight: K9 3, or 2 at D 128, where a third would pass
+  // the 227 KB a block can have; K8 (no dS, no dQ tile) 4, or 3 at D 128
+  static constexpr int kStages =
+      WithDq ? (D == 128 ? 2 : 3) : (D == 128 ? 3 : 4);
   static constexpr int kBox = D < 64 ? D : 64;  // columns per TMA box
   static constexpr int kSwizzle = kBox * 2;     // bytes per box row
   static constexpr int kBoxes = D / kBox;
   static constexpr int kKVBytes = kBwdBK * D * 2;  // the K (or V) tile
   static constexpr int kQBytes = kBwdBQ * D * 2;   // one Q (or dO) tile
-  // K, V, the Q stages, the dO stages, two buffers of dS [64 q x 128
-  // keys] bf16 (tile n in buffer n % 2), each two 64-key boxes (128-byte
-  // swizzle), the float32 dQ tile [64, D], the staged rows (per stage:
-  // -LSE in log2 units, delta and the row code, 64 floats each, then a
-  // flag), then the barriers: kv, full[], empty[]
+  // K, V, the Q stages, the dO stages, and with dq two buffers of dS [64
+  // q x 128 keys] bf16 (tile n in buffer n % 2), each two 64-key boxes
+  // (128-byte swizzle), and the float32 dQ tile [64, D]; then the staged
+  // rows (per stage: -LSE in log2 units, delta and the row code, 64
+  // floats each, then a flag), then the barriers: kv, full[], empty[]
   static constexpr int kV = kKVBytes;
   static constexpr int kQ = 2 * kKVBytes;
   static constexpr int kDO = kQ + kStages * kQBytes;
   static constexpr int kDS = kDO + kStages * kQBytes;
   static constexpr int kDSBytes = kBwdBQ * kBwdBK * 2;  // one dS buffer
-  static constexpr int kDQ = kDS + 2 * kDSBytes;
-  static constexpr int kRows = kDQ + kBwdBQ * D * 4;
+  static constexpr int kDQ = kDS + (WithDq ? 2 * kDSBytes : 0);
+  static constexpr int kRows = kDQ + (WithDq ? kBwdBQ * D * 4 : 0);
   static constexpr int kRowBytes = (3 * kBwdBQ + 4) * 4;
   static constexpr int kBar = kRows + kStages * kRowBytes;
   static constexpr int kSmem = kBar + 8 * (1 + 2 * kStages) +
                                1024;  // slack to align the base to 1024
+  static_assert(kSmem <= 232448, "more shared memory than a block has");
 };
 
 // Issues acc = A.B^T for a consumer's 64 keys against one 64-row tile
@@ -125,7 +140,7 @@ struct BwdTiles {
 template <int D>
 __device__ __forceinline__ void issue_kq(float (&acc)[32], uint32_t a_s,
                                          uint32_t b_s) {
-  using G = BwdTiles<D>;
+  using G = BwdTiles<D, true>;  // the layout of a tile is the same in K8
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int b = kk * 16 / G::kBox, c = kk * 16 % G::kBox;
@@ -147,7 +162,7 @@ template <int D>
 __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
                                           const uint32_t (&a)[4][4],
                                           uint32_t b_s) {
-  using G = BwdTiles<D>;
+  using G = BwdTiles<D, true>;
 #pragma unroll
   for (int kk = 0; kk < kBwdBQ / 16; ++kk)
     sm90::wgmma_rs_tb<D>(
@@ -164,7 +179,7 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
 template <int D>
 __device__ __forceinline__ void issue_dq(float (&acc)[D / 4], uint32_t ds_s,
                                          uint32_t k_s, int wg) {
-  using G = BwdTiles<D>;
+  using G = BwdTiles<D, true>;
   const int col = wg * (D / 2);
   const uint32_t kb = k_s + (col / G::kBox) * kBwdBK * G::kSwizzle +
                       2 * (col % G::kBox);
@@ -208,25 +223,22 @@ __device__ __forceinline__ int swizzled_f32(int row, int col) {
   return row * RowBytes + ((chunk ^ phase) * 16) + (col * 4) % 16;
 }
 
-template <int D, bool HasBias>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
-                      const __grid_constant__ CUtensorMap kmap,
-                      const __grid_constant__ CUtensorMap vmap,
-                      const __grid_constant__ CUtensorMap domap,
-                      const __grid_constant__ CUtensorMap dqmap,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv,
-                      float* __restrict__ dbias,
-                      const float* __restrict__ lse,
-                      const float* __restrict__ delta,
-                      const float* __restrict__ bias, Shape sh) {
-  using G = BwdTiles<D>;
+// The body of K9 (WithDq: dq_ws and its map dqmap) and K8 (without): one
+// block's key tile. The maps are the kernel's __grid_constant__
+// parameters, passed by reference so that TMA reads them in place.
+template <int D, bool HasBias, bool WithDq>
+__device__ __forceinline__ void bwd_sm90_block(
+    const CUtensorMap& qmap, const CUtensorMap& kmap,
+    const CUtensorMap& vmap, const CUtensorMap& domap,
+    const CUtensorMap* dqmap, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, float* __restrict__ dbias,
+    const float* __restrict__ lse, const float* __restrict__ delta,
+    const float* __restrict__ bias, const Shape& sh) {
+  using G = BwdTiles<D, WithDq>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (sm90::smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gbase = smem_raw + (base - sm90::smem_u32(smem_raw));
   const uint32_t k_s = base, v_s = base + G::kV;
-  const uint32_t ds_s = base + G::kDS;
   auto q_st = [&](int s) { return base + G::kQ + s * G::kQBytes; };
   auto do_st = [&](int s) { return base + G::kDO + s * G::kQBytes; };
   // a stage's rows: -LSE * log2 e at [0, 64) (-inf past Sq), delta at
@@ -354,7 +366,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     const uint32_t kw_s = k_s + 64 * wg * G::kSwizzle;  // its K rows
     const uint32_t vw_s = v_s + 64 * wg * G::kSwizzle;  // its V rows
-    // where the thread's dS entries go: its 64-key box of dS [q, key]
+    // K9: where the thread's dS entries go: its 64-key box of dS [q, key]
     // (row q at 128 bytes, 16-byte chunks swizzled by q % 8); the key of
     // row rl + 8h sits in chunk 2 * warp + h at lane / 4, query
     // 8a + cq + e at ds_at[h][e] + 1024a (+ the buffer's offset)
@@ -365,8 +377,9 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int e = 0; e < 2; ++e)
         ds_at[h][e] = gbase + G::kDS + wg * kBwdBQ * 128 + (cq + e) * 128 +
                       (((2 * warp + h) ^ (cq + e)) * 16) + (lane / 4) * 2;
-    // this warpgroup's half of the float32 dQ tile: columns wg * D / 2 on,
-    // in boxes of kDqBox columns as the dq map's TMA swizzle lays them out
+    // K9: this warpgroup's half of the float32 dQ tile: columns wg * D / 2
+    // on, in boxes of kDqBox columns as the dq map's TMA swizzle lays them
+    // out
     constexpr int kDqBox = D / 2 < 32 ? D / 2 : 32;
     constexpr int kDqRow = kDqBox * 4;  // bytes: 128, or 64 at D 32
     const uint32_t dq_s = base + G::kDQ + wg * kBwdBQ * (D / 2) * 4;
@@ -376,7 +389,7 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     for (int n = 0; n < ntiles; ++n) {
       const int s = n % G::kStages;
       const int q0 = qstart + n * kBwdBQ;
-      const int dsb = (n % 2) * G::kDSBytes;  // this tile's dS buffer
+      const int dsb = (n % 2) * G::kDSBytes;  // K9: this tile's dS buffer
       sm90::mbar_wait(full(s), (n / G::kStages) & 1);
       float st[32], dpt[32];
       sm90::wgmma_fence();
@@ -438,60 +451,73 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         if (HasBias) db[h] += ds0 + ds1;
         const uint32_t d2 = sm90::pack_bf16(ds0, ds1);
         dsa[i / 8][(i % 8) / 2] = d2;
-        *reinterpret_cast<uint16_t*>(ds_at[h][0] + dsb + 1024 * (i / 4)) =
-            static_cast<uint16_t>(d2 & 0xffffu);
-        *reinterpret_cast<uint16_t*>(ds_at[h][1] + dsb + 1024 * (i / 4)) =
-            static_cast<uint16_t>(d2 >> 16);
+        if constexpr (WithDq) {
+          *reinterpret_cast<uint16_t*>(ds_at[h][0] + dsb + 1024 * (i / 4)) =
+              static_cast<uint16_t>(d2 & 0xffffu);
+          *reinterpret_cast<uint16_t*>(ds_at[h][1] + dsb + 1024 * (i / 4)) =
+              static_cast<uint16_t>(d2 >> 16);
+        }
       }
 
-      // dK += dS^T.Q, then this consumer's half of dQ = dS.K once both
-      // consumers' dS is in shared memory and this half's last dQ tile has
-      // been read out of shared memory. The other consumer may still be
-      // reading the last tile's dS in its dQ product, hence two buffers;
-      // tile n - 2's products, the last readers of this one, were done in
-      // both before the last tile's barrier.
+      // dK += dS^T.Q
       sm90::wgmma_fence();
       issue_acc<D>(dk_acc, dsa, q_st(s));
       sm90::wgmma_commit();
-      sm90::fence_proxy_async();
-      if (issuer) sm90::bulk_wait_read();
-      sm90::named_sync(1, kBwdConsumers);
-      float dq_acc[D / 4];
-      sm90::wgmma_fence();
-      issue_dq<D>(dq_acc, ds_s + dsb, k_s, wg);
-      sm90::wgmma_wait<1>();  // dV and dK are in
-      sm90::fence_regs(dv_acc);
-      sm90::fence_regs(dk_acc);
-      sm90::fence_regs(pa);  // the fragments stay live until their
-      sm90::fence_regs(dsa); // products are done
-      sm90::mbar_arrive(empty(s));  // Q, dO and the rows are read
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(dq_acc);
+      if constexpr (!WithDq) {
+        sm90::wgmma_wait<0>();  // dV and dK are in
+        sm90::fence_regs(dv_acc);
+        sm90::fence_regs(dk_acc);
+        sm90::fence_regs(pa);  // the fragments stay live until their
+        sm90::fence_regs(dsa); // products are done
+        sm90::mbar_arrive(empty(s));  // Q, dO and the rows are read
+      } else {
+        // then this consumer's half of dQ = dS.K once both consumers' dS
+        // is in shared memory and this half's last dQ tile has been read
+        // out of shared memory. The other consumer may still be reading
+        // the last tile's dS in its dQ product, hence two buffers; tile
+        // n - 2's products, the last readers of this one, were done in
+        // both before the last tile's barrier.
+        sm90::fence_proxy_async();
+        if (issuer) sm90::bulk_wait_read();
+        sm90::named_sync(1, kBwdConsumers);
+        float dq_acc[D / 4];
+        sm90::wgmma_fence();
+        issue_dq<D>(dq_acc, base + G::kDS + dsb, k_s, wg);
+        sm90::wgmma_wait<1>();  // dV and dK are in
+        sm90::fence_regs(dv_acc);
+        sm90::fence_regs(dk_acc);
+        sm90::fence_regs(pa);
+        sm90::fence_regs(dsa);
+        sm90::mbar_arrive(empty(s));
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(dq_acc);
 
-      // this half of the float32 dQ tile to shared memory in the dq map's
-      // swizzled boxes, then one tensor reduction per box adds it into
-      // the workspace (rows past Sq are not written)
+        // this half of the float32 dQ tile to shared memory in the dq
+        // map's swizzled boxes, then one tensor reduction per box adds it
+        // into the workspace (rows past Sq are not written)
 #pragma unroll
-      for (int i = 0; i < D / 4; i += 2) {
-        const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
-        const int col = 8 * (i / 4) + cq;  // within this half
-        *reinterpret_cast<float2*>(dq_g + (col / kDqBox) * kBwdBQ * kDqRow +
-                                   swizzled_f32<kDqRow>(row, col % kDqBox)) =
-            make_float2(dq_acc[i], dq_acc[i + 1]);
-      }
-      sm90::fence_proxy_async();
-      sm90::named_sync(2 + wg, 128);
-      if (issuer) {
+        for (int i = 0; i < D / 4; i += 2) {
+          const int row = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+          const int col = 8 * (i / 4) + cq;  // within this half
+          *reinterpret_cast<float2*>(dq_g + (col / kDqBox) * kBwdBQ * kDqRow +
+                                     swizzled_f32<kDqRow>(row,
+                                                          col % kDqBox)) =
+              make_float2(dq_acc[i], dq_acc[i + 1]);
+        }
+        sm90::fence_proxy_async();
+        sm90::named_sync(2 + wg, 128);
+        if (issuer) {
 #pragma unroll
-        for (int b = 0; b < D / 2 / kDqBox; ++b)
-          sm90::tma_reduce_add_3d(&dqmap, dq_s + b * kBwdBQ * kDqRow,
-                                  wg * (D / 2) + b * kDqBox, q0, bh);
-        sm90::bulk_commit();
+          for (int b = 0; b < D / 2 / kDqBox; ++b)
+            sm90::tma_reduce_add_3d(dqmap, dq_s + b * kBwdBQ * kDqRow,
+                                    wg * (D / 2) + b * kDqBox, q0, bh);
+          sm90::bulk_commit();
+        }
       }
     }
     // the last reduction reads shared memory: keep the block until it is
     // done
-    if (issuer) sm90::bulk_wait();
+    if (WithDq && issuer) sm90::bulk_wait();
 
     // epilogue: dk * scale and dv in bf16, dbias (the quad's row sums);
     // keys past Sk are never written
@@ -518,31 +544,82 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// K9: dk, dv, dbias and dq (into dq_ws through dqmap).
+template <int D, bool HasBias>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap domap,
+                      const __grid_constant__ CUtensorMap dqmap,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv,
+                      float* __restrict__ dbias,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      const float* __restrict__ bias, Shape sh) {
+  bwd_sm90_block<D, HasBias, true>(qmap, kmap, vmap, domap, &dqmap, dk, dv,
+                                   dbias, lse, delta, bias, sh);
+}
+
+// K8: dk, dv and dbias.
+template <int D, bool HasBias>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap,
+                          const __grid_constant__ CUtensorMap domap,
+                          __nv_bfloat16* __restrict__ dk,
+                          __nv_bfloat16* __restrict__ dv,
+                          float* __restrict__ dbias,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          const float* __restrict__ bias, Shape sh) {
+  bwd_sm90_block<D, HasBias, false>(qmap, kmap, vmap, domap, nullptr, dk,
+                                    dv, dbias, lse, delta, bias, sh);
+}
+
+// Launches K9 (dq_ws given) or K8 (dq_ws null) with a per-key bias when
+// bias is not null.
 template <int D, bool HasBias>
 cudaError_t launch_bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias,
                             const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, const float* bias, int BH,
                             Shape sh, cudaStream_t st) {
-  using G = BwdTiles<D>;
+  using G = BwdTiles<D, true>;
   CUtensorMap qm, km, vm, dom, dqm;
   if (!sm90::make_map_3d(&qm, q, BH, sh.Sq, D, kBwdBQ, G::kBox) ||
       !sm90::make_map_3d(&dom, dout, BH, sh.Sq, D, kBwdBQ, G::kBox) ||
       !sm90::make_map_3d(&km, k, BH, sh.Sk, D, kBwdBK, G::kBox) ||
       !sm90::make_map_3d(&vm, v, BH, sh.Sk, D, kBwdBK, G::kBox) ||
-      !sm90::make_map_3d_f32(&dqm, dq_ws, BH, sh.Sq, D, kBwdBQ,
-                             D / 2 < 32 ? D / 2 : 32))
+      (dq_ws && !sm90::make_map_3d_f32(&dqm, dq_ws, BH, sh.Sq, D, kBwdBQ,
+                                       D / 2 < 32 ? D / 2 : 32)))
     return cudaErrorInvalidValue;
-  auto kern = flash_bwd_sm90_kernel<D, HasBias>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
-  if (e != cudaSuccess) return e;
   const int64_t blocks =
       static_cast<int64_t>(BH) * ((sh.Sk + kBwdBK - 1) / kBwdBK);
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
-  kern<<<static_cast<unsigned>(blocks), kBwdThreads, G::kSmem, st>>>(
-      qm, km, vm, dom, dqm, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), dbias, lse, delta, bias, sh);
+  const unsigned grid = static_cast<unsigned>(blocks);
+  auto* dk_ = static_cast<__nv_bfloat16*>(dk);
+  auto* dv_ = static_cast<__nv_bfloat16*>(dv);
+  cudaError_t e;
+  if (dq_ws) {
+    auto kern = flash_bwd_sm90_kernel<D, HasBias>;
+    constexpr int smem = BwdTiles<D, true>::kSmem;
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kBwdThreads, smem, st>>>(qm, km, vm, dom, dqm, dk_, dv_,
+                                          dbias, lse, delta, bias, sh);
+  } else {
+    auto kern = flash_bwd_dkv_sm90_kernel<D, HasBias>;
+    constexpr int smem = BwdTiles<D, false>::kSmem;
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return e;
+    kern<<<grid, kBwdThreads, smem, st>>>(qm, km, vm, dom, dk_, dv_, dbias,
+                                          lse, delta, bias, sh);
+  }
   return cudaGetLastError();
 }
 
@@ -576,6 +653,14 @@ int bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias, const void* q,
                               delta, bias, BH, sh, st);
     default: return -1;
   }
+}
+
+int bwd_dkv_sm90(void* dk, void* dv, float* dbias, const void* q,
+                 const void* k, const void* v, const void* dout,
+                 const float* lse, const float* delta, const float* bias,
+                 int BH, int D, Shape sh, cudaStream_t st) {
+  return bwd_sm90(dk, dv, nullptr, dbias, q, k, v, dout, lse, delta, bias,
+                  BH, D, sh, st);
 }
 
 }  // namespace flash

@@ -27,22 +27,26 @@
 // costs the two products K7 repeats (s and dp), and buys the loss of its
 // atomics.
 //
-// What the design does about it (a first, plain kernel: float32 SIMT
-// products as K4 and K9, no tensor cores yet):
-//   * K7 is K4's loop: one block per (64-row q tile, bh), q, dO, lse and
-//     delta loaded once, key tiles streamed up to the causal horizon of
-//     the tile's last row (a dead row, which sees no key, takes no
-//     gradient); dq sums in float32 registers and is written once as
+// What the design does about it:
+//   * K7 is K4's loop, in float32 SIMT products as the float32 K4 and K9
+//     (no tensor cores yet): one block per (64-row q tile, bh), q, dO,
+//     lse and delta loaded once, key tiles streamed up to the causal
+//     horizon of the tile's last row (a dead row, which sees no key, takes
+//     no gradient); dq sums in float32 registers and is written once as
 //     dq * scale — no workspace and no second cast kernel.
-//   * K8 is the SIMT K9 without its dq atomics (`bwd_key_tile<...,
-//     false>`; the bf16 K9 is flash_bwd_sm90.cu's tensor-core kernel): one
-//     block per (64-key tile, bh), k, v and the bias tile loaded once, q
-//     tiles streamed from the first that reaches the key tile; dk, dv and
-//     the dbias column sums stay in registers and are written once.
+//   * K8 is K9 without its dq. In bfloat16 `bwd_dkv` sends it to
+//     flash_bwd_sm90.cu's `flash_bwd_dkv_sm90_kernel`, the bf16 K9's
+//     tensor-core body (wgmma products, TMA loads through an mbarrier
+//     ring) without its dQ path. In float32 it is the SIMT K9 without its
+//     dq atomics (`bwd_key_tile<float, D, HasBias, false>`): one block per
+//     (64-key tile, bh), k, v and the bias tile loaded once, q tiles
+//     streamed from the first that reaches the key tile; dk, dv and the
+//     dbias column sums stay in registers and are written once.
 //   * Every output element is owned by one block and summed in one fixed
 //     order, so K7 and K8 are bitwise reproducible from run to run (K9's
-//     dq, summed with atomics, is not).
-// Later work, not here: mma/wgmma tensor-core products and TMA loads.
+//     dq, summed with atomics or bulk reductions, is not), and the bf16
+//     K8's dk, dv and dbias equal the bf16 K9's bit for bit.
+// Later work, not here: K7 on the tensor cores.
 
 #include "flash_common.cuh"
 
@@ -224,8 +228,22 @@ int bwd_dkv(void* dk, void* dv, float* dbias, const void* q, const void* k,
             int D, int bias_bstride, float scale, int causal, int dtype,
             cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  PT_FLASH_DISPATCH(launch_dkv, dk, dv, dbias, q, k, v, dout, lse, dl, bias,
-                    BH, sh, st);
+  if (dtype == 1)  // bfloat16: the tensor-core kernel of flash_bwd_sm90.cu
+    return bwd_dkv_sm90(dk, dv, dbias, q, k, v, dout, lse, dl, bias, BH, D,
+                        sh, st);
+  cudaError_t e;  // float32: the SIMT kernel
+  if (dtype == 0 && D == 32)
+    e = launch_dkv<float, 32>(dk, dv, dbias, q, k, v, dout, lse, dl, bias,
+                              BH, sh, st);
+  else if (dtype == 0 && D == 64)
+    e = launch_dkv<float, 64>(dk, dv, dbias, q, k, v, dout, lse, dl, bias,
+                              BH, sh, st);
+  else if (dtype == 0 && D == 128)
+    e = launch_dkv<float, 128>(dk, dv, dbias, q, k, v, dout, lse, dl, bias,
+                               BH, sh, st);
+  else
+    return -1;
+  return static_cast<int>(e);
 }
 
 }  // namespace flash

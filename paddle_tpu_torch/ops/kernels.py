@@ -557,16 +557,19 @@ def flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, scale, causal):
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     """K8 on the card: dk and dv of the two-pass backward (arguments as
-    `flash_bwd_dq`). Returns (dk, dv) in k's dtype, bitwise reproducible."""
+    `flash_bwd_dq`). Returns (dk, dv) in k's dtype, bitwise reproducible.
+    bfloat16 runs the tensor-core kernel of csrc/flash_bwd_sm90.cu (the
+    bf16 K9's body without its dq, so dk and dv equal K9's bit for bit),
+    float32 the SIMT one of csrc/flash_bwd_two_pass.cu."""
     return _flash_bwd_dkv("flash_bwd_dkv", FLASH_BWD_DKV, q, k, v, do, lse,
                           delta, None, scale, causal)[:2]
 
 
 def flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias, scale, causal):
-    """K8 bias on the card: K8 with the per-key bias [B or 1, Sk] float32.
-    Returns (dk, dv, dbias) with dbias [B*H, Sk] float32, the column sums
-    of ds per (batch, head) row (the caller sums over heads, and over the
-    batch when the bias broadcasts)."""
+    """K8 bias on the card: K8 with the per-key bias [B or 1, Sk] float32,
+    on the same two routes. Returns (dk, dv, dbias) with dbias [B*H, Sk]
+    float32, the column sums of ds per (batch, head) row (the caller sums
+    over heads, and over the batch when the bias broadcasts)."""
     return _flash_bwd_dkv("flash_bwd_dkv_bias", FLASH_BWD_DKV_BIAS, q, k, v,
                           do, lse, delta, bias, scale, causal)
 

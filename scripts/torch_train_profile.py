@@ -23,7 +23,8 @@ card's name and power limit:
     (flash_fwd_sm90_kernel in bf16, flash_fwd_kernel in float32; its
     bias variant on BERT and padded batches), K6
     (flash_delta_kernel), K7 (flash_bwd_dq_kernel) and K8
-    (flash_bwd_dkv_kernel) past the two-pass switch, and K9
+    (flash_bwd_dkv_sm90_kernel in bf16, flash_bwd_dkv_kernel in float32)
+    past the two-pass switch, and K9
     (flash_bwd_sm90_kernel in bf16, flash_bwd_kernel in float32, with its
     dq scale_cast_kernel; bias variant on BERT); the GEMMs
     (cuBLAS/CUTLASS), with those cuBLAS serves from
@@ -56,7 +57,8 @@ CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("K4 flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("K6 flash_delta", ("flash_delta_kernel",)),
     ("K7 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-    ("K8 flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+    ("K8 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
+                          "flash_bwd_dkv_sm90_kernel")),
     ("K9 flash_bwd", ("flash_bwd_kernel", "flash_bwd_sm90_kernel",
                       "scale_cast_kernel")),
     ("GEMM, narrow alignment (align1/align2)", ("align1", "align2")),

@@ -18,8 +18,12 @@ backward. In bfloat16 K4 and K4 bias are the Hopper kernel of
 S 2048 and Sq > Sk with Sk off its 128-key tiles, and two launches must
 give the same bits; K9 and K9 bias are that of `csrc/flash_bwd_sm90.cu`,
 held at D 32, 64 and 128, tails, Sq != Sk both ways, and every bias
-kind, with dk, dv and dbias bitwise equal over two launches. Every flash
-wrapper takes B * H = 65536, past grid y's 65535.
+kind, with dk, dv and dbias bitwise equal over two launches. The bf16
+K8 and K8 bias are that file's body without its dq: two launches give the
+same bits at D 32, 64 and 128, with dead rows and a fully masked batch
+row, and dk, dv and dbias equal the bf16 K9's bit for bit on every
+two-pass case. Every flash wrapper takes B * H = 65536, past grid y's
+65535.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -645,24 +649,68 @@ def test_two_pass_kernels_match_plain(dev, b, h, sq, sk, d, causal, kind,
         _rel_close(grads[3], db_p, tol, "dbias", floor)
 
 
-@pytest.mark.parametrize("kind", [None, "lengths"], ids=["plain", "bias"])
-def test_two_pass_is_bitwise_reproducible(dev, kind):
-    """No atomics: two launches on the same inputs give the same bits."""
+REPRO_CASES = {  # (b, h, sq, sk, d, causal, bias kind)
+    "plain": (2, 4, 1000, 1000, 64, True, None),
+    "bias": (2, 4, 1000, 1000, 64, True, "lengths"),
+    "d32": (2, 4, 1000, 1000, 32, True, None),
+    "d128-bias": (1, 2, 1000, 1000, 128, True, "lengths"),
+    "dead-rows": (2, 2, 300, 200, 64, True, None),
+    "dead-rows-bias": (2, 2, 300, 200, 64, True, "lengths"),
+    "masked-batch-row": (2, 4, 256, 256, 32, False, "dead_row"),
+    "masked-batch-row-causal": (2, 4, 256, 256, 128, True, "dead_row"),
+}
+
+
+@pytest.mark.parametrize("case", list(REPRO_CASES))
+def test_two_pass_is_bitwise_reproducible(dev, case):
+    """No atomics: two launches on the same bf16 inputs give the same
+    bits, at D 32, 64 and 128, with dead rows (causal Sq > Sk) and with a
+    fully masked batch row."""
     from paddle_tpu_torch.ops import kernels
 
-    b, h, s, d = 2, 4, 1000, 64
-    q, k, v, do = _two_pass_inputs(dev, b, h, s, s, d, torch.bfloat16, 11)
-    bias = None if kind is None else _bias(kind, b, s, 3, dev)
+    b, h, sq, sk, d, causal, kind = REPRO_CASES[case]
+    q, k, v, do = _two_pass_inputs(dev, b, h, sq, sk, d, torch.bfloat16, 11)
+    bias = None if kind is None else _bias(kind, b, sk, 3, dev)
     sc = d ** -0.5
-    out, lse = (kernels.flash_fwd(q, k, v, sc, True) if bias is None else
-                kernels.flash_fwd_bias(q, k, v, bias, sc, True))
+    out, lse = (kernels.flash_fwd(q, k, v, sc, causal) if bias is None else
+                kernels.flash_fwd_bias(q, k, v, bias, sc, causal))
     delta = kernels.flash_delta(out, do)
-    first = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, True)
-    second = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, True)
+    first = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, causal)
+    second = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, causal)
     for a, b_ in zip(first, second):
         assert (a is None) == (b_ is None)
         if a is not None:
+            assert torch.isfinite(a).all()
             assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", TWO_PASS_CASES)
+def test_two_pass_dkv_bf16_equals_fused(dev, b, h, sq, sk, d, causal, kind):
+    """The bf16 K8 (bias) is the bf16 K9 (bias)'s body without its dq: the
+    same per-tile arithmetic in the same q-tile order, so its dk, dv and
+    dbias equal K9's bit for bit on the same inputs."""
+    from paddle_tpu_torch.ops import kernels
+
+    q, k, v, do = _two_pass_inputs(dev, b, h, sq, sk, d, torch.bfloat16,
+                                   5 * sq + sk + d)
+    bias = None if kind is None else _bias(kind, b, sk, sq + 2 * sk, dev)
+    sc = d ** -0.5
+    if bias is None:
+        out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+        delta = kernels.flash_delta(out, do)
+        dkv = kernels.flash_bwd_dkv(q, k, v, do, lse, delta, sc, causal)
+        fused = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)[1:]
+    else:
+        out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+        delta = kernels.flash_delta(out, do)
+        dkv = kernels.flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias, sc,
+                                         causal)
+        fused = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                       causal)[1:]
+    torch.cuda.synchronize()
+    assert len(dkv) == len(fused)
+    for what, a, f in zip(("dk", "dv", "dbias"), dkv, fused):
+        assert torch.equal(a, f), f"{what} differs from K9's"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
