@@ -109,7 +109,9 @@ non-zero before the result line:
                (bias) on the same inputs; (b) B=1, H=2, S=16384, D=64,
                causal, bf16 (the plain version at H=2: its [S, S] float32
                tensors take 2.1 GB each); (c) ragged B=2, H=4, S=1000,
-               D=32, causal and not; (d) Sq != Sk, 256 x 384, not causal;
+               D=32, causal and not; (d) Sq != Sk, 256 x 384, not causal,
+               and 600 x 100 causal (dead rows; q tiles that see no key),
+               and in bf16 B=2, H=8, S=2048, D=128, causal;
                (e) an LSE and delta of attention over [k0; k1] with the
                kernels run on k1 alone (a ring block); (f) phase 3c's bias
                cases, and phase 6c's padded batch at H=2 (B=2, S=16384,
@@ -117,16 +119,19 @@ non-zero before the result line:
                bias at its long batch stride; the plain version peaks near
                26 GB). In every case two launches must give the same bits
                (g: no atomics), and K9 (bias) runs on the same inputs
-               (h): dq within the tolerance of K7's, and in bf16 K8's
-               dk, dv and dbias equal to K9's bit for bit (the bf16 K8 is
-               csrc/flash_bwd_sm90.cu's tensor-core body without its dq;
-               the float32 K8 and both K7 are SIMT kernels of
-               csrc/flash_bwd_two_pass.cu). Times at (a) and at 3c's main
+               (h): K7's dq within the tolerance of K9's (its largest
+               difference printed), and in bf16 K8's dk, dv and dbias
+               equal to K9's bit for bit. In bf16 K7 is the tensor-core
+               kernel of csrc/flash_bwd_dq_sm90.cu (K4's wgmma/TMA loop
+               with dS.K in place of P.V, its dS formed as the bf16 K9's)
+               and K8 csrc/flash_bwd_sm90.cu's body without its dq; the
+               float32 K7 and K8 are SIMT kernels of
+               csrc/flash_bwd_two_pass.cu. Times at (a) and at 3c's main
                shape in bf16: the kernel, the plain version, and as
                `library_ms` the backward of F.scaled_dot_product_attention
                through torch.autograd.grad (K9's yardstick, for the pair),
-               and K8's achieved TFLOP/s, share of the bound and ratio to
-               that library time;
+               and K7's and K8's achieved TFLOP/s, share of the bound and
+               ratio to that library time;
   4e. long-context parity — GPT-2 layout with 2 layers, hidden 128, 2
                heads (D 64), vocab 1024, max_position 13312 (13 x 1024,
                past the reference's switch to the two-pass backward at
@@ -191,7 +196,7 @@ FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FWD_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"  # K4 (bias) in bf16
 # K9 and K8 (bias) in bf16
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"
-TWO_PASS_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_two_pass.cu"  # K7
+DQ_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_dq_sm90.cu"  # K7 (bias) in bf16
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
 TWO_PASS = ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")
@@ -725,7 +730,9 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
         if a is None:
             continue
         err, rel = _rel_err(a, p)
-        if name != "dq":
+        if name == "dq":
+            dq_diff = err
+        else:
             k9_diff = max(k9_diff, err)
         if name != "dq" and dtype == torch.bfloat16 and not torch.equal(a, p):
             fail(f"phase 3d {tag}: K8's {name} is not K9's bit for bit (max "
@@ -737,7 +744,8 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
     say(f"phase 3d {tag}: max abs err vs plain " + " ".join(
         f"{n} {e:.3g}" for n, e in errs.items()) + ", bitwise repeatable; "
         + ("K8 equals K9 bit for bit" if k9_diff == 0.0 else
-           f"K8 within tolerance of K9 (max abs diff {k9_diff:.3g})"))
+           f"K8 within tolerance of K9 (max abs diff {k9_diff:.3g})")
+        + f"; K7's dq max abs diff from K9's {dq_diff:.3g}")
     suffix = "" if bias is None else "_bias"
     dq_row = {"max_abs_err": errs["dq"]}
     dkv_row = {"max_abs_err": max(v_ for n, v_ in errs.items() if n != "dq")}
@@ -783,6 +791,7 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
         say(f"phase 3d {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    _rates("3d", "flash_bwd_dq" + suffix, tag, dq_row)
     _rates("3d", "flash_bwd_dkv" + suffix, tag, dkv_row)
     say(f"phase 3d {tag}: K7 + K8 {dq_ms + dkv_ms:.4f} ms, K9"
         f"{'' if bias is None else ' bias'} {k9_ms:.4f} ms on the same "
@@ -1309,6 +1318,8 @@ def main():
             (2, 4, 1000, 1000, 32, True, None, both, False),        # (c)
             (2, 4, 1000, 1000, 32, False, None, both, False),
             (2, 4, 256, 384, 64, False, None, both, False),         # (d)
+            (2, 4, 600, 100, 64, True, None, both, False),  # dead rows
+            (2, 8, 2048, 2048, 128, True, None, bf16, False),       # D 128
             (2, 4, 256, 256, 64, False, None, both, True),          # (e)
             (16, 16, 512, 512, 64, False, "lengths", both, False),  # (f)
             (2, 4, 300, 300, 32, True, "lengths", both, False),
@@ -1514,9 +1525,9 @@ def main():
         r = rows[name]
         if main_counts[name] <= 0:
             fail(f"{name} was not launched on the main path")
-        # the rows are timed in bf16: K4, K9 and K8 (bias) run their sm90
-        # units
-        src = (TWO_PASS_SOURCE if "_bwd_dq" in name else
+        # the rows are timed in bf16: K4, K9, K7 and K8 (bias) run their
+        # sm90 units
+        src = (DQ_SOURCE if "_bwd_dq" in name else
                FWD_SOURCE if name.startswith("flash_fwd") else
                BWD_SOURCE if name.startswith("flash_bwd") else FLASH_SOURCE)
         out.append({"name": name, "route": "cuda", "source": src,

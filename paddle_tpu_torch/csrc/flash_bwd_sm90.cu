@@ -89,8 +89,7 @@
 //     the bulk reductions of every key tile in the order the blocks run,
 //     so its last bits vary.
 
-#include "flash_common.cuh"
-#include "sm90_tile.cuh"
+#include "flash_sm90.cuh"
 
 namespace pt {
 namespace flash {
@@ -102,7 +101,6 @@ constexpr int kBwdThreads = 384;   // producer + 2 consumer warpgroups
 constexpr int kBwdConsumers = 256; // arrivals that empty a stage
 constexpr int kStagers = 32;       // producer warp 1 stages the rows
 constexpr int kGroupBlocks = 256;  // blocks per group of bh, launch order
-constexpr float kLog2e = 1.4426950408889634f;
 
 template <int D, bool WithDq>
 struct BwdTiles {
@@ -193,24 +191,6 @@ __device__ __forceinline__ void issue_dq(float (&acc)[D / 4], uint32_t ds_s,
                          8 * G::kSwizzle, G::kSwizzle),
         kk > 0);
   sm90::wgmma_commit();
-}
-
-// 2^x by the special-function unit (2^-inf = 0).
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// p of one score (key j, query i) on a tile that needs the mask
-// (`tile_p_ds`'s rules): code < 0 marks a dead row (p = -code = 1 / Sk
-// for every key; its ds is 0), code > 0 a fully masked row (p = code =
-// 1 / keys it sees); x is the score in log2 units less the row's LSE.
-__device__ __forceinline__ float masked_p(const Shape& sh, int i, int j,
-                                          float x, float code) {
-  if (code < 0.f) return j < sh.Sk ? -code : 0.f;
-  if (j >= sh.Sk || i >= sh.Sq || !visible(sh, i, j)) return 0.f;
-  return code > 0.f ? code : fast_exp2(x);
 }
 
 // Byte offset of float32 element (row, col) in a box of 64 rows of
@@ -328,10 +308,7 @@ __device__ __forceinline__ void bwd_sm90_block(
             const float l = lse[row0 + i];
             nl2 = -l * kLog2e;
             dl = delta[row0 + i];
-            if (dead_row(sh, i))
-              code = -1.f / static_cast<float>(sh.Sk);
-            else if (l <= kMaskedLse)
-              code = 1.f / static_cast<float>(visible_keys(sh, i));
+            code = row_code(sh, i, l);
           }
           r[c] = nl2;
           r[kBwdBQ + c] = dl;

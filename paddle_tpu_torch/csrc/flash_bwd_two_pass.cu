@@ -3,7 +3,8 @@
 // It replaces `_flash_bwd` of paddle_tpu/ops/pallas/flash_attention.py,
 // the backward the reference takes for long sequences (`_fa_bwd` and
 // `_fab_bwd` once sq * d * 10 > 8 MB; ring attention calls it on every
-// ring block), in two kernels:
+// ring block), in two kernels (their float32 SIMT forms here; in bfloat16
+// the entries below send both to tensor-core kernels of their own units):
 //   K7 `flash_bwd_dq_kernel`  <- `_bwd_dq_kernel` (pallas_call at :580):
 //      dq = scale * sum_j ds_ij k_j, written in q's dtype;
 //   K8 `flash_bwd_dkv_kernel` <- `_bwd_dkv_kernel` (pallas_call at :615):
@@ -28,12 +29,16 @@
 // atomics.
 //
 // What the design does about it:
-//   * K7 is K4's loop, in float32 SIMT products as the float32 K4 and K9
-//     (no tensor cores yet): one block per (64-row q tile, bh), q, dO,
-//     lse and delta loaded once, key tiles streamed up to the causal
-//     horizon of the tile's last row (a dead row, which sees no key, takes
-//     no gradient); dq sums in float32 registers and is written once as
-//     dq * scale — no workspace and no second cast kernel.
+//   * K7 is K4's loop: one block per q tile, q, dO, lse and delta loaded
+//     once, key tiles streamed up to the causal horizon of the tile's last
+//     row (a dead row, which sees no key, takes no gradient); dq sums in
+//     float32 registers and is written once as dq * scale — no workspace
+//     and no second cast kernel. In bfloat16 `bwd_dq` sends it to
+//     flash_bwd_dq_sm90.cu's `flash_bwd_dq_sm90_kernel`, K4's tensor-core
+//     loop (wgmma products, TMA loads through an mbarrier ring) with dS.K
+//     in place of P.V. In float32 it is `flash_bwd_dq_kernel` here, in
+//     SIMT products as the float32 K4 and K9: one block per (64-row q
+//     tile, bh).
 //   * K8 is K9 without its dq. In bfloat16 `bwd_dkv` sends it to
 //     flash_bwd_sm90.cu's `flash_bwd_dkv_sm90_kernel`, the bf16 K9's
 //     tensor-core body (wgmma products, TMA loads through an mbarrier
@@ -46,7 +51,6 @@
 //     order, so K7 and K8 are bitwise reproducible from run to run (K9's
 //     dq, summed with atomics or bulk reductions, is not), and the bf16
 //     K8's dk, dv and dbias equal the bf16 K9's bit for bit.
-// Later work, not here: K7 on the tensor cores.
 
 #include "flash_common.cuh"
 
@@ -219,7 +223,18 @@ int bwd_dq(void* dq, const void* q, const void* k, const void* v,
            int bias_bstride, float scale, int causal, int dtype,
            cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  PT_FLASH_DISPATCH(launch_dq, dq, q, k, v, dout, lse, dl, bias, BH, sh, st);
+  if (dtype == 1)  // bfloat16: the tensor-core kernel of flash_bwd_dq_sm90.cu
+    return bwd_dq_sm90(dq, q, k, v, dout, lse, dl, bias, BH, D, sh, st);
+  cudaError_t e;  // float32: the SIMT kernel
+  if (dtype == 0 && D == 32)
+    e = launch_dq<float, 32>(dq, q, k, v, dout, lse, dl, bias, BH, sh, st);
+  else if (dtype == 0 && D == 64)
+    e = launch_dq<float, 64>(dq, q, k, v, dout, lse, dl, bias, BH, sh, st);
+  else if (dtype == 0 && D == 128)
+    e = launch_dq<float, 128>(dq, q, k, v, dout, lse, dl, bias, BH, sh, st);
+  else
+    return -1;
+  return static_cast<int>(e);
 }
 
 int bwd_dkv(void* dk, void* dv, float* dbias, const void* q, const void* k,

@@ -2,10 +2,11 @@
 // masking rules, the tile loader, the backward's tile math (`tile_p_ds`),
 // the body of the SIMT key-tile backward (K9 with dq, K8 without), the
 // host entries of the bf16 tensor-core kernels and the (dtype, D)
-// dispatch of the C entry points. flash_attention.cu (K4, K6, K9),
-// flash_bwd_two_pass.cu (K7, K8), flash_fwd_sm90.cu (K4 in bf16) and
-// flash_bwd_sm90.cu (K9 and K8 in bf16) include it; each compiles in its
-// own nvcc process. See flash_attention.cu for the masking semantics.
+// dispatch of the C entry points. flash_attention.cu (K4, K6, K9) and
+// flash_bwd_two_pass.cu (K7, K8) include it, and through flash_sm90.cuh
+// flash_fwd_sm90.cu (K4 in bf16), flash_bwd_sm90.cu (K9 and K8 in bf16)
+// and flash_bwd_dq_sm90.cu (K7 in bf16); each compiles in its own nvcc
+// process. See flash_attention.cu for the masking semantics.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -370,6 +371,13 @@ int bwd_dkv_sm90(void* dk, void* dv, float* dbias, const void* q,
                  const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, const float* bias,
                  int BH, int D, Shape sh, cudaStream_t st);
+
+// K7 (bias with a non-null bias) in bfloat16 on the tensor cores
+// (flash_bwd_dq_sm90.cu): dq = scale * dS.K, written once in bf16.
+// Returns a cudaError_t value, or -1 for a D other than 32, 64 or 128.
+int bwd_dq_sm90(void* dq, const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                const float* bias, int BH, int D, Shape sh, cudaStream_t st);
 
 // dtype: 0 = float32, 1 = bfloat16. Returns -1 for an unsupported
 // (dtype, D) pair; the Python wrapper checks both before calling.

@@ -24,7 +24,8 @@
 //   * S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
 //     memory; O += P.V is wgmma m64nDk16 with P (bf16, as the reference's
 //     `p.astype(v.dtype)`) in registers and V MN-major through the
-//     transpose-B flag. A consumer issues S of tile t together with P.V of
+//     transpose-B flag (`issue_s`, `issue_pv` of flash_sm90.cuh, which K7
+//     shares). A consumer issues S of tile t together with P.V of
 //     tile t - 1 and runs the online softmax of tile t (on the S
 //     accumulator, in log2 units: scale * log2 e folded in, exp2f) while
 //     the latter is on the tensor cores.
@@ -49,72 +50,26 @@
 //     and a fully masked row's scores all round to its -1e30 bias (p = 1
 //     each: uniform), as in the plain version.
 
-#include "flash_common.cuh"
-#include "sm90_tile.cuh"
+#include "flash_sm90.cuh"
 
 namespace pt {
 namespace flash {
 namespace {
 
-constexpr int kFwdBQ = 128;       // q rows per block: 2 consumers x 64
-constexpr int kFwdBK = 128;       // keys per tile
 constexpr int kFwdStages = 3;     // K/V (and bias) tiles in flight
-constexpr int kFwdThreads = 384;  // producer + 2 consumer warpgroups
-constexpr int kConsumers = 256;   // arrivals that empty a stage
-constexpr int kBiasLoaders = 32;  // producer warp 1 stages the bias
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
-struct FwdTiles {
-  static constexpr int kBox = D < 64 ? D : 64;  // columns per TMA box
-  static constexpr int kSwizzle = kBox * 2;     // bytes per box row
-  static constexpr int kBoxes = D / kBox;
-  static constexpr int kQBytes = kFwdBQ * D * 2;
-  static constexpr int kKVBytes = kFwdBK * D * 2;  // one K (or V) tile
+struct FwdTiles : Boxes<D> {
+  static constexpr int kQBytes = kTileQ * D * 2;
+  static constexpr int kKVBytes = kTileK * D * 2;  // one K (or V) tile
   // Q, the K tiles, the V tiles, the bias tiles (float32, log2 units),
   // then the barriers: q, full[], empty[]
   static constexpr int kBiasOffset = kQBytes + 2 * kFwdStages * kKVBytes;
-  static constexpr int kBarOffset = kBiasOffset + kFwdStages * kFwdBK * 4;
+  static constexpr int kBarOffset = kBiasOffset + kFwdStages * kTileK * 4;
   static constexpr int kSmem = kBarOffset + 8 * (1 + 2 * kFwdStages) +
                                1024;  // slack to align the base to 1024
 };
-
-// Issues S = Q.K^T of one key tile for a consumer's 64 rows (qw_s: its
-// rows of the Q boxes; ks: the stage's K boxes) as one wgmma group.
-template <int D>
-__device__ __forceinline__ void issue_s(float (&sc)[64], uint32_t qw_s,
-                                        uint32_t ks) {
-  using G = FwdTiles<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int b = kk * 16 / G::kBox, c = kk * 16 % G::kBox;
-    sm90::wgmma_ss_m64n128(
-        sc,
-        sm90::wgmma_desc(qw_s + b * kFwdBQ * G::kSwizzle + 2 * c, 16,
-                         8 * G::kSwizzle, G::kSwizzle),
-        sm90::wgmma_desc(ks + b * kFwdBK * G::kSwizzle + 2 * c, 16,
-                         8 * G::kSwizzle, G::kSwizzle),
-        kk > 0);
-  }
-  sm90::wgmma_commit();
-}
-
-// Issues O += P.V of one key tile (P: the bf16 fragments of its 8 key
-// steps; vs: the stage's V boxes, MN-major) as one wgmma group.
-template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[8][4],
-                                         uint32_t vs) {
-  using G = FwdTiles<D>;
-#pragma unroll
-  for (int kk = 0; kk < kFwdBK / 16; ++kk)
-    sm90::wgmma_rs_tb<D>(
-        o, pa[kk],
-        sm90::wgmma_desc(vs + kk * 16 * G::kSwizzle, kFwdBK * G::kSwizzle,
-                         8 * G::kSwizzle, G::kSwizzle));
-  sm90::wgmma_commit();
-}
 
 // The online softmax of one key tile, on the S accumulator: the scores in
 // log2 units (scale * log2 e, the bias b_s of the tile's keys, and the
@@ -184,21 +139,12 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2],
 // start at qw0: it passes Sk or straddles the causal diagonal.
 __device__ __forceinline__ bool masked_tile(const Shape& sh, int k0,
                                             int qw0) {
-  return k0 + kFwdBK > sh.Sk ||
-         (sh.causal && k0 + kFwdBK - 1 > qw0 + sh.off);
-}
-
-// P (the probabilities in the S accumulator) as the bf16 A fragments of
-// the tile's 8 key steps.
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4],
-                                       const float (&sc)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; i += 2)
-    pa[i / 8][(i % 8) / 2] = sm90::pack_bf16(sc[i], sc[i + 1]);
+  return k0 + kTileK > sh.Sk ||
+         (sh.causal && k0 + kTileK - 1 > qw0 + sh.off);
 }
 
 template <int D, bool HasBias>
-__global__ void __launch_bounds__(kFwdThreads, 1)
+__global__ void __launch_bounds__(kTileThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
@@ -220,19 +166,19 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   // launch order walks the q tiles heaviest first across every bh, so
   // the long causal key loops start first and the short ones fill the tail
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFwdBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTileQ;
   // keys up to the causal horizon of the tile's last row; a tile that
   // holds a dead row scores every key (its rows average all of them)
   int kend = sh.Sk;
   if (sh.causal && q0 + sh.off >= 0)
-    kend = min(sh.Sk, min(q0 + kFwdBQ, sh.Sq) + sh.off);
-  const int ntiles = (kend + kFwdBK - 1) / kFwdBK;
+    kend = min(sh.Sk, min(q0 + kTileQ, sh.Sq) + sh.off);
+  const int ntiles = (kend + kTileK - 1) / kTileK;
 
   if (threadIdx.x == 0) {
     sm90::mbar_init(q_bar, 1);
     for (int s = 0; s < kFwdStages; ++s) {
       sm90::mbar_init(full(s), HasBias ? 1 + kBiasLoaders : 1);
-      sm90::mbar_init(empty(s), kConsumers);
+      sm90::mbar_init(empty(s), kTileConsumers);
     }
     sm90::mbar_fence_init();
   }
@@ -250,7 +196,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::tma_prefetch(&vmap);
       sm90::mbar_expect_tx(q_bar, G::kQBytes);
       for (int b = 0; b < G::kBoxes; ++b)
-        sm90::tma_load_3d(q_s + b * kFwdBQ * G::kSwizzle, &qmap, q_bar,
+        sm90::tma_load_3d(q_s + b * kTileQ * G::kSwizzle, &qmap, q_bar,
                           b * G::kBox, q0, bh);
       for (int t = 0; t < ntiles; ++t) {
         const int s = t % kFwdStages;
@@ -259,11 +205,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
           sm90::mbar_wait(empty(s), (t / kFwdStages + 1) & 1);
         sm90::mbar_expect_tx(full(s), 2 * G::kKVBytes);
         for (int b = 0; b < G::kBoxes; ++b) {
-          const uint32_t off = s * G::kKVBytes + b * kFwdBK * G::kSwizzle;
+          const uint32_t off = s * G::kKVBytes + b * kTileK * G::kSwizzle;
           sm90::tma_load_3d(k_s + off, &kmap, full(s), b * G::kBox,
-                            t * kFwdBK, bh);
+                            t * kTileK, bh);
           sm90::tma_load_3d(v_s + off, &vmap, full(s), b * G::kBox,
-                            t * kFwdBK, bh);
+                            t * kTileK, bh);
         }
       }
     } else if (HasBias && threadIdx.x / 32 == 1) {
@@ -272,9 +218,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         const int s = t % kFwdStages;
         if (t >= kFwdStages)
           sm90::mbar_wait(empty(s), (t / kFwdStages + 1) & 1);
-        for (int c = threadIdx.x % 32; c < kFwdBK; c += 32) {
-          const int j = t * kFwdBK + c;
-          bias_s[s * kFwdBK + c] = j < sh.Sk ? brow[j] * kLog2e : 0.f;
+        for (int c = threadIdx.x % 32; c < kTileK; c += 32) {
+          const int j = t * kTileK + c;
+          bias_s[s * kTileK + c] = j < sh.Sk ? brow[j] * kLog2e : 0.f;
         }
         sm90::mbar_arrive(full(s));
       }
@@ -296,7 +242,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     if (qw0 >= sh.Sq)
       wend = 0;
     else if (sh.causal && qw0 + sh.off >= 0)
-      wend = min(ntiles, (min(qw0 + 63, sh.Sq - 1) + sh.off) / kFwdBK + 1);
+      wend = min(ntiles, (min(qw0 + 63, sh.Sq - 1) + sh.off) / kTileK + 1);
 
     float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, alpha[2];
     float o[D / 2];
@@ -321,14 +267,14 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     for (int t = 1; t < wend; ++t) {
       const int s = t % kFwdStages, sp = (t - 1) % kFwdStages;
-      const int k0 = t * kFwdBK;
+      const int k0 = t * kTileK;
       sm90::mbar_wait(full(s), (t / kFwdStages) & 1);
       sm90::wgmma_fence();
       issue_s<D>(sc, qw_s, k_s + s * G::kKVBytes);
       issue_pv<D>(o, pa, v_s + sp * G::kKVBytes);
       sm90::wgmma_wait<1>();  // S of tile t is in
       sm90::fence_regs(sc);
-      softmax_tile<HasBias>(sc, m, l, alpha, bias_s + s * kFwdBK, k0, r0,
+      softmax_tile<HasBias>(sc, m, l, alpha, bias_s + s * kTileK, k0, r0,
                             cq, masked_tile(sh, k0, qw0), scale2, sh);
       sm90::wgmma_wait<0>();  // P.V of tile t - 1 is in
       sm90::fence_regs(o);
@@ -382,16 +328,16 @@ cudaError_t launch_fwd_sm90(void* out, float* lse, const void* q,
                             int BH, Shape sh, cudaStream_t st) {
   using G = FwdTiles<D>;
   CUtensorMap qm, km, vm;
-  if (!sm90::make_map_3d(&qm, q, BH, sh.Sq, D, kFwdBQ, G::kBox) ||
-      !sm90::make_map_3d(&km, k, BH, sh.Sk, D, kFwdBK, G::kBox) ||
-      !sm90::make_map_3d(&vm, v, BH, sh.Sk, D, kFwdBK, G::kBox))
+  if (!sm90::make_map_3d(&qm, q, BH, sh.Sq, D, kTileQ, G::kBox) ||
+      !sm90::make_map_3d(&km, k, BH, sh.Sk, D, kTileK, G::kBox) ||
+      !sm90::make_map_3d(&vm, v, BH, sh.Sk, D, kTileK, G::kBox))
     return cudaErrorInvalidValue;
   auto kern = flash_fwd_sm90_kernel<D, HasBias>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (e != cudaSuccess) return e;
-  const dim3 grid(BH, (sh.Sq + kFwdBQ - 1) / kFwdBQ);
-  kern<<<grid, kFwdThreads, G::kSmem, st>>>(
+  const dim3 grid(BH, (sh.Sq + kTileQ - 1) / kTileQ);
+  kern<<<grid, kTileThreads, G::kSmem, st>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(out), lse, bias, sh);
   return cudaGetLastError();
 }

@@ -35,9 +35,10 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 UNITS = ("unified_attention.cu", "flash_attention.cu",  # one object each
-         "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu")
+         "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
+         "flash_bwd_dq_sm90.cu")
 SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh",
-                   "sm90_tile.cuh")
+                   "sm90_tile.cuh", "flash_sm90.cuh")
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
@@ -543,14 +544,17 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     lse and K6's delta ([B*H, Sq] float32, which may be those of a larger
     attention: p is exp(s * scale - lse) over these keys, never
     renormalised) and the cotangent do [B, H, Sq, D]. Returns dq in q's
-    dtype, bitwise reproducible (no atomics)."""
+    dtype, bitwise reproducible (no atomics). bfloat16 runs the
+    tensor-core kernel of csrc/flash_bwd_dq_sm90.cu (K4's wgmma/TMA loop
+    with dS.K in place of P.V; its bf16 dS is formed as the bf16 K9's),
+    float32 the SIMT one of csrc/flash_bwd_two_pass.cu."""
     return _flash_bwd_dq("flash_bwd_dq", FLASH_BWD_DQ, q, k, v, do, lse,
                          delta, None, scale, causal)
 
 
 def flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, scale, causal):
     """K7 bias on the card: K7 with K4 bias's per-key bias [B or 1, Sk]
-    float32. Returns dq."""
+    float32, on the same two routes. Returns dq."""
     return _flash_bwd_dq("flash_bwd_dq_bias", FLASH_BWD_DQ_BIAS, q, k, v,
                          do, lse, delta, bias, scale, causal)
 

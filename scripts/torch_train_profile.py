@@ -22,7 +22,8 @@ card's name and power limit:
   * device time per step by class: the port's flash kernels K4
     (flash_fwd_sm90_kernel in bf16, flash_fwd_kernel in float32; its
     bias variant on BERT and padded batches), K6
-    (flash_delta_kernel), K7 (flash_bwd_dq_kernel) and K8
+    (flash_delta_kernel), K7 (flash_bwd_dq_sm90_kernel in bf16,
+    flash_bwd_dq_kernel in float32) and K8
     (flash_bwd_dkv_sm90_kernel in bf16, flash_bwd_dkv_kernel in float32)
     past the two-pass switch, and K9
     (flash_bwd_sm90_kernel in bf16, flash_bwd_kernel in float32, with its
@@ -56,7 +57,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("K4 flash_fwd", ("flash_fwd_kernel", "flash_fwd_sm90_kernel")),
     ("K6 flash_delta", ("flash_delta_kernel",)),
-    ("K7 flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+    ("K7 flash_bwd_dq", ("flash_bwd_dq_kernel",
+                         "flash_bwd_dq_sm90_kernel")),
     ("K8 flash_bwd_dkv", ("flash_bwd_dkv_kernel",
                           "flash_bwd_dkv_sm90_kernel")),
     ("K9 flash_bwd", ("flash_bwd_kernel", "flash_bwd_sm90_kernel",

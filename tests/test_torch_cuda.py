@@ -22,7 +22,11 @@ kind, with dk, dv and dbias bitwise equal over two launches. The bf16
 K8 and K8 bias are that file's body without its dq: two launches give the
 same bits at D 32, 64 and 128, with dead rows and a fully masked batch
 row, and dk, dv and dbias equal the bf16 K9's bit for bit on every
-two-pass case. Every flash wrapper takes B * H = 65536, past grid y's
+two-pass case. The bf16 K7 and K7 bias are the kernel of
+`csrc/flash_bwd_dq_sm90.cu`: their dq lies within 5e-3 of the bf16 K9's
+magnitude plus one bf16 rounding step on every two-pass case, and two
+launches give the same bits, also where q tiles see no key at all (their
+dq is zero). Every flash wrapper takes B * H = 65536, past grid y's
 65535.
 
 Marked `cuda`: every test skips without a card (decided inside the
@@ -658,14 +662,18 @@ REPRO_CASES = {  # (b, h, sq, sk, d, causal, bias kind)
     "dead-rows-bias": (2, 2, 300, 200, 64, True, "lengths"),
     "masked-batch-row": (2, 4, 256, 256, 32, False, "dead_row"),
     "masked-batch-row-causal": (2, 4, 256, 256, 128, True, "dead_row"),
+    # q tiles wholly before Sk's horizon: blocks whose key loop is empty
+    "empty-key-loop": (2, 2, 600, 100, 64, True, None),
+    "empty-key-loop-bias": (2, 2, 600, 100, 64, True, "lengths"),
 }
 
 
 @pytest.mark.parametrize("case", list(REPRO_CASES))
 def test_two_pass_is_bitwise_reproducible(dev, case):
     """No atomics: two launches on the same bf16 inputs give the same
-    bits, at D 32, 64 and 128, with dead rows (causal Sq > Sk) and with a
-    fully masked batch row."""
+    bits, at D 32, 64 and 128, with dead rows (causal Sq > Sk; their dq is
+    zero, also in q tiles that see no key at all) and with a fully masked
+    batch row."""
     from paddle_tpu_torch.ops import kernels
 
     b, h, sq, sk, d, causal, kind = REPRO_CASES[case]
@@ -682,6 +690,8 @@ def test_two_pass_is_bitwise_reproducible(dev, case):
         if a is not None:
             assert torch.isfinite(a).all()
             assert torch.equal(a, b_)
+    if causal and sq > sk:  # dq is written, as zeros, for the dead rows
+        assert not first[0][:, :, :sq - sk].any()
 
 
 @pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", TWO_PASS_CASES)
@@ -711,6 +721,52 @@ def test_two_pass_dkv_bf16_equals_fused(dev, b, h, sq, sk, d, causal, kind):
     assert len(dkv) == len(fused)
     for what, a, f in zip(("dk", "dv", "dbias"), dkv, fused):
         assert torch.equal(a, f), f"{what} differs from K9's"
+
+
+def _bf16_step(x):
+    """The spacing of bfloat16 values at |x| (0 where x is 0)."""
+    m, e = torch.frexp(x.float().abs())
+    return torch.where(m == 0, torch.zeros_like(m),
+                       torch.ldexp(torch.ones_like(m), e - 8))
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", TWO_PASS_CASES)
+def test_two_pass_dq_bf16_matches_fused(dev, b, h, sq, sk, d, causal, kind):
+    """The bf16 K7 (bias) forms p and ds as the bf16 K9 (bias) does and
+    rounds the same bf16 dS into its dS.K product; the two differ only in
+    the order of their float32 sums (K9 adds its key tiles through bulk
+    reductions) and in the rounding of their S products. So each dq
+    element lies within 5e-3 of K9's largest magnitude plus one bf16
+    rounding step at that element: two float32 sums that straddle a
+    rounding boundary round one step apart, which near a power of two is
+    up to 2^-7 (7.8e-3) of the largest magnitude, past 5e-3 alone."""
+    from paddle_tpu_torch.ops import kernels
+
+    q, k, v, do = _two_pass_inputs(dev, b, h, sq, sk, d, torch.bfloat16,
+                                   5 * sq + sk + d)
+    bias = None if kind is None else _bias(kind, b, sk, sq + 2 * sk, dev)
+    sc = d ** -0.5
+    if bias is None:
+        out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+        delta = kernels.flash_delta(out, do)
+        dq = kernels.flash_bwd_dq(q, k, v, do, lse, delta, sc, causal)
+        fused = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)[0]
+    else:
+        out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+        delta = kernels.flash_delta(out, do)
+        dq = kernels.flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, sc,
+                                       causal)
+        fused = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                       causal)[0]
+    torch.cuda.synchronize()
+    assert dq.dtype == torch.bfloat16 and torch.isfinite(dq).all()
+    err = (dq.float() - fused.float()).abs()
+    floor = 1.0 if sk == 1 else 1e-6
+    scale = max(fused.float().abs().max().item(), floor)
+    over = err - (5e-3 * scale + _bf16_step(fused))
+    assert over.max().item() <= 0, (
+        f"dq: max abs diff {err.max().item():.3g} from K9's, past 5e-3 x "
+        f"{scale:.3g} plus one bf16 step by {over.max().item():.3g}")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
