@@ -15,7 +15,20 @@ non-zero before the result line:
                plain PyTorch version on the same inputs, with times:
                the kernel, the plain version, and as `library_ms`
                F.scaled_dot_product_attention on pre-gathered contiguous
-               K/V (excluding the gather; the port never calls it);
+               K/V (excluding the gather; the port never calls it).
+               K2 is the split-KV kernel of csrc/paged_decode_sm90.cu
+               (split + combine): its rows also print the profiler's
+               device time per call beside the CUDA-event time (which
+               includes the wrapper's host time at this size); every K2
+               case must give the same bits over two launches; edge
+               lengths at each K2 shape (a context on a split boundary
+               of `decode_split_plan` and one key either side, ctx past
+               M * BS, an idle row, ctx 0 giving zeros); and a timed
+               serving-scale case (B=128 slots, H=12, Dh=64, BS=16,
+               lengths np.random.RandomState(11).randint(64, 1025, 128)
+               with row 0 idle: sum ctx 66,399, M 64) with its share of
+               the bound and, as the practical ceiling under this
+               measurement, a contiguous torch.sum of the same bytes;
   4. decoder — GPT-2 small, 12 layers, float32 (TF32 off): one packed
                prefill of a 3-segment stream, 8 steps and one
                multistep(4) on the card (kernels) and on the CPU (plain
@@ -165,6 +178,7 @@ is data, not structure). Per pair K4 does 4 * D FLOPs, K9 10 * D, K7
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -191,12 +205,15 @@ FLASH_REPLACES = {
         "paddle_tpu/ops/pallas/flash_attention.py:580 (has_bias)",
     "flash_bwd_dkv_bias":
         "paddle_tpu/ops/pallas/flash_attention.py:615 (has_bias)"}
-SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"
+SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"  # K1
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FWD_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"  # K4 (bias) in bf16
 # K9 and K8 (bias) in bf16
 BWD_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_sm90.cu"
 DQ_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_dq_sm90.cu"  # K7 (bias) in bf16
+DECODE_SOURCE = "paddle_tpu_torch/csrc/paged_decode_sm90.cu"  # K2
+# K2's kernels in a profiler key (the split kernel and its combine)
+K2_NAME = re.compile(r"(?:^|[\s:])paged_decode\w*")
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
 TWO_PASS = ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")
@@ -243,15 +260,44 @@ class Timer:
             times.append(s.elapsed_time(e))
         return statistics.median(times)
 
+    def device_ms(self, fn, pattern, reps=25, warm=2):
+        """Device time per call of the kernels whose profiler key matches
+        `pattern`, summed over a window of `reps` calls (L2 flushed before
+        each) under torch.profiler: the kernels' own time, without the
+        wrapper's host time that CUDA events around a short call see."""
+        torch = self.torch
+        from torch.profiler import ProfilerActivity, profile
+
+        for _ in range(warm):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                self.flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us = 0.0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA \
+                    and pattern.search(ev.key):
+                us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0))
+        if us <= 0:
+            fail(f"the profiler recorded no device time for {pattern.pattern}")
+        return us / 1e3 / reps
+
 
 # ---- phase 3: kernel cases --------------------------------------------------
 
-def _tables(torch, lens, bs, idle_first, seed):
-    """Disjoint random pool blocks per row, 0-padded; row 0 all-trash
-    when idle_first (an idle decode slot: ctx 1 on block 0)."""
+def _tables(torch, lens, bs, idle_first, seed, m=None):
+    """Disjoint random pool blocks per row, 0-padded, m columns (default:
+    the longest row's blocks; a row longer than m * bs fills its m); row 0
+    all-trash when idle_first (an idle decode slot: ctx 1 on block 0)."""
     rs = np.random.RandomState(seed)
     nb = [-(-int(c) // bs) for c in lens]
-    m = max(nb)
+    m = m or max(nb)
+    nb = [min(k, m) for k in nb]
     perm = rs.permutation(sum(nb) + 8) + 1
     tab = np.zeros((len(lens), m), np.int32)
     o = 0
@@ -293,38 +339,79 @@ def _elem(kv):
     return kv.element_size(), 0
 
 
-def decode_case(torch, timer, h, dh, bs, quant, seed, timed):
+def decode_lens(torch, h, bs, m):
+    """Phase 3's K2 edge lengths over an m-column table (8 rows):
+    an idle row (ctx 1 on the trash block), contexts on a split boundary
+    of `decode_split_plan` and one key either side, one inside the first
+    split, several splits, ctx past m * bs (clamped), the full table, and
+    ctx 0 (zeros)."""
+    from paddle_tpu_torch.ops.kernels import decode_split_plan
+
+    _splits, c = decode_split_plan(8, h, m, bs)
+    return [1, c, c - 1, c + 1, c // 2, 3 * c + 5, m * bs + 40, 0]
+
+
+def serving_lens():
+    """Phase 3's serving-scale K2 case: 128 slots of GPT-2 small (up to
+    its 1024 positions), row 0 idle (ctx 1 on the trash block)."""
+    lens = np.random.RandomState(11).randint(64, 1025, 128)
+    lens[0] = 1
+    return [int(c) for c in lens]
+
+
+def decode_case(torch, timer, h, dh, bs, quant, seed, timed, lens=None,
+                m=None):
+    """K2 against its plain version on one set of lengths (rows with ctx 0
+    must be zeros; the plain version averages the table there), and two
+    launches bit for bit; timed: CUDA events around the call, the
+    profiler's device time of the split and combine kernels per call,
+    the plain version, and SDPA on pre-gathered K/V."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.attention import paged_decode_attention_plain
 
-    lens = [1, 1024, 512, 777, 33, 1000, 300, 129]
-    if bs == 4:
-        lens = [1, 37, 16, 64]
+    if lens is None:
+        lens = [1, 1024, 512, 777, 33, 1000, 300, 129]
+        if bs == 4:
+            lens = [1, 37, 16, 64]
     g = torch.Generator(device=DEV).manual_seed(seed)
-    tables, n = _tables(torch, lens, bs, True, seed)
+    tables, n = _tables(torch, lens, bs, True, seed, m)
     kb, vb = _pools(torch, n, bs, h, dh, quant, g)
-    B = len(lens)
+    B, M = tables.shape
     q = torch.randn(B, h, dh, generator=g, device=DEV).bfloat16()
     ctx = torch.tensor(lens, dtype=torch.int32, device=DEV)
     sc = dh ** -0.5
     out = kernels.paged_decode(q, kb, vb, tables, ctx, sc)
+    again = kernels.paged_decode(q, kb, vb, tables, ctx, sc)
     torch.cuda.synchronize()
     ref = paged_decode_attention_plain(q.float(), _f32(kb), _f32(vb),
                                        tables, ctx, sc)
-    err = (out.float() - ref).abs().max().item()
+    live = ctx > 0
+    err = (out[live].float() - ref[live]).abs().max().item()
+    bitwise = torch.equal(out, again)
     ok = torch.isfinite(out).all().item() and torch.allclose(
-        out.float(), ref, atol=2e-2, rtol=2e-2)
-    res = {"max_abs_err": err, "ok": bool(ok)}
+        out[live].float(), ref[live], atol=2e-2, rtol=2e-2) \
+        and bool((out[~live] == 0).all().item())
+    res = {"max_abs_err": err, "ok": bool(ok), "bitwise": bitwise,
+           "splits": kernels.decode_split_plan(B, h, M, bs)}
     if not timed:
         return res
     res["ms"] = timer.ms(lambda: kernels.paged_decode(q, kb, vb, tables,
                                                       ctx, sc))
+    res["device_ms"] = timer.device_ms(
+        lambda: kernels.paged_decode(q, kb, vb, tables, ctx, sc), K2_NAME)
+    # the wrapper's host time: a host clock over many calls, no synchronise
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        kernels.paged_decode(q, kb, vb, tables, ctx, sc)
+    res["host_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
     res["plain_ms"] = timer.ms(lambda: paged_decode_attention_plain(
         q, kb, vb, tables, ctx, sc))
     # library: SDPA over pre-gathered contiguous K/V (gather excluded)
-    cmax = max(lens)
+    cmax = min(max(lens), M * bs)
     gk = _dequant(kb, torch.bfloat16)[tables.long()].reshape(
         B, -1, h, dh)[:, :cmax].permute(0, 2, 1, 3).contiguous()
     gv = _dequant(vb, torch.bfloat16)[tables.long()].reshape(
@@ -334,11 +421,13 @@ def decode_case(torch, timer, h, dh, bs, quant, seed, timed):
     q4 = q[:, :, None, :]
     res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
         q4, gk, gv, attn_mask=mask, scale=sc))
+    del gk, gv
     e, s = _elem(kb)
-    tot = sum(lens)
+    used = [min(c, M * bs) for c in lens]   # the keys each row reads
+    tot = sum(used)
     nbytes = (2 * q.numel() * q.element_size()          # q in, out
               + 2 * tot * h * (dh * e + s)             # live K and V
-              + sum(-(-c // bs) for c in lens) * 4 + B * 4)
+              + sum(-(-c // bs) for c in used) * 4 + B * 4)
     flops = 4 * h * dh * tot
     res.update(_bound(nbytes, flops))
     return res
@@ -1259,26 +1348,70 @@ def main():
     for quant in (False, True):
         tag = "int8" if quant else "dense"
         r2 = decode_case(torch, timer, 12, 64, 16, quant, 1, True)
-        r2b = decode_case(torch, timer, 12, 64, 128, quant, 2, False)
-        r2t = decode_case(torch, timer, 4, 32, 4, quant, 3, False)
+        r2s = decode_case(torch, timer, 12, 64, 16, quant, 11, True,
+                          lens=serving_lens())
+        # what one streaming read of the same bytes takes here (a
+        # contiguous torch.sum, L2 flushed as for the kernel): the
+        # practical ceiling under this measurement, beside the nominal
+        # 3.35 TB/s of the bound
+        buf = torch.zeros(r2s["bytes"] // 2, dtype=torch.bfloat16,
+                          device=DEV)
+        r2s["stream_ms"] = timer.ms(lambda: buf.sum())
+        del buf
+        cases = [(f"K2 {tag} H12 Dh64 BS16", r2),
+                 (f"K2 {tag} H12 Dh64 BS16 B128 serving-scale", r2s),
+                 (f"K2 {tag} H12 Dh64 BS128",
+                  decode_case(torch, timer, 12, 64, 128, quant, 2, False)),
+                 (f"K2 {tag} H4 Dh32 BS4",
+                  decode_case(torch, timer, 4, 32, 4, quant, 3, False))]
+        for h, dh, bs, m, seed in ((12, 64, 16, 64, 6), (12, 64, 128, 8, 7),
+                                   (4, 32, 4, 64, 8)):
+            cases.append((f"K2 {tag} H{h} Dh{dh} BS{bs} edge lengths",
+                          decode_case(torch, timer, h, dh, bs, quant, seed,
+                                      False, decode_lens(torch, h, bs, m),
+                                      m)))
         r1 = stream_case(torch, timer, 12, 64, 16, quant, 4, True)
-        r1t = stream_case(torch, timer, 4, 32, 4, quant, 5, False)
-        for name, r in ((f"K2 {tag} H12 Dh64 BS16", r2),
-                        (f"K2 {tag} H12 Dh64 BS128", r2b),
-                        (f"K2 {tag} H4 Dh32 BS4", r2t),
-                        (f"K1 {tag} H12 Dh64 BS16 T{r1['tokens']}", r1),
-                        (f"K1 {tag} H4 Dh32 BS4", r1t)):
+        cases += [(f"K1 {tag} H12 Dh64 BS16 T{r1['tokens']}", r1),
+                  (f"K1 {tag} H4 Dh32 BS4",
+                   stream_case(torch, timer, 4, 32, 4, quant, 5, False))]
+        for name, r in cases:
             if not r["ok"]:
                 fail(f"phase 3 {name}: kernel disagrees with plain "
-                     f"(max abs err {r['max_abs_err']:.3g}, atol=rtol=2e-2)")
+                     f"(max abs err {r['max_abs_err']:.3g}, atol=rtol=2e-2;"
+                     f" ctx 0 rows must be zeros)")
+            if name.startswith("K2") and not r["bitwise"]:
+                fail(f"phase 3 {name}: two launches differ")
+        say(f"phase 3 K2 {tag}: every case within 2e-2 of plain and bitwise "
+            f"equal over two launches (splits x keys: " + ", ".join(
+                f"{n.split(' ', 2)[2]} {r['splits'][0]}x{r['splits'][1]}"
+                for n, r in cases if n.startswith("K2")) + ")")
         for name, r in ((f"paged_decode_{tag}", r2),
                         (f"ragged_stream_{tag}", r1)):
             rows[name] = r
+            dev_ms = (f", device {r['device_ms']:.4f} ms (profiler, split + "
+                      f"combine per call), wrapper host {r['host_ms']:.4f} "
+                      f"ms a call" if "device_ms" in r else "")
             say(f"phase 3 {name}: max_abs_err {r['max_abs_err']:.3g} "
-                f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                f"library (SDPA, gather excluded) {r['library_ms']:.4f} "
-                f"ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}) "
-                f"[{card}]")
+                f"kernel {r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f}"
+                f" ms, library (SDPA, gather excluded) "
+                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}) [{card}]")
+        say(f"phase 3 paged_decode_{tag} serving-scale B128 H12 Dh64 BS16 "
+            f"(sum ctx {r2s['flops'] // (4 * 12 * 64)}, "
+            f"{r2s['bytes'] / 1e6:.1f} MB): max_abs_err "
+            f"{r2s['max_abs_err']:.3g} kernel {r2s['ms']:.4f} ms, device "
+            f"{r2s['device_ms']:.4f} ms (profiler), wrapper host "
+            f"{r2s['host_ms']:.4f} ms, plain "
+            f"{r2s['plain_ms']:.4f} ms, library (SDPA, gather excluded) "
+            f"{r2s['library_ms']:.4f} ms, bound {r2s['bound_ms']:.4f} ms "
+            f"({r2s['bound_by']}); share of the bound "
+            f"{r2s['bound_ms'] / r2s['device_ms']:.3f} (device), "
+            f"{r2s['bound_ms'] / r2s['ms']:.3f} (events); kernel / library "
+            f"{r2s['ms'] / r2s['library_ms']:.2f}x; a contiguous read of "
+            f"the same bytes (torch.sum) {r2s['stream_ms']:.4f} ms, "
+            f"{r2s['stream_ms'] / r2s['device_ms']:.3f} of the kernel's "
+            f"rate [{card}]")
+        torch.cuda.empty_cache()
 
     # phase 3b: flash kernels vs plain
     both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
@@ -1514,7 +1647,8 @@ def main():
         r = rows[name]
         if main_counts[name] <= 0:
             fail(f"{name} was not launched on the main path")
-        out.append({"name": name, "route": "cuda", "source": SOURCE,
+        src = DECODE_SOURCE if name.startswith("paged_decode") else SOURCE
+        out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": main_counts[name],
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

@@ -1,5 +1,7 @@
-// K3 — the shared paged-pool loader of the ragged-stream (K1) and
-// paged-decode (K2) attention kernels in unified_attention.cu.
+// K3 — the paged-pool loader of the ragged-stream attention kernel (K1)
+// in unified_attention.cu. The paged decode kernel (K2,
+// paged_decode_sm90.cu) resolves block ids the same way (clamped into
+// [0, N)) and loads whole block pieces by TMA instead.
 //
 // Replaces: paddle_tpu/ops/pallas/unified_attention.py `kv_operand_specs`,
 // `kv_operands` and `_load_kv` — the TPU kernels steer their DMA pipeline
@@ -8,7 +10,7 @@
 //
 // On Hopper there is no separate DMA stage to steer: each kernel resolves
 // a cache position to a pool row itself (`slot`) and reads the vector it
-// needs through `load4` / `load1`, which dequantize an int8 pool in
+// needs through `load4`, which dequantizes an int8 pool in
 // registers. It is not a launch of its own; the bound and design notes of
 // the kernels that use it are in unified_attention.cu.
 //
@@ -56,12 +58,6 @@ struct PagedPool {
       v.x *= sc; v.y *= sc; v.z *= sc; v.w *= sc;
     }
     return v;
-  }
-
-  // Lane d of the (row s, head h) vector, dequantized.
-  __device__ __forceinline__ float load1(int64_t s, int h, int d) const {
-    const float x = to_f(data[(s * H + h) * Dh + d]);
-    return QUANT ? x * scale(s, h) : x;
   }
 };
 

@@ -3,7 +3,9 @@
 // consumer warpgroups, wgmma shared-memory descriptors and the bf16
 // wgmma products with float32 accumulators in registers, and the register
 // hand-over between warpgroups (setmaxnreg), named barriers and bulk
-// reductions. K4 (flash_fwd_sm90.cu) and K9 (flash_bwd_sm90.cu) use it.
+// reductions. K4 (flash_fwd_sm90.cu) and K9 (flash_bwd_sm90.cu) use it;
+// the paged decode kernel K2 (paged_decode_sm90.cu) its pool maps, TMA
+// loads and mbarriers.
 //
 // Layouts. A tile of a [rows, D] bf16 matrix (D contiguous) lands in shared
 // memory through TMA as boxes of `box` columns (64, or 32 at D 32: the
@@ -450,6 +452,33 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 3-D map of one layer's paged pool viewed as [rows, heads, dh] (rows =
+// N * BS pool rows, dh contiguous) of `elem_bytes`-byte elements (bf16,
+// float32 or int8 codes), read in boxes of {dh, box_heads, box_rows}
+// without a swizzle: the paged decode kernel reads the rows linearly.
+// Heads past the end read as zeros (and count in the box's bytes). False
+// on failure.
+inline bool make_pool_map(CUtensorMap* map, CUtensorMapDataType type,
+                          int elem_bytes, const void* base, int rows,
+                          int heads, int dh, int box_rows, int box_heads) {
+  EncodeTiledFn fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t eb = static_cast<cuuint64_t>(elem_bytes);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * eb,
+                                 static_cast<cuuint64_t>(heads) * dh * eb};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh),
+                             static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

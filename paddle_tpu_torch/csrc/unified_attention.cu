@@ -1,4 +1,5 @@
-// Paged attention kernels of the serving path, for Hopper (sm_90a).
+// The ragged-stream attention kernel of the serving path, for Hopper
+// (sm_90a). K2, the paged decode kernel, is paged_decode_sm90.cu.
 //
 // K1 `ragged_stream_kernel` replaces the TPU kernel
 //   paddle_tpu/ops/pallas/unified_attention.py
@@ -7,27 +8,19 @@
 //   one layer's paged pool. Row t carries (seg[t], pos[t]) and attends the
 //   keys of table row seg[t] at cache positions 0..pos[t]; pad rows
 //   (pos < 0, or seg outside [0, B)) attend nothing and come out as zeros.
-// K2 `paged_decode_kernel` replaces
-//   `paged_decode_attention_kernel` (body `_decode_kernel`): one query per
-//   sequence, q [B, H, Dh], over table row b, masked by length
-//   (kpos < ctx_lens[b]).
-// Both read the pool through the K3 loader in kv_load.cuh, dense or int8
+// It reads the pool through the K3 loader in kv_load.cuh, dense or int8
 // (per-vector scales, dequantized in registers).
 //
-// What bounds them on an H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense):
-//   K2 moves sum_b ctx_b * H * Dh * 2 pool elements (K and V, plus one
-//   scale per vector for int8) and does 4 * H * Dh * sum_b ctx_b FLOPs —
-//   about one FLOP per byte, far below the ~295 FLOP/byte ridge: bytes.
+// What bounds it on an H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense):
 //   K1 does 4 * H * Dh * sum_t (pos_t + 1) FLOPs over the K/V of each
 //   segment's horizon; a prefill chunk of n tokens reuses every key n
 //   times, so a long chunk is FLOP-bound and a short one byte-bound.
 //
 // What the design does about it (a first, plain kernel; f32 SIMT math,
 // no tensor cores yet):
-//   * Neither kernel walks the padded table width. K2 loops only over
-//     ceil(ctx_b / 128) key tiles; K1 only up to each segment's causal
-//     horizon. The TPU grid visits every (tile, block) pair and predicates
-//     the dead ones off.
+//   * The kernel does not walk the padded table width: K1 loops only up
+//     to each segment's causal horizon. The TPU grid visits every (tile,
+//     block) pair and predicates the dead ones off.
 //   * K1 takes the per-token seg/pos the op already receives, so it needs
 //     no packing contract: a 16-row query tile that mixes segments runs
 //     one pass per segment, and each K/V tile it loads into shared memory
@@ -38,7 +31,7 @@
 //     f32 (online softmax, -1e30 masking as the TPU kernels); the output
 //     is acc / max(l, 1e-30), so pad rows flush finite zeros.
 // Later work, not here: tensor-core (mma/wgmma) products for K1's long
-// chunks, and a split-KV pass for K2 at long contexts and small batch.
+// chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -225,95 +218,6 @@ ragged_stream_kernel(T* __restrict__ out, const T* __restrict__ q,
   }
 }
 
-// ---- K2: paged decode ----------------------------------------------------
-
-constexpr int kDecTK = kThreads;  // keys per tile: one per thread
-
-__device__ __forceinline__ float block_max(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();  // red is reused: earlier readers are done
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = red[0];
-#pragma unroll
-  for (int w = 1; w < kThreads / 32; ++w) r = fmaxf(r, red[w]);
-  return r;
-}
-
-__device__ __forceinline__ float block_sum(float v, float* red) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  float r = 0.f;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) r += red[w];
-  return r;
-}
-
-template <typename T, typename KV, bool QUANT, int DH>
-__global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(T* __restrict__ out, const T* __restrict__ q,
-                    PagedPool<KV, T, QUANT> kp, PagedPool<KV, T, QUANT> vp,
-                    const int* __restrict__ ctx_lens, float scale) {
-  constexpr int NP = kThreads / DH;  // key-parallel parts of the P.V pass
-  __shared__ float q_s[DH];
-  __shared__ float p_s[kDecTK];
-  __shared__ int64_t slot_s[kDecTK];
-  __shared__ float red_s[kThreads / 32];
-  __shared__ float acc_s[NP][DH];
-
-  const int b = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
-  const int H = kp.H;
-  const int ctx = min(ctx_lens[b], kp.M * kp.BS);
-  for (int i = tid; i < DH; i += kThreads)
-    q_s[i] = to_f(q[(static_cast<int64_t>(b) * H + h) * DH + i]);
-  __syncthreads();
-
-  const int d = tid % DH, part = tid / DH;
-  float m = kNegInf, l = 0.f, acc = 0.f;
-  for (int k0 = 0; k0 < ctx; k0 += kDecTK) {
-    const int kpos = k0 + tid;
-    const bool ok = kpos < ctx;
-    float s = kNegInf;
-    if (ok) {
-      const int64_t sl = kp.slot(b, kpos);
-      slot_s[tid] = sl;
-      float dot = 0.f;
-#pragma unroll 4
-      for (int e = 0; e < DH; e += 4) {
-        const float4 kv = kp.load4(sl, h, e);
-        dot += q_s[e] * kv.x + q_s[e + 1] * kv.y + q_s[e + 2] * kv.z +
-               q_s[e + 3] * kv.w;
-      }
-      s = dot * scale;
-    }
-    const float m_new = fmaxf(m, block_max(s, red_s));
-    const float alpha = expf(m - m_new);
-    const float p = ok ? expf(s - m_new) : 0.f;
-    p_s[tid] = p;
-    l = l * alpha + block_sum(p, red_s);  // its barriers publish p_s
-    m = m_new;
-    const int nk = min(kDecTK, ctx - k0);
-    float o = 0.f;
-    for (int j = part; j < nk; j += NP) o += p_s[j] * vp.load1(slot_s[j], h, d);
-    acc = acc * alpha + o;
-    __syncthreads();  // p_s / slot_s are rewritten by the next tile
-  }
-  acc_s[part][d] = acc;
-  __syncthreads();
-  if (tid < DH) {
-    float o = 0.f;
-#pragma unroll
-    for (int i = 0; i < NP; ++i) o += acc_s[i][tid];
-    out[(static_cast<int64_t>(b) * H + h) * DH + tid] =
-        from_f<T>(o / fmaxf(l, 1e-30f));
-  }
-}
-
 // ---- host side -----------------------------------------------------------
 
 template <typename T, typename KV, bool QUANT>
@@ -339,19 +243,6 @@ void launch_stream(void* out, const void* q, const void* k, const void* v,
   ragged_stream_kernel<T, KV, QUANT, DH><<<grid, kThreads, 0, st>>>(
       static_cast<T*>(out), static_cast<const T*>(q), kp, vp, seg, pos,
       n_tok, B, scale);
-}
-
-template <typename T, typename KV, bool QUANT, int DH>
-void launch_decode(void* out, const void* q, const void* k, const void* v,
-                   const void* ks, const void* vs, const int* tables,
-                   const int* ctx_lens, int B, int H, int N, int BS, int M,
-                   float scale, cudaStream_t st) {
-  auto kp = make_pool<T, KV, QUANT>(k, ks, tables, N, BS, H, DH, M);
-  auto vp = make_pool<T, KV, QUANT>(v, vs, tables, N, BS, H, DH, M);
-  dim3 grid(B, H);
-  paged_decode_kernel<T, KV, QUANT, DH><<<grid, kThreads, 0, st>>>(
-      static_cast<T*>(out), static_cast<const T*>(q), kp, vp, ctx_lens,
-      scale);
 }
 
 // dtype: 0 = float32, 1 = bfloat16. Returns false for an unsupported
@@ -406,21 +297,6 @@ int pt_ragged_stream_attention(void* out, const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   PT_DISPATCH(launch_stream, out, q, k, v, ks, vs, tables, seg, pos, n_tok,
               H, N, BS, B, M, scale, st);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K2. q/out [B, H, Dh]; pools as K1; tables [B, M]; ctx_lens [B].
-int pt_paged_decode_attention(void* out, const void* q, const void* k,
-                              const void* v, const void* ks, const void* vs,
-                              const int* tables, const int* ctx_lens, int B,
-                              int H, int Dh, int N, int BS, int M,
-                              float scale, int dtype, int quant,
-                              void* stream) {
-  using namespace pt;
-  if (B <= 0) return 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  PT_DISPATCH(launch_decode, out, q, k, v, ks, vs, tables, ctx_lens, B, H,
-              N, BS, M, scale, st);
   return static_cast<int>(cudaGetLastError());
 }
 

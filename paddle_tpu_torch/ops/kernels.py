@@ -36,7 +36,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 UNITS = ("unified_attention.cu", "flash_attention.cu",  # one object each
          "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-         "flash_bwd_dq_sm90.cu")
+         "flash_bwd_dq_sm90.cu", "paged_decode_sm90.cu")
 SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh",
                    "sm90_tile.cuh", "flash_sm90.cuh")
 BUILD_ROOT = _PKG / "_build"
@@ -44,6 +44,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 DH_SUPPORTED = (32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# K2's split plan (csrc/paged_decode_sm90.cu): heads per CTA, the key
+# alignment of a split (a multiple of every stage of the kernel), and the
+# CTAs the plan aims at: four a streaming multiprocessor of an H100
+SPLIT_HEADS = 4
+SPLIT_ALIGN = 64
+SPLIT_TARGET_CTAS = 4 * 132
 
 
 class Kernel:
@@ -164,7 +170,7 @@ def library():
                 [vp] * 9 + [i32] * 7 + [f32, i32, i32, vp])
             lib.pt_ragged_stream_attention.restype = i32
             lib.pt_paged_decode_attention.argtypes = (
-                [vp] * 8 + [i32] * 6 + [f32, i32, i32, vp])
+                [vp] * 9 + [i32] * 8 + [f32, i32, i32, vp])
             lib.pt_paged_decode_attention.restype = i32
             lib.pt_flash_fwd.argtypes = [vp] * 6 + [i32] * 6 + [f32, i32,
                                                                 i32, vp]
@@ -271,10 +277,30 @@ def ragged_stream(q, k_blocks, v_blocks, tables, seg, pos, scale):
     return out
 
 
+def decode_split_plan(B, H, M, BS):
+    """K2's split-KV plan from shapes the host knows (never ctx_lens,
+    which lives on the card: reading it would synchronise the serving
+    loop). Returns (splits, chunk): split s covers the cache positions
+    [s * chunk, min((s + 1) * chunk, M * BS)), chunk is a multiple of
+    SPLIT_ALIGN, and every split is nonempty. The grid (splits, head
+    groups of SPLIT_HEADS, B) aims at SPLIT_TARGET_CTAS CTAs; rows whose
+    context ends early leave their later splits empty."""
+    keys = M * BS
+    groups = -(-H // min(H, SPLIT_HEADS))
+    want = -(-SPLIT_TARGET_CTAS // (B * groups))
+    splits = max(1, min(want, -(-keys // SPLIT_ALIGN)))
+    chunk = -(-keys // splits)
+    chunk = -(-chunk // SPLIT_ALIGN) * SPLIT_ALIGN
+    return -(-keys // chunk), chunk
+
+
 def paged_decode(q, k_blocks, v_blocks, tables, ctx_lens, scale):
     """K2 on the card: one query per sequence, q [B, H, Dh], over table
-    row b, positions 0..ctx_lens[b]-1. Returns [B, H, Dh] in q's
-    dtype."""
+    row b, positions 0..min(ctx_lens[b], M * BS)-1 (a row with ctx 0 gives
+    zeros). Returns [B, H, Dh] in q's dtype. Runs the split kernel of
+    csrc/paged_decode_sm90.cu over `decode_split_plan`'s splits and, with
+    more than one split, its combine kernel (one launch count a call).
+    Reads nothing of ctx_lens on the host, and is bitwise reproducible."""
     if not q.is_cuda:
         raise ValueError("paged_decode launches a CUDA kernel: q is on "
                          f"{q.device}")
@@ -291,18 +317,25 @@ def paged_decode(q, k_blocks, v_blocks, tables, ctx_lens, scale):
                          f"{q.device}, got {tuple(ctx_lens.shape)} "
                          f"{ctx_lens.dtype}")
     M = tables.shape[1]
+    splits, chunk = decode_split_plan(B, H, M, BS)
     out = torch.empty_like(q)
+    ws = None
+    if splits > 1:  # float32 partials: acc [B*H*splits, Dh], then (m, l)
+        ws = torch.empty(B * H * splits * (Dh + 2), dtype=torch.float32,
+                         device=q.device)
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.pt_paged_decode_attention(
-            _ptr(out), _ptr(q), _ptr(kd), _ptr(vd), _ptr(ks), _ptr(vs),
-            _ptr(tables), _ptr(ctx_lens), B, H, Dh, N, BS, M, float(scale),
-            DTYPE_CODES[q.dtype], int(quant), stream)
+            _ptr(out), _ptr(ws), _ptr(q), _ptr(kd), _ptr(vd), _ptr(ks),
+            _ptr(vs), _ptr(tables), _ptr(ctx_lens), B, H, Dh, N, BS, M,
+            splits, chunk, float(scale), DTYPE_CODES[q.dtype], int(quant),
+            stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)} "
-                           f"{q.dtype}, pool {tuple(kd.shape)}")
+                           f"{q.dtype}, pool {tuple(kd.shape)}, "
+                           f"{splits} splits of {chunk} keys")
     PAGED_DECODE[quant].launches += 1
     return out
 
@@ -579,6 +612,7 @@ def flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias, scale, causal):
 
 
 __all__ = ["build", "library", "ragged_stream", "paged_decode",
+           "decode_split_plan",
            "flash_fwd", "flash_delta", "flash_bwd", "flash_fwd_bias",
            "flash_bwd_bias", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_bias", "flash_bwd_dkv_bias", "reset_launch_counts",

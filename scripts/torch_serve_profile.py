@@ -14,14 +14,17 @@ loop but not the kernels. Prints, with the card's name and power limit:
     over all kernels of the profiled pass, and the device's idle share
     (1 - busy / unprofiled wall; kernels on one stream do not overlap);
   * device time by kernel name (top 15), with each one's share;
-  * the share of the port's own kernels (K1 ragged stream, K2 paged
-    decode) in the device time.
+  * the share of the port's own kernels in the device time: K1
+    (`ragged_stream_kernel`) and K2 (every kernel whose name starts with
+    `paged_decode`: the split kernel and its combine), with K2's launches
+    and device ms per decode step of the profiled pass.
 
 Usage (on a machine with the card, from the repo root):
     python3 scripts/torch_serve_profile.py [--steps-per-dispatch K]
 """
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,6 +34,9 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
+
+# a K2 kernel's name, as the demangled key gives it (after "::" or a space)
+K2_NAME = re.compile(r"(?:^|[\s:])paged_decode\w*")
 
 
 def main():
@@ -69,6 +75,7 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = srv.stats()
+        srv.reset_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -76,6 +83,7 @@ def main():
                 f.result(timeout=600)
             torch.cuda.synchronize()
             wall_prof = time.perf_counter() - t0
+        st_prof = srv.stats()
     finally:
         srv.stop()
     rows = []  # device-side events only (kernels, copies, sets): the
@@ -102,15 +110,22 @@ def main():
     if busy == 0:
         print("FAIL: the profiler recorded no device time")
         return 1
-    own = {"ragged_stream_kernel": 0.0, "paged_decode_kernel": 0.0}
-    for us, _n, key in rows:
-        for k in own:
-            if k in key:
-                own[k] += us / 1e6
-    print(f"K1 ragged_stream_kernel {own['ragged_stream_kernel'] * 1e3:.1f}"
-          f" ms ({own['ragged_stream_kernel'] / busy:.3f} of device time); "
-          f"K2 paged_decode_kernel {own['paged_decode_kernel'] * 1e3:.1f} ms"
-          f" ({own['paged_decode_kernel'] / busy:.3f})")
+    # K1 by its kernel's name; K2 is every kernel whose name starts with
+    # paged_decode (the split kernel and its combine)
+    k1 = k2 = 0.0
+    k2_launches = 0
+    for us, n, key in rows:
+        if "ragged_stream_kernel" in key:
+            k1 += us / 1e6
+        elif K2_NAME.search(key):
+            k2 += us / 1e6
+            k2_launches += n
+    steps = st_prof["decode_steps"] * args.steps_per_dispatch
+    print(f"K1 ragged_stream_kernel {k1 * 1e3:.1f} ms ({k1 / busy:.3f} of "
+          f"device time); K2 paged_decode* {k2 * 1e3:.1f} ms "
+          f"({k2 / busy:.3f}), {k2_launches} launches, "
+          f"{k2 * 1e3 / max(steps, 1):.4f} ms per decode step "
+          f"({steps} steps)")
     for us, n, key in rows[:15]:
         print(f"  {us / 1e3:9.2f} ms {us / 1e6 / busy:6.3f} x{n:<6d} "
               f"{key[:90]}")

@@ -2,9 +2,14 @@
 decode), dense and int8, against their plain PyTorch versions on the same
 inputs, across the shapes the serving path uses (head_dim 32/64/128,
 block sizes 4/16/128, 4 and 12 heads), plus the launch counters and a
-short decoder run on the card against the CPU; and the flash kernels K4
-(forward with LSE), K6 (delta) and K9 (fused backward) against theirs,
-causal and not, at aligned, ragged and Sq != Sk lengths, plus a tiny
+short decoder run on the card against the CPU. K2 is the split-KV kernel
+of `csrc/paged_decode_sm90.cu`: its cases run several splits and a
+one-split plan, contexts on a split boundary and one key either side,
+ctx past M * BS, an idle row and a ctx 0 row (zeros); two launches give
+the same bits, and a call makes no host synchronisation. And the flash
+kernels K4 (forward with LSE), K6 (delta) and K9 (fused backward)
+against theirs, causal and not, at aligned, ragged and Sq != Sk
+lengths, plus a tiny
 GPT-2 train step on the card against the CPU; and the per-key-bias
 variants K4 bias / K9 bias against theirs at chip_smoke.py phase 3c's
 shapes (padding masks, a broadcast bias, a fully masked row), plus a tiny
@@ -101,21 +106,60 @@ def _close(out, ref, dtype):
 SHAPES = [(4, 32, 4), (12, 64, 16), (12, 64, 128), (12, 128, 16)]
 
 
+def _decode_inputs(dev, h, dh, bs, dtype, quant, layout, seed):
+    """K2's inputs at one of two plan layouts (`kernels.decode_split_plan`
+    of B, H, M, BS): "many" — 8 rows over a 512-key table, so several
+    splits, with lengths for an idle row (ctx 1 on the trash block), a
+    context on a split boundary and one key either side of it, one inside
+    the first split, several splits, ctx > M * BS (clamped) and a full
+    table; "one" — enough rows that the plan has a single split (the
+    split kernel writes the output, no combine). Returns (q, k pool,
+    v pool, tables, ctx_lens, splits)."""
+    from paddle_tpu_torch.ops import kernels
+
+    m = 512 // bs
+    if layout == "many":
+        b = 8
+        splits, chunk = kernels.decode_split_plan(b, h, m, bs)
+        lens = [1, chunk, chunk - 1, chunk + 1, chunk // 2, 3 * chunk + 5,
+                m * bs + 40, m * bs]
+    else:
+        groups = -(-h // min(h, kernels.SPLIT_HEADS))
+        b = -(-kernels.SPLIT_TARGET_CTAS // groups)
+        splits, _ = kernels.decode_split_plan(b, h, m, bs)
+        rs = np.random.RandomState(seed)
+        lens = [1] + list(rs.randint(1, m * bs + 50, b - 1))
+    gt = torch.Generator().manual_seed(seed)
+    nb = [min(-(-int(c) // bs), m) for c in lens]
+    perm = torch.randperm(sum(nb) + 4, generator=gt) + 1
+    tab = np.zeros((b, m), np.int32)
+    o = 0
+    for r, k in enumerate(nb):
+        if r == 0:
+            continue  # the idle row: all trash
+        tab[r, :k] = perm[o:o + k].numpy()
+        o += k
+    g = torch.Generator(device=dev).manual_seed(seed)
+    kb, vb = _pools(g, sum(nb) + 5, bs, h, dh, dtype, quant, dev)
+    q = torch.randn(b, h, dh, generator=g, device=dev).to(dtype)
+    ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, kb, vb, torch.from_numpy(tab).to(dev), ctx, splits
+
+
+@pytest.mark.parametrize("layout", ["many", "one"])
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("h,dh,bs", SHAPES)
-def test_paged_decode_kernel_matches_plain(dev, h, dh, bs, dtype, quant):
+def test_paged_decode_kernel_matches_plain(dev, h, dh, bs, dtype, quant,
+                                           layout):
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.attention import (paged_decode_attention,
                                                 paged_decode_attention_plain)
 
-    g = torch.Generator(device=dev).manual_seed(h * dh + bs)
-    lens = [1, 300, 2 * bs, 37, 129, bs]
-    tables, n = _tables(torch.Generator().manual_seed(1), lens, bs, dev)
-    kb, vb = _pools(g, n, bs, h, dh, dtype, quant, dev)
-    q = torch.randn(len(lens), h, dh, generator=g, device=dev).to(dtype)
-    ctx = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q, kb, vb, tables, ctx, splits = _decode_inputs(
+        dev, h, dh, bs, dtype, quant, layout, h * dh + bs)
+    assert (splits > 1) == (layout == "many")
     before = kernels.PAGED_DECODE[quant].launches
     out = paged_decode_attention(q, kb, vb, tables, ctx)
     torch.cuda.synchronize()
@@ -124,6 +168,66 @@ def test_paged_decode_kernel_matches_plain(dev, h, dh, bs, dtype, quant):
                                        tables, ctx)
     assert out.dtype == dtype and torch.isfinite(out).all()
     _close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("layout", ["many", "one"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("h,dh,bs", SHAPES)
+def test_paged_decode_is_bitwise_reproducible(dev, h, dh, bs, quant, layout):
+    """Splits and combine in a fixed order, no atomics: two launches on the
+    same inputs give the same bits."""
+    from paddle_tpu_torch.ops.attention import paged_decode_attention
+
+    q, kb, vb, tables, ctx, _ = _decode_inputs(
+        dev, h, dh, bs, torch.bfloat16, quant, layout, 3 + bs)
+    a = paged_decode_attention(q, kb, vb, tables, ctx)
+    b = paged_decode_attention(q, kb, vb, tables, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_paged_decode_ctx_zero_gives_zeros(dev, dtype, quant):
+    """A row with ctx 0 attends nothing and gives zeros (as the Pallas
+    kernel's untouched accumulator does), with and without a combine;
+    the other rows are unaffected."""
+    from paddle_tpu_torch.ops.attention import (paged_decode_attention,
+                                                paged_decode_attention_plain)
+
+    for layout in ("many", "one"):
+        q, kb, vb, tables, ctx, _ = _decode_inputs(
+            dev, 12, 64, 16, dtype, quant, layout, 5)
+        ctx[2] = 0
+        out = paged_decode_attention(q, kb, vb, tables, ctx)
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        assert (out[2] == 0).all()
+        ref = paged_decode_attention_plain(q.float(), _f32(kb), _f32(vb),
+                                           tables, ctx)
+        keep = torch.arange(len(ctx), device=dev) != 2
+        _close(out[keep], ref[keep], dtype)
+
+
+def test_paged_decode_makes_no_host_sync(dev):
+    """The wrapper plans its splits from shapes alone: no read of ctx_lens
+    (or anything else) back to the host."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import paged_decode_attention
+
+    q, kb, vb, tables, ctx, _ = _decode_inputs(
+        dev, 12, 64, 16, torch.bfloat16, True, "many", 9)
+    kernels.library()  # the build and load are not under test
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = paged_decode_attention(q, kb, vb, tables, ctx)
+        out2 = paged_decode_attention(q, kb, vb, tables, ctx)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2)
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
