@@ -16,6 +16,20 @@ non-zero before the result line:
                the kernel, the plain version, and as `library_ms`
                F.scaled_dot_product_attention on pre-gathered contiguous
                K/V (excluding the gather; the port never calls it).
+               K1 in bf16 is the tensor-core kernel of
+               csrc/ragged_stream_sm90.cu: every K1 case must give the
+               same bits over two launches and zeros on pad rows; its
+               timed rows print the profiler's device time and the
+               wrapper's host time a call; beside phase 3's ~512-token
+               case (T 512) it holds C1, a serving-scale stream (T 4096:
+               4 fresh 512-token chunks and 4 second chunks of
+               1024-token prompts; timed, with its share of the bound,
+               TFLOP/s and a contiguous torch.sum of the same bytes), C2
+               (Dh 128 BS 16, and Dh 64 BS 128; untimed) and C3, 64
+               segments of 8 query tokens ending at
+               np.random.RandomState(12).randint(64, 1025, 64) (T 512,
+               several segments a tile; timed, with the key passes of
+               each 64-row tile).
                K2 is the split-KV kernel of csrc/paged_decode_sm90.cu
                (split + combine): its rows also print the profiler's
                device time per call beside the CUDA-event time (which
@@ -34,8 +48,15 @@ non-zero before the result line:
                multistep(4) on the card (kernels) and on the CPU (plain
                versions, device="cpu") with the same weights; logits
                within atol=2e-3 and identical greedy tokens. The same on
-               int8 pools (4b), which is the run the int8 kernels'
-               launch counts come from;
+               int8 pools (4b), which is the run the int8 K2's launch
+               count comes from;
+  4f. bf16 decoder — the same program (prefill and 8 steps) with GPT-2
+               small's weights in bf16 on the card, dense and int8 pools,
+               against those weights in float32 on the CPU: logits within
+               5e-2 of the CPU logits' largest magnitude (its basis at
+               BF16_DECODER_REL), greedy tokens identical but for near
+               ties. The int8 run is the bf16 K1's only main path with
+               int8 pools: the int8 K1's launch count comes from it;
   5. serving — GPT-2 small in bfloat16: PagedGenerationServer(max_slots=8,
                block_size=16, max_prompt_len=768, max_new_tokens=32,
                prefill_chunk_tokens=512) serving 16 prompts of 64-768
@@ -64,6 +85,8 @@ non-zero before the result line:
                them on the port's path. For K4 and K9 also the achieved
                TFLOP/s, the share of the bound and the ratio to the
                library time (the same for K4 bias and K9 bias in 3c);
+               for K6 its device time (profiler), share of the bound and
+               a contiguous torch.sum of the same bytes;
   4c. train parity — GPT-2 small, 12 layers, float32 (TF32 off), batch
                2 x 256, dropout 0: two AdamW steps (lr 1e-4, wd 0.01) on
                the card (kernels) and on the CPU (plain versions) from the
@@ -164,8 +187,8 @@ non-zero before the result line:
                Fails on a non-finite loss, K7/K8 (bias) launching other
                than 12 x steps times, or K9/K9 bias launching at all;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 4b, 6, 6b and 6c), the card
-     line, and as the last line {"ok": true, "device": {...}}.
+     main-path runs that reach it: phases 5, 4b, 4f, 6, 6b and 6c), the
+     card line, and as the last line {"ok": true, "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; only the K/V positions this
@@ -205,7 +228,8 @@ FLASH_REPLACES = {
         "paddle_tpu/ops/pallas/flash_attention.py:580 (has_bias)",
     "flash_bwd_dkv_bias":
         "paddle_tpu/ops/pallas/flash_attention.py:615 (has_bias)"}
-SOURCE = "paddle_tpu_torch/csrc/unified_attention.cu"  # K1
+# K1 in bf16 (the timed rows); the float32 K1 is unified_attention.cu's
+SOURCE = "paddle_tpu_torch/csrc/ragged_stream_sm90.cu"
 FLASH_SOURCE = "paddle_tpu_torch/csrc/flash_attention.cu"
 FWD_SOURCE = "paddle_tpu_torch/csrc/flash_fwd_sm90.cu"  # K4 (bias) in bf16
 # K9 and K8 (bias) in bf16
@@ -214,6 +238,16 @@ DQ_SOURCE = "paddle_tpu_torch/csrc/flash_bwd_dq_sm90.cu"  # K7 (bias) in bf16
 DECODE_SOURCE = "paddle_tpu_torch/csrc/paged_decode_sm90.cu"  # K2
 # K2's kernels in a profiler key (the split kernel and its combine)
 K2_NAME = re.compile(r"(?:^|[\s:])paged_decode\w*")
+K1_NAME = re.compile(r"(?:^|[\s:])ragged_stream\w*")  # either dtype's
+K6_NAME = re.compile(r"(?:^|[\s:])flash_delta\w*")
+# phase 4f's limit: the bf16 decoder's logits within this share of the
+# float32 CPU logits' largest magnitude. Basis: bf16 keeps 8 significant
+# bits (unit roundoff 2^-8, 0.39%); the logits come out of a residual
+# stream rounded at ~80 sites in series (12 layers: layer norms, q/k/v,
+# attention, projections, MLP), whose errors add as a random walk to
+# ~sqrt(80) * 0.39% = 3.5% at worst alignment of a vector; int8 K/V add at
+# most half a code step, 1/254 of a vector's largest element.
+BF16_DECODER_REL = 5e-2
 FLASH = ("flash_fwd", "flash_delta", "flash_bwd")
 FLASH_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_bias")
 TWO_PASS = ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")
@@ -433,17 +467,54 @@ def decode_case(torch, timer, h, dh, bs, quant, seed, timed, lens=None,
     return res
 
 
-def stream_case(torch, timer, h, dh, bs, quant, seed, timed):
+def stream_segs(kind):
+    """Phase 3's K1 packings: (table row, first position, tokens) per
+    segment (each padded to 8 rows, as serving packs at pack_align 8),
+    and the pad rows after them. "tiny": a prefix chunk, a fresh segment,
+    pads; "main" (~512 tokens): a cached-prefix chunk, a fresh segment, a
+    partial segment with pads, a pad region; "serving" (C1, T 4096): 4
+    fresh 512-token chunks and 4 second chunks of 1024-token prompts
+    (positions 512-1023 over a 512-token cached prefix); "short" (C3, T
+    512): 64 segments of 8 query tokens ending at positions from
+    np.random.RandomState(12).randint(64, 1025, 64), a stream of
+    speculative verify windows."""
+    if kind == "tiny":
+        return [(0, 10, 16), (1, 0, 13)], 5
+    if kind == "main":
+        return [(0, 300, 128), (1, 0, 200), (2, 0, 101)], 80
+    if kind == "serving":
+        return ([(r, 0, 512) for r in range(4)]
+                + [(r, 512, 512) for r in range(4, 8)]), 0
+    last = np.random.RandomState(12).randint(64, 1025, 64)
+    return [(r, int(e) - 7, 8) for r, e in enumerate(last)], 0
+
+
+def stream_passes(seg, pos, b):
+    """The key passes each of the bf16 K1's tiles runs: its distinct
+    segments (kernels.STREAM_ROWS rows a tile)."""
+    from paddle_tpu_torch.ops.kernels import STREAM_ROWS
+
+    out = []
+    for t0 in range(0, len(seg), STREAM_ROWS):
+        live = {s for s, p in zip(seg[t0:t0 + STREAM_ROWS],
+                                  pos[t0:t0 + STREAM_ROWS])
+                if 0 <= s < b and p >= 0}
+        out.append(len(live))
+    return out
+
+
+def stream_case(torch, timer, h, dh, bs, quant, seed, timed, kind=None):
+    """K1 against its plain version on one packing (`stream_segs`; pad
+    rows must be zeros), and two launches bit for bit; timed: CUDA events
+    around the call, the profiler's device time per call, the wrapper's
+    host time, the plain version, and SDPA on pre-gathered K/V."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import kernels
     from paddle_tpu_torch.ops.attention import ragged_prefill_attention_plain
 
-    if bs == 4:   # tiny: prefix chunk, fresh segment, pads
-        segs, pads = [(0, 10, 16), (1, 0, 13)], 5
-    else:         # ~512 tokens: cached-prefix chunk, fresh segment,
-        # a partial segment with pads, a pad region
-        segs, pads = [(0, 300, 128), (1, 0, 200), (2, 0, 101)], 80
+    kind = kind or ("tiny" if bs == 4 else "main")
+    segs, pads = stream_segs(kind)
     g = torch.Generator(device=DEV).manual_seed(seed)
     tables, n = _tables(torch, [s0 + m for _r, s0, m in segs], bs, False,
                         seed)
@@ -461,18 +532,33 @@ def stream_case(torch, timer, h, dh, bs, quant, seed, timed):
     q = torch.randn(T, h, dh, generator=g, device=DEV).bfloat16()
     sc = dh ** -0.5
     out = kernels.ragged_stream(q, kb, vb, tables, seg_t, pos_t, sc)
+    again = kernels.ragged_stream(q, kb, vb, tables, seg_t, pos_t, sc)
     torch.cuda.synchronize()
     ref = ragged_prefill_attention_plain(q.float(), _f32(kb), _f32(vb),
                                          tables, seg_t, pos_t, sc)
     valid = pos_t >= 0
-    err = (out[valid].float() - ref[valid]).abs().max().item()
+    ref = ref[valid]
+    err = (out[valid].float() - ref).abs().max().item()
     ok = torch.isfinite(out).all().item() and torch.allclose(
-        out[valid].float(), ref[valid], atol=2e-2, rtol=2e-2)
-    res = {"max_abs_err": err, "ok": bool(ok), "tokens": T}
+        out[valid].float(), ref, atol=2e-2, rtol=2e-2) \
+        and bool((out[~valid] == 0).all().item())
+    del ref
+    res = {"max_abs_err": err, "ok": bool(ok), "tokens": T,
+           "bitwise": torch.equal(out, again),
+           "passes": stream_passes(seg, pos, tables.shape[0])}
     if not timed:
         return res
-    res["ms"] = timer.ms(lambda: kernels.ragged_stream(
-        q, kb, vb, tables, seg_t, pos_t, sc))
+    call = lambda: kernels.ragged_stream(  # noqa: E731
+        q, kb, vb, tables, seg_t, pos_t, sc)
+    res["ms"] = timer.ms(call)
+    res["device_ms"] = timer.device_ms(call, K1_NAME)
+    # the wrapper's host time: a host clock over many calls, no synchronise
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    res["host_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
     res["plain_ms"] = timer.ms(lambda: ragged_prefill_attention_plain(
         q, kb, vb, tables, seg_t, pos_t, sc), reps=10)
     # library: one SDPA call over every segment's pre-gathered keys, the
@@ -488,6 +574,7 @@ def stream_case(torch, timer, h, dh, bs, quant, seed, timed):
         col_pos += list(range(c))
     gk = torch.cat(cols_k).permute(1, 0, 2)[None].contiguous()
     gv = torch.cat(cols_v).permute(1, 0, 2)[None].contiguous()
+    del kd, vd, cols_k, cols_v
     cs = torch.tensor(col_seg, device=DEV)
     cp = torch.tensor(col_pos, device=DEV)
     mask = (seg_t.long()[:, None] == cs[None]) & \
@@ -496,6 +583,7 @@ def stream_case(torch, timer, h, dh, bs, quant, seed, timed):
     q4 = q.permute(1, 0, 2)[None]
     res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
         q4, gk, gv, attn_mask=mask[None, None], scale=sc))
+    del gk, gv, mask
     e, s = _elem(kb)
     keys = sum(s0 + m for _r, s0, m in segs)  # each segment's horizon
     nbytes = (2 * q.numel() * q.element_size() + 2 * T * 4
@@ -596,6 +684,8 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
     fw["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=causal, scale=sc))
     dl["ms"] = timer.ms(lambda: kernels.flash_delta(out, do))
+    dl["device_ms"] = timer.device_ms(lambda: kernels.flash_delta(out, do),
+                                      K6_NAME)
     dl["plain_ms"] = timer.ms(lambda: pf.flash_delta_plain(out, do))
     dl["library_ms"] = timer.ms(lambda: torch.linalg.vecdot(out, do))
     bw["ms"] = timer.ms(lambda: kernels.flash_bwd(q, k, v, do, lse, delta,
@@ -619,6 +709,16 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
             f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     _rates("3b", "flash_fwd", tag, fw)
     _rates("3b", "flash_bwd", tag, bw)
+    buf = torch.zeros(dl["bytes"] // 2, dtype=torch.bfloat16, device=DEV)
+    dl["stream_ms"] = timer.ms(lambda: buf.sum())
+    del buf
+    say(f"phase 3b flash_delta {tag}: device {dl['device_ms']:.4f} ms "
+        f"(profiler), {dl['bound_ms'] / dl['device_ms']:.3f} of the bound "
+        f"({dl['bytes'] / 1e6:.1f} MB, {dl['bound_by']}), "
+        f"{dl['bytes'] / dl['device_ms'] / 1e9:.2f} TB/s; CUDA events "
+        f"{dl['ms']:.4f} ms; torch.linalg.vecdot {dl['library_ms']:.4f} ms; "
+        f"a contiguous read of the same bytes (torch.sum) "
+        f"{dl['stream_ms']:.4f} ms")
     return rows
 
 
@@ -1179,12 +1279,17 @@ def bert_train_throughput(torch, cfg, batch_size=16, seq=512, warm=2,
 
 # ---- phase 4: decoder parity across devices --------------------------------
 
-def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol):
+def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol, rel=False):
     """Packed prefill + 8 steps + multistep(4) on the card and on the CPU
     (teacher-forced with the card's tokens). Returns (the largest logit
     difference, the near-tie count): greedy tokens must be identical
     except where the CPU's top two logits are within 2*atol (a tie the
-    summation order may break)."""
+    summation order may break). The card runs params_gpu in their dtype
+    (and its cache in it), the CPU their float32 copy; with `rel` (a
+    bf16 card side) atol is relative to the largest magnitude of the
+    CPU's logits at each comparison, the largest difference is returned
+    in that unit, and the tokens of multistep(4), which returns no
+    logits, are not compared."""
     from paddle_tpu_torch.inference.kv_cache import PagedKVCache
     from paddle_tpu_torch.nn.decode import PagedDecoder
     from paddle_tpu_torch.sampling import greedy_args
@@ -1208,11 +1313,14 @@ def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol):
         sidx[r] = o + p.size - 1
         o += -(-p.size // 8) * 8
     sides = {}
+    card_dtype = next(iter(params_gpu.values())).dtype
     for dev in (DEV, "cpu"):
         params = (params_gpu if dev == DEV
-                  else {k: v.cpu() for k, v in params_gpu.items()})
+                  else {k: v.float().cpu() for k, v in params_gpu.items()})
         cache = PagedKVCache(cfg.num_layers, H, Dh, block_size=BS,
-                             num_blocks=40, dtype=torch.float32,
+                             num_blocks=40,
+                             dtype=card_dtype if dev == DEV
+                             else torch.float32,
                              kv_dtype=kv_dtype, device=dev)
         cache.ensure_many([(r, lens[r] + 16) for r in range(3)])
         dec = PagedDecoder.for_config(cfg, BS, return_logits=True,
@@ -1227,19 +1335,22 @@ def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol):
 
     def compare(what, tok_gpu, lg_gpu, lg_cpu):
         nonlocal ties
-        diff = (lg_gpu.cpu() - lg_cpu).abs().max().item()
-        if diff > atol:
-            fail(f"decoder {kv_dtype or 'dense'} {what}: logits differ by "
-                 f"{diff:.3g} > {atol}")
+        unit = lg_cpu.abs().max().item() if rel else 1.0
+        tol = atol * unit
+        diff = (lg_gpu.cpu().float() - lg_cpu).abs().max().item()
+        if diff > tol:
+            fail(f"decoder {kv_dtype or 'dense'} {card_dtype} {what}: logits "
+                 f"differ by {diff:.3g} > {tol:.3g}")
         top = lg_cpu.argmax(-1)
         for b in range(lg_cpu.shape[0]):
             if int(top[b]) != int(tok_gpu[b]):
                 gap = (lg_cpu[b, top[b]] - lg_cpu[b, int(tok_gpu[b])]).item()
-                if gap > 2 * atol:
-                    fail(f"decoder {kv_dtype or 'dense'} {what}: greedy "
-                         f"token differs in row {b} (gap {gap:.3g})")
+                if gap > 2 * tol:
+                    fail(f"decoder {kv_dtype or 'dense'} {card_dtype} "
+                         f"{what}: greedy token differs in row {b} (gap "
+                         f"{gap:.3g})")
                 ties += 1
-        return diff
+        return diff / unit
 
     worst = 0.0
     outs = {}
@@ -1262,6 +1373,8 @@ def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol):
                                    outs[DEV][5], outs["cpu"][5]))
         tok = outs[DEV][0].cpu()
         p = p + 1
+    if rel:
+        return worst, ties
     multi = {}
     for dev, (params, cache, dec, tab) in sides.items():
         multi[dev] = dec.multistep(4)(
@@ -1371,31 +1484,80 @@ def main():
                                       False, decode_lens(torch, h, bs, m),
                                       m)))
         r1 = stream_case(torch, timer, 12, 64, 16, quant, 4, True)
+        r1s = stream_case(torch, timer, 12, 64, 16, quant, 13, True,
+                          "serving")                                # C1
+        r1c = stream_case(torch, timer, 12, 64, 16, quant, 12, True,
+                          "short")                                  # C3
+        buf = torch.zeros(r1s["bytes"] // 2, dtype=torch.bfloat16,
+                          device=DEV)
+        r1s["stream_ms"] = timer.ms(lambda: buf.sum())
+        del buf
         cases += [(f"K1 {tag} H12 Dh64 BS16 T{r1['tokens']}", r1),
                   (f"K1 {tag} H4 Dh32 BS4",
-                   stream_case(torch, timer, 4, 32, 4, quant, 5, False))]
+                   stream_case(torch, timer, 4, 32, 4, quant, 5, False)),
+                  (f"K1 {tag} H12 Dh64 BS16 T4096 serving-scale (C1)", r1s),
+                  (f"K1 {tag} H12 Dh128 BS16 (C2)",
+                   stream_case(torch, timer, 12, 128, 16, quant, 14,
+                               False)),
+                  (f"K1 {tag} H12 Dh64 BS128 (C2)",
+                   stream_case(torch, timer, 12, 64, 128, quant, 15,
+                               False)),
+                  (f"K1 {tag} H12 Dh64 BS16 64 x 8-token segments (C3)",
+                   r1c)]
         for name, r in cases:
             if not r["ok"]:
                 fail(f"phase 3 {name}: kernel disagrees with plain "
                      f"(max abs err {r['max_abs_err']:.3g}, atol=rtol=2e-2;"
-                     f" ctx 0 rows must be zeros)")
-            if name.startswith("K2") and not r["bitwise"]:
+                     f" ctx 0 rows and pad rows must be zeros)")
+            if not r["bitwise"]:
                 fail(f"phase 3 {name}: two launches differ")
         say(f"phase 3 K2 {tag}: every case within 2e-2 of plain and bitwise "
             f"equal over two launches (splits x keys: " + ", ".join(
                 f"{n.split(' ', 2)[2]} {r['splits'][0]}x{r['splits'][1]}"
                 for n, r in cases if n.startswith("K2")) + ")")
+        say(f"phase 3 K1 {tag}: every case within 2e-2 of plain, pad rows "
+            f"zeros, bitwise equal over two launches (max abs err, key "
+            f"passes per 64-row tile max/mean: " + ", ".join(
+                f"{n.split(' ', 2)[2]} {r['max_abs_err']:.3g} "
+                f"{max(r['passes'])}/"
+                f"{sum(r['passes']) / len(r['passes']):.2f}"
+                for n, r in cases if n.startswith("K1")) + ")")
         for name, r in ((f"paged_decode_{tag}", r2),
                         (f"ragged_stream_{tag}", r1)):
             rows[name] = r
-            dev_ms = (f", device {r['device_ms']:.4f} ms (profiler, split + "
-                      f"combine per call), wrapper host {r['host_ms']:.4f} "
-                      f"ms a call" if "device_ms" in r else "")
+            what = ("split + combine per call" if name.startswith("paged")
+                    else "per call")
             say(f"phase 3 {name}: max_abs_err {r['max_abs_err']:.3g} "
-                f"kernel {r['ms']:.4f} ms{dev_ms}, plain {r['plain_ms']:.4f}"
-                f" ms, library (SDPA, gather excluded) "
-                f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
-                f"({r['bound_by']}) [{card}]")
+                f"kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms "
+                f"(profiler, {what}), wrapper host {r['host_ms']:.4f} ms a "
+                f"call, plain {r['plain_ms']:.4f} ms, library (SDPA, gather "
+                f"excluded) {r['library_ms']:.4f} ms, bound "
+                f"{r['bound_ms']:.4f} ms ({r['bound_by']}) [{card}]")
+        say(f"phase 3 ragged_stream_{tag} serving-scale (C1) T4096 H12 Dh64 "
+            f"BS16 (sum (pos+1) {r1s['flops'] // (4 * 12 * 64)}, "
+            f"{r1s['bytes'] / 1e6:.1f} MB, {r1s['flops'] / 1e9:.2f} "
+            f"GFLOP): max_abs_err {r1s['max_abs_err']:.3g} kernel "
+            f"{r1s['ms']:.4f} ms, device {r1s['device_ms']:.4f} ms "
+            f"(profiler), wrapper host {r1s['host_ms']:.4f} ms, plain "
+            f"{r1s['plain_ms']:.4f} ms, library (SDPA, gather excluded) "
+            f"{r1s['library_ms']:.4f} ms, bound {r1s['bound_ms']:.4f} ms "
+            f"({r1s['bound_by']}); share of the bound "
+            f"{r1s['bound_ms'] / r1s['device_ms']:.3f} (device), "
+            f"{r1s['bound_ms'] / r1s['ms']:.3f} (events); "
+            f"{r1s['flops'] / r1s['device_ms'] / 1e9:.1f} TFLOP/s (device); "
+            f"kernel / library {r1s['ms'] / r1s['library_ms']:.2f}x; a "
+            f"contiguous read of the same bytes (torch.sum) "
+            f"{r1s['stream_ms']:.4f} ms [{card}]")
+        say(f"phase 3 ragged_stream_{tag} short segments (C3) T512 H12 Dh64 "
+            f"BS16, 64 x 8 tokens (sum (pos+1) "
+            f"{r1c['flops'] // (4 * 12 * 64)}, {r1c['bytes'] / 1e6:.1f} MB): "
+            f"key passes per 64-row tile {r1c['passes']}; kernel "
+            f"{r1c['ms']:.4f} ms, device {r1c['device_ms']:.4f} ms "
+            f"(profiler), wrapper host {r1c['host_ms']:.4f} ms, plain "
+            f"{r1c['plain_ms']:.4f} ms, library (SDPA, gather excluded) "
+            f"{r1c['library_ms']:.4f} ms, bound {r1c['bound_ms']:.4f} ms "
+            f"({r1c['bound_by']}); share of the bound "
+            f"{r1c['bound_ms'] / r1c['device_ms']:.3f} (device) [{card}]")
         say(f"phase 3 paged_decode_{tag} serving-scale B128 H12 Dh64 BS16 "
             f"(sum ctx {r2s['flops'] // (4 * 12 * 64)}, "
             f"{r2s['bytes'] / 1e6:.1f} MB): max_abs_err "
@@ -1482,8 +1644,6 @@ def main():
         worst, ties = decoder_parity(torch, cfg, params32, kv_dtype, atol)
         counts = kernels.launch_counts()
         if kv_dtype == "int8":
-            main_counts["ragged_stream_int8"] = \
-                counts["ragged_stream_int8"]
             main_counts["paged_decode_int8"] = counts["paged_decode_int8"]
         if min(v for n, v in counts.items()
                if n.endswith(kv_dtype or "dense")) == 0:
@@ -1492,6 +1652,29 @@ def main():
             f"{worst:.3g} (atol {atol}), near-ties {ties}, launches "
             f"{counts}")
     del model32, params32
+    torch.cuda.empty_cache()
+
+    # phase 4f: the bf16 decoder, dense and int8 pools, card vs the same
+    # weights in float32 on the CPU; the int8 run's K1 launches are the
+    # kernels line's (the bf16 K1's only main path with int8 pools)
+    model = GPT2(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    params16 = model.flat_params()
+    for kv_dtype in (None, "int8"):
+        kernels.reset_launch_counts()
+        worst, ties = decoder_parity(torch, cfg, params16, kv_dtype,
+                                     BF16_DECODER_REL, rel=True)
+        counts = kernels.launch_counts()
+        tag = kv_dtype or "dense"
+        if counts[f"ragged_stream_{tag}"] == 0 \
+                or counts[f"paged_decode_{tag}"] == 0:
+            fail(f"phase 4f {tag} bf16: a kernel was not launched {counts}")
+        if kv_dtype == "int8":
+            main_counts["ragged_stream_int8"] = counts["ragged_stream_int8"]
+        say(f"phase 4f decoder {tag} bf16 (card) vs float32 (CPU): max "
+            f"logit diff {worst:.3g} of the CPU logits' largest magnitude "
+            f"(limit {BF16_DECODER_REL}), near-ties {ties}, launches "
+            f"{ {n: v for n, v in counts.items() if v} }")
+    del params16
     torch.cuda.empty_cache()
 
     # phase 4c: training parity, GPT-2 small float32, card vs CPU
@@ -1539,8 +1722,7 @@ def main():
             f"none, {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-    # phase 5: serving, GPT-2 small bf16
-    model = GPT2(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    # phase 5: serving, GPT-2 small bf16 (phase 4f's weights)
     rng = np.random.RandomState(7)
     prompts = [rng.randint(1, cfg.vocab_size,
                            (int(rng.randint(64, 769)),)).astype(np.int32)

@@ -216,23 +216,95 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
 }
 
 // ---- K6: delta = rowsum(dO * O) ---------------------------------------------
+//
+// Replaces paddle_tpu/ops/pallas/flash_attention.py `_delta_rows` (483;
+// its pallas_call at 493), body `_delta_kernel` (472). What bounds it on
+// an H100: bytes. It reads o and dO once (2 FLOPs an element pair) and
+// writes one float a row; at GPT-2 small's training shape (B 16, H 12,
+// S 1024, D 64, bf16) 51 MB, 0.0153 ms at 3.35 TB/s. The design keeps
+// enough loads in flight to stream them:
+//   * 16-byte loads, neighbouring lanes on neighbouring addresses: a row
+//     is kLanes = D * e / 16 lanes (bf16 D 64: 8 lanes, 4 rows a warp;
+//     float32 D 128: a warp a row);
+//   * each warp loads its kDeltaGroups row groups of o and dO (four
+//     independent 16-byte loads a lane) before it sums any of them;
+//   * a lane sums its elements in order into a float32, then its row's
+//     lanes reduce over a fixed shuffle tree: the same bits on every run.
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_delta_kernel(float* __restrict__ delta, const T* __restrict__ o,
-                   const T* __restrict__ dout, int64_t rows) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row =
-      static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
-  if (row >= rows) return;  // the whole warp leaves together
-  const T* a = o + row * D;
-  const T* b = dout + row * D;
+constexpr int kDeltaThreads = 256;
+constexpr int kDeltaGroups = 2;  // row groups a warp loads before it sums
+
+// The dot of two 16-byte chunks (4 float32 or 8 bf16), in element order.
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b);
+template <>
+__device__ __forceinline__ float dot16<float>(const uint4& a,
+                                              const uint4& b) {
+  const float4 x = *reinterpret_cast<const float4*>(&a);
+  const float4 y = *reinterpret_cast<const float4*>(&b);
+  float acc = x.x * y.x;
+  acc = fmaf(x.y, y.y, acc);
+  acc = fmaf(x.z, y.z, acc);
+  return fmaf(x.w, y.w, acc);
+}
+template <>
+__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a,
+                                                      const uint4& b) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
+  const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
   float acc = 0.f;
 #pragma unroll
-  for (int d = lane; d < D; d += 32) acc += to_f(a[d]) * to_f(b[d]);
+  for (int i = 0; i < 4; ++i) {
+    const float2 x =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+    const float2 y =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
+  }
+  return acc;
+}
+
+template <typename T, int D>
+struct DeltaGeo {
+  static constexpr int kLanes = D * static_cast<int>(sizeof(T)) / 16;
+  static constexpr int kRowsPerWarp = 32 / kLanes;  // rows of a group
+  static constexpr int kRowsPerBlock =
+      kDeltaThreads / 32 * kDeltaGroups * kRowsPerWarp;
+  static_assert(kLanes >= 1 && kLanes <= 32, "a row is 16..512 bytes");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_delta_kernel(float* __restrict__ delta, const T* __restrict__ o,
+                   const T* __restrict__ dout, int64_t rows) {
+  using G = DeltaGeo<T, D>;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int part = lane % G::kLanes;  // this lane's 16 bytes of a row
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * G::kRowsPerBlock +
+                       warp * kDeltaGroups * G::kRowsPerWarp +
+                       lane / G::kLanes;
+  uint4 a[kDeltaGroups], b[kDeltaGroups];
 #pragma unroll
-  for (int s = 16; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-  if (lane == 0) delta[row] = acc;
+  for (int u = 0; u < kDeltaGroups; ++u) {
+    const int64_t row = row0 + u * G::kRowsPerWarp;
+    a[u] = b[u] = make_uint4(0u, 0u, 0u, 0u);
+    if (row < rows) {
+      const int64_t at = row * D * static_cast<int64_t>(sizeof(T)) / 16 +
+                         part;
+      a[u] = __ldg(reinterpret_cast<const uint4*>(o) + at);
+      b[u] = __ldg(reinterpret_cast<const uint4*>(dout) + at);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kDeltaGroups; ++u) {
+    float acc = dot16<T>(a[u], b[u]);
+#pragma unroll
+    for (int s = G::kLanes / 2; s > 0; s >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    const int64_t row = row0 + u * G::kRowsPerWarp;
+    if (part == 0 && row < rows) delta[row] = acc;
+  }
 }
 
 // ---- K9: fused backward -------------------------------------------------------
@@ -291,10 +363,12 @@ cudaError_t launch_fwd(void* out, float* lse, const void* q, const void* k,
 template <typename T, int D>
 cudaError_t launch_delta(float* delta, const void* o, const void* dout,
                          int64_t rows, cudaStream_t st) {
-  constexpr int per_block = kThreads / 32;
+  constexpr int per_block = DeltaGeo<T, D>::kRowsPerBlock;
   const int64_t blocks = (rows + per_block - 1) / per_block;
-  flash_delta_kernel<T, D><<<static_cast<unsigned>(blocks), kThreads, 0, st>>>(
-      delta, static_cast<const T*>(o), static_cast<const T*>(dout), rows);
+  if (blocks > 0x7fffffff) return cudaErrorInvalidValue;
+  flash_delta_kernel<T, D>
+      <<<static_cast<unsigned>(blocks), kDeltaThreads, 0, st>>>(
+          delta, static_cast<const T*>(o), static_cast<const T*>(dout), rows);
   return cudaGetLastError();
 }
 

@@ -8,6 +8,8 @@
 // (`pack_p`) and B a key tile read MN-major), and the backward's
 // exponential and mask rules (`fast_exp2`, `masked_p`), which K7 shares
 // with K9 and K8 (flash_bwd_sm90.cu) so that their bf16 p and ds agree.
+// The bf16 ragged-stream K1 (ragged_stream_sm90.cu) takes `Boxes`,
+// `issue_s` (over its 64-row tiles), `issue_pv` and `pack_p`.
 #pragma once
 
 #include "flash_common.cuh"
@@ -33,9 +35,9 @@ struct Boxes {
 };
 
 // Issues acc = A.B^T of one key tile for a consumer's 64 rows as one wgmma
-// group: a_s its rows of a kTileQ-row tile's boxes (Q; dO in K7), b_s the
-// BK-key tile's boxes (K; V in K7), both K-major.
-template <int D, int BK = kTileK>
+// group: a_s its rows of a QT-row tile's boxes (Q; dO in K7; K1's 64-row
+// tiles), b_s the BK-key tile's boxes (K; V in K7), both K-major.
+template <int D, int BK = kTileK, int QT = kTileQ>
 __device__ __forceinline__ void issue_s(float (&acc)[BK / 2], uint32_t a_s,
                                         uint32_t b_s) {
   using G = Boxes<D>;
@@ -44,7 +46,7 @@ __device__ __forceinline__ void issue_s(float (&acc)[BK / 2], uint32_t a_s,
   for (int kk = 0; kk < D / 16; ++kk) {
     const int b = kk * 16 / G::kBox, c = kk * 16 % G::kBox;
     const uint64_t da = sm90::wgmma_desc(
-        a_s + b * kTileQ * G::kSwizzle + 2 * c, 16, 8 * G::kSwizzle,
+        a_s + b * QT * G::kSwizzle + 2 * c, 16, 8 * G::kSwizzle,
         G::kSwizzle);
     const uint64_t db = sm90::wgmma_desc(b_s + b * BK * G::kSwizzle + 2 * c,
                                          16, 8 * G::kSwizzle, G::kSwizzle);

@@ -1,7 +1,8 @@
-// K3 — the paged-pool loader of the ragged-stream attention kernel (K1)
-// in unified_attention.cu. The paged decode kernel (K2,
-// paged_decode_sm90.cu) resolves block ids the same way (clamped into
-// [0, N)) and loads whole block pieces by TMA instead.
+// K3 — the paged-pool loader of the float32 ragged-stream attention
+// kernel (K1) in unified_attention.cu. The paged decode kernel (K2,
+// paged_decode_sm90.cu) and the bf16 K1 (ragged_stream_sm90.cu) resolve
+// block ids the same way (clamped into [0, N)) and load whole block pieces
+// by TMA instead; the bf16 K1 dequantizes an int8 stage in shared memory.
 //
 // Replaces: paddle_tpu/ops/pallas/unified_attention.py `kv_operand_specs`,
 // `kv_operands` and `_load_kv` — the TPU kernels steer their DMA pipeline

@@ -5,7 +5,9 @@
 // hand-over between warpgroups (setmaxnreg), named barriers and bulk
 // reductions. K4 (flash_fwd_sm90.cu) and K9 (flash_bwd_sm90.cu) use it;
 // the paged decode kernel K2 (paged_decode_sm90.cu) its pool maps, TMA
-// loads and mbarriers.
+// loads and mbarriers; the bf16 ragged-stream kernel K1
+// (ragged_stream_sm90.cu) all of it but the register hand-over and the
+// bulk reductions.
 //
 // Layouts. A tile of a [rows, D] bf16 matrix (D contiguous) lands in shared
 // memory through TMA as boxes of `box` columns (64, or 32 at D 32: the
@@ -20,8 +22,12 @@
 //     wgmma's transpose-B flag): 8-row groups SBO = 8 * row bytes apart,
 //     the next box of columns LBO = one box apart; the k-th 16-row step
 //     starts 16 * row bytes into the box.
-// Every box starts on a 1024-byte boundary (the 128-byte swizzle's period),
-// so the descriptors' base offset is 0.
+// Every tile starts on a 1024-byte boundary (the 128-byte swizzle's
+// period), so the descriptors' base offset is 0. A box of fewer rows than
+// the period holds (K1's BS 4 pool blocks: 512 bytes) may start inside it:
+// TMA and wgmma apply the swizzle to the shared-memory address (bits 4-6
+// XOR bits 7-9; 4-5 and 7-8 for 64 bytes), so the box continues its
+// tile's pattern.
 #pragma once
 
 #include <cuda.h>
@@ -457,27 +463,36 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type,
 
 // A 3-D map of one layer's paged pool viewed as [rows, heads, dh] (rows =
 // N * BS pool rows, dh contiguous) of `elem_bytes`-byte elements (bf16,
-// float32 or int8 codes), read in boxes of {dh, box_heads, box_rows}
-// without a swizzle: the paged decode kernel reads the rows linearly.
+// float32 or int8 codes), read in boxes of {box_cols (0: dh), box_heads,
+// box_rows}. Without `swizzle` the box lands linearly (the paged decode
+// kernel reads the rows so, and K1 its int8 codes); with it each box row
+// of box_cols * elem_bytes (128 or 64) bytes is swizzled over that span,
+// as wgmma reads it (K1's bf16 query and pool tiles, one head a box).
 // Heads past the end read as zeros (and count in the box's bytes). False
 // on failure.
 inline bool make_pool_map(CUtensorMap* map, CUtensorMapDataType type,
                           int elem_bytes, const void* base, int rows,
-                          int heads, int dh, int box_rows, int box_heads) {
+                          int heads, int dh, int box_rows, int box_heads,
+                          int box_cols = 0, bool swizzle = false) {
   EncodeTiledFn fn = encode_tiled();
   if (!fn) return false;
+  if (box_cols == 0) box_cols = dh;
   const cuuint64_t eb = static_cast<cuuint64_t>(elem_bytes);
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(dh),
                               static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(rows)};
   const cuuint64_t strides[2] = {static_cast<cuuint64_t>(dh) * eb,
                                  static_cast<cuuint64_t>(heads) * dh * eb};
-  const cuuint32_t box[3] = {static_cast<cuuint32_t>(dh),
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(box_cols),
                              static_cast<cuuint32_t>(box_heads),
                              static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem[3] = {1, 1, 1};
+  const CUtensorMapSwizzle swz =
+      !swizzle ? CU_TENSOR_MAP_SWIZZLE_NONE
+      : box_cols * elem_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : CU_TENSOR_MAP_SWIZZLE_64B;
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -1,5 +1,7 @@
-// The ragged-stream attention kernel of the serving path, for Hopper
-// (sm_90a). K2, the paged decode kernel, is paged_decode_sm90.cu.
+// The ragged-stream attention kernel of the serving path in float32, for
+// Hopper (sm_90a), and the C entry of K1 in both dtypes: bfloat16 goes to
+// the tensor-core kernel of ragged_stream_sm90.cu. K2, the paged decode
+// kernel, is paged_decode_sm90.cu.
 //
 // K1 `ragged_stream_kernel` replaces the TPU kernel
 //   paddle_tpu/ops/pallas/unified_attention.py
@@ -9,15 +11,18 @@
 //   keys of table row seg[t] at cache positions 0..pos[t]; pad rows
 //   (pos < 0, or seg outside [0, B)) attend nothing and come out as zeros.
 // It reads the pool through the K3 loader in kv_load.cuh, dense or int8
-// (per-vector scales, dequantized in registers).
+// (per-vector scales, dequantized in registers). It is the float32 K1
+// only: TF32 tensor-core products would not hold float32 parity (phase 4
+// of chip_smoke.py runs the decoder in float32 through it), so it stays a
+// SIMT kernel, as the float32 K4, K7, K8 and K9 do.
 //
-// What bounds it on an H100 (3.35 TB/s HBM, 989 TFLOP/s bf16 dense):
-//   K1 does 4 * H * Dh * sum_t (pos_t + 1) FLOPs over the K/V of each
-//   segment's horizon; a prefill chunk of n tokens reuses every key n
-//   times, so a long chunk is FLOP-bound and a short one byte-bound.
+// What bounds it on an H100 (3.35 TB/s HBM, 67 TFLOP/s float32 outside
+// the tensor cores): K1 does 4 * H * Dh * sum_t (pos_t + 1) FLOPs over
+// the K/V of each segment's horizon; a prefill chunk of n tokens reuses
+// every key n times, so a long chunk is FLOP-bound and a short one
+// byte-bound.
 //
-// What the design does about it (a first, plain kernel; f32 SIMT math,
-// no tensor cores yet):
+// What the design does about it (f32 SIMT math):
 //   * The kernel does not walk the padded table width: K1 loops only up
 //     to each segment's causal horizon. The TPU grid visits every (tile,
 //     block) pair and predicates the dead ones off.
@@ -30,8 +35,6 @@
 //   * Scores, the running max m, the sum l and the accumulator stay in
 //     f32 (online softmax, -1e30 masking as the TPU kernels); the output
 //     is acc / max(l, 1e-30), so pad rows flush finite zeros.
-// Later work, not here: tensor-core (mma/wgmma) products for K1's long
-// chunks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -245,39 +248,30 @@ void launch_stream(void* out, const void* q, const void* k, const void* v,
       n_tok, B, scale);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns false for an unsupported
-// (dtype, Dh) pair; the Python wrapper checks both before calling.
+// The float32 kernels; the wrapper checks dtype and Dh before calling.
 #define PT_DISPATCH(LAUNCH, ...)                                          \
   do {                                                                    \
-    if (dtype == 0 && !quant) {                                           \
+    if (!quant) {                                                         \
       if (Dh == 32) LAUNCH<float, float, false, 32>(__VA_ARGS__);         \
       else if (Dh == 64) LAUNCH<float, float, false, 64>(__VA_ARGS__);    \
       else if (Dh == 128) LAUNCH<float, float, false, 128>(__VA_ARGS__);  \
       else return -1;                                                     \
-    } else if (dtype == 0 && quant) {                                     \
+    } else {                                                              \
       if (Dh == 32) LAUNCH<float, int8_t, true, 32>(__VA_ARGS__);         \
       else if (Dh == 64) LAUNCH<float, int8_t, true, 64>(__VA_ARGS__);    \
       else if (Dh == 128) LAUNCH<float, int8_t, true, 128>(__VA_ARGS__);  \
       else return -1;                                                     \
-    } else if (dtype == 1 && !quant) {                                    \
-      if (Dh == 32)                                                       \
-        LAUNCH<__nv_bfloat16, __nv_bfloat16, false, 32>(__VA_ARGS__);     \
-      else if (Dh == 64)                                                  \
-        LAUNCH<__nv_bfloat16, __nv_bfloat16, false, 64>(__VA_ARGS__);     \
-      else if (Dh == 128)                                                 \
-        LAUNCH<__nv_bfloat16, __nv_bfloat16, false, 128>(__VA_ARGS__);    \
-      else return -1;                                                     \
-    } else if (dtype == 1 && quant) {                                     \
-      if (Dh == 32) LAUNCH<__nv_bfloat16, int8_t, true, 32>(__VA_ARGS__); \
-      else if (Dh == 64)                                                  \
-        LAUNCH<__nv_bfloat16, int8_t, true, 64>(__VA_ARGS__);             \
-      else if (Dh == 128)                                                 \
-        LAUNCH<__nv_bfloat16, int8_t, true, 128>(__VA_ARGS__);            \
-      else return -1;                                                     \
-    } else {                                                              \
-      return -1;                                                          \
     }                                                                     \
   } while (0)
+
+namespace stream {
+// ragged_stream_sm90.cu: the bfloat16 K1 on the tensor cores.
+int ragged_stream_sm90(void* out, const void* q, const void* k,
+                       const void* v, const void* ks, const void* vs,
+                       const int* tables, const int* seg, const int* pos,
+                       int n_tok, int H, int Dh, int N, int BS, int B, int M,
+                       float scale, int quant, cudaStream_t st);
+}  // namespace stream
 
 }  // namespace pt
 
@@ -295,6 +289,11 @@ int pt_ragged_stream_attention(void* out, const void* q, const void* k,
   using namespace pt;
   if (n_tok <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 1)
+    return stream::ragged_stream_sm90(out, q, k, v, ks, vs, tables, seg,
+                                      pos, n_tok, H, Dh, N, BS, B, M, scale,
+                                      quant, st);
+  if (dtype != 0) return -1;
   PT_DISPATCH(launch_stream, out, q, k, v, ks, vs, tables, seg, pos, n_tok,
               H, N, BS, B, M, scale, st);
   return static_cast<int>(cudaGetLastError());

@@ -43,9 +43,13 @@ the same order of operations: one gather per slot ROW (never per
 token), heads major, scores cast to float32 after the product, a
 softmax in float32 cast back to the compute dtype before the value
 product. The kernels instead accumulate every product in float32 and
-round only the output (see csrc/unified_attention.cu and
-csrc/paged_decode_sm90.cu), so in bf16 the two differ by the rounding of
-the scores and weights. A decode row with ctx 0 gives zeros on the card
+round the scores not at all (see csrc/unified_attention.cu,
+csrc/ragged_stream_sm90.cu and csrc/paged_decode_sm90.cu); K2 keeps the
+weights in float32 too, while the bf16 K1 rounds them to bf16 before its
+tensor-core value product (as the reference's Pallas kernel does) and
+dequantizes int8 vectors to bf16 (the reference's `_load_kv`), so in bf16
+the two differ by those roundings. Pad rows of K1 come out as zeros on
+the card. A decode row with ctx 0 gives zeros on the card
 (as the reference's Pallas kernel does); the plain version, like the
 reference's XLA path, averages the row's table there (-1e30 is finite).
 """

@@ -36,7 +36,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 UNITS = ("unified_attention.cu", "flash_attention.cu",  # one object each
          "flash_bwd_two_pass.cu", "flash_fwd_sm90.cu", "flash_bwd_sm90.cu",
-         "flash_bwd_dq_sm90.cu", "paged_decode_sm90.cu")
+         "flash_bwd_dq_sm90.cu", "paged_decode_sm90.cu",
+         "ragged_stream_sm90.cu")
 SOURCES = UNITS + ("kv_load.cuh", "elem.cuh", "flash_common.cuh",
                    "sm90_tile.cuh", "flash_sm90.cuh")
 BUILD_ROOT = _PKG / "_build"
@@ -50,6 +51,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SPLIT_HEADS = 4
 SPLIT_ALIGN = 64
 SPLIT_TARGET_CTAS = 4 * 132
+# the bf16 K1's geometry (csrc/ragged_stream_sm90.cu): query rows of a tile
+# (one head; a key pass per distinct segment in it) and keys of a stage
+STREAM_ROWS = 64
+STREAM_KEYS = 64
 
 
 class Kernel:
@@ -246,7 +251,13 @@ def ragged_stream(q, k_blocks, v_blocks, tables, seg, pos, scale):
     """K1 on the card: segment-causal attention of the packed stream q
     [T, H, Dh] (row t: table row seg[t], positions 0..pos[t]; pos < 0
     is a pad row and comes out as zeros) against one layer's pool.
-    Returns [T, H, Dh] in q's dtype."""
+    Returns [T, H, Dh] in q's dtype. bfloat16 runs the tensor-core kernel
+    of csrc/ragged_stream_sm90.cu (tiles of STREAM_ROWS rows of one head,
+    one key pass per distinct segment of a tile, stages of STREAM_KEYS
+    keys by TMA through the block table; int8 pools dequantized into bf16
+    in shared memory), float32 the SIMT one of csrc/unified_attention.cu.
+    Reads nothing of seg, pos or tables on the host, and is bitwise
+    reproducible."""
     if not q.is_cuda:
         raise ValueError("ragged_stream launches a CUDA kernel: q is on "
                          f"{q.device}")

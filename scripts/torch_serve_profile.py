@@ -14,10 +14,13 @@ loop but not the kernels. Prints, with the card's name and power limit:
     over all kernels of the profiled pass, and the device's idle share
     (1 - busy / unprofiled wall; kernels on one stream do not overlap);
   * device time by kernel name (top 15), with each one's share;
-  * the share of the port's own kernels in the device time: K1
-    (`ragged_stream_kernel`) and K2 (every kernel whose name starts with
-    `paged_decode`: the split kernel and its combine), with K2's launches
-    and device ms per decode step of the profiled pass.
+  * the share of the port's own kernels in the device time: K1 (every
+    kernel whose name starts with `ragged_stream`: the bf16
+    `ragged_stream_sm90_kernel` serving runs, and the float32 SIMT
+    `ragged_stream_kernel`), with its launches and device ms per packed
+    prefill, and K2 (every kernel whose name starts with `paged_decode`:
+    the split kernel and its combine), with K2's launches and device ms
+    per decode step of the profiled pass.
 
 Usage (on a machine with the card, from the repo root):
     python3 scripts/torch_serve_profile.py [--steps-per-dispatch K]
@@ -35,7 +38,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-# a K2 kernel's name, as the demangled key gives it (after "::" or a space)
+# a K1 or K2 kernel's name, as the demangled key gives it (after "::" or a
+# space)
+K1_NAME = re.compile(r"(?:^|[\s:])ragged_stream\w*")
 K2_NAME = re.compile(r"(?:^|[\s:])paged_decode\w*")
 
 
@@ -110,19 +115,24 @@ def main():
     if busy == 0:
         print("FAIL: the profiler recorded no device time")
         return 1
-    # K1 by its kernel's name; K2 is every kernel whose name starts with
-    # paged_decode (the split kernel and its combine)
+    # K1 is every kernel whose name starts with ragged_stream (either
+    # dtype's); K2 every one whose name starts with paged_decode (the split
+    # kernel and its combine)
     k1 = k2 = 0.0
-    k2_launches = 0
+    k1_launches = k2_launches = 0
     for us, n, key in rows:
-        if "ragged_stream_kernel" in key:
+        if K1_NAME.search(key):
             k1 += us / 1e6
+            k1_launches += n
         elif K2_NAME.search(key):
             k2 += us / 1e6
             k2_launches += n
     steps = st_prof["decode_steps"] * args.steps_per_dispatch
-    print(f"K1 ragged_stream_kernel {k1 * 1e3:.1f} ms ({k1 / busy:.3f} of "
-          f"device time); K2 paged_decode* {k2 * 1e3:.1f} ms "
+    prefills = st_prof["prefill_dispatches"]
+    print(f"K1 ragged_stream* {k1 * 1e3:.1f} ms ({k1 / busy:.3f} of "
+          f"device time), {k1_launches} launches, "
+          f"{k1 * 1e3 / max(prefills, 1):.4f} ms per packed prefill "
+          f"({prefills} prefills); K2 paged_decode* {k2 * 1e3:.1f} ms "
           f"({k2 / busy:.3f}), {k2_launches} launches, "
           f"{k2 * 1e3 / max(steps, 1):.4f} ms per decode step "
           f"({steps} steps)")

@@ -6,8 +6,15 @@ short decoder run on the card against the CPU. K2 is the split-KV kernel
 of `csrc/paged_decode_sm90.cu`: its cases run several splits and a
 one-split plan, contexts on a split boundary and one key either side,
 ctx past M * BS, an idle row and a ctx 0 row (zeros); two launches give
-the same bits, and a call makes no host synchronisation. And the flash
-kernels K4 (forward with LSE), K6 (delta) and K9 (fused backward)
+the same bits, and a call makes no host synchronisation. K1 in bf16 is
+the tensor-core kernel of `csrc/ragged_stream_sm90.cu` (64-row tiles, a
+key pass per distinct segment in a tile): its cases hold mixed, short
+(several segments a tile) and serving-like streams, BS 4 at Dh 64 and
+BS 3 (one-row boxes, staged and converted), repeat bit for bit and make
+no host synchronisation. And the flash
+kernels K4 (forward with LSE), K6 (delta: 16-byte loads, several rows a
+warp, at every D and dtype, bitwise over two launches) and K9 (fused
+backward)
 against theirs, causal and not, at aligned, ragged and Sq != Sk
 lengths, plus a tiny
 GPT-2 train step on the card against the CPU; and the per-key-bias
@@ -41,8 +48,9 @@ conftest imports JAX, which the port's machines need not have).
 
 Tolerances: float32 atol=1e-4 (the kernel sums in float32 in another
 order; TF32 is off); bfloat16 atol=rtol=2e-2 against the plain version
-computed in float32 from the same bfloat16 inputs (the kernel rounds
-only its output). The flash cases hold the largest error to that
+computed in float32 from the same bfloat16 inputs (the kernels round
+their output; the bf16 K1 also rounds P and int8 vectors to bf16, as the
+reference's Pallas kernel does). The flash cases hold the largest error to that
 tolerance times the plain output's largest magnitude (K9's dq is summed
 with atomics in a varying order)."""
 import numpy as np
@@ -104,6 +112,11 @@ def _close(out, ref, dtype):
 
 
 SHAPES = [(4, 32, 4), (12, 64, 16), (12, 64, 128), (12, 128, 16)]
+# K1's also BS 4 at Dh 64 (512-byte TMA boxes, half the 128-byte swizzle's
+# 1024-byte period) and BS 3 at Dh 32 (one-row boxes of 64 bytes could not
+# start on TMA's 128-byte alignment in the tile: the bf16 K1 stages them
+# unswizzled and converts, as it does int8 codes)
+STREAM_SHAPES = SHAPES + [(12, 64, 4), (4, 32, 3)]
 
 
 def _decode_inputs(dev, h, dh, bs, dtype, quant, layout, seed):
@@ -230,35 +243,56 @@ def test_paged_decode_makes_no_host_sync(dev):
     assert torch.equal(out, out2)
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
-@pytest.mark.parametrize("h,dh,bs", SHAPES)
-def test_ragged_stream_kernel_matches_plain(dev, h, dh, bs, dtype, quant):
-    """A cached-prefix chunk, a fresh segment, a partial segment with
-    pads, an unaligned segment boundary inside a 16-row tile, and a pad
-    region."""
-    from paddle_tpu_torch.ops import kernels
-    from paddle_tpu_torch.ops.attention import (
-        ragged_prefill_attention, ragged_prefill_attention_plain)
-
-    g = torch.Generator(device=dev).manual_seed(7 + h * dh + bs)
-    segs = [(0, 90, 40), (1, 0, 21), (2, 0, 13), (3, 5, 30)]
+def _stream_inputs(dev, h, dh, bs, dtype, quant, stream, seed):
+    """K1's inputs for one packing: "mixed" (a cached-prefix chunk, a
+    fresh segment, a partial segment with pads, an unaligned segment
+    boundary inside a tile, a pad region), "short" (24 segments of 8
+    query tokens, last positions in 8..300: a stream of verify windows,
+    several segments a tile) or "serving" (two fresh 128-token chunks and
+    two second chunks at positions 128..255, as prefill packs them)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if stream == "mixed":
+        segs = [(0, 90, 40), (1, 0, 21), (2, 0, 13), (3, 5, 30)]
+    elif stream == "short":
+        last = np.random.RandomState(seed).randint(8, 301, 24)
+        segs = [(r, int(e) - 7, 8) for r, e in enumerate(last)]
+    else:
+        segs = [(0, 0, 128), (1, 128, 128), (2, 0, 128), (3, 128, 128)]
     tables, n = _tables(torch.Generator().manual_seed(2),
                         [s0 + m for _r, s0, m in segs], bs, dev)
     seg, pos = [], []
     for r, s0, m in segs:
         seg += [r] * m
         pos += list(range(s0, s0 + m))
-        if r == 2:
+        if stream == "mixed" and r == 2:
             seg += [0] * 3
             pos += [-1] * 3
-    seg += [0] * 20
-    pos += [-1] * 20
+    if stream == "mixed":
+        seg += [0] * 20
+        pos += [-1] * 20
     seg = torch.tensor(seg, dtype=torch.int32, device=dev)
     pos = torch.tensor(pos, dtype=torch.int32, device=dev)
     kb, vb = _pools(g, n, bs, h, dh, dtype, quant, dev)
     q = torch.randn(len(seg), h, dh, generator=g, device=dev).to(dtype)
+    return q, kb, vb, tables, seg, pos
+
+
+@pytest.mark.parametrize("stream", ["mixed", "short", "serving"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,dh,bs", STREAM_SHAPES)
+def test_ragged_stream_kernel_matches_plain(dev, h, dh, bs, dtype, quant,
+                                            stream):
+    """The packings of `_stream_inputs`; pad rows flush zeros. In bf16 the
+    tensor-core kernel of csrc/ragged_stream_sm90.cu, in float32 the SIMT
+    one."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import (
+        ragged_prefill_attention, ragged_prefill_attention_plain)
+
+    q, kb, vb, tables, seg, pos = _stream_inputs(
+        dev, h, dh, bs, dtype, quant, stream, 7 + h * dh + bs)
     before = kernels.RAGGED_STREAM[quant].launches
     out = ragged_prefill_attention(q, kb, vb, tables, seg, pos)
     torch.cuda.synchronize()
@@ -269,6 +303,66 @@ def test_ragged_stream_kernel_matches_plain(dev, h, dh, bs, dtype, quant):
     assert torch.isfinite(out).all()
     assert (out[~valid] == 0).all()  # pad rows flush zeros
     _close(out[valid], ref[valid], dtype)
+
+
+@pytest.mark.parametrize("stream", ["mixed", "short"])
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("h,dh,bs", STREAM_SHAPES)
+def test_ragged_stream_bf16_is_bitwise_reproducible(dev, h, dh, bs, quant,
+                                                    stream):
+    """No atomics and one order of sums: two launches of the bf16 K1 on
+    the same inputs give the same bits."""
+    from paddle_tpu_torch.ops.attention import ragged_prefill_attention
+
+    q, kb, vb, tables, seg, pos = _stream_inputs(
+        dev, h, dh, bs, torch.bfloat16, quant, stream, 11 + bs)
+    a = ragged_prefill_attention(q, kb, vb, tables, seg, pos)
+    b = ragged_prefill_attention(q, kb, vb, tables, seg, pos)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_ragged_stream_makes_no_host_sync(dev):
+    """The wrapper reads nothing of seg, pos or tables back to the host."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import ragged_prefill_attention
+
+    kernels.library()  # the build and load are not under test
+    for quant in (False, True):
+        q, kb, vb, tables, seg, pos = _stream_inputs(
+            dev, 12, 64, 16, torch.bfloat16, quant, "short", 5)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = ragged_prefill_attention(q, kb, vb, tables, seg, pos)
+            out2 = ragged_prefill_attention(q, kb, vb, tables, seg, pos)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        assert torch.equal(out, out2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_flash_delta_matches_plain_and_repeats(dev, d, dtype):
+    """K6 (16-byte loads, several rows a warp) at a row count that is no
+    multiple of the rows of a warp or of a block (B 3, H 5, S 67: 1005
+    rows), against its plain version (1e-4 of its magnitude in float32,
+    2e-2 in bf16, as phase 3b), bit for bit over two launches."""
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(d)
+    o, do = (torch.randn(3, 5, 67, d, generator=g, device=dev).to(dtype)
+             for _ in range(2))
+    delta = kernels.flash_delta(o, do)
+    again = kernels.flash_delta(o, do)
+    torch.cuda.synchronize()
+    assert delta.shape == (15, 67) and torch.equal(delta, again)
+    ref = pf.flash_delta_plain(o.float(), do.float())
+    _rel_close(delta, ref, 1e-4 if dtype == torch.float32 else 2e-2,
+               "delta")
 
 
 def test_kernel_refuses_unsupported_head_dim(dev):

@@ -48,7 +48,8 @@ def test_the_sources_name_every_flash_kernel():
                  "flash_bwd_sm90_kernel", "scale_cast_kernel",
                  "flash_bwd_dq_kernel", "flash_bwd_dq_sm90_kernel",
                  "flash_bwd_dkv_kernel", "flash_bwd_dkv_sm90_kernel",
-                 "ragged_stream_kernel", "paged_decode_split_kernel",
+                 "ragged_stream_kernel", "ragged_stream_sm90_kernel",
+                 "paged_decode_split_kernel",
                  "paged_decode_combine_kernel"):
         assert name in names, name
 
