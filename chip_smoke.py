@@ -57,6 +57,27 @@ non-zero before the result line:
                BF16_DECODER_REL), greedy tokens identical but for near
                ties. The int8 run is the bf16 K1's only main path with
                int8 pools: the int8 K1's launch count comes from it;
+  4s. sampler — float32, TF32 off: (a) the PRNG streams
+               (paddle_tpu_torch/sampling/prng.py) for 8 rows x V 50257,
+               seeds {0, 1, 2^31, 2^32 - 1} and four from
+               RandomState(2026), steps {0, 1, 31, 2^31 - 1}: random bits
+               and uniforms on the card bitwise the CPU's, the Gumbel
+               noise within 4 ulp (the ulp of max(|g|, 1)); (b) one
+               [8, 50257] float32 logits array from RandomState(5)
+               through sample_tokens on the card and on the CPU in every
+               mode (greedy, sampled, penalties, both), rows mixing
+               greedy, temperature, top-k, top-p, min-p and the three
+               penalties: identical tokens, each row's smallest top-two
+               margin of filt + gumbel printed; (c) GPT-2 small float32
+               (phase 4's weights) served on the card: 8 requests mixing
+               greedy, sampled and penalized with fixed seeds, at k = 1,
+               k = 4 and k = 1 with the requests in reverse order (other
+               slots): the three runs' tokens identical, and each token
+               of the first run replayed by the CPU sampler from the
+               card's own logits (return_logits) and the same (seed,
+               step) — identical wherever the top-two margin of
+               filt + gumbel is >= MARGIN (1e-5); the draws below it are
+               counted and printed (a stated tolerance);
   5. serving — GPT-2 small in bfloat16: PagedGenerationServer(max_slots=8,
                block_size=16, max_prompt_len=768, max_new_tokens=32,
                prefill_chunk_tokens=512) serving 16 prompts of 64-768
@@ -65,6 +86,15 @@ non-zero before the result line:
                before each measured pass and read just after: K1 must
                have run >= 12 x prefill dispatches and K2 >= 12 x decode
                steps;
+  5s. sampled serving — phase 5's 16 prompts at k = 1, every request
+               sampled (temperature 0.8, top-p 0.95, seeds 1000 + the
+               request's index): tokens/s, TTFT and ITL beside phase 5's
+               greedy k = 1 pass of the same call, with phase 5's launch
+               checks; then the sampler alone at 8 x 50257 (the
+               store's arguments of that traffic): its device time and
+               kernel launches per decode step (torch.profiler), its
+               host time per call, and the store's host time per
+               `step_args`, beside the greedy argmax's;
   3b. flash  — K4 (forward with LSE), K6 (delta) and K9 (fused
                backward) against their plain versions on the same inputs,
                bf16 and f32: at the training path's shape (B=16, H=12,
@@ -187,7 +217,7 @@ non-zero before the result line:
                Fails on a non-finite loss, K7/K8 (bias) launching other
                than 12 x steps times, or K9/K9 bias launching at all;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 4b, 4f, 6, 6b and 6c), the
+     main-path runs that reach it: phases 5, 5s, 4b, 4f, 6, 6b and 6c), the
      card line, and as the last line {"ok": true, "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
@@ -254,6 +284,20 @@ TWO_PASS = ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")
 TWO_PASS_BIAS = ("flash_fwd_bias", "flash_delta", "flash_bwd_dq_bias",
                  "flash_bwd_dkv_bias")
 FUSED_BWD = ("flash_bwd", "flash_bwd_bias")
+# phase 4s: the PRNG rows (seed, step) and the tolerances
+SAMPLE_SEEDS = [0, 1, 2**31, 2**32 - 1] + [
+    int(x) for x in np.random.RandomState(2026).randint(
+        0, 2**32, 4, dtype=np.uint64)]
+SAMPLE_STEPS = [0, 1, 31, 2**31 - 1] * 2
+# the Gumbel noise on the card within this many ulp of the CPU's, the ulp
+# taken at max(|g|, 1): -log(-log(u)) of bitwise-equal uniforms, two
+# correctly rounded logs (<= 1 ulp each) whose error near g = 0 is that of
+# the inner -log(u) relative to its size
+GUMBEL_ULPS = 4
+# a replayed draw must give the card's token where the top two of
+# filt + gumbel lie at least this far apart: 10x the noise's largest
+# error at |g| <= 8 (4 ulp of 8 is 3.8e-6)
+MARGIN = 1e-5
 DEV = "cuda"  # the card every phase runs on (the CPU is the other side
 # of the phase 4 comparison)
 
@@ -1386,24 +1430,282 @@ def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol, rel=False):
     return worst, ties
 
 
+# ---- phase 4s: the sampler on the card --------------------------------------
+
+def prng_parity(torch):
+    """(a): random bits, uniforms and Gumbel noise of SAMPLE_SEEDS x
+    SAMPLE_STEPS at V 50257, card vs CPU. Returns (the Gumbel noise's
+    largest error in ulp, the count of entries that differ)."""
+    from paddle_tpu_torch.sampling import prng
+
+    V = 50257
+    out = {}
+    for dev in (DEV, "cpu"):
+        keys = prng.fold_in_keys(
+            torch.tensor(SAMPLE_SEEDS, dtype=torch.int64, device=dev),
+            torch.tensor(SAMPLE_STEPS, dtype=torch.int64, device=dev))
+        out[dev] = [x.cpu() for x in (keys, prng.random_bits(keys, V),
+                                      prng.uniform(keys, V),
+                                      prng.gumbel(keys, V))]
+    (kc, bc, uc, gc), (kh, bh, uh, gh) = out[DEV], out["cpu"]
+    for name, a, b in (("keys", kc, kh), ("random bits", bc, bh),
+                       ("uniforms", uc.view(torch.int32),
+                        uh.view(torch.int32))):
+        if not torch.equal(a, b):
+            fail(f"phase 4s (a): {name} on the card differ from the CPU's "
+                 f"in {int((a != b).sum())} entries")
+    ulp = np.spacing(np.maximum(gh.abs().numpy(), 1.0).astype(np.float32))
+    err = np.abs(gc.double().numpy() - gh.double().numpy()) / ulp
+    if err.max() > GUMBEL_ULPS:
+        fail(f"phase 4s (a): Gumbel noise differs by {err.max():.3g} ulp "
+             f"> {GUMBEL_ULPS}")
+    return float(err.max()), int((gc != gh).sum())
+
+
+def draw_margins(torch, logits, sp, mode):
+    """Each row's top-two margin of filt + gumbel (the sampled draw),
+    inf for rows that do not sample."""
+    from paddle_tpu_torch.sampling import prng
+    from paddle_tpu_torch.sampling import processors as proc
+
+    if not mode[0]:
+        return np.full(logits.shape[0], np.inf)
+    lg = logits
+    if mode[1]:
+        counts = sp["counts"]
+        if "crows" in sp:
+            counts = counts[sp["crows"].long()]
+        lg = proc.apply_penalties(lg, counts, sp["rep"], sp["pres"],
+                                  sp["freq"])
+    scaled = lg / torch.clamp_min(sp["temperature"], 1e-6)[:, None]
+    z = proc.filter_logits(scaled, sp["top_k"], sp["top_p"], sp["min_p"]) \
+        + prng.gumbel(prng.fold_in_keys(sp["seeds"], sp["steps"]),
+                      lg.shape[-1])
+    top2 = torch.topk(z, 2, dim=-1).values
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy().astype(np.float64)
+    return np.where(sp["sample"].cpu().numpy(), gap, np.inf)
+
+
+# one dispatch's rows in each mode of phase 4s (b)
+SAMPLER_ROWS = {
+    "greedy": [{}] * 8,
+    "sampled": [{}, dict(temperature=1.0), dict(temperature=0.7, top_k=40),
+                dict(temperature=1.0, top_p=0.9),
+                dict(temperature=1.0, min_p=0.05),
+                dict(temperature=1.3, top_k=200, top_p=0.95, min_p=0.01),
+                dict(temperature=0.5), dict(temperature=2.0, top_p=0.5)],
+    "penalties": [{}, dict(repetition_penalty=1.3),
+                  dict(presence_penalty=0.5), dict(frequency_penalty=0.3),
+                  dict(repetition_penalty=0.8, presence_penalty=-0.2),
+                  {}, dict(frequency_penalty=1.0), dict(presence_penalty=2.0)],
+    "both": [{}, dict(temperature=1.0, repetition_penalty=1.2),
+             dict(temperature=0.8, top_k=50, presence_penalty=0.4),
+             dict(temperature=1.1, top_p=0.9, frequency_penalty=0.2),
+             dict(temperature=1.0, min_p=0.05, repetition_penalty=1.5,
+                  presence_penalty=0.3, frequency_penalty=0.1),
+             dict(presence_penalty=0.6), dict(temperature=0.9),
+             dict(temperature=1.4, top_k=100, top_p=0.8)]}
+
+
+def sampler_parity(torch):
+    """(b): one [8, 50257] float32 logits array through sample_tokens on
+    the card and on the CPU in every mode. Returns {mode name: each row's
+    margin} for the modes that sample."""
+    from paddle_tpu_torch.sampling import SamplingParams, SlotParamStore
+    from paddle_tpu_torch.sampling import processors as proc
+
+    V = 50257
+    rs = np.random.RandomState(5)
+    logits = (rs.randn(8, V) * 2.0).astype(np.float32)
+    prompts = [rs.randint(0, V, (int(rs.randint(16, 300)),))
+               for _ in range(8)]
+    steps = rs.randint(0, 64, 8).astype(np.int32)
+    margins = {}
+    for name, rows in SAMPLER_ROWS.items():
+        toks = {}
+        for dev in (DEV, "cpu"):
+            store = SlotParamStore(8, V, dev)
+            for i, kw in enumerate(rows):
+                store.set_slot(i, SamplingParams(**kw), 7000 + 13 * i,
+                               prompt_ids=prompts[i])
+            sp, mode = store.step_args(steps)
+            lg = torch.from_numpy(logits).to(dev)
+            toks[dev] = proc.sample_tokens(lg, sp, sampled=mode[0],
+                                           penalties=mode[1]).cpu()
+            if dev == "cpu" and mode[0]:
+                margins[name] = draw_margins(torch, lg, sp, mode)
+        if not torch.equal(toks[DEV], toks["cpu"]):
+            fail(f"phase 4s (b) {name} {mode}: tokens differ, card "
+                 f"{toks[DEV].tolist()} CPU {toks['cpu'].tolist()}")
+    return margins
+
+
+SERVE_ROWS = [{}, dict(temperature=1.0, seed=11),
+              dict(temperature=0.8, top_k=40, seed=12),
+              dict(temperature=1.0, top_p=0.9, seed=13),
+              dict(temperature=1.0, min_p=0.05, seed=14),
+              dict(temperature=0.9, repetition_penalty=1.3,
+                   presence_penalty=0.5, frequency_penalty=0.3, seed=15),
+              dict(presence_penalty=0.8),
+              dict(temperature=1.2, top_k=100, top_p=0.95,
+                   frequency_penalty=0.2, seed=17)]
+
+
+def sampled_serving(torch, model):
+    """(c): 8 requests of SERVE_ROWS served on the card at k = 1, k = 4
+    and k = 1 in reverse order; every draw of the first run replayed on
+    the CPU from the card's logits. Returns (the runs' tokens, draws
+    replayed, draws below MARGIN, greedy rows replayed)."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.sampling import SamplingParams
+    from paddle_tpu_torch.sampling import processors as proc
+
+    V = model.cfg.vocab_size
+    rs = np.random.RandomState(9)
+    # 16-60 tokens: the burst is one packed prefill in every run
+    prompts = [rs.randint(1, V, (int(rs.randint(16, 61)),))
+               .astype(np.int32) for _ in range(8)]
+    params = [SamplingParams(**kw) for kw in SERVE_ROWS]
+    runs = {}
+    record = []
+    for tag, k, order in (("k1", 1, range(8)), ("k4", 4, range(8)),
+                          ("k1 reversed", 1, range(7, -1, -1))):
+        srv = PagedGenerationServer(model, max_slots=8, block_size=16,
+                                    max_prompt_len=128, max_new_tokens=16,
+                                    steps_per_dispatch=k, device=DEV)
+        if tag == "k1":
+            dec = srv._decoder
+            dec.return_logits = True
+            for name, n_args in (("step", 9), ("packed_prefill", 10)):
+                real = getattr(dec, name)
+
+                def spy(*a, real=real, name=name, n_args=n_args):
+                    out = real(*a)
+                    sp, mode = a[n_args - 2], a[n_args - 1]
+                    rows = a[3] if name == "step" else None
+                    record.append((out[5].cpu(), {
+                        key: v.cpu() for key, v in sp.items()}, mode,
+                        out[0].cpu(), None if rows is None else rows.cpu()))
+                    return out[:5]
+                setattr(dec, name, spy)
+        futs = {i: srv.submit(prompts[i], sampling=params[i]) for i in order}
+        srv.start()               # a burst: every request in the first round
+        try:
+            runs[tag] = [futs[i].result(timeout=600) for i in range(8)]
+        finally:
+            srv.stop()
+    for tag in ("k4", "k1 reversed"):
+        for i in range(8):
+            if not np.array_equal(runs[tag][i], runs["k1"][i]):
+                fail(f"phase 4s (c): request {i} differs between k1 and "
+                     f"{tag}: {runs['k1'][i][prompts[i].size:].tolist()} vs "
+                     f"{runs[tag][i][prompts[i].size:].tolist()}")
+    draws = near = greedy = 0
+    for logits, sp, mode, tok, active in record:
+        rep = proc.sample_tokens(logits, sp, sampled=mode[0],
+                                 penalties=mode[1])
+        margin = draw_margins(torch, logits, sp, mode)
+        sample = sp["sample"].numpy() if mode[0] else np.zeros(
+            len(tok), bool)
+        for r in range(len(tok)):
+            if active is not None and not bool(active[r]):
+                continue
+            if sample[r]:
+                draws += 1
+                if margin[r] < MARGIN:
+                    near += 1
+                    continue
+            else:
+                greedy += 1
+            if int(rep[r]) != int(tok[r]):
+                fail(f"phase 4s (c): the CPU's replay gives token "
+                     f"{int(rep[r])} where the card drew {int(tok[r])} "
+                     f"(mode {mode}, row {r}, margin {margin[r]:.3g})")
+    if draws == 0:
+        fail("phase 4s (c): no sampled draw was replayed")
+    return runs, draws, near, greedy
+
+
+def sampler_cost(torch, reps=50):
+    """Phase 5s: the sampler at 8 x 50257 with phase 5s's slot params,
+    and the greedy argmax: {mode name: (device ms per call, kernel
+    launches per call, host us per call, store host us per step_args)}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.sampling import SamplingParams, SlotParamStore
+    from paddle_tpu_torch.sampling import processors as proc
+
+    V = 50257
+    logits = torch.from_numpy(
+        (np.random.RandomState(6).randn(8, V) * 2.0).astype(np.float32)) \
+        .to(DEV)
+    steps = np.arange(8, dtype=np.int32)
+    out = {}
+    for name, temp in (("sampled", 0.8), ("greedy", 0.0)):
+        store = SlotParamStore(8, V, DEV)
+        for i in range(8):
+            store.set_slot(i, SamplingParams(temperature=temp, top_p=0.95),
+                           1000 + i)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            sp, mode = store.step_args(steps)
+        store_us = (time.perf_counter() - t0) / reps * 1e6
+
+        def fn(sp=sp, mode=mode):
+            return proc.sample_tokens(logits, sp, sampled=mode[0],
+                                      penalties=mode[1])
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = launches = 0
+        for ev in prof.key_averages():
+            if ev.device_type == torch.autograd.DeviceType.CUDA:
+                us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0))
+                launches += ev.count
+        if us <= 0:
+            fail(f"phase 5s: the profiler recorded no device time for the "
+                 f"{name} sampler")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_us = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+        out[name] = (us / 1e3 / reps, launches / reps, host_us, store_us)
+    return out
+
+
 # ---- phase 5: serving ---------------------------------------------------------
 
-def serve(torch, model, prompts, k):
+def serve(torch, model, prompts, k, sampling=None):
+    """A warm and a measured pass of `prompts` (each with its
+    `sampling` entry, default greedy) through a server at k tokens a
+    dispatch; the launch counts are zeroed just before the measured
+    pass and read just after."""
     from paddle_tpu_torch.inference import PagedGenerationServer
     from paddle_tpu_torch.ops import kernels
 
+    sampling = sampling or [None] * len(prompts)
     srv = PagedGenerationServer(model, max_slots=8, block_size=16,
                                 max_prompt_len=768, max_new_tokens=32,
                                 prefill_chunk_tokens=512,
                                 steps_per_dispatch=k, device=DEV).start()
     try:
-        for f in [srv.submit(p) for p in prompts]:        # warm pass
+        for f in [srv.submit(p, sampling=sp)                 # warm pass
+                  for p, sp in zip(prompts, sampling)]:
             f.result(timeout=600)
         srv.reset_stats()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()                      # main path
         outs = [f.result(timeout=600) for f in
-                [srv.submit(p) for p in prompts]]
+                [srv.submit(p, sampling=sp)
+                 for p, sp in zip(prompts, sampling)]]
         counts = kernels.launch_counts()
         st = srv.stats()
     finally:
@@ -1651,6 +1953,26 @@ def main():
         say(f"phase 4 decoder {kv_dtype or 'dense'} f32: max logit diff "
             f"{worst:.3g} (atol {atol}), near-ties {ties}, launches "
             f"{counts}")
+
+    # phase 4s: the sampler on the card, float32 (TF32 is off)
+    t0 = time.perf_counter()
+    ulps, n_diff = prng_parity(torch)
+    say(f"phase 4s (a) PRNG 8 rows x 50257: keys, random bits and uniforms "
+        f"bitwise the CPU's; Gumbel noise within {ulps:.3g} ulp (limit "
+        f"{GUMBEL_ULPS}), {n_diff} of {8 * 50257} entries not bitwise")
+    margins = sampler_parity(torch)
+    say("phase 4s (b) sample_tokens 8 x 50257, modes greedy/sampled/"
+        "penalties/both: tokens identical card vs CPU; smallest top-two "
+        "margin of filt + gumbel per row: " + "; ".join(
+            f"{name} " + " ".join(f"{m:.3g}" for m in ms)
+            for name, ms in margins.items()))
+    runs, draws, near, greedy = sampled_serving(torch, model32)
+    say(f"phase 4s (c) served f32 GPT-2 small, 8 requests (greedy, sampled,"
+        f" penalized; fixed seeds) x 16 tokens: k=1, k=4 and k=1 in "
+        f"reverse slot order give the same tokens; {draws} sampled draws "
+        f"and {greedy} greedy rows replayed on the CPU from the card's "
+        f"logits, identical; {near} draws below the margin {MARGIN}; "
+        f"{time.perf_counter() - t0:.1f} s")
     del model32, params32
     torch.cuda.empty_cache()
 
@@ -1743,6 +2065,39 @@ def main():
             f"{counts['ragged_stream_dense']} K2 "
             f"{counts['paged_decode_dense']} max_memory_allocated "
             f"{peak / 2**20:.0f} MiB [{card}]")
+        if k == 1:
+            greedy_k1 = st
+
+    # phase 5s: the same traffic, every request sampled (this slice's
+    # main path: its K1/K2 launches join the kernels line)
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    sampling = [SamplingParams(temperature=0.8, top_p=0.95, seed=1000 + i)
+                for i in range(len(prompts))]
+    st, counts, peak = serve(torch, model, prompts, 1, sampling)
+    if st["sampling_sampled_dispatches"] != st["decode_steps"]:
+        fail(f"phase 5s: {st['sampling_sampled_dispatches']} of "
+             f"{st['decode_steps']} decode dispatches sampled")
+    for n in ("ragged_stream_dense", "paged_decode_dense"):
+        main_counts[n] += counts[n]
+    g = greedy_k1
+    say(f"phase 5s serving k=1 sampled (temperature 0.8, top-p 0.95): "
+        f"tokens_per_sec {st['tokens_per_sec']:.1f} (greedy "
+        f"{g['tokens_per_sec']:.1f}) ttft p50/p99 {st['ttft_p50_ms']:.1f}/"
+        f"{st['ttft_p99_ms']:.1f} ms (greedy {g['ttft_p50_ms']:.1f}/"
+        f"{g['ttft_p99_ms']:.1f}) itl p50/p99 {st['itl_p50_ms']:.2f}/"
+        f"{st['itl_p99_ms']:.2f} ms (greedy {g['itl_p50_ms']:.2f}/"
+        f"{g['itl_p99_ms']:.2f}) requests {st['requests']} new_tokens "
+        f"{st['new_tokens']} prefill_dispatches {st['prefill_dispatches']} "
+        f"decode dispatches {st['decode_steps']} launches K1 "
+        f"{counts['ragged_stream_dense']} K2 {counts['paged_decode_dense']}"
+        f" max_memory_allocated {peak / 2**20:.0f} MiB [{card}]")
+    cost = sampler_cost(torch)
+    for name, (ms, launches, host_us, store_us) in cost.items():
+        say(f"phase 5s sampler {name} 8 x 50257: device {ms:.4f} ms and "
+            f"{launches:.0f} kernel launches per decode step (profiler), "
+            f"host {host_us:.1f} us per call, store step_args host "
+            f"{store_us:.1f} us [{card}]")
 
     del model
     torch.cuda.empty_cache()

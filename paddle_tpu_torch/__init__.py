@@ -9,8 +9,9 @@ Slice 1 is the default serving path of `PagedGenerationServer` for a
 GPT-2-layout decoder: the weight bridge (`models.gpt2`), the paged KV
 pool (`inference.kv_cache`, `inference.kv_quant`), the paged attention
 ops and their kernels (`ops.attention`, `ops.kernels`), the decoder
-programs (`nn.decode`), greedy sampling (`sampling`) and the server
-core (`inference.serving`). Slice 2 is GPT-2 training: the functional
+programs (`nn.decode`), the sampler (`sampling`: per-request sampling
+and penalties on the reference's PRNG streams) and the server core
+(`inference.serving`). Slice 2 is GPT-2 training: the functional
 loss (`models.gpt2.build_train_step`), flash attention with its
 autograd rule and kernels (`ops.flash_attention`), the loss
 (`ops.loss`) and AdamW (`optimizer`).

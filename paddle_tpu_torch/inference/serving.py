@@ -19,11 +19,19 @@ PyTorch: the split scheduler round with its default settings.
   * Then ONE decode dispatch for every slot past its prompt:
     `steps_per_dispatch` tokens per slot (k > 1 runs `multistep(k)`;
     tokens after a stop or the budget are discarded).
-  * Finished slots (EOS, a stop token, or the budget) resolve their
-    futures, free their blocks and refill from the queue next round.
+  * Finished slots (EOS, a stop token, a stop string, or the budget)
+    resolve their futures, free their blocks and refill from the queue
+    next round.
 
-Greedy requests only: `submit` refuses temperature > 0, penalties and
-stop strings, which come with later slices (sampling, the detokenizer).
+Per-request sampling: each request carries `SamplingParams`, scattered
+into its slot row of a `SlotParamStore`; every dispatch samples all its
+rows at once under the store's mode (greedy dispatches are a bare
+argmax). Each request's PRNG stream is `fold_in(PRNGKey(seed), step)`
+with step = tokens generated so far, so a fixed seed gives the same
+tokens whatever the batch, the slot or `steps_per_dispatch`. Stop
+strings are matched on the host against the detokenized tail of the
+output (`detokenize=`).
+
 The packed stream is not bucketed to a power of two as the reference's
 is: PyTorch compiles nothing per shape, so a bucket would only add pad
 rows to every dispatch.
@@ -34,6 +42,7 @@ recovery ladder and journal, the operations plane and sharding.
 """
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
@@ -45,12 +54,12 @@ import torch
 
 from ..device import resolve_device
 from ..nn.decode import PagedDecoder
-from ..sampling import SamplingParams, SlotParamStore, check_greedy
+from ..sampling import SamplingParams, SlotParamStore
 from .kv_cache import PagedKVCache, blocks_for
 
 _logger = logging.getLogger(__name__)
 
-STOP_REASONS = ("eos", "stop_token", "budget")
+STOP_REASONS = ("eos", "stop_token", "stop_string", "budget")
 
 
 @dataclass
@@ -60,6 +69,7 @@ class _Req:
     t_submit: float
     budget: int
     sampling: SamplingParams
+    seed: int  # the request's PRNG stream seed (uint32)
 
 
 class PagedGenerationServer:
@@ -76,6 +86,13 @@ class PagedGenerationServer:
     num_blocks: pool size incl. the trash block (default: every slot at
         its worst case, + 1).
     eos_token_id: server-wide stop token (None = none).
+    temperature: the default request's temperature (0 = greedy), for
+        requests submitted without `SamplingParams`.
+    seed: the server seed; a request without an explicit seed gets
+        (seed + 0x9E3779B9 * (1 + n)) mod 2^32, n counting submissions.
+    detokenize: callable(list of token ids) -> str; needed by requests
+        with `stop_strings`, which are matched against the detokenized
+        last `stop_tail_tokens` tokens.
     steps_per_dispatch: decode tokens per dispatch (k > 1 amortizes the
         per-dispatch host cost; up to k-1 tokens per request are decoded
         and discarded after a stop).
@@ -89,10 +106,13 @@ class PagedGenerationServer:
 
     def __init__(self, model, *, max_slots=4, block_size=16,
                  max_prompt_len=None, max_new_tokens=32, num_blocks=None,
-                 eos_token_id=None, steps_per_dispatch=1,
-                 prefill_chunk_tokens=512, pack_align=None, device=None):
+                 eos_token_id=None, temperature=0.0, seed=0,
+                 steps_per_dispatch=1, prefill_chunk_tokens=512,
+                 pack_align=None, detokenize=None, stop_tail_tokens=16,
+                 device=None):
         self.device = resolve_device(device)
         cfg = model.cfg
+        self.temperature = float(temperature)
         self.max_new = int(max_new_tokens)
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
         # a multi-step dispatch may write up to k-1 discarded tokens past
@@ -130,8 +150,18 @@ class PagedGenerationServer:
             block_size=self.block_size, num_blocks=int(num_blocks),
             dtype=dt, device=self.device)
         self._decoder = PagedDecoder.for_config(cfg, self.block_size)
-        self._sp_store = SlotParamStore(self.max_slots, self.device)
-        self._default_sampling = SamplingParams()
+        # per-slot sampling state; the constructor's temperature is the
+        # default for requests submitted without SamplingParams
+        self._sp_store = SlotParamStore(self.max_slots, cfg.vocab_size,
+                                        self.device)
+        self._default_sampling = SamplingParams(
+            temperature=self.temperature)
+        self._detok = detokenize
+        self.stop_tail_tokens = int(stop_tail_tokens)
+        if self.stop_tail_tokens < 1:
+            raise ValueError("stop_tail_tokens must be >= 1")
+        self._seed0 = int(seed) & 0xFFFFFFFF
+        self._auto_seeds = itertools.count()
         # slot state: None (idle) or dict(seq, req, toks, prompt, pos,
         # budget, fed, t_last)
         self._slots = [None] * self.max_slots
@@ -148,19 +178,19 @@ class PagedGenerationServer:
     def submit(self, ids, max_new_tokens=None, sampling=None):
         """Enqueue one prompt (any length <= max_prompt_len; no padding).
         Returns a Future resolving to the UNPADDED [len + generated]
-        int32 sequence. Generation stops at EOS, a stop token id, or the
-        token budget (`max_new_tokens` arg, else `sampling`'s, else the
-        server default)."""
+        int32 sequence. Generation stops at EOS, a stop token id, a stop
+        string, or the token budget (`max_new_tokens` arg, else
+        `sampling`'s, else the server default)."""
         if sampling is None:
             sampling = self._default_sampling
         elif not isinstance(sampling, SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams, "
                             f"got {type(sampling).__name__}")
-        check_greedy(sampling)
-        if sampling.stop_strings:
+        if sampling.stop_strings and self._detok is None:
             raise ValueError(
-                "stop_strings need a detokenizer, which comes with a "
-                "later slice of the port; use stop_token_ids")
+                "stop_strings given but the server has no detokenizer "
+                "(pass detokenize= to the PagedGenerationServer "
+                "constructor)")
         ids = np.asarray(ids, np.int32).reshape(-1)
         if ids.size == 0 or ids.size > self.max_prompt_len:
             raise ValueError(f"prompt length {ids.size} not in "
@@ -171,8 +201,14 @@ class PagedGenerationServer:
         if not 1 <= budget <= self.max_new:
             raise ValueError(f"max_new_tokens {budget} not in "
                              f"[1, {self.max_new}]")
+        # explicit seeds reproduce tokens whatever the batch; auto seeds
+        # give each request its own stream, deterministic given the
+        # order of submission
+        seed = (sampling.seed if sampling.seed is not None else
+                (self._seed0 + 0x9E3779B9 * (1 + next(self._auto_seeds)))
+                & 0xFFFFFFFF)
         req = _Req(ids=ids, future=Future(), t_submit=time.perf_counter(),
-                   budget=budget, sampling=sampling)
+                   budget=budget, sampling=sampling, seed=seed)
         with self._lock:
             if self._stop:
                 raise RuntimeError("server stopped")
@@ -217,6 +253,8 @@ class PagedGenerationServer:
         self._prefills = 0
         self._prefill_dispatches = 0
         self._active_integral = 0
+        self._sampled_dispatches = 0
+        self._fastpath_dispatches = 0
         self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
 
     def reset_stats(self):
@@ -252,6 +290,10 @@ class PagedGenerationServer:
                 "decode_steps": self._steps,
                 "prefills": self._prefills,
                 "prefill_dispatches": self._prefill_dispatches,
+                # decode dispatches by mode: any row sampled, or the
+                # bare-argmax greedy variant
+                "sampling_sampled_dispatches": self._sampled_dispatches,
+                "sampling_fast_path_dispatches": self._fastpath_dispatches,
                 "stop_reasons": dict(self._stop_reasons),
                 # mean busy slots per decode dispatch / max_slots
                 "slot_fill": (self._active_integral
@@ -285,7 +327,9 @@ class PagedGenerationServer:
         self._slots[i] = {"seq": seq, "req": req, "toks": [],
                           "prompt": req.ids, "pos": req.ids.size,
                           "budget": req.budget, "fed": 0, "t_last": None}
-        self._sp_store.set_slot(i, req.sampling, eos=self.eos)
+        # penalty counts seed from the prompt
+        self._sp_store.set_slot(i, req.sampling, req.seed, eos=self.eos,
+                                prompt_ids=req.ids)
 
     def _admit_locked(self):
         """Fill idle slots FIFO while the pool can cover each request's
@@ -343,21 +387,25 @@ class PagedGenerationServer:
         if active_idx:
             self._decode_plain(active_idx)
 
+    def _fail_slot(self, i, e):
+        """Fail slot i's request with `e`, return its blocks and free
+        the slot."""
+        s = self._slots[i]
+        if self.cache.has_seq(s["seq"]):
+            self.cache.free(s["seq"])
+        self._worst.pop(s["seq"], None)
+        self._slots[i] = None
+        self._sp_store.clear_slot(i)
+        s["req"].future.set_exception(e)
+
     def _dispatch_failure(self, e, slot_idx):
         """A dispatch raised: fail exactly the requests in it, return
         their blocks, and keep serving the rest."""
         _logger.error("dispatch failed for slots %s: %s: %s", slot_idx,
                       type(e).__name__, e)
         for i in slot_idx:
-            s = self._slots[i]
-            if s is None:
-                continue
-            if self.cache.has_seq(s["seq"]):
-                self.cache.free(s["seq"])
-            self._worst.pop(s["seq"], None)
-            self._slots[i] = None
-            self._sp_store.clear_slot(i)
-            s["req"].future.set_exception(e)
+            if self._slots[i] is not None:
+                self._fail_slot(i, e)
 
     def _tensor(self, a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -402,11 +450,15 @@ class PagedGenerationServer:
                         for _, start, n, _ in plan)
             tables = self._tensor(self.cache.table_array(
                 [self._slots[i]["seq"] for i, *_ in plan], width))
-            tok, stopped, _kc, _vc, _ = self._decoder.packed_prefill(
+            # token-0 sampling runs the decode pipeline at PRNG step 0
+            done_set = {r for _, r in done_rows}
+            sp, mode = self._sp_store.packed_args(
+                [i for i, *_ in plan], [r in done_set for r in range(P)])
+            tok, stopped, _kc, _vc, counts = self._decoder.packed_prefill(
                 self._params, self._tensor(toks), self._tensor(seg),
                 self._tensor(pos), tables, self._tensor(sample_idx),
-                self.cache.k_blocks, self.cache.v_blocks,
-                self._sp_store.packed_args([i for i, *_ in plan]))
+                self.cache.k_blocks, self.cache.v_blocks, sp, mode)
+            self._sp_store.swap_counts(counts)
             tok_h = tok.cpu().numpy()
             stopped_h = stopped.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail this chunk's
@@ -434,11 +486,21 @@ class PagedGenerationServer:
         tok = np.zeros((self.max_slots,), np.int32)
         pos = np.zeros((self.max_slots,), np.int32)
         act = np.zeros((self.max_slots,), bool)
+        steps = np.zeros((self.max_slots,), np.int32)
         for i in active_idx:
             s = self._slots[i]
             tok[i] = s["toks"][-1]
             pos[i] = s["pos"] + len(s["toks"]) - 1
             act[i] = True
+            steps[i] = len(s["toks"])  # the PRNG step counter
+        # one dispatch serves the whole mixed batch; an all-greedy batch
+        # takes the bare-argmax variant
+        sp, mode = self._sp_store.step_args(steps)
+        with self._lock:
+            if mode[0]:
+                self._sampled_dispatches += 1
+            else:
+                self._fastpath_dispatches += 1
         try:
             # grow tables for the incoming token(s) BEFORE the step
             # writes them (k tokens starting at the feed position)
@@ -451,20 +513,22 @@ class PagedGenerationServer:
                 self._m_width))
             args = (self._params, self._tensor(tok), self._tensor(pos),
                     self._tensor(act), tables, self.cache.k_blocks,
-                    self.cache.v_blocks, self._sp_store.step_args())
+                    self.cache.v_blocks, sp)
             if k == 1:
-                nxt, stopped, _kc, _vc, _ = self._decoder.step(*args)
+                nxt, stopped, _kc, _vc, counts = self._decoder.step(
+                    *args, mode)
                 toks = nxt.cpu().numpy()[None]        # [1, S]
                 stops = stopped.cpu().numpy()[None]
             else:
-                toks, stopped, _kc, _vc, _ = self._decoder.multistep(k)(
-                    *args)
+                toks, stopped, _kc, _vc, counts = self._decoder.multistep(
+                    k, mode)(*args)
                 toks = toks.cpu().numpy()             # [k, S]
                 stops = stopped.cpu().numpy()
         except Exception as e:  # noqa: BLE001 — fail this dispatch's
             # requests, keep the engine serving
             self._dispatch_failure(e, list(active_idx))
             return
+        self._sp_store.swap_counts(counts)
         t_now = time.perf_counter()
         with self._lock:
             self._steps += 1
@@ -489,14 +553,32 @@ class PagedGenerationServer:
         """Record one generated token for slot i; completes the request
         when generation stopped (the slot frees for refill). Stop
         sources, in order: the device stop-token check (EOS or a request
-        stop id), then the token budget."""
+        stop id); the request's stop strings, searched on the host in
+        the detokenized last `stop_tail_tokens` tokens (the tokens stay
+        in the output); the token budget."""
         slot = self._slots[i]
         slot["toks"].append(tok)
+        stop_strings = slot["req"].sampling.stop_strings
         reason = None
         if device_stopped:
             reason = ("eos" if self.eos >= 0 and tok == self.eos
                       else "stop_token")
-        elif len(slot["toks"]) >= slot["budget"]:
+        elif stop_strings:
+            try:
+                tail = self._detok(slot["toks"][-self.stop_tail_tokens:])
+            except Exception as e:  # noqa: BLE001 — a broken
+                # detokenizer implicates exactly ONE request: fail it,
+                # naming the seam, and keep every co-resident serving
+                _logger.error("detokenize failed for slot %s: %s: %s", i,
+                              type(e).__name__, e)
+                err = RuntimeError(f"request failed at seam 'detokenize': "
+                                   f"{type(e).__name__}: {e}")
+                err.__cause__ = e
+                self._fail_slot(i, err)
+                return
+            if any(x in tail for x in stop_strings):
+                reason = "stop_string"
+        if reason is None and len(slot["toks"]) >= slot["budget"]:
             reason = "budget"
         if reason is None:
             return

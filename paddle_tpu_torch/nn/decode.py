@@ -12,8 +12,9 @@ The port of `paddle_tpu.nn.decode`'s serving programs:
     tokens attend whatever K/V the block tables reach at positions
     <= pos, so a prompt split across chunks needs no state beyond the
     paged cache;
-  * `multistep(n)` — n decode tokens per call, a Python loop over
-    `step` (the reference's `lax.scan`).
+  * `multistep(n, mode)` — n decode tokens per call, a Python loop over
+    `step` (the reference's `lax.scan`), advancing each row's PRNG step
+    with the loop index and threading the count buffer.
 
 Params are the flat GPT-2 dict (`models.gpt2.GPT2.flat_params()`), every
 projection `[in, out]` applied as `x @ W`. Masking is by LENGTH
@@ -28,10 +29,12 @@ tensors, so a dispatch never copies the pool. int8 pools
 append (`inference.kv_quant.kv_encode`) and the attention ops dequantize
 inside the kernel.
 
-Readout is greedy (see `sampling.processors`); sampled requests are
-refused by the server. Left out of this slice: the non-packed `prefill`
-program, speculative verify, the unified/async round, W8A16 weights and
-every sharding argument.
+Readout is `sampling.processors.sample_tokens` under the dispatch's
+`mode` = (sampled, penalties), the reference's variant selector:
+`GREEDY_MODE` is a bare argmax. In penalty mode the 5th result is the
+updated [slots, V] count buffer (None otherwise). Left out: the
+non-packed `prefill` program, speculative verify, the unified/async
+round, W8A16 weights and every sharding argument.
 """
 from __future__ import annotations
 
@@ -40,6 +43,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import paged_decode_attention, ragged_prefill_attention
 from ..sampling import processors as _proc
+from ..sampling.buffers import GREEDY_MODE
 
 
 def _kv_io(kv_quant):
@@ -104,11 +108,13 @@ class _LayerHelpers:
         return x + hdn @ p[f"h.{i}.fc2.weight"] + p[f"h.{i}.fc2.bias"]
 
 
-def _readout(hp, params, xf, sp):
-    """Final layernorm, float32 head logits, greedy tokens."""
+def _readout(hp, params, xf, sp, mode):
+    """Final layernorm, float32 head logits, the sampled tokens."""
     xf = hp.ln(xf, params["ln_f.weight"], params["ln_f.bias"])
     logits = hp.head(params, xf)
-    return _proc.sample_tokens(logits), logits
+    sampled, penalties = mode
+    return _proc.sample_tokens(logits, sp, sampled=sampled,
+                               penalties=penalties), logits
 
 
 class PagedDecoder:
@@ -147,13 +153,13 @@ class PagedDecoder:
                     f"for argument '{name}' — build the PagedKVCache "
                     f"and the PagedDecoder with the SAME kv_dtype")
 
-    def _out(self, tok, stopped, kc, vc, logits):
+    def _out(self, tok, stopped, kc, vc, counts, logits):
         if self.return_logits:
-            return tok, stopped, kc, vc, None, logits
-        return tok, stopped, kc, vc, None
+            return tok, stopped, kc, vc, counts, logits
+        return tok, stopped, kc, vc, counts
 
     @torch.no_grad()
-    def _step(self, params, tok, pos, active, tables, kc, vc, sp):
+    def _step(self, params, tok, pos, active, tables, kc, vc, sp, mode):
         hp, BS = self._hp, self.block_size
         B = tok.shape[0]
         M = tables.shape[1]
@@ -176,19 +182,23 @@ class PagedDecoder:
                 q, self._kv_layer(kc, i), self._kv_layer(vc, i), tables,
                 ctx, scale=self._scale).reshape(B, hp.E)
             x = hp.block_and_mlp(params, i, x, o)
-        nxt, logits = _readout(hp, params, x, sp)
+        nxt, logits = _readout(hp, params, x, sp, mode)
         nxt = torch.where(active, nxt, 0)
         stopped = _proc.check_stops(nxt, sp["stop"], active)
-        return nxt, stopped, kc, vc, logits
+        counts = None
+        if mode[1]:
+            counts = _proc.update_counts(sp["counts"], rows, nxt, active)
+        return nxt, stopped, kc, vc, counts, logits
 
-    def step(self, params, tok, pos, active, tables, kc, vc, sp):
+    def step(self, params, tok, pos, active, tables, kc, vc, sp,
+             mode=GREEDY_MODE):
         """One decode token per sequence. tok [B] is written at cache
         position pos [B]; attention sees positions [0, pos]. Idle slots
         (active False) write to trash and emit token 0. Returns (tok [B],
-        stopped [B], kc, vc, None[, logits [B, V] f32])."""
+        stopped [B], kc, vc, counts or None[, logits [B, V] f32])."""
         self._check_kv(kc, vc)
         return self._out(*self._step(params, tok, pos, active, tables, kc,
-                                     vc, sp))
+                                     vc, sp, mode))
 
     @torch.no_grad()
     def _trunk(self, params, toks, seg, pos, tables, kc, vc):
@@ -216,40 +226,58 @@ class PagedDecoder:
         return x, kc, vc
 
     def packed_prefill(self, params, toks, seg, pos, tables, sample_idx,
-                       kc, vc, sp):
+                       kc, vc, sp, mode=GREEDY_MODE):
         """toks [T] packed token stream; seg [T] slot row per token; pos
         [T] absolute cache position (-1 = packing pad); tables [B, M];
         sample_idx [B] packed index of each row's last prompt token in
-        this chunk. Returns (tok [B], stopped [B], kc, vc, None
-        [, logits [B, V] f32]); the caller reads only rows whose prompt
-        completed in this chunk."""
+        this chunk. Returns (tok [B], stopped [B], kc, vc, counts or
+        None[, logits [B, V] f32]); the caller reads only rows whose
+        prompt completed in this chunk (in penalty mode only those rows,
+        `sp["row_done"]`, add to the counts of their slots,
+        `sp["crows"]`)."""
         self._check_kv(kc, vc)
         with torch.no_grad():
             x, kc, vc = self._trunk(params, toks, seg, pos, tables, kc, vc)
             tok, logits = _readout(self._hp, params, x[sample_idx.long()],
-                                   sp)
+                                   sp, mode)
             ones = torch.ones(sample_idx.shape[0], dtype=torch.bool,
                               device=toks.device)
             stopped = _proc.check_stops(tok, sp["stop"], ones)
-        return self._out(tok, stopped, kc, vc, logits)
+            counts = None
+            if mode[1]:
+                counts = _proc.update_counts(sp["counts"], sp["crows"], tok,
+                                             sp["row_done"])
+        return self._out(tok, stopped, kc, vc, counts, logits)
 
-    def multistep(self, n_steps):
+    def multistep(self, n_steps, mode=GREEDY_MODE):
         """`n_steps` decode tokens per call: returns a function with
-        `step`'s arguments that yields (toks [n, B], stopped [n, B], kc,
-        vc, None). Each step feeds the previous step's tokens at pos+1;
-        the caller discards tokens after a stop."""
+        `step`'s arguments (but `mode`) that yields (toks [n, B], stopped
+        [n, B], kc, vc, counts or None). Each step feeds the previous
+        step's tokens at pos+1, samples at PRNG step `sp["steps"] + j`
+        and reads the counts the step before it left, so n steps here
+        draw the same streams as n calls of `step`; the caller discards
+        tokens after a stop."""
         n = int(n_steps)
+        sampled, penalties = mode
 
         def multi(params, tok, pos, active, tables, kc, vc, sp):
             self._check_kv(kc, vc)
             toks, stops = [], []
-            for _ in range(n):
-                tok, stopped, kc, vc, _lg = self._step(
-                    params, tok, pos, active, tables, kc, vc, sp)
+            counts = sp.get("counts")
+            for j in range(n):
+                spj = dict(sp)
+                if sampled:
+                    spj["steps"] = sp["steps"] + j
+                if penalties:
+                    spj["counts"] = counts
+                tok, stopped, kc, vc, cj, _lg = self._step(
+                    params, tok, pos, active, tables, kc, vc, spj, mode)
+                if penalties:
+                    counts = cj
                 toks.append(tok)
                 stops.append(stopped)
                 pos = pos + 1
-            return torch.stack(toks), torch.stack(stops), kc, vc, None
+            return torch.stack(toks), torch.stack(stops), kc, vc, counts
 
         return multi
 

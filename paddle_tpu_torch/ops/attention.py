@@ -6,17 +6,21 @@ Same signatures and layouts as `paddle_tpu.ops.attention`:
   * `scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     is_causal=False, scale=None, return_weights=False, generator=None)`
     over q [B, H, Sq, D], k/v [B, H, Sk, D] -> (out, weights or None).
-    The route is the reference's and depends on the arguments alone:
-      - no mask, no dropout, no weights: `flash_attention` (K4 forward,
-        K6 + K9 backward on the card, or K6 + K7 + K8 past the
-        reference's length switch, `flash_attention.uses_two_pass`);
-      - a [B or 1, 1, 1, Sk] additive mask, no dropout, no weights: the
-        mask is a per-key bias and goes to `flash_attention_bias` (K4 bias,
-        K6 + K9 bias on the card, or K6 + K7 bias + K8 bias);
-      - anything else (another mask shape, dropout_p > 0, the weights):
-        `dense_attention`, the reference's `_xla_attention` in the same
-        order of operations, then the attention dropout drawn from
-        `generator` (the reference's `key=`).
+    The route is the reference's and depends on the arguments alone.
+    Both flash routes need no dropout, no weights and a head dim the
+    kernels take (`kernels.DH_SUPPORTED`: 32, 64, 128):
+      - no mask: `flash_attention` (K4 forward, K6 + K9 backward on the
+        card, or K6 + K7 + K8 past the reference's length switch,
+        `flash_attention.uses_two_pass`);
+      - a [B or 1, 1, 1, Sk] additive mask: the mask is a per-key bias
+        and goes to `flash_attention_bias` (K4 bias, K6 + K9 bias on the
+        card, or K6 + K7 bias + K8 bias);
+      - anything else (another mask shape, dropout_p > 0, the weights,
+        another head dim — 256 too, which the reference's kernels take
+        and the port's do not yet): `dense_attention`, the reference's
+        `_xla_attention` in the same order of operations, then the
+        attention dropout drawn from `generator` (the reference's
+        `key=`).
     On the flash routes q is scaled once and cast back to its dtype and
     the kernels run at scale 1.0, as the reference feeds its kernels;
     autograd carries the scale into dq;
@@ -129,7 +133,7 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     None)."""
     key_bias = _key_bias(attn_mask, q, k)
     if (attn_mask is None or key_bias is not None) and dropout_p == 0.0 \
-            and not return_weights:
+            and not return_weights and q.shape[-1] in kernels.DH_SUPPORTED:
         sc = _scale(q.shape[-1], scale)
         # prescale q once, rounded to its dtype, as the reference feeds
         # its kernel (ops/attention.py:95-105); the kernels run at scale 1

@@ -1,15 +1,18 @@
-"""Per-request sampling for the serving path (greedy subset).
+"""Per-request sampling for the serving path (the port of
+`paddle_tpu.sampling`).
 
-* `params` — `SamplingParams`, the eagerly-validated per-request knob
-  bundle (a copy of the reference's);
-* `processors` — greedy readout (`sample_tokens`), the device stop-token
-  check and the count scatter;
-* `buffers` — `SlotParamStore`, per-slot params and stop-id matrices.
-
-Sampled decoding and penalties come with a later slice of the port.
+* `params` — `SamplingParams`, the eagerly validated per-request knob
+  bundle (temperature / top-k / top-p / min-p, penalties, seed, stop
+  conditions, token budget; a copy of the reference's);
+* `prng` — the reference's threefry2x32 streams in PyTorch, bit for bit;
+* `processors` — vectorised `([R, V] logits, per-row tensors) -> [R, V]`
+  logit processors and the composed `sample_tokens`, so ONE dispatch
+  serves a batch mixing greedy and sampled requests;
+* `buffers` — `SlotParamStore`, the per-slot struct-of-arrays buffers
+  and the [slots, V] token-count buffer behind the penalties.
 """
-from .buffers import SlotParamStore, check_greedy, greedy_args  # noqa: F401
+from .buffers import GREEDY_MODE, SlotParamStore, greedy_args  # noqa: F401
 from .params import GREEDY, SamplingParams  # noqa: F401
 
-__all__ = ["SamplingParams", "GREEDY", "SlotParamStore", "greedy_args",
-           "check_greedy"]
+__all__ = ["SamplingParams", "GREEDY", "GREEDY_MODE", "SlotParamStore",
+           "greedy_args"]

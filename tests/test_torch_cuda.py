@@ -1037,3 +1037,129 @@ def test_long_padded_step_launches_the_two_pass_kernels(dev):
     for name in ("flash_fwd", "flash_bwd", "flash_bwd_bias", "flash_bwd_dq",
                  "flash_bwd_dkv"):
         assert counts[name] == 0, (name, counts)
+
+
+# ---- the head-dim route and the sampler ------------------------------------
+
+@pytest.mark.parametrize("d", [16, 48, 64])
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "bias"])
+def test_sdpa_head_dim_route_on_card_matches_cpu(dev, d, masked):
+    """D 16 and 48 (no kernel takes them) compute on the card through
+    `dense_attention` and match the CPU, launching no flash kernel; D 64
+    still launches K4 (bias) once, as before."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import scaled_dot_product_attention
+
+    g = torch.Generator().manual_seed(d)
+    q, k, v = (torch.randn(2, 3, 40, d, generator=g) for _ in range(3))
+    mask = None
+    if masked:
+        mask = torch.zeros(2, 1, 1, 40)
+        mask[1, ..., 30:] = -1e9
+    ref, _ = scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          is_causal=not masked)
+    kernels.reset_launch_counts()
+    out, _ = scaled_dot_product_attention(
+        q.to(dev), k.to(dev), v.to(dev),
+        attn_mask=None if mask is None else mask.to(dev),
+        is_causal=not masked)
+    counts = kernels.launch_counts()
+    torch.testing.assert_close(out.cpu(), ref, atol=1e-4, rtol=1e-4)
+    fwd = "flash_fwd_bias" if masked else "flash_fwd"
+    assert counts[fwd] == (1 if d == 64 else 0), counts
+    assert sum(counts.values()) == counts[fwd], counts
+
+
+def test_prng_on_card_equals_cpu(dev):
+    """The threefry keys, random bits and uniforms bitwise, and the
+    Gumbel noise within 4 ulp (of max(|g|, 1)), card vs CPU."""
+    from paddle_tpu_torch.sampling import prng
+
+    seeds = torch.tensor([0, 1, 2**31, 2**32 - 1, 7, 123456789],
+                         dtype=torch.int64)
+    steps = torch.tensor([0, 1, 31, 2**31 - 1, 5, 9], dtype=torch.int64)
+    out = {}
+    for d in ("cpu", dev):
+        keys = prng.fold_in_keys(seeds.to(d), steps.to(d))
+        out[str(d)] = [x.cpu() for x in (keys, prng.random_bits(keys, 50257),
+                                         prng.uniform(keys, 50257),
+                                         prng.gumbel(keys, 50257))]
+    (kh, bh, uh, gh), (kc, bc, uc, gc) = out["cpu"], out[str(dev)]
+    assert torch.equal(kc, kh) and torch.equal(bc, bh)
+    assert torch.equal(uc.view(torch.int32), uh.view(torch.int32))
+    ulp = np.spacing(np.maximum(gh.abs().numpy(), 1.0).astype(np.float32))
+    assert (np.abs(gc.double().numpy() - gh.double().numpy()) / ulp).max() \
+        <= 4
+
+
+@pytest.mark.parametrize("mode", [(False, False), (True, False),
+                                  (False, True), (True, True)])
+def test_sample_tokens_on_card_equals_cpu(dev, mode):
+    """One [8, 1000] float32 logits array through the whole pipeline on
+    the card and on the CPU: identical tokens, and an identical count
+    update."""
+    from paddle_tpu_torch.sampling import SamplingParams, SlotParamStore
+    from paddle_tpu_torch.sampling import processors as proc
+
+    V = 1000
+    rs = np.random.RandomState(3)
+    logits = (rs.randn(8, V) * 2).astype(np.float32)
+    prompts = [rs.randint(0, V, 40) for _ in range(8)]
+    rows = [dict(), dict(top_k=20), dict(top_p=0.9), dict(min_p=0.05),
+            dict(top_k=50, top_p=0.8), dict(), dict(top_p=0.95),
+            dict(min_p=0.1, top_k=5)]
+    toks = {}
+    for d in ("cpu", dev):
+        store = SlotParamStore(8, V, d)
+        for i, kw in enumerate(rows):
+            if mode[0] and i % 4:
+                kw = dict(kw, temperature=0.5 + 0.25 * i)
+            if mode[1] and i % 3:
+                kw = dict(kw, repetition_penalty=1.2, presence_penalty=0.3,
+                          frequency_penalty=0.1 * i)
+            store.set_slot(i, SamplingParams(**kw), 50 + i,
+                           prompt_ids=prompts[i])
+        sp, got = store.step_args(np.arange(8, dtype=np.int32) * 3)
+        assert got == mode
+        tok = proc.sample_tokens(torch.from_numpy(logits).to(d), sp,
+                                 sampled=mode[0], penalties=mode[1])
+        counts = (proc.update_counts(sp["counts"], torch.arange(8, device=d),
+                                     tok, torch.ones(8, dtype=torch.bool,
+                                                     device=d))
+                  if mode[1] else None)
+        toks[str(d)] = (tok.cpu(), None if counts is None else counts.cpu())
+    (th, ch), (tc, cc) = toks["cpu"], toks[str(dev)]
+    assert torch.equal(tc, th)
+    assert (cc is None) == (ch is None)
+    if cc is not None:
+        assert torch.equal(cc, ch)
+
+
+def test_sample_tokens_makes_no_host_sync(dev):
+    """The sampled pipeline with penalties reads nothing back to the host
+    (the decode step can be captured with it inside), and the multi-step
+    decode threads its counts on the card."""
+    from paddle_tpu_torch.sampling import SamplingParams, SlotParamStore
+    from paddle_tpu_torch.sampling import processors as proc
+
+    V = 50257
+    store = SlotParamStore(8, V, dev)
+    for i in range(8):
+        store.set_slot(i, SamplingParams(temperature=0.8, top_p=0.95,
+                                         top_k=50 * i, min_p=0.01,
+                                         presence_penalty=0.5), i,
+                       prompt_ids=[i, 2 * i])
+    sp, mode = store.step_args(np.arange(8, dtype=np.int32))
+    logits = torch.randn(8, V, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tok = proc.sample_tokens(logits, sp, sampled=True, penalties=True)
+        counts = proc.update_counts(sp["counts"], torch.arange(8, device=dev),
+                                    tok, torch.ones(8, dtype=torch.bool,
+                                                    device=dev))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert mode == (True, True)
+    assert int(counts.sum()) == int(sp["counts"].sum()) + 8

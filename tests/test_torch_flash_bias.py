@@ -295,6 +295,58 @@ def test_sdpa_sends_a_keys_broadcast_mask_to_the_dense_path(monkeypatch):
     _close(out, ref, ATOL)
 
 
+def _reference_route(monkeypatch, q, k, v, mask):
+    """The reference's choice for these arguments on a TPU: "flash" or
+    "dense" (its gate with `_on_tpu` forced True and spies in place of
+    its kernels and its XLA path)."""
+    import paddle_tpu.ops.attention as A
+    from paddle_tpu.core.autograd import functional_trace
+    from paddle_tpu.core.tensor import Tensor
+
+    calls = []
+    monkeypatch.setattr(A, "_on_tpu", lambda: True)
+    for name in ("flash_attention", "flash_attention_bias"):
+        monkeypatch.setattr(fa, name, lambda q_, *a, **kw: (
+            calls.append("flash"), jnp.zeros_like(q_))[1])
+    orig = A._xla_attention
+    monkeypatch.setattr(A, "_xla_attention", lambda *a, **kw: (
+        calls.append("dense"), orig(*a, **kw))[1])
+    with functional_trace():
+        A.scaled_dot_product_attention.__raw_fn__(
+            *(Tensor(jnp.asarray(x)) for x in (q, k, v)),
+            attn_mask=None if mask is None else Tensor(jnp.asarray(mask)))
+    assert len(calls) == 1, calls
+    return calls[0]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "bias"])
+@pytest.mark.parametrize("d", [8, 16, 32, 48, 64, 128, 256])
+def test_sdpa_route_follows_the_reference_head_dim_clause(monkeypatch, d,
+                                                          masked):
+    """The port's flash routes take the head dims its kernels take (32,
+    64, 128), as the reference's gate does at S = 128; every other D goes
+    to `dense_attention`, where the reference takes `_xla_attention`.
+    D 256, which the reference's kernels take, is the stated difference:
+    the port sends it to `dense_attention` until its kernels take it."""
+    q, k, v, bias = _setup(B=2, H=2, S=128, D=d)
+    mask = bias[:, None, None, :] if masked else None
+    ref = _reference_route(monkeypatch, q, k, v, mask)
+    assert ref == ("flash" if d in (32, 64, 128, 256) else "dense")
+    calls = []
+    for name in ("flash_attention", "flash_attention_bias",
+                 "dense_attention"):
+        _spy(monkeypatch, pa, name, calls)
+    out, _ = pa.scaled_dot_product_attention(
+        _t(q), _t(k), _t(v), attn_mask=None if mask is None else _t(mask))
+    want = ("dense_attention" if d not in (32, 64, 128) else
+            "flash_attention_bias" if masked else "flash_attention")
+    assert calls == [want]
+    ref_out, _ = _xla_attention(*map(jnp.asarray, (q, k, v)),
+                                mask=None if mask is None
+                                else jnp.asarray(mask))
+    _close(out, ref_out, ATOL)
+
+
 def test_masked_sdpa_on_the_card_reaches_the_bias_kernels(monkeypatch):
     """With `_on_card` forced True and the kernel wrappers replaced by
     spies (computing the plain versions), a masked call launches
