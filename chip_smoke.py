@@ -95,6 +95,41 @@ non-zero before the result line:
                kernel launches per decode step (torch.profiler), its
                host time per call, and the store's host time per
                `step_args`, beside the greedy argmax's;
+  5p. prefix cache — (b) `PagedKVCache.prepare_write`'s copy-on-write
+               at GPT-2 small's pool shape (L12 H12 Dh64 BS16) equals its
+               source block bit for bit in every layer, float32, bf16 and
+               int8 (codes with scales), under
+               torch.cuda.set_sync_debug_mode("error"); an int8 chain
+               demoted to the host tier and promoted back is bit for bit
+               the original; the host time a call of attach_prefix,
+               prepare_write (one copy), free and publish_prefix on a
+               578-token prompt resubmitted at that shape in bf16. (a) float32, TF32
+               off, phase 4's weights on
+               phase 5's server with 8 new tokens: a 512-token system
+               prompt from RandomState(7) with tails of 1, 7, 16, 33 and
+               96 tokens, then the 16-token prompt again (attached at
+               len - 1, mid-block: a copy-on-write); the first alone, four
+               as a burst, the resubmission alone. Caching on and off give
+               identical tokens on dense and int8 pools, greedy and at
+               fixed seeds (temperature 0.8, top-p 0.95), with hit_tokens,
+               cow_copies and K1 launches > 0; then a pool one block above
+               one request's worst case plus its spare (evictions > 0,
+               tokens identical), and on it a HostKVTier at watermark 0.5
+               (demotions, promotions and tier hit_tokens > 0; every
+               promoted row held to the row demoted: int8 bit for bit,
+               dense within absmax/254; int8 tokens identical to the
+               tier-off run, the dense run's differing requests counted).
+               (c) bench.py's shared-prefix axis (bench.py:675-734) in
+               bf16 on phase 5's server, cut to 16 requests: a 512-token
+               prefix, tails of 32-96 tokens (warm pools salts 21 and 23,
+               measured salt 22), 4 new tokens, Poisson arrivals (seed
+               4321) at 0.3 x the uncached closed-loop drain rate measured
+               in the same call; caching off then on: TTFT p50/p99, ITL
+               p99, tokens/s, prefill dispatches, prompt tokens dispatched,
+               hit rate, evictions and cow_copies, with K1 >= 12 x prefill
+               dispatches and K2 >= 12 x decode steps; greedy tokens on vs
+               off identical but for near ties by phase 4f's rule
+               (counted);
   3b. flash  — K4 (forward with LSE), K6 (delta) and K9 (fused
                backward) against their plain versions on the same inputs,
                bf16 and f32: at the training path's shape (B=16, H=12,
@@ -217,8 +252,9 @@ non-zero before the result line:
                Fails on a non-finite loss, K7/K8 (bias) launching other
                than 12 x steps times, or K9/K9 bias launching at all;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 5s, 4b, 4f, 6, 6b and 6c), the
-     card line, and as the last line {"ok": true, "device": {...}}.
+     main-path runs that reach it: phases 5, 5s, 5p, 4b, 4f, 6, 6b and
+     6c), the card line, and as the last line {"ok": true, "device":
+     {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; only the K/V positions this
@@ -766,7 +802,7 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
     return rows
 
 
-# ---- phase 3c: per-key-bias flash kernels -------------------------------------
+# ---- phase 3c: per-key-bias flash kernels -----------------------------------
 
 def _key_bias(torch, kind, b, sk, seed, lo, lengths=None):
     """float32 per-key bias: padding masks (0 / -1e30) from lengths in
@@ -877,7 +913,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
     return rows
 
 
-# ---- phase 3d: the two-pass backward -----------------------------------------
+# ---- phase 3d: the two-pass backward ----------------------------------------
 
 def _two_pass_launch(kernels, q, k, v, do, lse, delta, bias, sc, causal):
     """(dq, dk, dv, dbias or None) from K7 and K8 (bias variants with a
@@ -1180,7 +1216,7 @@ def train_throughput(torch, cfg, batch_size=16, seq=1024, warm=2, steps=5,
             "counts": counts}
 
 
-# ---- phases 4d and 6b: BERT training ------------------------------------------
+# ---- phases 4d and 6b: BERT training ----------------------------------------
 
 def bert_batch(torch, cfg, lens, seq, seed, dev):
     """A padded pretraining batch: random ids (pad id 0 past each length),
@@ -1681,7 +1717,7 @@ def sampler_cost(torch, reps=50):
     return out
 
 
-# ---- phase 5: serving ---------------------------------------------------------
+# ---- phase 5: serving -------------------------------------------------------
 
 def serve(torch, model, prompts, k, sampling=None):
     """A warm and a measured pass of `prompts` (each with its
@@ -1725,6 +1761,431 @@ def serve(torch, model, prompts, k, sampling=None):
         fail(f"serving k={k}: K2 ran {counts['paged_decode_dense']} times,"
              f" expected >= {need_k2}")
     return st, counts, torch.cuda.max_memory_allocated()
+
+
+# ---- phase 5p: the prefix cache on the serving path -------------------------
+
+P_TAILS = (1, 7, 16, 33, 96)
+P_NEW = 8
+SP_LEN, SP_TAILS, SP_NEW, SP_REQS = 512, (32, 96), 4, 16
+
+
+def prefix_prompts(vocab):
+    """5p(a)'s traffic: a 512-token system prompt from RandomState(7) with
+    tails of 1, 7, 16, 33 and 96 tokens, then the 16-token one again (its
+    resubmission attaches at len - 1, mid-block: a copy-on-write)."""
+    rs = np.random.RandomState(7)
+    sys_p = rs.randint(1, vocab, (512,)).astype(np.int32)
+    prompts = [np.concatenate([sys_p, rs.randint(1, vocab, (n,))
+                               .astype(np.int32)]) for n in P_TAILS]
+    return prompts + [prompts[2].copy()]
+
+
+def prefix_serve(torch, model, prompts, sampling=None, spy=None, **kw):
+    """5p(a)'s traffic on phase 5's server (P_NEW new tokens): the first
+    prompt alone (it publishes the system prompt), the next four as one
+    burst (sharing its blocks live), the resubmission alone. Launch
+    counts zeroed just before, read just after. Returns (outputs, stats,
+    counts)."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.ops import kernels
+
+    sampling = sampling or [None] * len(prompts)
+    srv = PagedGenerationServer(model, max_slots=8, block_size=16,
+                                max_prompt_len=768, max_new_tokens=P_NEW,
+                                prefill_chunk_tokens=512, device=DEV, **kw)
+    if spy is not None:
+        spy(srv.cache)
+    kernels.reset_launch_counts()
+    srv.start()
+    try:
+        outs = [srv.submit(prompts[0], sampling=sampling[0])
+                .result(timeout=600)]
+        outs += [f.result(timeout=600) for f in
+                 [srv.submit(p, sampling=s)
+                  for p, s in zip(prompts[1:-1], sampling[1:-1])]]
+        outs.append(srv.submit(prompts[-1], sampling=sampling[-1])
+                    .result(timeout=600))
+        counts = kernels.launch_counts()
+        st = srv.stats()
+    finally:
+        srv.stop()
+    V = model.cfg.vocab_size
+    for p, o in zip(prompts, outs):
+        if o.shape != (p.size + P_NEW,) or not (o[:p.size] == p).all() \
+                or o[p.size:].min() < 0 or o[p.size:].max() >= V:
+            fail(f"phase 5p: bad output for a {p.size}-token prompt")
+    return outs, st, counts
+
+
+class TierSpy:
+    """Holds every promoted row of a pool to the row that was demoted:
+    the pool's `_tier_grab` and `_tier_install` wrapped to keep the
+    device rows a demotion read and compare them after the promotion's
+    write. An int8 pool must return bit for bit; a dense pool within
+    absmax/254 of each vector (its int8 codec's bound) plus 4 float32
+    ulp of the element. Instrumentation only: it reads the card."""
+
+    def __init__(self, torch, cache):
+        self.torch, self.cache = torch, cache
+        self.snaps, self.rows, self.worst = {}, 0, 0.0
+        self._grab, self._install = cache._tier_grab, cache._tier_install
+        cache._tier_grab, cache._tier_install = self.grab, self.install
+
+    def _rows(self, b, fill):
+        c = self.cache
+        out = []
+        for kv in (c.k_blocks, c.v_blocks):
+            leaves = (kv.codes, kv.scales) if c.kv_dtype else (kv,)
+            out += [a[:, b, :fill].clone() for a in leaves]
+        return out
+
+    def grab(self, b, fill):
+        kp, vp = self._grab(b, fill)
+        self.snaps[id(kp)] = self._rows(b, fill)
+        return kp, vp
+
+    def install(self, b, fill, kp, vp):
+        self._install(b, fill, kp, vp)
+        old = self.snaps.pop(id(kp))
+        for o, n in zip(old, self._rows(b, fill)):
+            if self.cache.kv_dtype == "int8":
+                if not self.torch.equal(o, n):
+                    fail("phase 5p (a): an int8 block promoted from the "
+                         "tier differs from the block demoted")
+                continue
+            o, n = o.float(), n.float()
+            bound = o.abs().amax(-1, keepdim=True) / 254
+            err = (n - o).abs()
+            if (err > bound + o.abs() * 2 ** -21).any():
+                fail(f"phase 5p (a): a promoted dense row is "
+                     f"{float((err / bound.clamp_min(1e-30)).max()):.4g} "
+                     f"x absmax/254 from the demoted row")
+            self.worst = max(self.worst, float(
+                (err / bound.clamp_min(1e-30)).max()))
+        self.rows += fill
+
+
+def prefix_parity(torch, model, card):
+    """5p (a): float32, TF32 off, GPT-2 small with phase 4's weights.
+    Caching on against off (dense and int8 pools, greedy and at fixed
+    seeds) token for token; then a pool barely above one request's worst
+    case plus its spare (evictions); then a HostKVTier at watermark 0.5
+    on that pool (demotion mid-run). Returns K1/K2 launches by name."""
+    from paddle_tpu_torch.inference import blocks_for
+    from paddle_tpu_torch.inference.kv_tier import HostKVTier
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    prompts = prefix_prompts(model.cfg.vocab_size)
+    seeded = [SamplingParams(temperature=0.8, top_p=0.95, seed=2000 + i)
+              for i in range(len(prompts))]
+    worst = blocks_for(max(p.size for p in prompts) + P_NEW, 16) + 1
+    small = worst + 2   # trash block + one block above the worst case
+    launches = {}
+    plain = {}
+    for kv_dtype in (None, "int8"):
+        tag = kv_dtype or "dense"
+        for mode, sampling in (("greedy", None), ("seeded", seeded)):
+            off, _st, c_off = prefix_serve(torch, model, prompts, sampling,
+                                           kv_dtype=kv_dtype)
+            on, st, c_on = prefix_serve(torch, model, prompts, sampling,
+                                        kv_dtype=kv_dtype,
+                                        enable_prefix_cache=True)
+            for c in (c_off, c_on):
+                for n in (f"ragged_stream_{tag}", f"paged_decode_{tag}"):
+                    launches[n] = launches.get(n, 0) + c[n]
+            bad = [i for i, (a, b) in enumerate(zip(off, on))
+                   if not np.array_equal(a, b)]
+            if bad:
+                fail(f"phase 5p (a) {tag} {mode}: caching on and off differ "
+                     f"in requests {bad}")
+            pc = st["kv_cache"]["prefix_cache"]
+            k1 = c_on[f"ragged_stream_{tag}"]
+            if pc["hit_tokens"] <= 0 or pc["cow_copies"] <= 0 or k1 <= 0:
+                fail(f"phase 5p (a) {tag} {mode}: hit_tokens "
+                     f"{pc['hit_tokens']}, cow_copies {pc['cow_copies']}, "
+                     f"K1 launches {k1} (each must be > 0)")
+            say(f"phase 5p (a) f32 {tag} {mode}: {len(prompts)} requests x "
+                f"{P_NEW} tokens identical with caching on and off; on: "
+                f"hit_tokens {pc['hit_tokens']} of {pc['lookup_tokens']}, "
+                f"cow_copies {pc['cow_copies']}, prefill_dispatches "
+                f"{st['prefill_dispatches']}, K1 launches {k1} (off "
+                f"{c_off[f'ragged_stream_{tag}']}), K2 "
+                f"{c_on[f'paged_decode_{tag}']} [{card}]")
+            if mode == "greedy":
+                plain[kv_dtype] = off
+        # a pool barely above one request's worst case plus its spare
+        ev, st, c = prefix_serve(torch, model, prompts, kv_dtype=kv_dtype,
+                                 enable_prefix_cache=True, num_blocks=small)
+        pc = st["kv_cache"]["prefix_cache"]
+        bad = [i for i, (a, b) in enumerate(zip(plain[kv_dtype], ev))
+               if not np.array_equal(a, b)]
+        if bad or pc["evictions"] <= 0:
+            fail(f"phase 5p (a) {tag} pool of {small - 1} blocks: evictions "
+                 f"{pc['evictions']} (must be > 0), requests differing from "
+                 f"caching off {bad}")
+        # the host tier, demoting mid-run under its watermark
+        spies = []
+        tiered, st, c = prefix_serve(
+            torch, model, prompts, kv_dtype=kv_dtype, enable_prefix_cache=True,
+            num_blocks=small, kv_tier=HostKVTier(watermark=0.5),
+            spy=lambda cache: spies.append(TierSpy(torch, cache)))
+        t = st["kv_cache"]["tier"]
+        if t["demotions"] <= 0 or t["promotions"] <= 0 \
+                or t["hit_tokens"] <= 0:
+            fail(f"phase 5p (a) {tag} tier: demotions {t['demotions']}, "
+                 f"promotions {t['promotions']}, hit_tokens "
+                 f"{t['hit_tokens']} (each must be > 0)")
+        differ = [i for i, (a, b) in enumerate(zip(plain[kv_dtype], tiered))
+                  if not np.array_equal(a, b)]
+        if kv_dtype == "int8" and differ:
+            fail(f"phase 5p (a) int8 tier: requests {differ} differ from "
+                 f"the tier-off run")
+        spy = spies[0]
+        rows = ("bit for bit" if kv_dtype else
+                f"within {spy.worst:.6g} x absmax/254 (limit 1)")
+        say(f"phase 5p (a) f32 {tag} pool of {small - 1} blocks (worst case "
+            f"{worst - 1} + 1 spare): evictions {pc['evictions']}, tokens "
+            f"identical to caching off; with HostKVTier(watermark=0.5): "
+            f"demotions {t['demotions']}, promotions {t['promotions']}, "
+            f"tier hit_tokens {t['hit_tokens']}, bytes out/in "
+            f"{t['bytes_out']}/{t['bytes_in']}, {spy.rows} promoted rows "
+            f"{rows}, requests whose tokens differ from the tier-off run "
+            f"{len(differ)} of {len(prompts)} [{card}]")
+    return launches
+
+
+def copy_checks(torch, card):
+    """5p (b): prepare_write's copy-on-write at GPT-2 small's pool shape
+    (12 layers, 12 heads, Dh 64, BS 16) equals its source block bit for
+    bit in every layer — float32, bf16, and int8 codes with scales — and
+    runs under torch.cuda.set_sync_debug_mode("error"); an int8 block
+    demoted to the host tier and promoted back returns bit for bit."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+    from paddle_tpu_torch.inference.kv_tier import HostKVTier
+
+    toks = np.arange(1, 41, dtype=np.int32)    # 2 full blocks + fill 8
+    g = torch.Generator(device=DEV).manual_seed(5)
+    for kind in ("f32", "bf16", "int8"):
+        quant = kind == "int8"
+        c = PagedKVCache(12, 12, 64, block_size=16, num_blocks=8,
+                         dtype=torch.bfloat16 if kind == "bf16"
+                         else torch.float32,
+                         kv_dtype="int8" if quant else None, device=DEV,
+                         tier=HostKVTier(watermark=0.0) if quant else None)
+        leaves = [a for kv in (c.k_blocks, c.v_blocks)
+                  for a in ((kv.codes, kv.scales) if quant else (kv,))]
+        for a in leaves:
+            if a.dtype == torch.int8:
+                a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                      device=DEV))
+            else:
+                a.copy_(torch.randn(a.shape, generator=g, device=DEV))
+        c.allocate("a", 40)
+        c.publish_prefix("a", toks)
+        if c.attach_prefix("b", toks) != 39:
+            fail(f"phase 5p (b) {kind}: attach did not reach len - 1")
+        src = c.block_table("b")[2]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            copied = c.prepare_write("b", 39)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        new = c.block_table("b")[2]
+        if not copied or new == src or not all(
+                torch.equal(a[:, new], a[:, src]) for a in leaves):
+            fail(f"phase 5p (b) {kind}: the copy-on-write copy differs from "
+                 f"its source block")
+        if quant:
+            c.free("b")
+            before = [a[:, c.block_table("a")].clone() for a in leaves]
+            c.free("a")
+            if c.demote_cold(8) != 3 or c.attach_prefix("c", toks) != 39:
+                fail("phase 5p (b): the int8 chain did not demote and "
+                     "promote back")
+            table = c.block_table("c")
+            if not all(torch.equal(a[:, table][:, :2], o[:, :2])
+                       and torch.equal(a[:, table[2], :8], o[:, 2, :8])
+                       for a, o in zip(leaves, before)):
+                fail("phase 5p (b): an int8 block demoted and promoted "
+                     "differs from the original")
+    say(f"phase 5p (b) prepare_write copies at L12 H12 Dh64 BS16: f32, bf16 "
+        f"and int8 (codes and scales) equal their source block bit for bit "
+        f"in every layer, with no host sync (set_sync_debug_mode 'error'); "
+        f"an int8 chain of 3 blocks demoted to page-locked host memory and "
+        f"promoted back is bit for bit the original [{card}]")
+
+
+def pool_costs(torch, card, reps=50):
+    """5p (b): host time of the prefix cache's pool operations at GPT-2
+    small's pool shape in bf16 (L12 H12 Dh64 BS16) on a published
+    578-token prompt (37 blocks, the last holding 2 tokens) resubmitted:
+    microseconds a call of attach_prefix (577 tokens matched, mid-block),
+    prepare_write (one copy-on-write: its launches, not their device
+    time), free and publish_prefix (re-indexing a chain whose hashes
+    exist)."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+
+    c = PagedKVCache(12, 12, 64, block_size=16, num_blocks=128,
+                     dtype=torch.bfloat16, device=DEV)
+    ids = np.random.RandomState(8).randint(1, 50257, 578).astype(np.int32)
+    c.allocate("p", 578)
+    c.publish_prefix("p", ids)
+    us = {"attach_prefix": 0.0, "prepare_write": 0.0, "free": 0.0,
+          "publish_prefix": 0.0}
+    torch.cuda.synchronize()
+    for i in range(reps):
+        t0 = time.perf_counter()
+        c.attach_prefix(i, ids)
+        t1 = time.perf_counter()
+        c.prepare_write(i, 577)
+        t2 = time.perf_counter()
+        c.publish_prefix("p", ids)
+        t3 = time.perf_counter()
+        c.free(i)
+        t4 = time.perf_counter()
+        for k, dt in (("attach_prefix", t1 - t0), ("prepare_write", t2 - t1),
+                      ("publish_prefix", t3 - t2), ("free", t4 - t3)):
+            us[k] += dt * 1e6 / reps
+    torch.cuda.synchronize()
+    if c.stats()["prefix_cache"]["cow_copies"] != reps:
+        fail("phase 5p (b): the timed prepare_write did not copy")
+    say("phase 5p (b) pool host time a call at L12 H12 Dh64 BS16 bf16, a "
+        "578-token prompt (37 blocks) resubmitted: " + ", ".join(
+            f"{k} {v:.1f} us" for k, v in us.items()) + f" [{card}]")
+    return us
+
+
+def poisson_drive(srv, pool, rps, seed=4321, new=SP_NEW):
+    """bench.py's measure_poisson_load: the pool's prompts submitted at
+    fixed-seed Poisson arrivals (exponential gaps of mean 1/rps), then
+    all awaited. Returns (outputs, the server's stats)."""
+    gaps = np.random.RandomState(seed).exponential(1.0 / max(rps, 1e-9),
+                                                   size=len(pool))
+    futs = []
+    t0 = time.perf_counter()
+    arrival = 0.0
+    for p, gap in zip(pool, gaps):
+        arrival += gap
+        now = time.perf_counter() - t0
+        if now < arrival:
+            time.sleep(arrival - now)
+        futs.append(srv.submit(p, max_new_tokens=new))
+    return [f.result(timeout=600) for f in futs], srv.stats()
+
+
+def near_tie_rule(torch, params_cpu, cfg, out_a, out_b, prompt_len):
+    """Phase 4f's rule for two bf16 generations that differ: at their
+    first difference both tokens' float32 CPU logits lie within
+    2 * BF16_DECODER_REL of the logits' largest magnitude of the top one.
+    Returns True for such a near tie."""
+    from paddle_tpu_torch.models.gpt2 import logits
+
+    i = int(np.nonzero(out_a != out_b)[0][0])
+    if i < prompt_len:
+        fail("phase 5p (c): an output does not start with its prompt")
+    with torch.no_grad():
+        lg = logits(params_cpu, cfg, torch.from_numpy(
+            out_a[:i].astype(np.int64))[None])[0, -1]
+    tol = 2 * BF16_DECODER_REL * lg.abs().max().item()
+    top = lg.max().item()
+    return all(top - lg[int(o[i])].item() <= tol for o in (out_a, out_b))
+
+
+def shared_prefix_serving(torch, model, rng, card):
+    """5p (c): bench.py's shared-prefix axis (bench.py:675-734) on phase 5's
+    server in bf16, cut to 16 requests: a 512-token prefix from phase 5's
+    RandomState(7) stream, tails of 32-96 tokens per pool (warm salts 21
+    and 23, measured salt 22), 4 new tokens; Poisson arrivals (seed 4321)
+    at 0.3 x the uncached closed-loop drain rate of this call; caching off
+    then on, on the same server. Returns the measured passes' K1/K2
+    launches."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = model.cfg
+    V = cfg.vocab_size
+    prefix = rng.randint(1, V, (SP_LEN,)).astype(np.int32)
+
+    def sp_pool(salt):
+        r2 = np.random.RandomState(salt)
+        return [np.concatenate([prefix, r2.randint(1, V, (int(r2.randint(
+            SP_TAILS[0], SP_TAILS[1] + 1)),)).astype(np.int32)])
+            for _ in range(SP_REQS)]
+
+    warm_pool, warm2_pool, meas_pool = sp_pool(21), sp_pool(23), sp_pool(22)
+    srv = PagedGenerationServer(model, max_slots=8, block_size=16,
+                                max_prompt_len=768, max_new_tokens=32,
+                                prefill_chunk_tokens=512, device=DEV).start()
+
+    def warm(pool):
+        for f in [srv.submit(p, max_new_tokens=SP_NEW) for p in pool]:
+            f.result(timeout=600)
+
+    res = {}
+    launches = {"ragged_stream_dense": 0, "paged_decode_dense": 0}
+    try:
+        srv.enable_prefix_cache = False
+        t0 = time.perf_counter()
+        warm(warm_pool)
+        rps = 0.3 * SP_REQS / max(time.perf_counter() - t0, 1e-6)
+        for on in (False, True):
+            srv.enable_prefix_cache = on
+            if on:
+                warm(warm_pool)          # seeds the index with the prefix
+            poisson_drive(srv, warm2_pool, rps)    # unmeasured
+            srv.reset_stats()
+            pc0 = srv.cache.stats()["prefix_cache"]
+            kernels.reset_launch_counts()                 # main path
+            outs, st = poisson_drive(srv, meas_pool, rps)
+            counts = kernels.launch_counts()
+            pc1 = srv.cache.stats()["prefix_cache"]
+            res[on] = (outs, st, counts, {
+                k: pc1[k] - pc0[k] for k in ("lookups", "hits", "hit_tokens",
+                                            "lookup_tokens", "evictions",
+                                            "cow_copies")})
+    finally:
+        srv.stop()
+    L = cfg.num_layers
+    total = sum(p.size for p in meas_pool)
+    for on, (outs, st, counts, d) in res.items():
+        k1, k2 = counts["ragged_stream_dense"], counts["paged_decode_dense"]
+        if k1 < L * st["prefill_dispatches"] or k2 < L * st["decode_steps"] \
+                or k1 == 0 or k2 == 0:
+            fail(f"phase 5p (c) caching {'on' if on else 'off'}: K1 ran {k1} "
+                 f"times for {st['prefill_dispatches']} prefill dispatches, "
+                 f"K2 {k2} for {st['decode_steps']} decode steps (need "
+                 f">= {L} each)")
+        for n in launches:
+            launches[n] += counts[n]
+        say(f"phase 5p (c) shared prefix bf16, caching "
+            f"{'on ' if on else 'off'}: {SP_REQS} requests at {rps:.3f} "
+            f"req/s (Poisson, seed 4321): ttft p50/p99 "
+            f"{st['ttft_p50_ms']:.1f}/{st['ttft_p99_ms']:.1f} ms itl p99 "
+            f"{st['itl_p99_ms']:.2f} ms tokens_per_sec "
+            f"{st['tokens_per_sec']:.1f} prefill_dispatches "
+            f"{st['prefill_dispatches']} prompt tokens dispatched "
+            f"{total - d['hit_tokens']} of {total} hit_rate "
+            f"{d['hit_tokens'] / max(d['lookup_tokens'], 1):.4f} evictions "
+            f"{d['evictions']} cow_copies {d['cow_copies']} launches K1 {k1} "
+            f"K2 {k2} [{card}]")
+    params_cpu = {k: v.float().cpu() for k, v in model.flat_params().items()}
+    ties = 0
+    for p, a, b in zip(meas_pool, res[False][0], res[True][0]):
+        if np.array_equal(a, b):
+            continue
+        if not near_tie_rule(torch, params_cpu, cfg, a, b, p.size):
+            fail("phase 5p (c): greedy tokens differ between caching on and "
+                 "off beyond phase 4f's near-tie rule")
+        ties += 1
+    off, on = res[False][1], res[True][1]
+    ratio = on["ttft_p50_ms"] / max(off["ttft_p50_ms"], 1e-9)
+    say(f"phase 5p (c) greedy tokens caching on vs off: {SP_REQS - ties} of "
+        f"{SP_REQS} requests identical, {ties} differ at a near tie (phase "
+        f"4f's rule); TTFT p50 on/off {ratio:.3f} [{card}]")
+    return launches
+
 
 
 def main():
@@ -2098,6 +2559,21 @@ def main():
             f"{launches:.0f} kernel launches per decode step (profiler), "
             f"host {host_us:.1f} us per call, store step_args host "
             f"{store_us:.1f} us [{card}]")
+
+    # phase 5p: the prefix cache on the serving path: (b) the copies, (a)
+    # parity in float32 (phase 4's weights), (c) shared-prefix serving in
+    # bf16; their K1/K2 launches join the kernels line
+    t0 = time.perf_counter()
+    copy_checks(torch, card)
+    pool_costs(torch, card)
+    model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
+    for n, v in prefix_parity(torch, model32, card).items():
+        main_counts[n] = main_counts.get(n, 0) + v
+    del model32
+    torch.cuda.empty_cache()
+    for n, v in shared_prefix_serving(torch, model, rng, card).items():
+        main_counts[n] += v
+    say(f"phase 5p: {time.perf_counter() - t0:.1f} s")
 
     del model
     torch.cuda.empty_cache()

@@ -14,31 +14,76 @@ route masked lanes (packing pads, idle decode slots) into it, and block
 tables are padded with 0.
 
 The pool is host-side bookkeeping on Python ints; the device tensors
-are updated in place by the decoder programs (`nn.decode`), so there is
-no `swap_arrays` step as in the reference. With
-`kv_dtype="int8"` the pool holds int8 codes plus a per-vector scale
-buffer (`kv_quant.QuantizedKV`) under the same block indices.
+are updated in place by the decoder programs (`nn.decode`) and by the
+pool's own block copies, so there is no `swap_arrays` step as in the
+reference. With `kv_dtype="int8"` the pool holds int8 codes plus a
+per-vector scale buffer (`kv_quant.QuantizedKV`) under the same block
+indices, so every block operation below moves scales with their codes.
 
-This is the core of `paddle_tpu.inference.kv_cache.PagedKVCache`:
-allocation, growth, free and truncation. The prefix index, refcounted
-sharing, copy-on-write, LRU retention and the host tier come with the
-prefix-cache slice of the port.
+The port of `paddle_tpu.inference.kv_cache.PagedKVCache`, prefix cache
+and host tier included:
 
-Invariant: the free list and the union of live block tables PARTITION
-the usable pool (blocks 1..num_blocks-1); block 0 is in neither.
+  * Content addressing. A full block holding tokens B_i of a sequence
+    whose earlier blocks hash to h_i-1 gets the rolling hash
+    h_i = H(h_i-1, B_i) (`prefix_block_hash`, blake2b: the reference's
+    integers). An index maps hash -> (block, fill, parent); blocks carry
+    REFCOUNTS (the number of block tables holding them).
+    `publish_prefix` indexes a prompt's blocks, its partial tail block
+    with its fill; `attach_prefix` starts a new sequence on the longest
+    cached chain by copying table entries.
+  * Copy-on-write. Writing into a shared or index-claimed block goes
+    through `prepare_write`, which copies the block on the device
+    (`pool[:, new].copy_(pool[:, old])` on every leaf, in place and on
+    the current stream: no host read) and swaps the table entry.
+  * LRU retention. Freed blocks that still hold indexed content park in
+    an LRU list and are reclaimed (entries dropped) only when an
+    allocation would otherwise exhaust the pool.
+  * Host tier. With a `kv_tier.HostKVTier` attached, pool pressure
+    DEMOTES the LRU retained block instead: its entries move to the
+    tier's host index (int8 codes + scales: an int8 pool's own bits, a
+    dense pool's `kv_encode`) and the device slot frees. A later match
+    whose chain continues into the tier PROMOTES those entries back
+    (an asynchronous host-to-device write on the current stream, read
+    by the next dispatch on the same stream). A demotion reads the
+    device, so it runs only on release and reclaim paths, between
+    dispatches.
+  * `export_prefix`/`import_prefix` move a cached chain between pools
+    in the reference's wire format (numpy arrays; a bf16 pool's rows
+    travel as float32, which holds them exactly).
+
+Left out: the telemetry gauges and the attribution ledger (with the
+engine's owner arguments) and the shard-count bookkeeping.
+
+Invariants (fuzz-tested in tests/test_torch_prefix_cache.py, against
+the reference pool step for step):
+  * free list, retention list and the union of live block tables
+    PARTITION the usable pool (blocks 1..num_blocks-1);
+  * `_ref[b]` equals the number of live tables containing `b`;
+  * an index entry only describes rows [0, fill) of its block, and
+    those rows are immutable while the entry exists;
+  * a chain hash lives in EITHER the device index or the tier index.
 """
 from __future__ import annotations
+
+import hashlib
+import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from .kv_quant import QuantizedKV
+from .kv_quant import QuantizedKV, kv_decode, kv_encode
+from .kv_tier import disabled_tier_stats, normalize_kv_tier, payload_nbytes
+
+#: parent hash of a sequence's first block (nothing hashes to 0).
+ROOT_HASH = 0
 
 
 class BlockPoolExhausted(RuntimeError):
-    """Raised when an allocation needs more free blocks than the pool
-    has. `needed` blocks were requested, `available` could be had."""
+    """Raised when an allocation needs more blocks than the pool can
+    give after reclaiming every LRU-retained prefix block. `needed`
+    blocks were requested, `available` could be had."""
 
     def __init__(self, msg, *, needed=-1, available=-1):
         super().__init__(msg)
@@ -49,6 +94,40 @@ class BlockPoolExhausted(RuntimeError):
 def blocks_for(num_tokens: int, block_size: int) -> int:
     """Blocks needed to hold `num_tokens` tokens."""
     return max(0, -(-int(num_tokens) // int(block_size)))
+
+
+def prefix_block_hash(parent: int, tokens) -> int:
+    """Rolling content hash of one block: H(parent_hash, block_tokens),
+    blake2b over the 16-byte little-endian parent and the tokens as
+    int64 LE — the reference's function, so both give the same ints."""
+    data = int(parent).to_bytes(16, "little") + \
+        np.ascontiguousarray(np.asarray(tokens, np.int64)).tobytes()
+    return int.from_bytes(
+        hashlib.blake2b(data, digest_size=16).digest(), "little")
+
+
+def _leaves(kv):
+    """(codes, scales) of an int8 pool or payload (any class with those
+    fields: a reference payload carries its own), else the one array."""
+    return (kv.codes, kv.scales) if hasattr(kv, "codes") else (kv,)
+
+
+def _to_numpy(t):
+    """A numpy copy of a pool slice, never a view of the pool (bf16,
+    which numpy lacks, as float32: exact)."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy().copy()
+
+
+def _from_numpy(a):
+    """A CPU tensor of a payload array (a copy: wire arrays may be
+    read-only; a bfloat16 numpy extension array comes as float32)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a))
 
 
 class PagedKVCache:
@@ -62,11 +141,14 @@ class PagedKVCache:
         scales of an int8 pool.
     kv_dtype: None (dense) or "int8" (codes + per-vector scales); pair
         it with `PagedDecoder(kv_dtype=...)`.
+    tier: a `kv_tier.HostKVTier` below the pool (True for the default
+        one); None keeps the pool without a tier.
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
     def __init__(self, num_layers, num_heads, head_dim, *, block_size=128,
-                 num_blocks=64, dtype=None, kv_dtype=None, device=None):
+                 num_blocks=64, dtype=None, kv_dtype=None, tier=None,
+                 device=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved trash block)")
@@ -99,7 +181,38 @@ class PagedKVCache:
         self._free = list(range(self.num_blocks - 1, 0, -1))
         self._tables: dict[object, list[int]] = {}
         self._lens: dict[object, int] = {}
+        # prefix cache: refcounts (tables holding each block), the
+        # content index hash -> (block, fill, parent), the reverse map
+        # block -> entry hashes, candidate fills per parent hash, and
+        # the LRU list of freed blocks that still hold indexed content
+        self._ref: dict[int, int] = {}
+        self._index: dict[int, tuple[int, int, int]] = {}
+        self._block_entries: dict[int, set[int]] = {}
+        self._child_fills: dict[int, dict[int, int]] = {}
+        self._retained: OrderedDict[int, None] = OrderedDict()
         self._peak_blocks = 0
+        self._peak_retained = 0
+        self._prefix_lookups = 0
+        self._prefix_hits = 0
+        self._hit_tokens = 0
+        self._lookup_tokens = 0
+        self._evictions = 0
+        self._cow_copies = 0
+        # host tier: None = no tier
+        self._tier = None
+        #: optional callback(kind, **fields); kind is "demote",
+        #: "promote" or "tier_promote" (one per promoting chain walk)
+        self.on_tier_event = None
+        self._tier_demotions = 0
+        self._tier_promotions = 0
+        self._tier_bytes_out = 0
+        self._tier_bytes_in = 0
+        self._tier_hit_tokens = 0
+        # (event, payloads) of asynchronous host-to-device copies whose
+        # page-locked sources must outlive the copy
+        self._h2d_inflight: list = []
+        if tier is not None:
+            self.attach_tier(tier)
 
     # ---- pool bookkeeping (host-side) ---------------------------------
     @property
@@ -107,10 +220,15 @@ class PagedKVCache:
         return len(self._free)
 
     @property
+    def retained_block_count(self):
+        return len(self._retained)
+
+    @property
     def available_block_count(self):
-        """Blocks an allocation can obtain (the free list: this core has
-        no retained prefix blocks to reclaim)."""
-        return len(self._free)
+        """Blocks an allocation can obtain: the free list plus the
+        LRU-retained blocks it may reclaim (a demotion moves a block
+        retained -> free, so the sum is unchanged by the tier)."""
+        return len(self._free) + len(self._retained)
 
     @property
     def capacity_tokens(self):
@@ -120,10 +238,12 @@ class PagedKVCache:
     def pool_bytes_total(self):
         """Device bytes held by the K/V pool tensors (codes + scales for
         an int8 pool)."""
-        leaves = []
-        for kv in (self.k_blocks, self.v_blocks):
-            leaves.extend(kv if isinstance(kv, QuantizedKV) else (kv,))
-        return sum(t.numel() * t.element_size() for t in leaves)
+        return sum(t.numel() * t.element_size()
+                   for kv in (self.k_blocks, self.v_blocks)
+                   for t in _leaves(kv))
+
+    def _pool_leaves(self):
+        return _leaves(self.k_blocks) + _leaves(self.v_blocks)
 
     def _get_table(self, seq_id, op):
         try:
@@ -135,11 +255,304 @@ class PagedKVCache:
             ) from None
 
     def _take_blocks(self, n):
+        """Pop `n` blocks off the free list (refcount 1 each),
+        reclaiming LRU-retained blocks as needed. Callers that need
+        all-or-nothing semantics pre-check availability."""
+        while len(self._free) < n and self._retained:
+            self._reclaim_lru()
+        if n > len(self._free):
+            raise BlockPoolExhausted(
+                f"need {n} blocks, only {len(self._free)} free "
+                f"(pool {self.num_blocks - 1})",
+                needed=n, available=len(self._free))
         taken = [self._free.pop() for _ in range(n)]
-        used = self.num_blocks - 1 - len(self._free)
+        for b in taken:
+            self._ref[b] = 1
+        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
         self._peak_blocks = max(self._peak_blocks, used)
         return taken
 
+    def _release_block(self, b):
+        """Drop one table reference to `b`; at refcount zero the block
+        parks in retention if the index names it, else frees."""
+        left = self._ref.get(b, 0) - 1
+        if left > 0:
+            self._ref[b] = left
+            return
+        self._ref.pop(b, None)
+        if self._block_entries.get(b):
+            self._retained[b] = None
+            self._retained.move_to_end(b)
+            self._peak_retained = max(self._peak_retained,
+                                      len(self._retained))
+        else:
+            self._free.append(b)
+
+    def _reclaim_lru(self):
+        """Evict the least recently retained block: drop its entries and
+        free it — or, with a tier, demote it."""
+        if self._tier is not None:
+            self._demote_lru()
+            return
+        b, _ = self._retained.popitem(last=False)
+        for h in list(self._block_entries.get(b, ())):
+            self._drop_entry(h)
+        self._free.append(b)
+        self._evictions += 1
+
+    def _register_entry(self, h, block, fill, parent):
+        self._index[h] = (block, fill, parent)
+        self._block_entries.setdefault(block, set()).add(h)
+        fills = self._child_fills.setdefault(parent, {})
+        fills[fill] = fills.get(fill, 0) + 1
+        if self._tier is not None:
+            # a hash never lives in both indexes: the device copy wins
+            self._tier.drop(h)
+
+    def _drop_entry(self, h):
+        block, fill, parent = self._index.pop(h)
+        ents = self._block_entries.get(block)
+        if ents is not None:
+            ents.discard(h)
+            if not ents:
+                del self._block_entries[block]
+        fills = self._child_fills.get(parent)
+        if fills is not None:
+            left = fills.get(fill, 1) - 1
+            if left > 0:
+                fills[fill] = left
+            else:
+                fills.pop(fill, None)
+                if not fills:
+                    del self._child_fills[parent]
+
+    # ---- host tier ------------------------------------------------------
+    def attach_tier(self, tier):
+        """Attach a `kv_tier.HostKVTier` below this pool (True builds the
+        default tier; None detaches and forgets the tier's content).
+        Returns the attached tier or None."""
+        self._tier = normalize_kv_tier(tier)
+        return self._tier
+
+    @property
+    def tier(self):
+        return self._tier
+
+    def _to_host(self, t):
+        """A host copy of a device slice: page-locked when the pool is on
+        a card (the copy waits for the device: a host sync)."""
+        if self.device.type != "cuda":
+            return t.clone()
+        out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        out.copy_(t)
+        return out
+
+    def _tier_grab(self, b, fill):
+        """Host copy of rows [0, fill) of block `b` in the tier codec: an
+        int8 pool's own codes and scales, a dense pool's `kv_encode`
+        (run on the device first)."""
+        def grab(arr):
+            if self.kv_dtype == "int8":
+                codes, scales = arr.codes[:, b, :fill], arr.scales[:, b, :fill]
+            else:
+                codes, scales = kv_encode(arr[:, b, :fill])
+            return QuantizedKV(self._to_host(codes), self._to_host(scales))
+        return grab(self.k_blocks), grab(self.v_blocks)
+
+    def _tier_install(self, b, fill, k_pay, v_pay):
+        """Write a tier payload into rows [0, fill) of block `b`, on the
+        current stream (asynchronous from page-locked memory: the next
+        dispatch on the stream reads it in order)."""
+        dev = self.device
+        cuda = dev.type == "cuda"
+
+        def h2d(t):
+            return t.to(dev, non_blocking=cuda)
+
+        for arr, pay in ((self.k_blocks, k_pay), (self.v_blocks, v_pay)):
+            if self.kv_dtype == "int8":
+                arr.codes[:, b, :fill].copy_(pay.codes, non_blocking=cuda)
+                arr.scales[:, b, :fill].copy_(pay.scales, non_blocking=cuda)
+            else:
+                arr[:, b, :fill] = kv_decode(h2d(pay.codes),
+                                             h2d(pay.scales), arr.dtype)
+        if cuda:
+            self._h2d_inflight = [(ev, p) for ev, p in self._h2d_inflight
+                                  if not ev.query()]
+            ev = torch.cuda.Event()
+            ev.record()
+            self._h2d_inflight.append((ev, (k_pay, v_pay)))
+
+    def _demote_lru(self):
+        """Demote the LRU retained block: every index entry on it moves
+        to the tier with a host copy of its rows, and the device slot
+        frees."""
+        b, _ = self._retained.popitem(last=False)
+        moved = 0
+        nbytes = 0
+        for h in list(self._block_entries.get(b, ())):
+            _blk, fill, parent = self._index[h]
+            kp, vp = self._tier_grab(b, fill)
+            self._tier.put(h, fill, parent, kp, vp)
+            nbytes += payload_nbytes((kp, vp))
+            self._drop_entry(h)
+            moved += 1
+        self._free.append(b)
+        self._tier_demotions += 1
+        self._tier_bytes_out += nbytes
+        cb = self.on_tier_event
+        if cb is not None:
+            cb("demote", block=b, entries=moved, bytes=nbytes)
+
+    def maybe_demote(self):
+        """Watermark sweep: while the free list is below the tier's
+        watermark of the usable pool and retained blocks remain, demote
+        the coldest. Returns blocks demoted (0 without a tier)."""
+        if self._tier is None or self._tier.watermark <= 0:
+            return 0
+        low = int(self._tier.watermark * (self.num_blocks - 1))
+        n = 0
+        while len(self._free) < low and self._retained:
+            self._demote_lru()
+            n += 1
+        return n
+
+    def demote_cold(self, n=1):
+        """Demote up to `n` LRU retained blocks to the tier. Returns
+        blocks demoted."""
+        moved = 0
+        while (moved < int(n) and self._retained
+               and self._tier is not None):
+            self._demote_lru()
+            moved += 1
+        return moved
+
+    def _promote_entry(self, h):
+        """Pull one tier entry back into a device block (registered and
+        parked in retention, MRU). Returns the payload bytes, 0 when the
+        device re-published the hash meanwhile, None when the entry is
+        gone or no block is obtainable."""
+        ent = self._tier.get(h)
+        if ent is None:
+            return None
+        if h in self._index:
+            self._tier.drop(h)
+            return 0
+        if self.available_block_count < 1:
+            return None
+        fill, parent, kp, vp = ent
+        b = self._take_blocks(1)[0]
+        self._tier_install(b, fill, kp, vp)
+        self._tier.pop(h)
+        self._register_entry(h, b, fill, parent)
+        self._release_block(b)  # refcount 0 + indexed -> retention MRU
+        nbytes = payload_nbytes((kp, vp))
+        self._tier_promotions += 1
+        self._tier_bytes_in += nbytes
+        cb = self.on_tier_event
+        if cb is not None:
+            cb("promote", block=b, tokens=fill, bytes=nbytes)
+        return nbytes
+
+    def _walk_device(self, ids, max_match):
+        """The device half of a promotion walk: (hash at the chain's end,
+        position), or None when a partial block ends the chain."""
+        n = int(ids.size)
+        h = ROOT_HASH
+        pos = 0
+        while pos < max_match:
+            cand = self._child_fills.get(h)
+            hit = None
+            if cand:
+                for f in sorted(cand, reverse=True):
+                    if f > n - pos:
+                        continue
+                    hh = prefix_block_hash(h, ids[pos:pos + f])
+                    if hh in self._index:
+                        hit = (hh, f)
+                        break
+            if hit is None:
+                break
+            hh, f = hit
+            use = min(f, max_match - pos)
+            pos += use
+            if f < self.block_size or use < f:
+                return None
+            h = hh
+        return h, pos
+
+    def _promote_for(self, ids, max_match, limit_blocks=None,
+                     overlapped=False, collect=None):
+        """Walk the device chain along `ids` to its end, then continue
+        through the tier index, promoting each tiered entry so the match
+        that follows sees one device chain. Returns tokens promoted."""
+        if self._tier is None or not len(self._tier):
+            return 0
+        walked = self._walk_device(ids, max_match)
+        if walked is None:
+            return 0
+        h, pos = walked
+        n = int(ids.size)
+        promoted_tokens = 0
+        blocks = 0
+        nbytes = 0
+        t0 = time.perf_counter()
+        while pos < max_match:
+            if limit_blocks is not None and blocks >= int(limit_blocks):
+                break
+            cand = self._tier.child_fills(h)
+            hit = None
+            if cand:
+                for f in sorted(cand, reverse=True):
+                    if f > n - pos:
+                        continue
+                    hh = prefix_block_hash(h, ids[pos:pos + f])
+                    if self._tier.has(hh):
+                        hit = (hh, f)
+                        break
+            if hit is None:
+                break
+            hh, f = hit
+            nb = self._promote_entry(hh)
+            if nb is None:
+                break          # pool full: serve what promoted so far
+            if nb > 0:
+                blocks += 1
+                nbytes += nb
+                if collect is not None:
+                    collect.append(hh)
+            use = min(f, max_match - pos)
+            promoted_tokens += use
+            pos += use
+            if f < self.block_size or use < f:
+                break
+            h = hh
+        if blocks:
+            cb = self.on_tier_event
+            if cb is not None:
+                cb("tier_promote", blocks=blocks, tokens=promoted_tokens,
+                   bytes=nbytes, dur_s=time.perf_counter() - t0,
+                   overlapped=bool(overlapped))
+        self._tier_hit_tokens += promoted_tokens
+        return promoted_tokens
+
+    def prefetch_promote(self, ids, limit_blocks=None):
+        """Promote the tiered chain tail for `ids` now (ahead of an
+        attach). `limit_blocks` caps the device blocks one call may
+        take. Returns (hashes, tokens, bytes) promoted."""
+        ids = np.asarray(ids).reshape(-1)
+        hashes: list = []
+        before = self._tier_bytes_in
+        tokens = self._promote_for(
+            ids, int(ids.size) - 1, limit_blocks=limit_blocks,
+            overlapped=True, collect=hashes)
+        return hashes, tokens, self._tier_bytes_in - before
+
+    def device_resident_count(self, hashes):
+        """How many of `hashes` are in the device index now."""
+        return sum(1 for h in hashes if h in self._index)
+
+    # ---- allocation -----------------------------------------------------
     def allocate(self, seq_id, num_tokens):
         """Start a new sequence holding `num_tokens` tokens; returns its
         block table. Raises BlockPoolExhausted without side effects."""
@@ -159,8 +572,9 @@ class PagedKVCache:
         """Atomically create-or-grow several sequences so each covers its
         requested token count. `updates`: iterable of (seq_id,
         num_tokens). Either every sequence ends up covered, or — when
-        the pool cannot hold the TOTAL demand — BlockPoolExhausted is
-        raised with NO side effects."""
+        the pool cannot hold the TOTAL demand even after reclaiming
+        every retained block — BlockPoolExhausted is raised with NO side
+        effects."""
         updates = [(s, int(n)) for s, n in updates]
         need = []
         for seq_id, n in updates:
@@ -168,16 +582,18 @@ class PagedKVCache:
                 - len(self._tables.get(seq_id, ()))
             need.append(max(0, grow))
         total = sum(need)
-        if total > len(self._free):
+        if total > len(self._free) + len(self._retained):
             raise BlockPoolExhausted(
                 f"need {total} blocks across {len(updates)} sequences, "
-                f"only {len(self._free)} free (pool {self.num_blocks - 1})",
-                needed=total, available=len(self._free))
+                f"only {len(self._free)} free + {len(self._retained)} "
+                f"reclaimable (pool {self.num_blocks - 1})",
+                needed=total, available=self.available_block_count)
         for (seq_id, n), grow in zip(updates, need):
             table = self._tables.setdefault(seq_id, [])
             if grow:
                 table.extend(self._take_blocks(grow))
             self._lens[seq_id] = max(self._lens.get(seq_id, 0), n)
+        self.maybe_demote()
 
     def append(self, seq_id, n=1):
         """Reserve room for `n` more tokens; returns the (possibly grown)
@@ -185,19 +601,24 @@ class PagedKVCache:
         return self.ensure(seq_id, self.seq_len(seq_id) + int(n))
 
     def free(self, seq_id):
-        """Release a sequence's blocks to the free list; returns how many
-        table entries were released."""
+        """Release a sequence's blocks (refcount-aware: shared blocks stay
+        for their other referents, indexed ones park in retention);
+        returns how many table entries were released."""
         table = self._get_table(seq_id, "free")
         del self._tables[seq_id]
         del self._lens[seq_id]
-        self._free.extend(reversed(table))
+        for b in reversed(table):
+            self._release_block(b)
+        self.maybe_demote()
         return len(table)
 
     def truncate_seq(self, seq_id, new_len):
-        """Roll a sequence back to `new_len` live tokens, releasing the
-        tail blocks that no longer cover a live position. Rows >= new_len
-        in the kept tail block become dead (masking is by length, and
-        later writes overwrite them). Returns the entries released."""
+        """Roll a sequence back to `new_len` live tokens, releasing
+        (refcount-aware) the tail blocks that no longer cover a live
+        position. Rows >= new_len in the kept tail block become dead
+        (masking is by length, and later writes overwrite them; an entry
+        only claims rows below its fill, and only prompt tokens are ever
+        published). Returns the entries released."""
         table = self._get_table(seq_id, "truncate_seq")
         new_len = int(new_len)
         cur = self._lens[seq_id]
@@ -209,7 +630,9 @@ class PagedKVCache:
         dropped = table[keep:]
         del table[keep:]
         self._lens[seq_id] = new_len
-        self._free.extend(reversed(dropped))
+        for b in reversed(dropped):
+            self._release_block(b)
+        self.maybe_demote()
         return len(dropped)
 
     def seq_len(self, seq_id):
@@ -230,6 +653,231 @@ class PagedKVCache:
     def has_seq(self, seq_id):
         return seq_id in self._tables
 
+    # ---- prefix cache ---------------------------------------------------
+    def _match_chain(self, ids, max_match):
+        """The longest chain of cached blocks covering a prefix of
+        ids[:max_match]: (blocks, fills, pos), fills[i] the tokens block
+        i contributes (a partial tail or the cap ends the chain).
+        Read-only."""
+        matched: list[int] = []
+        fills: list[int] = []
+        h = ROOT_HASH
+        pos = 0
+        n = int(ids.size)
+        while pos < max_match:
+            cand = self._child_fills.get(h)
+            if not cand:
+                break
+            hit = None
+            for f in sorted(cand, reverse=True):  # longest match first
+                if f > n - pos:
+                    continue
+                hh = prefix_block_hash(h, ids[pos:pos + f])
+                ent = self._index.get(hh)
+                if ent is not None:
+                    hit = (hh, ent[0], f)
+                    break
+            if hit is None:
+                break
+            hh, block, f = hit
+            use = min(f, max_match - pos)
+            matched.append(block)
+            fills.append(use)
+            pos += use
+            if f < self.block_size or use < f:
+                break
+            h = hh
+        return matched, fills, pos
+
+    def match_prefix_len(self, token_ids):
+        """How many tokens of `token_ids` an `attach_prefix` would serve
+        from cache now (capped at len - 1), claiming nothing and moving
+        no counter — but a chain that continues into the tier is
+        promoted first."""
+        ids = np.asarray(token_ids).reshape(-1)
+        self._promote_for(ids, int(ids.size) - 1)
+        return self._match_chain(ids, int(ids.size) - 1)[2]
+
+    def attach_prefix(self, seq_id, token_ids):
+        """Start `seq_id` on the longest cached chain matching
+        `token_ids` (refcount bump, no device work). Returns the cached
+        token count; 0 means no match and the sequence is NOT created.
+        At most len - 1 tokens match: the last prompt token is left to
+        the prefill, which samples token 0 from it. A match may end
+        mid-block; the sequence's first write there goes through
+        `prepare_write`."""
+        if seq_id in self._tables:
+            raise ValueError(f"sequence {seq_id!r} already allocated")
+        ids = np.asarray(token_ids).reshape(-1)
+        max_match = int(ids.size) - 1
+        self._prefix_lookups += 1
+        self._lookup_tokens += max(0, max_match)
+        self._promote_for(ids, max_match)
+        matched, _fills, pos = self._match_chain(ids, max_match)
+        if pos == 0:
+            return 0
+        for b in matched:              # claim the chain
+            r = self._ref.get(b, 0)
+            if r == 0:                 # parked in retention: revive
+                self._retained.pop(b, None)
+            self._ref[b] = r + 1
+        self._tables[seq_id] = matched
+        self._lens[seq_id] = pos
+        self._prefix_hits += 1
+        self._hit_tokens += pos
+        return pos
+
+    def publish_prefix(self, seq_id, token_ids):
+        """Index `seq_id`'s blocks under their rolling hashes, once the
+        K/V of `token_ids` has been written. Full blocks chain; a partial
+        tail block is indexed with its fill. An existing hash keeps its
+        block (first publisher wins)."""
+        table = self._get_table(seq_id, "publish_prefix")
+        ids = np.asarray(token_ids).reshape(-1)
+        n = int(ids.size)
+        if n > self._lens[seq_id]:
+            raise ValueError(
+                f"cannot publish {n} tokens for sequence {seq_id!r}: "
+                f"only {self._lens[seq_id]} are live")
+        bs = self.block_size
+        h = ROOT_HASH
+        nfull = n // bs
+        for i in range(nfull):
+            hh = prefix_block_hash(h, ids[i * bs:(i + 1) * bs])
+            if hh not in self._index:
+                self._register_entry(hh, table[i], bs, h)
+            h = hh
+        fill = n - nfull * bs
+        if fill:
+            hh = prefix_block_hash(h, ids[nfull * bs:])
+            if hh not in self._index:
+                self._register_entry(hh, table[nfull], fill, h)
+
+    def prepare_write(self, seq_id, pos):
+        """Make the block holding position `pos` exclusively writable for
+        `seq_id` before a dispatch writes K/V there. If the block is
+        shared (refcount > 1) or an index entry claims rows at or after
+        `pos`, it is copied on the device (every leaf, codes and scales
+        together, on the current stream) and the table entry swapped.
+        With no spare block and the sequence the sole referent, the
+        claiming entries are dropped and the write goes in place.
+        Returns True iff a copy happened."""
+        table = self._get_table(seq_id, "prepare_write")
+        bi = int(pos) // self.block_size
+        if bi >= len(table):
+            return False               # growth region: nothing cached
+        block = table[bi]
+        row = int(pos) % self.block_size
+        shared = self._ref.get(block, 0) > 1
+        blocking = [h for h in self._block_entries.get(block, ())
+                    if self._index[h][1] > row]
+        if not shared and not blocking:
+            return False
+        if self.available_block_count >= 1:
+            new = self._take_blocks(1)[0]
+            for a in self._pool_leaves():
+                a[:, new].copy_(a[:, block])
+            table[bi] = new
+            self._release_block(block)
+            self._cow_copies += 1
+            return True
+        if shared:
+            raise BlockPoolExhausted(
+                f"copy-on-write for sequence {seq_id!r} at position "
+                f"{pos} needs 1 block, pool exhausted "
+                f"(pool {self.num_blocks - 1})", needed=1, available=0)
+        for h in blocking:             # sole referent: cede the entries
+            self._drop_entry(h)
+        return False
+
+    def swap_out_seq(self, seq_id, token_ids):
+        """Publish the sequence's live K/V prefix (the first
+        `seq_len(seq_id)` of `token_ids`), then release its blocks; they
+        park in retention, so a later attach of the same stream resumes
+        it. Returns the tokens published."""
+        live = self.seq_len(seq_id)
+        ids = np.asarray(token_ids).reshape(-1)
+        if live > ids.size:
+            raise ValueError(
+                f"swap_out_seq of {seq_id!r}: {live} live tokens but "
+                f"only {ids.size} token ids supplied")
+        if live > 0:
+            self.publish_prefix(seq_id, ids[:live])
+        self.free(seq_id)
+        return live
+
+    # ---- migration between pools ----------------------------------------
+    def export_prefix(self, token_ids):
+        """The longest cached chain matching `token_ids` as the
+        reference's wire payload: numpy copies of the whole blocks (an
+        int8 pool's as `QuantizedKV` pairs of numpy arrays), fills and
+        the pool layout. A chain continuing into the tier is promoted
+        first. None when nothing matches."""
+        ids = np.asarray(token_ids).reshape(-1)
+        self._promote_for(ids, int(ids.size))
+        blocks, fills, pos = self._match_chain(ids, int(ids.size))
+        if pos == 0:
+            return None
+
+        def grab(arr, b):
+            if self.kv_dtype == "int8":
+                return QuantizedKV(_to_numpy(arr.codes[:, b]),
+                                   _to_numpy(arr.scales[:, b]))
+            return _to_numpy(arr[:, b])
+
+        return {
+            "tokens": [int(t) for t in ids[:pos]],
+            "block_size": self.block_size,
+            "kv_dtype": self.kv_dtype,
+            "num_layers": self.num_layers,
+            "num_heads": self.num_heads,
+            "head_dim": self.head_dim,
+            "fills": list(fills),
+            "k": [grab(self.k_blocks, b) for b in blocks],
+            "v": [grab(self.v_blocks, b) for b in blocks],
+        }
+
+    def import_prefix(self, payload):
+        """Install an `export_prefix` payload (this port's or the
+        reference's): allocate blocks, write the contents, and register
+        the chain as `publish_prefix` would; the blocks park in
+        retention until an attach claims them. A hash this pool already
+        holds keeps its block and the import's block frees. Raises
+        BlockPoolExhausted when the pool cannot cover the chain and
+        ValueError on a layout mismatch. Returns the tokens
+        published."""
+        for field in ("block_size", "kv_dtype", "num_layers",
+                      "num_heads", "head_dim"):
+            if payload[field] != getattr(self, field):
+                raise ValueError(
+                    f"import_prefix layout mismatch on {field}: "
+                    f"payload has {payload[field]!r}, pool has "
+                    f"{getattr(self, field)!r}")
+        ids = np.asarray(payload["tokens"], np.int64).reshape(-1)
+        fills = [int(f) for f in payload["fills"]]
+        if not fills or int(ids.size) != sum(fills):
+            raise ValueError(
+                f"import_prefix payload inconsistent: {ids.size} "
+                f"tokens vs fills {fills}")
+        new_blocks = self._take_blocks(len(fills))  # may raise
+        for b, pk, pv in zip(new_blocks, payload["k"], payload["v"]):
+            for arr, pay in ((self.k_blocks, pk), (self.v_blocks, pv)):
+                for dst, src in zip(_leaves(arr), _leaves(pay)):
+                    dst[:, b].copy_(_from_numpy(src))
+        h = ROOT_HASH
+        pos = 0
+        for b, f in zip(new_blocks, fills):
+            hh = prefix_block_hash(h, ids[pos:pos + f])
+            if hh not in self._index:
+                self._register_entry(hh, b, f, h)
+            self._release_block(b)     # indexed -> retention, else free
+            pos += f
+            if f < self.block_size:
+                break                  # a partial tail ends the chain
+            h = hh
+        self.maybe_demote()
+        return pos
+
     def table_array(self, seq_ids, width=None):
         """Dense int32 [len(seq_ids), width] block-table matrix (numpy);
         unused entries point at trash block 0, and a seq_id of None
@@ -248,11 +896,11 @@ class PagedKVCache:
 
     def block_fill(self):
         """Live tokens / allocated block capacity."""
-        used = self.num_blocks - 1 - len(self._free)
+        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
         return sum(self._lens.values()) / ((used * self.block_size) or 1)
 
     def stats(self):
-        used = self.num_blocks - 1 - len(self._free)
+        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
         held = sum(self._lens.values())
         return {
             "block_size": self.block_size,
@@ -262,12 +910,46 @@ class PagedKVCache:
             "pool_bytes_total": self.pool_bytes_total,
             "used_blocks": used,
             "free_blocks": len(self._free),
+            "retained_blocks": len(self._retained),
+            "peak_retained_blocks": self._peak_retained,
             "peak_used_blocks": self._peak_blocks,
             "sequences": len(self._tables),
             "held_tokens": held,
+            # shared blocks count once per referent: can exceed 1.0
             "utilization": held / (self.capacity_tokens or 1),
             "block_fill": held / ((used * self.block_size) or 1),
+            "prefix_cache": {
+                "index_entries": len(self._index),
+                "lookups": self._prefix_lookups,
+                "hits": self._prefix_hits,
+                "hit_tokens": self._hit_tokens,
+                "lookup_tokens": self._lookup_tokens,
+                # the last token of every prompt is never matchable
+                "hit_rate": self._hit_tokens / (self._lookup_tokens or 1),
+                "evictions": self._evictions,
+                "cow_copies": self._cow_copies,
+            },
+            "tier": self._tier_stats(),
+        }
+
+    def _tier_stats(self):
+        if self._tier is None:
+            return disabled_tier_stats()
+        s = self._tier.stats()
+        return {
+            "enabled": True,
+            "capacity_blocks": s["capacity_blocks"],
+            "tiered_blocks": s["tiered_blocks"],
+            "tiered_tokens": s["tiered_tokens"],
+            "bytes_resident": s["bytes_resident"],
+            "demotions": self._tier_demotions,
+            "promotions": self._tier_promotions,
+            "evictions": s["evictions"],
+            "bytes_out": self._tier_bytes_out,
+            "bytes_in": self._tier_bytes_in,
+            "hit_tokens": self._tier_hit_tokens,
         }
 
 
-__all__ = ["PagedKVCache", "BlockPoolExhausted", "blocks_for"]
+__all__ = ["PagedKVCache", "BlockPoolExhausted", "blocks_for",
+           "prefix_block_hash", "ROOT_HASH"]

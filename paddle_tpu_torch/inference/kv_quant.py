@@ -43,4 +43,13 @@ def kv_encode(t, scale_dtype=None):
     return codes.to(torch.int8), sc.to(sd)
 
 
-__all__ = ["QuantizedKV", "kv_encode"]
+def kv_decode(codes, scales, dtype):
+    """Dequantize int8 codes [..., Dh] with per-vector scales [...] to
+    `dtype`: codes * scale, both cast to `dtype` first, as the
+    reference's `kv_decode`. The pool's host tier installs a dense
+    pool's promoted rows through it; the attention ops fold the scales
+    into their contractions instead."""
+    return codes.to(dtype) * scales[..., None].to(dtype)
+
+
+__all__ = ["QuantizedKV", "kv_encode", "kv_decode"]

@@ -32,13 +32,34 @@ tokens whatever the batch, the slot or `steps_per_dispatch`. Stop
 strings are matched on the host against the detokenized tail of the
 output (`detokenize=`).
 
+Prefix caching (`enable_prefix_cache=True`): on admission the prompt
+is matched against the pool's content index (`PagedKVCache.
+attach_prefix`); the longest cached block chain is attached by table
+copy, those tokens count as fed, and the packed prefill starts at the
+first uncached token (a fully cached prompt prefills exactly its last
+token, which samples token 0). Every chunk's first write goes through
+`prepare_write` (copy-on-write of a shared or index-claimed block);
+each prompt is published when its last chunk lands; freed indexed
+blocks park in the pool's LRU retention. Admission reserves one spare
+block per request for the one copy-on-write a mid-block attach can
+force. `kv_tier=` (a `kv_tier.HostKVTier`, or True) puts a host-RAM
+tier below the pool: cold retained blocks demote to host memory
+instead of being dropped and promote back on a later match. With
+caching off (the default) the server takes the plain allocation path:
+no lookups, no index, no retention, no spare block. The attribute is
+read at each admission and publish, so it may be flipped on a live
+server. `kv_dtype="int8"` serves from an int8 pool (codes + per-vector
+scales; the int8 K1/K2 on the card).
+
 The packed stream is not bucketed to a power of two as the reference's
 is: PyTorch compiles nothing per shape, so a bucket would only add pad
-rows to every dispatch.
+rows to every dispatch. Block tables are built fresh for every
+dispatch, so a copy-on-write swap of a block id is never served stale.
 
-Left for later slices: prefix cache, speculation, unified/async rounds,
-the front door and scheduler seams, W8A16 and int8-KV serving, the
-recovery ladder and journal, the operations plane and sharding.
+Left for later slices: speculation, unified/async rounds, the front
+door and scheduler seams (preemption, warm resume, tier prefetch),
+W8A16 weights, the recovery ladder and journal, the operations plane
+and sharding.
 """
 from __future__ import annotations
 
@@ -56,6 +77,7 @@ from ..device import resolve_device
 from ..nn.decode import PagedDecoder
 from ..sampling import SamplingParams, SlotParamStore
 from .kv_cache import PagedKVCache, blocks_for
+from .kv_tier import normalize_kv_tier
 
 _logger = logging.getLogger(__name__)
 
@@ -84,7 +106,8 @@ class PagedGenerationServer:
         max_position after the token budget and the multi-step overrun).
     max_new_tokens: default and largest per-request token budget.
     num_blocks: pool size incl. the trash block (default: every slot at
-        its worst case, + 1).
+        its worst case, plus one copy-on-write spare per slot when
+        prefix caching is on, + 1).
     eos_token_id: server-wide stop token (None = none).
     temperature: the default request's temperature (0 = greedy), for
         requests submitted without `SamplingParams`.
@@ -101,6 +124,10 @@ class PagedGenerationServer:
         finishes prefills sooner).
     pack_align: alignment of each chunk's packed region (default 8; the
         Hopper kernel takes per-token segments and needs none).
+    enable_prefix_cache: block-level prefix caching (module docstring).
+    kv_tier: a `kv_tier.HostKVTier` (or True for the default one) below
+        the pool; needs enable_prefix_cache.
+    kv_dtype: None (a dense pool in the weights' dtype) or "int8".
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
@@ -109,6 +136,7 @@ class PagedGenerationServer:
                  eos_token_id=None, temperature=0.0, seed=0,
                  steps_per_dispatch=1, prefill_chunk_tokens=512,
                  pack_align=None, detokenize=None, stop_tail_tokens=16,
+                 enable_prefix_cache=False, kv_tier=None, kv_dtype=None,
                  device=None):
         self.device = resolve_device(device)
         cfg = model.cfg
@@ -137,6 +165,12 @@ class PagedGenerationServer:
         if self._pack_align < 1:
             raise ValueError("pack_align must be >= 1")
         self.eos = -1 if eos_token_id is None else int(eos_token_id)
+        self.enable_prefix_cache = bool(enable_prefix_cache)
+        tier = normalize_kv_tier(kv_tier)
+        if tier is not None and not self.enable_prefix_cache:
+            raise ValueError(
+                "kv_tier requires enable_prefix_cache=True (the tier "
+                "holds demoted prefix-index content)")
         self._params = {k: v.to(self.device)
                         for k, v in model.flat_params().items()}
         dt = self._params["ln_f.weight"].dtype
@@ -144,12 +178,14 @@ class PagedGenerationServer:
             self.max_prompt_len + self.max_new + self._overrun,
             self.block_size)
         if num_blocks is None:  # worst case: every slot at full horizon
-            num_blocks = self.max_slots * self._m_width + 1
+            spare = 1 if self.enable_prefix_cache else 0
+            num_blocks = self.max_slots * (self._m_width + spare) + 1
         self.cache = PagedKVCache(
             cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
             block_size=self.block_size, num_blocks=int(num_blocks),
-            dtype=dt, device=self.device)
-        self._decoder = PagedDecoder.for_config(cfg, self.block_size)
+            dtype=dt, kv_dtype=kv_dtype, tier=tier, device=self.device)
+        self._decoder = PagedDecoder.for_config(cfg, self.block_size,
+                                                kv_dtype=kv_dtype)
         # per-slot sampling state; the constructor's temperature is the
         # default for requests submitted without SamplingParams
         self._sp_store = SlotParamStore(self.max_slots, cfg.vocab_size,
@@ -313,20 +349,28 @@ class PagedGenerationServer:
 
     def _worst_blocks(self, req):
         """Worst-case block reservation for `req` (prompt + budget + the
-        multi-step overrun)."""
+        multi-step overrun), plus one spare block for the (at most one)
+        copy-on-write a prefix attach ending mid-block can force."""
         return blocks_for(req.ids.size + req.budget + self._overrun,
-                          self.block_size)
+                          self.block_size) + (
+            1 if self.enable_prefix_cache else 0)
 
     def _install_slot_locked(self, i, req, worst):
         """Bind `req` to slot `i` (the caller checked the reservation)."""
         seq = self._seq_counter
         self._seq_counter += 1
         self._worst[seq] = worst
+        # prefix caching: attach the longest cached chain; those tokens
+        # count as fed and the prefill starts at the first uncached one
+        cached = 0
+        if self.enable_prefix_cache:
+            cached = self.cache.attach_prefix(seq, req.ids)
         # fed: prompt tokens already written to the cache — the slot is
         # in its PREFILL phase until fed == prompt length, then decodes
         self._slots[i] = {"seq": seq, "req": req, "toks": [],
                           "prompt": req.ids, "pos": req.ids.size,
-                          "budget": req.budget, "fed": 0, "t_last": None}
+                          "budget": req.budget, "fed": cached,
+                          "t_last": None}
         # penalty counts seed from the prompt
         self._sp_store.set_slot(i, req.sampling, req.seed, eos=self.eos,
                                 prompt_ids=req.ids)
@@ -446,6 +490,11 @@ class PagedGenerationServer:
             self.cache.ensure_many(
                 [(self._slots[i]["seq"], start + n)
                  for i, start, n, _ in plan])
+            if self.enable_prefix_cache:
+                # copy-on-write: a chunk starting in an attached (shared
+                # or index-claimed) block writes to a private copy
+                for i, start, _n, _o in plan:
+                    self.cache.prepare_write(self._slots[i]["seq"], start)
             width = max(blocks_for(start + n, self.block_size)
                         for _, start, n, _ in plan)
             tables = self._tensor(self.cache.table_array(
@@ -472,6 +521,9 @@ class PagedGenerationServer:
             self._slots[i]["fed"] = start + n
         for i, r in done_rows:
             s = self._slots[i]
+            if self.enable_prefix_cache:
+                # every prompt position is written: index the blocks
+                self.cache.publish_prefix(s["seq"], s["prompt"])
             with self._lock:
                 self._ttft.append(t_now - s["req"].t_submit)
                 self._prefills += 1

@@ -39,7 +39,11 @@ two-pass case. The bf16 K7 and K7 bias are the kernel of
 magnitude plus one bf16 rounding step on every two-pass case, and two
 launches give the same bits, also where q tiles see no key at all (their
 dq is zero). Every flash wrapper takes B * H = 65536, past grid y's
-65535.
+65535. The prefix cache's copy-on-write (`PagedKVCache.prepare_write`)
+copies a block bit for bit, float32, bf16 and int8 (codes with scales),
+with no host synchronisation, and the host tier returns an int8 block
+bit for bit through page-locked memory (a dense one within its codec's
+bound).
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -1163,3 +1167,106 @@ def test_sample_tokens_makes_no_host_sync(dev):
     torch.cuda.synchronize()
     assert mode == (True, True)
     assert int(counts.sum()) == int(sp["counts"].sum()) + 8
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_prepare_write_makes_no_host_sync(dev, kind):
+    """The prefix cache's copy-on-write runs on the card's stream with no
+    host read (it sits between the table build and the dispatch), and
+    the new block equals its source bit for bit in every layer: codes
+    and scales together for an int8 pool."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+
+    dtype = torch.bfloat16 if kind == "bf16" else torch.float32
+    c = PagedKVCache(3, 4, 32, block_size=8, num_blocks=8, dtype=dtype,
+                     kv_dtype="int8" if kind == "int8" else None,
+                     device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    for kv in (c.k_blocks, c.v_blocks):
+        if kind == "int8":
+            kv.codes.copy_(torch.randint(-127, 128, kv.codes.shape,
+                                         generator=g, device=dev))
+            kv.scales.copy_(torch.rand(kv.scales.shape, generator=g,
+                                       device=dev))
+        else:
+            kv.copy_(torch.randn(kv.shape, generator=g, device=dev))
+    toks = np.arange(1, 13, dtype=np.int32)
+    c.allocate("a", 12)
+    c.publish_prefix("a", toks)
+    assert c.attach_prefix("b", toks) == 11
+    src = c.block_table("b")[1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        assert c.prepare_write("b", 11) is True
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    new = c.block_table("b")[1]
+    assert new != src and c.block_table("a")[1] == src
+    for kv in (c.k_blocks, c.v_blocks):
+        leaves = (kv.codes, kv.scales) if kind == "int8" else (kv,)
+        for a in leaves:
+            assert torch.equal(a[:, new], a[:, src])
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["dense", "int8"])
+def test_tier_round_trip_on_card(dev, kv_dtype):
+    """Demotion to page-locked host memory and promotion back by an
+    asynchronous copy: an int8 block returns bit for bit, a dense bf16
+    block within absmax/254 per vector (its kv_encode codes) plus the
+    bf16 roundings of its scale and product, and equal to the CPU
+    pool's promotion of the same rows."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+    from paddle_tpu_torch.inference.kv_tier import HostKVTier
+
+    pools = {}
+    for d in (dev, "cpu"):
+        c = PagedKVCache(2, 4, 32, block_size=8, num_blocks=8,
+                         dtype=torch.bfloat16, kv_dtype=kv_dtype, device=d,
+                         tier=HostKVTier(capacity_blocks=8, watermark=0.0))
+        c.allocate("a", 20)
+        g = torch.Generator().manual_seed(4)
+        for kv in (c.k_blocks, c.v_blocks):
+            if kv_dtype == "int8":
+                kv.codes.copy_(torch.randint(-127, 128, kv.codes.shape,
+                                             generator=g))
+                kv.scales.copy_(torch.rand(kv.scales.shape, generator=g))
+            else:
+                kv.copy_(torch.randn(kv.shape, generator=g))
+        pools[d] = c
+    c = pools[dev]
+    ids = np.arange(100, 120, dtype=np.int32)
+    table = c.block_table("a")
+    before = [(kv.codes[:, table].cpu(), kv.scales[:, table].cpu())
+              if kv_dtype else (kv[:, table].cpu(),)
+              for kv in (c.k_blocks, c.v_blocks)]
+    for p in pools.values():
+        p.publish_prefix("a", ids)
+        p.free("a")
+        assert p.demote_cold(8) == 3
+        assert all(pay.codes.is_pinned() for _f, _p, pay, _v
+                   in p.tier._entries.values()) == (p is c)
+        assert p.match_prefix_len(ids) == 19
+        assert p.attach_prefix("b", ids) == 19
+    table = c.block_table("b")
+    assert table == pools["cpu"].block_table("b")
+    for i, kv in enumerate((c.k_blocks, c.v_blocks)):
+        cpu_kv = (pools["cpu"].k_blocks, pools["cpu"].v_blocks)[i]
+        if kv_dtype == "int8":
+            for j, a in enumerate((kv.codes, kv.scales)):
+                for bi, b in enumerate(table):
+                    rows = min(8, 20 - 8 * bi)
+                    assert torch.equal(a[:, b, :rows].cpu(),
+                                       before[i][j][:, bi, :rows])
+        else:
+            for bi, b in enumerate(table):
+                rows = min(8, 20 - 8 * bi)
+                got = kv[:, b, :rows].float().cpu()
+                old = before[i][0][:, bi, :rows].float()
+                amax = old.abs().amax(-1, keepdim=True)
+                # absmax/254 of the codes, plus the bf16 rounding of the
+                # scale (127 codes x 2^-8 of it) and of code * scale
+                bound = amax / 254 + amax / 256 + got.abs() / 256
+                assert ((got - old).abs() <= bound).all()
+                assert torch.equal(kv[:, b, :rows].cpu(),
+                                   cpu_kv[:, b, :rows])
