@@ -74,7 +74,9 @@ non-zero before the result line:
                k = 4 and k = 1 with the requests in reverse order (other
                slots): the three runs' tokens identical, and each token
                of the first run replayed by the CPU sampler from the
-               card's own logits (return_logits) and the same (seed,
+               card's own logits (return_logits; a decode dispatch is a
+               graph replay, whose logits the eager step recomputes on
+               the card, `GraphSpy`) and the same (seed,
                step) — identical wherever the top-two margin of
                filt + gumbel is >= MARGIN (1e-5); the draws below it are
                counted and printed (a stated tolerance);
@@ -85,16 +87,43 @@ non-zero before the result line:
                steps_per_dispatch=8. Launch counters are zeroed just
                before each measured pass and read just after: K1 must
                have run >= 12 x prefill dispatches and K2 >= 12 x decode
-               steps;
+               steps. Every decode dispatch is one CUDA graph replay
+               (replays must equal dispatches); a third pass runs under
+               torch.profiler for the device's busy time and idle share
+               (1 - busy / the measured pass's wall, as
+               scripts/torch_serve_profile.py reads it). The k = 1 and
+               k = 8 passes give the same greedy tokens but for near ties
+               (phase 4f's rule: prefill packings differ between them);
+  5g. decode graph — before phase 5, outside the server: GPT-2 small's
+               decoder on 8 slots (lengths RandomState(5) 64-768, slot 5
+               idle), two dispatches of multistep(k) through one captured
+               graph and through the eager loop from one state, for
+               weights bf16 / W8A16 x pools dense / int8 x greedy /
+               sampled / penalties x k 1 / 4 / 8: tokens, stops, counts
+               and every pool element bitwise equal; the replay's launch
+               counts equal the eager loop's and it makes no host sync
+               (set_sync_debug_mode("error")); host us a dispatch and wall
+               ms to a synchronize, eager against graph;
   5s. sampled serving — phase 5's 16 prompts at k = 1, every request
                sampled (temperature 0.8, top-p 0.95, seeds 1000 + the
                request's index): tokens/s, TTFT and ITL beside phase 5's
                greedy k = 1 pass of the same call, with phase 5's launch
-               checks; then the sampler alone at 8 x 50257 (the
+               and graph checks and idle share; then the sampler alone
+               at 8 x 50257 (the
                store's arguments of that traffic): its device time and
                kernel launches per decode step (torch.profiler), its
                host time per call, and the store's host time per
                `step_args`, beside the greedy argmax's;
+  5w. W8A16 weights — (a) float32 GPT-2 small (phase 4's weights) with
+               quantization="w8a16", dense and int8 pools: phase 4's
+               decoder program card vs CPU within phase 4's limits, then
+               served (8 prompts of 16-60 tokens from RandomState(9), 16
+               new tokens) on the card and on the CPU: tokens identical
+               but for near ties (both tokens' CPU logits within 2 x phase
+               4's limit at the first difference), counted; (b) bf16
+               W8A16 on phase 5's traffic at k = 1: tokens/s, ITL, TTFT,
+               the params' bytes and idle share beside phase 5's bf16
+               k = 1 pass of the same call;
   5p. prefix cache — (b) `PagedKVCache.prepare_write`'s copy-on-write
                at GPT-2 small's pool shape (L12 H12 Dh64 BS16) equals its
                source block bit for bit in every layer, float32, bf16 and
@@ -252,8 +281,8 @@ non-zero before the result line:
                Fails on a non-finite loss, K7/K8 (bias) launching other
                than 12 x steps times, or K9/K9 bias launching at all;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 5s, 5p, 4b, 4f, 6, 6b and
-     6c), the card line, and as the last line {"ok": true, "device":
+     main-path runs that reach it: phases 5, 5s, 5w, 5p, 4b, 4f, 6, 6b
+     and 6c), the card line, and as the last line {"ok": true, "device":
      {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
@@ -328,7 +357,9 @@ SAMPLE_STEPS = [0, 1, 31, 2**31 - 1] * 2
 # the Gumbel noise on the card within this many ulp of the CPU's, the ulp
 # taken at max(|g|, 1): -log(-log(u)) of bitwise-equal uniforms, two
 # correctly rounded logs (<= 1 ulp each) whose error near g = 0 is that of
-# the inner -log(u) relative to its size
+# the inner -log(u) relative to its size. Since the logs are IEEE-exact
+# float64 arithmetic (prng._log) the two sides are expected bitwise; the
+# count of entries that are not is printed
 GUMBEL_ULPS = 4
 # a replayed draw must give the card's token where the top two of
 # filt + gumbel lie at least this far apart: 10x the noise's largest
@@ -1393,10 +1424,11 @@ def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol, rel=False):
         sidx[r] = o + p.size - 1
         o += -(-p.size // 8) * 8
     sides = {}
-    card_dtype = next(iter(params_gpu.values())).dtype
+    card_dtype = params_gpu["ln_f.weight"].dtype
     for dev in (DEV, "cpu"):
-        params = (params_gpu if dev == DEV
-                  else {k: v.float().cpu() for k, v in params_gpu.items()})
+        params = (params_gpu if dev == DEV  # W8A16 codes stay int8
+                  else {k: (v.float() if v.is_floating_point() else v)
+                        .cpu() for k, v in params_gpu.items()})
         cache = PagedKVCache(cfg.num_layers, H, Dh, block_size=BS,
                              num_blocks=40,
                              dtype=card_dtype if dev == DEV
@@ -1587,6 +1619,34 @@ SERVE_ROWS = [{}, dict(temperature=1.0, seed=11),
                    frequency_penalty=0.2, seed=17)]
 
 
+class GraphSpy:
+    """Stands in for a server decoder's graph cache in phase 4s (c): each
+    decode dispatch runs through the real cache (one graph replay), then
+    the eager step recomputes the same step on the card for its logits
+    (it rewrites the K/V rows the replay wrote with the same bits: phase
+    5g holds graph and eager bitwise), and the record takes the graph's
+    tokens beside those logits."""
+
+    def __init__(self, dec, record):
+        self.dec, self.record = dec, record
+        self.real = dec.graphs
+
+    @property
+    def captures(self):
+        return self.real.captures
+
+    def __call__(self, k, mode, params, tok, pos, active, tables, kc, vc,
+                 sp):
+        out = self.real(k, mode, params, tok, pos, active, tables, kc, vc,
+                        sp)
+        logits = self.dec._step(params, tok, pos, active, tables, kc, vc,
+                                sp, mode)[5]
+        self.record.append((logits.cpu(), {
+            key: v.to("cpu", copy=True) for key, v in sp.items()}, mode,
+            out[0][0].cpu(), active.cpu()))
+        return out
+
+
 def sampled_serving(torch, model):
     """(c): 8 requests of SERVE_ROWS served on the card at k = 1, k = 4
     and k = 1 in reverse order; every draw of the first run replayed on
@@ -1612,18 +1672,16 @@ def sampled_serving(torch, model):
         if tag == "k1":
             dec = srv._decoder
             dec.return_logits = True
-            for name, n_args in (("step", 9), ("packed_prefill", 10)):
-                real = getattr(dec, name)
+            real = dec.packed_prefill
 
-                def spy(*a, real=real, name=name, n_args=n_args):
-                    out = real(*a)
-                    sp, mode = a[n_args - 2], a[n_args - 1]
-                    rows = a[3] if name == "step" else None
-                    record.append((out[5].cpu(), {
-                        key: v.cpu() for key, v in sp.items()}, mode,
-                        out[0].cpu(), None if rows is None else rows.cpu()))
-                    return out[:5]
-                setattr(dec, name, spy)
+            def spy(*a):
+                out = real(*a)
+                sp = {key: v.to("cpu", copy=True)
+                      for key, v in a[8].items()}
+                record.append((out[5].cpu(), sp, a[9], out[0].cpu(), None))
+                return out[:5]
+            dec.packed_prefill = spy
+            dec._graphs = GraphSpy(dec, record)
         futs = {i: srv.submit(prompts[i], sampling=params[i]) for i in order}
         srv.start()               # a burst: every request in the first round
         try:
@@ -1719,11 +1777,17 @@ def sampler_cost(torch, reps=50):
 
 # ---- phase 5: serving -------------------------------------------------------
 
-def serve(torch, model, prompts, k, sampling=None):
+def serve(torch, model, prompts, k, sampling=None, profile=False, **kw):
     """A warm and a measured pass of `prompts` (each with its
     `sampling` entry, default greedy) through a server at k tokens a
-    dispatch; the launch counts are zeroed just before the measured
-    pass and read just after."""
+    dispatch (`kw`: more server options); the launch counts are zeroed
+    just before the measured pass and read just after. Every decode
+    dispatch must be one graph replay. With `profile`, a third pass runs
+    under torch.profiler, as scripts/torch_serve_profile.py reads it: the
+    device's busy time over its kernels, and the idle share 1 - busy / the
+    measured pass's wall time. Returns (stats, launch counts, peak
+    memory, outputs, {"wall", "busy", "idle", "k2_traced",
+    "param_bytes"})."""
     from paddle_tpu_torch.inference import PagedGenerationServer
     from paddle_tpu_torch.ops import kernels
 
@@ -1731,19 +1795,49 @@ def serve(torch, model, prompts, k, sampling=None):
     srv = PagedGenerationServer(model, max_slots=8, block_size=16,
                                 max_prompt_len=768, max_new_tokens=32,
                                 prefill_chunk_tokens=512,
-                                steps_per_dispatch=k, device=DEV).start()
+                                steps_per_dispatch=k, device=DEV,
+                                **kw).start()
+    extra = {"busy": None, "idle": None, "k2_traced": None}
+
+    def one_pass():
+        return [f.result(timeout=600) for f in
+                [srv.submit(p, sampling=sp)
+                 for p, sp in zip(prompts, sampling)]]
+
     try:
-        for f in [srv.submit(p, sampling=sp)                 # warm pass
-                  for p, sp in zip(prompts, sampling)]:
-            f.result(timeout=600)
+        one_pass()                                         # warm pass
         srv.reset_stats()
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_launch_counts()                      # main path
-        outs = [f.result(timeout=600) for f in
-                [srv.submit(p, sampling=sp)
-                 for p, sp in zip(prompts, sampling)]]
+        t0 = time.perf_counter()
+        outs = one_pass()
+        torch.cuda.synchronize()
+        extra["wall"] = time.perf_counter() - t0
         counts = kernels.launch_counts()
         st = srv.stats()
+        extra["param_bytes"] = sum(t.numel() * t.element_size()
+                                   for t in srv._params.values())
+        if profile:
+            from torch.profiler import ProfilerActivity
+            from torch.profiler import profile as profiler
+
+            with profiler(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+                one_pass()
+                torch.cuda.synchronize()
+            busy = k2 = 0
+            for ev in prof.key_averages():
+                if ev.device_type != torch.autograd.DeviceType.CUDA:
+                    continue
+                us = getattr(ev, "self_device_time_total",
+                             getattr(ev, "self_cuda_time_total", 0))
+                busy += us
+                if K2_NAME.search(ev.key):
+                    k2 += ev.count
+            if busy <= 0:
+                fail(f"serving k={k}: the profiler recorded no device time")
+            extra.update(busy=busy / 1e6, idle=1 - busy / 1e6 / extra["wall"],
+                         k2_traced=k2)
     finally:
         srv.stop()
     V = model.cfg.vocab_size
@@ -1760,7 +1854,267 @@ def serve(torch, model, prompts, k, sampling=None):
     if counts["paged_decode_dense"] < need_k2 or need_k2 == 0:
         fail(f"serving k={k}: K2 ran {counts['paged_decode_dense']} times,"
              f" expected >= {need_k2}")
-    return st, counts, torch.cuda.max_memory_allocated()
+    if st["decode_graph_replays"] != st["decode_steps"]:
+        fail(f"serving k={k}: {st['decode_graph_replays']} graph replays "
+             f"for {st['decode_steps']} decode dispatches")
+    return st, counts, torch.cuda.max_memory_allocated(), outs, extra
+
+
+def idle_text(extra, st, k, L):
+    """The profiled pass's device busy time and idle share, or why the
+    idle share is not measured (the trace holds fewer K2 kernels than the
+    pass launched: graph kernels untraced)."""
+    if extra["idle"] is None:
+        return "idle share not measured"
+    want = L * st["decode_steps"] * k
+    if extra["k2_traced"] < want:
+        return (f"device busy {extra['busy'] * 1e3:.1f} ms; idle share not "
+                f"measured: the trace holds {extra['k2_traced']} K2 kernels "
+                f"of >= {want}")
+    return (f"device busy {extra['busy'] * 1e3:.1f} ms of "
+            f"{extra['wall'] * 1e3:.1f} ms wall, idle share "
+            f"{extra['idle']:.3f} (K2 kernels traced {extra['k2_traced']})")
+
+
+# ---- phase 5g: one decode graph against the eager loop ----------------------
+
+G_SLOTS = 8
+G_MODES = (("greedy", (False, False)), ("sampled", (True, False)),
+           ("penalties", (False, True)))
+
+
+def graph_store(torch, cfg, mode, lens, rs):
+    """Phase 5g's slot store in `mode`: sampled rows alternate with greedy
+    ones (temperature 0.8, top-p 0.95), penalised rows carry every
+    penalty with counts from a random prompt of their length; slot 1 has
+    three stop ids (a stop matrix 4 wide)."""
+    from paddle_tpu_torch.sampling import SamplingParams, SlotParamStore
+
+    store = SlotParamStore(G_SLOTS, cfg.vocab_size, DEV)
+    for b in range(G_SLOTS):
+        kw = {}
+        if mode[0] and b % 2:
+            kw.update(temperature=0.8, top_p=0.95)
+        if mode[1] and b % 3 != 2:
+            kw.update(repetition_penalty=1.2, presence_penalty=0.3,
+                      frequency_penalty=0.1)
+        if b == 1:
+            kw.update(stop_token_ids=(11, 220, 13))
+        store.set_slot(b, SamplingParams(**kw), 500 + b,
+                       prompt_ids=rs.randint(0, cfg.vocab_size, lens[b]))
+    return store
+
+
+def graph_parity(torch, model, card):
+    """5g: GPT-2 small's decoder on the card, outside the server: two
+    dispatches of multistep(k) through one captured graph and through the
+    eager loop, from one state (two pools with the same random contents,
+    two stores with the same parameters), for weights bf16 / W8A16 x pools
+    dense / int8 x modes greedy / sampled / penalties x k 1 / 4 / 8; 8
+    slots of lengths RandomState(5).randint(64, 769), slot 5 idle. Tokens,
+    stops, counts, the stores' counts and every pool element must be equal
+    bit for bit after each case; the launches of the second dispatch (a
+    pure replay, under set_sync_debug_mode("error")) must equal the eager
+    loop's. Returns {(weights, pool, mode, k): (eager host us, graph host
+    us, eager ms, graph ms)} of the second dispatch."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache, blocks_for
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+    from paddle_tpu_torch.ops import kernels
+
+    cfg = model.cfg
+    L, H = cfg.num_layers, cfg.num_heads
+    Dh = cfg.hidden_size // H
+    rs = np.random.RandomState(5)
+    lens = rs.randint(64, 769, G_SLOTS)
+    act = torch.ones(G_SLOTS, dtype=torch.bool, device=DEV)
+    act[5] = False
+    nb = sum(blocks_for(int(n) + 16, 16) for n in lens) + 1
+    width = blocks_for(int(lens.max()) + 16, 16)
+    g = torch.Generator(device=DEV).manual_seed(5)
+    res = {}
+    for wname in ("bf16", "w8a16"):
+        params = (model.flat_params() if wname == "bf16"
+                  else model.quantize_weights())
+        for kv_dtype in (None, "int8"):
+            pools = [PagedKVCache(L, H, Dh, block_size=16, num_blocks=nb,
+                                  dtype=torch.bfloat16, kv_dtype=kv_dtype,
+                                  device=DEV) for _ in range(2)]
+            for c in pools:
+                c.ensure_many([(b, int(n) + 16) for b, n in enumerate(lens)])
+            leaves = [c._pool_leaves() for c in pools]
+            for a, b in zip(*leaves):
+                if a.dtype == torch.int8:
+                    a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                          device=DEV))
+                elif kv_dtype:                     # int8 scales
+                    a.copy_(torch.rand(a.shape, generator=g, device=DEV)
+                            * 0.02)
+                else:
+                    a.copy_(torch.randn(a.shape, generator=g, device=DEV))
+                b.copy_(a)
+            tables = torch.from_numpy(pools[0].table_array(
+                range(G_SLOTS), width)).to(DEV)
+            dec = PagedDecoder.for_config(cfg, 16, kv_dtype=kv_dtype)
+            tag = f"{wname} {kv_dtype or 'dense'}"
+            for mname, mode in G_MODES:
+                stores = [graph_store(torch, cfg, mode, lens,
+                                      np.random.RandomState(6))
+                          for _ in range(2)]
+                for k in (1, 4, 8):
+                    outs, counts, times = [], [], []
+                    for side, graph in ((0, False), (1, True)):
+                        c, store = pools[side], stores[side]
+                        tok = torch.full((G_SLOTS,), 50, dtype=torch.int32,
+                                         device=DEV)
+                        pos = torch.from_numpy((lens - 1).astype(
+                            np.int32)).to(DEV)
+                        steps = np.zeros(G_SLOTS, np.int32)
+                        got = []
+                        for d in range(2):
+                            sp, m = store.step_args(steps)
+                            if m != mode:
+                                fail(f"phase 5g: the store's mode {m}")
+                            args = (params, tok, pos, act, tables,
+                                    c.k_blocks, c.v_blocks, sp)
+                            torch.cuda.synchronize()
+                            if d == 1:
+                                kernels.reset_launch_counts()
+                            if graph and d == 1:
+                                torch.cuda.set_sync_debug_mode("error")
+                            t0 = time.perf_counter()
+                            try:
+                                out = (dec.graphs(k, mode, *args) if graph
+                                       else dec.multistep(k, mode)(*args))
+                                t_host = time.perf_counter() - t0
+                            finally:
+                                torch.cuda.set_sync_debug_mode("default")
+                            torch.cuda.synchronize()
+                            t_wall = time.perf_counter() - t0
+                            toks, stops, _kc, _vc, cnt = out
+                            got.append((toks.clone(), stops.clone(),
+                                        None if cnt is None else cnt.clone()))
+                            store.swap_counts(cnt)
+                            tok, pos = toks[-1].clone(), pos + k
+                            steps = steps + k
+                        counts.append(kernels.launch_counts())
+                        times.append((t_host * 1e6, t_wall * 1e3))
+                        outs.append(got)
+                    what = f"phase 5g {tag} {mname} k={k}"
+                    for (te, se, ce), (tg, sg, cg) in zip(*outs):
+                        if not (torch.equal(te, tg) and torch.equal(se, sg)
+                                and (ce is None) == (cg is None)
+                                and (ce is None or torch.equal(ce, cg))):
+                            fail(f"{what}: graph and eager outputs differ")
+                        if te[:, 5].any():
+                            fail(f"{what}: the idle slot emitted a token")
+                    if mode[1] and not torch.equal(stores[0].counts,
+                                                   stores[1].counts):
+                        fail(f"{what}: the stores' counts differ")
+                    for a, b in zip(*[c._pool_leaves() for c in pools]):
+                        if not torch.equal(a, b):
+                            fail(f"{what}: the pools differ")
+                    k2 = counts[1]["paged_decode_" + (kv_dtype or "dense")]
+                    if counts[0] != counts[1] or k2 != L * k:
+                        fail(f"{what}: launches of a replay "
+                             f"{ {n: v for n, v in counts[1].items() if v} } "
+                             f"vs eager "
+                             f"{ {n: v for n, v in counts[0].items() if v} }")
+                    res[(wname, kv_dtype or "dense", mname, k)] = (
+                        times[0][0], times[1][0], times[0][1], times[1][1])
+            if dec.graphs.captures != len(G_MODES) * 3:
+                fail(f"phase 5g {tag}: {dec.graphs.captures} captures for "
+                     f"{len(G_MODES) * 3} keys")
+            del pools, dec, leaves
+            torch.cuda.empty_cache()
+    return res
+
+
+# ---- phase 5w: W8A16 weights ------------------------------------------------
+
+def w8_prefix_logits(torch, cfg, params_cpu, seq, kv_dtype):
+    """float32 CPU logits of the last position of `seq` under W8A16
+    params: one packed prefill of the whole sequence."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache, blocks_for
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+    from paddle_tpu_torch.sampling import greedy_args
+
+    n = int(seq.size)
+    H = cfg.num_heads
+    cache = PagedKVCache(cfg.num_layers, H, cfg.hidden_size // H,
+                         block_size=16, num_blocks=blocks_for(n, 16) + 1,
+                         kv_dtype=kv_dtype, device="cpu")
+    cache.allocate(0, n)
+    dec = PagedDecoder.for_config(cfg, 16, return_logits=True,
+                                  kv_dtype=kv_dtype)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.int32))
+
+    out = dec.packed_prefill(
+        params_cpu, t(seq), t(np.zeros(n)), t(np.arange(n)),
+        t(cache.table_array([0], blocks_for(n, 16))), t([n - 1]),
+        cache.k_blocks, cache.v_blocks, greedy_args(1, "cpu"))
+    return out[5][0]
+
+
+def w8_serving_parity(torch, model32, card):
+    """5w (a): float32 GPT-2 small (phase 4's weights) served with
+    quantization="w8a16", alone and with kv_dtype="int8", on the card and
+    on the CPU: 8 prompts of 16-60 tokens from RandomState(9) as one
+    burst, 16 new tokens, greedy. Tokens must be identical; where they
+    are not, both tokens' CPU logits at the first difference must lie
+    within 2 x phase 4's limit (a tie the summation order may break),
+    counted. Before it, the decoder itself (phase 4's program) on W8A16
+    params, card vs CPU, within phase 4's limits. Returns {kv: (largest
+    logit difference, decoder near-ties, served near-ties, tokens)}."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    cfg = model32.cfg
+    V = cfg.vocab_size
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(1, V, (int(rs.randint(16, 61)),)).astype(np.int32)
+               for _ in range(8)]
+    wq = model32.quantize_weights()
+    params_cpu = {k: v.cpu() for k, v in wq.items()}
+    res = {}
+    for kv_dtype, atol in ((None, 2e-3), ("int8", 2e-2)):
+        worst, dec_ties = decoder_parity(torch, cfg, wq, kv_dtype, atol)
+        outs = {}
+        for dev in (DEV, "cpu"):
+            srv = PagedGenerationServer(model32, max_slots=8, block_size=16,
+                                        max_prompt_len=128,
+                                        max_new_tokens=16,
+                                        quantization="w8a16",
+                                        kv_dtype=kv_dtype, device=dev)
+            futs = [srv.submit(p) for p in prompts]
+            srv.start()
+            try:
+                outs[dev] = [f.result(timeout=600) for f in futs]
+                st = srv.stats()
+            finally:
+                srv.stop()
+            q = st["quantization"]
+            if q["mode"] != "w8a16" or q["kv_dtype"] != (kv_dtype or
+                                                          "float32"):
+                fail(f"phase 5w (a): stats quantization {q}")
+            if dev == DEV and st["decode_graph_replays"] != \
+                    st["decode_steps"]:
+                fail("phase 5w (a): a decode dispatch was not a replay")
+        ties = 0
+        for p, a, b in zip(prompts, outs[DEV], outs["cpu"]):
+            if np.array_equal(a, b):
+                continue
+            i = int(np.nonzero(a != b)[0][0])
+            lg = w8_prefix_logits(torch, cfg, params_cpu, a[:i], kv_dtype)
+            gap = abs(lg[int(a[i])].item() - lg[int(b[i])].item())
+            if i < p.size or gap > 2 * atol:
+                fail(f"phase 5w (a) {kv_dtype or 'dense'}: card and CPU "
+                     f"tokens differ at {i} (logit gap {gap:.3g})")
+            ties += 1
+        res[kv_dtype or "dense"] = (worst, dec_ties, ties,
+                                    sum(o.size - p.size for p, o in
+                                        zip(prompts, outs[DEV])))
+    return res
 
 
 # ---- phase 5p: the prefix cache on the serving path -------------------------
@@ -2075,7 +2429,8 @@ def poisson_drive(srv, pool, rps, seed=4321, new=SP_NEW):
     return [f.result(timeout=600) for f in futs], srv.stats()
 
 
-def near_tie_rule(torch, params_cpu, cfg, out_a, out_b, prompt_len):
+def near_tie_rule(torch, params_cpu, cfg, out_a, out_b, prompt_len,
+                  phase="5p (c)"):
     """Phase 4f's rule for two bf16 generations that differ: at their
     first difference both tokens' float32 CPU logits lie within
     2 * BF16_DECODER_REL of the logits' largest magnitude of the top one.
@@ -2084,7 +2439,7 @@ def near_tie_rule(torch, params_cpu, cfg, out_a, out_b, prompt_len):
 
     i = int(np.nonzero(out_a != out_b)[0][0])
     if i < prompt_len:
-        fail("phase 5p (c): an output does not start with its prompt")
+        fail(f"phase {phase}: an output does not start with its prompt")
     with torch.no_grad():
         lg = logits(params_cpu, cfg, torch.from_numpy(
             out_a[:i].astype(np.int64))[None])[0, -1]
@@ -2505,15 +2860,37 @@ def main():
             f"none, {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
 
-    # phase 5: serving, GPT-2 small bf16 (phase 4f's weights)
+    # phase 5g: the decode graph against the eager loop, GPT-2 small bf16
+    # (phase 4f's weights) and its W8A16 packing, outside the server
+    t0 = time.perf_counter()
+    host = graph_parity(torch, model, card)
+    say(f"phase 5g graph vs eager: weights bf16/w8a16 x pools dense/int8 x "
+        f"greedy/sampled/penalties x k 1/4/8 ({len(host)} cases, 8 slots): "
+        f"tokens, stops, counts and pools bitwise equal over a capture and "
+        f"a replay; a replay's launches equal the eager loop's; no host "
+        f"sync in a replay; {time.perf_counter() - t0:.1f} s")
+    for (w, kv, mname) in sorted({key[:3] for key in host}):
+        say(f"phase 5g host us per dispatch {w} {kv} {mname}, eager -> graph"
+            f" (wall ms to a synchronize, eager -> graph): " + "; ".join(
+                f"k={k} {host[(w, kv, mname, k)][0]:.0f} -> "
+                f"{host[(w, kv, mname, k)][1]:.0f} us "
+                f"({host[(w, kv, mname, k)][2]:.3f} -> "
+                f"{host[(w, kv, mname, k)][3]:.3f} ms)" for k in (1, 4, 8))
+            + f" [{card}]")
+
+    # phase 5: serving, GPT-2 small bf16 (phase 4f's weights); every decode
+    # dispatch one graph replay
     rng = np.random.RandomState(7)
     prompts = [rng.randint(1, cfg.vocab_size,
                            (int(rng.randint(64, 769)),)).astype(np.int32)
                for _ in range(16)]
     main_counts["ragged_stream_dense"] = 0
     main_counts["paged_decode_dense"] = 0
+    served = {}
     for k in (1, 8):
-        st, counts, peak = serve(torch, model, prompts, k)
+        st, counts, peak, outs, extra = serve(torch, model, prompts, k,
+                                              profile=True)
+        served[k] = (st, outs, extra)
         for n in ("ragged_stream_dense", "paged_decode_dense"):
             main_counts[n] += counts[n]
         say(f"phase 5 serving k={k}: tokens_per_sec "
@@ -2522,12 +2899,29 @@ def main():
             f"p50/p99 {st['itl_p50_ms']:.2f}/{st['itl_p99_ms']:.2f} ms "
             f"requests {st['requests']} new_tokens {st['new_tokens']} "
             f"prefill_dispatches {st['prefill_dispatches']} decode "
-            f"dispatches {st['decode_steps']} launches K1 "
+            f"dispatches {st['decode_steps']} graph replays "
+            f"{st['decode_graph_replays']} (captures "
+            f"{st['decode_graph_captures']}) launches K1 "
             f"{counts['ragged_stream_dense']} K2 "
             f"{counts['paged_decode_dense']} max_memory_allocated "
-            f"{peak / 2**20:.0f} MiB [{card}]")
-        if k == 1:
-            greedy_k1 = st
+            f"{peak / 2**20:.0f} MiB; "
+            f"{idle_text(extra, st, k, cfg.num_layers)} [{card}]")
+    greedy_k1 = served[1][0]
+    params_cpu = {k: v.float().cpu() for k, v in model.flat_params().items()}
+    ties = 0
+    for p, a, b in zip(prompts, served[1][1], served[8][1]):
+        if not np.array_equal(a, b):
+            if not near_tie_rule(torch, params_cpu, cfg, a, b, p.size,
+                                 phase="5"):
+                fail("phase 5: greedy tokens differ between k=1 and k=8 "
+                     "beyond phase 4f's near-tie rule")
+            ties += 1
+    r18 = served[8][0]["tokens_per_sec"] / max(greedy_k1["tokens_per_sec"],
+                                               1e-9)
+    say(f"phase 5 k=8 vs k=1: tokens_per_sec {r18:.3f}x; greedy tokens "
+        f"{len(prompts) - ties} of {len(prompts)} requests identical, {ties} "
+        f"differ at a near tie (phase 4f's rule) [{card}]")
+    del params_cpu
 
     # phase 5s: the same traffic, every request sampled (this slice's
     # main path: its K1/K2 launches join the kernels line)
@@ -2535,7 +2929,8 @@ def main():
 
     sampling = [SamplingParams(temperature=0.8, top_p=0.95, seed=1000 + i)
                 for i in range(len(prompts))]
-    st, counts, peak = serve(torch, model, prompts, 1, sampling)
+    st, counts, peak, _outs, extra = serve(torch, model, prompts, 1,
+                                           sampling, profile=True)
     if st["sampling_sampled_dispatches"] != st["decode_steps"]:
         fail(f"phase 5s: {st['sampling_sampled_dispatches']} of "
              f"{st['decode_steps']} decode dispatches sampled")
@@ -2550,15 +2945,50 @@ def main():
         f"{st['itl_p99_ms']:.2f} ms (greedy {g['itl_p50_ms']:.2f}/"
         f"{g['itl_p99_ms']:.2f}) requests {st['requests']} new_tokens "
         f"{st['new_tokens']} prefill_dispatches {st['prefill_dispatches']} "
-        f"decode dispatches {st['decode_steps']} launches K1 "
+        f"decode dispatches {st['decode_steps']} graph replays "
+        f"{st['decode_graph_replays']} launches K1 "
         f"{counts['ragged_stream_dense']} K2 {counts['paged_decode_dense']}"
-        f" max_memory_allocated {peak / 2**20:.0f} MiB [{card}]")
+        f" max_memory_allocated {peak / 2**20:.0f} MiB; "
+        f"{idle_text(extra, st, 1, cfg.num_layers)} [{card}]")
     cost = sampler_cost(torch)
     for name, (ms, launches, host_us, store_us) in cost.items():
         say(f"phase 5s sampler {name} 8 x 50257: device {ms:.4f} ms and "
             f"{launches:.0f} kernel launches per decode step (profiler), "
             f"host {host_us:.1f} us per call, store step_args host "
             f"{store_us:.1f} us [{card}]")
+
+    # phase 5w: W8A16 weights. (a) float32, card vs CPU; (b) bf16 on phase
+    # 5's traffic at k = 1 (its K1/K2 launches join the kernels line)
+    t0 = time.perf_counter()
+    model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
+    for kv, (worst, dties, sties, n_tok) in w8_serving_parity(
+            torch, model32, card).items():
+        say(f"phase 5w (a) W8A16 f32 {kv} pool: decoder max logit diff "
+            f"{worst:.3g} (phase 4's limit {2e-3 if kv == 'dense' else 2e-2}"
+            f"), near-ties {dties}; served 8 requests x 16 tokens card vs "
+            f"CPU: {8 - sties} identical, {sties} differ at a near tie "
+            f"({n_tok} tokens)")
+    del model32
+    torch.cuda.empty_cache()
+    st, counts, peak, _outs, extra = serve(torch, model, prompts, 1,
+                                           profile=True,
+                                           quantization="w8a16")
+    for n in ("ragged_stream_dense", "paged_decode_dense"):
+        main_counts[n] += counts[n]
+    g, gx = greedy_k1, served[1][2]
+    say(f"phase 5w (b) serving k=1 bf16 W8A16: tokens_per_sec "
+        f"{st['tokens_per_sec']:.1f} (bf16 {g['tokens_per_sec']:.1f}) itl "
+        f"p50/p99 {st['itl_p50_ms']:.2f}/{st['itl_p99_ms']:.2f} ms (bf16 "
+        f"{g['itl_p50_ms']:.2f}/{g['itl_p99_ms']:.2f}) ttft p50 "
+        f"{st['ttft_p50_ms']:.1f} ms (bf16 {g['ttft_p50_ms']:.1f}) param "
+        f"bytes {extra['param_bytes']} (bf16 {gx['param_bytes']}, "
+        f"{extra['param_bytes'] / gx['param_bytes']:.3f}x) decode "
+        f"dispatches {st['decode_steps']} graph replays "
+        f"{st['decode_graph_replays']} launches K1 "
+        f"{counts['ragged_stream_dense']} K2 {counts['paged_decode_dense']}"
+        f" max_memory_allocated {peak / 2**20:.0f} MiB; "
+        f"{idle_text(extra, st, 1, cfg.num_layers)}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
 
     # phase 5p: the prefix cache on the serving path: (b) the copies, (a)
     # parity in float32 (phase 4's weights), (c) shared-prefix serving in

@@ -242,6 +242,26 @@ class PagedKVCache:
                    for kv in (self.k_blocks, self.v_blocks)
                    for t in _leaves(kv))
 
+    @property
+    def scale_bytes(self):
+        """Bytes of the per-vector scale buffers (0 for a dense pool): the
+        quantization's overhead on top of the int8 codes."""
+        if self.kv_dtype != "int8":
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t in (self.k_blocks.scales, self.v_blocks.scales))
+
+    @property
+    def bytes_per_token(self):
+        """Pool bytes per usable token slot (the trash block's share
+        included)."""
+        return self.pool_bytes_total / (self.capacity_tokens or 1)
+
+    def stats_kv_dtype(self):
+        """The stored element dtype as a stats string: "int8" for a
+        quantized pool, else the dense dtype's name."""
+        return self.kv_dtype or str(self.dtype).replace("torch.", "")
+
     def _pool_leaves(self):
         return _leaves(self.k_blocks) + _leaves(self.v_blocks)
 
@@ -905,9 +925,10 @@ class PagedKVCache:
         return {
             "block_size": self.block_size,
             "num_blocks": self.num_blocks - 1,  # usable (trash excluded)
-            "kv_dtype": self.kv_dtype or str(self.dtype).replace(
-                "torch.", ""),
+            "kv_dtype": self.stats_kv_dtype(),
             "pool_bytes_total": self.pool_bytes_total,
+            "pool_bytes_per_token": self.bytes_per_token,
+            "scale_bytes": self.scale_bytes,
             "used_blocks": used,
             "free_blocks": len(self._free),
             "retained_blocks": len(self._retained),

@@ -49,7 +49,19 @@ caching off (the default) the server takes the plain allocation path:
 no lookups, no index, no retention, no spare block. The attribute is
 read at each admission and publish, so it may be flipped on a live
 server. `kv_dtype="int8"` serves from an int8 pool (codes + per-vector
-scales; the int8 K1/K2 on the card).
+scales; the int8 K1/K2 on the card). `quantization="w8a16"` (alias
+`weight_quant="int8"`) packs the weights once, at construction
+(`GPT2.quantize_weights`), and every dispatch runs the decoder's W8A16
+products.
+
+On the card every decode dispatch is ONE CUDA graph replay
+(`PagedDecoder.graphs`, `nn/decode_graph.py`): `multistep(k, mode)` is
+captured once per key (k, the mode, the stop matrix's width, the pool
+and the params) and replayed, at k = 1 too, as the reference jits its
+step and its k-step scan. A capture or replay that fails fails the
+dispatch like any other; it never runs the eager loop instead. On the
+CPU the eager functions run. The packed prefill stays eager: its stream
+length varies with every dispatch.
 
 The packed stream is not bucketed to a power of two as the reference's
 is: PyTorch compiles nothing per shape, so a bucket would only add pad
@@ -57,9 +69,8 @@ rows to every dispatch. Block tables are built fresh for every
 dispatch, so a copy-on-write swap of a block id is never served stale.
 
 Left for later slices: speculation, unified/async rounds, the front
-door and scheduler seams (preemption, warm resume, tier prefetch),
-W8A16 weights, the recovery ladder and journal, the operations plane
-and sharding.
+door and scheduler seams (preemption, warm resume, tier prefetch), the
+recovery ladder and journal, the operations plane and sharding.
 """
 from __future__ import annotations
 
@@ -128,6 +139,8 @@ class PagedGenerationServer:
     kv_tier: a `kv_tier.HostKVTier` (or True for the default one) below
         the pool; needs enable_prefix_cache.
     kv_dtype: None (a dense pool in the weights' dtype) or "int8".
+    quantization: None or "w8a16" (int8 weights, packed once here);
+        weight_quant="int8" is its alias.
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
@@ -137,7 +150,20 @@ class PagedGenerationServer:
                  steps_per_dispatch=1, prefill_chunk_tokens=512,
                  pack_align=None, detokenize=None, stop_tail_tokens=16,
                  enable_prefix_cache=False, kv_tier=None, kv_dtype=None,
-                 device=None):
+                 quantization=None, weight_quant=None, device=None):
+        if quantization not in (None, "w8a16"):
+            raise ValueError(f"unknown quantization {quantization!r} "
+                             "(supported: None, 'w8a16')")
+        if weight_quant == "int8":
+            quantization = "w8a16"
+        elif weight_quant is not None:
+            raise ValueError(f"unknown weight_quant {weight_quant!r} "
+                             "(supported: 'int8')")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
+                             "(supported: None, 'int8')")
+        self.quantization = quantization
+        self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         cfg = model.cfg
         self.temperature = float(temperature)
@@ -173,6 +199,8 @@ class PagedGenerationServer:
                 "holds demoted prefix-index content)")
         self._params = {k: v.to(self.device)
                         for k, v in model.flat_params().items()}
+        if quantization == "w8a16":
+            self._params = model.quantize_weights(self._params)
         dt = self._params["ln_f.weight"].dtype
         self._m_width = blocks_for(
             self.max_prompt_len + self.max_new + self._overrun,
@@ -291,6 +319,7 @@ class PagedGenerationServer:
         self._active_integral = 0
         self._sampled_dispatches = 0
         self._fastpath_dispatches = 0
+        self._graph_replays = 0
         self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
 
     def reset_stats(self):
@@ -335,6 +364,20 @@ class PagedGenerationServer:
                 "slot_fill": (self._active_integral
                               / ((self._steps or 1) * self.max_slots)),
                 "kv_cache": self.cache.stats(),
+                # decode dispatches served by a CUDA graph replay (every
+                # one on the card, none on the CPU) and the captures so
+                # far (the decoder's lifetime)
+                "decode_graph_replays": self._graph_replays,
+                "decode_graph_captures": self._decoder.graphs.captures,
+                # the reference's schema, zeroed when quantization is off
+                "quantization": {
+                    "enabled": (self.quantization is not None
+                                or self.kv_dtype is not None),
+                    "mode": self.quantization or "none",
+                    "kv_dtype": self.cache.stats_kv_dtype(),
+                    "kv_scale_bytes": self.cache.scale_bytes,
+                    "kv_pool_bytes_total": self.cache.pool_bytes_total,
+                },
             }
 
     # ---- admission -------------------------------------------------------
@@ -566,21 +609,27 @@ class PagedGenerationServer:
             args = (self._params, self._tensor(tok), self._tensor(pos),
                     self._tensor(act), tables, self.cache.k_blocks,
                     self.cache.v_blocks, sp)
-            if k == 1:
+            if self.device.type == "cuda":  # one graph replay, any k
+                toks, stopped, _kc, _vc, counts = self._decoder.graphs(
+                    k, mode, *args)
+                with self._lock:
+                    self._graph_replays += 1
+            elif k == 1:
                 nxt, stopped, _kc, _vc, counts = self._decoder.step(
                     *args, mode)
-                toks = nxt.cpu().numpy()[None]        # [1, S]
-                stops = stopped.cpu().numpy()[None]
+                toks, stopped = nxt[None], stopped[None]     # [1, S]
             else:
                 toks, stopped, _kc, _vc, counts = self._decoder.multistep(
                     k, mode)(*args)
-                toks = toks.cpu().numpy()             # [k, S]
-                stops = stopped.cpu().numpy()
+            toks = toks.cpu().numpy()                     # [k, S]
+            stops = stopped.cpu().numpy()
+            # the counts are copied out before the next dispatch (a
+            # graph's outputs belong to its next replay)
+            self._sp_store.swap_counts(counts)
         except Exception as e:  # noqa: BLE001 — fail this dispatch's
             # requests, keep the engine serving
             self._dispatch_failure(e, list(active_idx))
             return
-        self._sp_store.swap_counts(counts)
         t_now = time.perf_counter()
         with self._lock:
             self._steps += 1

@@ -2,7 +2,8 @@
 (pretraining)."""
 from .bert import Bert, BertConfig, Ernie, ErnieConfig  # noqa: F401
 from .gpt2 import (GPT2, GPT2Config, build_train_step,  # noqa: F401
-                   from_reference_params)
+                   from_reference_params, quantized_params_from_reference)
 
 __all__ = ["GPT2", "GPT2Config", "build_train_step", "from_reference_params",
+           "quantized_params_from_reference",
            "Bert", "BertConfig", "Ernie", "ErnieConfig"]

@@ -9,6 +9,10 @@ stored `[in, out]` and applied as `x @ W` (the decode programs of
 are exactly those names and layouts, so `flat_params()` is the dict the
 decoder consumes and `from_reference_params` is a name-for-name copy of
 the reference's numpy weights (the bridge the parity tests use).
+`GPT2.quantize_weights` packs that dict for W8A16 serving as the
+reference does (int8 codes `name::w8c`, scales `name::w8s`), and
+`quantized_params_from_reference` carries the reference's packed dict
+across.
 
 The training path is a set of pure functions of that dict, as the
 reference's `build_train_step` re-binds its params per call:
@@ -180,6 +184,17 @@ class GPT2(nn.Module):
         detached from autograd."""
         return {n: p.detach() for n, p in self.named_parameters()}
 
+    def quantize_weights(self, params=None):
+        """Weight-only int8 (W8A16) packing of the decode path's large 2-D
+        weights, the reference's `GPT2.quantize_weights`: a NEW flat dict
+        where each quantized weight `name` is replaced by `name::w8c`
+        (int8 codes) and `name::w8s` (scales in the weight's dtype); every
+        other entry passes through. `params` defaults to `flat_params()`.
+        The serving engine calls it once, at construction."""
+        if params is None:
+            params = self.flat_params()
+        return quantize_decode_weights_int8(params, self.cfg)
+
     def _dropout(self):
         return self.cfg.dropout if self.training else 0.0
 
@@ -302,20 +317,101 @@ def build_train_step(cfg, dtype=torch.float32, device=None):
     return loss_fn, init_params
 
 
+def _w8_weights(cfg):
+    """(name, reduction axis) of each weight W8A16 quantizes: wte per
+    ROW (its scale serves the embedding gather and the tied head);
+    lm_head (untied) and each layer's qkv_proj, out_proj, fc1 and fc2
+    per output COLUMN."""
+    return ([("wte.weight", 1)]
+            + ([] if cfg.tie_embeddings else [("lm_head.weight", 0)])
+            + [(f"h.{i}.{part}.weight", 0) for i in range(cfg.num_layers)
+               for part in ("qkv_proj", "out_proj", "fc1", "fc2")])
+
+
+def quantize_decode_weights_int8(params, cfg):
+    """Per-channel symmetric int8 of the reference's
+    `_quantize_decode_weights_int8`: codes = clip(round(w / s), +-127)
+    with s = max(amax, 1e-12) / 127, all in float32 (`torch.round` rounds
+    half to even, as `jnp.round`), so the codes equal the reference's bit
+    for bit; the weights and axes of `_w8_weights`."""
+    out = dict(params)
+    for name, axis in _w8_weights(cfg):
+        w = out.pop(name)
+        wf = w.float()
+        amax = wf.abs().amax(dim=axis, keepdim=True)
+        scale = amax.clamp_min(1e-12) / 127.0
+        out[name + "::w8c"] = torch.round(wf / scale).clamp(
+            -127, 127).to(torch.int8)
+        out[name + "::w8s"] = scale.squeeze(axis).to(w.dtype)
+    return out
+
+
+def quantized_param_shapes(cfg):
+    """{flat name: shape} of W8A16 params: `param_shapes` with each
+    quantized weight replaced by its codes (the weight's shape) and its
+    scales (one per row of wte, one per output column otherwise)."""
+    shapes = param_shapes(cfg)
+    for name, axis in _w8_weights(cfg):
+        shape = shapes.pop(name)
+        shapes[name + "::w8c"] = shape
+        shapes[name + "::w8s"] = (shape[1 - axis],)
+    return shapes
+
+
+def _host_tensor(a):
+    """numpy -> a CPU tensor of the same dtype (a bf16 array of
+    ml_dtypes through float32, exactly)."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))  # a writable copy
+
+
+def quantized_params_from_reference(cfg, params_np, *, device=None):
+    """The W8A16 weight bridge: the reference's quantized flat params
+    (`GPT2.quantize_weights()` or the `export_generator` artifact's
+    keys, as numpy) as the port's flat dict on `device` (None -> CUDA),
+    name for name: int8 codes, scales and every other entry in their
+    own float dtype. Raises on a missing, unexpected, misshaped or
+    mistyped entry."""
+    shapes = quantized_param_shapes(cfg)
+    missing = sorted(set(shapes) - set(params_np))
+    extra = sorted(set(params_np) - set(shapes))
+    if missing or extra:
+        raise ValueError(f"W8A16 reference params do not match GPT2Config: "
+                         f"missing {missing[:4]}, unexpected {extra[:4]}")
+    dev = resolve_device(device)
+    out = {}
+    for name, shape in shapes.items():
+        t = _host_tensor(params_np[name])
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
+                             f"{shape}")
+        codes = name.endswith("::w8c")
+        if codes != (t.dtype == torch.int8) or not (
+                codes or t.is_floating_point()):
+            raise ValueError(f"{name}: dtype {t.dtype}, expected "
+                             f"{'int8' if codes else 'a float dtype'}")
+        out[name] = t.to(dev)
+    return out
+
+
 def from_reference_params(cfg, params_np, *, device=None):
     """The weight bridge: a `GPT2` holding exactly the reference's flat
     params (`functional_state()` converted to numpy), name for name and
     in the same `[in, out]` layout.
 
-    Rejects the W8A16 `::w8c`/`::w8s` keys (int8 weight serving is a
-    later slice) and any missing, unexpected or misshaped entry. Each
+    Rejects the W8A16 `::w8c`/`::w8s` keys (a module holds float
+    parameters: `quantized_params_from_reference` carries those into a
+    flat dict) and any missing, unexpected or misshaped entry. Each
     tensor keeps its array's float dtype."""
     quant = sorted(k for k in params_np if "::w8" in k)
     if quant:
         raise ValueError(
-            f"W8A16 weights ({quant[0]!r}, ...) are not served by this "
-            f"slice of the port: int8 weight serving comes with the "
-            f"W8A16/int8-KV serving slice; pass unquantized params")
+            f"W8A16 weights ({quant[0]!r}, ...) cannot load into a GPT2 "
+            f"module, which holds float parameters: carry them with "
+            f"quantized_params_from_reference(cfg, params_np, device=...) "
+            f"into a flat dict for the decoder")
     shapes = param_shapes(cfg)
     missing = sorted(set(shapes) - set(params_np))
     extra = sorted(set(params_np) - set(shapes))
@@ -337,4 +433,6 @@ def from_reference_params(cfg, params_np, *, device=None):
 
 
 __all__ = ["GPT2Config", "GPT2", "from_reference_params", "param_shapes",
+           "quantize_decode_weights_int8", "quantized_param_shapes",
+           "quantized_params_from_reference",
            "build_train_step", "hidden_states", "logits", "lm_loss"]

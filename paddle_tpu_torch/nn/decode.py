@@ -14,7 +14,10 @@ The port of `paddle_tpu.nn.decode`'s serving programs:
     paged cache;
   * `multistep(n, mode)` — n decode tokens per call, a Python loop over
     `step` (the reference's `lax.scan`), advancing each row's PRNG step
-    with the loop index and threading the count buffer.
+    with the loop index and threading the count buffer. On the card the
+    server runs it through `graphs` (`nn/decode_graph.py`): the loop is
+    captured once per key as one CUDA graph and replayed, one launch a
+    dispatch, as the reference's jitted scan is one device program.
 
 Params are the flat GPT-2 dict (`models.gpt2.GPT2.flat_params()`), every
 projection `[in, out]` applied as `x @ W`. Masking is by LENGTH
@@ -32,9 +35,18 @@ inside the kernel.
 Readout is `sampling.processors.sample_tokens` under the dispatch's
 `mode` = (sampled, penalties), the reference's variant selector:
 `GREEDY_MODE` is a bare argmax. In penalty mode the 5th result is the
-updated [slots, V] count buffer (None otherwise). Left out: the
-non-packed `prefill` program, speculative verify, the unified/async
-round, W8A16 weights and every sharding argument.
+updated [slots, V] count buffer (None otherwise).
+
+W8A16 params (`models.gpt2.GPT2.quantize_weights`: `name::w8c` int8
+codes and `name::w8s` scales in place of a weight) make every program a
+W8A16 one through `_LayerHelpers.matw`, as the reference's `matw`:
+`(x @ codes.to(dt)) * scale.to(dt)` per output column, the embedding
+`codes[t] * scale[t]` per row, and the tied head with wte's row scales
+on its output columns. The product stays a `torch.matmul`: the
+reference computes it in XLA, outside any Pallas kernel.
+
+Left out: the non-packed `prefill` program, speculative verify, the
+unified/async round and every sharding argument.
 """
 from __future__ import annotations
 
@@ -44,6 +56,7 @@ import torch.nn.functional as F
 from ..ops.attention import paged_decode_attention, ragged_prefill_attention
 from ..sampling import processors as _proc
 from ..sampling.buffers import GREEDY_MODE
+from .decode_graph import DecodeGraphs
 
 
 def _kv_io(kv_quant):
@@ -75,8 +88,9 @@ def _kv_io(kv_quant):
 
 class _LayerHelpers:
     """GPT-2-layout building blocks shared by every program: layernorm
-    (population variance, as the reference's `ln`), qkv split,
-    embed/head and residual+MLP. spec = (L, H, Dh, E, eps, tied)."""
+    (population variance, as the reference's `ln`), the int8-aware
+    product `matw`, qkv split, embed/head and residual+MLP. spec = (L, H,
+    Dh, E, eps, tied)."""
 
     def __init__(self, spec):
         self.L, self.H, self.Dh, self.E, self.eps, self.tied = spec
@@ -84,28 +98,55 @@ class _LayerHelpers:
     def ln(self, x, w, b):
         return F.layer_norm(x, (self.E,), w, b, self.eps)
 
+    @staticmethod
+    def matw(p, name, x):
+        """x @ W for a `[in, out]` weight, or for W8A16 params
+        (`name::w8c` int8 codes, `name::w8s` per-output-column scales)
+        the reference's `(x @ codes.astype(dt)) * scale.astype(dt)`: the
+        scale applies after the product, dt is x's dtype."""
+        codes = p.get(name + "::w8c")
+        if codes is None:
+            return x @ p[name]
+        dt = x.dtype
+        return (x @ codes.to(dt)) * p[name + "::w8s"].to(dt)
+
     def qkv_split(self, p, i, a):
-        qkv = a @ p[f"h.{i}.qkv_proj.weight"] + p[f"h.{i}.qkv_proj.bias"]
+        qkv = self.matw(p, f"h.{i}.qkv_proj.weight", a) \
+            + p[f"h.{i}.qkv_proj.bias"]
         q, k, v = torch.split(qkv, self.E, dim=-1)
         new = q.shape[:-1] + (self.H, self.Dh)
         return q.reshape(new), k.reshape(new), v.reshape(new)
 
     def embed(self, p, t):
-        return p["wte.weight"][t.long()]
+        t = t.long()
+        codes = p.get("wte.weight::w8c")
+        if codes is None:
+            return p["wte.weight"][t]
+        # W8A16: wte is quantized per row, one scale shared with the head
+        dt = p["ln_f.weight"].dtype
+        return codes[t].to(dt) * p["wte.weight::w8s"][t][..., None].to(dt)
 
     def head(self, p, xf):
         """float32 logits. As the reference, the product runs in the
-        compute dtype and is cast to float32 after it."""
-        if self.tied:
+        compute dtype and is cast to float32 after it; a W8A16 tied head
+        applies wte's per-row scales to the output columns."""
+        if not self.tied:
+            return self.matw(p, "lm_head.weight", xf).float()
+        codes = p.get("wte.weight::w8c")
+        if codes is None:
             return (xf @ p["wte.weight"].T).float()
-        return (xf @ p["lm_head.weight"]).float()
+        dt = xf.dtype
+        return ((xf @ codes.T.to(dt))
+                * p["wte.weight::w8s"][None, :].to(dt)).float()
 
     def block_and_mlp(self, p, i, x, o):
-        x = x + o @ p[f"h.{i}.out_proj.weight"] + p[f"h.{i}.out_proj.bias"]
+        x = x + self.matw(p, f"h.{i}.out_proj.weight", o) \
+            + p[f"h.{i}.out_proj.bias"]
         m = self.ln(x, p[f"h.{i}.ln_2.weight"], p[f"h.{i}.ln_2.bias"])
-        hdn = F.gelu(m @ p[f"h.{i}.fc1.weight"] + p[f"h.{i}.fc1.bias"],
-                     approximate="tanh")
-        return x + hdn @ p[f"h.{i}.fc2.weight"] + p[f"h.{i}.fc2.bias"]
+        hdn = F.gelu(self.matw(p, f"h.{i}.fc1.weight", m)
+                     + p[f"h.{i}.fc1.bias"], approximate="tanh")
+        return x + self.matw(p, f"h.{i}.fc2.weight", hdn) \
+            + p[f"h.{i}.fc2.bias"]
 
 
 def _readout(hp, params, xf, sp, mode):
@@ -140,6 +181,16 @@ class PagedDecoder:
         self._hp = _LayerHelpers(self.spec)
         self._kv_write, self._kv_layer = _kv_io(self._kv_quant)
         self._scale = self.spec[2] ** -0.5
+        self._graphs = None
+
+    @property
+    def graphs(self):
+        """This decoder's CUDA graph cache (`nn.decode_graph.DecodeGraphs`,
+        made at first use): `graphs(k, mode, *multistep's arguments)` runs
+        `multistep(k, mode)` as one captured graph on the card."""
+        if self._graphs is None:
+            self._graphs = DecodeGraphs(self)
+        return self._graphs
 
     def _check_kv(self, kc, vc):
         for name, arr in (("kc", kc), ("vc", vc)):

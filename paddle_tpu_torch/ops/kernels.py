@@ -14,9 +14,10 @@ per-key-bias variants `flash_fwd_bias`, `flash_bwd_bias`,
 `flash_bwd_dq_bias`, `flash_bwd_dkv_bias`) that checks device, dtype,
 shape and contiguity, raises on anything the kernel does not take,
 launches on PyTorch's current stream, raises on a launch error, and
-counts its launches in a plain integer (`Kernel.launches`). The dense and
-int8 variants of each paged kernel, and the biased and unbiased flash
-kernels, are counted apart. The plain PyTorch versions and the CPU/CUDA
+counts its launches in a plain integer (`Kernel.launches`; a replayed
+CUDA graph adds the launches its capture counted, `add_launches`). The
+dense and int8 variants of each paged kernel, and the biased and
+unbiased flash kernels, are counted apart. The plain PyTorch versions and the CPU/CUDA
 dispatch live in `ops/attention.py` and `ops/flash_attention.py`;
 nothing here falls back.
 """
@@ -92,6 +93,14 @@ def reset_launch_counts():
 
 def launch_counts():
     return {k.name: k.launches for k in KERNELS}
+
+
+def add_launches(counts):
+    """Add {kernel name: n} to the launch counts. A CUDA graph's replay
+    runs no wrapper, so the graph adds what its wrappers counted while it
+    was captured (`nn.decode_graph`)."""
+    for k in KERNELS:
+        k.launches += counts.get(k.name, 0)
 
 
 _lib = None
@@ -623,7 +632,7 @@ def flash_bwd_dkv_bias(q, k, v, do, lse, delta, bias, scale, causal):
 
 
 __all__ = ["build", "library", "ragged_stream", "paged_decode",
-           "decode_split_plan",
+           "decode_split_plan", "add_launches",
            "flash_fwd", "flash_delta", "flash_bwd", "flash_fwd_bias",
            "flash_bwd_bias", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_dq_bias", "flash_bwd_dkv_bias", "reset_launch_counts",

@@ -16,8 +16,9 @@ samples; the penalty columns and the count buffer when any row uses
 penalties.
 
 The count buffer round-trips through the dispatch: the decoder returns
-the updated tensor and the server reinstalls it with `swap_counts`. It
-is allocated on the device once a penalty-using request is admitted
+the updated tensor and the server copies it back into the store's
+buffer with `swap_counts`, so the buffer keeps its address. It is
+allocated on the device once a penalty-using request is admitted
 (n_slots * V * 4 bytes: 8 slots of GPT-2's vocabulary are 1.6 MB).
 
 Left for later slices: `verify_args` (speculation) and `unified_args`
@@ -104,10 +105,12 @@ class SlotParamStore:
         self.counts[i] = torch.from_numpy(row).to(self.device)
 
     def swap_counts(self, new):
-        """Reinstall the count buffer a dispatch returned (None when the
-        dispatch ran a variant without penalties)."""
-        if new is not None:
-            self._counts = new
+        """Take the count buffer a dispatch returned (None when the
+        dispatch ran a variant without penalties). It is copied into the
+        store's own buffer, on the device's stream: a decode graph's
+        output is overwritten by that graph's next replay."""
+        if new is not None and new is not self._counts:
+            self.counts.copy_(new)
 
     # ---- device argument assembly ----------------------------------------
     def _stop_matrix(self, rows):

@@ -18,15 +18,20 @@ the Gumbel noise from them, vectorised over rows:
     into (i >> 32, i & 0xFFFFFFFF), and XOR the two output words;
   * `uniform` keeps the top 23 bits as the mantissa of a float in
     [1, 2), subtracts 1, and clamps below at float32's `tiny`;
-  * `gumbel` is `-log(-log(u))`.
+  * `gumbel` is `-log(-log(u))`, each log rounded to float32 as the
+    reference rounds it, but computed by `_log`: float64 arithmetic of
+    IEEE-exact operations only, so the noise has the same bits on every
+    host and on the card (with library logs, which the host picks, one
+    machine gave noise on the card 841 ulp from its CPU's).
 
 uint32 words are held in int64 tensors and masked to 32 bits after every
 add and shift: torch's `>>` is arithmetic on signed types, and its
 uint32 operations are incomplete on CUDA. Every function is pure tensor
 arithmetic on its inputs' device, with no host reads, so a decode step
 that samples can be captured whole. The bits and uniforms equal JAX's
-bitwise on any device; `log` may differ from XLA's by an ulp or two, so
-the Gumbel noise agrees within a few ulp.
+bitwise on any device; XLA's float32 `log` may differ from a correctly
+rounded one by an ulp or two, so the Gumbel noise agrees with the
+reference's within a few ulp.
 """
 from __future__ import annotations
 
@@ -36,6 +41,8 @@ _MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _TINY = torch.finfo(torch.float32).tiny
+_LN2 = 0.6931471805599453
+_SQRT_HALF = 0.7071067811865476
 
 
 def _rotl(x, r):
@@ -86,10 +93,29 @@ def uniform(keys, n):
     return torch.clamp_min(f * (1.0 - _TINY) + _TINY, _TINY)
 
 
+def _log(x):
+    """log of positive normal float32 values, rounded to float32: x =
+    m 2^e with m in [sqrt(1/2), sqrt(2)), log x = e ln 2 + 2 atanh(s),
+    s = (m - 1) / (m + 1), |s| <= 0.1716, the series to s^11 (truncation
+    below 5e-11 of the result), all in float64 from frexp, +, -, * and
+    /, which round the same on every host and on the card."""
+    m, e = torch.frexp(x.double())
+    low = m < _SQRT_HALF
+    m = torch.where(low, m * 2.0, m)
+    e = (e - low.to(e.dtype)).double()
+    s = (m - 1.0) / (m + 1.0)
+    s2 = s * s
+    p = torch.full_like(s, 1.0 / 11.0)
+    for k in (4, 3, 2, 1, 0):
+        p = p * s2 + 1.0 / (2 * k + 1)
+    return (e * _LN2 + 2.0 * s * p).float()
+
+
 def gumbel(keys, n):
     """[R, 2] keys -> [R, n] float32 Gumbel noise, each row
-    `jax.random.gumbel(key_r, (n,), float32)`."""
-    return -torch.log(-torch.log(uniform(keys, n)))
+    `jax.random.gumbel(key_r, (n,), float32)`: -log(-log(u)) with each
+    log rounded to float32, by `_log` (the same bits on every device)."""
+    return -_log(-_log(uniform(keys, n)))
 
 
 __all__ = ["threefry2x32", "fold_in_keys", "random_bits", "uniform",

@@ -14,6 +14,11 @@ loop but not the kernels. Prints, with the card's name and power limit:
     over all kernels of the profiled pass, and the device's idle share
     (1 - busy / unprofiled wall; kernels on one stream do not overlap);
   * device time by kernel name (top 15), with each one's share;
+  * where the measured pass's wall time goes on the host clock: inside
+    the packed prefill dispatches, inside the decode dispatches (device
+    waits included) and, within those, the decode graph's call (its key
+    and its replay: static copies and the graph launch), and the rest
+    of the loop (admission, bookkeeping, waiting for work);
   * the share of the port's own kernels in the device time: K1 (every
     kernel whose name starts with `ragged_stream`: the bf16
     `ragged_stream_sm90_kernel` serving runs, and the float32 SIMT
@@ -24,6 +29,7 @@ loop but not the kernels. Prints, with the card's name and power limit:
 
 Usage (on a machine with the card, from the repo root):
     python3 scripts/torch_serve_profile.py [--steps-per-dispatch K]
+        [--quantization w8a16]
 """
 import argparse
 import os
@@ -44,9 +50,23 @@ K1_NAME = re.compile(r"(?:^|[\s:])ragged_stream\w*")
 K2_NAME = re.compile(r"(?:^|[\s:])paged_decode\w*")
 
 
+def _timed(fn, name, acc):
+    """`fn` adding its host-clock seconds and calls to acc[name]."""
+    def wrapped(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            rec = acc.setdefault(name, [0.0, 0])
+            rec[0] += time.perf_counter() - t0
+            rec[1] += 1
+    return wrapped
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps-per-dispatch", type=int, default=1)
+    ap.add_argument("--quantization", default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card")
@@ -55,6 +75,7 @@ def main():
 
     from paddle_tpu_torch.inference import PagedGenerationServer
     from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.nn import decode_graph
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -69,17 +90,25 @@ def main():
     srv = PagedGenerationServer(
         model, max_slots=8, block_size=16, max_prompt_len=768,
         max_new_tokens=32, prefill_chunk_tokens=512,
-        steps_per_dispatch=args.steps_per_dispatch, device="cuda").start()
+        steps_per_dispatch=args.steps_per_dispatch,
+        quantization=args.quantization, device="cuda").start()
+    host = {}  # name -> [seconds, calls] on the host clock
     try:
         for f in [srv.submit(p) for p in prompts]:   # warm pass
             f.result(timeout=600)
         srv.reset_stats()
+        for owner, name in ((srv, "_prefill_packed"), (srv, "_decode_plain"),
+                            (decode_graph.DecodeGraphs, "__call__"),
+                            (decode_graph, "graph_key"),
+                            (decode_graph._Graph, "replay")):
+            setattr(owner, name, _timed(getattr(owner, name), name, host))
         t0 = time.perf_counter()
         for f in [srv.submit(p) for p in prompts]:   # measured pass
             f.result(timeout=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         st = srv.stats()
+        measured = {n: list(v) for n, v in host.items()}
         srv.reset_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -115,6 +144,25 @@ def main():
     if busy == 0:
         print("FAIL: the profiler recorded no device time")
         return 1
+    names = ("_prefill_packed", "_decode_plain", "__call__", "graph_key",
+             "replay")
+    sec = {n: measured.get(n, [0.0, 0])[0] for n in names}
+    calls = {n: measured.get(n, [0.0, 0])[1] for n in names}
+
+    def part(name, label):
+        n = max(calls[name], 1)
+        return (f"{label} {sec[name] * 1e3:.1f} ms ({calls[name]} calls, "
+                f"{sec[name] * 1e3 / n:.3f} ms a call)")
+
+    print("host clock of the measured pass: " + "; ".join([
+        part("_prefill_packed", "prefill dispatches"),
+        part("_decode_plain", "decode dispatches (device waits included)"),
+        part("__call__", "of which the decode graph's call"),
+        part("graph_key", "its key"),
+        part("replay", "its replay (copies + launch)")])
+        + f"; the rest of the loop "
+        f"{(wall - sec['_prefill_packed'] - sec['_decode_plain']) * 1e3:.1f}"
+        f" ms")
     # K1 is every kernel whose name starts with ragged_stream (either
     # dtype's); K2 every one whose name starts with paged_decode (the split
     # kernel and its combine)

@@ -43,7 +43,13 @@ dq is zero). Every flash wrapper takes B * H = 65536, past grid y's
 copies a block bit for bit, float32, bf16 and int8 (codes with scales),
 with no host synchronisation, and the host tier returns an int8 block
 bit for bit through page-locked memory (a dense one within its codec's
-bound).
+bound). The decode graphs (`nn/decode_graph.py`) equal the eager loop
+bit for bit over a capture and two replays (tokens, stops, counts,
+every pool element) at k 1, 4 and 8, greedy, sampled, penalties and
+both, dense and int8 pools, bf16 and W8A16 weights; a replay's launch
+counts equal the eager loop's, its penalty counts thread through three
+dispatches, it makes no host synchronisation, a replaced pool gets a
+new capture, and the server replays one graph per decode dispatch.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -1096,6 +1102,20 @@ def test_prng_on_card_equals_cpu(dev):
         <= 4
 
 
+def test_gumbel_noise_on_card_is_the_cpus_bit_for_bit(dev):
+    """The noise's logs are IEEE-exact float64 arithmetic
+    (`prng._log`), so card and CPU give the same bits: phase 4s's rows."""
+    from paddle_tpu_torch.sampling import prng
+
+    seeds = torch.tensor([0, 1, 2**31, 2**32 - 1, 7, 123456789, 5, 2**30],
+                         dtype=torch.int64)
+    steps = torch.tensor([0, 1, 31, 2**31 - 1, 5, 9, 0, 3],
+                         dtype=torch.int64)
+    g = [prng.gumbel(prng.fold_in_keys(seeds.to(d), steps.to(d)),
+                     50257).cpu() for d in ("cpu", dev)]
+    assert torch.equal(g[0].view(torch.int32), g[1].view(torch.int32))
+
+
 @pytest.mark.parametrize("mode", [(False, False), (True, False),
                                   (False, True), (True, True)])
 def test_sample_tokens_on_card_equals_cpu(dev, mode):
@@ -1270,3 +1290,238 @@ def test_tier_round_trip_on_card(dev, kv_dtype):
                 assert ((got - old).abs() <= bound).all()
                 assert torch.equal(kv[:, b, :rows].cpu(),
                                    cpu_kv[:, b, :rows])
+
+
+# ---- decode graphs (nn/decode_graph.py) -------------------------------------
+
+GRAPH_MODES = {"greedy": (False, False), "sampled": (True, False),
+               "penalties": (False, True), "both": (True, True)}
+
+
+def _graph_side(dev, cfg, kv_dtype, dtype, mode, seed=0):
+    """A pool with random contents, a slot store in `mode` (row 1 with
+    three stop ids: a stop matrix 4 wide) and the first dispatch's
+    inputs, for 4 slots of which slot 2 is idle."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache
+    from paddle_tpu_torch.sampling import SamplingParams, SlotParamStore
+
+    H, Dh = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+    cache = PagedKVCache(cfg.num_layers, H, Dh, block_size=4, num_blocks=96,
+                         dtype=dtype, kv_dtype=kv_dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    for kv in (cache.k_blocks, cache.v_blocks):
+        if kv_dtype:
+            kv.codes.copy_(torch.randint(-127, 128, kv.codes.shape,
+                                         generator=g, device=dev))
+            kv.scales.copy_(torch.rand(kv.scales.shape, generator=g,
+                                       device=dev) * 0.02)
+        else:
+            kv.copy_(torch.randn(kv.shape, generator=g, device=dev))
+    lens = [37, 5, 1, 60]
+    cache.ensure_many([(b, lens[b] + 24) for b in range(4)])
+    tables = torch.from_numpy(cache.table_array(range(4), 24)).to(dev)
+    store = SlotParamStore(4, cfg.vocab_size, dev)
+    rs = np.random.RandomState(seed)
+    for b in range(4):
+        kw = {}
+        if mode[0] and b != 0:
+            kw.update(temperature=0.8, top_p=0.9, top_k=40 * b)
+        if mode[1] and b != 3:
+            kw.update(repetition_penalty=1.3, presence_penalty=0.4,
+                      frequency_penalty=0.2)
+        if b == 1:
+            kw.update(stop_token_ids=(3, 7, 11))
+        store.set_slot(b, SamplingParams(**kw), 100 + b,
+                       prompt_ids=rs.randint(0, cfg.vocab_size, lens[b]))
+    tok = torch.from_numpy(rs.randint(0, cfg.vocab_size, 4).astype(
+        np.int32)).to(dev)
+    pos = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device=dev)
+    act = torch.tensor([True, True, False, True], device=dev)
+    return cache, store, tok, pos, act, tables
+
+
+def _graph_leaves(cache):
+    return [t for kv in (cache.k_blocks, cache.v_blocks)
+            for t in ((kv.codes, kv.scales) if hasattr(kv, "codes")
+                      else (kv,))]
+
+
+def _graph_model(dev, w8, dtype=torch.bfloat16):
+    from paddle_tpu_torch.models.gpt2 import GPT2, GPT2Config
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+
+    cfg = GPT2Config(vocab_size=1000, hidden_size=128, num_layers=2,
+                     num_heads=4, max_position=256)
+    model = GPT2(cfg, seed=3, dtype=dtype, device=dev)
+    params = model.quantize_weights() if w8 else model.flat_params()
+    return cfg, params, PagedDecoder
+
+
+def _graph_run(dev, cfg, params, dec, k, mode, side, graph, n=3):
+    """n dispatches of k tokens (each fed the last one's tokens at
+    pos + k, the counts swapped back into the store); returns the
+    outputs of each dispatch."""
+    cache, store, tok, pos, act, tables = side
+    outs = []
+    steps = np.zeros(4, np.int32)
+    for _ in range(n):
+        sp, got = store.step_args(steps)
+        assert got == mode
+        args = (params, tok, pos, act, tables, cache.k_blocks,
+                cache.v_blocks, sp)
+        if graph:
+            toks, stops, _kc, _vc, counts = dec.graphs(k, mode, *args)
+        else:
+            toks, stops, _kc, _vc, counts = dec.multistep(k, mode)(*args)
+        outs.append((toks.clone(), stops.clone(),
+                     None if counts is None else counts.clone()))
+        store.swap_counts(counts)
+        tok, pos, steps = toks[-1].clone(), pos + k, steps + k
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("w8", [False, True], ids=["bf16", "w8a16"])
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["dense", "int8"])
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+@pytest.mark.parametrize("k", [1, 4, 8])
+def test_decode_graph_equals_eager_bitwise(dev, k, mode, kv_dtype, w8):
+    """Three dispatches through one captured graph (a capture, then two
+    pure replays on new inputs) against the eager loop on a copy of the
+    same pool: tokens, stops, counts, the store's counts and every pool
+    element equal bit for bit."""
+    cfg, params, Dec = _graph_model(dev, w8)
+    m = GRAPH_MODES[mode]
+    sides = [_graph_side(dev, cfg, kv_dtype, torch.bfloat16, m)
+             for _ in range(2)]
+    dec = Dec.for_config(cfg, 4, kv_dtype=kv_dtype)
+    eager = _graph_run(dev, cfg, params, dec, k, m, sides[0], False)
+    graph = _graph_run(dev, cfg, params, dec, k, m, sides[1], True)
+    assert dec.graphs.captures == 1 and dec.graphs.replays == 3
+    for (te, se, ce), (tg, sg, cg) in zip(eager, graph):
+        assert te.shape == (k, 4)
+        assert torch.equal(te, tg) and torch.equal(se, sg)
+        assert (ce is None) == (cg is None) == (not m[1])
+        assert ce is None or torch.equal(ce, cg)
+        assert (te[:, 2] == 0).all()  # the idle slot emits 0
+    for a, b in zip(_graph_leaves(sides[0][0]), _graph_leaves(sides[1][0])):
+        assert torch.equal(a, b)
+    if m[1]:
+        assert torch.equal(sides[0][1].counts, sides[1][1].counts)
+
+
+def test_decode_graph_launch_counts_equal_eager(dev):
+    """A replay adds what its capture counted: one dispatch's launches
+    read as the eager loop's (K2 once a layer a step), and the capture
+    itself adds nothing beyond its eager warm-up."""
+    from paddle_tpu_torch.ops import kernels
+
+    cfg, params, Dec = _graph_model(dev, False)
+    m = GRAPH_MODES["greedy"]
+    dec = Dec.for_config(cfg, 4)
+    counts = {}
+    for graph in (False, True):
+        side = _graph_side(dev, cfg, None, torch.bfloat16, m)
+        if graph:  # capture first, then count pure replays
+            _graph_run(dev, cfg, params, dec, 4, m, side, True, n=1)
+        kernels.reset_launch_counts()
+        _graph_run(dev, cfg, params, dec, 4, m, side, graph, n=2)
+        counts[graph] = kernels.launch_counts()
+    assert counts[True] == counts[False]
+    assert counts[True]["paged_decode_dense"] == 2 * 4 * cfg.num_layers
+    kernels.reset_launch_counts()
+    side = _graph_side(dev, cfg, None, torch.bfloat16, m, seed=1)
+    _graph_run(dev, cfg, params, Dec.for_config(cfg, 4), 4, m, side, True,
+               n=1)  # warm-up (4 x L) + replay (4 x L); the capture none
+    assert kernels.launch_counts()["paged_decode_dense"] == \
+        2 * 4 * cfg.num_layers
+
+
+def test_penalty_counts_after_three_graph_dispatches(dev):
+    """The count buffer threads through three replays as through the
+    eager loop, and stays the store's own tensor."""
+    cfg, params, Dec = _graph_model(dev, False)
+    m = GRAPH_MODES["both"]
+    stores = []
+    for graph in (False, True):
+        side = _graph_side(dev, cfg, "int8", torch.bfloat16, m, seed=4)
+        buf = side[1].counts
+        before = buf.clone()
+        _graph_run(dev, cfg, params, Dec.for_config(cfg, 4, kv_dtype="int8"),
+                   2, m, side, graph)
+        assert side[1].counts is buf
+        stores.append(side[1].counts)
+    assert torch.equal(stores[0], stores[1])
+    # 3 dispatches x k 2 x the 3 active rows (the idle row adds none)
+    assert int((stores[1] - before).sum()) == 3 * 2 * 3
+
+
+def test_decode_graph_replay_makes_no_host_sync(dev):
+    cfg, params, Dec = _graph_model(dev, True)
+    m = GRAPH_MODES["both"]
+    side = _graph_side(dev, cfg, "int8", torch.bfloat16, m)
+    cache, store, tok, pos, act, tables = side
+    dec = Dec.for_config(cfg, 4, kv_dtype="int8")
+    sp, _ = store.step_args(np.zeros(4, np.int32))
+    args = (params, tok, pos, act, tables, cache.k_blocks, cache.v_blocks, sp)
+    dec.graphs(8, m, *args)  # the capture is not under test
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = dec.graphs(8, m, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert out[0].shape == (8, 4) and dec.graphs.captures == 1
+
+
+def test_decode_graph_recaptures_for_a_replaced_pool(dev):
+    """A new pool is a new key, so a new capture that writes the new
+    pool (the old graph, which holds the old pool, is never replayed
+    against it); the old pool's graph is still found."""
+    cfg, params, Dec = _graph_model(dev, False)
+    m = GRAPH_MODES["greedy"]
+    dec = Dec.for_config(cfg, 4)
+    first = _graph_side(dev, cfg, None, torch.bfloat16, m)
+    _graph_run(dev, cfg, params, dec, 4, m, first, True, n=1)
+    assert dec.graphs.captures == 1
+    second, ref = (_graph_side(dev, cfg, None, torch.bfloat16, m, seed=7)
+                   for _ in range(2))
+    got = _graph_run(dev, cfg, params, dec, 4, m, second, True, n=2)
+    assert dec.graphs.captures == 2
+    want = _graph_run(dev, cfg, params, dec, 4, m, ref, False, n=2)
+    for (tg, _s, _c), (te, _s2, _c2) in zip(got, want):
+        assert torch.equal(tg, te)
+    assert torch.equal(second[0].k_blocks, ref[0].k_blocks)
+    _graph_run(dev, cfg, params, dec, 4, m, first, True, n=1)
+    assert dec.graphs.captures == 2 and len(dec.graphs) == 2
+
+
+def test_server_on_card_replays_one_graph_per_dispatch(dev):
+    """Every decode dispatch of the server on the card is one replay, at
+    k = 1 and k = 4, and both give the same tokens."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    cfg, _params, _Dec = _graph_model(dev, False, torch.float32)
+    from paddle_tpu_torch.models.gpt2 import GPT2
+
+    model = GPT2(cfg, seed=3, device=dev)
+    rs = np.random.RandomState(2)
+    prompts = [rs.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 30, 17)]
+    outs = {}
+    for k in (1, 4):
+        srv = PagedGenerationServer(model, max_slots=2, block_size=4,
+                                    max_new_tokens=12, steps_per_dispatch=k,
+                                    device=dev)
+        futs = [srv.submit(p) for p in prompts]
+        srv.start()
+        try:
+            outs[k] = [f.result(timeout=300) for f in futs]
+            st = srv.stats()
+        finally:
+            srv.stop()
+        assert st["decode_graph_replays"] == st["decode_steps"] > 0
+        assert 1 <= st["decode_graph_captures"] <= 2
+    for a, b in zip(outs[1], outs[4]):
+        np.testing.assert_array_equal(a, b)

@@ -370,12 +370,14 @@ def test_counts_rows_reset_from_the_prompt():
     ts, js = _store_pair()
     np.testing.assert_array_equal(ts.counts.numpy(), np.asarray(js.counts))
     assert ts.counts[3, 4] == 3 and ts.counts[0].sum() == 0
+    own = ts.counts
     new = ts.counts.clone()
     new[2, 1] = 5
     ts.swap_counts(new)
     assert ts.counts[2, 1] == 5
+    assert ts.counts is own            # copied into the store's buffer
     ts.swap_counts(None)               # a variant without penalties
-    assert ts.counts is new
+    assert ts.counts is own and torch.equal(ts.counts, new)
 
 
 # ---- the server: twins of tests/test_sampling.py ---------------------------

@@ -126,6 +126,27 @@ def test_gumbel_within_4_ulp(V):
     assert err.max() <= GUMBEL_ULPS, err.max()
 
 
+def test_gumbel_log_is_correctly_rounded():
+    """`prng._log` (IEEE-exact float64 operations, so the same bits on
+    every host) against float64's log: within 0.51 ulp of float32 over
+    [tiny, 1) and the edges the noise reaches (u at tiny and at
+    1 - 2^-24, -log(u) down to 5.96e-8 and up to 87.34, m on either side
+    of sqrt(1/2))."""
+    rs = np.random.RandomState(4)
+    x = np.concatenate([
+        rs.uniform(0, 1, 200000).astype(np.float32),
+        np.exp(rs.uniform(-87.3, 4.5, 200000)).astype(np.float32),
+        np.array([np.finfo(np.float32).tiny, 1 - 2**-24, 0.5, 1.0,
+                  5.96e-8, 87.33654, 0.70710677, 0.70710683, 1.4142135],
+                 np.float32)])
+    x = np.maximum(x, np.finfo(np.float32).tiny)
+    got = prng._log(torch.from_numpy(x)).numpy()
+    ref = np.log(x.astype(np.float64))
+    ulp = np.spacing(np.abs(ref).astype(np.float32)).astype(np.float64)
+    assert got.dtype == np.float32
+    assert (np.abs(got - ref) / ulp).max() <= 0.51
+
+
 # ---- sample_tokens --------------------------------------------------------
 
 MODES = [(False, False), (True, False), (False, True), (True, True)]
