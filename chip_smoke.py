@@ -159,6 +159,50 @@ non-zero before the result line:
                dispatches and K2 >= 12 x decode steps; greedy tokens on vs
                off identical but for near ties by phase 4f's rule
                (counted);
+  5v. speculation and the unified round — (k) K1 on a verify stream
+               through `verify_window_attention`: 8 windows of 9 query
+               rows (K 8) at H 12, Dh 64, BS 16 over contexts of 64-1024
+               positions (RandomState(51) dense, (52) int8), pad rows and
+               a padding row, dense and int8, bf16 and float32: held to
+               `verify_window_attention_plain` (the reference's dense
+               per-row fallback) on the rows with pos >= 0 within phase
+               3's tolerances (2e-2 bf16, 1e-4 float32), pad rows zeros,
+               two launches bit for bit; in bf16 the key passes per tile,
+               events, profiler device time, the wrapper's host time, the
+               plain version, SDPA over each row's pre-gathered keys as
+               `library_ms`, and the share of the bound. (a) float32,
+               TF32 off, GPT-2 small (phase 4's weights): `packed_verify`
+               and the window `unified_round` (carry chained) through one
+               graph each against the eager programs on 8 slots, dense
+               and int8, greedy and sampled + penalties: outputs, counts,
+               carries and pools bitwise, a replay's launches the eager
+               dispatch's, no host sync in a replay; then 8 repetitive
+               prompts (RandomState(31)) x 16 new tokens, requests
+               cycling greedy / sampled / penalties / both, served on
+               the card and on the CPU with speculation off, n-gram
+               (K 8), replay (the card's speculation-off tokens), the
+               unified round and async rounds: every server's tokens card
+               == CPU == speculation off; verify replays == verify
+               dispatches, window replays == rounds without prefill rows,
+               dispatches_per_round 1.0 with a mixed round, every async
+               dispatch under set_sync_debug_mode("error"). (b) bf16 GPT-2
+               small (phase 4f's weights), block 16: bench.py's
+               speculation axis (bench.py:1655-1700, its on-TPU
+               parameters: 16 repetitive prompts picked from 64 by a
+               simulated n-gram drafter over continuations recorded by the
+               port's plain server, 8 slots, K 8, 64 new tokens, chunk
+               512): speculation off, n-gram, replay, int8 pools off and
+               n-gram; then its unified axis (bench.py:1758-1800: 32
+               prompts of 64-256 tokens from RandomState(17), 128 new
+               tokens, chunk 256, Poisson arrivals at 8 x the split
+               drain rate): split, unified sync, async. A warm, a
+               measured and a profiled pass each: tokens/s, TTFT and ITL
+               p50/p99, acceptance, verify dispatches and the K1
+               launches they added (counted around each verify replay),
+               idle share, overlap_fraction; tokens against speculation
+               off / split but for near ties (phase 4f's rule); the
+               served verify dispatch alone (8 x 9 rows, one replay): ms
+               by events, device ms, K1's device ms and launches;
   3b. flash  — K4 (forward with LSE), K6 (delta) and K9 (fused
                backward) against their plain versions on the same inputs,
                bf16 and f32: at the training path's shape (B=16, H=12,
@@ -281,9 +325,11 @@ non-zero before the result line:
                Fails on a non-finite loss, K7/K8 (bias) launching other
                than 12 x steps times, or K9/K9 bias launching at all;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 5s, 5w, 5p, 4b, 4f, 6, 6b
-     and 6c), the card line, and as the last line {"ok": true, "device":
-     {...}}.
+     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 4b, 4f,
+     6, 6b and 6c; the `ragged_stream_verify_*` rows are K1 on verify
+     streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
+     dispatches added), the card line, and as the last line {"ok": true,
+     "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; only the K/V positions this
@@ -2542,6 +2588,743 @@ def shared_prefix_serving(torch, model, rng, card):
     return launches
 
 
+# ---- phase 5v: speculation and the unified round ----------------------------
+
+V_P, V_K = 8, 8          # verify plan rows (8 slots) and draft budget (W 9)
+V_NEW = 16               # 5v (a) new tokens
+S_NEW, S_REQS, S_MP = 64, 16, 256       # 5v (b) speculation axis
+U_NEW, U_REQS, U_MP = 128, 32, 256      # 5v (b) unified axis
+
+
+def verify_case(torch, timer, quant, dtype, seed, timed):
+    """(k): K1 on a verify stream, through `verify_window_attention`: P 8
+    windows of W 9 (K 8) at H 12, Dh 64, BS 16; row r's window is its
+    last token and k_r drafts ending a context of 64-1024 positions
+    (RandomState(seed)), the rest of the window pad (-1), row 7 a padding
+    row. Held to `verify_window_attention_plain` on the rows with
+    pos >= 0 (2e-2 in bf16, 1e-4 in float32), pad rows zeros, two
+    launches bit for bit; timed (bf16): events, profiler device time,
+    the wrapper's host time, the plain version, and SDPA over each row's
+    pre-gathered keys with the window's mask (gather excluded)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops.attention import (verify_window_attention,
+                                                verify_window_attention_plain)
+
+    P, W, H, Dh, BS = V_P, V_K + 1, 12, 64, 16
+    rs = np.random.RandomState(seed)
+    ctx = rs.randint(64, 1025, P)
+    ks = rs.randint(0, W, P)
+    ctx[P - 1] = 1            # the padding row holds only the trash block
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    tables, n = _tables(torch, [int(c) for c in ctx], BS, False, seed)
+    kb, vb = _pools(torch, n, BS, H, Dh, quant, g)
+    if dtype == torch.float32:
+        kb, vb = _f32(kb), _f32(vb)
+    pos = np.full((P, W), -1, np.int32)
+    for r in range(P - 1):
+        pos[r, :1 + ks[r]] = np.arange(ctx[r] - 1 - ks[r], ctx[r])
+    pos_t = torch.from_numpy(pos).to(DEV)
+    q = torch.randn(P, W, H, Dh, generator=g, device=DEV).to(dtype)
+    sc = Dh ** -0.5
+    out = verify_window_attention(q, kb, vb, tables, pos_t)
+    again = verify_window_attention(q, kb, vb, tables, pos_t)
+    torch.cuda.synchronize()
+    ref = verify_window_attention_plain(q.float(), _f32(kb), _f32(vb),
+                                        tables, pos_t)
+    live = pos_t >= 0
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    err = (out[live].float() - ref[live]).abs().max().item()
+    ok = torch.isfinite(out).all().item() and torch.allclose(
+        out[live].float(), ref[live], atol=tol, rtol=tol) \
+        and bool((out[~live] == 0).all().item())
+    seg = [r for r in range(P) for _ in range(W)]
+    res = {"max_abs_err": err, "ok": bool(ok), "tol": tol,
+           "bitwise": torch.equal(out, again),
+           "passes": stream_passes(seg, list(pos.reshape(-1)), P)}
+    if not timed:
+        return res
+
+    def call():
+        return verify_window_attention(q, kb, vb, tables, pos_t)
+
+    res["ms"] = timer.ms(call)
+    res["device_ms"] = timer.device_ms(call, K1_NAME)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        call()
+    res["host_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    res["plain_ms"] = timer.ms(lambda: verify_window_attention_plain(
+        q, kb, vb, tables, pos_t), reps=10)
+    # library: one SDPA call over [P, H, C] pre-gathered keys, each row's
+    # window masked to positions <= its own (pad queries see key 0)
+    C = int(ctx.max())
+    kd, vd = _dequant(kb, dtype), _dequant(vb, dtype)
+    tb = tables.long()
+    gk = kd[tb].reshape(P, -1, H, Dh)[:, :C].permute(0, 2, 1, 3).contiguous()
+    gv = vd[tb].reshape(P, -1, H, Dh)[:, :C].permute(0, 2, 1, 3).contiguous()
+    del kd, vd
+    mask = torch.arange(C, device=DEV)[None, None, :] <= pos_t[:, :, None]
+    mask[..., 0] |= ~live
+    q4 = q.permute(0, 2, 1, 3)
+    res["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        q4, gk, gv, attn_mask=mask[:, None], scale=sc))
+    del gk, gv
+    e, s = _elem(kb)
+    horizon = [int(ctx[r]) for r in range(P - 1)]   # each row's keys
+    nbytes = (2 * q.numel() * q.element_size() + P * W * 4 * 2
+              + 2 * sum(horizon) * H * (Dh * e + s)
+              + sum(-(-c // BS) for c in horizon) * 4)
+    flops = 4 * H * Dh * int(sum(p + 1 for p in pos.reshape(-1) if p >= 0))
+    res.update(_bound(nbytes, flops))
+    return res
+
+
+class LaunchSpy:
+    """Wraps a decoder's verify and window-round graph calls and sums the
+    launch counts each call adds (the replay's `kernels.add_launches`):
+    K1's launches on verify streams, apart from the prefill's."""
+
+    def __init__(self, graphs):
+        from paddle_tpu_torch.ops import kernels
+
+        self.kernels = kernels
+        self.counts = {}
+        for name in ("verify", "unified"):
+            setattr(graphs, name, self._wrap(getattr(graphs, name)))
+
+    def _wrap(self, fn):
+        def run(*a, **k):
+            before = self.kernels.launch_counts()
+            out = fn(*a, **k)
+            for n, v in self.kernels.launch_counts().items():
+                if v != before[n]:
+                    self.counts[n] = self.counts.get(n, 0) + v - before[n]
+            return out
+        return run
+
+
+def strict_dispatches(torch, srv):
+    """Runs every unified-round dispatch of `srv` under
+    torch.cuda.set_sync_debug_mode("error") (a graph capture, which
+    synchronises by design, is let through): a host sync raises inside
+    the dispatch and fails its requests. Returns a counter dict."""
+    graphs = srv._decoder.graphs
+    capture, dispatch = graphs._capture, srv._dispatch_round
+    seen = {"dispatches": 0}
+
+    def quiet_capture(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return capture(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict(plan):
+        seen["dispatches"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs._capture = quiet_capture
+    srv._dispatch_round = strict
+    return seen
+
+
+class ReplayDrafter:
+    """Proposes the recorded continuation's next tokens (every draft
+    accepted where the recording is the server's own output)."""
+
+    def __init__(self, refs):
+        self.refs = [np.asarray(r, np.int32) for r in refs]
+
+    def propose(self, ctx, max_tokens):
+        ctx = np.asarray(ctx, np.int32)
+        for ref in self.refs:
+            if ctx.size < ref.size and np.array_equal(ref[:ctx.size], ctx):
+                return ref[ctx.size:ctx.size + int(max_tokens)]
+        return np.empty((0,), np.int32)
+
+
+def spec_server(model, dev, kw, new, mp, slots=8, chunk=512):
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    return PagedGenerationServer(model, max_slots=slots, block_size=16,
+                                 max_prompt_len=mp, max_new_tokens=new,
+                                 prefill_chunk_tokens=chunk, device=dev,
+                                 **kw)
+
+
+def graph_program_parity(torch, model32):
+    """5v (a), outside the server: GPT-2 small float32 on 8 slots
+    (contexts RandomState(41) 64-512, slot 5 idle), two dispatches of
+    `packed_verify` (a verify plan of K 8 with random drafts) and two
+    window rounds (carry chained) through one captured graph each and
+    eagerly, from one state: outputs, counts and every pool element bit
+    for bit; the second replay's launches equal the eager dispatch's and
+    it runs under set_sync_debug_mode("error"). Greedy and sampled +
+    penalties, dense and int8 pools. Returns the cases run."""
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache, blocks_for
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.spec_decode import build_verify_plan
+
+    cfg = model32.cfg
+    params = model32.flat_params()
+    L, H = cfg.num_layers, cfg.num_heads
+    Dh = cfg.hidden_size // H
+    S, K = G_SLOTS, V_K
+    W = K + 1
+    rs = np.random.RandomState(41)
+    lens = rs.randint(64, 513, S)
+    live = [b for b in range(S) if b != 5]
+    nb = sum(blocks_for(int(n) + 4 * W, 16) for n in lens) + 1
+    width = blocks_for(int(lens.max()) + 4 * W, 16)
+    g = torch.Generator(device=DEV).manual_seed(41)
+    cases = 0
+    for kv_dtype in (None, "int8"):
+        pools = [PagedKVCache(L, H, Dh, block_size=16, num_blocks=nb,
+                              dtype=torch.float32, kv_dtype=kv_dtype,
+                              device=DEV) for _ in range(2)]
+        for c in pools:
+            c.ensure_many([(b, int(n) + 4 * W) for b, n in enumerate(lens)])
+        for a, b in zip(*[c._pool_leaves() for c in pools]):
+            if a.dtype == torch.int8:
+                a.copy_(torch.randint(-127, 128, a.shape, generator=g,
+                                      device=DEV))
+            elif kv_dtype:
+                a.copy_(torch.rand(a.shape, generator=g, device=DEV) * 0.02)
+            else:
+                a.copy_(torch.randn(a.shape, generator=g, device=DEV))
+            b.copy_(a)
+        tables = torch.from_numpy(pools[0].table_array(range(S), width)) \
+            .to(DEV)
+        for mname, mode in (("greedy", (False, False)),
+                            ("sampled+penalties", (True, True))):
+            dec = PagedDecoder.for_config(cfg, 16, kv_dtype=kv_dtype)
+            stores = [graph_store(torch, cfg, mode, lens,
+                                  np.random.RandomState(6))
+                      for _ in range(2)]
+            for prog in ("packed_verify", "unified_window"):
+                outs, counts = [], []
+                for side, graph in ((0, False), (1, True)):
+                    c, store = pools[side], stores[side]
+                    drs = np.random.RandomState(43)
+                    last = np.full(S, 50, np.int32)
+                    wpos = (lens - 1).astype(np.int32)
+                    carry = None
+                    got = []
+                    for d in range(2):
+                        entries = [(b, int(last[b]), int(wpos[b]), 0,
+                                    drs.randint(0, cfg.vocab_size, (int(
+                                        drs.randint(0, K + 1)),)).astype(
+                                        np.int32)) for b in live]
+                        plan = build_verify_plan(entries, K, 1, min_rows=S)
+                        rows = plan.slots + [None] * (S - plan.rows)
+                        tab = tables[[r if r is not None else 0
+                                      for r in rows]].contiguous()
+                        dev_t = lambda a: torch.from_numpy(  # noqa: E731
+                            np.asarray(a)).to(DEV)
+                        if prog == "packed_verify":
+                            sp, m = store.verify_args(rows, plan.steps)
+                            args = (params, dev_t(plan.toks),
+                                    dev_t(plan.seg), dev_t(plan.pos), tab,
+                                    dev_t(plan.sample_idx),
+                                    dev_t(plan.dlen), c.k_blocks,
+                                    c.v_blocks, sp)
+                        else:
+                            if carry is None:
+                                carry = (dev_t(last), dev_t(wpos),
+                                         dev_t(np.zeros(S, np.int32)))
+                            cmap = np.full(plan.toks.size, -1, np.int32)
+                            pmap = np.full(plan.toks.size, -1, np.int32)
+                            pp = plan.pos.copy()
+                            for r in range(plan.rows):
+                                o, k = r * W, plan.drafts[r].size
+                                cmap[o] = rows[r]
+                                pmap[o:o + 1 + k] = rows[r]
+                                pp[o:o + 1 + k] = np.arange(1 + k)
+                            rslot = np.array([r if r is not None else -1
+                                              for r in rows], np.int32)
+                            sp, m = store.unified_args(
+                                rows, [r is not None for r in rows],
+                                plan.steps)
+                            args = (params, dev_t(plan.toks),
+                                    dev_t(plan.seg), dev_t(pp), tab,
+                                    dev_t(plan.sample_idx),
+                                    dev_t(plan.dlen), dev_t(rslot),
+                                    dev_t(cmap), dev_t(pmap), dev_t(rslot),
+                                    *carry, c.k_blocks, c.v_blocks, sp)
+                        if m != mode:
+                            fail(f"phase 5v (a): the store's mode {m}")
+                        torch.cuda.synchronize()
+                        if d == 1:
+                            kernels.reset_launch_counts()
+                        if graph and d == 1:
+                            torch.cuda.set_sync_debug_mode("error")
+                        try:
+                            if prog == "packed_verify":
+                                out = (dec.graphs.verify(mode, *args)
+                                       if graph else
+                                       dec.packed_verify(*args, mode))
+                            else:
+                                out = (dec.graphs.unified(mode, *args)
+                                       if graph else dec.unified_round(
+                                           *args, mode, window=True))
+                        finally:
+                            torch.cuda.set_sync_debug_mode("default")
+                        torch.cuda.synchronize()
+                        vals = [out[0], out[1], out[2], out[5]] + (
+                            list(out[6:9]) if prog != "packed_verify"
+                            else [])
+                        got.append([None if v is None else v.clone()
+                                    for v in vals])
+                        store.swap_counts(out[5])
+                        if prog != "packed_verify":
+                            carry = tuple(v.clone() for v in out[6:9])
+                        vt, ac = out[0].cpu().numpy(), out[1].cpu().numpy()
+                        for r in range(plan.rows):
+                            a = int(ac[r])
+                            last[rows[r]] = vt[r, a]
+                            wpos[rows[r]] += a + 1
+                    counts.append(kernels.launch_counts())
+                    outs.append(got)
+                what = (f"phase 5v (a) {prog} {kv_dtype or 'dense'} "
+                        f"{mname}")
+                for ge, gg in zip(*outs):
+                    for a, b in zip(ge, gg):
+                        if (a is None) != (b is None) or (
+                                a is not None and not torch.equal(a, b)):
+                            fail(f"{what}: graph and eager outputs differ")
+                for a, b in zip(*[c._pool_leaves() for c in pools]):
+                    if not torch.equal(a, b):
+                        fail(f"{what}: the pools differ")
+                k1 = counts[1]["ragged_stream_" + (kv_dtype or "dense")]
+                if counts[0] != counts[1] or k1 != L:
+                    fail(f"{what}: a replay's launches {counts[1]} vs eager "
+                         f"{counts[0]}")
+                cases += 1
+            if dec.graphs.captures != 2:
+                fail(f"phase 5v (a): {dec.graphs.captures} captures for 2 "
+                     f"keys")
+        del pools
+        torch.cuda.empty_cache()
+    return cases
+
+
+def spec_prompts(vocab, seed, n, lo, hi):
+    """Tiled short motifs (2-5 tokens) of lo..hi tokens: traffic the
+    n-gram drafter can predict (bench.py's speculation axis)."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        motif = rng.randint(1, vocab, (int(rng.randint(2, 6)),)).astype(
+            np.int32)
+        m = int(rng.randint(lo, hi + 1))
+        out.append(np.tile(motif, -(-m // motif.size))[:m])
+    return out
+
+
+V_SAMPLING = ({}, dict(temperature=0.8, top_p=0.9, seed=7),
+              dict(repetition_penalty=1.3, presence_penalty=0.3,
+                   frequency_penalty=0.1),
+              dict(temperature=1.0, top_k=50, seed=8, presence_penalty=0.5))
+
+
+def spec_parity(torch, model32, card):
+    """5v (a): float32 GPT-2 small (phase 4's weights, TF32 off) serving
+    8 repetitive prompts of 48-96 tokens (RandomState(31)) with V_NEW new
+    tokens, requests cycling greedy / seeded sampled / penalties /
+    sampled with a penalty, on the card and on the CPU: speculation off,
+    n-gram (K 8), replay (K 8, the card's own speculation-off tokens),
+    the unified round (sync, n-gram) and async rounds (n-gram). Every
+    server's card tokens equal its CPU tokens and the speculation-off
+    card tokens. On the card: replays equal verify dispatches (split) and
+    window rounds (unified); dispatches_per_round 1.0 with a mixed round;
+    every async dispatch under set_sync_debug_mode("error"). Returns
+    {server: (stats, launch counts)}."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.sampling import SamplingParams
+    from paddle_tpu_torch.spec_decode import SpecConfig
+
+    cfg = model32.cfg
+    prompts = spec_prompts(cfg.vocab_size, 31, 8, 48, 96)
+    sampling = [SamplingParams(**V_SAMPLING[i % 4]) if V_SAMPLING[i % 4]
+                else None for i in range(len(prompts))]
+
+    def run(dev, kw):  # the server snapshots model32's params on dev
+        srv = spec_server(model32, dev, kw, V_NEW, 128)
+        seen = (strict_dispatches(torch, srv)
+                if dev == DEV and kw.get("async_rounds") else None)
+        futs = [srv.submit(p, sampling=s) for p, s in zip(prompts, sampling)]
+        kernels.reset_launch_counts()
+        srv.start()
+        try:
+            outs = [f.result(timeout=600) for f in futs]
+            st = srv.stats()
+        finally:
+            srv.stop()
+        if seen is not None and seen["dispatches"] != st["rounds"]["rounds"]:
+            fail("phase 5v (a) async: a dispatch escaped the sync check")
+        return outs, st, kernels.launch_counts()
+
+    base = {}
+    res = {}
+    servers = [("off", {}), ("ngram", dict(speculation=SpecConfig(
+        max_draft_tokens=V_K))), ("replay", None),
+        ("unified", dict(unified_round=True,
+                         speculation=SpecConfig(max_draft_tokens=V_K))),
+        ("async", dict(async_rounds=True,
+                       speculation=SpecConfig(max_draft_tokens=V_K)))]
+    for name, kw in servers:
+        if kw is None:  # the replay drafter replays the card's tokens
+            kw = dict(speculation=SpecConfig(
+                max_draft_tokens=V_K, drafter=ReplayDrafter(base[DEV])))
+        outs = {}
+        for dev in (DEV, "cpu"):
+            outs[dev], st, counts = run(dev, kw)
+            if dev == DEV:
+                res[name] = (st, counts)
+        if name == "off":
+            base = outs
+        for i, (a, b) in enumerate(zip(outs[DEV], outs["cpu"])):
+            if not np.array_equal(a, b):
+                fail(f"phase 5v (a) {name}: request {i} differs card vs CPU")
+        for i, (a, b) in enumerate(zip(outs[DEV], base[DEV])):
+            if not np.array_equal(a, b):
+                fail(f"phase 5v (a) {name}: request {i} differs from "
+                     f"speculation off")
+        st, counts = res[name]
+        sp, rd = st["speculation"], st["rounds"]
+        if name in ("ngram", "replay"):
+            if sp["verify_dispatches"] == 0 or \
+                    st["verify_graph_replays"] != sp["verify_dispatches"]:
+                fail(f"phase 5v (a) {name}: {st['verify_graph_replays']} "
+                     f"verify replays for {sp['verify_dispatches']} verify "
+                     f"dispatches")
+            if name == "replay" and sp["acceptance_rate"] != 1.0:
+                fail(f"phase 5v (a) replay: acceptance {sp}")
+        if name in ("unified", "async"):
+            if rd["dispatches_per_round"] != 1.0 or rd["mixed_rounds"] < 1:
+                fail(f"phase 5v (a) {name}: rounds {rd}")
+            if st["round_graph_replays"] != \
+                    rd["rounds"] - st["prefill_dispatches"]:
+                fail(f"phase 5v (a) {name}: {st['round_graph_replays']} "
+                     f"window replays for {rd['rounds']} rounds, "
+                     f"{st['prefill_dispatches']} with prefill rows")
+    return res
+
+
+def spec_axis_pool(torch, model, card):
+    """5v (b)'s speculation traffic: bench.py's speculation axis
+    (bench.py:1655-1700) at its on-TPU parameters: 64 candidate prompts
+    of tiled 2-5-token motifs (RandomState(11), lengths drawn in
+    [85, 253) and cut to a multiple of 32: 64-224), their greedy
+    continuations recorded by the port's plain server, and the 16 whose
+    recordings an n-gram drafter (max 3, min 1) predicts in the fewest
+    rounds. Returns (pool, recordings)."""
+    from paddle_tpu_torch.spec_decode import NgramDrafter
+
+    vocab = model.cfg.vocab_size
+    rng = np.random.RandomState(11)
+    step = max(4, S_MP // 8)
+    cands = []
+    for _ in range(4 * S_REQS):
+        motif = rng.randint(1, vocab, (int(rng.randint(2, 6)),)).astype(
+            np.int32)
+        n = int(rng.randint(max(4, S_MP // 3), S_MP - 3))
+        n = max(step, n // step * step)
+        cands.append(np.tile(motif, -(-n // motif.size))[:n])
+    srv = spec_server(model, DEV, {}, S_NEW, S_MP).start()
+    try:
+        refs = [f.result(timeout=600) for f in
+                [srv.submit(p) for p in cands]]
+    finally:
+        srv.stop()
+    drafter = NgramDrafter(max_match=3, min_match=1)
+    scored = []
+    for idx, (p, out) in enumerate(zip(cands, refs)):
+        n, pos, rounds = p.size, 1, 0
+        while pos < S_NEW:
+            prop = drafter.propose(out[:n + pos],
+                                   min(V_K, S_NEW - pos - 1) or 1)
+            rounds += 1
+            hits = 0
+            for j, tk in enumerate(prop):
+                if int(tk) != int(out[n + pos + j]):
+                    break
+                hits += 1
+            pos += hits + 1
+        scored.append((rounds, idx))
+    keep = [i for _r, i in sorted(scored)[:S_REQS]]
+    return [cands[i] for i in keep], [refs[i] for i in keep]
+
+
+def profiled_busy(torch, drive):
+    """One more pass of `drive` under torch.profiler: the device's busy
+    time in seconds (every CUDA kernel and copy)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        drive()
+        torch.cuda.synchronize()
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0))
+    return busy / 1e6
+
+
+def axis_run(torch, model, kw, pool, drive, new, mp, chunk, spy=False):
+    """A warm pass (closed), a measured pass and a profiled pass of
+    `drive(srv)` on one server. Returns (outputs, stats, launch counts,
+    verify-stream launches, the profiled pass's busy s, the measured
+    pass's wall s): the idle share is 1 - busy / wall, as phase 5 and
+    scripts/torch_serve_profile.py read it."""
+    from paddle_tpu_torch.ops import kernels
+
+    srv = spec_server(model, DEV, kw, new, mp, chunk=chunk).start()
+    ls = LaunchSpy(srv._decoder.graphs) if spy else None
+    try:
+        for f in [srv.submit(p) for p in pool]:
+            f.result(timeout=600)
+        srv.reset_stats()
+        kernels.reset_launch_counts()                        # main path
+        if ls is not None:
+            ls.counts.clear()
+        t0 = time.perf_counter()
+        outs = drive(srv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        st = srv.stats()
+        vcounts = dict(ls.counts) if ls is not None else {}
+        busy = profiled_busy(torch, lambda: drive(srv))
+    finally:
+        srv.stop()
+    for p, o in zip(pool, outs):
+        if o.shape != (p.size + new,) or not (o[:p.size] == p).all():
+            fail(f"phase 5v (b): bad output for a {p.size}-token prompt")
+    return outs, st, counts, vcounts, busy, wall
+
+
+def verify_dispatch_cost(torch, model, m_width, reps=30, K=V_K):
+    """The served verify dispatch alone (8 rows of W K + 1 at GPT-2 small
+    bf16, contexts RandomState(45) 100-200, a pool of m_width columns):
+    one graph replay's time by CUDA events, and under torch.profiler the
+    device time per dispatch of every kernel and of K1 with K1's
+    launches (the profiler's count)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.inference.kv_cache import PagedKVCache, blocks_for
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+    from paddle_tpu_torch.sampling import SlotParamStore
+    from paddle_tpu_torch.spec_decode import build_verify_plan
+
+    cfg = model.cfg
+    H = cfg.num_heads
+    rs = np.random.RandomState(45)
+    lens = rs.randint(100, 201, V_P)
+    nb = sum(blocks_for(int(n) + K + 1, 16) for n in lens) + 1
+    c = PagedKVCache(cfg.num_layers, H, cfg.hidden_size // H, block_size=16,
+                     num_blocks=nb, dtype=torch.bfloat16, device=DEV)
+    c.ensure_many([(b, int(n) + K + 1) for b, n in enumerate(lens)])
+    tables = torch.from_numpy(c.table_array(range(V_P), m_width)).to(DEV)
+    store = SlotParamStore(V_P, cfg.vocab_size, DEV)
+    entries = [(b, 50, int(lens[b]) - 1, 0,
+                rs.randint(1, cfg.vocab_size, K).astype(np.int32))
+               for b in range(V_P)]
+    plan = build_verify_plan(entries, K, 1, min_rows=V_P)
+    sp, mode = store.verify_args(list(range(V_P)), plan.steps)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(DEV)
+
+    args = (model.flat_params(), t(plan.toks), t(plan.seg), t(plan.pos),
+            tables, t(plan.sample_idx), t(plan.dlen), c.k_blocks,
+            c.v_blocks, sp)
+    dec = PagedDecoder.for_config(cfg, 16)
+
+    def call():
+        return dec.graphs.verify(mode, *args)
+
+    for _ in range(3):
+        call()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        call()
+    e.record()
+    e.synchronize()
+    ms = s.elapsed_time(e) / reps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            call()
+        torch.cuda.synchronize()
+    total = k1 = n1 = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+        total += us
+        if K1_NAME.search(ev.key):
+            k1 += us
+            n1 += ev.count
+    return {"ms": ms, "device_ms": total / 1e3 / reps,
+            "k1_ms": k1 / 1e3 / reps, "k1_launches": n1 / reps}
+
+
+def axis_text(st, counts, busy, wall, extra=""):
+    """One 5v (b) server's measured numbers as text."""
+    rd = st["rounds"]
+    return (f"tokens_per_sec {st['tokens_per_sec']:.1f} ttft "
+            f"p50/p99 {st['ttft_p50_ms']:.1f}/{st['ttft_p99_ms']:.1f} ms itl "
+            f"p50/p99 {st['itl_p50_ms']:.2f}/{st['itl_p99_ms']:.2f} ms "
+            f"prefill_dispatches {st['prefill_dispatches']} decode "
+            f"dispatches {st['decode_steps']} rounds {rd['rounds']} "
+            f"attention dispatches {rd['attention_dispatches']} (mixed "
+            f"{rd['mixed_rounds']}) launches K1 "
+            f"{counts['ragged_stream_dense'] + counts['ragged_stream_int8']}"
+            f" K2 {counts['paged_decode_dense'] + counts['paged_decode_int8']}"
+            f"; device busy {busy * 1e3:.1f} ms of {wall * 1e3:.1f} ms wall, "
+            f"idle share {1 - busy / wall:.3f}; overlap_fraction "
+            f"{rd['overlap_fraction']:.3f}{extra}")
+
+
+def spec_serving(torch, model, card):
+    """5v (b): GPT-2 small bf16 (phase 4f's weights), block 16. The
+    speculation axis (`spec_axis_pool`; 8 slots, K 8, S_NEW new tokens,
+    chunk 512): speculation off, n-gram, replay (the recordings), then
+    int8 pools off and n-gram; tokens against speculation off (the int8
+    n-gram against int8 off) but for near ties (phase 4f's rule). Then
+    bench.py's unified axis (bench.py:1758-1800 at its on-TPU parameters:
+    32 prompts of 64-256 tokens from RandomState(17), U_NEW new tokens,
+    chunk 256, Poisson arrivals (seed 978) at 8x the split engine's
+    closed drain rate of this call): split, unified sync, async; tokens
+    against split but for near ties. Returns the main path's K1/K2
+    launches, the verify-stream K1 launches and the verify dispatch's
+    cost."""
+    from paddle_tpu_torch.spec_decode import SpecConfig
+
+    cfg = model.cfg
+    L = cfg.num_layers
+    pool, refs = spec_axis_pool(torch, model, card)
+    launches = {"ragged_stream_dense": 0, "ragged_stream_int8": 0,
+                "paged_decode_dense": 0, "paged_decode_int8": 0}
+    verify = {"ragged_stream_dense": 0, "ragged_stream_int8": 0}
+    params_cpu = {k: v.float().cpu() for k, v in model.flat_params().items()}
+
+    def closed(srv):
+        return [f.result(timeout=600) for f in
+                [srv.submit(p) for p in pool]]
+
+    spec = SpecConfig(max_draft_tokens=V_K)
+    runs = {}
+    for name, kw in (("off", {}), ("ngram", dict(speculation=spec)),
+                     ("replay", dict(speculation=SpecConfig(
+                         max_draft_tokens=V_K, drafter=ReplayDrafter(refs)))),
+                     ("int8 off", dict(kv_dtype="int8")),
+                     ("int8 ngram", dict(kv_dtype="int8", speculation=spec))):
+        outs, st, counts, vc, busy, wall = axis_run(
+            torch, model, kw, pool, closed, S_NEW, S_MP, 512, spy=True)
+        runs[name] = outs
+        for n in launches:
+            launches[n] += counts[n]
+        for n in verify:
+            verify[n] += vc.get(n, 0)
+        sp = st["speculation"]
+        base = runs["int8 off" if name.startswith("int8") else "off"]
+        ties = 0
+        for p, a, b in zip(pool, base, outs):
+            if not np.array_equal(a, b):
+                if not near_tie_rule(torch, params_cpu, cfg, a, b, p.size,
+                                     phase="5v (b)"):
+                    fail(f"phase 5v (b) {name}: tokens differ from "
+                         f"speculation off beyond phase 4f's near-tie rule")
+                ties += 1
+        extra = ""
+        if sp["enabled"]:
+            kv = "int8" if name.startswith("int8") else "dense"
+            k1v = vc.get(f"ragged_stream_{kv}", 0)
+            if sp["verify_dispatches"] == 0 or \
+                    k1v != L * sp["verify_dispatches"] or \
+                    st["verify_graph_replays"] != sp["verify_dispatches"]:
+                fail(f"phase 5v (b) {name}: {k1v} verify-stream K1 launches"
+                     f" and {st['verify_graph_replays']} replays for "
+                     f"{sp['verify_dispatches']} verify dispatches")
+            extra = (f"; acceptance_rate {sp['acceptance_rate']:.4f} "
+                     f"(proposed {sp['proposed_tokens']}, accepted "
+                     f"{sp['accepted_tokens']}) verify dispatches "
+                     f"{sp['verify_dispatches']} (graph replays "
+                     f"{st['verify_graph_replays']}), K1 on verify streams "
+                     f"{k1v} = {k1v / sp['verify_dispatches']:.1f} a verify "
+                     f"dispatch")
+        say(f"phase 5v (b) speculation axis bf16 {name}: {S_REQS} requests x "
+            f"{S_NEW} tokens, " + axis_text(st, counts, busy, wall, extra)
+            + f"; {len(pool) - ties} of {len(pool)} requests identical to "
+            f"speculation off, {ties} at a near tie [{card}]")
+    cost = verify_dispatch_cost(torch, model, -(-(S_MP + S_NEW + V_K) // 16))
+    say(f"phase 5v (b) one verify dispatch at the served shape (8 rows x W "
+        f"{V_K + 1}, GPT-2 small bf16, one graph replay): {cost['ms']:.4f} "
+        f"ms by events, device {cost['device_ms']:.4f} ms (profiler, every "
+        f"kernel), K1 {cost['k1_ms']:.4f} ms device in "
+        f"{cost['k1_launches']:.1f} launches a dispatch [{card}]")
+
+    # the unified axis
+    rng = np.random.RandomState(17)
+    upool = [rng.randint(1, cfg.vocab_size,
+                         (int(rng.randint(max(4, U_MP // 4), U_MP + 1)),))
+             .astype(np.int32) for _ in range(U_REQS)]
+    srv = spec_server(model, DEV, {}, U_NEW, U_MP, chunk=256).start()
+    try:
+        for f in [srv.submit(p) for p in upool]:   # warm
+            f.result(timeout=600)
+        t0 = time.perf_counter()
+        for f in [srv.submit(p) for p in upool]:
+            f.result(timeout=600)
+        rps = 8.0 * U_REQS / max(time.perf_counter() - t0, 1e-6)
+    finally:
+        srv.stop()
+
+    def poisson(srv):
+        return poisson_drive(srv, upool, rps, seed=978, new=U_NEW)[0]
+
+    uruns = {}
+    for name, kw in (("split", {}), ("unified", dict(unified_round=True)),
+                     ("async", dict(async_rounds=True))):
+        outs, st, counts, _vc, busy, wall = axis_run(
+            torch, model, kw, upool, poisson, U_NEW, U_MP, 256)
+        uruns[name] = outs
+        for n in launches:
+            launches[n] += counts[n]
+        rd = st["rounds"]
+        if name != "split" and rd["dispatches_per_round"] != 1.0:
+            fail(f"phase 5v (b) unified axis {name}: rounds {rd}")
+        ties = 0
+        for p, a, b in zip(upool, uruns["split"], outs):
+            if not np.array_equal(a, b):
+                if not near_tie_rule(torch, params_cpu, cfg, a, b, p.size,
+                                     phase="5v (b)"):
+                    fail(f"phase 5v (b) unified axis {name}: tokens differ "
+                         f"from split beyond phase 4f's near-tie rule")
+                ties += 1
+        say(f"phase 5v (b) unified axis bf16 {name}: {U_REQS} requests x "
+            f"{U_NEW} tokens at {rps:.2f} req/s (Poisson, seed 978), "
+            + axis_text(st, counts, busy, wall) + f"; window-round replays {st['round_graph_replays']}; "
+            f"{U_REQS - ties} of {U_REQS} requests identical to split, "
+            f"{ties} at a near tie [{card}]")
+    return launches, verify, cost
+
 
 def main():
     import torch
@@ -3005,6 +3788,68 @@ def main():
         main_counts[n] += v
     say(f"phase 5p: {time.perf_counter() - t0:.1f} s")
 
+    # phase 5v: speculation and the unified round. (k) K1 on verify
+    # streams; (a) float32 parity card vs CPU; (b) bf16 serving (its
+    # K1/K2 launches join the kernels line, its verify-stream K1 launches
+    # are the verify rows')
+    t0 = time.perf_counter()
+    vrows = {}
+    for quant in (False, True):
+        tag = "int8" if quant else "dense"
+        errs = []
+        for dtype in (torch.bfloat16, torch.float32):
+            bf = dtype == torch.bfloat16
+            r = verify_case(torch, timer, quant, dtype, 51 + quant, bf)
+            if not r["ok"]:
+                fail(f"phase 5v (k) {tag} {dtype}: K1 disagrees with "
+                     f"verify_window_attention_plain (max abs err "
+                     f"{r['max_abs_err']:.3g}, atol=rtol={r['tol']}; pad "
+                     f"rows must be zeros)")
+            if not r["bitwise"]:
+                fail(f"phase 5v (k) {tag} {dtype}: two launches differ")
+            errs.append(f"{'bf16' if bf else 'f32'} {r['max_abs_err']:.3g}")
+            if bf:
+                vrows[f"ragged_stream_verify_{tag}"] = r
+        r = vrows[f"ragged_stream_verify_{tag}"]
+        say(f"phase 5v (k) ragged_stream_{tag} on a verify stream P{V_P} x "
+            f"W{V_K + 1} H12 Dh64 BS16 (contexts 64-1024, pad rows, a "
+            f"padding row; sum (pos+1) {r['flops'] // (4 * 12 * 64)}, "
+            f"{r['bytes'] / 1e6:.2f} MB): within tolerance of "
+            f"verify_window_attention_plain on rows with pos >= 0 (max abs "
+            f"err {', '.join(errs)}), pad rows zeros, bitwise over two "
+            f"launches; key passes per 64-row tile {r['passes']}; kernel "
+            f"{r['ms']:.4f} ms, device {r['device_ms']:.4f} ms (profiler), "
+            f"wrapper host {r['host_ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+            f"ms, library (SDPA, gather excluded) {r['library_ms']:.4f} ms, "
+            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); share of the "
+            f"bound {r['bound_ms'] / r['device_ms']:.3f} (device) [{card}]")
+    model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
+    cases = graph_program_parity(torch, model32)
+    say(f"phase 5v (a) graph vs eager, f32 GPT-2 small, 8 slots, K {V_K}: "
+        f"packed_verify and the window round (carry chained) x dense/int8 x "
+        f"greedy/sampled+penalties ({cases} cases): outputs, counts, carries "
+        f"and pools bitwise over a capture and a replay; a replay's launches "
+        f"equal the eager dispatch's (K1 once a layer); no host sync in a "
+        f"replay")
+    for name, (st, counts) in spec_parity(torch, model32, card).items():
+        sp, rd = st["speculation"], st["rounds"]
+        say(f"phase 5v (a) f32 {name}: 8 requests x {V_NEW} tokens (greedy, "
+            f"sampled, penalties) card == CPU == speculation off; "
+            f"acceptance_rate {sp['acceptance_rate']:.4f} verify dispatches "
+            f"{sp['verify_dispatches']} (replays "
+            f"{st['verify_graph_replays']}) rounds {rd['rounds']} "
+            f"dispatches_per_round {rd['dispatches_per_round']:.3f} mixed "
+            f"{rd['mixed_rounds']} window replays "
+            f"{st['round_graph_replays']}"
+            + ("; every async dispatch under set_sync_debug_mode('error')"
+               if rd["async"] else "") + f" [{card}]")
+    del model32
+    torch.cuda.empty_cache()
+    launches, verify_launches, _cost = spec_serving(torch, model, card)
+    for n, v in launches.items():
+        main_counts[n] += v
+    say(f"phase 5v: {time.perf_counter() - t0:.1f} s")
+
     del model
     torch.cuda.empty_cache()
 
@@ -3093,6 +3938,20 @@ def main():
         src = DECODE_SOURCE if name.startswith("paged_decode") else SOURCE
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": main_counts[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    # K1 on verify streams (5v): the verify case's numbers, launched by
+    # 5v (b)'s verify dispatches
+    for kv in ("dense", "int8"):
+        name = f"ragged_stream_verify_{kv}"
+        r = vrows[name]
+        n = verify_launches[f"ragged_stream_{kv}"]
+        if n <= 0:
+            fail(f"{name} was not launched on the main path")
+        out.append({"name": name, "route": "cuda", "source": SOURCE,
+                    "replaces": K1_REPLACES, "launches": n,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],

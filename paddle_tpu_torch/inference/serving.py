@@ -63,14 +63,51 @@ dispatch like any other; it never runs the eager loop instead. On the
 CPU the eager functions run. The packed prefill stays eager: its stream
 length varies with every dispatch.
 
+Speculative decoding (`speculation=SpecConfig(...)`, or True for the
+defaults): each round every decode-phase slot asks the drafter (default:
+the n-gram / prompt-lookup `NgramDrafter`, no second model) for up to K
+draft tokens; when any slot proposes, ONE verify dispatch
+(`PagedDecoder.packed_verify`, K1 on the card over the plan's pinned
+W-token windows, one graph replay) scores every decode-phase slot,
+draft-free ones as one-position rows, instead of the plain decode
+dispatch. The PRNG is counter-based, so the target's token at every
+position is deterministic: acceptance is exact match, and fixed-seed
+output (greedy, sampled, penalties) is token-identical to
+non-speculative decode. A row emits its accepted drafts plus the bonus
+token (1..K+1 tokens a dispatch, cut at a stop); rejected positions
+roll back (`PagedKVCache.truncate_seq`) before the tokens are emitted.
+Admission reserves the max(k - 1, K) overrun.
+
+The unified round (`unified_round=True`): the round's prefill chunk
+rows, decode rows and verify regions go into ONE packed stream and ONE
+`PagedDecoder.unified_round` dispatch, token-identical to the split
+round. A chunk-free round (steady decode) takes the window layout (P
+rows of W = K + 1 tokens; one graph replay on the card); a round with
+chunk rows runs eagerly (its stream length varies). `async_rounds=True`
+(implies unified) double-buffers the loop: round N+1 is planned and
+dispatched while round N runs, its decode rows fed from round N's
+samples through a slot-indexed device carry, and round N is processed
+after: the host learns of stops one round late and discards that
+overshoot, so the output is the split round's. Round N's outputs go to
+page-locked host buffers by non-blocking copies right after its
+dispatch (a `.cpu()` after round N+1 is queued would wait for N+1 too),
+and every upload to the card is non-blocking from page-locked memory.
+Async rounds reserve 1 + K more positions (the round of overshoot).
+Both require steps_per_dispatch=1. `stats()["rounds"]` counts rounds and
+attention dispatches on both paths.
+
 The packed stream is not bucketed to a power of two as the reference's
 is: PyTorch compiles nothing per shape, so a bucket would only add pad
 rows to every dispatch. Block tables are built fresh for every
 dispatch, so a copy-on-write swap of a block id is never served stale.
+Verify regions are not aligned (`_verify_align` 1, the reference's
+value off the TPU): K1 takes any packing.
 
-Left for later slices: speculation, unified/async rounds, the front
-door and scheduler seams (preemption, warm resume, tier prefetch), the
-recovery ladder and journal, the operations plane and sharding.
+Left for later slices: the front door and scheduler seams (preemption,
+warm resume, tier prefetch), the recovery ladder and journal, fault
+seams, tracing, SLOs and attribution, the bucket pre-warm
+(`warm_buckets`), goodput accounting, the operations plane and
+sharding.
 """
 from __future__ import annotations
 
@@ -87,6 +124,8 @@ import torch
 from ..device import resolve_device
 from ..nn.decode import PagedDecoder
 from ..sampling import SamplingParams, SlotParamStore
+from ..sampling.buffers import host_to_device
+from ..spec_decode import SpecConfig, build_verify_plan
 from .kv_cache import PagedKVCache, blocks_for
 from .kv_tier import normalize_kv_tier
 
@@ -141,6 +180,11 @@ class PagedGenerationServer:
     kv_dtype: None (a dense pool in the weights' dtype) or "int8".
     quantization: None or "w8a16" (int8 weights, packed once here);
         weight_quant="int8" is its alias.
+    speculation: None, True (the default `SpecConfig`) or a SpecConfig:
+        speculative decoding (module docstring).
+    unified_round: one dispatch per scheduler round (module docstring).
+    async_rounds: the double-buffered unified loop; implies
+        unified_round.
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
@@ -150,7 +194,8 @@ class PagedGenerationServer:
                  steps_per_dispatch=1, prefill_chunk_tokens=512,
                  pack_align=None, detokenize=None, stop_tail_tokens=16,
                  enable_prefix_cache=False, kv_tier=None, kv_dtype=None,
-                 quantization=None, weight_quant=None, device=None):
+                 quantization=None, weight_quant=None, speculation=None,
+                 unified_round=False, async_rounds=False, device=None):
         if quantization not in (None, "w8a16"):
             raise ValueError(f"unknown quantization {quantization!r} "
                              "(supported: None, 'w8a16')")
@@ -169,9 +214,45 @@ class PagedGenerationServer:
         self.temperature = float(temperature)
         self.max_new = int(max_new_tokens)
         self.steps_per_dispatch = max(1, int(steps_per_dispatch))
-        # a multi-step dispatch may write up to k-1 discarded tokens past
-        # the budget: the blocks must be reservable
-        self._overrun = self.steps_per_dispatch - 1
+        # speculation: True -> the default SpecConfig; None keeps the
+        # plain scheduler round exactly
+        if speculation is True:
+            speculation = SpecConfig()
+        elif speculation is not None and not isinstance(speculation,
+                                                        SpecConfig):
+            raise TypeError(f"speculation must be a SpecConfig, True or "
+                            f"None, got {type(speculation).__name__}")
+        self.speculation = speculation
+        self._spec_k = (speculation.max_draft_tokens
+                        if speculation is not None else 0)
+        self._drafter = (speculation.make_drafter()
+                         if speculation is not None else None)
+        if speculation is not None and self.steps_per_dispatch > 1:
+            raise ValueError(
+                "speculation requires steps_per_dispatch=1 (the verify "
+                "dispatch already amortizes the per-dispatch floor over "
+                "up to K+1 tokens; fusing verify rounds into a scan "
+                "would need host drafting mid-scan)")
+        self._async = bool(async_rounds)
+        self._unified = bool(unified_round) or self._async
+        if self._unified and self.steps_per_dispatch > 1:
+            raise ValueError(
+                "unified_round/async_rounds require steps_per_dispatch"
+                "=1 (the fused round already amortizes the dispatch "
+                "floor over the whole round)")
+        self._uk1 = self._spec_k + 1  # the pinned readout width K + 1
+        # verify regions take any packing on the card (K1 reads per-token
+        # segments) and on the CPU: the reference's value off the TPU
+        self._verify_align = 1
+        # overrun past the budget: a multi-step dispatch may write up to
+        # k-1 discarded tokens, a verify dispatch up to K speculative
+        # positions past the last emitted token (rolled back on
+        # rejection, but the blocks must be reservable); async rounds add
+        # one round of overshoot, 1 + K positions
+        slack = max(self.steps_per_dispatch - 1, self._spec_k)
+        if self._async:
+            slack += 1 + self._spec_k
+        self._overrun = slack
         self.max_prompt_len = int(
             max_prompt_len or cfg.max_position - self.max_new
             - self._overrun)
@@ -180,7 +261,7 @@ class PagedGenerationServer:
             raise ValueError(
                 f"max_prompt_len ({self.max_prompt_len}) + max_new_tokens "
                 f"({self.max_new}) + overrun slack ({self._overrun}, "
-                f"steps_per_dispatch) exceeds max_position "
+                f"steps_per_dispatch/speculation) exceeds max_position "
                 f"({cfg.max_position})")
         self.max_slots = int(max_slots)
         self.block_size = int(block_size)
@@ -236,6 +317,11 @@ class PagedGenerationServer:
         self._stop = False
         self._thread = None
         self._t0 = None
+        # async rounds: the round in flight (plan, outputs) and the
+        # slot-indexed device carry (token, write position, PRNG step)
+        self._pending = None
+        self._carry = None
+        self._zero_carry = None
         self._reset_window()
 
     # ---- client surface -------------------------------------------------
@@ -320,7 +406,18 @@ class PagedGenerationServer:
         self._sampled_dispatches = 0
         self._fastpath_dispatches = 0
         self._graph_replays = 0
+        self._verify_replays = 0
+        self._round_replays = 0
         self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_rolled_back = 0
+        self._spec_dispatches = 0
+        self._spec_rounds_per_slot = 0
+        self._rounds = 0
+        self._round_dispatch_count = 0
+        self._mixed_rounds = 0
+        self._overlap_s = 0.0
 
     def reset_stats(self):
         """Zero the measurement window (latency, TTFT and ITL samples,
@@ -369,6 +466,39 @@ class PagedGenerationServer:
                 # far (the decoder's lifetime)
                 "decode_graph_replays": self._graph_replays,
                 "decode_graph_captures": self._decoder.graphs.captures,
+                # verify dispatches and window rounds served by a graph
+                # replay (every one on the card)
+                "verify_graph_replays": self._verify_replays,
+                "round_graph_replays": self._round_replays,
+                # the reference's schema, zeroed when speculation is off
+                "speculation": {
+                    "enabled": self.speculation is not None,
+                    "proposed_tokens": self._spec_proposed,
+                    "accepted_tokens": self._spec_accepted,
+                    "rolled_back_tokens": self._spec_rolled_back,
+                    "verify_dispatches": self._spec_dispatches,
+                    "slot_rounds": self._spec_rounds_per_slot,
+                    # share of the proposed draft tokens accepted
+                    "acceptance_rate": (self._spec_accepted
+                                        / (self._spec_proposed or 1)),
+                },
+                # rounds and attention dispatches on both engine paths
+                # (split: up to prefill + decode or verify a round;
+                # unified: 1); mixed = rounds with prefill AND decode or
+                # verify work; overlap = host plan + dispatch time hidden
+                # behind a round in flight (async)
+                "rounds": {
+                    "unified": self._unified,
+                    "async": self._async,
+                    "rounds": self._rounds,
+                    "attention_dispatches": self._round_dispatch_count,
+                    "dispatches_per_round": (self._round_dispatch_count
+                                             / (self._rounds or 1)),
+                    "mixed_rounds": self._mixed_rounds,
+                    "overlap_seconds": self._overlap_s,
+                    "overlap_fraction": (self._overlap_s / dt
+                                         if dt else 0.0),
+                },
                 # the reference's schema, zeroed when quantization is off
                 "quantization": {
                     "enabled": (self.quantization is not None
@@ -392,7 +522,8 @@ class PagedGenerationServer:
 
     def _worst_blocks(self, req):
         """Worst-case block reservation for `req` (prompt + budget + the
-        multi-step overrun), plus one spare block for the (at most one)
+        multi-step, speculative and async overrun), plus one spare block
+        for the (at most one)
         copy-on-write a prefix attach ending mid-block can force."""
         return blocks_for(req.ids.size + req.budget + self._overrun,
                           self.block_size) + (
@@ -453,18 +584,43 @@ class PagedGenerationServer:
     def _loop_body(self):
         while True:
             with self._lock:
-                if self._stop:
-                    return
-                self._admit_locked()
-                if all(s is None for s in self._slots):
-                    self._lock.wait(timeout=0.1)
-                    continue
-            self._round_split()
+                stop = self._stop
+                if not stop:
+                    self._admit_locked()
+                    idle = all(s is None for s in self._slots)
+                    if idle and self._pending is None:
+                        self._lock.wait(timeout=0.1)
+                        continue
+            if stop:
+                # async: resolve the round in flight, so no future is
+                # left waiting on tokens the device already computed
+                self._drain_pending()
+                return
+            if idle:
+                self._drain_pending()
+            elif self._unified:
+                self._round_unified()
+            else:
+                self._round_split()
+
+    def _note_round(self, n_dispatches, mixed):
+        """Per-round dispatch accounting, both engine paths: `mixed`
+        marks a round with prefill AND decode or verify work."""
+        with self._lock:
+            self._rounds += 1
+            self._round_dispatch_count += n_dispatches
+            if mixed:
+                self._mixed_rounds += 1
+
+    def _dispatches(self):
+        return self._prefill_dispatches + self._steps + self._spec_dispatches
 
     def _round_split(self):
-        """One scheduler round: at most one packed chunk-prefill
-        dispatch, then one decode dispatch, so in-flight decode never
-        stalls longer than one chunk budget."""
+        """One scheduler round of the split path: at most one packed
+        chunk-prefill dispatch, then one verify or one plain decode
+        dispatch, so in-flight decode never stalls longer than one chunk
+        budget."""
+        d0 = self._dispatches()
         pre_idx = [i for i, s in enumerate(self._slots)
                    if s is not None and s["fed"] < s["prompt"].size]
         if pre_idx:
@@ -472,7 +628,20 @@ class PagedGenerationServer:
         active_idx = [i for i, s in enumerate(self._slots)
                       if s is not None and s["fed"] >= s["prompt"].size]
         if active_idx:
-            self._decode_plain(active_idx)
+            # speculation: when any slot proposes drafts, ONE verify
+            # dispatch serves every decode-phase slot; otherwise (and
+            # always with speculation off) the plain decode dispatch
+            spec_slots = ()
+            if self._drafter is not None:
+                spec_slots = self._speculate(active_idx)
+            plain_idx = [i for i in active_idx if i not in spec_slots
+                         and self._slots[i] is not None]
+            if plain_idx:
+                self._decode_plain(plain_idx)
+        d1 = self._dispatches()
+        if d1 > d0:
+            self._note_round(d1 - d0,
+                             mixed=bool(pre_idx) and bool(active_idx))
 
     def _fail_slot(self, i, e):
         """Fail slot i's request with `e`, return its blocks and free
@@ -495,7 +664,31 @@ class PagedGenerationServer:
                 self._fail_slot(i, e)
 
     def _tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return host_to_device(a, self.device)
+
+    def _to_host(self, tensors):
+        """Start copying a dispatch's outputs to the host: on the card
+        into page-locked buffers by non-blocking copies, with an event
+        after them (the outputs may be a graph's, overwritten by its
+        next replay: the copies are queued before it). Returns what
+        `_host_arrays` reads."""
+        if self.device.type != "cuda":
+            return tuple(tensors), None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in tensors)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return host, ev
+
+    @staticmethod
+    def _host_arrays(fetched):
+        """Wait for `_to_host`'s copies; their numpy arrays."""
+        host, ev = fetched
+        if ev is not None:
+            ev.synchronize()
+        return tuple(h.numpy() for h in host)
 
     def _prefill_packed(self, pre_idx):
         """ONE packed ragged prefill dispatch over up to
@@ -634,21 +827,415 @@ class PagedGenerationServer:
         with self._lock:
             self._steps += 1
             self._active_integral += len(active_idx)
+        for i in active_idx:  # tokens after a stop are discarded
+            self._emit_row(i, toks[:, i], stops[:, i], toks.shape[0], t_now)
+
+    # ---- speculation (split round) ---------------------------------------
+    def _propose(self, s):
+        """The drafter's proposal for slot state `s`: up to
+        min(K, remaining budget - 1) tokens (with one token left a draft
+        adds nothing), from the request's prompt + generated tokens."""
+        kcap = min(self._spec_k, s["budget"] - len(s["toks"]) - 1)
+        if kcap < 1:
+            return np.empty((0,), np.int32)
+        ctx = np.concatenate([s["req"].ids, np.asarray(s["toks"], np.int32)])
+        return np.asarray(self._drafter.propose(ctx, kcap),
+                          np.int32).reshape(-1)[:kcap]
+
+    def _speculate(self, active_idx):
+        """Propose drafts for every decode-phase slot; when any slot got
+        a proposal, ONE verify dispatch serves them ALL (draft-free slots
+        as one-position rows, their decode step), so a round never pays a
+        verify and a plain decode dispatch. Returns the slots served, or
+        () when nobody proposed (the round takes the plain decode)."""
+        entries = []
         for i in active_idx:
             s = self._slots[i]
-            t_prev = s["t_last"] if s["t_last"] is not None else t_now
-            consumed = 0
-            for j in range(toks.shape[0]):
-                consumed += 1
-                self._slot_token(i, int(toks[j, i]),
-                                 device_stopped=bool(stops[j, i]))
-                if self._slots[i] is None:  # finished mid-dispatch: the
-                    break  # remaining tokens are discarded
-            if self._slots[i] is not None:
-                self._slots[i]["t_last"] = t_now
-            per = max(t_now - t_prev, 0.0) / consumed
+            entries.append((i, s["toks"][-1], s["pos"] + len(s["toks"]) - 1,
+                            len(s["toks"]), self._propose(s)))
+        if not any(e[4].size for e in entries):
+            return ()
+        plan = build_verify_plan(entries, self._spec_k, self._verify_align,
+                                 min_rows=self.max_slots)
+        self._verify_packed(plan)
+        return set(plan.slots)
+
+    def _verify_packed(self, plan):
+        """ONE verify dispatch for the plan's slots, then accept and roll
+        back: row r's drafts were written at write_pos + 1 .. + k; the
+        dispatch returns the target's token at every position, the
+        accepted counts and the stop flags. The cache is truncated to
+        write_pos + accepted + 1 first, then the accepted drafts and the
+        bonus token go through `_slot_token` (stopping at a stop)."""
+        with self._lock:
+            self._spec_proposed += int(sum(d.size for d in plan.drafts))
+            self._spec_rounds_per_slot += sum(1 for d in plan.drafts
+                                              if d.size)
+        P = plan.dlen.shape[0]
+        slot_rows = [plan.slots[r] if r < plan.rows else None
+                     for r in range(P)]
+        try:
+            # every row's table grows to its speculative horizon in one
+            # atomic call (the admission reservation covers K positions)
+            self.cache.ensure_many(plan.grow_updates(
+                [self._slots[i]["seq"] for i in plan.slots]))
+            # the decode dispatch's table width: a pinned shape
+            tables = self._tensor(self.cache.table_array(
+                [self._slots[i]["seq"] if i is not None else None
+                 for i in slot_rows], self._m_width))
+            sp, mode = self._sp_store.verify_args(slot_rows, plan.steps)
+            args = (self._params, self._tensor(plan.toks),
+                    self._tensor(plan.seg), self._tensor(plan.pos), tables,
+                    self._tensor(plan.sample_idx), self._tensor(plan.dlen),
+                    self.cache.k_blocks, self.cache.v_blocks, sp)
+            if self.device.type == "cuda":  # one graph replay
+                vtok, acc, stopped, _kc, _vc, counts = \
+                    self._decoder.graphs.verify(mode, *args)
+                with self._lock:
+                    self._verify_replays += 1
+            else:
+                vtok, acc, stopped, _kc, _vc, counts = \
+                    self._decoder.packed_verify(*args, mode)
+            vtok_h, acc_h, stop_h = self._host_arrays(
+                self._to_host((vtok, acc, stopped)))
+            self._sp_store.swap_counts(counts)
+        except Exception as e:  # noqa: BLE001 — fail this dispatch's
+            # requests, keep the engine serving
+            self._dispatch_failure(e, list(plan.slots))
+            return
+        t_now = time.perf_counter()
+        with self._lock:
+            self._spec_dispatches += 1
+        for r, i in enumerate(plan.slots):
+            s = self._slots[i]
+            a = int(acc_h[r])
+            k_r = int(plan.drafts[r].size)
+            # roll back FIRST, while the sequence exists: keep the last
+            # emitted token and the accepted drafts
+            self.cache.truncate_seq(s["seq"], plan.write_pos[r] + a + 1)
+            if k_r:  # draft-free rows have nothing to score
+                with self._lock:
+                    self._spec_accepted += a
+                    self._spec_rolled_back += k_r - a
+            self._emit_row(i, vtok_h[r], stop_h[r], a + 1, t_now)
+
+    def _emit_row(self, i, toks, stops, n, t_now):
+        """Emit the first n of one dispatch's tokens for slot i (fewer
+        when a stop ends the request), with their ITL: the gap since the
+        slot's previous emission, amortized over the tokens emitted."""
+        s = self._slots[i]
+        t_prev = s["t_last"] if s["t_last"] is not None else t_now
+        consumed = 0
+        for j in range(n):
+            consumed += 1
+            self._slot_token(i, int(toks[j]), device_stopped=bool(stops[j]))
+            if self._slots[i] is None:  # stopped: the rest is discarded
+                break
+        if self._slots[i] is not None:
+            self._slots[i]["t_last"] = t_now
+        per = max(t_now - t_prev, 0.0) / consumed
+        with self._lock:
+            self._itl.extend([per] * consumed)
+
+    # ---- the unified round -----------------------------------------------
+    def _round_unified(self):
+        """One scheduler round of the unified path: plan the round (chunk
+        rows, decode rows, verify regions), run it as ONE dispatch, and
+        process its outputs. Async: the round dispatched here runs while
+        the previous one is processed, and is processed in the next
+        iteration, after its successor's dispatch; the plan and dispatch
+        time of a round with one in flight counts as overlap."""
+        t0 = time.perf_counter()
+        plan = self._plan_round()
+        outs = self._dispatch_round(plan) if plan is not None else None
+        t1 = time.perf_counter()
+        if not self._async:
+            if outs is not None:
+                self._process_round(plan, outs)
+            return
+        pending, self._pending = self._pending, None
+        if pending is not None:
             with self._lock:
-                self._itl.extend([per] * consumed)
+                self._overlap_s += t1 - t0
+            self._process_round(*pending)
+        if outs is not None:
+            self._pending = (plan, outs)
+        else:
+            self._carry = None  # the chain broke: reseed from the host
+
+    def _drain_pending(self):
+        """Async: process the round in flight now, so the host state is
+        authoritative (stop, idle). Breaks the device chain: the carry
+        is reseeded from the host at the next plan."""
+        pending, self._pending = self._pending, None
+        if pending is not None:
+            self._carry = None
+            self._process_round(*pending)
+
+    def _seed_carry(self):
+        """Build the slot-indexed device carry from the host state: each
+        decode-phase slot's last token, its write position and its PRNG
+        step (the async chain's start). Other entries are written by
+        their own round before any round reads them."""
+        S = self.max_slots
+        tok = np.zeros((S,), np.int32)
+        pos = np.zeros((S,), np.int32)
+        steps = np.zeros((S,), np.int32)
+        for i, s in enumerate(self._slots):
+            if s is not None and s["toks"] \
+                    and s["fed"] >= s["prompt"].size:
+                tok[i] = s["toks"][-1]
+                pos[i] = s["pos"] + len(s["toks"]) - 1
+                steps[i] = len(s["toks"])
+        self._carry = (self._tensor(tok), self._tensor(pos),
+                       self._tensor(steps))
+
+    def _plan_round(self):
+        """ONE combined plan: prefill chunk rows (`_prefill_packed`'s
+        budget and order), then a decode or verify row for every
+        decode-phase slot (its drafts, if any). Async: a decode row's
+        token, positions and PRNG step come from the device carry (the
+        plan holds references to slots, not values). Returns None when no
+        slot has work."""
+        align = self._pack_align
+        K1 = self._uk1
+        W = -(-K1 // self._verify_align) * self._verify_align
+        rows = []
+        budget = self.prefill_chunk_tokens
+        for i, s in enumerate(self._slots):
+            if budget <= 0:
+                break
+            if s is None or s["fed"] >= s["prompt"].size:
+                continue
+            n = min(s["prompt"].size - s["fed"], budget)
+            rows.append({"kind": "chunk", "slot": i, "seq": s["seq"],
+                         "start": s["fed"], "n": n,
+                         "width": -(-n // align) * align,
+                         "done": s["fed"] + n == s["prompt"].size})
+            budget -= n
+        for i, s in enumerate(self._slots):
+            if s is None or s["fed"] < s["prompt"].size:
+                continue
+            # async: the context is the host-known tokens, one round
+            # stale: stale drafts only lower the acceptance rate
+            drafts = (self._propose(s) if self._drafter is not None
+                      else np.empty((0,), np.int32))
+            rows.append({"kind": "step", "slot": i, "seq": s["seq"],
+                         "drafts": drafts, "width": W,
+                         "steps": len(s["toks"]),
+                         "wpos": s["pos"] + len(s["toks"]) - 1})
+        if not rows:
+            return None
+        if self._async and self._carry is None:
+            self._seed_carry()
+        P = 1
+        while P < len(rows):
+            P *= 2
+        # a chunk-free round takes the window layout: T = P * W, one
+        # pinned region a row (the verify trunk; one graph on the card)
+        window = all(row["kind"] == "step" for row in rows)
+        offsets = []
+        off = 0
+        for row in rows:
+            offsets.append(off)
+            off += row["width"]
+        T = P * W if window else off
+        toks = np.zeros((T,), np.int32)
+        seg = np.zeros((T,), np.int32)
+        pos = np.full((T,), -1, np.int32)
+        carry_map = np.full((T,), -1, np.int32)
+        pos_map = np.full((T,), -1, np.int32)
+        sample_idx = np.zeros((P, K1), np.int32)
+        dlen = np.full((P,), -1, np.int32)
+        row_slot = np.full((P,), -1, np.int32)
+        steps_map = np.full((P,), -1, np.int32)
+        steps = np.zeros((P,), np.int32)
+        emit_rows = [False] * P
+        n_chunk = n_step = n_drafts = 0
+        for r, (row, o) in enumerate(zip(rows, offsets)):
+            i = row["slot"]
+            s = self._slots[i]
+            if row["kind"] == "chunk":
+                n_chunk += 1
+                n, start = row["n"], row["start"]
+                toks[o:o + n] = s["prompt"][start:start + n]
+                seg[o:o + n] = r
+                pos[o:o + n] = np.arange(start, start + n, dtype=np.int32)
+                sample_idx[r] = o + n - 1  # every readout clamps there
+                if row["done"]:
+                    # token 0 samples here: a dlen 0 row at step 0
+                    dlen[r] = 0
+                    row_slot[r] = i
+                    steps[r] = len(s["toks"])
+                    emit_rows[r] = True
+                continue
+            n_step += 1
+            drafts = row["drafts"]
+            k = int(drafts.size)
+            n_drafts += k
+            seg[o:o + 1 + k] = r
+            toks[o + 1:o + 1 + k] = drafts
+            if self._async:
+                # the decode token, positions and PRNG base step come
+                # from the device carry: round N's samples feed round
+                # N+1 with no host read
+                carry_map[o] = i
+                pos[o:o + 1 + k] = np.arange(0, 1 + k, dtype=np.int32)
+                pos_map[o:o + 1 + k] = i
+                steps_map[r] = i
+            else:
+                toks[o] = s["toks"][-1]
+                pos[o:o + 1 + k] = np.arange(row["wpos"],
+                                             row["wpos"] + 1 + k,
+                                             dtype=np.int32)
+                steps[r] = row["steps"]
+            sample_idx[r] = o + np.minimum(np.arange(K1), k)
+            dlen[r] = k
+            row_slot[r] = i
+            emit_rows[r] = True
+        return {"rows": rows, "T": T, "P": P, "window": window,
+                "toks": toks, "seg": seg, "pos": pos,
+                "carry_map": carry_map, "pos_map": pos_map,
+                "sample_idx": sample_idx, "dlen": dlen,
+                "row_slot": row_slot, "steps_map": steps_map,
+                "steps": steps, "emit_rows": emit_rows,
+                "n_chunk": n_chunk, "n_step": n_step, "n_drafts": n_drafts}
+
+    def _dispatch_round(self, plan):
+        """Run one unified-round dispatch and do the bookkeeping the host
+        knows without its outputs (fed positions, counters); the tokens
+        wait for `_process_round`. Returns the outputs as
+        `_to_host` started them, or None after a failed dispatch (the
+        plan's requests are failed and their blocks freed)."""
+        rows = plan["rows"]
+        updates = []
+        for row in rows:
+            if row["kind"] == "chunk":
+                updates.append((row["seq"], row["start"] + row["n"]))
+                continue
+            # the last known token writes at wpos, drafts after it; async:
+            # the device's write front may be one emitted round ahead of
+            # the host's, so grow by that too, within the reservation
+            need = row["wpos"] + int(row["drafts"].size) + 1
+            if self._async:
+                s = self._slots[row["slot"]]
+                need = min(need + 1 + self._spec_k,
+                           s["pos"] + s["budget"] + self._overrun)
+            updates.append((row["seq"], need))
+        P = plan["P"]
+        slot_rows = [rows[r]["slot"] if r < len(rows) else None
+                     for r in range(P)]
+        try:
+            self.cache.ensure_many(updates)
+            if self.enable_prefix_cache:
+                # copy-on-write: a chunk starting in an attached block
+                # writes to a private copy
+                for row in rows:
+                    if row["kind"] == "chunk":
+                        self.cache.prepare_write(row["seq"], row["start"])
+            tables = self._tensor(self.cache.table_array(
+                [rows[r]["seq"] if r < len(rows) else None
+                 for r in range(P)], self._m_width))
+            sp, mode = self._sp_store.unified_args(
+                slot_rows, plan["emit_rows"], plan["steps"])
+            if self._async:
+                ct, cp, cs = self._carry
+            else:
+                if self._zero_carry is None:
+                    z = self._tensor(np.zeros((self.max_slots,), np.int32))
+                    self._zero_carry = (z, z, z)
+                ct, cp, cs = self._zero_carry
+            args = (self._params, self._tensor(plan["toks"]),
+                    self._tensor(plan["seg"]), self._tensor(plan["pos"]),
+                    tables, self._tensor(plan["sample_idx"]),
+                    self._tensor(plan["dlen"]),
+                    self._tensor(plan["row_slot"]),
+                    self._tensor(plan["carry_map"]),
+                    self._tensor(plan["pos_map"]),
+                    self._tensor(plan["steps_map"]), ct, cp, cs,
+                    self.cache.k_blocks, self.cache.v_blocks, sp)
+            if self.device.type == "cuda" and plan["window"]:
+                (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
+                 ncs) = self._decoder.graphs.unified(mode, *args)
+                with self._lock:
+                    self._round_replays += 1
+            else:
+                (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
+                 ncs) = self._decoder.unified_round(
+                    *args, mode, window=plan["window"])[:9]
+            outs = self._to_host((vtok, acc, stopped))
+            self._sp_store.swap_counts(counts)
+        except Exception as e:  # noqa: BLE001 — fail this dispatch's
+            # requests, keep the engine serving
+            self._carry = None
+            self._dispatch_failure(e, [row["slot"] for row in rows])
+            return None
+        if self._async:
+            self._carry = (nct, ncp, ncs)
+        for row in rows:
+            if row["kind"] == "chunk":
+                self._slots[row["slot"]]["fed"] = row["start"] + row["n"]
+        with self._lock:
+            if plan["n_chunk"]:
+                self._prefill_dispatches += 1
+            if plan["n_step"]:
+                self._steps += 1
+                self._active_integral += plan["n_step"]
+            if mode[0]:
+                self._sampled_dispatches += 1
+            else:
+                self._fastpath_dispatches += 1
+            if plan["n_drafts"]:
+                self._spec_dispatches += 1
+                self._spec_proposed += plan["n_drafts"]
+                self._spec_rounds_per_slot += sum(
+                    1 for row in rows
+                    if row["kind"] == "step" and row["drafts"].size)
+        self._note_round(1, mixed=bool(plan["n_chunk"] and plan["n_step"]))
+        return outs
+
+    def _process_round(self, plan, outs):
+        """Read one unified round's outputs and emit its tokens (async:
+        one round late, while its successor runs). Rows whose slot was
+        freed or refilled since the plan (async overshoot past a stop the
+        host had not seen) are discarded, so the output is the split
+        round's."""
+        vtok_h, acc_h, stop_h = self._host_arrays(outs)
+        t_now = time.perf_counter()
+        accepted = rolled = 0
+        for r, row in enumerate(plan["rows"]):
+            i = row["slot"]
+            s = self._slots[i]
+            live = s is not None and s["seq"] == row["seq"]
+            if row["kind"] == "chunk":
+                if not (row["done"] and live):
+                    continue
+                if self.enable_prefix_cache:
+                    # every prompt position is written: index the blocks
+                    self.cache.publish_prefix(s["seq"], s["prompt"])
+                with self._lock:
+                    self._ttft.append(t_now - s["req"].t_submit)
+                    self._prefills += 1
+                s["t_last"] = t_now
+                self._slot_token(i, int(vtok_h[r, 0]),
+                                 device_stopped=bool(stop_h[r, 0]))
+                continue
+            a = int(acc_h[r])
+            k_r = int(row["drafts"].size)
+            if not live:
+                rolled += k_r  # async overshoot: its drafts roll back
+                continue
+            if k_r and not self._async:
+                # roll back first; the async chain instead overwrites the
+                # rejected positions at its later write front
+                self.cache.truncate_seq(s["seq"], row["wpos"] + a + 1)
+            if k_r:
+                rolled += k_r - a
+                accepted += a
+            self._emit_row(i, vtok_h[r], stop_h[r], a + 1, t_now)
+        with self._lock:
+            self._spec_accepted += accepted
+            self._spec_rolled_back += rolled
 
     def _slot_token(self, i, tok, device_stopped=False):
         """Record one generated token for slot i; completes the request

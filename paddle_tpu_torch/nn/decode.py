@@ -17,7 +17,26 @@ The port of `paddle_tpu.nn.decode`'s serving programs:
     with the loop index and threading the count buffer. On the card the
     server runs it through `graphs` (`nn/decode_graph.py`): the loop is
     captured once per key as one CUDA graph and replayed, one launch a
-    dispatch, as the reference's jitted scan is one device program.
+    dispatch, as the reference's jitted scan is one device program;
+  * `packed_verify` — speculative verification: a stream of pinned
+    W-token regions, [last token, draft_1 .. draft_k] per speculating
+    slot, scored in one dispatch over the verify trunk (attention through
+    `ops.verify_window_attention`: K1 on the card), with a [P, K+1]
+    readout and ON-DEVICE acceptance. The PRNG is counter-based, so the
+    target's token at every position is deterministic: draft j is
+    accepted iff it equals the token sampled at position j-1 and every
+    earlier draft was accepted. On the card the server replays it as one
+    graph (its shapes are pinned by the plan);
+  * `unified_round` — prefill chunk rows, decode rows and verify regions
+    of a whole scheduler round in ONE dispatch, with the verify readout
+    and a slot-indexed device carry (next token, write position and PRNG
+    step per slot) that chains round N's samples into round N+1 without
+    a host read. `window=True` (no chunk row: every row one W-token
+    region) runs the verify trunk and replays as a graph on the card;
+    `window=False` runs the packed trunk eagerly (its stream length
+    varies, as the packed prefill's; `ops.unified_stream_attention`, the
+    reference's name for the mixed stream's attention, is the packed
+    trunk's `ragged_prefill_attention`).
 
 Params are the flat GPT-2 dict (`models.gpt2.GPT2.flat_params()`), every
 projection `[in, out]` applied as `x @ W`. Masking is by LENGTH
@@ -45,15 +64,15 @@ W8A16 one through `_LayerHelpers.matw`, as the reference's `matw`:
 on its output columns. The product stays a `torch.matmul`: the
 reference computes it in XLA, outside any Pallas kernel.
 
-Left out: the non-packed `prefill` program, speculative verify, the
-unified/async round and every sharding argument.
+Left out: the non-packed `prefill` program and every sharding argument.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from ..ops.attention import paged_decode_attention, ragged_prefill_attention
+from ..ops.attention import (paged_decode_attention, ragged_prefill_attention,
+                             verify_window_attention)
 from ..sampling import processors as _proc
 from ..sampling.buffers import GREEDY_MODE
 from .decode_graph import DecodeGraphs
@@ -149,6 +168,13 @@ class _LayerHelpers:
             + p[f"h.{i}.fc2.bias"]
 
 
+def _rep(t, n):
+    """Each row of t repeated n times in place (row-major), by expand:
+    `repeat_interleave` may read its repeat count back to the host."""
+    return t.unsqueeze(1).expand(t.shape[0], n, *t.shape[1:]) \
+        .reshape(t.shape[0] * n, *t.shape[1:])
+
+
 def _readout(hp, params, xf, sp, mode):
     """Final layernorm, float32 head logits, the sampled tokens."""
     xf = hp.ln(xf, params["ln_f.weight"], params["ln_f.bias"])
@@ -159,7 +185,8 @@ def _readout(hp, params, xf, sp, mode):
 
 
 class PagedDecoder:
-    """The (step, packed_prefill, multistep) family over the paged KV
+    """The (step, packed_prefill, multistep, packed_verify,
+    unified_round) family over the paged KV
     cache for one GPT-2-layout spec. Stateless apart from its spec:
     every call takes the params, the inputs and the cache tensors.
 
@@ -299,6 +326,205 @@ class PagedDecoder:
                 counts = _proc.update_counts(sp["counts"], sp["crows"], tok,
                                              sp["row_done"])
         return self._out(tok, stopped, kc, vc, counts, logits)
+
+    @torch.no_grad()
+    def _verify_trunk(self, params, toks, seg, pos, tables, kc, vc):
+        """The packed trunk on the verify plan's pinned layout: T = P * W,
+        one W-token region per plan row, attention through
+        `verify_window_attention` (K1 on the flattened stream on the
+        card; the per-row [P, W] plain version on the CPU)."""
+        hp, BS = self._hp, self.block_size
+        T = toks.shape[0]
+        P, M = tables.shape
+        W = T // P
+        valid = pos >= 0
+        p0 = torch.where(valid, pos, 0).long()
+        x = hp.embed(params, toks) + params["wpe.weight"][p0]  # [T, E]
+        col = (p0 // BS).clamp(max=M - 1)
+        blk = torch.where(valid, tables[seg.long(), col].long(), 0)
+        off = p0 % BS
+        pos2 = pos.reshape(P, W)
+        for i in range(hp.L):
+            a = hp.ln(x, params[f"h.{i}.ln_1.weight"],
+                      params[f"h.{i}.ln_1.bias"])
+            q, k, v = hp.qkv_split(params, i, a)           # [T, H, Dh]
+            kc = self._kv_write(kc, i, blk, off, k)
+            vc = self._kv_write(vc, i, blk, off, v)
+            o = verify_window_attention(
+                q.reshape(P, W, hp.H, hp.Dh), self._kv_layer(kc, i),
+                self._kv_layer(vc, i), tables, pos2,
+                scale=self._scale).reshape(T, hp.E)
+            x = hp.block_and_mlp(params, i, x, o)
+        return x, kc, vc
+
+    def _verify_readout(self, params, x, toks, sample_idx, dlen, sp, mode,
+                        base):
+        """The verify readout shared by `packed_verify` and
+        `unified_round`: sample every row's K1 positions (position j at
+        PRNG step base + j; in penalty mode its counts include drafts
+        1..j), the per-position stop flags, the accepted draft counts
+        and the emitted positions (the accepted prefix plus the bonus
+        token, cut after the first stop; none on rows with dlen < 0).
+        Returns (vtok [P, K1], accepted [P], stopped [P, K1], counts or
+        None, emit [P, K1], logits [P * K1, V])."""
+        sampled, penalties = mode
+        P, K1 = sample_idx.shape
+        si = sample_idx.long()
+        fed = toks[si]                                     # [P, K1]
+        j = torch.arange(K1, device=toks.device)[None, :]
+        draft_valid = (j >= 1) & (j <= dlen[:, None])       # real drafts
+        row_valid = dlen >= 0
+        # the per-row columns as per-position rows, row-major [P, K1]
+        spf = {"stop": _rep(sp["stop"], K1)}
+        if sampled:
+            for col in ("temperature", "top_k", "top_p", "min_p", "seeds",
+                        "sample"):
+                spf[col] = _rep(sp[col], K1)
+            spf["steps"] = (base[:, None] + j).reshape(-1).to(torch.int32)
+        if penalties:
+            for col in ("rep", "pres", "freq"):
+                spf[col] = _rep(sp[col], K1)
+            # position j's text so far includes drafts 1..j: they ARE
+            # the emitted tokens whenever position j's verdict matters
+            bc = sp["counts"][sp["crows"].long()]          # [P, V]
+            V = bc.shape[-1]
+            oh = torch.zeros((P, K1, V), dtype=torch.int32,
+                             device=toks.device).scatter_(
+                2, fed.long()[..., None],
+                draft_valid[..., None].to(torch.int32))
+            spf["counts"] = (bc[:, None] + torch.cumsum(oh, dim=1,
+                                                        dtype=torch.int32)
+                             ).reshape(P * K1, V)
+        tok, logits = _readout(self._hp, params, x[si.reshape(-1)], spf,
+                               mode)
+        vtok = tok.reshape(P, K1)
+        stopped = _proc.check_stops(tok, spf["stop"],
+                                    _rep(row_valid, K1)).reshape(P, K1)
+        # draft j is accepted iff it matches the target's token at the
+        # position before it and every earlier draft was accepted
+        matches = (fed[:, 1:] == vtok[:, :-1]) & draft_valid[:, 1:]
+        accepted = torch.cumprod(matches.to(torch.int32), dim=1) \
+            .sum(dim=1).to(torch.int32)
+        sint = stopped.to(torch.int32)
+        stop_before = torch.cumsum(sint, dim=1) - sint
+        emit = (j <= accepted[:, None]) & (stop_before == 0) \
+            & row_valid[:, None]
+        counts = None
+        if penalties:
+            # count exactly the emitted tokens (a later host-side stop,
+            # a stop string or the budget, ends the request, and its row
+            # is reset at the next admission)
+            counts = _proc.update_counts(sp["counts"], _rep(sp["crows"], K1),
+                                         tok, emit.reshape(-1))
+        return vtok, accepted, stopped, counts, emit, logits
+
+    def packed_verify(self, params, toks, seg, pos, tables, sample_idx,
+                      dlen, kc, vc, sp, mode=GREEDY_MODE):
+        """Speculative verification over a pinned verify plan
+        (`spec_decode.build_verify_plan`): toks/seg/pos the packed [P * W]
+        stream holding each row's last emitted token and its drafts (their
+        K/V written at pos .. pos + k; the caller rolls rejected positions
+        back with `PagedKVCache.truncate_seq`); tables [P, M]; sample_idx
+        [P, K1] the packed index of each row's verify position j (clamped
+        to the region's end past its drafts); dlen [P] the draft count (0
+        = a real row without drafts: its one position is a decode step;
+        -1 = a padding row); sp from `SlotParamStore.verify_args` (base
+        PRNG steps in sp["steps"]). Returns (vtok [P, K1] the target's
+        tokens, accepted [P], stopped [P, K1], kc, vc, counts or None[,
+        logits [P, K1, V] f32]). Row r emits vtok[r, :accepted + 1], cut
+        after the first stopped position: what accepted + 1 sequential
+        decode steps would have emitted."""
+        self._check_kv(kc, vc)
+        with torch.no_grad():
+            x, kc, vc = self._verify_trunk(params, toks, seg, pos, tables,
+                                           kc, vc)
+            base = sp.get("steps")
+            vtok, accepted, stopped, counts, _emit, logits = \
+                self._verify_readout(params, x, toks, sample_idx, dlen, sp,
+                                     mode, base)
+        out = (vtok, accepted, stopped, kc, vc, counts)
+        if self.return_logits:
+            return out + (logits.reshape(*vtok.shape, -1),)
+        return out
+
+    def unified_round(self, params, toks, seg, pos, tables, sample_idx,
+                      dlen, row_slot, carry_map, pos_map, steps_map,
+                      carry_tok, carry_pos, carry_steps, kc, vc, sp,
+                      mode=GREEDY_MODE, window=False):
+        """One scheduler round in one dispatch: prefill chunk rows, decode
+        rows and verify regions of one packed stream, with
+        `packed_verify`'s readout over sample_idx [P, K1] and dlen [P] (a
+        decode row is dlen 0; a prefill row completing its prompt is dlen
+        0 at its base step; a still-feeding prefill row or a pad row is
+        -1 and emits nothing while its K/V writes land).
+
+        The device carry (async rounds): carry_tok / carry_pos /
+        carry_steps [S] are slot-indexed outputs of the previous round;
+        carry_map / pos_map [T] name the slot whose carried token /
+        write position feeds a stream position (-1 = the host's toks /
+        pos; a carried pos holds the offset within the region, added to
+        the slot's carried position), steps_map [P] likewise a row's base
+        PRNG step. row_slot [P] names each row's slot. A synchronous round
+        passes every map as -1 and zero carries.
+
+        Returns (vtok [P, K1], accepted [P], stopped [P, K1], kc, vc,
+        counts or None, carry_tok, carry_pos, carry_steps[, logits [P,
+        K1, V] f32]): the new carry holds, for every emitting row's slot,
+        the last token emitted this round, the next write position and
+        the next PRNG step; other slots pass through. window=True: every
+        row is one pinned W-token region (T = P * W) over the verify
+        trunk; window=False: the packed trunk."""
+        self._check_kv(kc, vc)
+        with torch.no_grad():
+            sampled, _penalties = mode
+            P, K1 = sample_idx.shape
+            S = carry_tok.shape[0]
+            # resolve the carried inputs (sync rounds: every map is -1)
+            cm = carry_map.long().clamp(0, S - 1)
+            toks_eff = torch.where(carry_map >= 0, carry_tok[cm], toks)
+            pm = pos_map.long().clamp(0, S - 1)
+            pos_eff = torch.where(pos_map >= 0, carry_pos[pm] + pos, pos)
+            if window:
+                x, kc, vc = self._verify_trunk(params, toks_eff, seg,
+                                               pos_eff, tables, kc, vc)
+            else:  # the packed trunk: its attention is the unified
+                # stream's (`ops.unified_stream_attention` is this op)
+                x, kc, vc = self._trunk(params, toks_eff, seg, pos_eff,
+                                        tables, kc, vc)
+            if sampled:
+                sm = steps_map.long().clamp(0, S - 1)
+                base = torch.where(steps_map >= 0, carry_steps[sm],
+                                   sp["steps"])
+            else:
+                base = torch.zeros((P,), dtype=torch.int32,
+                                   device=toks.device)
+            vtok, accepted, stopped, counts, emit, logits = \
+                self._verify_readout(params, x, toks_eff, sample_idx, dlen,
+                                     sp, mode, base)
+            # the next round's carry, per emitting row's slot: its last
+            # emitted token, next write position and next PRNG step.
+            # Rows that emit nothing and slots without a row pass
+            # through: their index is S, a spare entry cut off after
+            emit_n = emit.sum(dim=1)
+            rows = torch.arange(P, device=toks.device)
+            last = vtok[rows, (emit_n - 1).clamp(min=0)]
+            p0 = pos_eff[sample_idx[:, 0].long()]
+            upd = (dlen >= 0) & (row_slot >= 0)
+            si = torch.where(upd, row_slot.long().clamp(0, S - 1), S)
+
+            def scatter(carry, val):
+                ext = torch.cat([carry, carry.new_zeros(1)])
+                ext[si] = val.to(carry.dtype)
+                return ext[:S]
+
+            carry_tok = scatter(carry_tok, last)
+            carry_pos = scatter(carry_pos, p0 + emit_n)
+            carry_steps = scatter(carry_steps, base + emit_n)
+        out = (vtok, accepted, stopped, kc, vc, counts, carry_tok,
+               carry_pos, carry_steps)
+        if self.return_logits:
+            return out + (logits.reshape(P, K1, -1),)
+        return out
 
     def multistep(self, n_steps, mode=GREEDY_MODE):
         """`n_steps` decode tokens per call: returns a function with

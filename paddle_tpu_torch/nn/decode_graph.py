@@ -1,15 +1,24 @@
 """One CUDA graph per decode dispatch: the port's counterpart of the
-reference's jitted `step` and `multistep(k)` (`paddle_tpu/nn/decode.py`,
-`_jitted_paged_fns` and `_jitted_multistep`, whose `lax.scan` runs k
-decode steps as ONE device program).
+reference's jitted `step`, `multistep(k)`, `packed_verify` and window
+`unified_round` (`paddle_tpu/nn/decode.py`: `_jitted_paged_fns`,
+`_jitted_multistep`, whose `lax.scan` runs k decode steps as ONE device
+program, `_jitted_packed_verify` and `_jitted_unified_round`).
 
-`DecodeGraphs` captures the eager function of `PagedDecoder.multistep(k,
-mode)` once per key and replays it, so a decode dispatch is one graph
-launch whatever k is, where the eager loop launches every kernel of
-every step from the host.
+`DecodeGraphs` captures the eager function of one of the decoder's
+programs once per key and replays it, so a dispatch is one graph launch,
+where the eager function launches every kernel from the host:
+
+  * `graphs(k, mode, *multistep's arguments)`: `multistep(k, mode)`;
+  * `graphs.verify(mode, *packed_verify's arguments)`: `packed_verify`,
+    whose shapes the verify plan pins (P rows of W tokens, K + 1
+    readouts): one capture per sampling mode and stop-matrix width;
+  * `graphs.unified(mode, *unified_round's arguments)`: `unified_round(
+    window=True)`, the chunk-free round, pinned the same way. The mixed
+    round (`window=False`) stays eager: its stream length varies.
 
   * The key (`graph_key`) is everything that fixes the captured program:
-    k, the mode, the decoder's kv dtype, the shape and dtype of every
+    the program's name, k, the mode, the decoder's kv dtype, the shape
+    and dtype of every
     argument (`sp`'s entries too: the stop matrix's width is a power of
     two over the longest stop list, so it varies between dispatches),
     and the address of every tensor the graph reads in place: each
@@ -18,13 +27,14 @@ every step from the host.
     addresses a graph was captured with stay allocated while it can be
     replayed. At most `MAX_GRAPHS` entries are kept (the reference's
     `lru_cache(maxsize=64)`); the least recently used goes first.
-  * Static buffers: a graph reads tok, pos, active, tables and every
-    `sp` entry from buffers of its own. A dispatch copies its arguments
-    into them on the current stream and replays. The outputs (toks
-    [k, B], stopped [k, B], counts or None) are the graph's own tensors:
-    they hold until its next replay, so the caller reads them before it
-    dispatches again (the server reads toks and stops back to the host,
-    and `SlotParamStore.swap_counts` copies counts into its own buffer).
+  * Static buffers: a graph reads its inputs (multistep: tok, pos,
+    active, tables) and every `sp` entry from buffers of its own. A
+    dispatch copies its arguments into them on the current stream and
+    replays. The outputs (every result but the pools) are the graph's
+    own tensors: they hold until its next replay, so the caller reads
+    them before it dispatches again, in stream order (the server copies
+    tokens and stops to the host or to page-locked buffers, and
+    `SlotParamStore.swap_counts` copies counts into its own buffer).
   * Capture follows PyTorch's recipe: the kernel library is built and
     loaded first, one eager warm-up runs on a side stream on the
     dispatch's own inputs (it writes the same K/V rows the replay then
@@ -55,11 +65,15 @@ def _leaves(kv):
     return (kv.codes, kv.scales) if hasattr(kv, "codes") else (kv,)
 
 
-def graph_key(k, mode, kv_dtype, params, inputs, kc, vc, sp):
-    """The key of one captured decode dispatch: plain Python over tensor
-    metadata (reads no tensor data). `inputs` is (tok, pos, active,
-    tables); params and the pool leaves enter with their addresses."""
-    return (int(k), (bool(mode[0]), bool(mode[1])), kv_dtype,
+def graph_key(k, mode, kv_dtype, params, inputs, kc, vc, sp,
+              program="multistep"):
+    """The key of one captured dispatch: plain Python over tensor
+    metadata (reads no tensor data). `program` names the decoder's
+    function ("multistep", "packed_verify", "unified_window");
+    `inputs` are its tensor arguments but the params, pools and sp
+    (multistep: tok, pos, active, tables); params and the pool leaves
+    enter with their addresses."""
+    return (program, int(k), (bool(mode[0]), bool(mode[1])), kv_dtype,
             str(inputs[0].device),
             tuple((tuple(t.shape), t.dtype) for t in inputs),
             tuple((n, tuple(t.shape), t.dtype) for n, t in sp.items()),
@@ -70,8 +84,9 @@ def graph_key(k, mode, kv_dtype, params, inputs, kc, vc, sp):
 
 
 class _Graph:
-    """One captured dispatch: its graph, static inputs and outputs, the
-    launches its capture counted, and the tensors it reads in place."""
+    """One captured dispatch: its graph, static inputs and outputs (every
+    result but the pools), the launches its capture counted, and the
+    tensors it reads in place."""
 
     def __init__(self, graph, inputs, sp, outputs, launched, held):
         self.graph = graph
@@ -94,9 +109,9 @@ class _Graph:
 class DecodeGraphs:
     """The CUDA graph cache of one `PagedDecoder` (see module
     docstring). Call it as `multistep(k, mode)`'s function with k and
-    mode first; returns (toks [k, B], stopped [k, B], kc, vc, counts or
-    None). `captures` and `replays` count this cache's lifetime
-    work."""
+    mode first, or through `verify` / `unified`; each returns what the
+    eager function returns (the pools are the caller's own). `captures`
+    and `replays` count this cache's lifetime work."""
 
     def __init__(self, decoder):
         self._dec = decoder
@@ -109,35 +124,79 @@ class DecodeGraphs:
 
     def __call__(self, k, mode, params, tok, pos, active, tables, kc, vc,
                  sp):
-        if not tok.is_cuda:
-            raise ValueError(f"decode graphs run on the card: tok is on "
-                             f"{tok.device} (call the decoder's eager "
-                             f"functions on the CPU)")
+        """`multistep(k, mode)` as one replay: (toks [k, B], stopped
+        [k, B], kc, vc, counts or None)."""
+        multi = self._dec.multistep(k, mode)
+        toks, stopped, counts = self._run(
+            "multistep", k, mode, params, (tok, pos, active, tables), kc,
+            vc, sp, lambda p, *a: multi(p, *a), kv_at=2)
+        return toks, stopped, kc, vc, counts
+
+    def verify(self, mode, params, toks, seg, pos, tables, sample_idx,
+               dlen, kc, vc, sp):
+        """`packed_verify` as one replay: (vtok, accepted, stopped, kc,
+        vc, counts or None)."""
+        dec = self._dec
+
+        def fn(p, *a):
+            return dec.packed_verify(p, *a, mode)[:6]
+
+        vtok, accepted, stopped, counts = self._run(
+            "packed_verify", 1, mode, params,
+            (toks, seg, pos, tables, sample_idx, dlen), kc, vc, sp, fn,
+            kv_at=3)
+        return vtok, accepted, stopped, kc, vc, counts
+
+    def unified(self, mode, params, toks, seg, pos, tables, sample_idx,
+                dlen, row_slot, carry_map, pos_map, steps_map, carry_tok,
+                carry_pos, carry_steps, kc, vc, sp):
+        """`unified_round(window=True)` as one replay: (vtok, accepted,
+        stopped, kc, vc, counts or None, carry_tok, carry_pos,
+        carry_steps)."""
+        dec = self._dec
+
+        def fn(p, *a):
+            return dec.unified_round(p, *a, mode, window=True)[:9]
+
+        vtok, accepted, stopped, counts, ct, cp, cs = self._run(
+            "unified_window", 1, mode, params,
+            (toks, seg, pos, tables, sample_idx, dlen, row_slot, carry_map,
+             pos_map, steps_map, carry_tok, carry_pos, carry_steps), kc,
+            vc, sp, fn, kv_at=3)
+        return vtok, accepted, stopped, kc, vc, counts, ct, cp, cs
+
+    def _run(self, program, k, mode, params, inputs, kc, vc, sp, fn, kv_at):
+        """Replay (capturing first when the key is new) `fn(params,
+        *inputs, kc, vc, sp)`; returns its results but the two pools,
+        which sit at `kv_at`."""
+        if not inputs[0].is_cuda:
+            raise ValueError(f"decode graphs run on the card: the inputs "
+                             f"are on {inputs[0].device} (call the "
+                             f"decoder's eager functions on the CPU)")
         self._dec._check_kv(kc, vc)
-        inputs = (tok, pos, active, tables)
         key = graph_key(k, mode, self._dec.kv_dtype, params, inputs, kc,
-                        vc, sp)
+                        vc, sp, program)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._capture(k, mode, params, inputs, kc, vc, sp)
+            entry = self._capture(params, inputs, kc, vc, sp, fn, kv_at)
             self._graphs[key] = entry
             while len(self._graphs) > MAX_GRAPHS:
                 self._graphs.popitem(last=False)
         else:
             self._graphs.move_to_end(key)
-        toks, stopped, counts = entry.replay(inputs, sp)
+        outputs = entry.replay(inputs, sp)
         self.replays += 1
-        return toks, stopped, kc, vc, counts
+        return outputs
 
-    def _capture(self, k, mode, params, inputs, kc, vc, sp):
-        multi = self._dec.multistep(k, mode)
+    def _capture(self, params, inputs, kc, vc, sp, fn, kv_at):
         dev = inputs[0].device
         kernels.library()  # the build and load stay outside the capture
         static_in = tuple(t.clone() for t in inputs)
         static_sp = {name: t.clone() for name, t in sp.items()}
 
         def run():
-            return multi(params, *static_in, kc, vc, static_sp)
+            out = fn(params, *static_in, kc, vc, static_sp)
+            return tuple(out[:kv_at]) + tuple(out[kv_at + 2:])
 
         side = torch.cuda.Stream(device=dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -148,7 +207,7 @@ class DecodeGraphs:
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                toks, stopped, _kc, _vc, counts = run()
+                outputs = run()
         finally:  # a capture launches nothing: take its counts back
             after = kernels.launch_counts()
             launched = {n: after[n] - before[n] for n in after
@@ -156,8 +215,7 @@ class DecodeGraphs:
             kernels.add_launches({n: -v for n, v in launched.items()})
         self.captures += 1
         held = (tuple(params.values()), kc, vc)
-        return _Graph(graph, static_in, static_sp, (toks, stopped, counts),
-                      launched, held)
+        return _Graph(graph, static_in, static_sp, outputs, launched, held)
 
 
 __all__ = ["DecodeGraphs", "graph_key", "MAX_GRAPHS"]

@@ -34,7 +34,18 @@ Same signatures and layouts as `paddle_tpu.ops.attention`:
     contract of `ops/pallas/unified_attention.py`: row t attends the
     keys of table row seg[t] at cache positions 0..pos[t]; pad rows
     (pos == -1) attend nothing and their output is finite garbage the
-    caller discards.
+    caller discards;
+  * `unified_stream_attention` — the same contract under the name the
+    unified serving round calls it by: prefill chunks, decode rows and
+    verify windows of one round in one stream;
+  * `verify_window_attention(q [P, W, H, Dh], k_blocks, v_blocks,
+    block_tables [P, M], pos [P, W])` — one W-token window of queries per
+    plan row (a slot's last token and its drafts), each query attending
+    its own row's positions 0..pos. On the card it is K1 on the
+    flattened [P·W] stream with seg = row index, as the reference runs
+    its TPU kernel; its plain version is the reference's dense per-row
+    [P, W] fallback. K1 gives zeros for pad rows (pos == -1) where the
+    fallback averages the row; no readout reads a pad row.
 
 Pools are one layer's `[N, BS, H, Dh]` tensor, or a `QuantizedKV` (int8
 codes plus per-vector scales `[N, BS, H]`). Dispatch is by device: a
@@ -247,7 +258,77 @@ def ragged_prefill_attention_plain(q, k_blocks, v_blocks, block_tables,
     return torch.einsum("htbc,hbcd->htd", w, v).permute(1, 0, 2)
 
 
+def unified_stream_attention(q, k_blocks, v_blocks, block_tables, seg, pos,
+                             scale=None):
+    """The unified round's attention: one packed stream mixing prefill
+    chunks, decode rows (1 token at its write position) and verify
+    windows ([last token, drafts]). Every kind is a segment of the
+    segment-causal contract, so this IS `ragged_prefill_attention` (K1 on
+    the card); the name is the reference's entry point of
+    `unified_round`."""
+    return ragged_prefill_attention(q, k_blocks, v_blocks, block_tables,
+                                    seg, pos, scale=scale)
+
+
+def verify_window_attention(q, k_blocks, v_blocks, block_tables, pos,
+                            scale=None):
+    """Speculative-verification attention: q [P, W, H, Dh], one window of
+    W queries per plan row; query (p, w) attends table row p at cache
+    positions 0..pos[p, w] (pos [P, W], -1 = region pad). Returns
+    [P, W, H, Dh] in q's dtype. On the card: K1 on the flattened [P·W]
+    stream with seg = p (pad rows come out as zeros); on the CPU the
+    plain per-row version."""
+    P, W, H, Dh = q.shape
+    sc = _scale(Dh, scale)
+    if _route(q, *_operands(k_blocks), *_operands(v_blocks), block_tables,
+              pos):
+        # seg = row index of each stream row, made on the device (no
+        # host read, so a graph can capture it)
+        seg = (torch.arange(P * W, dtype=torch.int32, device=q.device)
+               // W)
+        return kernels.ragged_stream(
+            q.reshape(P * W, H, Dh).contiguous(), k_blocks, v_blocks,
+            block_tables, seg, pos.reshape(P * W).contiguous(),
+            sc).reshape(P, W, H, Dh)
+    return verify_window_attention_plain(q, k_blocks, v_blocks,
+                                         block_tables, pos, sc)
+
+
+def verify_window_attention_plain(q, k_blocks, v_blocks, block_tables, pos,
+                                  scale=None):
+    """The plain version on verify windows: the reference's dense per-row
+    [P, W] fallback (`paddle_tpu/ops/attention.py:348-369`). Each row's
+    window is scored against ONLY its own table row's [M·BS] keys; int8
+    pools fold the per-vector scales into the score and probability
+    tensors. A pad query (pos -1) sees every key masked and averages the
+    row (-1e30 is finite)."""
+    quant = is_quantized(k_blocks)
+    kcodes = k_blocks.codes if quant else k_blocks
+    vcodes = v_blocks.codes if quant else v_blocks
+    P, W, H, Dh = q.shape
+    _, BS, _, _ = kcodes.shape
+    M = block_tables.shape[1]
+    sc = _scale(Dh, scale)
+    tb = block_tables.long()
+    k = kcodes[tb].reshape(P, M * BS, H, Dh).to(q.dtype)
+    v = vcodes[tb].reshape(P, M * BS, H, Dh).to(q.dtype)
+    s = torch.einsum("pwhd,pchd->phwc", q, k).float() * sc
+    if quant:  # per-KEY scale rides the score tensor post-contraction
+        ks = k_blocks.scales[tb].reshape(P, M * BS, H).permute(0, 2, 1)
+        s = s * ks[:, :, None, :].float()
+    ok = (torch.arange(M * BS, device=q.device)[None, None, :]
+          <= pos.long()[:, :, None])                      # [P, W, C]
+    s = s.masked_fill(~ok[:, None], NEG_INF)
+    w = torch.softmax(s, dim=-1).to(q.dtype)
+    if quant:  # per-VALUE scale rides the prob tensor
+        vs = v_blocks.scales[tb].reshape(P, M * BS, H).permute(0, 2, 1)
+        w = w * vs[:, :, None, :].to(q.dtype)
+    return torch.einsum("phwc,pchd->pwhd", w, v)
+
+
 __all__ = ["scaled_dot_product_attention", "dense_attention",
            "paged_decode_attention",
            "paged_decode_attention_plain", "ragged_prefill_attention",
-           "ragged_prefill_attention_plain", "is_quantized", "NEG_INF"]
+           "ragged_prefill_attention_plain", "unified_stream_attention",
+           "verify_window_attention", "verify_window_attention_plain",
+           "is_quantized", "NEG_INF"]

@@ -9,11 +9,13 @@ defaults (`clear_slot`), so the dispatch MODE — the (any-sampled,
 any-penalties) pair that picks the decoder's variant — reflects the
 resident requests only.
 
-`step_args` / `packed_args` assemble the argument dict one dispatch
-consumes, on the store's device: always the stop-token matrix (-1
-padded, width a power of two); the sampling columns when any row
-samples; the penalty columns and the count buffer when any row uses
-penalties.
+`step_args` / `packed_args` / `verify_args` / `unified_args` assemble
+the argument dict one dispatch consumes, on the store's device: always
+the stop-token matrix (-1 padded, width a power of two); the sampling
+columns when any row samples; the penalty columns and the count buffer
+when any row uses penalties. On the card the columns go up from
+page-locked host memory without blocking the host (`_tensor`), so
+assembling a dispatch's arguments never waits for the device.
 
 The count buffer round-trips through the dispatch: the decoder returns
 the updated tensor and the server copies it back into the store's
@@ -21,8 +23,7 @@ buffer with `swap_counts`, so the buffer keeps its address. It is
 allocated on the device once a penalty-using request is admitted
 (n_slots * V * 4 bytes: 8 slots of GPT-2's vocabulary are 1.6 MB).
 
-Left for later slices: `verify_args` (speculation) and `unified_args`
-(the unified round), and `warm_args` / `warm_unified_args` (the
+Left for a later slice: `warm_args` / `warm_unified_args` (the
 shape-bucket pre-warm).
 """
 from __future__ import annotations
@@ -38,6 +39,18 @@ def _pow2(n):
     while p < n:
         p *= 2
     return p
+
+
+def host_to_device(a, device):
+    """A numpy array as a tensor on `device`. To the card it goes from
+    page-locked memory with a non-blocking copy: a copy from pageable
+    memory would wait for every kernel queued before it. PyTorch's
+    page-locked allocator keeps the buffer until the copy has run."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def greedy_args(rows, device):
@@ -102,7 +115,7 @@ class SlotParamStore:
     def reset_counts_row(self, i, prompt_ids):
         row = np.bincount(np.asarray(prompt_ids, np.int64).reshape(-1),
                           minlength=self.V)[:self.V].astype(np.int32)
-        self.counts[i] = torch.from_numpy(row).to(self.device)
+        self.counts[i] = self._tensor(row)
 
     def swap_counts(self, new):
         """Take the count buffer a dispatch returned (None when the
@@ -122,7 +135,7 @@ class SlotParamStore:
         return m
 
     def _tensor(self, a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return host_to_device(a, self.device)
 
     def _assemble(self, rows, steps, mode):
         sampled, penalties = mode
@@ -183,5 +196,44 @@ class SlotParamStore:
                 np.asarray(done_mask, bool) & valid)
         return sp, mode
 
+    def verify_args(self, slot_rows, steps):
+        """Speculative-verification arguments: compact plan rows as
+        `packed_args`, plus per-row base PRNG steps. `slot_rows` maps plan
+        row -> slot index (None = padding row, which aliases slot 0's
+        columns; the verify program masks it by dlen == -1); `steps` [P]
+        int32 is each row's generated-token count: verify position j
+        samples at step base + j, the counter j sequential decode steps
+        would fold in. Returns (sp dict, mode)."""
+        real = [r for r in slot_rows if r is not None]
+        mode = self.mode(real)
+        rows = [r if r is not None else 0 for r in slot_rows]
+        sp = self._assemble(rows, np.asarray(steps, np.int32), mode)
+        if mode[1]:
+            sp["crows"] = self._tensor(np.array(rows, np.int32))
+        return sp, mode
 
-__all__ = ["SlotParamStore", "GREEDY_MODE", "greedy_args"]
+    def unified_args(self, slot_rows, emit_rows, steps):
+        """Unified-round arguments: compact plan rows as `verify_args`,
+        over every row kind the round mixes. `emit_rows` marks rows whose
+        samples are real (decode rows, verify rows, prefill rows whose
+        prompt completes this round); still-feeding prefill rows and
+        padding rows are left out of the MODE, never sample, and are
+        masked on the device by dlen == -1. `steps` [P] int32 is each
+        row's base PRNG step (the async carry overrides it on the device
+        where steps_map names a slot). Returns (sp dict, mode)."""
+        emit = list(emit_rows)
+        real = [r for r, e in zip(slot_rows, emit) if r is not None and e]
+        mode = self.mode(real)
+        rows = [r if r is not None else 0 for r in slot_rows]
+        sp = self._assemble(rows, np.asarray(steps, np.int32), mode)
+        if mode[0]:
+            # non-emitting rows must not sample (their seeds may alias
+            # another slot's stream, and their token is discarded)
+            sp["sample"] = sp["sample"] & self._tensor(
+                np.asarray(emit, bool))
+        if mode[1]:
+            sp["crows"] = self._tensor(np.array(rows, np.int32))
+        return sp, mode
+
+
+__all__ = ["SlotParamStore", "GREEDY_MODE", "greedy_args", "host_to_device"]

@@ -27,9 +27,23 @@ loop but not the kernels. Prints, with the card's name and power limit:
     the split kernel and its combine), with K2's launches and device ms
     per decode step of the profiled pass.
 
+`--speculation K` serves with `SpecConfig(max_draft_tokens=K)` (the n-gram
+drafter) on chip_smoke.py phase 5v (b)'s speculation traffic (bench.py's
+speculation axis: 16 repetitive prompts, 64 new tokens, 8 slots,
+max_prompt_len 256, recorded and picked as chip_smoke's `spec_axis_pool`
+does); `--unified sync|async` runs the unified round (sync) or the async
+rounds. Then the host clock is split by the round's parts: the split
+round's prefill, verify (`_speculate`: drafting, the verify dispatch and
+its processing) and plain decode; the unified round's plan, dispatch and
+process. With speculation it also prints the verify dispatches, on the split
+round the K1 launches they added (counted around each verify replay),
+and, from
+chip_smoke's `verify_dispatch_cost` at the served shape (8 rows of
+K + 1 tokens, one graph replay), K1's device ms per verify dispatch.
+
 Usage (on a machine with the card, from the repo root):
     python3 scripts/torch_serve_profile.py [--steps-per-dispatch K]
-        [--quantization w8a16]
+        [--quantization w8a16] [--speculation K] [--unified sync|async]
 """
 import argparse
 import os
@@ -67,6 +81,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps-per-dispatch", type=int, default=1)
     ap.add_argument("--quantization", default=None)
+    ap.add_argument("--speculation", type=int, default=0)
+    ap.add_argument("--unified", choices=("sync", "async"), default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: needs a CUDA card")
@@ -81,27 +97,44 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
+    import chip_smoke
+    from paddle_tpu_torch.spec_decode import SpecConfig
+
     cfg = GPT2Config()
     model = GPT2(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
-    rng = np.random.RandomState(7)
-    prompts = [rng.randint(1, cfg.vocab_size,
-                           (int(rng.randint(64, 769)),)).astype(np.int32)
-               for _ in range(16)]
-    srv = PagedGenerationServer(
-        model, max_slots=8, block_size=16, max_prompt_len=768,
-        max_new_tokens=32, prefill_chunk_tokens=512,
-        steps_per_dispatch=args.steps_per_dispatch,
-        quantization=args.quantization, device="cuda").start()
+    kw = dict(steps_per_dispatch=args.steps_per_dispatch,
+              quantization=args.quantization,
+              unified_round=args.unified == "sync",
+              async_rounds=args.unified == "async")
+    if args.speculation:
+        prompts, _refs = chip_smoke.spec_axis_pool(torch, model, card)
+        kw["speculation"] = SpecConfig(max_draft_tokens=args.speculation)
+        shape = dict(max_slots=8, max_prompt_len=chip_smoke.S_MP,
+                     max_new_tokens=chip_smoke.S_NEW)
+    else:
+        rng = np.random.RandomState(7)
+        prompts = [rng.randint(1, cfg.vocab_size,
+                               (int(rng.randint(64, 769)),)).astype(np.int32)
+                   for _ in range(16)]
+        shape = dict(max_slots=8, max_prompt_len=768, max_new_tokens=32)
+    srv = PagedGenerationServer(model, block_size=16,
+                                prefill_chunk_tokens=512, device="cuda",
+                                **shape, **kw).start()
     host = {}  # name -> [seconds, calls] on the host clock
     try:
         for f in [srv.submit(p) for p in prompts]:   # warm pass
             f.result(timeout=600)
         srv.reset_stats()
-        for owner, name in ((srv, "_prefill_packed"), (srv, "_decode_plain"),
-                            (decode_graph.DecodeGraphs, "__call__"),
-                            (decode_graph, "graph_key"),
-                            (decode_graph._Graph, "replay")):
+        timed = [(srv, "_prefill_packed"), (srv, "_decode_plain"),
+                 (srv, "_speculate"), (srv, "_plan_round"),
+                 (srv, "_dispatch_round"), (srv, "_process_round"),
+                 (decode_graph.DecodeGraphs, "__call__"),
+                 (decode_graph, "graph_key"),
+                 (decode_graph._Graph, "replay")]
+        for owner, name in timed:
             setattr(owner, name, _timed(getattr(owner, name), name, host))
+        spy = chip_smoke.LaunchSpy(srv._decoder.graphs)
+
         t0 = time.perf_counter()
         for f in [srv.submit(p) for p in prompts]:   # measured pass
             f.result(timeout=600)
@@ -109,6 +142,8 @@ def main():
         wall = time.perf_counter() - t0
         st = srv.stats()
         measured = {n: list(v) for n, v in host.items()}
+        measured_k1 = sum(v for n, v in spy.counts.items()
+                          if n.startswith("ragged_stream"))
         srv.reset_stats()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -140,12 +175,14 @@ def main():
           f"{st['tokens_per_sec']:.1f}, itl p50 {st['itl_p50_ms']:.2f} ms, "
           f"ttft p50 {st['ttft_p50_ms']:.1f} ms, prefill_dispatches "
           f"{st['prefill_dispatches']}, decode dispatches "
-          f"{st['decode_steps']}")
+          f"{st['decode_steps']}, speculation {args.speculation}, unified "
+          f"{args.unified}, rounds {st['rounds']['rounds']}, attention "
+          f"dispatches {st['rounds']['attention_dispatches']}, overlap "
+          f"fraction {st['rounds']['overlap_fraction']:.3f}")
     if busy == 0:
         print("FAIL: the profiler recorded no device time")
         return 1
-    names = ("_prefill_packed", "_decode_plain", "__call__", "graph_key",
-             "replay")
+    names = [name for _owner, name in timed]
     sec = {n: measured.get(n, [0.0, 0])[0] for n in names}
     calls = {n: measured.get(n, [0.0, 0])[1] for n in names}
 
@@ -154,15 +191,41 @@ def main():
         return (f"{label} {sec[name] * 1e3:.1f} ms ({calls[name]} calls, "
                 f"{sec[name] * 1e3 / n:.3f} ms a call)")
 
-    print("host clock of the measured pass: " + "; ".join([
-        part("_prefill_packed", "prefill dispatches"),
-        part("_decode_plain", "decode dispatches (device waits included)"),
-        part("__call__", "of which the decode graph's call"),
-        part("graph_key", "its key"),
-        part("replay", "its replay (copies + launch)")])
+    if args.unified:
+        parts = [("_plan_round", "plan"),
+                 ("_dispatch_round", "dispatch (uploads, the round's "
+                  "program: a graph replay or the eager mixed round)"),
+                 ("_process_round", "process (device waits included)"),
+                 ("replay", "of which graph replays (copies + launch)")]
+        top = ("_plan_round", "_dispatch_round", "_process_round")
+    else:
+        parts = [("_prefill_packed", "prefill dispatches"),
+                 ("_speculate", "speculation (drafting, the verify "
+                  "dispatch and its processing, device waits included)"),
+                 ("_decode_plain", "decode dispatches (device waits "
+                  "included)"),
+                 ("__call__", "of which the decode graph's call"),
+                 ("graph_key", "graph keys"),
+                 ("replay", "graph replays (copies + launch)")]
+        top = ("_prefill_packed", "_speculate", "_decode_plain")
+    print("host clock of the measured pass: " + "; ".join(
+        part(n, label) for n, label in parts)
         + f"; the rest of the loop "
-        f"{(wall - sec['_prefill_packed'] - sec['_decode_plain']) * 1e3:.1f}"
-        f" ms")
+        f"{(wall - sum(sec[n] for n in top)) * 1e3:.1f} ms")
+    if args.speculation:
+        sp = st["speculation"]
+        cost = chip_smoke.verify_dispatch_cost(torch, model, srv._m_width,
+                                               K=args.speculation)
+        added = ("" if args.unified else
+                 f", K1 launches they added {measured_k1} "
+                 f"({measured_k1 / max(sp['verify_dispatches'], 1):.1f} a "
+                 f"verify dispatch)")
+        print(f"speculation: acceptance_rate {sp['acceptance_rate']:.4f}, "
+              f"verify dispatches {sp['verify_dispatches']}{added}; at "
+              f"the served shape a verify dispatch "
+              f"takes {cost['ms']:.4f} ms (events), device "
+              f"{cost['device_ms']:.4f} ms, K1 {cost['k1_ms']:.4f} ms device "
+              f"a dispatch")
     # K1 is every kernel whose name starts with ragged_stream (either
     # dtype's); K2 every one whose name starts with paged_decode (the split
     # kernel and its combine)

@@ -50,6 +50,13 @@ both, dense and int8 pools, bf16 and W8A16 weights; a replay's launch
 counts equal the eager loop's, its penalty counts thread through three
 dispatches, it makes no host synchronisation, a replaced pool gets a
 new capture, and the server replays one graph per decode dispatch.
+Speculation and the unified round: K1 on verify windows (P 8 x W 9,
+pad rows zeros, the plain version on the rows with pos >= 0, bitwise
+over two launches); the verify graph and the window-round graph (carry
+chained) equal the eager programs bit for bit over a capture and two
+replays, with the eager launch counts and no host synchronisation; the
+speculating server (split, unified, async) gives the CPU's tokens in
+float32; and an async engine's dispatches make no host synchronisation.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -1525,3 +1532,362 @@ def test_server_on_card_replays_one_graph_per_dispatch(dev):
         assert 1 <= st["decode_graph_captures"] <= 2
     for a, b in zip(outs[1], outs[4]):
         np.testing.assert_array_equal(a, b)
+
+
+# ---- speculation and the unified round (verify windows on K1) --------------
+
+def _verify_inputs(dev, h, dh, bs, dtype, quant, seed, P=8, W=9):
+    """P windows of W query rows (K = W - 1) over contexts of 64-300
+    positions: row r's window [last token, k_r drafts] ends its context,
+    the rest of the window is pad (-1); row P - 1 is a padding row."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rs = np.random.RandomState(seed)
+    ctx = rs.randint(64, 301, P)
+    ks = rs.randint(0, W, P)
+    lens = [int(c) for c in ctx]
+    tables, n = _tables(torch.Generator().manual_seed(seed), lens, bs, dev)
+    kb, vb = _pools(g, n, bs, h, dh, dtype, quant, dev)
+    pos = np.full((P, W), -1, np.int32)
+    for r in range(P - 1):
+        k = int(ks[r])
+        pos[r, :1 + k] = np.arange(lens[r] - 1 - k, lens[r])
+    q = torch.randn(P, W, h, dh, generator=g, device=dev).to(dtype)
+    return q, kb, vb, tables, torch.from_numpy(pos).to(dev)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["dense", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("h,dh,bs", [(12, 64, 16), (4, 32, 4)])
+def test_verify_window_kernel_matches_plain(dev, h, dh, bs, dtype, quant):
+    """`verify_window_attention` on the card is K1 on the flattened
+    [P·W] stream: held to its plain version (the reference's dense
+    per-row fallback) on the rows with pos >= 0; pad rows are zeros (the
+    fallback averages them; no readout reads one); two launches give the
+    same bits; one K1 launch a call."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import (verify_window_attention,
+                                                verify_window_attention_plain)
+
+    q, kb, vb, tables, pos = _verify_inputs(dev, h, dh, bs, dtype, quant,
+                                            3 + h + bs)
+    before = kernels.RAGGED_STREAM[quant].launches
+    out = verify_window_attention(q, kb, vb, tables, pos)
+    again = verify_window_attention(q, kb, vb, tables, pos)
+    torch.cuda.synchronize()
+    assert kernels.RAGGED_STREAM[quant].launches == before + 2
+    ref = verify_window_attention_plain(q.float(), _f32(kb), _f32(vb),
+                                        tables, pos)
+    live = pos >= 0
+    assert torch.isfinite(out).all()
+    assert (out[~live] == 0).all()
+    _close(out[live], ref[live], dtype)
+    assert torch.equal(out, again)
+
+
+def _spec_model(dev, dtype=torch.bfloat16):
+    from paddle_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = GPT2Config(vocab_size=1000, hidden_size=128, num_layers=2,
+                     num_heads=4, max_position=256)
+    return cfg, GPT2(cfg, seed=3, dtype=dtype, device=dev)
+
+
+def _strict(call, strict):
+    """call() under set_sync_debug_mode("error") when strict."""
+    if not strict:
+        return call()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _verify_dispatches(dev, cfg, params, dec, mode, side, graph, n=3, K=4,
+                       strict=False):
+    """n verify dispatches over the 4 slots of `_graph_side` (slot 2 a
+    padding row): drafts from a seeded RandomState each dispatch (the
+    same on both sides), each row's next token and position taken from
+    the accepted prefix. Returns each dispatch's outputs. strict: the
+    decoder calls run under set_sync_debug_mode("error")."""
+    from paddle_tpu_torch.spec_decode import build_verify_plan
+
+    cache, store, tok, pos, _act, tables = side
+    rs = np.random.RandomState(17)
+    last = tok.cpu().numpy().copy()
+    wpos = pos.cpu().numpy().copy()
+    steps = np.zeros(4, np.int32)
+    outs = []
+    for _ in range(n):
+        entries = [(b, int(last[b]), int(wpos[b]), int(steps[b]),
+                    rs.randint(0, cfg.vocab_size,
+                               (int(rs.randint(0, K + 1)),)).astype(np.int32))
+                   for b in (0, 1, 3)]
+        plan = build_verify_plan(entries, K, 1, min_rows=4)
+        sp, got = store.verify_args([0, 1, 3, None], plan.steps)
+        assert got == mode
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        tab = tables[[0, 1, 3, 0]].contiguous()
+        args = (params, t(plan.toks), t(plan.seg), t(plan.pos), tab,
+                t(plan.sample_idx), t(plan.dlen), cache.k_blocks,
+                cache.v_blocks, sp)
+        out = _strict(lambda: (dec.graphs.verify(mode, *args) if graph
+                               else dec.packed_verify(*args, mode)), strict)
+        vtok, acc, stopped, _kc, _vc, counts = out
+        outs.append((vtok.clone(), acc.clone(), stopped.clone(),
+                     None if counts is None else counts.clone()))
+        store.swap_counts(counts)
+        vt, ac = vtok.cpu().numpy(), acc.cpu().numpy()
+        for r, b in enumerate((0, 1, 3)):
+            a = int(ac[r])
+            last[b] = vt[r, a]
+            wpos[b] += a + 1
+            steps[b] += a + 1
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["dense", "int8"])
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_verify_graph_equals_eager_bitwise(dev, mode, kv_dtype):
+    """Three verify dispatches through one captured graph against the
+    eager `packed_verify` on a copy of the same pool: vtok, accepted,
+    stopped, counts and every pool element bit for bit; one capture."""
+    cfg, model = _spec_model(dev)
+    params = model.flat_params()
+    m = GRAPH_MODES[mode]
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+
+    sides = [_graph_side(dev, cfg, kv_dtype, torch.bfloat16, m)
+             for _ in range(2)]
+    dec = PagedDecoder.for_config(cfg, 4, kv_dtype=kv_dtype)
+    eager = _verify_dispatches(dev, cfg, params, dec, m, sides[0], False)
+    graph = _verify_dispatches(dev, cfg, params, dec, m, sides[1], True)
+    assert dec.graphs.captures == 1 and dec.graphs.replays == 3
+    for e, g in zip(eager, graph):
+        for a, b in zip(e, g):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+    for a, b in zip(_graph_leaves(sides[0][0]), _graph_leaves(sides[1][0])):
+        assert torch.equal(a, b)
+
+
+def test_verify_replay_launch_counts_and_no_host_sync(dev):
+    """A verify replay adds its capture's K1 launches (one a layer) and
+    makes no host synchronisation."""
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+    from paddle_tpu_torch.ops import kernels
+
+    cfg, model = _spec_model(dev)
+    params = model.flat_params()
+    m = GRAPH_MODES["both"]
+    side = _graph_side(dev, cfg, "int8", torch.bfloat16, m)
+    dec = PagedDecoder.for_config(cfg, 4, kv_dtype="int8")
+    _verify_dispatches(dev, cfg, params, dec, m, side, True, n=1)
+    kernels.reset_launch_counts()
+    outs = _verify_dispatches(dev, cfg, params, dec, m, side, True, n=1,
+                              strict=True)
+    assert kernels.launch_counts()["ragged_stream_int8"] == cfg.num_layers
+    assert dec.graphs.captures == 1
+    assert outs[0][0].shape == (4, 5)
+
+
+def _window_dispatches(dev, cfg, params, dec, mode, side, graph, n=3, K=3,
+                       strict=False):
+    """n window rounds over slots 0, 1, 3 fed through the device carry
+    (each round's carry into the next), drafts from a seeded RandomState;
+    returns each round's outputs and carries. strict: as
+    `_verify_dispatches`."""
+    cache, store, tok, pos, _act, tables = side
+    rs = np.random.RandomState(23)
+    W = K + 1
+    P = 4
+    t = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    carry = (tok.clone(), pos.clone(), torch.zeros(4, dtype=torch.int32,
+                                                   device=dev))
+    outs = []
+    for _ in range(n):
+        T = P * W
+        toks = np.zeros(T, np.int32)
+        seg = np.zeros(T, np.int32)
+        pp = np.full(T, -1, np.int32)
+        cmap = np.full(T, -1, np.int32)
+        pmap = np.full(T, -1, np.int32)
+        sidx = np.zeros((P, W), np.int32)
+        dlen = np.full(P, -1, np.int32)
+        rslot = np.full(P, -1, np.int32)
+        smap = np.full(P, -1, np.int32)
+        for r, b in enumerate((0, 1, 3)):
+            k = int(rs.randint(0, K + 1))
+            o = r * W
+            seg[o:o + 1 + k] = r
+            toks[o + 1:o + 1 + k] = rs.randint(0, cfg.vocab_size, k)
+            cmap[o] = b
+            pp[o:o + 1 + k] = np.arange(1 + k)
+            pmap[o:o + 1 + k] = b
+            smap[r] = b
+            sidx[r] = o + np.minimum(np.arange(W), k)
+            dlen[r], rslot[r] = k, b
+        sp, got = store.unified_args([0, 1, 3, None],
+                                     [True, True, True, False],
+                                     np.zeros(P, np.int32))
+        assert got == mode
+        tab = tables[[0, 1, 3, 0]].contiguous()
+        args = (params, t(toks), t(seg), t(pp), tab, t(sidx), t(dlen),
+                t(rslot), t(cmap), t(pmap), t(smap), *carry,
+                cache.k_blocks, cache.v_blocks, sp)
+        out = _strict(lambda: (dec.graphs.unified(mode, *args) if graph
+                               else dec.unified_round(*args, mode,
+                                                      window=True)), strict)
+        vtok, acc, stopped, _kc, _vc, counts, ct, cp, cs = out
+        outs.append(tuple(x.clone() if x is not None else None
+                          for x in (vtok, acc, stopped, counts, ct, cp, cs)))
+        store.swap_counts(counts)
+        carry = (ct, cp, cs)
+    torch.cuda.synchronize()
+    return outs
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["dense", "int8"])
+@pytest.mark.parametrize("mode", list(GRAPH_MODES))
+def test_window_round_graph_equals_eager_bitwise(dev, mode, kv_dtype):
+    """Three chained window rounds (the carry of each the next one's
+    input, as in the async loop) through one graph against the eager
+    `unified_round(window=True)`: outputs, carries, counts and pools bit
+    for bit."""
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+
+    cfg, model = _spec_model(dev)
+    params = model.flat_params()
+    m = GRAPH_MODES[mode]
+    sides = [_graph_side(dev, cfg, kv_dtype, torch.bfloat16, m)
+             for _ in range(2)]
+    dec = PagedDecoder.for_config(cfg, 4, kv_dtype=kv_dtype)
+    eager = _window_dispatches(dev, cfg, params, dec, m, sides[0], False)
+    graph = _window_dispatches(dev, cfg, params, dec, m, sides[1], True)
+    assert dec.graphs.captures == 1 and dec.graphs.replays == 3
+    for e, g in zip(eager, graph):
+        for a, b in zip(e, g):
+            assert (a is None) == (b is None)
+            assert a is None or torch.equal(a, b)
+    for a, b in zip(_graph_leaves(sides[0][0]), _graph_leaves(sides[1][0])):
+        assert torch.equal(a, b)
+
+
+def test_window_replay_launch_counts_and_no_host_sync(dev):
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+    from paddle_tpu_torch.ops import kernels
+
+    cfg, model = _spec_model(dev)
+    params = model.quantize_weights()
+    m = GRAPH_MODES["sampled"]
+    side = _graph_side(dev, cfg, None, torch.bfloat16, m)
+    dec = PagedDecoder.for_config(cfg, 4)
+    _window_dispatches(dev, cfg, params, dec, m, side, True, n=1)
+    kernels.reset_launch_counts()
+    _window_dispatches(dev, cfg, params, dec, m, side, True, n=2,
+                       strict=True)
+    assert kernels.launch_counts()["ragged_stream_dense"] == \
+        2 * cfg.num_layers
+    assert dec.graphs.captures == 1
+
+
+def _serve_on(device, model, prompts, sampling, **kw):
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    srv = PagedGenerationServer(model, max_slots=3, block_size=4,
+                                max_new_tokens=16, prefill_chunk_tokens=16,
+                                device=device, **kw)
+    futs = [srv.submit(p, sampling=s) for p, s in zip(prompts, sampling)]
+    srv.start()
+    try:
+        outs = [f.result(timeout=600) for f in futs]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    return outs, st
+
+
+@pytest.mark.parametrize("engine", ["split", "unified", "async"])
+def test_speculating_server_on_card_matches_cpu(dev, engine):
+    """float32 (TF32 off): the n-gram speculating server on the card
+    gives the CPU's tokens (greedy, seeded sampled and penalized
+    requests), on the split, unified and async engines; every verify
+    dispatch (split) and every window round (unified) is one replay."""
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    cfg, model = _spec_model(dev, torch.float32)
+    rs = np.random.RandomState(4)
+    base = rs.randint(1, cfg.vocab_size, 5).astype(np.int32)
+    prompts = [np.tile(base, 4)[:12 + 3 * i] for i in range(5)]
+    sampling = [None, SamplingParams(temperature=0.8, top_p=0.9, seed=5),
+                SamplingParams(repetition_penalty=1.3, presence_penalty=0.2),
+                None, SamplingParams(temperature=1.0, top_k=20, seed=6)]
+    kw = dict(speculation=True, unified_round=engine == "unified",
+              async_rounds=engine == "async")
+    card, st = _serve_on(dev, model, prompts, sampling, **kw)
+    host, _ = _serve_on("cpu", model, prompts, sampling, **kw)
+    for a, b in zip(card, host):
+        np.testing.assert_array_equal(a, b)
+    sp = st["speculation"]
+    assert sp["verify_dispatches"] > 0 and sp["accepted_tokens"] > 0
+    if engine == "split":
+        assert st["verify_graph_replays"] == sp["verify_dispatches"]
+        assert st["decode_graph_replays"] == st["decode_steps"]
+    else:
+        assert st["rounds"]["dispatches_per_round"] == 1.0
+        assert st["round_graph_replays"] > 0
+
+
+def test_async_dispatch_makes_no_host_sync(dev):
+    """Every dispatch of the async engine (plan uploads, the graph replay
+    or the eager mixed round, the outputs' copies to page-locked memory)
+    runs under set_sync_debug_mode("error"); a capture, which synchronises
+    by design, is let through. A sync would raise inside the dispatch and
+    fail its requests."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    cfg, model = _spec_model(dev)
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rs.randint(8, 60, 6)]
+    srv = PagedGenerationServer(model, max_slots=3, block_size=4,
+                                max_new_tokens=12, prefill_chunk_tokens=32,
+                                async_rounds=True, speculation=True,
+                                device=dev)
+    graphs = srv._decoder.graphs
+    capture = graphs._capture
+    dispatch = srv._dispatch_round
+    seen = {"dispatches": 0}
+
+    def quiet_capture(*a, **k):
+        torch.cuda.set_sync_debug_mode("default")
+        try:
+            return capture(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    def strict_dispatch(plan):
+        seen["dispatches"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return dispatch(plan)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    graphs._capture = quiet_capture
+    srv._dispatch_round = strict_dispatch
+    sp = SamplingParams(temperature=0.7, seed=3)
+    futs = [srv.submit(p, sampling=sp if i % 2 else None)
+            for i, p in enumerate(prompts)]
+    srv.start()
+    try:
+        outs = [f.result(timeout=600) for f in futs]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    assert all(o.size == p.size + 12 for o, p in zip(outs, prompts))
+    assert seen["dispatches"] == st["rounds"]["rounds"] > 0
+    assert st["rounds"]["mixed_rounds"] > 0 and st["round_graph_replays"] > 0

@@ -131,3 +131,39 @@ def test_cpu_server_runs_no_graph():
     assert st["decode_steps"] >= 2
     assert st["decode_graph_replays"] == 0
     assert st["decode_graph_captures"] == 0
+
+
+def test_graph_key_separates_the_programs():
+    """The program's name is part of the key: a verify dispatch and a
+    window round never replay a multistep graph (or each other's), even
+    where every tensor argument has the same shape; the name defaults to
+    multistep."""
+    from paddle_tpu_torch.nn.decode_graph import graph_key
+
+    params, inputs, cache, sp, mode = _parts()
+    args = (1, mode, None, params, inputs, cache.k_blocks, cache.v_blocks,
+            sp)
+    keys = {name: graph_key(*args, program=name)
+            for name in ("multistep", "packed_verify", "unified_window")}
+    assert len(set(keys.values())) == 3
+    assert graph_key(*args) == keys["multistep"]
+
+
+def test_verify_and_window_graphs_refuse_cpu_tensors():
+    """No fallback for the new programs either."""
+    from paddle_tpu_torch.nn.decode import PagedDecoder
+
+    params, inputs, cache, sp, mode = _parts()
+    dec = PagedDecoder((1, 2, 8, 16, 1e-5, True), 4)
+    z = torch.zeros(8, dtype=torch.int32)
+    with pytest.raises(ValueError, match="on the card"):
+        dec.graphs.verify(mode, params, z, z, z, inputs[3],
+                          torch.zeros(4, 2, dtype=torch.int32),
+                          torch.zeros(4, dtype=torch.int32), cache.k_blocks,
+                          cache.v_blocks, sp)
+    c = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="on the card"):
+        dec.graphs.unified(mode, params, z, z, z, inputs[3],
+                           torch.zeros(4, 2, dtype=torch.int32), c, c, z, z,
+                           c, c, c, c, cache.k_blocks, cache.v_blocks, sp)
+    assert dec.graphs.captures == 0 and len(dec.graphs) == 0
