@@ -324,12 +324,65 @@ non-zero before the result line:
                counted), ms per step (CUDA events), peak memory, losses.
                Fails on a non-finite loss, K7/K8 (bias) launching other
                than 12 x steps times, or K9/K9 bias launching at all;
+  3e. seq2seq kernels — K4 at the cached decode step's shape, one query
+               (Sq = 1) over Sk in {1, 2, 63, 64, 65, 127, 128, 129, 255}
+               keys (B 32, H 8, D 64: WMT base's heads), bf16 and f32,
+               against its plain version within phase 3b's tolerances, out
+               and lse bitwise over two launches; at Sk 64 in bf16 the
+               kernel by events and by the profiler, the plain version,
+               SDPA and the dense path (`ops.attention.dense_attention`,
+               the route of a masked call) by events and by the profiler,
+               and the bound. Then phase 3b's K4/K6/K9 case at the
+               training cross-attention's Sq 96 / Sk 128 (B 4, not
+               causal) and phase 3c's K4 bias/K6/K9 bias case under a
+               padded source (B 8, H 8, S 128), both dtypes, with K4
+               (bias)'s out and lse bitwise over two launches;
+  4t. seq2seq parity — the seq2seq Transformer at WMT base (Vaswani et al.
+               2017: 6 + 6 layers, d 512, 8 heads, ffn 2048, V 30000; the
+               reference's TransformerConfig defaults; the embeddings
+               drawn from N(0, d_model^-0.5), the published model's
+               initialization, see `wmt_embeddings`), float32 (TF32
+               off), dropout 0: (a) two AdamW steps (lr 1e-4, wd 0.01) of
+               the label-smoothed (0.1) loss at B 4, S_src 128, S_tgt 96 on
+               the card and on the CPU from the same weights, with phase
+               4c's limits (the k_proj biases as in 4d); K4, K6 and K9
+               launch 12 times a step (6 encoder self-attentions, 6
+               cross-attentions; the decoder's masked self-attention is
+               the dense path), the bias kernels never; then the logits of
+               a padded source (lengths 128/100/77/40: K4 bias in the
+               encoder, 6 launches) card vs CPU within 1e-4 of their
+               largest magnitude. (b) 8 sources of 64 tokens
+               (RandomState(41)), max_len 64: greedy cached, greedy
+               uncached and beam 4 (length penalty 0.6) on the card
+               against the CPU's cached greedy and beam: identical but
+               where the CPU's margin at a row's first difference is below
+               1e-4 (the top two logits; for beams the smallest gap among
+               a row's top K + 1 candidates up to that step), printed; the
+               cached greedy run launches K4 6 + 12 x 63 times, 12 x 63 of
+               them at Sq = 1;
+  6t. seq2seq training and decoding — (a) WMT base (4t's
+               initialization) at its published dropout 0.1 (so every attention is the dense path), bf16 on
+               float32 masters (phase 6's recipe through
+               `models.transformer.loss_with`), label smoothing 0.1,
+               AdamW, B 32, S_src 128, S_tgt 128: 2 warm and 5 measured
+               steps on one batch: ms per step (CUDA events), target
+               tokens/s, peak memory, losses (finite, falling), and from a
+               profiled pass of 2 steps the device's busy time and idle
+               share; no kernel launches. (b) bf16 greedy and beam 4
+               (length penalty 0.6) decoding of 32 sources x 64 tokens
+               (RandomState(43)) at max_len 64: ms per decode step and
+               output tokens/s (host clock), K4's launches (12 a step at
+               Sq = 1 plus the encoder's 6; the dense path never runs), and
+               from a profiled run K4's device time, its share of the
+               busy time and the idle share;
   7. the kernels line (JSON; each kernel's launches summed over the
      main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 4b, 4f,
-     6, 6b and 6c; the `ragged_stream_verify_*` rows are K1 on verify
-     streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
-     dispatches added), the card line, and as the last line {"ok": true,
-     "device": {...}}.
+     6, 6b, 6c, 4t and 6t; the `ragged_stream_verify_*` rows are K1 on
+     verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
+     dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
+     numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
+     which the `flash_fwd` row counts too), the card line, and as the last
+     line {"ok": true, "device": {...}}.
 
 Bounds (`bound_ms`): the larger of the bytes the function must move (each
 input read once, each output written once; only the K/V positions this
@@ -782,11 +835,12 @@ def _rel_err(out, ref):
     return err, err / max(ref.float().abs().max().item(), 1e-30)
 
 
-def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
+def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed,
+               phase="3b"):
     """K4, K6 and K9 against their plain versions (computed in float32
-    from the same inputs), and K9's dk and dv bitwise equal over two
-    launches; with `timed`, the kernel, plain and library times and the
-    bounds. Returns {kernel name: row} or fails."""
+    from the same inputs), and K4's out and lse and K9's dk and dv bitwise
+    equal over two launches; with `timed`, the kernel, plain and library
+    times and the bounds. Returns {kernel name: row} or fails."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as pf
@@ -797,6 +851,7 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
                    .to(dtype) for n in (sq, sk, sk, sq))
     sc = d ** -0.5
     out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+    fwd_again = kernels.flash_fwd(q, k, v, sc, causal)
     delta = kernels.flash_delta(out, do)
     grads = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
     again = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
@@ -814,23 +869,26 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed):
     errs = {}
     tag = (f"B{b} H{h} {f'S{sq}' if sq == sk else f'Sq{sq} Sk{sk}'} D{d} "
            f"{'causal' if causal else 'full'} {str(dtype).split('.')[-1]}")
-    for name, a, a2 in zip(("dk", "dv"), grads[1:], again[1:]):
+    for name, a, a2 in zip(("out", "lse", "dk", "dv"),
+                           (out, lse) + grads[1:], fwd_again + again[1:]):
         if not torch.equal(a, a2):
-            fail(f"phase 3b {tag}: {name} differs between two launches")
-    del again
+            fail(f"phase {phase} {tag}: {name} differs between two "
+                 f"launches")
+    del again, fwd_again
     for name, (a, p, t) in checks.items():
         err, rel = _rel_err(a, p)
         errs[name] = err
         if not torch.isfinite(a).all().item() or rel > t:
-            fail(f"phase 3b {tag}: {name} disagrees with plain (max abs "
-                 f"err {err:.3g}, {rel:.3g} of its magnitude > {t})")
+            fail(f"phase {phase} {tag}: {name} disagrees with plain (max "
+                 f"abs err {err:.3g}, {rel:.3g} of its magnitude > {t})")
     rows = {"flash_fwd": {"max_abs_err": max(errs["out"], errs["lse"])},
             "flash_delta": {"max_abs_err": errs["delta"]},
             "flash_bwd": {"max_abs_err": max(errs["dq"], errs["dk"],
                                              errs["dv"])}}
-    say(f"phase 3b {tag}: max abs err out {errs['out']:.3g} lse "
+    say(f"phase {phase} {tag}: max abs err out {errs['out']:.3g} lse "
         f"{errs['lse']:.3g} delta {errs['delta']:.3g} dq {errs['dq']:.3g} "
-        f"dk {errs['dk']:.3g} dv {errs['dv']:.3g}; dk, dv bitwise repeatable")
+        f"dk {errs['dk']:.3g} dv {errs['dv']:.3g}; out, lse, dk, dv bitwise "
+        f"repeatable")
     if not timed:
         return rows
     del out_p, lse_p, delta_p, grads_p, f
@@ -898,11 +956,12 @@ def _key_bias(torch, kind, b, sk, seed, lo, lengths=None):
 
 
 def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
-                    seed, timed):
+                    seed, timed, phase="3c"):
     """K4 bias, K6 and K9 bias against their plain versions (float32,
-    from the same inputs), and K9 bias's dk, dv and dbias bitwise equal
-    over two launches; with `timed`, the kernel, plain and library times
-    and the bounds. Returns {kernel name: row} or fails."""
+    from the same inputs), and K4 bias's out and lse and K9 bias's dk, dv
+    and dbias bitwise equal over two launches; with `timed`, the kernel,
+    plain and library times and the bounds. Returns {kernel name: row} or
+    fails."""
     import torch.nn.functional as F
 
     from paddle_tpu_torch.ops import flash_attention as pf
@@ -917,6 +976,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
     bias = _key_bias(torch, kind, b, sk, seed, 128 if sk == 512 else sk // 4)
     sc = d ** -0.5
     out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+    fwd_again = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
     delta = kernels.flash_delta(out, do)
     grads = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
     again = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
@@ -928,13 +988,16 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
                                  causal, bias)
     tag = (f"B{b} H{h} Sq{sq} Sk{sk} D{d} {'causal' if causal else 'full'} "
            f"{kind} {str(dtype).split('.')[-1]}")
-    for name, a, a2 in zip(("dk", "dv", "dbias"), grads[1:], again[1:]):
+    for name, a, a2 in zip(("out", "lse", "dk", "dv", "dbias"),
+                           (out, lse) + grads[1:], fwd_again + again[1:]):
         if not torch.equal(a, a2):
-            fail(f"phase 3c {tag}: {name} differs between two launches")
-    del again
+            fail(f"phase {phase} {tag}: {name} differs between two "
+                 f"launches")
+    del again, fwd_again
     live = lse_p > -1e29  # a fully masked row's lse is the -1e30 fill
     if not (lse[~live] <= -1e29).all().item():
-        fail(f"phase 3c {tag}: a fully masked row's lse is not the fill")
+        fail(f"phase {phase} {tag}: a fully masked row's lse is not the "
+             f"fill")
     tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
     checks = {"out": (out, out_p, tol), "lse": (lse[live], lse_p[live], 1e-4)}
     for name, a, p in zip(("dq", "dk", "dv", "dbias"), grads, grads_p):
@@ -944,11 +1007,11 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
         err, rel = _rel_err(a, p)
         errs[name] = err
         if not torch.isfinite(a).all().item() or rel > t:
-            fail(f"phase 3c {tag}: {name} disagrees with plain (max abs "
-                 f"err {err:.3g}, {rel:.3g} of its magnitude > {t})")
-    say(f"phase 3c {tag}: max abs err " + " ".join(
+            fail(f"phase {phase} {tag}: {name} disagrees with plain (max "
+                 f"abs err {err:.3g}, {rel:.3g} of its magnitude > {t})")
+    say(f"phase {phase} {tag}: max abs err " + " ".join(
         f"{n} {e:.3g}" for n, e in errs.items())
-        + "; dk, dv, dbias bitwise repeatable")
+        + "; out, lse, dk, dv, dbias bitwise repeatable")
     rows = {"flash_fwd_bias": {"max_abs_err": max(errs["out"], errs["lse"])},
             "flash_bwd_bias": {"max_abs_err": max(
                 errs["dq"], errs["dk"], errs["dv"], errs["dbias"])}}
@@ -3326,6 +3389,443 @@ def spec_serving(torch, model, card):
     return launches, verify, cost
 
 
+# ---- phases 3e, 4t and 6t: the seq2seq Transformer (WMT base) ---------------
+
+# 3e: the key lengths of K4's one-query (Sq = 1) cases: a cached decode
+# step's self-attention sees 1..max_len keys, its cross-attention S_src
+Q1_SK = (1, 2, 63, 64, 65, 127, 128, 129, 255)
+K4_NAME = re.compile(r"(?:^|[\s:])flash_fwd\w*")
+NOT_FLUSH = re.compile(r"^(?!.*FillFunctor)")  # every kernel but Timer's
+# 4t / 6t: the WMT base config (Vaswani et al. 2017, the reference's
+# TransformerConfig defaults) and the traffic
+S2S_LR = 1e-4
+S2S_NEAR = 1e-4  # 4t: a token may differ only where the CPU's margin is
+# below this (phase 4f's near-tie rule, on float32 logits or beam scores)
+
+
+def q1_flash_case(torch, timer, b, h, sk, d, dtype, seed, timed):
+    """Phase 3e: K4 at one query (Sq = 1, the cached decode step) over sk
+    keys, not causal, against its plain version (float32 from the same
+    inputs), out and lse bitwise equal over two launches; with `timed`,
+    the kernel (events and profiler), the plain version, SDPA and the
+    dense path (`ops.attention.dense_attention`, the route of a masked
+    call), and the bound. Returns the row or fails."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops.attention import dense_attention
+
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn(b, h, 1, d, generator=g, device=DEV).to(dtype)
+    k, v = (torch.randn(b, h, sk, d, generator=g, device=DEV).to(dtype)
+            for _ in range(2))
+    sc = d ** -0.5
+    out, lse = kernels.flash_fwd(q, k, v, sc, False)
+    out2, lse2 = kernels.flash_fwd(q, k, v, sc, False)
+    torch.cuda.synchronize()
+    tag = f"B{b} H{h} Sq1 Sk{sk} D{d} {str(dtype).split('.')[-1]}"
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        fail(f"phase 3e {tag}: two launches differ")
+    out_p, lse_p = pf.flash_fwd_lse_plain(q.float(), k.float(), v.float(),
+                                          sc, False)
+    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    errs = {}
+    for name, a, p, t in (("out", out, out_p, tol), ("lse", lse, lse_p,
+                                                     1e-4)):
+        err, rel = _rel_err(a, p)
+        errs[name] = err
+        if not torch.isfinite(a).all().item() or rel > t:
+            fail(f"phase 3e {tag}: {name} disagrees with plain (max abs err "
+                 f"{err:.3g}, {rel:.3g} of its magnitude > {t})")
+    row = {"max_abs_err": max(errs.values()), "tag": tag}
+    if not timed:
+        return row
+    row["ms"] = timer.ms(lambda: kernels.flash_fwd(q, k, v, sc, False))
+    row["device_ms"] = timer.device_ms(
+        lambda: kernels.flash_fwd(q, k, v, sc, False), K4_NAME)
+    row["plain_ms"] = timer.ms(lambda: pf.flash_fwd_lse_plain(
+        q, k, v, sc, False))
+    row["library_ms"] = timer.ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, scale=sc))
+    row["library_device_ms"] = timer.device_ms(
+        lambda: F.scaled_dot_product_attention(q, k, v, scale=sc),
+        NOT_FLUSH)
+    row["dense_ms"] = timer.ms(lambda: dense_attention(q, k, v, scale=sc))
+    row["dense_device_ms"] = timer.device_ms(
+        lambda: dense_attention(q, k, v, scale=sc), NOT_FLUSH)
+    e, bh = q.element_size(), b * h
+    row.update(_bound(2 * bh * d * e + 2 * bh * sk * d * e + 4 * bh,
+                      4 * bh * d * sk))
+    return row
+
+
+class Q1Spy:
+    """Counts the K4 launches at one query (Sq = 1) through
+    `kernels.flash_fwd` while it is installed (the wrapper itself counts
+    every K4 launch): the cached decode steps' share."""
+
+    def __init__(self):
+        from paddle_tpu_torch.ops import kernels
+
+        self.kernels, self.real, self.count = kernels, kernels.flash_fwd, 0
+
+    def __enter__(self):
+        def spy(q, *a, **k):
+            out = self.real(q, *a, **k)
+            self.count += q.shape[2] == 1
+            return out
+        self.kernels.flash_fwd = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.kernels.flash_fwd = self.real
+
+
+def wmt_embeddings(torch, model, seed=0):
+    """Re-draws the source and target embeddings of `model` from
+    N(0, d_model^-0.5) (a seeded CPU generator), the published model's
+    initialization (Vaswani et al. 2017 scale them by sqrt(d_model): unit
+    scale in; tensor2tensor and fairseq draw them so). The reference's
+    N(0, 1) gives the first layers inputs of scale sqrt(d_model) ~ 22:
+    their attention is saturated at init (scores std ~500 at WMT base, a
+    row's top weight 0.995 on average), so the ±lr moves of AdamW's first
+    step on elements whose gradient is rounding noise make the second
+    step's gradients chaotic. Two CPU runs of 4t's steps that differ only
+    in their thread count (their sums' order) differ by 3.6e-3 of a
+    gradient's magnitude there at step 2, by 4.3e-5 with these
+    embeddings. Returns the model."""
+    g = torch.Generator().manual_seed(seed)
+    std = model.cfg.d_model ** -0.5
+    with torch.no_grad():
+        for emb in (model.src_embed, model.tgt_embed):
+            emb.weight.copy_(torch.empty(emb.weight.shape).normal_(
+                0.0, std, generator=g))
+    return model
+
+
+def s2s_batch(torch, cfg, b, s_src, s_tgt, seed, dev):
+    """(src [b, s_src], tgt_in [b, s_tgt] from bos, tgt_out [b, s_tgt])
+    random ids from RandomState(seed), as int64 on dev."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(2, cfg.src_vocab_size, (b, s_src))
+    tgt = rs.randint(2, cfg.tgt_vocab_size, (b, s_tgt + 1))
+    tgt[:, 0] = cfg.bos_id
+    return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                 for a in (src, tgt[:, :-1], tgt[:, 1:]))
+
+
+def s2s_train_parity(torch, cfg, lr=S2S_LR, steps=2, b=4, s_src=128,
+                     s_tgt=96):
+    """Phase 4t (a): float32 AdamW steps (wd 0.01) of the label-smoothed
+    loss on the card and on the CPU from the same weights, with phase 4c's
+    limits; per step on the card K4, K6 and K9 launch once for each
+    encoder self-attention and each cross-attention (the decoder's masked
+    self-attention is the dense path), the bias kernels never. Then the
+    logits of a padded source (K4 bias in the encoder) card vs CPU.
+    Returns (worst differences, the card's launch counts summed)."""
+    from paddle_tpu_torch.models.transformer import (TransformerModel,
+                                                     loss_with)
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.optimizer import AdamW
+
+    models = {d: wmt_embeddings(torch, TransformerModel(cfg, device=d))
+              for d in (DEV, "cpu")}
+    params = {DEV: {n: p.detach().clone().requires_grad_(True)
+                    for n, p in models[DEV].named_parameters()}}
+    params["cpu"] = {n: p.detach().cpu().requires_grad_(True)
+                     for n, p in params[DEV].items()}
+    opts = {d: AdamW(lr, weight_decay=0.01, device=d) for d in params}
+    states = {d: opts[d].functional_init(params[d]) for d in params}
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    per_step = cfg.num_encoder_layers + cfg.num_decoder_layers
+    total = {}
+    for step in range(steps):
+        out = {}
+        for d in (DEV, "cpu"):
+            batch = s2s_batch(torch, cfg, b, s_src, s_tgt, 31 + step, d)
+            kernels.reset_launch_counts()
+            loss = loss_with(models[d], params[d], *batch,
+                             label_smoothing=0.1)
+            grads = torch.autograd.grad(loss, list(params[d].values()))
+            counts = kernels.launch_counts()
+            opts[d].functional_update(params[d], dict(zip(params[d], grads)),
+                                      states[d])
+            out[d] = (loss.item(), grads, counts)
+        counts = out[DEV][2]
+        for n in FLASH + FLASH_BIAS[::2]:
+            want = per_step if n in FLASH else 0
+            if counts[n] != want:
+                fail(f"phase 4t step {step}: {n} launched {counts[n]} "
+                     f"times, expected {want}")
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+        rel = abs(out[DEV][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        worst["loss"] = max(worst["loss"], rel)
+        if rel > 1e-4:
+            fail(f"phase 4t step {step}: loss {out[DEV][0]} vs CPU "
+                 f"{out['cpu'][0]} (relative {rel:.3g} > 1e-4)")
+        # as phase 4d: the k_proj biases' exact gradient is zero
+        floor = 1e-3 * max(g.abs().max().item() for g in out["cpu"][1])
+        for name, a, c in zip(params[DEV], out[DEV][1], out["cpu"][1]):
+            err = (a.cpu() - c).abs().max().item()
+            r = err / max(c.abs().max().item(), floor)
+            worst["grad"] = max(worst["grad"], r)
+            if r > 1e-3:
+                fail(f"phase 4t step {step}: gradient {name} differs by "
+                     f"{r:.3g} of its magnitude (> 1e-3)")
+    limit = 2 * lr * steps + 1e-6
+    for name, p in params[DEV].items():
+        diff = (p.detach().cpu() - params["cpu"][name].detach()).abs().max()
+        worst["param"] = max(worst["param"], diff.item())
+        if diff.item() > limit:
+            fail(f"phase 4t: parameter {name} differs by {diff.item():.3g} "
+                 f"after {steps} steps (> {limit:.3g})")
+    # a padded source: the encoder's padding mask is a per-key bias
+    lens = np.array([s_src, 100, 77, 40])[:b]
+    pad = (np.arange(s_src)[None] < lens[:, None]).astype(np.int64)
+    logits = {}
+    for d in (DEV, "cpu"):
+        models[d].load_state_dict(params[d])
+        models[d].eval()
+        src, tin, _ = s2s_batch(torch, cfg, b, s_src, s_tgt, 33, d)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            logits[d] = models[d](src, tin, torch.from_numpy(pad).to(d))
+        if d == DEV:
+            counts = kernels.launch_counts()
+    want = {"flash_fwd_bias": cfg.num_encoder_layers,
+            "flash_fwd": cfg.num_decoder_layers}
+    for n, v in want.items():
+        if counts[n] != v:
+            fail(f"phase 4t: the padded-source forward launched {n} "
+                 f"{counts[n]} times, expected {v}")
+        total[n] += v
+    _err, rel = _rel_err(logits[DEV].cpu(), logits["cpu"])
+    worst["logits"] = rel
+    if rel > 1e-4:
+        fail(f"phase 4t: padded-source logits card vs CPU differ by {rel:.3g}"
+             f" of their largest magnitude (> 1e-4)")
+    return worst, total, models
+
+
+def _greedy_margin(torch, model_cpu, src_row, toks, i):
+    """The CPU model's top-two margin of the logits that chose token i of
+    `toks` (its prefix teacher-forced)."""
+    with torch.no_grad():
+        lg = model_cpu(src_row[None], torch.from_numpy(
+            np.ascontiguousarray(toks[:i]))[None])[0, -1]
+    top = torch.topk(lg.float(), 2).values
+    return (top[0] - top[1]).item()
+
+
+class BeamMargins:
+    """While installed, records for each beam step the smallest gap
+    between neighbours among the top K + 1 candidates of each row
+    (`models.transformer.topk_impl`'s input): a beam choice within that
+    gap of another is a near tie."""
+
+    def __init__(self):
+        from paddle_tpu_torch.models import transformer
+
+        self.mod, self.real, self.steps = transformer, transformer.topk_impl, []
+
+    def __enter__(self):
+        def spy(x, k, *a, **kw):
+            top = x.float().sort(-1, descending=True).values[:, :k + 1]
+            self.steps.append((top[:, :-1] - top[:, 1:]).min(-1).values.cpu())
+            return self.real(x, k, *a, **kw)
+        self.mod.topk_impl = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.topk_impl = self.real
+
+
+def s2s_decode_parity(torch, card, cpu, cfg, b=8, s_src=64, max_len=64,
+                      beam=4, alpha=0.6):
+    """Phase 4t (b): float32 greedy (cached and not) and beam decoding of
+    b sources on the card against the CPU's, by phase 4f's near-tie rule:
+    a row may differ only where the CPU's margin at its first difference
+    is below S2S_NEAR (greedy: the top two logits there; beam: the
+    smallest gap among a row's top K + 1 candidates over the steps up to
+    it). The cached greedy run launches K4 num_encoder_layers + 2 x
+    num_decoder_layers x (max_len - 1) times and never the dense path.
+    Returns ({run: differing rows with their margins}, the card's launch
+    counts summed, the Sq = 1 launches)."""
+    from paddle_tpu_torch.ops import kernels
+
+    rs = np.random.RandomState(41)
+    src = torch.from_numpy(rs.randint(2, cfg.src_vocab_size, (b, s_src)))
+    total, q1 = {}, 0
+    outs = {}
+    for name, fn in (("greedy", lambda m: m.greedy_decode(src, max_len)),
+                     ("uncached", lambda m: m.greedy_decode(
+                         src, max_len, use_cache=False)),
+                     ("beam", lambda m: m.beam_search_decode(
+                         src, beam, max_len, alpha))):
+        kernels.reset_launch_counts()
+        with Q1Spy() as spy:
+            outs[name] = fn(card).cpu().numpy()
+        counts = kernels.launch_counts()
+        for n, v in counts.items():
+            total[n] = total.get(n, 0) + v
+        q1 += spy.count
+        steps = outs[name].shape[1] - 1
+        if name == "greedy":
+            want = cfg.num_encoder_layers + 2 * cfg.num_decoder_layers * steps
+            if counts["flash_fwd"] != want or spy.count != want - \
+                    cfg.num_encoder_layers:
+                fail(f"phase 4t: the cached greedy run launched K4 "
+                     f"{counts['flash_fwd']} times ({spy.count} at Sq = 1),"
+                     f" expected {want}")
+    with BeamMargins() as bm:
+        outs["beam_cpu"] = cpu.beam_search_decode(src, beam, max_len,
+                                                  alpha).numpy()
+    outs["greedy_cpu"] = cpu.greedy_decode(src, max_len).numpy()
+    near = {}
+    for name, ref in (("greedy", "greedy_cpu"), ("uncached", "greedy_cpu"),
+                      ("beam", "beam_cpu")):
+        a, c = outs[name], outs[ref]
+        if a.shape != c.shape and name != "beam":
+            fail(f"phase 4t: {name} tokens {a.shape} vs CPU {c.shape}")
+        T = min(a.shape[1], c.shape[1])
+        for r in range(b):
+            if a.shape == c.shape and np.array_equal(a[r], c[r]):
+                continue
+            diff = np.nonzero(a[r, :T] != c[r, :T])[0]
+            i = int(diff[0]) if len(diff) else T
+            if name == "beam":
+                m = min(float(s[r]) for s in bm.steps[:max(i, 1)])
+            else:
+                m = _greedy_margin(torch, cpu, src[r], c[r], i)
+            near.setdefault(name, []).append((r, i, m))
+            if m >= S2S_NEAR:
+                fail(f"phase 4t: {name} row {r} differs from the CPU's at "
+                     f"token {i}, where the CPU's margin is {m:.3g} "
+                     f"(>= {S2S_NEAR})")
+    return near, total, q1, outs
+
+
+def s2s_amp_train_step(torch, cfg, batch, lr=S2S_LR):
+    """The mixed-precision step of phase 6's recipe on the seq2seq model:
+    float32 masters, bf16 copies made inside the autograd graph and bound
+    through `loss_with`, the label-smoothed loss cast to float32, AdamW
+    (wd 0.01) in float32; dropout (cfg.dropout) draws from a seeded card
+    generator. Returns step() -> the loss tensor."""
+    from paddle_tpu_torch.models.transformer import (TransformerModel,
+                                                     loss_with)
+    from paddle_tpu_torch.nn import set_dropout_generator
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = wmt_embeddings(torch, TransformerModel(cfg, device=DEV))
+    model.train()
+    set_dropout_generator(model,
+                          torch.Generator(device=DEV).manual_seed(0))
+    masters = {n: p.detach().clone().requires_grad_(True)
+               for n, p in model.named_parameters()}
+    opt = AdamW(lr, weight_decay=0.01, device=DEV)
+    state = opt.functional_init(masters)
+
+    def step():
+        low = {n: p.to(torch.bfloat16) for n, p in masters.items()}
+        loss = loss_with(model, low, *batch, label_smoothing=0.1).float()
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        opt.functional_update(masters, dict(zip(masters, grads)), state)
+        return loss.detach()
+
+    return step
+
+
+def s2s_train_throughput(torch, cfg, b=32, s_src=128, s_tgt=128, warm=2,
+                         steps=5, profiled=2):
+    """Phase 6t (a): the mixed-precision step at the published config
+    (dropout 0.1: the attention is the dense path) on one fixed batch:
+    ms per step (CUDA events), target tokens/s, peak memory, losses, the
+    launch counts of the measured steps, and the device's idle share (a
+    profiled pass of `profiled` steps: 1 - busy per step / the measured
+    wall per step)."""
+    from paddle_tpu_torch.ops import kernels
+
+    step = s2s_amp_train_step(torch, cfg, s2s_batch(torch, cfg, b, s_src,
+                                                    s_tgt, 0, DEV))
+    losses = [step().item() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()                          # main path
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    measured = [step() for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    counts = kernels.launch_counts()
+    losses += [x.item() for x in measured]
+    ms = start.elapsed_time(end) / steps
+    busy = profiled_busy(torch, lambda: [step() for _ in range(profiled)])
+    return {"losses": losses, "ms_per_step": ms, "wall_ms": wall * 1e3,
+            "tokens_per_sec": b * s_tgt / (ms / 1e3),
+            "peak": torch.cuda.max_memory_allocated(), "counts": counts,
+            "busy_ms": busy / profiled * 1e3,
+            "idle": 1 - busy / profiled / wall}
+
+
+def s2s_decode_throughput(torch, model, src, max_len, fn):
+    """Phase 6t (b): one warm and one measured run of `fn(model, src,
+    max_len)` (a decode), then a profiled one: ms per decode step and
+    output tokens/s (host clock to a synchronize), the launch counts,
+    Sq = 1 K4 launches and dense-path calls of the measured run, K4's
+    device time and its share of the device's busy time, and the idle
+    share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import kernels
+
+    from paddle_tpu_torch.ops import attention
+
+    fn(model, src, max_len)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()                          # main path
+    dense, real_dense = [0], attention.dense_attention
+
+    def dense_spy(*a, **k):
+        dense[0] += 1
+        return real_dense(*a, **k)
+
+    attention.dense_attention = dense_spy
+    try:
+        with Q1Spy() as spy:
+            t0 = time.perf_counter()
+            out = fn(model, src, max_len)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        attention.dense_attention = real_dense
+    counts = kernels.launch_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn(model, src, max_len)
+        torch.cuda.synchronize()
+    busy = k4 = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+            busy += us
+            k4 += us if K4_NAME.search(ev.key) else 0.0
+    steps = out.shape[1] - 1
+    if not torch.isfinite(out.float()).all() or out.shape[0] != src.shape[0]:
+        fail(f"phase 6t: bad decode output {tuple(out.shape)}")
+    return {"ms_per_step": wall * 1e3 / steps, "steps": steps,
+            "tokens_per_sec": out.shape[0] * steps / wall,
+            "counts": counts, "q1": spy.count, "dense": dense[0],
+            "k4_ms": k4 / 1e3,
+            "busy_ms": busy / 1e3, "k4_share": k4 / max(busy, 1e-9),
+            "idle": 1 - busy / 1e6 / wall}
+
+
 def main():
     import torch
 
@@ -3535,6 +4035,41 @@ def main():
                   torch.bfloat16, 7, False, lengths=(16384, 10240))
     torch.cuda.empty_cache()
 
+    # phase 3e: K4 at the seq2seq decode shapes (one query over 1-255
+    # keys), the cross-attention's Sq != Sk, and K4 bias under a padded
+    # source (WMT base: H 8, D 64)
+    t0 = time.perf_counter()
+    for dtype in (torch.bfloat16, torch.float32):
+        errs = []
+        for sk in Q1_SK:
+            timed = dtype == torch.bfloat16 and sk == 64
+            r = q1_flash_case(torch, timer, 32, 8, sk, 64, dtype, 300 + sk,
+                              timed)
+            errs.append(f"Sk{sk} {r['max_abs_err']:.3g}")
+            if timed:
+                rows["flash_fwd_decode"] = r
+        say(f"phase 3e flash_fwd Sq1 B32 H8 D64 "
+            f"{str(dtype).split('.')[-1]}: within tolerance of plain, out "
+            f"and lse bitwise over two launches; max abs err "
+            + ", ".join(errs))
+    r = rows["flash_fwd_decode"]
+    say(f"phase 3e flash_fwd {r['tag']}: kernel {r['ms']:.4f} ms, device "
+        f"{r['device_ms']:.4f} ms (profiler), plain {r['plain_ms']:.4f} ms, "
+        f"library (SDPA) {r['library_ms']:.4f} ms (device "
+        f"{r['library_device_ms']:.4f}), dense path {r['dense_ms']:.4f} ms "
+        f"(device {r['dense_device_ms']:.4f}), bound {r['bound_ms']:.5f} ms "
+        f"({r['bound_by']}); share of the bound "
+        f"{r['bound_ms'] / r['device_ms']:.3f} (device); device time / "
+        f"SDPA's {r['device_ms'] / r['library_device_ms']:.2f}x, / the "
+        f"dense path's {r['device_ms'] / r['dense_device_ms']:.2f}x [{card}]")
+    for dtype in both:
+        flash_case(torch, timer, 4, 8, 96, 128, 64, False, dtype, 396, False,
+                   phase="3e")
+        bias_flash_case(torch, timer, 8, 8, 128, 128, 64, False, "lengths",
+                        dtype, 1160, False, phase="3e")
+    say(f"phase 3e: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     # phase 4: decoder parity, GPT-2 small float32, card vs CPU
     cfg = GPT2Config()  # GPT-2 small, full width and depth
     model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
@@ -3642,6 +4177,44 @@ def main():
             f"{cfg_long.num_layers} launches each per step, K9/K9 bias "
             f"none, {time.perf_counter() - t0:.1f} s")
         torch.cuda.empty_cache()
+
+    # phase 4t: the seq2seq Transformer at WMT base, float32, card vs CPU:
+    # training, then decoding (its launches join the kernels line)
+    from paddle_tpu_torch.models.transformer import (TransformerConfig,
+                                                     TransformerModel)
+
+    cfg_s2s = TransformerConfig(dropout=0.0)
+    t0 = time.perf_counter()
+    worst, s2s_counts, s2s_models = s2s_train_parity(torch, cfg_s2s)
+    say(f"phase 4t (a) WMT base ({cfg_s2s.num_encoder_layers} + "
+        f"{cfg_s2s.num_decoder_layers} layers, d {cfg_s2s.d_model}, ffn "
+        f"{cfg_s2s.dim_feedforward}, V {cfg_s2s.tgt_vocab_size}) train "
+        f"parity f32 B4 S_src 128 S_tgt 96, label smoothing 0.1, 2 AdamW "
+        f"steps: loss rel diff {worst['loss']:.3g} (limit 1e-4), worst "
+        f"gradient diff {worst['grad']:.3g} of its magnitude (limit 1e-3), "
+        f"worst parameter diff {worst['param']:.3g} (limit "
+        f"{2 * S2S_LR * 2 + 1e-6:.3g}); K4/K6/K9 "
+        f"{cfg_s2s.num_encoder_layers + cfg_s2s.num_decoder_layers} "
+        f"launches each per step, the bias kernels none; padded-source "
+        f"logits (lengths 128/100/77/40: K4 bias in the encoder) within "
+        f"{worst['logits']:.3g} of their largest magnitude (limit 1e-4); "
+        f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    near, counts, s2s_q1, outs = s2s_decode_parity(
+        torch, s2s_models[DEV], s2s_models["cpu"], cfg_s2s)
+    for n, v in counts.items():
+        s2s_counts[n] += v
+    say(f"phase 4t (b) f32 decoding, 8 sources x 64 tokens, max_len 64: "
+        f"greedy cached and uncached and beam 4 (length penalty 0.6, "
+        f"{outs['beam'].shape[1]} tokens) on the card == the CPU's but for "
+        f"near ties (row, token, CPU margin < {S2S_NEAR}): "
+        f"{near or 'none'}; K4 {counts['flash_fwd']} launches over the "
+        f"three runs, {s2s_q1} of them at Sq = 1; the cached greedy run "
+        f"{cfg_s2s.num_encoder_layers} + "
+        f"{2 * cfg_s2s.num_decoder_layers} x {outs['greedy'].shape[1] - 1};"
+        f" {time.perf_counter() - t0:.1f} s")
+    del s2s_models, outs
+    torch.cuda.empty_cache()
 
     # phase 5g: the decode graph against the eager loop, GPT-2 small bf16
     # (phase 4f's weights) and its W8A16 packing, outside the server
@@ -3926,6 +4499,62 @@ def main():
             f"{ {n: tr['counts'][n] for n in names + FUSED_BWD} } [{card}]")
         torch.cuda.empty_cache()
 
+    # phase 6t: the seq2seq Transformer at WMT base, bf16 on float32
+    # masters: training at the published dropout 0.1 (dense attention),
+    # then bf16 greedy and beam decoding (K4 at Sq = 1)
+    cfg_pub = TransformerConfig()
+    steps = 5
+    tr = s2s_train_throughput(torch, cfg_pub, steps=steps)
+    losses = tr["losses"]
+    if not all(np.isfinite(losses)):
+        fail(f"phase 6t: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        fail(f"phase 6t: loss did not fall ({losses[0]} -> {losses[-1]})")
+    for n in FLASH + FLASH_BIAS:
+        if tr["counts"][n]:
+            fail(f"phase 6t: {n} launched at dropout 0.1 {tr['counts']}")
+    say(f"phase 6t (a) WMT base training B32 S_src 128 S_tgt 128 bf16/"
+        f"f32-master AdamW, dropout 0.1 (dense attention), label smoothing "
+        f"0.1: target tokens_per_sec {tr['tokens_per_sec']:.1f} ms_per_step "
+        f"{tr['ms_per_step']:.2f} (host {tr['wall_ms']:.2f}) "
+        f"max_memory_allocated {tr['peak'] / 2**20:.0f} MiB loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; device busy "
+        f"{tr['busy_ms']:.2f} ms a step (profiler), idle share "
+        f"{tr['idle']:.3f} [{card}]")
+    del tr
+    torch.cuda.empty_cache()
+    model16 = wmt_embeddings(torch, TransformerModel(cfg_s2s, device=DEV))
+    model16.to(torch.bfloat16).eval()
+    src16 = torch.from_numpy(np.random.RandomState(43).randint(
+        2, cfg_s2s.src_vocab_size, (32, 64))).to(DEV)
+    per_step = 2 * cfg_s2s.num_decoder_layers
+    for name, fn in (("greedy", lambda m, s, n: m.greedy_decode(s, n)),
+                     ("beam 4", lambda m, s, n: m.beam_search_decode(
+                         s, 4, n, 0.6))):
+        r = s2s_decode_throughput(torch, model16, src16, 64, fn)
+        if r["q1"] != per_step * r["steps"] or r["dense"] or \
+                r["counts"]["flash_fwd"] != r["q1"] + \
+                cfg_s2s.num_encoder_layers:
+            fail(f"phase 6t {name}: {r['counts']['flash_fwd']} K4 launches, "
+                 f"{r['q1']} at Sq = 1 (expected {per_step} x {r['steps']} "
+                 f"and the encoder's {cfg_s2s.num_encoder_layers}), "
+                 f"{r['dense']} dense-path calls")
+        for n, v in r["counts"].items():
+            s2s_counts[n] += v
+        s2s_q1 += r["q1"]
+        say(f"phase 6t (b) bf16 {name} decoding, 32 sources x 64 tokens, "
+            f"max_len 64 ({r['steps']} steps): ms_per_decode_step "
+            f"{r['ms_per_step']:.3f} output tokens_per_sec "
+            f"{r['tokens_per_sec']:.1f}; K4 {r['counts']['flash_fwd']} "
+            f"launches ({r['q1']} at Sq = 1), dense path none; K4 device "
+            f"{r['k4_ms']:.2f} ms of busy {r['busy_ms']:.2f} ms (share "
+            f"{r['k4_share']:.3f}), idle share {r['idle']:.3f} [{card}]")
+    del model16
+    torch.cuda.empty_cache()
+    for n, v in s2s_counts.items():
+        if v:
+            main_counts[n] = main_counts.get(n, 0) + v
+
     # phase 7: the kernels line
     out = []
     for name, replaces in (("ragged_stream_dense", K1_REPLACES),
@@ -3973,6 +4602,17 @@ def main():
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"]})
+    # K4 at one query (the seq2seq cached decode steps of 4t and 6t): 3e's
+    # numbers
+    r = rows["flash_fwd_decode"]
+    if s2s_q1 <= 0:
+        fail("flash_fwd_decode was not launched on the main path")
+    out.append({"name": "flash_fwd_decode", "route": "cuda",
+                "source": FWD_SOURCE, "replaces": FLASH_REPLACES["flash_fwd"],
+                "launches": s2s_q1, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["library_ms"]})
     say(json.dumps({"kernels": out}))
     say(card)
     say(json.dumps({"ok": True, "device": {

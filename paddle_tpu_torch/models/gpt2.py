@@ -23,19 +23,21 @@ the card; with an additive [B or 1, 1, 1, S] `attn_mask` (a padded
 batch) their per-key-bias variants; with attention dropout the dense
 path, as the reference — tanh GELU, final layer norm), `logits`
 (the tied head as one rank-2 product `x2 @ wte.T`) and `lm_loss` (mean
-cross-entropy). `build_train_step(cfg)` returns `loss_fn(params, batch)`
-and `init_params()`; `GPT2.forward`/`GPT2.loss` run the same functions
-on the module's own parameters. `position_ids` ([S] or [B, S]; default
+cross-entropy; the reference's vocab-chunked loss under
+`PADDLE_TPU_CHUNKED_CE=<n>`, `ops/chunked_xent.py`).
+`build_train_step(cfg)` returns `loss_fn(params, batch)` and
+`init_params()`; `GPT2.forward`/`GPT2.loss` run the same functions on
+the module's own parameters. `position_ids` ([S] or [B, S]; default
 0..S-1) and `attn_mask` are the reference's `GPT2.forward` arguments;
 `lm_loss`, `GPT2.loss` and `build_train_step` take no mask, as the
 reference's do (a padded batch composes `logits(..., attn_mask=)` with
 `ops.loss.cross_entropy`, pad labels -100). Embedding, residual and
-attention dropout draw from an explicit `torch.Generator`. The reference's
-vocab-chunked loss (`PADDLE_TPU_CHUNKED_CE`) comes with a later slice.
+attention dropout draw from an explicit `torch.Generator`.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -45,6 +47,7 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops.attention import scaled_dot_product_attention
+from ..ops.chunked_xent import chunked_softmax_xent
 from ..ops.loss import cross_entropy
 
 
@@ -288,7 +291,19 @@ def logits(params, cfg, input_ids, *, position_ids=None, attn_mask=None,
 
 def lm_loss(params, cfg, input_ids, labels, *, dropout=0.0,
             generator=None):
-    """Mean next-token cross-entropy (labels of -100 are ignored)."""
+    """Mean next-token cross-entropy (labels of -100 are ignored). With
+    `PADDLE_TPU_CHUNKED_CE=<n>` (n > 1) and tied embeddings, the
+    reference's switch read at each call (`GPT2.loss`,
+    `paddle_tpu/models/gpt2.py:135-150`), the vocab-chunked loss of the
+    final hidden states against wte, which never holds the [B*S, V]
+    logits."""
+    n_chunks = int(os.environ.get("PADDLE_TPU_CHUNKED_CE", "0"))
+    if n_chunks > 1 and cfg.tie_embeddings:
+        h = hidden_states(params, cfg, input_ids, dropout=dropout,
+                          generator=generator)
+        return chunked_softmax_xent(h.reshape(-1, cfg.hidden_size),
+                                    params["wte.weight"], labels.reshape(-1),
+                                    n_chunks)
     lg = logits(params, cfg, input_ids, dropout=dropout, generator=generator)
     return cross_entropy(lg.reshape(-1, cfg.vocab_size), labels.reshape(-1))
 

@@ -9,7 +9,10 @@ lengths in 128-512, MLM + NSP, through the per-key-bias flash kernels) or
 phase 6c (`--model gpt2_long`: GPT-2 small with max_position 16384 at
 1 x 16384, through the two-pass backward K7/K8; `--model
 gpt2_long_padded`: 2 x 16384 padded to lengths 16384 and 10240, through
-their bias variants) —
+their bias variants) or phase 6t (`--model wmt_base`: the seq2seq
+Transformer at WMT base, dropout 0.1 so every attention is the dense
+path, label smoothing 0.1, batch 32 x 128 source and 128 target tokens;
+tokens/s counts target tokens) —
 the reference bench's mixed-precision step: bf16 compute on float32
 masters, AdamW lr 1e-4, wd 0.01: warm steps, measured steps timed with
 CUDA events and the host clock (ending in a synchronize), then a few
@@ -41,7 +44,8 @@ card's name and power limit:
 
 Usage (on a machine with the card, from the repo root):
     python3 scripts/torch_train_profile.py [--model gpt2_small|bert_large|
-        gpt2_long|gpt2_long_padded] [--steps 5] [--profile-steps 3]
+        gpt2_long|gpt2_long_padded|wmt_base] [--steps 5]
+        [--profile-steps 3]
 """
 import argparse
 import os
@@ -67,6 +71,7 @@ CLASSES = (  # (class, substrings of the kernel name), first match wins
     ("GEMM", ("gemm", "nvjet", "cutlass", "xmma", "splitKreduce")),
     ("optimizer (foreach)", ("multi_tensor_apply",)),
     ("softmax / loss", ("softmax", "nll_loss", "gather")),
+    ("dropout masks", ("bernoulli", "dropout")),
     ("copy / cast", ("copy",)),
 )
 
@@ -82,7 +87,8 @@ def classify(name):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=("gpt2_small", "bert_large",
-                                        "gpt2_long", "gpt2_long_padded"),
+                                        "gpt2_long", "gpt2_long_padded",
+                                        "wmt_base"),
                     default="gpt2_small")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--profile-steps", type=int, default=3)
@@ -100,7 +106,15 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
-    if args.model == "bert_large":
+    if args.model == "wmt_base":
+        from paddle_tpu_torch.models.transformer import TransformerConfig
+
+        cfg = TransformerConfig()
+        B, S = 32, 128
+        step = chip_smoke.s2s_amp_train_step(
+            torch, cfg, chip_smoke.s2s_batch(torch, cfg, B, S, S, 0, "cuda"))
+        title = "seq2seq Transformer WMT base (dropout 0.1, dense attention)"
+    elif args.model == "bert_large":
         cfg = BertConfig.large()
         cfg.dropout = 0.0
         B, S = 16, 512

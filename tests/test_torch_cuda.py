@@ -57,6 +57,12 @@ chained) equal the eager programs bit for bit over a capture and two
 replays, with the eager launch counts and no host synchronisation; the
 speculating server (split, unified, async) gives the CPU's tokens in
 float32; and an async engine's dispatches make no host synchronisation.
+The seq2seq Transformer: K4 at one query (Sq = 1, the cached decode
+step) over 1 to 255 keys at D 32, 64 and 128 against its plain version,
+bitwise over two launches; the cached decoder on the card against the
+CPU (float32, head dim 32: step logits, greedy and beam tokens); and a
+bf16 cached decode that launches K4 two times a layer a step at Sq = 1
+and never calls the dense path.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -1891,3 +1897,118 @@ def test_async_dispatch_makes_no_host_sync(dev):
     assert all(o.size == p.size + 12 for o, p in zip(outs, prompts))
     assert seen["dispatches"] == st["rounds"]["rounds"] > 0
     assert st["rounds"]["mixed_rounds"] > 0 and st["round_graph_replays"] > 0
+
+
+# ---- the seq2seq Transformer: K4 at one query ------------------------------
+
+# chip_smoke.py phase 3e's key lengths: a cached decode step's
+# self-attention sees 1..max_len keys, its cross-attention S_src
+Q1_SK = (1, 2, 63, 64, 65, 127, 128, 129, 255)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("sk", Q1_SK)
+def test_flash_fwd_one_query_matches_plain(dev, sk, d, dtype):
+    """K4 at Sq = 1 (one row of the bf16 kernel's 128-row q tile and its
+    TMA box), Sk on and off the 128-key tile, against its plain version;
+    two launches give the same bits."""
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    g = torch.Generator(device=dev).manual_seed(sk * 3 + d)
+    q = torch.randn(4, 8, 1, d, generator=g, device=dev).to(dtype)
+    k, v = (torch.randn(4, 8, sk, d, generator=g, device=dev).to(dtype)
+            for _ in range(2))
+    sc = d ** -0.5
+    out, lse = kernels.flash_fwd(q, k, v, sc, False)
+    out2, lse2 = kernels.flash_fwd(q, k, v, sc, False)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    out_p, lse_p = pf.flash_fwd_lse_plain(q.float(), k.float(), v.float(),
+                                          sc, False)
+    _rel_close(out, out_p, 1e-4 if dtype == torch.float32 else 2e-2, "out")
+    _rel_close(lse, lse_p, 1e-4, "lse")
+
+
+def _s2s_cfg():
+    """TransformerConfig.tiny() with 2 heads: head dim 32, the flash
+    route; dropout 0."""
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+
+    cfg = TransformerConfig.tiny()
+    cfg.nhead, cfg.dropout = 2, 0.0
+    return cfg
+
+
+def test_seq2seq_cached_decoder_on_card_matches_cpu(dev):
+    """The cached decoder (K4 at Sq = 1 against the self-attention cache
+    and the memory) on the card against the CPU's plain path, float32, the
+    same weights: each step's logits within 1e-4 of their largest
+    magnitude, and greedy and beam tokens identical."""
+    from paddle_tpu_torch.models.transformer import TransformerModel
+
+    cfg = _s2s_cfg()
+    models = {"cpu": TransformerModel(cfg, device="cpu").eval()}
+    models[str(dev)] = TransformerModel(cfg, device=dev).eval()
+    src = np.random.RandomState(0).randint(2, cfg.src_vocab_size, (3, 11))
+    res = {}
+    for name, m in models.items():
+        s = torch.from_numpy(src).to(m.pos_enc.device)
+        with torch.no_grad():
+            memory = m.transformer.encoder(m._embed_at(m.src_embed, s, 0),
+                                           None)
+            caches = m.transformer.decoder.gen_cache(memory)
+            tok, steps = m._bos(3), []
+            for step in range(12):
+                logits, caches = m._decode_step(tok, step, memory, caches)
+                steps.append(logits.cpu())
+                tok = logits.argmax(-1).to(torch.int32)[:, None]
+        res[name] = (steps, m.greedy_decode(s, 12).cpu(),
+                     m.beam_search_decode(s, 4, 12).cpu())
+    for a, b in zip(res["cpu"][0], res[str(dev)][0]):
+        _rel_close(b, a, 1e-4, "step logits")
+    assert torch.equal(res["cpu"][1], res[str(dev)][1])
+    assert torch.equal(res["cpu"][2], res[str(dev)][2])
+
+
+def test_seq2seq_bf16_cached_decode_launches_k4_never_the_dense_path(dev):
+    """A bf16 cached greedy decode on the card: the encoder's K4
+    launches, then two K4 launches a layer a step at Sq = 1 (self- and
+    cross-attention), and no call of the dense path (no fallback); the
+    same for beam search's steps."""
+    from paddle_tpu_torch.models.transformer import TransformerModel
+    from paddle_tpu_torch.ops import attention, kernels
+
+    cfg = _s2s_cfg()
+    model = TransformerModel(cfg, dtype=torch.bfloat16, device=dev).eval()
+    src = torch.from_numpy(np.random.RandomState(1).randint(
+        2, cfg.src_vocab_size, (4, 9))).to(dev)
+    calls, real_dense, real_fwd = {"dense": 0, "q1": 0}, \
+        attention.dense_attention, kernels.flash_fwd
+
+    def dense_spy(*a, **k):
+        calls["dense"] += 1
+        return real_dense(*a, **k)
+
+    def fwd_spy(q, *a, **k):
+        calls["q1"] += q.shape[2] == 1
+        return real_fwd(q, *a, **k)
+
+    attention.dense_attention, kernels.flash_fwd = dense_spy, fwd_spy
+    try:
+        for run in ("greedy", "beam"):
+            calls["dense"] = calls["q1"] = 0
+            kernels.reset_launch_counts()
+            out = model.greedy_decode(src, 10) if run == "greedy" else \
+                model.beam_search_decode(src, 3, 10)
+            torch.cuda.synchronize()
+            steps = out.shape[1] - 1
+            q1 = 2 * cfg.num_decoder_layers * steps
+            assert calls == {"dense": 0, "q1": q1}, (run, calls)
+            assert kernels.launch_counts()["flash_fwd"] == \
+                q1 + cfg.num_encoder_layers
+            assert out.dtype == torch.int32 and (out[:, 0] == 0).all()
+    finally:
+        attention.dense_attention, kernels.flash_fwd = real_dense, real_fwd
