@@ -80,6 +80,26 @@ non-zero before the result line:
                step) — identical wherever the top-two margin of
                filt + gumbel is >= MARGIN (1e-5); the draws below it are
                counted and printed (a stated tolerance);
+  4g. offline generation — float32 GPT-2 small (phase 4's weights), TF32
+               off, 16-token prompts from RandomState(41) x 16 new tokens,
+               the card against the same weights on the CPU: the dense
+               greedy generate (its graph bitwise the eager program on
+               the card), a left-padded batch of lengths 16/9/12/3 (== the
+               CPU's and == each prompt generated alone), a sampled
+               generate (temperature 0.8, top-k 40, top-p 0.95, seed 1234:
+               identical but where the CPU's top-two margin of filt +
+               gumbel is under MARGIN, printed), the paged generate with
+               dense and int8 pools (== the dense generate of the same
+               kind and == the CPU's; K2 L x 16 launches each: the step
+               graph's eager warm-up and 15 replays), W8A16, int8 KV and
+               both through the dense program; then a W8A16
+               export_generator -> jit.load onto the card (served ==
+               generate bitwise) and GenerationServer over it (8
+               mixed-length requests in one batch, each row == its
+               prompt's generate). Greedy rows may differ only at a near
+               tie: both tokens' CPU logits (one prefill of the prefix)
+               within 2 x phase 4's limit of the top one at the first
+               difference, listed;
   5. serving — GPT-2 small in bfloat16: PagedGenerationServer(max_slots=8,
                block_size=16, max_prompt_len=768, max_new_tokens=32,
                prefill_chunk_tokens=512) serving 16 prompts of 64-768
@@ -375,10 +395,25 @@ non-zero before the result line:
                Sq = 1 plus the encoder's 6; the dense path never runs), and
                from a profiled run K4's device time, its share of the
                busy time and the idle share;
+  6g. offline generation in bf16 — GPT-2 small (phase 4f's weights): (a)
+               bench.py's decode axis (bench.py:340-390: B 8, prompt 64,
+               192 new, greedy) in bf16, W8A16 and W8A16 with int8 KV,
+               each through the dense program's graph and through the
+               paged generate: ms per token step by bench.py's
+               differencing of 192 and 64 new tokens (each the best
+               of two calls after a warm one), tokens/s, peak memory,
+               and from one
+               profiled 64-token call the device's busy time, idle
+               share and device kernels a token step; (b) bench.py's
+               padded-batcher axis (bench.py:585-600): GenerationServer
+               over an exported bf16 artifact loaded onto the card (B 8,
+               prompt_len 768, 32 new), phase 5's 16 prompts, a warm and
+               a measured pass: tokens/s, latency p50/p99, batch_fill,
+               beside phase 5's paged k = 1 pass of the same call;
   7. the kernels line (JSON; each kernel's launches summed over the
      main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 4b, 4f,
-     6, 6b, 6c, 4t and 6t; the `ragged_stream_verify_*` rows are K1 on
-     verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
+     4g, 6g (a), 6, 6b, 6c, 4t and 6t; the `ragged_stream_verify_*` rows
+     are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
      which the `flash_fwd` row counts too), the card line, and as the last
@@ -3826,6 +3861,355 @@ def s2s_decode_throughput(torch, model, src, max_len, fn):
             "idle": 1 - busy / 1e6 / wall}
 
 
+# ---- phases 4g and 6g: offline generation and the dense serving path -------
+
+G_PROMPT, G_NEW = 16, 16          # 4g: prompt width and new tokens
+G_SAMPLING = dict(temperature=0.8, top_k=40, top_p=0.95, seed=1234)
+# 6g (a): bench.py's decode axis (bench.py:340-390): B, prompt, new, and
+# the short length the step time is differenced against
+D_BATCH, D_PROMPT, D_NEW = 8, 64, 192
+D_SHORT = min(max(4, D_NEW // 3), D_NEW - 4)
+D_MODES = (("bf16", {}), ("w8a16", dict(weight_quant="int8")),
+           ("w8a16_kv8", dict(weight_quant="int8", kv_quant="int8")))
+
+
+def _strip(row):
+    """A left-padded row (pad 0; prompts draw ids >= 1) without its pads."""
+    return row[int(np.argmax(row != 0)):]
+
+
+def gen_tie(torch, cfg, params_cpu, a, b, start, kv_dtype, phase):
+    """For rows a and b (left pads stripped; `start` the prompt's
+    length) that differ: True when at
+    their first difference both tokens' float32 CPU logits (one packed
+    prefill of a's prefix, the same params and pool dtype) lie within 2 x
+    phase 4's limit (2e-3, int8 pools 2e-2) of the top logit — a near
+    tie the summation order may break."""
+    a, b = _strip(a), _strip(b)
+    i = int(np.nonzero(a != b)[0][0]) if a.size == b.size else -1
+    if i < start:
+        fail(f"phase {phase}: two outputs differ inside the prompt or in "
+             f"length")
+    lg = w8_prefix_logits(torch, cfg, params_cpu, a[:i], kv_dtype)
+    tol = 2 * (2e-2 if kv_dtype else 2e-3)
+    top = lg.max().item()
+    return all(top - lg[int(o[i])].item() <= tol for o in (a, b))
+
+
+def gen_compare(torch, cfg, params_cpu, got, want, starts, kv_dtype, what,
+                ties):
+    """Rows of got == want but for near ties (`gen_tie`), which are
+    appended to `ties` as (what, row, first differing token index)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        fail(f"phase 4g {what}: shapes {got.shape} vs {want.shape}")
+    for r in range(got.shape[0]):  # starts: each row's prompt length
+        if np.array_equal(got[r], want[r]):
+            continue
+        if not gen_tie(torch, cfg, params_cpu, got[r], want[r], starts[r],
+                       kv_dtype, f"4g {what}"):
+            fail(f"phase 4g {what}: row {r} differs beyond the near-tie "
+                 f"rule")
+        ties.append((what, r, int(np.nonzero(got[r] != want[r])[0][0])))
+
+
+def gen_parity(torch, model32, card):
+    """4g: float32 GPT-2 small (phase 4's weights), TF32 off, the card
+    against the same weights on the CPU. Returns (near ties, sampled
+    draws under MARGIN, K2 launches by pool kind, lines to print)."""
+    import tempfile
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import GenerationServer
+    from paddle_tpu_torch.models import GPT2, gpt2_decode
+    from paddle_tpu_torch.models.gpt2 import export_generator
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.sampling import prng
+
+    cfg = model32.cfg
+    V = cfg.vocab_size
+    cpu = GPT2(cfg, device="cpu", init=False)
+    with torch.no_grad():
+        for (_, pc), (_, pg) in zip(cpu.named_parameters(),
+                                    model32.named_parameters()):
+            pc.data = pg.detach().cpu().clone()
+    params_cpu = {None: cpu.flat_params(),
+                  "int8": cpu.quantize_weights()}
+    rs = np.random.RandomState(41)
+    ids = rs.randint(1, V, (4, G_PROMPT)).astype(np.int32)
+    lens = [G_PROMPT, 9, 12, 3]
+    left = np.zeros_like(ids)
+    for r, n in enumerate(lens):
+        left[r, G_PROMPT - n:] = ids[r, :n]
+    starts = [G_PROMPT] * 4
+    ties, lines = [], []
+
+    def gen(m, x, **kw):
+        out = m.generate(x, G_NEW, **kw)
+        return out.cpu().numpy()
+
+    # (1) dense greedy: card == CPU; the graph == the eager program
+    t0 = time.perf_counter()
+    got = gen(model32, ids)
+    gen_compare(torch, cfg, params_cpu[None], got, gen(cpu, ids), starts,
+                None, "dense greedy", ties)
+    prog = gpt2_decode.decode_program(cfg, G_NEW)
+    sc = {k: torch.tensor(v, dtype=dt, device=DEV) for k, v, dt in (
+        ("temp", 0.0, torch.float32), ("eos", -1, torch.int32),
+        ("top_p", 1.0, torch.float32), ("pad", -1, torch.int32))}
+    eager = prog.run(model32.flat_params(), torch.from_numpy(ids).to(DEV),
+                     prng.seed_key(0, DEV), sc["temp"], sc["eos"],
+                     sc["top_p"], sc["pad"], False)
+    if not np.array_equal(eager.cpu().numpy(), got):
+        fail("phase 4g: the dense program's graph differs from its eager "
+             "run on the card")
+    if prog.graphs.captures < 1:
+        fail("phase 4g: the dense generate captured no graph")
+
+    # (2) a left-padded batch of mixed lengths: each row == its prompt
+    # generated alone; the batch card == CPU
+    batch = gen(model32, left, pad_token_id=0)
+    gen_compare(torch, cfg, params_cpu[None], batch,
+                gen(cpu, left, pad_token_id=0), lens, None,
+                "left-padded", ties)
+    alone = np.stack([
+        np.concatenate([np.zeros(G_PROMPT - n, np.int32),
+                        gen(model32, ids[r:r + 1, :n])[0]])
+        for r, n in enumerate(lens)])
+    gen_compare(torch, cfg, params_cpu[None], batch, alone, lens, None,
+                "left-padded vs alone", ties)
+
+    # (3) sampled: card == CPU but where the CPU's draw has a top-two
+    # margin of filt + gumbel under MARGIN (the CPU run records them)
+    got = gen(model32, ids, **G_SAMPLING)
+    margins, real = [], prng.categorical
+
+    def spy(key, lg):
+        g = prng.gumbel(key.reshape(1, 2), lg.numel()).reshape(lg.shape)
+        top2 = torch.topk(g + lg, 2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).numpy())
+        return real(key, lg)
+
+    prng.categorical = spy
+    try:
+        want = gen(cpu, ids, **G_SAMPLING)
+    finally:
+        prng.categorical = real
+    near = []
+    for r in range(ids.shape[0]):
+        diff = np.nonzero(got[r] != want[r])[0]
+        if diff.size:
+            step = int(diff[0]) - G_PROMPT
+            if step < 0 or margins[step][r] >= MARGIN:
+                fail(f"phase 4g sampled: row {r} differs card vs CPU at "
+                     f"step {step}, CPU margin "
+                     f"{margins[max(step, 0)][r]:.3g} >= {MARGIN}")
+            near.append((r, step, float(margins[step][r])))
+    lo = min(float(m.min()) for m in margins)
+    lines.append(f"sampled (temperature 0.8, top-k 40, top-p 0.95, seed "
+                 f"1234) card == CPU but {len(near)} draws under the margin "
+                 f"{MARGIN} {near}; smallest CPU margin {lo:.3g}")
+
+    # (4) the paged generate, dense and int8 pools (K2 on the card, each
+    # step a graph replay): greedy == the dense generate of the same kind
+    k2 = {}
+    for kv in (None, "int8"):
+        tag = kv or "dense"
+        kernels.reset_launch_counts()
+        paged = gen(model32, ids, kv_cache="paged", kv_quant=kv)
+        k2[tag] = kernels.launch_counts()[f"paged_decode_{tag}"]
+        # a layer a step: the graph's eager warm-up step, then G_NEW - 1
+        # replays (the prefill is dense products)
+        if k2[tag] != cfg.num_layers * G_NEW:
+            fail(f"phase 4g paged {tag}: K2 launched {k2[tag]} times, "
+                 f"expected {cfg.num_layers} x {G_NEW}")
+        gen_compare(torch, cfg, params_cpu[None], paged,
+                    gen(model32, ids, kv_quant=kv), starts, kv,
+                    f"paged {tag} vs dense", ties)
+        gen_compare(torch, cfg, params_cpu[None], paged,
+                    gen(cpu, ids, kv_cache="paged", kv_quant=kv), starts,
+                    kv, f"paged {tag} card vs CPU", ties)
+
+    # (5) W8A16 and int8 KV through the dense program, card vs CPU
+    for name, kw in (("w8a16", dict(weight_quant="int8")),
+                     ("kv8", dict(kv_quant="int8")),
+                     ("w8a16 kv8", dict(weight_quant="int8",
+                                        kv_quant="int8"))):
+        pc = params_cpu["int8" if "weight_quant" in kw else None]
+        gen_compare(torch, cfg, pc, gen(model32, left, pad_token_id=0, **kw),
+                    gen(cpu, left, pad_token_id=0, **kw), lens,
+                    kw.get("kv_quant"), f"dense {name}", ties)
+
+    # (6) export_generator -> jit.load -> served == in-process (W8A16:
+    # a quarter of the float32 artifact's bytes)
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "gen")
+        export_generator(model32, prefix, prompt_len=G_PROMPT,
+                         max_new_tokens=G_NEW, weight_quant="int8")
+        nbytes = os.path.getsize(prefix + ".pdiparams")
+        served = jit.load(prefix)
+    if served.device.type != "cuda":
+        fail("phase 4g: jit.load did not put the params on the card")
+    out = served(left, 0, 0.0, -1, 1.0, 0)
+    if out.device.type != "cpu" or not np.array_equal(
+            out.numpy(), gen(model32, left, pad_token_id=0,
+                             weight_quant="int8")):
+        fail("phase 4g: the served artifact differs from the in-process "
+             "W8A16 generate")
+
+    # (7) GenerationServer on the loaded artifact: 8 mixed-length
+    # requests in one batch, each row == its prompt's generate alone
+    prompts = [rs.randint(1, V, (int(n),)).astype(np.int32)
+               for n in rs.randint(1, G_PROMPT + 1, 8)]
+    srv = GenerationServer(served, pad_token_id=0, max_wait_ms=50)
+    futs = [srv.submit(p) for p in prompts]
+    srv.start()
+    try:
+        rows = np.stack([f.result(timeout=300) for f in futs])
+    finally:
+        srv.stop()
+    st = srv.stats()
+    alone = []
+    for p in prompts:
+        row = np.zeros((1, G_PROMPT), np.int32)
+        row[0, G_PROMPT - p.size:] = p
+        kw = dict(pad_token_id=0) if p.size < G_PROMPT else {}
+        alone.append(gen(model32, row, weight_quant="int8", **kw)[0])
+    gen_compare(torch, cfg, params_cpu["int8"], rows, np.stack(alone),
+                [p.size for p in prompts], None,
+                "GenerationServer vs generate", ties)
+    lines.append(f"export_generator (W8A16, {nbytes / 2**20:.1f} MiB npz) "
+                 f"-> jit.load on the card -> served == generate bitwise; "
+                 f"GenerationServer 8 requests (lengths "
+                 f"{[p.size for p in prompts]}) in {st['batches']} batch(es) "
+                 f"== each prompt's generate; "
+                 f"{time.perf_counter() - t0:.1f} s")
+    return ties, k2, lines
+
+
+def gen_profile(torch, fn):
+    """One run of fn under torch.profiler: (device busy s, wall s of the
+    run, kernels and copies recorded on the device)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += getattr(ev, "self_device_time_total",
+                            getattr(ev, "self_cuda_time_total", 0))
+            n += ev.count
+    return busy / 1e6, wall, n
+
+
+def gen_decode_axis(torch, model):
+    """6g (a): bench.py's decode axis on bf16 GPT-2 small (phase 4f's
+    weights): B 8, prompt 64, 192 new, greedy, in bf16, W8A16 and W8A16
+    with int8 KV, each through the dense program's graph and through the
+    paged generate. The ms per token step is bench.py's: (T(192) -
+    T(64)) / 128, each T the best of two calls after a warm one (which
+    captures; None when T(192) <= T(64));
+    tokens/s = 8 / that; peak memory over the timed calls; then one
+    profiled 64-token call: device busy, idle share (1 - busy / its
+    wall), device kernels and copies a token step (the prefill's
+    included). Returns ({(mode,
+    path): row}, K2 launches by pool kind)."""
+    from paddle_tpu_torch.ops import kernels
+
+    V = model.cfg.vocab_size
+    ids = np.random.RandomState(0).randint(1, V, (D_BATCH, D_PROMPT)) \
+        .astype(np.int32)
+    rows, k2 = {}, {"dense": 0, "int8": 0}
+    for mode, kw in D_MODES:
+        for path in ("dense", "paged"):
+            def one(n):
+                t0 = time.perf_counter()
+                out = model.generate(ids, n, kv_cache=path, **kw)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                if out.shape != (D_BATCH, D_PROMPT + n) or \
+                        out[:, D_PROMPT:].min() < 0 or \
+                        out[:, D_PROMPT:].max() >= V:
+                    fail(f"phase 6g (a) {mode} {path}: bad output")
+                return dt
+
+            one(D_NEW)
+            one(D_SHORT)
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()                 # main path
+            t_full = min(one(D_NEW) for _ in range(2))
+            t_short = min(one(D_SHORT) for _ in range(2))
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            tag = kw.get("kv_quant") or "dense"
+            n_k2 = counts[f"paged_decode_{tag}"]
+            # a paged call of n tokens: the step graph's eager warm-up,
+            # then n - 1 replays, a K2 launch a layer each
+            want = 2 * model.cfg.num_layers * (D_NEW + D_SHORT) \
+                if path == "paged" else 0
+            if n_k2 != want:
+                fail(f"phase 6g (a) {mode} {path}: K2 launched {n_k2} "
+                     f"times, expected {want}")
+            k2[tag] += n_k2
+            # bench.py's differencing; a longer call no slower than the
+            # short one is timer noise, and the step is not measured
+            step_ms = (t_full - t_short) / (D_NEW - D_SHORT) * 1e3 \
+                if t_full > t_short else None
+            busy, wall, n_dev = gen_profile(
+                torch, lambda: model.generate(ids, D_SHORT, kv_cache=path,
+                                              **kw))
+            rows[(mode, path)] = dict(
+                step_ms=step_ms,
+                tok_s=None if step_ms is None else D_BATCH / step_ms * 1e3,
+                full_ms=t_full * 1e3, short_ms=t_short * 1e3, peak=peak,
+                busy_ms=busy * 1e3, wall_ms=wall * 1e3,
+                idle=1 - busy / wall if busy > 0 else None,
+                per_step=n_dev / D_SHORT)
+    return rows, k2
+
+
+def gen_padded_batcher(torch, model, prompts):
+    """6g (b): bench.py's padded-batcher axis (bench.py:585-600):
+    GenerationServer over an exported bf16 artifact (jit.load onto the
+    card), 8 slots, prompt_len 768, 32 new tokens, phase 5's 16 prompts;
+    a warm pass (it captures), then a measured pass. Returns the
+    measured pass's stats and the outputs."""
+    import tempfile
+
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import GenerationServer
+    from paddle_tpu_torch.models.gpt2 import export_generator
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "gen16")
+        export_generator(model, prefix, prompt_len=768, max_new_tokens=32,
+                         batch_size=8)
+        served = jit.load(prefix)
+    srv = GenerationServer(served, pad_token_id=0,
+                           max_wait_ms=5.0).start()
+    try:
+        for f in [srv.submit(p) for p in prompts]:     # warm pass
+            f.result(timeout=600)
+        srv.reset_stats()
+        outs = [f.result(timeout=600)
+                for f in [srv.submit(p) for p in prompts]]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    V = model.cfg.vocab_size
+    for p, o in zip(prompts, outs):
+        if o.shape != (800,) or not (o[768 - p.size:768] == p).all() \
+                or o[768:].min() < 0 or o[768:].max() >= V:
+            fail(f"phase 6g (b): bad output for a {p.size}-token prompt")
+    return st, outs, served._program.graphs.captures
+
+
 def main():
     import torch
 
@@ -4107,6 +4491,22 @@ def main():
         f"and {greedy} greedy rows replayed on the CPU from the card's "
         f"logits, identical; {near} draws below the margin {MARGIN}; "
         f"{time.perf_counter() - t0:.1f} s")
+
+    # phase 4g: offline generation, float32 (phase 4's weights), card vs
+    # CPU; the paged generates' K2 launches join the kernels line
+    ties, k2, lines = gen_parity(torch, model32, card)
+    for tag, v in k2.items():
+        main_counts[f"paged_decode_{tag}"] = \
+            main_counts.get(f"paged_decode_{tag}", 0) + v
+    say(f"phase 4g f32 GPT-2 small, {G_PROMPT}-token prompts x {G_NEW} "
+        f"new: dense greedy card == CPU and the graph == the eager program "
+        f"bitwise; a left-padded batch (lengths 16/9/12/3) == CPU and == "
+        f"each prompt alone; the paged generate (dense, int8) == the dense "
+        f"one and == CPU, K2 {k2}; W8A16, int8 KV, both through the dense "
+        f"program card == CPU; near ties (phase 4's limits x 2 at the "
+        f"first difference): {ties or 'none'}")
+    for line in lines:
+        say(f"phase 4g {line}")
     del model32, params32
     torch.cuda.empty_cache()
 
@@ -4241,7 +4641,7 @@ def main():
                            (int(rng.randint(64, 769)),)).astype(np.int32)
                for _ in range(16)]
     main_counts["ragged_stream_dense"] = 0
-    main_counts["paged_decode_dense"] = 0
+    main_counts.setdefault("paged_decode_dense", 0)  # 4g's paged generates
     served = {}
     for k in (1, 8):
         st, counts, peak, outs, extra = serve(torch, model, prompts, k,
@@ -4422,6 +4822,42 @@ def main():
     for n, v in launches.items():
         main_counts[n] += v
     say(f"phase 5v: {time.perf_counter() - t0:.1f} s")
+
+    # phase 6g: offline generation in bf16 (phase 4f's weights). (a)
+    # bench.py's decode axis through the dense graph and the paged
+    # generate (its K2 launches join the kernels line); (b) the padded
+    # batcher over an exported artifact beside phase 5's paged k = 1
+    t0 = time.perf_counter()
+    rows6, k2 = gen_decode_axis(torch, model)
+    for tag, v in k2.items():
+        main_counts[f"paged_decode_{tag}"] += v
+    for (mode, path), r in rows6.items():
+        idle = "idle share not measured (no device time traced)" \
+            if r["idle"] is None else (
+                f"device busy {r['busy_ms']:.1f} of {r['wall_ms']:.1f} ms, "
+                f"idle share {r['idle']:.3f}")
+        step = "not measured (T192 <= T64: timer noise)" \
+            if r["step_ms"] is None else (
+                f"{r['step_ms']:.4f} tokens_per_sec {r['tok_s']:.1f}")
+        say(f"phase 6g (a) decode axis B{D_BATCH} prompt {D_PROMPT} "
+            f"{mode} {path}: ms_per_token_step {step} "
+            f"(T{D_NEW} {r['full_ms']:.2f} ms, T{D_SHORT} "
+            f"{r['short_ms']:.2f} ms) "
+            f"max_memory_allocated {r['peak'] / 2**20:.0f} MiB; profiled "
+            f"{D_SHORT}-token call: {idle}, {r['per_step']:.1f} device "
+            f"kernels and copies a token step [{card}]")
+    st, _outs, caps = gen_padded_batcher(torch, model, prompts)
+    g = greedy_k1
+    say(f"phase 6g (b) padded batcher (GenerationServer over an exported "
+        f"bf16 artifact, B 8, prompt_len 768, 32 new; {caps} graph "
+        f"captures): tokens_per_sec {st['tokens_per_sec']:.1f} latency "
+        f"p50/p99 {st['p50_ms']:.1f}/{st['p99_ms']:.1f} ms batch_fill "
+        f"{st['batch_fill']:.3f} batches {st['batches']} requests "
+        f"{st['requests']}; phase 5's paged k=1 in this call: "
+        f"tokens_per_sec {g['tokens_per_sec']:.1f} latency p50/p99 "
+        f"{g['p50_ms']:.1f}/{g['p99_ms']:.1f} ms; padded / "
+        f"paged {st['tokens_per_sec'] / g['tokens_per_sec']:.3f}x; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
 
     del model
     torch.cuda.empty_cache()

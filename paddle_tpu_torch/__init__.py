@@ -14,7 +14,13 @@ and penalties on the reference's PRNG streams) and the server core
 (`inference.serving`). Slice 2 is GPT-2 training: the functional
 loss (`models.gpt2.build_train_step`), flash attention with its
 autograd rule and kernels (`ops.flash_attention`), the loss
-(`ops.loss`) and AdamW (`optimizer`).
+(`ops.loss`) and AdamW (`optimizer`). Slices 3-15 add BERT/ERNIE,
+long-context training, the Hopper kernels, sampling, the prefix cache,
+decode graphs, W8A16, speculation and the seq2seq Transformer. Slice 16
+is offline generation: `GPT2.generate` (the dense fixed-cache program of
+`models.gpt2_decode`, one CUDA graph per program on the card, and the
+paged engine), `models.gpt2.export_generator` and `jit.load` (the
+port's own artifact), and the dense `inference.GenerationServer`.
 
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes

@@ -1,4 +1,6 @@
-"""PagedGenerationServer — continuous batching over the paged KV cache.
+"""PagedGenerationServer — continuous batching over the paged KV cache —
+and GenerationServer, the dynamic batcher over one fixed-shape decode
+program (the dense path; at the end of this docstring).
 
 The core of `paddle_tpu.inference.serving.PagedGenerationServer`, on
 PyTorch: the split scheduler round with its default settings.
@@ -108,6 +110,26 @@ warm resume, tier prefetch), the recovery ladder and journal, fault
 seams, tracing, SLOs and attribution, the bucket pre-warm
 (`warm_buckets`), goodput accounting, the operations plane and
 sharding.
+
+GenerationServer (the reference's, `paddle_tpu/inference/serving.py:
+289-639`) batches requests for one compiled decode program: a
+`jit.load` of an `export_generator` artifact (`TranslatedLayer`), or
+any callable `(ids [B, P] int32, seed, temperature, eos, top_p, pad)
+-> [B, T]`. It waits for the first request, gathers more until the
+program's batch B is full or `max_wait_ms` passes, takes only requests
+sharing the head request's program signature (temperature, top_p,
+seed, eos; per-slot `SamplingParams` fields are rejected at submit),
+LEFT-pads each prompt to P, pads a partial batch by repeating row 0,
+runs the program once and fans the rows out. Pad masking is by value
+in the program, so it is engaged only for a batch holding a padded row,
+and a full-length prompt containing the pad id is warned about (raised
+under `strict_pad_check=True`). A batch without an explicit seed draws
+seed + the batch count, so sampled batches never repeat their noise.
+`stats()` carries the paged server's `stop_reasons` and `quantization`
+blocks. The server computes nothing itself: the program runs on its own
+device. Left out (ROADMAP §A 7): `attribution=` (raises naming it) and
+`cost_report`, the tracing events and the metrics. `measure_offered_load`
+drives a server at a fixed request rate.
 """
 from __future__ import annotations
 
@@ -1283,4 +1305,309 @@ class PagedGenerationServer:
         req.future.set_result(out)
 
 
-__all__ = ["PagedGenerationServer", "STOP_REASONS"]
+class GenerationServer:
+    """Dynamic-batching server over one fixed-shape decode program (module
+    docstring).
+
+    program: a `jit.load(prefix)` generator, or any callable (ids [B, P]
+        int32, seed, temperature, eos, top_p, pad) -> [B, T].
+    batch_size / prompt_len: the program's B and P, read from its
+        `_meta` when not given (a batch-polymorphic artifact serves B 8).
+    pad_token_id: the LEFT-padding id of shorter prompts.
+    max_wait_ms: how long a batch waits to fill after its first request.
+    temperature, seed, eos_token_id (-1 none), top_p: the program
+        arguments of requests submitted without SamplingParams.
+    strict_pad_check: raise, not warn, at a full-length prompt holding
+        the pad id.
+    """
+
+    def __init__(self, program, batch_size=None, prompt_len=None,
+                 pad_token_id=0, max_wait_ms=5.0, temperature=0.0,
+                 seed=0, eos_token_id=-1, top_p=1.0,
+                 strict_pad_check=False, attribution=False):
+        if attribution:
+            raise ValueError(
+                "GenerationServer(attribution=True) is not ported "
+                "(ROADMAP §A 7: attribution, tracing and metrics)")
+        self._program = program
+        meta = getattr(program, "_meta", {}) or {}
+        prompt_len = prompt_len or meta.get("prompt_len")
+        batch_size = batch_size or meta.get("batch_size")
+        if not batch_size and prompt_len and meta.get("batch_size", 0) \
+                is None:
+            batch_size = 8  # a batch-polymorphic artifact: the default
+        if not batch_size or not prompt_len:
+            raise ValueError(
+                "batch_size/prompt_len not given and not recorded in the "
+                "artifact meta (re-export with models.gpt2."
+                "export_generator, or pass them explicitly)")
+        self.batch_size = int(batch_size)
+        self.prompt_len = int(prompt_len)
+        # the paged server's schema; the dense program's quantization is
+        # baked into its artifact (its scales live in the params)
+        wq, kq = meta.get("weight_quant"), meta.get("kv_quant")
+        self._quant_stats = {
+            "enabled": bool(wq or kq),
+            "mode": "w8a16" if wq == "int8" else "none",
+            "kv_dtype": kq or "native",
+            "kv_scale_bytes": 0,
+            "kv_pool_bytes_total": 0,
+        }
+        self.pad_token_id = int(pad_token_id)
+        self.strict_pad_check = bool(strict_pad_check)
+        self.max_wait_ms = float(max_wait_ms)
+        self._defaults = (int(seed) & 0xFFFFFFFF, float(temperature),
+                          int(eos_token_id), float(top_p),
+                          int(pad_token_id))
+        self._lock = threading.Condition()
+        self._queue: list = []
+        self._stop = False
+        self._thread = None
+        self._lat = []
+        self._tokens_out = 0
+        self._batches = 0
+        self._batches_at_reset = 0
+        self._rows = 0
+        self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
+        self._t0 = None
+
+    def _req_sig(self, sampling):
+        """The program signature a batch shares: (temperature, top_p,
+        seed or None for the rolling batch seed, eos, eos from the stop
+        ids). Fields the program cannot take per row raise here."""
+        _seed0, temp0, eos0, top_p0, _ = self._defaults
+        if sampling is None:
+            return (temp0, top_p0, None, eos0, False)
+        s = sampling
+        for field_name, bad in (
+                ("top_k", s.top_k != 0),
+                ("min_p", s.min_p != 0.0),
+                ("repetition_penalty", s.repetition_penalty != 1.0),
+                ("presence_penalty", s.presence_penalty != 0.0),
+                ("frequency_penalty", s.frequency_penalty != 0.0),
+                ("stop_strings", bool(s.stop_strings)),
+                ("max_new_tokens", s.max_new_tokens is not None)):
+            if bad:
+                raise ValueError(
+                    f"GenerationServer (dense) does not support "
+                    f"SamplingParams.{field_name}="
+                    f"{getattr(s, field_name)!r}; use "
+                    f"PagedGenerationServer")
+        if len(s.stop_token_ids) > 1:
+            raise ValueError(
+                "GenerationServer (dense) supports at most one stop "
+                f"token id (the program's eos), got "
+                f"{s.stop_token_ids!r}; use PagedGenerationServer")
+        eos = int(s.stop_token_ids[0]) if s.stop_token_ids else eos0
+        return (s.temperature, s.top_p, s.seed, eos,
+                bool(s.stop_token_ids))
+
+    # ---- client API ----------------------------------------------------
+    def submit(self, ids, sampling=None):
+        """Enqueue one prompt (length 1..prompt_len). Returns a Future of
+        its [prompt_len + new] int32 row (LEFT-padded prompt first)."""
+        if sampling is not None and not isinstance(sampling,
+                                                   SamplingParams):
+            raise TypeError(f"sampling must be a SamplingParams, "
+                            f"got {type(sampling).__name__}")
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        if ids.size == 0 or ids.size > self.prompt_len:
+            raise ValueError(
+                f"prompt length {ids.size} not in [1, {self.prompt_len}]")
+        if ids.size == self.prompt_len and (ids == self.pad_token_id).any():
+            # value-equality padding: batched with a padded row, this
+            # prompt's pad-valued positions would be masked too
+            at = np.flatnonzero(ids == self.pad_token_id).tolist()
+            msg = (f"full-length prompt contains pad_token_id="
+                   f"{self.pad_token_id} at positions {at}: batched "
+                   f"with padded rows those positions would be masked "
+                   f"(value-equality padding); use "
+                   f"PagedGenerationServer (length masking) or a pad "
+                   f"id outside the prompt alphabet")
+            if self.strict_pad_check:
+                raise ValueError(msg)
+            _logger.warning("GenerationServer.submit: %s", msg)
+        sig = self._req_sig(sampling)
+        row = np.full((self.prompt_len,), self.pad_token_id, np.int32)
+        row[self.prompt_len - ids.size:] = ids  # LEFT padding
+        req = _DenseReq(ids=row, future=Future(),
+                        t_submit=time.perf_counter(),
+                        padded=ids.size < self.prompt_len, sig=sig)
+        with self._lock:
+            if self._stop:
+                raise RuntimeError("server stopped")
+            self._queue.append(req)
+            self._lock.notify()
+        return req.future
+
+    def start(self):
+        if self._thread is not None:
+            return self
+        if self._stop:
+            raise RuntimeError(
+                "server was stopped; build a new GenerationServer")
+        self._t0 = time.perf_counter()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+        return self
+
+    def stop(self):
+        with self._lock:
+            self._stop = True
+            self._lock.notify_all()
+        if self._thread is not None:
+            self._thread.join(timeout=60)
+            self._thread = None
+        with self._lock:
+            for req in self._queue:  # fail, don't strand, late arrivals
+                req.future.set_exception(RuntimeError("server stopped"))
+            self._queue.clear()
+
+    def reset_stats(self):
+        """Zero the window's counters; the batch count keeps advancing so
+        rolling seeds never repeat."""
+        with self._lock:
+            self._lat.clear()
+            self._tokens_out = 0
+            self._rows = 0
+            self._batches_at_reset = self._batches
+            self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
+            self._t0 = time.perf_counter()
+
+    def stats(self):
+        """Throughput and latency since start() or reset_stats()."""
+        with self._lock:
+            lat = sorted(self._lat)
+            dt = (time.perf_counter() - self._t0) if self._t0 else 0.0
+            n = len(lat)
+            nb = self._batches - self._batches_at_reset
+
+            def pct(p):
+                return lat[min(n - 1, int(p * n))] if n else 0.0
+
+            return {
+                "requests": n,
+                "batches": nb,
+                "batch_fill": self._rows / ((nb or 1) * self.batch_size),
+                "new_tokens": self._tokens_out,
+                "tokens_per_sec": self._tokens_out / dt if dt else 0.0,
+                "p50_ms": pct(0.50) * 1e3,
+                "p90_ms": pct(0.90) * 1e3,
+                "p99_ms": pct(0.99) * 1e3,
+                "stop_reasons": dict(self._stop_reasons),
+                "quantization": dict(self._quant_stats),
+                "wall_s": dt,
+            }
+
+    # ---- batcher loop --------------------------------------------------
+    def _take_batch(self):
+        """Block for the first request, then gather until the batch is
+        full or the max_wait deadline; only requests with the head
+        request's signature join (the rest keep their order). [] on
+        stop."""
+        with self._lock:
+            while not self._queue and not self._stop:
+                self._lock.wait(timeout=0.1)
+            if self._stop and not self._queue:
+                return []
+            deadline = time.perf_counter() + self.max_wait_ms * 1e-3
+            while len(self._queue) < self.batch_size and not self._stop:
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                self._lock.wait(timeout=remaining)
+            sig = self._queue[0].sig
+            batch = []
+            for r in self._queue:
+                if len(batch) == self.batch_size:
+                    break
+                if r.sig == sig:
+                    batch.append(r)
+            for r in batch:
+                self._queue.remove(r)
+            return batch
+
+    def _loop(self):
+        while True:
+            batch = self._take_batch()
+            if not batch:
+                return
+            rows = [r.ids for r in batch]
+            while len(rows) < self.batch_size:  # pad: the same cost
+                rows.append(rows[0])
+            ids = np.stack(rows)
+            temp, top_p, seed, eos, from_stop = batch[0].sig
+            # pad masking is by value in the program: engage it only
+            # when a row is padded
+            pad = self._defaults[-1] if any(r.padded for r in batch) \
+                else -1
+            if seed is None:
+                # a fixed seed would draw the same noise every batch
+                seed = (self._defaults[0] + self._batches) & 0xFFFFFFFF
+            try:
+                out = self._program(ids, int(seed) & 0xFFFFFFFF,
+                                    float(temp), int(eos), float(top_p),
+                                    int(pad))
+                out = np.asarray(out.cpu() if isinstance(out, torch.Tensor)
+                                 else out)
+            except Exception as e:  # noqa: BLE001 — fan the error out
+                for r in batch:
+                    r.future.set_exception(e)
+                continue
+            t_done = time.perf_counter()
+            new_tokens = out.shape[1] - self.prompt_len
+            # the program keeps emitting eos after a hit, so an eos among
+            # the generated tokens is exact
+            reasons = []
+            for i in range(len(batch)):
+                gen = out[i, self.prompt_len:]
+                if eos >= 0 and (gen == eos).any():
+                    reasons.append("stop_token" if from_stop else "eos")
+                else:
+                    reasons.append("budget")
+            with self._lock:
+                self._batches += 1
+                self._rows += len(batch)
+                self._tokens_out += new_tokens * len(batch)
+                for i, r in enumerate(batch):
+                    self._lat.append(t_done - r.t_submit)
+                    self._stop_reasons[reasons[i]] += 1
+            for i, r in enumerate(batch):
+                r.future.set_result(out[i])
+
+
+@dataclass
+class _DenseReq:
+    ids: np.ndarray
+    future: Future
+    t_submit: float
+    padded: bool
+    sig: tuple
+
+
+def measure_offered_load(server, prompts, offered_rps, duration_s):
+    """Drive `server` at `offered_rps` requests a second for `duration_s`
+    (prompts cycled), wait for every result; returns the server's stats
+    plus the offered and achieved rates (the offer window ends at the
+    last submit)."""
+    futs = []
+    t0 = time.perf_counter()
+    i = 0
+    while time.perf_counter() - t0 < duration_s:
+        target = t0 + i / offered_rps
+        now = time.perf_counter()
+        if now < target:
+            time.sleep(target - now)
+        futs.append(server.submit(prompts[i % len(prompts)]))
+        i += 1
+    t_submit_end = time.perf_counter()
+    for f in futs:
+        f.result(timeout=600)
+    out = server.stats()
+    out["offered_rps"] = offered_rps
+    out["achieved_rps"] = i / (t_submit_end - t0)
+    return out
+
+
+__all__ = ["PagedGenerationServer", "GenerationServer",
+           "measure_offered_load", "STOP_REASONS"]

@@ -14,6 +14,13 @@ reference does (int8 codes `name::w8c`, scales `name::w8s`), and
 `quantized_params_from_reference` carries the reference's packed dict
 across.
 
+Offline generation is `GPT2.generate`, the reference's: the dense
+fixed-cache program (`models/gpt2_decode.py`; one CUDA graph replay on
+the card) or the paged engine (`kv_cache="paged"`, `nn/decode.py`'s
+`prefill` and `step`, K2 on the card). `export_generator` writes that
+dense program as the port's deployment artifact, which `jit.load` runs
+with no model class.
+
 The training path is a set of pure functions of that dict, as the
 reference's `build_train_step` re-binds its params per call:
 `hidden_states` (pre-LN blocks, fused QKV split as [3, B, H, S, D],
@@ -198,6 +205,240 @@ class GPT2(nn.Module):
             params = self.flat_params()
         return quantize_decode_weights_int8(params, self.cfg)
 
+    def _decode_params(self, weight_quant):
+        """The flat params a generate call decodes with. W8A16 packs them
+        anew on every call, as the reference, and copies the codes and
+        scales into buffers kept from the previous call (same names,
+        shapes, dtypes and device): the dense program's graph is keyed
+        by the params' addresses, so a repeated call replays it."""
+        params = self.flat_params()
+        if weight_quant is None:
+            return params
+        if weight_quant != "int8":
+            raise ValueError(f"unknown weight_quant {weight_quant!r} "
+                             "(supported: 'int8')")
+        packed = quantize_decode_weights_int8(params, self.cfg)
+        fresh = {k: v for k, v in packed.items() if "::w8" in k}
+        held = getattr(self, "_w8_buffers", None)
+        if held is None or any(
+                k not in held or held[k].shape != v.shape
+                or held[k].dtype != v.dtype or held[k].device != v.device
+                for k, v in fresh.items()):
+            self._w8_buffers = fresh
+        else:
+            for k, v in fresh.items():
+                held[k].copy_(v)
+        return {**{k: v for k, v in packed.items() if "::w8" not in k},
+                **self._w8_buffers}
+
+    @torch.no_grad()
+    def generate(self, input_ids, max_new_tokens, temperature=0.0,
+                 eos_token_id=None, seed=0, top_k=0, top_p=1.0,
+                 pad_token_id=None, weight_quant=None, kv_quant=None,
+                 kv_cache="dense", prompt_lens=None, block_size=16,
+                 sampling=None):
+        """Autoregressive decoding with a KV cache, as the reference's
+        `GPT2.generate` (`paddle_tpu/models/gpt2.py:176-309`), on the
+        model's device. Returns [B, S0 + max_new_tokens] int32 tokens
+        there (the prompt when max_new_tokens is 0).
+
+        kv_cache="dense": the fixed-cache program of
+        `models/gpt2_decode.py` (one CUDA graph replay on the card).
+        Batched prompts of different lengths are LEFT-padded with
+        pad_token_id; temperature 0 is greedy, > 0 samples (top_k,
+        top_p) from one PRNG stream `seed`.
+
+        kv_cache="paged": the paged engine (`nn.decode.PagedDecoder`)
+        over a `PagedKVCache` of block_size: RIGHT-padded prompts with
+        per-row `prompt_lens`, the full per-slot sampling pipeline
+        (`sampling`, or temperature/top_k/top_p/seed, applied to every
+        row; row r draws stream seed + r), kv_quant="int8" an int8 pool.
+        Each step is one graph replay of `PagedDecoder.graphs` (k = 1) on
+        the card.
+
+        weight_quant="int8": W8A16 weights (`quantize_weights`), either
+        path. sampling: a `SamplingParams` for every row; on the dense
+        path only its program-level subset (temperature, top_p, top_k,
+        seed, one stop id)."""
+        from ..sampling import SamplingParams
+
+        if sampling is not None and not isinstance(sampling,
+                                                   SamplingParams):
+            raise TypeError(f"sampling must be a SamplingParams, "
+                            f"got {type(sampling).__name__}")
+        if sampling is not None and sampling.stop_strings:
+            raise ValueError("stop_strings need a detokenizer — serve "
+                             "via PagedGenerationServer(detokenize=...)")
+        if sampling is not None and sampling.max_new_tokens is not None:
+            max_new_tokens = sampling.max_new_tokens
+        dev = self.wte.weight.device
+        ids = np.asarray(input_ids.cpu() if isinstance(input_ids,
+                                                       torch.Tensor)
+                         else input_ids)
+        max_new_tokens = int(max_new_tokens)
+        if max_new_tokens < 0:
+            raise ValueError("max_new_tokens must be >= 0")
+        if max_new_tokens == 0:
+            return torch.from_numpy(ids.astype(np.int32)).to(dev)
+        if kv_cache not in ("dense", "paged"):
+            raise ValueError(f"unknown kv_cache {kv_cache!r} "
+                             "(supported: 'dense', 'paged')")
+        if kv_cache == "paged":
+            if kv_quant not in (None, "int8"):
+                raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                                 "(supported: 'int8')")
+            if sampling is None:
+                sampling = SamplingParams(
+                    temperature=float(temperature), top_k=int(top_k),
+                    top_p=float(top_p), seed=int(seed))
+            return self._generate_paged(
+                ids, max_new_tokens, eos_token_id, seed, pad_token_id,
+                prompt_lens, block_size, weight_quant, sampling, kv_quant)
+        if sampling is not None:
+            # the dense program's subset: per-slot fields are the paged
+            # path's (the dense decode is one program)
+            for f in ("min_p", "repetition_penalty", "presence_penalty",
+                      "frequency_penalty"):
+                default = 1.0 if f == "repetition_penalty" else 0.0
+                if getattr(sampling, f) != default:
+                    raise ValueError(
+                        f"kv_cache='dense' does not support "
+                        f"SamplingParams.{f}={getattr(sampling, f)!r}; "
+                        f"use kv_cache='paged'")
+            if len(sampling.stop_token_ids) > 1:
+                raise ValueError(
+                    "kv_cache='dense' supports at most one stop token "
+                    f"id (the eos), got {sampling.stop_token_ids!r}")
+            temperature = sampling.temperature
+            top_k = sampling.top_k
+            top_p = sampling.top_p
+            if sampling.seed is not None:
+                seed = sampling.seed
+            if sampling.stop_token_ids:
+                eos_token_id = sampling.stop_token_ids[0]
+        if prompt_lens is not None:
+            raise ValueError("prompt_lens is only meaningful with "
+                             "kv_cache='paged' (the dense path derives "
+                             "lengths from LEFT padding)")
+        if ids.shape[1] + max_new_tokens > self.cfg.max_position:
+            raise ValueError(
+                f"prompt ({ids.shape[1]}) + max_new_tokens "
+                f"({max_new_tokens}) exceeds max_position "
+                f"({self.cfg.max_position})")
+        if pad_token_id is not None:
+            # batched prompts of different lengths must be LEFT-padded:
+            # the decode reads each prompt's last token at position -1
+            valid = ids != pad_token_id
+            if not valid.any(axis=1).all():
+                raise ValueError("a prompt row is entirely padding")
+            if (np.diff(valid.astype(np.int8), axis=1) < 0).any():
+                raise ValueError(
+                    "prompts must be LEFT-padded (pad tokens only at the "
+                    "start of each row)")
+        params = self._decode_params(weight_quant)
+        if kv_quant not in (None, "int8"):
+            raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                             "(supported: 'int8')")
+        from .gpt2_decode import decode_program
+
+        prog = decode_program(self.cfg, max_new_tokens, top_k,
+                              float(top_p) < 1.0, kv_quant == "int8")
+        return prog(params, ids, int(seed) & 0xFFFFFFFF, float(temperature),
+                    -1 if eos_token_id is None else int(eos_token_id),
+                    float(top_p),
+                    -1 if pad_token_id is None else int(pad_token_id))
+
+    def _generate_paged(self, ids, max_new, eos_token_id, seed,
+                        pad_token_id, prompt_lens, block_size,
+                        weight_quant, sampling, kv_quant=None):
+        """The paged path of `generate` (the reference's
+        `_generate_paged`): RIGHT-padded prompts with per-row lengths,
+        the whole horizon reserved per row, one padded prefill, then a
+        step loop over `PagedDecoder` with every row's sampling state in
+        a `SlotParamStore` (row r: stream seed + r). Rows that stopped
+        keep emitting the stop fill (eos, else the fill); each output
+        row is [prompt, generated, fill], the fill being pad_token_id,
+        else eos, else 0. The loop reads nothing back to the host until
+        the end."""
+        from ..inference.kv_cache import PagedKVCache, blocks_for
+        from ..nn.decode import PagedDecoder
+        from ..sampling import SlotParamStore
+        from ..sampling.buffers import host_to_device
+
+        ids = np.asarray(ids).astype(np.int32)
+        B, S0 = ids.shape
+        if prompt_lens is None:
+            lens = np.full((B,), S0, np.int32)
+        else:
+            lens = np.asarray(prompt_lens).astype(np.int32).reshape(-1)
+            if lens.shape[0] != B:
+                raise ValueError("prompt_lens must have one entry per row")
+            if (lens < 1).any() or (lens > S0).any():
+                raise ValueError(f"prompt_lens must be in [1, {S0}]")
+        if S0 > self.cfg.max_position or \
+                int(lens.max()) + max_new > self.cfg.max_position:
+            raise ValueError(
+                f"prompt ({int(lens.max())}) + max_new_tokens ({max_new}) "
+                f"exceeds max_position ({self.cfg.max_position})")
+        eos = -1 if eos_token_id is None else int(eos_token_id)
+        params = self._decode_params(weight_quant)
+        dev = params["ln_f.weight"].device
+        dt = params["ln_f.weight"].dtype
+        cfg = self.cfg
+        bs = int(block_size)
+        m_width = blocks_for(max(S0, int(lens.max()) + max_new), bs)
+        total_blocks = sum(blocks_for(int(n) + max_new, bs) for n in lens)
+        cache = PagedKVCache(cfg.num_layers, cfg.num_heads,
+                             cfg.hidden_size // cfg.num_heads,
+                             block_size=bs, num_blocks=total_blocks + 1,
+                             dtype=dt, kv_dtype=kv_quant, device=dev)
+        for b in range(B):  # offline batch: reserve the full horizon
+            cache.allocate(b, int(lens[b]) + max_new)
+        tables = host_to_device(cache.table_array(range(B), m_width), dev)
+        dec = PagedDecoder.for_config(cfg, bs, kv_dtype=kv_quant)
+        store = SlotParamStore(B, cfg.vocab_size, dev)
+        base_seed = sampling.seed if sampling.seed is not None \
+            else int(seed)
+        for b in range(B):
+            store.set_slot(b, sampling, base_seed + b, eos=eos,
+                           prompt_ids=ids[b, :int(lens[b])])
+        fill = pad_token_id if pad_token_id is not None \
+            else (eos if eos >= 0 else 0)
+        stop_fill = eos if eos >= 0 else fill
+        lens_t = host_to_device(lens, dev)
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+        sp, mode = store.step_args(np.zeros((B,), np.int32))
+        tok, done, kc, vc, counts = dec.prefill(
+            params, host_to_device(ids, dev), lens_t, tables,
+            cache.k_blocks, cache.v_blocks, sp, mode)
+        store.swap_counts(counts)
+        out_toks = [tok]
+        pos = lens_t
+        for step in range(1, max_new):
+            sp, mode = store.step_args(np.full((B,), step, np.int32))
+            args = (params, out_toks[-1], pos, active, tables, kc, vc, sp)
+            if dev.type == "cuda":  # one graph replay a step
+                nxt, stopped, kc, vc, counts = dec.graphs(1, mode, *args)
+                nxt, stopped = nxt[0], stopped[0]
+            else:
+                nxt, stopped, kc, vc, counts = dec.step(*args, mode)
+            # a graph's outputs belong to its next replay: these are new
+            store.swap_counts(counts)
+            # the dense path's semantics: rows that hit eos (or a stop
+            # token) keep emitting the stop fill
+            nxt = torch.where(done, stop_fill, nxt)
+            done = done | stopped
+            out_toks.append(nxt)
+            pos = pos + 1
+        gen = torch.stack(out_toks, dim=1).cpu().numpy()  # [B, max_new]
+        dec.graphs.clear()  # the replays are read: free graph and pool now
+        out = np.full((B, S0 + max_new), fill, np.int32)
+        for b in range(B):
+            n = int(lens[b])
+            out[b, :n] = ids[b, :n]
+            out[b, n:n + max_new] = gen[b]
+        return torch.from_numpy(out).to(dev)
+
     def _dropout(self):
         return self.cfg.dropout if self.training else 0.0
 
@@ -332,6 +573,52 @@ def build_train_step(cfg, dtype=torch.float32, device=None):
     return loss_fn, init_params
 
 
+def export_generator(model, path_prefix, prompt_len, max_new_tokens,
+                     top_k=0, top_p_enabled=False, batch_size=None,
+                     weight_quant=None, kv_quant=None):
+    """Write the dense decode program as the port's deployment artifact
+    (`jit`'s module docstring has the format), the reference's
+    `export_generator` (`paddle_tpu/models/gpt2.py:705-786`):
+
+        served = paddle_tpu_torch.jit.load(path_prefix)
+        tokens = served(ids, seed, temperature, eos, top_p, pad)
+
+    ids [B, prompt_len] (any B when batch_size is None); the program's
+    static configuration (max_new_tokens, top_k, top_p_enabled,
+    kv_quant) and the model's config go into the meta, its params (W8A16
+    packed when weight_quant="int8") into the npz. Returns the .pdmodel
+    path."""
+    from .. import jit as jit_mod
+
+    cfg = model.cfg
+    if max_new_tokens < 1:
+        raise ValueError("max_new_tokens must be >= 1 for an exported "
+                         "generator (a 0-token artifact has no decode)")
+    if prompt_len + max_new_tokens > cfg.max_position:
+        raise ValueError("prompt_len + max_new_tokens exceeds max_position")
+    if kv_quant not in (None, "int8"):
+        raise ValueError(f"unknown kv_quant {kv_quant!r} "
+                         "(supported: 'int8')")
+    params = model.flat_params()
+    if weight_quant == "int8":
+        params = model.quantize_weights(params)
+    elif weight_quant is not None:
+        raise ValueError(f"unknown weight_quant {weight_quant!r} "
+                         "(supported: 'int8')")
+    meta = {"kind": "gpt2_generator", "format": jit_mod.FORMAT,
+            "weight_quant": weight_quant, "kv_quant": kv_quant,
+            "prompt_len": int(prompt_len),
+            "max_new_tokens": int(max_new_tokens), "top_k": int(top_k),
+            "top_p_enabled": bool(top_p_enabled),
+            # None = batch-polymorphic (serving layers pick their own B)
+            "batch_size": None if batch_size is None else int(batch_size),
+            "inputs": ["ids[int32]", "seed[uint32]",
+                       "temperature[f32]", "eos[int32]", "top_p[f32]",
+                       "pad[int32] (-1 disables left-pad masking)"],
+            "config": {k: getattr(cfg, k) for k in jit_mod.CONFIG_FIELDS}}
+    return jit_mod.write_artifact(path_prefix, params, meta)
+
+
 def _w8_weights(cfg):
     """(name, reduction axis) of each weight W8A16 quantizes: wte per
     ROW (its scale serves the embedding gather and the tied head);
@@ -447,7 +734,8 @@ def from_reference_params(cfg, params_np, *, device=None):
     return model
 
 
-__all__ = ["GPT2Config", "GPT2", "from_reference_params", "param_shapes",
+__all__ = ["GPT2Config", "GPT2", "export_generator",
+           "from_reference_params", "param_shapes",
            "quantize_decode_weights_int8", "quantized_param_shapes",
            "quantized_params_from_reference",
            "build_train_step", "hidden_states", "logits", "lm_loss"]

@@ -3,6 +3,12 @@ block-pool KV cache (`inference/kv_cache.py`).
 
 The port of `paddle_tpu.nn.decode`'s serving programs:
 
+  * `prefill` — the padded prefill of the offline paged generate
+    (`GPT2.generate(kv_cache="paged")`): right-padded ids [B, S0] with
+    lengths [B], causal attention masked by length as dense products
+    (the reference computes it in XLA, outside any Pallas kernel),
+    writes past a row's length routed to the trash block, the readout
+    at each row's last prompt token;
   * `step` — one token per sequence against the paged cache via
     `ops.paged_decode_attention` (kernel K2 on the card), writing the
     incoming token's K/V at its cache position;
@@ -64,7 +70,7 @@ W8A16 one through `_LayerHelpers.matw`, as the reference's `matw`:
 on its output columns. The product stays a `torch.matmul`: the
 reference computes it in XLA, outside any Pallas kernel.
 
-Left out: the non-packed `prefill` program and every sharding argument.
+Left out: every sharding argument.
 """
 from __future__ import annotations
 
@@ -185,7 +191,7 @@ def _readout(hp, params, xf, sp, mode):
 
 
 class PagedDecoder:
-    """The (step, packed_prefill, multistep, packed_verify,
+    """The (prefill, step, packed_prefill, multistep, packed_verify,
     unified_round) family over the paged KV
     cache for one GPT-2-layout spec. Stateless apart from its spec:
     every call takes the params, the inputs and the cache tensors.
@@ -235,6 +241,49 @@ class PagedDecoder:
         if self.return_logits:
             return tok, stopped, kc, vc, counts, logits
         return tok, stopped, kc, vc, counts
+
+    def prefill(self, params, ids, lens, tables, kc, vc, sp,
+                mode=GREEDY_MODE):
+        """ids [B, S0] right-padded prompts; lens [B] their lengths;
+        tables [B, M]. Position t of row b is written to its block when
+        t < lens[b], else to the trash block. Returns (tok0 [B], stopped
+        [B], kc, vc, counts or None[, logits0 [B, V] f32])."""
+        self._check_kv(kc, vc)
+        with torch.no_grad():
+            hp, BS = self._hp, self.block_size
+            B, S0 = ids.shape
+            M = tables.shape[1]
+            dev = ids.device
+            t = torch.arange(S0, device=dev)
+            valid = t[None, :] < lens[:, None]                 # [B, S0]
+            x = hp.embed(params, ids) + params["wpe.weight"][t]
+            col = (t // BS).clamp(max=M - 1)
+            blk = torch.where(valid, tables[:, col].long(), 0)  # [B, S0]
+            off = (t % BS)[None, :].expand(B, S0)
+            causal = torch.ones((S0, S0), dtype=torch.bool,
+                                device=dev).tril()
+            kmask = causal[None, None] & valid[:, None, None, :]
+            for i in range(hp.L):
+                a = hp.ln(x, params[f"h.{i}.ln_1.weight"],
+                          params[f"h.{i}.ln_1.bias"])
+                q, k, v = hp.qkv_split(params, i, a)       # [B, S0, H, Dh]
+                kc = self._kv_write(kc, i, blk, off, k)
+                vc = self._kv_write(vc, i, blk, off, v)
+                qh, kh, vh = (u.transpose(1, 2) for u in (q, k, v))
+                s = (qh @ kh.transpose(-1, -2)).float() * self._scale
+                s = torch.where(kmask, s, -1e30)
+                w = torch.softmax(s, dim=-1).to(x.dtype)
+                o = (w @ vh).transpose(1, 2).reshape(B, S0, hp.E)
+                x = hp.block_and_mlp(params, i, x, o)
+            rows = torch.arange(B, device=dev)
+            xf = x[rows, lens.long() - 1]                  # true last token
+            tok, logits = _readout(hp, params, xf, sp, mode)
+            ones = torch.ones((B,), dtype=torch.bool, device=dev)
+            stopped = _proc.check_stops(tok, sp["stop"], ones)
+            counts = None
+            if mode[1]:
+                counts = _proc.update_counts(sp["counts"], rows, tok, ones)
+        return self._out(tok, stopped, kc, vc, counts, logits)
 
     @torch.no_grad()
     def _step(self, params, tok, pos, active, tables, kc, vc, sp, mode):
@@ -561,10 +610,13 @@ class PagedDecoder:
     @classmethod
     def for_config(cls, cfg, block_size, **kw):
         """Build from a GPT2Config-like object."""
-        spec = (cfg.num_layers, cfg.num_heads,
-                cfg.hidden_size // cfg.num_heads, cfg.hidden_size,
-                cfg.layer_norm_epsilon, cfg.tie_embeddings)
-        return cls(spec, block_size, **kw)
+        return cls(config_spec(cfg), block_size, **kw)
 
 
-__all__ = ["PagedDecoder"]
+def config_spec(cfg):
+    """The spec (L, H, Dh, E, eps, tied) of a GPT2Config-like object."""
+    return (cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
+            cfg.hidden_size, cfg.layer_norm_epsilon, cfg.tie_embeddings)
+
+
+__all__ = ["PagedDecoder", "config_spec"]

@@ -40,18 +40,27 @@ where the eager function launches every kernel from the host:
     dispatch's own inputs (it writes the same K/V rows the replay then
     writes again, bit for bit), then `torch.cuda.graph` captures with
     thread-local capture, so CUDA calls of other threads do not break
-    it. Nothing inside reads the device back to the host.
+    it, and with Python's garbage collector paused, so a dead graph is
+    never freed inside another's capture. Nothing inside reads the
+    device back to the host.
   * Launch counts: a replay runs no Python, so no kernel wrapper counts
     it. What the wrappers counted while the graph was captured (when
     nothing launched) is taken back after the capture and added on every
     replay (`kernels.add_launches`), so the counts read as the eager
     loop's.
 
+`ProgramGraphs` applies the same rules to a fixed-shape program that
+is not the paged decoder's: the dense decode program of
+`GPT2.generate(kv_cache="dense")` and of the exported generator
+(`models/gpt2_decode.py`, the reference's prefill and `lax.scan` of
+`_build_decode_fn`), captured whole as one graph per key.
+
 There is no fallback: a capture or replay that fails raises, and the
 caller fails the dispatch. Graphs run on the card only.
 """
 from __future__ import annotations
 
+import gc
 from collections import OrderedDict
 
 import torch
@@ -122,6 +131,13 @@ class DecodeGraphs:
     def __len__(self):
         return len(self._graphs)
 
+    def clear(self):
+        """Drop every captured graph (with the params and pools it held)
+        now, not when a garbage collection finds the decoder: a caller
+        whose pools die with it (the offline paged generate) calls this
+        once its last replay has been read."""
+        self._graphs.clear()
+
     def __call__(self, k, mode, params, tok, pos, active, tables, kc, vc,
                  sp):
         """`multistep(k, mode)` as one replay: (toks [k, B], stopped
@@ -189,8 +205,6 @@ class DecodeGraphs:
         return outputs
 
     def _capture(self, params, inputs, kc, vc, sp, fn, kv_at):
-        dev = inputs[0].device
-        kernels.library()  # the build and load stay outside the capture
         static_in = tuple(t.clone() for t in inputs)
         static_sp = {name: t.clone() for name, t in sp.items()}
 
@@ -198,24 +212,95 @@ class DecodeGraphs:
             out = fn(params, *static_in, kc, vc, static_sp)
             return tuple(out[:kv_at]) + tuple(out[kv_at + 2:])
 
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            run()  # warm-up: cuBLAS handles and workspaces, lazy inits
-        torch.cuda.current_stream(dev).wait_stream(side)
-        before = kernels.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                outputs = run()
-        finally:  # a capture launches nothing: take its counts back
-            after = kernels.launch_counts()
-            launched = {n: after[n] - before[n] for n in after
-                        if after[n] != before[n]}
-            kernels.add_launches({n: -v for n, v in launched.items()})
+        graph, outputs, launched = capture(run, inputs[0].device)
         self.captures += 1
         held = (tuple(params.values()), kc, vc)
         return _Graph(graph, static_in, static_sp, outputs, launched, held)
 
 
-__all__ = ["DecodeGraphs", "graph_key", "MAX_GRAPHS"]
+def capture(run, dev, load_kernels=True):
+    """Capture `run()` (no arguments; it reads static tensors) as one CUDA
+    graph on `dev` by PyTorch's recipe: the kernel library is built and
+    loaded first (`load_kernels`; a program that launches none of the
+    port's kernels skips it), one eager warm-up runs on a side stream, then
+    `torch.cuda.graph` captures with thread-local capture. Returns
+    (graph, run's outputs as captured, the launches the kernel wrappers
+    counted during the capture, which is taken back from the counts)."""
+    if load_kernels:  # the build and load stay outside the capture
+        kernels.library()
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        run()  # warm-up: cuBLAS handles and workspaces, lazy inits
+    torch.cuda.current_stream(dev).wait_stream(side)
+    before = kernels.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    # no garbage collection during the capture: a dead reference cycle
+    # holding another graph (a decoder and its graph cache) freed there
+    # would release that graph's memory pool mid-capture and invalidate
+    # this capture; the cycle is collected after it
+    gc_was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            outputs = run()
+    finally:  # a capture launches nothing: take its counts back
+        if gc_was_on:
+            gc.enable()
+        after = kernels.launch_counts()
+        launched = {n: after[n] - before[n] for n in after
+                    if after[n] != before[n]}
+        kernels.add_launches({n: -v for n, v in launched.items()})
+    return graph, outputs, launched
+
+
+class ProgramGraphs:
+    """CUDA graphs of one fixed-shape program `fn(params, *inputs) ->
+    tuple of tensors` that launches none of the port's kernels (the
+    dense decode program of `models/gpt2_decode.py`), one per key: the
+    caller's key (what fixes the program: its static arguments) plus the
+    shape and dtype of every input, the device and the address of every
+    param, as `graph_key`.
+    The inputs are copied into the graph's static buffers before each
+    replay; the outputs are the graph's own tensors, overwritten by its
+    next replay (the caller copies them out first). At most
+    `MAX_GRAPHS` entries, least recently used first out. A capture or
+    replay that fails raises."""
+
+    def __init__(self):
+        self._graphs: OrderedDict = OrderedDict()
+        self.captures = 0
+        self.replays = 0
+
+    def __len__(self):
+        return len(self._graphs)
+
+    def __call__(self, key, fn, params, inputs):
+        if not inputs[0].is_cuda:
+            raise ValueError(f"program graphs run on the card: the inputs "
+                             f"are on {inputs[0].device}")
+        full = (key, str(inputs[0].device),
+                tuple((tuple(t.shape), t.dtype) for t in inputs),
+                tuple((n, t.data_ptr(), tuple(t.shape), t.dtype)
+                      for n, t in params.items()))
+        entry = self._graphs.get(full)
+        if entry is None:
+            static_in = tuple(t.clone() for t in inputs)
+            graph, outputs, launched = capture(
+                lambda: fn(params, *static_in), inputs[0].device,
+                load_kernels=False)
+            self.captures += 1
+            entry = _Graph(graph, static_in, {}, outputs, launched,
+                           tuple(params.values()))
+            self._graphs[full] = entry
+            while len(self._graphs) > MAX_GRAPHS:
+                self._graphs.popitem(last=False)
+        else:
+            self._graphs.move_to_end(full)
+        outputs = entry.replay(inputs, {})
+        self.replays += 1
+        return outputs
+
+
+__all__ = ["DecodeGraphs", "ProgramGraphs", "capture", "graph_key",
+           "MAX_GRAPHS"]

@@ -13,11 +13,14 @@ the Gumbel noise from them, vectorised over rows:
     injections after each group;
   * `PRNGKey(seed)` for a uint32 seed is the key (0, seed);
   * `fold_in(key, s)` is `threefry2x32(key, 0, s)`, the two output words
-    being the new key;
+    being the new key; `split(key)[i]` is `fold_in(key, i)` (what
+    `jax.random.split` gives under `jax_threefry_partitionable`);
   * the bits of shape (V,) hash the 64-bit counters i = 0..V-1, split
     into (i >> 32, i & 0xFFFFFFFF), and XOR the two output words;
   * `uniform` keeps the top 23 bits as the mantissa of a float in
     [1, 2), subtracts 1, and clamps below at float32's `tiny`;
+  * bits of a shape (B, V) from ONE key hash the flat counters b·V + v,
+    so they are the (B·V,) bits reshaped;
   * `gumbel` is `-log(-log(u))`, each log rounded to float32 as the
     reference rounds it, but computed by `_log`: float64 arithmetic of
     IEEE-exact operations only, so the noise has the same bits on every
@@ -32,6 +35,13 @@ that samples can be captured whole. The bits and uniforms equal JAX's
 bitwise on any device; XLA's float32 `log` may differ from a correctly
 rounded one by an ulp or two, so the Gumbel noise agrees with the
 reference's within a few ulp.
+
+`seed_key`, `split` and `categorical` serve the fixed-cache decode
+program (`models/gpt2_decode.py`), which, as the reference's
+(`paddle_tpu/models/gpt2.py:610-636, 687`), draws from `key(seed)`,
+splits it once a step and samples all of [B, V] from one key:
+`jax.random.categorical(key, l)` is `argmax(l + gumbel(key, l.shape))`
+in its default "low" mode.
 """
 from __future__ import annotations
 
@@ -118,5 +128,31 @@ def gumbel(keys, n):
     return -_log(-_log(uniform(keys, n)))
 
 
+def seed_key(seed, device=None):
+    """`jax.random.key(seed)` for a uint32 seed: the [2] int64 key words
+    (0, seed), on `device`."""
+    return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64,
+                        device=device)
+
+
+def split(key, num=2):
+    """[..., 2] keys -> [num, ..., 2]: `jax.random.split(key, num)`,
+    whose i-th key is `fold_in(key, i)` = threefry2x32(key, 0, i)."""
+    i = torch.arange(int(num), dtype=torch.int64, device=key.device)
+    i = i.reshape((-1,) + (1,) * (key.dim() - 1))
+    o0, o1 = threefry2x32(key[..., 0], key[..., 1], torch.zeros_like(i), i)
+    return torch.stack((o0, o1), dim=-1)  # one hash for all num keys
+
+
+def categorical(key, logits):
+    """One [2] key over [B, V] float32 logits -> [B] int32 draws:
+    `jax.random.categorical(key, logits, axis=-1)`, the argmax of the
+    logits plus one Gumbel draw of shape (B, V) from that key (the flat
+    counters b·V + v). -inf logits are never drawn."""
+    B, V = logits.shape
+    g = gumbel(key.reshape(1, 2), B * V).reshape(B, V)
+    return torch.argmax(g + logits, dim=-1).to(torch.int32)
+
+
 __all__ = ["threefry2x32", "fold_in_keys", "random_bits", "uniform",
-           "gumbel"]
+           "gumbel", "seed_key", "split", "categorical"]

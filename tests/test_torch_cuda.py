@@ -62,7 +62,13 @@ step) over 1 to 255 keys at D 32, 64 and 128 against its plain version,
 bitwise over two launches; the cached decoder on the card against the
 CPU (float32, head dim 32: step logits, greedy and beam tokens); and a
 bf16 cached decode that launches K4 two times a layer a step at Sq = 1
-and never calls the dense path.
+and never calls the dense path. Offline generation: the dense decode
+program's graph equals its eager run on the card bit for bit (bf16,
+W8A16, int8 KV, sampled; left-padded rows), temperatures 0.7, 1.3 and
+0.0 capture two graphs and a repeat none, the dense and the paged
+generate give the CPU's tokens in float32 (the paged one launching K2
+once a layer a step), and an exported generator loaded onto the card
+serves GenerationServer's rows as each prompt's generate.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -2012,3 +2018,133 @@ def test_seq2seq_bf16_cached_decode_launches_k4_never_the_dense_path(dev):
             assert out.dtype == torch.int32 and (out[:, 0] == 0).all()
     finally:
         attention.dense_attention, kernels.flash_fwd = real_dense, real_fwd
+
+
+# ---- offline generation: the dense program's graphs, the paged generate ----
+
+def _gen_models(dev, dtype=torch.float32):
+    """A 2-layer GPT-2 (vocab 1000) on the card and the same weights on
+    the CPU, float32 unless asked."""
+    from paddle_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = GPT2Config(vocab_size=1000, hidden_size=128, num_layers=2,
+                     num_heads=4, max_position=256)
+    cpu = GPT2(cfg, seed=5, dtype=dtype, device="cpu")
+    card = GPT2(cfg, device=dev, init=False)
+    with torch.no_grad():
+        for (_, pc), (_, pg) in zip(card.named_parameters(),
+                                    cpu.named_parameters()):
+            pc.data = pg.detach().to(dev)
+    return cfg, cpu, card
+
+
+@pytest.mark.parametrize("kw", [
+    dict(), dict(weight_quant="int8"), dict(kv_quant="int8"),
+    dict(temperature=0.8, top_k=40, top_p=0.95, seed=3),
+    dict(temperature=0.8, seed=3, weight_quant="int8", kv_quant="int8")],
+    ids=["greedy", "w8a16", "kv8", "sampled", "sampled_w8_kv8"])
+def test_dense_generate_graph_equals_eager_bitwise(dev, kw):
+    """The dense program's graph (a capture, then a pure replay) against
+    the same program run eagerly on the card, bf16 weights, left-padded
+    rows: tokens bit for bit."""
+    from paddle_tpu_torch.models import gpt2_decode
+
+    cfg, _cpu, card = _gen_models(dev, torch.bfloat16)
+    ids = np.random.RandomState(2).randint(1, 1000, (4, 12)).astype(np.int32)
+    ids[1, :5] = 0
+    outs = [card.generate(ids, 10, pad_token_id=0, **kw) for _ in range(2)]
+    prog = gpt2_decode.decode_program(
+        cfg, 10, kw.get("top_k", 0), kw.get("top_p", 1.0) < 1.0,
+        kw.get("kv_quant") == "int8")
+    assert prog.graphs.captures >= 1 and prog.graphs.replays >= 2
+    params = card._decode_params(kw.get("weight_quant"))
+    key = torch.tensor([0, kw.get("seed", 0)], dtype=torch.int64,
+                       device=dev)
+
+    def scalar(v, dt):
+        return torch.tensor(v, dtype=dt, device=dev)
+
+    eager = prog.run(params, torch.from_numpy(ids).to(dev), key,
+                     scalar(kw.get("temperature", 0.0), torch.float32),
+                     scalar(-1, torch.int32),
+                     scalar(kw.get("top_p", 1.0), torch.float32),
+                     scalar(0, torch.int32), kw.get("temperature", 0) > 0)
+    for out in outs:
+        assert out.dtype == torch.int32 and out.device == dev
+        assert torch.equal(out, eager)
+
+
+def test_dense_generate_captures_once_per_mode(dev):
+    """Temperatures 0.7, 1.3 and 0.0 through one program: two captures
+    (sampled and greedy), and none more when the three calls repeat with
+    other seeds and eos."""
+    from paddle_tpu_torch.models import gpt2_decode
+
+    _cfg, _cpu, card = _gen_models(dev)
+    ids = np.array([[1, 2, 3]], np.int64)
+    gpt2_decode._generate_impl.cache_clear()
+    for seed in (1, 2):
+        card.generate(ids, 4, temperature=0.7, seed=seed)
+        card.generate(ids, 4, temperature=1.3, seed=seed + 5,
+                      eos_token_id=5)
+        card.generate(ids, 4, temperature=0.0, seed=seed + 9)
+    assert gpt2_decode._generate_impl.cache_info().misses == 1
+    prog = gpt2_decode.decode_program(card.cfg, 4)
+    assert prog.graphs.captures == 2 and prog.graphs.replays == 6
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(kv_quant="int8"),
+                                dict(temperature=0.9, seed=4)],
+                         ids=["greedy", "kv8", "sampled"])
+def test_generate_on_card_matches_cpu(dev, kw):
+    """float32 (TF32 off): the dense and the paged generate on the card
+    give the CPU's tokens; the paged one launches K2 once a layer a
+    step (its steps are graph replays; the capture's eager warm-up is
+    one step more)."""
+    from paddle_tpu_torch.ops import kernels
+
+    cfg, cpu, card = _gen_models(dev)
+    ids = np.random.RandomState(3).randint(1, 1000, (3, 9)).astype(np.int32)
+    for cache in ("dense", "paged"):
+        kernels.reset_launch_counts()
+        got = card.generate(ids, 8, kv_cache=cache, block_size=4, **kw)
+        torch.cuda.synchronize()
+        n = kernels.launch_counts()
+        want = cpu.generate(ids, 8, kv_cache=cache, block_size=4, **kw)
+        assert torch.equal(got.cpu(), want), cache
+        tag = "int8" if kw.get("kv_quant") else "dense"
+        k2 = n[f"paged_decode_{tag}"]
+        # the paged steps: the step graph's eager warm-up, then 7 replays
+        assert k2 == (8 * cfg.num_layers if cache == "paged" else 0), n
+
+
+def test_loaded_generator_and_server_on_card(dev, tmp_path):
+    """An exported generator loaded onto the card returns CPU tensors
+    equal to the CPU's; GenerationServer over it serves each row as the
+    prompt's generate."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import GenerationServer
+    from paddle_tpu_torch.models.gpt2 import export_generator
+
+    _cfg, cpu, card = _gen_models(dev)
+    export_generator(card, str(tmp_path / "g"), prompt_len=8,
+                     max_new_tokens=6, batch_size=4)
+    served = jit.load(str(tmp_path / "g"))
+    assert served.device.type == "cuda"
+    rs = np.random.RandomState(6)
+    prompts = [rs.randint(1, 1000, (n,)).astype(np.int32)
+               for n in (8, 5, 3, 8, 1, 7)]
+    srv = GenerationServer(served, pad_token_id=0, max_wait_ms=50)
+    futs = [srv.submit(p) for p in prompts]
+    srv.start()
+    try:
+        for p, f in zip(prompts, futs):
+            row = np.zeros((1, 8), np.int32)
+            row[0, 8 - p.size:] = p
+            want = cpu.generate(row, 6, pad_token_id=0).numpy()[0] \
+                if p.size < 8 else cpu.generate(row, 6).numpy()[0]
+            np.testing.assert_array_equal(f.result(timeout=120), want)
+    finally:
+        srv.stop()
+    out = served(np.stack([prompts[0]] * 4), 0, 0.0, -1, 1.0, -1)
+    assert out.device.type == "cpu" and out.dtype == torch.int32

@@ -84,11 +84,11 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 @pytest.mark.parametrize("entry", ["resolve_device", "GPT2", "PagedKVCache",
                                    "PagedGenerationServer",
                                    "build_train_step", "AdamW", "Bert",
-                                   "bert_build_train_step"])
-def test_entry_points_default_to_cuda(entry, monkeypatch):
+                                   "bert_build_train_step", "jit.load"])
+def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
-    from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch import jit, resolve_device
     from paddle_tpu_torch.inference import PagedGenerationServer, PagedKVCache
     from paddle_tpu_torch.models import (GPT2, Bert, BertConfig, GPT2Config,
                                          build_train_step)
@@ -101,6 +101,10 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
     bcfg = BertConfig(vocab_size=32, hidden_size=32, num_layers=1,
                       num_heads=2, intermediate_size=64, max_position=16)
     model = GPT2(cfg, device="cpu")
+    from paddle_tpu_torch.models.gpt2 import export_generator
+
+    export_generator(model, str(tmp_path / "gen"), prompt_len=4,
+                     max_new_tokens=2)
     calls = {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "GPT2": lambda **kw: GPT2(cfg, **kw),
@@ -113,6 +117,7 @@ def test_entry_points_default_to_cuda(entry, monkeypatch):
         "Bert": lambda **kw: Bert(bcfg, **kw),
         "bert_build_train_step": lambda **kw: bert.build_train_step(bcfg,
                                                                     **kw),
+        "jit.load": lambda **kw: jit.load(str(tmp_path / "gen"), **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
