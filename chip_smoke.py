@@ -410,8 +410,47 @@ non-zero before the result line:
                prompt_len 768, 32 new), phase 5's 16 prompts, a warm and
                a measured pass: tokens/s, latency p50/p99, batch_fill,
                beside phase 5's paged k = 1 pass of the same call;
+  5r. fault-tolerant, observable serving (after 6g) — (a) float32 GPT-2
+               small (phase 4's weights), TF32 off, 4 slots, block 16, 16
+               new tokens: the composed split stack (prefix cache, n-gram
+               speculation, a stop-string request through a toy
+               detokenizer, an on_token stream; 4 random prompts from
+               RandomState(61) and a periodic one queued behind them)
+               under the reference test's chaos plan R_PLAN_SPLIT, then
+               unified + async under R_PLAN_UNIFIED: a fault-free run with
+               an empty plan first (it counts each seam's occurrences:
+               every planned one must be reachable), then the plan. Every
+               planned seam fires; the survivors equal the fault-free run
+               but for near ties (phase 4g's rule, listed); at most one
+               request is quarantined; health ok with recoveries >= 1; K1
+               (and K2 on the split stack) launched; every decode, verify
+               and window dispatch a replay; captures equal the fault-free
+               run's. (b) decode:0,decode:1,decode:2 on two requests:
+               exactly one quarantined at seam decode, the other the
+               fault-free tokens (prefix cache on: warm resumes). (c) 8 requests
+               (RandomState(64)) with a
+               journal; kill() from the main thread once R_KILL_AT tokens
+               were streamed (the stream holds that token until the server
+               is stopped); the killed server freed (gc, empty_cache); a
+               fresh one recovers the journal; all 8 outputs equal the
+               uninterrupted run but for near ties; resumes, warm resumes
+               and re-prefilled tokens printed. (d) bf16 (phase 4f's
+               weights) on phase 5's server and traffic at k = 1 with the
+               ops endpoint (expose_port=0): /healthz, /healthz/live,
+               /healthz/ready, /metrics and /statusz answer 200 during the
+               first pass, /metrics holds R_METRICS; warm_buckets before
+               start() leaves the first pass and the measured window with
+               no capture; a GenerationServer over 6g (b)'s artifact, in
+               an untimed pass with the registry on (6g (b)'s timed pass
+               keeps it off), counted its requests, latencies and stop
+               reasons. (e) telemetry off and on (metrics, tracing, flight
+               recorder, endpoint) in turns, off, on, on, off: tokens/s,
+               TTFT p50 and idle share of each, the ratio of the means;
+               the seconds from an injected fault at decode dispatch
+               R_FAULT_AT to the first successful dispatch after it
+               (flight-recorder timestamps);
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 4b, 4f,
+     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 4b, 4f,
      4g, 6g (a), 6, 6b, 6c, 4t and 6t; the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
@@ -1962,25 +2001,10 @@ def serve(torch, model, prompts, k, sampling=None, profile=False, **kw):
         extra["param_bytes"] = sum(t.numel() * t.element_size()
                                    for t in srv._params.values())
         if profile:
-            from torch.profiler import ProfilerActivity
-            from torch.profiler import profile as profiler
-
-            with profiler(activities=[ProfilerActivity.CPU,
-                                      ProfilerActivity.CUDA]) as prof:
-                one_pass()
-                torch.cuda.synchronize()
-            busy = k2 = 0
-            for ev in prof.key_averages():
-                if ev.device_type != torch.autograd.DeviceType.CUDA:
-                    continue
-                us = getattr(ev, "self_device_time_total",
-                             getattr(ev, "self_cuda_time_total", 0))
-                busy += us
-                if K2_NAME.search(ev.key):
-                    k2 += ev.count
+            busy, k2 = traced_busy(torch, one_pass)
             if busy <= 0:
                 fail(f"serving k={k}: the profiler recorded no device time")
-            extra.update(busy=busy / 1e6, idle=1 - busy / 1e6 / extra["wall"],
+            extra.update(busy=busy, idle=1 - busy / extra["wall"],
                          k2_traced=k2)
     finally:
         srv.stop()
@@ -2002,6 +2026,28 @@ def serve(torch, model, prompts, k, sampling=None, profile=False, **kw):
         fail(f"serving k={k}: {st['decode_graph_replays']} graph replays "
              f"for {st['decode_steps']} decode dispatches")
     return st, counts, torch.cuda.max_memory_allocated(), outs, extra
+
+
+def traced_busy(torch, one_pass):
+    """Run `one_pass()` under torch.profiler (as
+    scripts/torch_serve_profile.py reads it): (the device's busy seconds
+    over its kernels, the K2 kernels traced)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as profiler
+
+    with profiler(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        one_pass()
+        torch.cuda.synchronize()
+    busy = k2 = 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy += getattr(ev, "self_device_time_total",
+                        getattr(ev, "self_cuda_time_total", 0))
+        if K2_NAME.search(ev.key):
+            k2 += ev.count
+    return busy / 1e6, k2
 
 
 def idle_text(extra, st, k, L):
@@ -4179,7 +4225,8 @@ def gen_padded_batcher(torch, model, prompts):
     GenerationServer over an exported bf16 artifact (jit.load onto the
     card), 8 slots, prompt_len 768, 32 new tokens, phase 5's 16 prompts;
     a warm pass (it captures), then a measured pass. Returns the
-    measured pass's stats and the outputs."""
+    measured pass's stats, the outputs, the graph captures and the loaded
+    artifact."""
     import tempfile
 
     from paddle_tpu_torch import jit
@@ -4207,7 +4254,550 @@ def gen_padded_batcher(torch, model, prompts):
         if o.shape != (800,) or not (o[768 - p.size:768] == p).all() \
                 or o[768:].min() < 0 or o[768:].max() >= V:
             fail(f"phase 6g (b): bad output for a {p.size}-token prompt")
-    return st, outs, served._program.graphs.captures
+    return st, outs, served._program.graphs.captures, served
+
+
+# ---- phase 5r: fault-tolerant, observable serving ---------------------------
+
+R_SLOTS, R_BS, R_NEW, R_PROMPT = 4, 16, 16, 128
+# the reference test's chaos plan (tests/test_reliability.py:721-723), and
+# its counterpart for the unified round (no prefill/decode/verify seams:
+# one unified_round seam a dispatch)
+R_PLAN_SPLIT = ("prefill:1,decode:0,verify:0,ensure_many:2,"
+                "slow_dispatch:0,detokenize:1,stream_consumer:0")
+R_PLAN_UNIFIED = ("unified_round:1,ensure_many:3,slow_dispatch:0,"
+                  "detokenize:1,stream_consumer:0")
+R_KILL_AT = 72     # (c): kill() once this many tokens were streamed
+R_FAULT_AT = 8     # (e): the decode dispatch the recovery-time run fails
+
+
+def r_detok(toks):
+    """5r's toy detokenizer (a token -> a letter): prefix-stable, so a stop
+    string is matched on the detokenized tail as a real one would be."""
+    return "".join(chr(97 + int(t) % 26) for t in toks)
+
+
+def r_work(V, sink):
+    """5r (a)'s work, greedy: four random prompts (RandomState(61); the
+    first streams through `sink`, the third carries a stop string that
+    never matches, so every token of it goes through the detokenizer) and a
+    periodic one that waits for a slot (4 slots): the first decode rounds
+    have no n-gram proposal (plain decode dispatches), the periodic prompt
+    always proposes (verify dispatches)."""
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    rs = np.random.RandomState(61)
+    work = [(rs.randint(1, V, n).astype(np.int32), {})
+            for n in (48, 33, 57, 40)]
+    work[0] = (work[0][0], {"on_token": lambda t, r: sink.append(t)})
+    work[2] = (work[2][0], {"sampling": SamplingParams(
+        stop_strings=("zqz!",))})
+    work.append((np.tile(rs.randint(1, V, 6).astype(np.int32), 8), {}))
+    return work
+
+
+def r_serve(torch, model, work, plan=None, **kw):
+    """Serve `work` on a fresh server (every request submitted before
+    start(), so admissions are fixed) under `plan`; the launch counts are
+    zeroed just before start() and read after the drain. Returns
+    (results [("ok", tokens) | (ExceptionName, exc)], stats, health, launch
+    counts, the plan)."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.reliability import FaultPlan
+
+    plan = FaultPlan.parse(plan) if isinstance(plan, str) else plan
+    kw.setdefault("max_slots", R_SLOTS)
+    srv = PagedGenerationServer(model, block_size=R_BS,
+                                max_prompt_len=R_PROMPT,
+                                max_new_tokens=R_NEW, device=DEV,
+                                fault_plan=plan, **kw)
+    futs = [srv.submit(ids, **k) for ids, k in work]
+    kernels.reset_launch_counts()                              # main path
+    srv.start()
+    res = []
+    try:
+        for f in futs:
+            try:
+                res.append(("ok", f.result(timeout=600)))
+            except Exception as e:  # noqa: BLE001 — an outcome to check
+                res.append((type(e).__name__, e))
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        st, health = srv.stats(), srv.health()
+    finally:
+        srv.stop()
+    return res, st, health, counts, plan
+
+
+def r_same(torch, cfg, params_cpu, want, got, work, what, ties):
+    """Each ok result equals the fault-free run's but for near ties (phase
+    4g's rule, `gen_tie`), which are appended to `ties`; returns the
+    quarantined indices."""
+    quarantined = []
+    for r, ((_, a), (kind, b), (ids, _k)) in enumerate(zip(want, got,
+                                                          work)):
+        if kind != "ok":
+            if kind != "QuarantinedRequest":
+                fail(f"phase 5r {what}: request {r} failed with {kind}: "
+                     f"{b}")
+            quarantined.append((r, b.seam))
+            continue
+        if np.array_equal(a, b):
+            continue
+        if not gen_tie(torch, cfg, params_cpu, b, a, ids.size, None,
+                       f"5r {what}"):
+            fail(f"phase 5r {what}: request {r} differs from the "
+                 f"fault-free run beyond the near-tie rule")
+        ties.append((what, r, int(np.nonzero(a != b)[0][0])))
+    return quarantined
+
+
+def r_check_graphs(st, st0, what):
+    """Every decode, verify and window dispatch of a faulted run was one
+    replay, and it captured what the fault-free run captured."""
+    if st["decode_graph_replays"] != st["decode_steps"] and \
+            not st["rounds"]["unified"]:
+        fail(f"phase 5r {what}: {st['decode_graph_replays']} replays for "
+             f"{st['decode_steps']} decode dispatches")
+    if st["verify_graph_replays"] != (
+            0 if st["rounds"]["unified"]
+            else st["speculation"]["verify_dispatches"]):
+        fail(f"phase 5r {what}: {st['verify_graph_replays']} verify "
+             f"replays for {st['speculation']['verify_dispatches']} verify "
+             f"dispatches")
+    if st["rounds"]["unified"] and st["round_graph_replays"] != \
+            st["rounds"]["rounds"] - st["prefill_dispatches"]:
+        fail(f"phase 5r {what}: {st['round_graph_replays']} window "
+             f"replays for {st['rounds']['rounds']} rounds, "
+             f"{st['prefill_dispatches']} with chunk rows")
+    if st["decode_graph_captures"] != st0["decode_graph_captures"]:
+        fail(f"phase 5r {what}: {st['decode_graph_captures']} graph "
+             f"captures, the fault-free run {st0['decode_graph_captures']}")
+
+
+def r_chaos(torch, model32, params_cpu, counts_out, ties):
+    """5r (a): the chaos plan over the composed split stack (prefix cache,
+    n-gram speculation, a stop-string request, a stream), then the unified
+    async round. Returns the lines to print."""
+    from paddle_tpu_torch.reliability import FaultPlan
+
+    cfg = model32.cfg
+    lines = []
+    fired_all = {}
+    for name, plan_s, kw in (
+            ("split", R_PLAN_SPLIT, {}),
+            ("unified+async", R_PLAN_UNIFIED,
+             {"unified_round": True, "async_rounds": True})):
+        kw = dict(kw, enable_prefix_cache=True, speculation=True,
+                  detokenize=r_detok)
+        work = r_work(cfg.vocab_size, [])
+        # the fault-free run, with an empty plan that counts each seam's
+        # occurrences: every planned index must be reachable
+        want, st0, _h0, _c0, count = r_serve(torch, model32, work,
+                                             FaultPlan([], name="count"),
+                                             **kw)
+        if any(k != "ok" for k, _ in want):
+            fail(f"phase 5r (a) {name}: the fault-free run failed {want}")
+        seen = count.stats()["occurrences"]
+        plan = FaultPlan.parse(plan_s)
+        for part in plan_s.split(","):
+            seam, idx = part.split(":")
+            if seen.get(seam, 0) <= int(idx):
+                fail(f"phase 5r (a) {name}: the fault-free run reaches "
+                     f"seam {seam} {seen.get(seam, 0)} times, the plan "
+                     f"fires it at occurrence {idx}")
+        got, st, health, counts, _p = r_serve(torch, model32,
+                                              r_work(cfg.vocab_size, []),
+                                              plan, **kw)
+        fired = plan.fired()
+        for part in plan_s.split(","):
+            if fired.get(part.split(":")[0], 0) < 1:
+                fail(f"phase 5r (a) {name}: seam {part} never fired "
+                     f"({fired})")
+        for s, n in fired.items():
+            fired_all[s] = fired_all.get(s, 0) + n
+        q = r_same(torch, cfg, params_cpu, want, got, work, f"(a) {name}",
+                   ties)
+        rel = st["reliability"]
+        if len(q) > 1:
+            fail(f"phase 5r (a) {name}: {len(q)} requests quarantined {q}")
+        if health[0] != "ok" or rel["recoveries"] < 1:
+            fail(f"phase 5r (a) {name}: health {health[0]}, recoveries "
+                 f"{rel['recoveries']}")
+        if counts["ragged_stream_dense"] <= 0 \
+                or counts["paged_decode_dense"] <= 0 and not kw.get(
+                    "unified_round"):
+            fail(f"phase 5r (a) {name}: K1/K2 launches {counts}")
+        r_check_graphs(st, st0, f"(a) {name}")
+        for n in ("ragged_stream_dense", "paged_decode_dense"):
+            counts_out[n] = counts_out.get(n, 0) + counts[n]
+        lines.append(
+            f"(a) f32 {name}, plan {plan_s}: fired {fired}; "
+            f"{sum(k == 'ok' for k, _ in got)} of {len(got)} requests == "
+            f"the fault-free run, quarantined {q or 'none'}; recoveries "
+            f"{rel['recoveries']} retries {rel['dispatch_retries']} "
+            f"resumes {rel['resumes']} (warm {rel['warm_resumes']}); "
+            f"health {health[0]}; replays decode "
+            f"{st['decode_graph_replays']}/{st['decode_steps']} verify "
+            f"{st['verify_graph_replays']} window "
+            f"{st['round_graph_replays']}, captures "
+            f"{st['decode_graph_captures']} (fault-free "
+            f"{st0['decode_graph_captures']}); launches K1 "
+            f"{counts['ragged_stream_dense']} K2 "
+            f"{counts['paged_decode_dense']}")
+    return lines, fired_all
+
+
+def r_persistent(torch, model32, params_cpu, counts_out, ties):
+    """5r (b): decode fails three times in a row; exactly one request is
+    quarantined, its co-resident finishes with the fault-free tokens. The
+    prefix cache is on, so each retry is a warm resume straight into the
+    next decode dispatch: a cold resume's successful re-prefill would be a
+    clean recovery and reset the streak (ROADMAP §C 19)."""
+    cfg = model32.cfg
+    rs = np.random.RandomState(63)
+    work = [(rs.randint(1, cfg.vocab_size, n).astype(np.int32), {})
+            for n in (40, 52)]
+    want, _st0, _h, _c, _p = r_serve(torch, model32, work,
+                                     enable_prefix_cache=True)
+    got, st, health, counts, _p = r_serve(
+        torch, model32, work, "decode:0,decode:1,decode:2",
+        enable_prefix_cache=True)
+    q = r_same(torch, cfg, params_cpu, want, got, work, "(b)", ties)
+    if len(q) != 1 or q[0][1] != "decode":
+        fail(f"phase 5r (b): quarantined {q}, expected exactly one at "
+             f"seam decode")
+    if health[0] != "ok":
+        fail(f"phase 5r (b): health {health[0]} after the survivor's "
+             f"dispatch")
+    for n in ("ragged_stream_dense", "paged_decode_dense"):
+        counts_out[n] = counts_out.get(n, 0) + counts[n]
+    return (f"(b) f32 decode:0,decode:1,decode:2 (prefix cache on): "
+            f"request {q[0][0]} quarantined ({got[q[0][0]][1].failures} "
+            f"failures), the other == the fault-free run; resumes "
+            f"{st['reliability']['resumes']} (warm "
+            f"{st['reliability']['warm_resumes']}), recoveries "
+            f"{st['reliability']['recoveries']}, health {health[0]}")
+
+
+def r_journal(torch, model32, params_cpu, counts_out, ties):
+    """5r (c): 8 requests served with a journal; kill() from the main
+    thread once R_KILL_AT tokens were streamed (the stream waits at that
+    token until the server is stopped, so the crash lands there whatever
+    the speed); the server is freed, a fresh one recovers the journal.
+    Every output equals the uninterrupted run's but for near ties."""
+    import gc
+    import tempfile
+    import threading
+
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    cfg = model32.cfg
+    rs = np.random.RandomState(64)
+    prompts = [rs.randint(1, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rs.randint(16, 65, 8)]
+    kw = dict(max_slots=R_SLOTS, block_size=R_BS, max_prompt_len=R_PROMPT,
+              max_new_tokens=R_NEW, enable_prefix_cache=True, device=DEV)
+    want, _st, _h, _c, _p = r_serve(torch, model32,
+                                    [(p, {}) for p in prompts],
+                                    enable_prefix_cache=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.jsonl")
+        srv = PagedGenerationServer(model32, journal=path, **kw)
+        n = [0]
+        reached = threading.Event()
+
+        def stream(_tok, _reason):
+            n[0] += 1
+            if n[0] == R_KILL_AT:
+                reached.set()
+                deadline = time.monotonic() + 120
+                while not srv.liveness()[1]["stopped"] \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.001)
+
+        futs = [srv.submit(p, on_token=stream) for p in prompts]
+        srv.start()
+        if not reached.wait(600):
+            fail("phase 5r (c): the stream never reached the kill point")
+        srv.kill()
+        done = [f.done() for f in futs]
+        before = [f.result(timeout=1) if d else None
+                  for f, d in zip(futs, done)]
+        # free the killed server's pool and graphs before the next one
+        del srv, futs
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv = PagedGenerationServer(model32, journal=path, **kw)
+        from paddle_tpu_torch.ops import kernels
+
+        rec = srv.recover_from_journal()
+        kernels.reset_launch_counts()                         # main path
+        srv.start()
+        try:
+            outs = {rid: f.result(timeout=600) for rid, f in rec.items()}
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            st = srv.stats()
+        finally:
+            srv.stop()
+        left = srv._journal.stats()["interrupted"]
+    if len(outs) != done.count(False) or left:
+        fail(f"phase 5r (c): {len(outs)} requests recovered for "
+             f"{done.count(False)} interrupted, {left} left in the journal")
+    # the recovered futures in journal (accept) order are the unfinished
+    # requests in submit order
+    it = iter(outs.values())
+    got = [("ok", b if b is not None else next(it)) for b in before]
+    r_same(torch, cfg, params_cpu, want, got, [(p, {}) for p in prompts],
+           "(c)", ties)
+    for k in ("ragged_stream_dense", "paged_decode_dense"):
+        counts_out[k] = counts_out.get(k, 0) + counts[k]
+    rel, g = st["reliability"], st["goodput"]
+    return (f"(c) f32 journal: kill() at streamed token {R_KILL_AT} with "
+            f"{done.count(True)} of 8 requests done; a fresh server "
+            f"recovered {len(outs)}: resumes {rel['resumes']} (warm "
+            f"{rel['warm_resumes']}: the fresh pool holds no prefix), "
+            f"re-prefilled tokens {g['replayed_tokens']}; all 8 outputs "
+            f"== the uninterrupted run")
+
+
+def r_ops_serve(torch, model, prompts, telemetry):
+    """5r (d)/(e): phase 5's bf16 traffic at k = 1 on phase 5's server, its
+    graphs captured by warm_buckets before start(). With `telemetry`:
+    metrics and tracing on, the ops endpoint (expose_port=0: the flight
+    recorder and the stall watchdog with it), and /healthz, /healthz/live,
+    /healthz/ready, /metrics and /statusz read on loopback while the first
+    pass runs. A first pass (no capture may land in it), a measured pass
+    (launch counts zeroed just before it) and a pass under torch.profiler
+    (busy time and idle share, as `serve`). Returns (stats, counts,
+    extra, endpoint results)."""
+    import urllib.request
+
+    from paddle_tpu_torch import observability as obs
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.observability import compile_tracker
+    from paddle_tpu_torch.ops import kernels
+
+    if telemetry:
+        obs.enable()
+    srv = PagedGenerationServer(model, max_slots=8, block_size=16,
+                                max_prompt_len=768, max_new_tokens=32,
+                                prefill_chunk_tokens=512, device=DEV,
+                                expose_port=0 if telemetry else None)
+    n_warm = srv.warm_buckets([(False, False)])
+    mark = compile_tracker.mark()
+    srv.start()
+    got = {}
+    extra = {"busy": None, "idle": None, "k2_traced": None,
+             "warm_graphs": n_warm}
+
+    def one_pass():
+        return [f.result(timeout=600)
+                for f in [srv.submit(p) for p in prompts]]
+
+    def scrape(stop):
+        while not stop.is_set() or not got:
+            for path in ("/healthz", "/healthz/live", "/healthz/ready",
+                         "/metrics", "/statusz"):
+                r = urllib.request.urlopen(srv.exporter.url + path,
+                                           timeout=30)
+                got[path] = (r.status, r.read().decode())
+            stop.wait(0.05)
+
+    try:
+        if telemetry:
+            import threading
+
+            stop = threading.Event()
+            th = threading.Thread(target=scrape, args=(stop,))
+            th.start()
+            one_pass()
+            stop.set()
+            th.join(timeout=120)
+        else:
+            one_pass()
+        extra["first_pass_captures"] = compile_tracker.count_since(mark)
+        extra["first_pass_in_flight"] = compile_tracker.count_since(
+            mark, in_flight=True)
+        srv.reset_stats()
+        kernels.reset_launch_counts()                          # main path
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        extra["wall"] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        st = srv.stats()
+        busy, k2 = traced_busy(torch, one_pass)
+        if busy > 0:
+            extra.update(busy=busy, idle=1 - busy / extra["wall"],
+                         k2_traced=k2)
+    finally:
+        srv.stop()
+        if telemetry:
+            obs.disable()
+            obs.tracing.TRACER.reset()
+    return st, counts, extra, got
+
+
+R_METRICS = ("serving_requests_total", "serving_ttft_seconds",
+             "serving_queue_depth", "serving_tokens_decoded_total",
+             "serving_goodput_ratio", "serving_xla_compiles_total",
+             "serving_recoveries_total", "serving_health_state",
+             "kv_pool_used_blocks", "paddle_tpu_serving_itl_seconds")
+
+
+def r_recovery_time(torch, model, prompts):
+    """5r (e): phase 5's bf16 traffic (one pass) with decode dispatch
+    R_FAULT_AT failing; from the flight recorder's timestamps, the seconds
+    from the injected fault to the first successful dispatch after it (the
+    backoff, the snapshots and the resumes' re-prefill included)."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.observability import FlightRecorder
+
+    rec = FlightRecorder(capacity=1 << 14, enabled=True)
+    srv = PagedGenerationServer(model, max_slots=8, block_size=16,
+                                max_prompt_len=768, max_new_tokens=32,
+                                prefill_chunk_tokens=512, device=DEV,
+                                flight_recorder=rec,
+                                fault_plan=f"decode:{R_FAULT_AT}").start()
+    try:
+        for f in [srv.submit(p) for p in prompts]:
+            f.result(timeout=600)
+        st = srv.stats()
+    finally:
+        srv.stop()
+    evs = rec.events()
+    t_f = [e["ts"] for e in evs if e["name"] == "fault_injected"]
+    t_r = [e["ts"] for e in evs if e["name"] == "recovered"]
+    if len(t_f) != 1 or not t_r or st["reliability"]["recoveries"] != 1:
+        fail(f"phase 5r (e): fault events {len(t_f)}, recovered events "
+             f"{len(t_r)}, stats {st['reliability']}")
+    return t_r[0] - t_f[0], st["reliability"]["resumes"]
+
+
+def r_dense_metrics(torch, served, prompts):
+    """5r (d): one untimed pass of phase 5's prompts through a
+    GenerationServer over 6g (b)'s artifact with the metrics registry on;
+    returns the dense server's request count, latency observations and
+    stop reasons."""
+    from paddle_tpu_torch.inference import GenerationServer
+    from paddle_tpu_torch.observability import metrics as obs_metrics
+
+    obs_metrics.enable()
+    try:
+        srv = GenerationServer(served, pad_token_id=0,
+                               max_wait_ms=5.0).start()
+        try:
+            for f in [srv.submit(p) for p in prompts]:
+                f.result(timeout=600)
+        finally:
+            srv.stop()
+        snap = obs_metrics.snapshot()
+    finally:
+        obs_metrics.disable()
+        obs_metrics.reset()
+
+    def dense(name, key="value"):
+        return {s["labels"].get("reason", "all"): s[key]
+                for s in snap[name]["series"]
+                if s["labels"]["server"] == "dense"}
+
+    got = {"done": dense("serving_requests_total").get("all", 0),
+           "lat": dense("serving_request_latency_seconds",
+                        "count").get("all", 0),
+           "reasons": dense("serving_stop_reason_total")}
+    if got["done"] != len(prompts) or got["lat"] != len(prompts):
+        fail(f"phase 5r (d): the dense server's metrics {got} for "
+             f"{len(prompts)} requests")
+    return got
+
+
+def reliability_phase(torch, model, prompts, card, artifact):
+    """Phase 5r (a)-(e); returns the K1/K2 launches of its main-path runs
+    and prints its lines."""
+    import gc
+
+    from paddle_tpu_torch.models import GPT2
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    counts = {}
+    ties = []
+    model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
+    params_cpu = {k: v.detach().cpu() for k, v in
+                  model32.flat_params().items()}
+    lines, fired = r_chaos(torch, model32, params_cpu, counts, ties)
+    lines.append(r_persistent(torch, model32, params_cpu, counts, ties))
+    lines.append(r_journal(torch, model32, params_cpu, counts, ties))
+    del model32, params_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(f"phase 5r {line} [{card}]")
+    say(f"phase 5r (a)-(c) seams fired: {fired}; near ties (phase 4g's "
+        f"rule): {ties or 'none'}; {time.perf_counter() - t0:.1f} s")
+
+    # (d) and (e): bf16, phase 5's traffic, telemetry off and on in turns
+    # (off, on, on, off: a call's drift falls on both sides)
+    dense_metrics = r_dense_metrics(torch, artifact, prompts)
+    runs = []
+    for tel in (False, True, True, False):
+        st, c, extra, got = r_ops_serve(torch, model, prompts, tel)
+        for n in ("ragged_stream_dense", "paged_decode_dense"):
+            counts[n] = counts.get(n, 0) + c[n]
+        if extra["first_pass_in_flight"] or extra["first_pass_captures"]:
+            fail(f"phase 5r (d): {extra['first_pass_captures']} captures "
+                 f"({extra['first_pass_in_flight']} in flight) after "
+                 f"warm_buckets")
+        if st["compiles"]["window_in_flight"]:
+            fail(f"phase 5r (d): the measured window holds "
+                 f"{st['compiles']} captures")
+        if st["decode_graph_replays"] != st["decode_steps"]:
+            fail("phase 5r (d): a decode dispatch was not a replay")
+        if tel:
+            for path in ("/healthz", "/healthz/live", "/healthz/ready",
+                         "/metrics", "/statusz"):
+                if got.get(path, (0,))[0] != 200:
+                    fail(f"phase 5r (d): {path} answered "
+                         f"{got.get(path, (None,))[0]}")
+            prom = got["/metrics"][1]
+            missing = [m for m in R_METRICS if f"# TYPE {m} " not in prom]
+            if missing or json.loads(got["/statusz"][1])["server"] \
+                    != "paged":
+                fail(f"phase 5r (d): /metrics lacks {missing}")
+        runs.append((tel, st, extra))
+    say(f"phase 5r (d) ops endpoint during bf16 serving passes: /healthz, "
+        f"/healthz/live, /healthz/ready, /metrics, /statusz answered 200, "
+        f"/metrics holds {', '.join(R_METRICS)}; warm_buckets captured "
+        f"{runs[1][2]['warm_graphs']} graph(s) before start(), the first "
+        f"pass and the measured window captured none; GenerationServer "
+        f"over 6g (b)'s artifact (an untimed pass, registry on): "
+        f"serving_requests_total"
+        f"{{server=\"dense\"}} {dense_metrics['done']}, latency "
+        f"observations {dense_metrics['lat']}, stop reasons "
+        f"{dense_metrics['reasons']} [{card}]")
+    for tel, st, extra in runs:
+        say(f"phase 5r (e) telemetry {'on' if tel else 'off'} (phase 5's "
+            f"bf16 traffic, k=1): tokens_per_sec {st['tokens_per_sec']:.1f}"
+            f" ttft p50 {st['ttft_p50_ms']:.1f} ms; "
+            f"{idle_text(extra, st, 1, cfg.num_layers)} [{card}]")
+
+    def mean(tel, key):
+        return statistics.mean(st[key] for t, st, _e in runs if t == tel)
+
+    say(f"phase 5r (e) telemetry on / off (means of the two runs each): "
+        f"tokens_per_sec {mean(True, 'tokens_per_sec') / mean(False, 'tokens_per_sec'):.4f}x, "
+        f"ttft p50 {mean(True, 'ttft_p50_ms') / max(mean(False, 'ttft_p50_ms'), 1e-9):.4f}x"
+        f" [{card}]")
+    rec_s, resumes = r_recovery_time(torch, model, prompts)
+    say(f"phase 5r (e) recovery: an injected fault at decode dispatch "
+        f"{R_FAULT_AT} of phase 5's bf16 traffic to the first successful "
+        f"dispatch after it {rec_s * 1e3:.2f} ms ({resumes} requests "
+        f"resumed; backoff 20 ms included) [{card}]")
+    say(f"phase 5r: {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def main():
@@ -4846,7 +5436,7 @@ def main():
             f"max_memory_allocated {r['peak'] / 2**20:.0f} MiB; profiled "
             f"{D_SHORT}-token call: {idle}, {r['per_step']:.1f} device "
             f"kernels and copies a token step [{card}]")
-    st, _outs, caps = gen_padded_batcher(torch, model, prompts)
+    st, _outs, caps, artifact = gen_padded_batcher(torch, model, prompts)
     g = greedy_k1
     say(f"phase 6g (b) padded batcher (GenerationServer over an exported "
         f"bf16 artifact, B 8, prompt_len 768, 32 new; {caps} graph "
@@ -4858,6 +5448,13 @@ def main():
         f"{g['p50_ms']:.1f}/{g['p99_ms']:.1f} ms; padded / "
         f"paged {st['tokens_per_sec'] / g['tokens_per_sec']:.3f}x; "
         f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+    # phase 5r: fault-tolerant, observable serving (its K1/K2 launches join
+    # the kernels line)
+    for n, v in reliability_phase(torch, model, prompts, card,
+                                  artifact).items():
+        main_counts[n] += v
+    del artifact
 
     del model
     torch.cuda.empty_cache()

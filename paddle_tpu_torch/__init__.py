@@ -21,6 +21,10 @@ is offline generation: `GPT2.generate` (the dense fixed-cache program of
 `models.gpt2_decode`, one CUDA graph per program on the card, and the
 paged engine), `models.gpt2.export_generator` and `jit.load` (the
 port's own artifact), and the dense `inference.GenerationServer`.
+Slice 17 is fault-tolerant, observable serving: `reliability` (fault
+plans, the recovery policy, the session journal), `observability`
+(metrics, tracing, the flight recorder, the capture tracker, the ops
+endpoint) and `utils.watchdog`, with their hooks in both servers.
 
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes

@@ -51,8 +51,12 @@ and host tier included:
     in the reference's wire format (numpy arrays; a bf16 pool's rows
     travel as float32, which holds them exactly).
 
-Left out: the telemetry gauges and the attribution ledger (with the
-engine's owner arguments) and the shard-count bookkeeping.
+Telemetry: the reference's pool gauges and counters under its names
+(`kv_pool_*`, `kv_prefix_cache_*`, `kv_tier_*`), one series per pool
+(`pool` label, `name=` or "poolN"), pushed after every table change
+while the metrics registry is enabled (one bool check otherwise). Left
+out: the attribution ledger (with the engine's owner arguments) and the
+shard-count bookkeeping (the per-shard byte series).
 
 Invariants (fuzz-tested in tests/test_torch_prefix_cache.py, against
 the reference pool step for step):
@@ -66,6 +70,7 @@ the reference pool step for step):
 from __future__ import annotations
 
 import hashlib
+import itertools
 import time
 from collections import OrderedDict
 
@@ -73,8 +78,95 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability import metrics as _metrics
 from .kv_quant import QuantizedKV, kv_decode, kv_encode
 from .kv_tier import disabled_tier_stats, normalize_kv_tier, payload_nbytes
+
+_POOL_LABEL = ("pool",)
+# Block-count gauges carry a `tier` label: tier="device" is the in-pool
+# series; tier="host" reports the HostKVTier (used is always 0 there,
+# retained is its promotable entries, free its remaining capacity).
+_POOL_TIER_LABELS = ("pool", "tier")
+_m_used_blocks = _metrics.gauge(
+    "kv_pool_used_blocks", "allocated blocks (trash block excluded); "
+    "tier='device' in-pool, tier='host' always 0",
+    labelnames=_POOL_TIER_LABELS)
+_m_free_blocks = _metrics.gauge(
+    "kv_pool_free_blocks", "blocks available for allocation "
+    "(tier='host': remaining HostKVTier entry capacity)",
+    labelnames=_POOL_TIER_LABELS)
+_m_retained_blocks = _metrics.gauge(
+    "kv_pool_retained_blocks", "freed-but-indexed blocks parked in the "
+    "prefix-cache LRU retention list (reclaimed under pool pressure); "
+    "tier='host': promotable entries resident in the HostKVTier",
+    labelnames=_POOL_TIER_LABELS)
+_m_utilization = _metrics.gauge(
+    "kv_pool_utilization", "live tokens / usable pool tokens",
+    labelnames=_POOL_LABEL)
+_m_block_fill = _metrics.gauge(
+    "kv_pool_block_fill", "live tokens / allocated block capacity "
+    "(1.0 = no internal fragmentation; can exceed 1.0 when prefix "
+    "blocks are shared)", labelnames=_POOL_LABEL)
+_m_sequences = _metrics.gauge(
+    "kv_pool_sequences", "sequences holding blocks",
+    labelnames=_POOL_LABEL)
+_m_alloc_failures = _metrics.counter(
+    "kv_pool_alloc_failures_total",
+    "allocations refused because the pool was exhausted",
+    labelnames=_POOL_LABEL)
+_POOL_SHARD_LABELS = ("pool", "shard")
+_m_pool_bytes = _metrics.gauge(
+    "kv_pool_bytes_total", "device bytes held by the K/V block pool "
+    "(codes + scale buffers when kv_dtype='int8'); shard='all' = the "
+    "pool total", labelnames=_POOL_SHARD_LABELS)
+_m_bytes_per_token = _metrics.gauge(
+    "kv_pool_bytes_per_token", "pool bytes per usable token slot "
+    "(bytes_total / capacity_tokens — ~half under int8 KV)",
+    labelnames=_POOL_SHARD_LABELS)
+_m_prefix_lookups = _metrics.counter(
+    "kv_prefix_cache_lookups_total",
+    "attach_prefix calls (one per admitted request when caching is on)",
+    labelnames=_POOL_LABEL)
+_m_prefix_hits = _metrics.counter(
+    "kv_prefix_cache_hits_total",
+    "attach_prefix calls that matched at least one cached token",
+    labelnames=_POOL_LABEL)
+_m_prefix_hit_tokens = _metrics.counter(
+    "kv_prefix_cache_hit_tokens_total",
+    "prompt tokens served from cached blocks instead of prefill",
+    labelnames=_POOL_LABEL)
+_m_prefix_lookup_tokens = _metrics.counter(
+    "kv_prefix_cache_lookup_tokens_total",
+    "prompt tokens eligible for matching (prompt length - 1: the last "
+    "token is always recomputed to sample token 0)",
+    labelnames=_POOL_LABEL)
+_m_prefix_evictions = _metrics.counter(
+    "kv_prefix_cache_evictions_total",
+    "retained blocks reclaimed (index entries dropped) under pool "
+    "pressure", labelnames=_POOL_LABEL)
+_m_prefix_cow = _metrics.counter(
+    "kv_prefix_cache_cow_copies_total",
+    "copy-on-write block copies (a write landed in a shared or "
+    "index-claimed block)", labelnames=_POOL_LABEL)
+_m_tier_demotions = _metrics.counter(
+    "kv_tier_demotions_total",
+    "retained blocks demoted from the device pool into the host tier",
+    labelnames=_POOL_LABEL)
+_m_tier_promotions = _metrics.counter(
+    "kv_tier_promotions_total",
+    "tier entries promoted back into device blocks ahead of a prefix "
+    "match", labelnames=_POOL_LABEL)
+_m_tier_bytes = _metrics.counter(
+    "kv_tier_bytes_total",
+    "host tier traffic in encoded (int8 codes+scales) bytes; "
+    "direction='out' = device->host demotion, 'in' = host->device "
+    "promotion", labelnames=("pool", "direction"))
+_m_tier_hit_tokens = _metrics.counter(
+    "kv_tier_hit_tokens_total",
+    "prompt tokens served from promoted tier blocks instead of prefill "
+    "recompute (counted once, at promotion)", labelnames=_POOL_LABEL)
+
+_pool_ids = itertools.count()
 
 #: parent hash of a sequence's first block (nothing hashes to 0).
 ROOT_HASH = 0
@@ -144,11 +236,13 @@ class PagedKVCache:
     tier: a `kv_tier.HostKVTier` below the pool (True for the default
         one); None keeps the pool without a tier.
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
+    name: the `pool` label of this pool's metric series (default
+        "poolN", N counting the pools of the process).
     """
 
     def __init__(self, num_layers, num_heads, head_dim, *, block_size=128,
                  num_blocks=64, dtype=None, kv_dtype=None, tier=None,
-                 device=None):
+                 device=None, name=None):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved trash block)")
@@ -161,6 +255,7 @@ class PagedKVCache:
         self.num_heads = int(num_heads)
         self.head_dim = int(head_dim)
         self.kv_dtype = kv_dtype
+        self._name = str(name) if name else f"pool{next(_pool_ids)}"
         self.device = resolve_device(device)
         self.dtype = torch.float32 if dtype is None else dtype
         shape = (self.num_layers, self.num_blocks, self.block_size,
@@ -281,6 +376,7 @@ class PagedKVCache:
         while len(self._free) < n and self._retained:
             self._reclaim_lru()
         if n > len(self._free):
+            _m_alloc_failures.labels(pool=self._name).inc()
             raise BlockPoolExhausted(
                 f"need {n} blocks, only {len(self._free)} free "
                 f"(pool {self.num_blocks - 1})",
@@ -319,6 +415,7 @@ class PagedKVCache:
             self._drop_entry(h)
         self._free.append(b)
         self._evictions += 1
+        _m_prefix_evictions.labels(pool=self._name).inc()
 
     def _register_entry(self, h, block, fill, parent):
         self._index[h] = (block, fill, parent)
@@ -420,6 +517,10 @@ class PagedKVCache:
         self._free.append(b)
         self._tier_demotions += 1
         self._tier_bytes_out += nbytes
+        if _metrics.enabled():
+            _m_tier_demotions.labels(pool=self._name).inc()
+            _m_tier_bytes.labels(pool=self._name,
+                                 direction="out").inc(nbytes)
         cb = self.on_tier_event
         if cb is not None:
             cb("demote", block=b, entries=moved, bytes=nbytes)
@@ -469,6 +570,10 @@ class PagedKVCache:
         nbytes = payload_nbytes((kp, vp))
         self._tier_promotions += 1
         self._tier_bytes_in += nbytes
+        if _metrics.enabled():
+            _m_tier_promotions.labels(pool=self._name).inc()
+            _m_tier_bytes.labels(pool=self._name,
+                                 direction="in").inc(nbytes)
         cb = self.on_tier_event
         if cb is not None:
             cb("promote", block=b, tokens=fill, bytes=nbytes)
@@ -554,6 +659,9 @@ class PagedKVCache:
                    bytes=nbytes, dur_s=time.perf_counter() - t0,
                    overlapped=bool(overlapped))
         self._tier_hit_tokens += promoted_tokens
+        if promoted_tokens and _metrics.enabled():
+            _m_tier_hit_tokens.labels(pool=self._name).inc(
+                promoted_tokens)
         return promoted_tokens
 
     def prefetch_promote(self, ids, limit_blocks=None):
@@ -573,6 +681,32 @@ class PagedKVCache:
         return sum(1 for h in hashes if h in self._index)
 
     # ---- allocation -----------------------------------------------------
+    def _push_gauges(self):
+        if not _metrics.enabled():  # keep the hot path one branch
+            return
+        p = self._name
+        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        held = sum(self._lens.values())
+        _m_used_blocks.labels(pool=p, tier="device").set(used)
+        _m_free_blocks.labels(pool=p, tier="device").set(len(self._free))
+        _m_retained_blocks.labels(pool=p,
+                                  tier="device").set(len(self._retained))
+        if self._tier is not None:
+            t = self._tier
+            _m_used_blocks.labels(pool=p, tier="host").set(0)
+            _m_free_blocks.labels(pool=p, tier="host").set(
+                max(0, t.capacity_blocks - len(t)))
+            _m_retained_blocks.labels(pool=p, tier="host").set(len(t))
+        _m_sequences.labels(pool=p).set(len(self._tables))
+        _m_utilization.labels(pool=p).set(held / (self.capacity_tokens
+                                                  or 1))
+        _m_block_fill.labels(pool=p).set(
+            held / ((used * self.block_size) or 1))
+        _m_pool_bytes.labels(pool=p, shard="all").set(
+            self.pool_bytes_total)
+        _m_bytes_per_token.labels(pool=p, shard="all").set(
+            self.bytes_per_token)
+
     def allocate(self, seq_id, num_tokens):
         """Start a new sequence holding `num_tokens` tokens; returns its
         block table. Raises BlockPoolExhausted without side effects."""
@@ -603,6 +737,7 @@ class PagedKVCache:
             need.append(max(0, grow))
         total = sum(need)
         if total > len(self._free) + len(self._retained):
+            _m_alloc_failures.labels(pool=self._name).inc()
             raise BlockPoolExhausted(
                 f"need {total} blocks across {len(updates)} sequences, "
                 f"only {len(self._free)} free + {len(self._retained)} "
@@ -614,6 +749,7 @@ class PagedKVCache:
                 table.extend(self._take_blocks(grow))
             self._lens[seq_id] = max(self._lens.get(seq_id, 0), n)
         self.maybe_demote()
+        self._push_gauges()
 
     def append(self, seq_id, n=1):
         """Reserve room for `n` more tokens; returns the (possibly grown)
@@ -630,6 +766,7 @@ class PagedKVCache:
         for b in reversed(table):
             self._release_block(b)
         self.maybe_demote()
+        self._push_gauges()
         return len(table)
 
     def truncate_seq(self, seq_id, new_len):
@@ -653,6 +790,7 @@ class PagedKVCache:
         for b in reversed(dropped):
             self._release_block(b)
         self.maybe_demote()
+        self._push_gauges()
         return len(dropped)
 
     def seq_len(self, seq_id):
@@ -732,6 +870,10 @@ class PagedKVCache:
         max_match = int(ids.size) - 1
         self._prefix_lookups += 1
         self._lookup_tokens += max(0, max_match)
+        if _metrics.enabled():
+            _m_prefix_lookups.labels(pool=self._name).inc()
+            _m_prefix_lookup_tokens.labels(pool=self._name).inc(
+                max(0, max_match))
         self._promote_for(ids, max_match)
         matched, _fills, pos = self._match_chain(ids, max_match)
         if pos == 0:
@@ -745,6 +887,10 @@ class PagedKVCache:
         self._lens[seq_id] = pos
         self._prefix_hits += 1
         self._hit_tokens += pos
+        if _metrics.enabled():
+            _m_prefix_hits.labels(pool=self._name).inc()
+            _m_prefix_hit_tokens.labels(pool=self._name).inc(pos)
+        self._push_gauges()
         return pos
 
     def publish_prefix(self, seq_id, token_ids):
@@ -800,8 +946,11 @@ class PagedKVCache:
             table[bi] = new
             self._release_block(block)
             self._cow_copies += 1
+            _m_prefix_cow.labels(pool=self._name).inc()
+            self._push_gauges()
             return True
         if shared:
+            _m_alloc_failures.labels(pool=self._name).inc()
             raise BlockPoolExhausted(
                 f"copy-on-write for sequence {seq_id!r} at position "
                 f"{pos} needs 1 block, pool exhausted "

@@ -105,11 +105,85 @@ dispatch, so a copy-on-write swap of a block id is never served stale.
 Verify regions are not aligned (`_verify_align` 1, the reference's
 value off the TPU): K1 takes any packing.
 
-Left for later slices: the front door and scheduler seams (preemption,
-warm resume, tier prefetch), the recovery ladder and journal, fault
-seams, tracing, SLOs and attribution, the bucket pre-warm
-(`warm_buckets`), goodput accounting, the operations plane and
-sharding.
+Reliability (the reference's recovery ladder, `paddle_tpu.reliability`
+ported as `paddle_tpu_torch.reliability`):
+
+  * A dispatch that raises does not fail its requests. Each implicated
+    request is snapshotted to its DURABLE length (the positions
+    completed dispatches wrote: the sequence is truncated there, and
+    with prefix caching on published through `swap_out_seq`), requeued
+    at the front with its resume state (`gen0`, the tokens emitted so
+    far; `resume_ids` = ids ++ gen0), and the loop backs off
+    (`RecoveryPolicy`: capped exponential). A request implicated in
+    `quarantine_after` consecutive failures is QUARANTINED: its future
+    fails with `QuarantinedRequest` naming the seam, one request a
+    failure at most. `recovery=False` keeps the old blast radius (the
+    dispatch's requests fail with the error).
+  * Before the retry the dispatch state is rebuilt: the async round in
+    flight is processed FIRST (its tokens are real and enter the
+    snapshots), then the device carry is dropped (reseeded from the
+    host) and the pending round cleared. Page-locked output buffers are
+    made per dispatch (`_to_host`), so none outlives a failure. The
+    retry replays the same captured graphs: a recovered fault adds no
+    capture and never runs the eager loop.
+  * A resumed request re-installs from its resume state: positions, the
+    PRNG step (len(gen0)), the penalty counts (seeded from resume_ids)
+    and the budget are residency-invariant. A cold resume re-prefills
+    ids ++ gen0 (K1 writes those positions in one packed prefill where
+    the uninterrupted run wrote them step by step, so on the card a
+    resumed request equals the fault-free run up to float32 rounding of
+    the K/V); a WARM resume (the prefix cache holds all but the last
+    position) rejoins the next decode dispatch with no prefill, on the
+    very blocks it swapped out.
+  * The injected seams (`fault_plan=` or PADDLE_TPU_FAULT_PLAN;
+    `FaultPlan`) fire BEFORE a dispatch's launches, at the reference's
+    points: `slow_dispatch` and `ensure_many` before the table growth,
+    then `prefill` / `decode` / `verify` / `unified_round` before the
+    dispatch; `detokenize` and `stream_consumer` inside `_slot_token`.
+    With no plan each is one `is None` check.
+  * A sticky CUDA error (an illegal address, a corrupted context) cannot
+    be recovered in-process: every later dispatch raises again, so the
+    ladder quarantines request after request and health stays
+    "degraded". Nothing here hides that: the process has to restart, and
+    the journal is what carries its requests over.
+  * `journal=` (a path or a `SessionJournal`; the reference's record
+    format) records every accepted request and every token the HOST
+    emitted (never one an async overshoot or a rollback discards);
+    `kill()` stops the engine without resolving futures, and
+    `recover_from_journal()` on a fresh server re-admits the
+    interrupted requests from their recorded prompt, seed, sampling and
+    emitted tokens.
+  * `submit(timeout_s=)` cancels an overdue request, queued or resident
+    (its slot and blocks are freed: `RequestTimeout`);
+    `shed_queue_depth=` refuses a submit past that queue depth with
+    `AdmissionShed` and its retry hint.
+
+Observability (`paddle_tpu_torch.observability`): the reference's
+`serving_*` metrics under their names (one bool check each while
+PADDLE_TPU_TELEMETRY is off), its tracing events (`request_submitted`,
+`request_admitted`, `prefill`, `prefill_chunk` / `decode_dispatch` /
+`verify_dispatch` / `round` spans, `resumed`, `recover_requeue`,
+`quarantined`, `request_timeout`, `journal_readmit`, `fault_injected`,
+`recovered`, `request_done`, `detokenize`), `stats()["goodput"]`
+(decoded = emitted + rolled back + replayed), `stats()["reliability"]`
+and `stats()["compiles"]` (CUDA graph captures in the window, ROADMAP
+§C 18). `expose_port=` (or PADDLE_TPU_METRICS_PORT; 0 = ephemeral)
+starts the ops endpoint (/metrics, /statusz, /healthz, /healthz/live,
+/healthz/ready), enables the flight recorder and the stall watchdog
+(`stall_timeout_s`); `health()` / `liveness()` / `readiness()` /
+`set_draining()` / `statusz()` / `dump_flight_recorder()` answer
+in-process. `warm_buckets(modes)` captures, before `start()`, every
+decode graph and (unified) window graph the loop can reach for those
+modes, with all-padding rows whose writes land in the trash block: the
+port's prefill is eager and unbucketed (§C 8), so there is nothing else
+to warm; its captures are labelled not in flight.
+
+Left for later slices: the front door and scheduler seams (`meta=`,
+`set_scheduler`, preemption, tier prefetch; ROADMAP §A 8), causal
+trace contexts (`trace_ctx=`), SLOs, capacity snapshots, the timeline
+export, attribution (`attribution=True` raises) and the fleet hooks
+(`export_session`, `import_kv_payload`, `run_host_op`; §A 12), and
+sharding (§A 11).
 
 GenerationServer (the reference's, `paddle_tpu/inference/serving.py:
 289-639`) batches requests for one compiled decode program: a
@@ -126,17 +200,22 @@ and a full-length prompt containing the pad id is warned about (raised
 under `strict_pad_check=True`). A batch without an explicit seed draws
 seed + the batch count, so sampled batches never repeat their noise.
 `stats()` carries the paged server's `stop_reasons` and `quantization`
-blocks. The server computes nothing itself: the program runs on its own
-device. Left out (ROADMAP §A 7): `attribution=` (raises naming it) and
-`cost_report`, the tracing events and the metrics. `measure_offered_load`
-drives a server at a fixed request rate.
+blocks. It emits the reference's tracing events (`request_submitted`,
+`request_admitted`, the `decode_dispatch` span, `request_done`) and
+metrics (queue depth, busy rows, requests done, stop reasons, latency;
+`server="dense"`). The server computes nothing itself: the program runs
+on its own device. Left out (ROADMAP §A 12): `attribution=` (raises)
+and `cost_report`. `measure_offered_load` drives a server at a fixed
+request rate.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
-import logging
+import os
 import threading
 import time
+import weakref
 from concurrent.futures import Future
 from dataclasses import dataclass
 
@@ -145,18 +224,170 @@ import torch
 
 from ..device import resolve_device
 from ..nn.decode import PagedDecoder
+from ..observability import compile_tracker as _compile_tracker
+from ..observability import flight_recorder as _flight
+from ..observability import log as _obs_log
+from ..observability import metrics as _metrics
+from ..observability import tracing as _tracing
+from ..reliability import (AdmissionShed, QuarantinedRequest,
+                           RecoveryPolicy, RequestTimeout, SessionJournal,
+                           resolve_fault_plan)
 from ..sampling import SamplingParams, SlotParamStore
 from ..sampling.buffers import host_to_device
 from ..spec_decode import SpecConfig, build_verify_plan
-from .kv_cache import PagedKVCache, blocks_for
+from .kv_cache import BlockPoolExhausted, PagedKVCache, blocks_for
 from .kv_tier import normalize_kv_tier
 
-_logger = logging.getLogger(__name__)
+_logger = _obs_log.get_logger(__name__)
+
+ENV_METRICS_PORT = "PADDLE_TPU_METRICS_PORT"
+
+# Serving telemetry under the reference's names: one bool check per
+# update while PADDLE_TPU_TELEMETRY is off.
+_m_queue_depth = _metrics.gauge(
+    "serving_queue_depth", "requests waiting for a batch/slot",
+    labelnames=("server",))
+_m_slots_busy = _metrics.gauge(
+    "serving_slots_busy", "occupied decode slots (paged) / in-flight "
+    "batch rows (dense)", labelnames=("server",))
+_m_requests_done = _metrics.counter(
+    "serving_requests_total", "requests completed",
+    labelnames=("server",))
+_m_request_latency = _metrics.histogram(
+    "serving_request_latency_seconds", "submit -> future resolved",
+    labelnames=("server",))
+_m_ttft = _metrics.histogram(
+    "serving_ttft_seconds", "submit -> first generated token (paged)")
+_m_slot_releases = _metrics.counter(
+    "serving_slot_releases_total", "paged slots freed, by why the "
+    "request finished", labelnames=("reason",))
+_m_slot_refills = _metrics.counter(
+    "serving_slot_refills_total",
+    "idle paged slots refilled from the queue mid-flight")
+_m_itl = _metrics.histogram(
+    "paddle_tpu_serving_itl_seconds",
+    "inter-token latency per generated token (decode-dispatch gap "
+    "amortized over the tokens it emitted, paged) — the metric the "
+    "prefill_chunk_tokens knob is tuned against")
+_m_prefill_dispatches = _metrics.counter(
+    "serving_prefill_dispatches_total",
+    "packed ragged prefill chunk dispatches (paged); an admission "
+    "burst of N requests costs O(1) of these per decode round, not N")
+_m_decode_stall = _metrics.histogram(
+    "serving_decode_stall_seconds",
+    "time in-flight decode slots stalled while a packed prefill chunk "
+    "dispatch ran (bounded by the chunk token budget)")
+_m_stop_reason = _metrics.counter(
+    "serving_stop_reason_total",
+    "finished requests by why generation stopped "
+    "(eos | stop_token | stop_string | budget)",
+    labelnames=("server", "reason"))
+_m_sampling_fast = _metrics.counter(
+    "serving_sampling_fast_path_dispatches_total",
+    "decode dispatches that took the all-greedy fast path (no resident "
+    "request samples: bare argmax, no sort/PRNG cost)")
+_m_sampling_sampled = _metrics.counter(
+    "serving_sampling_sampled_dispatches_total",
+    "decode dispatches through the full vectorized sampling pipeline "
+    "(>= 1 resident sampled request)")
+_m_spec_proposed = _metrics.counter(
+    "serving_spec_proposed_tokens_total",
+    "draft tokens proposed by the drafter across all slots/rounds")
+_m_spec_accepted = _metrics.counter(
+    "serving_spec_accepted_tokens_total",
+    "proposed draft tokens the packed verification accepted")
+_m_spec_rolled_back = _metrics.counter(
+    "serving_spec_rolled_back_tokens_total",
+    "rejected draft positions rolled back out of the paged cache "
+    "(PagedKVCache.truncate_seq)")
+_m_spec_verify = _metrics.counter(
+    "serving_spec_verify_dispatches_total",
+    "packed verification dispatches (one per round scores every "
+    "speculating slot's drafts)")
+_m_spec_accept_rate = _metrics.histogram(
+    "serving_spec_acceptance_rate",
+    "per-slot per-round accepted/proposed draft fraction",
+    buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
+_m_resumes = _metrics.counter(
+    "serving_preempt_resumes_total",
+    "requests re-admitted from resume state (a recovery requeue or a "
+    "journal re-admission; re-prefill of prompt + generated-so-far, "
+    "served from the prefix cache when the swapped-out blocks survived "
+    "retention)")
+_m_decoded = _metrics.counter(
+    "serving_tokens_decoded_total",
+    "generated-token positions computed on device (decode steps, "
+    "verify positions, prefill token-0 samples, and resume re-prefill "
+    "of already-generated tokens)")
+_m_replayed = _metrics.counter(
+    "serving_tokens_replayed_total",
+    "decoded-token positions whose work was wasted: multi-step "
+    "post-stop discards, verify positions truncated by a stop, async "
+    "overshoot, and resume re-prefill of already-generated tokens")
+_m_goodput = _metrics.gauge(
+    "serving_goodput_ratio",
+    "emitted tokens / decoded-token positions for the current stats "
+    "window (1.0 = every device token reached a client; speculation "
+    "rollback, multi-step overrun and resume replay lower it)")
+_m_engine_exc = _metrics.counter(
+    "serving_engine_exceptions_total",
+    "engine dispatch exceptions, by dispatch kind",
+    labelnames=("where",))
+_m_round_dispatches = _metrics.histogram(
+    "serving_dispatches_per_round",
+    "attention dispatches one scheduler round issued (split path: "
+    "chunk prefill, decode and verify can each fire; unified round: "
+    "always 1)", buckets=(1.0, 2.0, 3.0, 4.0))
+_m_round_overlap = _metrics.histogram(
+    "serving_round_overlap_seconds",
+    "host plan+dispatch time of round N+1 hidden behind round N's "
+    "device execution (async double-buffered engine loop; only "
+    "observed while a round was in flight)",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.5))
+_m_fault_injected = _metrics.counter(
+    "serving_fault_injected_total",
+    "deterministic FaultPlan faults fired at an engine seam "
+    "(injection is opt-in: ctor fault_plan= or PADDLE_TPU_FAULT_PLAN)",
+    labelnames=("seam",))
+_m_dispatch_retries = _metrics.counter(
+    "serving_dispatch_retries_total",
+    "failing dispatches absorbed by the recovery ladder: implicated "
+    "requests were snapshotted and requeued for retry instead of "
+    "having their futures failed")
+_m_quarantined = _metrics.counter(
+    "serving_requests_quarantined_total",
+    "requests failed by the recovery ladder after implicating "
+    "themselves in quarantine_after consecutive dispatch failures "
+    "(co-resident requests resume token-identically)")
+_m_recoveries = _metrics.counter(
+    "serving_recoveries_total",
+    "clean recoveries: first successful dispatch after >= 1 dispatch "
+    "failure — health returns degraded -> ok")
+_m_timeouts = _metrics.counter(
+    "serving_request_timeouts_total",
+    "requests cancelled by their per-request timeout_s (queued or "
+    "resident; the slot and its blocks are freed)")
+_req_ids = itertools.count()
 
 STOP_REASONS = ("eos", "stop_token", "stop_string", "budget")
 
+HEALTH_CODES = {"ok": 0.0, "degraded": 1.0, "stalled": 2.0}
 
-@dataclass
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _dispatch_span(name, rids, **attrs):
+    """A dispatch's tracing span over the request ids `rids` (an
+    iterable, walked only when tracing is on); with tracing off, one
+    shared no-op context."""
+    if not _tracing.enabled():
+        return _NO_SPAN
+    return _tracing.span(name, request_ids=list(rids), **attrs)
+
+
+@dataclass(eq=False)  # identity: queues remove requests by identity
 class _Req:
     ids: np.ndarray
     future: Future
@@ -164,6 +395,20 @@ class _Req:
     budget: int
     sampling: SamplingParams
     seed: int  # the request's PRNG stream seed (uint32)
+    rid: str = ""
+    ttft: float | None = None
+    # streaming callback (token, reason|None), from the engine thread
+    on_token: object = None
+    # resume state: gen0 = tokens emitted before the last interruption
+    # (a recovery requeue or a journal re-admission; the slot's token
+    # list is re-seeded with them, so positions, the PRNG step and the
+    # budget are residency-invariant); resume_ids = ids ++ gen0, the
+    # prompt a resume re-prefills
+    gen0: tuple = ()
+    resume_ids: np.ndarray | None = None
+    # wall-clock cancellation deadline, seconds from submit (None =
+    # never)
+    timeout_s: float | None = None
 
 
 class PagedGenerationServer:
@@ -207,6 +452,20 @@ class PagedGenerationServer:
     unified_round: one dispatch per scheduler round (module docstring).
     async_rounds: the double-buffered unified loop; implies
         unified_round.
+    expose_port: None (or PADDLE_TPU_METRICS_PORT) -> no ops endpoint;
+        a port (0 = ephemeral) starts it with the flight recorder and
+        the stall watchdog.
+    flight_recorder: True or a `FlightRecorder` turns the recorder on
+        without the endpoint.
+    stall_timeout_s: the stall watchdog's threshold.
+    fault_plan: a `FaultPlan`, a spec string, or None (then
+        PADDLE_TPU_FAULT_PLAN, unset = no plan).
+    recovery: True (the default `RecoveryPolicy`), a RecoveryPolicy, or
+        False (a failed dispatch fails its requests).
+    journal: a path or a `SessionJournal` (module docstring).
+    shed_queue_depth: refuse a submit arriving at this queue depth
+        (`AdmissionShed`); None = never.
+    attribution: must be None or False (not ported, ROADMAP §A 12).
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
@@ -217,7 +476,15 @@ class PagedGenerationServer:
                  pack_align=None, detokenize=None, stop_tail_tokens=16,
                  enable_prefix_cache=False, kv_tier=None, kv_dtype=None,
                  quantization=None, weight_quant=None, speculation=None,
-                 unified_round=False, async_rounds=False, device=None):
+                 unified_round=False, async_rounds=False,
+                 expose_port=None, flight_recorder=None,
+                 stall_timeout_s=30.0, fault_plan=None, recovery=True,
+                 journal=None, shed_queue_depth=None, attribution=None,
+                 device=None):
+        if attribution:
+            raise ValueError(
+                "PagedGenerationServer(attribution=True) is not ported "
+                "(ROADMAP §A 12: attribution, capacity, SLOs)")
         if quantization not in (None, "w8a16"):
             raise ValueError(f"unknown quantization {quantization!r} "
                              "(supported: None, 'w8a16')")
@@ -300,6 +567,31 @@ class PagedGenerationServer:
             raise ValueError(
                 "kv_tier requires enable_prefix_cache=True (the tier "
                 "holds demoted prefix-index content)")
+        # reliability: the fault plan (one `is None` check per seam when
+        # absent), the recovery policy (None = the old blast radius),
+        # the journal and the shed depth; all validated before any
+        # device allocation
+        self._faults = resolve_fault_plan(fault_plan)
+        if recovery is True:
+            recovery = RecoveryPolicy()
+        elif recovery is False or recovery is None:
+            recovery = None
+        elif not isinstance(recovery, RecoveryPolicy):
+            raise TypeError(f"recovery must be a RecoveryPolicy or a "
+                            f"bool, got {type(recovery).__name__}")
+        self._recovery = recovery
+        if isinstance(journal, (str, os.PathLike)):
+            journal = SessionJournal(journal)
+        elif journal is not None and not isinstance(journal,
+                                                    SessionJournal):
+            raise TypeError(f"journal must be a SessionJournal or a "
+                            f"path, got {type(journal).__name__}")
+        self._journal = journal
+        if shed_queue_depth is not None and int(shed_queue_depth) < 1:
+            raise ValueError(f"shed_queue_depth must be >= 1, "
+                             f"got {shed_queue_depth}")
+        self._shed_depth = (None if shed_queue_depth is None
+                            else int(shed_queue_depth))
         self._params = {k: v.to(self.device)
                         for k, v in model.flat_params().items()}
         if quantization == "w8a16":
@@ -330,7 +622,7 @@ class PagedGenerationServer:
         self._seed0 = int(seed) & 0xFFFFFFFF
         self._auto_seeds = itertools.count()
         # slot state: None (idle) or dict(seq, req, toks, prompt, pos,
-        # budget, fed, t_last)
+        # budget, fed, cached, chunks, t_pre0, t_last)
         self._slots = [None] * self.max_slots
         self._worst: dict[int, int] = {}  # seq -> worst-case block count
         self._seq_counter = 0
@@ -344,15 +636,86 @@ class PagedGenerationServer:
         self._pending = None
         self._carry = None
         self._zero_carry = None
+        # recovery ladder state (outside the stats window)
+        self._fault_streak: dict[str, int] = {}  # rid -> consecutive
+        self._consec_failures = 0                # failing dispatches
+        self._any_timeouts = False  # set once a timed request is seen
+        self._last_recovery = None  # {"ts", "recovered_from", "failures"}
+        self._last_error = None
+        self._last_error_info = None
+        self._draining = False
+        self._warm_ran = False
         self._reset_window()
+        # ---- operations plane ----------------------------------------
+        if expose_port is None:
+            env_port = os.environ.get(ENV_METRICS_PORT, "")
+            expose_port = int(env_port) if env_port else None
+        self._ops_progress = 0  # bumped on every dispatch and admission;
+        # the stall watchdog samples it
+        if isinstance(flight_recorder, _flight.FlightRecorder):
+            self._recorder = flight_recorder
+        else:
+            self._recorder = _flight.FlightRecorder(
+                enabled=bool(flight_recorder)
+                or expose_port is not None)
+        self.stall_timeout_s = float(stall_timeout_s)
+        self._watchdog = None
+        self.exporter = None
+        # process-wide capture accounting: this engine answers "am I
+        # serving live work" for the in-flight label, mirrors captures
+        # into its flight recorder, and windows the count for
+        # stats()["compiles"] (weakrefs: no unregister needed)
+        _compile_tracker.register_in_flight_probe(self._ops_in_flight)
+        _compile_tracker.add_listener(self._on_compile_event)
+        self._compile_mark = _compile_tracker.mark()
+        if expose_port is not None:
+            # asking for a scrape endpoint IS opting into metrics
+            _metrics.REGISTRY.enable()
+            self._watchdog = _flight.StallWatchdog(
+                lambda: self._ops_progress, self._ops_in_flight,
+                timeout=self.stall_timeout_s,
+                on_stall=self._on_stall).start()
+            from ..observability.exporter import OpsEndpoint
+
+            self.exporter = OpsEndpoint(
+                statusz_fn=self.statusz, healthz_fn=self.health,
+                livez_fn=self.liveness,
+                readyz_fn=self.readiness).start(port=expose_port)
+            # pull-time health gauge of the most recent ops-plane
+            # server; a weak reference, so the registry does not keep a
+            # killed server (and its pool) alive
+            me = weakref.ref(self)
+
+            def health_code():
+                srv = me()
+                return HEALTH_CODES[srv.health()[0]] if srv else 0.0
+
+            _metrics.REGISTRY.gauge_fn(
+                "serving_health_state",
+                "engine health (0 ok, 1 degraded, 2 stalled) of the "
+                "most recent ops-plane server", health_code)
 
     # ---- client surface -------------------------------------------------
-    def submit(self, ids, max_new_tokens=None, sampling=None):
+    def submit(self, ids, max_new_tokens=None, sampling=None, *,
+               on_token=None, timeout_s=None, rid=None):
         """Enqueue one prompt (any length <= max_prompt_len; no padding).
         Returns a Future resolving to the UNPADDED [len + generated]
         int32 sequence. Generation stops at EOS, a stop token id, a stop
         string, or the token budget (`max_new_tokens` arg, else
-        `sampling`'s, else the server default)."""
+        `sampling`'s, else the server default).
+
+        on_token: callable(token, reason) called from the engine thread
+            for every generated token (reason None mid-stream, the stop
+            reason on the last); an exception drops the stream, not the
+            request.
+        timeout_s: cancel the request (slot and blocks freed, the future
+            fails with `RequestTimeout`) once it is this many seconds
+            past its submit, queued or resident. Needs a started server.
+        rid: a caller-pinned request id (default "pN"): the journal and
+            the quarantine diagnostics speak it.
+
+        With `shed_queue_depth=`, a submit arriving at a queue that deep
+        raises `AdmissionShed` (nothing is enqueued)."""
         if sampling is None:
             sampling = self._default_sampling
         elif not isinstance(sampling, SamplingParams):
@@ -373,6 +736,12 @@ class PagedGenerationServer:
         if not 1 <= budget <= self.max_new:
             raise ValueError(f"max_new_tokens {budget} not in "
                              f"[1, {self.max_new}]")
+        if timeout_s is not None:
+            timeout_s = float(timeout_s)
+            if timeout_s <= 0:
+                raise ValueError(f"timeout_s must be > 0, "
+                                 f"got {timeout_s}")
+            self._any_timeouts = True
         # explicit seeds reproduce tokens whatever the batch; auto seeds
         # give each request its own stream, deterministic given the
         # order of submission
@@ -380,12 +749,33 @@ class PagedGenerationServer:
                 (self._seed0 + 0x9E3779B9 * (1 + next(self._auto_seeds)))
                 & 0xFFFFFFFF)
         req = _Req(ids=ids, future=Future(), t_submit=time.perf_counter(),
-                   budget=budget, sampling=sampling, seed=seed)
+                   budget=budget, sampling=sampling, seed=seed,
+                   rid=(str(rid) if rid is not None
+                        else f"p{next(_req_ids)}"),
+                   on_token=on_token, timeout_s=timeout_s)
         with self._lock:
             if self._stop:
                 raise RuntimeError("server stopped")
+            if self._shed_depth is not None \
+                    and len(self._queue) >= self._shed_depth:
+                depth = len(self._queue)
+                self._sheds += 1
+                hint = self._retry_after_hint_locked(depth)
+                self._recorder.record("shed", request_id=req.rid,
+                                      depth=depth,
+                                      retry_after_s=round(hint, 3))
+                raise AdmissionShed(depth, self._shed_depth, hint)
             self._queue.append(req)
+            _m_queue_depth.labels(server="paged").set(len(self._queue))
+            if self._journal is not None:
+                # under the lock: the loop admits under it too, so the
+                # accept record precedes the request's first token
+                self._journal.record_accept(req)
             self._lock.notify()
+        self._recorder.record("submit", request_id=req.rid,
+                              prompt_len=int(ids.size), budget=budget)
+        _tracing.event("request_submitted", request_id=req.rid,
+                       prompt_len=int(ids.size), budget=budget)
         return req.future
 
     def start(self):
@@ -399,13 +789,27 @@ class PagedGenerationServer:
         self._thread.start()
         return self
 
-    def stop(self):
+    def _halt(self):
+        """Stop the loop (it processes the round in flight first), then
+        the ops plane; flush the journal."""
         with self._lock:
             self._stop = True
             self._lock.notify_all()
         if self._thread is not None:
             self._thread.join(timeout=120)
             self._thread = None
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        if self.exporter is not None:
+            self.exporter.stop()
+        if self._journal is not None:
+            self._journal.flush()
+
+    def stop(self):
+        """Graceful shutdown: queued and resident futures fail with
+        "server stopped" (no client hangs); their journal records stay
+        live, so a restarted server may still re-admit them."""
+        self._halt()
         with self._lock:
             pending = list(self._queue)
             self._queue.clear()
@@ -414,6 +818,15 @@ class PagedGenerationServer:
         for req in pending:
             if not req.future.done():
                 req.future.set_exception(RuntimeError("server stopped"))
+
+    def kill(self):
+        """Hard-stop the engine WITHOUT resolving the futures of queued
+        or resident requests: the crash of the journal's recovery story.
+        A fresh server built over the same journal re-admits every
+        accepted-but-unfinished request (`recover_from_journal`). The
+        round in flight is processed before the loop exits, so every
+        token the host had received is journaled."""
+        self._halt()
 
     # ---- stats -----------------------------------------------------------
     def _reset_window(self):
@@ -440,10 +853,28 @@ class PagedGenerationServer:
         self._round_dispatch_count = 0
         self._mixed_rounds = 0
         self._overlap_s = 0.0
+        # goodput: decoded = emitted + spec-rolled-back + replayed, by
+        # construction at every dispatch site
+        self._decoded_tokens = 0
+        self._replayed_tokens = 0
+        # reliability window counters
+        self._faults_injected = 0
+        self._dispatch_retries = 0
+        self._recoveries = 0
+        self._quarantined = 0
+        self._timeouts = 0
+        self._sheds = 0
+        self._resumes = 0
+        self._warm_resumes = 0
+        self._compile_mark = _compile_tracker.mark()
+        # a fresh window is healthy again
+        self._last_error = None
+        self._last_error_info = None
+        self._consec_failures = 0
 
     def reset_stats(self):
         """Zero the measurement window (latency, TTFT and ITL samples,
-        counters) and restart its clock."""
+        counters, the degraded state) and restart its clock."""
         with self._lock:
             self._reset_window()
             self._t0 = time.perf_counter()
@@ -466,6 +897,7 @@ class PagedGenerationServer:
                 "new_tokens": self._tokens_out,
                 "tokens_per_sec": self._tokens_out / dt if dt else 0.0,
                 "p50_ms": pct(lat, 0.50) * 1e3,
+                "p90_ms": pct(lat, 0.90) * 1e3,
                 "p99_ms": pct(lat, 0.99) * 1e3,
                 "ttft_p50_ms": pct(ttft, 0.50) * 1e3,
                 "ttft_p99_ms": pct(ttft, 0.99) * 1e3,
@@ -530,7 +962,602 @@ class PagedGenerationServer:
                     "kv_scale_bytes": self.cache.scale_bytes,
                     "kv_pool_bytes_total": self.cache.pool_bytes_total,
                 },
+                # decoded device tokens = emitted + speculation-rolled-
+                # back + replayed (multi-step overrun discards,
+                # stop-truncated verify positions, async overshoot,
+                # resume re-prefill of emitted tokens)
+                "goodput": {
+                    "decoded_tokens": self._decoded_tokens,
+                    "goodput_tokens": self._tokens_out,
+                    "rolled_back_tokens": self._spec_rolled_back,
+                    "replayed_tokens": self._replayed_tokens,
+                    "goodput_ratio": (self._tokens_out
+                                      / (self._decoded_tokens or 1)),
+                },
+                # fault injection, the recovery ladder, timeouts and
+                # shedding (zeros when nothing failed); `resumes` counts
+                # re-admissions from resume state, `warm_resumes` those
+                # that skipped the prefill
+                "reliability": {
+                    "recovery_enabled": self._recovery is not None,
+                    "fault_plan": (self._faults.describe()
+                                   if self._faults is not None
+                                   else None),
+                    "faults_injected": self._faults_injected,
+                    "dispatch_retries": self._dispatch_retries,
+                    "recoveries": self._recoveries,
+                    "quarantined": self._quarantined,
+                    "timeouts": self._timeouts,
+                    "shed": self._sheds,
+                    "resumes": self._resumes,
+                    "warm_resumes": self._warm_resumes,
+                    "consecutive_failures": self._consec_failures,
+                    "last_recovery": (dict(self._last_recovery)
+                                      if self._last_recovery else None),
+                    "journal": (self._journal.stats()
+                                if self._journal is not None else None),
+                },
+                # CUDA graph captures inside THIS window (the process-
+                # wide capture tracker, windowed at reset_stats):
+                # in_flight > 0 means a capture landed on live requests
+                "compiles": {
+                    "window_total": _compile_tracker.count_since(
+                        self._compile_mark),
+                    "window_in_flight": _compile_tracker.count_since(
+                        self._compile_mark, in_flight=True),
+                },
+                # ops plane state (schema-stable when disabled)
+                "ops": {
+                    "exporter_port": (self.exporter.port
+                                      if self.exporter else None),
+                    "health": ("ok" if self._watchdog is None
+                               and self._last_error is None
+                               else self.health()[0]),
+                    "stalls": (self._watchdog.stalls
+                               if self._watchdog else 0),
+                    "flight_recorder": self._recorder.stats(),
+                },
+                "available_blocks": self.cache.available_block_count,
+                "queue_depth": len(self._queue),
+                "wall_s": dt,
             }
+
+    def cost_report(self):
+        """Not ported (ROADMAP §A 12: attribution)."""
+        raise NotImplementedError(
+            "PagedGenerationServer.cost_report is not ported (ROADMAP "
+            "§A 12: attribution)")
+
+    # ---- health and the operations plane ---------------------------------
+    def _ops_in_flight(self):
+        """True while the engine has live work: busy slots or queued
+        requests. Read lock-free from the watchdog and capture-tracker
+        threads (staleness only delays detection by one poll)."""
+        if self._stop:
+            # a stopped or killed engine never dispatches again (kill()
+            # leaves its slots occupied on purpose): never in flight
+            return False
+        return any(s is not None for s in self._slots) or bool(self._queue)
+
+    def _on_compile_event(self, ev):
+        # a finished capture IS progress: without this, the dispatch
+        # that captured reads as a stall to the watchdog (a capture that
+        # itself outlasts the threshold still trips)
+        self._ops_progress += 1
+        self._recorder.record(
+            "compile", program=ev["program"],
+            dur_s=round(ev["dur_s"], 4), in_flight=ev["in_flight"],
+            shard=ev["shard"])
+
+    def _on_stall(self):
+        self._recorder.record("stall", progress=self._ops_progress,
+                              free_blocks=self.cache.available_block_count)
+        if self._recorder.enabled:
+            self._recorder.dump(trigger="stall")
+
+    def health(self):
+        """(status, detail) for /healthz: "stalled" while the watchdog
+        sees pending work with no dispatch progress (503), "degraded"
+        after a dispatch exception until a clean recovery (the first
+        successful dispatch after it) or reset_stats(); the detail then
+        carries the reason it recovered from and when."""
+        detail = {
+            "engine_running": self._thread is not None,
+            "progress": self._ops_progress,
+            "stalls": self._watchdog.stalls if self._watchdog else 0,
+        }
+        if self._last_recovery is not None:
+            detail["last_recovery"] = dict(self._last_recovery)
+        if self._watchdog is not None and self._watchdog.stalled:
+            detail["stall_timeout_s"] = self.stall_timeout_s
+            return "stalled", detail
+        if self._last_error is not None:
+            detail["last_error"] = self._last_error
+            detail["degraded_reason"] = self._last_error
+            if self._last_error_info is not None:
+                detail["last_error_info"] = dict(self._last_error_info)
+            return "degraded", detail
+        return "ok", detail
+
+    def liveness(self):
+        """(live, detail) for /healthz/live: the engine loop is alive
+        (started, not stopped, thread running). Degraded or stalled is
+        still live."""
+        alive = (not self._stop and self._thread is not None
+                 and self._thread.is_alive())
+        return alive, {"engine_running": alive, "stopped": self._stop,
+                       "progress": self._ops_progress}
+
+    def readiness(self):
+        """(ready, detail) for /healthz/ready: alive AND accepting
+        admissions (not draining, not stalled). `warmed` says whether
+        `warm_buckets` ran."""
+        alive, detail = self.liveness()
+        stalled = self._watchdog is not None and self._watchdog.stalled
+        ready = alive and not stalled and not self._draining
+        detail = dict(detail, stalled=stalled, draining=self._draining,
+                      warmed=self._warm_ran, queue_depth=len(self._queue))
+        return ready, detail
+
+    def set_draining(self, draining=True):
+        """Mark the engine drain-only: /healthz/ready answers 503 while
+        residents keep decoding. Returns self."""
+        self._draining = bool(draining)
+        self._recorder.record("draining", draining=self._draining)
+        return self
+
+    def statusz(self):
+        """Live JSON engine state for /statusz: per-slot residency, the
+        three health views, stats() and the flight recorder's summary."""
+        with self._lock:
+            slots = []
+            for i, s in enumerate(self._slots):
+                if s is None:
+                    continue
+                slots.append({
+                    "slot": i, "request_id": s["req"].rid,
+                    "seq": s["seq"], "prompt_len": int(s["prompt"].size),
+                    "fed": int(s["fed"]), "tokens": len(s["toks"]),
+                    "budget": s["budget"],
+                    "phase": ("decode" if s["fed"] >= s["prompt"].size
+                              else "prefill"),
+                })
+        status, detail = self.health()
+        live, live_detail = self.liveness()
+        ready, ready_detail = self.readiness()
+        return {
+            "server": "paged",
+            "health": {"status": status, **detail},
+            "liveness": {"live": live, **live_detail},
+            "readiness": {"ready": ready, **ready_detail},
+            "slots": slots,
+            "max_slots": self.max_slots,
+            "engine": self.stats(),
+            "flight_recorder": self._recorder.stats(),
+            "last_dump": self._recorder.last_dump,
+        }
+
+    def dump_flight_recorder(self):
+        """Manual flight-recorder dump (a stall or a dispatch exception
+        dumps automatically)."""
+        return self._recorder.dump(trigger="manual")
+
+    def warm_buckets(self, modes=((False, False),)):
+        """Capture, before `start()`, every CUDA graph the loop can
+        reach for the given sampling modes ((any sampled, any
+        penalties) pairs), so live traffic never pays a capture: the
+        decode graph (`steps_per_dispatch`, max_slots rows), with
+        speculation the verify graph (its pinned plan shape), and in the
+        unified loop the window graph of every row count P (powers of
+        two up to max_slots). Each is captured through ONE all-padding
+        dispatch (positions -1 and empty tables: every write lands in
+        the trash block; no sequence, sampling or cache state changes).
+        The packed prefill and the mixed unified rounds are eager and
+        unbucketed here (ROADMAP §C 8), so they have nothing to warm.
+        On the CPU nothing is captured. Returns the graphs captured;
+        sets `warmed` in readiness()."""
+        if self._thread is not None:
+            raise RuntimeError(
+                "warm_buckets must run before start() (the engine loop "
+                "owns the cache once it is running)")
+        n = 0
+        if self.device.type == "cuda":
+            dec = self._decoder
+            c0 = dec.graphs.captures
+            S, W, K1 = self.max_slots, self._uk1, self._uk1
+            kc, vc = self.cache.k_blocks, self.cache.v_blocks
+
+            def z(*shape):
+                return torch.zeros(shape, dtype=torch.int32,
+                                   device=self.device)
+
+            def neg(*shape):
+                return torch.full(shape, -1, dtype=torch.int32,
+                                  device=self.device)
+
+            for mode in modes:
+                mode = (bool(mode[0]), bool(mode[1]))
+                if not self._unified:
+                    dec.graphs(self.steps_per_dispatch, mode, self._params,
+                               z(S), z(S),
+                               torch.zeros((S,), dtype=torch.bool,
+                                           device=self.device),
+                               z(S, self._m_width), kc, vc,
+                               self._sp_store.warm_step_args(mode))
+                    if self._drafter is not None:
+                        P = 1
+                        while P < S:
+                            P *= 2
+                        dec.graphs.verify(
+                            mode, self._params, z(P * W), z(P * W),
+                            neg(P * W), z(P, self._m_width), z(P, K1),
+                            neg(P), kc, vc,
+                            self._sp_store.warm_unified_args(P, mode))
+                    continue
+                P = 1
+                while True:
+                    T = P * W
+                    dec.graphs.unified(
+                        mode, self._params, z(T), z(T), neg(T),
+                        z(P, self._m_width), z(P, K1), neg(P), neg(P),
+                        neg(T), neg(T), neg(P), z(S), z(S), z(S), kc, vc,
+                        self._sp_store.warm_unified_args(P, mode))
+                    if P >= S:
+                        break
+                    P *= 2
+            torch.cuda.synchronize(self.device)
+            n = dec.graphs.captures - c0
+        _logger.info("warm_buckets: captured %d graphs (%d modes)", n,
+                     len(modes))
+        self._warm_ran = True
+        return n
+
+    # ---- reliability -------------------------------------------------------
+    def _engine_exception(self, where, e, request_ids=()):
+        """Shared dispatch-exception bookkeeping: health goes degraded
+        (until a clean recovery or reset_stats), the exception counts by
+        dispatch kind, and the flight recorder auto-dumps."""
+        self._last_error = f"{where}: {type(e).__name__}: {e}"
+        info = {"where": where, "error_type": type(e).__name__,
+                "message": str(e)}
+        if isinstance(e, BlockPoolExhausted):
+            info["needed"] = e.needed
+            info["available"] = e.available
+        self._last_error_info = info
+        _m_engine_exc.labels(where=where).inc()
+        self._recorder.record("engine_exception", where=where,
+                              error=self._last_error,
+                              request_ids=list(request_ids))
+        if self._recorder.enabled:
+            self._recorder.dump(trigger="engine_exception")
+
+    def _maybe_fault(self, seam):
+        """Deterministic fault-injection point: one `is None` check
+        with no plan; otherwise poll the plan's seam x occurrence
+        schedule and turn a scheduled fault into its effect (raise,
+        simulated pool exhaustion, or a watchdog-visible sleep)."""
+        plan = self._faults
+        if plan is None:
+            return
+        f = plan.poll(seam)
+        if f is None:
+            return
+        with self._lock:
+            self._faults_injected += 1
+        _m_fault_injected.labels(seam=seam).inc()
+        self._recorder.record("fault_injected", seam=seam, kind=f.kind,
+                              occurrence=f.index)
+        _tracing.event("fault_injected", seam=seam, kind=f.kind,
+                       occurrence=f.index)
+        if f.kind == "slow":
+            time.sleep(f.delay_s)
+            return
+        if f.kind == "exhausted":
+            raise BlockPoolExhausted(
+                f"injected fault at seam '{seam}' (occurrence "
+                f"{f.index}): simulated pool exhaustion")
+        raise plan.make_fault(f)
+
+    def _release_slot(self, i):
+        """Free slot i: its blocks back to the pool, its reservation and
+        its sampling row dropped. Returns the slot's state."""
+        s = self._slots[i]
+        if self.cache.has_seq(s["seq"]):
+            self.cache.free(s["seq"])
+        self._worst.pop(s["seq"], None)
+        self._slots[i] = None
+        self._sp_store.clear_slot(i)
+        return s
+
+    def _recover_slot(self, i, where):
+        """Snapshot one implicated slot for retry: roll its sequence back
+        to the DURABLE length (positions completed dispatches wrote: the
+        failed dispatch may have grown the table past them), publish
+        that prefix through `swap_out_seq` when prefix caching is on
+        (else free it), free the slot and return the request with its
+        resume state. None when the slot already emptied."""
+        s = self._slots[i]
+        if s is None:
+            return None
+        seq, req = s["seq"], s["req"]
+        toks = s["toks"]
+        in_decode = s["fed"] >= s["prompt"].size
+        durable = (s["pos"] + len(toks) - 1 if in_decode and toks
+                   else int(s["fed"]))
+        known = (np.concatenate([req.ids, np.asarray(toks, np.int32)])
+                 if toks else req.ids)
+        if self.cache.has_seq(seq):
+            live = self.cache.seq_len(seq)
+            durable = max(0, min(live, durable))
+            if durable < live:
+                self.cache.truncate_seq(seq, durable)
+            if self.enable_prefix_cache and durable > 0:
+                self.cache.swap_out_seq(seq, known[:durable])
+            else:
+                self.cache.free(seq)
+        self._worst.pop(seq, None)
+        self._slots[i] = None
+        self._sp_store.clear_slot(i)
+        req.gen0 = tuple(toks)
+        req.resume_ids = known
+        self._recorder.record(
+            "recover_requeue", request_id=req.rid, slot=i, seq=seq,
+            where=where, tokens_done=len(toks), durable=int(durable))
+        _tracing.event("recover_requeue", request_id=req.rid, slot=i,
+                       seq=seq, where=where)
+        return req
+
+    def _quarantine_slot(self, i, where, e, failures):
+        """Give up on ONE request: fail its future with a diagnostic
+        naming the seam, free its slot and blocks. Co-residents are
+        untouched."""
+        s = self._release_slot(i)
+        req = s["req"]
+        err = QuarantinedRequest(req.rid, where, failures, e)
+        with self._lock:
+            self._quarantined += 1
+        _m_quarantined.inc()
+        if self._journal is not None:
+            self._journal.record_done(req.rid, "quarantined")
+        self._recorder.record("quarantine", request_id=req.rid, slot=i,
+                              seq=s["seq"], seam=where, failures=failures,
+                              error=f"{type(e).__name__}: {e}")
+        _tracing.event("quarantined", request_id=req.rid, slot=i,
+                       seam=where, failures=failures, cost=None)
+        _logger.error("quarantined request %s after %d consecutive "
+                      "failure(s) at seam %s: %s", req.rid, failures,
+                      where, e)
+        req.future.set_exception(err)
+
+    def _dispatch_failure(self, where, e, slot_idx):
+        """A dispatch raised. With recovery off: every request in it
+        fails with `e` (the old blast radius). With the ladder: process
+        the async round in flight first (its tokens are real), snapshot
+        and requeue every implicated request at the FRONT of the queue,
+        quarantine at most ONE whose consecutive-failure streak reached
+        the policy's threshold (highest streak, lowest slot on ties),
+        drop the dispatch state (the carry, the pending round) and back
+        off before the loop retries."""
+        rids = [self._slots[i]["req"].rid for i in slot_idx
+                if self._slots[i] is not None]
+        self._engine_exception(where, e, rids)
+        _logger.error("dispatch %s failed for slots %s: %s: %s", where,
+                      list(slot_idx), type(e).__name__, e)
+        if self._recovery is None:
+            for i in slot_idx:
+                if self._slots[i] is None:
+                    continue
+                s = self._release_slot(i)
+                if self._journal is not None:
+                    self._journal.record_done(s["req"].rid, "failed")
+                s["req"].future.set_exception(e)
+            return
+        pol = self._recovery
+        self._drain_pending()
+        with self._lock:
+            self._dispatch_retries += 1
+            self._consec_failures += 1
+            consec = self._consec_failures
+        _m_dispatch_retries.inc()
+        live = [i for i in slot_idx if self._slots[i] is not None]
+        for i in live:
+            rid = self._slots[i]["req"].rid
+            self._fault_streak[rid] = self._fault_streak.get(rid, 0) + 1
+        suspects = [i for i in live
+                    if self._fault_streak[self._slots[i]["req"].rid]
+                    >= pol.quarantine_after]
+        if suspects:
+            victim = max(suspects, key=lambda i: (
+                self._fault_streak[self._slots[i]["req"].rid], -i))
+            streak = self._fault_streak.pop(
+                self._slots[victim]["req"].rid)
+            self._quarantine_slot(victim, where, e, streak)
+            live.remove(victim)
+        requeued = [r for r in (self._recover_slot(i, where) for i in live)
+                    if r is not None]
+        with self._lock:
+            for req in reversed(requeued):
+                self._queue.insert(0, req)
+            _m_queue_depth.labels(server="paged").set(len(self._queue))
+            self._lock.notify()
+        # the device chain may name freed slots: reseed from the host
+        self._pending = None
+        self._carry = None
+        delay = pol.backoff_s(consec)
+        if delay > 0:
+            with self._lock:
+                if not self._stop:
+                    self._lock.wait(timeout=delay)
+
+    def _dispatch_ok(self, slots):
+        """Success bookkeeping of the ladder: reset the failure streaks
+        of the requests in the dispatched `slots` (an iterable, walked
+        only after a failure); the first success after >= 1 failure is
+        a CLEAN RECOVERY (health degraded -> ok, counted and
+        timestamped)."""
+        if self._recovery is None or (self._consec_failures == 0
+                                      and not self._fault_streak):
+            return
+        for i in slots:
+            if self._slots[i] is not None:
+                self._fault_streak.pop(self._slots[i]["req"].rid, None)
+        if not self._consec_failures:
+            return
+        with self._lock:
+            self._last_recovery = {
+                "ts": time.time(),
+                "recovered_from": self._last_error,
+                "failures": self._consec_failures,
+            }
+            self._consec_failures = 0
+            self._recoveries += 1
+            self._last_error = None
+            self._last_error_info = None
+        _m_recoveries.inc()
+        self._recorder.record(
+            "recovered", failures=self._last_recovery["failures"],
+            recovered_from=self._last_recovery["recovered_from"])
+        _tracing.event("recovered",
+                       failures=self._last_recovery["failures"])
+        _logger.warning("engine recovered after %d failed dispatch(es): "
+                        "%s", self._last_recovery["failures"],
+                        self._last_recovery["recovered_from"])
+
+    def _fail_timeout_req(self, req, now):
+        """Fail one expired request (already detached from the queue or
+        its slot). Caller holds the lock."""
+        self._timeouts += 1
+        _m_timeouts.inc()
+        if self._journal is not None:
+            self._journal.record_done(req.rid, "timeout")
+        self._recorder.record("request_timeout", request_id=req.rid,
+                              waited_s=round(now - req.t_submit, 4),
+                              timeout_s=req.timeout_s)
+        _tracing.event("request_timeout", request_id=req.rid,
+                       waited_s=now - req.t_submit, cost=None)
+        req.future.set_exception(RequestTimeout(
+            req.rid, now - req.t_submit, req.timeout_s))
+
+    def _expire_timeouts_locked(self, now):
+        """Cancel every queued or resident request past its timeout_s.
+        SLOT-FREEING: a resident's blocks return to the pool at once.
+        Caller holds the lock."""
+        def dead(r):
+            return (r.timeout_s is not None
+                    and now - r.t_submit > r.timeout_s)
+
+        expired = [r for r in self._queue if dead(r)]
+        if expired:
+            for r in expired:
+                self._queue.remove(r)
+            _m_queue_depth.labels(server="paged").set(len(self._queue))
+        for r in expired:
+            self._fail_timeout_req(r, now)
+        if any(s is not None and dead(s["req"]) for s in self._slots):
+            self._drain_pending()  # async: host state goes authoritative
+            for i, s in enumerate(self._slots):
+                if s is None or not dead(s["req"]):
+                    continue
+                self._release_slot(i)
+                self._fail_timeout_req(s["req"], now)
+
+    def _retry_after_hint_locked(self, depth):
+        """Estimated seconds until the queue drains one admission wave:
+        the AdmissionShed hint."""
+        lat = sorted(self._lat)
+        p50 = lat[len(lat) // 2] if lat else 0.25
+        waves = -(-int(depth) // max(1, self.max_slots))
+        return max(0.05, p50) * max(1, waves)
+
+    # ---- the journal -------------------------------------------------------
+    def recover_from_journal(self, journal=None):
+        """Re-admit every accepted-but-unfinished request recorded in
+        `journal` (default: the server's own) from its recorded prompt,
+        emitted tokens, seed, budget and sampling. A request whose
+        recorded tokens already satisfy a stop condition resolves at
+        once. Returns {rid: Future}; call before or after start()."""
+        j = journal if journal is not None else self._journal
+        if j is None:
+            raise ValueError("no journal: pass one or build the "
+                             "server with journal=")
+        return {ent["rid"]: self.admit_journal_entry(ent)
+                for ent in j.interrupted()}
+
+    def admit_journal_entry(self, ent, on_token=None):
+        """Re-admit ONE journal-shape entry (rid, ids, gen0, budget,
+        seed, sampling, timeout_s; what `SessionJournal.interrupted()`
+        yields) and return its Future. `on_token` streams the REMAINING
+        tokens only."""
+        req = self._build_resume_req(ent)
+        req.on_token = on_token
+        done = self._journal_terminal_reason(req)
+        if done is not None:
+            # the interruption lost only the terminal record
+            if self._journal is not None:
+                self._journal.record_done(req.rid, done)
+            req.future.set_result(np.concatenate(
+                [req.ids, np.asarray(req.gen0, np.int32)])
+                if req.gen0 else req.ids.copy())
+            return req.future
+        with self._lock:
+            if self._stop:
+                raise RuntimeError("server stopped")
+            self._queue.append(req)
+            _m_queue_depth.labels(server="paged").set(len(self._queue))
+            if self._journal is not None:
+                # re-accept with gen0 folded in, so a second crash
+                # resumes from here
+                self._journal.record_accept(req)
+            self._lock.notify()
+        self._recorder.record("journal_readmit", request_id=req.rid,
+                              tokens_done=len(req.gen0))
+        _tracing.event("journal_readmit", request_id=req.rid,
+                       tokens_done=len(req.gen0))
+        return req.future
+
+    def _build_resume_req(self, ent):
+        """One journal entry -> a resume-state `_Req` (not through
+        submit(): the recorded seed must win over auto-derivation)."""
+        sampling = (SamplingParams(**{k: tuple(v) if isinstance(v, list)
+                                      else v
+                                      for k, v in ent["sampling"].items()})
+                    if ent.get("sampling") else self._default_sampling)
+        if sampling.stop_strings and self._detok is None:
+            raise ValueError(
+                f"journal request {ent['rid']!r} uses stop_strings but "
+                f"this server has no detokenizer (pass detokenize=)")
+        req = _Req(ids=np.asarray(ent["ids"], np.int32), future=Future(),
+                   t_submit=time.perf_counter(), budget=int(ent["budget"]),
+                   sampling=sampling, seed=int(ent["seed"]),
+                   rid=ent["rid"], timeout_s=ent.get("timeout_s"))
+        gen0 = [int(t) for t in ent.get("gen0", [])]
+        if gen0:
+            req.gen0 = tuple(gen0)
+            req.resume_ids = np.concatenate(
+                [req.ids, np.asarray(gen0, np.int32)])
+        if req.timeout_s is not None:
+            self._any_timeouts = True
+        return req
+
+    def _journal_terminal_reason(self, req):
+        """The stop reason a journal-recovered request's recorded tokens
+        already satisfy (the crash lost only the terminal record), or
+        None."""
+        if not req.gen0:
+            return None
+        if len(req.gen0) >= req.budget:
+            return "budget"
+        last = int(req.gen0[-1])
+        sp = req.sampling
+        if self.eos >= 0 and last == self.eos:
+            return "eos"
+        if sp is not None and last in getattr(sp, "stop_token_ids", ()):
+            return "stop_token"
+        if sp is not None and sp.stop_strings and self._detok is not None:
+            tail = self._detok(list(req.gen0)[-self.stop_tail_tokens:])
+            if any(s in tail for s in sp.stop_strings):
+                return "stop_string"
+        return None
 
     # ---- admission -------------------------------------------------------
     def _outstanding_blocks(self):
@@ -545,36 +1572,80 @@ class PagedGenerationServer:
     def _worst_blocks(self, req):
         """Worst-case block reservation for `req` (prompt + budget + the
         multi-step, speculative and async overrun), plus one spare block
-        for the (at most one)
-        copy-on-write a prefix attach ending mid-block can force."""
-        return blocks_for(req.ids.size + req.budget + self._overrun,
+        for the (at most one) copy-on-write a prefix attach ending
+        mid-block can force. A resumed request's resume prompt replaces
+        the prompt and its emitted tokens come off the budget: the same
+        total."""
+        prompt = req.resume_ids if req.resume_ids is not None else req.ids
+        remaining = req.budget - len(req.gen0)
+        return blocks_for(prompt.size + remaining + self._overrun,
                           self.block_size) + (
             1 if self.enable_prefix_cache else 0)
 
     def _install_slot_locked(self, i, req, worst):
-        """Bind `req` to slot `i` (the caller checked the reservation)."""
+        """Bind `req` to slot `i` (the caller checked the reservation). A
+        resumed request's slot is re-seeded with its emitted tokens and
+        its resume prompt, so every position, PRNG-step and budget
+        formula downstream is residency-invariant."""
         seq = self._seq_counter
         self._seq_counter += 1
         self._worst[seq] = worst
+        prompt = req.resume_ids if req.resume_ids is not None else req.ids
         # prefix caching: attach the longest cached chain; those tokens
         # count as fed and the prefill starts at the first uncached one
         cached = 0
         if self.enable_prefix_cache:
-            cached = self.cache.attach_prefix(seq, req.ids)
+            cached = self.cache.attach_prefix(seq, prompt)
+        # WARM RESUME: every position but the last attached, and at
+        # least one token emitted before the interruption. The slot is a
+        # decode slot already: its last emitted token is the decode
+        # input, position size - 1 the one position to write, the PRNG
+        # step len(gen0). It rejoins the next decode dispatch with no
+        # prefill.
+        warm = (req.resume_ids is not None and bool(req.gen0)
+                and cached >= prompt.size - 1)
+        if warm:
+            # the write block may still be shared with the prefix the
+            # swap-out published: privatize it first
+            self.cache.prepare_write(seq, prompt.size - 1)
         # fed: prompt tokens already written to the cache — the slot is
         # in its PREFILL phase until fed == prompt length, then decodes
-        self._slots[i] = {"seq": seq, "req": req, "toks": [],
-                          "prompt": req.ids, "pos": req.ids.size,
-                          "budget": req.budget, "fed": cached,
+        self._slots[i] = {"seq": seq, "req": req, "toks": list(req.gen0),
+                          "prompt": prompt, "pos": req.ids.size,
+                          "budget": req.budget,
+                          "fed": prompt.size if warm else cached,
+                          "cached": cached, "chunks": 0, "t_pre0": None,
                           "t_last": None}
-        # penalty counts seed from the prompt
+        # penalty counts seed from the (resume) prompt: prompt counts +
+        # generated counts, the uninterrupted run's buffer state
         self._sp_store.set_slot(i, req.sampling, req.seed, eos=self.eos,
-                                prompt_ids=req.ids)
+                                prompt_ids=prompt)
+        if req.resume_ids is not None:
+            self._resumes += 1
+            if warm:
+                self._warm_resumes += 1
+            _m_resumes.inc()
+            _tracing.event("resumed", request_id=req.rid, slot=i, seq=seq,
+                           cached_tokens=cached,
+                           tokens_done=len(req.gen0), warm=warm)
+        if warm and self._async:
+            # the slot joins the next decode dispatch directly: its carry
+            # entry must hold its host-known state
+            self._seed_carry_slot(i)
+        _m_slot_refills.inc()
+        self._ops_progress += 1
+        self._recorder.record(
+            "admit", request_id=req.rid, slot=i, seq=seq,
+            cached_tokens=cached, resume=req.resume_ids is not None,
+            free_blocks=self.cache.available_block_count)
+        _tracing.event("request_admitted", request_id=req.rid, slot=i,
+                       seq=seq, cached_tokens=cached)
 
     def _admit_locked(self):
         """Fill idle slots FIFO while the pool can cover each request's
         worst case; head-of-line blocking keeps arrival order under
         pressure."""
+        admitted = False
         for i, slot in enumerate(self._slots):
             if slot is not None or not self._queue:
                 continue
@@ -585,14 +1656,19 @@ class PagedGenerationServer:
                 break
             self._queue.pop(0)
             self._install_slot_locked(i, req, worst)
+            admitted = True
+        if admitted and _metrics.enabled():
+            _m_queue_depth.labels(server="paged").set(len(self._queue))
 
     # ---- the loop --------------------------------------------------------
     def _loop(self):
         try:
             self._loop_body()
         except Exception as e:  # noqa: BLE001 — the engine thread's
-            # boundary: an engine bug must not strand callers on futures
-            # that never resolve
+            # boundary: an engine bug leaves a post-hoc record (health
+            # degraded, the flight recorder dumps) and must not strand
+            # callers on futures that never resolve
+            self._engine_exception("engine_loop", e)
             _logger.exception("paged serving loop died")
             with self._lock:
                 self._stop = True
@@ -608,6 +1684,8 @@ class PagedGenerationServer:
             with self._lock:
                 stop = self._stop
                 if not stop:
+                    if self._any_timeouts:
+                        self._expire_timeouts_locked(time.perf_counter())
                     self._admit_locked()
                     idle = all(s is None for s in self._slots)
                     if idle and self._pending is None:
@@ -633,6 +1711,7 @@ class PagedGenerationServer:
             self._round_dispatch_count += n_dispatches
             if mixed:
                 self._mixed_rounds += 1
+        _m_round_dispatches.observe(float(n_dispatches))
 
     def _dispatches(self):
         return self._prefill_dispatches + self._steps + self._spec_dispatches
@@ -647,6 +1726,9 @@ class PagedGenerationServer:
                    if s is not None and s["fed"] < s["prompt"].size]
         if pre_idx:
             self._prefill_packed(pre_idx)
+        if _metrics.enabled():
+            _m_slots_busy.labels(server="paged").set(
+                sum(s is not None for s in self._slots))
         active_idx = [i for i, s in enumerate(self._slots)
                       if s is not None and s["fed"] >= s["prompt"].size]
         if active_idx:
@@ -665,26 +1747,6 @@ class PagedGenerationServer:
             self._note_round(d1 - d0,
                              mixed=bool(pre_idx) and bool(active_idx))
 
-    def _fail_slot(self, i, e):
-        """Fail slot i's request with `e`, return its blocks and free
-        the slot."""
-        s = self._slots[i]
-        if self.cache.has_seq(s["seq"]):
-            self.cache.free(s["seq"])
-        self._worst.pop(s["seq"], None)
-        self._slots[i] = None
-        self._sp_store.clear_slot(i)
-        s["req"].future.set_exception(e)
-
-    def _dispatch_failure(self, e, slot_idx):
-        """A dispatch raised: fail exactly the requests in it, return
-        their blocks, and keep serving the rest."""
-        _logger.error("dispatch failed for slots %s: %s: %s", slot_idx,
-                      type(e).__name__, e)
-        for i in slot_idx:
-            if self._slots[i] is not None:
-                self._fail_slot(i, e)
-
     def _tensor(self, a):
         return host_to_device(a, self.device)
 
@@ -693,7 +1755,8 @@ class PagedGenerationServer:
         into page-locked buffers by non-blocking copies, with an event
         after them (the outputs may be a graph's, overwritten by its
         next replay: the copies are queued before it). Returns what
-        `_host_arrays` reads."""
+        `_host_arrays` reads. The buffers are made per dispatch, so no
+        failed dispatch leaves one behind."""
         if self.device.type != "cuda":
             return tuple(tensors), None
         host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -711,6 +1774,38 @@ class PagedGenerationServer:
         if ev is not None:
             ev.synchronize()
         return tuple(h.numpy() for h in host)
+
+    def _note_first_token(self, s, t_now):
+        """A prompt's last chunk landed: TTFT (a resumed request keeps
+        its first residency's), the prefix publish, the per-request
+        prefill trace event."""
+        req = s["req"]
+        if req.ttft is None:
+            req.ttft = t_now - req.t_submit
+            _m_ttft.observe(req.ttft)
+            with self._lock:
+                self._ttft.append(req.ttft)
+        if self.enable_prefix_cache:
+            # every prompt position is written: index the blocks (a
+            # resumed request publishes its resume prompt)
+            self.cache.publish_prefix(s["seq"], s["prompt"])
+        t_pre0 = s["t_pre0"] if s["t_pre0"] is not None else t_now
+        _tracing.event("prefill", request_id=req.rid, ts=t_pre0,
+                       dur=t_now - t_pre0, prompt_len=int(s["prompt"].size),
+                       seq=s["seq"], chunks=s["chunks"],
+                       cached_tokens=s["cached"])
+        with self._lock:
+            self._prefills += 1
+        s["t_last"] = t_now
+
+    @staticmethod
+    def _replay_of(req, start, n):
+        """Positions of a chunk [start, start + n) past the request's
+        ORIGINAL prompt: emitted tokens a resume re-feeds (decoded work
+        that emits nothing)."""
+        if req.resume_ids is None:
+            return 0
+        return max(0, start + n - max(start, req.ids.size))
 
     def _prefill_packed(self, pre_idx):
         """ONE packed ragged prefill dispatch over up to
@@ -733,59 +1828,93 @@ class PagedGenerationServer:
         seg = np.zeros((T,), np.int32)
         pos = np.full((T,), -1, np.int32)  # -1 marks packing pad
         sample_idx = np.zeros((P,), np.int32)
+        base_steps = np.zeros((P,), np.int32)
         done_rows = []  # (slot_idx, plan_row)
         for r, (i, start, n, o) in enumerate(plan):
             s = self._slots[i]
             toks[o:o + n] = s["prompt"][start:start + n]
             seg[o:o + n] = r
             pos[o:o + n] = np.arange(start, start + n, dtype=np.int32)
+            # a resumed request samples its next token at PRNG step
+            # len(generated so far), where an uninterrupted decode would
+            base_steps[r] = len(s["toks"])
+            if s["t_pre0"] is None:
+                s["t_pre0"] = time.perf_counter()
             if start + n == s["prompt"].size:
                 sample_idx[r] = o + n - 1
                 done_rows.append((i, r))
+        in_plan = {p[0] for p in plan}
+        decoding = any(s is not None and j not in in_plan
+                       and s["fed"] >= s["prompt"].size
+                       for j, s in enumerate(self._slots))
+        n_tok = int(sum(p[2] for p in plan))
+        if self._recorder.enabled:
+            self._recorder.record(
+                "prefill_chunk", packed=int(T), rows=len(plan),
+                tokens=n_tok, free_blocks=self.cache.available_block_count)
+        t0 = time.perf_counter()
         try:
-            # the whole plan's tables grow atomically (reservation-backed,
-            # so this cannot exhaust the pool mid-plan)
-            self.cache.ensure_many(
-                [(self._slots[i]["seq"], start + n)
-                 for i, start, n, _ in plan])
-            if self.enable_prefix_cache:
-                # copy-on-write: a chunk starting in an attached (shared
-                # or index-claimed) block writes to a private copy
-                for i, start, _n, _o in plan:
-                    self.cache.prepare_write(self._slots[i]["seq"], start)
-            width = max(blocks_for(start + n, self.block_size)
-                        for _, start, n, _ in plan)
-            tables = self._tensor(self.cache.table_array(
-                [self._slots[i]["seq"] for i, *_ in plan], width))
-            # token-0 sampling runs the decode pipeline at PRNG step 0
-            done_set = {r for _, r in done_rows}
-            sp, mode = self._sp_store.packed_args(
-                [i for i, *_ in plan], [r in done_set for r in range(P)])
-            tok, stopped, _kc, _vc, counts = self._decoder.packed_prefill(
-                self._params, self._tensor(toks), self._tensor(seg),
-                self._tensor(pos), tables, self._tensor(sample_idx),
-                self.cache.k_blocks, self.cache.v_blocks, sp, mode)
-            self._sp_store.swap_counts(counts)
-            tok_h = tok.cpu().numpy()
-            stopped_h = stopped.cpu().numpy()
-        except Exception as e:  # noqa: BLE001 — fail this chunk's
-            # requests, keep the engine serving
-            self._dispatch_failure(e, [i for i, *_ in plan])
+            with _dispatch_span(
+                    "prefill_chunk",
+                    (self._slots[i]["req"].rid for i, *_ in plan),
+                    packed=T, segments=len(plan), tokens=n_tok):
+                self._maybe_fault("slow_dispatch")
+                self._maybe_fault("ensure_many")
+                # the whole plan's tables grow atomically (reservation-
+                # backed, so this cannot exhaust the pool mid-plan)
+                self.cache.ensure_many(
+                    [(self._slots[i]["seq"], start + n)
+                     for i, start, n, _ in plan])
+                if self.enable_prefix_cache:
+                    # copy-on-write: a chunk starting in an attached
+                    # (shared or index-claimed) block writes to a copy
+                    for i, start, _n, _o in plan:
+                        self.cache.prepare_write(self._slots[i]["seq"],
+                                                 start)
+                width = max(blocks_for(start + n, self.block_size)
+                            for _, start, n, _ in plan)
+                tables = self._tensor(self.cache.table_array(
+                    [self._slots[i]["seq"] for i, *_ in plan], width))
+                # token-0 sampling runs the decode pipeline at the row's
+                # PRNG base step
+                done_set = {r for _, r in done_rows}
+                sp, mode = self._sp_store.packed_args(
+                    [i for i, *_ in plan], [r in done_set for r in range(P)],
+                    base_steps)
+                self._maybe_fault("prefill")
+                tok, stopped, _kc, _vc, counts = \
+                    self._decoder.packed_prefill(
+                        self._params, self._tensor(toks), self._tensor(seg),
+                        self._tensor(pos), tables,
+                        self._tensor(sample_idx), self.cache.k_blocks,
+                        self.cache.v_blocks, sp, mode)
+                self._sp_store.swap_counts(counts)
+                tok_h = tok.cpu().numpy()
+                stopped_h = stopped.cpu().numpy()
+        except Exception as e:  # noqa: BLE001 — the recovery ladder (or,
+            # with recovery off, fail this chunk's requests)
+            self._dispatch_failure("prefill", e, [i for i, *_ in plan])
             return
+        self._dispatch_ok(i for i, *_ in plan)
         t_now = time.perf_counter()
+        self._ops_progress += 1
+        if decoding:
+            _m_decode_stall.observe(t_now - t0)
+        _m_prefill_dispatches.inc()
+        replay = sum(self._replay_of(self._slots[i]["req"], start, n)
+                     for i, start, n, _o in plan)
         with self._lock:
             self._prefill_dispatches += 1
+            self._decoded_tokens += replay + len(done_rows)
+            self._replayed_tokens += replay
+        _m_decoded.inc(replay + len(done_rows))
+        if replay:
+            _m_replayed.inc(replay)
         for i, start, n, _o in plan:
             self._slots[i]["fed"] = start + n
+            self._slots[i]["chunks"] += 1
         for i, r in done_rows:
-            s = self._slots[i]
-            if self.enable_prefix_cache:
-                # every prompt position is written: index the blocks
-                self.cache.publish_prefix(s["seq"], s["prompt"])
-            with self._lock:
-                self._ttft.append(t_now - s["req"].t_submit)
-                self._prefills += 1
-            s["t_last"] = t_now
+            self._note_first_token(self._slots[i], t_now)
             self._slot_token(i, int(tok_h[r]),
                              device_stopped=bool(stopped_h[r]))
 
@@ -806,51 +1935,79 @@ class PagedGenerationServer:
         # one dispatch serves the whole mixed batch; an all-greedy batch
         # takes the bare-argmax variant
         sp, mode = self._sp_store.step_args(steps)
+        (_m_sampling_sampled if mode[0] else _m_sampling_fast).inc()
         with self._lock:
             if mode[0]:
                 self._sampled_dispatches += 1
             else:
                 self._fastpath_dispatches += 1
+        if self._recorder.enabled:
+            self._recorder.record(
+                "decode_dispatch", slots=len(active_idx), k=k,
+                sampled=bool(mode[0]),
+                free_blocks=self.cache.available_block_count)
         try:
-            # grow tables for the incoming token(s) BEFORE the step
-            # writes them (k tokens starting at the feed position)
-            self.cache.ensure_many(
-                [(self._slots[i]["seq"], self._slots[i]["pos"]
-                  + len(self._slots[i]["toks"]) - 1 + k)
-                 for i in active_idx])
-            tables = self._tensor(self.cache.table_array(
-                [s["seq"] if s is not None else None for s in self._slots],
-                self._m_width))
-            args = (self._params, self._tensor(tok), self._tensor(pos),
-                    self._tensor(act), tables, self.cache.k_blocks,
-                    self.cache.v_blocks, sp)
-            if self.device.type == "cuda":  # one graph replay, any k
-                toks, stopped, _kc, _vc, counts = self._decoder.graphs(
-                    k, mode, *args)
-                with self._lock:
-                    self._graph_replays += 1
-            elif k == 1:
-                nxt, stopped, _kc, _vc, counts = self._decoder.step(
-                    *args, mode)
-                toks, stopped = nxt[None], stopped[None]     # [1, S]
-            else:
-                toks, stopped, _kc, _vc, counts = self._decoder.multistep(
-                    k, mode)(*args)
-            toks = toks.cpu().numpy()                     # [k, S]
-            stops = stopped.cpu().numpy()
-            # the counts are copied out before the next dispatch (a
-            # graph's outputs belong to its next replay)
-            self._sp_store.swap_counts(counts)
-        except Exception as e:  # noqa: BLE001 — fail this dispatch's
-            # requests, keep the engine serving
-            self._dispatch_failure(e, list(active_idx))
+            with _dispatch_span(
+                    "decode_dispatch",
+                    (self._slots[i]["req"].rid for i in active_idx), k=k):
+                self._maybe_fault("slow_dispatch")
+                self._maybe_fault("ensure_many")
+                # grow tables for the incoming token(s) BEFORE the step
+                # writes them (k tokens starting at the feed position)
+                self.cache.ensure_many(
+                    [(self._slots[i]["seq"], self._slots[i]["pos"]
+                      + len(self._slots[i]["toks"]) - 1 + k)
+                     for i in active_idx])
+                tables = self._tensor(self.cache.table_array(
+                    [s["seq"] if s is not None else None
+                     for s in self._slots], self._m_width))
+                args = (self._params, self._tensor(tok), self._tensor(pos),
+                        self._tensor(act), tables, self.cache.k_blocks,
+                        self.cache.v_blocks, sp)
+                self._maybe_fault("decode")
+                if self.device.type == "cuda":  # one graph replay, any k
+                    toks, stopped, _kc, _vc, counts = self._decoder.graphs(
+                        k, mode, *args)
+                    with self._lock:
+                        self._graph_replays += 1
+                elif k == 1:
+                    nxt, stopped, _kc, _vc, counts = self._decoder.step(
+                        *args, mode)
+                    toks, stopped = nxt[None], stopped[None]     # [1, S]
+                else:
+                    toks, stopped, _kc, _vc, counts = \
+                        self._decoder.multistep(k, mode)(*args)
+                toks = toks.cpu().numpy()                     # [k, S]
+                stops = stopped.cpu().numpy()
+                # the counts are copied out before the next dispatch (a
+                # graph's outputs belong to its next replay)
+                self._sp_store.swap_counts(counts)
+        except Exception as e:  # noqa: BLE001 — the recovery ladder (or,
+            # with recovery off, fail this dispatch's requests)
+            self._dispatch_failure("decode", e, list(active_idx))
             return
+        self._dispatch_ok(active_idx)
         t_now = time.perf_counter()
+        self._ops_progress += 1
+        decoded = toks.shape[0] * len(active_idx)
         with self._lock:
             self._steps += 1
             self._active_integral += len(active_idx)
+            self._decoded_tokens += decoded
+        _m_decoded.inc(decoded)
+        discarded = 0
         for i in active_idx:  # tokens after a stop are discarded
-            self._emit_row(i, toks[:, i], stops[:, i], toks.shape[0], t_now)
+            discarded += toks.shape[0] - self._emit_row(
+                i, toks[:, i], stops[:, i], toks.shape[0], t_now)
+        self._note_replayed(discarded)
+
+    def _note_replayed(self, discarded):
+        if discarded:
+            with self._lock:
+                self._replayed_tokens += discarded
+            _m_replayed.inc(discarded)
+        if _metrics.enabled():
+            _m_goodput.set(self._tokens_out / (self._decoded_tokens or 1))
 
     # ---- speculation (split round) ---------------------------------------
     def _propose(self, s):
@@ -889,45 +2046,63 @@ class PagedGenerationServer:
         accepted counts and the stop flags. The cache is truncated to
         write_pos + accepted + 1 first, then the accepted drafts and the
         bonus token go through `_slot_token` (stopping at a stop)."""
+        proposed = int(sum(d.size for d in plan.drafts))
         with self._lock:
-            self._spec_proposed += int(sum(d.size for d in plan.drafts))
+            self._spec_proposed += proposed
             self._spec_rounds_per_slot += sum(1 for d in plan.drafts
                                               if d.size)
+        _m_spec_proposed.inc(proposed)
+        if self._recorder.enabled:
+            self._recorder.record(
+                "verify_dispatch", rows=plan.rows, proposed=proposed,
+                free_blocks=self.cache.available_block_count)
         P = plan.dlen.shape[0]
         slot_rows = [plan.slots[r] if r < plan.rows else None
                      for r in range(P)]
         try:
-            # every row's table grows to its speculative horizon in one
-            # atomic call (the admission reservation covers K positions)
-            self.cache.ensure_many(plan.grow_updates(
-                [self._slots[i]["seq"] for i in plan.slots]))
-            # the decode dispatch's table width: a pinned shape
-            tables = self._tensor(self.cache.table_array(
-                [self._slots[i]["seq"] if i is not None else None
-                 for i in slot_rows], self._m_width))
-            sp, mode = self._sp_store.verify_args(slot_rows, plan.steps)
-            args = (self._params, self._tensor(plan.toks),
-                    self._tensor(plan.seg), self._tensor(plan.pos), tables,
-                    self._tensor(plan.sample_idx), self._tensor(plan.dlen),
-                    self.cache.k_blocks, self.cache.v_blocks, sp)
-            if self.device.type == "cuda":  # one graph replay
-                vtok, acc, stopped, _kc, _vc, counts = \
-                    self._decoder.graphs.verify(mode, *args)
-                with self._lock:
-                    self._verify_replays += 1
-            else:
-                vtok, acc, stopped, _kc, _vc, counts = \
-                    self._decoder.packed_verify(*args, mode)
-            vtok_h, acc_h, stop_h = self._host_arrays(
-                self._to_host((vtok, acc, stopped)))
-            self._sp_store.swap_counts(counts)
-        except Exception as e:  # noqa: BLE001 — fail this dispatch's
-            # requests, keep the engine serving
-            self._dispatch_failure(e, list(plan.slots))
+            with _dispatch_span(
+                    "verify_dispatch",
+                    (self._slots[i]["req"].rid for i in plan.slots),
+                    segments=plan.rows, proposed=proposed):
+                self._maybe_fault("slow_dispatch")
+                self._maybe_fault("ensure_many")
+                # every row's table grows to its speculative horizon in
+                # one atomic call (the reservation covers K positions)
+                self.cache.ensure_many(plan.grow_updates(
+                    [self._slots[i]["seq"] for i in plan.slots]))
+                # the decode dispatch's table width: a pinned shape
+                tables = self._tensor(self.cache.table_array(
+                    [self._slots[i]["seq"] if i is not None else None
+                     for i in slot_rows], self._m_width))
+                sp, mode = self._sp_store.verify_args(slot_rows, plan.steps)
+                args = (self._params, self._tensor(plan.toks),
+                        self._tensor(plan.seg), self._tensor(plan.pos),
+                        tables, self._tensor(plan.sample_idx),
+                        self._tensor(plan.dlen), self.cache.k_blocks,
+                        self.cache.v_blocks, sp)
+                self._maybe_fault("verify")
+                if self.device.type == "cuda":  # one graph replay
+                    vtok, acc, stopped, _kc, _vc, counts = \
+                        self._decoder.graphs.verify(mode, *args)
+                    with self._lock:
+                        self._verify_replays += 1
+                else:
+                    vtok, acc, stopped, _kc, _vc, counts = \
+                        self._decoder.packed_verify(*args, mode)
+                vtok_h, acc_h, stop_h = self._host_arrays(
+                    self._to_host((vtok, acc, stopped)))
+                self._sp_store.swap_counts(counts)
+        except Exception as e:  # noqa: BLE001 — the recovery ladder (or,
+            # with recovery off, fail this dispatch's requests)
+            self._dispatch_failure("verify", e, list(plan.slots))
             return
+        self._dispatch_ok(plan.slots)
+        _m_spec_verify.inc()
         t_now = time.perf_counter()
+        self._ops_progress += 1
         with self._lock:
             self._spec_dispatches += 1
+        discarded = 0
         for r, i in enumerate(plan.slots):
             s = self._slots[i]
             a = int(acc_h[r])
@@ -939,12 +2114,27 @@ class PagedGenerationServer:
                 with self._lock:
                     self._spec_accepted += a
                     self._spec_rolled_back += k_r - a
-            self._emit_row(i, vtok_h[r], stop_h[r], a + 1, t_now)
+                _m_spec_accepted.inc(a)
+                _m_spec_rolled_back.inc(k_r - a)
+                _m_spec_accept_rate.observe(a / k_r)
+                _tracing.event("spec_round", request_id=s["req"].rid,
+                               proposed=k_r, accepted=a,
+                               rolled_back=k_r - a)
+            # goodput: the row computed k_r + 1 positions, a + 1
+            # candidate emissions (a stop-truncated rest is replay) and
+            # k_r - a rejected drafts (rolled back above)
+            with self._lock:
+                self._decoded_tokens += k_r + 1
+            _m_decoded.inc(k_r + 1)
+            discarded += (a + 1) - self._emit_row(i, vtok_h[r], stop_h[r],
+                                                  a + 1, t_now)
+        self._note_replayed(discarded)
 
     def _emit_row(self, i, toks, stops, n, t_now):
         """Emit the first n of one dispatch's tokens for slot i (fewer
         when a stop ends the request), with their ITL: the gap since the
-        slot's previous emission, amortized over the tokens emitted."""
+        slot's previous emission, amortized over the tokens emitted.
+        Returns the tokens consumed."""
         s = self._slots[i]
         t_prev = s["t_last"] if s["t_last"] is not None else t_now
         consumed = 0
@@ -958,6 +2148,10 @@ class PagedGenerationServer:
         per = max(t_now - t_prev, 0.0) / consumed
         with self._lock:
             self._itl.extend([per] * consumed)
+        if _metrics.enabled():
+            for _ in range(consumed):
+                _m_itl.observe(per)
+        return consumed
 
     # ---- the unified round -----------------------------------------------
     def _round_unified(self):
@@ -979,6 +2173,7 @@ class PagedGenerationServer:
         if pending is not None:
             with self._lock:
                 self._overlap_s += t1 - t0
+            _m_round_overlap.observe(t1 - t0)
             self._process_round(*pending)
         if outs is not None:
             self._pending = (plan, outs)
@@ -987,8 +2182,9 @@ class PagedGenerationServer:
 
     def _drain_pending(self):
         """Async: process the round in flight now, so the host state is
-        authoritative (stop, idle). Breaks the device chain: the carry
-        is reseeded from the host at the next plan."""
+        authoritative (stop, idle, a failure's snapshots, timeouts).
+        Breaks the device chain: the carry is reseeded from the host at
+        the next plan."""
         pending, self._pending = self._pending, None
         if pending is not None:
             self._carry = None
@@ -1011,6 +2207,20 @@ class PagedGenerationServer:
                 steps[i] = len(s["toks"])
         self._carry = (self._tensor(tok), self._tensor(pos),
                        self._tensor(steps))
+
+    def _seed_carry_slot(self, i):
+        """Install one slot's host-known decode state into the live
+        device carry: a warm resume enters the decode phase without a
+        unified round having set its entry. (The carry's tensors may be
+        a graph's outputs: they are copied, not written in place.)"""
+        if self._carry is None:
+            return
+        s = self._slots[i]
+        ct, cp, cs = (t.clone() for t in self._carry)
+        ct[i] = int(s["toks"][-1])
+        cp[i] = int(s["pos"] + len(s["toks"]) - 1)
+        cs[i] = len(s["toks"])
+        self._carry = (ct, cp, cs)
 
     def _plan_round(self):
         """ONE combined plan: prefill chunk rows (`_prefill_packed`'s
@@ -1084,8 +2294,11 @@ class PagedGenerationServer:
                 seg[o:o + n] = r
                 pos[o:o + n] = np.arange(start, start + n, dtype=np.int32)
                 sample_idx[r] = o + n - 1  # every readout clamps there
+                if s["t_pre0"] is None:
+                    s["t_pre0"] = time.perf_counter()
                 if row["done"]:
-                    # token 0 samples here: a dlen 0 row at step 0
+                    # the next token samples here: a dlen 0 row at the
+                    # slot's PRNG step (0, or len(gen0) on a resume)
                     dlen[r] = 0
                     row_slot[r] = i
                     steps[r] = len(s["toks"])
@@ -1128,7 +2341,7 @@ class PagedGenerationServer:
         knows without its outputs (fed positions, counters); the tokens
         wait for `_process_round`. Returns the outputs as
         `_to_host` started them, or None after a failed dispatch (the
-        plan's requests are failed and their blocks freed)."""
+        recovery ladder requeued the plan's requests)."""
         rows = plan["rows"]
         updates = []
         for row in rows:
@@ -1147,56 +2360,79 @@ class PagedGenerationServer:
         P = plan["P"]
         slot_rows = [rows[r]["slot"] if r < len(rows) else None
                      for r in range(P)]
+        if self._recorder.enabled:
+            self._recorder.record(
+                "round", packed=plan["T"], rows=len(rows),
+                chunk_rows=plan["n_chunk"], step_rows=plan["n_step"],
+                proposed=plan["n_drafts"],
+                free_blocks=self.cache.available_block_count)
         try:
-            self.cache.ensure_many(updates)
-            if self.enable_prefix_cache:
-                # copy-on-write: a chunk starting in an attached block
-                # writes to a private copy
-                for row in rows:
-                    if row["kind"] == "chunk":
-                        self.cache.prepare_write(row["seq"], row["start"])
-            tables = self._tensor(self.cache.table_array(
-                [rows[r]["seq"] if r < len(rows) else None
-                 for r in range(P)], self._m_width))
-            sp, mode = self._sp_store.unified_args(
-                slot_rows, plan["emit_rows"], plan["steps"])
-            if self._async:
-                ct, cp, cs = self._carry
-            else:
-                if self._zero_carry is None:
-                    z = self._tensor(np.zeros((self.max_slots,), np.int32))
-                    self._zero_carry = (z, z, z)
-                ct, cp, cs = self._zero_carry
-            args = (self._params, self._tensor(plan["toks"]),
-                    self._tensor(plan["seg"]), self._tensor(plan["pos"]),
-                    tables, self._tensor(plan["sample_idx"]),
-                    self._tensor(plan["dlen"]),
-                    self._tensor(plan["row_slot"]),
-                    self._tensor(plan["carry_map"]),
-                    self._tensor(plan["pos_map"]),
-                    self._tensor(plan["steps_map"]), ct, cp, cs,
-                    self.cache.k_blocks, self.cache.v_blocks, sp)
-            if self.device.type == "cuda" and plan["window"]:
-                (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
-                 ncs) = self._decoder.graphs.unified(mode, *args)
-                with self._lock:
-                    self._round_replays += 1
-            else:
-                (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
-                 ncs) = self._decoder.unified_round(
-                    *args, mode, window=plan["window"])[:9]
-            outs = self._to_host((vtok, acc, stopped))
-            self._sp_store.swap_counts(counts)
-        except Exception as e:  # noqa: BLE001 — fail this dispatch's
-            # requests, keep the engine serving
+            with _dispatch_span(
+                    "round",
+                    (self._slots[row["slot"]]["req"].rid for row in rows),
+                    packed=plan["T"], segments=len(rows),
+                    chunk_rows=plan["n_chunk"], step_rows=plan["n_step"]):
+                self._maybe_fault("slow_dispatch")
+                self._maybe_fault("ensure_many")
+                self.cache.ensure_many(updates)
+                if self.enable_prefix_cache:
+                    # copy-on-write: a chunk starting in an attached
+                    # block writes to a private copy
+                    for row in rows:
+                        if row["kind"] == "chunk":
+                            self.cache.prepare_write(row["seq"],
+                                                     row["start"])
+                tables = self._tensor(self.cache.table_array(
+                    [rows[r]["seq"] if r < len(rows) else None
+                     for r in range(P)], self._m_width))
+                sp, mode = self._sp_store.unified_args(
+                    slot_rows, plan["emit_rows"], plan["steps"])
+                if self._async:
+                    ct, cp, cs = self._carry
+                else:
+                    if self._zero_carry is None:
+                        z = self._tensor(np.zeros((self.max_slots,),
+                                                  np.int32))
+                        self._zero_carry = (z, z, z)
+                    ct, cp, cs = self._zero_carry
+                args = (self._params, self._tensor(plan["toks"]),
+                        self._tensor(plan["seg"]), self._tensor(plan["pos"]),
+                        tables, self._tensor(plan["sample_idx"]),
+                        self._tensor(plan["dlen"]),
+                        self._tensor(plan["row_slot"]),
+                        self._tensor(plan["carry_map"]),
+                        self._tensor(plan["pos_map"]),
+                        self._tensor(plan["steps_map"]), ct, cp, cs,
+                        self.cache.k_blocks, self.cache.v_blocks, sp)
+                self._maybe_fault("unified_round")
+                if self.device.type == "cuda" and plan["window"]:
+                    (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
+                     ncs) = self._decoder.graphs.unified(mode, *args)
+                    with self._lock:
+                        self._round_replays += 1
+                else:
+                    (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
+                     ncs) = self._decoder.unified_round(
+                        *args, mode, window=plan["window"])[:9]
+                outs = self._to_host((vtok, acc, stopped))
+                self._sp_store.swap_counts(counts)
+        except Exception as e:  # noqa: BLE001 — the recovery ladder (or,
+            # with recovery off, fail this dispatch's requests)
             self._carry = None
-            self._dispatch_failure(e, [row["slot"] for row in rows])
+            self._dispatch_failure("unified_round", e,
+                                   [row["slot"] for row in rows])
             return None
+        self._dispatch_ok(row["slot"] for row in rows)
         if self._async:
             self._carry = (nct, ncp, ncs)
+        self._ops_progress += 1
+        replay = 0
         for row in rows:
             if row["kind"] == "chunk":
-                self._slots[row["slot"]]["fed"] = row["start"] + row["n"]
+                s = self._slots[row["slot"]]
+                s["fed"] = row["start"] + row["n"]
+                s["chunks"] += 1
+                replay += self._replay_of(s["req"], row["start"], row["n"])
         with self._lock:
             if plan["n_chunk"]:
                 self._prefill_dispatches += 1
@@ -1213,6 +2449,20 @@ class PagedGenerationServer:
                 self._spec_rounds_per_slot += sum(
                     1 for row in rows
                     if row["kind"] == "step" and row["drafts"].size)
+            self._decoded_tokens += replay
+            self._replayed_tokens += replay
+        if plan["n_chunk"]:
+            _m_prefill_dispatches.inc()
+        if plan["n_drafts"]:
+            _m_spec_verify.inc()
+            _m_spec_proposed.inc(plan["n_drafts"])
+        (_m_sampling_sampled if mode[0] else _m_sampling_fast).inc()
+        if replay:
+            _m_decoded.inc(replay)
+            _m_replayed.inc(replay)
+        if _metrics.enabled():
+            _m_slots_busy.labels(server="paged").set(
+                sum(s is not None for s in self._slots))
         self._note_round(1, mixed=bool(plan["n_chunk"] and plan["n_step"]))
         return outs
 
@@ -1220,32 +2470,33 @@ class PagedGenerationServer:
         """Read one unified round's outputs and emit its tokens (async:
         one round late, while its successor runs). Rows whose slot was
         freed or refilled since the plan (async overshoot past a stop the
-        host had not seen) are discarded, so the output is the split
-        round's."""
+        host had not seen, or a slot a failure requeued) are discarded
+        as replay, so the output is the split round's."""
         vtok_h, acc_h, stop_h = self._host_arrays(outs)
         t_now = time.perf_counter()
-        accepted = rolled = 0
+        self._ops_progress += 1
+        accepted = rolled = decoded = discarded = 0
         for r, row in enumerate(plan["rows"]):
             i = row["slot"]
             s = self._slots[i]
             live = s is not None and s["seq"] == row["seq"]
             if row["kind"] == "chunk":
-                if not (row["done"] and live):
+                if not row["done"]:
                     continue
-                if self.enable_prefix_cache:
-                    # every prompt position is written: index the blocks
-                    self.cache.publish_prefix(s["seq"], s["prompt"])
-                with self._lock:
-                    self._ttft.append(t_now - s["req"].t_submit)
-                    self._prefills += 1
-                s["t_last"] = t_now
+                decoded += 1
+                if not live:
+                    discarded += 1
+                    continue
+                self._note_first_token(s, t_now)
                 self._slot_token(i, int(vtok_h[r, 0]),
                                  device_stopped=bool(stop_h[r, 0]))
                 continue
             a = int(acc_h[r])
             k_r = int(row["drafts"].size)
+            decoded += k_r + 1
             if not live:
                 rolled += k_r  # async overshoot: its drafts roll back
+                discarded += 1
                 continue
             if k_r and not self._async:
                 # roll back first; the async chain instead overwrites the
@@ -1254,10 +2505,18 @@ class PagedGenerationServer:
             if k_r:
                 rolled += k_r - a
                 accepted += a
-            self._emit_row(i, vtok_h[r], stop_h[r], a + 1, t_now)
+                _m_spec_accepted.inc(a)
+                _m_spec_accept_rate.observe(a / k_r)
+            discarded += (a + 1) - self._emit_row(i, vtok_h[r], stop_h[r],
+                                                  a + 1, t_now)
         with self._lock:
             self._spec_accepted += accepted
             self._spec_rolled_back += rolled
+            self._decoded_tokens += decoded
+        _m_decoded.inc(decoded)
+        if rolled:
+            _m_spec_rolled_back.inc(rolled)
+        self._note_replayed(discarded)
 
     def _slot_token(self, i, tok, device_stopped=False):
         """Record one generated token for slot i; completes the request
@@ -1265,44 +2524,74 @@ class PagedGenerationServer:
         sources, in order: the device stop-token check (EOS or a request
         stop id); the request's stop strings, searched on the host in
         the detokenized last `stop_tail_tokens` tokens (the tokens stay
-        in the output); the token budget."""
+        in the output); the token budget. Only tokens the host emits
+        come here, so only they are journaled."""
         slot = self._slots[i]
+        req = slot["req"]
         slot["toks"].append(tok)
-        stop_strings = slot["req"].sampling.stop_strings
+        if self._journal is not None:
+            self._journal.record_token(req.rid, tok)
+        stop_strings = req.sampling.stop_strings
         reason = None
         if device_stopped:
             reason = ("eos" if self.eos >= 0 and tok == self.eos
                       else "stop_token")
         elif stop_strings:
+            # the token list spans interruptions (a resumed slot is
+            # re-seeded with its earlier tokens), so a stop string
+            # straddling one still matches
             try:
+                if self._faults is not None:
+                    self._maybe_fault("detokenize")
                 tail = self._detok(slot["toks"][-self.stop_tail_tokens:])
             except Exception as e:  # noqa: BLE001 — a broken
-                # detokenizer implicates exactly ONE request: fail it,
-                # naming the seam, and keep every co-resident serving
-                _logger.error("detokenize failed for slot %s: %s: %s", i,
-                              type(e).__name__, e)
-                err = RuntimeError(f"request failed at seam 'detokenize': "
-                                   f"{type(e).__name__}: {e}")
-                err.__cause__ = e
-                self._fail_slot(i, err)
+                # detokenizer implicates exactly ONE request: quarantine
+                # it, naming the seam, and keep every co-resident serving
+                self._quarantine_slot(i, "detokenize", e, 1)
                 return
             if any(x in tail for x in stop_strings):
                 reason = "stop_string"
         if reason is None and len(slot["toks"]) >= slot["budget"]:
             reason = "budget"
+        cb = req.on_token
+        if cb is not None:
+            # a broken stream consumer must not kill the loop: its
+            # stream is dropped, the request goes on
+            try:
+                if self._faults is not None:
+                    self._maybe_fault("stream_consumer")
+                cb(tok, reason)
+            except Exception:  # noqa: BLE001 — streams are best-effort
+                _logger.exception(
+                    "on_token callback failed for request %s (stream "
+                    "dropped; generation continues)", req.rid)
+                req.on_token = None
         if reason is None:
             return
-        req = slot["req"]
-        out = np.concatenate([req.ids, np.asarray(slot["toks"], np.int32)])
-        self.cache.free(slot["seq"])
-        del self._worst[slot["seq"]]
-        self._slots[i] = None
-        self._sp_store.clear_slot(i)
-        with self._lock:
-            self._lat.append(time.perf_counter() - req.t_submit)
-            self._tokens_out += len(slot["toks"])
-            self._stop_reasons[reason] += 1
-        req.future.set_result(out)
+        self._ops_progress += 1
+        self._fault_streak.pop(req.rid, None)
+        if self._journal is not None:
+            self._journal.record_done(req.rid, reason)
+        self._recorder.record("request_done", request_id=req.rid, slot=i,
+                              new_tokens=len(slot["toks"]), reason=reason)
+        _tracing.event("request_done", request_id=req.rid,
+                       new_tokens=len(slot["toks"]), ttft_s=req.ttft,
+                       reason=reason, cost=None)
+        with _tracing.span("detokenize", request_id=req.rid):
+            out = np.concatenate([req.ids, np.asarray(slot["toks"],
+                                                      np.int32)])
+            self._release_slot(i)
+            t_done = time.perf_counter()
+            with self._lock:
+                self._lat.append(t_done - req.t_submit)
+                self._tokens_out += len(slot["toks"])
+                self._stop_reasons[reason] += 1
+            _m_slot_releases.labels(reason=reason).inc()
+            _m_stop_reason.labels(server="paged", reason=reason).inc()
+            _m_requests_done.labels(server="paged").inc()
+            _m_request_latency.labels(server="paged").observe(
+                t_done - req.t_submit)
+            req.future.set_result(out)
 
 
 class GenerationServer:
@@ -1328,7 +2617,7 @@ class GenerationServer:
         if attribution:
             raise ValueError(
                 "GenerationServer(attribution=True) is not ported "
-                "(ROADMAP §A 7: attribution, tracing and metrics)")
+                "(ROADMAP §A 12: attribution)")
         self._program = program
         meta = getattr(program, "_meta", {}) or {}
         prompt_len = prompt_len or meta.get("prompt_len")
@@ -1432,12 +2721,16 @@ class GenerationServer:
         row[self.prompt_len - ids.size:] = ids  # LEFT padding
         req = _DenseReq(ids=row, future=Future(),
                         t_submit=time.perf_counter(),
-                        padded=ids.size < self.prompt_len, sig=sig)
+                        padded=ids.size < self.prompt_len, sig=sig,
+                        rid=f"d{next(_req_ids)}")
         with self._lock:
             if self._stop:
                 raise RuntimeError("server stopped")
             self._queue.append(req)
+            _m_queue_depth.labels(server="dense").set(len(self._queue))
             self._lock.notify()
+        _tracing.event("request_submitted", request_id=req.rid,
+                       prompt_len=int(ids.size))
         return req.future
 
     def start(self):
@@ -1525,6 +2818,7 @@ class GenerationServer:
                     batch.append(r)
             for r in batch:
                 self._queue.remove(r)
+            _m_queue_depth.labels(server="dense").set(len(self._queue))
             return batch
 
     def _loop(self):
@@ -1532,6 +2826,9 @@ class GenerationServer:
             batch = self._take_batch()
             if not batch:
                 return
+            for r in batch:
+                _tracing.event("request_admitted", request_id=r.rid)
+            _m_slots_busy.labels(server="dense").set(len(batch))
             rows = [r.ids for r in batch]
             while len(rows) < self.batch_size:  # pad: the same cost
                 rows.append(rows[0])
@@ -1545,12 +2842,17 @@ class GenerationServer:
                 # a fixed seed would draw the same noise every batch
                 seed = (self._defaults[0] + self._batches) & 0xFFFFFFFF
             try:
-                out = self._program(ids, int(seed) & 0xFFFFFFFF,
-                                    float(temp), int(eos), float(top_p),
-                                    int(pad))
-                out = np.asarray(out.cpu() if isinstance(out, torch.Tensor)
-                                 else out)
+                with _dispatch_span("decode_dispatch",
+                                    (r.rid for r in batch),
+                                    batch=len(batch)):
+                    out = self._program(ids, int(seed) & 0xFFFFFFFF,
+                                        float(temp), int(eos),
+                                        float(top_p), int(pad))
+                    out = np.asarray(out.cpu()
+                                     if isinstance(out, torch.Tensor)
+                                     else out)
             except Exception as e:  # noqa: BLE001 — fan the error out
+                _m_slots_busy.labels(server="dense").set(0)
                 for r in batch:
                     r.future.set_exception(e)
                 continue
@@ -1572,17 +2874,32 @@ class GenerationServer:
                 for i, r in enumerate(batch):
                     self._lat.append(t_done - r.t_submit)
                     self._stop_reasons[reasons[i]] += 1
+            _m_slots_busy.labels(server="dense").set(0)
             for i, r in enumerate(batch):
+                _tracing.event("request_done", request_id=r.rid,
+                               new_tokens=int(new_tokens), cost=None)
+                _m_requests_done.labels(server="dense").inc()
+                _m_stop_reason.labels(server="dense",
+                                      reason=reasons[i]).inc()
+                _m_request_latency.labels(server="dense").observe(
+                    t_done - r.t_submit)
                 r.future.set_result(out[i])
 
+    def cost_report(self):
+        """Not ported (ROADMAP §A 12: attribution)."""
+        raise NotImplementedError(
+            "GenerationServer.cost_report is not ported (ROADMAP §A 12: "
+            "attribution)")
 
-@dataclass
+
+@dataclass(eq=False)
 class _DenseReq:
     ids: np.ndarray
     future: Future
     t_submit: float
     padded: bool
     sig: tuple
+    rid: str = ""
 
 
 def measure_offered_load(server, prompts, offered_rps, duration_s):

@@ -55,16 +55,26 @@ is not the paged decoder's: the dense decode program of
 (`models/gpt2_decode.py`, the reference's prefill and `lax.scan` of
 `_build_decode_fn`), captured whole as one graph per key.
 
+Every capture is recorded with the capture tracker
+(`observability.compile_tracker.record`): the program's name
+(`multistep`, `packed_verify`, `unified_window`, or `dense_decode`
+for a `ProgramGraphs` capture), whether a server had requests in flight, and the seconds
+the warm-up and the capture took. The captures are the port's costly
+first-use events, where the reference counts XLA compiles (ROADMAP
+§C 18).
+
 There is no fallback: a capture or replay that fails raises, and the
 caller fails the dispatch. Graphs run on the card only.
 """
 from __future__ import annotations
 
 import gc
+import time
 from collections import OrderedDict
 
 import torch
 
+from ..observability import compile_tracker
 from ..ops import kernels
 
 MAX_GRAPHS = 64
@@ -194,7 +204,8 @@ class DecodeGraphs:
                         vc, sp, program)
         entry = self._graphs.get(key)
         if entry is None:
-            entry = self._capture(params, inputs, kc, vc, sp, fn, kv_at)
+            entry = self._capture(program, params, inputs, kc, vc, sp, fn,
+                                  kv_at)
             self._graphs[key] = entry
             while len(self._graphs) > MAX_GRAPHS:
                 self._graphs.popitem(last=False)
@@ -204,7 +215,8 @@ class DecodeGraphs:
         self.replays += 1
         return outputs
 
-    def _capture(self, params, inputs, kc, vc, sp, fn, kv_at):
+    def _capture(self, program, params, inputs, kc, vc, sp, fn, kv_at):
+        t0 = time.perf_counter()
         static_in = tuple(t.clone() for t in inputs)
         static_sp = {name: t.clone() for name, t in sp.items()}
 
@@ -214,6 +226,7 @@ class DecodeGraphs:
 
         graph, outputs, launched = capture(run, inputs[0].device)
         self.captures += 1
+        compile_tracker.record(program, time.perf_counter() - t0)
         held = (tuple(params.values()), kc, vc)
         return _Graph(graph, static_in, static_sp, outputs, launched, held)
 
@@ -285,11 +298,13 @@ class ProgramGraphs:
                       for n, t in params.items()))
         entry = self._graphs.get(full)
         if entry is None:
+            t0 = time.perf_counter()
             static_in = tuple(t.clone() for t in inputs)
             graph, outputs, launched = capture(
                 lambda: fn(params, *static_in), inputs[0].device,
                 load_kernels=False)
             self.captures += 1
+            compile_tracker.record("dense_decode", time.perf_counter() - t0)
             entry = _Graph(graph, static_in, {}, outputs, launched,
                            tuple(params.values()))
             self._graphs[full] = entry

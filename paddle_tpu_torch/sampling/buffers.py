@@ -23,8 +23,9 @@ buffer with `swap_counts`, so the buffer keeps its address. It is
 allocated on the device once a penalty-using request is admitted
 (n_slots * V * 4 bytes: 8 slots of GPT-2's vocabulary are 1.6 MB).
 
-Left for a later slice: `warm_args` / `warm_unified_args` (the
-shape-bucket pre-warm).
+`warm_args` / `warm_unified_args` / `warm_step_args` build all-padding
+argument rows under a given mode, shaped like a live dispatch's (the
+server's `warm_buckets` captures its graphs with them).
 """
 from __future__ import annotations
 
@@ -234,6 +235,44 @@ class SlotParamStore:
         if mode[1]:
             sp["crows"] = self._tensor(np.array(rows, np.int32))
         return sp, mode
+
+    def _all_padding(self, rows, mode):
+        """`_assemble` over `rows` at step 0 under `mode`, with no row
+        sampling: the part every warm argument dict shares."""
+        sp = self._assemble(rows, np.zeros((len(rows),), np.int32), mode)
+        if mode[0]:
+            sp["sample"] = sp["sample"] & self._tensor(
+                np.zeros((len(rows),), bool))
+        return sp
+
+    def warm_unified_args(self, n_rows, mode=GREEDY_MODE):
+        """`unified_args` SHAPED like a live dispatch for `n_rows`
+        all-padding plan rows under `mode`: the same key set as a live
+        call, every row masked from sampling."""
+        rows = [0] * int(n_rows)
+        sp = self._all_padding(rows, mode)
+        if mode[1]:
+            sp["crows"] = self._tensor(np.array(rows, np.int32))
+        return sp
+
+    def warm_args(self, n_rows, mode=GREEDY_MODE):
+        """Packed-prefill argument dict SHAPED like a live dispatch for
+        `n_rows` plan rows under `mode`, built from idle-slot defaults:
+        every key a live `packed_args` call carries for that mode, with
+        the same dtype and shape (stop-matrix width 1: the idle or
+        single-stop-id case, the width a lone EOS id selects). No row
+        samples. The port's packed prefill is eager and unbucketed, so
+        `warm_buckets` does not call it (ROADMAP §C 8)."""
+        sp = self.warm_unified_args(n_rows, mode)
+        if mode[1]:
+            sp["row_done"] = self._tensor(np.zeros((int(n_rows),), bool))
+        return sp
+
+    def warm_step_args(self, mode=GREEDY_MODE):
+        """`step_args` SHAPED like a live decode dispatch (one row a
+        slot) under `mode`, no row sampling: the decode graph's
+        arguments for `warm_buckets`."""
+        return self._all_padding(list(range(self.n)), mode)
 
 
 __all__ = ["SlotParamStore", "GREEDY_MODE", "greedy_args", "host_to_device"]

@@ -2148,3 +2148,93 @@ def test_loaded_generator_and_server_on_card(dev, tmp_path):
         srv.stop()
     out = served(np.stack([prompts[0]] * 4), 0, 0.0, -1, 1.0, -1)
     assert out.device.type == "cpu" and out.dtype == torch.int32
+
+
+# ---- reliability and the capture tracker on the card ------------------------
+
+def _rel_serve(model, prompts, **kw):
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    srv = PagedGenerationServer(model, max_slots=2, block_size=4,
+                                max_new_tokens=10, **kw)
+    futs = [srv.submit(p) for p in prompts]
+    srv.start()
+    try:
+        outs = [f.result(timeout=300) for f in futs]
+        st = srv.stats()
+    finally:
+        srv.stop()
+    return outs, st
+
+
+@pytest.mark.parametrize("kw", [{}, {"enable_prefix_cache": True},
+                                {"unified_round": True,
+                                 "async_rounds": True}],
+                         ids=["split", "prefix", "async"])
+def test_recovered_fault_replays_the_same_graphs(dev, kw):
+    """A recovered decode (window) fault on the card: every decode
+    dispatch is still one graph replay, the faulted run captures no
+    graph the fault-free run did not, and the tokens equal the
+    fault-free run's up to the cold resume's K/V rounding (float32 here,
+    TF32 off: they match exactly on this model)."""
+    from paddle_tpu_torch.models.gpt2 import GPT2
+
+    cfg, _params, _Dec = _graph_model(dev, False, torch.float32)
+    model = GPT2(cfg, seed=3, device=dev)
+    rs = np.random.RandomState(4)
+    prompts = [rs.randint(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (9, 30, 17)]
+    ref, st0 = _rel_serve(model, prompts, **kw)
+    seam = "unified_round:3" if kw.get("async_rounds") else "decode:2"
+    got, st = _rel_serve(model, prompts, fault_plan=seam, **kw)
+    for a, b in zip(ref, got):
+        np.testing.assert_array_equal(a, b)
+    rel = st["reliability"]
+    assert rel["faults_injected"] == 1 and rel["recoveries"] == 1
+    assert rel["quarantined"] == 0 and rel["resumes"] >= 1
+    if kw.get("enable_prefix_cache"):
+        assert rel["warm_resumes"] >= 1
+    assert st["decode_graph_replays"] == st["decode_steps"] or \
+        st["round_graph_replays"] > 0
+    if not kw.get("unified_round"):
+        assert st["decode_graph_replays"] == st["decode_steps"] > 0
+    assert st["decode_graph_captures"] == st0["decode_graph_captures"]
+
+
+def test_warm_buckets_captures_are_not_in_flight(dev):
+    """warm_buckets captures every decode graph the loop reaches for
+    its modes before start(), labelled not in flight; a measured window
+    of traffic after it counts no capture at all."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.models.gpt2 import GPT2
+    from paddle_tpu_torch.observability import compile_tracker as CT
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    cfg, _params, _Dec = _graph_model(dev, False, torch.float32)
+    model = GPT2(cfg, seed=3, device=dev)
+    for kw in ({}, {"unified_round": True, "speculation": True}):
+        srv = PagedGenerationServer(model, max_slots=3, block_size=4,
+                                    max_new_tokens=8, **kw)
+        mark = CT.mark()
+        n = srv.warm_buckets([(False, False), (True, False)])
+        assert n >= 2
+        evs = CT.events_since(mark)
+        assert len(evs) == n and not any(e["in_flight"] for e in evs)
+        assert srv.readiness()[1]["warmed"] is True
+        srv.start()
+        try:
+            srv.reset_stats()
+            rs = np.random.RandomState(8)
+            futs = [srv.submit(rs.randint(1, cfg.vocab_size, m)
+                               .astype(np.int32),
+                               sampling=SamplingParams(
+                                   temperature=0.8, seed=i)
+                               if i % 2 else None)
+                    for i, m in enumerate((5, 12, 7, 3))]
+            for f in futs:
+                f.result(timeout=300)
+            st = srv.stats()
+        finally:
+            srv.stop()
+        assert st["compiles"] == {"window_total": 0,
+                                  "window_in_flight": 0}, (kw, st)

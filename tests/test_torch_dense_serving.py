@@ -50,7 +50,7 @@ class TestGenerationServer:
         srv = GenerationServer(prog, pad_token_id=0)
         assert srv.batch_size == 4
         assert srv.prompt_len == 6
-        with pytest.raises(ValueError, match="§A 7"):
+        with pytest.raises(ValueError, match="§A 12"):
             GenerationServer(prog, attribution=True)
 
     def test_single_request_matches_generate(self, served):

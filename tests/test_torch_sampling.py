@@ -324,6 +324,16 @@ def test_stop_matrix_matches_reference_store():
     assert ts._stop_ids[0] == ()
 
 
+@pytest.mark.parametrize("name", ["warm_args", "warm_unified_args"])
+@pytest.mark.parametrize("mode", [(False, False), (True, False),
+                                  (False, True), (True, True)])
+def test_warm_args_match_reference_store(name, mode):
+    """The all-padding warm rows (every key of a live call under the
+    mode, no row sampling) equal the reference store's."""
+    ts, js = _store_pair()
+    _assert_sp_equal(getattr(ts, name)(3, mode), getattr(js, name)(3, mode))
+
+
 @pytest.mark.parametrize("mode", [(False, False), (True, False),
                                   (False, True), (True, True)])
 def test_assemble_matches_reference_store(mode):

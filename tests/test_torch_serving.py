@@ -202,11 +202,14 @@ def test_itl_stats_populated(tiny):
 
 
 def test_failed_prefill_cleans_up_and_serves_on(tiny, monkeypatch):
-    """A packed prefill that raises fails exactly the chunk's requests,
-    returns their blocks, and the server serves later requests."""
+    """With the recovery ladder off (recovery=False, the reference's
+    legacy path; the default ladder retries instead:
+    tests/test_torch_reliability.py), a packed prefill that raises fails
+    exactly the chunk's requests, returns their blocks, and the server
+    serves later requests."""
     _m, _c, port, tcfg, params = tiny
     srv = _server(port, max_slots=2, block_size=4, max_prompt_len=8,
-                  max_new_tokens=3)
+                  max_new_tokens=3, recovery=False)
     boom = {"armed": True}
     real = srv._decoder.packed_prefill
 

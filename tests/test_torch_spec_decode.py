@@ -943,7 +943,7 @@ class TestSpecParity:
         round."""
         srv = _port(tiny, _spec_pair(max_draft_tokens=3,
                                      drafter=AlwaysDrafter())[1],
-                    max_new_tokens=4)
+                    max_new_tokens=4, recovery=False)
         boom = {"armed": True}
         real = srv._decoder.packed_verify
 
