@@ -449,8 +449,36 @@ non-zero before the result line:
                the seconds from an injected fault at decode dispatch
                R_FAULT_AT to the first successful dispatch after it
                (flight-recorder timestamps);
+  5f. the serving front door (after 5r) — (a) float32 GPT-2 small
+               (phase 4's weights), TF32 off, 2 slots, block 16, a pool
+               two batch residents hold whole (F_BLOCKS): 4 batch
+               requests of tenants t1 and t4 (weights 1 and 4; one with a
+               stop string of 5r's toy detokenizer) queued before start(),
+               the engine held at their second token until 2 interactive
+               requests (TTFT deadline 250 ms) are queued; on the split
+               stack, then unified + async: every request's tokens equal
+               a plain PagedGenerationServer's but for near ties (phase
+               4g's rule, listed), preemptions >= 1 with cached tokens
+               > 0, each stream's text is its detokenized tokens (the stop
+               string suppressed), K1 (and K2 on the split stack)
+               launched, every decode dispatch (window round) a replay.
+               (b) float32, HostKVTier + tier_prefetch=2 under a front
+               door on three prompts sharing a 256-token prefix (its chain
+               demoted, the one slot held busy while they queue): prefetch
+               hits >= 1, tokens equal tier_prefetch off. (c) bf16 (phase
+               4f's weights) on phase 5's server (prefix cache on) and its
+               16 prompts at k = 1, 8 batch (tenants alternating) then 8
+               interactive (deadline 250 ms) once the batch residents
+               stream: the plain server, then the front door (SLOs,
+               attribution, the ops endpoint): tokens/s, TTFT p50/p99 a
+               lane, preemptions, deadline misses and the idle share of
+               each; /slo and /capacity answer 200 (schema_version 1); the
+               cost report's tenants' device-ns equal its busy-ns; the
+               timeline has dispatch-track events; every request's causal
+               trace tiles its wall clock and each preempted request's
+               trace shows its requeue; 5f's wall time;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 4b, 4f,
+     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f, 4b, 4f,
      4g, 6g (a), 6, 6b, 6c, 4t and 6t; the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
@@ -4800,6 +4828,454 @@ def reliability_phase(torch, model, prompts, card, artifact):
     return counts
 
 
+# ---- phase 5f: the serving front door ---------------------------------------
+
+F_SLOTS, F_BS, F_NEW = 2, 16, 32
+# (a)'s pool: two batch residents at their worst case (a 96-token prompt,
+# 32 new tokens, one round of async overshoot, the copy-on-write spare)
+# hold it whole
+F_BLOCKS = 2 * (-(-(96 + F_NEW + 1) // F_BS) + 1) + 1
+F_DEADLINE_MS = 250.0
+F_TENANTS = (("t1", 1.0), ("t4", 4.0))
+
+
+def f_hold(n):
+    """An on_token callback shared by a run's batch requests: at their
+    n-th token overall it holds the engine (bounded) until `go` is set,
+    so the interactive requests queue behind residents whatever the
+    speed of the engine. Returns (callback, reached, go)."""
+    import threading
+
+    reached, go = threading.Event(), threading.Event()
+    seen = [0]
+
+    def cb(_tok, _reason):
+        seen[0] += 1
+        if seen[0] == n:
+            reached.set()
+            go.wait(120)
+
+    return cb, reached, go
+
+
+def f_stop_string(gen):
+    """A 3-letter stop string of 5r's toy detokenizer that first occurs
+    in `gen`'s text at a token index of at least 6 (None when there is
+    none)."""
+    text = r_detok(gen)
+    for j in range(6, len(text) - 3):
+        if text[j:j + 3] not in text[:j + 2]:
+            return text[j:j + 3]
+    return None
+
+
+def f_tenants():
+    from paddle_tpu_torch.frontend import TenantConfig
+
+    return [TenantConfig(t, weight=w) for t, w in F_TENANTS]
+
+
+def f_preempt_run(torch, model32, batch, inter, stops, **kw):
+    """5f (a) on a front door (2 slots, F_BLOCKS blocks, prefix cache on):
+    the 4 batch requests (tenants t1/t4 alternating) are queued before
+    start(); at their second token the engine is held until the 2
+    interactive requests (a TTFT deadline of F_DEADLINE_MS) are queued.
+    The launch counts are zeroed just before start() and read after the
+    drain. Returns (tokens, streamed texts, stats, launch counts)."""
+    from paddle_tpu_torch.frontend import FrontDoor
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    fd = FrontDoor(model32, max_slots=F_SLOTS, block_size=F_BS,
+                   max_new_tokens=F_NEW, num_blocks=F_BLOCKS,
+                   detokenize=r_detok, tenants=f_tenants(), device=DEV,
+                   **kw)
+    hold, reached, go = f_hold(2)
+    handles = [fd.submit(p, lane="batch", tenant=F_TENANTS[i % 2][0],
+                         sampling=(SamplingParams(stop_strings=(s,))
+                                   if s else None), on_token=hold)
+               for i, (p, s) in enumerate(zip(batch, stops))]
+    kernels.reset_launch_counts()                              # main path
+    fd.start()
+    try:
+        if not reached.wait(600):
+            fail("phase 5f (a): the batch requests never streamed")
+        handles += [fd.submit(p, lane="interactive", tenant="t4",
+                              deadline_ms=F_DEADLINE_MS) for p in inter]
+        go.set()
+        outs, texts = [], []
+        for h in handles:
+            list(h)  # the stream, to its last event
+            outs.append(h.result(timeout=600))
+            texts.append(h.text())
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        st = fd.stats()
+    finally:
+        go.set()
+        fd.stop()
+    return outs, texts, st, counts
+
+
+def f_plain_run(torch, model32, prompts, stops):
+    """The same requests on a plain PagedGenerationServer (no scheduler,
+    same pool), all queued before start()."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    srv = PagedGenerationServer(model32, max_slots=F_SLOTS,
+                                block_size=F_BS, max_new_tokens=F_NEW,
+                                num_blocks=F_BLOCKS, detokenize=r_detok,
+                                enable_prefix_cache=True, device=DEV)
+    futs = [srv.submit(p, sampling=(SamplingParams(stop_strings=(s,))
+                                    if s else None))
+            for p, s in zip(prompts, stops)]
+    srv.start()
+    try:
+        return [f.result(timeout=600) for f in futs]
+    finally:
+        srv.stop()
+
+
+def f_preemption(torch, model32, params_cpu, counts_out, ties):
+    """5f (a): float32, TF32 off, 2 slots, block 16, F_BLOCKS blocks. The
+    front door on the split stack, then on unified + async: every
+    request's tokens equal the plain server's but for near ties (phase
+    4g's rule), preemptions >= 1 with cached tokens > 0, the streamed
+    text is the detokenized tokens with the stop string suppressed, K1
+    launched (and K2 on the split stack) and every decode dispatch
+    (window round) a replay."""
+    cfg = model32.cfg
+    rs = np.random.RandomState(71)
+    batch = [rs.randint(1, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in rs.randint(40, 97, 4)]
+    inter = [rs.randint(1, cfg.vocab_size, int(n)).astype(np.int32)
+             for n in rs.randint(16, 49, 2)]
+    prompts = batch + inter
+    free = f_plain_run(torch, model32, prompts, [None] * 6)
+    stop = f_stop_string(free[0][batch[0].size:])
+    if stop is None:
+        fail("phase 5f (a): no stop string in request 0's text")
+    stops = [stop, None, None, None]
+    want = f_plain_run(torch, model32, prompts, stops + [None, None])
+    lines = []
+    for name, kw in (("split", {}), ("unified+async",
+                                     {"async_rounds": True})):
+        outs, texts, st, counts = f_preempt_run(torch, model32, batch,
+                                                inter, stops, **kw)
+        for r, (a, b, p) in enumerate(zip(want, outs, prompts)):
+            if np.array_equal(a, b):
+                continue
+            if not gen_tie(torch, cfg, params_cpu, b, a, p.size, None,
+                           f"5f (a) {name}"):
+                fail(f"phase 5f (a) {name}: request {r} differs from the "
+                     f"plain server beyond the near-tie rule")
+            ties.append((name, r, int(np.nonzero(a != b)[0][0])))
+        for r, (o, p, text) in enumerate(zip(outs, prompts, texts)):
+            full = r_detok(o[p.size:])
+            s = stops[r] if r < len(stops) else None
+            cut = full[:full.find(s)] if s else full
+            if text != cut or (s and s in text):
+                fail(f"phase 5f (a) {name}: request {r} streamed "
+                     f"{text!r}, its tokens read {full!r} (stop {s!r})")
+        fr = st["frontdoor"]
+        if fr["preemptions"] < 1 or fr["preempt_cached_tokens"] <= 0:
+            fail(f"phase 5f (a) {name}: preemptions {fr['preemptions']}, "
+                 f"cached tokens {fr['preempt_cached_tokens']}")
+        if st["stop_reasons"]["stop_string"] != 1:
+            fail(f"phase 5f (a) {name}: stop reasons {st['stop_reasons']}")
+        if counts["ragged_stream_dense"] <= 0 or (
+                not kw and counts["paged_decode_dense"] <= 0):
+            fail(f"phase 5f (a) {name}: K1/K2 launches {counts}")
+        if not kw and st["decode_graph_replays"] != st["decode_steps"]:
+            fail(f"phase 5f (a) {name}: {st['decode_graph_replays']} "
+                 f"replays for {st['decode_steps']} decode dispatches")
+        if kw and st["round_graph_replays"] != \
+                st["rounds"]["rounds"] - st["prefill_dispatches"]:
+            fail(f"phase 5f (a) {name}: {st['round_graph_replays']} window "
+                 f"replays for {st['rounds']['rounds']} rounds, "
+                 f"{st['prefill_dispatches']} with chunk rows")
+        for k in ("ragged_stream_dense", "paged_decode_dense"):
+            counts_out[k] = counts_out.get(k, 0) + counts[k]
+        lines.append(
+            f"(a) f32 {name}: 4 batch (tenants t1:t4 = 1:4) + 2 "
+            f"interactive requests on 2 slots, {F_BLOCKS} blocks: "
+            f"preemptions {fr['preemptions']} (cached tokens "
+            f"{fr['preempt_cached_tokens']}), resumes {fr['resumes']}; "
+            f"tokens == the plain server's; streams == the detokenized "
+            f"tokens (stop string {stop!r} suppressed); deadline misses "
+            f"{fr['deadline_misses']}; K1 {counts['ragged_stream_dense']} "
+            f"K2 {counts['paged_decode_dense']} launches, decode replays "
+            f"{st['decode_graph_replays']} of {st['decode_steps']}, window "
+            f"replays {st['round_graph_replays']}")
+    return lines
+
+
+def f_prefetch_run(torch, model32, prompts, other, prefetch):
+    """5f (b): a one-slot front door over a HostKVTier: prompts[0] served,
+    its chain demoted whole, then an interactive occupier held at its
+    first token while prompts[1:] (sharing prompts[0]'s prefix) queue;
+    with `prefetch` the tick promotes their chains during the occupier's
+    rounds. Returns (tokens of prompts[1:], stats)."""
+    from paddle_tpu_torch.frontend import FrontDoor
+    from paddle_tpu_torch.inference.kv_tier import HostKVTier
+
+    fd = FrontDoor(model32, max_slots=1, block_size=F_BS,
+                   max_new_tokens=16, prefill_chunk_tokens=512,
+                   kv_tier=HostKVTier(capacity_blocks=256, watermark=0.0),
+                   tier_prefetch=2 if prefetch else None, device=DEV)
+    fd.start()
+    try:
+        fd.submit(prompts[0], lane="batch").result(timeout=600)
+        if fd.server.cache.demote_cold(1 << 12) <= 0:
+            fail("phase 5f (b): nothing demoted")
+        hold, reached, go = f_hold(1)
+        occ = fd.submit(other, lane="interactive", on_token=hold)
+        if not reached.wait(600):
+            fail("phase 5f (b): the occupier never streamed")
+        hs = [fd.submit(p, lane="batch") for p in prompts[1:]]
+        go.set()
+        occ.result(timeout=600)
+        outs = [h.result(timeout=600) for h in hs]
+        st = fd.stats()
+    finally:
+        fd.stop()
+    return outs, st
+
+
+def f_prefetch(torch, model32):
+    """5f (b): shared-prefix prompts (a 256-token prefix, RandomState(72))
+    under a front door with tier_prefetch=2: prefetch hits >= 1 and the
+    tokens equal the same run with tier_prefetch off."""
+    V = model32.cfg.vocab_size
+    rs = np.random.RandomState(72)
+    shared = rs.randint(1, V, 256).astype(np.int32)
+    prompts = [np.concatenate([shared, rs.randint(1, V, int(n))
+                               .astype(np.int32)]) for n in (9, 21, 40)]
+    other = rs.randint(1, V, 24).astype(np.int32)
+    off, _ = f_prefetch_run(torch, model32, prompts, other, False)
+    on, st = f_prefetch_run(torch, model32, prompts, other, True)
+    for r, (a, b) in enumerate(zip(off, on)):
+        if not np.array_equal(a, b):
+            fail(f"phase 5f (b): request {r + 1} differs with prefetch on")
+    tp = st["tier_prefetch"]
+    if tp["hit_blocks"] < 1:
+        fail(f"phase 5f (b): prefetch {tp}")
+    return (f"(b) f32 kv_tier + tier_prefetch=2 under a front door, "
+            f"shared 256-token prefix: issued {tp['issued_blocks']} blocks, "
+            f"hits {tp['hit_blocks']}, wasted {tp['wasted_blocks']}, "
+            f"overlapped promote {tp['overlap_promote_s'] * 1e3:.2f} ms; "
+            f"tokens == tier_prefetch off")
+
+
+def f_serve(torch, model, prompts, front):
+    """5f (c): phase 5's server (8 slots, block 16, chunk 512, 32 new,
+    prefix cache on) with or without the front door (tenants t1/t4, SLOs,
+    attribution, the ops endpoint). A pass queues prompts[:8] as batch
+    (tenants alternating), holds the engine at the first batch token and
+    queues prompts[8:] as interactive (deadline F_DEADLINE_MS): a warm
+    pass, a measured pass under tracing (launch counts zeroed just before
+    it), and a pass under torch.profiler (busy time and idle share).
+    Returns (stats, counts, extra)."""
+    import urllib.error
+    import urllib.request
+
+    from paddle_tpu_torch.frontend import FrontDoor
+    from paddle_tpu_torch.inference import (PagedGenerationServer,
+                                            RequestMeta)
+    from paddle_tpu_torch.observability import tracing
+    from paddle_tpu_torch.ops import kernels
+
+    kw = dict(max_slots=8, block_size=16, max_prompt_len=768,
+              max_new_tokens=32, prefill_chunk_tokens=512,
+              enable_prefix_cache=True, device=DEV)
+    if front:
+        fd = FrontDoor(model, tenants=f_tenants(), slos=True,
+                       attribution=True, expose_port=0, **kw)
+        srv = fd.server
+    else:
+        fd, srv = None, PagedGenerationServer(model, **kw)
+    batch, inter = prompts[:8], prompts[8:]
+
+    def submit(p, lane, tenant, **k):
+        if fd is not None:
+            return fd.submit(p, lane=lane, tenant=tenant, **k)
+        dl = k.pop("deadline_ms", None)
+        k.pop("stream", None)
+        return srv.submit(p, meta=RequestMeta(
+            lane=lane, tenant=tenant,
+            deadline_s=None if dl is None else dl * 1e-3), **k)
+
+    def one_pass():
+        hold, reached, go = f_hold(1)
+        hs = [submit(p, "batch", F_TENANTS[i % 2][0], on_token=hold)
+              for i, p in enumerate(batch)]
+        if not reached.wait(600):
+            fail("phase 5f (c): the batch requests never streamed")
+        hs += [submit(p, "interactive", F_TENANTS[i % 2][0],
+                      deadline_ms=F_DEADLINE_MS)
+               for i, p in enumerate(inter)]
+        go.set()
+        return [h.result(timeout=600) for h in hs]
+
+    extra = {"busy": None, "idle": None, "k2_traced": None}
+    srv.start()
+    try:
+        one_pass()                                         # warm pass
+        srv.reset_stats()
+        tracing.enable()
+        tracing.reset()
+        kernels.reset_launch_counts()                      # main path
+        t0 = time.perf_counter()
+        one_pass()
+        torch.cuda.synchronize()
+        extra["wall"] = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        tracing.disable()
+        extra["events"] = tracing.events()
+        st = srv.stats()
+        if fd is not None:
+            extra["cost"] = fd.cost_report()
+            got = {}
+            for path in ("/slo", "/capacity"):
+                try:
+                    r = urllib.request.urlopen(fd.ops_url + path,
+                                               timeout=30)
+                    got[path] = (r.status, json.loads(r.read()))
+                except urllib.error.HTTPError as e:
+                    got[path] = (e.code, json.loads(e.read()))
+            extra["endpoints"] = got
+            import tempfile
+
+            with tempfile.TemporaryDirectory() as tmp:
+                path = os.path.join(tmp, "timeline.json")
+                extra["timeline_n"] = fd.export_timeline(path)
+                with open(path) as f:
+                    extra["timeline"] = json.load(f)["traceEvents"]
+        busy, k2 = traced_busy(torch, one_pass)
+        if busy > 0:
+            extra.update(busy=busy, idle=1 - busy / extra["wall"],
+                         k2_traced=k2)
+    finally:
+        tracing.disable()
+        tracing.TRACER.reset()
+        srv.stop()
+    return st, counts, extra
+
+
+def f_check_observability(st, extra):
+    """5f (c)'s front-door checks: /slo and /capacity answer 200 (the
+    snapshot's schema_version 1), the cost report's tenants' device-ns
+    sum to its busy-ns exactly, the timeline holds dispatch-track
+    events, every request's causal trace tiles its wall clock, and each
+    preempted request's per-engine trace shows its requeue."""
+    from paddle_tpu_torch.observability import (assemble_causal_traces,
+                                                check_tiling)
+    from paddle_tpu_torch.observability.tracing import \
+        assemble_request_traces
+
+    got = extra["endpoints"]
+    if got["/slo"][0] != 200 or got["/capacity"][0] != 200 or \
+            got["/capacity"][1].get("schema_version") != 1:
+        fail(f"phase 5f (c): /slo {got['/slo'][0]}, /capacity "
+             f"{got['/capacity'][0]} {got['/capacity'][1].get('schema_version')}")
+    cost = extra["cost"]
+    dev_ns = sum(a["device_ns"] for a in cost.tenants.values())
+    if dev_ns != cost.totals["busy_ns"] or dev_ns <= 0:
+        fail(f"phase 5f (c): tenants' device-ns {dev_ns} vs busy-ns "
+             f"{cost.totals['busy_ns']}")
+    tl = extra["timeline"]
+    tracks = {(e["pid"], e["tid"]): e["args"]["name"] for e in tl
+              if e.get("ph") == "M" and e["name"] == "thread_name"}
+    n_dispatch = sum(1 for e in tl if e.get("ph") in ("X", "i")
+                     and tracks.get((e["pid"], e["tid"])) == "dispatch")
+    if n_dispatch == 0:
+        fail("phase 5f (c): the timeline has no dispatch-track event")
+    evs = extra["events"]
+    causal = assemble_causal_traces(evs)
+    if len(causal) != 16:
+        fail(f"phase 5f (c): {len(causal)} causal traces for 16 requests")
+    worst = 0.0
+    for rec in causal.values():
+        if not rec["complete"]:
+            fail(f"phase 5f (c): trace of {rec['request_id']} incomplete")
+        worst = max(worst, check_tiling(rec))
+    if worst > 0.05:
+        fail(f"phase 5f (c): a causal trace tiles its wall clock within "
+             f"{worst:.4f} ms only")
+    per = assemble_request_traces(evs)
+    pre = [r for r in per.values() if r.get("preemptions")]
+    if sum(r["preemptions"] for r in pre) != st["frontdoor"]["preemptions"]:
+        fail(f"phase 5f (c): the traces show "
+             f"{sum(r['preemptions'] for r in pre)} preemptions, the stats "
+             f"{st['frontdoor']['preemptions']}")
+    if any(not r.get("requeue_ms") or r["requeue_ms"] <= 0 for r in pre):
+        fail("phase 5f (c): a preempted request's trace has no requeue")
+    return dev_ns, n_dispatch, worst, len(pre)
+
+
+def frontdoor_phase(torch, model, prompts, card):
+    """Phase 5f (a)-(c); returns the K1/K2 launches of its main-path runs
+    and prints its lines."""
+    import gc
+
+    from paddle_tpu_torch.models import GPT2
+
+    t0 = time.perf_counter()
+    cfg = model.cfg
+    counts = {}
+    ties = []
+    model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
+    params_cpu = {k: v.detach().cpu() for k, v in
+                  model32.flat_params().items()}
+    lines = f_preemption(torch, model32, params_cpu, counts, ties)
+    lines.append(f_prefetch(torch, model32))
+    del model32, params_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+    for line in lines:
+        say(f"phase 5f {line} [{card}]")
+    say(f"phase 5f (a) near ties (phase 4g's rule): {ties or 'none'}")
+
+    runs = {}
+    for front in (False, True):
+        st, c, extra = f_serve(torch, model, prompts, front)
+        for n in ("ragged_stream_dense", "paged_decode_dense"):
+            counts[n] = counts.get(n, 0) + c[n]
+        if c["ragged_stream_dense"] <= 0 or c["paged_decode_dense"] <= 0:
+            fail(f"phase 5f (c): K1/K2 launches {c}")
+        if st["decode_graph_replays"] != st["decode_steps"]:
+            fail("phase 5f (c): a decode dispatch was not a replay")
+        runs[front] = (st, extra)
+    st, extra = runs[True]
+    dev_ns, n_dispatch, worst, n_pre = f_check_observability(st, extra)
+    for front in (False, True):
+        st, extra = runs[front]
+        fr = st["frontdoor"]
+        lanes = " ".join(
+            f"{lane} ttft p50/p99 {v['ttft']['p50_ms']:.1f}/"
+            f"{v['ttft']['p99_ms']:.1f} ms"
+            for lane, v in sorted(fr["lanes"].items()))
+        say(f"phase 5f (c) bf16 {'front door' if front else 'plain server'}"
+            f" (phase 5's 16 prompts, k=1, 8 batch then 8 interactive, "
+            f"deadline {F_DEADLINE_MS:.0f} ms, prefix cache on): "
+            f"tokens_per_sec {st['tokens_per_sec']:.1f}; {lanes}; "
+            f"preemptions {fr['preemptions']} deadline misses "
+            f"{fr['deadline_misses']} of {fr['deadline_requests']}; "
+            f"{idle_text(extra, st, 1, cfg.num_layers)} [{card}]")
+    s0, s1 = runs[False][0], runs[True][0]
+    say(f"phase 5f (c) front door / plain: tokens_per_sec "
+        f"{s1['tokens_per_sec'] / max(s0['tokens_per_sec'], 1e-9):.4f}x; "
+        f"/slo and /capacity answered 200 (capacity schema_version 1); "
+        f"cost report: tenants' device-ns {dev_ns} == busy-ns; timeline "
+        f"{extra['timeline_n']} events, {n_dispatch} on the dispatch "
+        f"track; 16 causal traces tile their wall clock (worst "
+        f"{worst:.4f} ms), {n_pre} preempted requests show their requeue "
+        f"[{card}]")
+    say(f"phase 5f: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -5455,6 +5931,11 @@ def main():
                                   artifact).items():
         main_counts[n] += v
     del artifact
+
+    # phase 5f: the serving front door (its K1/K2 launches join the
+    # kernels line)
+    for n, v in frontdoor_phase(torch, model, prompts, card).items():
+        main_counts[n] += v
 
     del model
     torch.cuda.empty_cache()

@@ -3,8 +3,8 @@ dynamic batcher over a fixed-shape decode program."""
 from .kv_cache import BlockPoolExhausted, PagedKVCache, blocks_for  # noqa: F401
 from .kv_quant import QuantizedKV, kv_encode  # noqa: F401
 from .serving import (GenerationServer, PagedGenerationServer,  # noqa: F401
-                      measure_offered_load)
+                      RequestMeta, measure_offered_load)
 
-__all__ = ["PagedGenerationServer", "GenerationServer",
+__all__ = ["PagedGenerationServer", "GenerationServer", "RequestMeta",
            "measure_offered_load", "PagedKVCache", "BlockPoolExhausted",
            "blocks_for", "QuantizedKV", "kv_encode"]

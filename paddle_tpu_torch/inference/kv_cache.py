@@ -55,8 +55,15 @@ Telemetry: the reference's pool gauges and counters under its names
 (`kv_pool_*`, `kv_prefix_cache_*`, `kv_tier_*`), one series per pool
 (`pool` label, `name=` or "poolN"), pushed after every table change
 while the metrics registry is enabled (one bool check otherwise). Left
-out: the attribution ledger (with the engine's owner arguments) and the
-shard-count bookkeeping (the per-shard byte series).
+out: the shard-count bookkeeping (the per-shard byte series).
+
+Attribution: with a `observability.attribution.ResourceLedger` on
+`ledger` (the engine attaches it before the first allocation), every
+non-free block has exactly one (tenant, rid) owner, assigned when
+`_take_blocks` pulls it off the free list (`set_seq_owner` names who
+pays for a sequence's growth) and closed when it returns there; a
+demoted entry's host bytes stay its block owner's. Per-tenant block
+counts then sum to the pool's occupancy whatever the sharing.
 
 Invariants (fuzz-tested in tests/test_torch_prefix_cache.py, against
 the reference pool step for step):
@@ -306,6 +313,12 @@ class PagedKVCache:
         # (event, payloads) of asynchronous host-to-device copies whose
         # page-locked sources must outlive the copy
         self._h2d_inflight: list = []
+        # attribution: the engine's ResourceLedger (None = off) and the
+        # single-owner maps it is charged through
+        self.ledger = None
+        self._seq_owner: dict = {}     # seq -> (tenant, rid)
+        self._block_owner: dict = {}   # block -> (tenant, rid)
+        self._tier_owner: dict = {}    # hash -> (tenant, bytes)
         if tier is not None:
             self.attach_tier(tier)
 
@@ -369,10 +382,35 @@ class PagedKVCache:
                 f"in this cache (live sequences: {len(self._tables)})"
             ) from None
 
-    def _take_blocks(self, n):
+    def set_seq_owner(self, seq_id, tenant, rid=None):
+        """Name who pays for `seq_id`'s future allocations (attribution;
+        the engine calls this at slot install, before the first growth).
+        Unowned sequences charge the "default" tenant. Cleared by
+        `free`."""
+        self._seq_owner[seq_id] = (str(tenant), rid)
+
+    def _ledger_block_freed(self, b):
+        """A block re-entered the free list: close its ownership."""
+        own = self._block_owner.pop(b, None)
+        if own is not None and self.ledger is not None:
+            self.ledger.block_event(own[0], own[1], -1)
+
+    def _ledger_tier_add(self, h, tenant, nbytes):
+        if self.ledger is None or h in self._tier_owner:
+            return
+        self._tier_owner[h] = (tenant, nbytes)
+        self.ledger.host_bytes_event(tenant, nbytes)
+
+    def _ledger_tier_drop(self, h):
+        own = self._tier_owner.pop(h, None)
+        if own is not None and self.ledger is not None:
+            self.ledger.host_bytes_event(own[0], -own[1])
+
+    def _take_blocks(self, n, owner=None):
         """Pop `n` blocks off the free list (refcount 1 each),
         reclaiming LRU-retained blocks as needed. Callers that need
-        all-or-nothing semantics pre-check availability."""
+        all-or-nothing semantics pre-check availability. `owner` is the
+        (tenant, rid) charged while the blocks stay off the free list."""
         while len(self._free) < n and self._retained:
             self._reclaim_lru()
         if n > len(self._free):
@@ -384,6 +422,11 @@ class PagedKVCache:
         taken = [self._free.pop() for _ in range(n)]
         for b in taken:
             self._ref[b] = 1
+        if self.ledger is not None and taken:
+            tenant, rid = owner if owner is not None else ("default", None)
+            for b in taken:
+                self._block_owner[b] = (tenant, rid)
+            self.ledger.block_event(tenant, rid, len(taken))
         used = self.num_blocks - 1 - len(self._free) - len(self._retained)
         self._peak_blocks = max(self._peak_blocks, used)
         return taken
@@ -403,6 +446,7 @@ class PagedKVCache:
                                       len(self._retained))
         else:
             self._free.append(b)
+            self._ledger_block_freed(b)
 
     def _reclaim_lru(self):
         """Evict the least recently retained block: drop its entries and
@@ -414,6 +458,7 @@ class PagedKVCache:
         for h in list(self._block_entries.get(b, ())):
             self._drop_entry(h)
         self._free.append(b)
+        self._ledger_block_freed(b)
         self._evictions += 1
         _m_prefix_evictions.labels(pool=self._name).inc()
 
@@ -425,6 +470,7 @@ class PagedKVCache:
         if self._tier is not None:
             # a hash never lives in both indexes: the device copy wins
             self._tier.drop(h)
+            self._ledger_tier_drop(h)
 
     def _drop_entry(self, h):
         block, fill, parent = self._index.pop(h)
@@ -449,6 +495,9 @@ class PagedKVCache:
         default tier; None detaches and forgets the tier's content).
         Returns the attached tier or None."""
         self._tier = normalize_kv_tier(tier)
+        if self._tier is None:
+            for h in list(self._tier_owner):  # forgotten content is
+                self._ledger_tier_drop(h)     # no longer anyone's cost
         return self._tier
 
     @property
@@ -505,16 +554,24 @@ class PagedKVCache:
         to the tier with a host copy of its rows, and the device slot
         frees."""
         b, _ = self._retained.popitem(last=False)
+        owner = self._block_owner.get(b, ("default", None))
         moved = 0
         nbytes = 0
         for h in list(self._block_entries.get(b, ())):
             _blk, fill, parent = self._index[h]
             kp, vp = self._tier_grab(b, fill)
-            self._tier.put(h, fill, parent, kp, vp)
-            nbytes += payload_nbytes((kp, vp))
+            evicted = self._tier.put(h, fill, parent, kp, vp)
+            per = payload_nbytes((kp, vp))
+            nbytes += per
+            # the demoting block's owner keeps paying, in host
+            # byte-seconds; a capacity eviction ends the old owner's
+            self._ledger_tier_add(h, owner[0], per)
+            for old in evicted:
+                self._ledger_tier_drop(old)
             self._drop_entry(h)
             moved += 1
         self._free.append(b)
+        self._ledger_block_freed(b)
         self._tier_demotions += 1
         self._tier_bytes_out += nbytes
         if _metrics.enabled():
@@ -558,13 +615,19 @@ class PagedKVCache:
             return None
         if h in self._index:
             self._tier.drop(h)
+            self._ledger_tier_drop(h)
             return 0
         if self.available_block_count < 1:
             return None
         fill, parent, kp, vp = ent
-        b = self._take_blocks(1)[0]
+        # the promoted block belongs to whoever paid for the tier entry
+        # (the demoter), not to whoever triggered the match
+        own = self._tier_owner.get(h)
+        b = self._take_blocks(
+            1, owner=(own[0], None) if own is not None else None)[0]
         self._tier_install(b, fill, kp, vp)
         self._tier.pop(h)
+        self._ledger_tier_drop(h)
         self._register_entry(h, b, fill, parent)
         self._release_block(b)  # refcount 0 + indexed -> retention MRU
         nbytes = payload_nbytes((kp, vp))
@@ -746,7 +809,8 @@ class PagedKVCache:
         for (seq_id, n), grow in zip(updates, need):
             table = self._tables.setdefault(seq_id, [])
             if grow:
-                table.extend(self._take_blocks(grow))
+                table.extend(self._take_blocks(
+                    grow, owner=self._seq_owner.get(seq_id)))
             self._lens[seq_id] = max(self._lens.get(seq_id, 0), n)
         self.maybe_demote()
         self._push_gauges()
@@ -763,6 +827,7 @@ class PagedKVCache:
         table = self._get_table(seq_id, "free")
         del self._tables[seq_id]
         del self._lens[seq_id]
+        self._seq_owner.pop(seq_id, None)
         for b in reversed(table):
             self._release_block(b)
         self.maybe_demote()
@@ -940,7 +1005,8 @@ class PagedKVCache:
         if not shared and not blocking:
             return False
         if self.available_block_count >= 1:
-            new = self._take_blocks(1)[0]
+            new = self._take_blocks(
+                1, owner=self._seq_owner.get(seq_id))[0]
             for a in self._pool_leaves():
                 a[:, new].copy_(a[:, block])
             table[bi] = new
@@ -1006,7 +1072,7 @@ class PagedKVCache:
             "v": [grab(self.v_blocks, b) for b in blocks],
         }
 
-    def import_prefix(self, payload):
+    def import_prefix(self, payload, owner=None):
         """Install an `export_prefix` payload (this port's or the
         reference's): allocate blocks, write the contents, and register
         the chain as `publish_prefix` would; the blocks park in
@@ -1028,7 +1094,8 @@ class PagedKVCache:
             raise ValueError(
                 f"import_prefix payload inconsistent: {ids.size} "
                 f"tokens vs fills {fills}")
-        new_blocks = self._take_blocks(len(fills))  # may raise
+        new_blocks = self._take_blocks(len(fills),
+                                       owner=owner)  # may raise
         for b, pk, pv in zip(new_blocks, payload["k"], payload["v"]):
             for arr, pay in ((self.k_blocks, pk), (self.v_blocks, pv)):
                 for dst, src in zip(_leaves(arr), _leaves(pay)):
@@ -1062,6 +1129,22 @@ class PagedKVCache:
                                  f"({len(r)}) exceeds width {width}")
             out[i, :len(r)] = r
         return out
+
+    def headroom(self):
+        """Capacity view for the pressure sampler: host-side counters
+        only, no device read (safe at round rates)."""
+        held = sum(self._lens.values())
+        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        return {
+            "num_blocks": self.num_blocks - 1,
+            "used_blocks": used,
+            "free_blocks": len(self._free),
+            "retained_blocks": len(self._retained),
+            "available_blocks": len(self._free) + len(self._retained),
+            "sequences": len(self._tables),
+            "held_tokens": held,
+            "utilization": held / (self.capacity_tokens or 1),
+        }
 
     def block_fill(self):
         """Live tokens / allocated block capacity."""

@@ -178,12 +178,46 @@ modes, with all-padding rows whose writes land in the trash block: the
 port's prefill is eager and unbucketed (§C 8), so there is nothing else
 to warm; its captures are labelled not in flight.
 
-Left for later slices: the front door and scheduler seams (`meta=`,
-`set_scheduler`, preemption, tier prefetch; ROADMAP §A 8), causal
-trace contexts (`trace_ctx=`), SLOs, capacity snapshots, the timeline
-export, attribution (`attribution=True` raises) and the fleet hooks
-(`export_session`, `import_kv_payload`, `run_host_op`; §A 12), and
-sharding (§A 11).
+The front door (`paddle_tpu_torch.frontend`): `set_scheduler(sched)`
+(before `start()`) hands the queues and the admission policy to a
+scheduler (`frontend.LaneScheduler`: SLO lanes, EDF, tenant fair share,
+token buckets, bounded queues). `submit(meta=RequestMeta(...))` routes
+through its `on_submit`; admission asks it for candidates, and a
+candidate short of a slot or of blocks may PREEMPT residents the policy
+names (`_preempt_slot_locked`: the async round in flight is processed
+first, the victim's live K/V is published through `swap_out_seq` with
+caching on, else freed, and the request requeues with its resume state;
+it resumes through the resumed or warm install, token-identical to an
+uninterrupted run). The packed prefill and the unified round's chunk
+half take the scheduler's order and per-slot chunk caps
+(`prefill_plan`); a cap shortens a row's chunk, each row stays one
+segment. Recovery requeues, timeouts (`expire`), journal re-admission
+and `stop()` (`drain`) go through it too. `tier_prefetch=` promotes
+queued requests' tiered prefix blocks while a round runs (the
+scheduler's `peek` orders them under a front door). Without a
+scheduler the engine runs exactly the FIFO path above.
+`stats()["frontdoor"]` carries preemptions, resumes, lane TTFT/ITL
+percentiles and deadline misses (zeros without a scheduler).
+
+Engine-side observability: every request carries a `TraceContext`
+(`submit(trace_ctx=)`, else minted) stamped onto its events, spans,
+flight-recorder entries and journal records (a recovery requeue and a
+journal re-admission are new hops, cause "retry");
+`observability.assemble_causal_traces` folds them into one tree a
+request. `slos=` attaches an `SLOEngine` fed at the TTFT, ITL,
+availability and goodput sites (`slo_report()`, /slo,
+`stats()["slo"]`); `capacity_snapshot()` (/capacity) samples the
+pool's headroom, the tier, the queues, shedding and the SLOs;
+`export_timeline(path)` writes the Chrome/Perfetto timeline;
+`attribution=` keeps a `ResourceLedger` that splits every dispatch's
+measured wall time over its requests' tenants in integer nanoseconds
+(device-ns over tenants equals busy-ns exactly), charges pool blocks to
+their single owner and credits prefix-cache hits (`cost_report()`,
+`stats()["attribution"]`).
+
+Left for later slices: the fleet hooks (`export_session`,
+`import_kv_payload`, `run_host_op`; ROADMAP §A 12) and sharding
+(§A 11).
 
 GenerationServer (the reference's, `paddle_tpu/inference/serving.py:
 289-639`) batches requests for one compiled decode program: a
@@ -204,8 +238,9 @@ blocks. It emits the reference's tracing events (`request_submitted`,
 `request_admitted`, the `decode_dispatch` span, `request_done`) and
 metrics (queue depth, busy rows, requests done, stop reasons, latency;
 `server="dense"`). The server computes nothing itself: the program runs
-on its own device. Left out (ROADMAP §A 12): `attribution=` (raises)
-and `cost_report`. `measure_offered_load` drives a server at a fixed
+on its own device. `attribution=True` splits each batch's measured
+dispatch time evenly over its rows' tenants (`submit(tenant=)`,
+`cost_report()`). `measure_offered_load` drives a server at a fixed
 request rate.
 """
 from __future__ import annotations
@@ -229,6 +264,11 @@ from ..observability import flight_recorder as _flight
 from ..observability import log as _obs_log
 from ..observability import metrics as _metrics
 from ..observability import tracing as _tracing
+from ..observability.attribution import (ResourceLedger,
+                                         disabled_attribution_stats)
+from ..observability.capacity import PressureSignals
+from ..observability.slo import SLOEngine
+from ..observability.trace_context import TraceContext
 from ..reliability import (AdmissionShed, QuarantinedRequest,
                            RecoveryPolicy, RequestTimeout, SessionJournal,
                            resolve_fault_plan)
@@ -308,12 +348,31 @@ _m_spec_accept_rate = _metrics.histogram(
     "serving_spec_acceptance_rate",
     "per-slot per-round accepted/proposed draft fraction",
     buckets=(0.1, 0.25, 0.5, 0.75, 0.9, 1.0))
+_m_preemptions = _metrics.counter(
+    "serving_preemptions_total",
+    "slots evicted mid-flight to make room for a higher-priority "
+    "admission (the victim's live K/V is published through the "
+    "prefix-cache index when caching is on, then the request requeues)",
+    labelnames=("reason",))
 _m_resumes = _metrics.counter(
     "serving_preempt_resumes_total",
-    "requests re-admitted from resume state (a recovery requeue or a "
-    "journal re-admission; re-prefill of prompt + generated-so-far, "
-    "served from the prefix cache when the swapped-out blocks survived "
-    "retention)")
+    "requests re-admitted from resume state (a preemption, a recovery "
+    "requeue or a journal re-admission; re-prefill of prompt + "
+    "generated-so-far, served from the prefix cache when the "
+    "swapped-out blocks survived retention)")
+_m_preempt_cached = _metrics.counter(
+    "serving_preempt_cached_tokens_total",
+    "tokens of victim K/V published into the prefix-cache index at "
+    "swap-out (the work preemption preserves instead of recomputing)")
+_m_deadline_miss = _metrics.counter(
+    "serving_deadline_misses_total",
+    "requests whose first token landed after their TTFT deadline",
+    labelnames=("lane",))
+_m_deadline_overage = _metrics.histogram(
+    "serving_deadline_overage_seconds",
+    "by how much a missed TTFT deadline was missed (first token time "
+    "minus deadline; only observed on misses)",
+    buckets=(0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0))
 _m_decoded = _metrics.counter(
     "serving_tokens_decoded_total",
     "generated-token positions computed on device (decode steps, "
@@ -367,7 +426,27 @@ _m_recoveries = _metrics.counter(
 _m_timeouts = _metrics.counter(
     "serving_request_timeouts_total",
     "requests cancelled by their per-request timeout_s (queued or "
-    "resident; the slot and its blocks are freed)")
+    "resident; the slot and its blocks are freed, the stream "
+    "terminates with reason='timeout')")
+_m_prefetch_issued = _metrics.counter(
+    "kv_tier_prefetch_issued_total",
+    "host-tier blocks promoted AHEAD of admission by the prefetch "
+    "loop, overlapped with the in-flight round's device execution")
+_m_prefetch_hit = _metrics.counter(
+    "kv_tier_prefetch_hit_total",
+    "prefetched tier blocks still device-resident when their request "
+    "was admitted: promotion wall time the admission path never paid")
+_m_prefetch_wasted = _metrics.counter(
+    "kv_tier_prefetch_wasted_total",
+    "prefetched tier blocks whose request left the queue unadmitted "
+    "(timeout/stop) or that pool pressure reclaimed before admission")
+_m_promote_overlap = _metrics.histogram(
+    "kv_tier_promote_overlap_seconds",
+    "wall time of overlapped (prefetch-ahead) tier promote batches: "
+    "host copy time hidden behind device execution instead of being "
+    "charged to the admission path",
+    buckets=(0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+             0.5))
 _req_ids = itertools.count()
 
 STOP_REASONS = ("eos", "stop_token", "stop_string", "budget")
@@ -385,6 +464,24 @@ def _dispatch_span(name, rids, **attrs):
     if not _tracing.enabled():
         return _NO_SPAN
     return _tracing.span(name, request_ids=list(rids), **attrs)
+
+
+@dataclass
+class RequestMeta:
+    """Scheduling metadata the front-door scheduler reads.
+
+    lane: SLO lane name ("interactive" = TTFT-sensitive, "batch" =
+        throughput). The engine itself is lane-agnostic: lanes only
+        mean something to the installed scheduler policy.
+    tenant: fair-share / rate-limit / attribution accounting bucket.
+    deadline_s: relative TTFT deadline in SECONDS from submit; the
+        engine counts (never enforces) misses at first-token time.
+    cost: tokens the tenant's rate bucket is charged at admission
+        (conventionally prompt_len + token budget)."""
+    lane: str = "interactive"
+    tenant: str = "default"
+    deadline_s: float | None = None
+    cost: int = 0
 
 
 @dataclass(eq=False)  # identity: queues remove requests by identity
@@ -409,6 +506,14 @@ class _Req:
     # wall-clock cancellation deadline, seconds from submit (None =
     # never)
     timeout_s: float | None = None
+    # front door: scheduling metadata (None = the default lane and
+    # tenant) and the times this request was swapped out
+    meta: RequestMeta | None = None
+    preempts: int = 0
+    # causal tracing: the TraceContext stamped onto every event, span,
+    # flight-recorder entry and journal record this request touches;
+    # its hop bumps on a recovery requeue or a journal re-admission
+    trace: TraceContext | None = None
 
 
 class PagedGenerationServer:
@@ -465,7 +570,14 @@ class PagedGenerationServer:
     journal: a path or a `SessionJournal` (module docstring).
     shed_queue_depth: refuse a submit arriving at this queue depth
         (`AdmissionShed`); None = never.
-    attribution: must be None or False (not ported, ROADMAP §A 12).
+    slos: None, True (`observability.slo.default_slos()`), a list of
+        `SLO`, or an `SLOEngine`: the burn-rate engine fed from the
+        TTFT / ITL / availability / goodput sites (module docstring).
+    attribution: None (on with the ops plane or a live metrics
+        registry), True or False: the per-tenant `ResourceLedger`.
+    tier_prefetch: None/False, True (look 2 queued requests ahead) or
+        a positive depth: promote queued requests' tiered prefix
+        blocks while the round runs; needs kv_tier.
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
@@ -479,12 +591,8 @@ class PagedGenerationServer:
                  unified_round=False, async_rounds=False,
                  expose_port=None, flight_recorder=None,
                  stall_timeout_s=30.0, fault_plan=None, recovery=True,
-                 journal=None, shed_queue_depth=None, attribution=None,
-                 device=None):
-        if attribution:
-            raise ValueError(
-                "PagedGenerationServer(attribution=True) is not ported "
-                "(ROADMAP §A 12: attribution, capacity, SLOs)")
+                 journal=None, shed_queue_depth=None, slos=None,
+                 attribution=None, tier_prefetch=None, device=None):
         if quantization not in (None, "w8a16"):
             raise ValueError(f"unknown quantization {quantization!r} "
                              "(supported: None, 'w8a16')")
@@ -567,6 +675,28 @@ class PagedGenerationServer:
             raise ValueError(
                 "kv_tier requires enable_prefix_cache=True (the tier "
                 "holds demoted prefix-index content)")
+        # tier prefetch-ahead: promote a QUEUED request's tiered blocks
+        # into the pool while the current round runs, so its admission
+        # attach finds the chain device-resident. None/False = the
+        # synchronous promote-on-attach path only
+        if tier_prefetch is not None and tier_prefetch is not False:
+            if tier is None:
+                raise ValueError(
+                    "tier_prefetch requires kv_tier (prefetch-ahead "
+                    "promotes host-tier content ahead of admission; "
+                    "without a tier there is nothing to promote)")
+            look = 2 if tier_prefetch is True else int(tier_prefetch)
+            if look < 1:
+                raise ValueError(
+                    f"tier_prefetch={tier_prefetch!r} must be True or "
+                    f"a positive lookahead depth (queued requests "
+                    f"scanned per round)")
+        else:
+            look = 0
+        self._prefetch_look = look
+        self._prefetched: dict = {}       # rid -> prefetched hashes
+        self._prefetch_done: set = set()  # rids whose walk went dry
+        self._promote_ctx = None  # rid the attach in progress serves
         # reliability: the fault plan (one `is None` check per seam when
         # absent), the recovery policy (None = the old blast radius),
         # the journal and the shed depth; all validated before any
@@ -645,6 +775,17 @@ class PagedGenerationServer:
         self._last_error_info = None
         self._draining = False
         self._warm_ran = False
+        # front door: the installed scheduler (None = the FIFO path)
+        self._sched = None
+        # SLO engine: None = every feed site is one `is None` check
+        if slos is None or slos is False:
+            self._slo = None
+        elif isinstance(slos, SLOEngine):
+            self._slo = slos
+        else:
+            self._slo = SLOEngine(slos)
+        # the name a fleet wrapper stamps on trace events and spans
+        self.trace_name = None
         self._reset_window()
         # ---- operations plane ----------------------------------------
         if expose_port is None:
@@ -661,6 +802,28 @@ class PagedGenerationServer:
         self.stall_timeout_s = float(stall_timeout_s)
         self._watchdog = None
         self.exporter = None
+        # attribution: None turns the ledger on with the ops plane or a
+        # live metrics registry. It attaches to the pool before any
+        # allocation, so every block's ownership is complete and the
+        # conservation equations hold exactly
+        if attribution is None:
+            attribution = expose_port is not None or _metrics.enabled()
+        self._ledger = ResourceLedger() if attribution else None
+        self.cache.ledger = self._ledger
+        self._attr_parts = None  # the cost rows of the dispatch running
+        # pressure signals: always built (a sample is host counters
+        # only); auto-sampled at round boundaries only with the
+        # telemetry plane on, sampled fresh by capacity_snapshot()
+        self._capacity = PressureSignals({
+            "pool": self._cap_pool,
+            "tier": self._cap_tier,
+            "queues": self._cap_queues,
+            "admission": self._cap_admission,
+            "slo": self._cap_slo,
+        })
+        self._cap_auto = self._recorder.enabled or expose_port is not None
+        if self.cache.tier is not None:
+            self.cache.on_tier_event = self._on_tier_event
         # process-wide capture accounting: this engine answers "am I
         # serving live work" for the in-flight label, mirrors captures
         # into its flight recorder, and windows the count for
@@ -679,8 +842,11 @@ class PagedGenerationServer:
 
             self.exporter = OpsEndpoint(
                 statusz_fn=self.statusz, healthz_fn=self.health,
-                livez_fn=self.liveness,
-                readyz_fn=self.readiness).start(port=expose_port)
+                livez_fn=self.liveness, readyz_fn=self.readiness,
+                slo_fn=(self.slo_report if self._slo is not None
+                        else None),
+                capacity_fn=self.capacity_snapshot).start(
+                    port=expose_port)
             # pull-time health gauge of the most recent ops-plane
             # server; a weak reference, so the registry does not keep a
             # killed server (and its pool) alive
@@ -697,7 +863,8 @@ class PagedGenerationServer:
 
     # ---- client surface -------------------------------------------------
     def submit(self, ids, max_new_tokens=None, sampling=None, *,
-               on_token=None, timeout_s=None, rid=None):
+               meta=None, on_token=None, timeout_s=None, rid=None,
+               trace_ctx=None):
         """Enqueue one prompt (any length <= max_prompt_len; no padding).
         Returns a Future resolving to the UNPADDED [len + generated]
         int32 sequence. Generation stops at EOS, a stop token id, a stop
@@ -713,6 +880,13 @@ class PagedGenerationServer:
             past its submit, queued or resident. Needs a started server.
         rid: a caller-pinned request id (default "pN"): the journal and
             the quarantine diagnostics speak it.
+        meta: a `RequestMeta` (lane, tenant, TTFT deadline, rate cost)
+            for the installed scheduler, whose `on_submit` may raise to
+            reject (nothing is enqueued then); without a scheduler it
+            rides along for attribution and the per-lane stats.
+        trace_ctx: a caller-minted `TraceContext` (a front door or a
+            router mints once, so the request's whole lifetime shares
+            one trace_id); default a fresh hop-0 context.
 
         With `shed_queue_depth=`, a submit arriving at a queue that deep
         raises `AdmissionShed` (nothing is enqueued)."""
@@ -736,12 +910,19 @@ class PagedGenerationServer:
         if not 1 <= budget <= self.max_new:
             raise ValueError(f"max_new_tokens {budget} not in "
                              f"[1, {self.max_new}]")
+        if meta is not None and not isinstance(meta, RequestMeta):
+            raise TypeError(f"meta must be a RequestMeta, "
+                            f"got {type(meta).__name__}")
         if timeout_s is not None:
             timeout_s = float(timeout_s)
             if timeout_s <= 0:
                 raise ValueError(f"timeout_s must be > 0, "
                                  f"got {timeout_s}")
             self._any_timeouts = True
+        if trace_ctx is not None and not isinstance(trace_ctx,
+                                                    TraceContext):
+            raise TypeError(f"trace_ctx must be a TraceContext, "
+                            f"got {type(trace_ctx).__name__}")
         # explicit seeds reproduce tokens whatever the batch; auto seeds
         # give each request its own stream, deterministic given the
         # order of submission
@@ -752,31 +933,74 @@ class PagedGenerationServer:
                    budget=budget, sampling=sampling, seed=seed,
                    rid=(str(rid) if rid is not None
                         else f"p{next(_req_ids)}"),
-                   on_token=on_token, timeout_s=timeout_s)
+                   on_token=on_token, timeout_s=timeout_s, meta=meta,
+                   trace=(trace_ctx if trace_ctx is not None
+                          else TraceContext.mint()))
         with self._lock:
             if self._stop:
                 raise RuntimeError("server stopped")
-            if self._shed_depth is not None \
-                    and len(self._queue) >= self._shed_depth:
-                depth = len(self._queue)
-                self._sheds += 1
-                hint = self._retry_after_hint_locked(depth)
-                self._recorder.record("shed", request_id=req.rid,
-                                      depth=depth,
-                                      retry_after_s=round(hint, 3))
-                raise AdmissionShed(depth, self._shed_depth, hint)
-            self._queue.append(req)
-            _m_queue_depth.labels(server="paged").set(len(self._queue))
+            if self._shed_depth is not None:
+                depth = self._queue_depth_locked()
+                if depth >= self._shed_depth:
+                    self._sheds += 1
+                    hint = self._retry_after_hint_locked(depth)
+                    self._recorder.record("shed", request_id=req.rid,
+                                          depth=depth,
+                                          retry_after_s=round(hint, 3))
+                    raise AdmissionShed(depth, self._shed_depth, hint)
+            if self._sched is not None:
+                # scheduler-owned queues: on_submit may raise (a bounded
+                # queue's rejection); nothing is enqueued then
+                try:
+                    self._sched.on_submit(req, time.perf_counter())
+                except Exception as e:
+                    self._recorder.record(
+                        "reject", request_id=req.rid,
+                        error=f"{type(e).__name__}: {e}")
+                    raise
+            else:
+                self._queue.append(req)
+                _m_queue_depth.labels(server="paged").set(len(self._queue))
             if self._journal is not None:
                 # under the lock: the loop admits under it too, so the
                 # accept record precedes the request's first token
                 self._journal.record_accept(req)
             self._lock.notify()
-        self._recorder.record("submit", request_id=req.rid,
-                              prompt_len=int(ids.size), budget=budget)
+        if self._ledger is not None:
+            # only requests that were enqueued enter the cost ledger
+            self._ledger.request_begin(
+                req.rid, meta.tenant if meta is not None else "default")
+        self._recorder.record(
+            "submit", request_id=req.rid, prompt_len=int(ids.size),
+            budget=budget, lane=meta.lane if meta is not None else None,
+            tenant=meta.tenant if meta is not None else None,
+            **self._tr(req))
         _tracing.event("request_submitted", request_id=req.rid,
-                       prompt_len=int(ids.size), budget=budget)
+                       prompt_len=int(ids.size), budget=budget,
+                       **self._tr(req))
         return req.future
+
+    def _queue_depth_locked(self):
+        """Requests waiting: the FIFO queue, or the scheduler's."""
+        return (self._sched.depth() if self._sched is not None
+                else len(self._queue))
+
+    def set_scheduler(self, sched):
+        """Install a front-door scheduler: an object owning the request
+        queues and the admission and preemption policy. The engine asks
+        it instead of its FIFO queue for submission routing
+        (`on_submit`, which may raise to reject), candidate selection
+        (`next_request` / `pop`), preemption victims (`victims`), the
+        requeue of preempted requests (`requeue`), packed-prefill order
+        and per-slot chunk caps (`prefill_plan`), timeouts (`expire`),
+        prefetch look-ahead (`peek`) and queue depths (`depth` /
+        `lane_depths` / `tenant_depths`). None uninstalls; without one
+        the engine runs its reservation-FIFO path unchanged. Install
+        before start(): the loop reads it unlocked."""
+        if self._thread is not None:
+            raise RuntimeError("install the scheduler before start()")
+        self._sched = sched
+        return self
 
     def start(self):
         if self._thread is not None:
@@ -813,6 +1037,10 @@ class PagedGenerationServer:
         with self._lock:
             pending = list(self._queue)
             self._queue.clear()
+            if self._sched is not None:
+                pending.extend(self._sched.drain())
+            for req in pending:
+                self._abandon_prefetch_locked(req.rid)
             # residents of a stopped loop never finish: fail them too
             pending += [s["req"] for s in self._slots if s is not None]
         for req in pending:
@@ -866,6 +1094,22 @@ class PagedGenerationServer:
         self._sheds = 0
         self._resumes = 0
         self._warm_resumes = 0
+        # front door window counters (zeros without a scheduler)
+        self._preemptions = 0
+        self._preempt_cached_tokens = 0
+        self._deadline_requests: dict[str, int] = {}
+        self._deadline_misses: dict[str, int] = {}
+        self._lane_ttft: dict[str, list] = {}
+        self._lane_itl: dict[str, list] = {}
+        # tier prefetch-ahead window counters
+        self._prefetch_issued = 0
+        self._prefetch_hits = 0
+        self._prefetch_wasted = 0
+        self._prefetch_overlap_s = 0.0
+        # goodput-delta marks of the per-round SLO feed
+        self._slo_good_mark = (0, 0)
+        if self._sched is not None:
+            self._sched.reset_window()
         self._compile_mark = _compile_tracker.mark()
         # a fresh window is healthy again
         self._last_error = None
@@ -878,6 +1122,10 @@ class PagedGenerationServer:
         with self._lock:
             self._reset_window()
             self._t0 = time.perf_counter()
+        if self._ledger is not None:
+            # window accounts zero; occupancy LEVELS carry forward, so
+            # both sides of each conservation equation restart at zero
+            self._ledger.reset()
 
     def stats(self):
         """Window stats. ITL is per GENERATED token: each decode
@@ -892,7 +1140,7 @@ class PagedGenerationServer:
             def pct(xs, p):
                 return xs[min(len(xs) - 1, int(p * len(xs)))] if xs else 0.0
 
-            return {
+            out = {
                 "requests": len(lat),
                 "new_tokens": self._tokens_out,
                 "tokens_per_sec": self._tokens_out / dt if dt else 0.0,
@@ -1017,16 +1265,319 @@ class PagedGenerationServer:
                                if self._watchdog else 0),
                     "flight_recorder": self._recorder.stats(),
                 },
+                # tier prefetch-ahead: blocks promoted ahead of
+                # admission and how they settled (zeros when off)
+                "tier_prefetch": {
+                    "enabled": bool(self._prefetch_look),
+                    "lookahead": self._prefetch_look,
+                    "issued_blocks": self._prefetch_issued,
+                    "hit_blocks": self._prefetch_hits,
+                    "wasted_blocks": self._prefetch_wasted,
+                    "hit_rate": (self._prefetch_hits
+                                 / (self._prefetch_issued or 1)),
+                    "overlap_promote_s": self._prefetch_overlap_s,
+                },
                 "available_blocks": self.cache.available_block_count,
-                "queue_depth": len(self._queue),
+                # queue depths: the FIFO queue, or the scheduler's lane
+                # and tenant queues (empty dicts without a front door)
+                "queue_depth": self._queue_depth_locked(),
+                "lane_queue_depth": ({} if self._sched is None
+                                     else self._sched.lane_depths()),
+                "tenant_queue_depth": ({} if self._sched is None
+                                       else self._sched.tenant_depths()),
+                "frontdoor": self._frontdoor_stats_locked(),
                 "wall_s": dt,
             }
+        # the ledger and the SLO engine have their own locks
+        out["attribution"] = (self._ledger.stats()
+                              if self._ledger is not None
+                              else disabled_attribution_stats())
+        out["slo"] = {
+            "enabled": self._slo is not None,
+            "slos": (self._slo.evaluate()
+                     if self._slo is not None else []),
+        }
+        return out
+
+    def _frontdoor_stats_locked(self):
+        """The stats()["frontdoor"] block; caller holds the lock."""
+        def pcts(samples):
+            xs = sorted(samples)
+            n = len(xs)
+            return {
+                "p50_ms": xs[min(n - 1, int(0.50 * n))] * 1e3 if n else 0.0,
+                "p99_ms": xs[min(n - 1, int(0.99 * n))] * 1e3 if n else 0.0,
+                "n": n,
+            }
+
+        lanes = {}
+        for lane in sorted(set(self._lane_ttft) | set(self._lane_itl)):
+            lanes[lane] = {"ttft": pcts(self._lane_ttft.get(lane, ())),
+                           "itl": pcts(self._lane_itl.get(lane, ()))}
+        d_req = sum(self._deadline_requests.values())
+        d_miss = sum(self._deadline_misses.values())
+        out = {
+            "enabled": self._sched is not None,
+            "preemptions": self._preemptions,
+            "resumes": self._resumes,
+            "preempt_cached_tokens": self._preempt_cached_tokens,
+            "deadline_requests": dict(self._deadline_requests),
+            "deadline_misses": dict(self._deadline_misses),
+            "deadline_miss_rate": d_miss / (d_req or 1),
+            "lanes": lanes,
+            "rejected": 0,
+            "rate_throttled_skips": 0,
+        }
+        if self._sched is not None:
+            out.update(self._sched.window_stats())
+        return out
 
     def cost_report(self):
-        """Not ported (ROADMAP §A 12: attribution)."""
-        raise NotImplementedError(
-            "PagedGenerationServer.cost_report is not ported (ROADMAP "
-            "§A 12: attribution)")
+        """The per-tenant `CostReport` billing export of the current
+        window; None when attribution is off."""
+        return self._ledger.report() if self._ledger is not None else None
+
+    # ---- capacity signals ------------------------------------------------
+    def _cap_pool(self):
+        return self.cache.headroom()
+
+    def _cap_tier(self):
+        return self.cache._tier_stats()
+
+    def _cap_queues(self):
+        out = {"queue_depth": len(self._queue),
+               "busy_slots": sum(1 for s in self._slots if s is not None),
+               "max_slots": self.max_slots,
+               "lanes": {}, "tenants": {}}
+        sched = self._sched
+        if sched is not None:
+            try:
+                out["queue_depth"] = sched.depth()
+                out["lanes"] = sched.lane_depths()
+                out["tenants"] = sched.tenant_depths()
+            except Exception:  # noqa: BLE001 — a torn-down scheduler
+                pass           # must not poison the snapshot
+        return out
+
+    def _cap_admission(self):
+        info = self._last_error_info
+        return {
+            "sheds": self._sheds,
+            "shed_queue_depth": self._shed_depth,
+            "draining": self._draining,
+            # how short the last failed allocation fell (0 when healthy)
+            "exhaustion_needed": (info or {}).get("needed", 0),
+            "exhaustion_available": (info or {}).get("available", 0),
+        }
+
+    def _cap_slo(self):
+        if self._slo is None:
+            return {"enabled": False, "slos": []}
+        rep = self._slo.report()
+        return {"enabled": True, "worst": rep["worst"],
+                "slos": [{"name": s["name"], "state": s["state"],
+                          "burn_fast": s["burn_fast"],
+                          "burn_slow": s["burn_slow"],
+                          "budget_remaining": s["budget_remaining"]}
+                         for s in rep["slos"]]}
+
+    def capacity_snapshot(self):
+        """One fresh `PressureSignals` snapshot (schema_version 1): the
+        /capacity payload."""
+        return self._capacity.sample()
+
+    def _maybe_sample_capacity(self):
+        """Round-boundary auto-sample (telemetry plane on only): a
+        min-interval-gated snapshot into the flight recorder, so stall
+        and exception dumps carry the pressure history."""
+        if not self._cap_auto:
+            return
+        snap = self._capacity.maybe_sample()
+        if snap is None:
+            return
+        pool = snap.get("pool", {})
+        fc = snap.get("forecast", {})
+        self._recorder.record(
+            "capacity_sample", free_blocks=pool.get("free_blocks"),
+            available_blocks=pool.get("available_blocks"),
+            queue_depth=snap.get("queues", {}).get("queue_depth"),
+            exhaustion_eta_s=fc.get("exhaustion_eta_s"))
+
+    # ---- attribution -------------------------------------------------------
+    def _charge_dispatch(self, dur_s, parts):
+        """Charge one dispatch's measured wall time to its requests (no
+        wire bytes: one unsharded engine moves none)."""
+        if self._ledger is None or not parts:
+            return
+        self._ledger.charge_device(int(dur_s * 1e9), parts)
+
+    def _attr_begin(self, pairs):
+        """The cost rows [(tenant, rid, weight)] of the dispatch about to
+        run, from (req, weight) pairs (weight: tokens fed, decoded or
+        verified); also the target of a capture charged inside it.
+        None with attribution off."""
+        if self._ledger is None:
+            return None
+        parts = [(r.meta.tenant if r.meta is not None else "default",
+                  r.rid, int(w)) for r, w in pairs]
+        self._attr_parts = parts
+        return parts
+
+    # ---- causal tracing and SLOs -----------------------------------------
+    def _tr(self, req):
+        """The trace stamps (trace_id, hop, cause, replica) of one
+        request's events, spans and flight-recorder entries."""
+        t = req.trace
+        if t is None:
+            return {}
+        return t.attrs(replica=self.trace_name)
+
+    def _rattr(self):
+        """The replica stamp of batch dispatch spans (empty off a
+        fleet)."""
+        return ({"replica": self.trace_name}
+                if self.trace_name is not None else {})
+
+    def _slo_latency(self, kind, value_s, req, n=1):
+        """Feed one ttft/itl observation (caller checked _slo)."""
+        meta = req.meta
+        self._slo.observe(kind, value_s=value_s, n=n,
+                          lane=meta.lane if meta is not None else None,
+                          tenant=meta.tenant if meta is not None else None,
+                          replica=self.trace_name)
+
+    def _slo_avail(self, req, ok):
+        """Feed one availability outcome: finished, or failed for good
+        (quarantine, timeout, a failure with recovery off)."""
+        if self._slo is None:
+            return
+        meta = req.meta
+        self._slo.observe("availability", good=ok,
+                          lane=meta.lane if meta is not None else None,
+                          tenant=meta.tenant if meta is not None else None,
+                          replica=self.trace_name)
+
+    def _slo_goodput_round(self):
+        """Per-round goodput feed: emitted vs decoded tokens since the
+        last round (caller holds the lock and checked _slo)."""
+        good0, dec0 = self._slo_good_mark
+        good = max(0, self._tokens_out - good0)
+        waste = max(0, (self._decoded_tokens - dec0)
+                    - (self._tokens_out - good0))
+        self._slo_good_mark = (self._tokens_out, self._decoded_tokens)
+        if good or waste:
+            self._slo.observe_counts("goodput", good, waste,
+                                     replica=self.trace_name)
+
+    def slo_report(self):
+        """The /slo payload (`SLOEngine.report()`); the empty all-ok
+        shape without SLOs."""
+        if self._slo is None:
+            return {"slos": [], "worst": "ok", "paging": []}
+        return self._slo.report()
+
+    def export_timeline(self, path):
+        """Write this engine's Chrome/Perfetto timeline (the span sink
+        and the flight-recorder ring) to `path`; returns the event
+        count."""
+        from ..observability import timeline as _timeline
+
+        name = self.trace_name or "engine"
+        return _timeline.write_chrome_trace(
+            path, recorders={name: self._recorder.events()},
+            default_name=name)
+
+    # ---- tier prefetch-ahead ----------------------------------------------
+    def _on_tier_event(self, kind, **fields):
+        """The pool's tier callback -> flight recorder + trace event. A
+        `tier_promote` batch (one chain walk of an attach or a prefetch
+        tick) is its own event, so admission spans do not absorb
+        promotion time; an overlapped (prefetch) batch also feeds the
+        overlap histogram."""
+        if kind == "demote":
+            self._recorder.record("kv_tier_demote", **fields)
+            _tracing.event("kv_tier_demote", **fields)
+        elif kind == "tier_promote":
+            if fields.get("overlapped"):
+                dur = float(fields.get("dur_s", 0.0))
+                _m_promote_overlap.observe(dur)
+                with self._lock:
+                    self._prefetch_overlap_s += dur
+            if self._promote_ctx is not None:
+                fields = dict(fields, request_id=self._promote_ctx)
+            self._recorder.record("tier_promote", **fields)
+            _tracing.event("tier_promote", **fields)
+        else:
+            self._recorder.record("kv_tier_promote", **fields)
+            _tracing.event("kv_tier_promote", **fields)
+
+    def _tier_prefetch_tick(self):
+        """Promote the next queued requests' tiered blocks into the pool,
+        right after a round's dispatch is issued, so the host-side tier
+        work overlaps the device's. The promote walk is the one an
+        attach would run, only earlier; a prefetched block reclaimed
+        before admission re-promotes (or recomputes) on attach, with the
+        same tokens. Budgeted by the free list only: prefetch fills idle
+        capacity and never reclaims retained content."""
+        if not self._prefetch_look or self.cache.tier is None:
+            return
+        with self._lock:
+            if self._sched is not None:
+                peek = getattr(self._sched, "peek", None)
+                if peek is None:
+                    return
+                heads = [r for r in peek(time.perf_counter(),
+                                         self._prefetch_look)
+                         if r.rid not in self._prefetch_done]
+            else:
+                heads = [r for r in self._queue[:self._prefetch_look]
+                         if r.rid not in self._prefetch_done]
+        budget = self.cache.free_block_count
+        for r in heads:
+            if budget <= 0:
+                break
+            prompt = r.resume_ids if r.resume_ids is not None else r.ids
+            hashes, _tokens, _nbytes = self.cache.prefetch_promote(
+                prompt, limit_blocks=budget)
+            if hashes:
+                budget -= len(hashes)
+                _m_prefetch_issued.inc(len(hashes))
+                with self._lock:
+                    self._prefetch_issued += len(hashes)
+                    self._prefetched.setdefault(r.rid, set()).update(
+                        hashes)
+            else:
+                # a dry walk: skip the rid until it settles, so an idle
+                # queue does not re-hash long prompts every round
+                with self._lock:
+                    self._prefetch_done.add(r.rid)
+
+    def _settle_prefetch_locked(self, rid):
+        """At admission: prefetched blocks still in the device index are
+        hits, those pool pressure reclaimed meanwhile are wasted. Caller
+        holds the lock."""
+        self._prefetch_done.discard(rid)
+        pref = self._prefetched.pop(rid, None)
+        if not pref:
+            return
+        hit = self.cache.device_resident_count(pref)
+        wasted = len(pref) - hit
+        self._prefetch_hits += hit
+        self._prefetch_wasted += wasted
+        if hit:
+            _m_prefetch_hit.inc(hit)
+        if wasted:
+            _m_prefetch_wasted.inc(wasted)
+
+    def _abandon_prefetch_locked(self, rid):
+        """A queued request left unadmitted (timeout, stop): all that
+        was prefetched for it is wasted (the blocks stay in retention).
+        Caller holds the lock."""
+        self._prefetch_done.discard(rid)
+        pref = self._prefetched.pop(rid, None)
+        if pref:
+            self._prefetch_wasted += len(pref)
+            _m_prefetch_wasted.inc(len(pref))
 
     # ---- health and the operations plane ---------------------------------
     def _ops_in_flight(self):
@@ -1037,7 +1588,14 @@ class PagedGenerationServer:
             # a stopped or killed engine never dispatches again (kill()
             # leaves its slots occupied on purpose): never in flight
             return False
-        return any(s is not None for s in self._slots) or bool(self._queue)
+        if any(s is not None for s in self._slots) or self._queue:
+            return True
+        if self._sched is not None:
+            try:
+                return self._sched.depth() > 0
+            except Exception:  # noqa: BLE001 — a torn-down scheduler
+                return False   # must not break health checks
+        return False
 
     def _on_compile_event(self, ev):
         # a finished capture IS progress: without this, the dispatch
@@ -1048,6 +1606,12 @@ class PagedGenerationServer:
             "compile", program=ev["program"],
             dur_s=round(ev["dur_s"], 4), in_flight=ev["in_flight"],
             shard=ev["shard"])
+        # attribution: a capture inside a dispatch is charged to the
+        # requests that dispatch computed for (its time is already in
+        # the dispatch's measured time: a parallel account, not a part)
+        if self._ledger is not None and self._attr_parts:
+            self._ledger.charge_compile(int(ev["dur_s"] * 1e9),
+                                        self._attr_parts)
 
     def _on_stall(self):
         self._recorder.record("stall", progress=self._ops_progress,
@@ -1096,7 +1660,8 @@ class PagedGenerationServer:
         stalled = self._watchdog is not None and self._watchdog.stalled
         ready = alive and not stalled and not self._draining
         detail = dict(detail, stalled=stalled, draining=self._draining,
-                      warmed=self._warm_ran, queue_depth=len(self._queue))
+                      warmed=self._warm_ran,
+                      queue_depth=self._queue_depth_locked())
         return ready, detail
 
     def set_draining(self, draining=True):
@@ -1114,6 +1679,7 @@ class PagedGenerationServer:
             for i, s in enumerate(self._slots):
                 if s is None:
                     continue
+                meta = s["req"].meta
                 slots.append({
                     "slot": i, "request_id": s["req"].rid,
                     "seq": s["seq"], "prompt_len": int(s["prompt"].size),
@@ -1121,6 +1687,8 @@ class PagedGenerationServer:
                     "budget": s["budget"],
                     "phase": ("decode" if s["fed"] >= s["prompt"].size
                               else "prefill"),
+                    "lane": meta.lane if meta else None,
+                    "tenant": meta.tenant if meta else None,
                 })
         status, detail = self.health()
         live, live_detail = self.liveness()
@@ -1300,11 +1868,16 @@ class PagedGenerationServer:
         self._sp_store.clear_slot(i)
         req.gen0 = tuple(toks)
         req.resume_ids = known
+        if req.trace is not None:
+            # a fault-retry requeue starts a new hop: the next
+            # residency's events carry hop + 1, cause "retry"
+            req.trace = req.trace.child("retry")
         self._recorder.record(
             "recover_requeue", request_id=req.rid, slot=i, seq=seq,
-            where=where, tokens_done=len(toks), durable=int(durable))
+            where=where, tokens_done=len(toks), durable=int(durable),
+            **self._tr(req))
         _tracing.event("recover_requeue", request_id=req.rid, slot=i,
-                       seq=seq, where=where)
+                       seq=seq, where=where, **self._tr(req))
         return req
 
     def _quarantine_slot(self, i, where, e, failures):
@@ -1321,9 +1894,14 @@ class PagedGenerationServer:
             self._journal.record_done(req.rid, "quarantined")
         self._recorder.record("quarantine", request_id=req.rid, slot=i,
                               seq=s["seq"], seam=where, failures=failures,
-                              error=f"{type(e).__name__}: {e}")
+                              error=f"{type(e).__name__}: {e}",
+                              **self._tr(req))
+        cost = (self._ledger.request_done(req.rid)
+                if self._ledger is not None else None)
         _tracing.event("quarantined", request_id=req.rid, slot=i,
-                       seam=where, failures=failures, cost=None)
+                       seam=where, failures=failures, cost=cost,
+                       **self._tr(req))
+        self._slo_avail(req, False)
         _logger.error("quarantined request %s after %d consecutive "
                       "failure(s) at seam %s: %s", req.rid, failures,
                       where, e)
@@ -1350,6 +1928,9 @@ class PagedGenerationServer:
                 s = self._release_slot(i)
                 if self._journal is not None:
                     self._journal.record_done(s["req"].rid, "failed")
+                self._slo_avail(s["req"], False)
+                if self._ledger is not None:
+                    self._ledger.request_done(s["req"].rid)
                 s["req"].future.set_exception(e)
             return
         pol = self._recovery
@@ -1376,9 +1957,14 @@ class PagedGenerationServer:
         requeued = [r for r in (self._recover_slot(i, where) for i in live)
                     if r is not None]
         with self._lock:
-            for req in reversed(requeued):
-                self._queue.insert(0, req)
-            _m_queue_depth.labels(server="paged").set(len(self._queue))
+            if self._sched is not None:
+                now = time.perf_counter()
+                for req in reversed(requeued):  # requeue() prepends
+                    self._sched.requeue(req, now)
+            else:
+                for req in reversed(requeued):
+                    self._queue.insert(0, req)
+                _m_queue_depth.labels(server="paged").set(len(self._queue))
             self._lock.notify()
         # the device chain may name freed slots: reseed from the host
         self._pending = None
@@ -1426,15 +2012,20 @@ class PagedGenerationServer:
     def _fail_timeout_req(self, req, now):
         """Fail one expired request (already detached from the queue or
         its slot). Caller holds the lock."""
+        self._abandon_prefetch_locked(req.rid)
         self._timeouts += 1
         _m_timeouts.inc()
         if self._journal is not None:
             self._journal.record_done(req.rid, "timeout")
         self._recorder.record("request_timeout", request_id=req.rid,
                               waited_s=round(now - req.t_submit, 4),
-                              timeout_s=req.timeout_s)
+                              timeout_s=req.timeout_s, **self._tr(req))
+        cost = (self._ledger.request_done(req.rid)
+                if self._ledger is not None else None)
         _tracing.event("request_timeout", request_id=req.rid,
-                       waited_s=now - req.t_submit, cost=None)
+                       waited_s=now - req.t_submit, cost=cost,
+                       **self._tr(req))
+        self._slo_avail(req, False)
         req.future.set_exception(RequestTimeout(
             req.rid, now - req.t_submit, req.timeout_s))
 
@@ -1451,6 +2042,10 @@ class PagedGenerationServer:
             for r in expired:
                 self._queue.remove(r)
             _m_queue_depth.labels(server="paged").set(len(self._queue))
+        if self._sched is not None:
+            exp = getattr(self._sched, "expire", None)
+            if exp is not None:
+                expired.extend(exp(now, dead))
         for r in expired:
             self._fail_timeout_req(r, now)
         if any(s is not None and dead(s["req"]) for s in self._slots):
@@ -1480,13 +2075,21 @@ class PagedGenerationServer:
         if j is None:
             raise ValueError("no journal: pass one or build the "
                              "server with journal=")
-        return {ent["rid"]: self.admit_journal_entry(ent)
-                for ent in j.interrupted()}
+        out = {}
+        for ent in j.interrupted():
+            if ent.get("trace"):
+                # a crash-restart re-admission is a new hop of the SAME
+                # trace (cause "retry")
+                ent = dict(ent)
+                ent["trace"] = TraceContext.from_dict(
+                    ent["trace"]).child("retry").to_dict()
+            out[ent["rid"]] = self.admit_journal_entry(ent)
+        return out
 
     def admit_journal_entry(self, ent, on_token=None):
         """Re-admit ONE journal-shape entry (rid, ids, gen0, budget,
-        seed, sampling, timeout_s; what `SessionJournal.interrupted()`
-        yields) and return its Future. `on_token` streams the REMAINING
+        seed, sampling, timeout_s, meta, trace; what
+        `SessionJournal.interrupted()` yields) and return its Future. `on_token` streams the REMAINING
         tokens only."""
         req = self._build_resume_req(ent)
         req.on_token = on_token
@@ -1502,17 +2105,20 @@ class PagedGenerationServer:
         with self._lock:
             if self._stop:
                 raise RuntimeError("server stopped")
-            self._queue.append(req)
-            _m_queue_depth.labels(server="paged").set(len(self._queue))
+            if self._sched is not None:
+                self._sched.on_submit(req, time.perf_counter())
+            else:
+                self._queue.append(req)
+                _m_queue_depth.labels(server="paged").set(len(self._queue))
             if self._journal is not None:
                 # re-accept with gen0 folded in, so a second crash
                 # resumes from here
                 self._journal.record_accept(req)
             self._lock.notify()
         self._recorder.record("journal_readmit", request_id=req.rid,
-                              tokens_done=len(req.gen0))
+                              tokens_done=len(req.gen0), **self._tr(req))
         _tracing.event("journal_readmit", request_id=req.rid,
-                       tokens_done=len(req.gen0))
+                       tokens_done=len(req.gen0), **self._tr(req))
         return req.future
 
     def _build_resume_req(self, ent):
@@ -1526,10 +2132,22 @@ class PagedGenerationServer:
             raise ValueError(
                 f"journal request {ent['rid']!r} uses stop_strings but "
                 f"this server has no detokenizer (pass detokenize=)")
+        meta = None
+        if ent.get("meta"):
+            m = ent["meta"]
+            meta = RequestMeta(lane=m.get("lane", "interactive"),
+                               tenant=m.get("tenant", "default"),
+                               deadline_s=m.get("deadline_s"),
+                               cost=int(m.get("cost", 0)))
+        # the entry's trace context carries the trace across restarts;
+        # an entry without one starts a fresh trace
         req = _Req(ids=np.asarray(ent["ids"], np.int32), future=Future(),
                    t_submit=time.perf_counter(), budget=int(ent["budget"]),
                    sampling=sampling, seed=int(ent["seed"]),
-                   rid=ent["rid"], timeout_s=ent.get("timeout_s"))
+                   rid=ent["rid"], timeout_s=ent.get("timeout_s"),
+                   meta=meta,
+                   trace=(TraceContext.from_dict(ent["trace"])
+                          if ent.get("trace") else TraceContext.mint()))
         gen0 = [int(t) for t in ent.get("gen0", [])]
         if gen0:
             req.gen0 = tuple(gen0)
@@ -1590,12 +2208,30 @@ class PagedGenerationServer:
         seq = self._seq_counter
         self._seq_counter += 1
         self._worst[seq] = worst
+        tenant = req.meta.tenant if req.meta is not None else "default"
+        if self._ledger is not None:
+            # tag the sequence BEFORE any block is taken: every growth
+            # under this seq charges this (tenant, rid)
+            self.cache.set_seq_owner(seq, tenant, req.rid)
         prompt = req.resume_ids if req.resume_ids is not None else req.ids
         # prefix caching: attach the longest cached chain; those tokens
         # count as fed and the prefill starts at the first uncached one
         cached = 0
         if self.enable_prefix_cache:
-            cached = self.cache.attach_prefix(seq, prompt)
+            # prefetch settlement FIRST (a hit is a block still resident
+            # now: the attach below re-publishes walked hashes), then
+            # stamp the request id on any tier_promote the attach fires
+            self._settle_prefetch_locked(req.rid)
+            self._promote_ctx = req.rid
+            try:
+                cached = self.cache.attach_prefix(seq, prompt)
+            finally:
+                self._promote_ctx = None
+            if cached and self._ledger is not None:
+                # the attacher's saved recompute, credited at the
+                # measured prefill cost a token (the publisher keeps
+                # paying the blocks' residency)
+                self._ledger.credit_prefix(tenant, req.rid, cached)
         # WARM RESUME: every position but the last attached, and at
         # least one token emitted before the interruption. The slot is a
         # decode slot already: its last emitted token is the decode
@@ -1627,7 +2263,8 @@ class PagedGenerationServer:
             _m_resumes.inc()
             _tracing.event("resumed", request_id=req.rid, slot=i, seq=seq,
                            cached_tokens=cached,
-                           tokens_done=len(req.gen0), warm=warm)
+                           tokens_done=len(req.gen0), warm=warm,
+                           **self._tr(req))
         if warm and self._async:
             # the slot joins the next decode dispatch directly: its carry
             # entry must hold its host-known state
@@ -1637,14 +2274,62 @@ class PagedGenerationServer:
         self._recorder.record(
             "admit", request_id=req.rid, slot=i, seq=seq,
             cached_tokens=cached, resume=req.resume_ids is not None,
-            free_blocks=self.cache.available_block_count)
+            free_blocks=self.cache.available_block_count,
+            **self._tr(req))
         _tracing.event("request_admitted", request_id=req.rid, slot=i,
-                       seq=seq, cached_tokens=cached)
+                       seq=seq, cached_tokens=cached, **self._tr(req))
+
+    def _preempt_slot_locked(self, i, why="pressure"):
+        """Evict slot `i` mid-flight: publish its live K/V through the
+        prefix-cache index when caching is on (the blocks park in
+        retention, so the resume re-prefills about one token unless pool
+        pressure reclaimed them), else free it, and hand the request
+        back with its tokens so far as resume state (`gen0`,
+        `resume_ids`). Runs between dispatches only. Async: the round in
+        flight is processed first, so the victim's token list and its
+        K/V are authoritative; that may finish the victim, and then
+        there is nothing to evict and this returns None. The freed slot
+        is an idle row of the next decode graph replay (ctx 1 on the
+        trash block, like any idle slot)."""
+        self._drain_pending()
+        s = self._slots[i]
+        if s is None:
+            return None
+        seq, req = s["seq"], s["req"]
+        known = (np.concatenate([req.ids, np.asarray(s["toks"], np.int32)])
+                 if s["toks"] else req.ids)
+        cached = 0
+        if self.cache.has_seq(seq):  # a never-prefilled slot owns none
+            if self.enable_prefix_cache:
+                cached = self.cache.swap_out_seq(seq, known)
+            else:
+                self.cache.free(seq)
+        self._worst.pop(seq, None)
+        self._slots[i] = None
+        self._sp_store.clear_slot(i)
+        req.gen0 = tuple(s["toks"])
+        req.resume_ids = known
+        req.preempts += 1
+        self._preemptions += 1
+        self._preempt_cached_tokens += cached
+        _m_preemptions.labels(reason=why).inc()
+        _m_preempt_cached.inc(cached)
+        self._recorder.record(
+            "preempt", request_id=req.rid, slot=i, seq=seq,
+            tokens_done=len(s["toks"]), cached_tokens=cached, reason=why,
+            **self._tr(req))
+        _tracing.event("preempted", request_id=req.rid, slot=i, seq=seq,
+                       tokens_done=len(s["toks"]), cached_tokens=cached,
+                       reason=why, **self._tr(req))
+        return req
 
     def _admit_locked(self):
         """Fill idle slots FIFO while the pool can cover each request's
         worst case; head-of-line blocking keeps arrival order under
-        pressure."""
+        pressure. With a scheduler installed, `_admit_sched_locked`."""
+        if self._sched is not None:
+            self._admit_sched_locked()
+            return
         admitted = False
         for i, slot in enumerate(self._slots):
             if slot is not None or not self._queue:
@@ -1659,6 +2344,49 @@ class PagedGenerationServer:
             admitted = True
         if admitted and _metrics.enabled():
             _m_queue_depth.labels(server="paged").set(len(self._queue))
+
+    def _admit_sched_locked(self):
+        """Scheduler-driven admission: take candidates in the policy's
+        order (lane weights, EDF, tenant fair share, rate limits). A
+        candidate short of a slot or of blocks may name preemption
+        victims; each is swapped out and requeued, then the reservation
+        is checked again. A lane whose candidate stays blocked is set
+        aside for this pass (no cross-lane head-of-line blocking)."""
+        blocked: set = set()
+        while True:
+            now = time.perf_counter()
+            req = self._sched.next_request(now, blocked)
+            if req is None:
+                break
+            worst = self._worst_blocks(req)
+            free_i = next((i for i, s in enumerate(self._slots)
+                           if s is None), None)
+
+            def short():
+                return (self.cache.available_block_count
+                        - self._outstanding_blocks()) < worst
+
+            if free_i is None or short():
+                # (slot, resident, remaining tokens): the remaining
+                # budget feeds the policy's drain-wait hysteresis
+                occupied = [(j, self._slots[j]["req"],
+                             self._slots[j]["budget"]
+                             - len(self._slots[j]["toks"]))
+                            for j in range(self.max_slots)
+                            if self._slots[j] is not None]
+                for j in self._sched.victims(req, occupied, now):
+                    victim = self._preempt_slot_locked(j)
+                    if victim is not None:
+                        self._sched.requeue(victim, now)
+                    free_i = next((i for i, s in enumerate(self._slots)
+                                   if s is None), None)
+                    if free_i is not None and not short():
+                        break
+                if free_i is None or short():
+                    blocked.add(getattr(req.meta, "lane", None))
+                    continue
+            self._sched.pop(req, now)
+            self._install_slot_locked(free_i, req, worst)
 
     # ---- the loop --------------------------------------------------------
     def _loop(self):
@@ -1711,7 +2439,11 @@ class PagedGenerationServer:
             self._round_dispatch_count += n_dispatches
             if mixed:
                 self._mixed_rounds += 1
+            if self._slo is not None:
+                self._slo_goodput_round()
         _m_round_dispatches.observe(float(n_dispatches))
+        # min-interval gated: a no-op on almost every round
+        self._maybe_sample_capacity()
 
     def _dispatches(self):
         return self._prefill_dispatches + self._steps + self._spec_dispatches
@@ -1742,6 +2474,9 @@ class PagedGenerationServer:
                          and self._slots[i] is not None]
             if plain_idx:
                 self._decode_plain(plain_idx)
+        # prefetch-ahead: promote the next queued requests' tiered
+        # blocks before the coming admission pass attaches them
+        self._tier_prefetch_tick()
         d1 = self._dispatches()
         if d1 > d0:
             self._note_round(d1 - d0,
@@ -1783,8 +2518,23 @@ class PagedGenerationServer:
         if req.ttft is None:
             req.ttft = t_now - req.t_submit
             _m_ttft.observe(req.ttft)
+            if self._slo is not None:
+                self._slo_latency("ttft", req.ttft, req)
             with self._lock:
                 self._ttft.append(req.ttft)
+                meta = req.meta
+                if meta is not None:
+                    lane = meta.lane
+                    self._lane_ttft.setdefault(lane, []).append(req.ttft)
+                    if meta.deadline_s is not None:
+                        self._deadline_requests[lane] = \
+                            self._deadline_requests.get(lane, 0) + 1
+                        if req.ttft > meta.deadline_s:
+                            self._deadline_misses[lane] = \
+                                self._deadline_misses.get(lane, 0) + 1
+                            _m_deadline_miss.labels(lane=lane).inc()
+                            _m_deadline_overage.observe(
+                                req.ttft - meta.deadline_s)
         if self.enable_prefix_cache:
             # every prompt position is written: index the blocks (a
             # resumed request publishes its resume prompt)
@@ -1793,7 +2543,7 @@ class PagedGenerationServer:
         _tracing.event("prefill", request_id=req.rid, ts=t_pre0,
                        dur=t_now - t_pre0, prompt_len=int(s["prompt"].size),
                        seq=s["seq"], chunks=s["chunks"],
-                       cached_tokens=s["cached"])
+                       cached_tokens=s["cached"], **self._tr(req))
         with self._lock:
             self._prefills += 1
         s["t_last"] = t_now
@@ -1807,6 +2557,16 @@ class PagedGenerationServer:
             return 0
         return max(0, start + n - max(start, req.ids.size))
 
+    def _prefill_entries(self, pre_idx, budget):
+        """[(slot, chunk cap or None)] in chunk order: the scheduler's
+        (interactive and EDF first, the interactive lane's share capped
+        while batch prompts feed), else slot order uncapped. A cap only
+        shortens a row's chunk: each row stays one segment."""
+        if self._sched is not None and pre_idx:
+            return self._sched.prefill_plan(
+                [(i, self._slots[i]) for i in pre_idx], budget)
+        return [(i, None) for i in pre_idx]
+
     def _prefill_packed(self, pre_idx):
         """ONE packed ragged prefill dispatch over up to
         prefill_chunk_tokens prompt tokens of the slots still feeding
@@ -1815,14 +2575,20 @@ class PagedGenerationServer:
         budget = self.prefill_chunk_tokens
         plan = []  # (slot_idx, start, n, packed_offset)
         off = 0
-        for i in pre_idx:
+        for i, cap in self._prefill_entries(pre_idx, budget):
             if budget <= 0:
                 break
             s = self._slots[i]
             n = min(s["prompt"].size - s["fed"], budget)
+            if cap is not None:
+                n = min(n, int(cap))
+            if n <= 0:
+                continue
             plan.append((i, s["fed"], n, off))
             off += -(-n // align) * align
             budget -= n
+        if not plan:
+            return
         T, P = off, len(plan)
         toks = np.zeros((T,), np.int32)
         seg = np.zeros((T,), np.int32)
@@ -1852,12 +2618,15 @@ class PagedGenerationServer:
             self._recorder.record(
                 "prefill_chunk", packed=int(T), rows=len(plan),
                 tokens=n_tok, free_blocks=self.cache.available_block_count)
+        parts = self._attr_begin(
+            (self._slots[i]["req"], n) for i, _start, n, _o in plan)
         t0 = time.perf_counter()
         try:
             with _dispatch_span(
                     "prefill_chunk",
                     (self._slots[i]["req"].rid for i, *_ in plan),
-                    packed=T, segments=len(plan), tokens=n_tok):
+                    packed=T, segments=len(plan), tokens=n_tok,
+                    **self._rattr()):
                 self._maybe_fault("slow_dispatch")
                 self._maybe_fault("ensure_many")
                 # the whole plan's tables grow atomically (reservation-
@@ -1897,6 +2666,11 @@ class PagedGenerationServer:
             return
         self._dispatch_ok(i for i, *_ in plan)
         t_now = time.perf_counter()
+        if parts:
+            self._charge_dispatch(t_now - t0, parts)
+            # the measured prefill cost a token: the rate prefix-cache
+            # savings are credited at
+            self._ledger.note_prefill_cost(int((t_now - t0) * 1e9), n_tok)
         self._ops_progress += 1
         if decoding:
             _m_decode_stall.observe(t_now - t0)
@@ -1946,10 +2720,14 @@ class PagedGenerationServer:
                 "decode_dispatch", slots=len(active_idx), k=k,
                 sampled=bool(mode[0]),
                 free_blocks=self.cache.available_block_count)
+        parts = self._attr_begin(
+            (self._slots[i]["req"], k) for i in active_idx)
+        t0 = time.perf_counter()
         try:
             with _dispatch_span(
                     "decode_dispatch",
-                    (self._slots[i]["req"].rid for i in active_idx), k=k):
+                    (self._slots[i]["req"].rid for i in active_idx), k=k,
+                    **self._rattr()):
                 self._maybe_fault("slow_dispatch")
                 self._maybe_fault("ensure_many")
                 # grow tables for the incoming token(s) BEFORE the step
@@ -1988,6 +2766,8 @@ class PagedGenerationServer:
             return
         self._dispatch_ok(active_idx)
         t_now = time.perf_counter()
+        if parts:
+            self._charge_dispatch(t_now - t0, parts)
         self._ops_progress += 1
         decoded = toks.shape[0] * len(active_idx)
         with self._lock:
@@ -2059,11 +2839,16 @@ class PagedGenerationServer:
         P = plan.dlen.shape[0]
         slot_rows = [plan.slots[r] if r < plan.rows else None
                      for r in range(P)]
+        parts = self._attr_begin(
+            (self._slots[i]["req"], plan.drafts[r].size + 1)
+            for r, i in enumerate(plan.slots))
+        t0 = time.perf_counter()
         try:
             with _dispatch_span(
                     "verify_dispatch",
                     (self._slots[i]["req"].rid for i in plan.slots),
-                    segments=plan.rows, proposed=proposed):
+                    segments=plan.rows, proposed=proposed,
+                    **self._rattr()):
                 self._maybe_fault("slow_dispatch")
                 self._maybe_fault("ensure_many")
                 # every row's table grows to its speculative horizon in
@@ -2099,6 +2884,8 @@ class PagedGenerationServer:
         self._dispatch_ok(plan.slots)
         _m_spec_verify.inc()
         t_now = time.perf_counter()
+        if parts:
+            self._charge_dispatch(t_now - t0, parts)
         self._ops_progress += 1
         with self._lock:
             self._spec_dispatches += 1
@@ -2146,8 +2933,14 @@ class PagedGenerationServer:
         if self._slots[i] is not None:
             self._slots[i]["t_last"] = t_now
         per = max(t_now - t_prev, 0.0) / consumed
+        req = s["req"]
         with self._lock:
             self._itl.extend([per] * consumed)
+            if req.meta is not None:
+                self._lane_itl.setdefault(req.meta.lane, []).extend(
+                    [per] * consumed)
+        if self._slo is not None:
+            self._slo_latency("itl", per, req, n=consumed)
         if _metrics.enabled():
             for _ in range(consumed):
                 _m_itl.observe(per)
@@ -2165,6 +2958,10 @@ class PagedGenerationServer:
         plan = self._plan_round()
         outs = self._dispatch_round(plan) if plan is not None else None
         t1 = time.perf_counter()
+        # prefetch-ahead while the round runs on the device (outside
+        # the overlap measurement, so the planner metric stays
+        # comparable)
+        self._tier_prefetch_tick()
         if not self._async:
             if outs is not None:
                 self._process_round(plan, outs)
@@ -2234,12 +3031,17 @@ class PagedGenerationServer:
         W = -(-K1 // self._verify_align) * self._verify_align
         rows = []
         budget = self.prefill_chunk_tokens
-        for i, s in enumerate(self._slots):
+        pre_idx = [i for i, s in enumerate(self._slots)
+                   if s is not None and s["fed"] < s["prompt"].size]
+        for i, cap in self._prefill_entries(pre_idx, budget):
             if budget <= 0:
                 break
-            if s is None or s["fed"] >= s["prompt"].size:
-                continue
+            s = self._slots[i]
             n = min(s["prompt"].size - s["fed"], budget)
+            if cap is not None:
+                n = min(n, int(cap))
+            if n <= 0:
+                continue
             rows.append({"kind": "chunk", "slot": i, "seq": s["seq"],
                          "start": s["fed"], "n": n,
                          "width": -(-n // align) * align,
@@ -2366,12 +3168,22 @@ class PagedGenerationServer:
                 chunk_rows=plan["n_chunk"], step_rows=plan["n_step"],
                 proposed=plan["n_drafts"],
                 free_blocks=self.cache.available_block_count)
+        # chunk rows weigh their fed tokens, step rows their verify
+        # positions (drafts + the step token); `_process_round` charges
+        # its wait for the outputs to the same rows
+        parts = self._attr_begin(
+            (self._slots[row["slot"]]["req"],
+             row["n"] if row["kind"] == "chunk"
+             else row["drafts"].size + 1) for row in rows)
+        plan["cost_parts"] = parts
+        t0 = time.perf_counter()
         try:
             with _dispatch_span(
                     "round",
                     (self._slots[row["slot"]]["req"].rid for row in rows),
                     packed=plan["T"], segments=len(rows),
-                    chunk_rows=plan["n_chunk"], step_rows=plan["n_step"]):
+                    chunk_rows=plan["n_chunk"], step_rows=plan["n_step"],
+                    **self._rattr()):
                 self._maybe_fault("slow_dispatch")
                 self._maybe_fault("ensure_many")
                 self.cache.ensure_many(updates)
@@ -2425,6 +3237,13 @@ class PagedGenerationServer:
         self._dispatch_ok(row["slot"] for row in rows)
         if self._async:
             self._carry = (nct, ncp, ncs)
+        if parts:
+            t1 = time.perf_counter()
+            self._charge_dispatch(t1 - t0, parts)
+            if plan["n_chunk"]:
+                self._ledger.note_prefill_cost(
+                    int((t1 - t0) * 1e9),
+                    sum(row["n"] for row in rows if row["kind"] == "chunk"))
         self._ops_progress += 1
         replay = 0
         for row in rows:
@@ -2472,8 +3291,13 @@ class PagedGenerationServer:
         freed or refilled since the plan (async overshoot past a stop the
         host had not seen, or a slot a failure requeued) are discarded
         as replay, so the output is the split round's."""
+        t_sync0 = time.perf_counter()
         vtok_h, acc_h, stop_h = self._host_arrays(outs)
         t_now = time.perf_counter()
+        if plan.get("cost_parts"):
+            # the host's wait for the device here is busy time the
+            # dispatch-site charge did not see
+            self._charge_dispatch(t_now - t_sync0, plan["cost_parts"])
         self._ops_progress += 1
         accepted = rolled = decoded = discarded = 0
         for r, row in enumerate(plan["rows"]):
@@ -2573,11 +3397,16 @@ class PagedGenerationServer:
         if self._journal is not None:
             self._journal.record_done(req.rid, reason)
         self._recorder.record("request_done", request_id=req.rid, slot=i,
-                              new_tokens=len(slot["toks"]), reason=reason)
+                              new_tokens=len(slot["toks"]), reason=reason,
+                              **self._tr(req))
+        cost = (self._ledger.request_done(req.rid, len(slot["toks"]))
+                if self._ledger is not None else None)
         _tracing.event("request_done", request_id=req.rid,
                        new_tokens=len(slot["toks"]), ttft_s=req.ttft,
-                       reason=reason, cost=None)
-        with _tracing.span("detokenize", request_id=req.rid):
+                       reason=reason, cost=cost, **self._tr(req))
+        self._slo_avail(req, True)
+        with _tracing.span("detokenize", request_id=req.rid,
+                           **self._tr(req)):
             out = np.concatenate([req.ids, np.asarray(slot["toks"],
                                                       np.int32)])
             self._release_slot(i)
@@ -2608,16 +3437,15 @@ class GenerationServer:
         arguments of requests submitted without SamplingParams.
     strict_pad_check: raise, not warn, at a full-length prompt holding
         the pad id.
+    attribution: keep a `ResourceLedger`: each batch's measured
+        dispatch time is split evenly over its rows' tenants
+        (`submit(tenant=)`), `cost_report()` exports it.
     """
 
     def __init__(self, program, batch_size=None, prompt_len=None,
                  pad_token_id=0, max_wait_ms=5.0, temperature=0.0,
                  seed=0, eos_token_id=-1, top_p=1.0,
                  strict_pad_check=False, attribution=False):
-        if attribution:
-            raise ValueError(
-                "GenerationServer(attribution=True) is not ported "
-                "(ROADMAP §A 12: attribution)")
         self._program = program
         meta = getattr(program, "_meta", {}) or {}
         prompt_len = prompt_len or meta.get("prompt_len")
@@ -2659,6 +3487,9 @@ class GenerationServer:
         self._rows = 0
         self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
         self._t0 = None
+        # the paged server's ledger class: rows of one batch cost the
+        # same at fixed B, so a batch's time splits evenly over them
+        self._ledger = ResourceLedger() if attribution else None
 
     def _req_sig(self, sampling):
         """The program signature a batch shares: (temperature, top_p,
@@ -2692,9 +3523,10 @@ class GenerationServer:
                 bool(s.stop_token_ids))
 
     # ---- client API ----------------------------------------------------
-    def submit(self, ids, sampling=None):
+    def submit(self, ids, sampling=None, tenant="default"):
         """Enqueue one prompt (length 1..prompt_len). Returns a Future of
-        its [prompt_len + new] int32 row (LEFT-padded prompt first)."""
+        its [prompt_len + new] int32 row (LEFT-padded prompt first).
+        `tenant` is the attribution account its device time goes to."""
         if sampling is not None and not isinstance(sampling,
                                                    SamplingParams):
             raise TypeError(f"sampling must be a SamplingParams, "
@@ -2722,7 +3554,9 @@ class GenerationServer:
         req = _DenseReq(ids=row, future=Future(),
                         t_submit=time.perf_counter(),
                         padded=ids.size < self.prompt_len, sig=sig,
-                        rid=f"d{next(_req_ids)}")
+                        rid=f"d{next(_req_ids)}", tenant=str(tenant))
+        if self._ledger is not None:
+            self._ledger.request_begin(req.rid, req.tenant)
         with self._lock:
             if self._stop:
                 raise RuntimeError("server stopped")
@@ -2766,6 +3600,8 @@ class GenerationServer:
             self._batches_at_reset = self._batches
             self._stop_reasons = dict.fromkeys(STOP_REASONS, 0)
             self._t0 = time.perf_counter()
+        if self._ledger is not None:
+            self._ledger.reset()
 
     def stats(self):
         """Throughput and latency since start() or reset_stats()."""
@@ -2789,6 +3625,10 @@ class GenerationServer:
                 "p99_ms": pct(0.99) * 1e3,
                 "stop_reasons": dict(self._stop_reasons),
                 "quantization": dict(self._quant_stats),
+                # the paged server's schema, zeroed without a ledger
+                "attribution": (self._ledger.stats()
+                                if self._ledger is not None
+                                else disabled_attribution_stats()),
                 "wall_s": dt,
             }
 
@@ -2841,6 +3681,7 @@ class GenerationServer:
             if seed is None:
                 # a fixed seed would draw the same noise every batch
                 seed = (self._defaults[0] + self._batches) & 0xFFFFFFFF
+            t_disp = time.perf_counter()
             try:
                 with _dispatch_span("decode_dispatch",
                                     (r.rid for r in batch),
@@ -2857,6 +3698,10 @@ class GenerationServer:
                     r.future.set_exception(e)
                 continue
             t_done = time.perf_counter()
+            if self._ledger is not None:
+                self._ledger.charge_device(
+                    int((t_done - t_disp) * 1e9),
+                    [(r.tenant, r.rid, 1) for r in batch])
             new_tokens = out.shape[1] - self.prompt_len
             # the program keeps emitting eos after a hit, so an eos among
             # the generated tokens is exact
@@ -2876,8 +3721,10 @@ class GenerationServer:
                     self._stop_reasons[reasons[i]] += 1
             _m_slots_busy.labels(server="dense").set(0)
             for i, r in enumerate(batch):
+                cost = (self._ledger.request_done(r.rid, new_tokens)
+                        if self._ledger is not None else None)
                 _tracing.event("request_done", request_id=r.rid,
-                               new_tokens=int(new_tokens), cost=None)
+                               new_tokens=int(new_tokens), cost=cost)
                 _m_requests_done.labels(server="dense").inc()
                 _m_stop_reason.labels(server="dense",
                                       reason=reasons[i]).inc()
@@ -2886,10 +3733,9 @@ class GenerationServer:
                 r.future.set_result(out[i])
 
     def cost_report(self):
-        """Not ported (ROADMAP §A 12: attribution)."""
-        raise NotImplementedError(
-            "GenerationServer.cost_report is not ported (ROADMAP §A 12: "
-            "attribution)")
+        """The `CostReport` of the current window; None when the server
+        was built without attribution."""
+        return self._ledger.report() if self._ledger is not None else None
 
 
 @dataclass(eq=False)
@@ -2900,6 +3746,7 @@ class _DenseReq:
     padded: bool
     sig: tuple
     rid: str = ""
+    tenant: str = "default"
 
 
 def measure_offered_load(server, prompts, offered_rps, duration_s):
@@ -2926,5 +3773,5 @@ def measure_offered_load(server, prompts, offered_rps, duration_s):
     return out
 
 
-__all__ = ["PagedGenerationServer", "GenerationServer",
+__all__ = ["PagedGenerationServer", "GenerationServer", "RequestMeta",
            "measure_offered_load", "STOP_REASONS"]

@@ -22,11 +22,15 @@ watchable from outside the process:
     draining or stalled engine answers 503 ready=false -> stop
     routing NEW sessions there, but do NOT fail over the residents).
     Both return {"live"/"ready": bool, ...detail}.
-  * `/slo` and `/capacity` — the SLO burn-rate report and the
-    capacity snapshot, served only when the owner wires `slo_fn` /
-    `capacity_fn`. Their modules (`slo`, `capacity`) are not ported
-    yet (ROADMAP §A 12), so the port's servers wire neither and both
-    paths answer 404.
+  * `/slo`      — the burn-rate report of the attached SLO engine
+    (`observability.slo`): per-SLO state ok | warn | page with fast and
+    slow burn rates and error-budget accounting; a paging report
+    answers 503. Served only when the owner wired an SLO engine (the
+    paged server's `slos=`), else 404.
+  * `/capacity` — the versioned `PressureSignals` snapshot: pool
+    headroom and exhaustion forecast, tier occupancy, queue depths,
+    shed and exhaustion pressure and SLO burn states. Served only when
+    the owner wired a provider (the paged server always does).
 
 Binding is ephemeral-port friendly (`port=0` → the kernel picks; the
 bound port is on `.port`/`.url` after `start()` returns), which is how

@@ -2238,3 +2238,87 @@ def test_warm_buckets_captures_are_not_in_flight(dev):
             srv.stop()
         assert st["compiles"] == {"window_total": 0,
                                   "window_in_flight": 0}, (kw, st)
+
+
+# ---- the front door on the card ----------------------------------------------
+
+def _fd_preempt(device, model, engine_kw, cache_on=True):
+    """A batch request preempted by an interactive one on a one-slot
+    front door; the batch request holds the engine at its second token
+    until the interactive one is queued. Returns (tokens, stats, K1 and
+    K2 launches)."""
+    import threading
+
+    from paddle_tpu_torch.frontend import FrontDoor
+    from paddle_tpu_torch.ops import kernels
+
+    rs = np.random.RandomState(33)
+    pv = rs.randint(1, 1000, 7).astype(np.int32)
+    pi = rs.randint(1, 1000, 4).astype(np.int32)
+    fd = FrontDoor(model, max_slots=1, block_size=4, max_prompt_len=16,
+                   max_new_tokens=24, enable_prefix_cache=cache_on,
+                   device=device, **engine_kw)
+    reached, go = threading.Event(), threading.Event()
+    seen = [0]
+
+    def hold(_tok, _reason):
+        seen[0] += 1
+        if seen[0] == 2:
+            reached.set()
+            go.wait(60)
+
+    kernels.reset_launch_counts()
+    fd.start()
+    try:
+        hv = fd.submit(pv, lane="batch", max_new_tokens=24, on_token=hold)
+        assert reached.wait(300)
+        caps0 = fd.server.stats()["decode_graph_captures"]
+        hi = fd.submit(pi, lane="interactive", max_new_tokens=3)
+        go.set()
+        outs = [hv.result(timeout=600), hi.result(timeout=600)]
+        st = fd.stats()
+    finally:
+        fd.stop()
+    counts = kernels.launch_counts()
+    k1 = sum(n for name, n in counts.items()
+             if name.startswith("ragged_stream"))
+    k2 = sum(n for name, n in counts.items()
+             if name.startswith("paged_decode"))
+    return outs, st, (k1, k2), caps0
+
+
+@pytest.mark.parametrize("engine", ["split", "unified", "async"])
+def test_frontdoor_preemption_on_card_matches_cpu(dev, engine):
+    """float32 (TF32 off): a preempted and resumed request on the card
+    gives the CPU's tokens, on the split, unified and async engines; the
+    resume re-prefill runs K1, and on the split engine decode runs K2
+    and every decode dispatch is one graph replay (the unified rounds
+    run K1 for every row)."""
+    _cfg, model = _spec_model(dev, torch.float32)
+    kw = {"split": {}, "unified": {"unified_round": True},
+          "async": {"async_rounds": True}}[engine]
+    card, st, (k1, k2), _ = _fd_preempt(dev, model, kw)
+    host, hst, _, _ = _fd_preempt("cpu", model, kw)
+    for a, b in zip(card, host):
+        np.testing.assert_array_equal(a, b)
+    fr = st["frontdoor"]
+    assert fr["preemptions"] >= 1 and fr["resumes"] >= 1
+    assert fr["preempt_cached_tokens"] > 0
+    assert hst["frontdoor"]["preemptions"] == fr["preemptions"]
+    assert k1 > 0
+    if engine == "split":
+        assert k2 > 0
+        assert st["decode_graph_replays"] == st["decode_steps"] > 0
+
+
+def test_decode_after_preemption_replays_not_captures(dev):
+    """The swapped-out slot is an idle row of the same decode graph
+    (ctx 1 on the trash block): after the preemption every decode
+    dispatch is still a replay and no graph is captured, greedy mode
+    throughout."""
+    _cfg, model = _spec_model(dev, torch.float32)
+    _outs, st, _k, caps0 = _fd_preempt(dev, model, {}, cache_on=False)
+    assert st["frontdoor"]["preemptions"] >= 1
+    assert caps0 == 1
+    assert st["decode_graph_captures"] == caps0
+    assert st["decode_graph_replays"] == st["decode_steps"] > 0

@@ -21,11 +21,13 @@ held within absmax/254 of the demoted ones. Against the reference they
 were found bitwise — both encoders take the absmax in float32, divide by
 127 and then divide each element by that scale, rounding half to even —
 and the mirror asserts bitwise."""
+import time
+
 import numpy as np
 import pytest
 import torch
 
-from torch_twin_util import (PoolMirror, check_pool_invariants,
+from torch_twin_util import (PoolMirror, check_pool_invariants, hold_at,
                              pool_step_fuzz, reference_tiny_model)
 
 from paddle_tpu_torch.inference.kv_cache import (BlockPoolExhausted,
@@ -431,3 +433,203 @@ def test_migration_of_partially_tiered_session(tiny):
     np.testing.assert_array_equal(first, out)
     assert st["kv_cache"]["prefix_cache"]["hit_tokens"] \
         >= prompt.size - (payload["block_size"] + 1)
+
+
+# ---- the front door and prefetch-ahead ---------------------------------------
+
+def test_frontdoor_preempt_resume_with_tier(tiny):
+    """Preemption composed with the tier: the victim's swap-out content
+    lives through pool pressure in the tier, and both requests give the
+    reference's tokens."""
+    from paddle_tpu_torch.frontend import FrontDoor
+
+    model, cfg, port, tcfg = tiny
+    rs = np.random.RandomState(2)
+    pv = rs.randint(1, tcfg.vocab_size, (1, 7)).astype(np.int32)[0]
+    pi = rs.randint(1, tcfg.vocab_size, (1, 4)).astype(np.int32)[0]
+    fd = FrontDoor(port, max_slots=1, block_size=4, max_prompt_len=16,
+                   max_new_tokens=24, enable_prefix_cache=True,
+                   kv_tier=HostKVTier(capacity_blocks=16, watermark=0.6),
+                   device="cpu").start()
+    try:
+        cb, reached, go = hold_at(2)
+        hv = fd.submit(pv, lane="batch", max_new_tokens=24, on_token=cb)
+        assert reached.wait(120)
+        hi = fd.submit(pi, lane="interactive", max_new_tokens=3)
+        go.set()
+        out_i = hi.result(timeout=600)
+        out_v = hv.result(timeout=600)
+        st = fd.stats()
+    finally:
+        fd.stop()
+    assert st["frontdoor"]["preemptions"] >= 1
+    assert st["frontdoor"]["resumes"] >= 1
+    np.testing.assert_array_equal(out_v,
+                                  model.generate(pv[None], 24).numpy()[0])
+    np.testing.assert_array_equal(out_i,
+                                  model.generate(pi[None], 3).numpy()[0])
+
+
+class TestTierPrefetchAhead:
+    """Tier prefetch-ahead: a QUEUED request's tiered blocks promote into
+    the pool while the current round runs, so its admission attach finds
+    them resident, with the same tokens either way."""
+
+    _kw = dict(max_slots=1, block_size=8, max_prompt_len=32,
+               enable_prefix_cache=True, prefill_chunk_tokens=16)
+
+    def test_ctor_validation(self, tiny):
+        port = tiny[2]
+        with pytest.raises(ValueError, match="tier_prefetch"):
+            _port_server(port, tier_prefetch=True,
+                         enable_prefix_cache=True)
+        with pytest.raises(ValueError, match="tier_prefetch"):
+            _port_server(port, tier_prefetch=0, kv_tier=True,
+                         enable_prefix_cache=True)
+
+    @pytest.mark.parametrize("front", ["fifo", "frontdoor"])
+    def test_prefetch_ahead_hits_and_token_parity(self, tiny, front):
+        """Demote a finished prompt's chain, hold the only slot busy and
+        queue the prompt again: the tick promotes the chain during the
+        occupier's rounds (under a front door through the scheduler's
+        `peek`, which pops and charges nobody), the admission settles
+        every block as a hit, and the tokens equal the first run's."""
+        from paddle_tpu_torch.frontend import FrontDoor
+
+        port, tcfg = tiny[2], tiny[3]
+        rng = np.random.RandomState(9)
+        prompt = rng.randint(1, tcfg.vocab_size, (21,)).astype(np.int32)
+        other = rng.randint(1, tcfg.vocab_size, (5,)).astype(np.int32)
+        kw = dict(self._kw, max_new_tokens=16,
+                  kv_tier=HostKVTier(capacity_blocks=16, watermark=0.0),
+                  tier_prefetch=True, flight_recorder=True)
+        if front == "fifo":
+            srv = _port_server(port, **kw)
+            fd = None
+        else:
+            fd = FrontDoor(port, device="cpu", **kw)
+            srv = fd.server
+        srv.start()
+        sub = ((lambda p, lane, tenant, **k: srv.submit(p, **k))
+               if fd is None else
+               (lambda p, lane, tenant, **k: fd.submit(
+                   p, lane=lane, tenant=tenant, **k)))
+        try:
+            first = sub(prompt, "batch", "b").result(timeout=600)
+            assert srv.cache.demote_cold(16) > 0
+            cb, reached, go = hold_at(1)
+            fa = sub(other, "interactive", "a", on_token=cb)
+            assert reached.wait(120)
+            fb = sub(prompt, "batch", "b")   # queued behind the occupier
+            go.set()
+            fa.result(timeout=600)
+            again = fb.result(timeout=600)
+            st = srv.stats()
+            ring = [e for e in srv._recorder.events()
+                    if e["name"] == "tier_promote"]
+        finally:
+            srv.stop()
+        np.testing.assert_array_equal(first, again)
+        tp = st["tier_prefetch"]
+        assert tp["enabled"] and tp["lookahead"] == 2
+        assert tp["issued_blocks"] > 0, "prefetch never fired"
+        assert tp["hit_blocks"] == tp["issued_blocks"]
+        assert tp["hit_rate"] > 0.8
+        assert tp["overlap_promote_s"] > 0.0
+        ov = [e for e in ring if e.get("overlapped")]
+        assert ov and ov[0]["blocks"] > 0 and ov[0]["bytes"] > 0
+        assert ov[0]["dur_s"] > 0
+        if fd is not None:
+            lanes = st["frontdoor"]["lanes"]
+            assert lanes["batch"]["ttft"]["n"] == 2
+            assert lanes["interactive"]["ttft"]["n"] == 1
+            assert st["frontdoor"]["rate_throttled_skips"] == 0
+            assert st["requests"] == 3
+
+    def test_sync_promote_event_split_from_admission(self, tiny):
+        """The synchronous promote-on-attach walk emits its own
+        `tier_promote` event carrying the request id; the assembler
+        reports it beside the phases, which still tile the wall clock."""
+        from paddle_tpu_torch.observability import tracing as T
+
+        port, tcfg = tiny[2], tiny[3]
+        rng = np.random.RandomState(13)
+        prompt = rng.randint(1, tcfg.vocab_size, (21,)).astype(np.int32)
+        T.TRACER.reset()
+        T.enable()
+        try:
+            srv = _port_server(port, max_new_tokens=4,
+                               kv_tier=HostKVTier(capacity_blocks=16,
+                                                  watermark=0.0),
+                               **self._kw).start()
+            try:
+                srv.submit(prompt).result(timeout=600)
+                assert srv.cache.demote_cold(16) > 0
+                srv.submit(prompt).result(timeout=600)
+            finally:
+                srv.stop()
+            evs = T.events()
+            proms = [e for e in evs if e.get("name") == "tier_promote"]
+            assert proms, "sync attach promoted without the event"
+            ev = proms[-1]
+            assert ev["blocks"] > 0 and ev["bytes"] > 0
+            assert ev["overlapped"] is False
+            assert ev.get("request_id"), "promote not attributed"
+            rec = T.assemble_request_traces(evs)[ev["request_id"]]
+            assert rec["tier_promote_ms"] > 0
+            assert rec["tier_promote_blocks"] == ev["blocks"]
+            assert "tier_promote" not in rec["phases_ms"]
+            assert sum(rec["phases_ms"].values()) == \
+                pytest.approx(rec["wall_ms"], rel=0.10)
+        finally:
+            T.disable()
+            T.TRACER.reset()
+
+    def test_wasted_on_timeout_expiry(self, tiny):
+        """A queued request that times out before its admission settles
+        what was prefetched for it as wasted."""
+        from paddle_tpu_torch.reliability import RequestTimeout
+
+        port, tcfg = tiny[2], tiny[3]
+        rng = np.random.RandomState(17)
+        prompt = rng.randint(1, tcfg.vocab_size, (21,)).astype(np.int32)
+        other = rng.randint(1, tcfg.vocab_size, (5,)).astype(np.int32)
+        srv = _port_server(port, max_new_tokens=24,
+                           kv_tier=HostKVTier(capacity_blocks=16,
+                                              watermark=0.0),
+                           tier_prefetch=True, **self._kw).start()
+        try:
+            srv.submit(prompt).result(timeout=600)
+            assert srv.cache.demote_cold(16) > 0
+            cb, reached, go = hold_at(1)
+            fa = srv.submit(other, on_token=cb)
+            assert reached.wait(120)
+            fb = srv.submit(prompt, timeout_s=0.05)
+            # the occupier resumes only once fb is past its deadline:
+            # the round's tick prefetches for fb, the next loop pass
+            # expires it while it is still queued
+            time.sleep(0.1)
+            go.set()
+            with pytest.raises(RequestTimeout):
+                fb.result(timeout=600)
+            fa.result(timeout=600)
+            st = srv.stats()
+        finally:
+            srv.stop()
+        tp = st["tier_prefetch"]
+        assert tp["issued_blocks"] > 0
+        assert tp["wasted_blocks"] == tp["issued_blocks"]
+        assert tp["hit_blocks"] == 0
+
+    def test_stats_schema_zeroed_when_disabled(self, tiny):
+        from paddle_tpu.inference import PagedGenerationServer as RefSrv
+
+        model, port = tiny[0], tiny[2]
+        kw = dict(max_slots=1, max_prompt_len=16, max_new_tokens=4)
+        off = _port_server(port, **kw).stats()["tier_prefetch"]
+        assert off == RefSrv(model, **kw).stats()["tier_prefetch"]
+        assert off["enabled"] is False
+        assert all(off[k] == 0 for k in off if k != "enabled")
+        assert set(off) == {"enabled", "lookahead", "issued_blocks",
+                            "hit_blocks", "wasted_blocks", "hit_rate",
+                            "overlap_promote_s"}

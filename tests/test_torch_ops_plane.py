@@ -15,8 +15,9 @@ tests/test_ops_plane.py.
   * Goodput conservation: decoded = emitted + rolled back + replayed
     (multi-step overrun, speculation rollback, an exact budget).
 
-Left for later slices: the front-door and sharded cases (ROADMAP §A 8,
-§A 11)."""
+  * The front door surfaces the ops plane on its facade.
+
+Left for later slices: the sharded cases (ROADMAP §A 11)."""
 import json
 import time
 import urllib.error
@@ -220,9 +221,14 @@ class TestOpsEndpoint:
                 assert key in eng, key
             assert eng["ops"]["exporter_port"] == srv.exporter.port
             assert eng["goodput"]["goodput_ratio"] == 1.0
-            for path in ("/nope", "/slo", "/capacity"):
+            # no SLO engine: no /slo; the capacity snapshot is always
+            # wired
+            for path in ("/nope", "/slo"):
                 code, body = _get(url + path)
                 assert code == 404 and "/statusz" in body
+            code, body = _get(url + "/capacity")
+            assert code == 200
+            assert json.loads(body)["schema_version"] == 1
         finally:
             srv.stop()
         with pytest.raises(Exception):
@@ -252,6 +258,41 @@ class TestOpsEndpoint:
         assert {"submit", "admit", "prefill_chunk", "decode_dispatch",
                 "request_done"} <= names
         assert srv.exporter is None  # the recorder alone, no endpoint
+
+
+class TestFrontDoorOps:
+    def test_frontdoor_surfaces_ops(self, tiny):
+        """FrontDoor forwards expose_port to the engine and surfaces the
+        ops plane on the facade; /statusz carries the lane and tenant
+        blocks of the installed scheduler, /slo and /capacity answer."""
+        from paddle_tpu_torch.frontend import FrontDoor
+
+        port, _tcfg = tiny
+        fd = FrontDoor(port, max_slots=2, block_size=4, max_prompt_len=16,
+                       max_new_tokens=4, expose_port=0, slos=True,
+                       device="cpu")
+        fd.start()
+        try:
+            assert fd.ops_url
+            h = fd.submit([2, 4, 6], lane="interactive")
+            assert h.result(timeout=300) is not None
+            sz = fd.statusz()
+            assert sz["engine"]["frontdoor"]["enabled"] is True
+            assert isinstance(sz["engine"]["lane_queue_depth"], dict)
+            assert fd.health()[0] in ("ok", "degraded")
+            d = fd.dump_flight_recorder()
+            assert d["trigger"] == "manual"
+            names = {e["name"] for e in d["events"]}
+            assert {"submit", "admit", "prefill_chunk",
+                    "request_done"} <= names
+            for path in ("/slo", "/capacity"):
+                code, body = _get(fd.ops_url + path)
+                assert code == 200, (path, body)
+                assert json.loads(body)
+            assert json.loads(_get(fd.ops_url + "/capacity")[1])[
+                "schema_version"] == 1
+        finally:
+            fd.stop()
 
 
 class TestEngineExceptionDump:

@@ -29,6 +29,7 @@ import urllib.request
 import numpy as np
 import pytest
 import torch
+from torch_twin_util import hold_at
 
 torch.set_num_threads(1)
 
@@ -746,7 +747,7 @@ class TestTimeoutsAndShedding:
         ({"shed_queue_depth": 0}, ValueError, "shed_queue_depth"),
         ({"recovery": 3}, TypeError, "recovery"),
         ({"journal": 5}, TypeError, "journal"),
-        ({"attribution": True}, ValueError, "A 12")])
+        ({"tier_prefetch": True}, ValueError, "tier_prefetch")])
     def test_constructor_validation(self, tiny, kw, err, match):
         _ref, port = tiny
         with pytest.raises(err, match=match):
@@ -1088,3 +1089,146 @@ class TestAgainstTheReference:
         rids = sorted(outs, key=lambda r: int(r[1:]))
         for (_, w), have in zip(want, [out0] + [outs[r] for r in rids]):
             np.testing.assert_array_equal(w, have)
+
+
+# ---- the front door and streams ----------------------------------------------
+
+class TestFrontDoorAndStreams:
+    def test_quarantined_stream_reason(self, tiny):
+        from paddle_tpu_torch.frontend.stream import StreamHandle
+
+        _ref, port = tiny
+        srv = _server(port, max_slots=1, fault_plan=FaultPlan.parse(
+            "prefill:0,prefill:1,prefill:2"))
+        handle = StreamHandle()
+        srv.start()
+        try:
+            fut = srv.submit([1, 2, 3], on_token=handle._on_token)
+            handle._bind(fut)
+            events = list(handle)
+            assert events and events[-1].done
+            assert events[-1].stop_reason == "quarantined"
+            assert handle.stop_reason == "quarantined"
+            with pytest.raises(QuarantinedRequest):
+                fut.result(timeout=10)
+        finally:
+            srv.stop()
+
+    def test_resident_timeout_terminates_its_stream(self, tiny):
+        """The stream half of a resident timeout: the handle ends with
+        reason "timeout" and the freed slot keeps serving. The deadline
+        passes inside the request's own stream (its callback sleeps past
+        it at the first token), so nothing races the engine."""
+        from paddle_tpu_torch.frontend.stream import StreamHandle
+
+        _ref, port = tiny
+        srv = _server(port, max_slots=1, max_new_tokens=64,
+                      max_prompt_len=32)
+        handle = StreamHandle()
+        seen = []
+
+        def slow(tok, reason):
+            handle._on_token(tok, reason)
+            seen.append(tok)
+            if len(seen) == 1:
+                time.sleep(0.3)  # past timeout_s: expires next round
+
+        srv.start()
+        try:
+            fut = srv.submit([1, 2, 3], max_new_tokens=64, timeout_s=0.2,
+                             on_token=slow)
+            handle._bind(fut)
+            with pytest.raises(RequestTimeout) as ei:
+                fut.result(timeout=300)
+            assert ei.value.timeout_s == pytest.approx(0.2)
+            evs = list(handle)
+            assert evs and evs[-1].done
+            assert handle.stop_reason == "timeout"
+            assert srv.stats()["kv_cache"]["sequences"] == 0
+            assert srv.submit([7, 8], max_new_tokens=2) \
+                .result(timeout=300).size == 4
+        finally:
+            srv.stop()
+
+    def test_timeout_scan_covers_scheduler_queues(self, tiny):
+        """A request queued in the scheduler's lanes (not the FIFO
+        queue) is expired by the engine's timeout scan. It is queued
+        while the occupier is held at its first token and released only
+        after its deadline."""
+        from paddle_tpu_torch.frontend import FrontDoor
+
+        _ref, port = tiny
+        fd = FrontDoor(port, max_slots=1, block_size=4, max_prompt_len=24,
+                       max_new_tokens=16, device="cpu")
+        fd.start()
+        try:
+            cb, reached, go = hold_at(1)
+            a = fd.submit([1, 2, 3], lane="batch", max_new_tokens=16,
+                          on_token=cb)
+            assert reached.wait(120)
+            b = fd.submit([4, 5, 6], lane="batch", timeout_s=0.005)
+            time.sleep(0.05)  # b is past its deadline before a resumes
+            go.set()
+            with pytest.raises(RequestTimeout):
+                b.result(timeout=300)
+            assert b.stop_reason == "timeout"
+            assert a.result(timeout=300).size == 19
+            assert fd.stats()["reliability"]["timeouts"] == 1
+        finally:
+            fd.stop()
+
+    def test_stream_iterator_timeout(self):
+        """A dead engine never hangs a consumer: iterating a stream with
+        timeout_s raises TimeoutError when no event arrives."""
+        from paddle_tpu_torch.frontend.stream import StreamHandle
+
+        handle = StreamHandle(timeout_s=0.15)
+        t0 = time.monotonic()
+        with pytest.raises(TimeoutError, match="no event"):
+            for _ in handle:
+                pass
+        assert time.monotonic() - t0 < 10
+        with pytest.raises(ValueError, match="timeout_s"):
+            StreamHandle(timeout_s=0.0)
+
+    def test_frontdoor_preemption_with_faults_survivor_parity(self, tiny):
+        """Preemption under injected dispatch faults: both requests give
+        the fault-free run's tokens (and the reference's), and the
+        ladder recovered. The batch request holds the one slot at its
+        first token until the interactive one is queued."""
+        from paddle_tpu.frontend import FrontDoor as RefFrontDoor
+
+        from paddle_tpu_torch.frontend import FrontDoor
+
+        ref, port = tiny
+
+        def run(cls, model, fault_plan=None, **kw):
+            fd = cls(model, max_slots=1, block_size=4, max_prompt_len=24,
+                     max_new_tokens=8, preempt_wait_tokens=0,
+                     fault_plan=fault_plan, **kw)
+            fd.start()
+            try:
+                cb, reached, go = hold_at(1)
+                hb = fd.submit([4, 5, 6, 7], lane="batch",
+                               max_new_tokens=8, on_token=cb)
+                assert reached.wait(120)
+                hi = fd.submit([1, 2, 3], lane="interactive",
+                               max_new_tokens=4)
+                go.set()
+                outs = [hb.result(timeout=300), hi.result(timeout=300)]
+                st = fd.stats()
+            finally:
+                fd.stop()
+            return outs, st
+
+        want, st0 = run(FrontDoor, port, device="cpu")
+        out, st = run(FrontDoor, port, FaultPlan.parse("decode:2,prefill:1"),
+                      device="cpu")
+        for a, b in zip(want, out):
+            np.testing.assert_array_equal(a, b)
+        assert st0["frontdoor"]["preemptions"] >= 1
+        assert st["reliability"]["faults_injected"] == 2
+        assert st["reliability"]["recoveries"] >= 1
+        ref_out, _ = run(RefFrontDoor, ref)
+        for a, b in zip(ref_out, out):
+            np.testing.assert_array_equal(a, b)

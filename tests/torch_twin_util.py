@@ -1,6 +1,8 @@
 """Shared helpers of the tests/test_torch_*.py twins: one tiny GPT-2 built
 by the JAX reference and carried into the PyTorch port through the
 weight bridge, so both sides compute the same function on the CPU."""
+import threading
+
 import numpy as np
 import torch
 
@@ -429,3 +431,20 @@ def pool_step_fuzz(c, rs, n_ops, tier):
     for s in list(live):
         c.free(s)
     return c.stats()
+
+
+def hold_at(n):
+    """An on_token callback that holds the engine at its n-th token
+    (bounded, 60 s) until `go` is set, so a test can queue requests
+    behind busy slots whatever the speed of the engine: (callback,
+    reached, go). Shared by every request it is passed to."""
+    reached, go = threading.Event(), threading.Event()
+    seen = [0]
+
+    def cb(_tok, _reason):
+        seen[0] += 1
+        if seen[0] == n:
+            reached.set()
+            go.wait(60)
+
+    return cb, reached, go
