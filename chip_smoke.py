@@ -477,9 +477,46 @@ non-zero before the result line:
                timeline has dispatch-track events; every request's causal
                trace tiles its wall clock and each preempted request's
                trace shows its requeue; 5f's wall time;
+  4h. parallel training (after 6t), float32, TF32 off: 16 ranks spawned
+               on the card (`hybrid_phase`; init_parallel_env resolves
+               gloo: NCCL refuses two ranks on one device), each with a
+               hard limit (H_TIMEOUT: the ranks are killed and the phase
+               fails). The parent first computes reference_loss of the
+               hybrid GPT-2 small (hidden 768, 12 heads, 12 layers, vocab
+               50257 padded to 50258) at B 8 x S 1024, its gradients and
+               two AdamW steps (lr 1e-4, wd 0.01) on the card; (d) the
+               world of one (the hybrid code, every axis 1) within 1e-6
+               of it — at every axis 1 the hybrid code takes the same
+               attention, layer norm and log_softmax as reference_loss,
+               as the reference's does, so this holds the plumbing only;
+               the vocab-parallel CE and the ring are held by (b). In the
+               ranks: (a) ring_attention flash at B 2, H 12,
+               S 1024, D 64, causal, over sp 2 and sp 4, zigzag and
+               Ulysses over sp 4, out and the three gradients within 1e-4
+               of flash_attention on one rank, every ring rank launching
+               K4, K6, K7 and K8 (Ulysses K4, K6, K9); (b) dp 2 x pp 2 x mp
+               2 x sp 2, 2 microbatches: the loss within 1e-4 and every
+               gradient within 1e-3 of reference_loss's (phase 4c's
+               limits), last_impl_used() == "flash"; (d) the step twice,
+               bitwise; (g) the params saved as a sharded checkpoint and
+               reloaded into dp 4 x pp 2 x mp 2: the loss within 1e-5;
+               (c) two AdamW steps with ZeRO-1 slots against the parent's:
+               each step's loss within 1e-4 and each leaf's update within
+               H_UPDATE_REL (||p - p_ref|| / ||p_ref - p0||, the worst
+               leaf; the state before the updates reads 1 there), every
+               parameter within 2 * lr * steps; (e) build_pp_train_step over pp 2, GPipe
+               and interleaved (V 2), B 4 x S 256, against lm_loss (K4 and
+               K9 launched); (f) MoE over ep 4 (T 1024, d 768, hidden 3072,
+               4 experts) against the experts whole on one rank;
+  6h. the hybrid's bf16 step on float32 masters (ZeRO-1 AdamW) in the
+               same 16 ranks: ms a step, each rank's device busy share
+               (profiler over one step), the seconds a step spent in
+               host-staged collectives (`parallel.comm.STAGED`) — 16 ranks
+               time-sharing one card over gloo: not a multi-GPU number —
+               and the world of one's bf16 step beside phase 6's;
   7. the kernels line (JSON; each kernel's launches summed over the
      main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f, 4b, 4f,
-     4g, 6g (a), 6, 6b, 6c, 4t and 6t; the `ragged_stream_verify_*` rows
+     4g, 6g (a), 6, 6b, 6c, 4t, 6t, and 4h/6h's ranks; the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
@@ -5276,6 +5313,653 @@ def frontdoor_phase(torch, model, prompts, card):
     return counts
 
 
+# ---- phases 4h and 6h: parallel training over torch.distributed ------------
+
+# GPT-2 small's widths; the hybrid's batch; the pipeline's and MoE's sizes
+H_MODEL = dict(vocab=50257, hidden=768, heads=12, layers=12, max_pos=1024)
+H_BATCH, H_SEQ, H_MICRO = 8, 1024, 2
+H_RING = (2, 12, 1024, 64)     # (a): B, H, S, D
+H_PP = (4, 256)                # (e): B, S
+H_MOE = (1024, 768, 3072, 4)   # (f): tokens, d_model, d_hidden, experts
+H_LR = 1e-4                    # (c): phase 4c's AdamW
+H_STEPS = 3                    # 6h: measured steps (after one warm step)
+H_RANKS = 16
+H_TIMEOUT = 420.0              # the world's hard limit (s)
+H_SEED = 2024
+H_UPDATE_REL = 1e-2            # (c): a leaf's update against the reference's
+
+
+def _h_params(torch, dev, mp=2, pp=2):
+    from paddle_tpu_torch.models.gpt2_hybrid import init_hybrid_gpt2_params
+    m = H_MODEL
+    g = torch.Generator(device=dev).manual_seed(H_SEED)
+    return init_hybrid_gpt2_params(g, m["vocab"], m["hidden"], m["heads"],
+                                   m["layers"], pp, m["max_pos"], mp=mp,
+                                   device=dev)
+
+
+def _h_batch(torch, dev):
+    rs = np.random.RandomState(H_SEED)
+    return {n: torch.from_numpy(rs.randint(0, H_MODEL["vocab"],
+                                           (H_BATCH, H_SEQ))).to(dev)
+            for n in ("input_ids", "labels")}
+
+
+def _h_err(torch, a, ref):
+    """max abs error over the reference's max abs (0 for an all-zero
+    reference compared exactly)."""
+    err = (a.float() - ref.float()).abs().max().item()
+    return err / max(ref.float().abs().max().item(), 1e-30)
+
+
+def _h_update_err(torch, got, want, init):
+    """How far a leaf's update misses the reference's: ||(got - init) -
+    (want - init)|| / ||want - init||. A leaf left as it was reads 1, a
+    leaf half of which was updated about 0.7."""
+    moved = (want.double() - init.double()).norm().item()
+    return (got.double() - want.double()).norm().item() / max(moved, 1e-30)
+
+
+def _h_counted(torch, dev, out, name, fn):
+    """Run fn with the launch counters zeroed just before and read just
+    after: the main path's launches of this rank."""
+    from paddle_tpu_torch.ops import kernels
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    r = fn()
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    out["counts"][name] = {k: v for k, v in kernels.launch_counts().items()
+                           if v}
+    return r
+
+
+def _h_ring(torch, dev, rank, out):
+    """(a) ring flash over sp 2 and sp 4, zigzag and Ulysses over sp 4,
+    against the single-rank flash_attention on the same inputs."""
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel.ring_attention import (
+        last_impl_used, ring_attention, shard_sequence, zigzag_order,
+        zigzag_ring_attention)
+    from paddle_tpu_torch.parallel.ulysses import ulysses_attention
+
+    meshes = {2: make_mesh(dp=1, sp=2, ranks=range(2)),
+              4: make_mesh(dp=1, sp=4, ranks=range(4))}
+    if rank >= 4:
+        return
+    b, h, s, d = H_RING
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=dev)
+                   for _ in range(4))
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref_o = flash_attention(*qkv, causal=True)
+    ref = [ref_o.detach()] + list(torch.autograd.grad(ref_o, qkv, do))
+
+    def run(name, mesh, fn, perm=None):
+        def shard(t):
+            t = t if perm is None else t[:, :, perm]
+            return shard_sequence(t, mesh).contiguous()
+
+        loc = [shard(t).requires_grad_(True) for t in (q, k, v)]
+
+        def go():
+            o = fn(*loc, mesh)
+            return [o.detach()] + list(torch.autograd.grad(o, loc,
+                                                           shard(do)))
+
+        got = _h_counted(torch, dev, out, name, go)
+        out[name] = {n: _h_err(torch, a, shard(r)) for n, a, r in
+                     zip(("out", "dq", "dk", "dv"), got, ref)}
+
+    for n, mesh in meshes.items():
+        if mesh.member:
+            run(f"ring{n}", mesh, lambda a, b_, c, m: ring_attention(
+                a, b_, c, "sp", causal=True, mesh=m))
+            out[f"ring{n}"]["impl"] = last_impl_used()
+    m4 = meshes[4]
+    run("zigzag", m4, lambda a, b_, c, m: zigzag_ring_attention(
+        a, b_, c, "sp", mesh=m), perm=torch.as_tensor(
+        zigzag_order(4, s), device=dev))
+    run("ulysses", m4, lambda a, b_, c, m: ulysses_attention(
+        a, b_, c, "sp", causal=True, mesh=m))
+
+
+def _h_hybrid(torch, dev, rank, out, ref_dir, ckpt_dir):
+    """(b) loss and gradients against reference_loss, (d) twice bitwise,
+    (g) a sharded checkpoint reloaded into dp 4 x pp 2 x mp 2, (c) two
+    AdamW steps with ZeRO-1 slots; 6h the bf16 step."""
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import gpt2_hybrid as H
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.mesh import local_slice, make_mesh
+    from paddle_tpu_torch.parallel.ring_attention import last_impl_used
+
+    V = H_MODEL["vocab"]
+    mesh = make_mesh(dp=2, pp=2, mp=2, sp=2)
+    mesh_b = make_mesh(dp=4, pp=2, mp=2, sp=1)
+    out["transport"] = comm.transport(mesh.group("mp"))
+    glob = _h_params(torch, dev)
+    specs = H.hybrid_param_specs(glob)
+    shapes = {k: tuple(v.shape) for k, v in glob.items()}
+    params = {k: v.clone().requires_grad_(True) for k, v in
+              H.hybrid_local_params(mesh, glob).items()}
+    del glob
+    batch = _h_batch(torch, dev)
+
+    def local_batch(m):
+        return {n: local_slice(t, ("dp", "sp"), m.coords, m.shape)
+                for n, t in batch.items()}
+
+    loss_fn = H.build_hybrid_gpt2_loss(mesh, H_MICRO, vocab_size=V)
+
+    def step(p):
+        loss = loss_fn(p, local_batch(mesh))
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        H.reduce_hybrid_gradients(grads, mesh)
+        return loss.detach(), grads
+
+    runs = [_h_counted(torch, dev, out, f"hybrid{i}", lambda: step(params))
+            for i in range(2)]
+    out["impl"] = last_impl_used()
+    (l0, g0), (l1, g1) = runs
+    out["bitwise"] = [n for n in g0 if not torch.equal(g0[n], g1[n])] + \
+        ([] if torch.equal(l0, l1) else ["loss"])
+    ref = torch.load(os.path.join(ref_dir, "ref.pt"), mmap=True)
+    out["loss"] = l0.item()
+    out["loss_rel"] = abs(l0.item() - ref["loss"]) / abs(ref["loss"])
+    want = H.hybrid_local_params(mesh, ref["grads"])
+    out["grad_rel"] = {n: _h_err(torch, g0[n], want[n].to(dev)) for n in g0}
+    del runs, g1, want
+
+    # (g): save, reload into dp 4 x pp 2 x mp 2, the same loss
+    keyed = {f"[{k!r}]": s for k, s in specs.items()}
+    ckpt.save({k: v.detach() for k, v in params.items()}, ckpt_dir, mesh,
+              keyed)
+    like = {k: torch.empty(v.shape, device=dev) for k, v in
+            H.hybrid_local_params(mesh_b, {k: torch.empty(s, device="meta")
+                                           for k, s in shapes.items()})
+            .items()}
+    loaded = ckpt.load(ckpt_dir, like, mesh_b, keyed)
+    with torch.no_grad():
+        lb = H.build_hybrid_gpt2_loss(mesh_b, H_MICRO, vocab_size=V)(
+            loaded, local_batch(mesh_b))
+    out["ckpt_loss_rel"] = abs(lb.item() - l0.item()) / abs(l0.item())
+    del loaded, like
+
+    # (c): two AdamW steps with ZeRO-1 slots over dp
+    opt = AdamW(H_LR, weight_decay=0.01, device=dev)
+    _s, slot_specs = H.hybrid_shardings(
+        mesh, params, {"slots": {n: {"moment1": 0, "moment2": 0}
+                                 for n in params}})
+    state = H.zero_init(opt, params, mesh, slot_specs)
+    init = {n: p.detach().clone() for n, p in params.items()}
+    losses = [l0.item()]
+    for i in range(2):
+        if i:
+            loss, grads = step(params)
+            losses.append(loss.item())
+        else:
+            grads = g0
+        H.zero_update(opt, params, grads, state, mesh, slot_specs)
+    trained = torch.load(os.path.join(ref_dir, "trained.pt"), mmap=True)
+    out["train_losses"] = losses
+    want = H.hybrid_local_params(mesh, trained["params"])
+    out["param_diff"] = max((params[n].detach() - want[n].to(dev))
+                            .abs().max().item() for n in params)
+    out["update_rel"] = {n: _h_update_err(torch, params[n].detach(),
+                                          want[n].to(dev), init[n])
+                         for n in params}
+    # the control: the state before the updates, held the same way
+    out["update_rel_unchanged"] = min(
+        _h_update_err(torch, init[n], want[n].to(dev), init[n])
+        for n in params)
+    out["zero_slot"] = tuple(state["slots"]["wpe"]["moment1"].shape)
+    del trained, want, init, g0, state
+
+    # 6h: the bf16 step on float32 masters, ZeRO-1 AdamW
+    state = H.zero_init(opt, params, mesh, slot_specs)
+
+    def amp_step():
+        low = {n: p.to(torch.bfloat16) for n, p in params.items()}
+        loss = loss_fn(low, local_batch(mesh)).float()
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()))))
+        H.reduce_hybrid_gradients(grads, mesh)
+        H.zero_update(opt, params, grads, state, mesh, slot_specs)
+        return loss.detach()
+
+    amp_step()
+    _h_sync(torch, dev)
+    comm.reset_staged()
+    t0 = time.perf_counter()
+    losses = _h_counted(torch, dev, out, "hybrid_bf16",
+                        lambda: [amp_step() for _ in range(H_STEPS)])
+    _h_sync(torch, dev)
+    out["bf16_ms"] = (time.perf_counter() - t0) * 1e3 / H_STEPS
+    out["bf16_staged_s"] = comm.STAGED["seconds"] / H_STEPS
+    out["bf16_losses"] = [x.item() for x in losses]
+    out["bf16_busy"] = _h_busy(torch, dev, amp_step)
+
+
+def _h_sync(torch, dev):
+    import torch.distributed as dist
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _h_busy(torch, dev, fn):
+    """This rank's device busy share over one step: the profiler's CUDA
+    kernel time over the step's wall time (None off the card or when the
+    profiler records no device time)."""
+    if dev != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    _h_sync(torch, dev)
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    us = sum(getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0))
+             for ev in prof.key_averages()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e6 / wall if us > 0 else None
+
+
+def _h_pipeline(torch, dev, rank, out):
+    """(e) the pipelined GPT-2 small over pp 2 (ranks 0-1), GPipe and
+    interleaved (V 2), against lm_loss on one rank."""
+    from paddle_tpu_torch.models.gpt2 import GPT2Config, lm_loss
+    from paddle_tpu_torch.models.gpt2_pipeline import (
+        _merge_block_params, _split_block_params, build_pp_train_step,
+        pp_stage_params)
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(dp=1, pp=2, ranks=range(2))
+    if not mesh.member:
+        return
+    cfg = GPT2Config(dropout=0.0)
+    b, s = H_PP
+    rs = np.random.RandomState(5)
+    batch = {n: torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s)))
+             .to(dev) for n in ("input_ids", "labels")}
+    for sched, nv in (("gpipe", 1), ("interleaved", 2)):
+        loss_pp, init = build_pp_train_step(cfg, mesh, 2, schedule=sched,
+                                            num_virtual=nv, device=dev)
+        stacked, other = init()
+        flat = {n: p.clone().requires_grad_(True) for n, p in
+                _merge_block_params(stacked, other).items()}
+        ref = lm_loss(flat, cfg, batch["input_ids"], batch["labels"])
+        ref_g = dict(zip(flat, torch.autograd.grad(ref, list(flat.values()))))
+        rs_, ro = _split_block_params(ref_g)
+        want = pp_stage_params(cfg, rs_, mesh, sched, nv)
+        st = {k: v.clone().requires_grad_(True) for k, v in
+              pp_stage_params(cfg, stacked, mesh, sched, nv).items()}
+        ot = {k: v.clone().requires_grad_(True) for k, v in other.items()}
+
+        def go():
+            loss = loss_pp(st, ot, batch)
+            return loss.detach(), torch.autograd.grad(
+                loss, list(st.values()) + list(ot.values()))
+
+        loss, grads = _h_counted(torch, dev, out, f"pp_{sched}", go)
+        names = list(st) + list(ot)
+        wants = [want[k] for k in st] + [ro[k] for k in ot]
+        out[f"pp_{sched}"] = {
+            "loss_rel": abs(loss.item() - ref.item()) / abs(ref.item()),
+            "grad_rel": max(_h_err(torch, a, w) for a, w in
+                            zip(grads, wants)),
+            "worst": names[int(np.argmax([_h_err(torch, a, w) for a, w in
+                                          zip(grads, wants)]))]}
+
+
+def _h_moe(torch, dev, rank, out):
+    """(f) MoE over ep 4 (ranks 0-3) against the same experts whole on
+    one rank, forward and gradients."""
+    from paddle_tpu_torch.parallel.mesh import Mesh
+    from paddle_tpu_torch.parallel.moe import (init_moe_params,
+                                               moe_layer_apply,
+                                               moe_local_params)
+
+    mesh = Mesh({"ep": 4}, range(4))
+    if not mesh.member:
+        return
+    t, d, hdn, e = H_MOE
+    g = torch.Generator(device=dev).manual_seed(11)
+    glob = init_moe_params(g, d, hdn, e, device=dev)
+    x = torch.randn(t, d, generator=g, device=dev)
+
+    def value_and_grads(p, m):
+        p = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        o, aux = moe_layer_apply(p, x, mesh=m)
+        loss = (o ** 2).mean() + 0.01 * aux
+        return o.detach(), dict(zip(p, torch.autograd.grad(
+            loss, list(p.values()))))
+
+    ref_o, ref_g = value_and_grads(glob, None)
+    o, grads = value_and_grads(moe_local_params(mesh, glob), mesh)
+    want = moe_local_params(mesh, ref_g)
+    out["moe"] = {"out": _h_err(torch, o, ref_o),
+                  "grad": max(_h_err(torch, grads[k], want[k])
+                              for k in grads)}
+
+
+def _h_rank(rank, nprocs, store, out_dir, dev, ref_dir):
+    """One rank of the 4h/6h world: joins over gloo (init_parallel_env
+    resolves it: the ranks share one card), runs (a)-(g) and 6h, writes
+    its results for the parent."""
+    import pickle
+    import traceback
+
+    import torch
+    os.environ.update(PADDLE_TRAINER_ID=str(rank),
+                      PADDLE_TRAINERS_NUM=str(nprocs), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(nprocs))
+    path = os.path.join(out_dir, f"rank{rank}")
+    try:
+        import datetime
+
+        import paddle_tpu_torch.distributed as pdist
+        torch.set_num_threads(1)
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        pdist.init_parallel_env(
+            init_method=f"file://{store}", rank=rank, world_size=nprocs,
+            device=dev, timeout=datetime.timedelta(seconds=H_TIMEOUT))
+        out = {"counts": {}, "backend": torch.distributed.get_backend()}
+        _h_ring(torch, dev, rank, out)
+        _h_pipeline(torch, dev, rank, out)
+        _h_moe(torch, dev, rank, out)
+        _h_hybrid(torch, dev, rank, out, ref_dir,
+                  os.path.join(out_dir, "ckpt"))
+        with open(path + ".pkl", "wb") as f:
+            pickle.dump(out, f)
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _h_world(out_dir, dev, ref_dir):
+    """Spawn the ranks, wait (hard limit H_TIMEOUT: kill them all and
+    fail), return {rank: results}."""
+    import multiprocessing as mp
+    import pickle
+    ctx = mp.get_context("spawn")
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_h_rank, args=(r, H_RANKS, store, out_dir,
+                                               dev, ref_dir))
+             for r in range(H_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + H_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    for p in procs:
+        p.join(10)
+    errs = [f"rank {r}: " + open(os.path.join(out_dir, f"rank{r}.err"))
+            .read()[-3000:] for r in range(H_RANKS)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    if errs:
+        fail("phase 4h: " + "\n".join(errs[:3]))
+    if alive:
+        fail(f"phase 4h: the world of {H_RANKS} ranks passed its "
+             f"{H_TIMEOUT:.0f} s limit; ranks {alive} killed")
+    res = {}
+    for r in range(H_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            res[r] = pickle.load(f)
+    return res, time.perf_counter() - t0
+
+
+def _h_reference(torch, dev, ref_dir):
+    """On this process's card: reference_loss and its gradients, the
+    world of one against them, and two AdamW steps (their losses and
+    parameters saved for the ranks). Returns the world of one's (loss
+    diff, worst gradient diff) and the two steps' losses (the first is
+    reference_loss's)."""
+    from paddle_tpu_torch.models import gpt2_hybrid as H
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    V = H_MODEL["vocab"]
+    params = {k: v.requires_grad_(True) for k, v in
+              _h_params(torch, dev).items()}
+    batch = _h_batch(torch, dev)
+    loss = H.reference_loss(params, batch, V)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    ref_loss = loss.item()
+    torch.save({"loss": ref_loss,
+                "grads": {k: v.cpu() for k, v in grads.items()}},
+               os.path.join(ref_dir, "ref.pt"))
+    # (d) the world of one: the hybrid code with every axis of size 1
+    # (one stage: the stacked leaves [2, L/2, ...] viewed as [1, L, ...])
+    one = {k: (v.reshape((1, -1) + tuple(v.shape[2:]))
+               if k.startswith("blk.") else v) for k, v in params.items()}
+    l1 = H.build_hybrid_gpt2_loss(make_mesh(1, 1, 1, 1), H_MICRO,
+                                  vocab_size=V)(one, batch)
+    g1 = torch.autograd.grad(l1, list(params.values()))
+    one = (abs(l1.item() - loss.item()),
+           max((a - b).abs().max().item() for a, b in
+               zip(g1, grads.values())))
+    del l1, g1
+    opt = AdamW(H_LR, weight_decay=0.01, device=dev)
+    state = opt.functional_init(params)
+    losses = [ref_loss]
+    for i in range(2):
+        if i:
+            loss = H.reference_loss(params, batch, V)
+            losses.append(loss.item())
+            grads = dict(zip(params, torch.autograd.grad(
+                loss, list(params.values()))))
+        opt.functional_update(params, grads, state)
+    torch.save({"params": {k: v.detach().cpu() for k, v in params.items()},
+                "losses": losses}, os.path.join(ref_dir, "trained.pt"))
+    return one, losses
+
+
+def _h_one_bf16(torch, dev):
+    """6h: the world of one's bf16 step (float32 masters, AdamW) at the
+    hybrid's batch: (ms a step, losses)."""
+    from paddle_tpu_torch.models import gpt2_hybrid as H
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    masters = {k: v.requires_grad_(True) for k, v in
+               _h_params(torch, dev, mp=1, pp=1).items()}
+    batch = _h_batch(torch, dev)
+    loss_fn = H.build_hybrid_gpt2_loss(make_mesh(1, 1, 1, 1), H_MICRO,
+                                       vocab_size=H_MODEL["vocab"])
+    opt = AdamW(H_LR, weight_decay=0.01, device=dev)
+    state = opt.functional_init(masters)
+
+    def step():
+        low = {n: p.to(torch.bfloat16) for n, p in masters.items()}
+        loss = loss_fn(low, batch).float()
+        grads = torch.autograd.grad(loss, list(masters.values()))
+        opt.functional_update(masters, dict(zip(masters, grads)), state)
+        return loss.detach()
+
+    step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [step() for _ in range(H_STEPS)]
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / H_STEPS, \
+        [x.item() for x in losses]
+
+
+H_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def hybrid_phase(torch, card, phase6_ms):
+    """Phases 4h and 6h (module constants H_*): returns the main path's
+    launches {kernel: n} summed over the ranks."""
+    import tempfile
+
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase4h_")
+    try:
+        (one_loss, one_grad), ref_losses = _h_reference(torch, DEV, tmp)
+        ref_loss = ref_losses[0]
+        torch.cuda.empty_cache()
+        if one_loss > 1e-6 * abs(ref_loss) or one_grad > 1e-6:
+            fail(f"phase 4h (d) world of one vs reference_loss: loss diff "
+                 f"{one_loss:.3g}, worst gradient diff {one_grad:.3g}")
+        say(f"phase 4h (d) world of one vs reference_loss (f32 B{H_BATCH} "
+            f"S{H_SEQ}): loss diff {one_loss:.3g}, largest gradient diff "
+            f"{one_grad:.3g} (limit 1e-6; at every axis 1 the hybrid code runs "
+        f"reference_loss's attention, layer norm and log_softmax, so this "
+        f"holds the plumbing only: the vocab-parallel CE and the ring are "
+        f"held by (b))")
+        res, wall = _h_world(tmp, DEV, tmp)
+        checks_hybrid(res, ref_loss, ref_losses)
+        counts = {}
+        for r, o in res.items():
+            for name, c in o["counts"].items():
+                for k, v in c.items():
+                    counts[k] = counts.get(k, 0) + v
+        b0 = res[0]
+        one_ms, one_losses = _h_one_bf16(torch, DEV)
+        busy = [res[r]["bf16_busy"] for r in range(H_RANKS)]
+        busy_txt = ("not measured" if any(x is None for x in busy) else
+                    f"{min(busy):.3f}-{max(busy):.3f} (sum {sum(busy):.3f})")
+        say(f"phase 6h bf16/f32-master hybrid step dp2 x pp2 x mp2 x sp2, "
+            f"B{H_BATCH} S{H_SEQ}, ZeRO-1 AdamW: ms_per_step "
+            f"{b0['bf16_ms']:.1f}, device busy share per rank {busy_txt}, "
+            f"host-staged collectives {b0['bf16_staged_s']:.3f} s a step "
+            f"(rank 0; max {max(res[r]['bf16_staged_s'] for r in res):.3f})"
+            f", losses {' '.join(f'{x:.4f}' for x in b0['bf16_losses'])} — "
+            f"16 ranks time-sharing one card over gloo: not a multi-GPU "
+            f"number [{card}]")
+        say(f"phase 6h world of one (the same code, every axis 1) bf16 B"
+            f"{H_BATCH} S{H_SEQ}: ms_per_step {one_ms:.1f}, losses "
+            f"{' '.join(f'{x:.4f}' for x in one_losses)}; phase 6's GPT-2 "
+            f"step (B16 S1024) {phase6_ms:.2f} ms [{card}]")
+        say(f"phase 4h/6h: world of {H_RANKS} {wall:.1f} s, both phases "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return counts
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checks_hybrid(res, ref_loss, ref_losses):
+    """Phase 4h's checks on the ranks' results; prints its lines."""
+    r0 = res[0]
+    say(f"phase 4h transport: backend {r0['backend']} (ranks share one "
+        f"card), {r0['transport']}")
+    for name in ("ring2", "ring4", "zigzag", "ulysses"):
+        ranks = [r for r in res if name in res[r]]
+        worst = {k: max(res[r][name][k] for r in ranks)
+                 for k in ("out", "dq", "dk", "dv")}
+        if any(v > 1e-4 for v in worst.values()):
+            fail(f"phase 4h (a) {name}: errors {worst} (limit 1e-4, phase "
+                 f"3b's float32 tolerance)")
+        need = {"zigzag": (), "ulysses": ("flash_fwd", "flash_delta",
+                                          "flash_bwd")}.get(name, H_KERNELS)
+        for r in ranks:
+            c = res[r]["counts"][name]
+            if any(c.get(k, 0) <= 0 for k in need):
+                fail(f"phase 4h (a) {name} rank {r}: launches {c}")
+            if name.startswith("ring") and res[r][name]["impl"] != "flash":
+                fail(f"phase 4h (a) {name}: impl {res[r][name]['impl']}")
+        say(f"phase 4h (a) {name} f32 B{H_RING[0]} H{H_RING[1]} "
+            f"S{H_RING[2]} D{H_RING[3]} causal over {len(ranks)} ranks vs "
+            f"flash_attention on one: max error of its magnitude "
+            + ", ".join(f"{k} {v:.3g}" for k, v in worst.items())
+            + f" (limit 1e-4); launches by rank "
+            + "; ".join(f"{r}: {res[r]['counts'][name]}" for r in ranks))
+    for r, o in res.items():
+        if o["impl"] != "flash":
+            fail(f"phase 4h (b) rank {r}: last_impl_used {o['impl']}")
+        for name in ("hybrid0", "hybrid1"):
+            if any(o["counts"][name].get(k, 0) <= 0 for k in H_KERNELS):
+                fail(f"phase 4h (b) rank {r}: launches {o['counts'][name]}")
+    loss_rel = max(o["loss_rel"] for o in res.values())
+    grad = max((v, n, r) for r, o in res.items()
+               for n, v in o["grad_rel"].items())
+    if loss_rel > 1e-4 or grad[0] > 1e-3:
+        fail(f"phase 4h (b): loss rel diff {loss_rel:.3g} (limit 1e-4), "
+             f"worst gradient {grad[1]} on rank {grad[2]} {grad[0]:.3g} of "
+             f"its magnitude (limit 1e-3)")
+    say(f"phase 4h (b) hybrid GPT-2 small dp2 x pp2 x mp2 x sp2 ({H_RANKS} "
+        f"ranks) f32 B{H_BATCH} S{H_SEQ}, {H_MICRO} microbatches, vocab "
+        f"{H_MODEL['vocab']} padded to {-(-H_MODEL['vocab'] // 2) * 2}: loss {r0['loss']:.6f} vs "
+        f"reference_loss {ref_loss:.6f}, rel diff {loss_rel:.3g} (limit "
+        f"1e-4), worst gradient {grad[1]} {grad[0]:.3g} of its magnitude "
+        f"(limit 1e-3); last_impl_used flash on every rank; launches on rank "
+        f"0 {r0['counts']['hybrid0']}")
+    upd = max((v, n, r) for r, o in res.items()
+              for n, v in o["update_rel"].items())
+    ctl = min(o["update_rel_unchanged"] for o in res.values())
+    tl = max(abs(a - b) / abs(b) for o in res.values()
+             for a, b in zip(o["train_losses"], ref_losses))
+    diff = max(o["param_diff"] for o in res.values())
+    limit = 2 * H_LR * 2 + 1e-6
+    if upd[0] > H_UPDATE_REL or tl > 1e-4 or diff > limit or \
+            len(r0["train_losses"]) != len(ref_losses):
+        fail(f"phase 4h (c): worst leaf update error {upd[1]} on rank "
+             f"{upd[2]} {upd[0]:.3g} (limit {H_UPDATE_REL:g}), step losses "
+             f"rel diff {tl:.3g} (limit 1e-4), parameter diff {diff:.3g} "
+             f"(limit {limit:.3g})")
+    if ctl < 0.99:
+        fail(f"phase 4h (c): the unchanged-state control reads {ctl:.3g}, "
+             f"not 1")
+    say(f"phase 4h (c) two AdamW steps (lr {H_LR}, wd 0.01) with ZeRO-1 "
+        f"slots (wpe's moments {r0['zero_slot']} a rank) vs single-rank "
+        f"AdamW: worst leaf update error ||p - p_ref|| / ||p_ref - p0|| "
+        f"{upd[0]:.3g} ({upd[1]}, rank {upd[2]}; limit {H_UPDATE_REL:g}; "
+        f"the state before the updates reads {ctl:.3g}), the two steps' "
+        f"losses {' '.join(f'{x:.6f}' for x in r0['train_losses'])} vs "
+        f"{' '.join(f'{x:.6f}' for x in ref_losses)}, rel diff {tl:.3g} "
+        f"(limit 1e-4); worst parameter diff {diff:.3g} (limit {limit:.3g})")
+    bad = {r: o["bitwise"] for r, o in res.items() if o["bitwise"]}
+    if bad:
+        fail(f"phase 4h (d) two runs of the {H_RANKS}-rank step differ: "
+             f"{bad}")
+    say(f"phase 4h (d) two runs of the {H_RANKS}-rank step: loss and every "
+        f"gradient bitwise equal on every rank")
+    for sched in ("gpipe", "interleaved"):
+        w = [res[r][f"pp_{sched}"] for r in (0, 1)]
+        lr_, gr = max(x["loss_rel"] for x in w), max(x["grad_rel"] for x in w)
+        c = res[0]["counts"][f"pp_{sched}"]
+        if lr_ > 1e-4 or gr > 1e-3 or c.get("flash_fwd", 0) <= 0 or \
+                c.get("flash_bwd", 0) <= 0:
+            fail(f"phase 4h (e) {sched}: loss {lr_:.3g}, grad {gr:.3g} "
+                 f"({w[0]['worst']}), launches {c}")
+        say(f"phase 4h (e) build_pp_train_step pp2 {sched} GPT-2 small f32 "
+            f"B{H_PP[0]} S{H_PP[1]} vs lm_loss: loss rel diff {lr_:.3g}, "
+            f"worst gradient {gr:.3g} of its magnitude (limits 1e-4, 1e-3);"
+            f" launches on rank 0 {c}")
+    m = max(max(res[r]["moe"].values()) for r in range(4))
+    if m > 1e-4:
+        fail(f"phase 4h (f) MoE ep 4: error {m:.3g}")
+    say(f"phase 4h (f) MoE ep 4 (T {H_MOE[0]}, d {H_MOE[1]}, hidden "
+        f"{H_MOE[2]}, {H_MOE[3]} experts) vs the experts whole on one rank: "
+        f"worst output/gradient error {m:.3g} of its magnitude (limit 1e-4)")
+    c = max(o["ckpt_loss_rel"] for o in res.values())
+    if c > 1e-5:
+        fail(f"phase 4h (g): reloaded loss rel diff {c:.3g}")
+    say(f"phase 4h (g) sharded checkpoint saved by {H_RANKS} ranks, "
+        f"reloaded into dp4 x pp2 x mp2: loss rel diff {c:.3g} (limit 1e-5)")
+
+
 def main():
     import torch
 
@@ -5954,6 +6638,7 @@ def main():
             fail(f"phase 6: {n} launched {tr['counts'][n]} times in "
                  f"{steps} steps, expected {want}")
         main_counts[n] = tr["counts"][n]
+    phase6_ms = tr["ms_per_step"]
     say(f"phase 6 training B16 S1024 bf16/f32-master AdamW: tokens_per_sec "
         f"{tr['tokens_per_sec']:.1f} ms_per_step {tr['ms_per_step']:.2f} "
         f"(wall {tr['wall_s']:.2f} s for {steps} steps) "
@@ -6068,6 +6753,11 @@ def main():
     for n, v in s2s_counts.items():
         if v:
             main_counts[n] = main_counts.get(n, 0) + v
+
+    # phases 4h and 6h: parallel training, 16 ranks on the card over gloo
+    # (their main-path launches, counted in the ranks, join the kernels line)
+    for n, v in hybrid_phase(torch, card, phase6_ms).items():
+        main_counts[n] = main_counts.get(n, 0) + v
 
     # phase 7: the kernels line
     out = []

@@ -25,6 +25,12 @@ Slice 17 is fault-tolerant, observable serving: `reliability` (fault
 plans, the recovery policy, the session journal), `observability`
 (metrics, tracing, the flight recorder, the capture tracker, the ops
 endpoint) and `utils.watchdog`, with their hooks in both servers.
+Slice 18 is the serving front door (`frontend`). Slice 19 is parallel
+training over torch.distributed, one process a rank: `parallel` (the
+mesh, differentiable collectives, ring / zigzag / Ulysses sequence
+parallelism, the pipeline schedules, MoE), `distributed` (collectives,
+DataParallel, spawn, the sharded checkpoint) and `models.gpt2_hybrid` /
+`models.gpt2_pipeline`.
 
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes

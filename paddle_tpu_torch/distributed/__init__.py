@@ -1,0 +1,126 @@
+"""paddle_tpu_torch.distributed — collectives, DataParallel, spawn and
+the sharded checkpoint.
+
+The port of `paddle_tpu/distributed/` (the fleet's strategy layer comes
+later). One process per rank over torch.distributed: `spawn` starts the
+ranks (each sees PADDLE_TRAINER_ID and the rendezvous in its
+environment) and `init_parallel_env` joins them.
+"""
+from __future__ import annotations
+
+import os
+import socket
+
+from .collective import (  # noqa: F401
+    Group, ParallelEnv, ReduceOp, all_gather, all_reduce, alltoall, barrier,
+    broadcast, get_group, get_rank, get_world_size, init_parallel_env,
+    is_initialized, new_group, rank_device, reduce, reduce_scatter,
+    resolve_backend, scatter, split, wait,
+)
+from .parallel import DataParallel  # noqa: F401
+from . import checkpoint  # noqa: F401
+
+
+class MultiprocessContext:
+    """Join handle for spawned workers: join() waits for all and re-raises
+    the first worker failure with its traceback. With a timeout, workers
+    still running when it expires are terminated and join raises
+    TimeoutError (the reference's join returns with them running)."""
+
+    def __init__(self, processes, error_queues):
+        self.processes = processes
+        self.error_queues = error_queues
+
+    def join(self, timeout=None):
+        import time
+        deadline = None if timeout is None else time.monotonic() + timeout
+        for p in self.processes:
+            p.join(None if deadline is None else
+                   max(0.0, deadline - time.monotonic()))
+        alive = [r for r, p in enumerate(self.processes) if p.is_alive()]
+        if alive:
+            for p in self.processes:
+                if p.is_alive():
+                    p.kill()
+            for p in self.processes:
+                p.join(5)
+            raise TimeoutError(f"spawned workers {alive} still running "
+                               f"after {timeout} s; terminated")
+        failures = []
+        for rank, (p, q) in enumerate(zip(self.processes,
+                                          self.error_queues)):
+            if p.exitcode not in (0, None):
+                tb = q.get() if not q.empty() else "<no traceback captured>"
+                failures.append((rank, p.exitcode, tb))
+        if failures:
+            rank, code, tb = failures[0]
+            raise RuntimeError(
+                f"spawned worker {rank} exited with code {code}:\n{tb}")
+        return True
+
+
+def _spawn_worker(func, args, rank, nprocs, error_queue, env):
+    import sys
+    import traceback
+    os.environ.update(env)
+    os.environ.update(PADDLE_TRAINER_ID=str(rank), RANK=str(rank),
+                      LOCAL_RANK=str(rank),
+                      PADDLE_TRAINERS_NUM=str(nprocs),
+                      WORLD_SIZE=str(nprocs),
+                      LOCAL_WORLD_SIZE=str(nprocs))
+    try:
+        func(*args)
+    except KeyboardInterrupt:
+        pass
+    except Exception:  # noqa: BLE001
+        error_queue.put(traceback.format_exc())
+        sys.exit(1)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
+    """Start one process per rank running `func(*args)` (the reference's
+    `spawn`, over torch.multiprocessing's spawn context). nprocs=-1 is the
+    number of cards (at least 1). Each rank sees PADDLE_TRAINER_ID /
+    RANK / LOCAL_RANK, PADDLE_TRAINERS_NUM / WORLD_SIZE and a rendezvous
+    (MASTER_ADDR, MASTER_PORT: a free localhost port), so
+    `init_parallel_env()` joins them."""
+    import torch
+    import torch.multiprocessing as mp
+
+    if nprocs <= 0:
+        nprocs = max(1, torch.cuda.device_count())
+    env = {"MASTER_ADDR": "127.0.0.1",
+           "MASTER_PORT": str(options.pop("port", None) or _free_port())}
+    ctx = mp.get_context("spawn")
+    procs, queues = [], []
+    for rank in range(nprocs):
+        q = ctx.SimpleQueue()
+        p = ctx.Process(target=_spawn_worker,
+                        args=(func, args, rank, nprocs, q, env),
+                        daemon=daemon)
+        p.start()
+        procs.append(p)
+        queues.append(q)
+    context = MultiprocessContext(procs, queues)
+    if join:
+        context.join(options.pop("timeout", None))
+    return context
+
+
+def prepare_context(strategy=None):
+    """The 1.x dygraph bootstrap: `init_parallel_env`."""
+    return init_parallel_env()
+
+
+__all__ = ["Group", "ParallelEnv", "ReduceOp", "all_gather", "all_reduce",
+           "alltoall", "barrier", "broadcast", "get_group", "get_rank",
+           "get_world_size", "init_parallel_env", "is_initialized",
+           "new_group", "rank_device", "reduce", "reduce_scatter",
+           "resolve_backend", "scatter", "split", "wait", "DataParallel",
+           "checkpoint", "spawn", "prepare_context", "MultiprocessContext"]

@@ -68,7 +68,12 @@ W8A16, int8 KV, sampled; left-padded rows), temperatures 0.7, 1.3 and
 0.0 capture two graphs and a repeat none, the dense and the paged
 generate give the CPU's tokens in float32 (the paged one launching K2
 once a layer a step), and an exported generator loaded onto the card
-serves GenerationServer's rows as each prompt's generate.
+serves GenerationServer's rows as each prompt's generate. Parallel
+training: two ranks sharing the card over gloo run the ring's flash
+forward and backward (K4, K6, K7, K8 a ring step) against
+flash_attention on one rank, float32 and bf16; NCCL asked for with more
+ranks than cards raises; a CUDA all-to-all staged through host memory
+gives the CPU all-to-all's bits.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -2322,3 +2327,98 @@ def test_decode_after_preemption_replays_not_captures(dev):
     assert caps0 == 1
     assert st["decode_graph_captures"] == caps0
     assert st["decode_graph_replays"] == st["decode_steps"] > 0
+
+
+# ---- parallel training: ranks sharing the card over gloo ---------------------
+
+def _ring_rank(rank, dtype_name):
+    """One rank of a 2-rank ring on the card: its shard's output and
+    gradients, and the ring's launches."""
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    from paddle_tpu_torch.parallel.ring_attention import (last_impl_used,
+                                                          ring_attention,
+                                                          shard_sequence)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = getattr(torch, dtype_name)
+    mesh = make_mesh(dp=1, sp=2)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    q, k, v, do = (torch.randn(1, 4, 512, 64, generator=g, device="cuda")
+                   .to(dtype) for _ in range(4))
+    loc = [shard_sequence(t, mesh).contiguous().requires_grad_(True)
+           for t in (q, k, v)]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    o = ring_attention(*loc, "sp", causal=True, mesh=mesh)
+    grads = torch.autograd.grad(o, loc, shard_sequence(do, mesh))
+    torch.cuda.synchronize()
+    return {"out": [o.detach().float()] + [x.float() for x in grads],
+            "counts": kernels.launch_counts(), "impl": last_impl_used()}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_two_rank_ring_on_card_matches_one_rank(dev, dtype, tmp_path):
+    """Two ranks on the one card (gloo, host-staged ppermutes): the ring's
+    flash forward (K4 a ring step) and backward (K6, K7, K8 a ring step)
+    against flash_attention on one rank with the same inputs."""
+    from torch_dist_util import run_world
+
+    from paddle_tpu_torch.ops.flash_attention import flash_attention
+    res = run_world(_ring_rank, 2, tmp_path, dtype)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(3)
+    q, k, v, do = (torch.randn(1, 4, 512, 64, generator=g, device=dev)
+                   .to(dt) for _ in range(4))
+    ts = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = flash_attention(*ts, causal=True)
+    want = [o.detach()] + list(torch.autograd.grad(o, ts, do))
+    tol = 1e-4 if dtype == "float32" else 2e-2
+    for r in range(2):
+        assert res[r]["impl"] == "flash"
+        for name in ("flash_fwd", "flash_delta", "flash_bwd_dq",
+                     "flash_bwd_dkv"):
+            assert res[r]["counts"][name] > 0, (name, res[r]["counts"])
+        for a, w in zip(res[r]["out"], want):
+            w = w.float()[:, :, r * 256:(r + 1) * 256].cpu().numpy()
+            assert np.abs(a - w).max() <= tol * np.abs(w).max()
+
+
+def test_nccl_on_a_shared_card_raises(dev, monkeypatch):
+    """NCCL refuses two ranks on one device, so asking for it with more
+    ranks than cards raises, naming the fix; None resolves to gloo."""
+    from paddle_tpu_torch.distributed import resolve_backend
+    monkeypatch.setenv("LOCAL_WORLD_SIZE",
+                       str(torch.cuda.device_count() + 1))
+    with pytest.raises(RuntimeError, match="Duplicate GPU"):
+        resolve_backend("nccl", "cuda")
+    assert resolve_backend(None, "cuda") == "gloo"
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "1")
+    assert resolve_backend(None, "cuda") == "nccl"
+
+
+def _a2a_rank(rank):
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+    torch.cuda.set_device(0)
+    mesh = make_mesh(dp=1, sp=2)
+    x = torch.arange(2 * 6 * 8 * 3, dtype=torch.float32).reshape(
+        2, 6, 8, 3) + 1000 * rank
+    comm.reset_staged()
+    on_card = comm.all_to_all(x.cuda(), "sp", 1, 2, mesh)
+    staged = comm.STAGED["calls"]
+    on_cpu = comm.all_to_all(x, "sp", 1, 2, mesh)
+    return {"card": on_card.cpu(), "cpu": on_cpu, "staged": staged,
+            "pinned": comm._Stage.buffer(x).is_pinned()}
+
+
+def test_staged_all_to_all_equals_gloo_on_cpu(dev, tmp_path):
+    """A CUDA tensor's all-to-all over gloo goes through page-locked host
+    memory (the transport rule: send and receive buffers page-locked)
+    and gives the CPU all-to-all's bits."""
+    from torch_dist_util import run_world
+    res = run_world(_a2a_rank, 2, tmp_path)
+    for r in range(2):
+        np.testing.assert_array_equal(res[r]["card"], res[r]["cpu"])
+        assert res[r]["staged"] == 1
+        assert res[r]["pinned"]

@@ -84,7 +84,10 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
 @pytest.mark.parametrize("entry", ["resolve_device", "GPT2", "PagedKVCache",
                                    "PagedGenerationServer",
                                    "build_train_step", "AdamW", "Bert",
-                                   "bert_build_train_step", "jit.load"])
+                                   "bert_build_train_step", "jit.load",
+                                   "init_hybrid_gpt2_params",
+                                   "hybrid_params_from_reference",
+                                   "init_moe_params"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
@@ -93,7 +96,9 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     from paddle_tpu_torch.models import (GPT2, Bert, BertConfig, GPT2Config,
                                          build_train_step)
     from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.models import gpt2_hybrid as H
     from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.moe import init_moe_params
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = GPT2Config(vocab_size=32, hidden_size=32, num_layers=1,
@@ -105,6 +110,14 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
 
     export_generator(model, str(tmp_path / "gen"), prompt_len=4,
                      max_new_tokens=2)
+
+    def gen():
+        return torch.Generator().manual_seed(0)
+
+    def hybrid(**kw):
+        return H.init_hybrid_gpt2_params(gen(), 32, 32, 2, 2, 1, 16, **kw)
+
+    hybrid_np = {k: v.numpy() for k, v in hybrid(device="cpu").items()}
     calls = {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "GPT2": lambda **kw: GPT2(cfg, **kw),
@@ -118,6 +131,11 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "bert_build_train_step": lambda **kw: bert.build_train_step(bcfg,
                                                                     **kw),
         "jit.load": lambda **kw: jit.load(str(tmp_path / "gen"), **kw),
+        "init_hybrid_gpt2_params": hybrid,
+        "hybrid_params_from_reference":
+            lambda **kw: H.hybrid_params_from_reference(hybrid_np, **kw),
+        "init_moe_params": lambda **kw: init_moe_params(gen(), 8, 16, 2,
+                                                        **kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
