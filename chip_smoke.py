@@ -514,9 +514,35 @@ non-zero before the result line:
                host-staged collectives (`parallel.comm.STAGED`) — 16 ranks
                time-sharing one card over gloo: not a multi-GPU number —
                and the world of one's bf16 step beside phase 6's;
+  4k. the fleet's strategy layer (after 4h/6h), float32, TF32 off: the
+               parent runs the world of one (`fleet.init` ->
+               `distributed_optimizer` -> `build_hybrid_train_step`,
+               GPT-2 small, B 4 x S 1024: its gradients at the initial
+               weights and two AdamW steps, lr 1e-4, wd 0.01; then the
+               amp step timed), 2 ranks spawned on the card over gloo,
+               hard limit K_TIMEOUT: (a) plain, ZeRO stages 1-3,
+               gradient merge (k 2), recompute full and selective, two
+               steps each, losses within 1e-4 and gradients within 1e-3
+               of the world of one's (phase 4c's limits), each leaf's
+               update within 1e-2 (4h (c)'s), every rank launching K4,
+               K6 and K9; amp: float32 masters, losses within
+               BF16_DECODER_REL of float32, its ms a step beside the
+               world of one's (2 ranks time-sharing one card: not a
+               multi-GPU number); (b) at 2 layers, B 4 x S 128: localsgd
+               (copies differ after step 1, bitwise equal after step 2),
+               dgc (residual non-zero, the loss falls), int8_allreduce
+               (and the int8 all-reduce of the gradients within 2 max|g|
+               / 254 of the float32 mean), fp16_allreduce, lamb, lars
+               (Momentum) and the pipeline over pp 2, each card vs CPU by
+               phase 4c's limits (parameters 2 lr steps; Lars also the
+               update within 1e-2); (d) SyncBatchNorm over the 2 ranks vs
+               BatchNorm over the global batch within 1e-5; then in the
+               parent (c) a PSEmbedding tower card vs CPU and (e) `python
+               -m paddle_tpu_torch.distributed.launch --nproc_per_node 2`
+               with one all_reduce on the card;
   7. the kernels line (JSON; each kernel's launches summed over the
      main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f, 4b, 4f,
-     4g, 6g (a), 6, 6b, 6c, 4t, 6t, and 4h/6h's ranks; the `ragged_stream_verify_*` rows
+     4g, 6g (a), 6, 6b, 6c, 4t, 6t, 4h/6h's and 4k's ranks; the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
@@ -5960,6 +5986,628 @@ def checks_hybrid(res, ref_loss, ref_losses):
         f"reloaded into dp4 x pp2 x mp2: loss rel diff {c:.3g} (limit 1e-5)")
 
 
+# ---- phase 4k: the fleet's strategy layer over torch.distributed ------------
+
+K_BATCH, K_SEQ = 4, 1024       # (a): the global batch of GPT-2 small
+K_SMALL = (4, 128)             # (b): B, S of the 2-layer full-width GPT-2
+K_LR = 1e-4                    # phase 4c's AdamW
+K_RANKS = 2
+K_TIMEOUT = 420.0              # the world's hard limit (s)
+K_UPDATE_REL = 1e-2            # 4h (c)'s per-leaf update limit
+K_SETS = (                     # (a): each must equal the world of one
+    ("plain", {}),
+    ("zero1", {"sharding": True, "sharding_configs": {"stage": 1}}),
+    ("zero2", {"sharding": True, "sharding_configs": {"stage": 2}}),
+    ("zero3", {"sharding": True, "sharding_configs": {"stage": 3}}),
+    ("gradient_merge", {"gradient_merge": True,
+                        "gradient_merge_configs": {"k_steps": 2,
+                                                   "avg": True}}),
+    ("recompute_full", {"recompute": True,
+                        "recompute_configs": {"granularity": "full"}}),
+    ("recompute_selective", {"recompute": True, "recompute_configs":
+                             {"granularity": "selective"}}),
+)
+K_GRAD_SETS = ("plain", "gradient_merge", "recompute_full",
+               "recompute_selective")
+K_SMALL_SETS = (               # (b): card against the CPU
+    ("localsgd", {"localsgd": True, "localsgd_configs": {"k_steps": 2}},
+     "AdamW"),
+    ("dgc", {"dgc": True, "dgc_configs": {"sparsity": [0.999]}}, "AdamW"),
+    ("int8_allreduce", {"int8_allreduce": True}, "AdamW"),
+    ("fp16_allreduce", {"fp16_allreduce": True}, "AdamW"),
+    ("lamb", {"lamb": True}, "AdamW"),
+    ("lars", {"lars": True}, "Momentum"),
+    ("pipeline", {"pipeline": True, "pipeline_configs":
+                  {"accumulate_steps": 2}}, "AdamW"),
+)
+K_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd")
+
+
+def _k_cfg(small=False):
+    from paddle_tpu_torch.models import GPT2Config
+    return GPT2Config(num_layers=2 if small else 12, dropout=0.0)
+
+
+def _k_batch(torch, cfg, b, s, seed):
+    rs = np.random.RandomState(seed)
+    return {n: torch.from_numpy(rs.randint(0, cfg.vocab_size, (b, s)))
+            for n in ("input_ids", "labels")}
+
+
+def _k_params(torch, dev, small=False):
+    """GPT-2's parameters drawn on the card from seed 0 (the same on every
+    process), as leaves on `dev`."""
+    from paddle_tpu_torch.models import build_train_step
+    _loss, init = build_train_step(_k_cfg(small), device="cuda")
+    return {n: p.detach().to(dev).clone() for n, p in init().items()}
+
+
+def _k_loss(cfg):
+    from paddle_tpu_torch.models import build_train_step
+    loss_fn, _ = build_train_step(cfg, device="cpu")
+    return loss_fn
+
+
+def _k_optimizer(name, dev):
+    import paddle_tpu_torch.optimizer as popt
+    if name == "Momentum":
+        return popt.Momentum(learning_rate=0.1, momentum=0.9, device=dev)
+    return popt.AdamW(learning_rate=K_LR, weight_decay=0.01, device=dev)
+
+
+def _k_step(torch, strategy_flags, opt, dev, loss_fn, **kw):
+    """fleet.init -> distributed_optimizer -> build_hybrid_train_step."""
+    from paddle_tpu_torch.distributed import fleet
+    s = fleet.DistributedStrategy()
+    for k, v in strategy_flags.items():
+        setattr(s, k, v)
+    s.hybrid_configs = kw.pop("hybrid", {"dp_degree": -1, "mp_degree": 1,
+                                         "pp_degree": 1, "sp_degree": 1})
+    fleet.init(is_collective=True, strategy=s, device=dev)
+    opt = fleet.distributed_optimizer(opt, s)
+    step, _mesh = fleet.build_hybrid_train_step(s, loss_fn, opt, **kw)
+    return step, opt
+
+
+def _k_reference(torch, ref_dir):
+    """On this process's card, the world of one: the plain fleet step on
+    the global batch (its gradients at the initial weights, two AdamW
+    steps) saved for the ranks, then the amp step timed. Returns (the
+    plain losses, the amp losses, the amp ms a step)."""
+    cfg = _k_cfg()
+    batch = _k_batch(torch, cfg, K_BATCH, K_SEQ, 21)
+    params = _k_params(torch, DEV)
+    step, opt = _k_step(torch, {}, _k_optimizer("AdamW", DEV), DEV,
+                        _k_loss(cfg))
+    params, state = step.init_opt_state(params, device=DEV)
+    _loss, grads = step.value_and_grad(params, batch, None)
+    torch.save({n: g.cpu() for n, g in grads.items()},
+               os.path.join(ref_dir, "grads.pt"))
+    del grads
+    losses = []
+    for _ in range(2):
+        loss, params, state = step(params, state, batch, None)
+        losses.append(loss.item())
+    torch.save({"params": {n: p.cpu() for n, p in params.items()},
+                "losses": losses}, os.path.join(ref_dir, "trained.pt"))
+    del params, state
+    torch.cuda.empty_cache()
+    step, opt = _k_step(torch, {"amp": True}, _k_optimizer("AdamW", DEV),
+                        DEV, _k_loss(cfg))
+    params, state = step.init_opt_state(_k_params(torch, DEV), device=DEV)
+    amp = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, params, state = step(params, state, batch, None)
+        amp.append(loss.item())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    del params, state
+    torch.cuda.empty_cache()
+    return losses, amp, ms
+
+
+def _k_sync(torch, dev):
+    import torch.distributed as dist
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    dist.barrier()
+
+
+def _k_counted(torch, dev, out, name, fn):
+    from paddle_tpu_torch.ops import kernels
+    _k_sync(torch, dev)
+    kernels.reset_launch_counts()
+    r = fn()
+    _k_sync(torch, dev)
+    out["counts"][name] = {k: v for k, v in kernels.launch_counts().items()
+                           if v}
+    return r
+
+
+def _k_full(torch, dev, out, ref_dir):
+    """(a): GPT-2 small at full width and depth, S 1024, dp 2, two steps
+    per flag set against the world of one."""
+    cfg = _k_cfg()
+    batch = _k_batch(torch, cfg, K_BATCH, K_SEQ, 21)
+    ref_g = torch.load(os.path.join(ref_dir, "grads.pt"), mmap=True)
+    trained = torch.load(os.path.join(ref_dir, "trained.pt"), mmap=True)
+    init = {n: p.cpu() for n, p in _k_params(torch, dev).items()}
+    for name, flags in K_SETS + (("amp", {"amp": True}),):
+        step, opt = _k_step(torch, flags, _k_optimizer("AdamW", dev), dev,
+                            _k_loss(cfg))
+        params, state = step.init_opt_state(_k_params(torch, dev),
+                                            device=dev)
+        res = {}
+        if name in K_GRAD_SETS:
+            _loss, grads = step.value_and_grad(params, batch, None)
+            res["grad_rel"] = max(_h_err(torch, grads[n], ref_g[n].to(dev))
+                                  for n in grads)
+            del grads
+
+        box = [params, state]
+
+        def two():
+            losses = []
+            for _ in range(2):
+                _k_sync(torch, dev)
+                t0 = time.perf_counter()
+                loss, box[0], box[1] = step(*box, batch, None)
+                losses.append(loss.item())
+                _k_sync(torch, dev)
+                res["ms"] = (time.perf_counter() - t0) * 1e3
+            return losses
+
+        res["losses"] = _k_counted(torch, dev, out, name, two)
+        params, state = box
+        full = step.gather_params(params)
+        if name == "amp":
+            res["dtypes"] = sorted({str(p.dtype) for p in full.values()})
+        else:
+            want = trained["params"]
+            res["update_rel"] = max(
+                (_h_update_err(torch, full[n].cpu(), want[n], init[n]), n)
+                for n in full)
+        out[name] = res
+        del step, params, state, full
+        torch.cuda.empty_cache()
+
+
+def _k_pipeline_parts(torch, cfg, params, batch):
+    """GPT-2's blocks as the pipeline's stages: the stacked block leaves
+    [layers, ...], the embedded batch as the stages' input, and a loss
+    head (final norm and tied head, fixed) on the last stage's output."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.models.gpt2 import _block
+    from paddle_tpu_torch.ops.loss import cross_entropy
+
+    names = [n[len("h.0."):] for n in params if n.startswith("h.0.")]
+    stacked = {n: torch.stack([params[f"h.{i}.{n}"]
+                               for i in range(cfg.num_layers)])
+               for n in names}
+    ids = batch["input_ids"].to(params["wte.weight"].device)
+    pos = torch.arange(ids.shape[1], device=ids.device)
+    x = (F.embedding(ids, params["wte.weight"])
+         + F.embedding(pos, params["wpe.weight"])).detach()
+    wte, lw, lb = (params[n].detach() for n in ("wte.weight",
+                                                "ln_f.weight", "ln_f.bias"))
+
+    def stage_fn(stage, a):
+        return _block({f"h.0.{k}": v for k, v in stage.items()}, 0, a, cfg,
+                      0.0, None)
+
+    def loss_head(y, labels):
+        h = F.layer_norm(y, (cfg.hidden_size,), lw, lb,
+                         cfg.layer_norm_epsilon)
+        lg = h.reshape(-1, cfg.hidden_size) @ wte.T
+        return cross_entropy(lg, labels.reshape(-1))
+
+    return stacked, {"x": x, "labels": batch["labels"]}, stage_fn, loss_head
+
+
+def _k_small(torch, dev, rank, out):
+    """(b): the other flags on the 2-layer GPT-2, each run on the card and
+    on the CPU from the same weights."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed.collective import (
+        bucketed_quantized_all_reduce)
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = _k_cfg(small=True)
+    b, s = K_SMALL
+    batch = _k_batch(torch, cfg, b, s, 22)
+    base = _k_params(torch, "cpu", small=True)
+    for name, flags, opt_name in K_SMALL_SETS:
+        runs = {}
+        for d in (dev, "cpu"):
+            params = {n: p.to(d) for n, p in base.items()}
+            kw, feed, loss_fn = {}, batch, _k_loss(cfg)
+            if name == "pipeline":
+                params, feed, sf, lh = _k_pipeline_parts(torch, cfg, params,
+                                                         batch)
+                kw = dict(stage_fn=sf, loss_head=lh, hybrid={
+                    "dp_degree": 1, "mp_degree": 1, "pp_degree": 2,
+                    "sp_degree": 1})
+                loss_fn = None
+            step, opt = _k_step(torch, flags, _k_optimizer(opt_name, d), d,
+                                loss_fn, **kw)
+            params, state = step.init_opt_state(params, device=d)
+            init = {n: p.detach().cpu().clone() for n, p in
+                    step.gather_params(params).items()}
+            r = {"losses": [], "copies": []}
+            box = [params, state]
+
+            def steps():
+                for i in range(3 if name == "dgc" else 2):
+                    loss, box[0], box[1] = step(*box, feed, None)
+                    r["losses"].append(loss.item())
+                    if name == "localsgd":
+                        w = box[0]["h.0.fc1.weight"].detach()
+                        other = comm.all_gather(w.contiguous(),
+                                                dist.group.WORLD)
+                        r["copies"].append(torch.equal(other[0], other[1]))
+
+            if d == dev:
+                _k_counted(torch, dev, out, f"small_{name}", steps)
+            else:
+                steps()
+            params, state = box
+            r["params"] = {n: p.detach().cpu() for n, p in
+                           step.gather_params(params).items()}
+            r["init"] = init
+            if name == "dgc":
+                r["residual"] = sum(e.abs().sum().item() for e in
+                                    state["dgc_err"].values())
+            runs[d] = r
+            del step, params, state
+        got, want = runs[dev], runs["cpu"]
+        out[f"small_{name}"] = {
+            "losses": got["losses"], "cpu_losses": want["losses"],
+            "loss_rel": max(abs(a - c) / abs(c) for a, c in
+                            zip(got["losses"], want["losses"])),
+            "param_diff": max(((got["params"][n] - want["params"][n])
+                               .abs().max().item(), n)
+                              for n in got["params"]),
+            "update_rel": max((_h_update_err(torch, got["params"][n],
+                                             want["params"][n],
+                                             got["init"][n]), n)
+                              for n in got["params"]),
+            "copies": got["copies"], "residual": got.get("residual")}
+        torch.cuda.empty_cache()
+    # the int8 all-reduce against the float32 mean, on GPT-2's gradients
+    params = {n: p.to(dev).requires_grad_(True) for n, p in base.items()}
+    mesh = make_mesh(dp=K_RANKS)
+    rows = {n: t[rank * (b // K_RANKS):(rank + 1) * (b // K_RANKS)].to(dev)
+            for n, t in batch.items()}
+    loss = _k_loss(cfg)(params, rows)
+    grads = dict(zip(params, torch.autograd.grad(loss,
+                                                 list(params.values()))))
+    exact = {n: comm.all_reduce_(g.clone(), mesh.group("dp")) / K_RANKS
+             for n, g in grads.items()}
+    q = bucketed_quantized_all_reduce(grads, "dp", mesh=mesh)
+    amax = {n: comm.all_reduce_(g.abs().max().reshape(1),
+                                mesh.group("dp"),
+                                dist.ReduceOp.MAX)[0].item()
+            for n, g in grads.items()}
+    # each rank's codes err by at most half a step of its block's scale
+    # (<= amax / 254), the reduced sum's by half a step of its own
+    # (<= n * amax / 254): the mean errs by at most 2 * amax / 254
+    out["int8_bound"] = max(
+        ((q[n] / K_RANKS - exact[n]).abs().max().item()
+         / (2 * amax[n] / 254), n) for n in grads)
+
+
+def _k_syncbn(torch, dev, rank, out):
+    """(d): SyncBatchNorm over the 2 ranks against BatchNorm over the
+    global batch (every rank computes the latter on the whole batch)."""
+    import torch.nn.functional as F
+
+    from paddle_tpu_torch.nn import SyncBatchNorm
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    x = torch.randn(2 * K_RANKS * 8, 64, 16, 16, generator=g, device=dev) \
+        * 3 + 1
+    per = x.shape[0] // K_RANKS
+    bn = SyncBatchNorm(64, mesh=make_mesh(dp=K_RANKS), device=dev)
+    out_l = bn(x[rank * per:(rank + 1) * per])
+    rm, rv = torch.zeros(64, device=dev), torch.ones(64, device=dev)
+    ref = F.batch_norm(x, rm, rv, bn.weight, bn.bias, True, 0.1, 1e-5)
+    out["syncbn"] = max(
+        _h_err(torch, out_l, ref[rank * per:(rank + 1) * per]),
+        (bn._mean - rm).abs().max().item(),
+        (bn._variance - rv).abs().max().item() / rv.abs().max().item())
+
+
+def _k_rank(rank, nprocs, store, out_dir, dev, ref_dir):
+    """One rank of the 4k world (gloo: the ranks share the card)."""
+    import pickle
+    import traceback
+
+    import torch
+    os.environ.update(PADDLE_TRAINER_ID=str(rank),
+                      PADDLE_TRAINERS_NUM=str(nprocs), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(nprocs))
+    path = os.path.join(out_dir, f"rank{rank}")
+    try:
+        import datetime
+
+        import paddle_tpu_torch.distributed as pdist
+        torch.set_num_threads(4)
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        pdist.init_parallel_env(
+            init_method=f"file://{store}", rank=rank, world_size=nprocs,
+            device=dev, timeout=datetime.timedelta(seconds=K_TIMEOUT))
+        out = {"counts": {}, "backend": torch.distributed.get_backend()}
+        t0 = time.perf_counter()
+        _k_full(torch, dev, out, ref_dir)
+        out["a_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _k_small(torch, dev, rank, out)
+        out["b_s"] = time.perf_counter() - t0
+        _k_syncbn(torch, dev, rank, out)
+        with open(path + ".pkl", "wb") as f:
+            pickle.dump(out, f)
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _k_world(out_dir, dev, ref_dir):
+    """Spawn the ranks, wait (hard limit K_TIMEOUT: kill them all and
+    fail), return ({rank: results}, seconds)."""
+    import multiprocessing as mp
+    import pickle
+    ctx = mp.get_context("spawn")
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_k_rank, args=(r, K_RANKS, store, out_dir,
+                                               dev, ref_dir))
+             for r in range(K_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + K_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    for p in procs:
+        p.join(10)
+    errs = [f"rank {r}: " + open(os.path.join(out_dir, f"rank{r}.err"))
+            .read()[-3000:] for r in range(K_RANKS)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    if errs:
+        fail("phase 4k: " + "\n".join(errs))
+    if alive:
+        fail(f"phase 4k: the world of {K_RANKS} ranks passed its "
+             f"{K_TIMEOUT:.0f} s limit; ranks {alive} killed")
+    lost = [(r, p.exitcode) for r, p in enumerate(procs) if not
+            os.path.exists(os.path.join(out_dir, f"rank{r}.pkl"))]
+    if lost:
+        fail(f"phase 4k: ranks (rank, exit code) {lost} ended without a "
+             f"result")
+    res = {}
+    for r in range(K_RANKS):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            res[r] = pickle.load(f)
+    return res, time.perf_counter() - t0
+
+
+def _k_ps(torch):
+    """(c): a recsys tower on PSEmbedding pulling to the card, against the
+    same tower on the CPU: (worst loss rel diff, table diff, losses)."""
+    import paddle_tpu_torch.optimizer as popt
+    from paddle_tpu_torch.distributed.ps import PSEmbedding
+
+    ids = np.random.RandomState(0).randint(0, 5000, (256,))
+    y = torch.from_numpy((ids % 2).astype(np.float32)[:, None])
+    runs = {}
+    for d in (DEV, "cpu"):
+        emb = PSEmbedding(5000, 64, learning_rate=0.5, device=d)
+        g = torch.Generator().manual_seed(3)
+        lin = torch.nn.Linear(64, 1)
+        with torch.no_grad():
+            lin.weight.copy_(torch.randn(1, 64, generator=g) * 0.1)
+            lin.bias.zero_()
+        lin.to(d)
+        opt = popt.Adam(learning_rate=0.05,
+                        parameters=list(lin.named_parameters()), device=d)
+        losses = []
+        for _ in range(8):
+            loss = ((lin(emb(torch.from_numpy(ids))) - y.to(d)) ** 2).mean()
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            emb.apply_gradients()
+            losses.append(loss.item())
+        runs[d] = (losses, emb.table.data.copy())
+    rel = max(abs(a - c) / abs(c) for a, c in zip(runs[DEV][0],
+                                                  runs["cpu"][0]))
+    return rel, float(np.abs(runs[DEV][1] - runs["cpu"][1]).max()), \
+        runs[DEV][0]
+
+
+_K_LAUNCHED = """
+import os, sys
+import torch
+import paddle_tpu_torch.distributed as dist
+env = dist.init_parallel_env()
+t = torch.tensor([float(dist.get_rank() + 1)], device="cuda")
+dist.all_reduce(t)
+with open(os.path.join(sys.argv[1], f"rank{dist.get_rank()}.txt"), "w") as f:
+    f.write(f"{dist.get_world_size()} {t.item()} {t.device} "
+            f"{torch.distributed.get_backend()}")
+"""
+
+
+def _k_launch(tmp):
+    """(e): `python -m paddle_tpu_torch.distributed.launch` with 2 ranks
+    on the card and one all_reduce: [each rank's (world, sum, device,
+    backend)]."""
+    script = os.path.join(tmp, "launched.py")
+    with open(script, "w") as f:
+        f.write(_K_LAUNCHED)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", script, tmp], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=180)
+    if r.returncode != 0:
+        fail(f"phase 4k (e): the launcher exited {r.returncode}: "
+             f"{r.stderr[-2000:]}")
+    return [open(os.path.join(tmp, f"rank{i}.txt")).read().split()
+            for i in range(2)]
+
+
+def fleet_phase(torch, card):
+    """Phase 4k (module constants K_*): returns the main path's launches
+    {kernel: n} summed over the ranks."""
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase4k_")
+    try:
+        ref_losses, one_amp, one_ms = _k_reference(torch, tmp)
+        res, wall = _k_world(tmp, DEV, tmp)
+        counts = checks_fleet(res, ref_losses, one_amp, one_ms, card)
+        rel, table, losses = _k_ps(torch)
+        if rel > 1e-4 or table > 1e-5 or not losses[-1] < losses[0]:
+            fail(f"phase 4k (c): losses rel diff {rel:.3g} (limit 1e-4), "
+                 f"table diff {table:.3g} (limit 1e-5), losses {losses}")
+        say(f"phase 4k (c) PSEmbedding (5000 x 64, sgd 0.5) pulling to the "
+            f"card + a dense layer (port Adam), 8 steps on 256 ids: losses "
+            f"{losses[0]:.5f} -> {losses[-1]:.5f}, card vs CPU losses rel "
+            f"diff {rel:.3g} (limit 1e-4), host table diff {table:.3g} "
+            f"(limit 1e-5)")
+        got = _k_launch(tmp)
+        if any(r[0] != "2" or float(r[1]) != 3.0 or not r[2].startswith(
+                "cuda") for r in got):
+            fail(f"phase 4k (e): ranks reported {got}")
+        say(f"phase 4k (e) python -m paddle_tpu_torch.distributed.launch "
+            f"--nproc_per_node 2: both ranks joined (world 2, backend "
+            f"{got[0][3]}: they share the card), all_reduce of rank + 1 on "
+            f"{got[0][2]} = {float(got[0][1]):g} on each")
+        say(f"phase 4k: world of {K_RANKS} {wall:.1f} s ((a) "
+            f"{res[0]['a_s']:.1f} s, (b) {res[0]['b_s']:.1f} s), the phase "
+            f"{time.perf_counter() - t_all:.1f} s")
+        return counts
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def checks_fleet(res, ref_losses, one_amp, one_ms, card):
+    """Phase 4k's checks (a), (b), (d) on the ranks' results; prints their
+    lines and returns the ranks' launches of K4, K6 and K9."""
+    counts = {k: 0 for k in K_KERNELS}
+    for name, _flags in K_SETS + (("amp", None),):
+        for r, o in res.items():
+            c = o["counts"][name]
+            if any(c.get(k, 0) <= 0 for k in K_KERNELS):
+                fail(f"phase 4k (a) {name} rank {r}: launches {c}")
+            for k in K_KERNELS:
+                counts[k] += c.get(k, 0)
+    for name, _flags in K_SETS:
+        rows = [o[name] for o in res.values()]
+        tl = max(abs(a - b) / abs(b) for x in rows
+                 for a, b in zip(x["losses"], ref_losses))
+        upd = max(x["update_rel"] for x in rows)
+        grad = max((x.get("grad_rel", 0.0) for x in rows))
+        if tl > 1e-4 or upd[0] > K_UPDATE_REL or grad > 1e-3:
+            fail(f"phase 4k (a) {name}: step losses rel diff {tl:.3g} "
+                 f"(limit 1e-4), worst leaf update error {upd[1]} "
+                 f"{upd[0]:.3g} (limit {K_UPDATE_REL:g}), gradients "
+                 f"{grad:.3g} of their magnitude (limit 1e-3)")
+        say(f"phase 4k (a) fleet {name} GPT-2 small f32 dp {K_RANKS} B"
+            f"{K_BATCH} S{K_SEQ}, 2 AdamW steps vs the world of one: losses "
+            f"{' '.join(f'{x:.6f}' for x in rows[0]['losses'])} (rel diff "
+            f"{tl:.3g}), worst leaf update error {upd[0]:.3g} ({upd[1]})"
+            + (f", gradients {grad:.3g} of their magnitude" if name in
+               K_GRAD_SETS else "") + "; launches by rank "
+            + "; ".join(f"{r}: {o['counts'][name]}" for r, o in res.items()))
+    amp = [o["amp"] for o in res.values()]
+    rel = max(abs(a - b) / abs(b) for x in amp
+              for a, b in zip(x["losses"], ref_losses))
+    if rel > BF16_DECODER_REL or any(x["dtypes"] != ["torch.float32"]
+                                     for x in amp):
+        fail(f"phase 4k (a) amp: losses rel diff {rel:.3g} from float32 "
+             f"(limit {BF16_DECODER_REL}), master dtypes "
+             f"{[x['dtypes'] for x in amp]}")
+    say(f"phase 4k (a) fleet amp (bf16 compute, float32 masters): losses "
+        f"{' '.join(f'{x:.5f}' for x in amp[0]['losses'])} vs float32 "
+        f"{' '.join(f'{x:.5f}' for x in ref_losses)} (rel diff {rel:.3g}, "
+        f"limit {BF16_DECODER_REL}); masters {amp[0]['dtypes']}; ms_per_step "
+        f"(second step) dp {K_RANKS}: {amp[0]['ms']:.1f}, world of one "
+        f"(B{K_BATCH} on one process): {one_ms:.1f}, one amp loss "
+        f"{one_amp[0]:.5f} — {K_RANKS} ranks time-sharing one card over "
+        f"gloo: not a multi-GPU number [{card}]")
+    for name, _flags, opt_name in K_SMALL_SETS:
+        rows = [o[f"small_{name}"] for o in res.values()]
+        lr_ = max(x["loss_rel"] for x in rows)
+        upd = max(x["update_rel"] for x in rows)
+        diff = max(x["param_diff"] for x in rows)
+        # phase 4c's limits: parameters within 2 * lr * steps (Adam's
+        # family moves a weight whose gradient is rounding noise — the k
+        # biases' — by about +-lr whatever its sign); a Momentum-family
+        # step scales with the gradient, so Lars also holds 4h (c)'s
+        # per-leaf update error
+        steps = 3 if name == "dgc" else 2
+        lim = 2 * (0.1 if opt_name == "Momentum" else K_LR) * steps + 1e-6
+        extra = ""
+        bad = lr_ > 1e-4 or diff[0] > lim or (
+            opt_name == "Momentum" and upd[0] > K_UPDATE_REL)
+        if name == "localsgd":
+            cps = rows[0]["copies"]
+            bad |= cps != [False, True]
+            extra = f", ranks' copies equal after step 1/2: {cps}"
+        if name == "dgc":
+            los = rows[0]["losses"]
+            bad |= not (rows[0]["residual"] > 0 and los[-1] < los[0])
+            extra = (f", residual sum {rows[0]['residual']:.4g}, losses "
+                     f"{' '.join(f'{x:.5f}' for x in los)}")
+        if bad:
+            fail(f"phase 4k (b) {name}: card vs CPU losses rel diff "
+                 f"{lr_:.3g} (limit 1e-4), parameters {diff[1]} "
+                 f"{diff[0]:.3g} (limit {lim:.3g}), worst leaf update "
+                 f"error {upd[1]} {upd[0]:.3g} (limit {K_UPDATE_REL:g} "
+                 f"for Lars){extra}")
+        say(f"phase 4k (b) fleet {name} ({opt_name}) GPT-2 2 layers full "
+            f"width B{K_SMALL[0]} S{K_SMALL[1]}, card vs CPU: losses rel "
+            f"diff {lr_:.3g} (limit 1e-4), worst parameter diff "
+            f"{diff[0]:.3g} ({diff[1]}; limit {lim:.3g}), worst leaf "
+            f"update error {upd[0]:.3g} ({upd[1]}){extra}")
+    ib = max(o["int8_bound"] for o in res.values())
+    if ib[0] > 1.0:
+        fail(f"phase 4k (b) int8 all-reduce of GPT-2's gradients: {ib[1]} "
+             f"errs {ib[0]:.3g} of the quantization bound")
+    say(f"phase 4k (b) int8 all-reduce of the 2-layer GPT-2's gradients vs "
+        f"the float32 mean: worst error {ib[0]:.3g} of the bound 2 * "
+        f"max|g| / 254 ({ib[1]})")
+    sb = max(o["syncbn"] for o in res.values())
+    if sb > 1e-5:
+        fail(f"phase 4k (d) SyncBatchNorm: error {sb:.3g} (limit 1e-5)")
+    say(f"phase 4k (d) SyncBatchNorm over {K_RANKS} ranks on the card "
+        f"(B 16 x 64 x 16 x 16, 8 a rank) vs BatchNorm over the global "
+        f"batch: outputs and running statistics within {sb:.3g} (limit "
+        f"1e-5)")
+    say(f"phase 4k launches of the fleet's main path, summed over the "
+        f"ranks: {counts}")
+    return counts
+
+
 def main():
     import torch
 
@@ -6757,6 +7405,11 @@ def main():
     # phases 4h and 6h: parallel training, 16 ranks on the card over gloo
     # (their main-path launches, counted in the ranks, join the kernels line)
     for n, v in hybrid_phase(torch, card, phase6_ms).items():
+        main_counts[n] = main_counts.get(n, 0) + v
+
+    # phase 4k: the fleet's strategy layer, 2 ranks on the card over gloo
+    # (their K4/K6/K9 launches join the kernels line)
+    for n, v in fleet_phase(torch, card).items():
         main_counts[n] = main_counts.get(n, 0) + v
 
     # phase 7: the kernels line

@@ -1,10 +1,12 @@
 """paddle_tpu_torch.distributed — collectives, DataParallel, spawn and
-the sharded checkpoint.
+launch, the sharded checkpoint, the fleet (strategy, meta-optimizers),
+the parameter server's tables and the file datasets.
 
-The port of `paddle_tpu/distributed/` (the fleet's strategy layer comes
-later). One process per rank over torch.distributed: `spawn` starts the
-ranks (each sees PADDLE_TRAINER_ID and the rendezvous in its
-environment) and `init_parallel_env` joins them.
+The port of `paddle_tpu/distributed/`. One process per rank over
+torch.distributed: `spawn` (or `python -m
+paddle_tpu_torch.distributed.launch`) starts the ranks (each sees
+PADDLE_TRAINER_ID and the rendezvous in its environment) and
+`init_parallel_env` joins them.
 """
 from __future__ import annotations
 
@@ -18,7 +20,10 @@ from .collective import (  # noqa: F401
     resolve_backend, scatter, split, wait,
 )
 from .parallel import DataParallel  # noqa: F401
+from .dataset import InMemoryDataset, QueueDataset  # noqa: F401
 from . import checkpoint  # noqa: F401
+from . import fleet  # noqa: F401
+from . import ps  # noqa: F401
 
 
 class MultiprocessContext:
@@ -113,6 +118,11 @@ def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
     return context
 
 
+def launch():
+    from . import launch as launch_mod
+    launch_mod.main()
+
+
 def prepare_context(strategy=None):
     """The 1.x dygraph bootstrap: `init_parallel_env`."""
     return init_parallel_env()
@@ -123,4 +133,6 @@ __all__ = ["Group", "ParallelEnv", "ReduceOp", "all_gather", "all_reduce",
            "get_world_size", "init_parallel_env", "is_initialized",
            "new_group", "rank_device", "reduce", "reduce_scatter",
            "resolve_backend", "scatter", "split", "wait", "DataParallel",
-           "checkpoint", "spawn", "prepare_context", "MultiprocessContext"]
+           "checkpoint", "spawn", "launch", "prepare_context",
+           "MultiprocessContext", "InMemoryDataset", "QueueDataset", "fleet",
+           "ps"]

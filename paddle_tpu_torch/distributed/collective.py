@@ -394,12 +394,20 @@ def quantized_all_reduce(x, axis_name, bits=8, block=256, mesh=None):
         scale = torch.clamp_min(v.abs().amax(-1, keepdim=True), 1e-30)
         return quantize_symmetric(v, scale, bits), scale
 
+    def wire(codes):
+        # gloo moves no int16: 16-bit codes travel as their bytes
+        return codes.view(torch.int8) if codes.dtype == torch.int16 \
+            else codes
+
+    def unwire(codes):
+        return codes.view(torch.int16) if bits > 8 else codes
+
     q, s = quant(chunks)
-    q_t = comm.all_to_all_single(q, group)
+    q_t = unwire(comm.all_to_all_single(wire(q), group))
     s_t = comm.all_to_all_single(s, group)
     reduced = dequantize(q_t, s_t, bits).sum(0)
     rq, rs = quant(reduced)
-    gq = torch.stack(comm.all_gather(rq, group))
+    gq = unwire(torch.stack(comm.all_gather(wire(rq), group)))
     gs = torch.stack(comm.all_gather(rs, group))
     out = dequantize(gq, gs, bits).reshape(-1)
     if pad:

@@ -30,7 +30,10 @@ specs (each dp rank keeps and updates 1/dp of the moments of the
 replicated leaves: `zero_init` / `zero_update`).
 
 `reference_loss` computes the same math without a mesh (the parity
-oracle).
+oracle); `params_from_gpt2` carries a flat GPT-2 (`models/gpt2.py`'s
+layout) into this one. The loss carries `grad_axes` ("dp", "sp"): the
+fleet's train step (`distributed.fleet.build_hybrid_train_step`) runs it
+as a mesh-aware loss on this rank's params and batch.
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ import torch.nn.functional as F
 from ..device import resolve_device
 from ..parallel import comm
 from ..parallel.mesh import P, local_slice, resolve_mesh
+from ..parallel.zero import DPAxis, zero_dim
 
 
 def pad_vocab(vocab_size, mp):
@@ -240,7 +244,7 @@ def build_hybrid_gpt2_loss(mesh=None, num_microbatches=2, ring_impl=None,
         return _stage_fn(stage, x, mesh=mesh, sp=sp, mp=mp,
                          ring_impl=ring_impl)
 
-    def loss_fn(params, batch):
+    def loss_fn(params, batch, key=None):
         ids, labels = batch["input_ids"], batch["labels"]
         dev = ids.device
         sp_idx = mesh.axis_index("sp") if sp else 0
@@ -306,7 +310,45 @@ def build_hybrid_gpt2_loss(mesh=None, num_microbatches=2, ring_impl=None,
             nll = -logp.gather(-1, labels[..., None].long())[..., 0]
         return comm.mean_over(nll.mean(), ("dp", "sp"), mesh)
 
+    # mesh-aware: the fleet's train step sums its gradients over these
+    loss_fn.grad_axes = ("dp", "sp")
     return loss_fn
+
+
+def params_from_gpt2(flat, num_heads, pp=1):
+    """The global hybrid params of a GPT-2 in the flat layout of
+    `models/gpt2.py` (numpy arrays or tensors, "h.{i}.qkv_proj.weight"
+    [E, 3E] ...; tied embeddings): the fused QKV as [E, H, 3, d] (its
+    column t*E + h*d + j is wqkv[:, h, t, j]), the output projection as
+    [H, d, E], the layers stacked [pp, L/pp, ...]."""
+    t = {k: torch.as_tensor(np.array(v)) for k, v in flat.items()}
+    E = t["wte.weight"].shape[1]
+    H, d = num_heads, E // num_heads
+    L = 1 + max(int(k.split(".")[1]) for k in t if k.startswith("h."))
+
+    def stack(fn):
+        per = torch.stack([fn(f"h.{i}.") for i in range(L)])
+        return per.reshape((pp, L // pp) + tuple(per.shape[1:]))
+
+    return {
+        "wte": t["wte.weight"], "wpe": t["wpe.weight"],
+        "ln_f.w": t["ln_f.weight"], "ln_f.b": t["ln_f.bias"],
+        "blk.ln1.w": stack(lambda p: t[p + "ln_1.weight"]),
+        "blk.ln1.b": stack(lambda p: t[p + "ln_1.bias"]),
+        "blk.wqkv": stack(lambda p: t[p + "qkv_proj.weight"].reshape(
+            E, 3, H, d).permute(0, 2, 1, 3)),
+        "blk.bqkv": stack(lambda p: t[p + "qkv_proj.bias"].reshape(
+            3, H, d).permute(1, 0, 2)),
+        "blk.wo": stack(lambda p: t[p + "out_proj.weight"].reshape(H, d,
+                                                                   E)),
+        "blk.bo": stack(lambda p: t[p + "out_proj.bias"]),
+        "blk.ln2.w": stack(lambda p: t[p + "ln_2.weight"]),
+        "blk.ln2.b": stack(lambda p: t[p + "ln_2.bias"]),
+        "blk.w1": stack(lambda p: t[p + "fc1.weight"]),
+        "blk.b1": stack(lambda p: t[p + "fc1.bias"]),
+        "blk.w2": stack(lambda p: t[p + "fc2.weight"]),
+        "blk.b2": stack(lambda p: t[p + "fc2.bias"]),
+    }
 
 
 def reference_loss(params, batch, vocab_size=None):
@@ -352,11 +394,9 @@ def hybrid_shardings(mesh, params, optimizer_state=None, zero_dp=True):
     def slot_spec(name, v):
         base = specs[name]
         if zero_dp and tuple(base) == ():
-            dp = mesh.size("dp")
-            for i, s in enumerate(v.shape):
-                if s % dp == 0 and s >= dp:
-                    return P(*([None] * i + ["dp"]
-                               + [None] * (v.dim() - i - 1)))
+            i = zero_dim(v.shape, mesh.size("dp"))
+            if i is not None:
+                return P(*([None] * i + ["dp"] + [None] * (v.dim() - i - 1)))
         return base
 
     if optimizer_state is None:
@@ -367,53 +407,49 @@ def hybrid_shardings(mesh, params, optimizer_state=None, zero_dp=True):
     return specs, {"slots": slots, "t": P()}
 
 
-def _zero_dim(slot_specs, name):
-    """The dim a leaf's slots split over dp (None: not split)."""
-    spec = tuple(next(iter(slot_specs["slots"][name].values())))
-    return spec.index("dp") if "dp" in spec else None
-
-
-def _zero_view(p, dim, mesh):
-    n, i = mesh.size("dp"), mesh.axis_index("dp")
-    c = p.shape[dim] // n
-    return p.narrow(dim, i * c, c)
+def _zero_dims(slot_specs, names, mesh):
+    """{name: the dim its slots split over dp} for the split leaves."""
+    if mesh.size("dp") == 1:
+        return {}
+    out = {}
+    for n in names:
+        spec = tuple(next(iter(slot_specs["slots"][n].values())))
+        if "dp" in spec:
+            out[n] = spec.index("dp")
+    return out
 
 
 def zero_init(optimizer, params, mesh, slot_specs):
     """The optimizer state with ZeRO-1 slots: a dp-split leaf keeps
-    moments of its 1/dp slice only."""
+    moments of its 1/dp chunk only."""
     mesh = resolve_mesh(mesh)
-    views = {}
-    for n, p in params.items():
-        dim = _zero_dim(slot_specs, n) if mesh.size("dp") > 1 else None
-        views[n] = p.detach() if dim is None else \
-            _zero_view(p.detach(), dim, mesh)
-    return optimizer.functional_init(views)
+    dp, split = DPAxis(mesh), _zero_dims(slot_specs, params, mesh)
+    return optimizer.functional_init(
+        {n: (dp.chunk(p.detach(), split[n]) if n in split else p.detach())
+         for n, p in params.items()})
 
 
 @torch.no_grad()
 def zero_update(optimizer, params, grads, opt_state, mesh, slot_specs):
-    """One optimizer step in place: each dp rank updates its slice of the
-    dp-split leaves (and all of the others), then the slices are
-    all-gathered over dp."""
+    """One optimizer step in place: each dp rank updates its chunk of the
+    dp-split leaves (Lamb's and Lars' norms over the whole leaf) and all
+    of the others, then the chunks are all-gathered over dp."""
     mesh = resolve_mesh(mesh)
-    split = {n: (_zero_dim(slot_specs, n) if mesh.size("dp") > 1 else None)
-             for n in params}
-    views = {n: (p if split[n] is None else _zero_view(p, split[n], mesh))
+    dp, split = DPAxis(mesh), _zero_dims(slot_specs, params, mesh)
+    views = {n: (dp.chunk(p, split[n]) if n in split else p)
              for n, p in params.items()}
-    gviews = {n: (g if split[n] is None else _zero_view(g, split[n], mesh))
+    gviews = {n: (dp.chunk(g, split[n]) if n in split else g)
               for n, g in grads.items()}
-    optimizer.functional_update(views, gviews, opt_state)
-    group = mesh.group("dp")
-    for n, dim in split.items():
-        if dim is not None:
-            parts = comm.all_gather(views[n].contiguous(), group)
-            params[n].copy_(torch.cat(parts, dim))
+    optimizer.functional_update(views, gviews, opt_state, norms={
+        n: dp.norm_fn() for n in split} or None)
+    for n, w in dp.gather({n: views[n] for n in split}, split).items():
+        params[n].copy_(w)
     return params, opt_state
 
 
 __all__ = ["pad_vocab", "init_hybrid_gpt2_params", "hybrid_param_specs",
            "hybrid_local_params", "hybrid_params_from_reference",
+           "params_from_gpt2",
            "reduce_hybrid_gradients",
            "build_hybrid_gpt2_loss", "reference_loss", "hybrid_shardings",
            "zero_init", "zero_update"]

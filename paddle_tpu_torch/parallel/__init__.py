@@ -1,6 +1,7 @@
 """paddle_tpu_torch.parallel — the mesh over torch.distributed, its
 collectives, sequence parallelism (ring, zigzag ring, Ulysses), the
-pipeline schedules and MoE.
+pipeline schedules, MoE, and the dp axis's batch split and ZeRO shards
+(`zero`).
 
 The port of `paddle_tpu/parallel/`: one process per rank
 (`mesh.make_mesh` maps ranks to (dp, pp, mp, sp) coordinates), explicit

@@ -160,6 +160,21 @@ def all_to_all_single(x, group):
     return out
 
 
+def reduce_scatter(x, group):
+    """x [n, ...] on every rank of `group` (n its size): the sum over the
+    ranks of row i, on rank i. NCCL runs `reduce_scatter_tensor`; gloo,
+    which has none, runs an all-to-all (staged for CUDA tensors) and
+    sums the rows it received in rank order."""
+    if group is None:
+        return x[0]
+    x = x.contiguous()
+    if _backend(group) == "nccl":
+        out = torch.empty_like(x[0])
+        dist.reduce_scatter_tensor(out, x, group=group)
+        return out
+    return all_to_all_single(x, group).sum(0)
+
+
 def broadcast_(x, src, group):
     """In-place broadcast from global rank `src` over `group`."""
     if group is None:
@@ -411,7 +426,8 @@ def reduce_gradients(grads, axes_of, mesh=None):
 
 
 __all__ = ["GLOO_CUDA_OPS", "STAGED", "reset_staged", "transport",
-           "all_reduce_", "all_gather", "all_to_all_single", "broadcast_",
+           "all_reduce_", "all_gather", "all_to_all_single", "reduce_scatter",
+           "broadcast_",
            "shift", "ppermute", "reduce_from", "copy_to", "psum", "pmax",
            "mean_over", "all_to_all", "scatter_to", "gather_from",
            "reduce_gradients"]

@@ -73,7 +73,10 @@ training: two ranks sharing the card over gloo run the ring's flash
 forward and backward (K4, K6, K7, K8 a ring step) against
 flash_attention on one rank, float32 and bf16; NCCL asked for with more
 ranks than cards raises; a CUDA all-to-all staged through host memory
-gives the CPU all-to-all's bits.
+gives the CPU all-to-all's bits. The fleet: two ranks' ZeRO-3 step (its
+reduce-scatter and all-gather staged through the host) and
+SyncBatchNorm on the card give the CPU world's numbers within 1e-5 of
+their magnitude.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -2422,3 +2425,62 @@ def test_staged_all_to_all_equals_gloo_on_cpu(dev, tmp_path):
         np.testing.assert_array_equal(res[r]["card"], res[r]["cpu"])
         assert res[r]["staged"] == 1
         assert res[r]["pinned"]
+
+
+def _fleet_rank(rank):
+    """The fleet's ZeRO-3 SGD step (reduce-scatter and all-gather staged
+    through the host for CUDA tensors over gloo) and a SyncBatchNorm, on
+    the card and on the CPU from the same numbers."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.nn import SyncBatchNorm
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.parallel import comm
+    from paddle_tpu_torch.parallel.mesh import make_mesh
+
+    torch.cuda.set_device(0)
+    rs = np.random.RandomState(3)
+    w0 = rs.randn(8, 6).astype(np.float32)
+    batch = {"x": rs.rand(16, 8).astype(np.float32),
+             "y": rs.rand(16, 6).astype(np.float32)}
+    x_bn = torch.from_numpy(rs.randn(4, 3, 5, 5).astype(np.float32) + rank)
+
+    def loss(p, b, key):
+        return torch.mean((b["x"] @ p["w"] - b["y"]) ** 2)
+
+    out = {}
+    for d in ("cuda", "cpu"):
+        s = fleet.DistributedStrategy()
+        s.sharding = True
+        s.sharding_configs = {"stage": 3}
+        step, _ = fleet.build_hybrid_train_step(s, loss, SGD(0.1, device=d))
+        params, state = step.init_opt_state({"w": torch.from_numpy(w0)},
+                                            device=d)
+        comm.reset_staged()
+        for _ in range(2):
+            _loss, params, state = step(params, state, batch, None)
+        out[d] = {"w": step.gather_params(params)["w"].cpu(),
+                  "chunk": tuple(params["w"].shape),
+                  "staged": comm.STAGED["calls"]}
+        bn = SyncBatchNorm(3, mesh=make_mesh(dp=2), device=d)
+        out[d]["bn"] = bn(x_bn.to(d)).detach().cpu()
+        out[d]["bn_mean"] = bn._mean.cpu()
+    return out
+
+
+def test_fleet_zero3_and_sync_batchnorm_on_card_match_cpu(dev, tmp_path):
+    """Two ranks sharing the card over gloo: the fleet's ZeRO-3 step
+    (the parameters split over dp, their gradients reduce-scattered and
+    the leaves all-gathered through page-locked memory) and SyncBatchNorm
+    give the CPU world's numbers within 1e-5 of their magnitude (phase
+    4k (d)'s limit; float32 sums in another order)."""
+    from torch_dist_util import run_world
+    res = run_world(_fleet_rank, 2, tmp_path)
+    errs = {(r, k): float(np.abs(res[r]["cuda"][k] - res[r]["cpu"][k]).max()
+                          / np.abs(res[r]["cpu"][k]).max())
+            for r in range(2) for k in ("w", "bn", "bn_mean")}
+    assert max(errs.values()) <= 1e-5, errs
+    for r in range(2):
+        card, cpu = res[r]["cuda"], res[r]["cpu"]
+        assert card["chunk"] == cpu["chunk"] == (4, 6)
+        assert card["staged"] > 0 and cpu["staged"] == 0, (card, cpu)
+    np.testing.assert_array_equal(res[0]["cuda"]["w"], res[1]["cuda"]["w"])

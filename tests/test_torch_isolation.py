@@ -87,7 +87,9 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                                    "bert_build_train_step", "jit.load",
                                    "init_hybrid_gpt2_params",
                                    "hybrid_params_from_reference",
-                                   "init_moe_params"])
+                                   "init_moe_params", "fleet.init",
+                                   "init_opt_state", "PSEmbedding",
+                                   "SyncBatchNorm", "optimizer.step"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
@@ -100,7 +102,23 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.parallel.moe import init_moe_params
 
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.ps import PSEmbedding
+    from paddle_tpu_torch.nn import SyncBatchNorm
+    from paddle_tpu_torch.optimizer import SGD
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fleet_step, _ = fleet.build_hybrid_train_step(
+        fleet.DistributedStrategy(), lambda p, b, k: p["w"].sum(),
+        SGD(0.1, device="cpu"))
+
+    def stateful_step(**kw):
+        p = torch.ones(2, requires_grad=True)
+        o = SGD(0.1, parameters=[p], **kw)
+        p.sum().backward()
+        o.step()
+        return p
+
     cfg = GPT2Config(vocab_size=32, hidden_size=32, num_layers=1,
                      num_heads=2, max_position=16)
     bcfg = BertConfig(vocab_size=32, hidden_size=32, num_layers=1,
@@ -136,6 +154,12 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
             lambda **kw: H.hybrid_params_from_reference(hybrid_np, **kw),
         "init_moe_params": lambda **kw: init_moe_params(gen(), 8, 16, 2,
                                                         **kw),
+        "fleet.init": lambda **kw: fleet.init(is_collective=True, **kw),
+        "init_opt_state": lambda **kw: fleet_step.init_opt_state(
+            {"w": torch.ones(4, 2)}, **kw),
+        "PSEmbedding": lambda **kw: PSEmbedding(10, 4, **kw),
+        "SyncBatchNorm": lambda **kw: SyncBatchNorm(3, **kw),
+        "optimizer.step": lambda **kw: stateful_step(**kw),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
