@@ -540,9 +540,34 @@ non-zero before the result line:
                parent (c) a PSEmbedding tower card vs CPU and (e) `python
                -m paddle_tpu_torch.distributed.launch --nproc_per_node 2`
                with one all_reduce on the card;
+  5d. sharded serving (after 4k; `sharded_phase`), ranks spawned on the
+               card over gloo (hard limit D_TIMEOUT), every rank building
+               each server with the same arguments, rank 0 planning and
+               the others following (`serve_follower()`), every dispatch
+               eager: K1/K2 at H 6 (a tp-2 rank's heads) vs plain, then
+               GPT-2 small against the unsharded server on the card
+               (graphs on), float32: (a) tp 2, phase 5's 16 prompts x 32
+               with 4s's sampling rows — tokens equal but for near ties
+               (phase 4g's rule; sampled rows: both draws within 4e-3 of
+               the top draw), every rank's token digest equal to rank
+               0's, K1 and K2 launched on every rank (counts printed a
+               rank); (b) tp 2 prefix cache off == on (hits and a
+               copy-on-write the pool mirror replays) == unsharded, 4
+               slots, then a front door preempt-and-resume; (c) tp 2 x
+               sp 2 (4 ranks), allgather and ring, one D_LONG-token
+               prompt over the D_CHUNKS sweep: tokens equal, ring's peak
+               fresh-K/V bytes within `sp_attention_flat_bound`,
+               max_memory_allocated a rank; bf16: (e) tp 2 on phase 5's
+               traffic (warm pass, measured pass, rank 0 profiled):
+               tokens/s, TTFT, ITL, rank 0's idle share beside phase 5's
+               k = 1 — ranks time-sharing one card over gloo: not a
+               multi-GPU number; (d) tp 2 int8 collectives on 8 of the
+               prompts, tokens equal (e)'s but for phase 4f's near ties,
+               wire bytes <= D_WIRE_RATIO of the bf16 wire;
   7. the kernels line (JSON; each kernel's launches summed over the
      main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f, 4b, 4f,
-     4g, 6g (a), 6, 6b, 6c, 4t, 6t, 4h/6h's and 4k's ranks; the `ragged_stream_verify_*` rows
+     4g, 6g (a), 6, 6b, 6c, 4t, 6t, 4h/6h's, 4k's and 5d's ranks ((a),
+     (b), (c)); the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
@@ -5339,6 +5364,557 @@ def frontdoor_phase(torch, model, prompts, card):
     return counts
 
 
+# ---- phase 5d: sharded serving over torch.distributed -----------------------
+
+# the ranks share the card over gloo (NCCL refuses two ranks on one device);
+# GPT-2 small at full width and depth, phase 5's server shape
+D_CFG = {}                      # GPT2Config overrides (none on the card)
+D_NEW = 32                      # (a), (c)-(e): new tokens a request
+D_FD_NEW = 24                   # (b): the front door's batch request
+D_LONG = 960                    # (c): the long prompt's tokens
+D_CHUNKS = (128, 256, 480)      # (c): prefill_chunk_tokens (x sp a dispatch)
+D_TIMEOUT = 420.0               # a world's hard limit (s)
+# (d): int8 wire bytes / the bf16 wire's: a code a byte plus one float32
+# scale a chunk of E / tp lanes against two bytes a lane, 0.505 at E 768
+D_WIRE_RATIO = 0.55
+D_SERVER = dict(max_slots=8, block_size=16, max_prompt_len=768,
+                max_new_tokens=D_NEW, prefill_chunk_tokens=512)
+
+
+def _d_cfg(GPT2Config):
+    return GPT2Config(**D_CFG)
+
+
+def _d_prompts(vocab):
+    """Phase 5's pinned prompts (16, 64-768 tokens)."""
+    rng = np.random.RandomState(7)
+    return [rng.randint(1, vocab, (int(rng.randint(64, 769)),))
+            .astype(np.int32) for _ in range(16)]
+
+
+def _d_sampling():
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    return [SamplingParams(**SERVE_ROWS[i % len(SERVE_ROWS)])
+            for i in range(16)]
+
+
+def _d_prefix_prompts(prompts):
+    """(b): four of phase 5's prompts and four that share their
+    prefixes, served 4 slots at a time (the first four are published
+    before the others are admitted: prefix hits; the last repeats a whole
+    prompt, so its one prefilled token writes into a cached block — the
+    copy-on-write the pool mirror replays on the other rank)."""
+    p = [q[:200] for q in prompts[:4]]
+    return p + [np.concatenate([p[0], p[1][:37]]),
+                np.concatenate([p[1][:150], p[2][:20]]),
+                np.concatenate([p[2], p[3][:9]]), p[3].copy()]
+
+
+def _d_pair(vocab):
+    rs = np.random.RandomState(2)
+    return (rs.randint(1, vocab, (40,)).astype(np.int32),
+            rs.randint(1, vocab, (17,)).astype(np.int32))
+
+
+def _d_long(vocab):
+    return np.random.RandomState(8).randint(1, vocab, (D_LONG,)) \
+        .astype(np.int32)
+
+
+def _d_serve(torch, model, prompts, sampling, sharding, rank, passes=1,
+             profile=False, **kw):
+    """`prompts` served by a sharded server (every rank builds it; rank 0
+    plans, the others follow). The launch counts are zeroed just before
+    the server is built and read when it stopped. Returns rank 0's
+    outputs, stats, wall time of the last pass and (profile) its device
+    busy time; every rank's digest, dispatches, launches and peak
+    memory."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.ops import kernels
+
+    args = dict(D_SERVER)
+    args.update(kw)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    srv = PagedGenerationServer(model, sharding=sharding, device=DEV,
+                                **args)
+    res = {}
+    if rank:
+        res.update(srv.serve_follower())
+    else:
+        sampling = sampling or [None] * len(prompts)
+
+        def one_pass():
+            return [f.result(timeout=600) for f in
+                    [srv.submit(p, sampling=s)
+                     for p, s in zip(prompts, sampling)]]
+
+        srv.start()
+        try:
+            for _ in range(passes - 1):
+                one_pass()
+            srv.reset_stats()
+            t0 = time.perf_counter()
+            res["outs"] = one_pass()
+            if DEV == "cuda":
+                torch.cuda.synchronize()
+            res["wall"] = time.perf_counter() - t0
+            res["st"] = srv.stats()
+            if profile:
+                res["busy"] = traced_busy(torch, one_pass)[0]
+        finally:
+            srv.stop()
+        res.update(digest=srv._dist.digest(),
+                   dispatches=srv._dist.dispatches)
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+        res["peak"] = torch.cuda.max_memory_allocated()
+    res["counts"] = kernels.launch_counts()
+    return res
+
+
+def _d_preempt(torch, model, sharding, rank):
+    """(b): a front door of one slot: a batch request is held at its
+    second token until an interactive one queues; it is preempted
+    (swapped out through the prefix cache) and resumes."""
+    from paddle_tpu_torch.frontend import FrontDoor
+
+    pv, pi = _d_pair(model.cfg.vocab_size)
+    fd = FrontDoor(model, max_slots=1, block_size=16, max_prompt_len=64,
+                   max_new_tokens=D_FD_NEW, enable_prefix_cache=True,
+                   sharding=sharding, device=DEV)
+    if rank:
+        return fd.server.serve_follower()
+    hold, reached, go = f_hold(2)
+    hv = fd.submit(pv, lane="batch", max_new_tokens=D_FD_NEW,
+                   on_token=hold)
+    fd.start()
+    try:
+        if not reached.wait(600):
+            fail("phase 5d (b): the batch request never streamed")
+        hi = fd.submit(pi, lane="interactive", max_new_tokens=3)
+        go.set()
+        out_i = hi.result(timeout=600)
+        out_v = hv.result(timeout=600)
+        st = fd.stats()
+    finally:
+        go.set()
+        fd.stop()
+    return {"v": out_v, "i": out_i, "fd": st["frontdoor"],
+            "digest": fd.server._dist.digest()}
+
+
+def _d_two(torch, dev, rank, out):
+    """The 2-rank world: (a), (b), (e), (d) at tp 2."""
+    from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.serving_dist import ShardedEngineConfig
+
+    cfg = _d_cfg(GPT2Config)
+    tp2 = ShardedEngineConfig(tp=2)
+    prompts = _d_prompts(cfg.vocab_size)
+    model = GPT2(cfg, seed=0, dtype=torch.float32, device=dev)
+    t0 = time.perf_counter()
+    out["a"] = _d_serve(torch, model, prompts, _d_sampling(), tp2, rank)
+    out["a_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pp = _d_prefix_prompts(prompts)
+    out["b_off"] = _d_serve(torch, model, pp, None, tp2, rank,
+                            max_slots=4)
+    out["b_on"] = _d_serve(torch, model, pp, None, tp2, rank, max_slots=4,
+                           enable_prefix_cache=True)
+    out["b_fd"] = _d_preempt(torch, model, tp2, rank)
+    out["b_s"] = time.perf_counter() - t0
+    del model
+    model = GPT2(cfg, seed=0, dtype=torch.bfloat16, device=dev)
+    t0 = time.perf_counter()
+    out["e"] = _d_serve(torch, model, prompts, None, tp2, rank, passes=2,
+                        profile=DEV == "cuda")
+    out["e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["d"] = _d_serve(torch, model, prompts[:8], None,
+                        ShardedEngineConfig(tp=2, collective_quant="int8"),
+                        rank)
+    out["d_s"] = time.perf_counter() - t0
+
+
+def _d_four(torch, dev, rank, out):
+    """The 4-rank world: (c) tp 2 x sp 2, allgather and ring, one long
+    prompt over a chunk sweep."""
+    from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.serving_dist import ShardedEngineConfig
+
+    cfg = _d_cfg(GPT2Config)
+    model = GPT2(cfg, seed=0, dtype=torch.float32, device=dev)
+    long = _d_long(cfg.vocab_size)
+    t0 = time.perf_counter()
+    for mode in ("allgather", "ring"):
+        sh = ShardedEngineConfig(tp=2, sp=2, sp_attention=mode)
+        for chunk in D_CHUNKS:
+            out[(mode, chunk)] = _d_serve(
+                torch, model, [long], None, sh, rank, max_slots=1,
+                max_prompt_len=D_LONG, prefill_chunk_tokens=chunk)
+    out["c_s"] = time.perf_counter() - t0
+
+
+def _d_rank(rank, nprocs, store, out_dir, dev, job):
+    """One rank of a 5d world (gloo: the ranks share the card)."""
+    import pickle
+    import traceback
+
+    import torch
+    os.environ.update(PADDLE_TRAINER_ID=str(rank),
+                      PADDLE_TRAINERS_NUM=str(nprocs), LOCAL_RANK="0",
+                      LOCAL_WORLD_SIZE=str(nprocs))
+    path = os.path.join(out_dir, f"rank{rank}")
+    try:
+        import datetime
+
+        import paddle_tpu_torch.distributed as pdist
+        torch.set_num_threads(2)
+        if dev == "cuda":
+            torch.cuda.set_device(0)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        pdist.init_parallel_env(
+            init_method=f"file://{store}", rank=rank, world_size=nprocs,
+            device=dev, timeout=datetime.timedelta(seconds=D_TIMEOUT))
+        out = {"backend": torch.distributed.get_backend()}
+        (_d_two if job == "two" else _d_four)(torch, dev, rank, out)
+        with open(path + ".pkl", "wb") as f:
+            pickle.dump(out, f)
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+    except BaseException:  # noqa: BLE001
+        with open(path + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        os._exit(1)
+
+
+def _d_world(out_dir, dev, job, n):
+    """Spawn the n ranks of `job`, wait (hard limit D_TIMEOUT: kill them
+    all and fail), return ({rank: results}, seconds)."""
+    import multiprocessing as mp
+    import pickle
+    ctx = mp.get_context("spawn")
+    os.makedirs(out_dir, exist_ok=True)
+    store = os.path.join(out_dir, "store")
+    procs = [ctx.Process(target=_d_rank,
+                         args=(r, n, store, out_dir, dev, job))
+             for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + D_TIMEOUT
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    alive = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    for p in procs:
+        p.join(10)
+    errs = [f"rank {r}: " + open(os.path.join(out_dir, f"rank{r}.err"))
+            .read()[-3000:] for r in range(n)
+            if os.path.exists(os.path.join(out_dir, f"rank{r}.err"))]
+    if errs:
+        fail(f"phase 5d ({job}): " + "\n".join(errs))
+    if alive:
+        fail(f"phase 5d ({job}): the world of {n} ranks passed its "
+             f"{D_TIMEOUT:.0f} s limit; ranks {alive} killed")
+    res = {}
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.pkl"), "rb") as f:
+            res[r] = pickle.load(f)
+    return res, time.perf_counter() - t0
+
+
+def _d_reference(torch, model32):
+    """The unsharded port server on the card (graphs on): (a), (b) and
+    (c)'s workloads and the preempt pair, float32."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    cfg = model32.cfg
+    prompts = _d_prompts(cfg.vocab_size)
+
+    def run(ps, sampling=None, **kw):
+        args = dict(D_SERVER)
+        args.update(kw)
+        srv = PagedGenerationServer(model32, device=DEV, **args).start()
+        try:
+            sampling = sampling or [None] * len(ps)
+            return [f.result(timeout=600) for f in
+                    [srv.submit(p, sampling=s)
+                     for p, s in zip(ps, sampling)]]
+        finally:
+            srv.stop()
+
+    pv, pi = _d_pair(cfg.vocab_size)
+    return {"a": run(prompts, _d_sampling()),
+            "b": run(_d_prefix_prompts(prompts), max_slots=4),
+            "v": run([pv], max_slots=1, max_prompt_len=64,
+                     max_new_tokens=D_FD_NEW)[0],
+            "i": run([pi], max_slots=1, max_prompt_len=64,
+                     max_new_tokens=3)[0],
+            "c": run([_d_long(cfg.vocab_size)], max_slots=1,
+                     max_prompt_len=D_LONG)[0]}
+
+
+def _d_draw_tie(torch, cfg, params_cpu, a, b, start, sampling):
+    """Two sampled outputs that differ: True when at the first difference
+    both tokens' draw values (penalties, temperature, filters and the
+    request's Gumbel noise over the float32 CPU logits) lie within 4e-3
+    of the top draw — a near tie the summation order may break."""
+    from paddle_tpu_torch.models.gpt2 import logits
+    from paddle_tpu_torch.sampling import prng
+    from paddle_tpu_torch.sampling import processors as proc
+
+    i = int(np.nonzero(a != b)[0][0])
+    if i < start:
+        fail("phase 5d: two outputs differ inside the prompt")
+    with torch.no_grad():
+        lg = logits(params_cpu, cfg, torch.from_numpy(
+            a[:i].astype(np.int64))[None])[0, -1:]
+    sp = sampling
+    if sp.uses_penalties:
+        counts = torch.from_numpy(np.bincount(
+            a[:i], minlength=cfg.vocab_size)[None].astype(np.int32))
+        lg = proc.apply_penalties(
+            lg, counts, torch.tensor([sp.repetition_penalty]),
+            torch.tensor([sp.presence_penalty]),
+            torch.tensor([sp.frequency_penalty]))
+    z = lg
+    if sp.temperature > 0:
+        z = proc.filter_logits(
+            lg / sp.temperature, torch.tensor([sp.top_k]),
+            torch.tensor([sp.top_p]), torch.tensor([sp.min_p])) \
+            + prng.gumbel(prng.fold_in_keys(
+                torch.tensor([sp.seed], dtype=torch.int64),
+                torch.tensor([i - start], dtype=torch.int32)), lg.shape[-1])
+    z = z[0]
+    top = z.max().item()
+    return all(top - z[int(o[i])].item() <= 4e-3 for o in (a, b))
+
+
+def _d_same(torch, cfg, params_cpu, got, want, starts, sampling, what,
+            ties):
+    """got == want row by row but for near ties (greedy rows: phase 4g's
+    `gen_tie`; sampled rows: `_d_draw_tie`), appended to `ties`."""
+    for r, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if np.array_equal(g, w):
+            continue
+        if g.shape != w.shape:
+            fail(f"phase 5d {what}: request {r} has {g.size} tokens, the "
+                 f"unsharded server's {w.size}")
+        sp = sampling[r] if sampling else None
+        if sp is None or (sp.temperature <= 0 and not sp.uses_penalties):
+            tie = gen_tie(torch, cfg, params_cpu, g, w, starts[r], None,
+                          f"5d {what}")
+        else:
+            tie = _d_draw_tie(torch, cfg, params_cpu, g, w, starts[r], sp)
+        if not tie:
+            fail(f"phase 5d {what}: request {r} differs from the unsharded "
+                 f"server beyond the near-tie rule")
+        ties.append((what, r, int(np.nonzero(g != w)[0][0])))
+
+
+def _d_ranks_line(res, key, n, k1=True):
+    """Every rank's digest equals rank 0's; K2 (and K1) launched on every
+    rank. Returns 'launches K1/K2 a rank ...'."""
+    d0 = res[0][key]["digest"]
+    bad = [r for r in range(n) if res[r][key]["digest"] != d0]
+    if bad:
+        fail(f"phase 5d {key}: ranks {bad} sampled other tokens than rank "
+             f"0 (digests differ)")
+    parts = []
+    for r in range(n):
+        c = res[r][key]["counts"]
+        n1, n2 = c["ragged_stream_dense"], c["paged_decode_dense"]
+        if n2 <= 0 or (k1 and n1 <= 0):
+            fail(f"phase 5d {key}: rank {r} launched K1 {n1} and K2 {n2} "
+                 f"times")
+        parts.append(f"r{r} {n1}/{n2}")
+    return "launches K1/K2 a rank " + " ".join(parts)
+
+
+def sharded_phase(torch, card, unsharded_k1):
+    """Phase 5d (module constants D_*): returns the main path's launches
+    {kernel: n} summed over the ranks ((a), (b), (c))."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.serving_dist import sp_attention_flat_bound
+
+    t_all = time.perf_counter()
+    cfg = _d_cfg(GPT2Config)
+    hl = cfg.num_heads // 2
+    if DEV == "cuda":  # K1 and K2 at the heads a tp-2 rank holds
+        timer = Timer(torch)
+        errs = []
+        for quant in (False, True):
+            for case in (decode_case, stream_case):
+                r = case(torch, timer, hl, cfg.hidden_size // cfg.num_heads,
+                         16, quant, 21, False)
+                if not (r["ok"] and r["bitwise"]):
+                    fail(f"phase 5d {case.__name__} H {hl} quant {quant}: "
+                         f"disagrees with the plain version or differs "
+                         f"over two launches (max abs err "
+                         f"{r['max_abs_err']:.3g})")
+                errs.append(r["max_abs_err"])
+        say(f"phase 5d K1/K2 at H {hl} (a tp-2 rank's heads), dense and "
+            f"int8, bf16: within 2e-2 of plain (max abs err "
+            f"{max(errs):.3g}), bitwise over two launches")
+    model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
+    params_cpu = {k: v.detach().float().cpu()
+                  for k, v in model32.flat_params().items()}
+    ref = _d_reference(torch, model32)
+    del model32
+    tmp = tempfile.mkdtemp(prefix="phase5d_")
+    counts = {"ragged_stream_dense": 0, "paged_decode_dense": 0}
+    try:
+        two, wall2 = _d_world(os.path.join(tmp, "two"), DEV, "two", 2)
+        four, wall4 = _d_world(os.path.join(tmp, "four"), DEV, "four", 4)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ties = []
+    prompts = _d_prompts(cfg.vocab_size)
+    sampling = _d_sampling()
+    r0 = two[0]
+    # (a)
+    a = r0["a"]
+    _d_same(torch, cfg, params_cpu, a["outs"], ref["a"],
+            [p.size for p in prompts], sampling, "(a)", ties)
+    st = a["st"]
+    if st["sharding"]["graphs"].startswith("on") or \
+            st["decode_graph_replays"]:
+        fail(f"phase 5d (a): a world of 2 replayed graphs "
+             f"({st['sharding']['graphs']})")
+    say(f"phase 5d (a) tp 2 float32 GPT-2 small, 16 requests x {D_NEW} "
+        f"(greedy, sampled, penalties: 4s's rows): tokens equal the "
+        f"unsharded server's on the card "
+        f"({sum(1 for t in ties if t[0] == '(a)')} near ties), every rank's "
+        f"tokens equal rank 0's (digest over {a['dispatches']} dispatches),"
+        f" {_d_ranks_line(two, 'a', 2)}; prefill dispatches "
+        f"{st['prefill_dispatches']} decode dispatches {st['decode_steps']} "
+        f"(eager: {st['sharding']['graphs']}); {r0['a_s']:.1f} s")
+    for r in range(2):
+        for n in counts:
+            counts[n] += two[r]["a"]["counts"][n]
+    # (b)
+    pp = _d_prefix_prompts(prompts)
+    starts = [p.size for p in pp]
+    _d_same(torch, cfg, params_cpu, r0["b_off"]["outs"], ref["b"], starts,
+            None, "(b) cache off", ties)
+    _d_same(torch, cfg, params_cpu, r0["b_on"]["outs"], r0["b_off"]["outs"],
+            starts, None, "(b) cache on", ties)
+    pc = r0["b_on"]["st"]["kv_cache"]["prefix_cache"]
+    if pc["hits"] < 1 or pc["cow_copies"] < 1:
+        fail(f"phase 5d (b): prefix cache hits {pc['hits']} copies "
+             f"{pc['cow_copies']} (each >= 1: the mirror untested)")
+    fd = r0["b_fd"]
+    if fd["fd"]["preemptions"] < 1 or fd["fd"]["resumes"] < 1:
+        fail(f"phase 5d (b): front door preemptions "
+             f"{fd['fd']['preemptions']} resumes {fd['fd']['resumes']}")
+    if two[1]["b_fd"]["digest"] != fd["digest"]:
+        fail("phase 5d (b): the follower's tokens differ from rank 0's")
+    for r in range(2):
+        for key in ("b_off", "b_on"):
+            for n in counts:
+                counts[n] += two[r][key]["counts"][n]
+    pv, pi = _d_pair(cfg.vocab_size)
+    _d_same(torch, cfg, params_cpu, [fd["v"], fd["i"]],
+            [ref["v"], ref["i"]], [pv.size, pi.size], None,
+            "(b) preempt-resume", ties)
+    say(f"phase 5d (b) tp 2 prefix cache on == off == unsharded on 8 "
+        f"shared-prefix prompts (hits {pc['hits']}, hit tokens "
+        f"{pc['hit_tokens']}, copy-on-write {pc['cow_copies']} mirrored), "
+        f"{_d_ranks_line(two, 'b_on', 2)}; front door preempt-and-resume "
+        f"(preemptions {fd['fd']['preemptions']}, resumes "
+        f"{fd['fd']['resumes']}): both requests equal the unsharded "
+        f"server's; {r0['b_s']:.1f} s")
+    # (c)
+    long = _d_long(cfg.vocab_size)
+    lines = []
+    bound = sp_attention_flat_bound("ring", 2, cfg.num_heads,
+                                    cfg.hidden_size // cfg.num_heads)
+    for mode in ("allgather", "ring"):
+        for chunk in D_CHUNKS:
+            rc = four[0][(mode, chunk)]
+            _d_same(torch, cfg, params_cpu, rc["outs"], [ref["c"]],
+                    [long.size], None, f"(c) {mode} chunk {chunk}", ties)
+            peak = rc["st"]["sharding"]["sp_attention_bytes_peak"]
+            if mode == "ring" and not 0 < peak <= bound:
+                fail(f"phase 5d (c) ring chunk {chunk}: peak fresh-K/V "
+                     f"{peak} B against the flat bound {bound} B")
+            # ring's prefill attention is the reference's XLA math in
+            # torch: K1 runs in allgather mode only
+            line = _d_ranks_line(four, (mode, chunk), 4,
+                                 k1=mode == "allgather")
+            mem = "/".join(f"{four[r][(mode, chunk)].get('peak', 0) / 2**20:.0f}"
+                           for r in range(4))
+            limit = (f"flat bound {bound} B" if mode == "ring"
+                     else "linear in the chunk")
+            lines.append(f"{mode} chunk {chunk} x sp 2: peak fresh-K/V "
+                         f"{peak} B ({limit}), "
+                         f"max_memory_allocated a rank {mem} MiB, "
+                         f"prefill dispatches "
+                         f"{rc['st']['prefill_dispatches']}, {line}")
+            for r in range(4):
+                for n in counts:
+                    counts[n] += four[r][(mode, chunk)]["counts"][n]
+    say(f"phase 5d (c) tp 2 x sp 2 (4 ranks), one {D_LONG}-token prompt x "
+        f"{D_NEW} greedy: tokens equal the unsharded server's in every "
+        f"case; " + "; ".join(lines) + f"; {four[0]['c_s']:.1f} s")
+    # (e) and (d)
+    e, d = r0["e"], r0["d"]
+    _d_ranks_line(two, "e", 2)
+    _d_ranks_line(two, "d", 2)
+    model16 = GPT2(cfg, seed=0, dtype=torch.bfloat16, device=DEV)
+    params16 = {k: v.detach().float().cpu()
+                for k, v in model16.flat_params().items()}
+    del model16
+    cmp_ties = 0
+    for p, g, w in zip(prompts[:8], d["outs"], e["outs"][:8]):
+        if not np.array_equal(g, w):
+            if not near_tie_rule(torch, params16, cfg, g, w, p.size,
+                                 phase="5d (d)"):
+                fail("phase 5d (d): int8-collective tokens differ from the "
+                     "exact collectives' beyond phase 4f's near-tie rule")
+            cmp_ties += 1
+    c = d["st"]["collectives"]
+    if not c["enabled"] or c["mode"] != "int8" or c["bytes_total"] <= 0 \
+            or c["bytes_total"] > D_WIRE_RATIO * c["bytes_baseline"]:
+        fail(f"phase 5d (d): collectives {c}")
+    say(f"phase 5d (d) tp 2 int8 collectives, bf16, 8 of (a)'s prompts "
+        f"greedy: tokens equal the exact collectives' but {cmp_ties} near "
+        f"ties (phase 4f's rule); wire bytes a rank {c['bytes_total']} vs "
+        f"the bf16 wire's {c['bytes_baseline']} "
+        f"({c['bytes_total'] / c['bytes_baseline']:.3f}x, limit "
+        f"{D_WIRE_RATIO}), by collective {c['by_collective']}; "
+        f"{r0['d_s']:.1f} s")
+    est = e["st"]
+    busy = e.get("busy")
+    idle = ("not measured" if not busy else
+            f"{1 - busy / e['wall']:.3f} (rank 0's kernels; the other "
+            f"rank's share the card)")
+    say(f"phase 5d (e) ranks time-sharing one card over gloo: not a "
+        f"multi-GPU number. tp 2 bf16 on phase 5's traffic (16 greedy "
+        f"requests x {D_NEW}): tokens_per_sec {est['tokens_per_sec']:.1f} "
+        f"ttft p50 {est['ttft_p50_ms']:.1f} ms itl p50 "
+        f"{est['itl_p50_ms']:.2f} ms, idle share {idle}; the unsharded "
+        f"server (phase 5 k=1, graphs) tokens_per_sec "
+        f"{unsharded_k1['tokens_per_sec']:.1f} itl p50 "
+        f"{unsharded_k1['itl_p50_ms']:.2f} ms [{card}]")
+    say(f"phase 5d: worlds {wall2:.1f} s (2 ranks) + {wall4:.1f} s "
+        f"(4 ranks), near ties {ties or 'none'}, the phase "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return counts
+
+
 # ---- phases 4h and 6h: parallel training over torch.distributed ------------
 
 # GPT-2 small's widths; the hybrid's batch; the pipeline's and MoE's sizes
@@ -7410,6 +7986,11 @@ def main():
     # phase 4k: the fleet's strategy layer, 2 ranks on the card over gloo
     # (their K4/K6/K9 launches join the kernels line)
     for n, v in fleet_phase(torch, card).items():
+        main_counts[n] = main_counts.get(n, 0) + v
+
+    # phase 5d: sharded serving, 2 and 4 ranks on the card over gloo
+    # (their K1/K2 launches, counted in the ranks, join the kernels line)
+    for n, v in sharded_phase(torch, card, greedy_k1).items():
         main_counts[n] = main_counts.get(n, 0) + v
 
     # phase 7: the kernels line

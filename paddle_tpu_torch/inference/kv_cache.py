@@ -54,8 +54,23 @@ and host tier included:
 Telemetry: the reference's pool gauges and counters under its names
 (`kv_pool_*`, `kv_prefix_cache_*`, `kv_tier_*`), one series per pool
 (`pool` label, `name=` or "poolN"), pushed after every table change
-while the metrics registry is enabled (one bool check otherwise). Left
-out: the shard-count bookkeeping (the per-shard byte series).
+while the metrics registry is enabled (one bool check otherwise). On a
+sharded pool (`serving_dist`) the byte gauges also carry one series a
+shard (`set_shard_count`).
+
+Sharded pools. `local_heads`/`head_offset` make the device tensors hold
+one tensor-parallel rank's heads [head_offset, head_offset +
+local_heads); `groups` > 1 splits the block axis into `groups`
+contiguous ranges of num_blocks / groups blocks (block g * num_blocks /
+groups is group g's trash block, never handed out) and the tensors hold
+only group `group`'s range. The host bookkeeping stays global (block ids
+mean the same on every rank); a sequence allocates in the group
+`set_seq_group` names, a prefix match stops at a block of another group,
+and the device-side operations (copy-on-write, the tier's demote and
+promote, import and export) act on this rank's slice only. `mirror`
+(None here) is the hook through which the rank that plans replays each
+device-side operation on the other ranks' slices (`serving_dist.engine.
+PoolMirror`).
 
 Attribution: with a `observability.attribution.ResourceLedger` on
 `ledger` (the engine attaches it before the first allocation), every
@@ -245,11 +260,14 @@ class PagedKVCache:
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     name: the `pool` label of this pool's metric series (default
         "poolN", N counting the pools of the process).
+    local_heads, head_offset, groups, group: a sharded pool's slice (see
+        the module docstring); the defaults hold the whole pool.
     """
 
     def __init__(self, num_layers, num_heads, head_dim, *, block_size=128,
                  num_blocks=64, dtype=None, kv_dtype=None, tier=None,
-                 device=None, name=None):
+                 device=None, name=None, local_heads=None, head_offset=0,
+                 groups=1, group=0):
         if num_blocks < 2:
             raise ValueError("num_blocks must be >= 2 (block 0 is the "
                              "reserved trash block)")
@@ -265,8 +283,16 @@ class PagedKVCache:
         self._name = str(name) if name else f"pool{next(_pool_ids)}"
         self.device = resolve_device(device)
         self.dtype = torch.float32 if dtype is None else dtype
-        shape = (self.num_layers, self.num_blocks, self.block_size,
-                 self.num_heads, self.head_dim)
+        self.groups, self.group = int(groups), int(group)
+        if self.num_blocks % self.groups:
+            raise ValueError(f"num_blocks {self.num_blocks} does not split "
+                             f"into {self.groups} block groups")
+        self._gsize = self.num_blocks // self.groups
+        self.local_heads = (self.num_heads if local_heads is None
+                            else int(local_heads))
+        self.head_offset = int(head_offset)
+        shape = (self.num_layers, self._gsize, self.block_size,
+                 self.local_heads, self.head_dim)
 
         def zeros(shp, dt):
             return torch.zeros(shp, dtype=dt, device=self.device)
@@ -279,8 +305,14 @@ class PagedKVCache:
         else:
             self.k_blocks = zeros(shape, self.dtype)
             self.v_blocks = zeros(shape, self.dtype)
-        # block 0 reserved: free list starts at 1 (popped from the end)
-        self._free = list(range(self.num_blocks - 1, 0, -1))
+        # block 0 reserved (and each group's first block): the free list
+        # starts at 1 (popped from the end)
+        self._free = [b for b in range(self.num_blocks - 1, 0, -1)
+                      if b % self._gsize]
+        self._usable = self.num_blocks - self.groups
+        self._seq_group: dict = {}     # seq -> block group (groups > 1)
+        self._shard_count = 1          # ranks the pool is split over
+        self.mirror = None
         self._tables: dict[object, list[int]] = {}
         self._lens: dict[object, int] = {}
         # prefix cache: refcounts (tables holding each block), the
@@ -340,15 +372,30 @@ class PagedKVCache:
 
     @property
     def capacity_tokens(self):
-        return (self.num_blocks - 1) * self.block_size
+        return self._usable * self.block_size
 
     @property
-    def pool_bytes_total(self):
-        """Device bytes held by the K/V pool tensors (codes + scales for
-        an int8 pool)."""
+    def pool_bytes_per_shard(self):
+        """Device bytes held by THIS pool's K/V tensors (codes + scales
+        for an int8 pool): one rank's slice of a sharded pool."""
         return sum(t.numel() * t.element_size()
                    for kv in (self.k_blocks, self.v_blocks)
                    for t in _leaves(kv))
+
+    @property
+    def pool_bytes_total(self):
+        """Device bytes of the whole pool: this slice times the shards
+        (`set_shard_count`; the slices are equal)."""
+        return self.pool_bytes_per_shard * self._shard_count
+
+    def set_shard_count(self, n):
+        """Record over how many ranks the pool is split (tp * dp): the
+        byte gauges then also report one series a shard."""
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"shard count must be >= 1, got {n}")
+        self._shard_count = n
+        self._push_gauges()
 
     @property
     def scale_bytes(self):
@@ -356,8 +403,9 @@ class PagedKVCache:
         quantization's overhead on top of the int8 codes."""
         if self.kv_dtype != "int8":
             return 0
-        return sum(t.numel() * t.element_size()
-                   for t in (self.k_blocks.scales, self.v_blocks.scales))
+        return self._shard_count * sum(
+            t.numel() * t.element_size()
+            for t in (self.k_blocks.scales, self.v_blocks.scales))
 
     @property
     def bytes_per_token(self):
@@ -406,20 +454,55 @@ class PagedKVCache:
         if own is not None and self.ledger is not None:
             self.ledger.host_bytes_event(own[0], -own[1])
 
-    def _take_blocks(self, n, owner=None):
-        """Pop `n` blocks off the free list (refcount 1 each),
-        reclaiming LRU-retained blocks as needed. Callers that need
-        all-or-nothing semantics pre-check availability. `owner` is the
-        (tenant, rid) charged while the blocks stay off the free list."""
-        while len(self._free) < n and self._retained:
-            self._reclaim_lru()
-        if n > len(self._free):
+    # ---- block groups (a dp-sharded pool) -------------------------------
+    def local_block(self, b):
+        """This rank's index of global block `b`, None when another
+        group holds it."""
+        g, off = divmod(int(b), self._gsize)
+        return off if g == self.group else None
+
+    def set_seq_group(self, seq_id, group):
+        """The block group `seq_id` allocates in (groups > 1)."""
+        self._seq_group[seq_id] = int(group)
+
+    def _free_in(self, g):
+        if self.groups == 1:
+            return len(self._free)
+        return sum(1 for b in self._free if b // self._gsize == g)
+
+    def _retained_in(self, g):
+        if self.groups == 1:
+            return len(self._retained)
+        return sum(1 for b in self._retained if b // self._gsize == g)
+
+    def available_in(self, g):
+        """Blocks an allocation in group `g` can obtain (free plus
+        reclaimable); the whole pool's with one group."""
+        return self._free_in(g) + self._retained_in(g)
+
+    def _pop_free(self, g):
+        if self.groups == 1:
+            return self._free.pop()
+        for i in range(len(self._free) - 1, -1, -1):
+            if self._free[i] // self._gsize == g:
+                return self._free.pop(i)
+        raise AssertionError("no free block in group %d" % g)
+
+    def _take_blocks(self, n, owner=None, group=0):
+        """Pop `n` blocks of block group `group` off the free list
+        (refcount 1 each), reclaiming LRU-retained blocks as needed.
+        Callers that need all-or-nothing semantics pre-check
+        availability. `owner` is the (tenant, rid) charged while the
+        blocks stay off the free list."""
+        while self._free_in(group) < n and self._retained_in(group):
+            self._reclaim_lru(group)
+        if n > self._free_in(group):
             _m_alloc_failures.labels(pool=self._name).inc()
             raise BlockPoolExhausted(
-                f"need {n} blocks, only {len(self._free)} free "
-                f"(pool {self.num_blocks - 1})",
-                needed=n, available=len(self._free))
-        taken = [self._free.pop() for _ in range(n)]
+                f"need {n} blocks, only {self._free_in(group)} free "
+                f"(pool {self._usable})",
+                needed=n, available=self._free_in(group))
+        taken = [self._pop_free(group) for _ in range(n)]
         for b in taken:
             self._ref[b] = 1
         if self.ledger is not None and taken:
@@ -427,7 +510,7 @@ class PagedKVCache:
             for b in taken:
                 self._block_owner[b] = (tenant, rid)
             self.ledger.block_event(tenant, rid, len(taken))
-        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        used = self._usable - len(self._free) - len(self._retained)
         self._peak_blocks = max(self._peak_blocks, used)
         return taken
 
@@ -448,13 +531,18 @@ class PagedKVCache:
             self._free.append(b)
             self._ledger_block_freed(b)
 
-    def _reclaim_lru(self):
-        """Evict the least recently retained block: drop its entries and
-        free it — or, with a tier, demote it."""
+    def _reclaim_lru(self, group=0):
+        """Evict the least recently retained block (of `group` when the
+        pool has several): drop its entries and free it — or, with a
+        tier, demote it."""
         if self._tier is not None:
             self._demote_lru()
             return
-        b, _ = self._retained.popitem(last=False)
+        if self.groups == 1:
+            b, _ = self._retained.popitem(last=False)
+        else:
+            b = next(x for x in self._retained if x // self._gsize == group)
+            del self._retained[b]
         for h in list(self._block_entries.get(b, ())):
             self._drop_entry(h)
         self._free.append(b)
@@ -467,10 +555,12 @@ class PagedKVCache:
         self._block_entries.setdefault(block, set()).add(h)
         fills = self._child_fills.setdefault(parent, {})
         fills[fill] = fills.get(fill, 0) + 1
-        if self._tier is not None:
+        if self._tier is not None and self._tier.has(h):
             # a hash never lives in both indexes: the device copy wins
             self._tier.drop(h)
             self._ledger_tier_drop(h)
+            if self.mirror is not None:
+                self.mirror.tier_forget([h])
 
     def _drop_entry(self, h):
         block, fill, parent = self._index.pop(h)
@@ -517,6 +607,8 @@ class PagedKVCache:
         """Host copy of rows [0, fill) of block `b` in the tier codec: an
         int8 pool's own codes and scales, a dense pool's `kv_encode`
         (run on the device first)."""
+        b = self.local_block(b)
+
         def grab(arr):
             if self.kv_dtype == "int8":
                 codes, scales = arr.codes[:, b, :fill], arr.scales[:, b, :fill]
@@ -531,6 +623,7 @@ class PagedKVCache:
         dispatch on the stream reads it in order)."""
         dev = self.device
         cuda = dev.type == "cuda"
+        b = self.local_block(b)
 
         def h2d(t):
             return t.to(dev, non_blocking=cuda)
@@ -561,6 +654,9 @@ class PagedKVCache:
             _blk, fill, parent = self._index[h]
             kp, vp = self._tier_grab(b, fill)
             evicted = self._tier.put(h, fill, parent, kp, vp)
+            if self.mirror is not None:
+                self.mirror.tier_put(h, b, fill)
+                self.mirror.tier_forget(evicted)
             per = payload_nbytes((kp, vp))
             nbytes += per
             # the demoting block's owner keeps paying, in host
@@ -588,7 +684,7 @@ class PagedKVCache:
         the coldest. Returns blocks demoted (0 without a tier)."""
         if self._tier is None or self._tier.watermark <= 0:
             return 0
-        low = int(self._tier.watermark * (self.num_blocks - 1))
+        low = int(self._tier.watermark * self._usable)
         n = 0
         while len(self._free) < low and self._retained:
             self._demote_lru()
@@ -616,6 +712,8 @@ class PagedKVCache:
         if h in self._index:
             self._tier.drop(h)
             self._ledger_tier_drop(h)
+            if self.mirror is not None:
+                self.mirror.tier_forget([h])
             return 0
         if self.available_block_count < 1:
             return None
@@ -626,6 +724,8 @@ class PagedKVCache:
         b = self._take_blocks(
             1, owner=(own[0], None) if own is not None else None)[0]
         self._tier_install(b, fill, kp, vp)
+        if self.mirror is not None:
+            self.mirror.tier_take(h, b, fill)
         self._tier.pop(h)
         self._ledger_tier_drop(h)
         self._register_entry(h, b, fill, parent)
@@ -748,7 +848,7 @@ class PagedKVCache:
         if not _metrics.enabled():  # keep the hot path one branch
             return
         p = self._name
-        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        used = self._usable - len(self._free) - len(self._retained)
         held = sum(self._lens.values())
         _m_used_blocks.labels(pool=p, tier="device").set(used)
         _m_free_blocks.labels(pool=p, tier="device").set(len(self._free))
@@ -769,6 +869,13 @@ class PagedKVCache:
             self.pool_bytes_total)
         _m_bytes_per_token.labels(pool=p, shard="all").set(
             self.bytes_per_token)
+        if self._shard_count > 1:
+            # each rank's slice: 1/n of the pool's bytes
+            per = self.pool_bytes_per_shard
+            per_tok = self.bytes_per_token / self._shard_count
+            for r in range(self._shard_count):
+                _m_pool_bytes.labels(pool=p, shard=str(r)).set(per)
+                _m_bytes_per_token.labels(pool=p, shard=str(r)).set(per_tok)
 
     def allocate(self, seq_id, num_tokens):
         """Start a new sequence holding `num_tokens` tokens; returns its
@@ -794,23 +901,28 @@ class PagedKVCache:
         effects."""
         updates = [(s, int(n)) for s, n in updates]
         need = []
+        by_group: dict = {}
         for seq_id, n in updates:
             grow = blocks_for(n, self.block_size) \
                 - len(self._tables.get(seq_id, ()))
             need.append(max(0, grow))
-        total = sum(need)
-        if total > len(self._free) + len(self._retained):
-            _m_alloc_failures.labels(pool=self._name).inc()
-            raise BlockPoolExhausted(
-                f"need {total} blocks across {len(updates)} sequences, "
-                f"only {len(self._free)} free + {len(self._retained)} "
-                f"reclaimable (pool {self.num_blocks - 1})",
-                needed=total, available=self.available_block_count)
+            g = self._seq_group.get(seq_id, 0)
+            by_group[g] = by_group.get(g, 0) + max(0, grow)
+        for g, total in by_group.items():
+            if total > self.available_in(g):
+                _m_alloc_failures.labels(pool=self._name).inc()
+                raise BlockPoolExhausted(
+                    f"need {total} blocks across {len(updates)} "
+                    f"sequences, only {self._free_in(g)} free + "
+                    f"{self._retained_in(g)} reclaimable (pool "
+                    f"{self._usable})",
+                    needed=total, available=self.available_in(g))
         for (seq_id, n), grow in zip(updates, need):
             table = self._tables.setdefault(seq_id, [])
             if grow:
                 table.extend(self._take_blocks(
-                    grow, owner=self._seq_owner.get(seq_id)))
+                    grow, owner=self._seq_owner.get(seq_id),
+                    group=self._seq_group.get(seq_id, 0)))
             self._lens[seq_id] = max(self._lens.get(seq_id, 0), n)
         self.maybe_demote()
         self._push_gauges()
@@ -828,6 +940,7 @@ class PagedKVCache:
         del self._tables[seq_id]
         del self._lens[seq_id]
         self._seq_owner.pop(seq_id, None)
+        self._seq_group.pop(seq_id, None)
         for b in reversed(table):
             self._release_block(b)
         self.maybe_demote()
@@ -877,10 +990,11 @@ class PagedKVCache:
         return seq_id in self._tables
 
     # ---- prefix cache ---------------------------------------------------
-    def _match_chain(self, ids, max_match):
+    def _match_chain(self, ids, max_match, group=None):
         """The longest chain of cached blocks covering a prefix of
         ids[:max_match]: (blocks, fills, pos), fills[i] the tokens block
-        i contributes (a partial tail or the cap ends the chain).
+        i contributes (a partial tail or the cap ends the chain; with
+        `group` given, a block of another group ends it too).
         Read-only."""
         matched: list[int] = []
         fills: list[int] = []
@@ -903,6 +1017,8 @@ class PagedKVCache:
             if hit is None:
                 break
             hh, block, f = hit
+            if group is not None and block // self._gsize != group:
+                break
             use = min(f, max_match - pos)
             matched.append(block)
             fills.append(use)
@@ -940,7 +1056,9 @@ class PagedKVCache:
             _m_prefix_lookup_tokens.labels(pool=self._name).inc(
                 max(0, max_match))
         self._promote_for(ids, max_match)
-        matched, _fills, pos = self._match_chain(ids, max_match)
+        matched, _fills, pos = self._match_chain(
+            ids, max_match, self._seq_group.get(seq_id, 0)
+            if self.groups > 1 else None)
         if pos == 0:
             return 0
         for b in matched:              # claim the chain
@@ -1004,11 +1122,13 @@ class PagedKVCache:
                     if self._index[h][1] > row]
         if not shared and not blocking:
             return False
-        if self.available_block_count >= 1:
+        g = self._seq_group.get(seq_id, 0)
+        if self.available_in(g) >= 1:
             new = self._take_blocks(
-                1, owner=self._seq_owner.get(seq_id))[0]
-            for a in self._pool_leaves():
-                a[:, new].copy_(a[:, block])
+                1, owner=self._seq_owner.get(seq_id), group=g)[0]
+            self.copy_block(block, new)
+            if self.mirror is not None:
+                self.mirror.copy_block(block, new)
             table[bi] = new
             self._release_block(block)
             self._cow_copies += 1
@@ -1020,10 +1140,20 @@ class PagedKVCache:
             raise BlockPoolExhausted(
                 f"copy-on-write for sequence {seq_id!r} at position "
                 f"{pos} needs 1 block, pool exhausted "
-                f"(pool {self.num_blocks - 1})", needed=1, available=0)
+                f"(pool {self._usable})", needed=1, available=0)
         for h in blocking:             # sole referent: cede the entries
             self._drop_entry(h)
         return False
+
+    def copy_block(self, src, dst):
+        """Copy block `src` to `dst` on the device (every leaf, codes and
+        scales together, on the current stream) — on this rank's slice,
+        when its group holds them."""
+        src, dst = self.local_block(src), self.local_block(dst)
+        if src is None or dst is None:
+            return
+        for a in self._pool_leaves():
+            a[:, dst].copy_(a[:, src])
 
     def swap_out_seq(self, seq_id, token_ids):
         """Publish the sequence's live K/V prefix (the first
@@ -1054,12 +1184,11 @@ class PagedKVCache:
         if pos == 0:
             return None
 
-        def grab(arr, b):
-            if self.kv_dtype == "int8":
-                return QuantizedKV(_to_numpy(arr.codes[:, b]),
-                                   _to_numpy(arr.scales[:, b]))
-            return _to_numpy(arr[:, b])
-
+        if self.mirror is not None:
+            ks, vs = self.mirror.export_blocks(blocks)
+        else:
+            ks = [self.block_arrays(self.k_blocks, b) for b in blocks]
+            vs = [self.block_arrays(self.v_blocks, b) for b in blocks]
         return {
             "tokens": [int(t) for t in ids[:pos]],
             "block_size": self.block_size,
@@ -1068,9 +1197,32 @@ class PagedKVCache:
             "num_heads": self.num_heads,
             "head_dim": self.head_dim,
             "fills": list(fills),
-            "k": [grab(self.k_blocks, b) for b in blocks],
-            "v": [grab(self.v_blocks, b) for b in blocks],
+            "k": ks,
+            "v": vs,
         }
+
+    def block_arrays(self, arr, b):
+        """numpy copies of this rank's slice of block `b` of one pool
+        tensor (an int8 pool's as a `QuantizedKV` pair)."""
+        b = self.local_block(b)
+        if self.kv_dtype == "int8":
+            return QuantizedKV(_to_numpy(arr.codes[:, b]),
+                               _to_numpy(arr.scales[:, b]))
+        return _to_numpy(arr[:, b])
+
+    def write_payload_block(self, b, pk, pv):
+        """Write one payload block (all heads) into this rank's slice of
+        block `b`: its heads, when its group holds the block."""
+        b = self.local_block(b)
+        if b is None:
+            return
+        h0, hl = self.head_offset, self.local_heads
+        for arr, pay in ((self.k_blocks, pk), (self.v_blocks, pv)):
+            for dst, src in zip(_leaves(arr), _leaves(pay)):
+                src = _from_numpy(src)
+                if hl != self.num_heads:
+                    src = src[:, :, h0:h0 + hl]
+                dst[:, b].copy_(src)
 
     def import_prefix(self, payload, owner=None):
         """Install an `export_prefix` payload (this port's or the
@@ -1097,9 +1249,10 @@ class PagedKVCache:
         new_blocks = self._take_blocks(len(fills),
                                        owner=owner)  # may raise
         for b, pk, pv in zip(new_blocks, payload["k"], payload["v"]):
-            for arr, pay in ((self.k_blocks, pk), (self.v_blocks, pv)):
-                for dst, src in zip(_leaves(arr), _leaves(pay)):
-                    dst[:, b].copy_(_from_numpy(src))
+            self.write_payload_block(b, pk, pv)
+        if self.mirror is not None:
+            self.mirror.import_blocks(new_blocks, payload["k"],
+                                      payload["v"])
         h = ROOT_HASH
         pos = 0
         for b, f in zip(new_blocks, fills):
@@ -1134,9 +1287,9 @@ class PagedKVCache:
         """Capacity view for the pressure sampler: host-side counters
         only, no device read (safe at round rates)."""
         held = sum(self._lens.values())
-        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        used = self._usable - len(self._free) - len(self._retained)
         return {
-            "num_blocks": self.num_blocks - 1,
+            "num_blocks": self._usable,
             "used_blocks": used,
             "free_blocks": len(self._free),
             "retained_blocks": len(self._retained),
@@ -1148,18 +1301,21 @@ class PagedKVCache:
 
     def block_fill(self):
         """Live tokens / allocated block capacity."""
-        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        used = self._usable - len(self._free) - len(self._retained)
         return sum(self._lens.values()) / ((used * self.block_size) or 1)
 
     def stats(self):
-        used = self.num_blocks - 1 - len(self._free) - len(self._retained)
+        used = self._usable - len(self._free) - len(self._retained)
         held = sum(self._lens.values())
         return {
             "block_size": self.block_size,
-            "num_blocks": self.num_blocks - 1,  # usable (trash excluded)
+            "num_blocks": self._usable,  # usable (trash excluded)
             "kv_dtype": self.stats_kv_dtype(),
             "pool_bytes_total": self.pool_bytes_total,
             "pool_bytes_per_token": self.bytes_per_token,
+            # ranks the pool is split over, and one rank's real bytes
+            "shards": self._shard_count,
+            "pool_bytes_per_shard": self.pool_bytes_per_shard,
             "scale_bytes": self.scale_bytes,
             "used_blocks": used,
             "free_blocks": len(self._free),

@@ -215,9 +215,23 @@ measured wall time over its requests' tenants in integer nanoseconds
 their single owner and credits prefix-cache hits (`cost_report()`,
 `stats()["attribution"]`).
 
+Sharded serving (`sharding=ShardedEngineConfig(tp, dp, sp)`, or True
+for the defaults; `paddle_tpu_torch.serving_dist`): every rank of a
+torch.distributed world constructs the server with the same arguments;
+the weights and the pool split over the mesh (tp: heads and Megatron
+column/row splits; dp: the pool's block ranges, slots pinned to them;
+sp: the packed prefill stream), and rank 0 plans while ranks above 0
+call `serve_follower()` (the package docstring's design rule). Under sp
+the chunk budget is `prefill_chunk_tokens * sp` and the unified round is
+refused; under dp the pool size rounds up to a multiple of dp (its
+default sizes each group for its own slots). With more than one rank the
+decode, verify and window dispatches run eagerly, not as graph replays
+(`stats()["sharding"]["graphs"]`). `stats()["sharding"]` and
+`["collectives"]` (the wire bytes of the TP collectives) are the
+reference's blocks; an unsharded server never imports `serving_dist`.
+
 Left for later slices: the fleet hooks (`export_session`,
-`import_kv_payload`, `run_host_op`; ROADMAP §A 12) and sharding
-(§A 11).
+`import_kv_payload`, `run_host_op`; ROADMAP §A 12).
 
 GenerationServer (the reference's, `paddle_tpu/inference/serving.py:
 289-639`) batches requests for one compiled decode program: a
@@ -440,6 +454,10 @@ _m_prefetch_wasted = _metrics.counter(
     "kv_tier_prefetch_wasted_total",
     "prefetched tier blocks whose request left the queue unadmitted "
     "(timeout/stop) or that pool pressure reclaimed before admission")
+_m_sp_peak_bytes = _metrics.gauge(
+    "serving_sp_attention_bytes_peak",
+    "peak cross-rank fresh-K/V bytes a packed-prefill dispatch "
+    "materializes per sp rank (sharded serving, sp > 1)")
 _m_promote_overlap = _metrics.histogram(
     "kv_tier_promote_overlap_seconds",
     "wall time of overlapped (prefetch-ahead) tier promote batches: "
@@ -578,6 +596,9 @@ class PagedGenerationServer:
     tier_prefetch: None/False, True (look 2 queued requests ahead) or
         a positive depth: promote queued requests' tiered prefix
         blocks while the round runs; needs kv_tier.
+    sharding: None (one device), True (a mesh of one) or a
+        `serving_dist.ShardedEngineConfig`: sharded serving (module
+        docstring); every rank constructs the server alike.
     device: None -> CUDA (raises when absent); "cpu" for the plain path.
     """
 
@@ -592,7 +613,8 @@ class PagedGenerationServer:
                  expose_port=None, flight_recorder=None,
                  stall_timeout_s=30.0, fault_plan=None, recovery=True,
                  journal=None, shed_queue_depth=None, slos=None,
-                 attribution=None, tier_prefetch=None, device=None):
+                 attribution=None, tier_prefetch=None, sharding=None,
+                 device=None):
         if quantization not in (None, "w8a16"):
             raise ValueError(f"unknown quantization {quantization!r} "
                              "(supported: None, 'w8a16')")
@@ -637,6 +659,22 @@ class PagedGenerationServer:
                 "unified_round/async_rounds require steps_per_dispatch"
                 "=1 (the fused round already amortizes the dispatch "
                 "floor over the whole round)")
+        # sharded serving: normalized and checked eagerly (tp must divide
+        # the heads); the unsharded path never imports serving_dist
+        if sharding is not None:
+            from ..serving_dist import normalize_sharding
+
+            sharding = normalize_sharding(sharding, cfg.num_heads)
+        self._sp_degree = sharding.sp if sharding is not None else 1
+        self._sp_attention = (sharding.sp_attention
+                              if sharding is not None else "allgather")
+        if self._unified and self._sp_degree > 1:
+            raise ValueError(
+                "sequence-parallel prefill (ShardedEngineConfig.sp > 1) "
+                "requires the split scheduler path — the unified round "
+                "packs decode/verify rows into the same stream the sp "
+                "program would shard, and decode stays TP by design "
+                "(set unified_round/async_rounds False)")
         self._uk1 = self._spec_k + 1  # the pinned readout width K + 1
         # verify regions take any packing on the card (K1 reads per-token
         # segments) and on the CPU: the reference's value off the TPU
@@ -730,15 +768,47 @@ class PagedGenerationServer:
         self._m_width = blocks_for(
             self.max_prompt_len + self.max_new + self._overrun,
             self.block_size)
+        dp = sharding.dp if sharding is not None else 1
         if num_blocks is None:  # worst case: every slot at full horizon
             spare = 1 if self.enable_prefix_cache else 0
-            num_blocks = self.max_slots * (self._m_width + spare) + 1
-        self.cache = PagedKVCache(
-            cfg.num_layers, cfg.num_heads, cfg.hidden_size // cfg.num_heads,
-            block_size=self.block_size, num_blocks=int(num_blocks),
-            dtype=dt, kv_dtype=kv_dtype, tier=tier, device=self.device)
-        self._decoder = PagedDecoder.for_config(cfg, self.block_size,
-                                                kv_dtype=kv_dtype)
+            # under dp each block group backs its own slots (and holds
+            # its own trash block)
+            per_group = -(-self.max_slots // dp)
+            num_blocks = dp * (per_group * (self._m_width + spare) + 1)
+        # the pool's block axis splits over dp: round up to a multiple
+        num_blocks = -(-int(num_blocks) // dp) * dp
+        pool_kw = dict(
+            num_layers=cfg.num_layers, num_heads=cfg.num_heads,
+            head_dim=cfg.hidden_size // cfg.num_heads,
+            block_size=self.block_size, num_blocks=num_blocks, dtype=dt,
+            kv_dtype=kv_dtype, tier=tier, device=self.device)
+        self.sharding = None
+        self._mesh = None
+        self._dist = None
+        self._slot_groups = None
+        if sharding is None:
+            self.cache = PagedKVCache(**pool_kw)
+            self._decoder = PagedDecoder.for_config(cfg, self.block_size,
+                                                    kv_dtype=kv_dtype)
+        else:
+            # this rank's params, pool slice and decoder (collective:
+            # every rank of the mesh constructs the server)
+            from ..serving_dist import apply_sharding
+
+            self._slot_groups = apply_sharding(self, sharding, cfg,
+                                               pool_kw).slot_groups
+        # graphs need a world of one (gloo collectives cannot be captured)
+        self._graphs_on = self.device.type == "cuda" and (
+            self._dist is None or not self._dist.multi)
+        # the sp peak-bytes high-water mark (host arithmetic)
+        self._sp_peak_bytes = 0
+        self._sp_bytes_kw = dict(
+            sp=self._sp_degree,
+            tp=sharding.tp if sharding is not None else 1,
+            num_heads=cfg.num_heads,
+            head_dim=cfg.hidden_size // cfg.num_heads,
+            kv_quant=kv_dtype == "int8",
+            itemsize=torch.tensor([], dtype=dt).element_size())
         # per-slot sampling state; the constructor's temperature is the
         # default for requests submitted without SamplingParams
         self._sp_store = SlotParamStore(self.max_slots, cfg.vocab_size,
@@ -1032,8 +1102,11 @@ class PagedGenerationServer:
     def stop(self):
         """Graceful shutdown: queued and resident futures fail with
         "server stopped" (no client hangs); their journal records stay
-        live, so a restarted server may still re-admit them."""
+        live, so a restarted server may still re-admit them. A sharded
+        server's rank 0 then releases its followers."""
         self._halt()
+        if self._dist is not None:
+            self._dist.close()
         with self._lock:
             pending = list(self._queue)
             self._queue.clear()
@@ -1055,6 +1128,18 @@ class PagedGenerationServer:
         round in flight is processed before the loop exits, so every
         token the host had received is journaled."""
         self._halt()
+        if self._dist is not None:
+            self._dist.close()
+
+    def serve_follower(self):
+        """Ranks above 0 of a sharded server: replay rank 0's dispatches
+        and pool operations on this rank's slices until rank 0 stops.
+        Returns {"dispatches": n, "digest": hex} — the digest folds in
+        every dispatch's tokens, equal on every rank."""
+        if self._dist is None or not self._dist.multi:
+            raise RuntimeError("serve_follower() needs a sharded server "
+                               "over more than one rank")
+        return self._dist.serve()
 
     # ---- stats -----------------------------------------------------------
     def _reset_window(self):
@@ -1106,6 +1191,9 @@ class PagedGenerationServer:
         self._prefetch_hits = 0
         self._prefetch_wasted = 0
         self._prefetch_overlap_s = 0.0
+        self._sp_peak_bytes = 0
+        if self._dist is not None:
+            self._dist.reset_wire_stats()
         # goodput-delta marks of the per-round SLO feed
         self._slo_good_mark = (0, 0)
         if self._sched is not None:
@@ -1286,6 +1374,10 @@ class PagedGenerationServer:
                 "tenant_queue_depth": ({} if self._sched is None
                                        else self._sched.tenant_depths()),
                 "frontdoor": self._frontdoor_stats_locked(),
+                # the mesh, and the TP collectives' wire bytes (zeroed
+                # schema when unsharded or tp = 1)
+                "sharding": self._sharding_stats(),
+                "collectives": self._collectives_stats(),
                 "wall_s": dt,
             }
         # the ledger and the SLO engine have their own locks
@@ -1298,6 +1390,61 @@ class PagedGenerationServer:
                      if self._slo is not None else []),
         }
         return out
+
+    def _sharding_stats(self):
+        """The stats()["sharding"] block: the config's shape when sharded,
+        the zeroed schema otherwise (no serving_dist import)."""
+        if self.sharding is None:
+            return {"enabled": False, "mesh_shape": {}, "tp_degree": 0,
+                    "dp_degree": 0, "sp_degree": 0,
+                    "collective_quant": "none", "sp_attention": "none",
+                    "sp_attention_bytes_peak": 0}
+        out = self.sharding.stats_block()
+        out["sp_attention_bytes_peak"] = self._sp_peak_bytes
+        out["graphs"] = ("on" if self._graphs_on
+                         else "off (world > 1: eager dispatches)"
+                         if self._dist.multi else "off (cpu)")
+        return out
+
+    def _collectives_stats(self):
+        """The stats()["collectives"] block: the window's wire bytes of
+        the TP collectives (zeros unsharded or at tp = 1)."""
+        cq = self._dist.shard.cq if self._dist is not None else None
+        wire = (self._dist.wire_stats() if self._dist is not None
+                else {"bytes_total": 0, "bytes_baseline": 0,
+                      "by_collective": {}})
+        return {
+            "enabled": cq is not None,
+            "mode": cq.mode if cq is not None else "none",
+            "tp": self.sharding.tp if self.sharding is not None else 1,
+            "bytes_total": wire["bytes_total"],
+            "bytes_baseline": wire["bytes_baseline"],
+            "by_collective": wire["by_collective"],
+        }
+
+    def _note_sp_peak(self, packed_tokens):
+        """The cross-rank fresh-K/V bytes this packed dispatch holds a sp
+        rank (host arithmetic): kept as a high-water mark, and for ring
+        and ulysses asserted under the chunk-length-independent bound
+        on every dispatch."""
+        from ..serving_dist.sp_attention import (sp_attention_flat_bound,
+                                                 sp_attention_peak_bytes)
+
+        mode = self._sp_attention
+        peak = sp_attention_peak_bytes(mode, int(packed_tokens),
+                                       **self._sp_bytes_kw)
+        if mode != "allgather":
+            kw = dict(self._sp_bytes_kw)
+            kw.pop("sp")
+            bound = sp_attention_flat_bound(mode, **kw)
+            if peak > bound:
+                raise AssertionError(
+                    f"sp_attention={mode!r}: dispatch peak {peak} B "
+                    f"exceeds the chunk-length-independent flat bound "
+                    f"{bound} B — the O(block) memory invariant broke")
+        if peak > self._sp_peak_bytes:
+            self._sp_peak_bytes = peak
+            _m_sp_peak_bytes.set(float(peak))
 
     def _frontdoor_stats_locked(self):
         """The stats()["frontdoor"] block; caller holds the lock."""
@@ -1729,7 +1876,7 @@ class PagedGenerationServer:
                 "warm_buckets must run before start() (the engine loop "
                 "owns the cache once it is running)")
         n = 0
-        if self.device.type == "cuda":
+        if self._graphs_on:
             dec = self._decoder
             c0 = dec.graphs.captures
             S, W, K1 = self.max_slots, self._uk1, self._uk1
@@ -2178,14 +2325,29 @@ class PagedGenerationServer:
         return None
 
     # ---- admission -------------------------------------------------------
-    def _outstanding_blocks(self):
-        """Blocks the resident slots may still demand in the worst case."""
+    def _outstanding_blocks(self, group=None):
+        """Blocks the resident slots (of block group `group`, or all) may
+        still demand in the worst case."""
         total = 0
-        for slot in self._slots:
-            if slot is not None:
+        for i, slot in enumerate(self._slots):
+            if slot is not None and (group is None
+                                     or self._group_of(i) == group):
                 held = self.cache.blocks_held(slot["seq"])
                 total += max(0, self._worst[slot["seq"]] - held)
         return total
+
+    def _group_of(self, i):
+        """The pool block group slot i allocates in (0 without dp)."""
+        return 0 if self._slot_groups is None else self._slot_groups[i]
+
+    def _room(self, i):
+        """Blocks the reservation can still promise a request in slot i:
+        its group's obtainable blocks less its residents' worst case."""
+        g = self._group_of(i)
+        if self._slot_groups is None:
+            return self.cache.available_block_count \
+                - self._outstanding_blocks()
+        return self.cache.available_in(g) - self._outstanding_blocks(g)
 
     def _worst_blocks(self, req):
         """Worst-case block reservation for `req` (prompt + budget + the
@@ -2208,6 +2370,8 @@ class PagedGenerationServer:
         seq = self._seq_counter
         self._seq_counter += 1
         self._worst[seq] = worst
+        if self._slot_groups is not None:
+            self.cache.set_seq_group(seq, self._group_of(i))
         tenant = req.meta.tenant if req.meta is not None else "default"
         if self._ledger is not None:
             # tag the sequence BEFORE any block is taken: every growth
@@ -2336,9 +2500,10 @@ class PagedGenerationServer:
                 continue
             req = self._queue[0]
             worst = self._worst_blocks(req)
-            if self.cache.available_block_count \
-                    - self._outstanding_blocks() < worst:
-                break
+            if self._room(i) < worst:
+                if self._slot_groups is None:
+                    break
+                continue  # dp: another group's idle slot may fit
             self._queue.pop(0)
             self._install_slot_locked(i, req, worst)
             admitted = True
@@ -2359,12 +2524,17 @@ class PagedGenerationServer:
             if req is None:
                 break
             worst = self._worst_blocks(req)
-            free_i = next((i for i, s in enumerate(self._slots)
-                           if s is None), None)
+
+            def pick():
+                # an idle slot, one whose block group fits if any does
+                idle = [i for i, s in enumerate(self._slots) if s is None]
+                return next((i for i in idle if self._room(i) >= worst),
+                            idle[0] if idle else None)
+
+            free_i = pick()
 
             def short():
-                return (self.cache.available_block_count
-                        - self._outstanding_blocks()) < worst
+                return self._room(free_i) < worst
 
             if free_i is None or short():
                 # (slot, resident, remaining tokens): the remaining
@@ -2378,8 +2548,7 @@ class PagedGenerationServer:
                     victim = self._preempt_slot_locked(j)
                     if victim is not None:
                         self._sched.requeue(victim, now)
-                    free_i = next((i for i, s in enumerate(self._slots)
-                                   if s is None), None)
+                    free_i = pick()
                     if free_i is not None and not short():
                         break
                 if free_i is None or short():
@@ -2572,7 +2741,8 @@ class PagedGenerationServer:
         prefill_chunk_tokens prompt tokens of the slots still feeding
         their prompts (slot order)."""
         align = self._pack_align
-        budget = self.prefill_chunk_tokens
+        # sp multiplies the chunk budget: each sp rank runs T/sp rows
+        budget = self.prefill_chunk_tokens * self._sp_degree
         plan = []  # (slot_idx, start, n, packed_offset)
         off = 0
         for i, cap in self._prefill_entries(pre_idx, budget):
@@ -2618,6 +2788,8 @@ class PagedGenerationServer:
             self._recorder.record(
                 "prefill_chunk", packed=int(T), rows=len(plan),
                 tokens=n_tok, free_blocks=self.cache.available_block_count)
+        if self._sp_degree > 1:
+            self._note_sp_peak(T)
         parts = self._attr_begin(
             (self._slots[i]["req"], n) for i, _start, n, _o in plan)
         t0 = time.perf_counter()
@@ -2743,7 +2915,7 @@ class PagedGenerationServer:
                         self._tensor(act), tables, self.cache.k_blocks,
                         self.cache.v_blocks, sp)
                 self._maybe_fault("decode")
-                if self.device.type == "cuda":  # one graph replay, any k
+                if self._graphs_on:  # one graph replay, any k
                     toks, stopped, _kc, _vc, counts = self._decoder.graphs(
                         k, mode, *args)
                     with self._lock:
@@ -2866,7 +3038,7 @@ class PagedGenerationServer:
                         self._tensor(plan.dlen), self.cache.k_blocks,
                         self.cache.v_blocks, sp)
                 self._maybe_fault("verify")
-                if self.device.type == "cuda":  # one graph replay
+                if self._graphs_on:  # one graph replay
                     vtok, acc, stopped, _kc, _vc, counts = \
                         self._decoder.graphs.verify(mode, *args)
                     with self._lock:
@@ -3217,7 +3389,7 @@ class PagedGenerationServer:
                         self._tensor(plan["steps_map"]), ct, cp, cs,
                         self.cache.k_blocks, self.cache.v_blocks, sp)
                 self._maybe_fault("unified_round")
-                if self.device.type == "cuda" and plan["window"]:
+                if self._graphs_on and plan["window"]:
                     (vtok, acc, stopped, _kc, _vc, counts, nct, ncp,
                      ncs) = self._decoder.graphs.unified(mode, *args)
                     with self._lock:

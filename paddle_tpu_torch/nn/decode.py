@@ -70,7 +70,21 @@ W8A16 one through `_LayerHelpers.matw`, as the reference's `matw`:
 on its output columns. The product stays a `torch.matmul`: the
 reference computes it in XLA, outside any Pallas kernel.
 
-Left out: every sharding argument.
+Sharded serving (`serving_dist`): `PagedDecoder(..., shard=...)` takes a
+rank's shard context (its mesh, the quantized-collective seams, the sp
+mode) and runs every program on the rank's slices. Attention and the
+pool hold H/tp heads; `_ShardedHelpers` sums the row-split out_proj and
+fc2 partials over mp (one all-reduce each, the bias added once after the
+sum; `collective_quant` routes it through the quantized wire), and with
+a vocabulary tp divides runs the vocab-parallel embedding (a masked
+gather and a sum) and head (the logits all-gathered before sampling, so
+every rank samples from the same logits; the greedy quantized path
+exchanges argmax pairs instead). With sp > 1 the packed trunk
+(`_sp_trunk`) runs each rank's T/sp rows: K/V are all-gathered over sp
+before the pool write (the pool is replicated over sp) and K1 runs on
+the rank's own rows with the global block tables, or the ring/ulysses
+attention of `serving_dist.sp_attention` takes the layer. Without a
+shard context every program is the unsharded one, unchanged.
 """
 from __future__ import annotations
 
@@ -119,6 +133,7 @@ class _LayerHelpers:
 
     def __init__(self, spec):
         self.L, self.H, self.Dh, self.E, self.eps, self.tied = spec
+        self.Ea = self.H * self.Dh  # the attention width (E unsharded)
 
     def ln(self, x, w, b):
         return F.layer_norm(x, (self.E,), w, b, self.eps)
@@ -138,7 +153,7 @@ class _LayerHelpers:
     def qkv_split(self, p, i, a):
         qkv = self.matw(p, f"h.{i}.qkv_proj.weight", a) \
             + p[f"h.{i}.qkv_proj.bias"]
-        q, k, v = torch.split(qkv, self.E, dim=-1)
+        q, k, v = torch.split(qkv, self.Ea, dim=-1)
         new = q.shape[:-1] + (self.H, self.Dh)
         return q.reshape(new), k.reshape(new), v.reshape(new)
 
@@ -164,14 +179,98 @@ class _LayerHelpers:
         return ((xf @ codes.T.to(dt))
                 * p["wte.weight::w8s"][None, :].to(dt)).float()
 
+    def matw_row(self, p, name, x):
+        """The row-split projections' product (out_proj, fc2): a plain
+        `matw` unsharded."""
+        return self.matw(p, name, x)
+
     def block_and_mlp(self, p, i, x, o):
-        x = x + self.matw(p, f"h.{i}.out_proj.weight", o) \
+        x = x + self.matw_row(p, f"h.{i}.out_proj.weight", o) \
             + p[f"h.{i}.out_proj.bias"]
         m = self.ln(x, p[f"h.{i}.ln_2.weight"], p[f"h.{i}.ln_2.bias"])
         hdn = F.gelu(self.matw(p, f"h.{i}.fc1.weight", m)
                      + p[f"h.{i}.fc1.bias"], approximate="tanh")
-        return x + self.matw(p, f"h.{i}.fc2.weight", hdn) \
+        return x + self.matw_row(p, f"h.{i}.fc2.weight", hdn) \
             + p[f"h.{i}.fc2.bias"]
+
+    def readout(self, params, xf, sp, mode, need_logits):
+        """Final layernorm, float32 head logits, the sampled tokens:
+        (tokens, logits)."""
+        xf = self.ln(xf, params["ln_f.weight"], params["ln_f.bias"])
+        logits = self.head(params, xf)
+        sampled, penalties = mode
+        return _proc.sample_tokens(logits, sp, sampled=sampled,
+                                   penalties=penalties), logits
+
+
+class _ShardedHelpers(_LayerHelpers):
+    """The helpers on one rank's slices (`serving_dist.plan.
+    shard_decode_params`): H/tp heads, the row-split products summed over
+    mp (bias after the sum), the vocab-parallel embedding and head when
+    tp divides the vocabulary. `shard` is the rank's context
+    (`serving_dist.engine.DecodeShard`): `mesh`, `tp`, `cq` (None or a
+    `CollectiveQuant`), `vocab_split`, `v_off`."""
+
+    def __init__(self, spec, shard):
+        super().__init__(spec)
+        self.shard = shard
+        self.H = self.H // shard.tp
+        self.Ea = self.H * self.Dh
+
+    def _psum(self, x):
+        from ..parallel import comm
+
+        return comm.all_reduce_(x.contiguous(), self.shard.mesh.group("mp"))
+
+    def matw_row(self, p, name, x):
+        cq = self.shard.cq
+        if cq is None:
+            return self._psum(self.matw(p, name, x))
+        codes = p.get(name + "::w8c")
+        if codes is None:
+            return cq.matmul_psum(x, p[name])
+        dt = x.dtype
+        return cq.matmul_psum(x, codes, cast=dt) * p[name + "::w8s"].to(dt)
+
+    def embed(self, p, t):
+        sh = self.shard
+        if not sh.vocab_split:
+            return super().embed(p, t)
+        codes = p.get("wte.weight::w8c")
+        dt = p["ln_f.weight"].dtype
+        if sh.cq is not None:
+            if codes is None:
+                return sh.cq.embed_psum(t, p["wte.weight"], sh.v_off, dt=dt)
+            return sh.cq.embed_psum(t, codes, sh.v_off,
+                                    scales=p["wte.weight::w8s"], dt=dt)
+        table = p["wte.weight"] if codes is None else codes
+        loc = t.long() - sh.v_off
+        ok = (loc >= 0) & (loc < table.shape[0])
+        idx = loc.clamp(0, table.shape[0] - 1)
+        rows = table[idx]
+        if codes is not None:
+            rows = rows.to(dt) * p["wte.weight::w8s"][idx][..., None].to(dt)
+        rows = torch.where(ok[..., None], rows, torch.zeros_like(rows))
+        return self._psum(rows)
+
+    def readout(self, params, xf, sp, mode, need_logits):
+        sh = self.shard
+        if not sh.vocab_split:
+            return super().readout(params, xf, sp, mode, need_logits)
+        from ..parallel import comm
+
+        xf = self.ln(xf, params["ln_f.weight"], params["ln_f.bias"])
+        local = self.head(params, xf)                   # [R, V/tp]
+        sampled, penalties = mode
+        if sh.cq is not None:
+            if not sampled and not penalties and not need_logits:
+                return sh.cq.greedy_tokens(local), None
+            logits = sh.cq.gather_logits(local)
+        else:
+            logits = torch.cat(comm.all_gather(local, sh.mesh.group("mp")),
+                               dim=-1)
+        return _proc.sample_tokens(logits, sp, sampled=sampled,
+                                   penalties=penalties), logits
 
 
 def _rep(t, n):
@@ -179,15 +278,6 @@ def _rep(t, n):
     `repeat_interleave` may read its repeat count back to the host."""
     return t.unsqueeze(1).expand(t.shape[0], n, *t.shape[1:]) \
         .reshape(t.shape[0] * n, *t.shape[1:])
-
-
-def _readout(hp, params, xf, sp, mode):
-    """Final layernorm, float32 head logits, the sampled tokens."""
-    xf = hp.ln(xf, params["ln_f.weight"], params["ln_f.bias"])
-    logits = hp.head(params, xf)
-    sampled, penalties = mode
-    return _proc.sample_tokens(logits, sp, sampled=sampled,
-                               penalties=penalties), logits
 
 
 class PagedDecoder:
@@ -202,7 +292,7 @@ class PagedDecoder:
     return_logits: the programs also return their float32 logits."""
 
     def __init__(self, spec, block_size, return_logits=False,
-                 kv_dtype=None):
+                 kv_dtype=None, shard=None):
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unknown kv_dtype {kv_dtype!r} "
                              "(supported: None, 'int8')")
@@ -211,7 +301,9 @@ class PagedDecoder:
         self.return_logits = bool(return_logits)
         self.kv_dtype = kv_dtype
         self._kv_quant = kv_dtype == "int8"
-        self._hp = _LayerHelpers(self.spec)
+        self._shard = shard
+        self._hp = (_LayerHelpers(self.spec) if shard is None
+                    else _ShardedHelpers(self.spec, shard))
         self._kv_write, self._kv_layer = _kv_io(self._kv_quant)
         self._scale = self.spec[2] ** -0.5
         self._graphs = None
@@ -273,11 +365,12 @@ class PagedDecoder:
                 s = (qh @ kh.transpose(-1, -2)).float() * self._scale
                 s = torch.where(kmask, s, -1e30)
                 w = torch.softmax(s, dim=-1).to(x.dtype)
-                o = (w @ vh).transpose(1, 2).reshape(B, S0, hp.E)
+                o = (w @ vh).transpose(1, 2).reshape(B, S0, hp.Ea)
                 x = hp.block_and_mlp(params, i, x, o)
             rows = torch.arange(B, device=dev)
             xf = x[rows, lens.long() - 1]                  # true last token
-            tok, logits = _readout(hp, params, xf, sp, mode)
+            tok, logits = hp.readout(params, xf, sp, mode,
+                                       self.return_logits)
             ones = torch.ones((B,), dtype=torch.bool, device=dev)
             stopped = _proc.check_stops(tok, sp["stop"], ones)
             counts = None
@@ -307,9 +400,9 @@ class PagedDecoder:
             vc = self._kv_write(vc, i, blk, off, v)
             o = paged_decode_attention(
                 q, self._kv_layer(kc, i), self._kv_layer(vc, i), tables,
-                ctx, scale=self._scale).reshape(B, hp.E)
+                ctx, scale=self._scale).reshape(B, hp.Ea)
             x = hp.block_and_mlp(params, i, x, o)
-        nxt, logits = _readout(hp, params, x, sp, mode)
+        nxt, logits = hp.readout(params, x, sp, mode, self.return_logits)
         nxt = torch.where(active, nxt, 0)
         stopped = _proc.check_stops(nxt, sp["stop"], active)
         counts = None
@@ -348,9 +441,59 @@ class PagedDecoder:
             vc = self._kv_write(vc, i, blk, off, v)
             o = ragged_prefill_attention(
                 q, self._kv_layer(kc, i), self._kv_layer(vc, i), tables,
-                seg, pos, scale=self._scale).reshape(T, hp.E)
+                seg, pos, scale=self._scale).reshape(T, hp.Ea)
             x = hp.block_and_mlp(params, i, x, o)
         return x, kc, vc
+
+    @torch.no_grad()
+    def _sp_trunk(self, params, toks, seg, pos, tables, kc, vc):
+        """The packed trunk sequence-parallel over the shard's sp ranks:
+        this rank embeds and projects its T/sp rows (T a multiple of sp);
+        K/V are all-gathered over sp and the whole stream written to the
+        rank's pool replica, then K1 runs on the rank's rows with the
+        global tables (or the ring/ulysses attention takes the layer).
+        Returns the whole hidden stream [T, E] (all-gathered over sp)."""
+        from ..parallel import comm
+
+        sh, hp, BS = self._shard, self._hp, self.block_size
+        T = toks.shape[0]
+        M = tables.shape[1]
+        n, j = sh.mesh.size("sp"), sh.mesh.axis_index("sp")
+        if T % n:
+            raise ValueError(f"sp trunk: stream length {T} is not a "
+                             f"multiple of sp={n}")
+        tl = T // n
+        rows = slice(j * tl, (j + 1) * tl)
+        group = sh.mesh.group("sp")
+        valid = pos >= 0
+        p0 = torch.where(valid, pos, 0).long()
+        col = (p0 // BS).clamp(max=M - 1)
+        blk = torch.where(valid, tables[seg.long(), col].long(), 0)
+        off = p0 % BS
+        x = hp.embed(params, toks[rows]) + params["wpe.weight"][p0[rows]]
+        starts = None
+        if sh.sp_attn is not None:
+            from ..serving_dist.sp_attention import segment_starts
+
+            starts = segment_starts(seg, pos, tables.shape[0])
+        for i in range(hp.L):
+            a = hp.ln(x, params[f"h.{i}.ln_1.weight"],
+                      params[f"h.{i}.ln_1.bias"])
+            q, k, v = hp.qkv_split(params, i, a)          # [T/sp, H, Dh]
+            if sh.sp_attn is not None:
+                o = sh.sp_attn(q, k, v, self._kv_layer(kc, i),
+                               self._kv_layer(vc, i), tables, seg, pos,
+                               starts)
+            else:
+                kc = self._kv_write(kc, i, blk, off,
+                                    torch.cat(comm.all_gather(k, group)))
+                vc = self._kv_write(vc, i, blk, off,
+                                    torch.cat(comm.all_gather(v, group)))
+                o = ragged_prefill_attention(
+                    q, self._kv_layer(kc, i), self._kv_layer(vc, i), tables,
+                    seg[rows], pos[rows], scale=self._scale)
+            x = hp.block_and_mlp(params, i, x, o.reshape(tl, hp.Ea))
+        return torch.cat(comm.all_gather(x, group)), kc, vc
 
     def packed_prefill(self, params, toks, seg, pos, tables, sample_idx,
                        kc, vc, sp, mode=GREEDY_MODE):
@@ -363,10 +506,13 @@ class PagedDecoder:
         `sp["row_done"]`, add to the counts of their slots,
         `sp["crows"]`)."""
         self._check_kv(kc, vc)
+        trunk = self._trunk
+        if self._shard is not None and self._shard.mesh.size("sp") > 1:
+            trunk = self._sp_trunk
         with torch.no_grad():
-            x, kc, vc = self._trunk(params, toks, seg, pos, tables, kc, vc)
-            tok, logits = _readout(self._hp, params, x[sample_idx.long()],
-                                   sp, mode)
+            x, kc, vc = trunk(params, toks, seg, pos, tables, kc, vc)
+            tok, logits = self._hp.readout(params, x[sample_idx.long()],
+                                           sp, mode, self.return_logits)
             ones = torch.ones(sample_idx.shape[0], dtype=torch.bool,
                               device=toks.device)
             stopped = _proc.check_stops(tok, sp["stop"], ones)
@@ -402,7 +548,7 @@ class PagedDecoder:
             o = verify_window_attention(
                 q.reshape(P, W, hp.H, hp.Dh), self._kv_layer(kc, i),
                 self._kv_layer(vc, i), tables, pos2,
-                scale=self._scale).reshape(T, hp.E)
+                scale=self._scale).reshape(T, hp.Ea)
             x = hp.block_and_mlp(params, i, x, o)
         return x, kc, vc
 
@@ -444,8 +590,8 @@ class PagedDecoder:
             spf["counts"] = (bc[:, None] + torch.cumsum(oh, dim=1,
                                                         dtype=torch.int32)
                              ).reshape(P * K1, V)
-        tok, logits = _readout(self._hp, params, x[si.reshape(-1)], spf,
-                               mode)
+        tok, logits = self._hp.readout(params, x[si.reshape(-1)], spf, mode,
+                                       self.return_logits)
         vtok = tok.reshape(P, K1)
         stopped = _proc.check_stops(tok, spf["stop"],
                                     _rep(row_valid, K1)).reshape(P, K1)

@@ -2484,3 +2484,57 @@ def test_fleet_zero3_and_sync_batchnorm_on_card_match_cpu(dev, tmp_path):
         assert card["chunk"] == cpu["chunk"] == (4, 6)
         assert card["staged"] > 0 and cpu["staged"] == 0, (card, cpu)
     np.testing.assert_array_equal(res[0]["cuda"]["w"], res[1]["cuda"]["w"])
+
+
+def _sharded_serving_rank(rank):
+    """A tp-2 sharded server (rank 0 plans, rank 1 follows) and, on rank
+    0, the unsharded server, both on the card, on the same prompts."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+    from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.serving_dist import ShardedEngineConfig
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = GPT2(GPT2Config.tiny(), seed=0, dtype=torch.float32,
+                 device="cuda")
+    rs = np.random.RandomState(3)
+    prompts = [rs.randint(1, 1024, (n,)).astype(np.int32)
+               for n in (5, 37, 9, 23)]
+    kw = dict(max_slots=2, block_size=8, max_prompt_len=64,
+              max_new_tokens=8, prefill_chunk_tokens=16)
+    kernels.reset_launch_counts()
+    srv = PagedGenerationServer(model, sharding=ShardedEngineConfig(tp=2),
+                                **kw)
+    if rank:
+        out = srv.serve_follower()
+    else:
+        srv.start()
+        out = {"outs": [f.result(timeout=120) for f in
+                        [srv.submit(p) for p in prompts]]}
+        srv.stop()
+        out.update(digest=srv._dist.digest(),
+                   graphs=srv.stats()["sharding"]["graphs"])
+    out["counts"] = kernels.launch_counts()
+    if rank == 0:
+        plain = PagedGenerationServer(model, **kw).start()
+        out["plain"] = [f.result(timeout=120) for f in
+                        [plain.submit(p) for p in prompts]]
+        plain.stop()
+    return out
+
+
+def test_sharded_server_on_card_matches_unsharded(dev, tmp_path):
+    """Two ranks sharing the card over gloo, tp 2: the tokens equal the
+    unsharded server's on the card (the tiny float32 GPT-2 has no near
+    tie on these prompts), both ranks' token digests are equal, every
+    dispatch is eager, and K1 and K2 launch on both ranks."""
+    from torch_dist_util import run_world
+    res = run_world(_sharded_serving_rank, 2, tmp_path)
+    for a, b in zip(res[0]["outs"], res[0]["plain"]):
+        np.testing.assert_array_equal(a, b)
+    assert res[0]["digest"] == res[1]["digest"]
+    assert res[0]["graphs"].startswith("off (world > 1")
+    for r in range(2):
+        c = res[r]["counts"]
+        assert c["ragged_stream_dense"] > 0 and c["paged_decode_dense"] > 0
