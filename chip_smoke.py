@@ -212,8 +212,8 @@ non-zero before the result line:
                simulated n-gram drafter over continuations recorded by the
                port's plain server, 8 slots, K 8, 64 new tokens, chunk
                512): speculation off, n-gram, replay, int8 pools off and
-               n-gram; then its unified axis (bench.py:1758-1800: 32
-               prompts of 64-256 tokens from RandomState(17), 128 new
+               n-gram; then its unified axis (bench.py:1758-1800: 16 of
+               its 32 prompts of 64-256 tokens from RandomState(17), 128 new
                tokens, chunk 256, Poisson arrivals at 8 x the split
                drain rate): split, unified sync, async. A warm, a
                measured and a profiled pass each: tokens/s, TTFT and ITL
@@ -477,6 +477,44 @@ non-zero before the result line:
                timeline has dispatch-track events; every request's causal
                trace tiles its wall clock and each preempted request's
                trace shows its requeue; 5f's wall time;
+  5m. the serving fleet (after 5f; `serving_fleet_phase`), GPT-2 small
+               in bf16 (phase 4f's weights) on phase 5's server with the
+               prefix cache on, phase 5's 16 prompts, the odd ones with
+               4s's sampling rows; every comparison against a fault-free
+               single server of the same call, tokens equal but for near
+               ties (greedy: phase 4f's rule; sampled: 5d's draw rule at
+               2 x BF16_DECODER_REL of the logits over the temperature).
+               (a) FleetRouter over 2 in-process replicas: a fault-free
+               pass (tokens/s beside the single server's and phase 5's k
+               = 1), then requests 0 and 1 hold their replicas' engines at
+               their second token while 2-7 are placed, and the seeded
+               replica_kill fires at placement M_KILL_AT (the gate opens
+               as the kill begins): failover sessions >= the killed
+               replica's mid-stream sessions, the ms from the kill to each
+               failed-over session's first token on the survivor (after
+               the killed engine stopped), K1/K2 launched. (b) a planned
+               migration of one live session (held at token
+               M_MIGRATE_AT until the export is queued), dense and int8
+               pools: the target's prefills unchanged and a resume, the
+               tokens equal, the dense wire bytes against the raw bytes
+               at the pool's width, the int8 payload bit for bit through
+               the wire codec, the export / wire / import ms. (c) three
+               worker subprocesses spawned in parallel on the card
+               (`RemoteReplica.spawn`, bf16 weights from an npz written to
+               a temporary directory, warm_buckets before the handshake;
+               spawn seconds), each one's K1/K2 counts read from its
+               /stats after the spawn: a pass of 8 requests on w0 and w1
+               with one live migration over the wire; then (d)
+               DisaggRouter from w0 (prefill) to w1 (decode), 4 requests:
+               handoffs >= 1, w1's K2 launches over the pass > 0; then a
+               pass of 4 requests on the victim wk and w0: wk runs
+               M_STALL_PLAN (it sleeps at its third dispatch), is found
+               holding >= 1 session mid-decode (0 < tokens < budget), and
+               is SIGKILLed: every session completes on w0. The K1 and K2
+               launches of w0 and w1 over the passes (their /stats less
+               the counts after the spawn) > 0, wk's K1 before the kill >
+               0; the workers are terminated on
+               the way out, also on a failure;
   4h. parallel training (after 6t), float32, TF32 off: 16 ranks spawned
                on the card (`hybrid_phase`; init_parallel_env resolves
                gloo: NCCL refuses two ranks on one device), each with a
@@ -528,7 +566,7 @@ non-zero before the result line:
                K6 and K9; amp: float32 masters, losses within
                BF16_DECODER_REL of float32, its ms a step beside the
                world of one's (2 ranks time-sharing one card: not a
-               multi-GPU number); (b) at 2 layers, B 4 x S 128: localsgd
+               multi-GPU number); (b) at 2 layers, B 2 x S 128: localsgd
                (copies differ after step 1, bitwise equal after step 2),
                dgc (residual non-zero, the loss falls), int8_allreduce
                (and the int8 all-reduce of the gradients within 2 max|g|
@@ -557,17 +595,18 @@ non-zero before the result line:
                sp 2 (4 ranks), allgather and ring, one D_LONG-token
                prompt over the D_CHUNKS sweep: tokens equal, ring's peak
                fresh-K/V bytes within `sp_attention_flat_bound`,
-               max_memory_allocated a rank; bf16: (e) tp 2 on phase 5's
-               traffic (warm pass, measured pass, rank 0 profiled):
+               max_memory_allocated a rank; bf16: (e) tp 2 on
+               D_E_PROMPTS of phase 5's prompts (warm pass, measured
+               pass, rank 0 profiled):
                tokens/s, TTFT, ITL, rank 0's idle share beside phase 5's
                k = 1 — ranks time-sharing one card over gloo: not a
                multi-GPU number; (d) tp 2 int8 collectives on 8 of the
                prompts, tokens equal (e)'s but for phase 4f's near ties,
                wire bytes <= D_WIRE_RATIO of the bf16 wire;
   7. the kernels line (JSON; each kernel's launches summed over the
-     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f, 4b, 4f,
-     4g, 6g (a), 6, 6b, 6c, 4t, 6t, 4h/6h's, 4k's and 5d's ranks ((a),
-     (b), (c)); the `ragged_stream_verify_*` rows
+     main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f,
+     5m ((a), (b) and the workers' /stats), 4b, 4f, 4g, 6g (a), 6, 6b,
+     6c, 4t, 6t, 4h/6h's, 4k's and 5d's ranks ((a), (b), (c)); the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
@@ -705,21 +744,25 @@ class Timer:
         for _ in range(warm):
             fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                self.flush.zero_()
-                fn()
-            torch.cuda.synchronize()
-        us = 0.0
-        for ev in prof.key_averages():
-            if ev.device_type == torch.autograd.DeviceType.CUDA \
-                    and pattern.search(ev.key):
-                us += getattr(ev, "self_device_time_total",
-                              getattr(ev, "self_cuda_time_total", 0))
-        if us <= 0:
-            fail(f"the profiler recorded no device time for {pattern.pattern}")
-        return us / 1e3 / reps
+        # a window whose kernel records the profiler lost (no key of the
+        # kernels at all) is profiled again, at most twice
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.zero_()
+                    fn()
+                torch.cuda.synchronize()
+            us = 0.0
+            for ev in prof.key_averages():
+                if ev.device_type == torch.autograd.DeviceType.CUDA \
+                        and pattern.search(ev.key):
+                    us += getattr(ev, "self_device_time_total",
+                                  getattr(ev, "self_cuda_time_total", 0))
+            if us > 0:
+                return us / 1e3 / reps
+        fail(f"the profiler recorded no device time for {pattern.pattern} "
+             f"in 3 windows")
 
 
 # ---- phase 3: kernel cases --------------------------------------------------
@@ -2853,7 +2896,7 @@ def shared_prefix_serving(torch, model, rng, card):
 V_P, V_K = 8, 8          # verify plan rows (8 slots) and draft budget (W 9)
 V_NEW = 16               # 5v (a) new tokens
 S_NEW, S_REQS, S_MP = 64, 16, 256       # 5v (b) speculation axis
-U_NEW, U_REQS, U_MP = 128, 32, 256      # 5v (b) unified axis
+U_NEW, U_REQS, U_MP = 128, 16, 256      # 5v (b) unified axis (of 32)
 
 
 def verify_case(torch, timer, quant, dtype, seed, timed):
@@ -5364,13 +5407,694 @@ def frontdoor_phase(torch, model, prompts, card):
     return counts
 
 
+# ---- phase 5m: the serving fleet on the card ---------------------------------
+
+# phase 5's server (prefix cache on) in every replica and worker
+M_SERVER = dict(max_slots=8, block_size=16, max_prompt_len=768,
+                max_new_tokens=32, prefill_chunk_tokens=512,
+                enable_prefix_cache=True)
+M_KILL_AT = 8       # (a): the replica_kill seam fires at this placement
+M_MIGRATE_AT = 4    # (b), (c): tokens a session streams before it moves
+M_TIMEOUT = 300.0   # a wait on a condition (s)
+# (c): the kill's victim sleeps at its third dispatch (slow_dispatch
+# occurrence 2, the only one this seed schedules; after its first prefill
+# and one more dispatch) until it is SIGKILLed, as the CPU twin's does
+M_STALL_PLAN = "seed=3,rate=0.5,horizon=3,slow=600,seams=slow_dispatch"
+
+
+def m_sampling(n):
+    """Phase 4s's sampling rows (SERVE_ROWS' sampled ones) on the odd
+    requests; the even ones greedy."""
+    from paddle_tpu_torch.sampling import SamplingParams
+
+    return [SamplingParams(**SERVE_ROWS[i % len(SERVE_ROWS)]) if i % 2
+            else None for i in range(n)]
+
+
+def m_wait(cond, what):
+    deadline = time.monotonic() + M_TIMEOUT
+    while not cond():
+        if time.monotonic() > deadline:
+            fail(f"phase 5m: {what} within {M_TIMEOUT:.0f} s")
+        time.sleep(0.002)
+
+
+def m_passes(torch, submit, prompts, sampling, passes):
+    """`passes` passes of `prompts` through `submit`; returns the last
+    pass's outputs and its tokens/s."""
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        outs = [f.result(timeout=600) for f in
+                [submit(p, sampling=s) for p, s in zip(prompts, sampling)]]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return outs, sum(o.size - p.size for o, p in zip(outs, prompts)) / wall
+
+
+def m_single(torch, model, prompts, sampling, passes=2, **kw):
+    """The fault-free single-server run of `prompts` (phase 5's server,
+    prefix cache on): a warm pass, then the measured one. Returns
+    (outputs, tokens/s)."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    srv = PagedGenerationServer(model, device=DEV, **dict(M_SERVER, **kw))
+    srv.warm_buckets()
+    srv.start()
+    try:
+        return m_passes(torch, srv.submit, prompts, sampling, passes)
+    finally:
+        srv.stop()
+
+
+def m_fleet(torch, model, prompts, sampling):
+    """The fault-free 2-replica fleet on the same traffic: a warm pass,
+    then the measured one. Each replica must have run prefill and decode
+    dispatches (K1 and K2 launches a dispatch, 12 each: phase 5 holds
+    that; the launch counters are the process's, shared by the
+    replicas). Returns (outputs, tokens/s, {replica: (prefill, decode
+    dispatches)})."""
+    from paddle_tpu_torch.fleet import FleetRouter
+
+    reps = m_replicas(model, 2)
+    router = FleetRouter(reps, probe_interval_s=30.0)
+    router.start()
+    try:
+        outs, tps = m_passes(torch, router.submit, prompts, sampling, 2)
+        per = {r.name: (r.server.stats()["prefill_dispatches"],
+                        r.server.stats()["decode_steps"]) for r in reps}
+    finally:
+        router.stop()
+    if min(min(v) for v in per.values()) <= 0:
+        fail(f"phase 5m (a): a replica ran no prefill or decode dispatch "
+             f"{per}")
+    return outs, tps, per
+
+
+def draw_replay(torch, cfg, params_cpu, a, b, start, sp, phase):
+    """The replay of a sampled row that two outputs `a`, `b` of one request
+    share up to their first difference i (the rules of 5m and 5d read it):
+    returns (i, the float32 CPU logits there after the request's
+    penalties, shape (1, V), and its Gumbel noise at step i - start,
+    shape (1, V), or None at temperature 0)."""
+    from paddle_tpu_torch.models.gpt2 import logits
+    from paddle_tpu_torch.sampling import prng
+    from paddle_tpu_torch.sampling import processors as proc
+
+    i = int(np.nonzero(a != b)[0][0])
+    if i < start:
+        fail(f"phase {phase}: two outputs differ inside the prompt")
+    with torch.no_grad():
+        lg = logits(params_cpu, cfg, torch.from_numpy(
+            a[:i].astype(np.int64))[None])[0, -1:]
+    if sp.uses_penalties:
+        counts = torch.from_numpy(np.bincount(
+            a[:i], minlength=cfg.vocab_size)[None].astype(np.int32))
+        lg = proc.apply_penalties(
+            lg, counts, torch.tensor([sp.repetition_penalty]),
+            torch.tensor([sp.presence_penalty]),
+            torch.tensor([sp.frequency_penalty]))
+    g = None
+    if sp.temperature > 0:
+        g = prng.gumbel(prng.fold_in_keys(
+            torch.tensor([sp.seed], dtype=torch.int64),
+            torch.tensor([i - start], dtype=torch.int32)), lg.shape[-1])
+    return i, lg, g
+
+
+def m_draw_tie(torch, cfg, params_cpu, a, b, start, sp):
+    """Two outputs of one sampled request that differ: True when at the
+    first difference each token is a draw that logits within phase 4f's
+    bf16 limit of the float32 CPU logits could give (each logit moved by
+    at most d = BF16_DECODER_REL x their largest magnitude; penalties,
+    temperature, the request's Gumbel noise: `draw_replay`): the token
+    can be inside the top-k / top-p / min-p set (its logit up by d, the
+    others down) and its draw value up by d reaches the draw value down
+    by d of a token that stays in the set however the logits move (its
+    logit down by d, the others up). A draw flipped by a filter's
+    boundary is such a tie; returns (tie, detail)."""
+    from paddle_tpu_torch.sampling import processors as proc
+
+    i, lg, g = draw_replay(torch, cfg, params_cpu, a, b, start, sp, "5m")
+    lg = lg[0]
+    d = BF16_DECODER_REL * lg.abs().max().item()
+    toks = (int(a[i]), int(b[i]))
+    if sp.temperature <= 0:
+        top = lg.max().item()
+        return all(top - lg[t].item() <= 2 * d for t in toks), (i, d)
+    eps = d / sp.temperature
+    sc = lg / sp.temperature
+    g = g[0]
+    filt = (torch.tensor([sp.top_k]), torch.tensor([sp.top_p]),
+            torch.tensor([sp.min_p]))
+
+    def kept(v, t):
+        return bool(proc.filter_logits(v[None], *filt)[0, t] > -np.inf)
+
+    def moved(t, up):
+        v = sc - eps if up else sc + eps
+        v[t] = sc[t] + eps if up else sc[t] - eps
+        return v
+
+    low = sc - eps + g
+    floor = -np.inf
+    for u in torch.argsort(low, descending=True)[:64].tolist():
+        if kept(moved(u, False), u):
+            floor = low[u].item()
+            break
+    reach = [kept(moved(t, True), t) and (sc[t] + eps + g[t]).item()
+             >= floor for t in toks]
+    return all(reach), (i, d, floor, [(sc[t] + g[t]).item()
+                                      for t in toks], reach)
+
+
+def m_same(torch, cfg, params_cpu, got, want, prompts, sampling, what,
+           ties):
+    """got == want request by request but for near ties: greedy rows by
+    phase 4f's rule (`near_tie_rule`), sampled rows by `m_draw_tie`; each
+    tie is appended to `ties`."""
+    for r, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g), np.asarray(w)
+        if np.array_equal(g, w):
+            continue
+        if g.shape != w.shape:
+            fail(f"phase 5m {what}: request {r} has {g.size} tokens, the "
+                 f"single server's {w.size}")
+        sp = sampling[r]
+        start = prompts[r].size
+        detail = ""
+        if sp is None:
+            tie = near_tie_rule(torch, params_cpu, cfg, g, w, start,
+                                phase=f"5m {what}")
+        else:
+            tie, detail = m_draw_tie(torch, cfg, params_cpu, g, w, start,
+                                     sp)
+        if not tie:
+            fail(f"phase 5m {what}: request {r} differs from the fault-free "
+                 f"single server beyond the near-tie rule {detail}")
+        ties.append((what, r, int(np.nonzero(g != w)[0][0])))
+
+
+def m_replicas(model, n, **kw):
+    from paddle_tpu_torch.fleet import Replica
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    reps = []
+    for i in range(n):
+        srv = PagedGenerationServer(model, device=DEV, **dict(M_SERVER, **kw))
+        srv.warm_buckets()
+        reps.append(Replica(f"m{i}", srv))
+    return reps
+
+
+def m_chaos(torch, model, prompts, sampling, want, params_cpu, ties):
+    """(a): FleetRouter over 2 in-process replicas. Requests 0 and 1 (one
+    a replica: least-loaded placement) each hold their replica's engine
+    at their second token (`f_hold`'s gate); once both are held the rest
+    are submitted, and the replica_kill seam fires at placement
+    M_KILL_AT, killing the replica chosen for it while its held session
+    is mid-stream (the gate opens as the kill begins; the killed engine
+    finishes its round, then stops). Returns (stats,
+    K1/K2 launches, kill -> first survivor token ms (min, max), tokens/s,
+    mid-stream sessions at the kill)."""
+    import threading
+
+    from paddle_tpu_torch.fleet import FleetRouter
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.reliability import FaultPlan
+
+    reps = m_replicas(model, 2)
+    router = FleetRouter(reps, probe_interval_s=0.2, fault_plan=FaultPlan(
+        [("replica_kill", M_KILL_AT)], name="5m-kill"))
+    times = [[] for _ in prompts]
+    go = threading.Event()
+    reached = [threading.Event(), threading.Event()]
+    kill = {}
+    plain_kill = router._kill_replica
+
+    def on_token(i):
+        def cb(_t, _r):
+            times[i].append(time.perf_counter())
+            if i < 2 and len(times[i]) == 2:
+                reached[i].set()
+                go.wait(60)
+        return cb
+
+    def timed_kill(rep, why="injected replica_kill"):
+        with router._lock:
+            kill["mid"] = sum(1 for s in router._sessions.values()
+                              if s.replica is rep and s.toks and not s.done)
+        kill["t"] = time.perf_counter()
+        go.set()
+        return plain_kill(rep, why)
+
+    def halted(rep):
+        plain = rep.kill
+
+        def run():
+            plain()  # the engine stops; its last round's tokens are out
+            kill["halted"] = time.perf_counter()
+        return run
+
+    for rep in reps:
+        rep.kill = halted(rep)
+    router._kill_replica = timed_kill
+    router.start()
+    try:
+        kernels.reset_launch_counts()                          # main path
+        t0 = time.perf_counter()
+        futs = []
+        for i, (p, sp) in enumerate(zip(prompts, sampling)):
+            if i == M_KILL_AT:
+                m_wait(lambda: all(e.is_set() for e in reached),
+                       "both replicas held at a session's second token")
+            futs.append(router.submit(p, sampling=sp, on_token=on_token(i)))
+        go.set()
+        outs = [f.result(timeout=600) for f in futs]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        st = router.stats()
+        sessions = list(router._sessions.values())
+    finally:
+        go.set()
+        router.stop()
+    if st["replica_kills"] != 1 or not kill or kill["mid"] < 1:
+        fail(f"phase 5m (a): the kill did not land mid-stream ({kill}, "
+             f"{st['replica_kills']} kills)")
+    if st["failovers"] < 1 or st["failover_sessions"] < kill["mid"]:
+        fail(f"phase 5m (a): {st['failover_sessions']} sessions failed "
+             f"over for {kill['mid']} mid-stream on the killed replica")
+    # a failed-over session's first token from the survivor: the first
+    # after the killed engine stopped (its last round's tokens precede it)
+    firsts = [next(t for t in times[i] if t > kill["halted"]) - kill["t"]
+              for i, s in enumerate(sessions) if s.failovers]
+    m_same(torch, model.cfg, params_cpu, outs, want, prompts, sampling,
+           "(a)", ties)
+    new = sum(o.size - p.size for o, p in zip(outs, prompts))
+    if counts["ragged_stream_dense"] <= 0 or \
+            counts["paged_decode_dense"] <= 0:
+        fail(f"phase 5m (a): K1/K2 launches {counts}")
+    return st, counts, (min(firsts) * 1e3, max(firsts) * 1e3), \
+        new / wall, kill["mid"]
+
+
+def m_migrate(torch, model, prompt, want, params_cpu, kv_dtype, ties):
+    """(b): one live session moved between two in-process replicas. It
+    holds its engine at its M_MIGRATE_AT-th token until `migrate_session`
+    (on another thread) has queued the export on the source engine, so
+    the export runs at the next round boundary, mid-stream; the export
+    (from the gate's opening), the wire round trip and the import are
+    timed inside `migrate_session`. Returns a dict of the numbers and the
+    K1/K2 launches."""
+    import threading
+
+    from paddle_tpu_torch.fleet import (FleetRouter, deserialize_kv_payload,
+                                        router as fleet_router,
+                                        serialize_kv_payload)
+    from paddle_tpu_torch.ops import kernels
+
+    reps = m_replicas(model, 2, kv_dtype=kv_dtype)
+    ms, seen = {}, {}
+    reached, go = threading.Event(), threading.Event()
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            t = max(t, seen.get("go", t)) if name == "export" else t
+            ms[name] = ms.get(name, 0.0) + (time.perf_counter() - t) * 1e3
+            if name == "export":
+                seen["payload"] = out[1]
+            return out
+        return run
+
+    for r in reps:
+        r.server.export_session = timed("export", r.server.export_session)
+        r.server.import_kv_payload = timed("import",
+                                           r.server.import_kv_payload)
+    plain = (fleet_router.serialize_kv_payload,
+             fleet_router.deserialize_kv_payload)
+    fleet_router.serialize_kv_payload = timed("wire", plain[0])
+    fleet_router.deserialize_kv_payload = timed("wire", plain[1])
+    router = FleetRouter(reps, probe_interval_s=30.0)
+    router.start()
+    try:
+        kernels.reset_launch_counts()                          # main path
+        n = [0]
+
+        def hold(_t, _r):
+            n[0] += 1
+            if n[0] == M_MIGRATE_AT:
+                reached.set()
+                go.wait(60)
+
+        fut = router.submit(prompt, on_token=hold)
+        m_wait(reached.is_set, "the session's first tokens")
+        rid = next(iter(router._sessions))
+        source = router._sessions[rid].replica
+        before = {r.name: r.server.stats()["prefills"] for r in reps}
+        moved = {}
+
+        def move():
+            t = time.perf_counter()
+            try:
+                moved["to"] = router.migrate_session(rid)
+            except KeyError as e:
+                moved["err"] = e
+            moved["ms"] = (time.perf_counter() - t) * 1e3
+
+        mover = threading.Thread(target=move)
+        mover.start()
+        m_wait(lambda: source.server._host_ops, "the export queued")
+        seen["go"] = time.perf_counter()
+        go.set()
+        mover.join(M_TIMEOUT)
+        if "to" not in moved:
+            fail(f"phase 5m (b): migrate_session failed: {moved}")
+        target = moved["to"]
+        ms["migrate"] = moved["ms"]
+        out = fut.result(timeout=600)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        tst = next(r for r in reps if r.name == target).server.stats()
+        st = router.stats()
+    finally:
+        go.set()
+        fleet_router.serialize_kv_payload, \
+            fleet_router.deserialize_kv_payload = plain
+        router.stop()
+    what = f"(b) {kv_dtype or 'dense'}"
+    if target == source.name or st["migrations"] != 1:
+        fail(f"phase 5m {what}: the session did not move ({target})")
+    if tst["prefills"] != before[target] or \
+            tst["frontdoor"]["resumes"] < 1:
+        fail(f"phase 5m {what}: the target prefilled "
+             f"{tst['prefills'] - before[target]} times, resumes "
+             f"{tst['frontdoor']['resumes']}")
+    m_same(torch, model.cfg, params_cpu, [out], [want], [prompt], [None],
+           what, ties)
+    payload = seen["payload"]
+    if payload is None:
+        fail(f"phase 5m {what}: the export carried no K/V")
+    wire = serialize_kv_payload(payload)
+    back = deserialize_kv_payload(wire)
+    res = {"ms": ms, "kv_tokens": len(payload["tokens"]),
+           "wire": len(wire), "counts": counts}
+    if kv_dtype == "int8":
+        for side in ("k", "v"):
+            for a, b in zip(payload[side], back[side]):
+                if not (np.array_equal(a.codes, b.codes)
+                        and np.array_equal(a.scales, b.scales)):
+                    fail("phase 5m (b) int8: the payload did not round-trip "
+                         "bit for bit")
+    else:
+        # the pool's own width (bf16 here) is the raw bytes' yardstick;
+        # the port's export carries bf16 as float32 (numpy has no bf16)
+        elems = sum(int(np.asarray(a).size)
+                    for a in payload["k"] + payload["v"])
+        res["raw_pool"] = elems * model.flat_params()[
+            "wte.weight"].element_size()
+        res["raw_f32"] = len(serialize_kv_payload(payload,
+                                                  wire_compress=False))
+    return res
+
+
+def m_spawn(cfg, names, npz, stall=()):
+    """Spawn one worker a name in parallel (phase 5's server, the bf16
+    weights from `npz`, on the card); the workers named in `stall` run
+    M_STALL_PLAN. Returns (replicas, spawn seconds each)."""
+    import dataclasses
+    from concurrent.futures import ThreadPoolExecutor
+
+    from paddle_tpu_torch.fleet import RemoteReplica
+
+    def one(name):
+        server = dict(M_SERVER)
+        if name in stall:
+            server["fault_plan"] = M_STALL_PLAN
+        t = time.perf_counter()
+        rep = RemoteReplica.spawn(name, {
+            "model": {"kind": "gpt2", "weights": npz, "dtype": "bfloat16",
+                      "config": dataclasses.asdict(cfg)},
+            "server": server}, keep_alive_on_stop=True,
+            startup_timeout_s=M_TIMEOUT)
+        return rep, time.perf_counter() - t
+
+    with ThreadPoolExecutor(max_workers=len(names)) as ex:
+        got = list(ex.map(one, names))
+    return [g[0] for g in got], [g[1] for g in got]
+
+
+def m_kernels(rep, base=(0, 0)):
+    """A worker's K1/K2 launches from its /stats since `base` (a worker
+    counts from its start: its warm-up's eager decode launches K2)."""
+    c = rep.server.stats()["kernel_launches"]
+    return (c["ragged_stream_dense"] - base[0],
+            c["paged_decode_dense"] - base[1])
+
+
+def m_workers(torch, model, prompts, sampling, want, params_cpu, ties,
+              tmp):
+    """(c) and (d): worker subprocesses on the card. (c) a live migration
+    over the wire within a pass of requests on w0 and w1, (d)
+    DisaggRouter from w0 (prefill) to w1 (decode), (c) a pass on the
+    victim wk and w0 in which wk, held mid-decode by M_STALL_PLAN, is
+    SIGKILLed: every session completes on w0. The victim is a third
+    worker because a stall plan counts dispatches from the worker's
+    start, and how many w1 runs in (c) and (d) depends on timing. Every
+    launch count is a delta over the passes from the counts read after
+    the spawn. Returns the numbers and the workers' K1/K2 launches."""
+    from paddle_tpu_torch.fleet import DisaggRouter, FleetRouter
+
+    npz = os.path.join(tmp, "gpt2_small_bf16_as_f32.npz")
+    np.savez(npz, **{k: v.float().cpu().numpy()
+                     for k, v in model.flat_params().items()})
+    workers, spawn_s = m_spawn(model.cfg, ["w0", "w1", "wk"], npz,
+                               stall=("wk",))
+    w0, w1, wk = workers
+    res = {"spawn_s": spawn_s}
+    try:
+        for w in workers:
+            ready, detail = w.readiness()
+            if not ready or not detail.get("warmed"):
+                fail(f"phase 5m (c): worker {w.name} not ready and warm "
+                     f"({detail})")
+        base = {w.name: m_kernels(w) for w in workers}
+        # (c) a pass with one live migration over the wire
+        idx = list(range(0, 8))
+        router = FleetRouter([w0, w1], probe_interval_s=0.5,
+                             journal=os.path.join(tmp, "c1.journal"))
+        router.start()
+        try:
+            n = [0]
+
+            def count(_t, _r):
+                n[0] += 1
+
+            futs = [router.submit(prompts[0], sampling=sampling[0],
+                                  on_token=count)]
+            m_wait(lambda: n[0] >= 1,
+                   "the first request's first token over the wire")
+            rid = next(iter(router._sessions))
+            t = time.perf_counter()
+            try:
+                moved = router.migrate_session(rid)
+            except KeyError:
+                fail("phase 5m (c): the session finished before the "
+                     "migration over the wire")
+            res["wire_migrate_ms"] = (time.perf_counter() - t) * 1e3
+            futs += [router.submit(prompts[i], sampling=sampling[i])
+                     for i in idx[1:]]
+            outs = [f.result(timeout=600) for f in futs]
+            st = router.stats()
+        finally:
+            router.stop()
+        if st["migrations"] != 1 or moved not in ("w0", "w1"):
+            fail(f"phase 5m (c): the live migration did not happen ({st})")
+        m_same(torch, model.cfg, params_cpu, outs, [want[i] for i in idx],
+               [prompts[i] for i in idx], [sampling[i] for i in idx],
+               "(c) migration", ties)
+        # (d) prefill on w0, decode on w1
+        idx = list(range(8, 12))
+        k2_before = m_kernels(w1, base["w1"])[1]
+        drouter = DisaggRouter([w0], [w1], handoff_poll_s=0.002,
+                               probe_interval_s=0.5,
+                               journal=os.path.join(tmp, "d.journal"))
+        drouter.start()
+        try:
+            outs = [f.result(timeout=600) for f in
+                    [drouter.submit(prompts[i], sampling=sampling[i])
+                     for i in idx]]
+            dst = drouter.stats()["disagg"]
+        finally:
+            drouter.stop()
+        m_same(torch, model.cfg, params_cpu, outs, [want[i] for i in idx],
+               [prompts[i] for i in idx], [sampling[i] for i in idx],
+               "(d) disagg", ties)
+        res["disagg"] = dst
+        res["w1"] = m_kernels(w1, base["w1"])
+        res["k2_decode"] = res["w1"][1] - k2_before
+        if dst["handoffs"] < 1 or dst["handoffs_failed"] or \
+                res["k2_decode"] <= 0:
+            fail(f"phase 5m (d): handoffs {dst}, the decode worker's K2 "
+                 f"launches {res['k2_decode']}")
+        # (c) the kill: the victim (first in placement order) stalls at
+        # its third dispatch until it is SIGKILLed
+        idx = list(range(12, 16))
+        router = FleetRouter([wk, w0], probe_interval_s=0.2,
+                             journal=os.path.join(tmp, "c2.journal"))
+        router.start()
+        try:
+            futs = [router.submit(prompts[i], sampling=sampling[i])
+                    for i in idx]
+
+            def held():
+                with router._lock:
+                    return [(s.rid, len(s.toks), s.budget)
+                            for s in router._sessions.values()
+                            if s.replica is wk and s.toks and not s.done]
+
+            m_wait(held, "a session held mid-decode on the victim")
+            res["wk"] = m_kernels(wk, base["wk"])
+            res["mid"] = held()
+            wk.kill()  # SIGKILL
+            outs = [f.result(timeout=600) for f in futs]
+            st = router.stats()
+        finally:
+            router.stop()
+        if not all(0 < n < budget for _rid, n, budget in res["mid"]):
+            fail(f"phase 5m (c): the victim's sessions were not mid-decode "
+                 f"at the kill ({res['mid']})")
+        if st["failover_sessions"] < len(res["mid"]):
+            fail(f"phase 5m (c): {st['failover_sessions']} sessions failed "
+                 f"over for {len(res['mid'])} on the killed worker")
+        m_same(torch, model.cfg, params_cpu, outs, [want[i] for i in idx],
+               [prompts[i] for i in idx], [sampling[i] for i in idx],
+               "(c) kill", ties)
+        res["w0"] = m_kernels(w0, base["w0"])
+        for name in ("w0", "w1"):
+            if min(res[name]) <= 0:
+                fail(f"phase 5m (c): worker {name} launched K1/K2 "
+                     f"{res[name]} times in the passes")
+        if res["wk"][0] <= 0:
+            fail(f"phase 5m (c): the victim streamed a token but launched "
+                 f"K1 {res['wk'][0]} times")
+    finally:
+        for w in workers:
+            w.terminate()
+    return res
+
+
+def serving_fleet_phase(torch, model, prompts, card, single_k1):
+    """Phase 5m (a)-(d); returns the K1/K2 launches of its main-path runs
+    (the in-process fleets' and the workers') and prints its lines."""
+    import gc
+    import shutil
+    import tempfile
+
+    t_all = time.perf_counter()
+    cfg = model.cfg
+    params_cpu = {k: v.float().cpu() for k, v in model.flat_params().items()}
+    sampling = m_sampling(len(prompts))
+    ties = []
+    counts = {}
+
+    def add(c):
+        for k, v in c.items():
+            if k.startswith(("ragged_stream", "paged_decode")):
+                counts[k] = counts.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    want, single_tps = m_single(torch, model, prompts, sampling)
+    outs, fleet_tps, per = m_fleet(torch, model, prompts, sampling)
+    m_same(torch, cfg, params_cpu, outs, want, prompts, sampling,
+           "(a) fault-free", ties)
+    st, c, (k_min, k_max), chaos_tps, mid = m_chaos(
+        torch, model, prompts, sampling, want, params_cpu, ties)
+    add(c)
+    say(f"phase 5m (a) FleetRouter over 2 in-process replicas (phase 5's "
+        f"server, prefix cache on), phase 5's 16 prompts x 32, the odd ones "
+        f"sampled (4s's rows): replica_kill at placement {M_KILL_AT} killed "
+        f"a replica holding {mid} mid-stream sessions; failovers "
+        f"{st['failovers']} failover_sessions {st['failover_sessions']}; "
+        f"every session == the fault-free single server's but for near "
+        f"ties ({len([t for t in ties if t[0] == '(a)'])}); kill -> first "
+        f"token on the survivor {k_min:.2f} ms (the last failed-over "
+        f"session's {k_max:.2f} ms); tokens_per_sec: the fault-free fleet "
+        f"{fleet_tps:.1f} (its tokens == the single server's but for near "
+        f"ties; prefill/decode dispatches a replica over both passes "
+        f"{per}), the single server {single_tps:.1f} (both a warm pass, then "
+        f"the measured one), phase 5's k=1 server {single_k1:.1f}, the "
+        f"chaos run {chaos_tps:.1f} (two engines held at a token, the kill "
+        f"and the failover inside its window); launches "
+        f"K1 {c['ragged_stream_dense']} K2 {c['paged_decode_dense']}; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    t0 = time.perf_counter()
+    want8, _ = m_single(torch, model, prompts[:1], [None], passes=1,
+                        kv_dtype="int8")
+    for kv, w in ((None, want[0]), ("int8", want8[0])):
+        r = m_migrate(torch, model, prompts[0], w, params_cpu, kv, ties)
+        add(r["counts"])
+        ms = r["ms"]
+        if kv is None:
+            size = (f"wire {r['wire']} B vs raw {r['raw_pool']} B at the "
+                    f"pool's bf16 width ({r['wire'] / r['raw_pool']:.3f}x; "
+                    f"the uncompressed npz as the port ships it, float32, "
+                    f"{r['raw_f32']} B)")
+        else:
+            size = f"wire {r['wire']} B, codes and scales bit for bit"
+        say(f"phase 5m (b) planned migration, {kv or 'dense'} pool, one "
+            f"{prompts[0].size}-token prompt moved after {M_MIGRATE_AT} "
+            f"tokens ({r['kv_tokens']} K/V tokens): the target's prefills "
+            f"did not move, tokens == the single server's; {size}; export "
+            f"{ms['export']:.2f} ms (a host op at the next round boundary) "
+            f"wire {ms['wire']:.2f} ms import {ms['import']:.2f} ms, "
+            f"migrate_session {ms['migrate']:.2f} ms [{card}]")
+    say(f"phase 5m (b): {time.perf_counter() - t0:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase5m_")
+    try:
+        r = m_workers(torch, model, prompts, sampling, want, params_cpu,
+                      ties, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name in ("w0", "w1", "wk"):
+        add({"ragged_stream_dense": r[name][0],
+             "paged_decode_dense": r[name][1]})
+    say(f"phase 5m (c) worker subprocesses on the card (python -m "
+        f"paddle_tpu_torch.fleet.transport, bf16 weights from an npz, "
+        f"warm_buckets before the handshake): spawn w0/w1/wk "
+        f"{', '.join(f'{s:.1f}' for s in r['spawn_s'])} s (in parallel); "
+        f"a live migration over the wire after the first token "
+        f"({r['wire_migrate_ms']:.1f} ms) inside 8 requests on w0 and w1; "
+        f"the victim wk held by its stall plan with {len(r['mid'])} "
+        f"mid-decode sessions (tokens {[n for _, n, _ in r['mid']]}) and "
+        f"SIGKILLed: every session completed on w0; tokens == the single "
+        f"server's but for near ties; K1/K2 launches over the passes by "
+        f"/stats (less the counts after the spawn) w0 "
+        f"{r['w0'][0]}/{r['w0'][1]} w1 {r['w1'][0]}/{r['w1'][1]}, wk "
+        f"before the kill {r['wk'][0]}/{r['wk'][1]} [{card}]")
+    d = r["disagg"]
+    say(f"phase 5m (d) DisaggRouter, prefill w0 -> decode w1, 4 requests: "
+        f"handoffs {d['handoffs']} (failed {d['handoffs_failed']}, "
+        f"finished early {d['handoffs_finished_early']}); tokens == the "
+        f"single server's; the decode worker's K2 launches {r['k2_decode']}"
+        f"; (c) + (d) {time.perf_counter() - t0:.1f} s [{card}]")
+    say(f"phase 5m: near ties {ties or 'none'}; "
+        f"{time.perf_counter() - t_all:.1f} s")
+    return counts
+
+
 # ---- phase 5d: sharded serving over torch.distributed -----------------------
 
 # the ranks share the card over gloo (NCCL refuses two ranks on one device);
 # GPT-2 small at full width and depth, phase 5's server shape
 D_CFG = {}                      # GPT2Config overrides (none on the card)
-D_NEW = 32                      # (a), (c)-(e): new tokens a request
+D_SERVE_NEW = 32                # (a), (c)-(e): new tokens a request
 D_FD_NEW = 24                   # (b): the front door's batch request
+D_E_PROMPTS = 8                 # (e): phase 5's prompts timed (of 16)
 D_LONG = 960                    # (c): the long prompt's tokens
 D_CHUNKS = (128, 256, 480)      # (c): prefill_chunk_tokens (x sp a dispatch)
 D_TIMEOUT = 420.0               # a world's hard limit (s)
@@ -5378,7 +6102,7 @@ D_TIMEOUT = 420.0               # a world's hard limit (s)
 # scale a chunk of E / tp lanes against two bytes a lane, 0.505 at E 768
 D_WIRE_RATIO = 0.55
 D_SERVER = dict(max_slots=8, block_size=16, max_prompt_len=768,
-                max_new_tokens=D_NEW, prefill_chunk_tokens=512)
+                max_new_tokens=D_SERVE_NEW, prefill_chunk_tokens=512)
 
 
 def _d_cfg(GPT2Config):
@@ -5530,7 +6254,8 @@ def _d_two(torch, dev, rank, out):
     del model
     model = GPT2(cfg, seed=0, dtype=torch.bfloat16, device=dev)
     t0 = time.perf_counter()
-    out["e"] = _d_serve(torch, model, prompts, None, tp2, rank, passes=2,
+    out["e"] = _d_serve(torch, model, prompts[:D_E_PROMPTS], None, tp2,
+                        rank, passes=2,
                         profile=DEV == "cuda")
     out["e_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5665,34 +6390,17 @@ def _d_reference(torch, model32):
 def _d_draw_tie(torch, cfg, params_cpu, a, b, start, sampling):
     """Two sampled outputs that differ: True when at the first difference
     both tokens' draw values (penalties, temperature, filters and the
-    request's Gumbel noise over the float32 CPU logits) lie within 4e-3
-    of the top draw — a near tie the summation order may break."""
-    from paddle_tpu_torch.models.gpt2 import logits
-    from paddle_tpu_torch.sampling import prng
+    request's Gumbel noise over the float32 CPU logits: `draw_replay`)
+    lie within 4e-3 of the top draw — a near tie the summation order may
+    break."""
     from paddle_tpu_torch.sampling import processors as proc
 
-    i = int(np.nonzero(a != b)[0][0])
-    if i < start:
-        fail("phase 5d: two outputs differ inside the prompt")
-    with torch.no_grad():
-        lg = logits(params_cpu, cfg, torch.from_numpy(
-            a[:i].astype(np.int64))[None])[0, -1:]
     sp = sampling
-    if sp.uses_penalties:
-        counts = torch.from_numpy(np.bincount(
-            a[:i], minlength=cfg.vocab_size)[None].astype(np.int32))
-        lg = proc.apply_penalties(
-            lg, counts, torch.tensor([sp.repetition_penalty]),
-            torch.tensor([sp.presence_penalty]),
-            torch.tensor([sp.frequency_penalty]))
-    z = lg
-    if sp.temperature > 0:
+    i, z, g = draw_replay(torch, cfg, params_cpu, a, b, start, sp, "5d")
+    if g is not None:
         z = proc.filter_logits(
-            lg / sp.temperature, torch.tensor([sp.top_k]),
-            torch.tensor([sp.top_p]), torch.tensor([sp.min_p])) \
-            + prng.gumbel(prng.fold_in_keys(
-                torch.tensor([sp.seed], dtype=torch.int64),
-                torch.tensor([i - start], dtype=torch.int32)), lg.shape[-1])
+            z / sp.temperature, torch.tensor([sp.top_k]),
+            torch.tensor([sp.top_p]), torch.tensor([sp.min_p])) + g
     z = z[0]
     top = z.max().item()
     return all(top - z[int(o[i])].item() <= 4e-3 for o in (a, b))
@@ -5793,7 +6501,8 @@ def sharded_phase(torch, card, unsharded_k1):
             st["decode_graph_replays"]:
         fail(f"phase 5d (a): a world of 2 replayed graphs "
              f"({st['sharding']['graphs']})")
-    say(f"phase 5d (a) tp 2 float32 GPT-2 small, 16 requests x {D_NEW} "
+    say(f"phase 5d (a) tp 2 float32 GPT-2 small, 16 requests x "
+        f"{D_SERVE_NEW} "
         f"(greedy, sampled, penalties: 4s's rows): tokens equal the "
         f"unsharded server's on the card "
         f"({sum(1 for t in ties if t[0] == '(a)')} near ties), every rank's "
@@ -5867,7 +6576,7 @@ def sharded_phase(torch, card, unsharded_k1):
                 for n in counts:
                     counts[n] += four[r][(mode, chunk)]["counts"][n]
     say(f"phase 5d (c) tp 2 x sp 2 (4 ranks), one {D_LONG}-token prompt x "
-        f"{D_NEW} greedy: tokens equal the unsharded server's in every "
+        f"{D_SERVE_NEW} greedy: tokens equal the unsharded server's in every "
         f"case; " + "; ".join(lines) + f"; {four[0]['c_s']:.1f} s")
     # (e) and (d)
     e, d = r0["e"], r0["d"]
@@ -5902,8 +6611,9 @@ def sharded_phase(torch, card, unsharded_k1):
             f"{1 - busy / e['wall']:.3f} (rank 0's kernels; the other "
             f"rank's share the card)")
     say(f"phase 5d (e) ranks time-sharing one card over gloo: not a "
-        f"multi-GPU number. tp 2 bf16 on phase 5's traffic (16 greedy "
-        f"requests x {D_NEW}): tokens_per_sec {est['tokens_per_sec']:.1f} "
+        f"multi-GPU number. tp 2 bf16 on {D_E_PROMPTS} of phase 5's "
+        f"prompts (greedy, x {D_SERVE_NEW}): tokens_per_sec "
+        f"{est['tokens_per_sec']:.1f} "
         f"ttft p50 {est['ttft_p50_ms']:.1f} ms itl p50 "
         f"{est['itl_p50_ms']:.2f} ms, idle share {idle}; the unsharded "
         f"server (phase 5 k=1, graphs) tokens_per_sec "
@@ -5924,7 +6634,7 @@ H_RING = (2, 12, 1024, 64)     # (a): B, H, S, D
 H_PP = (4, 256)                # (e): B, S
 H_MOE = (1024, 768, 3072, 4)   # (f): tokens, d_model, d_hidden, experts
 H_LR = 1e-4                    # (c): phase 4c's AdamW
-H_STEPS = 3                    # 6h: measured steps (after one warm step)
+H_STEPS = 2                    # 6h: measured steps (after one warm step)
 H_RANKS = 16
 H_TIMEOUT = 420.0              # the world's hard limit (s)
 H_SEED = 2024
@@ -6565,7 +7275,7 @@ def checks_hybrid(res, ref_loss, ref_losses):
 # ---- phase 4k: the fleet's strategy layer over torch.distributed ------------
 
 K_BATCH, K_SEQ = 4, 1024       # (a): the global batch of GPT-2 small
-K_SMALL = (4, 128)             # (b): B, S of the 2-layer full-width GPT-2
+K_SMALL = (2, 128)             # (b): B, S of the 2-layer full-width GPT-2
 K_LR = 1e-4                    # phase 4c's AdamW
 K_RANKS = 2
 K_TIMEOUT = 420.0              # the world's hard limit (s)
@@ -7770,8 +8480,10 @@ def main():
             f"ms, library (SDPA, gather excluded) {r['library_ms']:.4f} ms, "
             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}); share of the "
             f"bound {r['bound_ms'] / r['device_ms']:.3f} (device) [{card}]")
+    t_k = time.perf_counter() - t0
     model32 = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV)
     cases = graph_program_parity(torch, model32)
+    t_graph = time.perf_counter() - t0 - t_k
     say(f"phase 5v (a) graph vs eager, f32 GPT-2 small, 8 slots, K {V_K}: "
         f"packed_verify and the window round (carry chained) x dense/int8 x "
         f"greedy/sampled+penalties ({cases} cases): outputs, counts, carries "
@@ -7792,10 +8504,14 @@ def main():
                if rd["async"] else "") + f" [{card}]")
     del model32
     torch.cuda.empty_cache()
+    t_a = time.perf_counter() - t0 - t_k - t_graph
     launches, verify_launches, _cost = spec_serving(torch, model, card)
     for n, v in launches.items():
         main_counts[n] += v
-    say(f"phase 5v: {time.perf_counter() - t0:.1f} s")
+    t_all = time.perf_counter() - t0
+    say(f"phase 5v: {t_all:.1f} s ((k) {t_k:.1f} s, (a) graph vs eager "
+        f"{t_graph:.1f} s, (a) servers card and CPU {t_a:.1f} s, (b) "
+        f"{t_all - t_k - t_graph - t_a:.1f} s)")
 
     # phase 6g: offline generation in bf16 (phase 4f's weights). (a)
     # bench.py's decode axis through the dense graph and the paged
@@ -7844,6 +8560,12 @@ def main():
     # kernels line)
     for n, v in frontdoor_phase(torch, model, prompts, card).items():
         main_counts[n] += v
+
+    # phase 5m: the serving fleet (its in-process replicas' and the
+    # workers' K1/K2 launches join the kernels line)
+    for n, v in serving_fleet_phase(torch, model, prompts, card,
+                                    greedy_k1["tokens_per_sec"]).items():
+        main_counts[n] = main_counts.get(n, 0) + v
 
     del model
     torch.cuda.empty_cache()

@@ -215,11 +215,19 @@ def init_parallel_env(backend=None, init_method=None, rank=None,
     if world_size > 1:
         init_method = init_method or os.environ.get(
             "PADDLE_DIST_INIT_METHOD", "env://")
+        # the backend reads the local world from the environment; a join
+        # that fails leaves the environment as it found it
+        set_here = "PADDLE_TRAINERS_NUM" not in os.environ
         os.environ.setdefault("PADDLE_TRAINERS_NUM", str(world_size))
-        b = resolve_backend(backend, rank_device(device))
-        kw = {} if timeout is None else {"timeout": timeout}
-        dist.init_process_group(b, init_method=init_method, rank=rank,
-                                world_size=world_size, **kw)
+        try:
+            b = resolve_backend(backend, rank_device(device))
+            kw = {} if timeout is None else {"timeout": timeout}
+            dist.init_process_group(b, init_method=init_method, rank=rank,
+                                    world_size=world_size, **kw)
+        except BaseException:
+            if set_here:
+                del os.environ["PADDLE_TRAINERS_NUM"]
+            raise
     return ParallelEnv()
 
 

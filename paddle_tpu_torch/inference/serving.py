@@ -230,8 +230,18 @@ decode, verify and window dispatches run eagerly, not as graph replays
 `["collectives"]` (the wire bytes of the TP collectives) are the
 reference's blocks; an unsharded server never imports `serving_dist`.
 
-Left for later slices: the fleet hooks (`export_session`,
-`import_kv_payload`, `run_host_op`; ROADMAP §A 12).
+Fleet hooks (the reference's `paddle_tpu/inference/serving.py:
+2192-2315`; `paddle_tpu_torch.fleet` drives them): `run_host_op(fn)`
+runs `fn` on the engine thread at the next round boundary, the round in
+flight drained first (inline on a server not yet started; queued ops
+fail with "server stopped" on stop); `export_session(rid)` swaps a
+resident session out as a preemption does (or takes a queued one out of
+the queue), closes its journal entry as "migrated", charges the
+payload's bytes to its tenant as migration wire bytes and returns
+(journal entry, `export_prefix` payload); `import_kv_payload(payload,
+owner)` runs `import_prefix` as a host op. Under `sharding=` they run on
+rank 0 and the pool's `PoolMirror` gathers the export from the ranks and
+replays the import on them.
 
 GenerationServer (the reference's, `paddle_tpu/inference/serving.py:
 289-639`) batches requests for one compiled decode program: a
@@ -290,7 +300,7 @@ from ..sampling import SamplingParams, SlotParamStore
 from ..sampling.buffers import host_to_device
 from ..spec_decode import SpecConfig, build_verify_plan
 from .kv_cache import BlockPoolExhausted, PagedKVCache, blocks_for
-from .kv_tier import normalize_kv_tier
+from .kv_tier import normalize_kv_tier, payload_nbytes
 
 _logger = _obs_log.get_logger(__name__)
 
@@ -836,6 +846,8 @@ class PagedGenerationServer:
         self._pending = None
         self._carry = None
         self._zero_carry = None
+        # fleet host ops [(fn, Future)], run at the next round boundary
+        self._host_ops: list = []
         # recovery ladder state (outside the stats window)
         self._fault_streak: dict[str, int] = {}  # rid -> consecutive
         self._consec_failures = 0                # failing dispatches
@@ -2324,6 +2336,117 @@ class PagedGenerationServer:
                 return "stop_string"
         return None
 
+    # ---- fleet hooks -------------------------------------------------------
+    def _run_host_ops_locked(self):
+        """Run the queued host ops on the engine thread (the caller holds
+        the lock and has drained the round in flight): between round
+        boundaries nothing else touches the pool."""
+        ops, self._host_ops = self._host_ops, []
+        for fn, fut in ops:
+            try:
+                fut.set_result(fn())
+            except BaseException as e:  # noqa: BLE001 — the op's error
+                fut.set_exception(e)    # belongs to its caller
+
+    def _fail_host_ops_locked(self, exc):
+        ops, self._host_ops = self._host_ops, []
+        for _fn, fut in ops:
+            if not fut.done():
+                fut.set_exception(exc)
+
+    def run_host_op(self, fn, timeout=None):
+        """Run `fn()` on the engine thread at the next round boundary
+        (under the engine lock, any async round drained) and return its
+        result: the safe way for another thread to touch the pool's
+        tensors (migration export and import). On a server that has not
+        started, `fn` runs inline. Never call it from an engine callback
+        (on_token, the scheduler): that deadlocks."""
+        with self._lock:
+            if self._stop:
+                raise RuntimeError("server stopped")
+            if self._thread is None:
+                return fn()
+            f = Future()
+            self._host_ops.append((fn, f))
+            self._lock.notify()
+        return f.result(timeout=timeout)
+
+    def export_session(self, rid, include_kv=True):
+        """Planned-migration source hook: detach one request, resident
+        (swapped out as a preemption is, its live K/V published through
+        the prefix index when caching is on) or still queued, and return
+        `(entry, kv_payload)`. `entry` is the journal-shape resume state
+        `admit_journal_entry` re-admits on the target; `kv_payload` is
+        `PagedKVCache.export_prefix` of the swapped-out chain (None when
+        caching is off, the request never prefilled, or
+        include_kv=False): imported on the target, the session resumes
+        with no prefill recompute. The request's future here is
+        abandoned (the router owns the client's future) and its journal
+        entry closes with reason "migrated". Raises KeyError for an
+        unknown or finished rid."""
+        def out(req, payload):
+            ent = SessionJournal.entry_for(req)
+            if payload is not None and self._ledger is not None:
+                # migration wire bytes, charged at the source to the
+                # departing session's tenant
+                nbytes = (payload_nbytes(payload["k"])
+                          + payload_nbytes(payload["v"]))
+                tenant = req.meta.tenant if req.meta is not None \
+                    else "default"
+                self._ledger.charge_wire(nbytes, [(tenant, req.rid, 1)],
+                                         kind="migration")
+            if self._journal is not None:
+                self._journal.record_done(rid, "migrated")
+            if self._ledger is not None:
+                # the session leaves this replica: close its request
+                # view (the tenant's window totals stay)
+                self._ledger.request_done(rid)
+            self._recorder.record(
+                "migrate_out", request_id=rid, tokens_done=len(req.gen0),
+                kv_tokens=len(payload["tokens"]) if payload else 0,
+                **self._tr(req))
+            _tracing.event("migrate_out", request_id=rid,
+                           tokens_done=len(req.gen0), **self._tr(req))
+            return ent, payload
+
+        def op():
+            for i, s in enumerate(self._slots):
+                if s is not None and s["req"].rid == rid:
+                    req = self._preempt_slot_locked(i, why="migration")
+                    if req is None:
+                        break  # the drain finished it
+                    payload = None
+                    if include_kv and self.enable_prefix_cache:
+                        payload = self.cache.export_prefix(req.resume_ids)
+                    return out(req, payload)
+            req = None
+            if self._sched is not None:
+                hits = self._sched.expire(time.perf_counter(),
+                                          lambda r: r.rid == rid)
+                req = hits[0] if hits else None
+            else:
+                req = next((q for q in self._queue if q.rid == rid), None)
+                if req is not None:
+                    self._queue.remove(req)
+                    _m_queue_depth.labels(server="paged").set(
+                        len(self._queue))
+            if req is None:
+                raise KeyError(f"unknown or already-finished request "
+                               f"{rid!r} in export_session()")
+            return out(req, None)
+        return self.run_host_op(op)
+
+    def import_kv_payload(self, payload, owner=None):
+        """Planned-migration target hook: install an `export_prefix`
+        payload into this server's pool on the engine thread
+        (`run_host_op`), so the following `admit_journal_entry`
+        attaches it instead of prefilling. Returns the tokens imported;
+        raises BlockPoolExhausted when the pool cannot hold the chain
+        (the router then replays the journal). `owner` is the (tenant,
+        rid) the imported blocks' residency is charged to here."""
+        return self.run_host_op(
+            lambda: self.cache.import_prefix(payload, owner=owner))
+
     # ---- admission -------------------------------------------------------
     def _outstanding_blocks(self, group=None):
         """Blocks the resident slots (of block group `group`, or all) may
@@ -2569,6 +2692,7 @@ class PagedGenerationServer:
             _logger.exception("paged serving loop died")
             with self._lock:
                 self._stop = True
+                self._fail_host_ops_locked(e)
                 reqs = [s["req"] for s in self._slots if s is not None]
                 reqs += self._queue
                 self._queue.clear()
@@ -2581,6 +2705,12 @@ class PagedGenerationServer:
             with self._lock:
                 stop = self._stop
                 if not stop:
+                    if self._host_ops:
+                        # migration exports and imports run here, with
+                        # the round in flight processed first: its
+                        # write-back cannot overwrite an import
+                        self._drain_pending()
+                        self._run_host_ops_locked()
                     if self._any_timeouts:
                         self._expire_timeouts_locked(time.perf_counter())
                     self._admit_locked()
@@ -2592,6 +2722,9 @@ class PagedGenerationServer:
                 # async: resolve the round in flight, so no future is
                 # left waiting on tokens the device already computed
                 self._drain_pending()
+                with self._lock:
+                    self._fail_host_ops_locked(
+                        RuntimeError("server stopped"))
                 return
             if idle:
                 self._drain_pending()

@@ -6,8 +6,8 @@ of tests/test_capacity.py.
 runs on the reference's module and the port's and must give the same
 snapshots. The served cases use the port's PagedGenerationServer and
 FrontDoor on GPT-2 tiny (the reference's float32 weights); the fleet
-case federates two port engines' snapshots and a dead source directly
-(the router that does it in production is ROADMAP §A 12)."""
+cases federate two port engines' snapshots and a dead source, directly
+and through the port's `FleetRouter.capacity()` with a replica killed."""
 import importlib
 import json
 import urllib.error
@@ -347,3 +347,53 @@ class TestFederatedEngines:
             for s in srvs:
                 s.stop()
         assert isinstance(PressureSignals({}).sample(), dict)
+
+
+class TestFleetCapacity:
+    def test_federated_snapshot_tolerates_dead_replica(self, tiny):
+        """The router's /capacity payload: the fleet schema over both
+        replicas, then a killed replica's slot degrades to its error
+        entry while the survivor answers; the same slots and aggregate
+        keys as the reference router's."""
+        from paddle_tpu.fleet import FleetRouter as JRouter
+        from paddle_tpu.fleet import Replica as JReplica
+        from paddle_tpu.inference import PagedGenerationServer as JServer
+
+        from paddle_tpu_torch.fleet import FleetRouter, Replica
+
+        ref, cfg, port = tiny
+        kw = dict(max_slots=1, block_size=4, max_prompt_len=16,
+                  max_new_tokens=2)
+        rs = np.random.RandomState(4)
+        p = rs.randint(1, cfg.vocab_size, (5,)).astype(np.int32)
+        feds = []
+        for router in (
+                FleetRouter([Replica("r0", _port_server(port, **kw)),
+                             Replica("r1", _port_server(port, **kw))]),
+                JRouter([JReplica("r0", JServer(ref, **kw)),
+                         JReplica("r1", JServer(ref, **kw))])):
+            router.start()
+            try:
+                router.submit(p).result(timeout=300)
+                fed = router.capacity()
+                assert fed["schema_version"] == FLEET_SCHEMA_VERSION
+                assert set(fed["replicas"]) == {"r0", "r1"}
+                for snap in fed["replicas"].values():
+                    assert snap["schema_version"] == 1
+                assert fed["aggregate"]["replicas_ok"] == 2
+                assert fed["aggregate"]["num_blocks_total"] > 0
+                router.replicas[1].kill()
+                dead = router.capacity()
+                assert dead["replicas"]["r0"]["schema_version"] == 1
+                assert "error" in dead["replicas"]["r1"]
+                assert "dead" in dead["replicas"]["r1"]["error"]
+                feds.append((fed, dead))
+            finally:
+                router.stop()
+        (fed, dead), (jfed, jdead) = feds
+        assert sorted(fed["aggregate"]) == sorted(jfed["aggregate"])
+        assert sorted(fed["replicas"]["r0"]) == \
+            sorted(jfed["replicas"]["r0"])
+        assert dead["replicas"]["r1"] == jdead["replicas"]["r1"]
+        assert dead["aggregate"]["replicas_error"] == \
+            jdead["aggregate"]["replicas_error"] == 1

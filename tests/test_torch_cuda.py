@@ -76,7 +76,12 @@ ranks than cards raises; a CUDA all-to-all staged through host memory
 gives the CPU all-to-all's bits. The fleet: two ranks' ZeRO-3 step (its
 reduce-scatter and all-gather staged through the host) and
 SyncBatchNorm on the card give the CPU world's numbers within 1e-5 of
-their magnitude.
+their magnitude. The serving fleet's engine hooks on a card pool, dense
+and int8: `run_host_op` runs on the engine thread, `export_session`
+swaps a held session out mid-stream and `import_kv_payload` installs it
+in a second server (an int8 payload's blocks equal bit for bit after the
+import, also through the wire codec); the target resumes with no
+prefill, launches K1 and K2, and gives the one-server run's tokens.
 
 Marked `cuda`: every test skips without a card (decided inside the
 fixture, never at import). Run on the card with
@@ -2330,6 +2335,103 @@ def test_decode_after_preemption_replays_not_captures(dev):
     assert caps0 == 1
     assert st["decode_graph_captures"] == caps0
     assert st["decode_graph_replays"] == st["decode_steps"] > 0
+
+
+# ---- the serving fleet's engine hooks on the card ----------------------------
+
+def _fleet_server(model, dev, kv_dtype):
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    return PagedGenerationServer(model, max_slots=2, block_size=16,
+                                 max_prompt_len=64, max_new_tokens=24,
+                                 enable_prefix_cache=True,
+                                 kv_dtype=kv_dtype, device=dev)
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8"])
+def test_fleet_hooks_migrate_a_session_between_card_pools(dev, kv_dtype):
+    """float32 (TF32 off): a session held at its third token is exported
+    from one server's card pool and imported into another's; the target
+    resumes it with no prefill (its decode launches K2 over the imported
+    blocks), then prefills a prompt extending the migrated sequence (K1
+    reads the imported chain through the block table), and both give an
+    uninterrupted server's tokens. An int8 payload's blocks equal the
+    exported ones bit for bit in the target pool (through the wire codec
+    too)."""
+    import threading
+    import time
+
+    from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                        serialize_kv_payload)
+    from paddle_tpu_torch.ops import kernels
+
+    _cfg, model = _spec_model(dev, torch.float32)
+    prompt = np.random.RandomState(51).randint(1, 1000, 37).astype(
+        np.int32)
+    ref_srv = _fleet_server(model, dev, kv_dtype).start()
+    try:
+        want = ref_srv.submit(prompt, max_new_tokens=20).result(timeout=300)
+        want2 = ref_srv.submit(want, max_new_tokens=4).result(timeout=300)
+    finally:
+        ref_srv.stop()
+    src = _fleet_server(model, dev, kv_dtype)
+    assert src.run_host_op(lambda: 7) == 7  # not started: inline
+    seen, reached, go = [], threading.Event(), threading.Event()
+
+    def hold(tok, _reason):
+        seen.append(tok)
+        if len(seen) == 3:
+            reached.set()
+            go.wait(60)
+
+    src.start()
+    try:
+        src.submit(prompt, max_new_tokens=20, on_token=hold, rid="m")
+        assert reached.wait(300)
+        box = {}
+        t = threading.Thread(target=lambda: box.update(
+            r=src.export_session("m"),
+            thread=src.run_host_op(threading.get_ident)))
+        t.start()
+        deadline = time.monotonic() + 60
+        while not src._host_ops and time.monotonic() < deadline:
+            time.sleep(0.001)
+        go.set()
+        t.join(120)
+        assert box["thread"] == src._thread.ident
+        with pytest.raises(KeyError):
+            src.export_session("m")
+    finally:
+        src.stop()
+    ent, payload = box["r"]
+    assert len(ent["gen0"]) >= 3 and payload is not None
+    dst = _fleet_server(model, dev, kv_dtype)
+    wire = deserialize_kv_payload(serialize_kv_payload(payload))
+    kernels.reset_launch_counts()
+    dst.start()
+    try:
+        assert dst.import_kv_payload(wire) == len(payload["tokens"])
+        if kv_dtype == "int8":
+            back = dst.run_host_op(
+                lambda: dst.cache.export_prefix(payload["tokens"]))
+            for side in ("k", "v"):
+                for a, b in zip(payload[side], back[side]):
+                    np.testing.assert_array_equal(a.codes, b.codes)
+                    np.testing.assert_array_equal(a.scales, b.scales)
+        out = dst.admit_journal_entry(ent).result(timeout=300)
+        st = dst.stats()
+        resumed = kernels.launch_counts()
+        out2 = dst.submit(out, max_new_tokens=4).result(timeout=300)
+    finally:
+        dst.stop()
+    counts = kernels.launch_counts()
+    name = "int8" if kv_dtype == "int8" else "dense"
+    np.testing.assert_array_equal(out, want)
+    np.testing.assert_array_equal(out2, want2)
+    assert st["prefills"] == 0 and st["prefill_dispatches"] == 0
+    assert st["frontdoor"]["resumes"] >= 1
+    assert resumed[f"paged_decode_{name}"] > 0
+    assert counts[f"ragged_stream_{name}"] > 0
 
 
 # ---- parallel training: ranks sharing the card over gloo ---------------------

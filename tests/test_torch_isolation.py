@@ -89,7 +89,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                                    "hybrid_params_from_reference",
                                    "init_moe_params", "fleet.init",
                                    "init_opt_state", "PSEmbedding",
-                                   "SyncBatchNorm", "optimizer.step"])
+                                   "SyncBatchNorm", "optimizer.step",
+                                   "fleet.build_worker_server"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
@@ -103,6 +104,7 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     from paddle_tpu_torch.parallel.moe import init_moe_params
 
     from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.fleet.transport import build_worker_server
     from paddle_tpu_torch.distributed.ps import PSEmbedding
     from paddle_tpu_torch.nn import SyncBatchNorm
     from paddle_tpu_torch.optimizer import SGD
@@ -160,6 +162,12 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "PSEmbedding": lambda **kw: PSEmbedding(10, 4, **kw),
         "SyncBatchNorm": lambda **kw: SyncBatchNorm(3, **kw),
         "optimizer.step": lambda **kw: stateful_step(**kw),
+        "fleet.build_worker_server": lambda **kw: build_worker_server(
+            dict({"model": {"seed": 0, "config": {
+                "vocab_size": 32, "hidden_size": 32, "num_layers": 1,
+                "num_heads": 2, "max_position": 16}},
+                "server": {"max_slots": 1, "block_size": 4,
+                           "max_new_tokens": 2}}, **kw)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
@@ -181,3 +189,66 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.paged_decode(q, pool, pool, tab, lens, 1.0)
     with pytest.raises(ValueError, match="CUDA kernel"):
         kernels.ragged_stream(q, pool, pool, tab, lens, lens, 1.0)
+
+
+def test_fleet_package_imports_neither_jax_nor_reference():
+    """`paddle_tpu_torch.fleet` (the serving fleet) and its worker module
+    alone leave JAX and the JAX package out of sys.modules."""
+    code = (
+        "import sys\n"
+        "import paddle_tpu_torch.fleet, paddle_tpu_torch.fleet.transport\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('OK')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.startswith("OK")
+
+
+def test_spawned_worker_imports_neither_jax_nor_reference(tmp_path):
+    """A fleet worker as `RemoteReplica.spawn` starts it (its module run
+    as __main__) serves a request, shuts down on /shutdown, and then
+    lists its sys.modules: neither JAX nor the JAX package is there."""
+    import json
+
+    import numpy as np
+
+    from paddle_tpu_torch.fleet import RemoteReplica
+    from paddle_tpu_torch.models.gpt2 import GPT2, GPT2Config
+
+    cfg = dict(vocab_size=64, hidden_size=32, num_layers=1, num_heads=2,
+               max_position=32, dropout=0.0)
+    weights = tmp_path / "w.npz"
+    np.savez(weights, **{k: v.numpy() for k, v in GPT2(
+        GPT2Config(**cfg), device="cpu").flat_params().items()})
+    listing = tmp_path / "modules.json"
+    # spawn runs `<python> -m paddle_tpu_torch.fleet.transport --config
+    # <file>`; this launcher runs the same module as __main__ with the
+    # same --config and writes sys.modules at exit
+    launcher = tmp_path / "python_with_exit_listing"
+    launcher.write_text(
+        "#!/bin/sh\n"
+        f"exec {sys.executable} -c 'import atexit, json, runpy, sys\n"
+        f"atexit.register(lambda: json.dump(sorted(sys.modules), "
+        f"open(\"{listing}\", \"w\")))\n"
+        "sys.argv = [\"transport\"] + sys.argv[3:]\n"
+        "runpy.run_module(\"paddle_tpu_torch.fleet.transport\", "
+        "run_name=\"__main__\")' \"$@\"\n")
+    launcher.chmod(0o755)
+    rep = RemoteReplica.spawn("iso0", {
+        "model": {"kind": "gpt2", "weights": str(weights), "config": cfg},
+        "server": {"max_slots": 1, "block_size": 4, "max_prompt_len": 8,
+                   "max_new_tokens": 2},
+        "device": "cpu"}, python=str(launcher), keep_alive_on_stop=True)
+    try:
+        out = rep.server.submit(np.array([1, 2, 3], np.int32)).result(
+            timeout=120)
+        assert out.size == 5
+    finally:
+        rep.terminate()
+    mods = json.loads(listing.read_text())
+    assert "paddle_tpu_torch.fleet.transport" in mods
+    bad = [m for m in mods if _forbidden(m)]
+    assert not bad, bad

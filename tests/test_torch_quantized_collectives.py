@@ -18,9 +18,11 @@ points (tp 4, tp 2 x dp 2, int4-group, the split path, none == plain)
 run here as ordinary cases: the port's side is cheap, and each is held
 to the reference run the reference test itself compares with.
 
-Left out: TestMigrationWireCompression (test_quantized_collectives.py:
-516-590), which needs `fleet.migration`, the serving fleet of ROADMAP
-§A 12, not yet ported.
+TestMigrationWireCompression (test_quantized_collectives.py:516-590)
+holds the port's `fleet.migration` codec on payloads the port's server
+exported: dense payloads compress under the absmax/254 gate, int8 pools
+ship bit-exactly, non-finite content ships raw, and the reference's
+decoder reads the port's bytes to the same arrays as the port's.
 """
 import numpy as np
 import pytest
@@ -608,3 +610,119 @@ class TestStatsAndMetrics:
         after = got["after"]
         assert after["bytes_total"] == after["bytes_baseline"] == 0
         assert after["enabled"] is True
+
+
+# ---- TestMigrationWireCompression -------------------------------------------
+
+def _served_payload(port, **kw):
+    """The export_prefix payload of a 20-token prompt the port's server
+    (device="cpu") served: test_quantized_collectives.py's server."""
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    srv = PagedGenerationServer(port, device="cpu", max_slots=1,
+                                block_size=8, max_prompt_len=32,
+                                max_new_tokens=4, enable_prefix_cache=True,
+                                **kw).start()
+    try:
+        ids = np.arange(2, 22).astype(np.int32)
+        srv.submit(ids).result(timeout=600)
+        payload = srv.cache.export_prefix(ids)
+    finally:
+        srv.stop()
+    assert payload is not None
+    return payload
+
+
+@pytest.fixture(scope="module")
+def dense_payload(tiny):
+    return _served_payload(tiny[2])
+
+
+class TestMigrationWireCompression:
+    """The compressed KV wire: dense export payloads ship int8 codes and
+    scales, int8 pools ship bit-exactly, the tolerance gate falls back to
+    raw on non-finite content."""
+
+    def test_dense_payload_compresses(self, dense_payload):
+        from paddle_tpu.fleet import deserialize_kv_payload as j_de
+
+        from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                            serialize_kv_payload)
+
+        payload = dense_payload
+        wire = serialize_kv_payload(payload)
+        raw = serialize_kv_payload(payload, wire_compress=False)
+        assert len(wire) < 0.5 * len(raw), (len(wire), len(raw))
+        back = deserialize_kv_payload(wire)
+        assert back["tokens"] == payload["tokens"]
+        assert back["fills"] == payload["fills"]
+        jback = j_de(wire)
+        for side in ("k", "v"):
+            for orig, rt, jrt in zip(payload[side], back[side],
+                                     jback[side]):
+                x = np.asarray(orig, np.float32)
+                amax = np.abs(x).max(axis=-1, keepdims=True)
+                assert rt.dtype == orig.dtype
+                assert (np.abs(np.asarray(rt, np.float32) - x)
+                        <= amax * (1 / 254.0 * 1.0001 + 1e-6)
+                        + 1e-12).all()
+                np.testing.assert_array_equal(rt, jrt)
+
+    def test_raw_format_still_roundtrips(self, dense_payload):
+        from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                            serialize_kv_payload)
+
+        back = deserialize_kv_payload(
+            serialize_kv_payload(dense_payload, wire_compress=False))
+        for orig, rt in zip(dense_payload["k"], back["k"]):
+            np.testing.assert_array_equal(np.asarray(orig), rt)
+
+    def test_int8_pool_payload_bit_exact(self, tiny):
+        from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                            serialize_kv_payload)
+
+        payload = _served_payload(tiny[2], kv_dtype="int8")
+        back = deserialize_kv_payload(serialize_kv_payload(payload))
+        for side in ("k", "v"):
+            for orig, rt in zip(payload[side], back[side]):
+                np.testing.assert_array_equal(orig.codes, rt.codes)
+                np.testing.assert_array_equal(orig.scales, rt.scales)
+
+    def test_tolerance_gate_ships_raw_on_nonfinite(self, dense_payload):
+        from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                            serialize_kv_payload)
+
+        bad = dict(dense_payload)
+        k0 = np.asarray(dense_payload["k"][0], np.float32).copy()
+        k0[0, 0, 0, 0] = np.inf
+        bad["k"] = [k0] + list(dense_payload["k"][1:])
+        back = deserialize_kv_payload(serialize_kv_payload(bad))
+        assert np.isinf(np.asarray(back["k"][0])[0, 0, 0, 0])
+
+    def test_empty_payload_passthrough(self):
+        from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                            serialize_kv_payload)
+
+        assert serialize_kv_payload(None) == b""
+        assert deserialize_kv_payload(b"") is None
+
+    def test_migration_bytes_counted(self, dense_payload):
+        from paddle_tpu_torch.fleet import (deserialize_kv_payload,
+                                            serialize_kv_payload)
+        from paddle_tpu_torch.observability import metrics
+
+        was = metrics.enabled()
+        metrics.enable()
+        try:
+            wire = serialize_kv_payload(dense_payload)
+            deserialize_kv_payload(wire)
+            lines = dict(line.rsplit(" ", 1) for line in
+                         metrics.to_prometheus().splitlines()
+                         if line.startswith("fleet_migration_bytes"))
+            for d in ("export", "import"):
+                key = f'fleet_migration_bytes_total{{direction="{d}"}}'
+                assert float(lines[key]) == len(wire), lines
+        finally:
+            if not was:
+                metrics.disable()
+            metrics.REGISTRY.reset()

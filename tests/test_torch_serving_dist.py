@@ -255,6 +255,54 @@ def _pool_ops_rank(rank, model):
     return out
 
 
+HOOKS = dict(max_slots=1, block_size=8, max_prompt_len=64,
+             max_new_tokens=16, enable_prefix_cache=True)
+
+
+def _hooks_rank(rank, model, tp2):
+    """The fleet hooks on a tp-2 server (ranks 0 and 1): rank 0 holds a
+    request at its third token, queues `export_session` (a host op: the
+    engine thread swaps the session out and the pool's mirror gathers
+    both ranks' heads), then lets the engine reach its round boundary;
+    rank 1 follows. Returns (run_host_op's value, the entry, the
+    payload, the tokens streamed before the export)."""
+    import threading
+    import time
+
+    from paddle_tpu_torch.inference import PagedGenerationServer
+
+    srv = PagedGenerationServer(model, device="cpu", sharding=tp2, **HOOKS)
+    if rank:
+        return srv.serve_follower()
+    seen, reached, go = [], threading.Event(), threading.Event()
+
+    def cb(tok, _reason):
+        seen.append(int(tok))
+        if len(seen) == 3:
+            reached.set()
+            go.wait(60)
+
+    srv.start()
+    try:
+        srv.submit(_prompts(model.cfg.vocab_size)[1], max_new_tokens=12,
+                   on_token=cb, rid="mig")
+        assert reached.wait(60)
+        box = {}
+        t = threading.Thread(
+            target=lambda: box.update(r=srv.export_session("mig")))
+        t.start()
+        deadline = time.monotonic() + 60
+        while not srv._host_ops and time.monotonic() < deadline:
+            time.sleep(0.001)
+        go.set()
+        t.join(60)
+        value = srv.run_host_op(lambda: 41 + 1)
+    finally:
+        srv.stop()
+    ent, payload = box["r"]
+    return value, ent, payload, list(seen)
+
+
 def _world(rank, flat):
     from paddle_tpu_torch.observability import metrics
     from paddle_tpu_torch.serving_dist import (ShardedEngineConfig,
@@ -285,6 +333,11 @@ def _world(rank, flat):
             srv.stop()
         else:
             srv.serve_follower()
+    else:
+        tp2.build_mesh()
+    # the fleet hooks on the tp-2 server
+    if rank < 2:
+        out["hooks"] = _hooks_rank(rank, model, tp2)
     else:
         tp2.build_mesh()
     # per-shard bytes and gauges at tp 4
@@ -676,6 +729,41 @@ class TestMeshParity:
                         want[1]["k"] + want[1]["v"]):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                        rtol=0, atol=1e-5)
+
+    def test_fleet_hooks_export_into_an_unsharded_server(self, tiny,
+                                                         world):
+        """A session exported mid-stream from the tp-2 server (rank 0's
+        `export_session`, the payload gathered from both ranks) imports
+        into an unsharded server and resumes there with no prefill: the
+        tokens equal the unsharded run's."""
+        from paddle_tpu_torch.inference import PagedGenerationServer
+
+        port = tiny[2]
+        prompt = _prompts(tiny[1].vocab_size)[1]
+        value, ent, payload, seen = world[0]["hooks"]
+        assert value == 42
+        assert ent["rid"] == "mig" and len(ent["gen0"]) >= 3
+        assert ent["gen0"][:3] == seen[:3]
+        assert payload["tokens"] == list(prompt) + ent["gen0"][:len(
+            payload["tokens"]) - prompt.size]
+        want_srv = PagedGenerationServer(port, device="cpu", **HOOKS)
+        want_srv.start()
+        try:
+            want = want_srv.submit(prompt, max_new_tokens=12).result(
+                timeout=120)
+        finally:
+            want_srv.stop()
+        srv = PagedGenerationServer(port, device="cpu", **HOOKS)
+        assert srv.import_kv_payload(payload) == len(payload["tokens"])
+        srv.start()
+        try:
+            out = srv.admit_journal_entry(ent).result(timeout=120)
+            st = srv.stats()
+        finally:
+            srv.stop()
+        np.testing.assert_array_equal(out, want)
+        assert st["prefills"] == 0
+        assert st["frontdoor"]["resumes"] >= 1
 
     def test_preempt_resume_parity(self, tiny, world):
         """Preempt-then-resume through the sharded pool: both requests

@@ -5,9 +5,9 @@ The engine is host Python with explicit clocks: every scenario runs on
 the reference's `SLOEngine` and the port's and must give the same
 evaluation, state for state and number for number. The served cases run
 the port's PagedGenerationServer on GPT-2 tiny (the reference's float32
-weights) with the ops endpoint, and the replica-scoped cases stand in
-for the fleet router's degrade hook (the router itself is ROADMAP §A 12)
-with the engine's `trace_name`, which stamps every SLO observation."""
+weights) with the ops endpoint; the replica-scoped cases hold the
+engine's `trace_name` stamp on every SLO observation, and the port's
+`FleetRouter` runs the degrade hook over them (TestRouterDegradeHook)."""
 import importlib
 import json
 import urllib.error
@@ -341,7 +341,7 @@ class TestEngineIntegration:
 class TestReplicaScope:
     """The SLO half of the fleet router's degrade hook: replica-scoped
     objectives page on their replica's traffic only (the router that
-    reads `paging` to mark a replica not-ready is ROADMAP §A 12)."""
+    reads `paging` to mark a replica not-ready: TestRouterDegradeHook)."""
 
     def test_replica_scoped_paging_names_only_the_culprit(self):
         def run(m):
@@ -397,4 +397,78 @@ class TestReplicaScope:
         assert by["wide"]["events_slow"] == 3
         assert by["av"]["events_slow"] == 3
         assert by["other"]["events_slow"] == 0
+        assert rep["worst"] == "ok"
+
+
+class TestRouterDegradeHook:
+    def test_sustained_replica_page_marks_not_ready(self, tiny):
+        import time
+
+        from paddle_tpu_torch.fleet import FleetRouter, Replica
+
+        _ref, port = tiny
+        reps = [Replica(f"r{i}", _server(port, enable_prefix_cache=True))
+                for i in range(2)]
+        router = FleetRouter(
+            reps, probe_interval_s=30.0,
+            slos=[SLO("ttft", 0.9, threshold_s=0.5, window_s=60.0,
+                      fast_window_s=6.0, min_events=5,
+                      replica="r0", name="r0_ttft"),
+                  SLO("ttft", 0.9, threshold_s=0.5, window_s=60.0,
+                      fast_window_s=6.0, min_events=5,
+                      name="fleet_ttft")],
+            slo_degrade_sustain_s=2.0)
+        router.start()
+        try:
+            now = time.monotonic()
+            for i in range(40):  # r0 burns its budget; r1 unobserved
+                router._slo.observe("ttft", value_s=9.0,
+                                    now=now + i * 0.1, replica="r0")
+            router.check_replicas(now=now + 4.0)   # page_since set
+            assert reps[0].health.state != "not_ready"
+            router.check_replicas(now=now + 6.5)   # sustained: fires
+            assert reps[0].health.state == "not_ready"
+            assert reps[1].health.state == "ok"
+            assert router.stats()["slo"] == {"enabled": True,
+                                             "degraded_replicas": ["r0"]}
+            rep = router.slo_report()
+            assert rep["degraded_replicas"] == ["r0"]
+            # the fleet-wide SLO pages too but degrades nobody
+            assert {r["name"] for r in rep["slos"]
+                    if r["state"] == "page"} == {"r0_ttft", "fleet_ttft"}
+            out = router.submit(np.array([4, 2], np.int32),
+                                max_new_tokens=2).result(timeout=300)
+            assert out.size == 4
+            assert router._sessions and all(
+                s.replica is reps[1] for s in router._sessions.values())
+            # the burn clears (windows age out): the next pass releases it
+            router.check_replicas(now=now + 300.0)
+            router.check_replicas(now=now + 330.0)
+            assert reps[0].health.state == "ok"
+            assert router.stats()["slo"]["degraded_replicas"] == []
+        finally:
+            router.stop()
+
+    def test_router_feeds_ttft_and_availability(self, tiny):
+        from paddle_tpu_torch.fleet import FleetRouter, Replica
+
+        _ref, port = tiny
+        router = FleetRouter(
+            [Replica("r0", _server(port, enable_prefix_cache=True))],
+            probe_interval_s=30.0,
+            slos=[SLO("ttft", 0.9, threshold_s=120.0, min_events=2,
+                      name="wide"),
+                  SLO("availability", 0.9, min_events=2, name="av")])
+        router.start()
+        try:
+            futs = [router.submit(np.array([3, 5, 7], np.int32))
+                    for _ in range(3)]
+            for f in futs:
+                f.result(timeout=300)
+            rep = router.slo_report()
+        finally:
+            router.stop()
+        by = {r["name"]: r for r in rep["slos"]}
+        assert by["wide"]["events_slow"] == 3
+        assert by["av"]["events_slow"] == 3
         assert rep["worst"] == "ok"

@@ -5,8 +5,8 @@ on the CPU: twins of tests/test_timeline.py.
 The event shaping runs on the reference's module and the port's over
 the same stream and must give the same trace events. The served cases
 run the port's PagedGenerationServer on GPT-2 tiny (the reference's
-float32 weights); the fleet case lays two named port engines out the
-way the fleet router does (the router itself is ROADMAP §A 12)."""
+float32 weights); the fleet cases lay two named port engines out by
+hand and through the port's `FleetRouter.export_timeline`."""
 import importlib
 import json
 
@@ -153,3 +153,28 @@ class TestServingExport:
         assert len(set(pid_of.values())) == len(pid_of)
         x_procs = {e["pid"] for e in doc["traceEvents"] if e["ph"] == "X"}
         assert {pid_of["r0"], pid_of["r1"]} <= x_procs
+
+    def test_fleet_export_lays_replicas_on_own_processes(self, tiny,
+                                                         tmp_path):
+        from paddle_tpu_torch.fleet import FleetRouter, Replica
+
+        reps = [Replica(f"r{i}", _server(tiny, enable_prefix_cache=True))
+                for i in range(2)]
+        router = FleetRouter(reps).start()
+        try:
+            futs = [router.submit(np.array([3 + i, 5, 7], np.int32))
+                    for i in range(4)]
+            for f in futs:
+                f.result(timeout=300)
+        finally:
+            router.stop()
+        path = tmp_path / "fleet.json"
+        n = router.export_timeline(str(path))
+        doc = json.loads(path.read_text())
+        assert n > 0
+        procs = {e["args"]["name"] for e in doc["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "process_name"}
+        assert procs & {"r0", "r1"}
+        pid_of = {e["args"]["name"]: e["pid"] for e in doc["traceEvents"]
+                  if e["ph"] == "M" and e["name"] == "process_name"}
+        assert len(set(pid_of.values())) == len(pid_of)

@@ -1,7 +1,7 @@
 """The port's causal tracing (paddle_tpu_torch/observability/
 trace_context.py and the paged server's trace stamps) on the CPU: twins
-of the single-engine cases of tests/test_trace_fleet.py (the failover
-and migration cases wait for the fleet, ROADMAP §A 12).
+of tests/test_trace_fleet.py, its fleet cases on the port's
+`paddle_tpu_torch.fleet`.
 
   * `TraceContext` equals the reference's: the same fields, the same
     dict form, the same stamps.
@@ -12,6 +12,10 @@ and migration cases wait for the fleet, ROADMAP §A 12).
   * A journal written by the reference's server, whose entry carries
     meta and a trace context, is recovered by the port's server into
     the same trace and the same tenant.
+  * Across a fleet: a replica killed mid-stream leaves one tree per
+    request spanning both replicas (hops admit, failover), and a planned
+    migration links the source hop to the target hop; the tokens are
+    the reference fleet's.
 A crash lands at a fixed token by an on_token callback that waits until
 the engine is stopped: nothing here leans on a wall-clock margin."""
 import threading
@@ -306,3 +310,117 @@ class TestJournalRecovery:
                if e.get("trace_id") == ctx.trace_id]
         assert evs, "the recovered request lost its trace"
         assert {(e["hop"], e["cause"]) for e in evs} == {(1, "retry")}
+
+
+# ---- the fleet ------------------------------------------------------------
+
+def _fleet_work(sp):
+    return [(np.array([3, 5, 7, 9], np.int32), {}),
+            (np.array([1, 2, 3], np.int32),
+             {"sampling": sp(temperature=0.8, top_p=0.9, seed=77)}),
+            (np.array([8, 8, 1, 4, 2], np.int32), {}),
+            (np.array([6, 6, 6], np.int32), {})]
+
+
+def _replica(port, name, **kw):
+    from paddle_tpu_torch.fleet import Replica
+
+    return Replica(name, _server(port, enable_prefix_cache=True, **kw))
+
+
+def _ref_fleet_run(ref, work, **kw):
+    """The reference fleet's uninterrupted run (one replica)."""
+    from paddle_tpu.fleet import FleetRouter, Replica
+    from paddle_tpu.inference import PagedGenerationServer
+
+    router = FleetRouter([Replica("ref", PagedGenerationServer(
+        ref, enable_prefix_cache=True, **_kw(kw)))]).start()
+    try:
+        futs = [router.submit(ids, **k) for ids, k in work]
+        return [f.result(timeout=300) for f in futs]
+    finally:
+        router.stop()
+
+
+class TestFleetCausalTree:
+    """One tree spanning both replicas, phases tiling the wall clock, hops
+    in order."""
+
+    def test_failover_assembles_one_tree_across_replicas(self, tiny):
+        from paddle_tpu.sampling import SamplingParams as JSP
+
+        from paddle_tpu_torch.fleet import FleetRouter
+        from paddle_tpu_torch.sampling import SamplingParams
+
+        want = _ref_fleet_run(tiny[0], _fleet_work(JSP))
+        tracing.reset()
+        work = _fleet_work(SamplingParams)
+        plan = FaultPlan([("replica_kill", 2)], name="chaos-kill")
+        reps = [_replica(tiny[1], f"r{i}") for i in range(2)]
+        router = FleetRouter(reps, fault_plan=plan, probe_interval_s=0.2)
+        router.start()
+        try:
+            futs = [router.submit(ids, **kw) for ids, kw in work]
+            outs = [f.result(timeout=300) for f in futs]
+            st = router.stats()
+        finally:
+            router.stop()
+        assert st["replica_kills"] == 1
+        assert st["failover_sessions"] >= 1
+        for a, b in zip(outs, want):
+            np.testing.assert_array_equal(a, b)
+        recs = assemble_causal_traces()
+        assert len(recs) == len(work)
+        failed_over = [r for r in recs.values() if r["n_hops"] > 1]
+        assert failed_over, "no multi-hop trace despite a failover"
+        for rec in failed_over:
+            assert rec["tree"]["name"] == "request"
+            assert rec["complete"]
+            assert [h["hop"] for h in rec["hops"]] == \
+                list(range(rec["n_hops"]))
+            assert rec["causes"][0] == "admit"
+            assert set(rec["causes"][1:]) == {"failover"}
+            assert len(set(rec["replicas"])) > 1
+            for prev, nxt in zip(rec["hops"], rec["hops"][1:]):
+                assert nxt["from_replica"] == prev["replica"]
+            assert check_tiling(rec) < TILE_TOL_MS
+            for hop in rec["hops"]:
+                assert sum(c["dur"] for c in hop["children"]) == \
+                    pytest.approx(hop["dur"], abs=TILE_TOL_MS * 1e-3)
+        for rec in recs.values():
+            assert check_tiling(rec) < TILE_TOL_MS
+
+    def test_migration_hops_link_source_to_target(self, tiny):
+        from paddle_tpu_torch.fleet import FleetRouter
+
+        prompt = np.array([3, 5, 7, 9, 11, 2], np.int32)
+        (want,) = _ref_fleet_run(tiny[0], [(prompt, {"max_new_tokens": 20})],
+                                 max_new_tokens=24)
+        tracing.reset()
+        reps = [_replica(tiny[1], f"r{i}", max_new_tokens=24)
+                for i in range(2)]
+        router = FleetRouter(reps)
+        router.start()
+        try:
+            first = threading.Event()
+            fut = router.submit(prompt, max_new_tokens=20,
+                                on_token=lambda t, r: first.set())
+            assert first.wait(timeout=120)
+            rid = next(iter(router._sessions))
+            source = router._sessions[rid].replica
+            target_name = router.migrate_session(rid)
+            out = fut.result(timeout=300)
+        finally:
+            router.stop()
+        np.testing.assert_array_equal(out, want)
+        recs = assemble_causal_traces()
+        (rec,) = [r for r in recs.values() if r["request_id"] == rid]
+        assert rec["n_hops"] == 2
+        assert rec["causes"] == ["admit", "migration"]
+        mig = rec["hops"][1]
+        assert mig["from_replica"] == source.name == \
+            rec["hops"][0]["replica"]
+        assert mig["replica"] == target_name != source.name
+        assert rec["hops"][0].get("migrated_out")
+        assert rec["complete"]
+        assert check_tiling(rec) < TILE_TOL_MS
