@@ -295,6 +295,36 @@ non-zero before the result line:
                step (CUDA events), peak memory, first and last loss. Fails
                on a non-finite loss, a last loss not below the first, or
                K4 bias/K6/K9 bias launching other than 24 x steps times;
+  4a. the Paddle 2.0 eager API (after 4d) — a text classifier written as
+               a user writes it (`api_classifier`: a `nn.Layer` subclass,
+               nn.Embedding(30522, 768) and positions initialised through
+               ParamAttr(Normal(0, 0.02)), nn.TransformerEncoder of
+               TransformerEncoderLayer(768, 12, 3072, attn_dropout=0),
+               mean pooling over the real tokens, nn.Linear(768, 2)),
+               built with `ptt.seed` on the default device (the card),
+               its weights carried to a CPU copy by state_dict /
+               set_state_dict; 2 AdamW steps of the user loop
+               (CrossEntropyLoss, loss.backward(), opt.step(),
+               opt.clear_grad()) on each, float32 (TF32 off), 2 layers,
+               B2 S128: (a) no mask, (b) a [B, 1, 1, S] padding mask
+               (lengths 128/77); (c) a Conv2D + BatchNorm2D + MaxPool2D +
+               bidirectional LSTM net (`conv_lstm_net`). Phase 4d's limits
+               (loss 1e-4, gradients 1e-3 of their magnitude, parameters
+               and running statistics 2 · lr · steps); K4 / K6 / K9 in (a)
+               and their bias variants in (b) twice a step, the dense path
+               never (`DenseSpy`);
+  6a. the user loop's throughput (after 6b) — the same classifier, 12
+               layers, dropout 0.1, B16 S512 padded at 6b's lengths, under
+               (a) `amp.auto_cast()` (bf16, O1: the projections in bf16,
+               the attention in float32, the reference's lists) and (b)
+               the same with "scaled_dot_product_attention" in
+               `custom_white_list` (the attention in bf16), with
+               GradScaler and AdamW on float32 parameters: 2 warm and 5
+               measured steps; tokens/s, ms a step, peak memory, losses
+               (finite; the last below the first measured one), K4 bias /
+               K6 / K9 bias 12 x steps (they join the kernels line), no
+               unbiased kernel and no dense path, and the idle share of a
+               profiled pass of 2 steps;
   3d. two-pass flash — K7 (dq) and K8 (dk, dv) and their bias variants
                K7 bias / K8 bias (dbias too), with K4 (bias) and K6 before
                them, against their plain versions on the same inputs, bf16
@@ -1728,6 +1758,290 @@ def bert_train_throughput(torch, cfg, batch_size=16, seq=512, warm=2,
             "tokens_per_sec": batch_size * seq / (ms / 1e3),
             "real_tokens": int(lens.sum()),
             "peak": torch.cuda.max_memory_allocated(), "counts": counts}
+
+
+# ---- phases 4a / 6a: the Paddle 2.0 eager API, a user's training loop -----
+
+A_VOCAB, A_HIDDEN, A_HEADS, A_FFN = 30522, 768, 12, 3072  # BERT-base width
+A_LR = 1e-4
+
+
+def api_classifier(ptt, n_layers, dropout, max_len=512):
+    """A text classifier written the way a Paddle user writes one against
+    the 2.0 API: token and position embeddings (normal(0, 0.02), through
+    ParamAttr), nn.TransformerEncoder at BERT-base width with
+    attn_dropout 0 (attention dropout takes the dense path), mean
+    pooling over the real tokens, nn.Linear(768, 2). Built on the
+    default device."""
+    nn = ptt.nn
+
+    class TextClassifier(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            init = ptt.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
+            self.embed = nn.Embedding(A_VOCAB, A_HIDDEN, weight_attr=init)
+            self.pos = nn.Embedding(max_len, A_HIDDEN, weight_attr=init)
+            layer = nn.TransformerEncoderLayer(
+                A_HIDDEN, A_HEADS, A_FFN, dropout=dropout, attn_dropout=0.0,
+                activation="gelu")
+            self.encoder = nn.TransformerEncoder(layer, n_layers)
+            self.head = nn.Linear(A_HIDDEN, 2)
+
+        def forward(self, ids, mask=None):
+            """ids [B, S]; mask [B, S], 1 on real tokens (None: none)."""
+            pos = ptt.unsqueeze(ptt.arange(ids.shape[1]), 0)
+            h = self.embed(ids) + self.pos(pos)
+            attn = None if mask is None else \
+                ptt.cast(ptt.unsqueeze(mask, [1, 2]), "bool")  # [B,1,1,S]
+            h = self.encoder(h, attn)
+            if mask is None:
+                return self.head(ptt.mean(h, axis=1))
+            m = ptt.unsqueeze(ptt.cast(mask, "float32"), -1)
+            return self.head(ptt.sum(h * m, axis=1) / ptt.sum(m, axis=1))
+
+    return TextClassifier()
+
+
+def conv_lstm_net(ptt):
+    """Phase 4a (c): Conv2D + BatchNorm2D + MaxPool2D, then an LSTM over
+    the rows and a Linear head — the rest of the API on the card."""
+    nn = ptt.nn
+
+    class ConvLSTM(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.conv = nn.Conv2D(3, 16, 3, padding=1)
+            self.bn = nn.BatchNorm2D(16)
+            self.pool = nn.MaxPool2D(2, 2)
+            self.lstm = nn.LSTM(16 * 8, 32, direction="bidirect")
+            self.head = nn.Linear(64, 5)
+
+        def forward(self, x):
+            h = self.pool(nn.functional.relu(self.bn(self.conv(x))))
+            seq = ptt.reshape(ptt.transpose(h, [0, 2, 1, 3]),
+                              [h.shape[0], h.shape[2], -1])
+            out, _ = self.lstm(seq)
+            return self.head(out[:, -1])
+
+    return ConvLSTM()
+
+
+class DenseSpy:
+    """Counts the dense attention path's calls inside the block."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops import attention
+        self.calls, self._real = 0, attention.dense_attention
+
+        def spy(*a, **k):
+            self.calls += 1
+            return self._real(*a, **k)
+
+        attention.dense_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        from paddle_tpu_torch.ops import attention
+        attention.dense_attention = self._real
+
+
+def api_step_parity(torch, ptt, build, batch_fn, loss_fn, steps, phase,
+                    expect=(), never=()):
+    """Phase 4a: the same user model on the card and, with the card's
+    initial weights carried over by state_dict / set_state_dict, on the
+    CPU; `steps` AdamW steps of the user loop (loss.backward(),
+    opt.step(), opt.clear_grad()) on each. Checks each step's loss
+    (relative 1e-4), gradients (1e-3 of their magnitude, phase 4d's
+    floor), the parameters and buffers after the steps (2 · lr · steps)
+    and, on the card, the launches per step: `expect` kernels once a
+    layer (n_layers, given by build), `never` ones and the dense path
+    not at all. Returns the worst differences."""
+    from paddle_tpu_torch.device import device_guard
+    from paddle_tpu_torch.ops import kernels
+
+    ptt.seed(23)
+    net, n_layers = build()
+    with device_guard("cpu"):
+        net_cpu, _ = build()
+        net_cpu.set_state_dict(net.state_dict())
+    sides = {"card": (DEV, net), "cpu": ("cpu", net_cpu)}
+    opts = {}
+    for key, (d, model) in sides.items():
+        with device_guard(d):
+            opts[key] = ptt.optimizer.AdamW(
+                A_LR, parameters=model.parameters(), weight_decay=0.01)
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0}
+    for step in range(steps):
+        out = {}
+        for key, (d, model) in sides.items():
+            with device_guard(d):
+                args = batch_fn(step)
+                kernels.reset_launch_counts()
+                with DenseSpy() as dense:
+                    loss = loss_fn(model, *args)
+                    loss.backward()
+                counts = kernels.launch_counts()
+                grads = [p.grad.detach().clone() for p in model.parameters()]
+                opts[key].step()
+                opts[key].clear_grad()
+            out[key] = (loss.item(), grads, counts, dense.calls)
+        counts, dense_calls = out["card"][2], out["card"][3]
+        for n in expect:
+            if counts[n] != n_layers:
+                fail(f"phase {phase} step {step}: {n} launched {counts[n]} "
+                     f"times, expected {n_layers}")
+        for n in never:
+            if counts[n]:
+                fail(f"phase {phase} step {step}: {n} launched {counts}")
+        if dense_calls:
+            fail(f"phase {phase} step {step}: the dense attention path ran "
+                 f"{dense_calls} times")
+        rel = abs(out["card"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        worst["loss"] = max(worst["loss"], rel)
+        if rel > 1e-4:
+            fail(f"phase {phase} step {step}: loss {out['card'][0]} vs CPU "
+                 f"{out['cpu'][0]} (relative {rel:.3g} > 1e-4)")
+        floor = 1e-3 * max(g.abs().max().item() for g in out["cpu"][1])
+        for (name, _), a, c in zip(net.named_parameters(), out["card"][1],
+                                   out["cpu"][1]):
+            r = (a.cpu() - c).abs().max().item() / max(
+                c.abs().max().item(), floor)
+            worst["grad"] = max(worst["grad"], r)
+            if r > 1e-3:
+                fail(f"phase {phase} step {step}: gradient {name} differs "
+                     f"by {r:.3g} of its magnitude (> 1e-3)")
+    limit = 2 * A_LR * steps + 1e-6
+    cpu_state = net_cpu.state_dict()
+    for name, t in net.state_dict().items():
+        diff = (t.cpu().float() - cpu_state[name].float()).abs().max().item()
+        worst["param"] = max(worst["param"], diff)
+        if diff > limit:
+            fail(f"phase {phase}: {name} differs by {diff:.3g} after "
+                 f"{steps} steps (> {limit:.3g})")
+    return worst
+
+
+def api_text_batch(ptt, b, s, lengths, seed):
+    """(ids [B, S] with pad id 0 past each length, mask [B, S] or None,
+    labels [B]) on the default device, from RandomState(seed)."""
+    rs = np.random.RandomState(seed)
+    ids = rs.randint(1, A_VOCAB, (b, s))
+    mask = None
+    if lengths is not None:
+        real = (np.arange(s)[None] < np.asarray(lengths)[:, None])
+        ids = ids * real
+        mask = ptt.to_tensor(real.astype(np.int64))
+    return (ptt.to_tensor(ids), mask,
+            ptt.to_tensor(rs.randint(0, 2, (b,))))
+
+
+def api_parity_phase(torch, card):
+    """Phase 4a: (a) the text classifier at BERT-base width, 2 layers, no
+    mask; (b) a padded [B, 1, 1, S] mask; (c) the conv / BatchNorm / pool
+    / LSTM net — each card vs CPU over 2 AdamW steps of the user loop,
+    float32 (TF32 off)."""
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    ce = ptt.nn.CrossEntropyLoss()
+
+    def text_loss(net, ids, mask, labels):
+        return ce(net(ids, mask), labels)
+
+    def build_text():
+        return api_classifier(ptt, 2, 0.0), 2
+
+    for tag, lengths, expect, never in (
+            ("(a) no mask", None, FLASH, ("flash_fwd_bias",
+                                          "flash_bwd_bias")),
+            ("(b) padded mask, lengths 128/77", [128, 77], FLASH_BIAS,
+             ("flash_fwd", "flash_bwd"))):
+        worst = api_step_parity(
+            torch, ptt, build_text,
+            lambda step: api_text_batch(ptt, 2, 128, lengths, 31 + step),
+            text_loss, 2, "4a", expect, never)
+        say(f"phase 4a {tag}: user TextClassifier (nn.Embedding "
+            f"{A_VOCAB} x {A_HIDDEN} + positions, nn.TransformerEncoder 2 "
+            f"x ({A_HIDDEN}, {A_HEADS}, {A_FFN}), mean pooling, nn.Linear "
+            f"{A_HIDDEN} -> 2) f32 B2 S128, 2 AdamW steps card vs CPU: loss "
+            f"rel diff {worst['loss']:.3g} (limit 1e-4), worst gradient "
+            f"diff {worst['grad']:.3g} of its magnitude (limit 1e-3), worst "
+            f"parameter diff {worst['param']:.3g} (limit "
+            f"{2 * A_LR * 2 + 1e-6:.3g}); {'/'.join(expect)} 2 launches "
+            f"each per step, {'/'.join(never)} and the dense path none")
+
+    def conv_loss(net, x, labels):
+        return ce(net(x), labels)
+
+    def conv_batch(step):
+        rs = np.random.RandomState(41 + step)
+        return (ptt.to_tensor(rs.randn(8, 3, 16, 16).astype(np.float32)),
+                ptt.to_tensor(rs.randint(0, 5, (8,))))
+
+    worst = api_step_parity(torch, ptt, lambda: (conv_lstm_net(ptt), 0),
+                            conv_batch, conv_loss, 2, "4a (c)")
+    say(f"phase 4a (c) user Conv2D(3, 16, 3) + BatchNorm2D + MaxPool2D + "
+        f"bidirectional LSTM(128, 32) + Linear f32 B8 16x16, 2 AdamW steps "
+        f"card vs CPU (BatchNorm in training): loss rel diff "
+        f"{worst['loss']:.3g} (limit 1e-4), worst gradient diff "
+        f"{worst['grad']:.3g} (limit 1e-3), worst parameter / running "
+        f"statistic diff {worst['param']:.3g}; {time.perf_counter() - t0:.1f}"
+        f" s [{card}]")
+
+
+def api_train_throughput(torch, n_layers=12, batch_size=16, seq=512,
+                         warm=2, steps=5, profiled=2, white=None):
+    """Phase 6a: the user loop at BERT-base width on a padded batch
+    (phase 6b's lengths), `amp.auto_cast(custom_white_list=white)` (bf16,
+    O1) with GradScaler and AdamW on float32 parameters, dropout 0.1: ms
+    a step (CUDA events), tokens/s, peak memory, losses, the measured
+    steps' launch counts and dense-path calls, and the idle share of a
+    profiled pass."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    ptt.seed(29)
+    net = api_classifier(ptt, n_layers, 0.1)
+    net.train()
+    opt = ptt.optimizer.AdamW(A_LR, parameters=net.parameters(),
+                              weight_decay=0.01)
+    scaler = ptt.amp.GradScaler()
+    ce = ptt.nn.CrossEntropyLoss()
+    lens = bert_lengths(batch_size, seq)
+    ids, mask, labels = api_text_batch(ptt, batch_size, seq, lens, 0)
+
+    def step():
+        with ptt.amp.auto_cast(custom_white_list=white):
+            loss = ce(net(ids, mask), labels)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [step().item() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()                          # main path
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with DenseSpy() as dense:
+        t0 = time.perf_counter()
+        start.record()
+        measured = [step() for _ in range(steps)]
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    counts = kernels.launch_counts()
+    losses += [x.item() for x in measured]
+    ms = start.elapsed_time(end) / steps
+    busy = profiled_busy(torch, lambda: [step() for _ in range(profiled)])
+    return {"losses": losses, "ms_per_step": ms, "wall_ms": wall * 1e3,
+            "tokens_per_sec": batch_size * seq / (ms / 1e3),
+            "real_tokens": int(lens.sum()),
+            "peak": torch.cuda.max_memory_allocated(), "counts": counts,
+            "dense": dense.calls, "busy_ms": busy / profiled * 1e3,
+            "idle": 1 - busy / profiled / wall}
 
 
 # ---- phase 4: decoder parity across devices --------------------------------
@@ -8244,6 +8558,11 @@ def main():
         f"K4/K9 none, {time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
 
+    # phase 4a: the Paddle 2.0 eager API — a user's model and training
+    # loop, card vs CPU
+    api_parity_phase(torch, card)
+    torch.cuda.empty_cache()
+
     # phase 4e: long-context training parity past the switch, card vs CPU
     S = 13312
     cfg_long = GPT2Config(vocab_size=1024, hidden_size=128, num_layers=2,
@@ -8617,6 +8936,48 @@ def main():
         f"{ {n: tr['counts'][n] for n in FLASH_BIAS} } unbiased "
         f"{ {n: tr['counts'][n] for n in ('flash_fwd', 'flash_bwd')} } "
         f"[{card}]")
+    torch.cuda.empty_cache()
+
+    # phase 6a: the user loop at BERT-base width under amp.auto_cast():
+    # (a) the reference's O1 lists (attention in float32), (b) the
+    # attention's op name added to custom_white_list (bf16 attention);
+    # their K4 bias / K6 / K9 bias launches join the kernels line
+    steps = 5
+    for tag, white in (("(a) O1", None),
+                       ("(b) O1 + custom_white_list="
+                        "['scaled_dot_product_attention']",
+                        ["scaled_dot_product_attention"])):
+        t0 = time.perf_counter()
+        tr = api_train_throughput(torch, steps=steps, white=white)
+        losses = tr["losses"]
+        if not all(np.isfinite(losses)):
+            fail(f"phase 6a {tag}: non-finite loss {losses}")
+        if not losses[-1] < losses[2]:  # the measured steps, past the spike
+            fail(f"phase 6a {tag}: loss did not fall over the measured "
+                 f"steps ({losses[2]} -> {losses[-1]})")
+        for n in FLASH_BIAS:
+            if tr["counts"][n] != 12 * steps:
+                fail(f"phase 6a {tag}: {n} launched {tr['counts'][n]} "
+                     f"times in {steps} steps, expected {12 * steps}")
+        if tr["counts"]["flash_fwd"] or tr["counts"]["flash_bwd"] \
+                or tr["dense"]:
+            fail(f"phase 6a {tag}: unbiased kernels or the dense path ran "
+                 f"({tr['counts']}, dense {tr['dense']})")
+        for n in FLASH_BIAS:
+            main_counts[n] = main_counts.get(n, 0) + tr["counts"][n]
+        say(f"phase 6a {tag}: user TextClassifier at BERT-base width (12 "
+            f"layers) B16 S512 (padded; {tr['real_tokens']} real tokens a "
+            f"step), amp.auto_cast() bf16 + GradScaler + AdamW on f32 "
+            f"parameters, dropout 0.1: tokens_per_sec "
+            f"{tr['tokens_per_sec']:.1f} ms_per_step "
+            f"{tr['ms_per_step']:.2f} (host {tr['wall_ms']:.2f}) "
+            f"max_memory_allocated {tr['peak'] / 2**20:.0f} MiB losses "
+            f"{' '.join(f'{x:.4f}' for x in losses)}; launches "
+            f"{ {n: tr['counts'][n] for n in FLASH_BIAS} }, unbiased and "
+            f"dense path none; device busy {tr['busy_ms']:.2f} ms a step "
+            f"(profiler), idle share {tr['idle']:.3f}; "
+            f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del tr
     torch.cuda.empty_cache()
 
     # phase 6c: long-context GPT-2 small training, through K7/K8 (bias)

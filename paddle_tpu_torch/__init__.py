@@ -32,10 +32,77 @@ parallelism, the pipeline schedules, MoE), `distributed` (collectives,
 DataParallel, spawn, the sharded checkpoint) and `models.gpt2_hybrid` /
 `models.gpt2_pipeline`.
 
+Slice 23 is the Paddle 2.0 eager API: `import paddle_tpu_torch as
+paddle` gives the reference's top-level names — dtypes, places and
+`set_device` / `get_device`, `seed` and the rng state, `to_tensor`,
+`Parameter`, `ParamAttr`, the autograd API (`grad`, `no_grad`, ...),
+every op of `ops` (`paddle.reshape(x, shape)`, ...), and the namespaces
+`nn` (Layer, the layers, `functional`, `initializer`, `utils`), `amp`,
+`optimizer`, `linalg`, `tensor` and `autograd`. The tensor is
+`torch.Tensor`; `loss.backward()` is torch's. `nn`, `ops`, `amp` and the
+op names bind lazily (PEP 562), so processes that import the package for
+its serving path (the fleet's spawned workers) do not pay for them.
+
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes
-`device="cpu"` (see `device.resolve_device`).
+`device="cpu"` or calls `set_device("cpu")` (see
+`device.resolve_device`).
 """
-from .device import resolve_device  # noqa: F401
+import importlib as _importlib
 
-__all__ = ["resolve_device"]
+from .autograd import (enable_grad, grad, is_grad_enabled,  # noqa: F401
+                       no_grad, set_grad_enabled)
+from .core.dtype import (  # noqa: F401
+    bfloat16, bool_, complex64, complex128, float16, float32, float64,
+    get_default_dtype, int8, int16, int32, int64, set_default_dtype, uint8,
+)
+from .core.mode import (disable_static, enable_static,  # noqa: F401
+                        in_dygraph_mode)
+from .core.param_attr import ParamAttr  # noqa: F401
+from .core.rng import get_rng_state, seed, set_rng_state  # noqa: F401
+from .core.tensor import (Parameter, Tensor, is_tensor,  # noqa: F401
+                          to_tensor)
+from .device import (  # noqa: F401
+    CPUPlace, CUDAPinnedPlace, CUDAPlace, TPUPlace, XPUPlace, get_device,
+    is_compiled_with_cuda, is_compiled_with_tpu, is_compiled_with_xpu,
+    resolve_device, set_device,
+)
+
+_LAZY_MODULES = ("nn", "ops", "amp", "optimizer", "linalg", "tensor",
+                 "models", "inference", "jit", "distributed", "parallel")
+
+
+def __getattr__(name):
+    # PEP 562: the heavy namespaces and the op names bind at first use
+    if name in _LAZY_MODULES:
+        mod = _importlib.import_module("." + name, __name__)
+        globals()[name] = mod
+        return mod
+    ops = _importlib.import_module(".ops", __name__)
+    if name in ops.__all__ or name in ("abs_", "max_", "min_", "sum_"):
+        globals()[name] = getattr(ops, name)
+        return globals()[name]
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def summary(net, input_size=None, dtypes=None, input=None):  # noqa: A002
+    """Print and return the total and trainable parameter counts."""
+    total = sum(p.numel() for p in net.parameters())
+    trainable = sum(p.numel() for p in net.parameters()
+                    if getattr(p, "trainable", p.requires_grad))
+    print(f"Total params: {total:,}\n"  # cli-print: summary() report
+          f"Trainable params: {trainable:,}")
+    return {"total_params": total, "trainable_params": trainable}
+
+
+__all__ = ["resolve_device", "set_device", "get_device", "seed",
+           "get_rng_state", "set_rng_state", "to_tensor", "is_tensor",
+           "Tensor", "Parameter", "ParamAttr", "grad", "no_grad",
+           "enable_grad", "set_grad_enabled", "is_grad_enabled",
+           "enable_static", "disable_static", "in_dygraph_mode",
+           "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "TPUPlace",
+           "XPUPlace", "is_compiled_with_cuda", "is_compiled_with_tpu",
+           "is_compiled_with_xpu", "float16", "bfloat16", "float32",
+           "float64", "int8", "int16", "int32", "int64", "uint8", "bool_",
+           "complex64", "complex128", "set_default_dtype",
+           "get_default_dtype", "summary"]

@@ -44,7 +44,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..device import resolve_device
+from ..device import device_guard, resolve_device
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import (TransformerEncoder,
@@ -115,15 +115,16 @@ class Bert(nn.Module):
         g = torch.Generator().manual_seed(int(seed))
         E = cfg.hidden_size
         self.mlm_bias = nn.Parameter(torch.zeros(cfg.vocab_size))
-        self.embeddings = BertEmbeddings(cfg, init_generator=g)
-        enc_layer = TransformerEncoderLayer(
-            E, cfg.num_heads, cfg.intermediate_size, dropout=cfg.dropout,
-            activation="gelu", init_generator=g)
-        self.encoder = TransformerEncoder(enc_layer, cfg.num_layers)
-        self.pooler = Linear(E, E, init_generator=g)
-        self.mlm_transform = Linear(E, E, init_generator=g)
-        self.mlm_norm = LayerNorm(E, epsilon=cfg.layer_norm_epsilon)
-        self.nsp = Linear(E, 2, init_generator=g)
+        with device_guard("cpu"):  # built on the CPU, then moved
+            self.embeddings = BertEmbeddings(cfg, init_generator=g)
+            enc_layer = TransformerEncoderLayer(
+                E, cfg.num_heads, cfg.intermediate_size,
+                dropout=cfg.dropout, activation="gelu", init_generator=g)
+            self.encoder = TransformerEncoder(enc_layer, cfg.num_layers)
+            self.pooler = Linear(E, E, init_generator=g)
+            self.mlm_transform = Linear(E, E, init_generator=g)
+            self.mlm_norm = LayerNorm(E, epsilon=cfg.layer_norm_epsilon)
+            self.nsp = Linear(E, 2, init_generator=g)
         self.to(device=dev, dtype=dtype)
 
     def forward(self, input_ids, token_type_ids=None, attention_mask=None,

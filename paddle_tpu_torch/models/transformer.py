@@ -59,7 +59,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..device import resolve_device
+from ..device import device_guard, resolve_device
 from ..nn.layer.common import Dropout, Embedding, Linear
 from ..nn.layer.transformer import Transformer
 from ..ops.loss import cross_entropy
@@ -109,17 +109,21 @@ class TransformerModel(nn.Module):
         dev = resolve_device(device)
         g = torch.Generator().manual_seed(int(seed))
         d = cfg.d_model
-        self.src_embed = Embedding(cfg.src_vocab_size, d, init_generator=g)
-        self.tgt_embed = Embedding(cfg.tgt_vocab_size, d, init_generator=g)
-        self.register_buffer("pos_enc", torch.from_numpy(
-            sinusoid_position_encoding(cfg.max_length, d)), persistent=False)
-        self.transformer = Transformer(
-            d_model=d, nhead=cfg.nhead,
-            num_encoder_layers=cfg.num_encoder_layers,
-            num_decoder_layers=cfg.num_decoder_layers,
-            dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout,
-            activation="gelu", init_generator=g)
-        self.generator = Linear(d, cfg.tgt_vocab_size, init_generator=g)
+        with device_guard("cpu"):  # built on the CPU, then moved
+            self.src_embed = Embedding(cfg.src_vocab_size, d,
+                                       init_generator=g)
+            self.tgt_embed = Embedding(cfg.tgt_vocab_size, d,
+                                       init_generator=g)
+            self.register_buffer("pos_enc", torch.from_numpy(
+                sinusoid_position_encoding(cfg.max_length, d)),
+                persistent=False)
+            self.transformer = Transformer(
+                d_model=d, nhead=cfg.nhead,
+                num_encoder_layers=cfg.num_encoder_layers,
+                num_decoder_layers=cfg.num_decoder_layers,
+                dim_feedforward=cfg.dim_feedforward, dropout=cfg.dropout,
+                activation="gelu", init_generator=g)
+            self.generator = Linear(d, cfg.tgt_vocab_size, init_generator=g)
         self.dropout = Dropout(cfg.dropout)
         self.scale = math.sqrt(d)
         self.to(device=dev, dtype=dtype)

@@ -1,21 +1,78 @@
-"""Neural-network programs and layers of the port: `decode` (the paged
-decoder), `layer` (the Paddle layers BERT and the seq2seq Transformer
-are built from, the batch norms) and `clip` (gradient clipping)."""
-from .layer.common import Dropout, Embedding, Linear  # noqa: F401
-from .layer.norm import (BatchNorm1D, BatchNorm2D,  # noqa: F401
-                         BatchNorm3D, LayerNorm, SyncBatchNorm)
-from . import clip  # noqa: F401,E402
+"""`paddle.nn` of the port: the `Layer` base and containers, the common
+layers, activations, convolutions, pools, losses, norms, recurrent
+layers and the Transformer (`layer`), `functional`, `initializer`,
+`utils` (weight norm), `clip` (gradient clipping) and `decode` (the
+paged decoder of the serving path)."""
+from . import clip  # noqa: F401
+from . import functional  # noqa: F401
+from . import initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
                    ClipGradByValue)
+from .layer.activation import (  # noqa: F401
+    CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
+    Sigmoid, Silu, Softmax, Softplus, Softshrink, Softsign, Swish, Tanh,
+    Tanhshrink, ThresholdedReLU,
+)
+from .layer.common import (  # noqa: F401
+    AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D, Dropout3D,
+    Embedding, Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
+    PairwiseDistance, PixelShuffle, PixelUnshuffle, Unflatten, Unfold,
+    Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
+)
+from .layer.conv import (  # noqa: F401
+    Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D, Conv3DTranspose,
+)
+from .layer.layers import (Layer, LayerList, ParameterList,  # noqa: F401
+                           Sequential)
+from .layer.loss import (  # noqa: F401
+    BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
+    CTCLoss, KLDivLoss, L1Loss, MarginRankingLoss, MSELoss, NLLLoss,
+    SmoothL1Loss, TripletMarginLoss,
+)
+from .layer.norm import (  # noqa: F401
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, RMSNorm, SpectralNorm, SyncBatchNorm,
+)
+from .layer.pooling import (  # noqa: F401
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AvgPool1D, AvgPool2D, AvgPool3D,
+    MaxPool1D, MaxPool2D, MaxPool3D,
+)
+from .layer.rnn import (GRU, LSTM, RNN, BiRNN, GRUCell,  # noqa: F401
+                        LSTMCell, RNNCellBase, SimpleRNN, SimpleRNNCell)
 from .layer.transformer import (MultiHeadAttention,  # noqa: F401
                                 Transformer, TransformerDecoder,
                                 TransformerDecoderLayer, TransformerEncoder,
                                 TransformerEncoderLayer,
                                 set_dropout_generator)
+from . import utils  # noqa: F401,E402
 
-__all__ = ["Dropout", "Embedding", "Linear", "set_dropout_generator",
-           "LayerNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "SyncBatchNorm", "MultiHeadAttention", "TransformerEncoder",
-           "TransformerEncoderLayer", "TransformerDecoder",
-           "TransformerDecoderLayer", "Transformer", "clip",
-           "ClipGradByValue", "ClipGradByNorm", "ClipGradByGlobalNorm"]
+__all__ = [
+    "clip", "functional", "initializer", "utils", "ClipGradByGlobalNorm",
+    "ClipGradByNorm", "ClipGradByValue", "CELU", "ELU", "GELU", "GLU",
+    "SELU", "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh",
+    "LeakyReLU", "LogSigmoid", "LogSoftmax", "Maxout", "Mish", "PReLU",
+    "ReLU", "ReLU6", "Sigmoid", "Silu", "Softmax", "Softplus", "Softshrink",
+    "Softsign", "Swish", "Tanh", "Tanhshrink", "ThresholdedReLU",
+    "AlphaDropout", "Bilinear", "CosineSimilarity", "Dropout", "Dropout2D",
+    "Dropout3D", "Embedding", "Flatten", "Identity", "Linear", "Pad1D",
+    "Pad2D", "Pad3D", "PairwiseDistance", "PixelShuffle", "PixelUnshuffle",
+    "Unflatten", "Unfold", "Upsample", "UpsamplingBilinear2D",
+    "UpsamplingNearest2D", "ZeroPad2D", "Conv1D", "Conv1DTranspose",
+    "Conv2D", "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "Layer",
+    "LayerList", "ParameterList", "Sequential", "BCELoss",
+    "BCEWithLogitsLoss", "CosineEmbeddingLoss", "CrossEntropyLoss",
+    "CTCLoss", "KLDivLoss", "L1Loss", "MarginRankingLoss", "MSELoss",
+    "NLLLoss", "SmoothL1Loss", "TripletMarginLoss", "BatchNorm",
+    "BatchNorm1D", "BatchNorm2D", "BatchNorm3D", "GroupNorm",
+    "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D", "LayerNorm",
+    "LocalResponseNorm", "RMSNorm", "SpectralNorm", "SyncBatchNorm",
+    "AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
+    "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AvgPool1D", "AvgPool2D",
+    "AvgPool3D", "MaxPool1D", "MaxPool2D", "MaxPool3D", "GRU", "LSTM",
+    "RNN", "BiRNN", "GRUCell", "LSTMCell", "RNNCellBase", "SimpleRNN",
+    "SimpleRNNCell", "MultiHeadAttention", "Transformer",
+    "TransformerDecoder", "TransformerDecoderLayer", "TransformerEncoder",
+    "TransformerEncoderLayer", "set_dropout_generator"]

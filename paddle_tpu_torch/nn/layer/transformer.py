@@ -1,4 +1,4 @@
-"""`paddle_tpu/nn/layer/transformer.py` as `torch.nn.Module`s:
+"""`paddle_tpu/nn/layer/transformer.py` as `Layer`s:
 `MultiHeadAttention` (with its `Cache`/`StaticCache` and `need_weights`),
 `TransformerEncoderLayer` / `TransformerDecoderLayer` (post-LN or, with
 `normalize_before`, pre-LN), `TransformerEncoder` / `TransformerDecoder`
@@ -16,6 +16,15 @@ the memory. `TransformerEncoder` and `TransformerDecoder` deep-copy
 their first layer, as the reference's `_clone_layer` does, so every
 layer starts with the same weights.
 
+The layers take the reference's signatures (`weight_attr`, `bias_attr`
+for every projection) and the port's keyword `init_generator=` (the
+models' way: every parameter drawn from that generator, on its device).
+Attention consults `amp` under the reference's op name
+"scaled_dot_product_attention": it runs in the amp dtype at O2, or when
+that name is in `custom_white_list`, and its output comes back in
+float32; at the default O1 it runs in the dtype of the projections'
+output (float32, as the reference's).
+
 Two choices of the port in `MultiHeadAttention.gen_cache`, each the
 reference's values in float32: the empty incremental `Cache` is made in
 the projections' dtype (the reference's is float32 always, which in
@@ -26,15 +35,24 @@ contiguous rows; a view would be copied again at every decode step).
 from __future__ import annotations
 
 import collections
+import contextlib
 import copy
 
 import torch
-import torch.nn.functional as F
-from torch import nn
 
+from ... import amp
+from ...device import device_guard
+from ...ops import nn_ops
 from ...ops.attention import NEG_INF, scaled_dot_product_attention
 from .common import Dropout, Linear
+from .layers import Layer, LayerList
 from .norm import LayerNorm
+
+
+def _built_on(generator):
+    """Build under the generator's device (the models' CPU build)."""
+    return device_guard(generator.device) if generator is not None \
+        else contextlib.nullcontext()
 
 
 def _convert_attention_mask(attn_mask, dtype):
@@ -45,12 +63,14 @@ def _convert_attention_mask(attn_mask, dtype):
     return torch.where(attn_mask, 0.0, NEG_INF).to(dtype)
 
 
-class MultiHeadAttention(nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
     def __init__(self, embed_dim, num_heads, dropout=0.0, kdim=None,
-                 vdim=None, need_weights=False, *, init_generator=None):
+                 vdim=None, need_weights=False, weight_attr=None,
+                 bias_attr=None, fuse_attention=True, *,
+                 init_generator=None):
         super().__init__()
         self.embed_dim = embed_dim
         self.kdim = kdim or embed_dim
@@ -62,12 +82,14 @@ class MultiHeadAttention(nn.Module):
                              f"num_heads {num_heads}")
         self.dropout = dropout
         self.need_weights = need_weights
+        self.fuse_attention = fuse_attention
         self.generator = None  # attention dropout's generator
-        g = init_generator
-        self.q_proj = Linear(embed_dim, embed_dim, init_generator=g)
-        self.k_proj = Linear(self.kdim, embed_dim, init_generator=g)
-        self.v_proj = Linear(self.vdim, embed_dim, init_generator=g)
-        self.out_proj = Linear(embed_dim, embed_dim, init_generator=g)
+        g, wa, ba = init_generator, weight_attr, bias_attr
+        self.q_proj = Linear(embed_dim, embed_dim, wa, ba, init_generator=g)
+        self.k_proj = Linear(self.kdim, embed_dim, wa, ba, init_generator=g)
+        self.v_proj = Linear(self.vdim, embed_dim, wa, ba, init_generator=g)
+        self.out_proj = Linear(embed_dim, embed_dim, wa, ba,
+                               init_generator=g)
 
     def _split_heads(self, x):
         """[B, S, E] -> [B, H, S, D]."""
@@ -91,10 +113,13 @@ class MultiHeadAttention(nn.Module):
             cache = self.Cache(k, v)
 
         attn_mask = _convert_attention_mask(attn_mask, q.dtype)
+        (q, k, v, attn_mask), back = amp.cast_inputs(
+            "scaled_dot_product_attention", q, k, v, attn_mask)
         out, weights = scaled_dot_product_attention(
             q, k, v, attn_mask=attn_mask,
             dropout_p=self.dropout if self.training else 0.0,
             return_weights=self.need_weights, generator=self.generator)
+        out, weights = back(out), back(weights)
 
         b, s = out.shape[0], out.shape[2]
         out = self.out_proj(out.permute(0, 2, 1, 3)
@@ -121,26 +146,31 @@ class MultiHeadAttention(nn.Module):
         return self.Cache(z, z.clone())
 
 
-class TransformerEncoderLayer(nn.Module):
+class TransformerEncoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, init_generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 init_generator=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
-        g = init_generator
+        g, wa, ba = init_generator, weight_attr, bias_attr
         self.normalize_before = normalize_before
-        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            init_generator=g)
-        self.linear1 = Linear(d_model, dim_feedforward, init_generator=g)
-        self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, init_generator=g)
-        self.norm1 = LayerNorm(d_model)
-        self.norm2 = LayerNorm(d_model)
+        with _built_on(g):
+            self.self_attn = MultiHeadAttention(
+                d_model, nhead, attn_dropout, weight_attr=wa, bias_attr=ba,
+                init_generator=g)
+            self.linear1 = Linear(d_model, dim_feedforward, wa, ba,
+                                  init_generator=g)
+            self.dropout = Dropout(act_dropout)
+            self.linear2 = Linear(dim_feedforward, d_model, wa, ba,
+                                  init_generator=g)
+            self.norm1 = LayerNorm(d_model)
+            self.norm2 = LayerNorm(d_model)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
         # "gelu" is the exact (erf) GELU, as the reference's ops.gelu
-        self.activation = getattr(F, activation)
+        self.activation = getattr(nn_ops, activation)
 
     def forward(self, src, src_mask=None, cache=None):
         residual = src
@@ -171,10 +201,10 @@ def set_dropout_generator(module, generator):
             m.generator = generator
 
 
-class TransformerEncoder(nn.Module):
+class TransformerEncoder(Layer):
     def __init__(self, encoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [encoder_layer] + [copy.deepcopy(encoder_layer)
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
@@ -194,29 +224,35 @@ class TransformerEncoder(nn.Module):
         return output if cache is None else (output, new_caches)
 
 
-class TransformerDecoderLayer(nn.Module):
+class TransformerDecoderLayer(Layer):
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, *, init_generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None, *,
+                 init_generator=None):
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout
-        g = init_generator
+        g, wa, ba = init_generator, weight_attr, bias_attr
         self.normalize_before = normalize_before
-        self.self_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                            init_generator=g)
-        self.cross_attn = MultiHeadAttention(d_model, nhead, attn_dropout,
-                                             init_generator=g)
-        self.linear1 = Linear(d_model, dim_feedforward, init_generator=g)
-        self.dropout = Dropout(act_dropout)
-        self.linear2 = Linear(dim_feedforward, d_model, init_generator=g)
-        self.norm1 = LayerNorm(d_model)
-        self.norm2 = LayerNorm(d_model)
-        self.norm3 = LayerNorm(d_model)
+        with _built_on(g):
+            self.self_attn = MultiHeadAttention(
+                d_model, nhead, attn_dropout, weight_attr=wa, bias_attr=ba,
+                init_generator=g)
+            self.cross_attn = MultiHeadAttention(
+                d_model, nhead, attn_dropout, weight_attr=wa, bias_attr=ba,
+                init_generator=g)
+            self.linear1 = Linear(d_model, dim_feedforward, wa, ba,
+                                  init_generator=g)
+            self.dropout = Dropout(act_dropout)
+            self.linear2 = Linear(dim_feedforward, d_model, wa, ba,
+                                  init_generator=g)
+            self.norm1 = LayerNorm(d_model)
+            self.norm2 = LayerNorm(d_model)
+            self.norm3 = LayerNorm(d_model)
         self.dropout1 = Dropout(dropout)
         self.dropout2 = Dropout(dropout)
         self.dropout3 = Dropout(dropout)
-        self.activation = getattr(F, activation)
+        self.activation = getattr(nn_ops, activation)
 
     def forward(self, tgt, memory, tgt_mask=None, memory_mask=None,
                 cache=None):
@@ -266,10 +302,10 @@ class TransformerDecoderLayer(nn.Module):
         return inc, static
 
 
-class TransformerDecoder(nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
-        self.layers = nn.ModuleList(
+        self.layers = LayerList(
             [decoder_layer] + [copy.deepcopy(decoder_layer)
                                for _ in range(num_layers - 1)])
         self.num_layers = num_layers
@@ -295,20 +331,33 @@ class TransformerDecoder(nn.Module):
         return [layer.gen_cache(memory) for layer in self.layers]
 
 
-class Transformer(nn.Module):
+class Transformer(Layer):
     def __init__(self, d_model=512, nhead=8, num_encoder_layers=6,
                  num_decoder_layers=6, dim_feedforward=2048, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
-                 normalize_before=False, custom_encoder=None,
-                 custom_decoder=None, *, init_generator=None):
+                 normalize_before=False, weight_attr=None, bias_attr=None,
+                 custom_encoder=None, custom_decoder=None, *,
+                 init_generator=None):
         super().__init__()
-        g = init_generator
+        with _built_on(init_generator):
+            self._build(d_model, nhead, num_encoder_layers,
+                        num_decoder_layers, dim_feedforward, dropout,
+                        activation, attn_dropout, act_dropout,
+                        normalize_before, weight_attr, bias_attr,
+                        custom_encoder, custom_decoder, init_generator)
+        self.d_model = d_model
+        self.nhead = nhead
+
+    def _build(self, d_model, nhead, num_encoder_layers, num_decoder_layers,
+               dim_feedforward, dropout, activation, attn_dropout,
+               act_dropout, normalize_before, wa, ba, custom_encoder,
+               custom_decoder, g):
         if custom_encoder is not None:
             self.encoder = custom_encoder
         else:
             enc_layer = TransformerEncoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before,
+                attn_dropout, act_dropout, normalize_before, wa, ba,
                 init_generator=g)
             enc_norm = LayerNorm(d_model) if normalize_before else None
             self.encoder = TransformerEncoder(enc_layer, num_encoder_layers,
@@ -318,13 +367,11 @@ class Transformer(nn.Module):
         else:
             dec_layer = TransformerDecoderLayer(
                 d_model, nhead, dim_feedforward, dropout, activation,
-                attn_dropout, act_dropout, normalize_before,
+                attn_dropout, act_dropout, normalize_before, wa, ba,
                 init_generator=g)
             dec_norm = LayerNorm(d_model) if normalize_before else None
             self.decoder = TransformerDecoder(dec_layer, num_decoder_layers,
                                               dec_norm)
-        self.d_model = d_model
-        self.nhead = nhead
 
     def forward(self, src, tgt, src_mask=None, tgt_mask=None,
                 memory_mask=None):

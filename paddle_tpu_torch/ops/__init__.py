@@ -1,14 +1,33 @@
-"""Ops of the port: attention (`attention`: the dense op of the training
-path and the paged ops of the serving path), flash attention with its
-autograd rule (`flash_attention`), the losses (`loss`: cross_entropy and
-softmax_with_cross_entropy; `chunked_xent`: the vocab-chunked loss), the
-top-k (`search`) and the CUDA kernels behind them (`kernels`)."""
+"""Ops of the port: the Paddle tensor-op library as module functions over
+`torch.Tensor` (`creation`, `random`, `math`, `manipulation`, `search`,
+`linalg`, `nn_ops`, `loss`: the ports of the reference's same-named
+modules, Paddle's signatures and semantics), attention (`attention`: the
+dense op of the training path and the paged ops of the serving path),
+flash attention with its autograd rule (`flash_attention`), the
+vocab-chunked loss (`chunked_xent`) and the CUDA kernels behind them
+(`kernels`)."""
 from .attention import (paged_decode_attention,  # noqa: F401
                         ragged_prefill_attention,
                         scaled_dot_product_attention)
 from .chunked_xent import chunked_softmax_xent  # noqa: F401
-from .loss import cross_entropy, softmax_with_cross_entropy  # noqa: F401
+from .creation import *  # noqa: F401,F403
+from .linalg import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403
+from .manipulation import *  # noqa: F401,F403
+from .math import *  # noqa: F401,F403
+from .nn_ops import *  # noqa: F401,F403
+from .random import *  # noqa: F401,F403
+from .search import *  # noqa: F401,F403
+from . import (creation, linalg, loss, manipulation, math,  # noqa: F401
+               nn_ops, random, search)
+# names whose op shadows a Python builtin get aliases
+from .math import abs as abs_  # noqa: F401
+from .math import max as max_  # noqa: F401
+from .math import min as min_  # noqa: F401
+from .math import sum as sum_  # noqa: F401
 
-__all__ = ["paged_decode_attention", "ragged_prefill_attention",
-           "scaled_dot_product_attention", "cross_entropy",
-           "softmax_with_cross_entropy", "chunked_softmax_xent"]
+__all__ = (["paged_decode_attention", "ragged_prefill_attention",
+            "scaled_dot_product_attention", "chunked_softmax_xent"]
+           + creation.__all__ + linalg.__all__ + loss.__all__
+           + manipulation.__all__ + math.__all__ + nn_ops.__all__
+           + random.__all__ + search.__all__)

@@ -7,8 +7,11 @@ Same signatures and layouts as `paddle_tpu.ops.attention`:
     is_causal=False, scale=None, return_weights=False, generator=None)`
     over q [B, H, Sq, D], k/v [B, H, Sk, D] -> (out, weights or None).
     The route is the reference's and depends on the arguments alone.
-    Both flash routes need no dropout, no weights and a head dim the
-    kernels take (`kernels.DH_SUPPORTED`: 32, 64, 128):
+    Both flash routes need no dropout, no weights, a head dim the
+    kernels take (`kernels.DH_SUPPORTED`: 32, 64, 128) and a dtype they
+    take (`kernels.DTYPE_CODES`: float32, bfloat16 — float16 goes to the
+    dense path by this explicit test, a decided difference from the
+    reference, whose kernels take it):
       - no mask: `flash_attention` (K4 forward, K6 + K9 backward on the
         card, or K6 + K7 + K8 past the reference's length switch,
         `flash_attention.uses_two_pass`);
@@ -144,7 +147,8 @@ def scaled_dot_product_attention(q, k, v, attn_mask=None, dropout_p=0.0,
     None)."""
     key_bias = _key_bias(attn_mask, q, k)
     if (attn_mask is None or key_bias is not None) and dropout_p == 0.0 \
-            and not return_weights and q.shape[-1] in kernels.DH_SUPPORTED:
+            and not return_weights and q.shape[-1] in kernels.DH_SUPPORTED \
+            and q.dtype in kernels.DTYPE_CODES:
         sc = _scale(q.shape[-1], scale)
         # prescale q once, rounded to its dtype, as the reference feeds
         # its kernel (ops/attention.py:95-105); the kernels run at scale 1

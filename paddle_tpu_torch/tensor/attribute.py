@@ -1,0 +1,5 @@
+"""paddle.tensor.attribute module path (ref: tensor/attribute.py)."""
+from ..ops import (imag, is_complex, is_floating_point,  # noqa: F401
+                   is_integer, real)
+
+__all__ = ["real", "imag", "is_complex", "is_integer", "is_floating_point"]

@@ -32,6 +32,15 @@ from paddle_tpu_torch.models import bert as tb
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port's layers build on the default device, the card; these
+    twins build them on the CPU."""
+    from paddle_tpu_torch.device import device_guard
+    with device_guard("cpu"):
+        yield
+
 B, S = 3, 40
 LENS = [40, 23, 9]
 

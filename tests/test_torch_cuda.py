@@ -2640,3 +2640,137 @@ def test_sharded_server_on_card_matches_unsharded(dev, tmp_path):
     for r in range(2):
         c = res[r]["counts"]
         assert c["ragged_stream_dense"] > 0 and c["paged_decode_dense"] > 0
+
+
+# ---- the Paddle 2.0 eager API on the card ------------------------------------
+
+def _api_classifier(ptt, n_layers):
+    """chip_smoke.py phase 4a's user model at a small width (hidden 128,
+    2 heads of D 64)."""
+    nn = ptt.nn
+
+    class Net(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(1000, 128)
+            layer = nn.TransformerEncoderLayer(128, 2, 256, dropout=0.0,
+                                               attn_dropout=0.0)
+            self.encoder = nn.TransformerEncoder(layer, n_layers)
+            self.head = nn.Linear(128, 2)
+
+        def forward(self, ids, mask):
+            attn = ptt.cast(ptt.unsqueeze(mask, [1, 2]), "bool")
+            h = self.encoder(self.embed(ids), attn)
+            m = ptt.unsqueeze(ptt.cast(mask, "float32"), -1)
+            return self.head(ptt.sum(h * m, axis=1) / ptt.sum(m, axis=1))
+
+    return Net()
+
+
+def _api_batch(ptt):
+    rs = np.random.RandomState(4)
+    real = np.arange(96)[None] < np.array([96, 50])[:, None]
+    return (ptt.to_tensor(rs.randint(1, 1000, (2, 96)) * real),
+            ptt.to_tensor(real.astype(np.int64)),
+            ptt.to_tensor(np.array([0, 1])))
+
+
+def test_api_encoder_classifier_on_card_matches_cpu(dev):
+    """A user's encoder classifier (N = 2) through the 2.0 API: built on
+    the default device (the card), its weights carried to a CPU copy by
+    state_dict / set_state_dict; one AdamW step of the user loop on each:
+    loss within 1e-4, gradients within 1e-3 of their magnitude, K4 bias
+    / K6 / K9 bias launched once a layer."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.device import device_guard
+    from paddle_tpu_torch.ops import kernels
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ptt.seed(0)
+    net = _api_classifier(ptt, 2)
+    assert net.embed.weight.device.type == "cuda"
+    with device_guard("cpu"):
+        cpu = _api_classifier(ptt, 2)
+        cpu.set_state_dict(net.state_dict())
+    out = {}
+    for d, model in (("cuda", net), ("cpu", cpu)):
+        with device_guard(d):
+            opt = ptt.optimizer.AdamW(1e-4, parameters=model.parameters())
+            ids, mask, labels = _api_batch(ptt)
+            kernels.reset_launch_counts()
+            loss = ptt.nn.functional.cross_entropy(model(ids, mask), labels)
+            loss.backward()
+            out[d] = (loss.item(), [p.grad.cpu() for p in model.parameters()],
+                      kernels.launch_counts())
+            opt.step()
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    # phase 4d's floor: a gradient whose exact value is zero (the k_proj
+    # biases) is rounding noise on both sides
+    floor = 1e-3 * max(c.abs().max() for c in out["cpu"][1])
+    for a, c in zip(out["cuda"][1], out["cpu"][1]):
+        assert (a - c).abs().max() <= 1e-3 * max(c.abs().max(), floor)
+    for n in ("flash_fwd_bias", "flash_delta", "flash_bwd_bias"):
+        assert out["cuda"][2][n] == 2, out["cuda"][2]
+    for a, c in zip(net.parameters(), cpu.parameters()):
+        assert (a.detach().cpu() - c.detach()).abs().max() <= 2e-4 + 1e-6
+
+
+def test_api_auto_cast_reaches_bf16_flash(dev):
+    """Under amp.auto_cast at O2 (or O1 with the attention's op name in
+    custom_white_list) the encoder's attention runs in bfloat16 through
+    K4 bias / K9 bias; at the default O1 it runs float32 (the
+    reference's lists) — the same kernels, float32 operands."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import attention, kernels
+
+    ptt.seed(0)
+    net = _api_classifier(ptt, 2)
+    ids, mask, labels = _api_batch(ptt)
+    seen = []
+    real = attention.flash_attention_bias
+
+    def spy(q, *a, **k):
+        seen.append(q.dtype)
+        return real(q, *a, **k)
+
+    attention.flash_attention_bias = spy
+    try:
+        for kw in ({"level": "O2"},
+                   {"custom_white_list": ["scaled_dot_product_attention"]},
+                   {}):
+            seen.clear()
+            kernels.reset_launch_counts()
+            with ptt.amp.auto_cast(**kw):
+                loss = ptt.nn.functional.cross_entropy(net(ids, mask),
+                                                       labels)
+            loss.backward()
+            c = kernels.launch_counts()
+            want = torch.float32 if not kw else torch.bfloat16
+            assert seen == [want, want], (kw, seen)
+            assert c["flash_fwd_bias"] == 2 and c["flash_bwd_bias"] == 2, c
+            assert torch.isfinite(loss)
+            net.zero_grad()
+    finally:
+        attention.flash_attention_bias = real
+
+
+def test_api_float16_attention_takes_the_dense_path(dev):
+    """float16 never reaches a flash kernel (they take float32 and
+    bfloat16): MultiHeadAttention in float16 on the card runs the dense
+    path and launches no flash kernel."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    mha = ptt.nn.MultiHeadAttention(128, 2).to(dtype="float16")
+    x = ptt.randn([2, 64, 128]).half()
+    kernels.reset_launch_counts()
+    out = mha(x, x, x)
+    out.float().sum().backward()
+    assert out.dtype == torch.float16 and torch.isfinite(out).all()
+    assert not any(v for n, v in kernels.launch_counts().items()
+                   if n.startswith("flash")), kernels.launch_counts()
+    with torch.no_grad():
+        want = ptt.nn.MultiHeadAttention(128, 2)
+        want.set_state_dict(mha.state_dict())
+        ref = want(x.float(), x.float(), x.float())
+    assert (out.float() - ref).abs().max() <= 1e-2

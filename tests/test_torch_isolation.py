@@ -90,7 +90,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                                    "init_moe_params", "fleet.init",
                                    "init_opt_state", "PSEmbedding",
                                    "SyncBatchNorm", "optimizer.step",
-                                   "fleet.build_worker_server"])
+                                   "fleet.build_worker_server", "to_tensor",
+                                   "zeros", "nn.Linear", "set_device"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
@@ -108,8 +109,21 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     from paddle_tpu_torch.distributed.ps import PSEmbedding
     from paddle_tpu_torch.nn import SyncBatchNorm
     from paddle_tpu_torch.optimizer import SGD
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.device import device_guard
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def on(kw, fn):
+        """fn() with kw's device (if any) as the default one."""
+        if "device" not in kw:
+            return fn()
+        with device_guard(kw["device"]):
+            return fn()
+
+    def set_dev(**kw):
+        with device_guard("cpu"):  # the default is restored after
+            return ptt.set_device(kw.get("device", "gpu"))
     fleet_step, _ = fleet.build_hybrid_train_step(
         fleet.DistributedStrategy(), lambda p, b, k: p["w"].sum(),
         SGD(0.1, device="cpu"))
@@ -168,6 +182,11 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
                 "num_heads": 2, "max_position": 16}},
                 "server": {"max_slots": 1, "block_size": 4,
                            "max_new_tokens": 2}}, **kw)),
+        "to_tensor": lambda **kw: ptt.to_tensor([1.0],
+                                                place=kw.get("device")),
+        "zeros": lambda **kw: on(kw, lambda: ptt.zeros([2])),
+        "nn.Linear": lambda **kw: on(kw, lambda: ptt.nn.Linear(4, 8)),
+        "set_device": set_dev,
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -39,6 +39,15 @@ from paddle_tpu_torch.models import transformer as tt
 
 torch.set_num_threads(1)
 
+
+@pytest.fixture(autouse=True)
+def _port_on_cpu():
+    """The port's layers build on the default device, the card; these
+    twins build them on the CPU."""
+    from paddle_tpu_torch.device import device_guard
+    with device_guard("cpu"):
+        yield
+
 MAX_LEN = 8
 EOS_BIAS = 2.0  # added to the eos logit's bias: beams finish mid-way
 
@@ -527,6 +536,8 @@ def test_bf16_params_on_float32_buffers_keep_the_trunk_in_bf16():
 
 
 def test_model_runs_on_cuda_unless_the_cpu_is_asked_for(monkeypatch):
+    from paddle_tpu_torch import device
+    monkeypatch.setattr(device, "_current", None)  # no set_device default
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tt.TransformerModel(tt.TransformerConfig.tiny())
