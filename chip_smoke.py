@@ -2044,6 +2044,329 @@ def api_train_throughput(torch, n_layers=12, batch_size=16, seq=512,
             "idle": 1 - busy / profiled / wall}
 
 
+# ---- phases 4j / 6j: the Paddle 2.0 API, part 2 — paddle.Model.fit over
+# DataLoader worker processes ------------------------------------------------
+
+J_SEQ, J_TRAIN, J_EVAL = 512, 64, 32   # 6j: padded length, samples
+J_BEAM = dict(vocab=1000, embed=128, hidden=256, batch=8, beam=4, steps=16)
+
+
+def j_dataset(ptt, n, seq, lo, seed):
+    """A user's paddle.io.Dataset: n samples of token ids padded with id 0
+    past a length uniform in lo..seq (RandomState(seed)), and a label in
+    {0, 1}; returns it and the lengths."""
+    rs = np.random.RandomState(seed)
+    lens = rs.randint(lo, seq + 1, n)
+    ids = rs.randint(1, A_VOCAB, (n, seq)) * (np.arange(seq)[None]
+                                              < lens[:, None])
+    labels = rs.randint(0, 2, (n, 1))
+
+    class PaddedText(ptt.io.Dataset):
+        def __len__(self):
+            return n
+
+        def __getitem__(self, i):
+            return ids[i], labels[i]
+
+    return PaddedText(), lens
+
+
+def j_network(ptt, n_layers, dropout):
+    """api_classifier as a user wraps it for paddle.Model, whose batches
+    give the network one input: the padding mask comes from the ids."""
+    inner = api_classifier(ptt, n_layers, dropout)
+
+    class PaddedClassifier(ptt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, ids):
+            return self.inner(ids, ptt.cast(ids != 0, "int64"))
+
+    return PaddedClassifier()
+
+
+def j_spied_model(ptt, net, rec):
+    """paddle.Model(net) prepared as a user does (AdamW 1e-4,
+    CrossEntropyLoss, Accuracy), with spies that record each step's batch,
+    launches, gradients (the fused step's functional_update) and logits."""
+    from paddle_tpu_torch.ops import kernels
+
+    opt = ptt.optimizer.AdamW(A_LR, parameters=net.parameters(),
+                              weight_decay=0.01)
+    real_update = opt.functional_update
+
+    def update(params, grads, state, lr=None, **kw):
+        rec["grads"].append({n: g.detach().cpu().clone()
+                             for n, g in grads.items()})
+        return real_update(params, grads, state, lr=lr, **kw)
+
+    opt.functional_update = update
+
+    class Acc(ptt.metric.Accuracy):
+        def compute(self, pred, label, *args):
+            rec["logits"].append(pred.detach().cpu().clone())
+            return super().compute(pred, label, *args)
+
+    model = ptt.Model(net)
+    model.prepare(opt, ptt.nn.CrossEntropyLoss(), Acc())
+    real_step = model.train_batch
+
+    def train_batch(inputs, labels=None):
+        rec["batches"].append((inputs[0].cpu().clone(),
+                               labels[0].cpu().clone()))
+        kernels.reset_launch_counts()
+        logs = real_step(inputs, labels)
+        rec["counts"].append(kernels.launch_counts())
+        rec["losses"].append(logs[0][0])
+        rec["accs"].append(logs[1]["acc"])
+        return logs
+
+    model.train_batch = train_batch
+    return model
+
+
+def model_fit_parity(torch, ptt, tmp):
+    """Phase 4j (a)-(c): api_classifier at 2 layers through paddle.Model:
+    fit over one epoch of 16 padded samples (B 4, S 128) on the card with
+    DataLoader(num_workers=2) and on the CPU with num_workers=0, from one
+    seed and the card's initial weights; then save -> load into a fresh
+    network -> predict."""
+    from paddle_tpu_torch.device import device_guard
+
+    ptt.seed(37)
+    net = j_network(ptt, 2, 0.0)
+    with device_guard("cpu"):
+        net_cpu = j_network(ptt, 2, 0.0)
+        net_cpu.set_state_dict(net.state_dict())
+    ds, _ = j_dataset(ptt, 16, 128, 32, 41)
+    recs, models = {}, {}
+    for key, dev, model, workers in (("card", DEV, net, 2),
+                                     ("cpu", "cpu", net_cpu, 0)):
+        rec = recs[key] = {k: [] for k in ("batches", "counts", "grads",
+                                           "logits", "losses", "accs")}
+        with device_guard(dev), DenseSpy() as dense:
+            models[key] = j_spied_model(ptt, model, rec)
+            np.random.seed(43)
+            models[key].fit(ds, batch_size=4, epochs=1, shuffle=True,
+                            num_workers=workers, verbose=0)
+        rec["dense"] = dense.calls
+    card, cpu = recs["card"], recs["cpu"]
+    steps = len(cpu["losses"])
+    if steps != 4 or len(card["losses"]) != steps:
+        fail(f"phase 4j: {len(card['losses'])} / {steps} steps, expected 4")
+    for i, ((a, la), (b, lb)) in enumerate(zip(card["batches"],
+                                               cpu["batches"])):
+        if not (torch.equal(a, b) and torch.equal(la, lb)):
+            fail(f"phase 4j step {i}: the worker batch on the card differs "
+                 f"from the CPU's")
+    worst = {"loss": 0.0, "grad": 0.0, "param": 0.0, "ties": 0}
+    for i in range(steps):
+        rel = abs(card["losses"][i] - cpu["losses"][i]) / abs(
+            cpu["losses"][i])
+        worst["loss"] = max(worst["loss"], rel)
+        if rel > 1e-4:
+            fail(f"phase 4j step {i}: loss {card['losses'][i]} vs CPU "
+                 f"{cpu['losses'][i]} (relative {rel:.3g} > 1e-4)")
+        gc = cpu["grads"][i]
+        floor = 1e-3 * max(g.abs().max().item() for g in gc.values())
+        for n, a in card["grads"][i].items():
+            r = (a - gc[n]).abs().max().item() / max(
+                gc[n].abs().max().item(), floor)
+            worst["grad"] = max(worst["grad"], r)
+            if r > 1e-3:
+                fail(f"phase 4j step {i}: gradient {n} differs by {r:.3g} "
+                     f"of its magnitude (> 1e-3)")
+        if card["accs"][i] != cpu["accs"][i]:
+            gap = min((lg[:, 0] - lg[:, 1]).abs().min().item()
+                      for lg in (card["logits"][i], cpu["logits"][i]))
+            if gap >= 1e-4:
+                fail(f"phase 4j step {i}: accuracy {card['accs'][i]} vs "
+                     f"CPU {cpu['accs'][i]} with no logit pair within 1e-4 "
+                     f"(closest {gap:.3g})")
+            worst["ties"] += 1
+        c = card["counts"][i]
+        for n in FLASH_BIAS:
+            if c[n] != 2:
+                fail(f"phase 4j step {i}: {n} launched {c[n]} times, "
+                     f"expected 2 (a layer)")
+        if c["flash_fwd"] or c["flash_bwd"]:
+            fail(f"phase 4j step {i}: unbiased kernels ran {c}")
+    if card["dense"]:
+        fail(f"phase 4j: the dense attention path ran {card['dense']} times")
+    limit = 2 * A_LR * steps + 1e-6
+    cpu_state = net_cpu.state_dict()
+    for name, t in net.state_dict().items():
+        d = (t.cpu() - cpu_state[name]).abs().max().item()
+        worst["param"] = max(worst["param"], d)
+        if d > limit:
+            fail(f"phase 4j: {name} differs by {d:.3g} after {steps} steps "
+                 f"(> {limit:.3g})")
+    # (b) save -> load into a fresh network -> predict, bitwise
+    path = os.path.join(tmp, "4j")
+    models["card"].save(path)
+    fresh = ptt.Model(j_network(ptt, 2, 0.0))
+    fresh.prepare(ptt.optimizer.AdamW(A_LR,
+                                      parameters=fresh.parameters()),
+                  ptt.nn.CrossEntropyLoss())
+    fresh.load(path)
+    a = models["card"].predict(ds, batch_size=4, stack_outputs=True)[0]
+    b = fresh.predict(ds, batch_size=4, stack_outputs=True)[0]
+    if a.shape != (16, 2) or not np.array_equal(a, b):
+        fail(f"phase 4j (b): predict after save -> load differs (max "
+             f"{np.abs(a - b).max() if a.shape == b.shape else a.shape})")
+    worst["saved"] = sorted(os.listdir(tmp))
+    return worst, steps
+
+
+def beam_parity(torch, ptt):
+    """Phase 4j (c): BeamSearchDecoder + dynamic_decode over an LSTMCell
+    (beam 4; the output layer scaled x4 so the scores spread) on the card
+    and on the CPU with the same weights: the same tokens."""
+    from paddle_tpu_torch.device import device_guard
+
+    c = J_BEAM
+    ptt.seed(47)
+    mods = (ptt.nn.LSTMCell(c["embed"], c["hidden"]),
+            ptt.nn.Embedding(c["vocab"], c["embed"]),
+            ptt.nn.Linear(c["hidden"], c["vocab"]))
+    with torch.no_grad():
+        mods[2].weight.mul_(4.0)
+    with device_guard("cpu"):
+        cpu = (ptt.nn.LSTMCell(c["embed"], c["hidden"]),
+               ptt.nn.Embedding(c["vocab"], c["embed"]),
+               ptt.nn.Linear(c["hidden"], c["vocab"]))
+    for a, b in zip(mods, cpu):
+        b.set_state_dict(a.state_dict())
+    rs = np.random.RandomState(53)
+    h0 = rs.randn(c["batch"], c["hidden"]).astype(np.float32)
+    c0 = rs.randn(c["batch"], c["hidden"]).astype(np.float32)
+    out = {}
+    for key, dev, (cell, emb, head) in (("card", DEV, mods),
+                                        ("cpu", "cpu", cpu)):
+        dec = ptt.nn.BeamSearchDecoder(cell, 1, 2, c["beam"],
+                                       embedding_fn=emb, output_fn=head)
+        with torch.no_grad():
+            ids, _, lens = ptt.nn.dynamic_decode(
+                dec, (torch.from_numpy(h0).to(dev),
+                      torch.from_numpy(c0).to(dev)),
+                max_step_num=c["steps"], return_length=True)
+        out[key] = (ids.cpu(), lens.cpu())
+    if not (torch.equal(out["card"][0], out["cpu"][0])
+            and torch.equal(out["card"][1], out["cpu"][1])):
+        fail("phase 4j (c): beam-search tokens on the card differ from the "
+             "CPU's")
+    return tuple(out["card"][0].shape)
+
+
+def model_fit_phase(torch, card):
+    """Phase 4j: paddle.Model card vs CPU (a), save / load (b), beam
+    search (c)."""
+    import tempfile
+
+    import paddle_tpu_torch as ptt
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        worst, steps = model_fit_parity(torch, ptt, tmp)
+    shape = beam_parity(torch, ptt)
+    say(f"phase 4j (a) paddle.Model(api_classifier, 2 layers, padding mask "
+        f"from the ids).fit, f32 B4 S128 (16 samples, lengths 32-128, one "
+        f"epoch, {steps} fused AdamW steps), DataLoader(num_workers=2) on "
+        f"the card vs num_workers=0 on the CPU: batches bitwise equal, loss "
+        f"rel diff {worst['loss']:.3g} (limit 1e-4), worst gradient diff "
+        f"{worst['grad']:.3g} of its magnitude (limit 1e-3), worst "
+        f"parameter diff {worst['param']:.3g} (limit "
+        f"{2 * A_LR * steps + 1e-6:.3g}), accuracies equal ({worst['ties']} "
+        f"near ties); {'/'.join(FLASH_BIAS)} 2 launches each per step, "
+        f"unbiased and the dense path none")
+    say(f"phase 4j (b) Model.save -> Model.load into a fresh network: "
+        f"predict bitwise equal ({', '.join(worst['saved'])}); (c) "
+        f"BeamSearchDecoder + dynamic_decode over LSTMCell (beam "
+        f"{J_BEAM['beam']}, ids {list(shape)}): tokens card == CPU; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+
+
+def model_fit_throughput(torch):
+    """Phase 6j: a user's paddle.Model.fit at BERT-base width (12 layers,
+    float32 — Model has no amp — dropout 0.1 outside attention) on
+    J_TRAIN padded samples (lengths 64..512) with
+    fit(batch_size=16, epochs=2, shuffle=True, num_workers=2,
+    drop_last=True): ms a step (median of steps 3-8, host clock: a step
+    ends on its loss's host read), padded tokens/s, the DataLoader's wait
+    between steps, peak memory, launches; then evaluate and predict on
+    J_EVAL samples. Two idle shares: within a step (two profiled
+    train_batch calls on one batch over the median step) and over fit's
+    whole window (a second, profiled fit's device busy time over the
+    measured fit's wall, which holds the workers' start at each epoch)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    ptt.seed(59)
+    net = j_network(ptt, 12, 0.1)
+    model = ptt.Model(net)
+    model.prepare(ptt.optimizer.AdamW(A_LR, parameters=net.parameters(),
+                                      weight_decay=0.01),
+                  ptt.nn.CrossEntropyLoss(), ptt.metric.Accuracy())
+    train, lens = j_dataset(ptt, J_TRAIN, J_SEQ, 64, 61)
+    held, _ = j_dataset(ptt, J_EVAL, J_SEQ, 64, 67)
+    marks = {"begin": [], "end": []}
+
+    class Clock(ptt.callbacks.Callback):
+        def on_batch_begin(self, mode, step, logs=None):
+            marks["begin"].append(time.perf_counter())
+
+        def on_batch_end(self, mode, step, logs=None):
+            marks["end"].append(time.perf_counter())
+            marks.setdefault("losses", []).append(logs[0][0])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()                          # main path
+    with DenseSpy() as dense:
+        np.random.seed(71)
+        t0 = time.perf_counter()
+        model.fit(train, batch_size=16, epochs=2, shuffle=True,
+                  num_workers=2, drop_last=True, verbose=0,
+                  callbacks=[Clock()])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    fit_counts = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [(e - b) * 1e3 for b, e in zip(marks["begin"], marks["end"])]
+    waits = [(b - e) * 1e3 for e, b in zip(marks["end"][:-1],
+                                          marks["begin"][1:])]
+    kernels.reset_launch_counts()                          # main path
+    res = model.evaluate(held, batch_size=16, num_workers=2)
+    eval_counts = kernels.launch_counts()
+    kernels.reset_launch_counts()                          # main path
+    pred = model.predict(held, batch_size=16, stack_outputs=True)[0]
+    pred_counts = kernels.launch_counts()
+    ids = torch.from_numpy(np.stack([held[i][0] for i in range(16)]))
+    labels = torch.from_numpy(np.stack([held[i][1] for i in range(16)]))
+    ids, labels = ids.to(DEV), labels.to(DEV)
+    busy = profiled_busy(torch, lambda: [model.train_batch([ids], [labels])
+                                         for _ in range(2)])
+    # the whole fit window: one more fit as the measured one, profiled;
+    # its device busy time over the measured fit's wall
+    np.random.seed(71)
+    fit_busy = profiled_busy(torch, lambda: model.fit(
+        train, batch_size=16, epochs=2, shuffle=True, num_workers=2,
+        drop_last=True, verbose=0), host_ops=False)
+    ms = statistics.median(step_ms[2:8])
+    return {"step_ms": step_ms, "ms": ms, "waits": waits,
+            "first_wait": (marks["begin"][0] - t0) * 1e3,
+            "fit_busy_s": fit_busy, "fit_idle": 1 - fit_busy / fit_s,
+            "tokens_per_sec": 16 * J_SEQ / (ms / 1e3),
+            "real_tokens": int(lens.sum()), "peak": peak, "fit_s": fit_s,
+            "fit_counts": fit_counts, "eval_counts": eval_counts,
+            "pred_counts": pred_counts, "dense": dense.calls,
+            "losses": marks["losses"], "eval": res, "pred_shape":
+            pred.shape, "pred_finite": bool(np.isfinite(pred).all()),
+            "busy_ms": busy / 2 * 1e3, "idle": 1 - busy / 2 / (ms / 1e3)}
+
+
 # ---- phase 4: decoder parity across devices --------------------------------
 
 def decoder_parity(torch, cfg, params_gpu, kv_dtype, atol, rel=False):
@@ -3681,13 +4004,14 @@ def spec_axis_pool(torch, model, card):
     return [cands[i] for i in keep], [refs[i] for i in keep]
 
 
-def profiled_busy(torch, drive):
+def profiled_busy(torch, drive, host_ops=True):
     """One more pass of `drive` under torch.profiler: the device's busy
-    time in seconds (every CUDA kernel and copy)."""
+    time in seconds (every CUDA kernel and copy). host_ops=False records
+    the device's activity alone (a cheaper trace of a long pass)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]
+                 if host_ops else [ProfilerActivity.CUDA]) as prof:
         drive()
         torch.cuda.synchronize()
     busy = 0.0
@@ -8563,6 +8887,11 @@ def main():
     api_parity_phase(torch, card)
     torch.cuda.empty_cache()
 
+    # phase 4j: the Paddle 2.0 API, part 2 — paddle.Model over DataLoader
+    # worker processes, save / load, beam search; card vs CPU
+    model_fit_phase(torch, card)
+    torch.cuda.empty_cache()
+
     # phase 4e: long-context training parity past the switch, card vs CPU
     S = 13312
     cfg_long = GPT2Config(vocab_size=1024, hidden_size=128, num_layers=2,
@@ -8977,6 +9306,66 @@ def main():
             f"dense path none; device busy {tr['busy_ms']:.2f} ms a step "
             f"(profiler), idle share {tr['idle']:.3f}; "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del tr
+    torch.cuda.empty_cache()
+
+    # phase 6j: a user's paddle.Model.fit at BERT-base width over
+    # DataLoader worker processes, then evaluate and predict; their K4 bias
+    # / K6 / K9 bias launches join the kernels line
+    t0 = time.perf_counter()
+    tr = model_fit_throughput(torch)
+    steps = len(tr["step_ms"])
+    layers = 12
+    if steps != 8 or not all(np.isfinite(tr["losses"])):
+        fail(f"phase 6j: {steps} steps (expected 8), losses {tr['losses']}")
+    if not 0 < tr["fit_busy_s"] < tr["fit_s"] * 1.5:
+        fail(f"phase 6j: the profiled fit recorded {tr['fit_busy_s']} s of "
+             f"device time against a {tr['fit_s']} s fit")
+    for n in FLASH_BIAS:
+        if tr["fit_counts"][n] != layers * steps:
+            fail(f"phase 6j: fit launched {n} {tr['fit_counts'][n]} times "
+                 f"in {steps} steps, expected {layers * steps}")
+    for what in ("eval_counts", "pred_counts"):
+        c = tr[what]
+        if c["flash_fwd_bias"] != layers * 2 or c["flash_delta"] or \
+                c["flash_bwd_bias"]:
+            fail(f"phase 6j: {what[:-7]} (2 batches) launched {c}, "
+                 f"expected K4 bias {layers * 2} and no backward")
+    for c in (tr["fit_counts"], tr["eval_counts"], tr["pred_counts"]):
+        if c["flash_fwd"] or c["flash_bwd"]:
+            fail(f"phase 6j: unbiased kernels ran {c}")
+        for n in FLASH_BIAS:
+            main_counts[n] = main_counts.get(n, 0) + c[n]
+    if tr["dense"]:
+        fail(f"phase 6j: the dense attention path ran {tr['dense']} times")
+    if tr["pred_shape"] != (J_EVAL, 2) or not tr["pred_finite"] or \
+            not np.isfinite(tr["eval"]["loss"][0]):
+        fail(f"phase 6j: evaluate {tr['eval']}, predict {tr['pred_shape']}")
+    say(f"phase 6j paddle.Model(api_classifier at BERT-base width, 12 "
+        f"layers).fit f32 (Model has no amp), dropout 0.1, AdamW, "
+        f"batch_size 16 x {J_SEQ} padded ({J_TRAIN} samples, lengths "
+        f"64-{J_SEQ}, {tr['real_tokens']} real tokens an epoch), 2 epochs, "
+        f"shuffle, num_workers=2, drop_last: ms_per_step {tr['ms']:.2f} "
+        f"(median of steps 3-8, host clock; all "
+        f"{' '.join(f'{x:.1f}' for x in tr['step_ms'])}) tokens_per_sec "
+        f"{tr['tokens_per_sec']:.1f} (padded) max_memory_allocated "
+        f"{tr['peak'] / 2**20:.0f} MiB; DataLoader wait between steps "
+        f"median {statistics.median(tr['waits']):.2f} ms (max "
+        f"{max(tr['waits']):.2f}; before the first step "
+        f"{tr['first_wait']:.1f} ms, at epoch 2's start "
+        f"{tr['waits'][3]:.1f} ms); device busy {tr['busy_ms']:.2f} ms a "
+        f"step (profiler), idle share within a step {tr['idle']:.3f}; fit "
+        f"{tr['fit_s'] * 1e3:.1f} ms wall, device busy "
+        f"{tr['fit_busy_s'] * 1e3:.1f} ms over it (a profiled second fit), "
+        f"idle share over fit {tr['fit_idle']:.3f}; launches fit "
+        f"{ {n: tr['fit_counts'][n] for n in FLASH_BIAS} } ({layers} each a "
+        f"step), evaluate / predict K4 bias "
+        f"{tr['eval_counts']['flash_fwd_bias']} / "
+        f"{tr['pred_counts']['flash_fwd_bias']} ({layers} a batch), "
+        f"unbiased and the dense path none; evaluate loss "
+        f"{tr['eval']['loss'][0]:.4f} acc {tr['eval']['acc']:.3f}; phase "
+        f"{time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
     del tr
     torch.cuda.empty_cache()
 

@@ -43,6 +43,17 @@ every op of `ops` (`paddle.reshape(x, shape)`, ...), and the namespaces
 op names bind lazily (PEP 562), so processes that import the package for
 its serving path (the fleet's spawned workers) do not pay for them.
 
+Slice 24 is the Paddle 2.0 API, part 2: `paddle.Model` (`hapi`: fit /
+evaluate / predict / save / load, the callbacks, `flops`, `summary`),
+`io` (datasets, samplers, the DataLoader and its worker processes over
+the native byte queue of `csrc/native_runtime.cpp`, built by g++ at
+first use), `metric`, `save` / `load` (`framework.io`, reading the
+reference's files too), control flow (`cond`, `while_loop`, ...), the
+fluid-era layers with the beam-search decoder (`nn.layer.legacy`),
+`distribution`, `regularizer` and the compat names (`compat`:
+`elementwise_*`, `reduce_*`, `rank`, `shape`, ...). They bind lazily
+too.
+
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes
 `device="cpu"` or calls `set_device("cpu")` (see
@@ -69,30 +80,40 @@ from .device import (  # noqa: F401
 )
 
 _LAZY_MODULES = ("nn", "ops", "amp", "optimizer", "linalg", "tensor",
-                 "models", "inference", "jit", "distributed", "parallel")
+                 "models", "inference", "jit", "distributed", "parallel",
+                 "io", "metric", "hapi", "framework", "distribution",
+                 "regularizer", "compat", "callbacks")
+# name -> (module, attribute): the high-level API's names
+_LAZY_NAMES = {"Model": ("hapi.model", "Model"),
+               "save": ("framework.io", "save"),
+               "load": ("framework.io", "load"),
+               "flops": ("hapi.static_flops", "flops"),
+               "summary": ("hapi.model_summary", "summary"),
+               "L1Decay": ("regularizer", "L1Decay"),
+               "L2Decay": ("regularizer", "L2Decay")}
 
 
 def __getattr__(name):
     # PEP 562: the heavy namespaces and the op names bind at first use
     if name in _LAZY_MODULES:
-        mod = _importlib.import_module("." + name, __name__)
+        path = "hapi.callbacks" if name == "callbacks" else name
+        mod = _importlib.import_module("." + path, __name__)
         globals()[name] = mod
         return mod
+    if name in _LAZY_NAMES:
+        path, attr = _LAZY_NAMES[name]
+        obj = getattr(_importlib.import_module("." + path, __name__), attr)
+        globals()[name] = obj
+        return obj
+    compat = _importlib.import_module(".compat", __name__)
+    if name in compat.__all__:
+        globals()[name] = getattr(compat, name)
+        return globals()[name]
     ops = _importlib.import_module(".ops", __name__)
     if name in ops.__all__ or name in ("abs_", "max_", "min_", "sum_"):
         globals()[name] = getattr(ops, name)
         return globals()[name]
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def summary(net, input_size=None, dtypes=None, input=None):  # noqa: A002
-    """Print and return the total and trainable parameter counts."""
-    total = sum(p.numel() for p in net.parameters())
-    trainable = sum(p.numel() for p in net.parameters()
-                    if getattr(p, "trainable", p.requires_grad))
-    print(f"Total params: {total:,}\n"  # cli-print: summary() report
-          f"Trainable params: {trainable:,}")
-    return {"total_params": total, "trainable_params": trainable}
 
 
 __all__ = ["resolve_device", "set_device", "get_device", "seed",
@@ -105,4 +126,5 @@ __all__ = ["resolve_device", "set_device", "get_device", "seed",
            "is_compiled_with_xpu", "float16", "bfloat16", "float32",
            "float64", "int8", "int16", "int32", "int64", "uint8", "bool_",
            "complex64", "complex128", "set_default_dtype",
-           "get_default_dtype", "summary"]
+           "get_default_dtype", "summary", "Model", "save", "load",
+           "flops", "L1Decay", "L2Decay"]

@@ -1,8 +1,9 @@
 """`paddle.nn` of the port: the `Layer` base and containers, the common
 layers, activations, convolutions, pools, losses, norms, recurrent
 layers and the Transformer (`layer`), `functional`, `initializer`,
-`utils` (weight norm), `clip` (gradient clipping) and `decode` (the
-paged decoder of the serving path)."""
+`utils` (weight norm), `clip` (gradient clipping), `decode` (the
+paged decoder of the serving path), and the fluid-era layer classes
+with the beam-search decoder (`layer.legacy`)."""
 from . import clip  # noqa: F401
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
@@ -48,6 +49,13 @@ from .layer.transformer import (MultiHeadAttention,  # noqa: F401
                                 TransformerEncoderLayer,
                                 set_dropout_generator)
 from . import utils  # noqa: F401,E402
+# the fluid 1.x layer classes and decoding the 2.0 nn namespace keeps
+from .layer.legacy import (  # noqa: F401,E402
+    AdaptiveMaxPool3D, BeamSearchDecoder, BilinearTensorProduct, Decoder,
+    DynamicRNN, HSigmoidLoss, NCELoss, Pool2D, RowConv, StaticRNN, TreeConv,
+    ctc_greedy_decoder, dynamic_decode,
+)
+from ..ops.control import cond, while_loop  # noqa: F401,E402
 
 __all__ = [
     "clip", "functional", "initializer", "utils", "ClipGradByGlobalNorm",
@@ -75,4 +83,7 @@ __all__ = [
     "RNN", "BiRNN", "GRUCell", "LSTMCell", "RNNCellBase", "SimpleRNN",
     "SimpleRNNCell", "MultiHeadAttention", "Transformer",
     "TransformerDecoder", "TransformerDecoderLayer", "TransformerEncoder",
-    "TransformerEncoderLayer", "set_dropout_generator"]
+    "TransformerEncoderLayer", "set_dropout_generator", "AdaptiveMaxPool3D",
+    "BeamSearchDecoder", "BilinearTensorProduct", "Decoder", "DynamicRNN",
+    "HSigmoidLoss", "NCELoss", "Pool2D", "RowConv", "StaticRNN", "TreeConv",
+    "ctc_greedy_decoder", "dynamic_decode", "cond", "while_loop"]

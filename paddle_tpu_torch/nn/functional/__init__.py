@@ -3,8 +3,10 @@
 `ops.loss`) and its own functions — `sequence_mask`, `diag_embed`,
 `adaptive_max_pool3d`, `spectral_norm`, `layer_norm` with the 2.0
 signature `(x, normalized_shape, weight, bias, epsilon)`. The fluid-era
-`sequence`, `legacy` and `detection` re-exports are not ported yet
-(ROADMAP §A 10 (e2))."""
+ops the legacy layers run are in `legacy` (`pool2d`, `pool3d`,
+`gather_tree`, `hsigmoid_loss`, `bilinear`); the rest of the reference's
+`legacy`, `sequence` and `detection` re-exports are not ported yet
+(ROADMAP §A 10 (e3))."""
 from __future__ import annotations
 
 import sys as _sys
@@ -34,6 +36,9 @@ from ...ops import (  # noqa: F401
     thresholded_relu, triplet_margin_loss, unfold, upsample,
 )
 from ...ops import diag_embed  # noqa: F401
+from . import legacy  # noqa: F401
+from .legacy import (bilinear, gather_tree, hsigmoid_loss,  # noqa: F401
+                     pool2d, pool3d)
 from ...ops import nn_ops as _nn_ops
 
 grid_sampler = grid_sample

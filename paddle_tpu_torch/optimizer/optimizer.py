@@ -43,21 +43,8 @@ import warnings
 import torch
 
 from ..device import resolve_device
+from ..regularizer import L1Decay, L2Decay
 from .lr import LRScheduler
-
-
-class L2Decay:
-    """Coupled L2 regularization: g + coeff * p."""
-
-    def __init__(self, coeff=0.0):
-        self.coeff = float(coeff)
-
-
-class L1Decay:
-    """Coupled L1 regularization: g + coeff * sign(p)."""
-
-    def __init__(self, coeff=0.0):
-        self.coeff = float(coeff)
 
 
 def _vnorm(x):

@@ -2774,3 +2774,114 @@ def test_api_float16_attention_takes_the_dense_path(dev):
         want.set_state_dict(mha.state_dict())
         ref = want(x.float(), x.float(), x.float())
     assert (out.float() - ref).abs().max() <= 1e-2
+
+
+# ---- the Paddle 2.0 API, part 2: Model.fit and the DataLoader on the card ----
+
+class _PaddedText:
+    """(ids [96] with pad id 0 past the length, label) a sample."""
+
+    def __init__(self, n=8):
+        rs = np.random.RandomState(6)
+        lens = rs.randint(20, 97, n)
+        self.ids = rs.randint(1, 1000, (n, 96)) * (
+            np.arange(96)[None] < lens[:, None])
+        self.labels = rs.randint(0, 2, (n, 1))
+
+    def __len__(self):
+        return len(self.ids)
+
+    def __getitem__(self, i):
+        return self.ids[i], self.labels[i]
+
+
+def _masked(ptt, inner):
+    """The user's network of one input: the padding mask from the ids."""
+
+    class Masked(ptt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, ids):
+            return self.inner(ids, ptt.cast(ids != 0, "int64"))
+
+    return Masked()
+
+
+def test_api_model_fit_on_card_matches_cpu(dev):
+    """paddle.Model(net).fit over DataLoader worker processes on the card
+    against num_workers=0 on the CPU from the same weights and seed: the
+    same batches, each step's loss within 1e-4, the parameters within
+    2 · lr · steps; K4 bias / K6 / K9 bias launched once a layer a step
+    (2 layers, 2 steps)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.device import device_guard
+    from paddle_tpu_torch.ops import kernels
+
+    ptt.seed(0)
+    net = _masked(ptt, _api_classifier(ptt, 2))
+    with device_guard("cpu"):
+        cpu = _masked(ptt, _api_classifier(ptt, 2))
+        cpu.set_state_dict(net.state_dict())
+    seen = {}
+    for d, model, workers in (("cuda", net, 2), ("cpu", cpu, 0)):
+        with device_guard(d):
+            m = ptt.Model(model)
+            m.prepare(ptt.optimizer.AdamW(1e-4,
+                                          parameters=model.parameters()),
+                      ptt.nn.CrossEntropyLoss(), ptt.metric.Accuracy())
+            losses, batches = [], []
+
+            class Rec(ptt.callbacks.Callback):
+                def on_batch_end(self, mode, step, logs=None):
+                    losses.append(logs[0][0])
+
+            real = m.train_batch
+
+            def spy(inputs, labels=None):
+                batches.append(inputs[0].cpu().clone())
+                assert inputs[0].device.type == d
+                return real(inputs, labels)
+
+            m.train_batch = spy
+            kernels.reset_launch_counts()
+            np.random.seed(3)
+            m.fit(_PaddedText(), batch_size=4, epochs=1, shuffle=True,
+                  num_workers=workers, verbose=0, callbacks=[Rec()])
+            seen[d] = (losses, batches, kernels.launch_counts())
+    (lc, bc, counts), (lp, bp, _) = seen["cuda"], seen["cpu"]
+    assert len(bc) == len(bp) == 2
+    for a, b in zip(bc, bp):
+        assert torch.equal(a, b)
+    for a, b in zip(lc, lp):
+        assert abs(a - b) <= 1e-4 * abs(b)
+    for n in ("flash_fwd_bias", "flash_delta", "flash_bwd_bias"):
+        assert counts[n] == 4, counts
+    assert counts["flash_fwd"] == counts["flash_bwd"] == 0
+    for a, c in zip(net.parameters(), cpu.parameters()):
+        assert (a.detach().cpu() - c.detach()).abs().max() <= 4e-4 + 1e-6
+
+
+class _CudaState:
+    def __len__(self):
+        return 8
+
+    def __getitem__(self, i):
+        return np.array([i, int(torch.cuda.is_initialized())], np.int64)
+
+
+def test_api_dataloader_worker_does_not_init_cuda(dev):
+    """The consumer has started CUDA; its forked workers never do (they
+    ship numpy), and the batches land on the card."""
+    import paddle_tpu_torch as ptt
+
+    torch.zeros(1, device=dev)
+    assert torch.cuda.is_initialized()
+    rows = []
+    for b in ptt.io.DataLoader(_CudaState(), batch_size=2, num_workers=2):
+        assert b.device.type == "cuda"
+        rows.append(b.cpu())
+    rows = torch.cat(rows)
+    assert rows[:, 0].tolist() == list(range(8))
+    assert rows[:, 1].tolist() == [0] * 8

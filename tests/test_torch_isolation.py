@@ -91,7 +91,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                                    "init_opt_state", "PSEmbedding",
                                    "SyncBatchNorm", "optimizer.step",
                                    "fleet.build_worker_server", "to_tensor",
-                                   "zeros", "nn.Linear", "set_device"])
+                                   "zeros", "nn.Linear", "set_device",
+                                   "DataLoader", "Model"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
@@ -152,6 +153,13 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         return H.init_hybrid_gpt2_params(gen(), 32, 32, 2, 2, 1, 16, **kw)
 
     hybrid_np = {k: v.numpy() for k, v in hybrid(device="cpu").items()}
+    import numpy as np
+
+    from paddle_tpu_torch.io import DataLoader, TensorDataset
+
+    ds = TensorDataset([np.ones((4, 2), np.float32)])
+    with device_guard("cpu"):
+        user_net = ptt.nn.Linear(2, 3)
     calls = {
         "resolve_device": lambda **kw: resolve_device(**kw),
         "GPT2": lambda **kw: GPT2(cfg, **kw),
@@ -187,12 +195,29 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
         "zeros": lambda **kw: on(kw, lambda: ptt.zeros([2])),
         "nn.Linear": lambda **kw: on(kw, lambda: ptt.nn.Linear(4, 8)),
         "set_device": set_dev,
+        "DataLoader": lambda **kw: list(DataLoader(
+            ds, batch_size=2, places=kw.get("device"))),
+        "Model": lambda **kw: on(kw, lambda: ptt.Model(
+            user_net).predict_batch(np.ones((1, 2), np.float32))),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry](device="cuda")
     assert calls[entry](device="cpu") is not None
+
+
+def test_no_prebuilt_binary_under_csrc():
+    """csrc/ holds sources only: the kernels and the native runtime are
+    built at first use into _build/ (gitignored)."""
+    csrc = os.path.join(PKG, "csrc")
+    names = sorted(os.listdir(csrc))
+    assert "native_runtime.cpp" in names
+    for name in names:
+        assert os.path.splitext(name)[1] in (".cu", ".cuh", ".cpp"), name
+        with open(os.path.join(csrc, name), "rb") as f:
+            head = f.read(4096)
+        assert not head.startswith(b"\x7fELF") and b"\0" not in head, name
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -110,25 +110,67 @@ def test_launch_nproc_per_node(tmp_path, module):
     _check(str(tmp_path))
 
 
+def _coordinator_port():
+    """A free port below the kernel's ephemeral range, where no outgoing
+    connection of another process (the suite's other tests run beside
+    this one) can take it between this check and rank 0's bind."""
+    import random
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            low = int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        low = 32768
+    rng = random.Random()
+    while True:
+        port = rng.randrange(max(1024, low - 12000), low)
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+            return port
+
+
 def test_launch_one_process_a_rank_with_coordinator(tmp_path):
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    """Each rank's output goes to a file (a pipe nobody reads until the
+    end would block a chatty rank); a rendezvous whose port another
+    process took in the meantime (rank 0's store fails with EADDRINUSE,
+    and rank 1 would wait for it until the limit) is started again on a
+    new port, within the same 240 s."""
+    import time
     script = _script(tmp_path)
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
-         f"--coordinator=127.0.0.1:{port}", "--num_processes=2",
-         f"--process_id={pid}", script, str(tmp_path), "ok"],
-        cwd=REPO, env=_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True) for pid in range(2)]
-    outs = []
-    for p in procs:
+    deadline = time.monotonic() + 240
+    for attempt in range(3):
+        port = _coordinator_port()
+        logs = [tmp_path / f"a{attempt}_rank{pid}.log" for pid in range(2)]
+        procs = []
+        for pid in range(2):
+            with open(logs[pid], "w") as out:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m",
+                     "paddle_tpu_torch.distributed.launch",
+                     f"--coordinator=127.0.0.1:{port}", "--num_processes=2",
+                     f"--process_id={pid}", script, str(tmp_path), "ok"],
+                    cwd=REPO, env=_env(), stdout=out,
+                    stderr=subprocess.STDOUT, text=True))
         try:
-            outs.append((p.wait(timeout=240), p.stderr.read()))
-        except subprocess.TimeoutExpired:
-            for q in procs:
-                q.kill()
-            raise
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break  # a rank failed: its peer would wait forever
+                if time.monotonic() > deadline:
+                    raise subprocess.TimeoutExpired(procs[0].args, 240)
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        outs = [(p.returncode, log.read_text()) for p, log in
+                zip(procs, logs)]
+        if all(rc == 0 for rc, _ in outs):
+            break
+        if not any("EADDRINUSE" in text for _, text in outs):
+            break
     assert all(rc == 0 for rc, _ in outs), outs
     _check(str(tmp_path))
 
