@@ -325,6 +325,35 @@ non-zero before the result line:
                K6 / K9 bias 12 x steps (they join the kernels line), no
                unbiased kernel and no dense path, and the idle share of a
                profiled pass of 2 steps;
+  4v. paddle.vision and the fluid-era ops (after 4j; `vision_parity_phase`),
+               TF32 off: (a) ResNet-50 (1000 classes) at B 2, 224², one
+               train step + AdamW (lr 1e-4, wd 0.01) on the card, NCHW
+               and NHWC, against NCHW on the CPU from one set of weights:
+               float64 — loss 1e-4, every gradient 1e-3 of its leaf,
+               BatchNorm buffers 1e-4, parameters 2 lr; float32 — the
+               loss, buffers and parameters by the same limits, the
+               gradients printed beside the CPU's own float32 step
+               against float64 (batch norm's backward at B 2 moves them
+               by tenths on either device: not gated); the CPU's NHWC
+               step bitwise its NCHW one; (b) the sequence ops, CRF,
+               nce, deformable_conv, image_resize,
+               fused_multi_head_attention (one dense-path call) and the
+               detection chain (yolo_box -> multiclass_nms, roi_align /
+               roi_pool, prior_box -> box_coder, generate_proposals),
+               card vs CPU: indices and classes equal, floats within 1e-4
+               of the largest; (c) Model(resnet18(num_classes=10)).fit,
+               2 Momentum steps over Cifar10's synthetic data through
+               Compose([Normalize, Transpose]), 2 workers on the card vs
+               0 on the CPU: batches bitwise; float64 losses and
+               gradients within 4j's limits, float32's first loss;
+  6v. bench.py's resnet50 axis (after 6j; `vision_throughput_phase`):
+               ResNet-50 at 224², B 128 and 256, NCHW and NHWC,
+               amp.auto_cast() (bf16 convolutions, O1) + AdamW on float32
+               parameters, random images and labels from RandomState(0);
+               2 warm and 5 measured steps: ms a step, samples/s, FLOP/s
+               at bench.py's 3 x 4.1e9 a sample beside the 989 TFLOP/s
+               peak, peak memory, the idle share of a profiled step,
+               finite losses; no kernel of the port on this path;
   3d. two-pass flash — K7 (dq) and K8 (dk, dv) and their bias variants
                K7 bias / K8 bias (dbias too), with K4 (bias) and K6 before
                them, against their plain versions on the same inputs, bf16
@@ -550,8 +579,9 @@ non-zero before the result line:
                gloo: NCCL refuses two ranks on one device), each with a
                hard limit (H_TIMEOUT: the ranks are killed and the phase
                fails). The parent first computes reference_loss of the
-               hybrid GPT-2 small (hidden 768, 12 heads, 12 layers, vocab
-               50257 padded to 50258) at B 8 x S 1024, its gradients and
+               hybrid GPT-2 small (hidden 768, 12 heads, vocab 50257
+               padded to 50258; depth cut to 4 of its 12 layers,
+               `H_MODEL`, for (b)-(d), (g) and 6h) at B 8 x S 1024, its gradients and
                two AdamW steps (lr 1e-4, wd 0.01) on the card; (d) the
                world of one (the hybrid code, every axis 1) within 1e-6
                of it — at every axis 1 the hybrid code takes the same
@@ -585,7 +615,8 @@ non-zero before the result line:
   4k. the fleet's strategy layer (after 4h/6h), float32, TF32 off: the
                parent runs the world of one (`fleet.init` ->
                `distributed_optimizer` -> `build_hybrid_train_step`,
-               GPT-2 small, B 4 x S 1024: its gradients at the initial
+               GPT-2 small widths at 4 of its 12 layers (`K_LAYERS`),
+               B 4 x S 1024: its gradients at the initial
                weights and two AdamW steps, lr 1e-4, wd 0.01; then the
                amp step timed), 2 ranks spawned on the card over gloo,
                hard limit K_TIMEOUT: (a) plain, ZeRO stages 1-3,
@@ -7266,7 +7297,10 @@ def sharded_phase(torch, card, unsharded_k1):
 # ---- phases 4h and 6h: parallel training over torch.distributed ------------
 
 # GPT-2 small's widths; the hybrid's batch; the pipeline's and MoE's sizes
-H_MODEL = dict(vocab=50257, hidden=768, heads=12, layers=12, max_pos=1024)
+# depth cut to 4 of GPT-2 small's 12 layers for 4h (b)-(d), (g) and 6h
+# (the script's time limit; every check stays; pp 2 takes 2 layers a stage)
+H_MODEL = dict(vocab=50257, hidden=768, heads=12, layers=4, max_pos=1024)
+H_DEPTH = f"{H_MODEL['layers']} of its 12 layers"
 H_BATCH, H_SEQ, H_MICRO = 8, 1024, 2
 H_RING = (2, 12, 1024, 64)     # (a): B, H, S, D
 H_PP = (4, 256)                # (e): B, S
@@ -7772,7 +7806,7 @@ def hybrid_phase(torch, card, phase6_ms):
             fail(f"phase 4h (d) world of one vs reference_loss: loss diff "
                  f"{one_loss:.3g}, worst gradient diff {one_grad:.3g}")
         say(f"phase 4h (d) world of one vs reference_loss (f32 B{H_BATCH} "
-            f"S{H_SEQ}): loss diff {one_loss:.3g}, largest gradient diff "
+            f"S{H_SEQ}, {H_DEPTH}): loss diff {one_loss:.3g}, largest gradient diff "
             f"{one_grad:.3g} (limit 1e-6; at every axis 1 the hybrid code runs "
         f"reference_loss's attention, layer norm and log_softmax, so this "
         f"holds the plumbing only: the vocab-parallel CE and the ring are "
@@ -7790,7 +7824,8 @@ def hybrid_phase(torch, card, phase6_ms):
         busy_txt = ("not measured" if any(x is None for x in busy) else
                     f"{min(busy):.3f}-{max(busy):.3f} (sum {sum(busy):.3f})")
         say(f"phase 6h bf16/f32-master hybrid step dp2 x pp2 x mp2 x sp2, "
-            f"B{H_BATCH} S{H_SEQ}, ZeRO-1 AdamW: ms_per_step "
+            f"GPT-2 small widths, {H_DEPTH}, B{H_BATCH} S{H_SEQ}, ZeRO-1 "
+            f"AdamW: ms_per_step "
             f"{b0['bf16_ms']:.1f}, device busy share per rank {busy_txt}, "
             f"host-staged collectives {b0['bf16_staged_s']:.3f} s a step "
             f"(rank 0; max {max(res[r]['bf16_staged_s'] for r in res):.3f})"
@@ -7798,7 +7833,7 @@ def hybrid_phase(torch, card, phase6_ms):
             f"16 ranks time-sharing one card over gloo: not a multi-GPU "
             f"number [{card}]")
         say(f"phase 6h world of one (the same code, every axis 1) bf16 B"
-            f"{H_BATCH} S{H_SEQ}: ms_per_step {one_ms:.1f}, losses "
+            f"{H_BATCH} S{H_SEQ}, {H_DEPTH}: ms_per_step {one_ms:.1f}, losses "
             f"{' '.join(f'{x:.4f}' for x in one_losses)}; phase 6's GPT-2 "
             f"step (B16 S1024) {phase6_ms:.2f} ms [{card}]")
         say(f"phase 4h/6h: world of {H_RANKS} {wall:.1f} s, both phases "
@@ -7848,8 +7883,8 @@ def checks_hybrid(res, ref_loss, ref_losses):
         fail(f"phase 4h (b): loss rel diff {loss_rel:.3g} (limit 1e-4), "
              f"worst gradient {grad[1]} on rank {grad[2]} {grad[0]:.3g} of "
              f"its magnitude (limit 1e-3)")
-    say(f"phase 4h (b) hybrid GPT-2 small dp2 x pp2 x mp2 x sp2 ({H_RANKS} "
-        f"ranks) f32 B{H_BATCH} S{H_SEQ}, {H_MICRO} microbatches, vocab "
+    say(f"phase 4h (b) hybrid GPT-2 small widths, {H_DEPTH}, dp2 x pp2 x "
+        f"mp2 x sp2 ({H_RANKS} ranks) f32 B{H_BATCH} S{H_SEQ}, {H_MICRO} microbatches, vocab "
         f"{H_MODEL['vocab']} padded to {-(-H_MODEL['vocab'] // 2) * 2}: loss {r0['loss']:.6f} vs "
         f"reference_loss {ref_loss:.6f}, rel diff {loss_rel:.3g} (limit "
         f"1e-4), worst gradient {grad[1]} {grad[0]:.3g} of its magnitude "
@@ -7871,8 +7906,8 @@ def checks_hybrid(res, ref_loss, ref_losses):
     if ctl < 0.99:
         fail(f"phase 4h (c): the unchanged-state control reads {ctl:.3g}, "
              f"not 1")
-    say(f"phase 4h (c) two AdamW steps (lr {H_LR}, wd 0.01) with ZeRO-1 "
-        f"slots (wpe's moments {r0['zero_slot']} a rank) vs single-rank "
+    say(f"phase 4h (c) {H_DEPTH}: two AdamW steps (lr {H_LR}, wd 0.01) "
+        f"with ZeRO-1 slots (wpe's moments {r0['zero_slot']} a rank) vs single-rank "
         f"AdamW: worst leaf update error ||p - p_ref|| / ||p_ref - p0|| "
         f"{upd[0]:.3g} ({upd[1]}, rank {upd[2]}; limit {H_UPDATE_REL:g}; "
         f"the state before the updates reads {ctl:.3g}), the two steps' "
@@ -7883,8 +7918,8 @@ def checks_hybrid(res, ref_loss, ref_losses):
     if bad:
         fail(f"phase 4h (d) two runs of the {H_RANKS}-rank step differ: "
              f"{bad}")
-    say(f"phase 4h (d) two runs of the {H_RANKS}-rank step: loss and every "
-        f"gradient bitwise equal on every rank")
+    say(f"phase 4h (d) two runs of the {H_RANKS}-rank step ({H_DEPTH}): "
+        f"loss and every gradient bitwise equal on every rank")
     for sched in ("gpipe", "interleaved"):
         w = [res[r][f"pp_{sched}"] for r in (0, 1)]
         lr_, gr = max(x["loss_rel"] for x in w), max(x["grad_rel"] for x in w)
@@ -7906,7 +7941,8 @@ def checks_hybrid(res, ref_loss, ref_losses):
     c = max(o["ckpt_loss_rel"] for o in res.values())
     if c > 1e-5:
         fail(f"phase 4h (g): reloaded loss rel diff {c:.3g}")
-    say(f"phase 4h (g) sharded checkpoint saved by {H_RANKS} ranks, "
+    say(f"phase 4h (g) sharded checkpoint ({H_DEPTH}) saved by {H_RANKS} "
+        f"ranks, "
         f"reloaded into dp4 x pp2 x mp2: loss rel diff {c:.3g} (limit 1e-5)")
 
 
@@ -7945,11 +7981,12 @@ K_SMALL_SETS = (               # (b): card against the CPU
                   {"accumulate_steps": 2}}, "AdamW"),
 )
 K_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd")
+K_LAYERS = 4                   # (a): depth cut to 4 of GPT-2 small's 12
 
 
 def _k_cfg(small=False):
     from paddle_tpu_torch.models import GPT2Config
-    return GPT2Config(num_layers=2 if small else 12, dropout=0.0)
+    return GPT2Config(num_layers=2 if small else K_LAYERS, dropout=0.0)
 
 
 def _k_batch(torch, cfg, b, s, seed):
@@ -8051,8 +8088,8 @@ def _k_counted(torch, dev, out, name, fn):
 
 
 def _k_full(torch, dev, out, ref_dir):
-    """(a): GPT-2 small at full width and depth, S 1024, dp 2, two steps
-    per flag set against the world of one."""
+    """(a): GPT-2 small at full width, K_LAYERS of its 12 layers, S 1024,
+    dp 2, two steps per flag set against the world of one."""
     cfg = _k_cfg()
     batch = _k_batch(torch, cfg, K_BATCH, K_SEQ, 21)
     ref_g = torch.load(os.path.join(ref_dir, "grads.pt"), mmap=True)
@@ -8455,7 +8492,8 @@ def checks_fleet(res, ref_losses, one_amp, one_ms, card):
                  f"(limit 1e-4), worst leaf update error {upd[1]} "
                  f"{upd[0]:.3g} (limit {K_UPDATE_REL:g}), gradients "
                  f"{grad:.3g} of their magnitude (limit 1e-3)")
-        say(f"phase 4k (a) fleet {name} GPT-2 small f32 dp {K_RANKS} B"
+        say(f"phase 4k (a) fleet {name} GPT-2 small widths, {K_LAYERS} of "
+            f"its 12 layers, f32 dp {K_RANKS} B"
             f"{K_BATCH} S{K_SEQ}, 2 AdamW steps vs the world of one: losses "
             f"{' '.join(f'{x:.6f}' for x in rows[0]['losses'])} (rel diff "
             f"{tl:.3g}), worst leaf update error {upd[0]:.3g} ({upd[1]})"
@@ -8470,7 +8508,8 @@ def checks_fleet(res, ref_losses, one_amp, one_ms, card):
         fail(f"phase 4k (a) amp: losses rel diff {rel:.3g} from float32 "
              f"(limit {BF16_DECODER_REL}), master dtypes "
              f"{[x['dtypes'] for x in amp]}")
-    say(f"phase 4k (a) fleet amp (bf16 compute, float32 masters): losses "
+    say(f"phase 4k (a) fleet amp ({K_LAYERS} of 12 layers, bf16 compute, "
+        f"float32 masters): losses "
         f"{' '.join(f'{x:.5f}' for x in amp[0]['losses'])} vs float32 "
         f"{' '.join(f'{x:.5f}' for x in ref_losses)} (rel diff {rel:.3g}, "
         f"limit {BF16_DECODER_REL}); masters {amp[0]['dtypes']}; ms_per_step "
@@ -8530,6 +8569,493 @@ def checks_fleet(res, ref_losses, one_amp, one_ms, card):
     say(f"phase 4k launches of the fleet's main path, summed over the "
         f"ranks: {counts}")
     return counts
+
+
+
+# ---- phases 4v / 6v: paddle.vision and the fluid-era ops --------------------
+
+V_SEED = 61
+V_LR = 1e-4                    # phase 4c's AdamW
+V_B, V_IMG = 2, 224            # 4v (a): ResNet-50's parity step
+V_FLOPS = 3 * 4.1e9            # bench.py's FLOPs a ResNet-50 sample (224²)
+V_BATCHES = (128, 256)         # 6v: bench.py's candidates on the card
+V_CIFAR_MEAN = [125.3, 123.0, 113.9]
+V_CIFAR_STD = [63.0, 62.1, 66.7]
+
+
+def _v_resnet50(ptt, data_format):
+    from paddle_tpu_torch.vision.models.resnet import BottleneckBlock, ResNet
+    return ResNet(BottleneckBlock, 50, num_classes=1000,
+                  data_format=data_format)
+
+
+def v_step(torch, ptt, model, x, y):
+    """One train-mode forward, backward and AdamW step (lr 1e-4, wd 0.01)
+    of `model` on its device: (loss, gradients, state after the step),
+    the tensors as float64 on the CPU."""
+    model.train()
+    dev = model.parameters()[0].device
+    opt = ptt.optimizer.AdamW(V_LR, parameters=model.parameters(),
+                              weight_decay=0.01, device=dev)
+    loss = ptt.nn.functional.cross_entropy(model(x), y)
+    loss.backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in model.named_parameters()}
+    opt.step()
+    state = {k: v.detach().double().cpu()
+             for k, v in model.state_dict().items()}
+    return loss.item(), grads, state
+
+
+def _v_worst(torch, got, want, keys=None):
+    """(worst error over the reference's largest magnitude, its key)."""
+    out = (-1.0, "")
+    for k in keys if keys is not None else want:
+        r = (got[k] - want[k]).abs().max().item() / max(
+            want[k].abs().max().item(), 1e-30)
+        out = max(out, (r, k))
+    return out
+
+
+def v_resnet_parity(torch, ptt):
+    """Phase 4v (a): ResNet-50 (1000 classes) at 224², B 2, one step on
+    the card and on the CPU from one set of weights, NCHW and NHWC, in
+    float32 and in float64. Returns the rows and the float32 floor."""
+    import copy
+
+    from paddle_tpu_torch.device import device_guard
+
+    rs = np.random.RandomState(V_SEED)
+    x = torch.from_numpy(rs.rand(V_B, 3, V_IMG, V_IMG).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, V_B))
+    with device_guard("cpu"):
+        ptt.seed(V_SEED)
+        base = _v_resnet50(ptt, "NCHW")
+        base_nhwc = _v_resnet50(ptt, "NHWC")
+        base_nhwc.set_state_dict(base.state_dict())
+    xs = {"NCHW": x, "NHWC": x.permute(0, 2, 3, 1).contiguous()}
+    bases = {"NCHW": base, "NHWC": base_nhwc}
+
+    def run(fmt, dev, dt):
+        m = copy.deepcopy(bases[fmt]).to(device=dev, dtype=dt)
+        return v_step(torch, ptt, m, xs[fmt].to(dev, dt), y.to(dev))
+
+    cpu = {dt: run("NCHW", "cpu", dt) for dt in (torch.float32,
+                                                torch.float64)}
+    cpu_nhwc = run("NHWC", "cpu", torch.float32)
+    if cpu_nhwc[0] != cpu[torch.float32][0] or any(
+            not torch.equal(cpu_nhwc[1][n], g)
+            for n, g in cpu[torch.float32][1].items()):
+        fail("phase 4v (a): the NHWC ResNet-50's step on the CPU differs "
+             "from the NCHW one's (they must be bitwise equal there)")
+    floor = _v_worst(torch, cpu[torch.float32][1], cpu[torch.float64][1])
+    rows = []
+    limit = 2 * V_LR + 1e-6
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        loss_c, grads_c, state_c = cpu[dt]
+        for fmt in ("NCHW", "NHWC"):
+            loss, grads, state = run(fmt, DEV, dt)
+            rel = abs(loss - loss_c) / abs(loss_c)
+            grad = _v_worst(torch, grads, grads_c)
+            bufs = [k for k in state_c if k.endswith(("_mean", "_variance"))]
+            buf = _v_worst(torch, state, state_c, bufs)
+            par = max(((state[k] - state_c[k]).abs().max().item(), k)
+                      for k in state_c if k not in bufs)
+            if rel > 1e-4 or buf[0] > 1e-4 or par[0] > limit:
+                fail(f"phase 4v (a) ResNet-50 {fmt} {tag}: loss rel diff "
+                     f"{rel:.3g} (limit 1e-4), BatchNorm buffer {buf[1]} "
+                     f"{buf[0]:.3g} of its magnitude (limit 1e-4), "
+                     f"parameter {par[1]} {par[0]:.3g} (limit {limit:.3g})")
+            if dt == torch.float64 and grad[0] > 1e-3:
+                fail(f"phase 4v (a) ResNet-50 {fmt} f64: gradient {grad[1]} "
+                     f"differs by {grad[0]:.3g} of its magnitude (> 1e-3)")
+            rows.append((fmt, tag, loss, loss_c, rel, grad, buf, par))
+        torch.cuda.empty_cache()
+    return rows, floor
+
+
+def v_ops_parity(torch, ptt):
+    """Phase 4v (b): the fluid-era functional ops and the detection chain
+    on seeded inputs, card vs CPU: [(name, max error over the CPU's
+    largest magnitude, or 'equal')]."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import vision
+    from paddle_tpu_torch.device import device_guard
+
+    rs = np.random.RandomState(V_SEED + 1)
+
+    def f32(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(
+            np.float32))
+
+    def boxes(n, size):
+        xy = rs.rand(n, 2) * size
+        wh = rs.rand(n, 2) * size / 3 + 1
+        return torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+            np.float32))
+
+    store = F.legacy_param_store()
+    x, cw, cb = f32(8, 64, 32), f32(96, 48, scale=0.1), f32(48)
+    lens = torch.from_numpy(rs.randint(1, 65, 8))
+    ids = torch.from_numpy(rs.randint(0, 1000, (8, 64)))
+    emis = f32(16, 40, 12)
+    tags = torch.from_numpy(rs.randint(0, 12, (16, 40)))
+    tlens = torch.from_numpy(rs.randint(1, 41, 16))
+    store.set_buffer("crf_transition_12", f32(14, 12, scale=0.5))
+    nx, nl = f32(64, 128), torch.from_numpy(rs.randint(0, 1000, (64, 1)))
+    nw, nb = f32(1000, 128, scale=0.1), f32(1000, scale=0.1)
+    dx, doff = f32(2, 16, 32, 32), f32(2, 18, 32, 32, scale=2.0)
+    dmask, dw = torch.sigmoid(f32(2, 9, 32, 32)), f32(32, 16, 3, 3,
+                                                      scale=0.1)
+    img = f32(4, 8, 37, 53)
+    ax, qkv_w, qkv_b = f32(4, 128, 256), f32(256, 768, scale=0.05), \
+        f32(768, scale=0.05)
+    out_w, out_b = f32(256, 256, scale=0.05), f32(256, scale=0.05)
+    yx = f32(1, 2 * 8, 16, 16)
+    rx, rois = f32(2, 16, 24, 24), boxes(7, 20)
+    feat, image = torch.zeros(1, 64, 19, 19), torch.zeros(1, 3, 300, 300)
+    gt, dl = boxes(8, 250) / 300, f32(19 * 19 * 4, 4, scale=0.1)
+    ps, pd = torch.rand(1, 3, 16, 16, generator=torch.Generator()
+                        .manual_seed(V_SEED)), f32(1, 12, 16, 16, scale=0.1)
+    fmap = torch.zeros(1, 8, 16, 16)
+    im_info = torch.tensor([[256.0, 256.0, 1.0]])
+
+    def cases(dev, tag):
+        t = (lambda a: a.to(dev))  # noqa: E731
+        for name in ("w", "b"):
+            store.parameter(f"nce/v_{tag}.{name}", (nw if name == "w"
+                                                    else nb).shape,
+                            device=dev).data.copy_(nw if name == "w" else nb)
+        store.parameter(f"deformable_conv/v_{tag}", dw.shape,
+                        device=dev).data.copy_(dw)
+        out = {}
+        for kind in ("sum", "average", "sqrt", "max", "min", "first",
+                     "last"):
+            out[f"sequence_pool {kind}"] = F.sequence_pool(
+                t(x), kind, seq_len=t(lens))
+        out["sequence_softmax"] = F.sequence_softmax(t(x), t(lens))
+        out["sequence_reverse"] = F.sequence_reverse(t(x), t(lens))
+        out["sequence_pad"] = F.sequence_pad(t(x), -1.0, 80, t(lens))
+        out["sequence_unpad"] = F.sequence_unpad(t(x), t(lens))
+        out["sequence_conv"] = F.sequence_conv(t(x), t(cw), t(cb),
+                                               seq_len=t(lens))
+        out["sequence_enumerate"] = F.sequence_enumerate(t(ids), 3, 0)
+        out["sequence_slice"] = F.sequence_slice(
+            t(x), t(lens // 4), lens // 2)
+        out["sequence_scatter"] = F.sequence_scatter(
+            t(x), t(ids[:, :5] % 64), t(x[:, :5]))
+        out["sequence_expand"] = F.sequence_expand(t(x[:, :1]), t(x))
+        out["sequence_last_step"] = F.sequence_last_step(t(x), t(lens))
+        out["linear_chain_crf"] = F.linear_chain_crf(t(emis), t(tags),
+                                                     length=t(tlens))
+        out["crf_decoding"] = F.crf_decoding(t(emis))
+        out["nce"] = F.nce(t(nx), t(nl), 1000, num_neg_samples=16,
+                           name=f"v_{tag}", generator=torch.Generator()
+                           .manual_seed(V_SEED))
+        out["deformable_conv"] = F.deformable_conv(
+            t(dx), t(doff), t(dmask), 32, 3, padding=1, name=f"v_{tag}")
+        out["image_resize bilinear"] = F.image_resize(t(img), [64, 80])
+        out["image_resize nearest"] = F.resize_nearest(t(img), [20, 90])
+        with DenseSpy() as dense:
+            out["fused_multi_head_attention"] = \
+                F.fused_multi_head_attention(t(ax), t(qkv_w), t(qkv_b),
+                                             t(out_w), t(out_b), 8,
+                                             is_causal=True)
+        if dense.calls != 1:
+            fail(f"phase 4v (b): fused_multi_head_attention took the dense "
+                 f"path {dense.calls} times on {tag}, expected 1")
+        bx, sc = F.yolo_box(t(yx), t(torch.tensor([[512, 512]])),
+                            [10, 13, 16, 30], 3, conf_thresh=0.01)
+        out["yolo_box boxes"], out["yolo_box scores"] = bx, sc
+        out["yolo_box -> multiclass_nms"] = F.multiclass_nms(
+            bx[0], sc[0].T, score_threshold=0.05, nms_top_k=200,
+            keep_top_k=50, nms_threshold=0.45, background_label=-1)
+        out["roi_align"] = vision.ops.roi_align(
+            t(rx), t(rois), boxes_num=t(torch.tensor([3, 4])),
+            output_size=7, spatial_scale=1.0)
+        out["roi_pool"] = F.roi_pool(t(rx), t(rois), output_size=7)
+        pb, pv = F.prior_box(t(feat), t(image), [60.0], [111.0], [2.0],
+                             flip=True, clip=True)
+        pb, pv = pb.reshape(-1, 4), pv.reshape(-1, 4)
+        out["prior_box"] = pb
+        out["prior_box -> box_coder encode"] = F.box_coder(
+            pb, pv, t(gt), code_type="encode_center_size")
+        out["prior_box -> box_coder decode"] = F.box_coder(
+            pb, pv, t(dl), code_type="decode_center_size")
+        an, av = F.anchor_generator(t(fmap), [32.0], [0.5, 1.0, 2.0],
+                                    stride=[16.0, 16.0])
+        out["generate_proposals"] = F.generate_proposals(
+            t(ps), t(pd), t(im_info), an, av, pre_nms_top_n=500,
+            post_nms_top_n=100, return_rois_num=True)
+        return out
+
+    with device_guard(DEV):
+        card = cases(DEV, "card")
+    with device_guard("cpu"):
+        cpu = cases("cpu", "cpu")
+    rows = []
+    for name, want in cpu.items():
+        got = card[name]
+        got = got if isinstance(got, (tuple, list)) else (got,)
+        want = want if isinstance(want, (tuple, list)) else (want,)
+        worst = 0.0
+        for a, b in zip(got, want):
+            a = a.detach().cpu()
+            b = b.detach()
+            if a.shape != b.shape:
+                fail(f"phase 4v (b) {name}: shape {tuple(a.shape)} on the "
+                     f"card vs {tuple(b.shape)} on the CPU")
+            if not b.is_floating_point():
+                if not torch.equal(a, b):
+                    fail(f"phase 4v (b) {name}: indices / classes differ "
+                         f"between the card and the CPU")
+                continue
+            e = (a - b).abs().max().item() / max(b.abs().max().item(),
+                                                 1e-30)
+            worst = max(worst, e)
+        if name == "yolo_box -> multiclass_nms":
+            a, b = got[0].detach().cpu(), want[0].detach()
+            if not torch.equal(a[:, 0], b[:, 0]):
+                fail("phase 4v (b) yolo_box -> multiclass_nms: the kept "
+                     "rows' classes (and order) differ between the card "
+                     "and the CPU")
+        if worst > 1e-4:
+            fail(f"phase 4v (b) {name}: card vs CPU {worst:.3g} of the "
+                 f"largest magnitude (limit 1e-4)")
+        rows.append((name, worst))
+    kept = int((cpu["yolo_box -> multiclass_nms"][:, 0] >= 0).sum())
+    n_props = int(cpu["generate_proposals"][2])
+    return rows, kept, n_props
+
+
+def _v_fit(torch, ptt, dev, net, ds, workers, rec):
+    """Model(net).fit over `ds` for one epoch of B 8 on `dev`, recording
+    each step's batch, loss and (the fused step's) gradients."""
+    from paddle_tpu_torch.device import device_guard
+
+    with device_guard(dev):
+        m = ptt.Model(net)
+        opt = ptt.optimizer.Momentum(0.01, momentum=0.9,
+                                     parameters=net.parameters())
+        real_update = opt.functional_update
+
+        def update(params, grads, state, lr=None, **kw):
+            rec["grads"].append({n: g.detach().double().cpu()
+                                 for n, g in grads.items()})
+            return real_update(params, grads, state, lr=lr, **kw)
+
+        opt.functional_update = update
+        m.prepare(opt, ptt.nn.CrossEntropyLoss())
+        real = m.train_batch
+
+        def train_batch(inputs, labels=None):
+            rec["batches"].append((inputs[0].cpu().clone(),
+                                   labels[0].cpu().clone()))
+            logs = real(inputs, labels)
+            rec["losses"].append(logs[0])
+            return logs
+
+        m.train_batch = train_batch
+        np.random.seed(43)
+        m.fit(ds, batch_size=8, epochs=1, shuffle=True, num_workers=workers,
+              verbose=0)
+
+
+def v_fit_parity(torch, ptt):
+    """Phase 4v (c): paddle.Model(resnet18(num_classes=10)).fit, 2 steps
+    of B 8 (Momentum lr 0.01, 0.9), over Cifar10's synthetic test split
+    through Compose([Normalize, Transpose]) — in float64 the network
+    casts its float32 batch on entry — DataLoader(num_workers=2) on the
+    card vs
+    num_workers=0 on the CPU, from one set of weights. Batches bitwise
+    equal in both; float64: losses within 1e-4 and gradients within 1e-3
+    (4j's limits); float32: the first loss within 1e-4 (the forward), the
+    second printed with the first step's gradient errors against the CPU's
+    float64 step."""
+    from paddle_tpu_torch import vision
+    from paddle_tpu_torch.device import device_guard
+
+    T = vision.transforms
+    with device_guard("cpu"):
+        ptt.seed(V_SEED + 2)
+        base = vision.models.resnet18(num_classes=10)
+    out = {}
+    for dt in (torch.float64, torch.float32):
+        ds = ptt.io.Subset(vision.datasets.Cifar10(
+            mode="test", transform=T.Compose([
+                T.Normalize(mean=V_CIFAR_MEAN, std=V_CIFAR_STD,
+                            data_format="HWC"), T.Transpose()])),
+            list(range(16)))
+        recs = {}
+        for key, dev, workers in (("card", DEV, 2), ("cpu", "cpu", 0)):
+            with device_guard(dev):
+                net = vision.models.resnet18(num_classes=10).to(dtype=dt)
+            net.set_state_dict(base.state_dict())
+            if dt == torch.float64:  # the float32 batch, cast on entry
+                net.register_forward_pre_hook(
+                    lambda m, inputs: tuple(x.double() for x in inputs))
+            recs[key] = {"batches": [], "losses": [], "grads": []}
+            _v_fit(torch, ptt, dev, net, ds, workers, recs[key])
+        card, cpu = recs["card"], recs["cpu"]
+        if len(card["losses"]) != 2 or len(cpu["losses"]) != 2:
+            fail(f"phase 4v (c): {len(card['losses'])} / "
+                 f"{len(cpu['losses'])} steps, expected 2")
+        for i, ((a, la), (b, lb)) in enumerate(zip(card["batches"],
+                                                   cpu["batches"])):
+            if not (torch.equal(a, b) and torch.equal(la, lb)):
+                fail(f"phase 4v (c) step {i}: the worker batch on the card "
+                     f"differs from the CPU's")
+        rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                                   cpu["losses"])]
+        out[dt] = (card, cpu, rel)
+    card64, cpu64, rel64 = out[torch.float64]
+    floor = 1e-3 * max(g.abs().max().item()
+                       for g in cpu64["grads"][0].values())
+    g64 = max(((card64["grads"][0][n] - g).abs().max().item()
+               / max(g.abs().max().item(), floor), n)
+              for n, g in cpu64["grads"][0].items())
+    if max(rel64) > 1e-4 or g64[0] > 1e-3:
+        fail(f"phase 4v (c) float64: losses {card64['losses']} vs CPU "
+             f"{cpu64['losses']} (relative {max(rel64):.3g}, limit 1e-4), "
+             f"gradient {g64[1]} {g64[0]:.3g} (limit 1e-3)")
+    card32, cpu32, rel32 = out[torch.float32]
+    if rel32[0] > 1e-4:
+        fail(f"phase 4v (c) float32: first loss {card32['losses'][0]} vs "
+             f"CPU {cpu32['losses'][0]} (relative {rel32[0]:.3g} > 1e-4)")
+    truth = cpu64["grads"][0]
+    err = {k: _v_worst(torch, r["grads"][0], truth)
+           for k, r in (("card", card32), ("cpu", cpu32))}
+    return {"losses64": (card64["losses"], cpu64["losses"], max(rel64)),
+            "grad64": g64, "losses32": (card32["losses"],
+                                        cpu32["losses"], rel32),
+            "grad32": err, "shape": tuple(card32["batches"][0][0].shape)}
+
+
+def vision_parity_phase(torch, card):
+    """Phase 4v: (a) ResNet-50's step, (b) the ops, (c) Model.fit."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    rows, floor = v_resnet_parity(torch, ptt)
+    for fmt, tag, loss, loss_c, rel, grad, buf, par in rows:
+        gate = "limit 1e-3" if tag == "f64" else (
+            f"not gated in float32: the CPU's own float32 step is "
+            f"{floor[0]:.3g} from float64 at {floor[1]}")
+        say(f"phase 4v (a) ResNet-50 {fmt} {tag} B{V_B} {V_IMG}² train "
+            f"step + AdamW (lr {V_LR}, wd 0.01) card vs CPU: loss "
+            f"{loss:.6f} vs {loss_c:.6f} (rel diff {rel:.3g}, limit 1e-4), "
+            f"worst gradient {grad[1]} {grad[0]:.3g} of its magnitude "
+            f"({gate}), worst BatchNorm buffer {buf[1]} {buf[0]:.3g} "
+            f"(limit 1e-4), worst parameter {par[1]} {par[0]:.3g} (limit "
+            f"{2 * V_LR + 1e-6:.3g})")
+    t1 = time.perf_counter()
+    ops, kept, n_props = v_ops_parity(torch, ptt)
+    say(f"phase 4v (b) fluid-era ops and the detection chain, card vs CPU "
+        f"({len(ops)} outputs; indices and classes equal, floats within "
+        f"1e-4 of the largest magnitude; multiclass_nms kept {kept} rows, "
+        f"generate_proposals {n_props}): " + ", ".join(
+            f"{n} {e:.2g}" for n, e in ops))
+    t2 = time.perf_counter()
+    r = v_fit_parity(torch, ptt)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    (c64, p64, rel64), (c32, p32, rel32) = r["losses64"], r["losses32"]
+    say(f"phase 4v (c) Model(resnet18(num_classes=10)).fit, 2 Momentum "
+        f"steps (lr 0.01) of B8 Cifar10 (synthetic) through Compose("
+        f"[Normalize, Transpose]), DataLoader(num_workers=2) on the card vs "
+        f"num_workers=0 on the CPU: batches {list(r['shape'])} bitwise "
+        f"equal; float64 losses {' '.join(f'{x:.6f}' for x in c64)} vs "
+        f"{' '.join(f'{x:.6f}' for x in p64)} (rel diff {rel64:.3g}, limit "
+        f"1e-4), worst gradient {r['grad64'][1]} {r['grad64'][0]:.3g} "
+        f"(limit 1e-3); float32 losses {' '.join(f'{x:.6f}' for x in c32)} "
+        f"vs {' '.join(f'{x:.6f}' for x in p32)} (rel diff "
+        f"{' '.join(f'{x:.3g}' for x in rel32)}; the first, the forward, "
+        f"limit 1e-4), the first step's float32 gradients against the "
+        f"CPU's float64: card {r['grad32']['card'][0]:.3g} at "
+        f"{r['grad32']['card'][1]}, CPU {r['grad32']['cpu'][0]:.3g} at "
+        f"{r['grad32']['cpu'][1]}; kernel launches in 4v {counts or 'none'} "
+        f"(this path reaches no TPU kernel); (a) {t1 - t0:.1f} s, (b) "
+        f"{t2 - t1:.1f} s, (c) {time.perf_counter() - t2:.1f} s [{card}]")
+
+
+def v_throughput(torch, ptt, batch, data_format, warm=2, steps=5):
+    """Phase 6v: bench.py's resnet50 axis — ResNet-50 at 224² training
+    under amp.auto_cast() (bf16 convolutions and products, O1) with AdamW
+    (lr 1e-4, wd 0.01) on float32 parameters, on random images and labels
+    from RandomState(0): ms a step (CUDA events), samples/s, peak memory,
+    FLOP/s at bench.py's 3 x 4.1e9 a sample, the idle share of a profiled
+    step, the losses."""
+    ptt.seed(V_SEED)
+    model = _v_resnet50(ptt, data_format)
+    model.train()
+    opt = ptt.optimizer.AdamW(V_LR, parameters=model.parameters(),
+                              weight_decay=0.01)
+    ce = ptt.nn.CrossEntropyLoss()
+    rs = np.random.RandomState(0)
+    shape = (batch, V_IMG, V_IMG, 3) if data_format == "NHWC" else \
+        (batch, 3, V_IMG, V_IMG)
+    images = torch.from_numpy(rs.rand(*shape).astype(np.float32)).to(DEV)
+    labels = torch.from_numpy(rs.randint(0, 1000, (batch,))).to(DEV)
+
+    def step():
+        with ptt.amp.auto_cast():
+            loss = ce(model(images), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses = [step() for _ in range(warm)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    losses += [step() for _ in range(steps)]
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    ms = start.elapsed_time(end) / steps
+    busy = profiled_busy(torch, step)
+    losses = [x.item() for x in losses]
+    if not all(np.isfinite(losses)):
+        fail(f"phase 6v ResNet-50 {data_format} B{batch}: non-finite loss "
+             f"{losses}")
+    out = {"ms": ms, "wall_ms": wall * 1e3, "samples": batch / (ms / 1e3),
+           "peak": torch.cuda.max_memory_allocated(),
+           "flops": V_FLOPS * batch / (ms / 1e3), "busy_ms": busy * 1e3,
+           "idle": 1 - busy / wall, "losses": losses}
+    del model, opt, images
+    torch.cuda.empty_cache()
+    return out
+
+
+def vision_throughput_phase(torch, card):
+    """Phase 6v: `v_throughput` at each of bench.py's batches, NCHW and
+    NHWC."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    for batch in V_BATCHES:
+        for fmt in ("NCHW", "NHWC"):
+            t0 = time.perf_counter()
+            kernels.reset_launch_counts()
+            r = v_throughput(torch, ptt, batch, fmt)
+            counts = {k: v for k, v in kernels.launch_counts().items() if v}
+            say(f"phase 6v ResNet-50 {fmt} B{batch} {V_IMG}² train, "
+                f"amp.auto_cast() bf16 (O1) + AdamW on f32 parameters: "
+                f"ms_per_step {r['ms']:.2f} (host {r['wall_ms']:.2f}) "
+                f"samples_per_sec {r['samples']:.1f} FLOP/s "
+                f"{r['flops'] / 1e12:.1f} T at bench.py's 3 x 4.1e9 a "
+                f"sample ({r['flops'] / PEAK_FLOPS:.3f} of the 989 TFLOP/s "
+                f"bf16 peak) max_memory_allocated {r['peak'] / 2**20:.0f} "
+                f"MiB; device busy {r['busy_ms']:.2f} ms in a profiled "
+                f"step, idle share {r['idle']:.3f}; losses "
+                f"{' '.join(f'{x:.4f}' for x in r['losses'])}; kernel "
+                f"launches {counts or 'none'}; "
+                f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
 def main():
@@ -8890,6 +9416,12 @@ def main():
     # phase 4j: the Paddle 2.0 API, part 2 — paddle.Model over DataLoader
     # worker processes, save / load, beam search; card vs CPU
     model_fit_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 4v: paddle.vision and the fluid-era ops — ResNet-50's step, the
+    # ops and the detection chain, Model.fit over a vision dataset; card
+    # vs CPU
+    vision_parity_phase(torch, card)
     torch.cuda.empty_cache()
 
     # phase 4e: long-context training parity past the switch, card vs CPU
@@ -9368,6 +9900,10 @@ def main():
         f"[{card}]")
     del tr
     torch.cuda.empty_cache()
+
+    # phase 6v: bench.py's resnet50 axis on the card, B 128 and 256, NCHW
+    # and NHWC
+    vision_throughput_phase(torch, card)
 
     # phase 6c: long-context GPT-2 small training, through K7/K8 (bias)
     cfg_16k = GPT2Config(max_position=16384, dropout=0.0)

@@ -54,6 +54,11 @@ fluid-era layers with the beam-search decoder (`nn.layer.legacy`),
 `elementwise_*`, `reduce_*`, `rank`, `shape`, ...). They bind lazily
 too.
 
+Slice 25 adds the fluid-era functional ops (`nn.functional.sequence`,
+`legacy`, `detection`, the fused transformer ops) and `vision` (the
+model zoo, `vision.ops`, the numpy transforms and the datasets), which
+binds lazily as well.
+
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes
 `device="cpu"` or calls `set_device("cpu")` (see
@@ -82,7 +87,7 @@ from .device import (  # noqa: F401
 _LAZY_MODULES = ("nn", "ops", "amp", "optimizer", "linalg", "tensor",
                  "models", "inference", "jit", "distributed", "parallel",
                  "io", "metric", "hapi", "framework", "distribution",
-                 "regularizer", "compat", "callbacks")
+                 "regularizer", "compat", "callbacks", "vision")
 # name -> (module, attribute): the high-level API's names
 _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "save": ("framework.io", "save"),

@@ -28,6 +28,7 @@ are the reference's algorithms over the mesh axes of `parallel.comm`.
 """
 from __future__ import annotations
 
+import atexit
 import os
 
 import torch
@@ -228,7 +229,17 @@ def init_parallel_env(backend=None, init_method=None, rank=None,
             if set_here:
                 del os.environ["PADDLE_TRAINERS_NUM"]
             raise
+        atexit.register(_leave)
     return ParallelEnv()
+
+
+def _leave():
+    """At exit, destroy the default group in order: left to the
+    interpreter's teardown, a rank whose peer has already gone can abort
+    in gloo's threads ("terminate called without an active exception")
+    after its work is done."""
+    if _initialized():
+        dist.destroy_process_group()
 
 
 def is_initialized():

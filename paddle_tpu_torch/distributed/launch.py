@@ -27,9 +27,12 @@ import os
 import runpy
 import subprocess
 import sys
+import threading
 import time
 
-from .utils import find_free_ports, terminate_local_procs
+from .utils import free_port, is_addr_in_use, terminate_local_procs
+
+RENDEZVOUS_ATTEMPTS = 3
 
 
 def initialize_from_env(device=None):
@@ -59,12 +62,29 @@ def _rank_env(rank, local_rank, world, local_world, addr, port):
     return env
 
 
+def _tee(stream, log, seen):
+    """Copy rank 0's error output line by line to its log (else the
+    launcher's stderr, fd 2), noting whether its store reported its port
+    taken."""
+    for line in iter(stream.readline, b""):
+        if is_addr_in_use(line.decode("utf-8", "replace")):
+            seen.set()
+        if log is None:
+            os.write(2, line)
+        else:
+            log.write(line)
+            log.flush()
+    stream.close()
+
+
 def start_local_ranks(script, script_args, nproc, nnodes=1, node_rank=0,
                       master_addr="127.0.0.1", master_port=None,
                       log_dir=None):
     """Start this node's `nproc` ranks of `script`; returns the Popen
-    handles (their log files, if any, on `.log`)."""
-    port = master_port or next(iter(find_free_ports(1)))
+    handles (their log files, if any, on `.log`; on each, `.port` and
+    `.addr_in_use`, an Event set when the rank's error output reported
+    EADDRINUSE — watched on rank 0, whose store binds the port)."""
+    port = master_port or free_port(master_addr)
     world = nnodes * nproc
     procs = []
     for local in range(nproc):
@@ -72,12 +92,20 @@ def start_local_ranks(script, script_args, nproc, nnodes=1, node_rank=0,
         log = None
         if log_dir:
             os.makedirs(log_dir, exist_ok=True)
-            log = open(os.path.join(log_dir, f"workerlog.{rank}"), "w")
+            log = open(os.path.join(log_dir, f"workerlog.{rank}"), "wb")
+        watched = rank == 0
         p = subprocess.Popen(
             [sys.executable, "-u", script] + list(script_args),
             env=_rank_env(rank, local, world, nproc, master_addr, port),
-            stdout=log, stderr=subprocess.STDOUT if log else None)
-        p.log = log
+            stdout=log,
+            stderr=(subprocess.PIPE if watched else
+                    subprocess.STDOUT if log else None))
+        p.log, p.port, p.addr_in_use, p.tee = log, port, threading.Event(), \
+            None
+        if watched:
+            p.tee = threading.Thread(target=_tee, daemon=True,
+                                     args=(p.stderr, log, p.addr_in_use))
+            p.tee.start()
         procs.append(p)
     return procs
 
@@ -100,8 +128,31 @@ def watch(procs, poll=0.1):
     finally:
         terminate_local_procs(procs)
         for p in procs:
-            if p.log:
+            if getattr(p, "tee", None) is not None:
+                p.tee.join(10)
+            if getattr(p, "log", None):
                 p.log.close()
+    return code
+
+
+def run_local_ranks(args):
+    """Start and watch this node's ranks; a port the launcher chose
+    (single node, no --master_port) that rank 0's store found taken is
+    replaced by a new one and the ranks start again. Returns the exit
+    code."""
+    retry = args.master_port is None and args.nnodes == 1
+    for attempt in range(RENDEZVOUS_ATTEMPTS):
+        procs = start_local_ranks(args.script, args.script_args,
+                                  args.nproc_per_node, args.nnodes,
+                                  args.node_rank, args.master_addr,
+                                  args.master_port, args.log_dir)
+        code = watch(procs)
+        if code == 0 or not retry or not procs[0].addr_in_use.is_set() \
+                or attempt == RENDEZVOUS_ATTEMPTS - 1:
+            return code
+        print(f"launch: rendezvous port {procs[0].port} was taken "
+              f"(EADDRINUSE); starting the ranks again on a new port",
+              file=sys.stderr, flush=True)
     return code
 
 
@@ -123,11 +174,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.nproc_per_node:
-        procs = start_local_ranks(args.script, args.script_args,
-                                  args.nproc_per_node, args.nnodes,
-                                  args.node_rank, args.master_addr,
-                                  args.master_port, args.log_dir)
-        sys.exit(watch(procs))
+        sys.exit(run_local_ranks(args))
     if args.coordinator and args.num_processes > 1:
         host, port = args.coordinator.rsplit(":", 1)
         os.environ.update(PADDLE_COORDINATOR=args.coordinator,

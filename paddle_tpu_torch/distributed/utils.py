@@ -101,20 +101,50 @@ def get_host_name_ip():
         return None
 
 
-def find_free_ports(num):
-    """`num` distinct free TCP ports (bound, then released)."""
-    ports = set()
-    socks = []
+def _ephemeral_low():
+    """The low end of the kernel's ephemeral port range (32768 when it
+    cannot be read)."""
     try:
-        while len(ports) < num:
-            s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
-            s.bind(("", 0))
-            socks.append(s)
-            ports.add(s.getsockname()[1])
-        return ports
-    finally:
-        for s in socks:
-            s.close()
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def free_port(host="127.0.0.1", exclude=()):
+    """A free TCP port for a rendezvous: drawn at random below the
+    kernel's ephemeral range and checked by binding it. A port the kernel
+    hands out for port 0 lies inside that range, where any other
+    process's outgoing connection can take it before rank 0's store binds
+    it; below the range only a listener can."""
+    import random
+    low = _ephemeral_low()
+    rng = random.Random()
+    while True:
+        port = rng.randrange(max(1024, low - 12000), low)
+        if port in exclude:
+            continue
+        with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+            try:
+                s.bind((host, port))
+            except OSError:
+                continue
+            return port
+
+
+def is_addr_in_use(text):
+    """Whether `text` (a rank's output or traceback) reports that rank
+    0's store could not bind its port."""
+    low = text.lower()
+    return "eaddrinuse" in low or "address already in use" in low
+
+
+def find_free_ports(num):
+    """`num` distinct free TCP ports (each by `free_port`)."""
+    ports = set()
+    while len(ports) < num:
+        ports.add(free_port("", exclude=ports))
+    return ports
 
 
 def terminate_local_procs(procs):
@@ -139,5 +169,6 @@ def add_arguments(argname, type, default, help, argparser, **kwargs):  # noqa: A
 
 
 __all__ = ["get_logger", "Cluster", "Pod", "Trainer", "get_cluster",
-           "get_host_name_ip", "find_free_ports", "terminate_local_procs",
+           "get_host_name_ip", "find_free_ports", "free_port",
+           "is_addr_in_use", "terminate_local_procs",
            "add_arguments"]

@@ -11,6 +11,8 @@ pops and blocking waits overlap Python work.
   * `NativePrefetcher` — iterate a batch source on a background thread;
     batches cross the bounded byte queue as raw bytes.
   * `HostArena` — a size-bucketed host staging allocator.
+  * `parse_multislot` — a MultiSlot text buffer parsed natively
+    (`ms_scan`, `ms_fill`) into padded per-slot numpy arrays.
   * `_serialize_batch` / `_deserialize_batch` — one batch as one byte
     string: a pickled header (the batch's structure, each array's dtype
     and shape) and the arrays' raw bytes. torch tensors cross as numpy
@@ -90,12 +92,65 @@ def get_lib():
                 ("arena_alloc", vp, [vp, sz]),
                 ("arena_free", None, [vp, vp]),
                 ("arena_reserved_bytes", i64, [vp]),
-                ("arena_destroy", None, [vp])):
+                ("arena_destroy", None, [vp]),
+                ("ms_scan", ctypes.c_longlong,
+                 [ctypes.POINTER(ctypes.c_char), ctypes.c_longlong,
+                  ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)]),
+                ("ms_fill", ctypes.c_int,
+                 [ctypes.POINTER(ctypes.c_char), ctypes.c_longlong,
+                  ctypes.c_int, u8p, ctypes.POINTER(ctypes.c_longlong),
+                  ctypes.POINTER(ctypes.c_void_p), ctypes.c_longlong])):
             fn = getattr(lib, name)
             fn.restype = res
             fn.argtypes = args
         _lib = lib
         return lib
+
+
+def parse_multislot(data, slot_meta):
+    """Parse a MultiSlot text buffer natively into padded per-slot arrays
+    (the reference's `io/native_loader.py:93`).
+
+    data: bytes (a bytearray is terminated in place, not copied) of
+    slot-formatted lines. slot_meta: [(name, np_dtype, fixed_width or
+    None), ...]. Returns {name: [n_samples, width] ndarray} (float32 for
+    float32 slots, int64 otherwise); raises ValueError on malformed
+    input."""
+    lib = get_lib()
+    n_slots = len(slot_meta)
+    if n_slots == 0:
+        raise ValueError("no slots configured (set_use_var first)")
+    if isinstance(data, bytearray):
+        if not data.endswith(b"\0"):
+            data.append(0)
+    else:
+        data = bytearray(data) + b"\0"
+    length = len(data) - 1
+    cbuf = (ctypes.c_char * len(data)).from_buffer(data)
+    widths = (ctypes.c_longlong * n_slots)()
+    n = lib.ms_scan(cbuf, length, n_slots, widths)
+    if n < 0:
+        raise ValueError("malformed MultiSlot data (token/slot mismatch)")
+    out = {}
+    ptrs = (ctypes.c_void_p * n_slots)()
+    is_float = (ctypes.c_uint8 * n_slots)()
+    final_w = (ctypes.c_longlong * n_slots)()
+    for s, (name, dtype, fixed) in enumerate(slot_meta):
+        w = int(widths[s])
+        if fixed:
+            w = max(w, int(fixed))  # the buffer must hold every token
+        is_float[s] = 1 if np.dtype(dtype) == np.float32 else 0
+        arr = np.zeros((int(n), w), np.float32 if is_float[s] else np.int64)
+        out[name] = arr
+        final_w[s] = w
+        ptrs[s] = arr.ctypes.data_as(ctypes.c_void_p)
+    if n and lib.ms_fill(cbuf, length, n_slots, is_float, final_w, ptrs,
+                         n) != 0:
+        raise ValueError("malformed MultiSlot data (value parse failed)")
+    for name, dtype, fixed in slot_meta:
+        if fixed and out[name].shape[1] != int(fixed):
+            out[name] = out[name][:, : int(fixed)]
+    return out
 
 
 def _serialize_batch(batch):
@@ -228,4 +283,5 @@ class HostArena:
             pass
 
 
-__all__ = ["build", "get_lib", "NativePrefetcher", "HostArena"]
+__all__ = ["build", "get_lib", "NativePrefetcher", "HostArena",
+           "parse_multislot"]

@@ -2,11 +2,11 @@
 `paddle_tpu/nn/functional/__init__.py:6-25` (the ops of `ops.nn_ops` and
 `ops.loss`) and its own functions — `sequence_mask`, `diag_embed`,
 `adaptive_max_pool3d`, `spectral_norm`, `layer_norm` with the 2.0
-signature `(x, normalized_shape, weight, bias, epsilon)`. The fluid-era
-ops the legacy layers run are in `legacy` (`pool2d`, `pool3d`,
-`gather_tree`, `hsigmoid_loss`, `bilinear`); the rest of the reference's
-`legacy`, `sequence` and `detection` re-exports are not ported yet
-(ROADMAP §A 10 (e3))."""
+signature `(x, normalized_shape, weight, bias, epsilon)`, and the
+fluid-era names the reference re-exports (`:107-153`): the sequence ops
+on dense padded tensors (`sequence`), the legacy layers, losses, RNN
+layer functions and shims (`legacy`), the detection suite (`detection`) and
+`roi_align` (`vision.ops`)."""
 from __future__ import annotations
 
 import sys as _sys
@@ -36,9 +36,41 @@ from ...ops import (  # noqa: F401
     thresholded_relu, triplet_margin_loss, unfold, upsample,
 )
 from ...ops import diag_embed  # noqa: F401
-from . import legacy  # noqa: F401
-from .legacy import (bilinear, gather_tree, hsigmoid_loss,  # noqa: F401
-                     pool2d, pool3d)
+from . import detection, legacy, sequence, transformer  # noqa: F401
+from .sequence import (  # noqa: F401
+    sequence_concat, sequence_conv, sequence_enumerate, sequence_expand,
+    sequence_expand_as, sequence_first_step, sequence_last_step, sequence_pad,
+    sequence_pool, sequence_reshape, sequence_reverse, sequence_scatter,
+    sequence_slice, sequence_softmax, sequence_unpad,
+)
+from .legacy import (  # noqa: F401
+    add_position_encoding, affine_channel, array_length, array_read,
+    array_write, assign, autoincreased_step_counter, bilinear,
+    bilinear_tensor_product, bpr_loss, birnn, center_loss,
+    continuous_value_model, create_array, data_norm, deformable_conv,
+    dice_loss, dynamic_gru, dynamic_lstm, dynamic_lstmp, erf, fc,
+    filter_by_instag, fsp_matrix, gather_tree, gru_unit, hash,
+    hsigmoid_loss, im2sequence, image_resize, image_resize_short,
+    legacy_param_store, linear_chain_crf, crf_decoding, lod_append,
+    lod_reset, lstm, lstm_unit,
+    merge_selected_rows, nce, pad2d, pad_constant_like, polygon_box_transform,
+    pool2d, pool3d, random_crop, reorder_lod_tensor_by_rank, resize_bilinear,
+    resize_nearest, resize_trilinear, row_conv, smooth_l1, soft_relu,
+    space_to_depth, shuffle_channel, similarity_focus,
+    teacher_student_sigmoid_loss, tensor_array_to_tensor, warpctc,
+)
+from .detection import (  # noqa: F401
+    anchor_generator, bipartite_match, box_clip, box_coder,
+    box_decoder_and_assign, collect_fpn_proposals, deformable_roi_pooling,
+    density_prior_box, detection_output, distribute_fpn_proposals,
+    generate_mask_labels, generate_proposal_labels, generate_proposals,
+    multi_box_head, multiclass_nms, prior_box, prroi_pool, psroi_pool,
+    retinanet_detection_output, retinanet_target_assign,
+    roi_perspective_transform, roi_pool, rpn_target_assign, target_assign,
+    yolo_box, yolov3_loss,
+)
+from .transformer import (fused_feedforward,  # noqa: F401
+                          fused_multi_head_attention)
 from ...ops import nn_ops as _nn_ops
 
 grid_sampler = grid_sample
@@ -88,7 +120,18 @@ def layer_norm(x, normalized_shape=None, weight=None, bias=None,
                               normalized_ndim=ndim, **kw)
 
 
+def roi_align(x, boxes, boxes_num=None, output_size=1, spatial_scale=1.0,
+              sampling_ratio=-1, aligned=True, name=None):
+    from ...vision.ops import roi_align as _ra
+    return _ra(x, boxes, boxes_num=boxes_num, output_size=output_size,
+               spatial_scale=spatial_scale, sampling_ratio=sampling_ratio,
+               aligned=aligned)
+
+
 # topic submodule aliases (the reference organizes functional this way)
+common = legacy
+extension = legacy
+rnn = sequence
 _self = _sys.modules[__name__]
 activation = _self
 conv = _self

@@ -330,7 +330,42 @@ def verify_window_attention_plain(q, k_blocks, v_blocks, block_tables, pos,
     return torch.einsum("phwc,pchd->pwhd", w, v)
 
 
+def fused_multi_head_attention(x, qkv_weight, qkv_bias, out_weight, out_bias,
+                               num_heads, attn_mask=None, dropout_p=0.0,
+                               is_causal=False):
+    """The fused QKV projection, attention and output projection of the
+    reference (`ops/attention.py:373-395`): x [B, S, E], qkv_weight
+    [E, 3E], out_weight [E, E]. Its attention is the reference's
+    `_xla_attention` — here `dense_attention`, the same dense path — not
+    a kernel; dropout_p is not applied, as there."""
+    b, s, e = x.shape
+    d = e // num_heads
+    qkv = torch.einsum("bse,ef->bsf", x, qkv_weight)
+    if qkv_bias is not None:
+        qkv = qkv + qkv_bias
+    qkv = qkv.reshape(b, s, 3, num_heads, d)
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out, _ = dense_attention(q, k, v, attn_mask, None, is_causal)
+    out = torch.einsum("bse,ef->bsf", out.transpose(1, 2).reshape(b, s, e),
+                       out_weight)
+    return out if out_bias is None else out + out_bias
+
+
+def fused_feedforward(x, w1, b1, w2, b2, activation="gelu"):
+    """The fused FFN of the reference (`ops/attention.py:398-406`): gelu
+    (jax.nn.gelu's default, the tanh form) or relu between two
+    projections."""
+    h = torch.einsum("bse,ef->bsf", x, w1)
+    if b1 is not None:
+        h = h + b1
+    h = torch.nn.functional.gelu(h, approximate="tanh") \
+        if activation == "gelu" else torch.relu(h)
+    out = torch.einsum("bsf,fe->bse", h, w2)
+    return out if b2 is None else out + b2
+
+
 __all__ = ["scaled_dot_product_attention", "dense_attention",
+           "fused_multi_head_attention", "fused_feedforward",
            "paged_decode_attention",
            "paged_decode_attention_plain", "ragged_prefill_attention",
            "ragged_prefill_attention_plain", "unified_stream_attention",

@@ -215,7 +215,18 @@ def _pad_spatial(x, pads, value=0.0):
 
 
 def _to_first(x, channels_last):
-    return x.movedim(-1, 1) if channels_last else x
+    """x channels-first. On the card a channels-last input stays a view
+    (cuDNN's NHWC kernels read it as it lies); on the CPU it is copied
+    into NCHW order, so an NHWC model computes bit for bit what the NCHW
+    one does, as the reference's does on the CPU."""
+    if not channels_last:
+        return x
+    x = x.movedim(-1, 1)
+    if x.device.type != "cpu":
+        return x
+    # plain NCHW strides even where size-1 dims make the layout ambiguous
+    # (a conv would read such a view as channels-last)
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _to_last(x, channels_last):

@@ -20,7 +20,9 @@ As in the reference, an optimizer is a per-leaf rule (`init_slots`,
     `minimize(loss)`, `get_lr` / `set_lr`, and `state_dict` /
     `set_state_dict` with the reference's keys ("@step",
     "{name}.{slot}", "LR_Scheduler"). A tensor's name is the one it was
-    given, else "param_{i}"; `regularizer`, `optimize_attr`
+    given, else its `param_name` (a layer's parameters), else "param_{i}"
+    — so a fresh model's optimizer loads a saved state by order and shape,
+    with the reference's warning; `regularizer`, `optimize_attr`
     ({"learning_rate": scale}), `need_clip`, `trainable` and
     `no_weight_decay` attributes act as the reference's Parameter
     fields. The coupled regularizer of a step is `L2Decay`, `L1Decay`
@@ -262,8 +264,10 @@ class Optimizer:
             pname, slot = key.rsplit(".", 1)
             if pname not in saved_pnames:
                 saved_pnames.append(pname)
+            # a copy: the slots are updated in place, and the state may
+            # be another live optimizer's
             saved_slots.setdefault(pname, {})[slot] = torch.as_tensor(
-                v, device=self.device)
+                v, device=self.device).clone()
         cur = [p for p in (self._parameter_list or []) if p is not None]
         unmatched = [pn for pn in saved_pnames if pn not in names]
         if not unmatched:
@@ -315,7 +319,11 @@ class Optimizer:
     set_dict = set_state_dict
 
     def _param_names(self):
-        return {id(p): self._names.get(id(p)) or f"param_{i}"
+        """A tensor's name: the one it was given in a (name, tensor) pair,
+        else its parameter name (`param_name`, unique in the process, as
+        the reference's `p.name`), else "param_{i}"."""
+        return {id(p): self._names.get(id(p))
+                or getattr(p, "param_name", None) or f"param_{i}"
                 for i, p in enumerate(self._parameter_list or [])
                 if p is not None}
 

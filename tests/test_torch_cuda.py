@@ -2885,3 +2885,126 @@ def test_api_dataloader_worker_does_not_init_cuda(dev):
     rows = torch.cat(rows)
     assert rows[:, 0].tolist() == list(range(8))
     assert rows[:, 1].tolist() == [0] * 8
+
+
+# ---- paddle.vision and the fluid-era detection ops on the card --------------
+
+def test_vision_resnet50_step_card_vs_cpu(dev):
+    """ResNet-50 (1000 classes) at B 2, 224², one train step + AdamW
+    (lr 1e-4, wd 0.01), NCHW and NHWC on the card against NCHW on the CPU
+    from one set of weights: in float64 the loss, every gradient (1e-3 of
+    its leaf's magnitude), the BatchNorm buffers and the parameters; in
+    float32 the loss (1e-4), the buffers (1e-4) and the parameters
+    (2 * lr): float32 rounding through batch norm's backward at B 2 moves
+    some gradients by a tenth on either device, so they are held in
+    float64 only."""
+    import copy
+
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.device import device_guard
+    from paddle_tpu_torch.vision.models.resnet import BottleneckBlock, ResNet
+
+    rs = np.random.RandomState(61)
+    x = torch.from_numpy(rs.rand(2, 3, 224, 224).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, 2))
+    with device_guard("cpu"):
+        ptt.seed(61)
+        bases = {f: ResNet(BottleneckBlock, 50, data_format=f)
+                 for f in ("NCHW", "NHWC")}
+        bases["NHWC"].set_state_dict(bases["NCHW"].state_dict())
+    xs = {"NCHW": x, "NHWC": x.permute(0, 2, 3, 1).contiguous()}
+
+    def step(fmt, d, dt):
+        m = copy.deepcopy(bases[fmt]).to(device=d, dtype=dt)
+        m.train()
+        opt = ptt.optimizer.AdamW(1e-4, parameters=m.parameters(),
+                                  weight_decay=0.01, device=d)
+        loss = ptt.nn.functional.cross_entropy(m(xs[fmt].to(d, dt)),
+                                               y.to(d))
+        loss.backward()
+        grads = {n: p.grad.double().cpu() for n, p in m.named_parameters()}
+        opt.step()
+        return loss.item(), grads, {k: v.detach().double().cpu()
+                                    for k, v in m.state_dict().items()}
+
+    for dt in (torch.float64, torch.float32):
+        lc, gc, sc = step("NCHW", "cpu", dt)
+        for fmt in ("NCHW", "NHWC"):
+            lg, gg, sg = step(fmt, dev, dt)
+            assert abs(lg - lc) <= 1e-4 * abs(lc), (fmt, dt)
+            for k, v in sc.items():
+                if k.endswith(("_mean", "_variance")):
+                    assert (sg[k] - v).abs().max() <= 1e-4 * v.abs().max()
+                else:
+                    assert (sg[k] - v).abs().max() <= 2e-4 + 1e-6, k
+            if dt == torch.float64:
+                for n, g in gc.items():
+                    assert (gg[n] - g).abs().max() <= \
+                        1e-3 * g.abs().max(), n
+
+
+def test_detection_chain_card_vs_cpu(dev):
+    """yolo_box -> multiclass_nms, roi_align / roi_pool, prior_box ->
+    box_coder and generate_proposals on the card against the CPU:
+    indices and classes equal, floats within 1e-4 of the largest
+    magnitude; NMS's loop makes no host synchronisation."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch import vision
+
+    rs = np.random.RandomState(7)
+    yx = torch.from_numpy(rs.randn(1, 16, 16, 16).astype(np.float32))
+    rx = torch.from_numpy(rs.randn(2, 8, 20, 20).astype(np.float32))
+    xy = rs.rand(6, 2) * 14
+    rois = torch.from_numpy(np.concatenate(
+        [xy, xy + rs.rand(6, 2) * 5 + 1], 1).astype(np.float32))
+    gt = torch.from_numpy(rs.rand(5, 4).astype(np.float32) * 0.5)
+    gt[:, 2:] += gt[:, :2] + 0.05
+    ps = torch.from_numpy(rs.rand(1, 3, 8, 8).astype(np.float32))
+    pd = torch.from_numpy(rs.randn(1, 12, 8, 8).astype(np.float32) * 0.1)
+
+    def chain(d):
+        out = {}
+        b, s = F.yolo_box(yx.to(d), torch.tensor([[416, 416]], device=d),
+                          [10, 13, 16, 30], 3)
+        out["nms"] = F.multiclass_nms(b[0], s[0].T, score_threshold=0.05,
+                                      nms_top_k=100, keep_top_k=30,
+                                      background_label=-1)
+        out["roi_align"] = vision.ops.roi_align(
+            rx.to(d), rois.to(d), boxes_num=torch.tensor([2, 4]),
+            output_size=5)
+        out["roi_pool"] = F.roi_pool(rx.to(d), rois.to(d), output_size=5)
+        pb, pv = F.prior_box(torch.zeros(1, 8, 10, 10, device=d),
+                             torch.zeros(1, 3, 160, 160, device=d), [32.0],
+                             [64.0], [2.0], flip=True, clip=True)
+        out["box_coder"] = F.box_coder(pb.reshape(-1, 4), pv.reshape(-1, 4),
+                                       gt.to(d))
+        an, av = F.anchor_generator(torch.zeros(1, 4, 8, 8, device=d),
+                                    [32.0], [0.5, 1.0, 2.0], stride=[16., 16.])
+        out["proposals"] = F.generate_proposals(
+            ps.to(d), pd.to(d), torch.tensor([[128., 128., 1.]], device=d),
+            an, av, pre_nms_top_n=100, post_nms_top_n=20,
+            return_rois_num=True)
+        return out
+
+    card = chain(dev)
+    cpu = chain("cpu")
+    boxes = rois.to(dev)
+    scores = torch.rand(6, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kept = vision.ops.nms(boxes, scores, 0.3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(kept.cpu(), vision.ops.nms(rois, scores.cpu(), 0.3))
+    for k, want in cpu.items():
+        got = card[k] if isinstance(card[k], tuple) else (card[k],)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            a = a.cpu()
+            if not b.is_floating_point():
+                assert torch.equal(a, b), k
+            else:
+                assert (a - b).abs().max() <= 1e-4 * max(
+                    b.abs().max().item(), 1e-30), k
+    assert torch.equal(card["nms"][:, 0].cpu(), cpu["nms"][:, 0])

@@ -81,6 +81,27 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
     assert r.stdout.startswith("OK")
 
 
+def test_import_vision_and_functional_leaves_jax_out():
+    """`import paddle_tpu_torch.vision` (the zoo, ops, transforms,
+    datasets) and the fluid-era functional modules import no JAX and
+    nothing of the reference."""
+    code = ("import sys\n"
+            "import paddle_tpu_torch.vision as V\n"
+            "import paddle_tpu_torch.nn.functional.detection\n"
+            "import paddle_tpu_torch.nn.functional.sequence\n"
+            "from paddle_tpu_torch.io.native_loader import parse_multislot\n"
+            "V.models.resnet50, V.ops.nms, V.transforms.ToTensor\n"
+            "bad = sorted(m for m in sys.modules\n"
+            "             if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'paddle_tpu'))\n"
+            "assert not bad, bad\n"
+            "print('OK')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert r.stdout.strip() == "OK"
+
+
 @pytest.mark.parametrize("entry", ["resolve_device", "GPT2", "PagedKVCache",
                                    "PagedGenerationServer",
                                    "build_train_step", "AdamW", "Bert",
@@ -92,7 +113,8 @@ def test_import_leaves_jax_and_reference_out_of_sys_modules():
                                    "SyncBatchNorm", "optimizer.step",
                                    "fleet.build_worker_server", "to_tensor",
                                    "zeros", "nn.Linear", "set_device",
-                                   "DataLoader", "Model"])
+                                   "DataLoader", "Model",
+                                   "vision.models.resnet50"])
 def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
     """With no card (forced here), every entry point called without
     device= raises naming device='cpu'; with device='cpu' it runs."""
@@ -199,6 +221,8 @@ def test_entry_points_default_to_cuda(entry, monkeypatch, tmp_path):
             ds, batch_size=2, places=kw.get("device"))),
         "Model": lambda **kw: on(kw, lambda: ptt.Model(
             user_net).predict_batch(np.ones((1, 2), np.float32))),
+        "vision.models.resnet50": lambda **kw: on(
+            kw, lambda: ptt.vision.models.resnet50()),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

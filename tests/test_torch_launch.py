@@ -113,22 +113,10 @@ def test_launch_nproc_per_node(tmp_path, module):
 def _coordinator_port():
     """A free port below the kernel's ephemeral range, where no outgoing
     connection of another process (the suite's other tests run beside
-    this one) can take it between this check and rank 0's bind."""
-    import random
-    try:
-        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
-            low = int(f.read().split()[0])
-    except (OSError, ValueError, IndexError):
-        low = 32768
-    rng = random.Random()
-    while True:
-        port = rng.randrange(max(1024, low - 12000), low)
-        with socket.socket() as s:
-            try:
-                s.bind(("127.0.0.1", port))
-            except OSError:
-                continue
-            return port
+    this one) can take it between this check and rank 0's bind: the
+    launcher's own rule."""
+    from paddle_tpu_torch.distributed.utils import free_port
+    return free_port()
 
 
 def test_launch_one_process_a_rank_with_coordinator(tmp_path):
@@ -193,3 +181,77 @@ def test_initialize_from_env_world_of_one(monkeypatch):
     monkeypatch.setenv("PADDLE_TRAINERS_NUM", "1")
     monkeypatch.setenv("PADDLE_TRAINER_ID", "0")
     assert initialize_from_env(device="cpu") == (1, 0)
+
+
+def _held_port():
+    """A socket bound (not listening) to a port of the launcher's rule, as
+    another process's socket can hold it: rank 0's store cannot bind it
+    (EADDRINUSE), and a peer's connection to it is refused."""
+    from paddle_tpu_torch.distributed.utils import free_port
+    s = socket.socket()
+    s.bind(("127.0.0.1", free_port()))
+    return s
+
+
+def test_launch_restarts_rendezvous_on_eaddrinuse(tmp_path, monkeypatch,
+                                                  capfd):
+    """The launcher's first port is taken before rank 0's store binds it
+    (another socket holds it): rank 0 fails with EADDRINUSE, the launcher
+    ends both ranks and starts them again on a new port, and the job
+    ends 0 with the same results."""
+    import importlib
+    from paddle_tpu_torch.distributed import utils
+    launch = importlib.import_module("paddle_tpu_torch.distributed.launch")
+    held = _held_port()
+    first = held.getsockname()[1]
+    ports = iter([first])
+    monkeypatch.setattr(launch, "free_port",
+                        lambda host="127.0.0.1": next(ports, None)
+                        or utils.free_port(host))
+    monkeypatch.setenv("PYTHONPATH", _env()["PYTHONPATH"])
+    monkeypatch.chdir(REPO)
+    logs = tmp_path / "logs"
+    try:
+        with pytest.raises(SystemExit) as e:
+            launch.main(["--nproc_per_node", "2", "--log_dir", str(logs),
+                         _script(tmp_path), str(tmp_path), "ok"])
+    finally:
+        held.close()
+    err = capfd.readouterr().err
+    assert e.value.code == 0, (err, [p.read_text() for p in
+                                     logs.iterdir()])
+    assert f"rendezvous port {first} was taken" in err
+    _check(str(tmp_path))
+
+
+def _spawned_allreduce(out_dir):
+    import torch
+    import paddle_tpu_torch.distributed as dist
+    dist.init_parallel_env(device="cpu")
+    t = torch.tensor([float(dist.get_rank() + 1)])
+    dist.all_reduce(t)
+    with open(os.path.join(out_dir, f"s{dist.get_rank()}"), "w") as f:
+        f.write(f"{os.environ['MASTER_PORT']} {t.item()}")
+
+
+def test_spawn_restarts_rendezvous_on_eaddrinuse(tmp_path, monkeypatch):
+    """spawn's first port is taken: rank 0's store fails with EADDRINUSE,
+    the other rank (whose connections are refused) is ended, and the
+    ranks start again on a new port within the same timeout."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import utils
+    held = _held_port()
+    first = held.getsockname()[1]
+    ports = iter([first])
+    real = utils.free_port
+    monkeypatch.setattr(utils, "free_port",
+                        lambda host="127.0.0.1": next(ports, None)
+                        or real(host))
+    try:
+        dist.spawn(_spawned_allreduce, args=(str(tmp_path),), nprocs=2,
+                   timeout=120)
+    finally:
+        held.close()
+    got = [(tmp_path / f"s{r}").read_text().split() for r in range(2)]
+    assert got[0] == got[1] and got[0][1] == "3.0"
+    assert int(got[0][0]) != first
