@@ -199,10 +199,13 @@ non-zero before the result line:
                dispatch's, no host sync in a replay; then 8 repetitive
                prompts (RandomState(31)) x 16 new tokens, requests
                cycling greedy / sampled / penalties / both, served on
-               the card and on the CPU with speculation off, n-gram
-               (K 8), replay (the card's speculation-off tokens), the
-               unified round and async rounds: every server's tokens card
-               == CPU == speculation off; verify replays == verify
+               the card with speculation off, n-gram (K 8), replay (the
+               card's speculation-off tokens), the unified round and
+               async rounds, and on the CPU with speculation off: every
+               server's card tokens == the card's speculation off == the
+               CPU's (the CPU's other servers equal its speculation off
+               in the tier-1 twins: test_torch_spec_decode.py,
+               test_torch_unified_round.py); verify replays == verify
                dispatches, window replays == rounds without prefill rows,
                dispatches_per_round 1.0 with a mixed round, every async
                dispatch under set_sync_debug_mode("error"). (b) bf16 GPT-2
@@ -346,6 +349,32 @@ non-zero before the result line:
                Compose([Normalize, Transpose]), 2 workers on the card vs
                0 on the CPU: batches bitwise; float64 losses and
                gradients within 4j's limits, float32's first loss;
+  4q. paddle.slim and the 1.x pipeline (after 4v; `quant_parity_phase`),
+               float32, TF32 off, ResNet-50 at B 2, 224²: (a) codes (a
+               float and a tensor scale, per channel), fake_quant values
+               and the STE mask of one tensor, card vs CPU bitwise; (b)
+               fuse_conv_bn (4 pairs), PostTrainingQuantization (abs_max
+               and hist, channel-wise) over 2 batches of
+               `paddle.batch(paddle.reader.shuffle(q_reader, 64), 2)`,
+               convert: frozen weight codes and scales bitwise, activation
+               scales within Q_SCALE_REL, the share of activation codes
+               that differ, int8 logits within Q_LOGIT_REL of the CPU's
+               largest, top-1 equal but at near ties; (c) QAT, two AdamW
+               steps, gated in float64 (losses, parameters, BatchNorm and
+               act_scale buffers, gradients), float32 printed; (d)
+               text.viterbi_decode [8, 64, 32], paths equal, scores 1e-5;
+  6q. quantization timed (after 6v; `quant_throughput_phase`): (a)
+               ResNet-50 at 224², fuse_conv_bn + PTQ hist channel-wise,
+               int8 inference (`torch._int_mm`, im2col for the convs) at
+               B 64 and 256 beside the float32 (TF32 off) and
+               amp.auto_cast() bf16 forwards: ms a batch, samples/s, idle
+               share, peak memory; (b) `utils.profiler.top_ops` of the
+               int8 forward (its top 5 device kernels) and im2col's share
+               of im2col + `_int_mm` by CUDA events; (c) QAT at B 64
+               float32 through `paddle.batch(reader.buffered(
+               reader.shuffle(...), 4), 64)`, 2 warm and 5 measured steps,
+               beside the plain float32 step: ms a step, the reader's
+               wait, idle share, peak memory, the loss falling;
   6v. bench.py's resnet50 axis (after 6j; `vision_throughput_phase`):
                ResNet-50 at 224², B 128 and 256, NCHW and NHWC,
                amp.auto_cast() (bf16 convolutions, O1) + AdamW on float32
@@ -385,12 +414,13 @@ non-zero before the result line:
                through torch.autograd.grad (K9's yardstick, for the pair),
                and K7's and K8's achieved TFLOP/s, share of the bound and
                ratio to that library time;
-  4e. long-context parity — GPT-2 layout with 2 layers, hidden 128, 2
-               heads (D 64), vocab 1024, max_position 13312 (13 x 1024,
+  4e. long-context parity — GPT-2 layout with 2 layers, hidden 128, 1
+               head (D 128), vocab 1024, max_position 7168 (7 x 1024,
                past the reference's switch to the two-pass backward at
-               S 13108 for D 64), float32 (TF32 off): two AdamW steps on
-               the card and on the CPU from the same weights at 1 x 13312
-               unpadded, then padded to 9000 tokens (an additive
+               S 6554 for D 128; a third of the CPU's attention at S
+               13312, D 64), float32 (TF32 off): two AdamW steps on
+               the card and on the CPU from the same weights at 1 x 7168
+               unpadded, then padded to 4800 tokens (an additive
                [1, 1, 1, S] mask through logits(..., attn_mask=) and
                cross_entropy, pad labels -100), with phase 4c's limits;
                per step on the card K7 and K8 (their bias variants when
@@ -3910,11 +3940,15 @@ def spec_parity(torch, model32, card):
     """5v (a): float32 GPT-2 small (phase 4's weights, TF32 off) serving
     8 repetitive prompts of 48-96 tokens (RandomState(31)) with V_NEW new
     tokens, requests cycling greedy / seeded sampled / penalties /
-    sampled with a penalty, on the card and on the CPU: speculation off,
-    n-gram (K 8), replay (K 8, the card's own speculation-off tokens),
-    the unified round (sync, n-gram) and async rounds (n-gram). Every
-    server's card tokens equal its CPU tokens and the speculation-off
-    card tokens. On the card: replays equal verify dispatches (split) and
+    sampled with a penalty, on the card: speculation off, n-gram (K 8),
+    replay (K 8, the card's own speculation-off tokens), the unified
+    round (sync, n-gram) and async rounds (n-gram); on the CPU:
+    speculation off. Every server's card tokens equal the card's
+    speculation-off tokens, which equal the CPU's (on the CPU each other
+    server equals speculation off in the tier-1 twins:
+    `test_torch_spec_decode.py::TestSpecParity`,
+    `test_torch_unified_round.py::TestParity`). On the card: replays
+    equal verify dispatches (split) and
     window rounds (unified); dispatches_per_round 1.0 with a mixed round;
     every async dispatch under set_sync_debug_mode("error"). Returns
     {server: (stats, launch counts)}."""
@@ -3956,15 +3990,16 @@ def spec_parity(torch, model32, card):
             kw = dict(speculation=SpecConfig(
                 max_draft_tokens=V_K, drafter=ReplayDrafter(base[DEV])))
         outs = {}
-        for dev in (DEV, "cpu"):
+        for dev in (DEV, "cpu") if name == "off" else (DEV,):
             outs[dev], st, counts = run(dev, kw)
             if dev == DEV:
                 res[name] = (st, counts)
         if name == "off":
             base = outs
-        for i, (a, b) in enumerate(zip(outs[DEV], outs["cpu"])):
-            if not np.array_equal(a, b):
-                fail(f"phase 5v (a) {name}: request {i} differs card vs CPU")
+            for i, (a, b) in enumerate(zip(outs[DEV], outs["cpu"])):
+                if not np.array_equal(a, b):
+                    fail(f"phase 5v (a) off: request {i} differs card vs "
+                         f"CPU")
         for i, (a, b) in enumerate(zip(outs[DEV], base[DEV])):
             if not np.array_equal(a, b):
                 fail(f"phase 5v (a) {name}: request {i} differs from "
@@ -9058,6 +9093,507 @@ def vision_throughput_phase(torch, card):
                 f"{time.perf_counter() - t0:.1f} s [{card}]")
 
 
+# ---- phases 4q / 6q: paddle.slim (QAT, int8 PTQ) and the 1.x pipeline --------
+
+Q_POOL = 16             # 4q (b): images in the seeded calibration reader
+Q_CALIB = 2             # 4q (b): calibration batches of B V_B
+Q_SCALE_REL = 1e-5      # 4q (b): calibrated activation scales card vs CPU
+#                         (50 float32 layers in another order of summation:
+#                         2.35e-6-2.42e-6 measured)
+Q_QAT_SCALE_REL = 1e-6  # 4q (c): act_scale buffers in float64
+Q_LOGIT_REL = 2e-2      # 4q (b): int8 logits, of the CPU's largest |logit|
+Q_BATCHES = (64, 256)   # 6q (a): int8 inference batches
+Q_QAT_B = 64            # 6q (c): the QAT step's batch
+Q_STEPS = (2, 5)        # 6q (c): warm, measured steps
+
+
+def q_reader(n, seed, pool=None):
+    """A seeded 224² 1.x reader: n (image CHW float32, label) samples drawn
+    from RandomState(seed), or cycling over the first `pool` draws."""
+    def draw(rs):
+        return (rs.rand(3, V_IMG, V_IMG).astype(np.float32),
+                int(rs.randint(0, 1000)))
+
+    def reader():
+        rs = np.random.RandomState(seed)
+        made = [draw(rs) for _ in range(pool)] if pool else None
+        for i in range(n):
+            yield made[i % pool] if pool else draw(rs)
+    return reader
+
+
+def _q_stack(batch):
+    """A `paddle.batch` list of samples -> (images [B, 3, H, W], labels)."""
+    return (np.stack([s[0] for s in batch]),
+            np.asarray([s[1] for s in batch], np.int64))
+
+
+def q_codes_parity(torch, ptt):
+    """4q (a): codes of an activation-sized tensor (B 2 x 64 x 112 x 112,
+    a scale that clips) per tensor by a float and by a tensor, of a conv
+    weight per channel, and fake_quant's values and STE mask, card vs
+    CPU: the number of elements that differ in each (all must be 0)."""
+    from paddle_tpu_torch import slim
+
+    rs = np.random.RandomState(V_SEED + 3)
+    x = torch.from_numpy((rs.randn(V_B, 64, 112, 112) * 3).astype(
+        np.float32))
+    w = torch.from_numpy((rs.randn(256, 64, 3, 3) * 0.05).astype(
+        np.float32))
+    a = 0.7 * float(x.abs().max())
+    out = {}
+    for dev in (DEV, "cpu"):
+        xd = x.to(dev).requires_grad_()
+        wd = w.to(dev)
+        at = torch.tensor(a, device=dev)
+        y = slim.fake_quant(xd, at)
+        y.backward(torch.ones_like(y))
+        out[dev] = [slim.quantize_symmetric(xd.detach(), a),
+                    slim.quantize_symmetric(xd.detach(), at),
+                    slim.quantize_symmetric(wd, slim.weight_scale_of(
+                        wd, "channel_wise_abs_max", "conv")),
+                    y.detach(), xd.grad != 0]
+    names = ("codes (float scale)", "codes (tensor scale)",
+             "weight codes (per channel)", "fake_quant values", "STE mask")
+    diff = {n: int((g.cpu() != c).sum()) for n, g, c in
+            zip(names, out[DEV], out["cpu"])}
+    if any(diff.values()):
+        fail(f"phase 4q (a): card vs CPU elements differ: {diff}")
+    clipped = float(1 - out["cpu"][4].float().mean())
+    return diff, x.numel(), clipped
+
+
+def q_ptq_parity(torch, ptt):
+    """4q (b): ResNet-50 (1000 classes) at B 2, 224², eval, float32: on
+    the card and on the CPU from one set of weights, `fuse_conv_bn` (4
+    pairs), then PostTrainingQuantization (channel-wise weights) over
+    Q_CALIB batches of `paddle.batch(paddle.reader.shuffle(q_reader,
+    64), 2)`, abs_max and hist, then convert; checks per algo: every
+    frozen weight code and scale bitwise, the activation scales within
+    Q_SCALE_REL, the int8 logits of a seeded batch within Q_LOGIT_REL of
+    the CPU's largest, top-1 equal but at near ties; the share of
+    activation codes that differ."""
+    import copy
+    import random
+
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.device import device_guard
+
+    with device_guard("cpu"):
+        ptt.seed(V_SEED + 4)
+        base = _v_resnet50(ptt, "NCHW")
+    base.eval()
+    random.seed(V_SEED)
+    calib = [(_q_stack(b)[0],) for b in ptt.batch(ptt.reader.shuffle(
+        q_reader(Q_POOL, V_SEED + 5), 64), V_B)()][:Q_CALIB]
+    x = torch.from_numpy(np.random.RandomState(V_SEED + 6).rand(
+        V_B, 3, V_IMG, V_IMG).astype(np.float32))
+    rows = {}
+    for algo in ("abs_max", "hist"):
+        res = {}
+        for dev in (DEV, "cpu"):
+            m = copy.deepcopy(base).to(dev)
+            pairs = slim.fuse_conv_bn(m)
+            ptq = slim.PostTrainingQuantization(
+                model=m, algo=algo, weight_quantize_type="channel_wise_abs_max")
+            ptq.quantize(data_loader=calib)
+            codes = []
+
+            def grab(mod, inputs):
+                codes.append(slim.quantize_symmetric(
+                    inputs[0], mod._a_scale_frozen).cpu())
+
+            hooks = [q.register_forward_pre_hook(grab) for q in ptq._wrapped]
+            with torch.no_grad():
+                logits = m(x.to(dev)).cpu()
+            for h in hooks:
+                h.remove()
+            res[dev] = dict(pairs=pairs, n=len(ptq._wrapped), codes=codes,
+                            logits=logits,
+                            wq=[q._wq.cpu() for q in ptq._wrapped],
+                            ws=[q._w_scale_frozen.cpu() for q in ptq._wrapped],
+                            a=[q._a_scale_frozen for q in ptq._wrapped])
+            del m, ptq
+        card, cpu = res[DEV], res["cpu"]
+        if card["pairs"] != 4 or cpu["pairs"] != 4 or card["n"] != 54:
+            fail(f"phase 4q (b) {algo}: fuse_conv_bn fused {card['pairs']} "
+                 f"/ {cpu['pairs']} pairs (expected 4), {card['n']} "
+                 f"quantized layers (expected 54)")
+        bad_w = sum(not (torch.equal(a, b) and torch.equal(s, t))
+                    for a, b, s, t in zip(card["wq"], cpu["wq"], card["ws"],
+                                          cpu["ws"]))
+        a_rel = max(abs(p - q) / q for p, q in zip(card["a"], cpu["a"]))
+        n_codes = sum(c.numel() for c in cpu["codes"])
+        d_codes = sum(int((a != b).sum()) for a, b in zip(card["codes"],
+                                                         cpu["codes"]))
+        big = cpu["logits"].abs().max().item()
+        l_rel = (card["logits"] - cpu["logits"]).abs().max().item() / big
+        top2 = cpu["logits"].topk(2, dim=1).values
+        tie = (top2[:, 0] - top2[:, 1]) < Q_LOGIT_REL * big
+        agree = card["logits"].argmax(1) == cpu["logits"].argmax(1)
+        if bad_w or a_rel > Q_SCALE_REL or l_rel > Q_LOGIT_REL or \
+                not bool((agree | tie).all()):
+            fail(f"phase 4q (b) {algo}: {bad_w} layers' frozen weight codes "
+                 f"or scales differ card vs CPU; activation scales "
+                 f"{a_rel:.3g} apart (limit {Q_SCALE_REL}); logits "
+                 f"{l_rel:.3g} of the largest (limit {Q_LOGIT_REL}); top-1 "
+                 f"{agree.tolist()} near ties {tie.tolist()}")
+        rows[algo] = dict(a_rel=a_rel, share=d_codes / n_codes, n=n_codes,
+                          l_rel=l_rel, ties=int(tie.sum()),
+                          top1=agree.tolist())
+    return rows
+
+
+def q_qat_parity(torch, ptt):
+    """4q (c): QAT (channel-wise weights, moving_average_abs_max) of
+    ResNet-50 at B 2, 224², two AdamW steps (lr 1e-4, wd 0.01) on the
+    card and on the CPU from one set of weights, in float64 and in
+    float32. Gated in float64 (ROADMAP §C 44, §C 50): losses within
+    1e-4, parameters within 2 lr steps, BatchNorm buffers 1e-4, the
+    act_scale buffers within Q_QAT_SCALE_REL, the first step's gradients
+    within 1e-3 of their leaf. In float32 the fake quantization turns
+    the devices' rounding differences into code flips that cascade
+    through the layers (the losses differ at the int8 noise level): its
+    numbers are printed, and only finiteness is gated."""
+    import copy
+
+    from paddle_tpu_torch import slim
+    from paddle_tpu_torch.device import device_guard
+
+    rs = np.random.RandomState(V_SEED + 7)
+    x = torch.from_numpy(rs.rand(V_B, 3, V_IMG, V_IMG).astype(np.float32))
+    y = torch.from_numpy(rs.randint(0, 1000, V_B))
+    with device_guard("cpu"):
+        ptt.seed(V_SEED + 7)
+        base = _v_resnet50(ptt, "NCHW")
+
+    def run(dev, dt):
+        m = copy.deepcopy(base).to(device=dev, dtype=dt)
+        slim.ImperativeQuantAware(
+            weight_quantize_type="channel_wise_abs_max",
+            activation_quantize_type="moving_average_abs_max").quantize(m)
+        m.train()
+        opt = ptt.optimizer.AdamW(V_LR, parameters=m.parameters(),
+                                  weight_decay=0.01, device=dev)
+        losses, grads = [], None
+        for _ in range(2):
+            loss = ptt.nn.functional.cross_entropy(m(x.to(dev, dt)),
+                                                   y.to(dev))
+            loss.backward()
+            if grads is None:
+                grads = {n: p.grad.detach().double().cpu()
+                         for n, p in m.named_parameters()}
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.item())
+        state = {k: v.detach().double().cpu()
+                 for k, v in m.state_dict().items()}
+        return losses, grads, state
+
+    rows = {}
+    limit = 2 * V_LR * 2 + 1e-6
+    for dt, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        (lc, gc, sc), (lg, gg, sg) = run("cpu", dt), run(DEV, dt)
+        rel = max(abs(a - b) / abs(b) for a, b in zip(lg, lc))
+        acts = [k for k in sc if k.endswith("act_scale")]
+        bufs = [k for k in sc if k.endswith(("_mean", "_variance"))]
+        a_rel = max(abs(sg[k].item() - sc[k].item()) / sc[k].item()
+                    for k in acts)
+        buf = _v_worst(torch, sg, sc, bufs)
+        par = max(((sg[k] - sc[k]).abs().max().item(), k)
+                  for k in sc if k not in acts and k not in bufs)
+        grad = _v_worst(torch, gg, gc)
+        if not np.isfinite(lg + lc).all() or dt == torch.float64 and (
+                rel > 1e-4 or a_rel > Q_QAT_SCALE_REL or buf[0] > 1e-4 or
+                par[0] > limit or grad[0] > 1e-3):
+            fail(f"phase 4q (c) QAT ResNet-50 {tag}: losses {lg} vs {lc} "
+                 f"(rel {rel:.3g}, limit 1e-4), act_scale {a_rel:.3g} (limit "
+                 f"{Q_QAT_SCALE_REL}), BatchNorm buffer {buf[1]} "
+                 f"{buf[0]:.3g} (limit 1e-4), parameter {par[1]} "
+                 f"{par[0]:.3g} (limit {limit:.3g}), gradient {grad[1]} "
+                 f"{grad[0]:.3g} (limit 1e-3)")
+        rows[tag] = dict(losses=(lg, lc), rel=rel, a_rel=a_rel, n=len(acts),
+                         buf=buf, par=par, grad=grad)
+        torch.cuda.empty_cache()
+    return rows
+
+
+def q_viterbi_parity(torch, ptt):
+    """4q (d): text.viterbi_decode on a seeded [8, 64, 32] potential and
+    [32, 32] transitions, card vs CPU: paths equal, scores within 1e-5."""
+    rs = np.random.RandomState(V_SEED + 8)
+    pot = torch.from_numpy(rs.randn(8, 64, 32).astype(np.float32))
+    trans = torch.from_numpy(rs.randn(32, 32).astype(np.float32))
+    sc, pc = ptt.text.viterbi_decode(pot, trans)
+    sg, pg = ptt.text.viterbi_decode(pot.to(DEV), trans.to(DEV))
+    err = (sg.cpu() - sc).abs().max().item()
+    if not torch.equal(pg.cpu(), pc) or err > 1e-5:
+        fail(f"phase 4q (d) viterbi_decode: paths equal "
+             f"{torch.equal(pg.cpu(), pc)}, scores {err:.3g} (limit 1e-5)")
+    return err
+
+
+def quant_parity_phase(torch, card):
+    """Phase 4q: (a) codes, (b) PTQ, (c) QAT, (d) viterbi_decode."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    diff, n, clipped = q_codes_parity(torch, ptt)
+    say(f"phase 4q (a) quantize_symmetric / fake_quant card vs CPU on "
+        f"{n} activations (B{V_B} x 64 x 112 x 112, {clipped:.3f} clipped) "
+        f"and a 256 x 64 x 3 x 3 weight per channel: elements that differ "
+        f"{diff} (all must be 0)")
+    t1 = time.perf_counter()
+    for algo, r in q_ptq_parity(torch, ptt).items():
+        say(f"phase 4q (b) PTQ {algo} ResNet-50 B{V_B} {V_IMG}² f32 (TF32 "
+            f"off): fuse_conv_bn 4 pairs on both; 54 layers' frozen weight "
+            f"codes and per-channel scales bitwise card vs CPU; activation "
+            f"scales {r['a_rel']:.3g} apart (limit {Q_SCALE_REL}); "
+            f"activation codes that differ {r['share']:.3g} of {r['n']}; "
+            f"int8 logits {r['l_rel']:.3g} of the CPU's largest (limit "
+            f"{Q_LOGIT_REL}); top-1 equal {r['top1']} ({r['ties']} near "
+            f"ties)")
+    t2 = time.perf_counter()
+    for tag, r in q_qat_parity(torch, ptt).items():
+        (lg, lc) = r["losses"]
+        gate = (f"limits 1e-4 / {Q_QAT_SCALE_REL} / 1e-4 / "
+                f"{2 * V_LR * 2 + 1e-6:.3g} / 1e-3" if tag == "f64" else
+                "not gated in float32: code flips cascade, ROADMAP §C 50")
+        say(f"phase 4q (c) QAT ResNet-50 {tag} B{V_B} {V_IMG}², channel-wise "
+            f"weights, moving_average_abs_max, 2 AdamW steps card vs CPU "
+            f"({gate}): losses {' '.join(f'{v:.6f}' for v in lg)} vs "
+            f"{' '.join(f'{v:.6f}' for v in lc)} (rel {r['rel']:.3g}); "
+            f"{r['n']} act_scale buffers {r['a_rel']:.3g} apart; BatchNorm "
+            f"buffer {r['buf'][1]} {r['buf'][0]:.3g}; parameter "
+            f"{r['par'][1]} {r['par'][0]:.3g}; first step's worst gradient "
+            f"{r['grad'][1]} {r['grad'][0]:.3g} of its leaf")
+    t3 = time.perf_counter()
+    err = q_viterbi_parity(torch, ptt)
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    say(f"phase 4q (d) text.viterbi_decode [8, 64, 32] card vs CPU: paths "
+        f"equal, scores {err:.3g} (limit 1e-5); kernel launches in 4q "
+        f"{counts or 'none'} (this path reaches no TPU kernel); (a) "
+        f"{t1 - t0:.1f} s, (b) {t2 - t1:.1f} s, (c) {t3 - t2:.1f} s, (d) "
+        f"{time.perf_counter() - t3:.1f} s [{card}]")
+
+
+def _q_timed(torch, fn, warm=2, steps=5):
+    """`fn` timed on the card: ms a call (CUDA events over `steps` calls
+    after `warm`), host ms a call, peak memory over the timed calls, the
+    idle share of one profiled call."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        fn()
+    end.record()
+    end.synchronize()
+    wall = (time.perf_counter() - t0) / steps
+    peak = torch.cuda.max_memory_allocated()
+    busy = profiled_busy(torch, fn)
+    return dict(ms=start.elapsed_time(end) / steps, wall_ms=wall * 1e3,
+                peak=peak, idle=1 - busy / wall, busy_ms=busy * 1e3)
+
+
+def q_inference_timed(torch, ptt, card):
+    """6q (a), (b): ResNet-50 at 224², `fuse_conv_bn` then PTQ (hist,
+    channel-wise) calibrated on 2 batches of 8 from q_reader(16, 0); at
+    B 64 and 256, random images from RandomState(0), eval under no_grad:
+    the int8 forward beside the float32 forward (TF32 off) and the
+    `amp.auto_cast()` bf16 forward of the same model; then at B 64
+    `utils.profiler.top_ops` of the int8 forward and the share of its
+    CUDA-event time in im2col against `_int_mm`."""
+    import copy
+
+    from paddle_tpu_torch import slim
+
+    ptt.seed(V_SEED)
+    model = _v_resnet50(ptt, "NCHW")
+    model.eval()
+    int8 = copy.deepcopy(model)
+    pairs = slim.fuse_conv_bn(int8)
+    calib = [(_q_stack(b)[0],) for b in ptt.batch(q_reader(16, 0), 8)()]
+    slim.PostTrainingQuantization(
+        model=int8, algo="hist",
+        weight_quantize_type="channel_wise_abs_max").quantize(
+        data_loader=calib, batch_nums=2)
+    rs = np.random.RandomState(0)
+    rows = {}
+    for b in Q_BATCHES:
+        images = torch.from_numpy(rs.rand(b, 3, V_IMG, V_IMG).astype(
+            np.float32)).to(DEV)
+
+        def bf16():
+            with ptt.amp.auto_cast():
+                return model(images)
+
+        with torch.no_grad():
+            for tag, fn in (("int8", lambda: int8(images)),
+                            ("float32", lambda: model(images)),
+                            ("bf16", bf16)):
+                rows[(b, tag)] = _q_timed(torch, fn)
+            out8, out32 = int8(images), model(images)
+        agree = (out8.argmax(1) == out32.argmax(1)).float().mean().item()
+        rel = ((out8 - out32).abs().max() / out32.abs().max()).item()
+        if not torch.isfinite(out8).all():
+            fail(f"phase 6q (a) B{b}: non-finite int8 logits")
+        rows[(b, "agree")] = (agree, rel)
+        del images, out8, out32
+        torch.cuda.empty_cache()
+    images = torch.from_numpy(rs.rand(Q_BATCHES[0], 3, V_IMG, V_IMG).astype(
+        np.float32)).to(DEV)
+    with torch.no_grad():
+        top = ptt.utils.profiler.top_ops(lambda: int8(images), steps=3, k=5)
+        events = {"im2col": [], "int_mm": []}
+        real = (slim.im2col, slim.int8_matmul)
+
+        def timed(name, f):
+            def g(*a, **kw):
+                s = torch.cuda.Event(enable_timing=True)
+                e = torch.cuda.Event(enable_timing=True)
+                s.record()
+                out = f(*a, **kw)
+                e.record()
+                events[name].append((s, e))
+                return out
+            return g
+
+        slim.im2col = timed("im2col", real[0])
+        slim.int8_matmul = timed("int_mm", real[1])
+        try:
+            int8(images)
+        finally:
+            slim.im2col, slim.int8_matmul = real
+        torch.cuda.synchronize()
+    split = {k: (sum(s.elapsed_time(e) for s, e in v), len(v))
+             for k, v in events.items()}
+    del model, int8, images
+    torch.cuda.empty_cache()
+    return pairs, rows, top, split
+
+
+def q_qat_timed(torch, ptt):
+    """6q (c): QAT of ResNet-50 (channel-wise weights,
+    moving_average_abs_max) at B Q_QAT_B, 224², float32 (TF32 off), AdamW
+    (lr 1e-4, wd 0.01), batches through `paddle.batch(paddle.reader.
+    buffered(paddle.reader.shuffle(q_reader(.., pool 64), 64), 4), 64)`
+    (every batch the pool's 64 seeded images, reshuffled), beside the
+    plain float32 step of the same model on the same batches: ms a step,
+    the reader's wait a step (host ms to the next batch on the card), the
+    idle share of one profiled step, peak memory, the losses."""
+    import copy
+    import random
+
+    from paddle_tpu_torch import slim
+
+    ptt.seed(V_SEED)
+    plain = _v_resnet50(ptt, "NCHW")
+    qat = copy.deepcopy(plain)
+    slim.ImperativeQuantAware(
+        weight_quantize_type="channel_wise_abs_max",
+        activation_quantize_type="moving_average_abs_max").quantize(qat)
+    out = {}
+    for tag, model in (("qat", qat), ("float32", plain)):
+        model.train()
+        opt = ptt.optimizer.AdamW(V_LR, parameters=model.parameters(),
+                                  weight_decay=0.01)
+        random.seed(0)
+        n = Q_QAT_B * (sum(Q_STEPS) + 1)
+        it = ptt.batch(ptt.reader.buffered(ptt.reader.shuffle(
+            q_reader(n, 0, pool=Q_QAT_B), Q_QAT_B), 4), Q_QAT_B)()
+        waits, losses = [], []
+
+        def step():
+            t0 = time.perf_counter()
+            xs, ys = _q_stack(next(it))
+            x, y = torch.from_numpy(xs).to(DEV), torch.from_numpy(ys).to(DEV)
+            waits.append(time.perf_counter() - t0)
+            loss = ptt.nn.functional.cross_entropy(model(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(loss.detach())
+            return loss
+
+        r = _q_timed(torch, step, *Q_STEPS)
+        r["wait_ms"] = 1e3 * sum(waits[Q_STEPS[0]:sum(Q_STEPS)]) / Q_STEPS[1]
+        r["losses"] = [v.item() for v in losses]
+        if not all(np.isfinite(r["losses"])):
+            fail(f"phase 6q (c) {tag}: non-finite loss {r['losses']}")
+        if tag == "qat" and not r["losses"][-1] < r["losses"][0]:
+            fail(f"phase 6q (c) QAT: the loss did not fall {r['losses']}")
+        out[tag] = r
+        del opt
+        torch.cuda.empty_cache()
+    act = [float(q.act_scale) for q in qat.sublayers()
+           if isinstance(q, slim.QuantedConv2D)]
+    del plain, qat
+    torch.cuda.empty_cache()
+    return out, act
+
+
+def quant_throughput_phase(torch, card):
+    """Phase 6q: (a) int8 inference, (b) its profile, (c) QAT steps."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.ops import kernels
+
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    pairs, rows, top, split = q_inference_timed(torch, ptt, card)
+    for b in Q_BATCHES:
+        i8, f32, b16 = (rows[(b, t)] for t in ("int8", "float32", "bf16"))
+        agree, rel = rows[(b, "agree")]
+        say(f"phase 6q (a) ResNet-50 B{b} {V_IMG}² inference, fuse_conv_bn "
+            f"({pairs} pairs) + PTQ hist channel-wise int8 (_int_mm, int32 "
+            f"accumulators): ms_per_batch {i8['ms']:.2f} (host "
+            f"{i8['wall_ms']:.2f}) samples_per_sec {b / i8['ms'] * 1e3:.1f} "
+            f"idle {i8['idle']:.3f} max_memory_allocated "
+            f"{i8['peak'] / 2**20:.0f} MiB; float32 (TF32 off) "
+            f"{f32['ms']:.2f} ms ({b / f32['ms'] * 1e3:.1f}/s, idle "
+            f"{f32['idle']:.3f}, {f32['peak'] / 2**20:.0f} MiB); "
+            f"amp.auto_cast() bf16 {b16['ms']:.2f} ms "
+            f"({b / b16['ms'] * 1e3:.1f}/s, idle {b16['idle']:.3f}, "
+            f"{b16['peak'] / 2**20:.0f} MiB); int8 vs float32 top-1 "
+            f"agreement {agree:.3f}, logits {rel:.3g} of the largest [{card}]")
+    mm, n_mm = split["int_mm"]
+    i2c, n_i2c = split["im2col"]
+    say(f"phase 6q (b) utils.profiler.top_ops of the int8 forward, B"
+        f"{Q_BATCHES[0]}, 3 calls (device kernels, ms over the 3 calls, "
+        f"count): " + "; ".join(f"{n[:90]} {ms:.3f} ms x{c}"
+                                for n, ms, c in top)
+        + f"; CUDA events around each call of one forward: im2col {i2c:.3f}"
+        f" ms ({n_i2c} calls), int8_matmul (_int_mm with its padding) "
+        f"{mm:.3f} ms ({n_mm} calls): im2col's share "
+        f"{i2c / max(i2c + mm, 1e-9):.3f} [{card}]")
+    t1 = time.perf_counter()
+    out, act = q_qat_timed(torch, ptt)
+    q, p = out["qat"], out["float32"]
+    say(f"phase 6q (c) QAT ResNet-50 B{Q_QAT_B} {V_IMG}² float32 (TF32 off), "
+        f"channel-wise weights, moving_average_abs_max, AdamW, batches "
+        f"through paddle.batch(reader.buffered(reader.shuffle(...), 4)): "
+        f"ms_per_step {q['ms']:.2f} (host {q['wall_ms']:.2f}) vs the plain "
+        f"float32 step {p['ms']:.2f} (host {p['wall_ms']:.2f}): "
+        f"{q['ms'] / p['ms']:.2f}x; samples_per_sec "
+        f"{Q_QAT_B / q['ms'] * 1e3:.1f} vs {Q_QAT_B / p['ms'] * 1e3:.1f}; "
+        f"reader wait {q['wait_ms']:.2f} / {p['wait_ms']:.2f} ms a step; idle "
+        f"{q['idle']:.3f} / {p['idle']:.3f}; max_memory_allocated "
+        f"{q['peak'] / 2**20:.0f} / {p['peak'] / 2**20:.0f} MiB; QAT losses "
+        f"{' '.join(f'{v:.4f}' for v in q['losses'])} (plain "
+        f"{' '.join(f'{v:.4f}' for v in p['losses'])}); act_scale range "
+        f"{min(act):.3g}-{max(act):.3g} over {len(act)} convs")
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    say(f"phase 6q: kernel launches {counts or 'none'} (no TPU kernel on this "
+        f"path); (a)+(b) {t1 - t0:.1f} s, (c) {time.perf_counter() - t1:.1f} "
+        f"s [{card}]")
+
+
 def main():
     import torch
 
@@ -9424,16 +9960,24 @@ def main():
     vision_parity_phase(torch, card)
     torch.cuda.empty_cache()
 
-    # phase 4e: long-context training parity past the switch, card vs CPU
-    S = 13312
+    # phase 4q: paddle.slim — quantization card vs CPU (codes, PTQ with
+    # fuse_conv_bn over a 1.x reader, QAT steps) and text.viterbi_decode
+    quant_parity_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 4e: long-context training parity past the switch, card vs CPU.
+    # Head dim 128 puts S 7168 past the two-pass switch (S * D * 10 > 8 Mi):
+    # the CPU's dense attention costs a third of S 13312's at head dim 64
+    S = 7168
     cfg_long = GPT2Config(vocab_size=1024, hidden_size=128, num_layers=2,
-                          num_heads=2, max_position=S, dropout=0.0)
-    for lengths, expect in ((None, TWO_PASS), ([9000], TWO_PASS_BIAS)):
+                          num_heads=1, max_position=S, dropout=0.0)
+    for lengths, expect in ((None, TWO_PASS), ([4800], TWO_PASS_BIAS)):
         t0 = time.perf_counter()
         worst = train_parity(torch, cfg_long, b=1, s=S, lengths=lengths,
                              expect=expect, never=FUSED_BWD, phase="4e")
         say(f"phase 4e long-context train parity f32 B1 S{S} "
-            f"{'padded to 9000' if lengths else 'unpadded'}, 2 layers, 2 "
+            f"{'padded to 4800' if lengths else 'unpadded'}, H1 D128, 2 "
+            f"layers, 2 "
             f"AdamW steps: loss rel diff {worst['loss']:.3g} (limit 1e-4), "
             f"worst gradient diff {worst['grad']:.3g} of its magnitude "
             f"(limit 1e-3), worst parameter diff {worst['param']:.3g} "
@@ -9673,7 +10217,8 @@ def main():
     for name, (st, counts) in spec_parity(torch, model32, card).items():
         sp, rd = st["speculation"], st["rounds"]
         say(f"phase 5v (a) f32 {name}: 8 requests x {V_NEW} tokens (greedy, "
-            f"sampled, penalties) card == CPU == speculation off; "
+            f"sampled, penalties) card == speculation off on the card == "
+            f"CPU; "
             f"acceptance_rate {sp['acceptance_rate']:.4f} verify dispatches "
             f"{sp['verify_dispatches']} (replays "
             f"{st['verify_graph_replays']}) rounds {rd['rounds']} "
@@ -9690,7 +10235,7 @@ def main():
         main_counts[n] += v
     t_all = time.perf_counter() - t0
     say(f"phase 5v: {t_all:.1f} s ((k) {t_k:.1f} s, (a) graph vs eager "
-        f"{t_graph:.1f} s, (a) servers card and CPU {t_a:.1f} s, (b) "
+        f"{t_graph:.1f} s, (a) servers (card; CPU off) {t_a:.1f} s, (b) "
         f"{t_all - t_k - t_graph - t_a:.1f} s)")
 
     # phase 6g: offline generation in bf16 (phase 4f's weights). (a)
@@ -9904,6 +10449,12 @@ def main():
     # phase 6v: bench.py's resnet50 axis on the card, B 128 and 256, NCHW
     # and NHWC
     vision_throughput_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 6q: ResNet-50 int8 inference (PTQ) beside float32 and bf16, its
+    # profile through utils.profiler, and QAT steps over a 1.x reader
+    quant_throughput_phase(torch, card)
+    torch.cuda.empty_cache()
 
     # phase 6c: long-context GPT-2 small training, through K7/K8 (bias)
     cfg_16k = GPT2Config(max_position=16384, dropout=0.0)

@@ -87,7 +87,9 @@ from .device import (  # noqa: F401
 _LAZY_MODULES = ("nn", "ops", "amp", "optimizer", "linalg", "tensor",
                  "models", "inference", "jit", "distributed", "parallel",
                  "io", "metric", "hapi", "framework", "distribution",
-                 "regularizer", "compat", "callbacks", "vision")
+                 "regularizer", "compat", "callbacks", "vision", "utils",
+                 "dataset", "reader", "text", "slim", "incubate", "onnx",
+                 "version", "sysconfig")
 # name -> (module, attribute): the high-level API's names
 _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "save": ("framework.io", "save"),
@@ -95,7 +97,12 @@ _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "flops": ("hapi.static_flops", "flops"),
                "summary": ("hapi.model_summary", "summary"),
                "L1Decay": ("regularizer", "L1Decay"),
-               "L2Decay": ("regularizer", "L2Decay")}
+               "L2Decay": ("regularizer", "L2Decay"),
+               "DataParallel": ("distributed.parallel", "DataParallel"),
+               "batch": ("reader", "batch"),
+               "commit": ("version", "commit"),
+               "full_version": ("version", "full_version"),
+               "__version__": ("version", "full_version")}
 
 
 def __getattr__(name):

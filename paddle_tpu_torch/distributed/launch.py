@@ -150,7 +150,7 @@ def run_local_ranks(args):
         if code == 0 or not retry or not procs[0].addr_in_use.is_set() \
                 or attempt == RENDEZVOUS_ATTEMPTS - 1:
             return code
-        print(f"launch: rendezvous port {procs[0].port} was taken "
+        print(f"launch: rendezvous port {procs[0].port} was taken "  # cli-print
               f"(EADDRINUSE); starting the ranks again on a new port",
               file=sys.stderr, flush=True)
     return code

@@ -4,11 +4,16 @@ layers and the Transformer (`layer`), `functional`, `initializer`,
 `utils` (weight norm), `clip` (gradient clipping), `decode` (the
 paged decoder of the serving path), and the fluid-era layer classes
 with the beam-search decoder (`layer.legacy`)."""
+import sys
+
+import torch
+
 from . import clip  # noqa: F401
 from . import functional  # noqa: F401
 from . import initializer  # noqa: F401
 from .clip import (ClipGradByGlobalNorm, ClipGradByNorm,  # noqa: F401
-                   ClipGradByValue)
+                   ClipGradByValue, GradientClipByGlobalNorm,
+                   GradientClipByNorm, GradientClipByValue)
 from .layer.activation import (  # noqa: F401
     CELU, ELU, GELU, GLU, SELU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
     LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
@@ -56,6 +61,27 @@ from .layer.legacy import (  # noqa: F401,E402
     ctc_greedy_decoder, dynamic_decode,
 )
 from ..ops.control import cond, while_loop  # noqa: F401,E402
+from .functional.legacy import crf_decoding  # noqa: F401,E402
+
+
+def clip_by_norm(x, max_norm, name=None):
+    """x scaled down to L2 norm `max_norm` when its norm exceeds it (the
+    reference's `nn.clip_by_norm`)."""
+    n = torch.sqrt(torch.sum(x * x))
+    return torch.where(n > max_norm, x * (max_norm / n), x)
+
+
+def set_gradient_clip(clip, param_list=None, program=None):
+    """Record a default gradient clip on `nn.clip`, as the reference's
+    `nn.set_gradient_clip` does."""
+    from . import clip as clip_mod
+    clip_mod._default_grad_clip = clip
+
+
+# the reference's topic submodules of nn are aliases of nn itself
+_self = sys.modules[__name__]
+common = conv = extension = loss = norm = pooling = rnn = vision = \
+    weight_norm_hook = _self
 
 __all__ = [
     "clip", "functional", "initializer", "utils", "ClipGradByGlobalNorm",
@@ -86,4 +112,6 @@ __all__ = [
     "TransformerEncoderLayer", "set_dropout_generator", "AdaptiveMaxPool3D",
     "BeamSearchDecoder", "BilinearTensorProduct", "Decoder", "DynamicRNN",
     "HSigmoidLoss", "NCELoss", "Pool2D", "RowConv", "StaticRNN", "TreeConv",
-    "ctc_greedy_decoder", "dynamic_decode", "cond", "while_loop"]
+    "ctc_greedy_decoder", "dynamic_decode", "cond", "while_loop",
+    "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
+    "crf_decoding", "clip_by_norm", "set_gradient_clip"]

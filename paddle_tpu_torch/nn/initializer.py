@@ -22,6 +22,7 @@ reference's:
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
@@ -240,3 +241,7 @@ __all__ = ["Initializer", "Constant", "Uniform", "Normal", "TruncatedNormal",
            "TruncatedNormalInitializer", "XavierInitializer",
            "MSRAInitializer", "NumpyArrayInitializer", "calculate_gain",
            "set_global_initializer"]
+
+# the reference's initializer submodule paths are aliases of this module
+assign = constant = kaiming = normal = uniform = xavier = \
+    sys.modules[__name__]

@@ -38,7 +38,9 @@ the RNN weights are [gates · hidden, in] with the reference's gate
 order (LSTM i, f, g, o; GRU r, z, c) and names (`weight_ih_l0`,
 `bias_hh_l0_reverse`, ...); BatchNorm's running statistics are the
 buffers `_mean` / `_variance`. bfloat16 arrays are read through
-float32. A key the port's layer lacks, or a shape that differs, raises.
+float32; a 0-d buffer (slim's `act_scale`) takes the reference's
+one-element array. A key the port's layer lacks, or a shape that
+differs, raises.
 """
 from __future__ import annotations
 
@@ -216,6 +218,8 @@ def load_reference_state(layer, state):
         for name, v in state.items():
             t = own[name]
             src = _as_tensor(v)
+            if t.dim() == 0 and src.numel() == 1:
+                src = src.reshape(())  # the reference's numpy() of a 0-d
             if tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{name}: reference shape "
                                  f"{tuple(src.shape)}, port {tuple(t.shape)}")

@@ -35,8 +35,8 @@ ported half (pure host Python, stdlib only).
     time, KV block-seconds, host-tier byte-seconds and capture time in
     integer units with exact conservation.
 
-Not ported yet: `tracing.attach_device_ops`, the bridge to the
-reference's XLA profiler, raises (ROADMAP §A 14).
+`tracing.attach_device_ops` bridges `utils.profiler.top_ops` (torch's
+profiler: the card's kernels) into a trace report.
 
 One switch turns metrics+tracing on: PADDLE_TPU_TELEMETRY=1 in the
 environment, or `observability.enable()` at runtime.

@@ -40,8 +40,8 @@ decode / detokenize) that tile the request's wall-clock exactly, plus
 TTFT and per-token decode latency — the standard latency lens of paged
 serving engines (Ragged Paged Attention, arXiv:2604.15464).
 
-`attach_device_ops` (the reference's bridge to its XLA profiler) is
-not ported: it raises, naming ROADMAP §A 14.
+`attach_device_ops` attaches `utils.profiler.top_ops`'s table of device
+kernels to a report, as the reference's bridge to its XLA profiler.
 """
 from __future__ import annotations
 
@@ -475,11 +475,20 @@ def summarize_traces(traces):
 
 
 def attach_device_ops(report, fn, steps=3, k=25):
-    """Not ported: the reference bridges its `utils/profiler.top_ops`
-    (an XLA profile of a jitted `fn`) into a trace report. The port's
-    profiler bridge waits for `utils/profiler` (ROADMAP §A 14); until
-    then device time is read with `torch.profiler` directly (as
-    scripts/torch_serve_profile.py does)."""
-    raise NotImplementedError(
-        "tracing.attach_device_ops is not ported (ROADMAP §A 14, "
-        "utils/profiler); read device time with torch.profiler")
+    """Attach a device-op breakdown (`utils.profiler.top_ops` over the
+    zero-argument `fn`) to an assembled trace report dict: the
+    per-request phases say where the request's time went on the host,
+    the op table says where the device milliseconds inside the dispatch
+    spans go. Returns `report` (mutated) for chaining; a profiling
+    failure degrades to a "device_ops_error" note rather than losing the
+    report, as the reference's."""
+    from ..utils import profiler as _profiler
+
+    try:
+        ops = _profiler.top_ops(fn, steps=steps, k=k)
+        report["device_ops"] = [
+            {"op": name, "total_ms": round(ms, 4), "count": count}
+            for name, ms, count in ops]
+    except Exception as e:  # noqa: BLE001 — the report outlives the trace
+        report["device_ops_error"] = f"{type(e).__name__}: {e}"
+    return report

@@ -7,7 +7,8 @@ flash attention with its autograd rule (`flash_attention`), eager
 control flow (`control`: `cond`, `while_loop`, `case`, ...), the
 vocab-chunked loss (`chunked_xent`) and the CUDA kernels behind them
 (`kernels`)."""
-from .attention import (paged_decode_attention,  # noqa: F401
+from .attention import (fused_feedforward,  # noqa: F401
+                        fused_multi_head_attention, paged_decode_attention,
                         ragged_prefill_attention,
                         scaled_dot_product_attention)
 from .chunked_xent import chunked_softmax_xent  # noqa: F401
@@ -30,7 +31,8 @@ from .math import min as min_  # noqa: F401
 from .math import sum as sum_  # noqa: F401
 
 __all__ = (["paged_decode_attention", "ragged_prefill_attention",
-            "scaled_dot_product_attention", "chunked_softmax_xent", "case",
+            "scaled_dot_product_attention", "fused_feedforward",
+            "fused_multi_head_attention", "chunked_softmax_xent", "case",
             "cond", "fori_loop", "scan", "switch_case", "while_loop"]
            + creation.__all__ + linalg.__all__ + loss.__all__
            + manipulation.__all__ + math.__all__ + nn_ops.__all__

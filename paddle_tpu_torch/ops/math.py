@@ -349,6 +349,12 @@ def nan_to_num(x, nan=0.0, posinf=None, neginf=None):
     return torch.nan_to_num(x, nan, posinf, neginf)
 
 
+def nan_to_num_(x, nan=0.0, posinf=None, neginf=None):
+    """The reference's `nan_to_num_` (`paddle_tpu/ops/math.py:377`): the
+    same values as `nan_to_num`, a new tensor that carries no gradient."""
+    return torch.nan_to_num(x.detach(), nan, posinf, neginf)
+
+
 __all__ = [
     "add", "subtract", "multiply", "divide", "floor_divide", "remainder",
     "mod", "floor_mod", "pow", "maximum", "minimum", "fmax", "fmin",
@@ -364,4 +370,4 @@ __all__ = [
     "is_complex", "is_floating_point", "is_integer", "sum", "mean", "max",
     "min", "prod", "all", "any", "logsumexp", "std", "var",
     "count_nonzero", "cumsum", "cumprod", "cummax", "cummin", "trace",
-    "kron", "nan_to_num"]
+    "kron", "nan_to_num", "nan_to_num_"]

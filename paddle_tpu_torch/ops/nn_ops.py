@@ -783,6 +783,14 @@ def temporal_shift(x, seg_num, shift_ratio=0.25):
     return out.reshape(nt, c, h, w)
 
 
+def sync_batch_norm(*args, **kwargs):
+    """`nn.layer.norm.sync_batch_norm` under the op name the reference
+    binds (`paddle_tpu/ops/nn_ops.py:564`); imported at the call, since
+    `nn` imports this module."""
+    from ..nn.layer.norm import sync_batch_norm as impl
+    return impl(*args, **kwargs)
+
+
 __all__ = [
     "relu", "relu6", "sigmoid", "tanh", "log_sigmoid", "leaky_relu",
     "prelu", "elu", "selu", "celu", "gelu", "hardsigmoid", "hardswish",
@@ -799,4 +807,4 @@ __all__ = [
     "dropout3d", "alpha_dropout", "embedding", "one_hot", "label_smooth",
     "linear", "interpolate", "upsample", "pixel_shuffle", "pixel_unshuffle",
     "unfold", "grid_sample", "affine_grid", "cosine_similarity",
-    "pairwise_distance", "temporal_shift"]
+    "pairwise_distance", "temporal_shift", "sync_batch_norm"]

@@ -3,6 +3,7 @@
 that the reference's `paddle.tensor` re-exports."""
 from ..core.tensor import Tensor, is_tensor, to_tensor  # noqa: F401
 from ..ops import *  # noqa: F401,F403
+from ..ops import abs_, max_, min_, sum_  # noqa: F401
 from ..compat import (  # noqa: F401,E402
     ComplexVariable, LoDTensor, LoDTensorArray, VarBase, addcmul,
     broadcast_shape, crop_tensor, elementwise_add, elementwise_div,

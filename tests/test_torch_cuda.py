@@ -3008,3 +3008,58 @@ def test_detection_chain_card_vs_cpu(dev):
                 assert (a - b).abs().max() <= 1e-4 * max(
                     b.abs().max().item(), 1e-30), k
     assert torch.equal(card["nms"][:, 0].cpu(), cpu["nms"][:, 0])
+
+
+# ---- paddle.slim's integer path on the card -----------------------------------
+
+@pytest.mark.parametrize("m,k,n", [(1, 147, 1000), (16, 8, 8), (17, 9, 3),
+                                   (64, 576, 64), (200, 4608, 512),
+                                   (3, 2048, 10)])
+def test_slim_int_mm_padded_shapes_match_cpu(dev, m, k, n):
+    """`slim.int8_matmul` (`torch._int_mm` through cuBLASLt, its shape
+    rules met by padding) gives the CPU integer path's int32 accumulators
+    exactly, m <= 16 and k, n off multiples of 8 included."""
+    from paddle_tpu_torch import slim
+
+    g = torch.Generator().manual_seed(m * k + n)
+    a = torch.randint(-127, 128, (m, k), generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, n), generator=g, dtype=torch.int8)
+    want = slim.int8_matmul(a, slim.int8_weight_matrix(w), n)
+    got = slim.int8_matmul(a.to(dev), slim.int8_weight_matrix(w.to(dev)), n)
+    assert got.dtype == torch.int32 and got.is_cuda
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(want.long(), a.long() @ w.long())
+
+
+def test_slim_int8_conv_and_codes_match_cpu(dev):
+    """A calibrated int8 QuantedConv2D (stride 2, padding, dilation,
+    groups) and QuantedLinear on the card: the same codes, accumulators
+    and outputs as on the CPU (the rescale within 1e-6)."""
+    from paddle_tpu_torch import nn, slim
+    from paddle_tpu_torch.device import device_guard
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 8, 23, 23, generator=g)
+    with device_guard("cpu"):
+        conv = nn.Conv2D(8, 16, 3, stride=2, padding=2, dilation=2,
+                         groups=2)
+        lin = nn.Linear(24, 40)
+    xl = torch.randn(5, 24, generator=g)
+    for layer, inp, wq in ((conv, x, "channel_wise_abs_max"),
+                           (lin, xl, "abs_max")):
+        cls = slim.QuantedConv2D if layer is conv else slim.QuantedLinear
+        outs = {}
+        for d in ("cpu", dev):
+            import copy
+            q = cls(copy.deepcopy(layer).to(d), mode="calib",
+                    act_observer="hist", weight_quantize_type=wq)
+            q(inp.to(d))
+            q.convert()
+            xq = slim.quantize_symmetric(inp.to(d), q._a_scale_frozen)
+            outs[str(d)] = (q._a_scale_frozen, q._wq.cpu(), xq.cpu(),
+                            q._contract_int8(xq).cpu(), q(inp.to(d)).cpu())
+        cpu, card = outs["cpu"], outs[str(dev)]
+        assert abs(card[0] - cpu[0]) <= 1e-6 * cpu[0]
+        for a, b in zip(card[1:4], cpu[1:4]):
+            assert torch.equal(a, b)
+        assert (card[4] - cpu[4]).abs().max() <= 1e-6 * cpu[4].abs().max()

@@ -10,9 +10,9 @@ CPU: twins of tests/test_observability.py.
   * The pool gauges keep one series per pool; reset_stats clears TTFT;
     the training watchdog's heartbeat gauge.
 
-Left for later slices: the hapi TelemetryCallback (ROADMAP §A 10 e) and
-the profiler satellites (§A 14); `attach_device_ops` raises, naming
-§A 14."""
+Left for later slices: the hapi TelemetryCallback (ROADMAP §A 10 e).
+`attach_device_ops` bridges `utils.profiler.top_ops` into a report (on
+the CPU here: the ops' self time)."""
 import json
 import os
 import time
@@ -224,8 +224,23 @@ class TestTracing:
         assert tr.events()[0]["name"] == "fn_dispatch"
 
     def test_attach_device_ops_names_the_roadmap_item(self):
-        with pytest.raises(NotImplementedError, match="A 14"):
-            T.attach_device_ops({}, lambda: None)
+        """The profiler bridge (ROADMAP §A 14.2, landed): the twin of the
+        reference's `test_attach_device_ops_bridge` — an op table on the
+        CPU, the report returned and never lost."""
+        from paddle_tpu_torch.device import device_guard
+
+        x = torch.ones(16, 16)
+        report = {"summary": {"requests": 1}}
+        with device_guard("cpu"):
+            out = T.attach_device_ops(report, lambda: (x @ x).sum(),
+                                      steps=1, k=5)
+            bad = T.attach_device_ops({}, lambda: 1 / 0, steps=1)
+        assert out is report and "device_ops_error" not in report
+        ops = report["device_ops"]
+        assert 0 < len(ops) <= 5
+        assert all({"op", "total_ms", "count"} <= set(r) for r in ops)
+        assert any(r["op"] == "aten::mm" for r in ops)
+        assert bad["device_ops_error"].startswith("ZeroDivisionError")
 
     def test_assembly_equals_the_reference_on_one_stream(self):
         """The same synthetic event stream assembles to the same

@@ -617,9 +617,10 @@ class TestCast:
 
 
 class TestModulePaths:
-    """The module paths of `tests/test_submodule_paths.py` this slice
-    ports (the compat-fed `tensor.to_string` and the legacy
-    `nn.layer.extension` come with ROADMAP §A 10 (e2))."""
+    """The module paths of `tests/test_submodule_paths.py` the port has:
+    the tensor, optimizer and nn paths, the compat-fed
+    `tensor.to_string`, the legacy `nn.layer.extension`, and the
+    decoder, hapi and distributed utility paths."""
 
     @pytest.mark.parametrize("mod", [
         "device", "amp.grad_scaler", "optimizer.adam", "optimizer.adamw",
@@ -628,7 +629,12 @@ class TestModulePaths:
         "optimizer.adamax", "tensor.attribute", "tensor.logic",
         "tensor.stat", "tensor.tensor", "nn.layer.distance",
         "nn.layer.vision", "nn.utils.weight_norm_hook",
-        "nn.functional.transformer", "linalg", "autograd"])
+        "nn.functional.transformer", "linalg", "autograd",
+        "tensor.to_string", "nn.layer.extension", "nn.decode",
+        "hapi.progressbar", "hapi.dynamic_flops", "distributed.utils",
+        "distributed.cloud_utils", "distributed.fleet.utils",
+        "distributed.fleet.utils.fs", "distributed.fleet.cloud_utils",
+        "distributed.fleet.launch_utils", "distributed.fleet.launch"])
     def test_user_facing_module_paths_import(self, mod):
         import importlib
         importlib.import_module(f"paddle_tpu_torch.{mod}")
