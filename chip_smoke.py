@@ -328,6 +328,35 @@ non-zero before the result line:
                K6 / K9 bias 12 x steps (they join the kernels line), no
                unbiased kernel and no dense path, and the idle share of a
                profiled pass of 2 steps;
+  4i. the static graph and the deployment path (after 6a;
+               `deploy_phase`): (a) `jit.save` of the same classifier (12
+               layers, S 512, dropout 0.1, eval) from the card with two
+               free batch dims, float32 and bf16 (`amp.auto_cast` with
+               the attention in bf16); a fresh process (PREDICTOR_CHILD:
+               `paddle_tpu_torch.inference` only, no model class) serves
+               both through Config -> create_predictor -> input handles
+               -> run -> copy_to_cpu at batches 1, 8 and 32 padded (6b's
+               lengths): one CUDA graph a batch shape, its replay bitwise
+               the loaded program run eagerly, logits against the eager
+               layer in the parent within I_F32_REL of the largest in
+               both precisions (the same kernels and aten ops), K4 bias 12 launches a batch and nothing else
+               (counted in the process); (b) a static Program at
+               BERT-base width (static.data, static.nn.fc / layer_norm,
+               the attention op: one flash node), one encoder block at B
+               16 x S 512 padded, 3 Adam steps by Executor.run, float32
+               on the card (K4 bias, K6, K9 bias 3 each) against float64
+               on the CPU from the same weights (loss, step-1 gradients,
+               each element's update, and every leaf with a gradient
+               moved), then save_inference_model ->
+               load_inference_model on the card, logits against the
+               Executor's; (c) GPT-2 small float32 through jit.save
+               (InputSpec [None, 1024]) and jit.load on the card, logits
+               at 1 x 1024 against GPT2.forward, K4 12 launches;
+  6i. the Predictor timed (4i (a)'s process): a batch's ms through the
+               handle flow (host clock, 20 runs), samples/s, the graph
+               replay against the loaded program run eagerly (CUDA
+               events), the idle share of 5 profiled runs, the first
+               (capturing) run's seconds; the artifacts' sizes;
   4v. paddle.vision and the fluid-era ops (after 4j; `vision_parity_phase`),
                TF32 off: (a) ResNet-50 (1000 classes) at B 2, 224², one
                train step + AdamW (lr 1e-4, wd 0.01) on the card, NCHW
@@ -691,13 +720,16 @@ non-zero before the result line:
                pass, rank 0 profiled):
                tokens/s, TTFT, ITL, rank 0's idle share beside phase 5's
                k = 1 — ranks time-sharing one card over gloo: not a
-               multi-GPU number; (d) tp 2 int8 collectives on 8 of the
-               prompts, tokens equal (e)'s but for phase 4f's near ties,
+               multi-GPU number; (d) tp 2 int8 collectives on the same
+               D_E_PROMPTS prompts, tokens equal (e)'s but for phase
+               4f's near ties,
                wire bytes <= D_WIRE_RATIO of the bf16 wire;
   7. the kernels line (JSON; each kernel's launches summed over the
      main-path runs that reach it: phases 5, 5s, 5w, 5p, 5v (b), 5r, 5f,
      5m ((a), (b) and the workers' /stats), 4b, 4f, 4g, 6g (a), 6, 6b,
-     6c, 4t, 6t, 4h/6h's, 4k's and 5d's ranks ((a), (b), (c)); the `ragged_stream_verify_*` rows
+     6a, 4i (the Predictor's process, the Executor, the loaded
+     programs), 6j, 6c, 4t, 6t, 4h/6h's, 4k's and 5d's ranks ((a), (b),
+     (c)); the `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
@@ -2426,6 +2458,497 @@ def model_fit_throughput(torch):
             "losses": marks["losses"], "eval": res, "pred_shape":
             pred.shape, "pred_finite": bool(np.isfinite(pred).all()),
             "busy_ms": busy / 2 * 1e3, "idle": 1 - busy / 2 / (ms / 1e3)}
+
+
+# ---- phases 4i / 6i: the static graph, jit.save and the inference
+# Predictor ------------------------------------------------------------------
+
+I_SEQ = 512                    # (a), 6i: the classifier's padded length
+I_BATCHES = (1, 8, 32)         # (a), 6i: the Predictor's batches
+I_REPS = 20                    # 6i: timed runs a batch and a mode
+I_F32_REL = 1e-5               # (a), (c): vs the eager layer, of its largest
+I_BLOCK = (16, 512)            # (b): the encoder block's B x S
+I_LR, I_STEPS = 1e-4, 3        # (b): Adam
+I_GRAD_REL = 1e-3              # (b): card f32 vs CPU f64, of a leaf's largest
+I_UPDATE_REL = 1e-2            # (b): |card's - CPU's update| / |CPU's|, a leaf
+I_LIVE_GRAD = 1e-6             # (b): a leaf whose step-1 gradient exceeds it
+I_MOVED = I_LR / 100           # (b): moves at least this far on the CPU
+I_LOSS_REL = 1e-4              # (b)
+
+# The Predictor's process (4i (a), 6i): it imports the inference package
+# and nothing of the model (the classifier's class lives in this script,
+# which it never imports), serves each artifact at I_BATCHES through the
+# handle flow (one CUDA graph a batch shape), and prints one JSON line.
+PREDICTOR_CHILD = r'''
+import json, os, sys, time
+import numpy as np
+import torch
+from paddle_tpu_torch.inference import Config, create_predictor
+from paddle_tpu_torch.ops import kernels
+
+args = json.loads(sys.argv[1])
+data = np.load(args["inputs"])
+res = {"artifacts": {}}
+outs = {}
+
+
+def busy_s(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0))
+               for ev in prof.key_averages()
+               if ev.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+
+
+for tag, prefix in args["artifacts"].items():
+    t0 = time.perf_counter()
+    pred = create_predictor(Config(prefix + ".pdmodel",
+                                   prefix + ".pdiparams"))
+    load_s = time.perf_counter() - t0
+    names = pred.get_input_names()
+    rows = {}
+    for b in args["batches"]:
+        ids, mask = data[f"ids{b}"], data[f"mask{b}"]
+
+        def handle_run():
+            pred.get_input_handle(names[0]).copy_from_cpu(ids)
+            pred.get_input_handle(names[1]).copy_from_cpu(mask)
+            pred.run()
+            return pred.get_output_handle(
+                pred.get_output_names()[0]).copy_to_cpu()
+
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        first = handle_run()                 # the capture (warm-up + graph)
+        first_s = time.perf_counter() - t0
+        captured = kernels.launch_counts()
+        ts = [torch.from_numpy(a).cuda() for a in (ids, mask)]
+        with torch.no_grad():
+            eager = pred._translated(*ts).cpu().numpy()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(args["reps"]):
+            out = handle_run()
+        run_ms = (time.perf_counter() - t0) / args["reps"] * 1e3
+        counts = kernels.launch_counts()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        with torch.no_grad():
+            ev[0].record()
+            for _ in range(args["reps"]):
+                pred._replay(ts)
+            ev[1].record()
+            for _ in range(args["reps"]):
+                pred._translated(*ts)
+            ev[2].record()
+        torch.cuda.synchronize()
+        replay_ms = ev[0].elapsed_time(ev[1]) / args["reps"]
+        eager_ms = ev[1].elapsed_time(ev[2]) / args["reps"]
+        t0 = time.perf_counter()
+        busy = busy_s(lambda: [handle_run() for _ in range(5)])
+        wall = time.perf_counter() - t0
+        outs[f"{tag}{b}"] = first
+        rows[str(b)] = {
+            "bitwise_replay_eager": bool(np.array_equal(first, eager)),
+            "repeat_bitwise": bool(np.array_equal(first, out)),
+            "first_s": first_s, "run_ms": run_ms, "replay_ms": replay_ms,
+            "eager_ms": eager_ms, "idle": 1 - busy / wall,
+            "captured": {k: v for k, v in captured.items() if v},
+            "per_run": {k: v / args["reps"] for k, v in counts.items()
+                        if v}}
+    res["artifacts"][tag] = {"rows": rows, "load_s": load_s,
+                             "captures": pred.graph_captures,
+                             "replays": pred.graph_replays}
+leaked = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+          or m.startswith("paddle_tpu_torch.models") or m == "paddle_tpu"
+          or m.startswith("paddle_tpu.") or m == "chip_smoke"]
+res["leaked"] = leaked
+res["device"] = torch.cuda.get_device_name(0)
+np.savez(args["outputs"], **outs)
+print("PREDICTOR_RESULT " + json.dumps(res))
+'''
+
+
+def i_batch(b, seed):
+    """(ids, mask) int64 numpy [b, I_SEQ]: 6b's lengths for b, pad id 0."""
+    rs = np.random.RandomState(seed)
+    lens = bert_lengths(b, I_SEQ)
+    real = np.arange(I_SEQ)[None] < lens[:, None]
+    return rs.randint(1, A_VOCAB, (b, I_SEQ)) * real, real.astype(np.int64)
+
+
+def i_eager(torch, ptt, net, ids, mask, bf16):
+    """The eager layer's logits on the card (under the export's amp)."""
+    import contextlib
+    amp = ptt.amp.auto_cast(custom_white_list=[
+        "scaled_dot_product_attention"]) if bf16 else contextlib.nullcontext()
+    with torch.no_grad(), amp:
+        return net(torch.from_numpy(ids).to(DEV),
+                   torch.from_numpy(mask).to(DEV)).float().cpu().numpy()
+
+
+def i_rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def predictor_parity(torch, tmp):
+    """Phase 4i (a): jit.save of the BERT-base-width classifier (12
+    layers, S 512) from the card, float32 and bf16 (auto_cast with the
+    attention in bf16); a fresh process serves both through the Predictor
+    at I_BATCHES (module constant PREDICTOR_CHILD). Returns (the child's
+    result, the artifacts' sizes, save seconds)."""
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch.static import InputSpec
+
+    ptt.seed(31)
+    net = api_classifier(ptt, 12, 0.1)
+    net.eval()
+    spec = [InputSpec([None, I_SEQ], "int64")] * 2
+    arts, sizes, save_s = {}, {}, {}
+    for tag in ("f32", "bf16"):
+        prefix = os.path.join(tmp, f"classifier_{tag}")
+        t0 = time.perf_counter()
+        if tag == "bf16":
+            with ptt.amp.auto_cast(custom_white_list=[
+                    "scaled_dot_product_attention"]):
+                ptt.jit.save(net, prefix, input_spec=spec)
+        else:
+            ptt.jit.save(net, prefix, input_spec=spec)
+        save_s[tag] = time.perf_counter() - t0
+        arts[tag] = prefix
+        sizes[tag] = (os.path.getsize(prefix + ".pdmodel"),
+                      os.path.getsize(prefix + ".pdiparams"))
+    batches = {}
+    for b in I_BATCHES:
+        batches[f"ids{b}"], batches[f"mask{b}"] = i_batch(b, 300 + b)
+    np.savez(os.path.join(tmp, "inputs.npz"), **batches)
+    args = {"artifacts": arts, "batches": list(I_BATCHES), "reps": I_REPS,
+            "inputs": os.path.join(tmp, "inputs.npz"),
+            "outputs": os.path.join(tmp, "outputs.npz")}
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", PREDICTOR_CHILD,
+                        json.dumps(args)], capture_output=True, text=True,
+                       timeout=600, env=env, cwd=tmp)
+    line = [x for x in r.stdout.splitlines()
+            if x.startswith("PREDICTOR_RESULT ")]
+    if r.returncode != 0 or not line:
+        fail(f"phase 4i (a): the Predictor's process failed "
+             f"(rc {r.returncode}): {r.stderr[-3000:]}")
+    res = json.loads(line[0][len("PREDICTOR_RESULT "):])
+    if res["leaked"]:
+        fail(f"phase 4i (a): the Predictor's process imported {res['leaked']}")
+    outs = np.load(args["outputs"])
+    worst = {}
+    for tag in arts:
+        rel = []
+        for b in I_BATCHES:
+            row = res["artifacts"][tag]["rows"][str(b)]
+            ids, mask = batches[f"ids{b}"], batches[f"mask{b}"]
+            got = outs[f"{tag}{b}"]
+            if got.shape != (b, 2) or not np.isfinite(got).all():
+                fail(f"phase 4i (a) {tag} B {b}: logits {got.shape}")
+            if not (row["bitwise_replay_eager"] and row["repeat_bitwise"]):
+                fail(f"phase 4i (a) {tag} B {b}: the graph replay is not "
+                     f"bitwise the loaded program run eagerly ({row})")
+            pr = row["per_run"]
+            if pr.get("flash_fwd_bias") != 12 or set(pr) != {
+                    "flash_fwd_bias"}:
+                fail(f"phase 4i (a) {tag} B {b}: launches a run {pr}, "
+                     f"expected K4 bias 12 and nothing else")
+            rel.append(i_rel(got, i_eager(torch, ptt, net, ids, mask,
+                                          tag == "bf16")))
+        worst[tag] = max(rel)
+        if worst[tag] > I_F32_REL:
+            fail(f"phase 4i (a) {tag}: served logits {worst[tag]:.3g} of the "
+                 f"eager layer's largest (limit {I_F32_REL})")
+    del net
+    torch.cuda.empty_cache()
+    return res, sizes, save_s, worst
+
+
+def i_encoder_block(ptt, st, dtype):
+    """Phase 4i (b)'s Program: one encoder block at BERT-base width over
+    static.data (x [B, S, 768], a [B, 1, 1, S] padding bias, labels), q,
+    k and v by static.nn.fc, the attention op, out projection, residual +
+    layer_norm, the 3072-wide feed-forward, residual + layer_norm, mean
+    pooling, a 2-way head; cross entropy; Adam. Returns (loss, logits)."""
+    b, s = I_BLOCK
+    d, heads = A_HIDDEN, A_HEADS
+    x = st.data("x", [b, s, d], dtype)
+    bias = st.data("bias", [b, 1, 1, s], dtype)
+    label = st.data("label", [b], "int64")
+
+    def heads_of(t):
+        return ptt.ops.transpose(ptt.ops.reshape(t, [b, s, heads,
+                                                     d // heads]),
+                                 [0, 2, 1, 3])
+
+    q, k, v = (heads_of(st.nn.fc(x, d, num_flatten_dims=2))
+               for _ in range(3))
+    att, _ = ptt.ops.scaled_dot_product_attention(q, k, v, attn_mask=bias)
+    att = ptt.ops.reshape(ptt.ops.transpose(att, [0, 2, 1, 3]), [b, s, d])
+    h = st.nn.layer_norm(x + st.nn.fc(att, d, num_flatten_dims=2),
+                         begin_norm_axis=2)
+    f = st.nn.fc(st.nn.fc(h, A_FFN, num_flatten_dims=2, act="gelu"), d,
+                 num_flatten_dims=2)
+    h = st.nn.layer_norm(h + f, begin_norm_axis=2)
+    logits = st.nn.fc(ptt.ops.mean(h, axis=1), 2)
+    loss = ptt.nn.functional.cross_entropy(logits, label)
+    ptt.optimizer.Adam(learning_rate=I_LR).minimize(loss)
+    return loss, logits
+
+
+def static_parity(torch, tmp):
+    """Phase 4i (b): the encoder block's Program trained I_STEPS Adam
+    steps by Executor.run on the card (float32: K4 bias, K6, K9 bias) and
+    the same Program on the CPU in float64 from the same weights; then
+    save_inference_model -> load_inference_model on the card."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.static as st
+    from paddle_tpu_torch import device as pdevice
+    from paddle_tpu_torch.ops import kernels
+
+    ptt.enable_static()
+    try:
+        progs = []
+        for dev, dtype in ((DEV, "float32"), ("cpu", "float64")):
+            main, startup = st.Program(), st.Program()
+            with pdevice.device_guard(dev), \
+                    st.program_guard(main, startup):
+                progs.append((main, startup, i_encoder_block(ptt, st, dtype),
+                              st.Executor(dev), st.Scope()))
+        (mc, sc, (loss_c, logits_c), exe_c, scope_c), \
+            (mh, _, (loss_h, _), exe_h, scope_h) = progs
+        flash = [op.type for op in mc.global_block().ops
+                 if op.type == "paddle_tpu_torch::flash_attn"]
+        if len(flash) != 1:
+            fail(f"phase 4i (b): the Program holds {len(flash)} flash nodes")
+        ptt.seed(37)
+        exe_c.run(sc, scope=scope_c)
+        pc = [v for v in mc.global_block().vars.values() if v.persistable]
+        ph = [v for v in mh.global_block().vars.values() if v.persistable]
+        for a, h in zip(pc, ph):
+            scope_h.set(h.name, scope_c.find_var(a.name).detach().double()
+                        .cpu())
+        start = [scope_h.find_var(h.name).clone() for h in ph]
+        b, s = I_BLOCK
+        rs = np.random.RandomState(41)
+        lens = bert_lengths(b, s)
+        real = np.arange(s)[None] < lens[:, None]
+        feed = {"x": rs.randn(b, s, A_HIDDEN).astype(np.float32),
+                "bias": np.where(real, 0.0, -1e9).astype(np.float32)[
+                    :, None, None, :],
+                "label": rs.randint(0, 2, (b,)).astype(np.int64)}
+        feed64 = {k: (v.astype(np.float64) if v.dtype == np.float32 else v)
+                  for k, v in feed.items()}
+        kernels.reset_launch_counts()                      # main path
+        t0 = time.perf_counter()
+        losses_c, losses_h, grad_rel, live = [], [], 0.0, []
+        for step in range(I_STEPS):
+            names = [p.name + "@GRAD" for p in pc] if step == 0 else []
+            out_c = exe_c.run(mc, feed=feed, fetch_list=[loss_c] + names,
+                              scope=scope_c)
+            out_h = exe_h.run(mh, feed=feed64, fetch_list=[loss_h] + [
+                p.name + "@GRAD" for p in ph] if step == 0 else [loss_h],
+                scope=scope_h)
+            losses_c.append(float(out_c[0]))
+            losses_h.append(float(out_h[0]))
+            if step == 0:
+                live = [float(np.abs(gh).max()) > I_LIVE_GRAD
+                        for gh in out_h[1:]]
+            for gc, gh in zip(out_c[1:], out_h[1:]):
+                # a leaf whose gradient is 0 in exact arithmetic (the key
+                # bias) holds rounding noise: its scale floors at 1e-4
+                grad_rel = max(grad_rel, float(np.abs(gc - gh).max()
+                                               / max(np.abs(gh).max(),
+                                                     1e-4)))
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+        loss_rel = max(abs(a - h) / abs(h) for a, h in zip(losses_c,
+                                                             losses_h))
+        # each leaf's update (its parameters less the shared start), the
+        # card's against the CPU's in the 2-norm: a skipped update reads
+        # 1, one of the wrong sign 2. A leaf without a gradient (the key
+        # bias) moves by rounding noise on both devices and is left out;
+        # every other leaf must have moved on the CPU, or a step that
+        # updates nothing on both devices would pass
+        update_rel, moved = 0.0, []
+        for a, h, w0, is_live in zip(pc, ph, start, live):
+            if is_live:
+                upd_h = scope_h.find_var(h.name) - w0
+                upd_c = scope_c.find_var(a.name).double().cpu() - w0
+                update_rel = max(update_rel, float(
+                    (upd_c - upd_h).norm() / upd_h.norm()))
+                moved.append(float(upd_h.abs().max()))
+        param_moved = min(moved)
+        if loss_rel > I_LOSS_REL or grad_rel > I_GRAD_REL or \
+                not update_rel <= I_UPDATE_REL or param_moved < I_MOVED or \
+                not all(np.isfinite(losses_c)):
+            fail(f"phase 4i (b): card f32 vs CPU f64 loss {loss_rel:.3g} "
+                 f"(limit {I_LOSS_REL}), gradients {grad_rel:.3g} (limit "
+                 f"{I_GRAD_REL}), updates {update_rel:.3g} (limit "
+                 f"{I_UPDATE_REL}), the least-moved of {len(moved)} "
+                 f"leaves with a gradient {param_moved:.3g} (at least "
+                 f"{I_MOVED:.3g}); losses {losses_c}")
+        want = {"flash_fwd_bias": I_STEPS, "flash_delta": I_STEPS,
+                "flash_bwd_bias": I_STEPS}
+        got = {k: v for k, v in counts.items() if v}
+        if got != want:
+            fail(f"phase 4i (b): the Program launched {got}, expected {want}")
+        # the inference model: the forward from the feeds to the logits
+        test = mc.clone(for_test=True)
+        fwd = exe_c.run(test, feed=feed, fetch_list=[logits_c],
+                        scope=scope_c)[0]
+        prefix = os.path.join(tmp, "encoder_block")
+        with st.scope_guard(scope_c):
+            st.save_inference_model(prefix, [mc.global_block().var("x"),
+                                             mc.global_block().var("bias")],
+                                    [logits_c], exe_c, program=test)
+            loaded, feeds, fetches = st.load_inference_model(prefix, exe_c)
+        kernels.reset_launch_counts()                      # main path
+        served = exe_c.run(loaded, feed={k: feed[k] for k in feeds},
+                           fetch_list=fetches)[0]
+        served_counts = {k: v for k, v in kernels.launch_counts().items()
+                         if v}
+        served_rel = i_rel(served, fwd)
+        if served_counts != {"flash_fwd_bias": 1} or served_rel > I_F32_REL:
+            fail(f"phase 4i (b): the loaded inference model launched "
+                 f"{served_counts} (expected K4 bias 1) and gives "
+                 f"{served_rel:.3g} of the Executor's logits (limit "
+                 f"{I_F32_REL})")
+    finally:
+        ptt.disable_static()
+    torch.cuda.empty_cache()
+    return {"losses": losses_c, "losses_cpu": losses_h, "loss_rel": loss_rel,
+            "grad_rel": grad_rel, "update_rel": update_rel,
+            "param_moved": param_moved, "n_moved": len(moved),
+            "n_leaves": len(pc), "counts": got,
+            "served_counts": served_counts, "train_s": train_s,
+            "served_rel": served_rel,
+            "served_bitwise": bool(np.array_equal(served, fwd)),
+            "size": (os.path.getsize(prefix + ".pdmodel"),
+                     os.path.getsize(prefix + ".pdiparams"))}
+
+
+def gpt2_export_parity(torch, tmp):
+    """Phase 4i (c): GPT-2 small (float32) through jit.save with a free
+    batch dim, loaded on the card: logits at 1 x 1024 against
+    GPT2.forward on the card; K4 launched (12 a forward)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import GPT2, GPT2Config
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.static import InputSpec
+
+    cfg = GPT2Config(dropout=0.0)
+    model = GPT2(cfg, seed=0, dtype=torch.float32, device=DEV).eval()
+    prefix = os.path.join(tmp, "gpt2_small")
+    t0 = time.perf_counter()
+    jit.save(model, prefix, input_spec=[InputSpec([None, 1024], "int64")])
+    save_s = time.perf_counter() - t0
+    loaded = jit.load(prefix)
+    ids = torch.from_numpy(np.random.RandomState(43).randint(
+        0, cfg.vocab_size, (1, 1024))).to(DEV)
+    with torch.no_grad():
+        want = model(ids).cpu().numpy()
+    kernels.reset_launch_counts()                          # main path
+    got = loaded(ids).cpu().numpy()
+    counts = {k: v for k, v in kernels.launch_counts().items() if v}
+    rel = i_rel(got, want)
+    if counts != {"flash_fwd": cfg.num_layers} or rel > I_F32_REL:
+        fail(f"phase 4i (c): GPT-2 small's loaded logits {rel:.3g} of "
+             f"GPT2.forward's largest (limit {I_F32_REL}), launches "
+             f"{counts} (expected K4 {cfg.num_layers})")
+    del model, loaded
+    torch.cuda.empty_cache()
+    return {"rel": rel, "counts": counts, "save_s": save_s,
+            "size": (os.path.getsize(prefix + ".pdmodel"),
+                     os.path.getsize(prefix + ".pdiparams"))}
+
+
+def deploy_phase(torch, card):
+    """Phases 4i and 6i (module docstring). Returns the main path's
+    launches: the Predictor's (its captures and timed runs), the
+    Executor's and the loaded programs'."""
+    import tempfile
+
+    t_all = time.perf_counter()
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res, sizes, save_s, worst = predictor_parity(torch, tmp)
+        a_s = time.perf_counter() - t0
+        for tag, art in res["artifacts"].items():
+            for b, row in art["rows"].items():
+                for src in (row["captured"], {
+                        k: v * I_REPS for k, v in row["per_run"].items()}):
+                    for k, v in src.items():
+                        launches[k] = launches.get(k, 0) + int(round(v))
+        say(f"phase 4i (a) jit.save of api_classifier (BERT-base width, 12 "
+            f"layers, S {I_SEQ}) from the card, float32 and bf16 "
+            f"(auto_cast, attention in bf16; save "
+            f"{save_s['f32']:.1f} / {save_s['bf16']:.1f} s) -> a fresh "
+            f"process (inference only, no model class imported) -> "
+            f"Config/create_predictor/handles/run/copy_to_cpu at B "
+            f"{'/'.join(map(str, I_BATCHES))} padded: graph replay bitwise "
+            f"the loaded program run eagerly, served logits vs the eager "
+            f"layer {worst['f32']:.3g} (f32) and {worst['bf16']:.3g} (bf16) "
+            f"of the largest (limit {I_F32_REL}); "
+            f"K4 bias 12 launches a batch (counted in the process), nothing "
+            f"else; {a_s:.1f} s [{card}]")
+        t0 = time.perf_counter()
+        r = static_parity(torch, tmp)
+        for k, v in list(r["counts"].items()) + list(
+                r["served_counts"].items()):
+            launches[k] = launches.get(k, 0) + v
+        say(f"phase 4i (b) static Program: encoder block at BERT-base width "
+            f"(static.data + static.nn.fc/layer_norm + the attention op, one "
+            f"flash node) B {I_BLOCK[0]} x S {I_BLOCK[1]} padded, "
+            f"{I_STEPS} Adam steps by Executor.run, card f32 vs CPU f64: "
+            f"loss {r['loss_rel']:.3g} (limit {I_LOSS_REL}), step-1 "
+            f"gradients {r['grad_rel']:.3g} (limit {I_GRAD_REL}), "
+            f"each leaf's update after {I_STEPS} steps {r['update_rel']:.3g} "
+            f"of the CPU's in the 2-norm (limit {I_UPDATE_REL}; a skipped "
+            f"update reads 1) over the {r['n_moved']} of {r['n_leaves']} "
+            f"leaves with a gradient, the least of them moved "
+            f"{r['param_moved']:.3g} on the CPU (limit >= {I_MOVED:.3g}); "
+            f"losses {' '.join(f'{x:.4f}' for x in r['losses'])}; launches "
+            f"{r['counts']}; save_inference_model -> load_inference_model "
+            f"on the card: logits {r['served_rel']:.3g} of the Executor's "
+            f"largest (limit {I_F32_REL}; bitwise {r['served_bitwise']}), "
+            f"launches {r['served_counts']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        g = gpt2_export_parity(torch, tmp)
+        for k, v in g["counts"].items():
+            launches[k] = launches.get(k, 0) + v
+        say(f"phase 4i (c) GPT-2 small f32 jit.save (InputSpec [None, "
+            f"1024]; {g['save_s']:.1f} s) -> jit.load on the card: logits "
+            f"at 1 x 1024 {g['rel']:.3g} of GPT2.forward's largest (limit "
+            f"{I_F32_REL}), launches {g['counts']}; "
+            f"{time.perf_counter() - t0:.1f} s")
+        for tag, art in res["artifacts"].items():
+            rows = " ".join(
+                f"B {b}: {row['run_ms']:.2f} ms a batch "
+                f"({int(b) / row['run_ms'] * 1e3:.1f} samples/s), graph "
+                f"replay {row['replay_ms']:.2f} ms vs eager "
+                f"{row['eager_ms']:.2f} ms, idle {row['idle']:.3f}, first "
+                f"run (capture) {row['first_s']:.2f} s;"
+                for b, row in art["rows"].items())
+            say(f"phase 6i Predictor {tag} (api_classifier, S {I_SEQ} "
+                f"padded; handle flow: copy_from_cpu, run, copy_to_cpu, "
+                f"host clock, {I_REPS} runs; replay / eager by CUDA events "
+                f"on the card's tensors): {rows} load "
+                f"{art['load_s']:.2f} s, {art['captures']} graphs; artifact "
+                f".pdmodel {sizes[tag][0]} B .pdiparams {sizes[tag][1]} B "
+                f"[{card}]")
+        say(f"phase 6i artifacts: encoder block .pdmodel {r['size'][0]} B "
+            f".pdiparams {r['size'][1]} B; GPT-2 small .pdmodel "
+            f"{g['size'][0]} B .pdiparams {g['size'][1]} B; phases 4i + 6i "
+            f"{time.perf_counter() - t_all:.1f} s")
+    return launches
 
 
 # ---- phase 4: decoder parity across devices --------------------------------
@@ -6798,9 +7321,9 @@ def serving_fleet_phase(torch, model, prompts, card, single_k1):
 D_CFG = {}                      # GPT2Config overrides (none on the card)
 D_SERVE_NEW = 32                # (a), (c)-(e): new tokens a request
 D_FD_NEW = 24                   # (b): the front door's batch request
-D_E_PROMPTS = 8                 # (e): phase 5's prompts timed (of 16)
+D_E_PROMPTS = 4                 # (d), (e): phase 5's prompts (of 16)
 D_LONG = 960                    # (c): the long prompt's tokens
-D_CHUNKS = (128, 256, 480)      # (c): prefill_chunk_tokens (x sp a dispatch)
+D_CHUNKS = (256, 480)           # (c): prefill_chunk_tokens (x sp a dispatch)
 D_TIMEOUT = 420.0               # a world's hard limit (s)
 # (d): int8 wire bytes / the bf16 wire's: a code a byte plus one float32
 # scale a chunk of E / tp lanes against two bytes a lane, 0.505 at E 768
@@ -6963,7 +7486,7 @@ def _d_two(torch, dev, rank, out):
                         profile=DEV == "cuda")
     out["e_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["d"] = _d_serve(torch, model, prompts[:8], None,
+    out["d"] = _d_serve(torch, model, prompts[:D_E_PROMPTS], None,
                         ShardedEngineConfig(tp=2, collective_quant="int8"),
                         rank)
     out["d_s"] = time.perf_counter() - t0
@@ -7291,7 +7814,7 @@ def sharded_phase(torch, card, unsharded_k1):
                 for k, v in model16.flat_params().items()}
     del model16
     cmp_ties = 0
-    for p, g, w in zip(prompts[:8], d["outs"], e["outs"][:8]):
+    for p, g, w in zip(prompts[:D_E_PROMPTS], d["outs"], e["outs"]):
         if not np.array_equal(g, w):
             if not near_tie_rule(torch, params16, cfg, g, w, p.size,
                                  phase="5d (d)"):
@@ -7302,7 +7825,8 @@ def sharded_phase(torch, card, unsharded_k1):
     if not c["enabled"] or c["mode"] != "int8" or c["bytes_total"] <= 0 \
             or c["bytes_total"] > D_WIRE_RATIO * c["bytes_baseline"]:
         fail(f"phase 5d (d): collectives {c}")
-    say(f"phase 5d (d) tp 2 int8 collectives, bf16, 8 of (a)'s prompts "
+    say(f"phase 5d (d) tp 2 int8 collectives, bf16, {D_E_PROMPTS} of (a)'s "
+        f"prompts "
         f"greedy: tokens equal the exact collectives' but {cmp_ties} near "
         f"ties (phase 4f's rule); wire bytes a rank {c['bytes_total']} vs "
         f"the bf16 wire's {c['bytes_baseline']} "
@@ -10384,6 +10908,13 @@ def main():
             f"(profiler), idle share {tr['idle']:.3f}; "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
     del tr
+    torch.cuda.empty_cache()
+
+    # phases 4i and 6i: the static graph, jit.save and the inference
+    # Predictor; their K4 bias / K4 / K6 / K9 bias launches join the kernels
+    # line
+    for n, v in deploy_phase(torch, card).items():
+        main_counts[n] = main_counts.get(n, 0) + v
     torch.cuda.empty_cache()
 
     # phase 6j: a user's paddle.Model.fit at BERT-base width over

@@ -59,6 +59,13 @@ Slice 25 adds the fluid-era functional ops (`nn.functional.sequence`,
 model zoo, `vision.ops`, the numpy transforms and the datasets), which
 binds lazily as well.
 
+Slice 27 is the static graph and deployment: `static` (a Program
+recorded from torch calls on its Variables, replayed by the Executor
+through the port's kernels; `enable_static`, `paddle.data` and
+`nn.Input`), `jit.to_static`, `jit.save` / `jit.load` of any layer (an
+exported program with the weights in the reference's npz) and
+`inference.create_predictor` (one CUDA graph a set of input shapes).
+
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes
 `device="cpu"` or calls `set_device("cpu")` (see
@@ -73,7 +80,7 @@ from .core.dtype import (  # noqa: F401
     get_default_dtype, int8, int16, int32, int64, set_default_dtype, uint8,
 )
 from .core.mode import (disable_static, enable_static,  # noqa: F401
-                        in_dygraph_mode)
+                        in_dygraph_mode, in_static_mode)
 from .core.param_attr import ParamAttr  # noqa: F401
 from .core.rng import get_rng_state, seed, set_rng_state  # noqa: F401
 from .core.tensor import (Parameter, Tensor, is_tensor,  # noqa: F401
@@ -89,7 +96,7 @@ _LAZY_MODULES = ("nn", "ops", "amp", "optimizer", "linalg", "tensor",
                  "io", "metric", "hapi", "framework", "distribution",
                  "regularizer", "compat", "callbacks", "vision", "utils",
                  "dataset", "reader", "text", "slim", "incubate", "onnx",
-                 "version", "sysconfig")
+                 "version", "sysconfig", "static")
 # name -> (module, attribute): the high-level API's names
 _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "save": ("framework.io", "save"),
@@ -100,6 +107,7 @@ _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "L2Decay": ("regularizer", "L2Decay"),
                "DataParallel": ("distributed.parallel", "DataParallel"),
                "batch": ("reader", "batch"),
+               "data": ("static.program", "data"),
                "commit": ("version", "commit"),
                "full_version": ("version", "full_version"),
                "__version__": ("version", "full_version")}
@@ -133,6 +141,7 @@ __all__ = ["resolve_device", "set_device", "get_device", "seed",
            "Tensor", "Parameter", "ParamAttr", "grad", "no_grad",
            "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "enable_static", "disable_static", "in_dygraph_mode",
+           "in_static_mode", "static", "data",
            "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "TPUPlace",
            "XPUPlace", "is_compiled_with_cuda", "is_compiled_with_tpu",
            "is_compiled_with_xpu", "float16", "bfloat16", "float32",

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import torch
 
+from .core import mode
+
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
 set_grad_enabled = torch.set_grad_enabled
@@ -109,7 +111,8 @@ class PyLayer(metaclass=PyLayerMeta):
                 return dy * y
 
     `backward` returns one gradient per tensor argument of `forward`, in
-    order. Runs as a `torch.autograd.Function`."""
+    order. Runs as a `torch.autograd.Function`; given a static Program's
+    Variables, `apply` records it as one op of the Program."""
 
     @staticmethod
     def forward(ctx, *args, **kwargs):
@@ -125,6 +128,11 @@ class PyLayer(metaclass=PyLayerMeta):
         if fn is None:
             fn = _function_of(cls)
             type.__setattr__(cls, "_function", fn)
+        if mode.in_static_mode():
+            # given a Variable, one recorded op of the current Program,
+            # replayed (with its backward) by the Executor; else called
+            from .static.program import record
+            return record(fn.apply, (kwargs, *args), name=cls.__name__)
         return fn.apply(kwargs, *args)
 
 

@@ -31,8 +31,8 @@ input, the rest are the loss's labels.
 
 `save(path)` writes `path.pdparams` (the network's state_dict) and
 `path.pdopt` (the optimizer's) with `paddle.save`; `save(path,
-training=False)` goes through `jit.save`, which the port has only for
-the text generator (it raises here, ROADMAP §A 14).
+training=False)` writes the deployment artifact through `jit.save` with
+`Model(inputs=[InputSpec(...)])` as its input_spec.
 """
 from __future__ import annotations
 

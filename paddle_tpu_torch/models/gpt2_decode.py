@@ -223,7 +223,7 @@ class DecodeProgram:
             return self.run(params, *inputs, sampled)
         with self._lock:
             (out,) = self.graphs(
-                sampled,
+                ("dense_decode", sampled),
                 lambda p, *a: (self.run(p, *a, sampled),), params, inputs)
             return out.clone()
 

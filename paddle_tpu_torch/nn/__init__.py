@@ -83,6 +83,12 @@ _self = sys.modules[__name__]
 common = conv = extension = loss = norm = pooling = rnn = vision = \
     weight_norm_hook = _self
 
+def Input(shape=None, dtype="float32", name=None):
+    """A feed placeholder of the current static Program (`static.data`)."""
+    from ..static import data
+    return data(name or "input", shape, dtype)
+
+
 __all__ = [
     "clip", "functional", "initializer", "utils", "ClipGradByGlobalNorm",
     "ClipGradByNorm", "ClipGradByValue", "CELU", "ELU", "GELU", "GLU",
@@ -114,4 +120,4 @@ __all__ = [
     "HSigmoidLoss", "NCELoss", "Pool2D", "RowConv", "StaticRNN", "TreeConv",
     "ctc_greedy_decoder", "dynamic_decode", "cond", "while_loop",
     "GradientClipByValue", "GradientClipByNorm", "GradientClipByGlobalNorm",
-    "crf_decoding", "clip_by_norm", "set_gradient_clip"]
+    "crf_decoding", "clip_by_norm", "set_gradient_clip", "Input"]

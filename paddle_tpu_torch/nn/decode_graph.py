@@ -57,11 +57,11 @@ is not the paged decoder's: the dense decode program of
 
 Every capture is recorded with the capture tracker
 (`observability.compile_tracker.record`): the program's name
-(`multistep`, `packed_verify`, `unified_window`, or `dense_decode`
-for a `ProgramGraphs` capture), whether a server had requests in flight, and the seconds
-the warm-up and the capture took. The captures are the port's costly
-first-use events, where the reference counts XLA compiles (ROADMAP
-§C 18).
+(`multistep`, `packed_verify`, `unified_window`, or the first item of
+a `ProgramGraphs` key: `dense_decode`, `predictor`), whether a server
+had requests in flight, and the seconds the warm-up and the capture
+took. The captures are the port's costly first-use events, where the
+reference counts XLA compiles (ROADMAP §C 18).
 
 There is no fallback: a capture or replay that fails raises, and the
 caller fails the dispatch. Graphs run on the card only.
@@ -269,9 +269,12 @@ def capture(run, dev, load_kernels=True):
 
 class ProgramGraphs:
     """CUDA graphs of one fixed-shape program `fn(params, *inputs) ->
-    tuple of tensors` that launches none of the port's kernels (the
-    dense decode program of `models/gpt2_decode.py`), one per key: the
-    caller's key (what fixes the program: its static arguments) plus the
+    tuple of tensors` (the dense decode program of
+    `models/gpt2_decode.py`, or an exported program of
+    `inference.Predictor`, whose kernels the warm-up builds and loads
+    before the capture), one per key: the caller's key (a tuple whose
+    first item names the program, then what fixes it: its static
+    arguments) plus the
     shape and dtype of every input, the device and the address of every
     param, as `graph_key`.
     The inputs are copied into the graph's static buffers before each
@@ -304,7 +307,7 @@ class ProgramGraphs:
                 lambda: fn(params, *static_in), inputs[0].device,
                 load_kernels=False)
             self.captures += 1
-            compile_tracker.record("dense_decode", time.perf_counter() - t0)
+            compile_tracker.record(key[0], time.perf_counter() - t0)
             entry = _Graph(graph, static_in, {}, outputs, launched,
                            tuple(params.values()))
             self._graphs[full] = entry

@@ -20,12 +20,18 @@ The port of `paddle_tpu/ops/pallas/flash_attention.py`:
     budget, not a Hopper limit (K9 takes any length), kept so that port
     and reference run the same kernels at every shape: at D = 64 the
     two-pass backward starts at sq = 13108;
-  * `FlashAttention`, the `torch.autograd.Function` over them (K10: the
-    forward saves q, k, v, out and lse; the backward launches K6 then K9,
-    or K7 and K8 when `uses_two_pass` holds), and `flash_attention(q, k,
-    v, causal, scale)`;
-  * `FlashAttentionBias` and `flash_attention_bias(q, k, v, bias, causal,
-    scale)`: the reference's custom-vjp `flash_attention_bias` — a
+  * `flash_attn_op` (`torch.ops.paddle_tpu_torch.flash_attn`) and
+    `flash_attn_bwd_op` (`...flash_attn_bwd`): the forward and the
+    backward as registered ops (K10, the reference's custom vjp: the
+    forward's autograd rule keeps q, k, v, the bias, out and lse, and
+    calls the backward op, K6 + K9, or K6 + K7 + K8 when `uses_two_pass`
+    holds). Each op is one node to a static Program and to
+    `torch.export`; its fake implementation gives the shapes. An eager
+    call on plain tensors goes through `_FlashAttention`, the same
+    forward and backward as an `autograd.Function`, which costs less
+    host time a call. `flash_attention(q, k, v, causal, scale)` takes
+    them without a bias;
+  * `flash_attention_bias(q, k, v, bias, causal, scale)` with a
     per-key additive bias [B or 1, Sk] (the [B, 1, 1, Sk] padding mask of
     BERT-class encoders), whose cotangent is the column sums of ds summed
     over heads, and over the batch when the bias broadcasts
@@ -59,6 +65,8 @@ only their outputs, as the kernels do; dbias is summed in float32 (the
 reference casts ds to k's dtype before its column sums).
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -283,75 +291,130 @@ def _backward(q, k, v, out, lse, g, scale, causal, bias=None):
     return bwd(q, k, v, out, lse, g.contiguous(), scale, causal, bias)
 
 
-class FlashAttention(torch.autograd.Function):
-    """The reference's custom-vjp `flash_attention`: the forward keeps
-    q, k, v, out and lse; the backward is K6 + K9, or K6 + K7 + K8 when
-    `uses_two_pass` holds (their plain versions on the CPU)."""
+# The flash forward and its backward are registered ops of the
+# `paddle_tpu_torch` namespace (`torch.library.custom_op`), so that a static
+# Program and `torch.export` (`jit.save`) each see one node per attention
+# call. Each op's implementation is the device dispatch above (the kernels on
+# a CUDA tensor, the plain versions on a CPU tensor); a fake implementation
+# gives the output shapes; the forward's autograd rule calls the backward op.
+# An eager call on plain tensors takes `_FlashAttention` instead: the same
+# implementations and the same kernels, without the registered op's
+# per-call dispatch, which costs an eager step host time
+# (scripts/torch_flash_dispatch_ab.py measures it).
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attn", mutates_args=())
+def flash_attn_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: Optional[torch.Tensor], causal: bool,
+                  scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4, or K4 bias with a float32 [B or 1, Sk] bias: (out, lse)."""
+    return flash_fwd_lse(q, k, v, scale, causal, bias)
+
+
+@flash_attn_op.register_fake
+def _flash_attn_fake(q, k, v, bias, causal, scale):
+    B, H, Sq, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B * H, Sq), dtype=torch.float32)
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attn_bwd", mutates_args=())
+def flash_attn_bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: Optional[torch.Tensor], out: torch.Tensor,
+                      lse: torch.Tensor, g: torch.Tensor, causal: bool,
+                      scale: float) -> tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv, dbias): K6 + K9 (bias), or K6 + K7 + K8 (bias) when
+    `uses_two_pass` holds. dbias is float32 in the bias's shape, and an
+    empty tensor without a bias (an op returns tensors only)."""
+    dq, dk, dv, db = _backward(q, k, v, out, lse, g, scale, causal, bias)
+    return dq, dk, dv, q.new_empty(0, dtype=torch.float32) if db is None \
+        else db
+
+
+@flash_attn_bwd_op.register_fake
+def _flash_attn_bwd_fake(q, k, v, bias, out, lse, g, causal, scale):
+    db = q.new_empty(0, dtype=torch.float32) if bias is None \
+        else torch.empty_like(bias, dtype=torch.float32)
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v), db
+
+
+def _flash_attn_setup(ctx, inputs, output):
+    q, k, v, bias, causal, scale = inputs
+    ctx.save_for_backward(q, k, v, bias, *output)
+    ctx.causal, ctx.scale = causal, scale
+
+
+def _flash_attn_backward(ctx, g, _g_lse):
+    q, k, v, bias, out, lse = ctx.saved_tensors
+    dq, dk, dv, db = flash_attn_bwd_op(q, k, v, bias, out, lse, g,
+                                       ctx.causal, ctx.scale)
+    return dq, dk, dv, (db if ctx.needs_input_grad[3] else None), None, None
+
+
+flash_attn_op.register_autograd(_flash_attn_backward,
+                                setup_context=_flash_attn_setup)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """`flash_attn_op` and its autograd rule for an eager call."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_fwd_lse(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, bias, causal, scale):
+        out, lse = flash_fwd_lse(q, k, v, scale, causal, bias)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv, _ = _backward(q, k, v, out, lse, g, ctx.scale,
-                                  ctx.causal)
-        return dq, dk, dv, None, None
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        dq, dk, dv, db = _backward(q, k, v, out, lse, g, ctx.scale,
+                                   ctx.causal, bias)
+        return dq, dk, dv, (db if ctx.needs_input_grad[3] else None), \
+            None, None
+
+
+def _attend(q, k, v, bias, causal, scale):
+    """The attention output: eagerly through `_FlashAttention` on plain
+    tensors; through the registered op when a Program records (a
+    `static.Variable`), `torch.export` traces (fake tensors under a
+    dispatch mode) or dynamo compiles."""
+    if type(q) is type(k) is type(v) is torch.Tensor \
+            and (bias is None or type(bias) is torch.Tensor) \
+            and not torch._C._len_torch_dispatch_stack() \
+            and not torch.compiler.is_compiling():
+        return _FlashAttention.apply(q, k, v, bias, causal, scale)
+    return flash_attn_op(q, k, v, bias, causal, scale)[0]
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
     """Differentiable flash attention over q [B, H, Sq, D], k/v
-    [B, H, Sk, D]; scale defaults to D**-0.5. Inputs are made contiguous
-    (the kernels read contiguous rows)."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(),
-                                v.contiguous(), bool(causal),
-                                _scale(q, scale))
-
-
-class FlashAttentionBias(torch.autograd.Function):
-    """The reference's custom-vjp `flash_attention_bias`: the forward
-    (K4 bias) keeps q, k, v, the float32 bias, out and lse; the backward is
-    K6 + K9 bias, or K6 + K7 bias + K8 bias when `uses_two_pass` holds,
-    and returns dbias when the bias needs a gradient."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, bias, causal, scale):
-        b32 = bias.float().contiguous()
-        out, lse = flash_fwd_lse(q, k, v, scale, causal, b32)
-        ctx.save_for_backward(q, k, v, b32, out, lse)
-        ctx.causal, ctx.scale, ctx.bias_dtype = causal, scale, bias.dtype
-        return out
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, b32, out, lse = ctx.saved_tensors
-        dq, dk, dv, db = _backward(q, k, v, out, lse, g, ctx.scale,
-                                   ctx.causal, b32)
-        db = db.to(ctx.bias_dtype) if ctx.needs_input_grad[3] else None
-        return dq, dk, dv, db, None, None
+    [B, H, Sk, D]; scale defaults to D**-0.5 (the reference's custom-vjp
+    `flash_attention`: K4 forward, K6 + K9 backward, or K6 + K7 + K8 when
+    `uses_two_pass` holds). Inputs are made contiguous (the kernels read
+    contiguous rows)."""
+    return _attend(q.contiguous(), k.contiguous(), v.contiguous(), None,
+                   bool(causal), _scale(q, scale))
 
 
 def flash_attention_bias(q, k, v, bias, causal=False, scale=None):
     """Differentiable flash attention with a per-key additive bias
     [B or 1, Sk] (any float dtype; the kernels read it as float32) over
-    q [B, H, Sq, D], k/v [B, H, Sk, D]; scale defaults to D**-0.5. A
-    [1, Sk] bias broadcasts over the batch and its gradient is summed
-    over it."""
+    q [B, H, Sq, D], k/v [B, H, Sk, D]; scale defaults to D**-0.5 (the
+    reference's custom-vjp `flash_attention_bias`: K4 bias forward, K6 +
+    K9 bias backward, or K6 + K7 bias + K8 bias). A [1, Sk] bias
+    broadcasts over the batch and its gradient is summed over it; the
+    gradient reaches the bias through its cast to float32."""
     if bias.dim() != 2 or bias.shape[0] not in (1, q.shape[0]) \
             or bias.shape[1] != k.shape[2]:
         raise ValueError(f"flash_attention_bias: bias {tuple(bias.shape)} "
                          f"is not [{q.shape[0]} or 1, {k.shape[2]}]")
-    return FlashAttentionBias.apply(q.contiguous(), k.contiguous(),
-                                    v.contiguous(), bias, bool(causal),
-                                    _scale(q, scale))
+    return _attend(q.contiguous(), k.contiguous(), v.contiguous(),
+                   bias.float().contiguous(), bool(causal), _scale(q, scale))
 
 
-__all__ = ["flash_attention", "FlashAttention", "flash_attention_bias",
-           "FlashAttentionBias", "flash_fwd_lse", "flash_delta", "flash_bwd",
+__all__ = ["flash_attention", "flash_attention_bias", "flash_attn_op",
+           "flash_attn_bwd_op", "flash_fwd_lse", "flash_delta", "flash_bwd",
            "flash_bwd_two_pass", "uses_two_pass", "flash_fwd_lse_plain",
            "flash_delta_plain", "flash_bwd_plain", "flash_bwd_dq_plain",
            "flash_bwd_dkv_plain"]

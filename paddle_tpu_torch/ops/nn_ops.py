@@ -560,7 +560,9 @@ def normalize(x, p=2, axis=1, epsilon=1e-12):
 # --------------------------------------------------------------- dropout ----
 
 def _gen(x, generator):
-    return generator if generator is not None else rng.generator(x.device)
+    if generator is not None or x.device.type == "meta":
+        return generator  # a meta tensor (static shape inference) draws none
+    return rng.generator(x.device)
 
 
 def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None,
@@ -573,7 +575,9 @@ def dropout(x, p=0.5, training=True, mode="upscale_in_train", axis=None,
     if axis is not None:
         axes = axis if isinstance(axis, (list, tuple)) else [axis]
         shape = [s if i in axes else 1 for i, s in enumerate(shape)]
-    keep = torch.empty(shape, dtype=x.dtype, device=x.device) \
+    # methods of x (not torch.empty): a static Program records the draw
+    keep = (torch.empty_like(x, memory_format=torch.contiguous_format)
+            if axis is None else x.new_empty(shape)) \
         .bernoulli_(1.0 - p, generator=_gen(x, generator)).bool()
     if mode == "upscale_in_train":
         return torch.where(keep, x / (1.0 - p), 0.0)

@@ -176,6 +176,13 @@ class Optimizer:
 
     def minimize(self, loss, startup_program=None, parameters=None,
                  no_grad_set=None, parameter_list=None):
+        # `parameter_list` is the fluid-era spelling of `parameters`
+        from ..core import mode
+        if mode.in_static_mode():  # record the step into the Program
+            from ..static import program as static_program
+            return static_program._minimize(
+                self, loss, parameters if parameters is not None
+                else parameter_list)
         loss.backward()
         self.step()
         return None, None

@@ -31,8 +31,10 @@ fake-quant ops, imperative/qat.py, post_training_quantization.py).
     (`preferred_element_type=int32`), not in a Pallas kernel.
   * `fuse_conv_bn` folds each adjacent (Conv2D, BatchNorm2D) pair inside
     a `Sequential`, as the reference's; it reports the count.
-  * `save_quantized_model` raises until `jit.save` of an arbitrary layer
-    is ported (ROADMAP §A 14.3).
+  * `save_quantized_model` converts (QAT) and writes the int8 model
+    with `jit.save`: the exported program keeps `torch._int_mm` as an
+    aten op, and the frozen int8 codes and scales are constants of the
+    program body, as the reference bakes them into its StableHLO module.
 
 The quantized layers' `state_dict()` is the reference's (`inner.weight`,
 `inner.bias`, `act_scale`): `nn.layer.layers.load_reference_state`
@@ -209,7 +211,8 @@ def int8_matmul(a, wmat, n):
     rows are padded past 16 and K to the operand's, and dropped after."""
     m, k = a.shape
     pad_k, pad_m = wmat.shape[0] - k, max(0, 17 - m)
-    if pad_k or pad_m:
+    # in an exported program m may be symbolic: pad there whatever it is
+    if pad_k or not isinstance(pad_m, int) or pad_m:
         a = F.pad(a, (0, pad_k, 0, pad_m))
     return torch._int_mm(a.contiguous(), wmat)[:m, :n]
 
@@ -520,13 +523,6 @@ def fuse_conv_bn(model):
     return fused
 
 
-def _no_save():
-    raise NotImplementedError(
-        "save_quantized_model needs jit.save of an arbitrary layer, which "
-        "is not ported (ROADMAP §A 14.3); the converted model runs in "
-        "process")
-
-
 def _check_weight_type(weight_quantize_type):
     if weight_quantize_type not in ("abs_max", "channel_wise_abs_max"):
         raise ValueError(
@@ -562,7 +558,10 @@ class ImperativeQuantAware:
         return model
 
     def save_quantized_model(self, layer, path, input_spec=None, **config):
-        _no_save()
+        """Convert, then `jit.save` (ref: imperative/qat.py:293)."""
+        from .. import jit
+        self.convert(layer)
+        return jit.save(layer, path, input_spec=input_spec)
 
 
 class PostTrainingQuantization:
@@ -614,7 +613,8 @@ class PostTrainingQuantization:
         return self.model
 
     def save_quantized_model(self, path, input_spec=None, **config):
-        _no_save()
+        from .. import jit
+        return jit.save(self.model, path, input_spec=input_spec)
 
 
 __all__ = ["quantize_symmetric", "dequantize", "fake_quant", "channel_axes",

@@ -358,6 +358,13 @@ def test_pylayer_matches_reference():
 
 
 def test_enable_static_raises_naming_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="§A 14"):
-        ptt.enable_static()
-    assert ptt.in_dygraph_mode()
+    """enable_static switches to static mode (it raised until the static
+    graph was ported), as the reference's does; disable_static returns to
+    dygraph."""
+    assert ptt.in_dygraph_mode() and not ptt.in_static_mode()
+    ptt.enable_static()
+    try:
+        assert ptt.in_static_mode() and not ptt.in_dygraph_mode()
+    finally:
+        ptt.disable_static()
+    assert ptt.in_dygraph_mode() and not ptt.in_static_mode()

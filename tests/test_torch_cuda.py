@@ -3063,3 +3063,104 @@ def test_slim_int8_conv_and_codes_match_cpu(dev):
         for a, b in zip(card[1:4], cpu[1:4]):
             assert torch.equal(a, b)
         assert (card[4] - cpu[4]).abs().max() <= 1e-6 * cpu[4].abs().max()
+
+
+def test_predictor_replays_the_exported_program_on_the_card(dev, tmp_path):
+    """jit.save of a padded 2-layer encoder on the card, served by
+    create_predictor on the card: one CUDA graph a batch shape, its output
+    bitwise the loaded program run eagerly and within 1e-5 of the eager
+    layer's largest logit, K4 bias launched once a layer a replay (a
+    capturing run adds its eager warm-up's)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.static import InputSpec
+
+    class Enc(ptt.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = ptt.nn.Embedding(100, 64)
+            self.enc = ptt.nn.TransformerEncoder(
+                ptt.nn.TransformerEncoderLayer(64, 2, 128, dropout=0.0), 2)
+
+        def forward(self, ids, mask):
+            bias = (1.0 - mask.float())[:, None, None, :] * -1e4
+            return self.enc(self.embed(ids), bias).mean(1)
+
+    with ptt.device.device_guard(dev):
+        net = Enc().eval()
+    prefix = str(tmp_path / "enc")
+    jit.save(net, prefix, input_spec=[InputSpec([None, 32], "int64")] * 2)
+    pred = create_predictor(Config(prefix + ".pdmodel",
+                                   prefix + ".pdiparams"))
+    for b, launches in ((2, 4), (3, 4), (2, 2)):
+        rs = np.random.RandomState(b)
+        ids = rs.randint(1, 100, (b, 32))
+        mask = (np.arange(32)[None] < rs.randint(8, 33, (b, 1))) \
+            .astype(np.int64)
+        kernels.reset_launch_counts()
+        out = pred.run([ids, mask])
+        assert kernels.launch_counts()["flash_fwd_bias"] == launches
+        ts = [torch.from_numpy(a).to(dev) for a in (ids, mask)]
+        assert torch.equal(out, pred._translated(*ts).cpu())
+        with torch.no_grad():
+            want = net(*ts).cpu()
+        assert (out - want).abs().max() <= 1e-5 * want.abs().max()
+    assert (pred.graph_captures, pred.graph_replays) == (2, 3)
+
+
+def test_static_program_trains_through_the_kernels_on_the_card(dev):
+    """A static Program with the attention op, run by an Executor on the
+    card: K4 bias, K6 and K9 bias launch once a step, and the step's loss
+    and gradients match the same Program on the CPU (1e-4, 1e-3 of a
+    leaf)."""
+    import numpy as np
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.static as st
+    from paddle_tpu_torch.ops import kernels
+
+    def build(device):
+        main, startup = st.Program(), st.Program()
+        with ptt.device.device_guard(device), st.program_guard(main,
+                                                                startup):
+            x = st.data("x", [2, 4, 16, 32], "float32")
+            bias = st.data("bias", [2, 16], "float32")
+            q = st.nn.fc(x, 32, num_flatten_dims=3)
+            out = ptt.ops.flash_attention.flash_attention_bias(
+                q, q, q, bias)
+            loss = (out * out).mean()
+            ptt.optimizer.SGD(0.1).minimize(loss)
+        return main, startup, loss, st.Executor(device)
+
+    ptt.enable_static()
+    try:
+        progs = [build(d) for d in (dev, "cpu")]
+        feed = {"x": np.random.RandomState(0).randn(2, 4, 16, 32)
+                .astype(np.float32),
+                "bias": np.where(np.arange(16)[None] < [[16], [9]], 0.0,
+                                 -1e9).astype(np.float32)}
+        outs, init = [], None
+        for i, (main, startup, loss, exe) in enumerate(progs):
+            scope = st.Scope()
+            exe.run(startup, scope=scope)
+            names = [p.name for p in main.all_parameters()]
+            if init is None:  # the card's initial weights, for the CPU
+                init = [scope.find_var(n).cpu().clone() for n in names]
+            else:
+                for n, v in zip(names, init):
+                    scope.set(n, v)
+            kernels.reset_launch_counts()
+            outs.append(exe.run(main, feed=feed, fetch_list=[loss] + [
+                p.name + "@GRAD" for p in main.all_parameters()],
+                scope=scope))
+            if i == 0:
+                c = kernels.launch_counts()
+                assert (c["flash_fwd_bias"], c["flash_delta"],
+                        c["flash_bwd_bias"]) == (1, 1, 1)
+    finally:
+        ptt.disable_static()
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-4)
+    for a, b in zip(outs[0][1:], outs[1][1:]):
+        assert np.abs(a - b).max() <= 1e-3 * np.abs(b).max()

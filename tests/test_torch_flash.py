@@ -1,6 +1,6 @@
 """CPU twins of the port's flash attention (`paddle_tpu_torch.ops.
 flash_attention`): the plain versions of K4 (forward with LSE), K6
-(delta) and K9 (fused backward) and the `FlashAttention` autograd rule,
+(delta) and K9 (fused backward) and the eager autograd rule,
 held to the JAX package's Pallas kernels `_flash_fwd_lse`, `_delta_rows`,
 `_flash_bwd_fused` and its custom-vjp `flash_attention`, run in interpret
 mode as tests/test_models.py runs them, on the same float32 inputs made
@@ -150,7 +150,7 @@ def test_fused_bwd_bf16_matches_pallas(case):
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
 def test_flash_attention_autograd_matches_pallas(case):
-    """`FlashAttention` (forward K4, backward K6 + K9) against the
+    """`flash_attention` (forward K4, backward K6 + K9) against the
     reference's custom-vjp `flash_attention`: output and the vjp of a
     random cotangent."""
     b, s, d, causal = case

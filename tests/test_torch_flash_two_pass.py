@@ -330,7 +330,8 @@ def _spy(monkeypatch, module, name, calls, fn=None):
 @pytest.mark.parametrize("with_bias", [False, True], ids=["plain", "bias"])
 def test_autograd_takes_the_two_pass_backward_exactly_when_it_holds(
         monkeypatch, with_bias, two_pass):
-    """`FlashAttention` and `FlashAttentionBias` ask `uses_two_pass` with
+    """`flash_attention` and `flash_attention_bias` (their eager autograd
+    rule) ask `uses_two_pass` with
     q's length and width and call `flash_bwd_two_pass` when it holds,
     `flash_bwd` otherwise, with the same gradients either way."""
     q, k, v, g = _inputs(9, 2, 2, 64, 64, 32)

@@ -227,15 +227,20 @@ def test_fused_step_fallback_warns_once(monkeypatch):
     np.testing.assert_allclose(a.losses, b.losses, rtol=0)
 
 
-def test_save_training_false_raises():
+def test_save_training_false_raises(tmp_path):
+    """save(training=False) needs Model(inputs=...); with them it writes
+    the jit.save artifact (it raised until jit.save of any layer was
+    ported), which predicts as the network does."""
+    from paddle_tpu_torch.static import InputSpec
     _, port = nets()
     model = ptt.Model(port)
     with pytest.raises(ValueError, match="needs Model"):
         model.save("unused", training=False)
-    model = ptt.Model(port, inputs=["x"])
-    with pytest.raises(NotImplementedError,
-                       match="jit.save of arbitrary layers is not ported"):
-        model.save("unused", training=False)
+    model = ptt.Model(port, inputs=[InputSpec([None, 4], "float32")])
+    model.save(str(tmp_path / "deploy"), training=False)
+    x = torch.from_numpy(data(5)[0])
+    loaded = ptt.jit.load(str(tmp_path / "deploy"), device="cpu")
+    assert torch.equal(loaded(x), port(x))
 
 
 def test_save_load_round_trip_predicts_bitwise(tmp_path):

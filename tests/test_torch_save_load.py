@@ -25,6 +25,7 @@ import paddle_tpu_torch as ptt
 import paddle_tpu_torch.nn as pnn
 from paddle_tpu_torch import device as pdevice
 from paddle_tpu_torch.framework import io as pio
+from paddle_tpu_torch.nn.layer.layers import load_reference_state
 
 torch.set_num_threads(1)
 
@@ -100,10 +101,25 @@ def test_full_train_state_resume(tmp_path):
 
 
 def test_jit_save_of_a_layer_raises(tmp_path):
-    """The twin of test_jit_save_load: the port's jit.save exports the
-    text generator only (ROADMAP §A 14)."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ptt.jit.save(pnn.Linear(3, 2), str(tmp_path / "jit_model"))
+    """The twin of test_io_checkpoint.py::TestIO::test_jit_save_load
+    (it pinned a raise until jit.save of any layer was ported): a Linear
+    saved with InputSpec([None, 3]) loads with no model class and gives
+    the reference layer's outputs on the same weights (1e-6), at two
+    batch sizes."""
+    from paddle_tpu_torch.static import InputSpec
+    paddle.seed(2)
+    ref = rnn.Linear(3, 2)
+    net = pnn.Linear(3, 2)
+    load_reference_state(net, {k: np.asarray(v.numpy())
+                               for k, v in ref.state_dict().items()})
+    path = str(tmp_path / "jit_model")
+    ptt.jit.save(net, path, input_spec=[InputSpec([None, 3])])
+    loaded = ptt.jit.load(path, device="cpu")
+    for n in (4, 9):
+        x = np.random.RandomState(n).randn(n, 3).astype(np.float32)
+        want = np.asarray(ref(paddle.to_tensor(x)).numpy())
+        np.testing.assert_allclose(loaded(torch.from_numpy(x)).numpy(),
+                                   want, rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int64"])

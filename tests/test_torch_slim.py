@@ -595,12 +595,95 @@ def test_qat_steps_match_reference(wq_type, act):
 
 
 def test_save_quantized_model_raises_naming_the_roadmap_item(tmp_path):
+    """Both save_quantized_models write a jit.save artifact (they raised
+    until jit.save of any layer was ported): the loaded int8 program
+    gives the converted model's outputs, bit for bit on the CPU."""
+    from paddle_tpu_torch.static import InputSpec
+    x = pt(np.random.RandomState(1).randn(6, 16).astype(np.float32))
     _, model = mlp_pair(0)
     qat = PS.ImperativeQuantAware()
     qat.quantize(model)
-    with pytest.raises(NotImplementedError, match="A 14.3"):
-        qat.save_quantized_model(model, str(tmp_path / "m"))
+    model(x)  # collect activation ranges
+    spec = [InputSpec([None, 16], "float32")]
+    qat.save_quantized_model(model, str(tmp_path / "m"), input_spec=spec)
+    model.eval()
+    assert torch.equal(ptt.jit.load(str(tmp_path / "m"), device="cpu")(x),
+                       model(x))
     ptq = PS.PostTrainingQuantization(model=_PMLP(), algo="abs_max")
     ptq.quantize([(np.ones((4, 16), np.float32),)])
-    with pytest.raises(NotImplementedError, match="A 14.3"):
-        ptq.save_quantized_model(str(tmp_path / "p"))
+    ptq.save_quantized_model(str(tmp_path / "p"), input_spec=spec)
+    assert torch.equal(ptt.jit.load(str(tmp_path / "p"), device="cpu")(x),
+                       ptq.model(x))
+
+# ---- the deployment twins (test_slim_quant.py's save cases) -----------------
+
+def test_save_quantized_model_deploy_roundtrip(tmp_path):
+    """The twin of test_slim_quant.py::TestSlimQuant::
+    test_save_quantized_model_deploy_roundtrip: PTQ (abs_max) on the same
+    weights and calibration data, then save_quantized_model -> Predictor
+    (the handle flow), at two batch sizes. The served outputs equal the
+    port's eager int8 model bit for bit and the reference's eager int8
+    model within 1e-5 (the int8 codes are the reference's; the float
+    rescale sums in another order)."""
+    from paddle_tpu.slim import PostTrainingQuantization as RPTQ
+    from paddle_tpu_torch.inference import Config, create_predictor
+    from paddle_tpu_torch.static import InputSpec
+    rng = np.random.RandomState(4)
+    calib = [np.asarray(rng.randn(16, 16), np.float32) for _ in range(4)]
+    ref, port = mlp_pair(9)
+    RPTQ(model=ref, algo="abs_max").quantize(
+        data_loader=[(rt(c),) for c in calib])
+    ptq = PS.PostTrainingQuantization(model=port, algo="abs_max")
+    ptq.quantize(data_loader=[(c,) for c in calib])
+    prefix = str(tmp_path / "int8" / "inference")
+    ptq.save_quantized_model(prefix,
+                             input_spec=[InputSpec([None, 16], "float32")])
+    cfg = Config(prefix + ".pdmodel", prefix + ".pdiparams")
+    cfg.disable_gpu()
+    pred = create_predictor(cfg)
+    inp = pred.get_input_handle(pred.get_input_names()[0])
+    for n in (8, 3):
+        x = rng.randn(n, 16).astype(np.float32)
+        inp.copy_from_cpu(x)
+        assert pred.run()
+        served = pred.get_output_handle(
+            pred.get_output_names()[0]).copy_to_cpu()
+        np.testing.assert_array_equal(served, pnp(port(pt(x))))
+        np.testing.assert_allclose(served, rnp(ref(rt(x))), rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_qat_save_quantized_model_roundtrip(tmp_path):
+    """The twin of test_slim_quant.py::TestSlimQuant::
+    test_qat_save_quantized_model_roundtrip: 3 SGD steps of QAT on the
+    same weights and data, then save_quantized_model (convert, then
+    save); jit.load's output equals the converted port model bit for bit
+    and the reference's converted model within 1e-4 (three float32 steps
+    apart)."""
+    from paddle_tpu.slim import ImperativeQuantAware as RQAT
+    from paddle_tpu_torch.static import InputSpec
+    rng = np.random.RandomState(5)
+    ref, port = mlp_pair(10)
+    rqat = RQAT()
+    rqat.quantize(ref)
+    qat = PS.ImperativeQuantAware()
+    qat.quantize(port)
+    carry(ref, port)
+    x = rng.randn(32, 16).astype(np.float32)
+    for pkg, model, xin in ((paddle, ref, rt(x)), (ptt, port, pt(x))):
+        sgd = pkg.optimizer.SGD(learning_rate=0.01,
+                                parameters=model.parameters())
+        for _ in range(3):
+            loss = model(xin).square().mean()
+            loss.backward()
+            sgd.step()
+            sgd.clear_grad()
+        model.eval()
+    prefix = str(tmp_path / "qat8" / "inference")
+    qat.save_quantized_model(port, prefix,
+                             input_spec=[InputSpec([None, 16], "float32")])
+    rqat.convert(ref)
+    out = ptt.jit.load(prefix, device="cpu")(pt(x))
+    np.testing.assert_array_equal(pnp(out), pnp(port(pt(x))))
+    np.testing.assert_allclose(pnp(out), rnp(ref(rt(x))), rtol=1e-4,
+                               atol=1e-4)
