@@ -235,7 +235,14 @@ non-zero before the result line:
                register peak) and B=2 H=4 Sq=384 Sk=256 D=64 causal (dead
                rows through the bf16 K9). In bf16 K4 and K9 are the
                tensor-core kernels of csrc/flash_fwd_sm90.cu and
-               csrc/flash_bwd_sm90.cu. K9's dk and dv must be bitwise
+               csrc/flash_bwd_sm90.cu. float16 beside bf16 at the
+               training shape (timed) and the ragged causal one
+               (and so in 3c's main and ragged shapes and 3d's (a), (c),
+               (f) and its ragged bias case): the same kernels on
+               __half, against the plain versions on the float16 tensors
+               (which round p and ds in float16 as the kernels do),
+               within 5e-3, timed beside bf16 with SDPA in float16 as
+               the library call. K9's dk and dv must be bitwise
                equal over two launches. Errors are relative to the plain
                output's largest magnitude: 2e-2 for out/dq/dk/dv in bf16,
                1e-4 for everything else. Times at the main shape in bf16:
@@ -392,6 +399,45 @@ non-zero before the result line:
                steps, gated in float64 (losses, parameters, BatchNorm and
                act_scale buffers, gradients), float32 printed; (d)
                text.viterbi_decode [8, 64, 32], paths equal, scores 1e-5;
+  4l. a Paddle 1.x user's code through `fluid` (after 4q;
+               `fluid_parity_phase`), float32, TF32 off unless stated:
+               (a) test_fluid_static_training.py's LeNet through
+               fluid.layers.conv2d / pool2d / fc /
+               softmax_with_cross_entropy, fluid.optimizer.SGD and
+               fluid.Executor(fluid.CUDAPlace(0)), 3 steps card vs
+               fluid.Executor(fluid.CPUPlace()) from the card's weights
+               (set_program_state): loss 1e-4, parameters 4.01e-4 of
+               their magnitude; (b) the 1.x dygraph loop
+               (fluid.dygraph.guard(place), to_variable,
+               fluid.optimizer.AdamOptimizer(parameter_list=...),
+               minimize, clear_gradients) over 4a's classifier at
+               BERT-base width, 2 layers, B 2 x S 128 padded: 3 steps
+               card vs CPU by 4c's limits, K4 bias / K6 / K9 bias twice a
+               step; (c) the same loop under fluid.dygraph.amp_guard(
+               dtype="float16", custom_white_list=
+               ["scaled_dot_product_attention"]) with
+               fluid.contrib.mixed_precision.decorate(opt,
+               init_loss_scaling=2**15) called inside it: each step's
+               float16 loss within L_REL of the float32 loss of the same
+               parameters and batch on the CPU, only the float16 counters
+               of K4 bias / K6 / K9 bias launched (twice a step), the
+               scale and the skipped steps equal to the CPU's under the
+               same guard; (d) decorate(2^40): both steps skipped on the
+               card and the CPU, the parameters bitwise unchanged, the
+               scale halved after decr_every_n_nan_or_inf (2) bad steps;
+               (e) the float16 loop at head dim 64, one step each at S
+               1024 and L_LONG (past the two-pass switch), unpadded and
+               padded: every float16 instance launched where expected;
+  6l. 4l (c)'s loop at full width (after 6a; `fluid_train_throughput`):
+               12 layers, dropout 0.1, B 16 x S 512 padded at 6b's
+               lengths, warm-up steps until 2 updates have been applied
+               (the scaler skips the first overflowing ones), then 5
+               measured steps: tokens/s, ms a
+               step, peak memory, idle share of a profiled pass, the loss
+               scale and the steps skipped, beside 6a (b)'s bf16 step of
+               this call; fails on a non-finite last loss, a last loss
+               not below the first measured one, or float16 launches of
+               K4 bias / K6 / K9 bias other than 12 a step;
   6q. quantization timed (after 6v; `quant_throughput_phase`): (a)
                ResNet-50 at 224², fuse_conv_bn + PTQ hist channel-wise,
                int8 inference (`torch._int_mm`, im2col for the convs) at
@@ -729,7 +775,9 @@ non-zero before the result line:
      5m ((a), (b) and the workers' /stats), 4b, 4f, 4g, 6g (a), 6, 6b,
      6a, 4i (the Predictor's process, the Executor, the loaded
      programs), 6j, 6c, 4t, 6t, 4h/6h's, 4k's and 5d's ranks ((a), (b),
-     (c)); the `ragged_stream_verify_*` rows
+     (c)); the `*_f16` rows are the float16 instances: 3b-3d's timed
+     float16 rows, launched by 4l (c)-(e) and 6l; the
+     `ragged_stream_verify_*` rows
      are K1 on verify streams: 5v (k)'s numbers, and the launches 5v (b)'s verify
      dispatches added; the `flash_fwd_decode` row is K4 at Sq = 1: 3e's
      numbers at Sk 64, and the Sq = 1 launches of 4t's and 6t's decodes,
@@ -1185,6 +1233,42 @@ def _rates(phase, name, tag, r):
         f"library's time")
 
 
+def _flash_tol(torch, dtype):
+    """The limit of a flash kernel's outputs against its plain version,
+    relative to the plain output's largest magnitude: float32 1e-4; bf16
+    2e-2 (the kernels round p and ds to bf16, the plain versions in
+    float32 do not); float16 5e-3 (8x bf16's mantissa; the plain versions
+    round p and ds to float16 as the kernels do)."""
+    return {torch.float32: 1e-4, torch.bfloat16: 2e-2,
+            torch.float16: 5e-3}[dtype]
+
+
+def _plain_in(torch, dtype, tensors):
+    """The plain versions' inputs: float32 copies, but the float16
+    tensors themselves (their plain versions apply the float16 roundings
+    of p and ds, which decide where ds overflows)."""
+    if dtype == torch.float16:
+        return list(tensors)
+    return [t.float() for t in tensors]
+
+
+def _f16_names(torch, dtype, rows):
+    """A float16 case's rows under the float16 counters' names."""
+    if dtype != torch.float16:
+        return rows
+    return {f"{n}_f16": r for n, r in rows.items()}
+
+
+def f16_ratios(phase, names, rows, card):
+    """The float16 instances' times beside the same kernels' bf16 times
+    of this call (both timed at the phase's main shape)."""
+    say(f"phase {phase} float16 / bf16 kernel time: " + ", ".join(
+        f"{n} {rows[n + '_f16']['ms']:.4f} / {rows[n]['ms']:.4f} ms "
+        f"({rows[n + '_f16']['ms'] / rows[n]['ms']:.2f}x; library "
+        f"float16 {rows[n + '_f16']['library_ms']:.4f} ms)" for n in names)
+        + f" [{card}]")
+
+
 def _rel_err(out, ref):
     """(max abs error, that error over the plain output's max abs)."""
     err = (out.float() - ref.float()).abs().max().item()
@@ -1212,12 +1296,13 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed,
     grads = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
     again = kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
     torch.cuda.synchronize()
-    f = [t.float() for t in (q, k, v, do)]
+    f = _plain_in(torch, dtype, (q, k, v, do))
     out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal)
-    delta_p = pf.flash_delta_plain(out.float(), f[3])
+    delta_p = pf.flash_delta_plain(out if dtype == torch.float16
+                                   else out.float(), f[3])
     grads_p = pf.flash_bwd_plain(f[0], f[1], f[2], f[3], lse, delta, sc,
                                  causal)
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    tol = _flash_tol(torch, dtype)
     checks = {"out": (out, out_p, tol), "lse": (lse, lse_p, 1e-4),
               "delta": (delta, delta_p, 1e-4)}
     for name, a, p in zip(("dq", "dk", "dv"), grads, grads_p):
@@ -1246,7 +1331,7 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed,
         f"dk {errs['dk']:.3g} dv {errs['dv']:.3g}; out, lse, dk, dv bitwise "
         f"repeatable")
     if not timed:
-        return rows
+        return _f16_names(torch, dtype, rows)
     del out_p, lse_p, delta_p, grads_p, f
     fw, dl, bw = rows["flash_fwd"], rows["flash_delta"], rows["flash_bwd"]
     fw["ms"] = timer.ms(lambda: kernels.flash_fwd(q, k, v, sc, causal))
@@ -1274,6 +1359,7 @@ def flash_case(torch, timer, b, h, sq, sk, d, causal, dtype, seed, timed,
     fw.update(_bound(2 * qv + 2 * kv + 4 * bh * sq, 4 * bh * d * pairs))
     dl.update(_bound(2 * qv + 4 * bh * sq, 2 * bh * sq * d))
     bw.update(_bound(3 * qv + 4 * kv + 8 * bh * sq, 10 * bh * d * pairs))
+    rows = _f16_names(torch, dtype, rows)
     for name, r in rows.items():
         say(f"phase 3b {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
@@ -1337,7 +1423,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
     grads = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
     again = kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc, causal)
     torch.cuda.synchronize()
-    f = [t.float() for t in (q, k, v, do)]
+    f = _plain_in(torch, dtype, (q, k, v, do))
     out_p, lse_p = pf.flash_fwd_lse_plain(f[0], f[1], f[2], sc, causal,
                                           bias)
     grads_p = pf.flash_bwd_plain(f[0], f[1], f[2], f[3], lse, delta, sc,
@@ -1354,7 +1440,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
     if not (lse[~live] <= -1e29).all().item():
         fail(f"phase {phase} {tag}: a fully masked row's lse is not the "
              f"fill")
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    tol = _flash_tol(torch, dtype)
     checks = {"out": (out, out_p, tol), "lse": (lse[live], lse_p[live], 1e-4)}
     for name, a, p in zip(("dq", "dk", "dv", "dbias"), grads, grads_p):
         checks[name] = (a, p, tol)
@@ -1372,7 +1458,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
             "flash_bwd_bias": {"max_abs_err": max(
                 errs["dq"], errs["dk"], errs["dv"], errs["dbias"])}}
     if not timed:
-        return rows
+        return _f16_names(torch, dtype, rows)
     del out_p, lse_p, grads_p, f
     fw, bw = rows["flash_fwd_bias"], rows["flash_bwd_bias"]
     fw["ms"] = timer.ms(lambda: kernels.flash_fwd_bias(q, k, v, bias, sc,
@@ -1400,6 +1486,7 @@ def bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype,
                      4 * bh * d * pairs))
     bw.update(_bound(3 * qv + 4 * kv + 8 * bh * sq + nb + 4 * bh * sk,
                      10 * bh * d * pairs))
+    rows = _f16_names(torch, dtype, rows)
     for name, r in rows.items():
         say(f"phase 3c {name} {tag}: kernel {r['ms']:.4f} ms, plain "
             f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, "
@@ -1468,11 +1555,11 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
     for name, a, a2 in zip(("dq", "dk", "dv", "dbias"), grads, again):
         if a is not None and not torch.equal(a, a2):
             fail(f"phase 3d {tag}: {name} differs between two launches")
-    f = [t.float() for t in (q, k, v, do)]
+    f = _plain_in(torch, dtype, (q, k, v, do))
     plain = (pf.flash_bwd_dq_plain(*f, lse, delta, sc, causal, bias),) + \
         pf.flash_bwd_dkv_plain(*f, lse, delta, sc, causal, bias)
     del f
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    tol = _flash_tol(torch, dtype)
     errs = {}
     for name, a, p in zip(("dq", "dk", "dv", "dbias"), grads, plain):
         if a is None:
@@ -1484,8 +1571,8 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
                  f"err {err:.3g}, {rel:.3g} of its magnitude > {tol})")
     del plain
     # (h) K9 (bias) on the same inputs: dq within the tolerance; in bf16
-    # K8 is K9's tensor-core body without its dq, so dk, dv and dbias must
-    # equal K9's bit for bit
+    # and float16 K8 is K9's tensor-core body without its dq, so dk, dv
+    # and dbias must equal K9's bit for bit
     fused = (kernels.flash_bwd(q, k, v, do, lse, delta, sc, causal)
              if bias is None else
              kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
@@ -1499,7 +1586,7 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
             dq_diff = err
         else:
             k9_diff = max(k9_diff, err)
-        if name != "dq" and dtype == torch.bfloat16 and not torch.equal(a, p):
+        if name != "dq" and dtype != torch.float32 and not torch.equal(a, p):
             fail(f"phase 3d {tag}: K8's {name} is not K9's bit for bit (max "
                  f"abs diff {err:.3g})")
         if rel > tol:
@@ -1517,7 +1604,7 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
     rows = {"flash_bwd_dq" + suffix: dq_row,
             "flash_bwd_dkv" + suffix: dkv_row}
     if not timed:
-        return rows
+        return _f16_names(torch, dtype, rows)
     args = (q, k, v, do, lse, delta)
     if bias is None:
         dq_ms = timer.ms(lambda: kernels.flash_bwd_dq(*args, sc, causal))
@@ -1561,7 +1648,7 @@ def two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind, dtype, seed,
     say(f"phase 3d {tag}: K7 + K8 {dq_ms + dkv_ms:.4f} ms, K9"
         f"{'' if bias is None else ' bias'} {k9_ms:.4f} ms on the same "
         f"inputs (ratio {(dq_ms + dkv_ms) / k9_ms:.2f})")
-    return rows
+    return _f16_names(torch, dtype, rows)
 
 
 # ---- phases 4c and 6: training ---------------------------------------------
@@ -1859,26 +1946,28 @@ A_VOCAB, A_HIDDEN, A_HEADS, A_FFN = 30522, 768, 12, 3072  # BERT-base width
 A_LR = 1e-4
 
 
-def api_classifier(ptt, n_layers, dropout, max_len=512):
+def api_classifier(ptt, n_layers, dropout, max_len=512, width=None):
     """A text classifier written the way a Paddle user writes one against
     the 2.0 API: token and position embeddings (normal(0, 0.02), through
-    ParamAttr), nn.TransformerEncoder at BERT-base width with
-    attn_dropout 0 (attention dropout takes the dense path), mean
-    pooling over the real tokens, nn.Linear(768, 2). Built on the
-    default device."""
+    ParamAttr), nn.TransformerEncoder at BERT-base width (or `width`:
+    (vocab, hidden, heads, ffn)) with attn_dropout 0 (attention dropout
+    takes the dense path), mean pooling over the real tokens,
+    nn.Linear(hidden, 2). Built on the default device."""
     nn = ptt.nn
+    vocab, hidden, heads, ffn = width or (A_VOCAB, A_HIDDEN, A_HEADS,
+                                          A_FFN)
 
     class TextClassifier(nn.Layer):
         def __init__(self):
             super().__init__()
             init = ptt.ParamAttr(initializer=nn.initializer.Normal(0.0, 0.02))
-            self.embed = nn.Embedding(A_VOCAB, A_HIDDEN, weight_attr=init)
-            self.pos = nn.Embedding(max_len, A_HIDDEN, weight_attr=init)
+            self.embed = nn.Embedding(vocab, hidden, weight_attr=init)
+            self.pos = nn.Embedding(max_len, hidden, weight_attr=init)
             layer = nn.TransformerEncoderLayer(
-                A_HIDDEN, A_HEADS, A_FFN, dropout=dropout, attn_dropout=0.0,
+                hidden, heads, ffn, dropout=dropout, attn_dropout=0.0,
                 activation="gelu")
             self.encoder = nn.TransformerEncoder(layer, n_layers)
-            self.head = nn.Linear(A_HIDDEN, 2)
+            self.head = nn.Linear(hidden, 2)
 
         def forward(self, ids, mask=None):
             """ids [B, S]; mask [B, S], 1 on real tokens (None: none)."""
@@ -7319,9 +7408,9 @@ def serving_fleet_phase(torch, model, prompts, card, single_k1):
 # the ranks share the card over gloo (NCCL refuses two ranks on one device);
 # GPT-2 small at full width and depth, phase 5's server shape
 D_CFG = {}                      # GPT2Config overrides (none on the card)
-D_SERVE_NEW = 32                # (a), (c)-(e): new tokens a request
+D_SERVE_NEW = 16                # (a), (c)-(e): new tokens a request
 D_FD_NEW = 24                   # (b): the front door's batch request
-D_E_PROMPTS = 4                 # (d), (e): phase 5's prompts (of 16)
+D_E_PROMPTS = 2                 # (d), (e): phase 5's prompts (of 16)
 D_LONG = 960                    # (c): the long prompt's tokens
 D_CHUNKS = (256, 480)           # (c): prefill_chunk_tokens (x sp a dispatch)
 D_TIMEOUT = 420.0               # a world's hard limit (s)
@@ -7856,9 +7945,9 @@ def sharded_phase(torch, card, unsharded_k1):
 # ---- phases 4h and 6h: parallel training over torch.distributed ------------
 
 # GPT-2 small's widths; the hybrid's batch; the pipeline's and MoE's sizes
-# depth cut to 4 of GPT-2 small's 12 layers for 4h (b)-(d), (g) and 6h
-# (the script's time limit; every check stays; pp 2 takes 2 layers a stage)
-H_MODEL = dict(vocab=50257, hidden=768, heads=12, layers=4, max_pos=1024)
+# depth cut to 2 of GPT-2 small's 12 layers for 4h (b)-(d), (g) and 6h
+# (the script's time limit; every check stays; pp 2 takes a layer a stage)
+H_MODEL = dict(vocab=50257, hidden=768, heads=12, layers=2, max_pos=1024)
 H_DEPTH = f"{H_MODEL['layers']} of its 12 layers"
 H_BATCH, H_SEQ, H_MICRO = 8, 1024, 2
 H_RING = (2, 12, 1024, 64)     # (a): B, H, S, D
@@ -8507,7 +8596,7 @@ def checks_hybrid(res, ref_loss, ref_losses):
 
 # ---- phase 4k: the fleet's strategy layer over torch.distributed ------------
 
-K_BATCH, K_SEQ = 4, 1024       # (a): the global batch of GPT-2 small
+K_BATCH, K_SEQ = 4, 512        # (a): the global batch of GPT-2 small
 K_SMALL = (2, 128)             # (b): B, S of the 2-layer full-width GPT-2
 K_LR = 1e-4                    # phase 4c's AdamW
 K_RANKS = 2
@@ -8540,7 +8629,7 @@ K_SMALL_SETS = (               # (b): card against the CPU
                   {"accumulate_steps": 2}}, "AdamW"),
 )
 K_KERNELS = ("flash_fwd", "flash_delta", "flash_bwd")
-K_LAYERS = 4                   # (a): depth cut to 4 of GPT-2 small's 12
+K_LAYERS = 2                   # (a): depth cut to 2 of GPT-2 small's 12
 
 
 def _k_cfg(small=False):
@@ -10118,6 +10207,446 @@ def quant_throughput_phase(torch, card):
         f"s [{card}]")
 
 
+# ---- phases 4l / 6l: a Paddle 1.x user's code through `fluid` -------------
+
+L_STEPS = 3                     # (b), (c): steps card vs CPU
+L_OVERFLOW = 2.0 ** 40          # (d): a loss scale that overflows float16
+L_SCALE = 2.0 ** 15             # (c), 6l: decorate's init_loss_scaling
+L_REL = 1e-2                    # (c): float16 card loss vs float32 CPU
+L_LONG = 16384                  # (e): past the two-pass switch at D 64
+L_SMALL = (1000, 128, 2, 512)   # (e): vocab, hidden, heads, ffn (D 64)
+L_WHITE = ["scaled_dot_product_attention"]
+L_F16 = ("flash_fwd_bias_f16", "flash_delta_f16", "flash_bwd_bias_f16")
+
+
+def _l_lenet(fluid, dev_place):
+    """(a): test_fluid_static_training.py's LeNet through fluid.layers,
+    with fluid.optimizer.SGD, for an Executor on `dev_place`."""
+    main_p, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main_p, startup):
+        img = fluid.data(name="img", shape=[None, 1, 28, 28],
+                         dtype="float32")
+        label = fluid.data(name="label", shape=[None, 1], dtype="int64")
+        conv = fluid.layers.conv2d(img, num_filters=6, filter_size=5,
+                                   act="relu")
+        pool = fluid.layers.pool2d(conv, pool_size=2, pool_stride=2)
+        fc = fluid.layers.fc(pool, size=10)
+        loss = fluid.layers.mean(
+            fluid.layers.softmax_with_cross_entropy(fc, label))
+        fluid.optimizer.SGD(learning_rate=0.1).minimize(loss)
+    exe = fluid.Executor(dev_place)
+    exe.run(startup)
+    return main_p, exe, loss
+
+
+def l_static_parity(torch, ptt):
+    """(a): the static LeNet on the card and on the CPU from the card's
+    initial weights (`set_program_state`), 3 SGD steps on the same
+    batches: losses by phase 4c's limit (1e-4 relative), the parameters
+    within 4.01e-4 of their magnitude."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.device import device_guard
+    ptt.enable_static()
+    try:
+        card_place = fluid.CUDAPlace(0) if DEV == "cuda" else \
+            fluid.CPUPlace()
+        # each Program is built where it runs: its optimizer keeps the
+        # device it is built on (as 4i (b)'s)
+        with device_guard(DEV):
+            prog_c, exe_c, loss_c = _l_lenet(fluid, card_place)
+        with device_guard("cpu"):
+            prog_h, exe_h, loss_h = _l_lenet(fluid, fluid.CPUPlace())
+        scope = fluid.global_scope()
+        fluid.set_program_state(prog_h, {
+            ph.name: scope.find_var(pc.name).cpu()
+            for pc, ph in zip(prog_c.all_parameters(),
+                              prog_h.all_parameters())})
+        rs = np.random.RandomState(61)
+        worst = {"loss": 0.0, "param": 0.0}
+        for _ in range(3):
+            ys = rs.randint(0, 10, (32, 1)).astype(np.int64)
+            xs = rs.rand(32, 1, 28, 28).astype(np.float32)
+            (lc,), (lh,) = (exe.run(prog, feed={"img": xs, "label": ys},
+                                    fetch_list=[loss])
+                            for prog, exe, loss in ((prog_c, exe_c, loss_c),
+                                                    (prog_h, exe_h, loss_h)))
+            rel = abs(float(lc) - float(lh)) / abs(float(lh))
+            worst["loss"] = max(worst["loss"], rel)
+            if rel > 1e-4:
+                fail(f"phase 4l (a): loss {float(lc)} vs CPU {float(lh)} "
+                     f"(relative {rel:.3g} > 1e-4)")
+        for pc, ph in zip(prog_c.all_parameters(), prog_h.all_parameters()):
+            a = scope.find_var(pc.name).cpu()
+            c = scope.find_var(ph.name)
+            r = (a - c).abs().max().item() / max(c.abs().max().item(), 1e-6)
+            worst["param"] = max(worst["param"], r)
+            if r > 4.01e-4:
+                fail(f"phase 4l (a): parameter {pc.name} differs by {r:.3g} "
+                     f"of its magnitude after 3 steps (> 4.01e-4)")
+        if not str(scope.find_var(prog_c.all_parameters()[0].name)
+                   .device).startswith(DEV):
+            fail("phase 4l (a): the card program's parameters are not on "
+                 "the card")
+        return worst
+    finally:
+        ptt.disable_static()
+
+
+def _l_loss(fluid, net, ids, mask, labels):
+    logits = net(ids, mask)
+    return fluid.layers.mean(fluid.layers.softmax_with_cross_entropy(
+        logits, labels.reshape(-1, 1)))
+
+
+def _l_batch(ptt, fluid, b, s, lengths, seed):
+    rs = np.random.RandomState(seed)
+    vocab = A_VOCAB
+    ids = rs.randint(1, vocab, (b, s))
+    real = np.arange(s)[None] < np.asarray(lengths)[:, None]
+    return (fluid.dygraph.to_variable(ids * real),
+            fluid.dygraph.to_variable(real.astype(np.int64)),
+            fluid.dygraph.to_variable(rs.randint(0, 2, (b,))))
+
+
+def l_dygraph_run(torch, ptt, state, place, amp, scale, steps, seed=71,
+                  shadow=False):
+    """(b)-(d): the 1.x loop — fluid.dygraph.guard(place), to_variable,
+    fluid.optimizer.AdamOptimizer(parameter_list=...), minimize,
+    clear_gradients — over 4a's classifier at BERT-base width, 2 layers,
+    B 2 x S 128 padded to 128/77, from `state`. With `amp`, the loop runs
+    under fluid.dygraph.amp_guard(dtype="float16", custom_white_list=
+    ["scaled_dot_product_attention"]) with
+    fluid.contrib.mixed_precision.decorate(opt, init_loss_scaling=scale)
+    called inside it. Returns (losses, scales after each step, launch
+    counts a step, parameters after, gradients of the first step,
+    whether each step was skipped, and with `shadow` the float32 CPU
+    loss of each step's batch on the parameters the step starts from)."""
+    import contextlib
+
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.device import device_guard
+    from paddle_tpu_torch.ops import kernels
+    shadow_net, shadow_losses, skipped = None, [], []
+    if shadow:
+        with device_guard("cpu"):
+            shadow_net = api_classifier(ptt, 2, 0.0)
+    with fluid.dygraph.guard(place):
+        net = api_classifier(ptt, 2, 0.0)
+        net.set_state_dict(state)
+        opt = fluid.optimizer.AdamOptimizer(
+            learning_rate=A_LR, parameter_list=net.parameters())
+        guard = fluid.dygraph.amp_guard(dtype="float16",
+                                        custom_white_list=L_WHITE) \
+            if amp else contextlib.nullcontext()
+        losses, scales, counts, grads = [], [], [], None
+        with guard:
+            dec = fluid.contrib.mixed_precision.decorate(
+                opt, init_loss_scaling=scale) if amp else opt
+            for step in range(steps):
+                ids, mask, labels = _l_batch(ptt, fluid, 2, 128, [128, 77],
+                                             seed + step)
+                if shadow_net is not None:
+                    with device_guard("cpu"), torch.no_grad(), \
+                            fluid.dygraph.amp_guard(enable=False):
+                        shadow_net.set_state_dict(
+                            {k: v.detach().cpu().float()
+                             for k, v in net.state_dict().items()})
+                        shadow_losses.append(_l_loss(
+                            fluid, shadow_net, *_l_batch(
+                                ptt, fluid, 2, 128, [128, 77],
+                                seed + step)).item())
+                kernels.reset_launch_counts()
+                with DenseSpy() as dense:
+                    loss = _l_loss(fluid, net, ids, mask, labels)
+                    dec.minimize(loss)
+                if DEV == "cuda":
+                    torch.cuda.synchronize()
+                c = kernels.launch_counts()
+                c["dense"] = dense.calls
+                counts.append(c)
+                if grads is None:
+                    grads = {n: p.grad.detach().cpu().clone()
+                             for n, p in net.named_parameters()
+                             if p.grad is not None}
+                opt.clear_gradients()
+                losses.append(loss.item())
+                scales.append(dec.get_loss_scaling() if amp else 1.0)
+                skipped.append(bool(amp and dec._scaler._found_inf))
+        params = {n: p.detach().cpu().clone()
+                  for n, p in net.named_parameters()}
+    return (losses, scales, counts, params, grads, skipped,
+            shadow_losses)
+
+
+def _l_expect(counts, names, n, phase, others_zero=True):
+    for step, c in enumerate(counts):
+        for k in names:
+            if c[k] != n:
+                fail(f"phase {phase} step {step}: {k} launched {c[k]} "
+                     f"times, expected {n}")
+        if others_zero:
+            extra = {k: v for k, v in c.items()
+                     if v and k not in names and k != "dense"}
+            if extra:
+                fail(f"phase {phase} step {step}: other kernels ran "
+                     f"{extra}")
+        if c["dense"]:
+            fail(f"phase {phase} step {step}: the dense attention path ran "
+                 f"{c['dense']} times")
+
+
+def l_long_runs(torch, ptt):
+    """(e): the 1.x float16 loop (amp_guard + decorate) on every float16
+    instance's path: a 1-layer classifier at head dim 64 (hidden 128, 2
+    heads) at S 1024 (the fused backward) and S 16384 (past the two-pass
+    switch), unpadded (the unbiased kernels) and padded (the bias ones),
+    one step each. Returns the launch counts summed."""
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops import kernels
+    total = {}
+    for s, names in ((1024, (("flash_fwd_f16", "flash_delta_f16",
+                               "flash_bwd_f16"),
+                              ("flash_fwd_bias_f16", "flash_delta_f16",
+                               "flash_bwd_bias_f16"))),
+                     (L_LONG, (("flash_fwd_f16", "flash_delta_f16",
+                                "flash_bwd_dq_f16", "flash_bwd_dkv_f16"),
+                               ("flash_fwd_bias_f16", "flash_delta_f16",
+                                "flash_bwd_dq_bias_f16",
+                                "flash_bwd_dkv_bias_f16")))):
+        for padded, expect in zip((False, True), names):
+            ptt.seed(73)
+            with fluid.dygraph.guard(
+                    fluid.CUDAPlace(0) if DEV == "cuda" else
+                    fluid.CPUPlace()):
+                net = api_classifier(ptt, 1, 0.0, max_len=s, width=L_SMALL)
+                opt = fluid.optimizer.AdamOptimizer(
+                    learning_rate=A_LR, parameter_list=net.parameters())
+                rs = np.random.RandomState(s + padded)
+                lens = [s, s - s // 3] if padded else [s, s]
+                ids = rs.randint(1, L_SMALL[0], (2, s)) * \
+                    (np.arange(s)[None] < np.asarray(lens)[:, None])
+                mask = fluid.dygraph.to_variable(
+                    (np.arange(s)[None] < np.asarray(lens)[:, None])
+                    .astype(np.int64)) if padded else None
+                ids = fluid.dygraph.to_variable(ids)
+                labels = fluid.dygraph.to_variable(rs.randint(0, 2, (2,)))
+                with fluid.dygraph.amp_guard(dtype="float16",
+                                             custom_white_list=L_WHITE):
+                    dec = fluid.contrib.mixed_precision.decorate(
+                        opt, init_loss_scaling=L_SCALE)
+                    kernels.reset_launch_counts()
+                    with DenseSpy() as dense:
+                        loss = _l_loss(fluid, net, ids, mask, labels)
+                        dec.minimize(loss)
+                if DEV == "cuda":
+                    torch.cuda.synchronize()
+                c = kernels.launch_counts()
+                c["dense"] = dense.calls
+                _l_expect([c], expect, 1,
+                          f"4l (e) S{s} {'padded' if padded else 'unpadded'}")
+                if not np.isfinite(loss.item()):
+                    fail(f"phase 4l (e) S{s}: non-finite loss {loss.item()}")
+                for k, v in c.items():
+                    if k != "dense":
+                        total[k] = total.get(k, 0) + v
+            torch.cuda.empty_cache() if DEV == "cuda" else None
+    return total
+
+
+def fluid_parity_phase(torch, card):
+    """Phase 4l: a Paddle 1.x user's code through `fluid`, float32 with
+    TF32 off unless stated. (a) the static LeNet card vs CPU; (b) the 1.x
+    dygraph loop at 2 layers, B 2 x S 128 padded, float32 card vs CPU; (c)
+    the same loop under a float16 amp_guard with decorate(2^15) inside it:
+    the card's float16 losses within L_REL of (b)'s float32 CPU losses,
+    only the float16 counters launched, the scale after each step equal to
+    the CPU's under the same guard; (d) decorate(2^40): every step skipped
+    on the card and the CPU, the parameters bitwise unchanged, the scale
+    halved after decr_every_n_nan_or_inf (2) bad steps; (e) the float16
+    loop past the two-pass switch and unpadded. Returns the main path's
+    float16 launches (c)-(e)."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.device import device_guard
+
+    t0 = time.perf_counter()
+    w = l_static_parity(torch, ptt)
+    say(f"phase 4l (a) fluid static LeNet (fluid.layers.conv2d / pool2d / "
+        f"fc / softmax_with_cross_entropy, fluid.optimizer.SGD, "
+        f"fluid.Executor(fluid.CUDAPlace(0))) B32, 3 steps card vs "
+        f"fluid.Executor(fluid.CPUPlace()) from the same weights: loss rel "
+        f"diff {w['loss']:.3g} (limit 1e-4), worst parameter diff "
+        f"{w['param']:.3g} of its magnitude (limit 4.01e-4)")
+    card_place = fluid.CUDAPlace(0) if DEV == "cuda" else fluid.CPUPlace()
+    ptt.seed(67)
+    with device_guard("cpu"):
+        state = {k: v.clone() for k, v in
+                 api_classifier(ptt, 2, 0.0).state_dict().items()}
+    main = {}
+    # (b) float32, card vs CPU
+    lc, _, cc, pc, gc, _, _ = l_dygraph_run(torch, ptt, state, card_place,
+                                            False, 1.0, L_STEPS)
+    lh, _, _, ph, gh, _, _ = l_dygraph_run(torch, ptt, state,
+                                           fluid.CPUPlace(), False, 1.0,
+                                           L_STEPS)
+    _l_expect(cc, FLASH_BIAS, 2, "4l (b)")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(lc, lh))
+    if rel > 1e-4:
+        fail(f"phase 4l (b): losses {lc} vs CPU {lh} (relative {rel:.3g} "
+             f"> 1e-4)")
+    floor = 1e-3 * max(g.abs().max().item() for g in gh.values())
+    grad = max((gc[n] - gh[n]).abs().max().item()
+               / max(gh[n].abs().max().item(), floor) for n in gh)
+    if grad > 1e-3:
+        fail(f"phase 4l (b): a first-step gradient differs by {grad:.3g} "
+             f"of its magnitude (> 1e-3)")
+    limit = 2 * A_LR * L_STEPS + 1e-6
+    param = max((pc[n] - ph[n]).abs().max().item() for n in ph)
+    if param > limit:
+        fail(f"phase 4l (b): parameters differ by {param:.3g} after "
+             f"{L_STEPS} steps (> {limit:.3g})")
+    say(f"phase 4l (b) 1.x dygraph loop (fluid.dygraph.guard, to_variable, "
+        f"AdamOptimizer(parameter_list=...), minimize, clear_gradients) "
+        f"over 4a's classifier, 2 layers, B2 S128 lengths 128/77, float32, "
+        f"{L_STEPS} steps card vs CPU: loss rel diff {rel:.3g} (limit "
+        f"1e-4), first-step gradient diff {grad:.3g} (limit 1e-3), "
+        f"parameter diff {param:.3g} (limit {limit:.3g}); "
+        f"{'/'.join(FLASH_BIAS)} 2 launches each a step")
+    # (c) float16 under the 1.x amp_guard + decorate(2^15); each step's
+    # float16 loss against the float32 loss of the same parameters and
+    # batch on the CPU (a step the scaler skips leaves them unchanged)
+    l16, s16, c16, _, _, sk16, l32 = l_dygraph_run(
+        torch, ptt, state, card_place, True, L_SCALE, L_STEPS, shadow=True)
+    _, sh16, _, _, _, skh16, _ = l_dygraph_run(
+        torch, ptt, state, fluid.CPUPlace(), True, L_SCALE, L_STEPS)
+    _l_expect(c16, L_F16, 2, "4l (c)")
+    rel16 = max(abs(a - b) / abs(b) for a, b in zip(l16, l32))
+    if rel16 > L_REL or not all(np.isfinite(l16)):
+        fail(f"phase 4l (c): float16 losses {l16} vs float32 CPU {l32} "
+             f"(relative {rel16:.3g} > {L_REL})")
+    if s16 != sh16 or sk16 != skh16:
+        fail(f"phase 4l (c): loss scales {s16} on the card, {sh16} on the "
+             f"CPU; skipped steps {sk16} / {skh16}")
+    for c in c16:
+        for k in L_F16:
+            main[k] = main.get(k, 0) + c[k]
+    say(f"phase 4l (c) the same loop under fluid.dygraph.amp_guard(dtype="
+        f"'float16', custom_white_list={L_WHITE}) with "
+        f"fluid.contrib.mixed_precision.decorate(opt, init_loss_scaling="
+        f"2**15) inside it: float16 card losses "
+        f"{' '.join(f'{x:.5f}' for x in l16)} vs float32 CPU on the same "
+        f"parameters {' '.join(f'{x:.5f}' for x in l32)} (worst relative "
+        f"{rel16:.3g}, limit {L_REL}); {'/'.join(L_F16)} 2 launches each a "
+        f"step, every other kernel and the dense path none; loss scale "
+        f"after each step {s16} (CPU {sh16}), steps skipped {sk16} (CPU "
+        f"{skh16})")
+    # (d) an overflowing scale: every step skipped
+    _, so, co, po, _, sko, _ = l_dygraph_run(torch, ptt, state, card_place,
+                                             True, L_OVERFLOW, 2)
+    _, soh, _, poh, _, skoh, _ = l_dygraph_run(
+        torch, ptt, state, fluid.CPUPlace(), True, L_OVERFLOW, 2)
+    want = [L_OVERFLOW, L_OVERFLOW * 0.5]
+    if so != want or soh != want or not all(sko + skoh):
+        fail(f"phase 4l (d): scales {so} (card), {soh} (CPU), expected "
+             f"{want}; skipped {sko} / {skoh}")
+    for side, params in (("card", po), ("CPU", poh)):
+        moved = [n for n in params
+                 if not torch.equal(params[n], state[n].float())]
+        if moved:
+            fail(f"phase 4l (d): {side} parameters moved on a skipped "
+                 f"step: {moved[:3]}")
+    for c in co:
+        for k in L_F16:
+            main[k] = main.get(k, 0) + c[k]
+    say(f"phase 4l (d) decorate(init_loss_scaling=2**40): both steps "
+        f"overflow float16 and are skipped on the card and the CPU, the "
+        f"parameters bitwise unchanged on both; loss scale {so} (card), "
+        f"{soh} (CPU): halved after decr_every_n_nan_or_inf = 2 bad steps")
+    for k, v in l_long_runs(torch, ptt).items():
+        main[k] = main.get(k, 0) + v
+    say(f"phase 4l (e) the float16 loop, 1 layer at head dim 64, one step "
+        f"each at S1024 and S{L_LONG} (past the two-pass switch), unpadded "
+        f"and padded: each float16 instance launched where expected "
+        f"(K4/K6/K9, K4/K6/K7/K8, and their bias variants); "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return main
+
+
+def fluid_train_throughput(torch, n_layers=12, batch_size=16, seq=512,
+                           warm_applied=2, max_warm=12, steps=5,
+                           profiled=2):
+    """Phase 6l: (c)'s 1.x float16 loop at full width: 12 layers of
+    TransformerEncoderLayer(768, 12, 3072), dropout 0.1, B 16 x S 512
+    padded at 6b's lengths, decorate(AdamOptimizer, 2^15) inside the
+    float16 amp_guard; warm-up steps until `warm_applied` updates have
+    been applied (at most `max_warm` steps), then `steps` measured (CUDA
+    events) and a profiled pass for the idle share. The warm-up counts
+    applied updates, not steps: at this width 2^15 and 2^14 overflow
+    float16 (the first layer's attention-projection bias gradients pass
+    65504), so the scaler skips about four steps (two bad steps a
+    halving) before its scale settles, and Adam's first updates spike
+    the loss (6a reads past the same spike): a first card run with 4
+    fixed warm steps put the first update in the measured window (loss
+    0.79 -> 7.47, then 2.54)."""
+    import paddle_tpu_torch as ptt
+    import paddle_tpu_torch.fluid as fluid
+    from paddle_tpu_torch.ops import kernels
+
+    ptt.seed(79)
+    with fluid.dygraph.guard(fluid.CUDAPlace(0) if DEV == "cuda" else
+                             fluid.CPUPlace()):
+        net = api_classifier(ptt, n_layers, 0.1)
+        net.train()
+        opt = fluid.optimizer.AdamOptimizer(
+            learning_rate=A_LR, parameter_list=net.parameters())
+        lens = bert_lengths(batch_size, seq)
+        ids, mask, labels = _l_batch(ptt, fluid, batch_size, seq, lens, 0)
+        with fluid.dygraph.amp_guard(dtype="float16",
+                                     custom_white_list=L_WHITE):
+            dec = fluid.contrib.mixed_precision.decorate(
+                opt, init_loss_scaling=L_SCALE)
+            skipped = []
+
+            def step():
+                loss = _l_loss(fluid, net, ids, mask, labels)
+                dec.minimize(loss)
+                skipped.append(dec._scaler._found_inf)
+                opt.clear_gradients()
+                return loss.detach()
+
+            losses = []
+            while len(losses) < max_warm and \
+                    len(losses) - sum(skipped) < warm_applied:
+                losses.append(step().item())
+            warm = len(losses)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()                    # main path
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            with DenseSpy() as dense:
+                t0 = time.perf_counter()
+                start.record()
+                measured = [step() for _ in range(steps)]
+                end.record()
+                end.synchronize()
+                wall = (time.perf_counter() - t0) / steps
+            counts = kernels.launch_counts()
+            losses += [x.item() for x in measured]
+            ms = start.elapsed_time(end) / steps
+            peak = torch.cuda.max_memory_allocated()
+            busy = profiled_busy(torch,
+                                 lambda: [step() for _ in range(profiled)])
+            scale = dec.get_loss_scaling()
+    return {"losses": losses, "ms_per_step": ms, "wall_ms": wall * 1e3,
+            "tokens_per_sec": batch_size * seq / (ms / 1e3),
+            "real_tokens": int(lens.sum()), "peak": peak, "counts": counts,
+            "dense": dense.calls, "busy_ms": busy / profiled * 1e3,
+            "idle": 1 - busy / profiled / wall, "scale": scale,
+            "warm": warm, "warm_skipped": sum(skipped[:warm]),
+            "skipped": sum(skipped[warm:warm + steps])}
+
+
 def main():
     import torch
 
@@ -10268,60 +10797,66 @@ def main():
             f"rate [{card}]")
         torch.cuda.empty_cache()
 
-    # phase 3b: flash kernels vs plain
+    # phase 3b: flash kernels vs plain; float16 beside bf16 at the main
+    # shape (timed) and a ragged one
     both, bf16 = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    f16 = both + (torch.float16,)
     for b, h, sq, sk, d, causal, timed, dtypes in (
-            (16, 12, 1024, 1024, 64, True, True, both),
-            (2, 4, 1000, 1000, 32, True, False, both),
+            (16, 12, 1024, 1024, 64, True, True, f16),
+            (2, 4, 1000, 1000, 32, True, False, f16),
             (2, 4, 1000, 1000, 32, False, False, both),
             (2, 8, 2048, 2048, 128, True, False, bf16),
             (2, 4, 384, 256, 64, True, False, bf16)):  # dead rows
         for dtype in dtypes:
+            t16 = timed and dtype != torch.float32
             r = flash_case(torch, timer, b, h, sq, sk, d, causal, dtype,
-                           b * sq + d, timed and dtype == torch.bfloat16)
-            if timed and dtype == torch.bfloat16:
+                           b * sq + d, t16)
+            if t16:
                 rows.update(r)
+    f16_ratios("3b", FLASH, rows, card)
     torch.cuda.empty_cache()
 
     # phase 3c: per-key-bias flash kernels vs plain
-    for b, h, sq, sk, d, causal, kind in (
-            (16, 16, 512, 512, 64, False, "lengths"),
-            (2, 4, 300, 300, 32, True, "lengths"),
-            (2, 4, 256, 384, 64, False, "lengths"),
-            (2, 4, 256, 256, 64, False, "broadcast"),
-            (2, 4, 256, 256, 32, False, "dead_row"),
-            (2, 4, 256, 256, 32, True, "dead_row")):
-        for dtype in (torch.bfloat16, torch.float32):
-            timed = b == 16 and dtype == torch.bfloat16
+    for b, h, sq, sk, d, causal, kind, dtypes in (
+            (16, 16, 512, 512, 64, False, "lengths", f16),
+            (2, 4, 300, 300, 32, True, "lengths", f16),
+            (2, 4, 256, 384, 64, False, "lengths", both),
+            (2, 4, 256, 256, 64, False, "broadcast", both),
+            (2, 4, 256, 256, 32, False, "dead_row", both),
+            (2, 4, 256, 256, 32, True, "dead_row", both)):
+        for dtype in dtypes:
+            timed = b == 16 and dtype != torch.float32
             r = bias_flash_case(torch, timer, b, h, sq, sk, d, causal, kind,
                                 dtype, b * sq + sk + d, timed)
             if timed:
                 rows.update(r)
+    f16_ratios("3c", ("flash_fwd_bias", "flash_bwd_bias"), rows, card)
     torch.cuda.empty_cache()
 
     # phase 3d: the two-pass backward (K7, K8, bias variants) vs plain
     for b, h, sq, sk, d, causal, kind, dtypes, external in (
-            (16, 12, 1024, 1024, 64, True, None, both, False),      # (a)
+            (16, 12, 1024, 1024, 64, True, None, f16, False),       # (a)
             (1, 2, 16384, 16384, 64, True, None, bf16, False),      # (b)
-            (2, 4, 1000, 1000, 32, True, None, both, False),        # (c)
+            (2, 4, 1000, 1000, 32, True, None, f16, False),         # (c)
             (2, 4, 1000, 1000, 32, False, None, both, False),
             (2, 4, 256, 384, 64, False, None, both, False),         # (d)
             (2, 4, 600, 100, 64, True, None, both, False),  # dead rows
             (2, 8, 2048, 2048, 128, True, None, bf16, False),       # D 128
             (2, 4, 256, 256, 64, False, None, both, True),          # (e)
-            (16, 16, 512, 512, 64, False, "lengths", both, False),  # (f)
-            (2, 4, 300, 300, 32, True, "lengths", both, False),
+            (16, 16, 512, 512, 64, False, "lengths", f16, False),   # (f)
+            (2, 4, 300, 300, 32, True, "lengths", f16, False),
             (2, 4, 256, 384, 64, False, "lengths", both, False),
             (2, 4, 256, 256, 64, False, "broadcast", both, False),
             (2, 4, 256, 256, 32, False, "dead_row", both, False),
             (2, 4, 256, 256, 32, True, "dead_row", both, False)):
         for dtype in dtypes:
-            timed = b == 16 and dtype == torch.bfloat16
+            timed = b == 16 and dtype != torch.float32
             r = two_pass_case(torch, timer, b, h, sq, sk, d, causal, kind,
                               dtype, b * sq + sk + d, timed, external)
             if timed:
                 rows.update(r)
         torch.cuda.empty_cache()
+    f16_ratios("3d", TWO_PASS[2:] + TWO_PASS_BIAS[2:], rows, card)
     # (f) phase 6c's padded batch, its mask and per-row bias, at H 2
     two_pass_case(torch, timer, 2, 2, 16384, 16384, 64, True, "lengths",
                   torch.bfloat16, 7, False, lengths=(16384, 10240))
@@ -10487,6 +11022,13 @@ def main():
     # phase 4q: paddle.slim — quantization card vs CPU (codes, PTQ with
     # fuse_conv_bn over a 1.x reader, QAT steps) and text.viterbi_decode
     quant_parity_phase(torch, card)
+    torch.cuda.empty_cache()
+
+    # phase 4l: a Paddle 1.x user's code through `fluid` — the static
+    # LeNet, the dygraph loop in float32, then in float16 under amp_guard
+    # with decorate's loss scaling (its float16 launches join the kernels
+    # line)
+    f16_counts = fluid_parity_phase(torch, card)
     torch.cuda.empty_cache()
 
     # phase 4e: long-context training parity past the switch, card vs CPU.
@@ -10873,12 +11415,14 @@ def main():
     # attention's op name added to custom_white_list (bf16 attention);
     # their K4 bias / K6 / K9 bias launches join the kernels line
     steps = 5
+    a_rows = {}
     for tag, white in (("(a) O1", None),
                        ("(b) O1 + custom_white_list="
                         "['scaled_dot_product_attention']",
                         ["scaled_dot_product_attention"])):
         t0 = time.perf_counter()
         tr = api_train_throughput(torch, steps=steps, white=white)
+        a_rows[tag[:3]] = tr
         losses = tr["losses"]
         if not all(np.isfinite(losses)):
             fail(f"phase 6a {tag}: non-finite loss {losses}")
@@ -10908,6 +11452,52 @@ def main():
             f"(profiler), idle share {tr['idle']:.3f}; "
             f"{time.perf_counter() - t0:.1f} s [{card}]")
     del tr
+    torch.cuda.empty_cache()
+
+    # phase 6l: phase 4l (c)'s 1.x float16 loop at full width, beside 6a
+    # (b)'s bf16 step of this call (its float16 launches join the kernels
+    # line)
+    t0 = time.perf_counter()
+    steps = 5
+    tr = fluid_train_throughput(torch, steps=steps)
+    losses = tr["losses"]
+    if not np.isfinite(losses[-1]):
+        fail(f"phase 6l: non-finite last loss {losses}")
+    first = losses[tr["warm"]]  # the measured steps
+    if not losses[-1] < first:
+        fail(f"phase 6l: loss did not fall over the measured steps "
+             f"({first} -> {losses[-1]})")
+    for n in L_F16:
+        if tr["counts"][n] != 12 * steps:
+            fail(f"phase 6l: {n} launched {tr['counts'][n]} times in "
+                 f"{steps} steps, expected {12 * steps}")
+    other = {n: v for n, v in tr["counts"].items() if v and n not in L_F16}
+    if other or tr["dense"]:
+        fail(f"phase 6l: other kernels ran ({other}) or the dense path "
+             f"({tr['dense']})")
+    for n in L_F16:
+        f16_counts[n] = f16_counts.get(n, 0) + tr["counts"][n]
+    b16 = a_rows["(b)"]
+    say(f"phase 6l 1.x float16 loop (fluid.dygraph.amp_guard(dtype="
+        f"'float16', custom_white_list={L_WHITE}) + mixed_precision."
+        f"decorate(AdamOptimizer, init_loss_scaling=2**15)) over 6a's "
+        f"classifier, 12 layers, B16 S512 (padded; {tr['real_tokens']} real "
+        f"tokens a step), dropout 0.1: tokens_per_sec "
+        f"{tr['tokens_per_sec']:.1f} ms_per_step {tr['ms_per_step']:.2f} "
+        f"(host {tr['wall_ms']:.2f}) max_memory_allocated "
+        f"{tr['peak'] / 2**20:.0f} MiB losses "
+        f"{' '.join(f'{x:.4f}' for x in losses)} ({tr['warm']} warm steps "
+        f"to 2 applied updates, {tr['warm_skipped']} skipped); loss scale "
+        f"{tr['scale']:.0f}, steps skipped {tr['skipped']} of {steps} "
+        f"measured; launches "
+        f"{ {n: tr['counts'][n] for n in L_F16} }, every other kernel and "
+        f"the dense path none; device busy {tr['busy_ms']:.2f} ms a step "
+        f"(profiler), idle share {tr['idle']:.3f}; 6a (b)'s bf16 step in "
+        f"this call {b16['ms_per_step']:.2f} ms ({b16['tokens_per_sec']:.1f}"
+        f" tokens/s), float16 / bf16 "
+        f"{tr['ms_per_step'] / b16['ms_per_step']:.3f}x; "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    del tr, a_rows
     torch.cuda.empty_cache()
 
     # phases 4i and 6i: the static graph, jit.save and the inference
@@ -11126,6 +11716,25 @@ def main():
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": FLASH_REPLACES[name],
                     "launches": main_counts[name],
+                    "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"]})
+    # the float16 instances (csrc/flash_fwd_sm90.cu, flash_bwd_sm90.cu,
+    # flash_bwd_dq_sm90.cu and K6 in flash_attention.cu on __half):
+    # 3b-3d's timed rows, launched by phases 4l and 6l (the 1.x float16
+    # loop)
+    for name in FLASH + ("flash_fwd_bias", "flash_bwd_bias") + \
+            TWO_PASS[2:] + TWO_PASS_BIAS[2:]:
+        r = rows[name + "_f16"]
+        n = f16_counts.get(name + "_f16", 0)
+        if n <= 0:
+            fail(f"{name}_f16 was not launched on the main path")
+        src = (DQ_SOURCE if "_bwd_dq" in name else
+               FWD_SOURCE if name.startswith("flash_fwd") else
+               BWD_SOURCE if name.startswith("flash_bwd") else FLASH_SOURCE)
+        out.append({"name": name + "_f16", "route": "cuda", "source": src,
+                    "replaces": FLASH_REPLACES[name], "launches": n,
                     "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                     "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                     "bound_by": r["bound_by"],

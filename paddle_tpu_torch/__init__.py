@@ -66,6 +66,11 @@ through the port's kernels; `enable_static`, `paddle.data` and
 exported program with the weights in the reference's npz) and
 `inference.create_predictor` (one CUDA graph a set of input shapes).
 
+Then `fluid`, the 1.x namespace over the static graph (its module
+docstring has the map), with `create_parameter`, `create_global_var`
+and `fill_constant` at the top as the reference binds them; and
+float16 in the flash kernels (`ops.kernels`).
+
 This package imports `torch` and numpy only — never `jax` and nothing
 of `paddle_tpu`. Entry points run on CUDA unless the caller passes
 `device="cpu"` or calls `set_device("cpu")` (see
@@ -96,7 +101,7 @@ _LAZY_MODULES = ("nn", "ops", "amp", "optimizer", "linalg", "tensor",
                  "io", "metric", "hapi", "framework", "distribution",
                  "regularizer", "compat", "callbacks", "vision", "utils",
                  "dataset", "reader", "text", "slim", "incubate", "onnx",
-                 "version", "sysconfig", "static")
+                 "version", "sysconfig", "static", "fluid")
 # name -> (module, attribute): the high-level API's names
 _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "save": ("framework.io", "save"),
@@ -108,6 +113,9 @@ _LAZY_NAMES = {"Model": ("hapi.model", "Model"),
                "DataParallel": ("distributed.parallel", "DataParallel"),
                "batch": ("reader", "batch"),
                "data": ("static.program", "data"),
+               "create_parameter": ("fluid.layers", "create_parameter"),
+               "create_global_var": ("fluid.layers", "create_global_var"),
+               "fill_constant": ("fluid.layers", "fill_constant"),
                "commit": ("version", "commit"),
                "full_version": ("version", "full_version"),
                "__version__": ("version", "full_version")}

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cstdint>
 
 namespace pt {
@@ -14,6 +15,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f(int8_t x) {
   return static_cast<float>(x);
 }
@@ -26,6 +28,10 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <>
+__device__ __forceinline__ __half from_f<__half>(float x) {
+  return __float2half_rn(x);  // +-inf past float16's range
+}
 
 // Four consecutive elements as float (one 16-, 8- or 4-byte load; the
 // caller keeps the element offset a multiple of 4 and the base aligned).
@@ -36,6 +42,12 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   uint2 u = *reinterpret_cast<const uint2*>(p);
   float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.x));
   float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  uint2 u = *reinterpret_cast<const uint2*>(p);
+  float2 a = __half22float2(*reinterpret_cast<__half2*>(&u.x));
+  float2 b = __half22float2(*reinterpret_cast<__half2*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
 }
 __device__ __forceinline__ float4 load4(const int8_t* p) {

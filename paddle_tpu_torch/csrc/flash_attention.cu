@@ -56,12 +56,13 @@
 //   FLOPs (~0.065 ms there): operations. K6 reads o and dO once: bytes.
 //   The bias adds B * Sk floats to read (and BH * Sk to write in K9).
 //
-// K4 and K9 in bfloat16 are not here: `fwd` sends K4 to flash_fwd_sm90.cu
-// and `bwd` sends K9 to flash_bwd_sm90.cu, Hopper kernels whose products
-// run on the tensor cores (wgmma) fed by TMA through an mbarrier ring —
-// the SIMT kernels below ran them as float32 FMAs, 36-41x their bounds at
-// GPT-2-small shapes. In bf16 `bwd` then runs `scale_cast_kernel` on the
-// workspace as in float32. K4 and K9 in float32 stay these SIMT kernels:
+// K4 and K9 in bfloat16 and float16 are not here: `fwd` sends K4 to
+// flash_fwd_sm90.cu and `bwd` sends K9 to flash_bwd_sm90.cu, Hopper
+// kernels whose products run on the tensor cores (wgmma) fed by TMA
+// through an mbarrier ring — the SIMT kernels below ran them as float32
+// FMAs, 36-41x their bounds at GPT-2-small shapes. In 16 bits `bwd` then
+// runs `scale_cast_kernel` on the workspace as in float32. K6 takes all
+// three dtypes here. K4 and K9 in float32 stay these SIMT kernels:
 // TF32 tensor-core products keep ~3 digits and would break the float32
 // parity of training. What the SIMT design does (float32 products, no
 // tensor cores, so they run far from their bounds):
@@ -234,7 +235,8 @@ flash_fwd_kernel(T* __restrict__ out, float* __restrict__ lse,
 constexpr int kDeltaThreads = 256;
 constexpr int kDeltaGroups = 2;  // row groups a warp loads before it sums
 
-// The dot of two 16-byte chunks (4 float32 or 8 bf16), in element order.
+// The dot of two 16-byte chunks (4 float32, or 8 bf16 or float16), in
+// element order.
 template <typename T>
 __device__ __forceinline__ float dot16(const uint4& a, const uint4& b);
 template <>
@@ -247,18 +249,23 @@ __device__ __forceinline__ float dot16<float>(const uint4& a,
   acc = fmaf(x.z, y.z, acc);
   return fmaf(x.w, y.w, acc);
 }
-template <>
-__device__ __forceinline__ float dot16<__nv_bfloat16>(const uint4& a,
-                                                      const uint4& b) {
+
+// A pair of 16-bit elements as float2.
+__device__ __forceinline__ float2 pair_f(const uint32_t& w, __nv_bfloat16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+__device__ __forceinline__ float2 pair_f(const uint32_t& w, __half) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&w));
+}
+template <typename T>
+__device__ __forceinline__ float dot16(const uint4& a, const uint4& b) {
   const uint32_t wa[4] = {a.x, a.y, a.z, a.w};
   const uint32_t wb[4] = {b.x, b.y, b.z, b.w};
   float acc = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const float2 x =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
-    const float2 y =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    const float2 x = pair_f(wa[i], T{});
+    const float2 y = pair_f(wb[i], T{});
     acc = fmaf(x.x, y.x, acc);
     acc = fmaf(x.y, y.y, acc);
   }
@@ -419,7 +426,8 @@ int fwd(void* out, float* lse, const void* q, const void* k, const void* v,
         int bias_bstride, float scale, int causal, int dtype,
         cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  if (dtype == 1) return fwd_sm90(out, lse, q, k, v, bias, BH, D, sh, st);
+  if (dtype == kDtypeBf16 || dtype == kDtypeHalf)
+    return fwd_sm90(out, lse, q, k, v, bias, BH, D, dtype, sh, st);
   cudaError_t e;  // float32: the SIMT kernel
   if (dtype == 0 && D == 32)
     e = launch_fwd<float, 32>(out, lse, q, k, v, bias, BH, sh, st);
@@ -443,12 +451,15 @@ int bwd(void* dq, void* dk, void* dv, float* dq_ws, float* dbias,
         int Sq, int Sk, int D, int bias_bstride, float scale, int causal,
         int dtype, cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  if (dtype == 1) {  // bfloat16: the tensor-core kernel, then the cast
+  if (dtype == kDtypeBf16 || dtype == kDtypeHalf) {
+    // 16 bits: the tensor-core kernel, then the cast
     const int e = bwd_sm90(dk, dv, dq_ws, dbias, q, k, v, dout, lse, dl,
-                           bias, BH, D, sh, st);
+                           bias, BH, D, dtype, sh, st);
     if (e != 0) return e;
     return static_cast<int>(
-        launch_scale_cast<__nv_bfloat16>(dq, dq_ws, BH, D, sh, st));
+        dtype == kDtypeHalf
+            ? launch_scale_cast<__half>(dq, dq_ws, BH, D, sh, st)
+            : launch_scale_cast<__nv_bfloat16>(dq, dq_ws, BH, D, sh, st));
   }
   cudaError_t e;  // float32: the SIMT kernel
   if (dtype == 0 && D == 32)

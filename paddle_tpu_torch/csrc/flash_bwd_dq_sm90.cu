@@ -1,19 +1,20 @@
-// K7 and K7 bias in bfloat16 on Hopper's tensor cores (sm_90a): the dq
-// pass of the two-pass flash backward of
+// K7 and K7 bias in bfloat16 and float16 on Hopper's tensor cores (sm_90a;
+// the element type T a template parameter): the dq pass of the two-pass
+// flash backward of
 // paddle_tpu/ops/pallas/flash_attention.py `_flash_bwd` (pallas_call at
 // :580, body `_bwd_dq_kernel` with `_tile_p_ds`, and its `has_bias`
-// variant), reached from flash_bwd_two_pass.cu's `bwd_dq` for bf16
+// variant), reached from flash_bwd_two_pass.cu's `bwd_dq` for 16-bit
 // tensors. The contract is `tile_p_ds`'s (flash_common.cuh) and the SIMT
-// K7's: dq = scale * sum_j ds_ij k_j, [BH, Sq, D] bf16, with p = exp(s *
+// K7's: dq = scale * sum_j ds_ij k_j, [BH, Sq, D] in T, with p = exp(s *
 // scale + bias - lse) from the LSE it is given (never renormalised: ring
 // attention passes a global LSE), bottom-right causal alignment, dq = 0
 // for a dead row (causal, Sq > Sk), p = 1 / (keys it sees) for a fully
 // masked row (lse <= -1e29), the bias row (bh / H) * bias_bstride read in
 // place (0: one row broadcast over the batch), any Sq, Sk >= 1, D in {32,
-// 64, 128}. As the reference's `ds.astype(k.dtype)`, ds is rounded to
-// bf16 before it enters dS.K; p and ds are formed as the bf16 K9 forms
-// them (flash_bwd_sm90.cu: the same `fast_exp2`, `masked_p` and order of
-// operations), so the two hold the same bf16 dS up to the rounding of
+// 64, 128}. As the reference's `ds.astype(k.dtype)`, ds is rounded to T
+// before it enters dS.K; p and ds are formed as the 16-bit K9 forms them
+// (flash_bwd_sm90.cu: the same `fast_exp2`, `masked_p` and order of
+// operations), so the two hold the same rounded dS up to the rounding of
 // their S products. The float32 K7 stays the SIMT `flash_bwd_dq_kernel`
 // of flash_bwd_two_pass.cu: TF32 products would not hold float32 parity.
 //
@@ -39,7 +40,7 @@
 //   * Per key tile a consumer issues S = Q.K^T and dP = dO.V^T as two
 //     wgmma groups (both operands K-major in shared memory), forms p from
 //     S while dP is in flight, then ds = p * (dp - delta) in float32,
-//     packed to bf16 A fragments, and dQ += dS.K as a wgmma with dS in
+//     packed to A fragments in T, and dQ += dS.K as a wgmma with dS in
 //     registers and K MN-major through the transpose-B flag: K4's
 //     `issue_s` and `issue_pv` (flash_sm90.cuh) with dO, V and K in place
 //     of Q, K and V. Issuing tile t's S and dP beside tile t - 1's dQ
@@ -58,7 +59,7 @@
 //     dead row takes no gradient, so it needs no key). A block or a
 //     consumer with no key tile still writes its zeros.
 //   * dq stays in float32 registers and is written once, scaled and cast
-//     to bf16, without atomics: each block owns its dq rows and sums the
+//     to T, without atomics: each block owns its dq rows and sums the
 //     key tiles in one order, so dq is bitwise reproducible.
 //   * Branches around wgmma are warp-uniform (the role comes from a
 //     shuffle): under a branch the compiler cannot prove uniform, it
@@ -89,13 +90,13 @@ struct DqTiles : Boxes<D> {
   static_assert(kSmem <= 232448, "more shared memory than a block has");
 };
 
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kTileThreads, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                          const __grid_constant__ CUtensorMap domap,
                          const __grid_constant__ CUtensorMap kmap,
                          const __grid_constant__ CUtensorMap vmap,
-                         __nv_bfloat16* __restrict__ dq,
+                         T* __restrict__ dq,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          const float* __restrict__ bias, Shape sh) {
@@ -229,8 +230,8 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_wait(full(s), (t / G::kStages) & 1);
       float sc[BK / 2], dp[BK / 2];
       sm90::wgmma_fence();
-      issue_s<D, BK>(sc, qw_s, ks);
-      issue_s<D, BK>(dp, dow_s, v_s + s * G::kKVBytes);
+      issue_s<T, D, BK>(sc, qw_s, ks);
+      issue_s<T, D, BK>(dp, dow_s, v_s + s * G::kKVBytes);
       sm90::wgmma_wait<1>();  // S is in; dP runs on
       sm90::fence_regs(sc);
 
@@ -269,7 +270,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         }
       }
 
-      // dS = P * (dP - delta), in sc, as bf16 A fragments (a dead row
+      // dS = P * (dP - delta), in sc, as A fragments in T (a dead row
       // takes none)
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dp);
@@ -279,11 +280,11 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         sc[i] = special && code[r] < 0.f ? 0.f : sc[i] * (dp[i] - dl[r]);
       }
       uint32_t dsa[BK / 16][4];
-      pack_p(dsa, sc);
+      pack_p<T>(dsa, sc);
 
       // dQ += dS.K
       sm90::wgmma_fence();
-      issue_pv<D, BK>(dqa, dsa, ks);
+      issue_pv<T, D, BK>(dqa, dsa, ks);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(dqa);
       sm90::fence_regs(dsa);  // the fragments stay live until it is done
@@ -295,73 +296,83 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_arrive(empty(s));
     }
 
-    // epilogue: dq * scale in bf16; rows past Sq are never written
+    // epilogue: dq * scale in T; rows past Sq are never written
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = r0 + 8 * r;
       if (row >= sh.Sq) continue;
-      __nv_bfloat16* orow =
-          dq + (static_cast<int64_t>(bh) * sh.Sq + row) * D + cq;
+      T* orow = dq + (static_cast<int64_t>(bh) * sh.Sq + row) * D + cq;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-            __floats2bfloat162_rn(dqa[4 * j + 2 * r] * sh.scale,
-                                  dqa[4 * j + 2 * r + 1] * sh.scale);
+        sm90::store2(orow + 8 * j, dqa[4 * j + 2 * r] * sh.scale,
+                     dqa[4 * j + 2 * r + 1] * sh.scale);
     }
   }
 }
 
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 cudaError_t launch_dq_sm90(void* dq, const void* q, const void* k,
                            const void* v, const void* dout, const float* lse,
                            const float* delta, const float* bias, int BH,
                            Shape sh, cudaStream_t st) {
   using G = DqTiles<D>;
   CUtensorMap qm, dom, km, vm;
-  if (!sm90::make_map_3d(&qm, q, BH, sh.Sq, D, kTileQ, G::kBox) ||
-      !sm90::make_map_3d(&dom, dout, BH, sh.Sq, D, kTileQ, G::kBox) ||
-      !sm90::make_map_3d(&km, k, BH, sh.Sk, D, G::kKeys, G::kBox) ||
-      !sm90::make_map_3d(&vm, v, BH, sh.Sk, D, G::kKeys, G::kBox))
+  if (!sm90::make_map_3d<T>(&qm, q, BH, sh.Sq, D, kTileQ, G::kBox) ||
+      !sm90::make_map_3d<T>(&dom, dout, BH, sh.Sq, D, kTileQ, G::kBox) ||
+      !sm90::make_map_3d<T>(&km, k, BH, sh.Sk, D, G::kKeys, G::kBox) ||
+      !sm90::make_map_3d<T>(&vm, v, BH, sh.Sk, D, G::kKeys, G::kBox))
     return cudaErrorInvalidValue;
-  auto kern = flash_bwd_dq_sm90_kernel<D, HasBias>;
+  auto kern = flash_bwd_dq_sm90_kernel<T, D, HasBias>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid(BH, (sh.Sq + kTileQ - 1) / kTileQ);
   kern<<<grid, kTileThreads, G::kSmem, st>>>(
-      qm, dom, km, vm, static_cast<__nv_bfloat16*>(dq), lse, delta, bias,
-      sh);
+      qm, dom, km, vm, static_cast<T*>(dq), lse, delta, bias, sh);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int bwd_dq_sm90_as(void* dq, const void* q, const void* k, const void* v,
                    const void* dout, const float* lse, const float* delta,
                    const float* bias, int BH, Shape sh, cudaStream_t st) {
   return static_cast<int>(
-      bias ? launch_dq_sm90<D, true>(dq, q, k, v, dout, lse, delta, bias, BH,
-                                     sh, st)
-           : launch_dq_sm90<D, false>(dq, q, k, v, dout, lse, delta, bias,
-                                      BH, sh, st));
+      bias ? launch_dq_sm90<T, D, true>(dq, q, k, v, dout, lse, delta, bias,
+                                        BH, sh, st)
+           : launch_dq_sm90<T, D, false>(dq, q, k, v, dout, lse, delta, bias,
+                                         BH, sh, st));
+}
+
+template <typename T>
+int bwd_dq_sm90_t(void* dq, const void* q, const void* k, const void* v,
+                  const void* dout, const float* lse, const float* delta,
+                  const float* bias, int BH, int D, Shape sh,
+                  cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return bwd_dq_sm90_as<T, 32>(dq, q, k, v, dout, lse, delta, bias, BH,
+                                   sh, st);
+    case 64:
+      return bwd_dq_sm90_as<T, 64>(dq, q, k, v, dout, lse, delta, bias, BH,
+                                   sh, st);
+    case 128:
+      return bwd_dq_sm90_as<T, 128>(dq, q, k, v, dout, lse, delta, bias, BH,
+                                    sh, st);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 int bwd_dq_sm90(void* dq, const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
-                const float* bias, int BH, int D, Shape sh, cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return bwd_dq_sm90_as<32>(dq, q, k, v, dout, lse, delta, bias, BH, sh,
-                                st);
-    case 64:
-      return bwd_dq_sm90_as<64>(dq, q, k, v, dout, lse, delta, bias, BH, sh,
-                                st);
-    case 128:
-      return bwd_dq_sm90_as<128>(dq, q, k, v, dout, lse, delta, bias, BH, sh,
-                                 st);
-    default: return -1;
-  }
+                const float* bias, int BH, int D, int dtype, Shape sh,
+                cudaStream_t st) {
+  if (dtype == kDtypeHalf)
+    return bwd_dq_sm90_t<__half>(dq, q, k, v, dout, lse, delta, bias, BH, D,
+                                 sh, st);
+  return bwd_dq_sm90_t<__nv_bfloat16>(dq, q, k, v, dout, lse, delta, bias,
+                                      BH, D, sh, st);
 }
 
 }  // namespace flash

@@ -1,6 +1,7 @@
-// K9 and K9 bias, and K8 and K8 bias, in bfloat16 on Hopper's tensor cores
-// (sm_90a): one key-tile body, templated on WithDq as the SIMT
-// `bwd_key_tile<..., WithDq>` of flash_common.cuh is.
+// K9 and K9 bias, and K8 and K8 bias, in bfloat16 and float16 on Hopper's
+// tensor cores (sm_90a): one key-tile body, templated on the element type
+// T and on WithDq as the SIMT `bwd_key_tile<..., WithDq>` of
+// flash_common.cuh is.
 //   K9 `flash_bwd_sm90_kernel` (WithDq) <- the fused flash backward of
 //      paddle_tpu/ops/pallas/flash_attention.py `_flash_bwd_fused`
 //      (pallas_call at :534, body `_bwd_fused_kernel`, and its `has_bias`
@@ -19,7 +20,11 @@
 // the column sums of ds in float32 before any rounding, written once
 // without atomics; any Sq, Sk >= 1, D in {32, 64, 128}. As the reference's
 // `_tile_p_ds` (`p.astype(do.dtype)`, `ds.astype(k.dtype)`), p and ds are
-// rounded to bf16 before they enter the products. K9's dq is summed
+// rounded to T before they enter the products. In float16 dbias sums the
+// rounded ds, as the reference's `ds.astype(jnp.float32)` column sums do,
+// so a ds past float16's range (under a loss scale) gives +-inf there as
+// it does in dq and dk; bf16, whose range is float32's, sums ds before
+// its rounding (ROADMAP §C 7). K9's dq is summed
 // across key tiles into the zeroed float32 workspace dq_ws, which
 // flash_attention.cu's `scale_cast_kernel` then scales and casts. The
 // float32 K9 and K8 stay the SIMT kernels of flash_attention.cu and
@@ -55,11 +60,11 @@
 //     consumer's registers as the A operand of the next ones: S^T = K.Q^T
 //     and dP^T = V.dO^T are wgmma m64n64k16 with both operands K-major in
 //     shared memory; dV += P^T.dO and dK += dS^T.Q are wgmma with P^T and
-//     dS^T (bf16) in registers and dO and Q MN-major through transpose-B.
+//     dS^T (in T) in registers and dO and Q MN-major through transpose-B.
 //     In this layout a thread's rows are keys (the bias is a per-row
 //     value) and its columns queries (LSE and delta per column); dbias
 //     is a row sum, reduced across the four lanes of a quad at the end.
-//   * K9's dQ = dS.K: each consumer stores its dS^T, as bf16, into shared
+//   * K9's dQ = dS.K: each consumer stores its dS^T, in T, into shared
 //     memory as dS [q, key] in the 128-byte swizzled K-major layout that
 //     a wgmma descriptor reads (two buffers, by tile parity: the other
 //     consumer may still be reading the last tile's); after a named
@@ -114,7 +119,7 @@ struct BwdTiles {
   static constexpr int kKVBytes = kBwdBK * D * 2;  // the K (or V) tile
   static constexpr int kQBytes = kBwdBQ * D * 2;   // one Q (or dO) tile
   // K, V, the Q stages, the dO stages, and with dq two buffers of dS [64
-  // q x 128 keys] bf16 (tile n in buffer n % 2), each two 64-key boxes
+  // q x 128 keys] in T (tile n in buffer n % 2), each two 64-key boxes
   // (128-byte swizzle), and the float32 dQ tile [64, D]; then the staged
   // rows (per stage: -LSE in log2 units, delta and the row code, 64
   // floats each, then a flag), then the barriers: kv, full[], empty[]
@@ -135,14 +140,14 @@ struct BwdTiles {
 // Issues acc = A.B^T for a consumer's 64 keys against one 64-row tile
 // (S^T = K.Q^T, dP^T = V.dO^T): a_s its rows of the K or V boxes, b_s the
 // stage's Q or dO boxes, both K-major; one wgmma group.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_kq(float (&acc)[32], uint32_t a_s,
                                          uint32_t b_s) {
   using G = BwdTiles<D, true>;  // the layout of a tile is the same in K8
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const int b = kk * 16 / G::kBox, c = kk * 16 % G::kBox;
-    sm90::wgmma_ss_m64n64(
+    sm90::wgmma_ss_m64n64<T>(
         acc,
         sm90::wgmma_desc(a_s + b * kBwdBK * G::kSwizzle + 2 * c, 16,
                          8 * G::kSwizzle, G::kSwizzle),
@@ -154,16 +159,16 @@ __device__ __forceinline__ void issue_kq(float (&acc)[32], uint32_t a_s,
 }
 
 // acc += A.B over the tile's 64 q rows (dV += P^T.dO, dK += dS^T.Q): A the
-// bf16 fragments of the 4 q steps, b_s the stage's dO or Q boxes read
+// T fragments of the 4 q steps, b_s the stage's dO or Q boxes read
 // MN-major. Not committed: the caller groups it.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
                                           const uint32_t (&a)[4][4],
                                           uint32_t b_s) {
   using G = BwdTiles<D, true>;
 #pragma unroll
   for (int kk = 0; kk < kBwdBQ / 16; ++kk)
-    sm90::wgmma_rs_tb<D>(
+    sm90::wgmma_rs_tb<D, T>(
         acc, a[kk],
         sm90::wgmma_desc(b_s + kk * 16 * G::kSwizzle, kBwdBQ * G::kSwizzle,
                          8 * G::kSwizzle, G::kSwizzle));
@@ -174,7 +179,7 @@ __device__ __forceinline__ void issue_acc(float (&acc)[D / 2],
 // (transpose-B) from column wg * D / 2 (an offset inside a swizzled box
 // at D <= 64: the hardware swizzles the address, as it does for the
 // K-major steps inside a box). One wgmma group.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void issue_dq(float (&acc)[D / 4], uint32_t ds_s,
                                          uint32_t k_s, int wg) {
   using G = BwdTiles<D, true>;
@@ -183,7 +188,7 @@ __device__ __forceinline__ void issue_dq(float (&acc)[D / 4], uint32_t ds_s,
                       2 * (col % G::kBox);
 #pragma unroll
   for (int kk = 0; kk < kBwdBK / 16; ++kk)
-    sm90::wgmma_ss_tb<D / 2>(
+    sm90::wgmma_ss_tb<D / 2, T>(
         acc,
         sm90::wgmma_desc(ds_s + (kk / 4) * kBwdBQ * 128 + 32 * (kk % 4), 16,
                          8 * 128, 128),
@@ -206,12 +211,12 @@ __device__ __forceinline__ int swizzled_f32(int row, int col) {
 // The body of K9 (WithDq: dq_ws and its map dqmap) and K8 (without): one
 // block's key tile. The maps are the kernel's __grid_constant__
 // parameters, passed by reference so that TMA reads them in place.
-template <int D, bool HasBias, bool WithDq>
+template <typename T, int D, bool HasBias, bool WithDq>
 __device__ __forceinline__ void bwd_sm90_block(
     const CUtensorMap& qmap, const CUtensorMap& kmap,
     const CUtensorMap& vmap, const CUtensorMap& domap,
-    const CUtensorMap* dqmap, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, float* __restrict__ dbias,
+    const CUtensorMap* dqmap, T* __restrict__ dk, T* __restrict__ dv,
+    float* __restrict__ dbias,
     const float* __restrict__ lse, const float* __restrict__ delta,
     const float* __restrict__ bias, const Shape& sh) {
   using G = BwdTiles<D, WithDq>;
@@ -370,8 +375,8 @@ __device__ __forceinline__ void bwd_sm90_block(
       sm90::mbar_wait(full(s), (n / G::kStages) & 1);
       float st[32], dpt[32];
       sm90::wgmma_fence();
-      issue_kq<D>(st, kw_s, q_st(s));
-      issue_kq<D>(dpt, vw_s, do_st(s));
+      issue_kq<T, D>(st, kw_s, q_st(s));
+      issue_kq<T, D>(dpt, vw_s, do_st(s));
       sm90::wgmma_wait<1>();  // S^T is in; dP^T runs on
       sm90::fence_regs(st);
 
@@ -381,7 +386,7 @@ __device__ __forceinline__ void bwd_sm90_block(
       // bias or LSE gives p = 0)
       const bool special = reinterpret_cast<const int*>(r)[3 * kBwdBQ] != 0;
       const bool diagonal = sh.causal && kc0 + 63 > q0 + sh.off;
-      // P^T, kept in st in float32 and as bf16 A fragments in pa
+      // P^T, kept in st in float32 and as A fragments in T in pa
       uint32_t pa[4][4], dsa[4][4];
       if (!special) {
 #pragma unroll
@@ -395,7 +400,7 @@ __device__ __forceinline__ void bwd_sm90_block(
             if (lag > 0) st[i] = 0.f;
             if (lag > 1) st[i + 1] = 0.f;
           }
-          pa[i / 8][(i % 8) / 2] = sm90::pack_bf16(st[i], st[i + 1]);
+          pa[i / 8][(i % 8) / 2] = sm90::pack2<T>(st[i], st[i + 1]);
         }
       } else {
 #pragma unroll
@@ -406,12 +411,12 @@ __device__ __forceinline__ void bwd_sm90_block(
             st[i + e] = masked_p(sh, q0 + c + e, kc0 + rl + 8 * h,
                                  fmaf(st[i + e], scale2, r[c + e]) + b2[h],
                                  r[2 * kBwdBQ + c + e]);
-          pa[i / 8][(i % 8) / 2] = sm90::pack_bf16(st[i], st[i + 1]);
+          pa[i / 8][(i % 8) / 2] = sm90::pack2<T>(st[i], st[i + 1]);
         }
       }
       // dV += P^T.dO runs while dS^T is formed
       sm90::wgmma_fence();
-      issue_acc<D>(dv_acc, pa, do_st(s));
+      issue_acc<T, D>(dv_acc, pa, do_st(s));
       sm90::wgmma_commit();
       sm90::wgmma_wait<1>();  // dP^T is in
       sm90::fence_regs(dpt);
@@ -425,8 +430,15 @@ __device__ __forceinline__ void bwd_sm90_block(
           if (r[2 * kBwdBQ + c] < 0.f) ds0 = 0.f;
           if (r[2 * kBwdBQ + c + 1] < 0.f) ds1 = 0.f;
         }
-        if (HasBias) db[h] += ds0 + ds1;
-        const uint32_t d2 = sm90::pack_bf16(ds0, ds1);
+        const uint32_t d2 = sm90::pack2<T>(ds0, ds1);
+        if constexpr (HasBias) {
+          if constexpr (sm90::kIsHalf<T>) {
+            const float2 r2 = sm90::unpack2<T>(d2);  // the rounded ds
+            db[h] += r2.x + r2.y;
+          } else {
+            db[h] += ds0 + ds1;
+          }
+        }
         dsa[i / 8][(i % 8) / 2] = d2;
         if constexpr (WithDq) {
           *reinterpret_cast<uint16_t*>(ds_at[h][0] + dsb + 1024 * (i / 4)) =
@@ -438,7 +450,7 @@ __device__ __forceinline__ void bwd_sm90_block(
 
       // dK += dS^T.Q
       sm90::wgmma_fence();
-      issue_acc<D>(dk_acc, dsa, q_st(s));
+      issue_acc<T, D>(dk_acc, dsa, q_st(s));
       sm90::wgmma_commit();
       if constexpr (!WithDq) {
         sm90::wgmma_wait<0>();  // dV and dK are in
@@ -459,7 +471,7 @@ __device__ __forceinline__ void bwd_sm90_block(
         sm90::named_sync(1, kBwdConsumers);
         float dq_acc[D / 4];
         sm90::wgmma_fence();
-        issue_dq<D>(dq_acc, base + G::kDS + dsb, k_s, wg);
+        issue_dq<T, D>(dq_acc, base + G::kDS + dsb, k_s, wg);
         sm90::wgmma_wait<1>();  // dV and dK are in
         sm90::fence_regs(dv_acc);
         sm90::fence_regs(dk_acc);
@@ -496,7 +508,7 @@ __device__ __forceinline__ void bwd_sm90_block(
     // done
     if (WithDq && issuer) sm90::bulk_wait();
 
-    // epilogue: dk * scale and dv in bf16, dbias (the quad's row sums);
+    // epilogue: dk * scale and dv in T, dbias (the quad's row sums);
     // keys past Sk are never written
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -508,12 +520,10 @@ __device__ __forceinline__ void bwd_sm90_block(
       const int64_t o = (static_cast<int64_t>(bh) * sh.Sk + j) * D + cq;
 #pragma unroll
       for (int jj = 0; jj < D / 8; ++jj) {
-        *reinterpret_cast<__nv_bfloat162*>(dk + o + 8 * jj) =
-            __floats2bfloat162_rn(dk_acc[4 * jj + 2 * h] * sh.scale,
-                                  dk_acc[4 * jj + 2 * h + 1] * sh.scale);
-        *reinterpret_cast<__nv_bfloat162*>(dv + o + 8 * jj) =
-            __floats2bfloat162_rn(dv_acc[4 * jj + 2 * h],
-                                  dv_acc[4 * jj + 2 * h + 1]);
+        sm90::store2(dk + o + 8 * jj, dk_acc[4 * jj + 2 * h] * sh.scale,
+                     dk_acc[4 * jj + 2 * h + 1] * sh.scale);
+        sm90::store2(dv + o + 8 * jj, dv_acc[4 * jj + 2 * h],
+                     dv_acc[4 * jj + 2 * h + 1]);
       }
       if (HasBias && lane % 4 == 0)
         dbias[static_cast<int64_t>(bh) * sh.Sk + j] = b;
@@ -522,43 +532,41 @@ __device__ __forceinline__ void bwd_sm90_block(
 }
 
 // K9: dk, dv, dbias and dq (into dq_ws through dqmap).
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap domap,
                       const __grid_constant__ CUtensorMap dqmap,
-                      __nv_bfloat16* __restrict__ dk,
-                      __nv_bfloat16* __restrict__ dv,
+                      T* __restrict__ dk, T* __restrict__ dv,
                       float* __restrict__ dbias,
                       const float* __restrict__ lse,
                       const float* __restrict__ delta,
                       const float* __restrict__ bias, Shape sh) {
-  bwd_sm90_block<D, HasBias, true>(qmap, kmap, vmap, domap, &dqmap, dk, dv,
-                                   dbias, lse, delta, bias, sh);
+  bwd_sm90_block<T, D, HasBias, true>(qmap, kmap, vmap, domap, &dqmap, dk,
+                                      dv, dbias, lse, delta, bias, sh);
 }
 
 // K8: dk, dv and dbias.
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                           const __grid_constant__ CUtensorMap kmap,
                           const __grid_constant__ CUtensorMap vmap,
                           const __grid_constant__ CUtensorMap domap,
-                          __nv_bfloat16* __restrict__ dk,
-                          __nv_bfloat16* __restrict__ dv,
+                          T* __restrict__ dk, T* __restrict__ dv,
                           float* __restrict__ dbias,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta,
                           const float* __restrict__ bias, Shape sh) {
-  bwd_sm90_block<D, HasBias, false>(qmap, kmap, vmap, domap, nullptr, dk,
-                                    dv, dbias, lse, delta, bias, sh);
+  bwd_sm90_block<T, D, HasBias, false>(qmap, kmap, vmap, domap, nullptr,
+                                       dk, dv, dbias, lse, delta, bias, sh);
 }
 
 // Launches K9 (dq_ws given) or K8 (dq_ws null) with a per-key bias when
 // bias is not null.
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 cudaError_t launch_bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias,
                             const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
@@ -566,10 +574,10 @@ cudaError_t launch_bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias,
                             Shape sh, cudaStream_t st) {
   using G = BwdTiles<D, true>;
   CUtensorMap qm, km, vm, dom, dqm;
-  if (!sm90::make_map_3d(&qm, q, BH, sh.Sq, D, kBwdBQ, G::kBox) ||
-      !sm90::make_map_3d(&dom, dout, BH, sh.Sq, D, kBwdBQ, G::kBox) ||
-      !sm90::make_map_3d(&km, k, BH, sh.Sk, D, kBwdBK, G::kBox) ||
-      !sm90::make_map_3d(&vm, v, BH, sh.Sk, D, kBwdBK, G::kBox) ||
+  if (!sm90::make_map_3d<T>(&qm, q, BH, sh.Sq, D, kBwdBQ, G::kBox) ||
+      !sm90::make_map_3d<T>(&dom, dout, BH, sh.Sq, D, kBwdBQ, G::kBox) ||
+      !sm90::make_map_3d<T>(&km, k, BH, sh.Sk, D, kBwdBK, G::kBox) ||
+      !sm90::make_map_3d<T>(&vm, v, BH, sh.Sk, D, kBwdBK, G::kBox) ||
       (dq_ws && !sm90::make_map_3d_f32(&dqm, dq_ws, BH, sh.Sq, D, kBwdBQ,
                                        D / 2 < 32 ? D / 2 : 32)))
     return cudaErrorInvalidValue;
@@ -577,11 +585,11 @@ cudaError_t launch_bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias,
       static_cast<int64_t>(BH) * ((sh.Sk + kBwdBK - 1) / kBwdBK);
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   const unsigned grid = static_cast<unsigned>(blocks);
-  auto* dk_ = static_cast<__nv_bfloat16*>(dk);
-  auto* dv_ = static_cast<__nv_bfloat16*>(dv);
+  auto* dk_ = static_cast<T*>(dk);
+  auto* dv_ = static_cast<T*>(dv);
   cudaError_t e;
   if (dq_ws) {
-    auto kern = flash_bwd_sm90_kernel<D, HasBias>;
+    auto kern = flash_bwd_sm90_kernel<T, D, HasBias>;
     constexpr int smem = BwdTiles<D, true>::kSmem;
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -589,7 +597,7 @@ cudaError_t launch_bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias,
     kern<<<grid, kBwdThreads, smem, st>>>(qm, km, vm, dom, dqm, dk_, dv_,
                                           dbias, lse, delta, bias, sh);
   } else {
-    auto kern = flash_bwd_dkv_sm90_kernel<D, HasBias>;
+    auto kern = flash_bwd_dkv_sm90_kernel<T, D, HasBias>;
     constexpr int smem = BwdTiles<D, false>::kSmem;
     e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -600,16 +608,36 @@ cudaError_t launch_bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias,
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int bwd_sm90_as(void* dk, void* dv, float* dq_ws, float* dbias,
                 const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
                 const float* bias, int BH, Shape sh, cudaStream_t st) {
   return static_cast<int>(
-      bias ? launch_bwd_sm90<D, true>(dk, dv, dq_ws, dbias, q, k, v, dout,
-                                      lse, delta, bias, BH, sh, st)
-           : launch_bwd_sm90<D, false>(dk, dv, dq_ws, dbias, q, k, v, dout,
-                                       lse, delta, bias, BH, sh, st));
+      bias ? launch_bwd_sm90<T, D, true>(dk, dv, dq_ws, dbias, q, k, v, dout,
+                                         lse, delta, bias, BH, sh, st)
+           : launch_bwd_sm90<T, D, false>(dk, dv, dq_ws, dbias, q, k, v,
+                                          dout, lse, delta, bias, BH, sh,
+                                          st));
+}
+
+template <typename T>
+int bwd_sm90_t(void* dk, void* dv, float* dq_ws, float* dbias,
+               const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, const float* bias,
+               int BH, int D, Shape sh, cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return bwd_sm90_as<T, 32>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
+                                delta, bias, BH, sh, st);
+    case 64:
+      return bwd_sm90_as<T, 64>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
+                                delta, bias, BH, sh, st);
+    case 128:
+      return bwd_sm90_as<T, 128>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
+                                 delta, bias, BH, sh, st);
+    default: return -1;
+  }
 }
 
 }  // namespace
@@ -617,27 +645,20 @@ int bwd_sm90_as(void* dk, void* dv, float* dq_ws, float* dbias,
 int bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias, const void* q,
              const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, const float* bias,
-             int BH, int D, Shape sh, cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return bwd_sm90_as<32>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
-                             delta, bias, BH, sh, st);
-    case 64:
-      return bwd_sm90_as<64>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
-                             delta, bias, BH, sh, st);
-    case 128:
-      return bwd_sm90_as<128>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
-                              delta, bias, BH, sh, st);
-    default: return -1;
-  }
+             int BH, int D, int dtype, Shape sh, cudaStream_t st) {
+  if (dtype == kDtypeHalf)
+    return bwd_sm90_t<__half>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
+                              delta, bias, BH, D, sh, st);
+  return bwd_sm90_t<__nv_bfloat16>(dk, dv, dq_ws, dbias, q, k, v, dout, lse,
+                                   delta, bias, BH, D, sh, st);
 }
 
 int bwd_dkv_sm90(void* dk, void* dv, float* dbias, const void* q,
                  const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, const float* bias,
-                 int BH, int D, Shape sh, cudaStream_t st) {
+                 int BH, int D, int dtype, Shape sh, cudaStream_t st) {
   return bwd_sm90(dk, dv, nullptr, dbias, q, k, v, dout, lse, delta, bias,
-                  BH, D, sh, st);
+                  BH, D, dtype, sh, st);
 }
 
 }  // namespace flash

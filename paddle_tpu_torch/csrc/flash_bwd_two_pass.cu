@@ -4,7 +4,8 @@
 // the backward the reference takes for long sequences (`_fa_bwd` and
 // `_fab_bwd` once sq * d * 10 > 8 MB; ring attention calls it on every
 // ring block), in two kernels (their float32 SIMT forms here; in bfloat16
-// the entries below send both to tensor-core kernels of their own units):
+// and float16 the entries below send both to tensor-core kernels of their
+// own units):
 //   K7 `flash_bwd_dq_kernel`  <- `_bwd_dq_kernel` (pallas_call at :580):
 //      dq = scale * sum_j ds_ij k_j, written in q's dtype;
 //   K8 `flash_bwd_dkv_kernel` <- `_bwd_dkv_kernel` (pallas_call at :615):
@@ -33,14 +34,14 @@
 //     once, key tiles streamed up to the causal horizon of the tile's last
 //     row (a dead row, which sees no key, takes no gradient); dq sums in
 //     float32 registers and is written once as dq * scale — no workspace
-//     and no second cast kernel. In bfloat16 `bwd_dq` sends it to
+//     and no second cast kernel. In bf16 and float16 `bwd_dq` sends it to
 //     flash_bwd_dq_sm90.cu's `flash_bwd_dq_sm90_kernel`, K4's tensor-core
 //     loop (wgmma products, TMA loads through an mbarrier ring) with dS.K
 //     in place of P.V. In float32 it is `flash_bwd_dq_kernel` here, in
 //     SIMT products as the float32 K4 and K9: one block per (64-row q
 //     tile, bh).
-//   * K8 is K9 without its dq. In bfloat16 `bwd_dkv` sends it to
-//     flash_bwd_sm90.cu's `flash_bwd_dkv_sm90_kernel`, the bf16 K9's
+//   * K8 is K9 without its dq. In bf16 and float16 `bwd_dkv` sends it to
+//     flash_bwd_sm90.cu's `flash_bwd_dkv_sm90_kernel`, the 16-bit K9's
 //     tensor-core body (wgmma products, TMA loads through an mbarrier
 //     ring) without its dQ path. In float32 it is the SIMT K9 without its
 //     dq atomics (`bwd_key_tile<float, D, HasBias, false>`): one block per
@@ -49,8 +50,8 @@
 //     dbias column sums stay in registers and are written once.
 //   * Every output element is owned by one block and summed in one fixed
 //     order, so K7 and K8 are bitwise reproducible from run to run (K9's
-//     dq, summed with atomics or bulk reductions, is not), and the bf16
-//     K8's dk, dv and dbias equal the bf16 K9's bit for bit.
+//     dq, summed with atomics or bulk reductions, is not), and the 16-bit
+//     K8's dk, dv and dbias equal the 16-bit K9's bit for bit.
 
 #include "flash_common.cuh"
 
@@ -223,8 +224,9 @@ int bwd_dq(void* dq, const void* q, const void* k, const void* v,
            int bias_bstride, float scale, int causal, int dtype,
            cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  if (dtype == 1)  // bfloat16: the tensor-core kernel of flash_bwd_dq_sm90.cu
-    return bwd_dq_sm90(dq, q, k, v, dout, lse, dl, bias, BH, D, sh, st);
+  if (dtype == kDtypeBf16 || dtype == kDtypeHalf)  // flash_bwd_dq_sm90.cu
+    return bwd_dq_sm90(dq, q, k, v, dout, lse, dl, bias, BH, D, dtype, sh,
+                       st);
   cudaError_t e;  // float32: the SIMT kernel
   if (dtype == 0 && D == 32)
     e = launch_dq<float, 32>(dq, q, k, v, dout, lse, dl, bias, BH, sh, st);
@@ -243,9 +245,9 @@ int bwd_dkv(void* dk, void* dv, float* dbias, const void* q, const void* k,
             int D, int bias_bstride, float scale, int causal, int dtype,
             cudaStream_t st) {
   const Shape sh = make_shape(Sq, Sk, causal, scale, H, bias_bstride);
-  if (dtype == 1)  // bfloat16: the tensor-core kernel of flash_bwd_sm90.cu
+  if (dtype == kDtypeBf16 || dtype == kDtypeHalf)  // flash_bwd_sm90.cu
     return bwd_dkv_sm90(dk, dv, dbias, q, k, v, dout, lse, dl, bias, BH, D,
-                        sh, st);
+                        dtype, sh, st);
   cudaError_t e;  // float32: the SIMT kernel
   if (dtype == 0 && D == 32)
     e = launch_dkv<float, 32>(dk, dv, dbias, q, k, v, dout, lse, dl, bias,

@@ -1,15 +1,17 @@
 // What the flash-attention kernels share: the tile geometry, the shape and
 // masking rules, the tile loader, the backward's tile math (`tile_p_ds`),
 // the body of the SIMT key-tile backward (K9 with dq, K8 without), the
-// host entries of the bf16 tensor-core kernels and the (dtype, D)
-// dispatch of the C entry points. flash_attention.cu (K4, K6, K9) and
-// flash_bwd_two_pass.cu (K7, K8) include it, and through flash_sm90.cuh
-// flash_fwd_sm90.cu (K4 in bf16), flash_bwd_sm90.cu (K9 and K8 in bf16)
-// and flash_bwd_dq_sm90.cu (K7 in bf16); each compiles in its own nvcc
-// process. See flash_attention.cu for the masking semantics.
+// host entries of the 16-bit (bf16 and float16) tensor-core kernels and
+// the (dtype, D) dispatch of the C entry points. flash_attention.cu (K4,
+// K6, K9) and flash_bwd_two_pass.cu (K7, K8) include it, and through
+// flash_sm90.cuh flash_fwd_sm90.cu (K4 in bf16 and float16),
+// flash_bwd_sm90.cu (K9 and K8) and flash_bwd_dq_sm90.cu (K7); each
+// compiles in its own nvcc process. See flash_attention.cu for the
+// masking semantics.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cmath>
 #include <cstdint>
@@ -25,6 +27,8 @@ constexpr int kBK = 64;        // keys per tile
 constexpr int kTR = kBQ / 16;  // score rows per thread
 constexpr int kTC = kBK / 16;  // score columns per thread
 constexpr int kPP = kBK + 1;   // pitch of the score tiles in shared memory
+// The dtype codes of the C entry points (ops/kernels.py DTYPE_CODES).
+constexpr int kDtypeFloat = 0, kDtypeBf16 = 1, kDtypeHalf = 2;
 // A row's LSE at or below this marks it fully masked.
 constexpr float kMaskedLse = -1e29f;
 
@@ -347,14 +351,15 @@ cudaError_t launch_tiles(Kernel kern, int floats, int tiles, int BH,
   return cudaSuccess;
 }
 
-// K4 (bias with a non-null bias) in bfloat16 on the tensor cores
-// (flash_fwd_sm90.cu). Returns a cudaError_t value, or -1 for a D other
-// than 32, 64 or 128.
+// K4 (bias with a non-null bias) on the tensor cores (flash_fwd_sm90.cu)
+// in bfloat16, or float16 when dtype is kDtypeHalf (the same for the
+// entries below). Returns a cudaError_t value, or -1 for a D other than
+// 32, 64 or 128.
 int fwd_sm90(void* out, float* lse, const void* q, const void* k,
-             const void* v, const float* bias, int BH, int D, Shape sh,
-             cudaStream_t st);
+             const void* v, const float* bias, int BH, int D, int dtype,
+             Shape sh, cudaStream_t st);
 
-// K9 (bias with a non-null bias) in bfloat16 on the tensor cores
+// K9 (bias with a non-null bias) on the tensor cores
 // (flash_bwd_sm90.cu): dk, dv, dbias, and dq summed into the zeroed
 // float32 workspace dq_ws (unscaled); a null dq_ws launches K8 instead
 // (`bwd_dkv_sm90`). Returns a cudaError_t value, or -1 for a D other than
@@ -362,25 +367,28 @@ int fwd_sm90(void* out, float* lse, const void* q, const void* k,
 int bwd_sm90(void* dk, void* dv, float* dq_ws, float* dbias, const void* q,
              const void* k, const void* v, const void* dout,
              const float* lse, const float* delta, const float* bias,
-             int BH, int D, Shape sh, cudaStream_t st);
+             int BH, int D, int dtype, Shape sh, cudaStream_t st);
 
-// K8 (bias with a non-null bias) in bfloat16 on the tensor cores
+// K8 (bias with a non-null bias) on the tensor cores
 // (flash_bwd_sm90.cu): K9's body without its dq, writing dk, dv and dbias.
 // Returns a cudaError_t value, or -1 for a D other than 32, 64 or 128.
 int bwd_dkv_sm90(void* dk, void* dv, float* dbias, const void* q,
                  const void* k, const void* v, const void* dout,
                  const float* lse, const float* delta, const float* bias,
-                 int BH, int D, Shape sh, cudaStream_t st);
+                 int BH, int D, int dtype, Shape sh, cudaStream_t st);
 
-// K7 (bias with a non-null bias) in bfloat16 on the tensor cores
-// (flash_bwd_dq_sm90.cu): dq = scale * dS.K, written once in bf16.
+// K7 (bias with a non-null bias) on the tensor cores
+// (flash_bwd_dq_sm90.cu): dq = scale * dS.K, written once in the inputs'
+// dtype.
 // Returns a cudaError_t value, or -1 for a D other than 32, 64 or 128.
 int bwd_dq_sm90(void* dq, const void* q, const void* k, const void* v,
                 const void* dout, const float* lse, const float* delta,
-                const float* bias, int BH, int D, Shape sh, cudaStream_t st);
+                const float* bias, int BH, int D, int dtype, Shape sh,
+                cudaStream_t st);
 
-// dtype: 0 = float32, 1 = bfloat16. Returns -1 for an unsupported
-// (dtype, D) pair; the Python wrapper checks both before calling.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16. Returns -1 for an
+// unsupported (dtype, D) pair; the Python wrapper checks both before
+// calling.
 #define PT_FLASH_DISPATCH(LAUNCH, ...)                                 \
   do {                                                                 \
     cudaError_t e;                                                     \
@@ -394,6 +402,12 @@ int bwd_dq_sm90(void* dq, const void* q, const void* k, const void* v,
       e = LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);                      \
     else if (dtype == 1 && D == 128)                                   \
       e = LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__);                     \
+    else if (dtype == 2 && D == 32)                                    \
+      e = LAUNCH<__half, 32>(__VA_ARGS__);                             \
+    else if (dtype == 2 && D == 64)                                    \
+      e = LAUNCH<__half, 64>(__VA_ARGS__);                             \
+    else if (dtype == 2 && D == 128)                                   \
+      e = LAUNCH<__half, 128>(__VA_ARGS__);                            \
     else                                                               \
       return -1;                                                       \
     return static_cast<int>(e);                                        \

@@ -1,7 +1,8 @@
-// K4 and K4 bias in bfloat16 on Hopper's tensor cores (sm_90a): the
-// forward with LSE of paddle_tpu/ops/pallas/flash_attention.py
-// `_flash_fwd_lse` (body `_fwd_kernel`, and its `has_bias` variant), with
-// the contract of flash_attention.cu's K4 — out [BH, Sq, D] bf16, lse
+// K4 and K4 bias in bfloat16 and float16 on Hopper's tensor cores
+// (sm_90a; the element type T a template parameter): the forward with LSE
+// of paddle_tpu/ops/pallas/flash_attention.py `_flash_fwd_lse` (body
+// `_fwd_kernel`, and its `has_bias` variant), with the contract of
+// flash_attention.cu's K4 — out [BH, Sq, D] in T, lse
 // [BH, Sq] float32 in natural-log units, bottom-right causal alignment,
 // the bias row (bh / H) * bias_bstride read in place, dead rows averaging
 // every value, fully masked rows uniform with an LSE of -1e30, any Sq,
@@ -22,7 +23,7 @@
 //     stage), and the warpgroup hands its registers to warpgroups 1 and 2,
 //     the consumers, which own 64 q rows each.
 //   * S = Q.K^T is wgmma m64n128k16 with both operands K-major in shared
-//     memory; O += P.V is wgmma m64nDk16 with P (bf16, as the reference's
+//     memory; O += P.V is wgmma m64nDk16 with P (in T, as the reference's
 //     `p.astype(v.dtype)`) in registers and V MN-major through the
 //     transpose-B flag (`issue_s`, `issue_pv` of flash_sm90.cuh, which K7
 //     shares). A consumer issues S of tile t together with P.V of
@@ -143,12 +144,12 @@ __device__ __forceinline__ bool masked_tile(const Shape& sh, int k0,
          (sh.causal && k0 + kTileK - 1 > qw0 + sh.off);
 }
 
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 __global__ void __launch_bounds__(kTileThreads, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
-                      __nv_bfloat16* __restrict__ out,
+                      T* __restrict__ out,
                       float* __restrict__ lse,
                       const float* __restrict__ bias, Shape sh) {
   using G = FwdTiles<D>;
@@ -249,7 +250,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float sc[64];
-    uint32_t pa[8][4];  // P of the previous tile: bf16 A fragments
+    uint32_t pa[8][4];  // P of the previous tile: A fragments in T
     const uint32_t qw_s = q_s + 64 * wg * G::kSwizzle;
     sm90::mbar_wait(q_bar, 0);
 
@@ -258,20 +259,20 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     if (wend > 0) {  // tile 0: S alone
       sm90::mbar_wait(full(0), 0);
       sm90::wgmma_fence();
-      issue_s<D>(sc, qw_s, k_s);
+      issue_s<T, D>(sc, qw_s, k_s);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
       softmax_tile<HasBias>(sc, m, l, alpha, bias_s, 0, r0, cq,
                             masked_tile(sh, 0, qw0), scale2, sh);
-      pack_p(pa, sc);
+      pack_p<T>(pa, sc);
     }
     for (int t = 1; t < wend; ++t) {
       const int s = t % kFwdStages, sp = (t - 1) % kFwdStages;
       const int k0 = t * kTileK;
       sm90::mbar_wait(full(s), (t / kFwdStages) & 1);
       sm90::wgmma_fence();
-      issue_s<D>(sc, qw_s, k_s + s * G::kKVBytes);
-      issue_pv<D>(o, pa, v_s + sp * G::kKVBytes);
+      issue_s<T, D>(sc, qw_s, k_s + s * G::kKVBytes);
+      issue_pv<T, D>(o, pa, v_s + sp * G::kKVBytes);
       sm90::wgmma_wait<1>();  // S of tile t is in
       sm90::fence_regs(sc);
       softmax_tile<HasBias>(sc, m, l, alpha, bias_s + s * kTileK, k0, r0,
@@ -282,12 +283,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_arrive(empty(sp));
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
-      pack_p(pa, sc);
+      pack_p<T>(pa, sc);
     }
     if (wend > 0) {  // the last tile's P.V
       const int sp = (wend - 1) % kFwdStages;
       sm90::wgmma_fence();
-      issue_pv<D>(o, pa, v_s + sp * G::kKVBytes);
+      issue_pv<T, D>(o, pa, v_s + sp * G::kKVBytes);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
       sm90::mbar_arrive(empty(sp));
@@ -298,7 +299,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       sm90::mbar_arrive(empty(s));
     }
 
-    // epilogue: O = acc / l in bf16 and lse = (m + log2 l) ln 2; rows past
+    // epilogue: O = acc / l in T and lse = (m + log2 l) ln 2; rows past
     // Sq are never written
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -308,13 +309,11 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       const int row = r0 + 8 * r;
       if (wend == 0 || row >= sh.Sq) continue;
       const float inv = 1.f / fmaxf(lt, 1e-30f);
-      __nv_bfloat16* orow =
-          out + (static_cast<int64_t>(bh) * sh.Sq + row) * D + cq;
+      T* orow = out + (static_cast<int64_t>(bh) * sh.Sq + row) * D + cq;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j) =
-            __floats2bfloat162_rn(o[4 * j + 2 * r] * inv,
-                                  o[4 * j + 2 * r + 1] * inv);
+        sm90::store2(orow + 8 * j, o[4 * j + 2 * r] * inv,
+                     o[4 * j + 2 * r + 1] * inv);
       if (lane % 4 == 0)
         lse[static_cast<int64_t>(bh) * sh.Sq + row] =
             (m[r] + log2f(lt)) * kLn2;
@@ -322,47 +321,57 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-template <int D, bool HasBias>
+template <typename T, int D, bool HasBias>
 cudaError_t launch_fwd_sm90(void* out, float* lse, const void* q,
                             const void* k, const void* v, const float* bias,
                             int BH, Shape sh, cudaStream_t st) {
   using G = FwdTiles<D>;
   CUtensorMap qm, km, vm;
-  if (!sm90::make_map_3d(&qm, q, BH, sh.Sq, D, kTileQ, G::kBox) ||
-      !sm90::make_map_3d(&km, k, BH, sh.Sk, D, kTileK, G::kBox) ||
-      !sm90::make_map_3d(&vm, v, BH, sh.Sk, D, kTileK, G::kBox))
+  if (!sm90::make_map_3d<T>(&qm, q, BH, sh.Sq, D, kTileQ, G::kBox) ||
+      !sm90::make_map_3d<T>(&km, k, BH, sh.Sk, D, kTileK, G::kBox) ||
+      !sm90::make_map_3d<T>(&vm, v, BH, sh.Sk, D, kTileK, G::kBox))
     return cudaErrorInvalidValue;
-  auto kern = flash_fwd_sm90_kernel<D, HasBias>;
+  auto kern = flash_fwd_sm90_kernel<T, D, HasBias>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::kSmem);
   if (e != cudaSuccess) return e;
   const dim3 grid(BH, (sh.Sq + kTileQ - 1) / kTileQ);
   kern<<<grid, kTileThreads, G::kSmem, st>>>(
-      qm, km, vm, static_cast<__nv_bfloat16*>(out), lse, bias, sh);
+      qm, km, vm, static_cast<T*>(out), lse, bias, sh);
   return cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int fwd_sm90_as(void* out, float* lse, const void* q, const void* k,
                 const void* v, const float* bias, int BH, Shape sh,
                 cudaStream_t st) {
   return static_cast<int>(
-      bias ? launch_fwd_sm90<D, true>(out, lse, q, k, v, bias, BH, sh, st)
-           : launch_fwd_sm90<D, false>(out, lse, q, k, v, bias, BH, sh,
-                                       st));
+      bias ? launch_fwd_sm90<T, D, true>(out, lse, q, k, v, bias, BH, sh, st)
+           : launch_fwd_sm90<T, D, false>(out, lse, q, k, v, bias, BH, sh,
+                                          st));
+}
+
+template <typename T>
+int fwd_sm90_t(void* out, float* lse, const void* q, const void* k,
+               const void* v, const float* bias, int BH, int D, Shape sh,
+               cudaStream_t st) {
+  switch (D) {
+    case 32: return fwd_sm90_as<T, 32>(out, lse, q, k, v, bias, BH, sh, st);
+    case 64: return fwd_sm90_as<T, 64>(out, lse, q, k, v, bias, BH, sh, st);
+    case 128:
+      return fwd_sm90_as<T, 128>(out, lse, q, k, v, bias, BH, sh, st);
+    default: return -1;
+  }
 }
 
 }  // namespace
 
 int fwd_sm90(void* out, float* lse, const void* q, const void* k,
-             const void* v, const float* bias, int BH, int D, Shape sh,
-             cudaStream_t st) {
-  switch (D) {
-    case 32: return fwd_sm90_as<32>(out, lse, q, k, v, bias, BH, sh, st);
-    case 64: return fwd_sm90_as<64>(out, lse, q, k, v, bias, BH, sh, st);
-    case 128: return fwd_sm90_as<128>(out, lse, q, k, v, bias, BH, sh, st);
-    default: return -1;
-  }
+             const void* v, const float* bias, int BH, int D, int dtype,
+             Shape sh, cudaStream_t st) {
+  if (dtype == kDtypeHalf)
+    return fwd_sm90_t<__half>(out, lse, q, k, v, bias, BH, D, sh, st);
+  return fwd_sm90_t<__nv_bfloat16>(out, lse, q, k, v, bias, BH, D, sh, st);
 }
 
 }  // namespace flash

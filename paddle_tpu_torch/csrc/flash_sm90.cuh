@@ -1,13 +1,14 @@
-// What the bf16 flash kernels on Hopper share beside the tile machinery of
+// What the 16-bit flash kernels on Hopper (bf16 and float16: the element
+// type T a template parameter of each) share beside the tile machinery of
 // sm90_tile.cuh: the geometry of a block that owns a 128-row q tile (K4 in
 // flash_fwd_sm90.cu, K7 in flash_bwd_dq_sm90.cu: two consumer warpgroups
 // of 64 rows, key tiles streamed through a ring), the TMA box and swizzle
 // constants of a [rows, D] bf16 tile, the two products of such a block
 // (`issue_s`: A.B^T of a consumer's 64 rows against a key tile, both
-// K-major; `issue_pv`: A.B with A the bf16 fragments of an accumulator
+// K-major; `issue_pv`: A.B with A the T fragments of an accumulator
 // (`pack_p`) and B a key tile read MN-major), and the backward's
 // exponential and mask rules (`fast_exp2`, `masked_p`), which K7 shares
-// with K9 and K8 (flash_bwd_sm90.cu) so that their bf16 p and ds agree.
+// with K9 and K8 (flash_bwd_sm90.cu) so that their rounded p and ds agree.
 // The bf16 ragged-stream K1 (ragged_stream_sm90.cu) takes `Boxes`,
 // `issue_s` (over its 64-row tiles), `issue_pv` and `pack_p`.
 #pragma once
@@ -25,7 +26,7 @@ constexpr int kTileConsumers = 256;  // arrivals that empty a stage
 constexpr int kBiasLoaders = 32;     // producer warp 1 stages the bias
 constexpr float kLog2e = 1.4426950408889634f;
 
-// A [rows, D] bf16 tile lands in shared memory as kBoxes TMA boxes of kBox
+// A [rows, D] 16-bit tile lands in shared memory as kBoxes TMA boxes of kBox
 // columns, each swizzled over kSwizzle bytes a row (sm90_tile.cuh).
 template <int D>
 struct Boxes {
@@ -37,7 +38,7 @@ struct Boxes {
 // Issues acc = A.B^T of one key tile for a consumer's 64 rows as one wgmma
 // group: a_s its rows of a QT-row tile's boxes (Q; dO in K7; K1's 64-row
 // tiles), b_s the BK-key tile's boxes (K; V in K7), both K-major.
-template <int D, int BK = kTileK, int QT = kTileQ>
+template <typename T, int D, int BK = kTileK, int QT = kTileQ>
 __device__ __forceinline__ void issue_s(float (&acc)[BK / 2], uint32_t a_s,
                                         uint32_t b_s) {
   using G = Boxes<D>;
@@ -51,39 +52,39 @@ __device__ __forceinline__ void issue_s(float (&acc)[BK / 2], uint32_t a_s,
     const uint64_t db = sm90::wgmma_desc(b_s + b * BK * G::kSwizzle + 2 * c,
                                          16, 8 * G::kSwizzle, G::kSwizzle);
     if constexpr (BK == 128)
-      sm90::wgmma_ss_m64n128(acc, da, db, kk > 0);
+      sm90::wgmma_ss_m64n128<T>(acc, da, db, kk > 0);
     else
-      sm90::wgmma_ss_m64n64(acc, da, db, kk > 0);
+      sm90::wgmma_ss_m64n64<T>(acc, da, db, kk > 0);
   }
   sm90::wgmma_commit();
 }
 
-// Issues o += A.B of one key tile as one wgmma group: A the bf16
+// Issues o += A.B of one key tile as one wgmma group: A the T
 // fragments of its BK / 16 key steps (P in K4, dS in K7), b_s the tile's
 // boxes read MN-major through transpose-B (V in K4, K in K7).
-template <int D, int BK = kTileK>
+template <typename T, int D, int BK = kTileK>
 __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
                                          const uint32_t (&pa)[BK / 16][4],
                                          uint32_t b_s) {
   using G = Boxes<D>;
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
-    sm90::wgmma_rs_tb<D>(
+    sm90::wgmma_rs_tb<D, T>(
         o, pa[kk],
         sm90::wgmma_desc(b_s + kk * 16 * G::kSwizzle, BK * G::kSwizzle,
                          8 * G::kSwizzle, G::kSwizzle));
   sm90::wgmma_commit();
 }
 
-// An m64nN float32 accumulator (M = N / 2 registers a thread) as the bf16
+// An m64nN float32 accumulator (M = N / 2 registers a thread) as the T
 // A fragments of its N / 16 key steps (registers 8k .. 8k+7 packed
-// pairwise: sm90_tile.cuh).
-template <int M>
+// pairwise: sm90_tile.cuh), rounded to nearest.
+template <typename T, int M>
 __device__ __forceinline__ void pack_p(uint32_t (&pa)[M / 8][4],
                                        const float (&sc)[M]) {
 #pragma unroll
   for (int i = 0; i < M; i += 2)
-    pa[i / 8][(i % 8) / 2] = sm90::pack_bf16(sc[i], sc[i + 1]);
+    pa[i / 8][(i % 8) / 2] = sm90::pack2<T>(sc[i], sc[i + 1]);
 }
 
 // 2^x by the special-function unit (2^-inf = 0).

@@ -417,7 +417,7 @@ ragged_stream_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         vt = base + sp.vt;
       }
       sm90::wgmma_fence();
-      flash::issue_s<D, kKeys, kRows>(sc, q_s, kt);
+      flash::issue_s<__nv_bfloat16, D, kKeys, kRows>(sc, q_s, kt);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(sc);
 
@@ -454,9 +454,10 @@ ragged_stream_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       }
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i / 2) % 2];
-      flash::pack_p(pa, sc);  // P in bf16, as the reference's p.astype
+      // P in bf16, as the reference's p.astype
+      flash::pack_p<__nv_bfloat16>(pa, sc);
       sm90::wgmma_fence();
-      flash::issue_pv<D, kKeys>(o, pa, vt);
+      flash::issue_pv<__nv_bfloat16, D, kKeys>(o, pa, vt);
       sm90::wgmma_wait<0>();
       sm90::fence_regs(o);
       sm90::fence_regs(pa);

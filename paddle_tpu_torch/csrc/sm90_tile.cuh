@@ -1,7 +1,8 @@
 // Hopper (sm_90a) tile machinery of the flash kernels: TMA tensor maps and
 // loads, the mbarrier ring that hands tiles from a producer warpgroup to
-// consumer warpgroups, wgmma shared-memory descriptors and the bf16
-// wgmma products with float32 accumulators in registers, and the register
+// consumer warpgroups, wgmma shared-memory descriptors and the bf16 and
+// float16 wgmma products with float32 accumulators in registers (the
+// element type a template parameter, bf16 by default), and the register
 // hand-over between warpgroups (setmaxnreg), named barriers and bulk
 // reductions. K4 (flash_fwd_sm90.cu) and K9 (flash_bwd_sm90.cu) use it;
 // the paged decode kernel K2 (paged_decode_sm90.cu) its pool maps, TMA
@@ -32,8 +33,10 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
+#include <type_traits>
 
 namespace pt {
 namespace sm90 {
@@ -169,10 +172,41 @@ __device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
-// Two floats as one register of two bf16 (the low half is `lo`).
+// Whether the 16-bit element type T is float16 (else bfloat16): the two
+// differ only in the type names of the wgmma strings, the tensor maps and
+// the conversions.
+template <typename T>
+constexpr bool kIsHalf = std::is_same<T, __half>::value;
+
+// Two floats as one register of two T (the low half is `lo`), rounded to
+// nearest; float16 rounds past its range to +-inf.
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kIsHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  return pack2<__nv_bfloat16>(lo, hi);
+}
+
+// The two T of a packed register as floats (x the low half).
+template <typename T>
+__device__ __forceinline__ float2 unpack2(uint32_t u) {
+  if constexpr (kIsHalf<T>)
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  else
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
+}
+
+// Stores two floats as two T at p (4-byte aligned).
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float lo, float hi) {
+  *reinterpret_cast<uint32_t*>(p) = pack2<T>(lo, hi);
 }
 
 // Accumulator layout of m64nN (float32, N / 2 registers a thread): thread t
@@ -182,200 +216,234 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // m64n128 accumulator, packed pairwise, are the A fragment of rows x keys
 // 16k .. 16k+15 for wgmma's register-A form.
 
+// The products below take the element type T of their 16-bit operands
+// (__nv_bfloat16, the default, or __half); the accumulators are float32.
+
 // S = A.B^T: A [64 x 16] and B [128 x 16], both K-major in shared memory
 // (descriptors da, db); accumulate = 0 overwrites d.
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da,
                                                  uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
+#define PT_WGMMA_SS128(AB)                                                \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "        \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "      \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "      \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "      \
+      "%60, %61, %62, %63"                                                \
+      "}, "                                                               \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_SS128("f16");
+  else
+    PT_WGMMA_SS128("bf16");
+#undef PT_WGMMA_SS128
 }
 
-// O += A.B: A [64 x 16] bf16 in registers (the fragment above), B [16 x N]
+// O += A.B: A [64 x 16] in registers (the fragment above), B [16 x N]
 // MN-major in shared memory (transpose-B), N = 32, 64 or 128.
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
-                                            uint64_t db);
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64],
-                                               const uint32_t (&a)[4],
-                                               uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63"
-      "}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                            uint64_t db) {
+  static_assert(N == 32 || N == 64 || N == 128, "N of 32, 64 or 128");
+#define PT_WGMMA_RS32(AB)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "         \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15"                                                \
+      "}, "                                                               \
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15])                                                       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define PT_WGMMA_RS64(AB)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "         \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "      \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                            \
+      "}, "                                                               \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                          \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+#define PT_WGMMA_RS128(AB)                                                \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "        \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "      \
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "      \
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "      \
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "      \
+      "%60, %61, %62, %63"                                                \
+      "}, "                                                               \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                       \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),  \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),  \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),  \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),  \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),  \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),  \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+  if constexpr (N == 32) {
+    if constexpr (kIsHalf<T>)
+      PT_WGMMA_RS32("f16");
+    else
+      PT_WGMMA_RS32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (kIsHalf<T>)
+      PT_WGMMA_RS64("f16");
+    else
+      PT_WGMMA_RS64("bf16");
+  } else {
+    if constexpr (kIsHalf<T>)
+      PT_WGMMA_RS128("f16");
+    else
+      PT_WGMMA_RS128("bf16");
+  }
+#undef PT_WGMMA_RS32
+#undef PT_WGMMA_RS64
+#undef PT_WGMMA_RS128
 }
 
 // S = A.B^T at N 64: A [64 x 16] and B [64 x 16], both K-major in shared
 // memory (the backward's S^T = K.Q^T and dP^T = V.dO^T).
+template <typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t da,
                                                 uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+#define PT_WGMMA_SS64(AB)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "         \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "      \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                            \
+      "}, "                                                               \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                          \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (kIsHalf<T>)
+    PT_WGMMA_SS64("f16");
+  else
+    PT_WGMMA_SS64("bf16");
+#undef PT_WGMMA_SS64
 }
 
 // D = A.B: A [64 x 16] K-major and B [16 x N] MN-major (transpose-B), both
 // in shared memory, N = 16, 32 or 64 (the backward's dQ = dS.K, half of D
 // for each consumer); accumulate = 0 overwrites d.
-template <int N>
+template <int N, typename T = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_tb(float (&d)[N / 2], uint64_t da,
-                                            uint64_t db, int accumulate);
-template <>
-__device__ __forceinline__ void wgmma_ss_tb<16>(float (&d)[8], uint64_t da,
-                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, "
-      "%8, %9, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss_tb<32>(float (&d)[16], uint64_t da,
-                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15"
-      "}, "
-      "%16, %17, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss_tb<64>(float (&d)[32], uint64_t da,
-                                                uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(accumulate));
+                                            uint64_t db, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64, "N of 16, 32 or 64");
+#define PT_WGMMA_TB16(AB)                                               \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"                      \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " "       \
+      "{"                                                               \
+      "%0, %1, %2, %3, %4, %5, %6, %7"                                  \
+      "}, "                                                             \
+      "%8, %9, p, 1, 1, 0, 1;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),     \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                              \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define PT_WGMMA_TB32(AB)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "         \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15"                                                \
+      "}, "                                                               \
+      "%16, %17, p, 1, 1, 0, 1;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15])                                                       \
+      : "l"(da), "l"(db), "r"(accumulate))
+#define PT_WGMMA_TB64(AB)                                                 \
+  asm volatile(                                                           \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                        \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "         \
+      "{"                                                                 \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "                \
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "      \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                            \
+      "}, "                                                               \
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"                                     \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),       \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),       \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),  \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),  \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),  \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),  \
+        "+f"(d[30]), "+f"(d[31])                                          \
+      : "l"(da), "l"(db), "r"(accumulate))
+  if constexpr (N == 16) {
+    if constexpr (kIsHalf<T>)
+      PT_WGMMA_TB16("f16");
+    else
+      PT_WGMMA_TB16("bf16");
+  } else if constexpr (N == 32) {
+    if constexpr (kIsHalf<T>)
+      PT_WGMMA_TB32("f16");
+    else
+      PT_WGMMA_TB32("bf16");
+  } else {
+    if constexpr (kIsHalf<T>)
+      PT_WGMMA_TB64("f16");
+    else
+      PT_WGMMA_TB64("bf16");
+  }
+#undef PT_WGMMA_TB16
+#undef PT_WGMMA_TB32
+#undef PT_WGMMA_TB64
 }
 
 // ---- named barriers, the async proxy, bulk reductions -----------------------
@@ -497,11 +565,15 @@ inline bool make_pool_map(CUtensorMap* map, CUtensorMapDataType type,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// A bf16 map (the flash kernels' q, k, v, dO tiles).
+// A map of 16-bit T, bf16 by default (the flash kernels' q, k, v, dO
+// tiles).
+template <typename T = __nv_bfloat16>
 inline bool make_map_3d(CUtensorMap* map, const void* base, int mats,
                         int rows, int cols, int box_rows, int box_cols) {
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, mats, rows,
-                  cols, box_rows, box_cols);
+  return make_map(map,
+                  kIsHalf<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  2, base, mats, rows, cols, box_rows, box_cols);
 }
 
 // A float32 map (the backward's dq workspace, reduced into).

@@ -9,9 +9,8 @@ Same signatures and layouts as `paddle_tpu.ops.attention`:
     The route is the reference's and depends on the arguments alone.
     Both flash routes need no dropout, no weights, a head dim the
     kernels take (`kernels.DH_SUPPORTED`: 32, 64, 128) and a dtype they
-    take (`kernels.DTYPE_CODES`: float32, bfloat16 — float16 goes to the
-    dense path by this explicit test, a decided difference from the
-    reference, whose kernels take it):
+    take (`kernels.DTYPE_CODES`: float32, bfloat16 and float16, as the
+    reference's gate, which names no dtype):
       - no mask: `flash_attention` (K4 forward, K6 + K9 backward on the
         card, or K6 + K7 + K8 past the reference's length switch,
         `flash_attention.uses_two_pass`);

@@ -61,8 +61,13 @@ those weights, which reach q, k and the bias. Its LSE rounds to -1e30 in
 float32, so the backward marks it by lse <= -1e29 and uses p = 1 / (keys
 it sees); the reference's own Pallas backward recomputes p = 1 there and
 is off by that factor. The plain versions compute in float32 and round
-only their outputs, as the kernels do; dbias is summed in float32 (the
-reference casts ds to k's dtype before its column sums).
+only their outputs; dbias is summed in float32 (the reference casts ds
+to k's dtype before its column sums). In float16 the backward's plain
+versions also round p to dO's dtype and ds to k's dtype before the
+products and the dbias sums, as the reference's `_tile_p_ds` and the
+16-bit kernels do: float16's range makes that rounding observable, and
+a ds past 65504 under a loss scale is +-inf on both, which the loss
+scaler must see.
 """
 from __future__ import annotations
 
@@ -147,7 +152,8 @@ def _p_ds(q, k, v, do, lse, delta, scale, causal, bias):
     [B, H, Sq, Sk] with p = exp(s * scale + bias - lse) from the LSE given
     (never renormalised over these keys) and ds = p * (dO.v - delta), zero
     where masked; a row that sees no key has p = 1/Sk and ds = 0; a fully
-    masked row (lse <= -1e29) has p = 1 / (keys it sees)."""
+    masked row (lse <= -1e29) has p = 1 / (keys it sees). In float16 both
+    come rounded to float16 (held in float32)."""
     B, H, Sq, _ = q.shape
     Sk = k.shape[2]
     vis, dead = _visible(Sq, Sk, causal, q.device)
@@ -160,6 +166,8 @@ def _p_ds(q, k, v, do, lse, delta, scale, causal, bias):
     p = torch.where(vis, p, fill)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = torch.where(vis, p * (dp - delta.reshape(B, H, Sq, 1)), 0.0)
+    if q.dtype == torch.float16:  # `p.astype(do.dtype)`, `ds.astype(k...)`
+        p, ds = p.half().float(), ds.half().float()
     return p, ds
 
 

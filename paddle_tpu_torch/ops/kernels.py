@@ -16,8 +16,12 @@ shape and contiguity, raises on anything the kernel does not take,
 launches on PyTorch's current stream, raises on a launch error, and
 counts its launches in a plain integer (`Kernel.launches`; a replayed
 CUDA graph adds the launches its capture counted, `add_launches`). The
-dense and int8 variants of each paged kernel, and the biased and
-unbiased flash kernels, are counted apart. The plain PyTorch versions and the CPU/CUDA
+dense and int8 variants of each paged kernel, the biased and unbiased
+flash kernels, and the float16 instances of the flash kernels (`F16`:
+`flash_fwd_f16`, ...) are counted apart. The flash kernels take
+float32, bfloat16 and float16 (`DTYPE_CODES`); the paged ones float32
+and bfloat16 (`POOL_DTYPE_CODES`), as the reference's serving names no
+float16. The plain PyTorch versions and the CPU/CUDA
 dispatch live in `ops/attention.py` and `ops/flash_attention.py`;
 nothing here falls back.
 """
@@ -45,7 +49,9 @@ BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 DH_SUPPORTED = (32, 64, 128)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtype codes of the C entry points (csrc/flash_common.cuh)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+POOL_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # K2's split plan (csrc/paged_decode_sm90.cu): heads per CTA, the key
 # alignment of a split (a multiple of every stage of the kernel), and the
 # CTAs the plan aims at: four a streaming multiprocessor of an H100
@@ -80,10 +86,12 @@ FLASH_BWD_DQ = Kernel("flash_bwd_dq")
 FLASH_BWD_DKV = Kernel("flash_bwd_dkv")
 FLASH_BWD_DQ_BIAS = Kernel("flash_bwd_dq_bias")
 FLASH_BWD_DKV_BIAS = Kernel("flash_bwd_dkv_bias")
+_FLASH = (FLASH_FWD, FLASH_DELTA, FLASH_BWD, FLASH_FWD_BIAS, FLASH_BWD_BIAS,
+          FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_BWD_DQ_BIAS, FLASH_BWD_DKV_BIAS)
+# the float16 instance of each flash kernel, counted apart
+F16 = {k: Kernel(k.name + "_f16") for k in _FLASH}
 KERNELS = (RAGGED_STREAM[False], RAGGED_STREAM[True], PAGED_DECODE[False],
-           PAGED_DECODE[True], FLASH_FWD, FLASH_DELTA, FLASH_BWD,
-           FLASH_FWD_BIAS, FLASH_BWD_BIAS, FLASH_BWD_DQ, FLASH_BWD_DKV,
-           FLASH_BWD_DQ_BIAS, FLASH_BWD_DKV_BIAS)
+           PAGED_DECODE[True], *_FLASH, *F16.values())
 
 
 def reset_launch_counts():
@@ -209,7 +217,7 @@ def _check_pools(q, k_blocks, v_blocks, tables):
     """Validate the query and one layer's pools for a kernel launch;
     returns (quant, k data, v data, k scales, v scales, N, BS)."""
     dev = q.device
-    if q.dtype not in DTYPE_CODES:
+    if q.dtype not in POOL_DTYPE_CODES:
         raise TypeError(f"kernel takes float32 or bfloat16 queries, got "
                         f"{q.dtype}")
     quant = hasattr(k_blocks, "codes")
@@ -288,7 +296,7 @@ def ragged_stream(q, k_blocks, v_blocks, tables, seg, pos, scale):
         err = lib.pt_ragged_stream_attention(
             _ptr(out), _ptr(q), _ptr(kd), _ptr(vd), _ptr(ks), _ptr(vs),
             _ptr(tables), _ptr(seg), _ptr(pos), T, H, Dh, N, BS, B, M,
-            float(scale), DTYPE_CODES[q.dtype], int(quant), stream)
+            float(scale), POOL_DTYPE_CODES[q.dtype], int(quant), stream)
     if err != 0:
         raise RuntimeError(f"ragged_stream kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)} "
@@ -349,8 +357,8 @@ def paged_decode(q, k_blocks, v_blocks, tables, ctx_lens, scale):
         err = lib.pt_paged_decode_attention(
             _ptr(out), _ptr(ws), _ptr(q), _ptr(kd), _ptr(vd), _ptr(ks),
             _ptr(vs), _ptr(tables), _ptr(ctx_lens), B, H, Dh, N, BS, M,
-            splits, chunk, float(scale), DTYPE_CODES[q.dtype], int(quant),
-            stream)
+            splits, chunk, float(scale), POOL_DTYPE_CODES[q.dtype],
+            int(quant), stream)
     if err != 0:
         raise RuntimeError(f"paged_decode kernel launch failed "
                            f"(error {err}) at q {tuple(q.shape)} "
@@ -388,7 +396,8 @@ def _check_flash(name, tensors, dtype=None):
 def _qkv_shapes(name, q, k, v):
     """(BH, Sq, Sk, D) of q [B, H, Sq, D] and k/v [B, H, Sk, D]."""
     if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"{name} takes float32 or bfloat16, got {q.dtype}")
+        raise TypeError(f"{name} takes float32, bfloat16 or float16, got "
+                        f"{q.dtype}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape \
             or k.shape[:2] != q.shape[:2] or k.shape[3] != q.shape[3]:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
@@ -418,12 +427,16 @@ def _check_bias(name, bias, B, Sk, dev):
     return 0 if bias.shape[0] == 1 else Sk
 
 
+def _count(counter, dtype):
+    (F16[counter] if dtype == torch.float16 else counter).launches += 1
+
+
 def _launched(name, counter, err, q, k):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed (error {err}) "
                            f"at q {tuple(q.shape)} k {tuple(k.shape)} "
                            f"{q.dtype}")
-    counter.launches += 1
+    _count(counter, q.dtype)
 
 
 def _flash_fwd(name, counter, q, k, v, bias, scale, causal):
@@ -447,9 +460,9 @@ def _flash_fwd(name, counter, q, k, v, bias, scale, causal):
 def flash_fwd(q, k, v, scale, causal):
     """K4 on the card: attention of q [B, H, Sq, D] over k/v
     [B, H, Sk, D] (causal: bottom-right aligned). Returns (out
-    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32). bfloat16 runs the
-    tensor-core kernel of csrc/flash_fwd_sm90.cu, float32 the SIMT one of
-    csrc/flash_attention.cu."""
+    [B, H, Sq, D] in q's dtype, lse [B*H, Sq] float32). bfloat16 and
+    float16 run the tensor-core kernel of csrc/flash_fwd_sm90.cu, float32
+    the SIMT one of csrc/flash_attention.cu."""
     return _flash_fwd("flash_fwd", FLASH_FWD, q, k, v, None, scale, causal)
 
 
@@ -465,8 +478,8 @@ def flash_delta(o, do):
     """K6 on the card: delta = rowsum(dO * O) in float32, for o and do
     [B, H, S, D]. Returns [B*H, S] float32."""
     if o.dtype not in DTYPE_CODES:
-        raise TypeError(f"flash_delta takes float32 or bfloat16, got "
-                        f"{o.dtype}")
+        raise TypeError(f"flash_delta takes float32, bfloat16 or float16, "
+                        f"got {o.dtype}")
     if o.dim() != 4 or do.shape != o.shape:
         raise ValueError(f"flash_delta: o {tuple(o.shape)} and do "
                          f"{tuple(do.shape)} must be one [B, H, S, D]")
@@ -484,7 +497,7 @@ def flash_delta(o, do):
     if err != 0:
         raise RuntimeError(f"flash_delta kernel launch failed (error "
                            f"{err}) at o {tuple(o.shape)} {o.dtype}")
-    FLASH_DELTA.launches += 1
+    _count(FLASH_DELTA, o.dtype)
     return delta
 
 
@@ -535,11 +548,11 @@ def _flash_bwd(name, counter, q, k, v, do, lse, delta, bias, scale,
 def flash_bwd(q, k, v, do, lse, delta, scale, causal):
     """K9 on the card: the fused backward of K4 given its lse and K6's
     delta (both [B*H, Sq] float32) and the output cotangent do
-    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. bfloat16 runs the
-    tensor-core kernel of csrc/flash_bwd_sm90.cu, float32 the SIMT one of
-    csrc/flash_attention.cu. dq is summed across key tiles (bulk
-    reductions in bf16, atomics in float32), so its last bits vary from
-    run to run; dk and dv are bitwise reproducible."""
+    [B, H, Sq, D]. Returns (dq, dk, dv) in q's dtype. bfloat16 and
+    float16 run the tensor-core kernel of csrc/flash_bwd_sm90.cu, float32
+    the SIMT one of csrc/flash_attention.cu. dq is summed across key tiles
+    (bulk reductions in 16 bits, atomics in float32), so its last bits
+    vary from run to run; dk and dv are bitwise reproducible."""
     return _flash_bwd("flash_bwd", FLASH_BWD, q, k, v, do, lse, delta, None,
                       scale, causal)[:3]
 
@@ -597,9 +610,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, scale, causal):
     lse and K6's delta ([B*H, Sq] float32, which may be those of a larger
     attention: p is exp(s * scale - lse) over these keys, never
     renormalised) and the cotangent do [B, H, Sq, D]. Returns dq in q's
-    dtype, bitwise reproducible (no atomics). bfloat16 runs the
+    dtype, bitwise reproducible (no atomics). bfloat16 and float16 run the
     tensor-core kernel of csrc/flash_bwd_dq_sm90.cu (K4's wgmma/TMA loop
-    with dS.K in place of P.V; its bf16 dS is formed as the bf16 K9's),
+    with dS.K in place of P.V; its rounded dS is formed as K9's),
     float32 the SIMT one of csrc/flash_bwd_two_pass.cu."""
     return _flash_bwd_dq("flash_bwd_dq", FLASH_BWD_DQ, q, k, v, do, lse,
                          delta, None, scale, causal)
@@ -615,8 +628,9 @@ def flash_bwd_dq_bias(q, k, v, do, lse, delta, bias, scale, causal):
 def flash_bwd_dkv(q, k, v, do, lse, delta, scale, causal):
     """K8 on the card: dk and dv of the two-pass backward (arguments as
     `flash_bwd_dq`). Returns (dk, dv) in k's dtype, bitwise reproducible.
-    bfloat16 runs the tensor-core kernel of csrc/flash_bwd_sm90.cu (the
-    bf16 K9's body without its dq, so dk and dv equal K9's bit for bit),
+    bfloat16 and float16 run the tensor-core kernel of
+    csrc/flash_bwd_sm90.cu (K9's body without its dq, so dk and dv equal
+    K9's bit for bit),
     float32 the SIMT one of csrc/flash_bwd_two_pass.cu."""
     return _flash_bwd_dkv("flash_bwd_dkv", FLASH_BWD_DKV, q, k, v, do, lse,
                           delta, None, scale, causal)[:2]
@@ -639,4 +653,5 @@ __all__ = ["build", "library", "ragged_stream", "paged_decode",
            "launch_counts", "KERNELS", "RAGGED_STREAM", "PAGED_DECODE",
            "FLASH_FWD", "FLASH_DELTA", "FLASH_BWD", "FLASH_FWD_BIAS",
            "FLASH_BWD_BIAS", "FLASH_BWD_DQ", "FLASH_BWD_DKV",
-           "FLASH_BWD_DQ_BIAS", "FLASH_BWD_DKV_BIAS"]
+           "FLASH_BWD_DQ_BIAS", "FLASH_BWD_DKV_BIAS", "F16", "DTYPE_CODES",
+           "POOL_DTYPE_CODES"]

@@ -183,15 +183,16 @@ def load_program_state(model_path, var_list=None):
 
 def set_program_state(program, state_dict):
     """Write {name: array or tensor} into the global Scope, on each
-    persistable's current device (else the default one)."""
+    persistable's current device (else the default one), as copies: the
+    Executor updates the Scope's tensors in place, and the caller's
+    arrays (possibly read-only views) must not change with them."""
     from ..device import resolve_device
     scope = global_scope()
     for name, val in state_dict.items():
         cur = scope.find_var(name)
         dev = cur.device if cur is not None else resolve_device(None)
-        t = val if torch.is_tensor(val) else torch.from_numpy(
-            np.ascontiguousarray(np.asarray(val)))
-        scope.set(name, t.detach().to(dev))
+        t = val if torch.is_tensor(val) else torch.from_numpy(np.array(val))
+        scope.set(name, t.detach().to(dev, copy=True))
     program._version += 1
 
 

@@ -295,6 +295,14 @@ def _append_op(func, args, kwargs, infer=None, name=None):
     if name is None:
         name = func.name() if isinstance(func, torch._ops.OpOverload) \
             else getattr(func, "__name__", None) or str(func)
+    if not mode.in_static_mode():
+        # a Program's Variable reached an op in dygraph mode: the guard
+        # was entered without enabling static mode (the reference's
+        # `apply_op` guard, paddle_tpu/ops/_registry.py:108-117)
+        raise RuntimeError(
+            f"op '{name}' received a static Program Variable while in "
+            "dygraph mode; call paddle.enable_static() before building "
+            "static programs (fluid-style code runs under static mode)")
     if failed is not None:
         warnings.warn(
             f"static shape inference failed for op '{name}' "

@@ -3,8 +3,8 @@ and black lists, O1 / O2, bfloat16 by default; `GradScaler`; `decorate`)
 against the JAX package's `paddle_tpu.amp`: the amp cases of
 `tests/test_amp_control_dist.py`, a Linear / conv / einsum / encoder
 layer under O1 and O2 against the reference's on the same weights, and
-the float16 gate of the attention route (float16 goes to the dense path
-by an explicit test; the kernels take float32 and bfloat16).
+the dtype gate of the attention route (float16 reaches the flash
+kernels, as bfloat16 does).
 
 Tolerances: outputs computed in bfloat16 within 1e-2 of the largest
 magnitude (the two sides round the products and bias adds in another
@@ -172,32 +172,37 @@ def test_conv_einsum_linear_consult_amp():
 
 
 def test_float16_attention_takes_the_dense_path(monkeypatch):
-    """The kernels take float32 and bfloat16 (ops/kernels.py:48); float16
-    goes to `dense_attention` by an explicit test and never reaches a
-    flash entry point."""
+    """The flash kernels take float32, bfloat16 and float16
+    (`kernels.DTYPE_CODES`), as the reference's gate names no dtype:
+    float16 reaches `flash_attention` and, with a per-key mask,
+    `flash_attention_bias`, as bfloat16 does (the name is kept from the
+    rule it replaced, ROADMAP §C 31), and gives the dense result within
+    float16's rounding."""
     from paddle_tpu_torch.ops import attention as A
     calls = []
 
-    def spy(name):
+    def spy(name, fn):
         def f(*a, **k):
-            calls.append(name)
-            raise AssertionError(f"{name} reached with {a[0].dtype}")
+            calls.append((name, a[0].dtype))
+            return fn(*a, **k)
         return f
 
-    monkeypatch.setattr(A, "flash_attention", spy("flash"))
-    monkeypatch.setattr(A, "flash_attention_bias", spy("flash_bias"))
+    monkeypatch.setattr(A, "flash_attention",
+                        spy("flash", A.flash_attention))
+    monkeypatch.setattr(A, "flash_attention_bias",
+                        spy("flash_bias", A.flash_attention_bias))
     g = torch.Generator().manual_seed(0)
     q, k, v = (torch.randn(2, 2, 8, 32, generator=g).half()
                for _ in range(3))
     bias = torch.zeros(2, 1, 1, 8, dtype=torch.float16)
     out, _ = A.scaled_dot_product_attention(q, k, v)
     out_b, _ = A.scaled_dot_product_attention(q, k, v, attn_mask=bias)
-    assert calls == [] and out.dtype == torch.float16
+    assert calls == [("flash", torch.float16), ("flash_bias", torch.float16)]
+    assert out.dtype == out_b.dtype == torch.float16
     want, _ = A.dense_attention(q.float(), k.float(), v.float())
     np.testing.assert_allclose(out.float().numpy(), want.numpy(), atol=2e-3)
     np.testing.assert_allclose(out_b.float().numpy(), want.numpy(),
                                atol=2e-3)
     for dt in (torch.float32, torch.bfloat16):
-        with pytest.raises(AssertionError):
-            A.scaled_dot_product_attention(q.to(dt), k.to(dt), v.to(dt))
-    assert calls == ["flash", "flash"]
+        A.scaled_dot_product_attention(q.to(dt), k.to(dt), v.to(dt))
+    assert [c[1] for c in calls[2:]] == [torch.float32, torch.bfloat16]

@@ -38,7 +38,11 @@ two-pass case. The bf16 K7 and K7 bias are the kernel of
 `csrc/flash_bwd_dq_sm90.cu`: their dq lies within 5e-3 of the bf16 K9's
 magnitude plus one bf16 rounding step on every two-pass case, and two
 launches give the same bits, also where q tiles see no key at all (their
-dq is zero). Every flash wrapper takes B * H = 65536, past grid y's
+dq is zero). The float16 instances of K4, K6, K9, K7 and K8 (plain and
+bias) hold their plain versions on the same float16 tensors within
+5e-3, K9's and K8's dk, dv and dbias bitwise over launches and equal to
+each other, each launch on its float16 counter; K1 and K2 refuse
+float16. Every flash wrapper takes B * H = 65536, past grid y's
 65535. The prefix cache's copy-on-write (`PagedKVCache.prepare_write`)
 copies a block bit for bit, float32, bf16 and int8 (codes with scales),
 with no host synchronisation, and the host tier returns an int8 block
@@ -1007,6 +1011,94 @@ def test_two_pass_dq_bf16_matches_fused(dev, b, h, sq, sk, d, causal, kind):
     assert over.max().item() <= 0, (
         f"dq: max abs diff {err.max().item():.3g} from K9's, past 5e-3 x "
         f"{scale:.3g} plus one bf16 step by {over.max().item():.3g}")
+
+
+# float16: the five flash kernels' float16 instances (the sm90 kernels of
+# the bf16 path, instantiated on __half) at aligned, ragged and Sq != Sk
+# shapes, plain and with every bias kind, against the plain versions on
+# the same float16 tensors (which round p and ds to float16 as the
+# kernels do): within 5e-3 of the plain output's largest magnitude (bf16's
+# limit is 2e-2; float16 has 8x its mantissa), LSE and delta within 1e-4;
+# K9's and K8's dk, dv and dbias bitwise over two launches and K8's equal
+# to K9's; each launch on the float16 counter only.
+F16_CASES = [(2, 3, 128, 128, 32, True, None),
+             (1, 2, 200, 200, 64, False, None),
+             (2, 2, 300, 200, 64, True, None),
+             (1, 2, 1000, 1000, 128, True, None),
+             (2, 4, 300, 300, 32, True, "lengths"),
+             (2, 4, 256, 256, 128, False, "broadcast"),
+             (2, 4, 256, 256, 64, True, "dead_row"),
+             (1, 2, 384, 256, 128, True, "lengths")]
+
+
+@pytest.mark.parametrize("b,h,sq,sk,d,causal,kind", F16_CASES)
+def test_flash_float16_kernels_match_plain(dev, b, h, sq, sk, d, causal,
+                                           kind):
+    from paddle_tpu_torch.ops import flash_attention as pf
+    from paddle_tpu_torch.ops import kernels
+
+    q, k, v, do = _two_pass_inputs(dev, b, h, sq, sk, d, torch.float16,
+                                   7 * sq + sk + d)
+    bias = None if kind is None else _bias(kind, b, sk, sq + 2 * sk, dev)
+    sc = d ** -0.5
+    sfx = "" if bias is None else "_bias"
+    kernels.reset_launch_counts()
+    if bias is None:
+        out, lse = kernels.flash_fwd(q, k, v, sc, causal)
+    else:
+        out, lse = kernels.flash_fwd_bias(q, k, v, bias, sc, causal)
+    delta = kernels.flash_delta(out, do)
+
+    def fused():
+        if bias is None:
+            return kernels.flash_bwd(q, k, v, do, lse, delta, sc,
+                                     causal) + (None,)
+        return kernels.flash_bwd_bias(q, k, v, do, lse, delta, bias, sc,
+                                      causal)
+
+    first, again = fused(), fused()
+    two = _two_pass(kernels, q, k, v, do, lse, delta, bias, sc, causal)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {f"flash_fwd{sfx}_f16": 1, "flash_delta_f16": 1,
+            f"flash_bwd{sfx}_f16": 2, f"flash_bwd_dq{sfx}_f16": 1,
+            f"flash_bwd_dkv{sfx}_f16": 1}
+    assert {n: c for n, c in counts.items() if c} == want
+    out_p, lse_p = pf.flash_fwd_lse_plain(q, k, v, sc, causal, bias)
+    assert out.dtype == torch.float16
+    _rel_close(out, out_p, 5e-3, "out")
+    live = lse_p > -1e29
+    _rel_close(lse[live], lse_p[live], 1e-4, "lse")
+    _rel_close(delta, pf.flash_delta_plain(out, do), 1e-4, "delta")
+    plain = pf.flash_bwd_plain(q, k, v, do, lse, delta, sc, causal, bias)
+    for what, a, a2, t, p in zip(("dq", "dk", "dv", "dbias"), first, again,
+                                 two, plain):
+        if p is None:
+            assert a is None and t is None
+            continue
+        if what != "dq":
+            assert torch.equal(a, a2), f"K9 {what} differs between launches"
+            assert torch.equal(a, t), f"K8 {what} differs from K9's"
+        assert a.dtype == (torch.float32 if what == "dbias"
+                           else torch.float16)
+        _rel_close(a, p, 5e-3, what)
+        _rel_close(t, p, 5e-3, what + " (two-pass)")
+
+
+def test_paged_kernels_refuse_float16(dev):
+    """K1 and K2 take float32 and bfloat16 only: the reference's serving
+    names no float16 (`kernels.POOL_DTYPE_CODES`)."""
+    from paddle_tpu_torch.ops import kernels
+
+    q = torch.zeros(1, 2, 64, device=dev, dtype=torch.float16)
+    pool = torch.zeros(2, 4, 2, 64, device=dev, dtype=torch.float16)
+    tables = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    ones = torch.ones(1, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernels.paged_decode(q, pool, pool, tables, ones, 0.125)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        kernels.ragged_stream(q, pool, pool, tables, ones * 0, ones * 0,
+                              0.125)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -2755,20 +2847,28 @@ def test_api_auto_cast_reaches_bf16_flash(dev):
 
 
 def test_api_float16_attention_takes_the_dense_path(dev):
-    """float16 never reaches a flash kernel (they take float32 and
-    bfloat16): MultiHeadAttention in float16 on the card runs the dense
-    path and launches no flash kernel."""
+    """float16 reaches the flash kernels' float16 instances, as bfloat16
+    does (the name is kept from the rule it replaced, ROADMAP §C 31):
+    MultiHeadAttention in float16 on the card launches K4, K6 and K9 on
+    their float16 counters only, and no dense-path call."""
     import paddle_tpu_torch as ptt
-    from paddle_tpu_torch.ops import kernels
+    from paddle_tpu_torch.ops import attention, kernels
 
     mha = ptt.nn.MultiHeadAttention(128, 2).to(dtype="float16")
     x = ptt.randn([2, 64, 128]).half()
     kernels.reset_launch_counts()
-    out = mha(x, x, x)
-    out.float().sum().backward()
+    calls, real = [], attention.dense_attention
+    attention.dense_attention = lambda *a, **k: (calls.append(1),
+                                                 real(*a, **k))[1]
+    try:
+        out = mha(x, x, x)
+        out.float().sum().backward()
+    finally:
+        attention.dense_attention = real
     assert out.dtype == torch.float16 and torch.isfinite(out).all()
-    assert not any(v for n, v in kernels.launch_counts().items()
-                   if n.startswith("flash")), kernels.launch_counts()
+    launched = {n: v for n, v in kernels.launch_counts().items() if v}
+    assert launched == {"flash_fwd_f16": 1, "flash_delta_f16": 1,
+                        "flash_bwd_f16": 1} and not calls, launched
     with torch.no_grad():
         want = ptt.nn.MultiHeadAttention(128, 2)
         want.set_state_dict(mha.state_dict())

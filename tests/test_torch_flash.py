@@ -9,7 +9,8 @@ with numpy.
 Tolerances are the reference tests' own: forward rtol 2e-4 / atol 2e-5,
 gradients rtol 2e-3 / atol 2e-4 (both sides sum in float32 in another
 order). The bf16 backward cases hold the port's plain K9 to the
-reference's own bf16 rounding (BF16_REL below). The reference's LSE is
+reference's own bf16 rounding (BF16_REL below), the float16 cases every
+plain kernel to the reference's float16 kernels (F16_REL). The reference's LSE is
 broadcast over 8 lanes; the port keeps one value per row, compared
 against lane 0.
 
@@ -146,6 +147,74 @@ def test_fused_bwd_bf16_matches_pallas(case):
     for port, r in zip(grads[:3], ref):
         assert port.dtype == torch.bfloat16
         _rel_close(port, r, BF16_REL)
+
+
+# float16 against the reference's Pallas kernels on the same float16
+# inputs: K4, K6, K9 and the two-pass K7 + K8, each plain and with a
+# per-key bias (a padding row). The reference rounds p to v's dtype
+# before P.V and its `_tile_p_ds` rounds p and ds to float16; the port's
+# plain versions round p and ds in float16 too (`_p_ds`), but keep the
+# forward's weights in float32. The largest gap at these cases is 5.6e-4
+# of the reference's largest magnitude (K4 bias's out; the backward's
+# outputs and dbias at most 2.2e-4, delta 1.2e-7); held to F16_REL, about
+# 2x that. The LSE is computed in float32 on both sides from float16
+# scores.
+F16_REL = 1.2e-3
+F16_KERNELS = ["k4", "k4_bias", "k6", "k9", "k9_bias", "k7_k8",
+               "k7_k8_bias"]
+
+
+def _f16(a):
+    return torch.from_numpy(a).half()
+
+
+@pytest.mark.parametrize("kernel", F16_KERNELS)
+def test_float16_matches_pallas(kernel):
+    """The port's plain K4, K6, K9, K7 and K8 (plain and bias) on float16
+    inputs against `_flash_fwd_lse`, `_delta_rows`, `_flash_bwd_fused` and
+    `_flash_bwd` in interpret mode on the same float16 inputs, within
+    F16_REL of the reference's largest magnitude; outputs in float16."""
+    b, h, s, d = 1, 2, 128, 32 if kernel.startswith("k9") else 64
+    causal = kernel in ("k4", "k9", "k7_k8")
+    tq, tk, tv, tg = (_f16(x) for x in _inputs(20, b, h, s, s, d))
+    jq, jk, jv, jg = (jnp.asarray(t.float().numpy(), jnp.float16)
+                      for t in (tq, tk, tv, tg))
+    sc = d ** -0.5
+    bias = None
+    if kernel.endswith("bias"):
+        bias = np.zeros((b, s), np.float32)
+        bias[0, s - 40:] = -1e30
+    bias3 = None if bias is None else fa._tile_bias(jnp.asarray(bias), b, h)
+    tb = None if bias is None else _t(bias)
+    out_r, lse_r = fa._flash_fwd_lse(jq, jk, jv, sc, causal, 64, 64, True,
+                                     bias3)
+    lse0 = _t(np.asarray(lse_r)[..., 0])
+    out16 = torch.from_numpy(np.array(jnp.asarray(out_r, jnp.float32))) \
+        .half()
+    if kernel.startswith("k4"):
+        out, lse = pf.flash_fwd_lse(tq, tk, tv, sc, causal, tb)
+        assert out.dtype == torch.float16
+        _rel_close(out, out_r, F16_REL)
+        np.testing.assert_allclose(lse.numpy(), lse0.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+        return
+    if kernel == "k6":
+        ref = fa._delta_rows(jnp.asarray(out_r).reshape(b * h, s, d),
+                             jg.reshape(b * h, s, d), True)
+        delta = pf.flash_delta(out16, tg)
+        assert delta.dtype == torch.float32
+        _rel_close(delta, np.asarray(ref)[..., 0], F16_REL)
+        return
+    bwd = fa._flash_bwd_fused if kernel.startswith("k9") else fa._flash_bwd
+    port = pf.flash_bwd if kernel.startswith("k9") else pf.flash_bwd_two_pass
+    ref = bwd(jq, jk, jv, out_r, lse_r, jg, sc, causal, 64, 64, True, bias3)
+    grads = port(tq, tk, tv, out16, lse0, tg, sc, causal, tb)
+    for got, want in zip(grads[:3], ref[:3]):
+        assert got.dtype == torch.float16
+        _rel_close(got, want, F16_REL)
+    if bias is not None:
+        db = np.asarray(ref[3]).reshape(b, h, 8, -1)[:, :, 0, :].sum(1)
+        _rel_close(grads[3], db, F16_REL)
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
